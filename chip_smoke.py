@@ -5,23 +5,35 @@ Run from the root of the repository on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught); the set-up always
+runs, `python3 chip_smoke.py kernels,serve` (names comma-separated) runs a
+subset of the rest:
 
-  1. set-up: the card's name and power limit, TF32 off, both kernels built
-     from csrc/ with nvcc (in parallel) and nvcc's register report printed;
-  2. kernels: each kernel against its plain PyTorch twin on the card at the
-     main path's full-width shapes (Llama-3.1-8B and repolm512), with times
-     (CUDA events, L2 flushed before every launch, runs in turns), the
-     least time the card could take, and one PyTorch library call as a
-     yardstick;
-  3. real model: models/repolm512_q8.gguf through the CLI on the card,
-     Engine greedy generation on the card against the CPU, teacher-forced
-     on the CPU's tokens with every step's logits compared, and each layer
-     of the kernel path against the card's plain path on the same input;
-  4. full width: a synthetic Llama-3.1-8B Q8_0 (random int8 codes from a
-     seeded generator) through Engine.benchmark — the main path, with the
-     kernel launch counts read around it — then a 2-layer view of the same
-     weights with the kernels on and off, prefill logits compared.
+  set-up: the card's name and power limit, TF32 off, the four kernels built
+     from csrc/ with nvcc (one process each, in parallel) and nvcc's
+     register report printed;
+  kernels: the Q8_0 matmul and prefill flash attention against their plain
+     PyTorch twins on the card at the full-width shapes (Llama-3.1-8B and
+     repolm512), with times (CUDA events, L2 flushed before every launch,
+     runs in turns), the least time the card could take, and one PyTorch
+     library call as a yardstick;
+  bkernels: the same for batched flash decode/verify and the in-place KV
+     append at the serving shapes (8B, B = 1 to 32, bf16 and int8);
+  real: models/repolm512_q8.gguf through the CLI on the card, Engine greedy
+     generation on the card against the CPU, teacher-forced on the CPU's
+     tokens with every step's logits compared, and each layer of the kernel
+     path against the card's plain path on the same input;
+  serve: repolm512 through the CLI's --serve on the card (bf16 and
+     --kv-int8), the batched step teacher-forced on the CPU's tokens, and
+     greedy serving on the card against the CPU;
+  full: a synthetic Llama-3.1-8B Q8_0 (random int8 codes from a seeded
+     generator) through Engine.benchmark with the launch counts read around
+     it, a decode profile, and a 2-layer view with the kernels on and off;
+  bfull: the same weights served by BatchServer at full width (this
+     slice's main path: the launch counts in the kernels line are read
+     around it), the batched step as the bench drives it (B = 1 bf16, B = 32
+     int8, a T = 4 verify window) with profiles, and a 2-layer batched step
+     with the kernels on and off.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -39,7 +51,13 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # f32 outside the tensor cores
 MATMUL_RTOL = 1e-3             # max|kernel-plain| <= 1e-3 * max|plain|
+# batched flash, for every query token: max|kernel-plain| <= 1e-4 *
+# max|plain| over the token's heads and lanes. Kernel and twin compute in
+# f32 from the same values; only the order of the sums (the kernel merges
+# split partials) and the exp/tanh implementations differ, ~1e-6 of a row.
+BATCHED_RTOL = 1e-4
 # flash, for every query row: max|kernel-plain| <= 1e-2 * max|plain| over
 # the row's heads and lanes. The kernel rounds p to bf16 before PV (as the
 # TPU kernel does) where the twin keeps f32 probabilities: 2^-9 of each
@@ -68,6 +86,18 @@ REAL_LOGIT_RTOL = 1e-2
 # JAX package's own kernel-vs-CPU spread on repolm512's prefill is 1.2e-2,
 # experiments/logit_spread.py)
 FULL_LOGIT_RTOL = 2e-2
+# 8B 2-layer batched decode step, kernels on vs off on the card: a bf16
+# cache differs only in f32 summation orders and the rare bf16 flip of an
+# activation or a written row (2^-8 of a value); an int8 cache is attended
+# through a bf16 dequant on the plain path where the kernel folds the exact
+# f32 scales, the JAX suite's int8 kernel-vs-jnp limit (2e-2)
+BATCHED_LOGIT_RTOL = {"bf16": 5e-3, "int8": 2e-2}
+# the kernels each path launches: the single-stream Engine path, and the
+# serving path (the batched step adds batched flash and, at B > 1, the
+# in-place KV append)
+ENGINE_KERNELS = ("q8_0_matmul", "flash_attention")
+SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
+PHASES = ("kernels", "bkernels", "real", "serve", "full", "bfull")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -121,8 +151,9 @@ class Timer:
         return {k: sorted(v)[len(v) // 2] for k, v in got.items()}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(nbytes: float, flops: float,
+          peak: float = BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -270,6 +301,250 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
             {"rows": fa_rows, "main": "8b T=512 pos=0"})
 
 
+def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
+    """The serving path's kernels against their plain twins at the 8B
+    shapes (Hq 32, Hkv 8, D 128): batched flash decode/verify over a stacked
+    2-layer cache, and the in-place KV append at L = 32."""
+    from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
+    from ntransformer_tpu_torch.ops.cuda import kv_update as ck
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4321)
+    hq, hkv, dh = 32, 8, 128
+    scale = 1.0 / math.sqrt(dh)
+    # label, B, S, T, int8, positions, active, window, softcap, s_live
+    cases = [
+        ("8b B=1 bf16 S=1024 pos=1000", 1, 1024, 1, False, [1000], None,
+         None, 0.0, None),
+        ("8b B=1 bf16 S=4096 pos=4000", 1, 4096, 1, False, [4000], None,
+         None, 0.0, None),
+        ("8b B=8 bf16 S=4096", 8, 4096, 1, False,
+         [0, 7, 130, 1000, 2047, 2500, 3333, 4090], None, None, 0.0, None),
+        ("8b B=32 int8 S=1024 pos 512-600, slot 5 inactive", 32, 1024, 1,
+         True, [512 + (37 * i) % 89 for i in range(32)],
+         [i != 5 for i in range(32)], None, 0.0, None),
+        ("8b B=32 int8 S=1024 s_live=640", 32, 1024, 1, True,
+         [512 + (37 * i) % 89 for i in range(32)],
+         [i != 5 for i in range(32)], None, 0.0, 640),
+        ("8b B=8 bf16 verify T=4, slot 2 inactive", 8, 4096, 4, False,
+         [3, 64, 500, 1023, 2000, 2999, 3500, 4000],
+         [i != 2 for i in range(8)], None, 0.0, None),
+        ("8b B=32 int8 verify T=4", 32, 1024, 4, True,
+         [512 + (37 * i) % 89 for i in range(32)],
+         [i != 5 for i in range(32)], None, 0.0, None),
+        ("8b B=8 bf16 window=256 softcap=50", 8, 4096, 1, False,
+         [10, 255, 256, 700, 1500, 2600, 3900, 4095],
+         [i != 3 for i in range(8)], 256, 50.0, None),
+    ]
+    att_rows = []
+    for label, b_n, s, t, int8, pos_l, act_l, win, cap, s_live in cases:
+        layers = 2
+        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+        # int32 pos and active, as the batched steps pass them
+        act = torch.tensor([True] * b_n if act_l is None else act_l,
+                           device="cuda").to(torch.int32)
+        shape = (layers, b_n, hkv, s, dh)
+        if int8:
+            kc = torch.randint(-127, 128, shape, dtype=torch.int8,
+                               device="cuda", generator=g)
+            vc = torch.randint(-127, 128, shape, dtype=torch.int8,
+                               device="cuda", generator=g)
+            ks = torch.rand(shape[:-1], device="cuda", generator=g) * 0.02
+            vs = torch.rand(shape[:-1], device="cuda", generator=g) * 0.02
+            kn = torch.randint(-127, 128, (b_n, hkv, t, dh),
+                               dtype=torch.int8, device="cuda", generator=g)
+            vn = torch.randint(-127, 128, (b_n, hkv, t, dh),
+                               dtype=torch.int8, device="cuda", generator=g)
+            kns = torch.rand(b_n, hkv, t, device="cuda", generator=g) * 0.02
+            vns = torch.rand(b_n, hkv, t, device="cuda", generator=g) * 0.02
+            kcache, vcache = (kc, ks), (vc, vs)
+            knew, vnew = (kn, kns), (vn, vns)
+        else:
+            kc = torch.randn(shape, device="cuda", generator=g).to(
+                torch.bfloat16)
+            vc = torch.randn(shape, device="cuda", generator=g).to(
+                torch.bfloat16)
+            kn = torch.randn(b_n, hkv, t, dh, device="cuda", generator=g)
+            vn = torch.randn(b_n, hkv, t, dh, device="cuda", generator=g)
+            kcache, vcache, knew, vnew = kc, vc, kn, vn
+        q = torch.randn((b_n, hq, dh) if t == 1 else (b_n, t, hq, dh),
+                        device="cuda", generator=g)
+        fn = cb.flash_decode_batched if t == 1 else cb.flash_verify_batched
+        kw = dict(layer=1, active=act, window=win, softcap=cap,
+                  s_live=s_live)
+
+        def kern():
+            return fn(q, kcache, vcache, knew, vnew, pos, scale, **kw)
+
+        def plain():
+            qq = q[:, None] if t == 1 else q
+            qr = (qq.reshape(b_n, t, hkv, hq // hkv, dh).permute(0, 2, 1, 3, 4)
+                  .reshape(b_n, hkv, t * hq // hkv, dh))
+            o = cb.batched_flash_plain(
+                qr, kc, vc, kcache[1] if int8 else None,
+                vcache[1] if int8 else None,
+                kn if int8 else kn.to(torch.bfloat16),
+                vn if int8 else vn.to(torch.bfloat16),
+                kns if int8 else None, vns if int8 else None, pos, act,
+                layer=1, scale=scale,
+                window=cb.NO_WINDOW if win is None else win, softcap=cap,
+                s_live=s if s_live is None else s_live, group=hq // hkv)
+            return (o.reshape(b_n, hkv, t, hq // hkv, dh)
+                    .permute(0, 2, 1, 3, 4).reshape(q.shape))
+        o = kern()
+        o0 = plain()
+        if s_live is not None:  # the bucket's contract: equal to full S
+            o_full = fn(q, kcache, vcache, knew, vnew, pos, scale,
+                        **dict(kw, s_live=None))
+            torch.cuda.synchronize()
+            check(torch.equal(o, o_full), f"batched flash {label}: s_live "
+                  f"result differs from the full-S result")
+        torch.cuda.synchronize()
+        err = float((o - o0).abs().max())
+        per_tok = (o - o0).abs().reshape(b_n, t, -1).amax(-1) / \
+            o0.abs().reshape(b_n, t, -1).amax(-1)
+        row_rel = float(per_tok.max())
+        check(bool(torch.isfinite(o).all()), f"batched flash {label}: "
+              "non-finite")
+        check(row_rel <= BATCHED_RTOL,
+              f"batched flash {label}: a query row's max|kernel-plain| is "
+              f"{row_rel} of its max|plain| (> {BATCHED_RTOL})")
+        # yardstick: SDPA over the layer's bf16 cache (dequantized for int8)
+        # with the new rows written in, heads expanded, the same mask
+        if int8:
+            kf = (kc[1].to(torch.float32) * ks[1][..., None]).to(
+                torch.bfloat16)
+            vf = (vc[1].to(torch.float32) * vs[1][..., None]).to(
+                torch.bfloat16)
+            knf = (kn.to(torch.float32) * kns[..., None]).to(torch.bfloat16)
+            vnf = (vn.to(torch.float32) * vns[..., None]).to(torch.bfloat16)
+        else:
+            kf, vf = kc[1].clone(), vc[1].clone()
+            knf, vnf = kn.to(torch.bfloat16), vn.to(torch.bfloat16)
+        kpos = torch.arange(s, device="cuda")
+        qpos = pos.long()[:, None] + torch.arange(t, device="cuda")
+        for bi in range(b_n):
+            if act_l is None or act_l[bi]:
+                p0 = pos_l[bi]
+                kf[bi, :, p0:p0 + t] = knf[bi]
+                vf[bi, :, p0:p0 + t] = vnf[bi]
+        mask = kpos[None, None, :] <= qpos[:, :, None]
+        if win is not None:
+            mask &= kpos[None, None, :] > qpos[:, :, None] - win
+        qb = (q[:, None] if t == 1 else q).transpose(1, 2).to(torch.bfloat16)
+        kb = kf.repeat_interleave(hq // hkv, 1)
+        vb = vf.repeat_interleave(hq // hkv, 1)
+        fns = {"kernel": kern, "plain": plain}
+        if not cap:
+            fns["library"] = lambda: F.scaled_dot_product_attention(
+                qb, kb, vb, attn_mask=mask[:, None], scale=scale)
+        ms = timer.compare(fns)
+        keys = 0
+        for bi in range(b_n):
+            a = act_l is None or act_l[bi]
+            last = min(pos_l[bi] - 1 if a else pos_l[bi] + t - 1,
+                       (s_live or s) - 1)
+            first = max(0, pos_l[bi] - (win or cb.NO_WINDOW) + 1)
+            keys += max(0, last - first + 1)
+        esz = 1 if int8 else 2
+        per_key = 2 * hkv * dh * esz + (2 * hkv * 4 if int8 else 0)
+        new_rows = 2 * b_n * hkv * t * (dh * esz + (4 if int8 else 0))
+        nbytes = (keys * per_key + new_rows + q.numel() * 4
+                  + q.numel() * 4 + 2 * b_n * 4)
+        flops = 4.0 * (hq // hkv) * t * dh * hkv * (keys + b_n * t)
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        row = {"shape": label, "B": b_n, "S": s, "T": t, "int8": int8,
+               "window": win, "softcap": cap, "s_live": s_live,
+               "live_keys": keys, "max_abs_err": err, "row_rel_err": row_rel,
+               "tol": BATCHED_RTOL, "ms": ms["kernel"],
+               "plain_ms": ms["plain"], "library_ms": ms.get("library"),
+               "bound_ms": b_ms, "bound_by": b_by}
+        att_rows.append(row)
+        print(json.dumps({"batched_flash": row}), flush=True)
+        del kc, vc, kcache, vcache, kf, vf, kb, vb
+
+    app_rows = []
+    for label, layers, b_n, int8, stacked in (
+            ("8b L=32 B=8 bf16", 32, 8, False, True),
+            ("8b L=32 B=32 int8 codes+scales", 32, 32, True, True),
+            ("8b append_rows one layer B=8 bf16", 1, 8, False, False)):
+        s = 4096 if not int8 else 1024
+        pos_l = [(977 * i + 13) % s for i in range(b_n)]
+        act_l = [i % 7 != 3 for i in range(b_n)]
+        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+        act = torch.tensor(act_l, device="cuda")
+        shape = (layers, b_n, hkv, s, dh)
+        if int8:
+            caches = [torch.randint(-127, 128, shape, dtype=torch.int8,
+                                    device="cuda", generator=g)
+                      for _ in range(2)]
+            caches += [torch.rand(shape[:-1], device="cuda", generator=g)
+                       for _ in range(2)]
+            rows = [torch.randint(-127, 128, (layers, b_n, hkv, 1, dh),
+                                  dtype=torch.int8, device="cuda",
+                                  generator=g) for _ in range(2)]
+            rows += [torch.rand(layers, b_n, hkv, 1, 1, device="cuda",
+                                generator=g) for _ in range(2)]
+        else:
+            caches = [torch.randn(shape, device="cuda", generator=g).to(
+                torch.bfloat16) for _ in range(2)]
+            rows = [torch.randn(layers, b_n, hkv, 1, dh, device="cuda",
+                                generator=g) for _ in range(2)]
+        if not stacked:
+            caches = [c[0] for c in caches]
+            rows = [r[0] for r in rows]
+        ref = [c.clone() for c in caches]
+        launch = ck.append_rows_stacked if stacked else ck.append_rows
+        plain_fn = (ck.append_rows_stacked_plain if stacked
+                    else ck.append_rows_plain)
+        launch(caches, rows, pos, act)
+        plain_fn(ref, rows, pos, act)
+        torch.cuda.synchronize()
+        for c, r in zip(caches, ref):
+            check(torch.equal(c, r), f"kv append {label}: kernel and plain "
+                  "twin differ")
+        # yardstick: one advanced-index assignment per cache
+        sel = torch.tensor([i for i in range(b_n) if act_l[i]],
+                           device="cuda")
+        psel = pos.long()[sel]
+        lib_rows = []
+        for c, r in zip(caches, rows):
+            codes = c.dim() == (5 if stacked else 4)
+            rr = r.reshape(tuple(r.shape[:-2])
+                           + ((r.shape[-1],) if codes else ())).to(c.dtype)
+            lib_rows.append(rr[:, sel].movedim(1, 0) if stacked
+                            else rr[sel])
+
+        def library():
+            for c, rr in zip(caches, lib_rows):
+                if stacked:
+                    c[:, sel, :, psel] = rr
+                else:
+                    c[sel, :, psel] = rr
+        ms = timer.compare({"kernel": lambda: launch(caches, rows, pos, act),
+                            "plain": lambda: plain_fn(caches, rows, pos, act),
+                            "library": library})
+        n_act = sum(act_l)
+        # the kernel reads and writes the active slots' rows only
+        rows_in = sum(r.numel() // b_n * n_act * r.element_size()
+                      for r in rows)
+        written = sum(r.numel() // b_n * n_act * c.element_size()
+                      for c, r in zip(caches, rows))
+        b_ms, b_by = bound(rows_in + written + 2 * b_n * 4, 0.0)
+        row = {"shape": label, "L": layers, "B": b_n, "S": s, "int8": int8,
+               "max_abs_err": 0.0, "tol": "bit-equal", "ms": ms["kernel"],
+               "plain_ms": ms["plain"], "library_ms": ms["library"],
+               "bound_ms": b_ms, "bound_by": b_by}
+        app_rows.append(row)
+        print(json.dumps({"kv_append": row}), flush=True)
+        del caches, ref, rows, lib_rows
+    print(f"batched kernel phase done on {card}", flush=True)
+    return ({"rows": att_rows, "main": "8b B=32 int8 S=1024 pos 512-600, "
+                                       "slot 5 inactive"},
+            {"rows": app_rows, "main": "8b L=32 B=32 int8 codes+scales"})
+
+
 # ---------------------------------------------------------------- phase 3
 def greedy_pass(engine, torch, ids, n: int, forced=None):
     """Prefill `ids`, then n greedy steps (or steps fed with `forced`).
@@ -338,7 +613,7 @@ def real_model_phase(torch, counters, card: str):
     got = read(counters)
     print(f"cli launches {got}", flush=True)
     check(rc == 0, f"cli exit code {rc}")
-    check(all(v > 0 for v in got.values()),
+    check(all(got[k] > 0 for k in ENGINE_KERNELS),
           f"CLI run on the card launched a kernel zero times: {got}")
 
     gpu = Engine.load(gguf, device="cuda", fuse=True)
@@ -390,15 +665,402 @@ def real_model_phase(torch, counters, card: str):
             "gpu_text": text_gpu, "cpu_text": text_cpu}
 
 
-# ---------------------------------------------------------------- phase 4
-def full_width_phase(torch, counters, card: str):
-    import dataclasses
+def serve_prompts(tokenizer) -> list[str]:
+    """Four prompts of different lengths for repolm512 (a 512-token
+    context): 125, 20, 373 and 15 tokens, so 128-token admission chunks
+    split two of them."""
+    long = PROMPT * 3
+    prompts = [PROMPT, "import numpy as np\n", long, "class Engine:\n"]
+    check(SERVE_CHUNK * 2 < len(tokenizer.encode(long, add_bos=True)) < 500,
+          "the long serving prompt must span several admission chunks")
+    return prompts
+
+
+def prefill_batch(torch, model, ids, quant: bool):
+    """Prefill each prompt of `ids` as the Engine buckets and chunks it and
+    place it in a slot of a batched cache. Returns (cache, prefill logits
+    [B, V] f32 on the CPU)."""
     from ntransformer_tpu_torch.inference.engine import Engine
-    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    eng = Engine(model, kv_quant=quant)
+    bkv = BatchedKV.create(model.arch, len(ids), quant=quant,
+                           device=model.device)
+    first = []
+    for b, p in enumerate(ids):
+        logits, kv, _ = eng._prefill(eng._make_kv(), p)
+        bkv.insert(b, kv)
+        first.append(logits[0])
+    return bkv, torch.stack(first).float().cpu()
+
+
+def batched_pass(torch, model, bkv, lens, first, n: int, impl: str,
+                 forced=None):
+    """n batched decode steps of path `impl` from the prefilled cache `bkv`
+    (a copy on the model's device is written), greedy from the prefill
+    logits `first` or fed `forced` [n][B]. Returns (tokens [n][B], logits
+    [B, V] of each step as f32 CPU tensors)."""
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step)
+    bkv = BatchedKV(*(None if t is None else t.to(model.device, copy=True)
+                      for t in (bkv.k, bkv.v, bkv.ks, bkv.vs)))
+    pos = torch.tensor(lens)
+    active = torch.ones(len(lens), dtype=torch.bool)
+    toks, out = [], [first]
+    for i in range(n):
+        tok = (torch.argmax(out[-1], -1) if forced is None
+               else torch.as_tensor(forced[i]))
+        toks.append(tok.tolist())
+        logits, bkv = batched_decode_step(model.arch, model.weights, bkv, tok,
+                                          pos + i, active, impl=impl)
+        out.append(logits.float().cpu())
+    return toks, out[1:]
+
+
+def real_serve_phase(torch, counters, card: str) -> dict:
+    """repolm512 served on the card: the CLI's --serve (bf16 and int8), the
+    batched step from the CPU's prefill teacher-forced on the CPU's tokens
+    (kernel path and the card's plain path against the CPU, every step and
+    slot), and greedy serving on the card against the CPU, end to end."""
+    import tempfile
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.ops import linear
+    gguf = os.path.join(HERE, "models", "repolm512_q8.gguf")
+    gpu = load_model(gguf, device="cuda", fuse=True)
+    cpu = load_model(gguf, device="cpu", fuse=True)
+    prompts = serve_prompts(gpu.tokenizer)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prompts.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(p.replace("\n", " ") for p in prompts) + "\n")
+        for flags in ([], ["--kv-int8"]):
+            reset(counters)
+            rc = cli.main(["-m", gguf, "--serve", path, "--batch-size", "4",
+                           "-n", "16", "-t", "0", "--repeat-penalty", "1.0",
+                           "--device", "cuda"] + flags)
+            torch.cuda.synchronize()
+            got = read(counters)
+            print(f"cli --serve {' '.join(flags)} launches {got}", flush=True)
+            check(rc == 0, f"cli --serve {flags} exit code {rc}")
+            check(all(v > 0 for v in got.values()),
+                  f"--serve {flags} on the card launched a kernel zero "
+                  f"times: {got}")
+    ids = [gpu.tokenizer.encode(p, add_bos=True) for p in prompts]
+    lens = [len(p) for p in ids]
+    n = 16
+    for quant in (False, True):
+        mode = "int8" if quant else "bf16"
+        # every run starts from the CPU's prefill: the steps' kernels are
+        # held, not the prefill's flash rounding (PERF.md, Findings). Each card
+        # path is held against the CPU run of the same path: the kernel
+        # path's CPU run takes the kernels' plain twins (an int8 cache's
+        # scales fold exactly), the plain path attends a bf16 dequant
+        bkv, first = prefill_batch(torch, cpu, ids, quant)
+        ref = {impl: batched_pass(torch, cpu, bkv, lens, first, n, impl)
+               for impl in ("kernel", "plain")}
+        _, kern = batched_pass(torch, gpu, bkv, lens, first, n, "kernel",
+                               forced=ref["kernel"][0])
+        linear.KERNEL_MODE = "off"  # the same run on the card, plain PyTorch
+        try:
+            _, plain = batched_pass(torch, gpu, bkv, lens, first, n, "plain",
+                                    forced=ref["plain"][0])
+        finally:
+            linear.KERNEL_MODE = "auto"
+        del bkv
+
+        def rels(got, impl):  # [step][slot]
+            return [[float((a[b] - c[b]).abs().max() / c[b].abs().max())
+                     for b in range(len(ids))]
+                    for a, c in zip(got, ref[impl][1])]
+        rk, rp = rels(kern, "kernel"), rels(plain, "plain")
+        for a in kern:
+            check(bool(torch.isfinite(a).all()),
+                  f"repolm512 serving {mode}: non-finite logits")
+        worst = max(max(r) for r in rk)
+        print(f"repolm512 batched {mode} from the CPU's prefill, "
+              f"teacher-forced max|dlogit|/max|logit| per step (worst "
+              f"slot), kernel path vs the CPU's: "
+              f"{[round(max(r), 4) for r in rk]}; plain path vs the CPU's: "
+              f"{[round(max(r), 4) for r in rp]}", flush=True)
+        for s, (ks, ps) in enumerate(zip(rk, rp)):
+            for b, (k, p) in enumerate(zip(ks, ps)):
+                lim = max(REAL_LOGIT_RTOL, 2 * p)
+                check(k <= lim, f"repolm512 serving {mode} step {s} slot {b}:"
+                      f" logits differ by {k} of their range (> {lim})")
+        texts = {}
+        for dev, model in (("gpu", gpu), ("cpu", cpu)):
+            srv = BatchServer(model, batch_size=4, kv_quant=quant,
+                              admit_chunk=SERVE_CHUNK,
+                              sampler_cfg=SamplerConfig(temperature=0.0))
+            reqs = [Request(prompt=p, max_tokens=n) for p in prompts]
+            srv.run(reqs)
+            texts[dev] = reqs
+        agree = [sum(a == b for a, b in zip(g.output_ids, c.output_ids))
+                 for g, c in zip(texts["gpu"], texts["cpu"])]
+        print(f"repolm512 greedy serving {mode} on {card}: "
+              f"{agree} of {[len(c.output_ids) for c in texts['cpu']]} "
+              f"tokens agree with the CPU; gpu "
+              f"{[r.text for r in texts['gpu']]!r}; cpu "
+              f"{[r.text for r in texts['cpu']]!r}", flush=True)
+        out[mode] = {"logit_rel_err": worst, "tokens_agree": agree}
+    return out
+
+
+class IdsTokenizer:
+    """Stands in for a GGUF tokenizer on the synthetic model, which has
+    none: requests carry token ids, and a completion's text is its ids."""
+
+    stop_ids = frozenset()
+
+    def decode(self, ids) -> str:
+        return " ".join(str(i) for i in ids)
+
+
+def full_batched_phase(torch, counters, card: str, synth) -> tuple:
+    """The synthetic Llama-3.1-8B Q8_0 served at full width: BatchServer
+    with 8 slots answering 8 requests (the main path of this slice, launch
+    counts read around it), then the batched step as the bench drives it
+    (B = 1 bf16 with the s_live bucket, B = 32 int8 from mid-context, a
+    T = 4 verify window), a profile of the step, and kernels on vs off on a
+    2-layer view."""
+    import dataclasses
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step,
+                                                       batched_verify_step)
     from ntransformer_tpu_torch.models.loader import LoadedModel
+    cfg, arch, weights, per_token = synth
+    model = LoadedModel(cfg, arch, weights, IdsTokenizer(), None,
+                        torch.device("cuda"))
+    srv = BatchServer(model, batch_size=8,
+                      sampler_cfg=SamplerConfig(temperature=0.0))
+    rng = torch.Generator().manual_seed(21)
+    lens = [700, 130, 64, 9, 300, 20, 90, 1000]
+    reqs = [Request(prompt="", max_tokens=16, prompt_ids=torch.randint(
+        3, arch.vocab_size, (n,), generator=rng).tolist()) for n in lens]
+    warm = srv.warmup()
+    reset(counters)
+    stats = srv.run(reqs)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    print(f"8b server (8 slots, 8 requests of {lens} tokens, warmup "
+          f"{warm:.1f} s): {stats.report()}; launches {launches}", flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f"the serving path launched a kernel zero times: {launches}")
+    check(all(len(r.output_ids) == 16 for r in reqs),
+          "8b server: a request finished short")
+    summary = {"card": card, "serve_tokens": stats.tokens,
+               "serve_wall_s": stats.wall_s,
+               "serve_tok_s": stats.tokens_per_s,
+               "serve_steps": stats.steps,
+               "serve_ttft_p50_s": sorted(stats.ttft_s)[len(stats.ttft_s)
+                                                        // 2],
+               "serve_launches": launches}
+    del srv
+
+    arch1k = dataclasses.replace(arch, max_seq_len=1024)
+
+    def bucket(needed: int):  # the server's 4-rung s_live ladder
+        for i in (1, 2, 3):
+            b = (1024 * i) // 4
+            if b >= 256 and b >= needed:
+                return b
+        return None
+
+    def chain(bkv, b_n, n, base, tokens):
+        sl = bucket(base + n + 1)
+        active = torch.ones(b_n, dtype=torch.bool, device="cuda")
+        for i in range(n):
+            pos = torch.full((b_n,), base + i, dtype=torch.long,
+                             device="cuda")
+            logits, bkv = batched_decode_step(arch1k, weights, bkv, tokens,
+                                              pos, active, s_live=sl)
+            tokens = torch.argmax(logits, -1)
+        tokens.cpu()  # a real fence
+        return tokens
+
+    cells = {}
+    # B = 1 bf16, S = 1024, chained with the s_live bucket (bench_decode)
+    bkv = BatchedKV.create(arch1k, 1, device="cuda")
+    tok = torch.full((1,), 3, dtype=torch.long, device="cuda")
+    tok = chain(bkv, 1, 8, 8, tok)
+    reset(counters)
+    best = float("inf")
+    for i in range(2):
+        t0 = time.perf_counter()
+        tok = chain(bkv, 1, 64, 24 + i * 64, tok)
+        best = min(best, (time.perf_counter() - t0) / 64)
+    cells["b1_bf16"] = {"ms_per_step": best * 1e3, "tok_s": 1.0 / best,
+                        "effective_GB_s": per_token / best / 1e9,
+                        "launches": read(counters),
+                        "s_live": bucket(24 + 128 + 1)}
+    prof_b1 = profile_batched(torch, arch1k, weights, bkv, 1, 160)
+    del bkv
+    # B = 32 int8 from mid-context (bench_b32_int8: delta-timed rounds)
+    bkv = BatchedKV.create(arch1k, 32, quant=True, device="cuda")
+    tok = torch.arange(32, device="cuda") + 3
+    tok = chain(bkv, 32, 24, 512, tok)
+    reset(counters)
+    t0 = time.perf_counter()
+    tok = chain(bkv, 32, 24, 512 + 32, tok)
+    t1 = time.perf_counter()
+    tok = chain(bkv, 32, 72, 512 + 64, tok)
+    t2 = time.perf_counter()
+    dt = ((t2 - t1) - (t1 - t0)) / 48
+    cells["b32_int8"] = {"ms_per_step": dt * 1e3, "tok_s_aggregate": 32 / dt,
+                         "effective_GB_s": per_token / dt / 1e9,
+                         "launches": read(counters),
+                         "s_live": bucket(512 + 64 + 72 + 1)}
+    prof_b32 = profile_batched(torch, arch1k, weights, bkv, 32, 700)
+    del bkv
+    # a T = 4 verify window, B = 8 bf16 from mid-context
+    bkv = BatchedKV.create(arch1k, 8, device="cuda")
+    vt = torch.randint(3, arch.vocab_size, (8, 4), device="cuda")
+    act = torch.ones(8, dtype=torch.bool, device="cuda")
+    pos = torch.full((8,), 512, dtype=torch.long, device="cuda")
+    batched_verify_step(arch1k, weights, bkv, vt, pos, act)[0].cpu()
+    reset(counters)
+    t0 = time.perf_counter()
+    for i in range(8):
+        vl, bkv = batched_verify_step(arch1k, weights, bkv, vt, pos + 4 * i,
+                                      act, s_live=768)
+    vl.cpu()
+    dt = (time.perf_counter() - t0) / 8
+    check(bool(torch.isfinite(vl).all()) and tuple(vl.shape)
+          == (8, 4, arch.vocab_size), "8b verify: bad logits")
+    cells["verify_b8_t4_bf16"] = {"ms_per_step": dt * 1e3,
+                                  "tok_s": 32 / dt,
+                                  "launches": read(counters)}
+    del bkv
+    for name, c in cells.items():
+        print(json.dumps({f"8b_batched_{name}": c}), flush=True)
+    summary.update(cells=cells, profile_b1=prof_b1, profile_b32=prof_b32,
+                   two_layer=batched_on_off(torch, arch, weights))
+    return summary, launches
+
+
+def profile_batched(torch, arch, weights, bkv, b_n: int, pos0: int,
+                    steps: int = 4) -> dict:
+    """Device time by kernel over a few chained batched steps
+    (torch.profiler with CUDA activity) and the share of the wall time the
+    card was busy; the profiler's own host cost inflates the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from ntransformer_tpu_torch.models.batched import batched_decode_step
+    tok = torch.arange(b_n, device="cuda") + 3
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            pos = torch.full((b_n,), pos0 + i, dtype=torch.long,
+                             device="cuda")
+            logits, bkv = batched_decode_step(arch, weights, bkv, tok, pos,
+                                              act, s_live=768)
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        dev_us = e.self_device_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    out = {"B": b_n, "steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": busy,
+           "device_busy_share": busy * steps / wall_ms if wall_ms else 0.0,
+           "top": [{"kernel": k[:80], "ms_per_step": ms, "per_step": c}
+                   for ms, c, k in rows[:12]]}
+    print(json.dumps({"batched_profile": out}), flush=True)
+    return out
+
+
+def batched_on_off(torch, arch, weights) -> dict:
+    """The batched step on a 2-layer view of the 8B weights, kernels on vs
+    off (the plain path writes each layer's rows, then attends the whole
+    cache in plain PyTorch), B = 4 from a random mid-context cache with one
+    inactive slot: logits within BATCHED_LOGIT_RTOL, rows no path writes
+    bit-equal, layer 0's written rows equal but for rare bf16 flips."""
+    import dataclasses
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step)
+    from ntransformer_tpu_torch.ops import linear
+    layers2 = llama.LayerWeights(**{
+        f: (None if v is None else
+            linear.QLinear(v.dtype, v.k, v.n,
+                           {nm: a[:2] for nm, a in v.planes.items()})
+            if isinstance(v, linear.QLinear) else v[:2])
+        for f, v in ((f, getattr(weights.layers, f))
+                     for f in weights.layers.__dataclass_fields__)})
+    arch2 = dataclasses.replace(arch, n_layers=2, max_seq_len=1024)
+    w2 = dataclasses.replace(weights, layers=layers2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(77)
+    pos = torch.tensor([100, 513, 7, 1000], device="cuda")
+    act = torch.tensor([True, True, False, True], device="cuda")
+    tok = torch.tensor([5, 17, 300, 4000], device="cuda")
+    res = {}
+    for quant in (False, True):
+        base = BatchedKV.create(arch2, 4, quant=quant, device="cuda")
+        for c in base.caches:
+            if c.dtype == torch.int8:
+                c.random_(-127, 128, generator=g)
+            else:
+                c.copy_(torch.rand(c.shape, device="cuda", generator=g)
+                        * (0.02 if c.dtype == torch.float32 else 1.0))
+        outs = {}
+        for mode in ("auto", "off"):
+            kv = BatchedKV(*(None if t is None else t.clone()
+                             for t in (base.k, base.v, base.ks, base.vs)))
+            linear.KERNEL_MODE = mode
+            try:
+                lg, kv = batched_decode_step(arch2, w2, kv, tok, pos, act)
+                torch.cuda.synchronize()
+            finally:
+                linear.KERNEL_MODE = "auto"
+            outs[mode] = (lg, kv)
+        (a, kva), (b, kvb) = outs["auto"], outs["off"]
+        rel = float((a - b).abs().max() / b.abs().max())
+        check(bool(torch.isfinite(a).all()), "8b 2-layer batched: non-finite")
+        lim = BATCHED_LOGIT_RTOL["int8" if quant else "bf16"]
+        mode = "int8" if quant else "bf16"
+        check(rel <= lim, f"8b 2-layer batched {mode}: logits differ by "
+              f"{rel} of their range (> {lim})")
+        written = torch.zeros(2, 4, 1, 1024, dtype=torch.bool, device="cuda")
+        for bi in range(4):
+            if bool(act[bi]):
+                written[:, bi, :, int(pos[bi])] = True
+        eq0 = []
+        for x, y in zip(kva.caches, kvb.caches):
+            m = written if x.dim() == 4 else written[..., None]
+            m = m.expand(x.shape)
+            check(torch.equal(x[~m], y[~m]), f"8b 2-layer batched {mode}: a "
+                  "row no path writes differs")
+            if x.dim() == 5:
+                eq0.append(float((x[0][m[0]] == y[0][m[0]]).float().mean()))
+        check(min(eq0) >= 0.99, f"8b 2-layer batched {mode}: layer 0's "
+              f"written rows agree only {eq0}")
+        print(f"8b 2-layer batched step {mode}, kernels on vs off: "
+              f"max|d|/max|off| = {rel:.3e} (tol {lim}); layer-0 written "
+              f"rows equal {eq0}", flush=True)
+        res[mode] = {"logit_rel_err": rel, "layer0_rows_equal": eq0}
+    return res
+
+
+# ---------------------------------------------------------------- phase 4
+def build_synth(torch):
+    """The synthetic Llama-3.1-8B Q8_0 on the card, with codes of a
+    realistic spread: (cfg, arch, weights, bytes read per decoded token)."""
     from ntransformer_tpu_torch.models.synth import model_nbytes, synth_model
     from ntransformer_tpu_torch.ops import linear
-
     t0 = time.perf_counter()
     cfg, arch, weights = synth_model("8b", "q8_0", fuse=True,
                                      max_seq_len=4096)
@@ -418,7 +1080,17 @@ def full_width_phase(torch, counters, card: str):
     print(f"8b q8_0 synth: {nbytes / 1e9:.3f} GB of planes, "
           f"{per_token / 1e9:.3f} GB read per decoded token, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, arch, weights, per_token
 
+
+def full_width_phase(torch, counters, card: str, synth):
+    import dataclasses
+    from ntransformer_tpu_torch.inference.engine import Engine
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.ops import linear
+
+    cfg, arch, weights, per_token = synth
     model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
     engine = Engine(model)
     ids = torch.randint(0, arch.vocab_size, (512,),
@@ -427,9 +1099,9 @@ def full_width_phase(torch, counters, card: str):
     stats = engine.benchmark(prompt_ids=ids, n_tokens=64)
     torch.cuda.synchronize()
     launches = read(counters)
-    print(f"main path launches {launches}", flush=True)
-    check(all(v > 0 for v in launches.values()),
-          f"the main path launched a kernel zero times: {launches}")
+    print(f"Engine path launches {launches}", flush=True)
+    check(all(launches[k] > 0 for k in ENGINE_KERNELS),
+          f"the Engine path launched a kernel zero times: {launches}")
     ms_tok = stats.decode_ms / stats.decode_tokens
     summary = {"card": card, "prefill_tokens": stats.prefill_tokens,
                "prefill_ms": stats.prefill_ms,
@@ -472,7 +1144,7 @@ def full_width_phase(torch, counters, card: str):
             outs[mode] = (lg, read(counters))
         finally:
             linear.KERNEL_MODE = "auto"
-    check(all(v > 0 for v in outs["auto"][1].values()),
+    check(all(outs["auto"][1][k] > 0 for k in ENGINE_KERNELS),
           f"2-layer kernel run launched {outs['auto'][1]}")
     check(all(v == 0 for v in outs["off"][1].values()),
           f"2-layer plain run launched kernels: {outs['off'][1]}")
@@ -556,51 +1228,72 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from ntransformer_tpu_torch.ops.cuda import attention as ca
+    from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
     from ntransformer_tpu_torch.ops.cuda import build
+    from ntransformer_tpu_torch.ops.cuda import kv_update as ck
     from ntransformer_tpu_torch.ops.cuda import matmul as cm
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, together
-        reports = list(ex.map(build.build, [cm.NAME, ca.NAME]))
+    mods = (cm, ca, cb, ck)
+    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, together
+        reports = list(ex.map(build.build, [m.NAME for m in mods]))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for rep in reports:
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print("  " + line.strip(), flush=True)
-    counters = {cm.NAME: cm, ca.NAME: ca}
+    counters = {m.NAME: m for m in mods}
 
     timer = Timer(torch)
-    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["kernels", "real", "full"]
-    mm = fa = None
+    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
+    res = {}
     if "kernels" in phases:
-        mm, fa = kernel_phase(torch, timer, card)
+        res[cm.NAME], res[ca.NAME] = kernel_phase(torch, timer, card)
+    if "bkernels" in phases:
+        res[cb.NAME], res[ck.NAME] = batched_kernel_phase(torch, timer, card)
     if "real" in phases:
         real_model_phase(torch, counters, card)
-    launches = {}
-    if "full" in phases:
-        _, launches = full_width_phase(torch, counters, card)
+    if "serve" in phases:
+        real_serve_phase(torch, counters, card)
+    engine_launches, launches = {}, {}
+    if "full" in phases or "bfull" in phases:
+        synth = build_synth(torch)
+        if "full" in phases:
+            _, engine_launches = full_width_phase(torch, counters, card,
+                                                  synth)
+        if "bfull" in phases:
+            summary, launches = full_batched_phase(torch, counters, card,
+                                                   synth)
+            print(json.dumps({"full_width_8b_serving": summary}), flush=True)
+        del synth
 
     kernels = []
     tols = {cm.NAME: f"max|kernel-plain| <= {MATMUL_RTOL} * max|plain|",
             ca.NAME: f"max|kernel-plain| <= {FLASH_RTOL} * max|plain| "
-                     f"in every query row"}
-    for mod, res, route_src in ((cm, mm, "csrc/q8_0_matmul.cu"),
-                                (ca, fa, "csrc/flash_attention.cu")):
-        if res is None:
+                     f"in every query row",
+            cb.NAME: f"max|kernel-plain| <= {BATCHED_RTOL} * max|plain| "
+                     f"in every query token",
+            ck.NAME: "bit-equal"}
+    for mod, route_src in ((cm, "csrc/q8_0_matmul.cu"),
+                           (ca, "csrc/flash_attention.cu"),
+                           (cb, "csrc/batched_attention.cu"),
+                           (ck, "csrc/kv_update.cu")):
+        if mod.NAME not in res:
             continue
-        main_row = next(r for r in res["rows"] if r["shape"] == res["main"])
-        err = max(r["max_abs_err"] for r in res["rows"])
+        r = res[mod.NAME]
+        main_row = next(x for x in r["rows"] if x["shape"] == r["main"])
+        err = max(x["max_abs_err"] for x in r["rows"])
         kernels.append({
             "name": mod.NAME, "route": "cuda",
             "source": "ntransformer_tpu_torch/" + route_src,
             "replaces": mod.REPLACES, "launches": launches.get(mod.NAME, 0),
+            "engine_launches": engine_launches.get(mod.NAME, 0),
             "max_abs_err": err, "max_err": err, "tol": tols[mod.NAME],
             "ms": main_row["ms"], "kernel_ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"], "shape": res["main"],
-            "card": card, "cases": res["rows"]})
+            "library_ms": main_row["library_ms"], "shape": r["main"],
+            "card": card, "cases": r["rows"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """CLI of the port: the JAX package's parser, flag for flag, plus --device.
 
-This slice runs resident generation and --benchmark on one device. Every
-other mode exits with 2 and names the ROADMAP item that ports it.
+It runs resident generation (bf16 or --kv-int8 cache), --benchmark and
+--serve (continuous batching over a prompts file, with --batch-size,
+--prefix-cache and --kv-int8) on one device. Every other mode exits with 2
+and names the ROADMAP item that ports it.
 
 Usage: python -m ntransformer_tpu_torch -m model.gguf -p "prompt" [-n 128]
 """
@@ -12,8 +14,6 @@ import sys
 
 # mode → why it is refused (the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "--serve": "continuous batching is ROADMAP queue 1 items 7 and 9 "
-               "(models/batched.py, inference/serve.py)",
     "--http": "the HTTP server is ROADMAP queue 1 item 9 "
               "(inference/http_server.py)",
     "--chat": "chat templates are ROADMAP queue 1 item 9 (inference/chat.py)",
@@ -33,7 +33,6 @@ _NOT_PORTED = {
               "queue 2 row 7",
     "--w8a8": "the W8A8 format and kernel are ROADMAP queue 1 item 10 and "
               "queue 2 row 6",
-    "--kv-int8": "the int8 KV cache is ROADMAP queue 1 item 4",
 }
 
 
@@ -92,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
 def refused_mode(args) -> str | None:
     """The first requested mode this slice does not run, or None."""
     asked = {
-        "--serve": args.serve, "--http": args.http is not None,
+        "--http": args.http is not None,
         "--chat": args.chat, "--streaming": args.streaming,
         "--max-hbm-layers/--max-ram-layers": (args.max_hbm_layers is not None
                                               or args.max_ram_layers
@@ -101,7 +100,6 @@ def refused_mode(args) -> str | None:
         "--tp": args.tp, "--cp": args.cp, "--ep": args.ep, "--dp": args.dp,
         "--self-spec": args.self_spec, "--draft-model": args.draft_model,
         "--spec-k": args.spec_k, "--w4a8": args.w4a8, "--w8a8": args.w8a8,
-        "--kv-int8": args.kv_int8,
     }
     return next((mode for mode, on in asked.items() if on), None)
 
@@ -121,9 +119,11 @@ def main(argv=None) -> int:
         return 2
     mode = refused_mode(args)
     if mode is not None:
-        log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. This "
-                  "slice runs resident generation and --benchmark.")
+        log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
+                  "port runs resident generation, --benchmark and --serve.")
         return 2
+    if args.serve:
+        return serve(args)
 
     from .inference.engine import Engine, GenerateConfig
     cfg = GenerateConfig(
@@ -133,7 +133,8 @@ def main(argv=None) -> int:
         skip_threshold=args.skip_threshold)
     log.info(f"loading {args.model} (resident, {args.device})")
     engine = Engine.load(args.model, max_seq_len=args.ctx_size,
-                         fuse=not args.no_fuse, device=args.device)
+                         fuse=not args.no_fuse, device=args.device,
+                         kv_quant=args.kv_int8)
 
     if args.benchmark:
         stats = engine.benchmark(args.prompt, n_tokens=args.bench_tokens)
@@ -150,6 +151,37 @@ def main(argv=None) -> int:
         print(PROFILER.summary(), file=sys.stderr)
         from .utils.timing import device_memory_report
         print(device_memory_report(), file=sys.stderr)
+    return 0
+
+
+def serve(args) -> int:
+    """--serve: continuous batching over a prompts file (one prompt per
+    line); prints each completion and the aggregate throughput."""
+    from .inference.sampler import SamplerConfig
+    from .inference.serve import BatchServer, Request
+    from .models.loader import load_model
+    from .utils import logging as log
+    log.info(f"loading {args.model} (resident, {args.device}) to serve "
+             f"{args.batch_size} slots")
+    model = load_model(args.model, max_seq_len=args.ctx_size,
+                       fuse=not args.no_fuse, device=args.device)
+    srv = BatchServer(model, batch_size=args.batch_size,
+                      prefix_cache=args.prefix_cache, kv_quant=args.kv_int8,
+                      sampler_cfg=SamplerConfig(
+                          temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p,
+                          repeat_penalty=args.repeat_penalty,
+                          seed=args.seed))
+    with open(args.serve) as f:
+        prompts = [ln.rstrip("\n") for ln in f if ln.strip()]
+    # the replay file is written by the operator (trusted): chat-template
+    # control strings become real control ids, unlike untrusted prompts
+    reqs = [Request(prompt=pr, max_tokens=args.max_tokens,
+                    parse_special=True) for pr in prompts]
+    stats = srv.run(reqs)
+    for r in reqs:
+        print(f"### {r.prompt!r}\n{r.text}\n")
+    print(stats.report(), file=sys.stderr)
     return 0
 
 

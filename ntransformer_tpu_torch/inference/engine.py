@@ -99,17 +99,18 @@ class Engine:
 
     PREFILL_CHUNK = 512
 
-    def __init__(self, model: LoadedModel):
+    def __init__(self, model: LoadedModel, kv_quant: bool = False):
         self.model = model
+        self.kv_quant = kv_quant  # int8 KV cache (half the cache memory)
         self.arch = model.arch
         self.tokenizer = model.tokenizer
         self.device = model.device
         self.layer_sel: np.ndarray | None = None  # layer-skip schedule
 
     @classmethod
-    def load(cls, path: str, **kw) -> "Engine":
+    def load(cls, path: str, kv_quant: bool = False, **kw) -> "Engine":
         """Load `path` resident (load_model keywords: device, fuse, ...)."""
-        return cls(load_model(path, **kw))
+        return cls(load_model(path, **kw), kv_quant=kv_quant)
 
     # --- internals ----------------------------------------------------------
     def _clamp_ids(self, ids: list[int]) -> list[int]:
@@ -120,7 +121,8 @@ class Engine:
         return self._clamp_ids(self.tokenizer.encode(prompt, add_bos=True))
 
     def _make_kv(self) -> KVCache:
-        return KVCache.create(self.arch, device=self.device)
+        return KVCache.create(self.arch, quant=self.kv_quant,
+                              device=self.device)
 
     def _prefill(self, kv: KVCache, tokens: list[int], with_cosine=False,
                  start: int = 0):

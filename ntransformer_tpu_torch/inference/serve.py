@@ -1,0 +1,503 @@
+"""Continuous batching: slot-based serving over the batched decode step
+(PyTorch, one device).
+
+Port of ntransformer_tpu/inference/serve.py without its mesh branch. A
+fixed pool of B sequence slots decodes in lock-step through
+models/batched.py; finished sequences retire and waiting requests are
+admitted mid-flight, so the batch stays full.
+
+Admission is chunked and interleaved with decode: each loop iteration runs
+one batched decode step, then at most one prefill chunk of the next waiting
+request, so an admission stalls decode by at most one chunk. Per-token
+streaming callbacks (`Request.on_token`) fire as tokens are sampled, and
+`Request.arrival_s` replays an arrival process. `run(requests)` serves a
+fixed list; `serve_forever(inbox, stop)` takes Requests from other threads
+on a queue.Queue. All device work stays on the serving thread.
+
+Speculative serving (spec_k > 0) and the multi-device mesh wait for their
+ROADMAP items and raise.
+"""
+from __future__ import annotations
+
+import queue as _queue
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..models.batched import BatchedKV, batched_decode_step
+from ..models.llama import KVCache, forward
+from ..models.loader import LoadedModel
+from .engine import Engine, _bucket
+from .sampler import BatchedSampler, SamplerConfig
+
+
+@dataclass
+class Request:
+    prompt: str
+    max_tokens: int = 128
+    request_id: int = 0
+    # streaming: called once per sampled token with the decoded text piece
+    # ('' while a multi-byte character is still incomplete)
+    on_token: object = None
+    # False (default): special-token strings in the prompt are encoded as
+    # plain text, so an untrusted prompt cannot smuggle control ids; True
+    # only for trusted, server-side chat-template text
+    parse_special: bool = False
+    # simulated arrival offset (seconds after the server starts)
+    arrival_s: float = 0.0
+    # called once with the finished Request (after text is set)
+    on_done: object = None
+    # cooperative cancellation: any thread may set it; the loop retires the
+    # slot at the next step boundary. done() still fires.
+    cancelled: bool = False
+    # per-request sampling overrides (temperature / top_k / top_p /
+    # repeat_penalty / seed), applied at admission on a non-greedy server;
+    # a greedy server ignores them
+    sampling: dict | None = None
+    # filled by the server:
+    prompt_ids: list = field(default_factory=list)
+    output_ids: list = field(default_factory=list)
+    submitted_at: float = 0.0
+    first_token_at: float = 0.0
+    finished_at: float = 0.0
+    _text: str = ""
+    _dec: object = None  # per-request StreamDecoder (lazy)
+
+    @property
+    def text(self):
+        return self._text
+
+    def done(self, text: str):
+        if self.on_token is not None and self._dec is not None:
+            self._dec.flush_to(self.on_token)  # trailing incomplete bytes
+        self._text = text
+        self.finished_at = time.time()
+        if self.on_done is not None:
+            self.on_done(self)
+
+
+@dataclass
+class ServeStats:
+    requests: int = 0
+    tokens: int = 0
+    wall_s: float = 0.0
+    steps: int = 0           # batched decode steps
+    prefill_chunks: int = 0
+    prefix_hits: int = 0     # admissions that reused a cached prompt prefix
+    ttft_s: list = field(default_factory=list)  # per-request time to first token
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens / self.wall_s if self.wall_s else 0.0
+
+    def report(self) -> str:
+        ttft = (f", ttft p50 {np.median(self.ttft_s)*1e3:.0f} ms"
+                if self.ttft_s else "")
+        hits = f", {self.prefix_hits} prefix hits" if self.prefix_hits else ""
+        return (f"served {self.requests} requests, {self.tokens} tokens in "
+                f"{self.wall_s:.2f}s ({self.tokens_per_s:.2f} tok/s, "
+                f"{self.steps} batched steps, {self.prefill_chunks} prefill "
+                f"chunks{hits}{ttft})")
+
+
+class _Admission:
+    """A request mid-prefill: its private cache fills one chunk per server
+    loop iteration, so in-flight decode never waits on a whole prompt."""
+
+    def __init__(self, r: Request, arch, chunk: int, make_kv, prefill_fn,
+                 kv=None, start: int = 0):
+        self.r = r
+        # kv/start: prefix-cache reuse, positions [0, start) already live
+        self.kv = kv if kv is not None else make_kv()
+        self.off = self.start = start
+        self.chunk = chunk
+        self.arch = arch
+        self.last_logits = None
+        self._prefill = prefill_fn
+
+    @property
+    def finished(self) -> bool:
+        return self.off >= len(self.r.prompt_ids)
+
+    def step(self, weights):
+        """Run one prefill chunk, bucketed as the Engine buckets."""
+        ids = self.r.prompt_ids
+        chunk = ids[self.off: self.off + self.chunk]
+        t = len(chunk)
+        S = self.arch.max_seq_len
+        p = min(_bucket(t) if self.off == self.start and t <= self.chunk
+                else self.chunk, S - self.off)
+        padded = np.zeros(p, np.int64)
+        padded[:t] = chunk
+        logits, self.kv = self._prefill(weights, self.kv, padded, self.off, t)
+        self.off += t
+        self.last_logits = logits[0]
+
+
+class BatchServer:
+    """Continuous-batching server on the model's device: greedy, or
+    sampled through a BatchedSampler.
+
+    attn_buckets: the decode step runs with a live-prefix bound s_live,
+    the smallest rung of a ladder of attn_buckets - 1 rungs at S /
+    attn_buckets steps (multiples of 128, at least 256) that covers every
+    slot's position, so attention reads no row past the batch's fill level.
+    prefix_cache > 0 keeps the last N admitted prompts' prefill caches; a
+    prompt sharing a prefix of 8 or more tokens with one prefills only the
+    rest (one single-sequence cache of device memory per entry)."""
+
+    def __init__(self, model: LoadedModel, batch_size: int = 8,
+                 sampler_cfg: SamplerConfig | None = None,
+                 kv_quant: bool = False, admit_chunk: int | None = None,
+                 mesh=None, prefix_cache: int = 0, spec_k: int = 0,
+                 attn_buckets: int = 4):
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving over a device mesh is not ported yet (ROADMAP "
+                "queue 1 item 14: the multi-GPU axes)")
+        if spec_k:
+            raise NotImplementedError(
+                "speculative serving (spec_k > 0) is not ported yet "
+                "(ROADMAP queue 1 item 13: speculation)")
+        self.model = model
+        self.arch = model.arch
+        self.weights = model.weights
+        self.device = model.device
+        self.B = batch_size
+        self.scfg = sampler_cfg or SamplerConfig(temperature=0.0)
+        self.tokenizer = model.tokenizer
+        self.kv_quant = kv_quant  # int8 KV for the prefill and batch caches
+        self.admit_chunk = (admit_chunk if admit_chunk is not None
+                            else Engine.PREFILL_CHUNK)
+        self.prefix_cache = prefix_cache
+        self._pcache: list[tuple[list[int], KVCache]] = []  # LRU, newest last
+        self.attn_buckets = attn_buckets
+        S = self.arch.max_seq_len
+        n = max(attn_buckets, 1)
+        self._attn_ladder = sorted({
+            b for b in ((S * i) // n for i in range(1, n))
+            if 256 <= b < S and b % 128 == 0}) if attn_buckets else []
+
+    def _step(self, bkv, tokens, pos, active, s_live=None):
+        return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
+                                   active, s_live=s_live)
+
+    def _make_bkv(self) -> BatchedKV:
+        return BatchedKV.create(self.arch, self.B, quant=self.kv_quant,
+                                device=self.device)
+
+    def _make_kv(self) -> KVCache:
+        return KVCache.create(self.arch, quant=self.kv_quant,
+                              device=self.device)
+
+    def _prefill(self, weights, kv, padded, off, n_valid):
+        logits, kv, _ = forward(self.arch, weights, kv,
+                                torch.from_numpy(padded), off,
+                                n_valid=n_valid)
+        return logits, kv
+
+    def _vec(self, x, dtype=torch.long) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device, dtype)
+
+    def _bucket_live(self, needed: int):
+        """Smallest s_live ladder rung covering `needed` (the largest cache
+        position any slot may attend this step, + 1); None = full S."""
+        for b in self._attn_ladder:
+            if b >= needed:
+                return b
+        return None
+
+    def _prefix_lookup(self, ids: list[int]):
+        """(a copy of the cached cache, start) for the entry sharing the
+        longest prefix with `ids` (LRU-refreshed), or (None, 0). At least
+        one token always prefills (the sampler needs its logits)."""
+        best_n, best_i = 0, -1
+        for i, (cached, _) in enumerate(self._pcache):
+            n = 0
+            lim = min(len(cached), len(ids) - 1)
+            while n < lim and cached[n] == ids[n]:
+                n += 1
+            if n > best_n:
+                best_n, best_i = n, i
+        if best_i < 0 or best_n < 8:  # a tiny shared prefix isn't worth
+            return None, 0            # the cache copy
+        self._pcache.append(self._pcache.pop(best_i))  # LRU refresh
+        return self._pcache[-1][1].clone(), best_n
+
+    def _prefix_store(self, ids: list[int], kv: KVCache) -> None:
+        """Keep a finished admission's prompt cache for prefix reuse (the
+        slot insert copies it into the batched cache, so it stays valid)."""
+        if not self.prefix_cache:
+            return
+        for i, (cached, _) in enumerate(self._pcache):
+            if cached == ids:       # replace an identical-prompt entry
+                self._pcache.pop(i)
+                break
+        self._pcache.append((list(ids), kv))
+        if len(self._pcache) > self.prefix_cache:
+            self._pcache.pop(0)     # evict the least recently used
+
+    def warmup(self, buckets=None) -> float:
+        """Run every program the serving loop dispatches once before the
+        first request: the decode step at full S and at every s_live rung,
+        the slot insert, every prefill shape _Admission.step can produce
+        (the first-chunk bucket ladder up to admit_chunk, the steady chunk
+        and the tail chunk of a context that admit_chunk does not divide)
+        and the sampler. On the card this builds the kernels and warms the
+        allocator outside the serve clock. Returns the wall seconds."""
+        t0 = time.perf_counter()
+        arch = self.arch
+        bkv = self._make_bkv()
+        zeros = self._vec(np.zeros(self.B, np.int64))
+        act = self._vec(np.zeros(self.B, bool), torch.bool)
+        for sl in [None] + self._attn_ladder:
+            logits, bkv = self._step(bkv, zeros, zeros, act, sl)
+            torch.argmax(logits, dim=-1).cpu()
+        kv = self._make_kv()
+        S, chunk = arch.max_seq_len, self.admit_chunk
+        if buckets is None:
+            buckets = [1, min(chunk, S)] + [
+                b for b in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+                if b <= chunk]
+        shapes = {min(_bucket(min(b, chunk, S)), S) for b in buckets}
+        off = chunk
+        while off < S:
+            shapes.add(min(chunk, S - off))
+            off += chunk
+        for p in sorted(shapes):
+            lg, kv = self._prefill(self.weights, kv, np.zeros(p, np.int64), 0,
+                                   p)
+            lg[0][:1].cpu()
+        bkv.insert(0, kv)
+        if not self.scfg.greedy:
+            bs = BatchedSampler(self.scfg, arch.vocab_size, self.B,
+                                self.device)
+            bs.admit(0, 0, lg[0])
+            bs.sample(logits)
+        self._warm = True
+        return time.perf_counter() - t0
+
+    @property
+    def model_name(self) -> str:
+        return self.model.config.model_name
+
+    def snapshot(self) -> dict:
+        """Point-in-time serving metrics; safe to call from any thread
+        while the loop runs."""
+        live = getattr(self, "_live", None)
+        if live is None:
+            return {"running": False, "slots": self.B}
+        st = live["stats"]
+        end = live["ended"] if live["ended"] is not None \
+            else time.perf_counter()
+        elapsed = max(end - live["t0"], 1e-9)
+        ttft = sorted(st.ttft_s)
+        return {
+            "running": live["ended"] is None,
+            "slots": self.B,
+            "slots_active": int(np.count_nonzero(live["active"])),
+            "requests": st.requests,
+            "tokens": st.tokens,
+            "steps": st.steps,
+            "prefill_chunks": st.prefill_chunks,
+            "elapsed_s": round(elapsed, 3),
+            "tokens_per_s": round(st.tokens / elapsed, 2),
+            "ttft_p50_ms": (round(ttft[len(ttft) // 2] * 1e3, 1)
+                            if ttft else None),
+        }
+
+    def _prepare(self, r: Request, rid: int) -> None:
+        """Tokenize and clamp a request as it enters the loop; pre-filled
+        prompt_ids are kept, clamp included."""
+        r.request_id = rid
+        if not r.prompt_ids:
+            r.prompt_ids = self.tokenizer.encode(
+                r.prompt, add_bos=True, parse_special=r.parse_special)
+        max_prompt = max(1, self.arch.max_seq_len - 2)
+        if len(r.prompt_ids) > max_prompt:
+            r.prompt_ids = r.prompt_ids[-max_prompt:]
+
+    def run(self, requests: list[Request]) -> ServeStats:
+        """Serve a fixed list of requests to completion (`arrival_s`
+        replays an arrival process); returns aggregate stats."""
+        stats = ServeStats(requests=len(requests))
+        waiting = list(requests)
+        for i, r in enumerate(waiting):
+            r.submitted_at = time.time()
+            self._prepare(r, i)
+
+        def pull(now: float) -> Request | None:
+            for i, r in enumerate(waiting):
+                if r.arrival_s <= now:
+                    return waiting.pop(i)
+            return None
+
+        def idle_wait(now: float) -> None:
+            nxt = min(r.arrival_s for r in waiting)
+            if nxt > now:
+                time.sleep(min(nxt - now, 0.05))
+
+        return self._serve(stats, pull, lambda: not waiting, idle_wait)
+
+    def serve_forever(self, inbox, stop) -> ServeStats:
+        """Live continuous batching: pull Requests from a queue.Queue until
+        `stop` (a threading.Event) is set and every in-flight sequence has
+        drained. Submitters wait on Request.on_done / on_token. Not
+        reentrant."""
+        if not getattr(self, "_warm", False):
+            self.warmup()  # before the ttft anchor: warmup is start-up cost
+        stats = ServeStats()
+        counter = iter(range(1 << 62))
+
+        def pull(now: float) -> Request | None:
+            try:
+                r = inbox.get_nowait()
+            except _queue.Empty:
+                return None
+            if not r.submitted_at:
+                r.submitted_at = time.time()
+            # ttft counts from submission: anchor the arrival offset to the
+            # loop's own start instant
+            r.arrival_s = max(0.0, r.submitted_at - self._loop_t0_wall)
+            self._prepare(r, next(counter))
+            stats.requests += 1
+            return r
+
+        def idle_wait(now: float) -> None:
+            stop.wait(0.02)
+
+        return self._serve(stats, pull,
+                           lambda: stop.is_set() and inbox.empty(),
+                           idle_wait)
+
+    def _serve(self, stats: ServeStats, pull, drained, idle_wait
+               ) -> ServeStats:
+        """The lock-step loop shared by run() and serve_forever().
+
+        pull(now) -> Request | None: next admissible request, if any;
+        drained() -> bool: no further request will arrive;
+        idle_wait(now): brief block when nothing is active or admissible.
+        """
+        if not getattr(self, "_warm", False):
+            self.warmup()
+        B = self.B
+        bkv = self._make_bkv()
+        slot_req: list[Request | None] = [None] * B
+        tokens = np.zeros(B, np.int64)
+        pos = np.zeros(B, np.int64)
+        active = np.zeros(B, bool)
+        bsampler = (None if self.scfg.greedy
+                    else BatchedSampler(self.scfg, self.arch.vocab_size, B,
+                                        self.device))
+        stop = self.tokenizer.stop_ids
+        pending: _Admission | None = None
+        t0 = time.perf_counter()
+        self._loop_t0_wall = time.time()  # the same instant as t0
+        self._live = {"stats": stats, "active": active, "t0": t0,
+                      "ended": None}
+
+        def emit(r: Request, tid: int):
+            if r.first_token_at == 0.0:
+                r.first_token_at = time.time()
+                stats.ttft_s.append(time.perf_counter() - t0 - r.arrival_s)
+            r.output_ids.append(tid)
+            stats.tokens += 1
+            if r.on_token is not None:
+                if r._dec is None:
+                    r._dec = self.tokenizer.stream_decoder()
+                r.on_token(r._dec.push(tid))
+
+        def free_slot() -> int:
+            for b in range(B):
+                if not active[b]:
+                    return b
+            return -1
+
+        def finish_admission(adm: _Admission) -> None:
+            """Prefill complete: sample the first token, then occupy a slot
+            or finish at once on a stop token."""
+            r = adm.r
+            if r.cancelled:
+                r.done(self.tokenizer.decode(r.output_ids))
+                return
+            slot = free_slot()
+            if self.scfg.greedy:
+                first = int(torch.argmax(adm.last_logits))
+            else:
+                first = bsampler.admit(slot, r.request_id, adm.last_logits,
+                                       overrides=r.sampling)
+            emit(r, first)
+            if first in stop or r.max_tokens <= 1:
+                r.done(self.tokenizer.decode(r.output_ids))
+                return
+            bkv.insert(slot, adm.kv)
+            self._prefix_store(r.prompt_ids, adm.kv)
+            slot_req[slot] = r
+            tokens[slot] = first
+            pos[slot] = len(r.prompt_ids)
+            active[slot] = True
+
+        def retire(slot: int):
+            r = slot_req[slot]
+            r.done(self.tokenizer.decode(r.output_ids))
+            slot_req[slot] = None
+            active[slot] = False
+            # a retired slot's stale pos would pin the s_live bucket high;
+            # inactive slots' outputs are discarded, so 0 is safe
+            pos[slot] = 0
+
+        while any(active) or pending is not None or not drained():
+            # 1) one lock-step decode step for the active batch
+            if any(active):
+                logits, bkv = self._step(
+                    bkv, self._vec(tokens), self._vec(pos),
+                    self._vec(active, torch.bool),
+                    self._bucket_live(int(pos.max()) + 1))
+                stats.steps += 1
+                if self.scfg.greedy:
+                    toks_np = torch.argmax(logits, dim=-1).cpu().numpy()
+                else:
+                    toks_np = bsampler.sample(logits)  # one host read
+                for b in range(B):
+                    if not active[b]:
+                        continue
+                    r = slot_req[b]
+                    if r.cancelled:
+                        retire(b)  # the client went away: free the slot
+                        continue
+                    nxt = int(toks_np[b])
+                    emit(r, nxt)
+                    pos[b] += 1
+                    tokens[b] = nxt
+                    if (nxt in stop or len(r.output_ids) >= r.max_tokens
+                            or pos[b] + 1 >= self.arch.max_seq_len):
+                        retire(b)
+
+            # 2) advance admission by at most one prefill chunk
+            if pending is None and free_slot() >= 0:
+                r = pull(time.perf_counter() - t0)
+                if r is not None:
+                    kv0, start = ((None, 0) if not self.prefix_cache
+                                  else self._prefix_lookup(r.prompt_ids))
+                    if start:
+                        stats.prefix_hits += 1
+                    pending = _Admission(r, self.arch, self.admit_chunk,
+                                         self._make_kv, self._prefill,
+                                         kv=kv0, start=start)
+            if pending is not None and pending.r.cancelled:
+                # cancelled mid-prefill: skip the remaining chunks
+                pending.r.done(self.tokenizer.decode(pending.r.output_ids))
+                pending = None
+            if pending is not None:
+                pending.step(self.weights)
+                stats.prefill_chunks += 1
+                if pending.finished:
+                    finish_admission(pending)
+                    pending = None
+            elif not any(active) and not drained():
+                idle_wait(time.perf_counter() - t0)
+        stats.wall_s = time.perf_counter() - t0
+        self._live["ended"] = time.perf_counter()
+        return stats

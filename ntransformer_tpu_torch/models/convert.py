@@ -14,6 +14,10 @@ where QL = {"dtype": "q8_0" | "bf16" | ..., "k": int, "n": int,
 int16 with the same bits) and float planes may be ml_dtypes bfloat16 numpy,
 which torch.from_numpy refuses: they are viewed as uint16 and then as
 torch.bfloat16, bit for bit.
+
+`batched_kv_from_numpy` does the same for a batched cache (k, v and, for an
+int8 cache, its S-minor scales ks, vs), so two implementations can start
+from one mid-context cache.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from ..core.dtypes import DType
 from ..ops.linear import QLinear
+from .batched import BatchedKV
 from .llama import Arch, LayerWeights, ModelWeights
 
 
@@ -65,3 +70,10 @@ def weights_from_numpy(tree: dict, arch: Arch, device) -> ModelWeights:
         lm_head=_qlinear(tree["lm_head"], device),
         rope_cos=array_to_torch(tree["rope_cos"], device),
         rope_sin=array_to_torch(tree["rope_sin"], device))
+
+
+def batched_kv_from_numpy(k, v, ks=None, vs=None, device="cpu") -> BatchedKV:
+    """The port's BatchedKV from numpy arrays: k/v [L, B, Hkv, S, D] bf16
+    (ml_dtypes) or int8 codes, ks/vs [L, B, Hkv, S] f32 scales for int8."""
+    conv = (lambda a: None if a is None else array_to_torch(a, device))
+    return BatchedKV(conv(k), conv(v), conv(ks), conv(vs))

@@ -90,21 +90,45 @@ class LayerWeights:
 
 @dataclass
 class KVCache:
-    """bf16 cache [L, Hkv, S, D], written in place by `forward`."""
+    """Cache [L, Hkv, S, D], written in place by `forward`: bf16, or int8
+    codes with per-(head, position) absmax scales ks/vs [L, Hkv, S, 1] f32
+    (quant=True; half the memory)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: torch.Tensor | None = None
+    vs: torch.Tensor | None = None
 
     @classmethod
     def create(cls, arch: Arch, quant: bool = False, device="cuda"):
-        if quant:
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet (ROADMAP queue 1 "
-                "item 4: KVCache int8 codes + scales)")
         shape = (arch.n_layers, arch.n_kv_heads, arch.max_seq_len,
                  arch.head_dim)
+        if quant:
+            sshape = shape[:-1] + (1,)
+            return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+                       torch.zeros(sshape, dtype=torch.float32,
+                                   device=device))
         return cls(torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    torch.zeros(shape, dtype=torch.bfloat16, device=device))
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
+
+    def layer(self, index: int):
+        """(k, v) of one layer as views: tensors, or (codes, scales)
+        tuples for the int8 cache."""
+        if self.quantized:
+            return ((self.k[index], self.ks[index]),
+                    (self.v[index], self.vs[index]))
+        return self.k[index], self.v[index]
+
+    def clone(self) -> "KVCache":
+        return KVCache(*(None if t is None else t.clone()
+                         for t in (self.k, self.v, self.ks, self.vs)))
 
 
 @dataclass
@@ -218,16 +242,30 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
         cos_t, sin_t = cos_t[int(bool(local))], sin_t[int(bool(local))]
     q = apply_rope(q, cos_t, sin_t, arch.rope_interleaved)
     k = apply_rope(k, cos_t, sin_t, arch.rope_interleaved)
-    k = k.transpose(0, 1).to(kv_k.dtype)  # [Hkv, T, D]
-    v = v.transpose(0, 1).to(kv_v.dtype)
+    k = k.transpose(0, 1)  # [Hkv, T, D] f32
+    v = v.transpose(0, 1)
     n = T if n_valid is None else int(n_valid)
-    if pos + T > kv_k.shape[1]:
-        raise ValueError(f"rows [{pos}, {pos + T}) exceed the "
-                         f"{kv_k.shape[1]}-row cache")
+    rows = (kv_k[0] if isinstance(kv_k, tuple) else kv_k).shape[1]
+    if pos + T > rows:
+        raise ValueError(f"rows [{pos}, {pos + T}) exceed the {rows}-row "
+                         "cache")
     # padding rows beyond n_valid keep the cache's previous contents
-    kv_k[:, pos:pos + n] = k[:, :n]
-    kv_v[:, pos:pos + n] = v[:, :n]
-    att = attention(q, kv_k, kv_v, pos, T, q_scale, window=window,
+    if isinstance(kv_k, tuple):
+        # int8 cache (codes, scales): absmax-quantize the new rows per
+        # (head, position), write them, then attend a bf16 dequant
+        (kc, ksc), (vc, vsc) = kv_k, kv_v
+        kq, ks_new, vq, vs_new = quantize_rows(k, v)
+        kc[:, pos:pos + n] = kq[:, :n]
+        ksc[:, pos:pos + n] = ks_new[:, :n]
+        vc[:, pos:pos + n] = vq[:, :n]
+        vsc[:, pos:pos + n] = vs_new[:, :n]
+        kf = kc.to(torch.bfloat16) * ksc.to(torch.bfloat16)
+        vf = vc.to(torch.bfloat16) * vsc.to(torch.bfloat16)
+    else:
+        kv_k[:, pos:pos + n] = k[:, :n].to(kv_k.dtype)
+        kv_v[:, pos:pos + n] = v[:, :n].to(kv_v.dtype)
+        kf, vf = kv_k, kv_v
+    att = attention(q, kf, vf, pos, T, q_scale, window=window,
                     softcap=arch.attn_softcap)
     o = qmatmul(att.reshape(T, Hq * D).to(torch.bfloat16), lw.wo,
                 layer=layer)
@@ -237,9 +275,21 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     return x + o
 
 
+def quantize_rows(k: torch.Tensor, v: torch.Tensor):
+    """Absmax int8 quantization of new k/v rows, one f32 scale per row of
+    the last axis: (k codes, k scales, v codes, v scales), scales keeping a
+    trailing axis of 1."""
+    ks = k.abs().amax(-1, keepdim=True) / 127.0 + 1e-9
+    vs = v.abs().amax(-1, keepdim=True) / 127.0 + 1e-9
+    return (torch.round(k / ks).to(torch.int8), ks,
+            torch.round(v / vs).to(torch.int8), vs)
+
+
 def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
                sin_t, n_valid=None, layer: int = 0):
-    """One transformer block (dense FFN). x [T, H] f32; returns x."""
+    """One transformer block (dense FFN). x [T, H] f32; kv_k/kv_v this
+    layer's cache views ((codes, scales) tuples for an int8 cache); returns
+    x."""
     if arch.n_experts:
         raise NotImplementedError(
             "mixture-of-experts FFNs are not ported yet (ROADMAP queue 1 "
@@ -312,8 +362,9 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
                else [int(i) for i in layer_sel])
     cosines = []
     for li in indices:
-        x2 = layer_step(arch, x, weights.layers, kv.k[li], kv.v[li], pos,
-                        cos_t, sin_t, n_valid, layer=li)
+        kk, vv = kv.layer(li)
+        x2 = layer_step(arch, x, weights.layers, kk, vv, pos, cos_t, sin_t,
+                        n_valid, layer=li)
         if with_cosine:
             cosines.append(_cosine(x, x2))
         x = x2

@@ -66,6 +66,15 @@ def test_cli_defaults_to_cuda_and_raises_without_it():
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
 
 
+def test_cli_serve_defaults_to_cuda_and_raises_without_it(tmp_path):
+    prompts = tmp_path / "p.txt"
+    prompts.write_text("def f(x):\n")
+    r = _run("from ntransformer_tpu_torch.cli import main\n"
+             f"main(['-m', 'models/repolm512_q8.gguf', '--serve', "
+             f"{str(prompts)!r}])")
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
 def test_kernel_modules_import_without_nvcc(tmp_path):
     """With no nvcc anywhere, importing the kernel modules and computing on
     CPU tensors works; asking for a build raises."""
@@ -76,6 +85,16 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         "y = matmul.quant_matmul_cuda(x, torch.zeros(32, 16, dtype=torch.int8),"
         " torch.zeros(1, 16, dtype=torch.int16))\n"
         "assert y.shape == (1, 16) and matmul.launches == 0\n"
+        "from ntransformer_tpu_torch.ops.cuda import batched_attention, "
+        "kv_update\n"
+        "c = torch.zeros(1, 1, 1, 8, 64, dtype=torch.bfloat16)\n"
+        "o = batched_attention.flash_decode_batched(torch.zeros(1, 2, 64), c,"
+        " c, torch.zeros(1, 1, 64), torch.zeros(1, 1, 64), torch.tensor([3]),"
+        " 0.125, layer=0)\n"
+        "kv_update.append_rows_stacked((c,), (torch.ones(1, 1, 1, 64),), "
+        "torch.tensor([2]), torch.tensor([True]))\n"
+        "assert o.shape == (1, 2, 64) and float(c[0, 0, 0, 2].sum()) == 64\n"
+        "assert batched_attention.launches == kv_update.launches == 0\n"
         "try:\n"
         "    build.nvcc_path()\n"
         "except RuntimeError as e:\n"

@@ -19,6 +19,10 @@ now and then rounds to the neighbouring bf16 value before a matmul.
   prefill then decode), and the deeper cache rows of the tiny model's
   random weights agree only 63-82% bit for bit. LOGIT_RTOL is 5e-3 of the
   largest logit, and the cache is held bit for bit at layer 0 only.
+- The int8 cache rounds every row to absmax codes, and a code that rounds
+  the other way moves its row by a whole step: the logits differ by up to
+  7.3e-3 of the largest (repolm512; 4.4e-3 on the tiny model), held to
+  INT8_LOGIT_RTOL = 2e-2, the JAX suite's own int8 limit.
 """
 import dataclasses
 import os
@@ -45,11 +49,25 @@ from tools.make_test_gguf import write_model
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPOLM = os.path.join(REPO, "models", "repolm512_q8.gguf")
 LOGIT_RTOL = 5e-3
+INT8_LOGIT_RTOL = 2e-2
 LAYER_RTOL = {"prefill": 1e-3, "decode": 1e-5}
 CACHE_EQUAL = 0.99
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    return xf * weight\n")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each port test runs torch on one CPU thread, restored afterwards:
+    test workers share the cores, and torch's thread pools oversubscribe
+    them (six workers over the port's test files took 352 s with the
+    default pools, 36 s with one thread each). One thread also fixes the
+    summation order that the greedy comparisons see."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -301,8 +319,51 @@ def test_unsupported_weights_refused_at_load(tmp_path):
     moe = write_model(str(tmp_path / "moe.gguf"), "moe", "q8_0", seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_model(moe, device="cpu")
+    # the int8 KV cache is ported: codes and [L, Hkv, S, 1] scales, as the
+    # JAX package lays them out
     ref = jax_load_model(REPOLM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pllama.KVCache.create(pllama.Arch(**dataclasses.asdict(ref.arch)),
-                              quant=True, device="cpu")
+    jkv = jllama.KVCache.create(ref.arch, quant=True)
+    pkv = pllama.KVCache.create(pllama.Arch(**dataclasses.asdict(ref.arch)),
+                                quant=True, device="cpu")
+    assert pkv.quantized and jkv.quantized
+    for got, want in ((pkv.k, jkv.k), (pkv.ks, jkv.ks)):
+        assert tuple(got.shape) == want.shape
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("which", ["tiny", "repolm512"])
+def test_int8_cache_forward_matches_jax(paths, which):
+    """The int8 KV cache (absmax codes + per-position scales, attended
+    through a bf16 dequant): a T=70 prefill in a 128 bucket, then decode
+    steps, on identical parameters. Logits within INT8_LOGIT_RTOL of the
+    largest (a code that rounds the other way moves its row by a whole
+    quantization step); layer 0's codes agree bit for bit but for a rare
+    flip and its scales to 1e-5; padding rows stay unwritten."""
+    ref = jax_load_model(paths[which], fuse=True)
+    arch = pllama.Arch(**dataclasses.asdict(ref.arch))
+    weights = weights_from_numpy(jax_tree(ref.weights), arch, "cpu")
+    toks = np.random.default_rng(5).integers(3, arch.vocab_size, 73)
+    padded = np.zeros(128, np.int32)
+    padded[:70] = toks[:70]
+    jkv = jllama.KVCache.create(ref.arch, quant=True)
+    jl, jkv, _ = jllama.forward(ref.arch, ref.weights, jkv,
+                                jnp.asarray(padded), 0, n_valid=70)
+    pkv = pllama.KVCache.create(arch, quant=True, device="cpu")
+    pl, pkv, _ = pllama.forward(arch, weights, pkv,
+                                torch.from_numpy(padded.astype(np.int64)), 0,
+                                n_valid=70)
+    assert _rel(pl.numpy(), np.asarray(jl)) <= INT8_LOGIT_RTOL
+    for i in range(70, 73):
+        jl, jkv, _ = jllama.forward(ref.arch, ref.weights, jkv,
+                                    jnp.asarray([toks[i]], jnp.int32), i)
+        pl, pkv, _ = pllama.forward(arch, weights, pkv, [int(toks[i])], i)
+        assert _rel(pl.numpy(), np.asarray(jl)) <= INT8_LOGIT_RTOL, i
+    for got, want in ((pkv.k, jkv.k), (pkv.v, jkv.v)):
+        assert (got[0, :, :73].numpy() == np.asarray(want[0, :, :73])).mean() \
+            >= 0.999
+    for got, want in ((pkv.ks, jkv.ks), (pkv.vs, jkv.vs)):
+        np.testing.assert_allclose(got[0, :, :73].numpy(),
+                                   np.asarray(want[0, :, :73]), rtol=1e-5)
+    assert int(pkv.k[:, :, 73:].abs().max()) == 0
+    assert float(pkv.ks[:, :, 73:].abs().max()) == 0.0

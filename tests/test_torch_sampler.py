@@ -81,8 +81,8 @@ def test_greedy_with_repeat_penalty_matches_jax(penalty):
 
 def test_sampler_window_and_seed():
     cfg = psampler.SamplerConfig(temperature=0.8, top_k=8, seed=5)
-    a = psampler.Sampler(cfg, V)
-    b = psampler.Sampler(cfg, V)
+    a = psampler.Sampler(cfg, V, "cpu")
+    b = psampler.Sampler(cfg, V, "cpu")
     lt = torch.from_numpy(_logits(3))
     assert [int(a.sample(lt)) for _ in range(20)] == \
         [int(b.sample(lt)) for _ in range(20)]
