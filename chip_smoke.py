@@ -9,9 +9,9 @@ Phases (any failure exits non-zero; nothing is caught); the set-up always
 runs, `python3 chip_smoke.py kernels,serve` (names comma-separated) runs a
 subset of the rest:
 
-  set-up: the card's name and power limit, TF32 off, the four kernels built
-     from csrc/ with nvcc (one process each, in parallel) and nvcc's
-     register report printed;
+  set-up: the card's name and power limit, TF32 off, the five kernel
+     sources built from csrc/ with nvcc (one process each, in parallel) and
+     nvcc's register report printed;
   kernels: the Q8_0 matmul and prefill flash attention against their plain
      PyTorch twins on the card at the full-width shapes (Llama-3.1-8B and
      repolm512), with times (CUDA events, L2 flushed before every launch,
@@ -19,6 +19,9 @@ subset of the rest:
      library call as a yardstick;
   bkernels: the same for batched flash decode/verify and the in-place KV
      append at the serving shapes (8B, B = 1 to 32, bf16 and int8);
+  qkernels: the same for the Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul
+     kernels at T = 1, 32 and 512 (8B shapes, the Q6_K head, repolm512's
+     shapes, a ragged N);
   real: models/repolm512_q8.gguf through the CLI on the card, Engine greedy
      generation on the card against the CPU, teacher-forced on the CPU's
      tokens with every step's logits compared, and each layer of the kernel
@@ -33,7 +36,16 @@ subset of the rest:
      slice's main path: the launch counts in the kernels line are read
      around it), the batched step as the bench drives it (B = 1 bf16, B = 32
      int8, a T = 4 verify window) with profiles, and a 2-layer batched step
-     with the kernels on and off.
+     with the kernels on and off;
+  qreal: repolm512 requantized on the host with the port's own quantizer
+     and GGUF writer (Q4_K_M, Q4_K_M with a Q6_K attn_v, all-Q5_K,
+     all-Q4_0), each through the CLI and Engine as in `real`, and the
+     Q4_K_M file served as in `serve`;
+  qfull: a synthetic Llama-3.1-8B Q4_K_M (seeded random codes, scales
+     giving |w| ~ 0.02) through Engine.benchmark and BatchServer as in
+     `full` and `bfull` (its launch counts are the Q4_K and Q6_K kernels'
+     main path), then bench.py's B = 1 batched step for Q4_0 (the Q4_0
+     kernel's main path) and Q6_K.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -79,8 +91,22 @@ LAYER_RTOL = {"prefill": 5e-3, "decode": 1e-4}
 # roundings: at step 4 layer 4 turns a 1e-3 difference in its input into
 # 2e-2 for every pair of paths (card plain vs CPU included); the kernel
 # path's own roundings may move it by as much again
-# (experiments/real_logit_steps.py).
+# (experiments/real_logit_steps.py). A decode step's r is also at least m,
+# the kernel path's prefill with plain decode steps against the CPU: the
+# spread the prefill's roundings carry into that step. On repolm512 in
+# Q4_K_M step 2 reads 1.29e-2 with the kernels, 1.3e-2 with the kernel
+# prefill and plain decode steps, and 3.2e-3 on the plain path (chip run
+# 8, PR 3): the prefill's roundings, amplified, not the decode kernels.
+# The prefill itself (step 0) is held to the plain path's r, and each
+# layer by LAYER_RTOL.
 REAL_LOGIT_RTOL = 1e-2
+# the same floor for the served batched steps, per cache: an int8 cache
+# rounds every new row to absmax codes, and a code that rounds the other
+# way moves its row by a whole step, so the int8 floor is the JAX suite's
+# own int8 limit (as BATCHED_LOGIT_RTOL and tests/test_torch_model.py's
+# INT8_LOGIT_RTOL). Measured: repolm512 Q4_K_M int8, 1.21e-2 at one
+# (step, slot) where the plain paths read 5.6e-3 (chip run 4, PR 3).
+SERVE_LOGIT_RTOL = {"bf16": REAL_LOGIT_RTOL, "int8": 2e-2}
 # 8B 2-layer prefill logits, kernels on vs off on the card: the flash
 # kernel rounds p to bf16 where the plain path keeps f32 probabilities (the
 # JAX package's own kernel-vs-CPU spread on repolm512's prefill is 1.2e-2,
@@ -88,16 +114,23 @@ REAL_LOGIT_RTOL = 1e-2
 FULL_LOGIT_RTOL = 2e-2
 # 8B 2-layer batched decode step, kernels on vs off on the card: a bf16
 # cache differs only in f32 summation orders and the rare bf16 flip of an
-# activation or a written row (2^-8 of a value); an int8 cache is attended
-# through a bf16 dequant on the plain path where the kernel folds the exact
-# f32 scales, the JAX suite's int8 kernel-vs-jnp limit (2e-2)
+# activation or a written row (2^-8 of a value); with an int8 cache the
+# matmul kernels are held to the bf16 limit and the attention and append
+# kernels, against plain attention over the exact dequantized values, to
+# the JAX suite's int8 kernel-vs-jnp limit (2e-2). (Kernels on vs off with
+# an int8 cache also compares the plain path's bf16 dequant of the codes
+# with the kernel's exact scale fold: 1.42e-2 on the Q8_0 weights, 2.12e-2
+# on Q4_K_M's; chip runs 4-6, PR 3.)
 BATCHED_LOGIT_RTOL = {"bf16": 5e-3, "int8": 2e-2}
 # the kernels each path launches: the single-stream Engine path, and the
 # serving path (the batched step adds batched flash and, at B > 1, the
 # in-place KV append)
 ENGINE_KERNELS = ("q8_0_matmul", "flash_attention")
+SERVE_KERNELS = ENGINE_KERNELS + ("batched_attention", "kv_update")
+REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
-PHASES = ("kernels", "bkernels", "real", "serve", "full", "bfull")
+PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
+          "bfull", "qreal", "qfull")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -546,19 +579,27 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------- phase 3
-def greedy_pass(engine, torch, ids, n: int, forced=None):
-    """Prefill `ids`, then n greedy steps (or steps fed with `forced`).
-    Returns (tokens, [logits of each step as f32 CPU tensors])."""
+def greedy_pass(engine, torch, ids, n: int, forced=None,
+                plain_decode: bool = False):
+    """Prefill `ids`, then n greedy steps (or steps fed with `forced`);
+    plain_decode runs the decode steps with the kernels off. Returns
+    (tokens, [logits of each step as f32 CPU tensors])."""
     from ntransformer_tpu_torch.models.llama import KVCache
+    from ntransformer_tpu_torch.ops import linear
     kv = KVCache.create(engine.arch, device=engine.device)
     logits, kv, _ = engine._prefill(kv, ids)
     toks, out = [], [logits[0].float().cpu()]
     pos = len(ids)
-    for i in range(n):
-        tok = int(torch.argmax(out[-1])) if forced is None else forced[i]
-        toks.append(tok)
-        logits, kv, _ = engine._decode_step(kv, tok, pos + i)
-        out.append(logits[0].float().cpu())
+    if plain_decode:
+        linear.KERNEL_MODE = "off"
+    try:
+        for i in range(n):
+            tok = int(torch.argmax(out[-1])) if forced is None else forced[i]
+            toks.append(tok)
+            logits, kv, _ = engine._decode_step(kv, tok, pos + i)
+            out.append(logits[0].float().cpu())
+    finally:
+        linear.KERNEL_MODE = "auto"
     return toks, out
 
 
@@ -602,10 +643,14 @@ def layer_by_layer(torch, engine, ids) -> dict:
     return worst
 
 
-def real_model_phase(torch, counters, card: str):
+def real_model_phase(torch, counters, card: str, gguf: str = REPOLM,
+                     kernels=ENGINE_KERNELS) -> dict:
+    """`gguf` (repolm512 or a requantized copy) through the CLI on the card
+    (every kernel of `kernels` launched), Engine greedy generation on the
+    card against the CPU, teacher-forced, and layer by layer."""
     from ntransformer_tpu_torch import cli
     from ntransformer_tpu_torch.inference.engine import Engine, GenerateConfig
-    gguf = os.path.join(HERE, "models", "repolm512_q8.gguf")
+    tag = os.path.basename(gguf)
     reset(counters)
     rc = cli.main(["-m", gguf, "-p", PROMPT, "-n", "32", "-t", "0",
                    "--repeat-penalty", "1.0", "--device", "cuda"])
@@ -613,8 +658,8 @@ def real_model_phase(torch, counters, card: str):
     got = read(counters)
     print(f"cli launches {got}", flush=True)
     check(rc == 0, f"cli exit code {rc}")
-    check(all(got[k] > 0 for k in ENGINE_KERNELS),
-          f"CLI run on the card launched a kernel zero times: {got}")
+    check(all(got[k] > 0 for k in kernels),
+          f"{tag}: CLI run on the card launched a kernel zero times: {got}")
 
     gpu = Engine.load(gguf, device="cuda", fuse=True)
     cpu = Engine.load(gguf, device="cpu", fuse=True)
@@ -623,13 +668,16 @@ def real_model_phase(torch, counters, card: str):
     cfg = GenerateConfig(max_tokens=32, temperature=0.0, repeat_penalty=1.0)
     text_gpu, st_gpu = gpu.generate(PROMPT, cfg)
     text_cpu, _ = cpu.generate(PROMPT, cfg)
-    print(f"repolm512 gpu: {text_gpu!r}", flush=True)
-    print(f"repolm512 cpu: {text_cpu!r}", flush=True)
-    print(f"repolm512 gpu generate on {card}: {st_gpu.report()!r}",
-          flush=True)
+    print(f"{tag} gpu: {text_gpu!r}", flush=True)
+    print(f"{tag} cpu: {text_cpu!r}", flush=True)
+    print(f"{tag} gpu generate on {card}: {st_gpu.report()!r}", flush=True)
     cpu_toks, cpu_logits = greedy_pass(cpu, torch, ids, 32)
     gpu_toks, _ = greedy_pass(gpu, torch, ids, 32)
     _, forced_logits = greedy_pass(gpu, torch, ids, 32, forced=cpu_toks)
+    # the kernel path's prefill with plain decode steps: the spread the
+    # prefill's kernels alone carry into each decode step
+    _, mixed_logits = greedy_pass(gpu, torch, ids, 32, forced=cpu_toks,
+                                  plain_decode=True)
     from ntransformer_tpu_torch.ops import linear
     linear.KERNEL_MODE = "off"  # the same run on the card, plain PyTorch
     try:
@@ -642,27 +690,34 @@ def real_model_phase(torch, counters, card: str):
         return [float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(got, cpu_logits)]
     for a in forced_logits:
-        check(bool(torch.isfinite(a).all()), "repolm512: non-finite logits")
+        check(bool(torch.isfinite(a).all()), f"{tag}: non-finite logits")
     kern, plain = rels(forced_logits), rels(plain_logits)
-    limits = [max(REAL_LOGIT_RTOL, 2 * r) for r in plain]
-    print(f"repolm512: {agree}/{len(cpu_toks)} greedy tokens agree; "
+    mixed = rels(mixed_logits)
+    # step 0 (the prefill) against the plain path's spread; a decode step
+    # against the larger of that and the spread the kernel prefill leaves
+    limits = [max(REAL_LOGIT_RTOL, 2 * r, 2 * m * (i > 0))
+              for i, (r, m) in enumerate(zip(plain, mixed))]
+    print(f"{tag}: {agree}/{len(cpu_toks)} greedy tokens agree; "
           f"teacher-forced max|dlogit|/max|logit| per step, kernels vs CPU: "
           f"{[round(r, 4) for r in kern]}; card plain path vs CPU: "
-          f"{[round(r, 4) for r in plain]}", flush=True)
+          f"{[round(r, 4) for r in plain]}; kernel prefill + plain decode "
+          f"vs CPU: {[round(r, 4) for r in mixed]}", flush=True)
     for i, (r, lim) in enumerate(zip(kern, limits)):
-        check(r <= lim, f"repolm512 step {i}: teacher-forced logits differ "
+        check(r <= lim, f"{tag} step {i}: teacher-forced logits differ "
               f"by {r} of their range (> {lim})")
     layers = layer_by_layer(torch, gpu, ids)
-    print(f"repolm512 layer by layer, kernels vs plain on the card: "
+    print(f"{tag} layer by layer, kernels vs plain on the card: "
           f"{layers} (tol {LAYER_RTOL})", flush=True)
     for phase, r in layers.items():
         check(r <= LAYER_RTOL[phase],
-              f"repolm512 {phase}: a layer's kernel output differs by {r} "
+              f"{tag} {phase}: a layer's kernel output differs by {r} "
               f"of its range from the plain path's (> {LAYER_RTOL[phase]})")
     worst = max(kern)
     return {"tokens_agree": agree, "tokens": len(cpu_toks),
-            "logit_rel_err": worst, "layer_rel_err": layers,
-            "gpu_text": text_gpu, "cpu_text": text_cpu}
+            "logit_rel_err": worst, "logit_rel_err_steps": kern,
+            "plain_rel_err_steps": plain, "mixed_rel_err_steps": mixed,
+            "layer_rel_err": layers,
+            "gpu_text": text_gpu, "cpu_text": text_cpu, "cli_launches": got}
 
 
 def serve_prompts(tokenizer) -> list[str]:
@@ -716,8 +771,10 @@ def batched_pass(torch, model, bkv, lens, first, n: int, impl: str,
     return toks, out[1:]
 
 
-def real_serve_phase(torch, counters, card: str) -> dict:
-    """repolm512 served on the card: the CLI's --serve (bf16 and int8), the
+def real_serve_phase(torch, counters, card: str, gguf: str = REPOLM,
+                     kernels=SERVE_KERNELS) -> dict:
+    """repolm512 (or a requantized copy) served on the card: the CLI's
+    --serve (bf16 and int8; every kernel of `kernels` launched), the
     batched step from the CPU's prefill teacher-forced on the CPU's tokens
     (kernel path and the card's plain path against the CPU, every step and
     slot), and greedy serving on the card against the CPU, end to end."""
@@ -727,7 +784,7 @@ def real_serve_phase(torch, counters, card: str) -> dict:
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
     from ntransformer_tpu_torch.models.loader import load_model
     from ntransformer_tpu_torch.ops import linear
-    gguf = os.path.join(HERE, "models", "repolm512_q8.gguf")
+    tag = os.path.basename(gguf)
     gpu = load_model(gguf, device="cuda", fuse=True)
     cpu = load_model(gguf, device="cpu", fuse=True)
     prompts = serve_prompts(gpu.tokenizer)
@@ -743,11 +800,13 @@ def real_serve_phase(torch, counters, card: str) -> dict:
                            "--device", "cuda"] + flags)
             torch.cuda.synchronize()
             got = read(counters)
-            print(f"cli --serve {' '.join(flags)} launches {got}", flush=True)
+            print(f"{tag} cli --serve {' '.join(flags)} launches {got}",
+                  flush=True)
             check(rc == 0, f"cli --serve {flags} exit code {rc}")
-            check(all(v > 0 for v in got.values()),
-                  f"--serve {flags} on the card launched a kernel zero "
-                  f"times: {got}")
+            check(all(got[k] > 0 for k in kernels),
+                  f"{tag} --serve {flags} on the card launched a kernel "
+                  f"zero times: {got}")
+            out["cli_launches" + "_int8" * bool(flags)] = got
     ids = [gpu.tokenizer.encode(p, add_bos=True) for p in prompts]
     lens = [len(p) for p in ids]
     n = 16
@@ -778,17 +837,17 @@ def real_serve_phase(torch, counters, card: str) -> dict:
         rk, rp = rels(kern, "kernel"), rels(plain, "plain")
         for a in kern:
             check(bool(torch.isfinite(a).all()),
-                  f"repolm512 serving {mode}: non-finite logits")
+                  f"{tag} serving {mode}: non-finite logits")
         worst = max(max(r) for r in rk)
-        print(f"repolm512 batched {mode} from the CPU's prefill, "
+        print(f"{tag} batched {mode} from the CPU's prefill, "
               f"teacher-forced max|dlogit|/max|logit| per step (worst "
               f"slot), kernel path vs the CPU's: "
               f"{[round(max(r), 4) for r in rk]}; plain path vs the CPU's: "
               f"{[round(max(r), 4) for r in rp]}", flush=True)
         for s, (ks, ps) in enumerate(zip(rk, rp)):
             for b, (k, p) in enumerate(zip(ks, ps)):
-                lim = max(REAL_LOGIT_RTOL, 2 * p)
-                check(k <= lim, f"repolm512 serving {mode} step {s} slot {b}:"
+                lim = max(SERVE_LOGIT_RTOL[mode], 2 * p)
+                check(k <= lim, f"{tag} serving {mode} step {s} slot {b}:"
                       f" logits differ by {k} of their range (> {lim})")
         texts = {}
         for dev, model in (("gpu", gpu), ("cpu", cpu)):
@@ -800,7 +859,7 @@ def real_serve_phase(torch, counters, card: str) -> dict:
             texts[dev] = reqs
         agree = [sum(a == b for a, b in zip(g.output_ids, c.output_ids))
                  for g, c in zip(texts["gpu"], texts["cpu"])]
-        print(f"repolm512 greedy serving {mode} on {card}: "
+        print(f"{tag} greedy serving {mode} on {card}: "
               f"{agree} of {[len(c.output_ids) for c in texts['cpu']]} "
               f"tokens agree with the CPU; gpu "
               f"{[r.text for r in texts['gpu']]!r}; cpu "
@@ -819,10 +878,11 @@ class IdsTokenizer:
         return " ".join(str(i) for i in ids)
 
 
-def full_batched_phase(torch, counters, card: str, synth) -> tuple:
-    """The synthetic Llama-3.1-8B Q8_0 served at full width: BatchServer
-    with 8 slots answering 8 requests (the main path of this slice, launch
-    counts read around it), then the batched step as the bench drives it
+def full_batched_phase(torch, counters, card: str, synth,
+                       kernels=SERVE_KERNELS) -> tuple:
+    """A synthetic Llama-3.1-8B served at full width: BatchServer with 8
+    slots answering 8 requests (launch counts read around it; every kernel
+    of `kernels` launched), then the batched step as the bench drives it
     (B = 1 bf16 with the s_live bucket, B = 32 int8 from mid-context, a
     T = 4 verify window), a profile of the step, and kernels on vs off on a
     2-layer view."""
@@ -830,10 +890,10 @@ def full_batched_phase(torch, counters, card: str, synth) -> tuple:
     from ntransformer_tpu_torch.inference.sampler import SamplerConfig
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
     from ntransformer_tpu_torch.models.batched import (BatchedKV,
-                                                       batched_decode_step,
                                                        batched_verify_step)
     from ntransformer_tpu_torch.models.loader import LoadedModel
     cfg, arch, weights, per_token = synth
+    tag = cfg.model_name
     model = LoadedModel(cfg, arch, weights, IdsTokenizer(), None,
                         torch.device("cuda"))
     srv = BatchServer(model, batch_size=8,
@@ -847,12 +907,13 @@ def full_batched_phase(torch, counters, card: str, synth) -> tuple:
     stats = srv.run(reqs)
     torch.cuda.synchronize()
     launches = read(counters)
-    print(f"8b server (8 slots, 8 requests of {lens} tokens, warmup "
+    print(f"{tag} server (8 slots, 8 requests of {lens} tokens, warmup "
           f"{warm:.1f} s): {stats.report()}; launches {launches}", flush=True)
-    check(all(v > 0 for v in launches.values()),
-          f"the serving path launched a kernel zero times: {launches}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"{tag}: the serving path launched a kernel zero times: "
+          f"{launches}")
     check(all(len(r.output_ids) == 16 for r in reqs),
-          "8b server: a request finished short")
+          f"{tag} server: a request finished short")
     summary = {"card": card, "serve_tokens": stats.tokens,
                "serve_wall_s": stats.wall_s,
                "serve_tok_s": stats.tokens_per_s,
@@ -864,40 +925,12 @@ def full_batched_phase(torch, counters, card: str, synth) -> tuple:
 
     arch1k = dataclasses.replace(arch, max_seq_len=1024)
 
-    def bucket(needed: int):  # the server's 4-rung s_live ladder
-        for i in (1, 2, 3):
-            b = (1024 * i) // 4
-            if b >= 256 and b >= needed:
-                return b
-        return None
-
     def chain(bkv, b_n, n, base, tokens):
-        sl = bucket(base + n + 1)
-        active = torch.ones(b_n, dtype=torch.bool, device="cuda")
-        for i in range(n):
-            pos = torch.full((b_n,), base + i, dtype=torch.long,
-                             device="cuda")
-            logits, bkv = batched_decode_step(arch1k, weights, bkv, tokens,
-                                              pos, active, s_live=sl)
-            tokens = torch.argmax(logits, -1)
-        tokens.cpu()  # a real fence
-        return tokens
+        return batched_chain(torch, arch1k, weights, bkv, b_n, n, base,
+                             tokens)
 
-    cells = {}
-    # B = 1 bf16, S = 1024, chained with the s_live bucket (bench_decode)
+    cells = {"b1_bf16": bench_b1(torch, counters, arch, weights, per_token)}
     bkv = BatchedKV.create(arch1k, 1, device="cuda")
-    tok = torch.full((1,), 3, dtype=torch.long, device="cuda")
-    tok = chain(bkv, 1, 8, 8, tok)
-    reset(counters)
-    best = float("inf")
-    for i in range(2):
-        t0 = time.perf_counter()
-        tok = chain(bkv, 1, 64, 24 + i * 64, tok)
-        best = min(best, (time.perf_counter() - t0) / 64)
-    cells["b1_bf16"] = {"ms_per_step": best * 1e3, "tok_s": 1.0 / best,
-                        "effective_GB_s": per_token / best / 1e9,
-                        "launches": read(counters),
-                        "s_live": bucket(24 + 128 + 1)}
     prof_b1 = profile_batched(torch, arch1k, weights, bkv, 1, 160)
     del bkv
     # B = 32 int8 from mid-context (bench_b32_int8: delta-timed rounds)
@@ -914,7 +947,7 @@ def full_batched_phase(torch, counters, card: str, synth) -> tuple:
     cells["b32_int8"] = {"ms_per_step": dt * 1e3, "tok_s_aggregate": 32 / dt,
                          "effective_GB_s": per_token / dt / 1e9,
                          "launches": read(counters),
-                         "s_live": bucket(512 + 64 + 72 + 1)}
+                         "s_live": s_live_bucket(512 + 64 + 72 + 1)}
     prof_b32 = profile_batched(torch, arch1k, weights, bkv, 32, 700)
     del bkv
     # a T = 4 verify window, B = 8 bf16 from mid-context
@@ -931,16 +964,64 @@ def full_batched_phase(torch, counters, card: str, synth) -> tuple:
     vl.cpu()
     dt = (time.perf_counter() - t0) / 8
     check(bool(torch.isfinite(vl).all()) and tuple(vl.shape)
-          == (8, 4, arch.vocab_size), "8b verify: bad logits")
+          == (8, 4, arch.vocab_size), f"{tag} verify: bad logits")
     cells["verify_b8_t4_bf16"] = {"ms_per_step": dt * 1e3,
                                   "tok_s": 32 / dt,
                                   "launches": read(counters)}
     del bkv
     for name, c in cells.items():
-        print(json.dumps({f"8b_batched_{name}": c}), flush=True)
+        print(json.dumps({f"{tag}_batched_{name}": c}), flush=True)
     summary.update(cells=cells, profile_b1=prof_b1, profile_b32=prof_b32,
                    two_layer=batched_on_off(torch, arch, weights))
     return summary, launches
+
+
+def s_live_bucket(needed: int):
+    """The server's 4-rung s_live ladder over a 1024-row cache."""
+    for i in (1, 2, 3):
+        b = (1024 * i) // 4
+        if b >= 256 and b >= needed:
+            return b
+    return None
+
+
+def batched_chain(torch, arch1k, weights, bkv, b_n: int, n: int, base: int,
+                  tokens):
+    """n greedy batched decode steps from position `base` with the s_live
+    bucket, as bench.py chains them; ends in a real fence."""
+    from ntransformer_tpu_torch.models.batched import batched_decode_step
+    sl = s_live_bucket(base + n + 1)
+    active = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    for i in range(n):
+        pos = torch.full((b_n,), base + i, dtype=torch.long, device="cuda")
+        logits, bkv = batched_decode_step(arch1k, weights, bkv, tokens, pos,
+                                          active, s_live=sl)
+        tokens = torch.argmax(logits, -1)
+    tokens.cpu()  # a real fence
+    return tokens
+
+
+def bench_b1(torch, counters, arch, weights, per_token: int) -> dict:
+    """The B = 1 bf16 batched step as bench.py's resident decode keys time
+    it: S = 1024, chained with the s_live bucket, best of two 64-step
+    runs; launch counts read around the timed runs."""
+    import dataclasses
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    arch1k = dataclasses.replace(arch, max_seq_len=1024)
+    bkv = BatchedKV.create(arch1k, 1, device="cuda")
+    tok = torch.full((1,), 3, dtype=torch.long, device="cuda")
+    tok = batched_chain(torch, arch1k, weights, bkv, 1, 8, 8, tok)
+    reset(counters)
+    best = float("inf")
+    for i in range(2):
+        t0 = time.perf_counter()
+        tok = batched_chain(torch, arch1k, weights, bkv, 1, 64, 24 + i * 64,
+                            tok)
+        best = min(best, (time.perf_counter() - t0) / 64)
+    return {"ms_per_step": best * 1e3, "tok_s": 1.0 / best,
+            "effective_GB_s": per_token / best / 1e9,
+            "launches": read(counters),
+            "s_live": s_live_bucket(24 + 128 + 1)}
 
 
 def profile_batched(torch, arch, weights, bkv, b_n: int, pos0: int,
@@ -987,7 +1068,14 @@ def batched_on_off(torch, arch, weights) -> dict:
     off (the plain path writes each layer's rows, then attends the whole
     cache in plain PyTorch), B = 4 from a random mid-context cache with one
     inactive slot: logits within BATCHED_LOGIT_RTOL, rows no path writes
-    bit-equal, layer 0's written rows equal but for rare bf16 flips."""
+    bit-equal, layer 0's written rows equal but for rare bf16 flips. With
+    an int8 cache the plain path attends a bf16 dequant of the codes where
+    the kernels fold the exact f32 scales, so the logits are held in two
+    parts with the semantics kept equal: the matmul kernels (plain
+    attention on both sides) to the bf16 limit, and the attention and
+    append kernels against plain attention over an f32 cache holding the
+    exact dequantized values (matmul kernels on both sides) to the int8
+    limit (the new rows' codes round on the kernel side only)."""
     import dataclasses
     from ntransformer_tpu_torch.models import llama
     from ntransformer_tpu_torch.models.batched import (BatchedKV,
@@ -1017,23 +1105,43 @@ def batched_on_off(torch, arch, weights) -> dict:
                 c.copy_(torch.rand(c.shape, device="cuda", generator=g)
                         * (0.02 if c.dtype == torch.float32 else 1.0))
         outs = {}
-        for mode in ("auto", "off"):
+        runs = {"auto": ("auto", None, base), "off": ("off", None, base)}
+        if quant:
+            exact = BatchedKV(base.k.float() * base.ks[..., None],
+                              base.v.float() * base.vs[..., None])
+            runs["matmul"] = ("auto", "plain", base)
+            runs["exact"] = ("auto", "plain", exact)
+        for name, (mode, impl, src) in runs.items():
             kv = BatchedKV(*(None if t is None else t.clone()
-                             for t in (base.k, base.v, base.ks, base.vs)))
+                             for t in (src.k, src.v, src.ks, src.vs)))
             linear.KERNEL_MODE = mode
             try:
-                lg, kv = batched_decode_step(arch2, w2, kv, tok, pos, act)
+                lg, kv = batched_decode_step(arch2, w2, kv, tok, pos, act,
+                                             impl=impl)
                 torch.cuda.synchronize()
             finally:
                 linear.KERNEL_MODE = "auto"
-            outs[mode] = (lg, kv)
+            outs[name] = (lg, kv)
         (a, kva), (b, kvb) = outs["auto"], outs["off"]
-        rel = float((a - b).abs().max() / b.abs().max())
+
+        def rel_of(x, y):
+            return float((x - y).abs().max() / y.abs().max())
+        rel = rel_of(a, b)
         check(bool(torch.isfinite(a).all()), "8b 2-layer batched: non-finite")
-        lim = BATCHED_LOGIT_RTOL["int8" if quant else "bf16"]
         mode = "int8" if quant else "bf16"
-        check(rel <= lim, f"8b 2-layer batched {mode}: logits differ by "
-              f"{rel} of their range (> {lim})")
+        parts = {"all": (rel, BATCHED_LOGIT_RTOL[mode])}
+        if quant:
+            parts = {"matmul kernels": (rel_of(outs["matmul"][0], b),
+                                        BATCHED_LOGIT_RTOL["bf16"]),
+                     "int8 attention": (rel_of(a, outs["exact"][0]),
+                                        BATCHED_LOGIT_RTOL["int8"])}
+            del exact
+        print(f"8b 2-layer batched step {mode}, kernels on vs off: "
+              f"max|d|/max|off| = {rel:.3e}; by part (value, tol): {parts}",
+              flush=True)
+        for part, (r, lim) in parts.items():
+            check(r <= lim, f"8b 2-layer batched {mode} ({part}): logits "
+                  f"differ by {r} of their range (> {lim})")
         written = torch.zeros(2, 4, 1, 1024, dtype=torch.bool, device="cuda")
         for bi in range(4):
             if bool(act[bi]):
@@ -1048,42 +1156,63 @@ def batched_on_off(torch, arch, weights) -> dict:
                 eq0.append(float((x[0][m[0]] == y[0][m[0]]).float().mean()))
         check(min(eq0) >= 0.99, f"8b 2-layer batched {mode}: layer 0's "
               f"written rows agree only {eq0}")
-        print(f"8b 2-layer batched step {mode}, kernels on vs off: "
-              f"max|d|/max|off| = {rel:.3e} (tol {lim}); layer-0 written "
-              f"rows equal {eq0}", flush=True)
-        res[mode] = {"logit_rel_err": rel, "layer0_rows_equal": eq0}
+        print(f"8b 2-layer batched step {mode}: layer-0 written rows equal "
+              f"{eq0}", flush=True)
+        res[mode] = {"logit_rel_err": rel, "parts": parts,
+                     "layer0_rows_equal": eq0}
     return res
 
 
 # ---------------------------------------------------------------- phase 4
-def build_synth(torch):
-    """The synthetic Llama-3.1-8B Q8_0 on the card, with codes of a
-    realistic spread: (cfg, arch, weights, bytes read per decoded token)."""
+# f16 scales of the synthetic 8B models, per format: with codes uniform over
+# their range the weights are centred and |w| averages ~0.02 (Q8_0: codes in
+# [-8, 8] at d = 0.004). Q4_0: (nib - 8) * 0.005; Q4_K: q * (0.000625 * 8) -
+# 0.0046875 * 8 = 0.005 q - 0.0375; Q5_K: 0.0025 q - 0.03875; Q6_K:
+# (q - 32) * (0.00015625 * 8) = 0.00125 (q - 32); sc / mn stay 8.
+SYNTH_SCALES = {"q4_0": {"d": 0.005}, "q4_k": {"d": 0.000625,
+                                              "dmin": 0.0046875},
+                "q5_k": {"d": 0.0003125, "dmin": 0.00484375},
+                "q6_k": {"d": 0.00015625}}
+
+
+def build_synth(torch, dtype: str = "q8_0"):
+    """The synthetic Llama-3.1-8B in `dtype` ("q4_k_m" takes the Q4_K_M
+    policy) on the card, with seeded random codes of a realistic spread:
+    (cfg, arch, weights, bytes read per decoded token)."""
     from ntransformer_tpu_torch.models.synth import model_nbytes, synth_model
     from ntransformer_tpu_torch.ops import linear
     t0 = time.perf_counter()
-    cfg, arch, weights = synth_model("8b", "q8_0", fuse=True,
+    cfg, arch, weights = synth_model("8b", dtype, fuse=True,
                                      max_seq_len=4096)
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
-    planes = [weights.embed.planes["qs"], weights.lm_head.planes["qs"]]
-    for f in weights.layers.__dataclass_fields__:
-        v = getattr(weights.layers, f)
-        if isinstance(v, linear.QLinear):
-            planes.append(v.planes["qs"])
-    for p in planes:  # codes of a realistic spread: |w| ~ 0.02 at d = 0.004
-        p.random_(-8, 9, generator=g)
+    mats = [weights.embed, weights.lm_head] + [
+        v for v in (getattr(weights.layers, f)
+                    for f in weights.layers.__dataclass_fields__)
+        if isinstance(v, linear.QLinear)]
+    for ql in mats:
+        if ql.dtype.value == "q8_0":  # |w| ~ 0.02 at d = 0.004
+            ql.planes["qs"].random_(-8, 9, generator=g)
+            continue
+        for nm, p in ql.planes.items():
+            if nm in ("qs", "ql", "qh"):
+                p.random_(0, 256, generator=g)
+            elif nm in ("d", "dmin"):
+                p.copy_(torch.full_like(p, SYNTH_SCALES[ql.dtype.value][nm],
+                                        dtype=torch.float16)
+                        .view(torch.int16))
     torch.cuda.synchronize()
     nbytes = model_nbytes(weights)
     per_token = nbytes - weights.embed.nbytes - (weights.rope_cos.numel()
                                                  + weights.rope_sin.numel()) * 4
-    print(f"8b q8_0 synth: {nbytes / 1e9:.3f} GB of planes, "
+    print(f"8b {dtype} synth: {nbytes / 1e9:.3f} GB of planes, "
           f"{per_token / 1e9:.3f} GB read per decoded token, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return cfg, arch, weights, per_token
 
 
-def full_width_phase(torch, counters, card: str, synth):
+def full_width_phase(torch, counters, card: str, synth,
+                     kernels=ENGINE_KERNELS):
     import dataclasses
     from ntransformer_tpu_torch.inference.engine import Engine
     from ntransformer_tpu_torch.models import llama
@@ -1099,9 +1228,10 @@ def full_width_phase(torch, counters, card: str, synth):
     stats = engine.benchmark(prompt_ids=ids, n_tokens=64)
     torch.cuda.synchronize()
     launches = read(counters)
-    print(f"Engine path launches {launches}", flush=True)
-    check(all(launches[k] > 0 for k in ENGINE_KERNELS),
-          f"the Engine path launched a kernel zero times: {launches}")
+    tag = cfg.model_name
+    print(f"{tag} Engine path launches {launches}", flush=True)
+    check(all(launches[k] > 0 for k in kernels),
+          f"{tag}: the Engine path launched a kernel zero times: {launches}")
     ms_tok = stats.decode_ms / stats.decode_tokens
     summary = {"card": card, "prefill_tokens": stats.prefill_tokens,
                "prefill_ms": stats.prefill_ms,
@@ -1110,7 +1240,7 @@ def full_width_phase(torch, counters, card: str, synth):
                "decode_ms_per_token": ms_tok, "decode_tok_s": stats.decode_tps,
                "effective_GB_s": per_token * stats.decode_tps / 1e9,
                "decode_bound_ms_per_token": per_token / HBM_BYTES_PER_S * 1e3}
-    print(json.dumps({"full_width_8b": summary}), flush=True)
+    print(json.dumps({f"full_width_{tag}": summary}), flush=True)
 
     kv = engine._make_kv()
     logits, kv, _ = llama.forward(arch, weights, kv, ids, 0, n_valid=512)
@@ -1144,13 +1274,13 @@ def full_width_phase(torch, counters, card: str, synth):
             outs[mode] = (lg, read(counters))
         finally:
             linear.KERNEL_MODE = "auto"
-    check(all(outs["auto"][1][k] > 0 for k in ENGINE_KERNELS),
+    check(all(outs["auto"][1][k] > 0 for k in kernels),
           f"2-layer kernel run launched {outs['auto'][1]}")
     check(all(v == 0 for v in outs["off"][1].values()),
           f"2-layer plain run launched kernels: {outs['off'][1]}")
     a, b = outs["auto"][0], outs["off"][0]
     rel = float((a - b).abs().max() / b.abs().max())
-    print(f"8b 2-layer prefill logits, kernels on vs off: "
+    print(f"{tag} 2-layer prefill logits, kernels on vs off: "
           f"max|d|/max|off| = {rel:.3e} (tol {FULL_LOGIT_RTOL})", flush=True)
     check(bool(torch.isfinite(a).all()), "8b 2-layer: non-finite logits")
     check(rel <= FULL_LOGIT_RTOL,
@@ -1196,6 +1326,207 @@ def profile_decode(torch, arch, weights, kv, logits, pos: int,
     return out
 
 
+# ------------------------------------------------------ nibble formats
+def random_planes(torch, g, dtype, k: int, n: int) -> dict:
+    """Planes of a random [K, N] matrix in a nibble format on the card:
+    uniform codes, 6-bit scales and mins (signed for Q6_K), f16 scales in
+    [1e-3, 1.1e-2]; nothing is symmetric in K."""
+    from ntransformer_tpu_torch.core.layout import LAYOUTS
+    planes = {}
+    for spec in LAYOUTS[dtype]:
+        shape = (k // spec.rows_div, n)
+        if spec.np_dtype == "uint16":
+            planes[spec.name] = (torch.rand(shape, device="cuda", generator=g)
+                                 * 0.01 + 1e-3).to(torch.float16).view(
+                                     torch.int16)
+        elif spec.name.startswith(("sc", "mn")):
+            lo, hi = (-32, 32) if spec.np_dtype == "int8" else (0, 64)
+            planes[spec.name] = torch.randint(
+                lo, hi, shape, dtype=getattr(torch, spec.np_dtype),
+                device="cuda", generator=g)
+        else:
+            planes[spec.name] = torch.randint(0, 256, shape,
+                                              dtype=torch.uint8,
+                                              device="cuda", generator=g)
+    return planes
+
+
+def nibble_kernel_phase(torch, timer, card: str) -> dict:
+    """The Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul kernels against their
+    plain twins on the card, at T = 1, 32 and 512, at the 8B shapes (fused
+    qkv, wo, fused gate|up, down; the 128256-token head for Q6_K), a layer
+    view of stacked planes, repolm512's K = 1024 down and 384-wide head,
+    a ragged N = 200 (scalar loads) and, for Q4_0, K = 1056 (a half K
+    step). Times by CUDA events as in the kernels phase; the library
+    yardstick is torch.matmul on the pre-dequantized bf16 weight."""
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.core.layout import LAYOUTS
+    from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
+    from ntransformer_tpu_torch.ops.dequant_torch import dequant_planes_torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5678)
+    out = {}
+    for dtype in nm.KERNELS:
+        kern = nm.KERNELS[dtype]
+        shapes = [("8b qkv", 4096, 6144, (1, 32, 512)),
+                  ("8b wo", 4096, 4096, (1, 32, 512)),
+                  ("8b gate|up", 4096, 28672, (1, 32, 512)),
+                  ("8b down", 14336, 4096, (1, 32, 512))]
+        if dtype == DType.Q6_K:
+            shapes.append(("8b head", 4096, 128256, (1, 32, 512)))
+        shapes += [("8b stacked[1] wo", 4096, 4096, (1, 32)),
+                   ("repolm512 down", 1024, 512, (1, 32, 70)),
+                   ("repolm512 head", 512, 384, (1, 70)),
+                   ("ragged 1024x200", 1024, 200, (1, 70))]
+        if dtype == DType.Q4_0:
+            shapes.append(("odd K 1056x256", 1056, 256, (1, 70)))
+        rows = []
+        for label, k, n, ts in shapes:
+            if label.startswith("8b stacked"):
+                stack = [random_planes(torch, g, dtype, k, n)
+                         for _ in range(2)]
+                planes = {nm_: torch.stack([p[nm_] for p in stack])[1]
+                          for nm_ in stack[0]}
+            else:
+                planes = random_planes(torch, g, dtype, k, n)
+            w = dequant_planes_torch(planes, dtype, k, n,
+                                     out_dtype=torch.bfloat16)
+            pbytes = sum(a.numel() * a.element_size()
+                         for a in planes.values())
+            for t in ts:
+                x = torch.randn(t, k, device="cuda", generator=g).to(
+                    torch.bfloat16)
+                y = nm.nibble_matmul_cuda(x, planes, dtype)
+                y0 = nm.nibble_matmul_plain(x, planes, dtype)
+                torch.cuda.synchronize()
+                err = float((y - y0).abs().max())
+                tol = MATMUL_RTOL * float(y0.abs().max())
+                name = f"{kern.name} {label} T={t}"
+                check(bool(torch.isfinite(y).all()), f"{name}: non-finite")
+                check(err <= tol,
+                      f"{name}: max|kernel-plain| {err} > {tol}")
+                ms = timer.compare({
+                    "kernel": lambda: nm.nibble_matmul_cuda(x, planes,
+                                                            dtype),
+                    "plain": lambda: nm.nibble_matmul_plain(x, planes,
+                                                            dtype),
+                    "library": lambda: torch.matmul(x, w)})
+                b_ms, b_by = bound(pbytes + t * k * 2 + t * n * 4,
+                                   2.0 * t * k * n)
+                row = {"shape": f"{label} T={t}", "T": t, "K": k, "N": n,
+                       "plane_bytes": pbytes, "max_abs_err": err,
+                       "tol": tol, "ms": ms["kernel"],
+                       "plain_ms": ms["plain"], "library_ms": ms["library"],
+                       "bound_ms": b_ms, "bound_by": b_by}
+                rows.append(row)
+                print(json.dumps({kern.name: row}), flush=True)
+                del x, y, y0
+            del planes, w
+        main = ("8b down T=1" if dtype == DType.Q6_K
+                else "8b gate|up T=1")
+        out[kern.name] = {"rows": rows, "main": main,
+                          "planes": [s_.name for s_ in LAYOUTS[dtype]]}
+    print(f"nibble kernel phase done on {card}", flush=True)
+    return out
+
+
+# requantized repolm512 files: tag -> the kernels its Engine path must
+# launch. "q4_k_m_v6" is Q4_K_M with a Q6_K attn_v, as llama.cpp's Q4_K_M
+# gives some layers: the fused q|k product and a separate v product run.
+REQUANT = {"q4_k_m": ("q4_k_matmul", "q6_k_matmul", "flash_attention"),
+           "q4_k_m_v6": ("q4_k_matmul", "q6_k_matmul", "flash_attention"),
+           "q5_k": ("q5_k_matmul", "flash_attention"),
+           "q4_0": ("q4_0_matmul", "flash_attention")}
+
+
+def requant_dtype(tag: str, name: str):
+    """The format of weight matrix `name` in the requantized file `tag`."""
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.models.presets import q4_k_m_policy
+    if tag == "q4_k_m_v6" and "attn_v" in name:
+        return DType.Q6_K
+    return q4_k_m_policy(name) if tag.startswith("q4_k_m") else DType(tag)
+
+
+def requantize(src: str, dst: str, tag: str) -> None:
+    """Write `src` (a GGUF) to `dst` with every 2-D weight matrix
+    requantized on the host to requant_dtype(tag, name), with the port's
+    own quantizer and GGUF writer; metadata and other tensors are copied."""
+    from ntransformer_tpu_torch.core.dequant import dequantize
+    from ntransformer_tpu_torch.core.gguf import GGUFReader, GGUFWriter
+    from ntransformer_tpu_torch.core.quant import quantize
+    r = GGUFReader(src)
+    w = GGUFWriter(dst, alignment=r.alignment)
+    for key, value in r.metadata.items():
+        w.add_meta(key, value)
+    for name in r.tensor_order:
+        info = r.info(name)
+        raw = r.raw_bytes(name)
+        if len(info.shape) == 2 and name.endswith(".weight"):
+            dt = requant_dtype(tag, name)
+            x = dequantize(raw, info.dtype, *info.shape)
+            w.add_tensor(name, raw=quantize(x, dt), shape=info.shape,
+                         dtype=dt)
+        else:
+            w.add_tensor(name, raw=bytes(raw), shape=info.shape,
+                         dtype=info.dtype)
+    w.write()
+    r.close()
+
+
+def quant_real_phase(torch, counters, card: str, tmp: str) -> dict:
+    """repolm512 requantized on the host (Q4_K_M, Q4_K_M with a Q6_K
+    attn_v, all-Q5_K, all-Q4_0) and each file driven through the CLI and
+    Engine on the card against the CPU, as the real phase does; the Q4_K_M
+    file also served (--serve bf16 and int8) as the serve phase does."""
+    out = {}
+    for tag, kernels in REQUANT.items():
+        path = os.path.join(tmp, f"repolm512_{tag}.gguf")
+        t0 = time.perf_counter()
+        requantize(REPOLM, path, tag)
+        print(f"wrote {os.path.basename(path)} "
+              f"({os.path.getsize(path)} bytes) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out[tag] = real_model_phase(torch, counters, card, path, kernels)
+    kernels = REQUANT["q4_k_m"] + ("batched_attention", "kv_update")
+    out["serve_q4_k_m"] = real_serve_phase(
+        torch, counters, card, os.path.join(tmp, "repolm512_q4_k_m.gguf"),
+        kernels)
+    return out
+
+
+def quant_full_phase(torch, counters, card: str) -> tuple[dict, dict]:
+    """The synthetic Llama-3.1-8B at full width and depth in the nibble
+    formats: Q4_K_M through Engine.benchmark and BatchServer with the
+    bench-style batched steps (B = 1, B = 32 int8, verify), profiles and
+    the 2-layer on/off views; then the B = 1 batched step of bench.py's
+    q4_0 and q6_k keys. Returns (summaries, launch counts by path)."""
+    q4km = ("q4_k_matmul", "q6_k_matmul")
+    summaries, launches = {}, {}
+    synth = build_synth(torch, "q4_k_m")
+    summaries["engine_q4_k_m"], launches["engine_q4_k_m"] = \
+        full_width_phase(torch, counters, card, synth,
+                         q4km + ("flash_attention",))
+    summaries["serve_q4_k_m"], launches["serve_q4_k_m"] = \
+        full_batched_phase(torch, counters, card, synth,
+                           q4km + ("flash_attention", "batched_attention",
+                                   "kv_update"))
+    print(json.dumps({"full_width_8b_q4_k_m_serving":
+                      summaries["serve_q4_k_m"]}), flush=True)
+    del synth
+    for dtype, names in (("q4_0", ("q4_0_matmul",)),
+                         ("q6_k", ("q6_k_matmul",))):
+        _, arch, weights, per_token = build_synth(torch, dtype)
+        cell = bench_b1(torch, counters, arch, weights, per_token)
+        check(all(cell["launches"][k] > 0 for k in names),
+              f"8b {dtype} B=1 step launched {cell['launches']}")
+        print(json.dumps({f"8b_{dtype}_batched_b1_bf16": cell}), flush=True)
+        summaries[f"b1_{dtype}"] = cell
+        launches[f"b1_{dtype}"] = cell["launches"]
+        del weights
+    return summaries, launches
+
+
 # ------------------------------------------------------------------- main
 def reset(counters):
     for mod in counters.values():
@@ -1232,16 +1563,20 @@ def main() -> int:
     from ntransformer_tpu_torch.ops.cuda import build
     from ntransformer_tpu_torch.ops.cuda import kv_update as ck
     from ntransformer_tpu_torch.ops.cuda import matmul as cm
+    from ntransformer_tpu_torch.ops.cuda import nibble_matmul as cn
     t0 = time.perf_counter()
-    mods = (cm, ca, cb, ck)
+    mods = (cm, ca, cb, ck, cn)
     with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, together
         reports = list(ex.map(build.build, [m.NAME for m in mods]))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for rep in reports:
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print("  " + line.strip(), flush=True)
-    counters = {m.NAME: m for m in mods}
+            if "Compiling entry function" in line:
+                print("  " + line.split("'")[1][:90], flush=True)
+            elif "registers" in line or "spill" in line:
+                print("    " + line.strip(), flush=True)
+    counters = {m.NAME: m for m in mods[:4]}
+    counters.update({k.name: k for k in cn.KERNELS.values()})
 
     timer = Timer(torch)
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
@@ -1250,6 +1585,8 @@ def main() -> int:
         res[cm.NAME], res[ca.NAME] = kernel_phase(torch, timer, card)
     if "bkernels" in phases:
         res[cb.NAME], res[ck.NAME] = batched_kernel_phase(torch, timer, card)
+    if "qkernels" in phases:
+        res.update(nibble_kernel_phase(torch, timer, card))
     if "real" in phases:
         real_model_phase(torch, counters, card)
     if "serve" in phases:
@@ -1265,35 +1602,57 @@ def main() -> int:
                                                    synth)
             print(json.dumps({"full_width_8b_serving": summary}), flush=True)
         del synth
+    # each nibble kernel's main path: the 8B Q4_K_M server for Q4_K and
+    # Q6_K (Engine.benchmark beside it), bench.py's q4_0 B = 1 step for
+    # Q4_0, the CLI run of repolm512 all-Q5_K for Q5_K
+    qpath = {"q4_k_matmul": ("serve_q4_k_m", "engine_q4_k_m"),
+             "q6_k_matmul": ("serve_q4_k_m", "engine_q4_k_m"),
+             "q4_0_matmul": ("b1_q4_0", None),
+             "q5_k_matmul": ("real_q5_k", None)}
+    qlaunch = {}
+    if "qreal" in phases:
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            qr = quant_real_phase(torch, counters, card, tmp)
+        qlaunch["real_q5_k"] = qr["q5_k"]["cli_launches"]
+    if "qfull" in phases:
+        _, got = quant_full_phase(torch, counters, card)
+        qlaunch.update(got)
+    for name, (main_path, engine_path) in qpath.items():
+        launches[name] = qlaunch.get(main_path, {}).get(name, 0)
+        engine_launches[name] = qlaunch.get(engine_path, {}).get(name, 0)
 
     kernels = []
-    tols = {cm.NAME: f"max|kernel-plain| <= {MATMUL_RTOL} * max|plain|",
+    mm_tol = f"max|kernel-plain| <= {MATMUL_RTOL} * max|plain|"
+    tols = {cm.NAME: mm_tol,
             ca.NAME: f"max|kernel-plain| <= {FLASH_RTOL} * max|plain| "
                      f"in every query row",
             cb.NAME: f"max|kernel-plain| <= {BATCHED_RTOL} * max|plain| "
                      f"in every query token",
             ck.NAME: "bit-equal"}
-    for mod, route_src in ((cm, "csrc/q8_0_matmul.cu"),
-                           (ca, "csrc/flash_attention.cu"),
-                           (cb, "csrc/batched_attention.cu"),
-                           (ck, "csrc/kv_update.cu")):
-        if mod.NAME not in res:
+    entries = [(cm.NAME, "csrc/q8_0_matmul.cu", cm.REPLACES),
+               (ca.NAME, "csrc/flash_attention.cu", ca.REPLACES),
+               (cb.NAME, "csrc/batched_attention.cu", cb.REPLACES),
+               (ck.NAME, "csrc/kv_update.cu", ck.REPLACES)]
+    entries += [(k.name, "csrc/nibble_matmul.cu", k.replaces)
+                for k in cn.KERNELS.values()]
+    for name, src, replaces in entries:
+        if name not in res:
             continue
-        r = res[mod.NAME]
+        r = res[name]
         main_row = next(x for x in r["rows"] if x["shape"] == r["main"])
         err = max(x["max_abs_err"] for x in r["rows"])
         kernels.append({
-            "name": mod.NAME, "route": "cuda",
-            "source": "ntransformer_tpu_torch/" + route_src,
-            "replaces": mod.REPLACES, "launches": launches.get(mod.NAME, 0),
-            "engine_launches": engine_launches.get(mod.NAME, 0),
-            "max_abs_err": err, "max_err": err, "tol": tols[mod.NAME],
-            "ms": main_row["ms"], "kernel_ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"],
+            "name": name, "route": "cuda",
+            "source": "ntransformer_tpu_torch/" + src,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "engine_launches": engine_launches.get(name, 0),
+            "max_abs_err": err, "tol": tols.get(name, mm_tol),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": r["main"],
-            "card": card, "cases": r["rows"]})
+            "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ store (including the vocab arrays), tensor infos, and exposes tensors as
 zero-copy numpy views into the mapped file. Also records absolute file
 offsets per tensor for the storage-streaming tier (ref: loader.h:75-80).
 
-A copy of the JAX package's reader (the port imports nothing from that
-package); its writer is not needed by the port and is left out.
+A copy of the JAX package's reader and writer (the port imports nothing
+from that package). The writer lets the port write a requantized model on a
+machine without JAX (chip_smoke.py); tests/test_torch_dequant.py reads a
+file it wrote with both packages' readers.
 """
 from __future__ import annotations
 
@@ -21,8 +23,10 @@ import numpy as np
 from .dtypes import (
     GGUF_DEFAULT_ALIGNMENT,
     GGUF_MAGIC,
+    GGUF_VERSION,
     DType,
     GGUFValueType,
+    dtype_to_ggml,
     ggml_to_dtype,
     row_nbytes,
 )
@@ -211,3 +215,131 @@ class GGUFReader:
             if isinstance(v, (list, np.ndarray)) and len(v) > 8:
                 v = f"<array len={len(v)}>"
             print(f"  {k} = {v}")
+
+
+@dataclass
+class _PendingTensor:
+    name: str
+    dims: list[int]  # GGUF order (innermost first)
+    dtype: DType
+    data: bytes
+
+
+class GGUFWriter:
+    """Minimal GGUF v3 writer for tests, benchmarks, and requant tools."""
+
+    def __init__(self, path: str | os.PathLike, alignment: int = GGUF_DEFAULT_ALIGNMENT):
+        self.path = os.fspath(path)
+        self.alignment = alignment
+        self.metadata: dict[str, tuple[int, object]] = {}
+        self._tensors: list[_PendingTensor] = []
+
+    # --- metadata ------------------------------------------------------------
+    def add_meta(self, key: str, value, vtype: GGUFValueType | None = None,
+                 elem_type: GGUFValueType | None = None):
+        if vtype is None:
+            if isinstance(value, bool):
+                vtype = GGUFValueType.BOOL
+            elif isinstance(value, int):
+                vtype = GGUFValueType.UINT32 if 0 <= value < 2**32 else GGUFValueType.INT64
+            elif isinstance(value, float):
+                vtype = GGUFValueType.FLOAT32
+            elif isinstance(value, str):
+                vtype = GGUFValueType.STRING
+            elif isinstance(value, (list, tuple, np.ndarray)):
+                vtype = GGUFValueType.ARRAY
+            else:
+                raise TypeError(f"cannot infer GGUF type for {type(value)}")
+        self.metadata[key] = (vtype, (value, elem_type))
+
+    def add_tensor(self, name: str, array: np.ndarray | None = None, *,
+                   raw: bytes | None = None, shape: tuple[int, ...] | None = None,
+                   dtype: DType | None = None):
+        """Add either an f32/f16 numpy array or pre-quantized raw bytes."""
+        if raw is not None:
+            assert shape is not None and dtype is not None
+            dims = list(reversed(shape))
+            n_elems = int(np.prod(shape))
+            expect = row_nbytes(dtype, n_elems)
+            if len(raw) != expect:
+                raise ValueError(f"{name}: raw size {len(raw)} != expected {expect}")
+            self._tensors.append(_PendingTensor(name, dims, dtype, bytes(raw)))
+            return
+        assert array is not None
+        if array.dtype == np.float32:
+            dt = DType.F32
+        elif array.dtype == np.float16:
+            dt = DType.F16
+        elif array.dtype == np.int32:
+            dt = DType.I32
+        else:
+            raise TypeError(f"{name}: unsupported array dtype {array.dtype}")
+        self._tensors.append(
+            _PendingTensor(name, list(reversed(array.shape)), dt, array.tobytes()))
+
+    # --- serialization -------------------------------------------------------
+    @staticmethod
+    def _pack_str(s: str) -> bytes:
+        b = s.encode("utf-8")
+        return struct.pack("<Q", len(b)) + b
+
+    _SCALAR_FMT = GGUFReader._SCALAR_FMT
+
+    def _pack_value(self, vtype: GGUFValueType, payload) -> bytes:
+        value, elem_type = payload if isinstance(payload, tuple) else (payload, None)
+        if vtype == GGUFValueType.STRING:
+            return self._pack_str(value)
+        if vtype == GGUFValueType.BOOL:
+            return struct.pack("<B", 1 if value else 0)
+        if vtype == GGUFValueType.ARRAY:
+            if elem_type is None:
+                first = value[0] if len(value) else ""
+                if isinstance(first, str):
+                    elem_type = GGUFValueType.STRING
+                elif isinstance(first, float) or (
+                        isinstance(value, np.ndarray) and value.dtype.kind == "f"):
+                    elem_type = GGUFValueType.FLOAT32
+                else:
+                    elem_type = GGUFValueType.INT32
+            out = struct.pack("<IQ", int(elem_type), len(value))
+            if elem_type == GGUFValueType.STRING:
+                for v in value:
+                    out += self._pack_str(v)
+            else:
+                fmt = self._SCALAR_FMT[elem_type]
+                for v in value:
+                    out += struct.pack("<" + fmt, v)
+            return out
+        return struct.pack("<" + self._SCALAR_FMT[vtype], value)
+
+    def write(self):
+        out = bytearray()
+        out += struct.pack("<IIQQ", GGUF_MAGIC, GGUF_VERSION,
+                           len(self._tensors), len(self.metadata))
+        for key, (vtype, payload) in self.metadata.items():
+            out += self._pack_str(key)
+            out += struct.pack("<I", int(vtype))
+            out += self._pack_value(vtype, payload)
+
+        # Tensor infos with running aligned offsets
+        a = self.alignment
+        offset = 0
+        infos = bytearray()
+        for t in self._tensors:
+            infos += self._pack_str(t.name)
+            infos += struct.pack("<I", len(t.dims))
+            for d in t.dims:
+                infos += struct.pack("<Q", d)
+            infos += struct.pack("<IQ", int(dtype_to_ggml(t.dtype)), offset)
+            offset += (len(t.data) + a - 1) // a * a
+        out += infos
+
+        data_start = (len(out) + a - 1) // a * a
+        out += b"\x00" * (data_start - len(out))
+        for t in self._tensors:
+            out += t.data
+            pad = (-len(t.data)) % a
+            out += b"\x00" * pad
+
+        with open(self.path, "wb") as f:
+            f.write(out)

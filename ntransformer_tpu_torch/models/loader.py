@@ -6,9 +6,18 @@ transposed planes of core/layout.py on the host (numpy), and place the
 stacked planes on `device` as torch tensors. Tied embeddings fall back to
 token_embd for the LM head.
 
-The port computes Q8_0 and float matrices; a file with other quantized
-matrices (Q4_K, Q6_K, ...) is refused here, at load, with the ROADMAP item
-that ports its kernel, rather than run through a plain dequant on the card.
+The port computes the GGUF formats Q8_0, Q4_0, Q4_K, Q5_K and Q6_K (so
+Q4_K_M files, which mix Q4_K, Q5_K and Q6_K, load) and float matrices; a
+file with another quantized matrix is refused here, at load, with the
+ROADMAP item that ports its kernel, rather than run through a plain dequant
+on the card.
+
+No lane padding of K-quant LM heads. The JAX package pads a K-quant head's
+N to a multiple of 2048 (and slices the logits back) because its Pallas
+tile of 256 lanes left 501 grid steps on the 128256-token vocab, a Mosaic
+reason. The CUDA kernels take any N (a ragged last column strip is masked),
+so the head keeps its file width here; `head_logits` still slices a padded
+head, so padded planes give the same logits.
 """
 from __future__ import annotations
 
@@ -29,7 +38,8 @@ from .config import ModelConfig
 from .llama import Arch, LayerWeights, ModelWeights, fuse_layer_weights, \
     stack_layers
 
-PORTED_QUANT = (DType.Q8_0,)
+PORTED_QUANT = (DType.Q8_0, DType.Q4_0, DType.Q4_K, DType.Q5_K,
+                DType.Q6_K)
 
 
 def resolve_device(device) -> torch.device:
@@ -44,8 +54,9 @@ def resolve_device(device) -> torch.device:
 
 
 def load_qlinear_host(reader: GGUFReader, name: str) -> QLinear:
-    """One weight matrix as host planes (numpy): Q8_0 planes, or an f32
-    [K, N] 'w' plane for float matrices (bf16 once placed)."""
+    """One weight matrix as host planes (numpy): the planes of a ported
+    quantized format, or an f32 [K, N] 'w' plane for float matrices (bf16
+    once placed)."""
     info = reader.info(name)
     n, k = info.shape  # file rows = out_features
     raw = reader.raw_bytes(name)

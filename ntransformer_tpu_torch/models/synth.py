@@ -1,11 +1,14 @@
-"""Synthetic in-memory model builder (constant weights, valid Q8_0 layout).
+"""Synthetic in-memory model builder (constant weights, valid GGUF layouts).
 
 Port of ntransformer_tpu/models/synth.py: full-size models built directly
-as planes on the device — no multi-GB GGUF on disk. qs planes are zeros and
-scale planes the same small f16 constant as the JAX package (~2^-8), so a
-caller that wants non-trivial logits fills qs itself (chip_smoke.py does,
-from a seeded generator). Layer planes are allocated pre-stacked
-([L, rows, n]).
+as planes on the device — no multi-GB GGUF on disk. The planes are filled
+as the JAX package fills them: code planes (qs, ql, qh) zero, f16 scale
+planes (d, dmin) the same small constant (~2^-8), 6-bit scale and min
+planes (sc_*, mn_*) 8; a caller that wants non-trivial logits fills the
+codes itself (chip_smoke.py does, from a seeded generator). dtype "q4_k_m"
+takes the per-tensor policy of `presets.q4_k_m_policy` (ffn_down and the
+head Q6_K, the rest Q4_K). A K-quant LM head is not lane-padded (see
+models/loader.py). Layer planes are allocated pre-stacked ([L, rows, n]).
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from ..ops.layers import rope_table
 from ..ops.linear import QLinear
 from .config import ModelConfig
 from .llama import Arch, LayerWeights, ModelWeights, fuse_layer_weights
-from .loader import resolve_device
-from .presets import PRESETS
+from .loader import PORTED_QUANT, resolve_device
+from .presets import PRESETS, q4_k_m_policy
 
 _F16_SMALL = int(np.float32(0.004).astype(np.float16).view(np.int16))
 
@@ -29,7 +32,7 @@ def synth_qlinear(n: int, k: int, dtype: DType, lead: int | None = None,
                   device="cuda") -> QLinear:
     """Planes for one matrix ([rows, n]) or a stacked set ([lead, rows, n]),
     created on `device`."""
-    if dtype != DType.Q8_0:
+    if dtype not in PORTED_QUANT:
         raise not_ported(dtype, "synthetic ")
     planes = {}
     for spec in LAYOUTS[dtype]:
@@ -39,8 +42,10 @@ def synth_qlinear(n: int, k: int, dtype: DType, lead: int | None = None,
             planes[spec.name] = torch.full(shape, _F16_SMALL,
                                            dtype=torch.int16, device=device)
         else:
-            planes[spec.name] = torch.zeros(shape, dtype=torch.int8,
-                                            device=device)
+            fill = 8 if spec.name.startswith(("sc", "mn")) else 0
+            planes[spec.name] = torch.full(shape, fill,
+                                           dtype=getattr(torch, spec.np_dtype),
+                                           device=device)
     return QLinear(dtype, k, n, planes)
 
 
@@ -61,26 +66,35 @@ def synth_model(preset: str, dtype: str, max_seq_len: int = 4096,
         max_seq_len=min(p["ctx"], max_seq_len),
     )
     arch = Arch.from_config(cfg)
-    dt = DType(dtype)
+    if dtype == "q4_k_m":
+        policy = q4_k_m_policy
+    else:
+        fixed = DType(dtype)
+
+        def policy(_name, _dt=fixed):
+            return _dt
     h, it, v, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
                    cfg.n_layers)
 
-    def mat(n, k, lead=L):
-        return synth_qlinear(n, k, dt, lead, dev)
+    def mat(name, n, k, lead=L):
+        return synth_qlinear(n, k, policy(name), lead, dev)
 
     stacked = LayerWeights(
         attn_norm=torch.ones(L, h, device=dev),
-        wq=mat(h, h), wk=mat(kv_dim, h), wv=mat(kv_dim, h), wo=mat(h, h),
+        wq=mat("attn_q", h, h), wk=mat("attn_k", kv_dim, h),
+        wv=mat("attn_v", kv_dim, h), wo=mat("attn_output", h, h),
         ffn_norm=torch.ones(L, h, device=dev),
-        w_gate=mat(it, h), w_up=mat(it, h), w_down=mat(h, it),
+        w_gate=mat("ffn_gate", it, h), w_up=mat("ffn_up", it, h),
+        w_down=mat("ffn_down", h, it),
     )
     if fuse:
         stacked = fuse_layer_weights(stacked)
     cos, sin = rope_table(cfg.max_seq_len, head_dim, cfg.rope_theta,
                           device=dev)
-    weights = ModelWeights(embed=mat(v, h, None), layers=stacked,
+    weights = ModelWeights(embed=mat("token_embd", v, h, None),
+                           layers=stacked,
                            output_norm=torch.ones(h, device=dev),
-                           lm_head=mat(v, h, None), rope_cos=cos,
+                           lm_head=mat("output.", v, h, None), rope_cos=cos,
                            rope_sin=sin)
     return cfg, arch, weights
 

@@ -1,0 +1,169 @@
+"""Fused dequant-matmul of the GGUF nibble formats (Q4_0, Q4_K, Q5_K,
+Q6_K): the wrapper of `csrc/nibble_matmul.cu` and its plain PyTorch twin.
+
+Replaces ntransformer_tpu/ops/pallas/matmul.py::_quant_matmul_impl with its
+_q4_0_tile, _q4_k_tile, _q5_k_tile and _q6_k_tile bodies (entry
+quant_matmul_pallas). y[T,N] f32 = bf16(x)[T,K] @ W with W the bf16 of the
+weight as the plain dequant (ops/dequant_torch.py) computes it in f32, and
+f32 accumulation: kernel and twin differ only in the order of the sums. The
+TPU kernel's group-sum correction dot for the min term is not carried over
+(it rounds differently: bf16(q·s) and bf16(Σx)·bf16(m)).
+
+On the H100 it is bound by bytes at T = 1 (0.5625 to 0.8203125 bytes per
+weight over 3.35 TB/s), with the per-weight dequant close behind on the
+CUDA cores, and by operations at T > 1. The kernel reads x at the two
+element positions of each plane row's nibbles (no activation reorder on the
+card), splits K across blocks on superblock boundaries at T = 1 (a
+fixed-order second pass sums the partials, so runs repeat bit for bit), and
+tiles T x N on the tensor cores (mma.sync) at T > 1; see the source.
+
+One C entry and one launch counter per format (`KERNELS`): a split-K
+product at T = 1 counts two launches, the GEMV and its reduce pass.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ...core.dtypes import DType
+from ...core.layout import LAYOUTS
+from ..dequant_torch import dequant_planes_torch
+from . import build
+
+NAME = "nibble_matmul"
+_TPU = "ntransformer_tpu/ops/pallas/matmul.py:344 _quant_matmul_impl"
+# the eight plane slots of the C entries, in order; a format's "qs"/"ql"
+# plane goes to "q", a slot it lacks gets a null pointer
+SLOTS = ("q", "qh", "sc_lo", "sc_hi", "mn_lo", "mn_hi", "d", "dmin")
+_SLOT_OF = {"qs": "q", "ql": "q"}
+_TORCH_DTYPE = {"uint8": torch.uint8, "int8": torch.int8,
+                "uint16": torch.int16}
+_GEMV_BLOCK_COLS = 512  # columns per block of the T == 1 kernel
+_MAX_SPLIT_ROWS = 50_000  # the GEMV stages 2 x split rows of bf16 x (200 KB)
+_SM_COUNT: dict[int, int] = {}
+
+
+@dataclass
+class Kernel:
+    """One format's C entry point and its launch count since the last reset
+    (chip_smoke.py reads and resets it)."""
+
+    name: str
+    replaces: str
+    chunk_rows: int   # plane rows a GEMV warp takes at a time
+    split_rows: int   # plane rows of a split unit (whole d / dmin rows)
+    launches: int = 0
+
+
+KERNELS = {
+    DType.Q4_0: Kernel("q4_0_matmul", f"{_TPU} + _q4_0_tile :91", 16, 16),
+    DType.Q4_K: Kernel("q4_k_matmul", f"{_TPU} + _q4_k_tile :134", 32, 128),
+    DType.Q5_K: Kernel("q5_k_matmul", f"{_TPU} + _q5_k_tile :172", 32, 128),
+    DType.Q6_K: Kernel("q6_k_matmul", f"{_TPU} + _q6_k_tile :211", 32, 128),
+}
+_SIGNATURES = {kern.name: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+               + [ctypes.c_void_p] for kern in KERNELS.values()}
+
+
+def check_shapes(x: torch.Tensor, planes: dict, dtype: DType):
+    """(T, K, N) of a product in format `dtype`, or ValueError: x [T, K],
+    every plane [K // rows_div, N] of core/layout.py's dtype."""
+    if dtype not in KERNELS:
+        raise ValueError(f"{dtype.value} is not a nibble format")
+    if x.dim() != 2:
+        raise ValueError(f"{dtype.value} matmul wants x [T,K]; got "
+                         f"{tuple(x.shape)}")
+    t, k = x.shape
+    unit = 32 if dtype == DType.Q4_0 else 256
+    if k % unit:
+        raise ValueError(f"K={k} is not a multiple of {unit} (the "
+                         f"{dtype.value} block)")
+    specs = LAYOUTS[dtype]
+    if set(planes) != {s.name for s in specs}:
+        raise ValueError(f"{dtype.value} planes {sorted(planes)}; want "
+                         f"{sorted(s.name for s in specs)}")
+    n = planes[specs[0].name].shape[-1]
+    for s in specs:
+        a = planes[s.name]
+        if tuple(a.shape) != (k // s.rows_div, n):
+            raise ValueError(f"{dtype.value} plane {s.name} "
+                             f"{tuple(a.shape)} does not match x "
+                             f"{tuple(x.shape)} (want "
+                             f"{(k // s.rows_div, n)})")
+        if a.dtype != _TORCH_DTYPE[s.np_dtype]:
+            raise ValueError(f"{dtype.value} plane {s.name} is {a.dtype}; "
+                             f"want {_TORCH_DTYPE[s.np_dtype]}")
+    return t, k, n
+
+
+def nibble_matmul_plain(x: torch.Tensor, planes: dict,
+                        dtype: DType) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: bf16 dequant, bf16 x, f32
+    products and sums."""
+    _, k, n = check_shapes(x, planes, dtype)
+    w = dequant_planes_torch(planes, dtype, k, n, out_dtype=torch.bfloat16)
+    return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
+
+
+def split_plan(device: torch.device, dtype: DType, k: int,
+               n: int) -> tuple[int, int]:
+    """(plane rows per split, splits) at T = 1: enough (strip, split)
+    blocks to cover the SMs twice, a split holding whole split units and at
+    least one chunk per warp."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    kern = KERNELS[dtype]
+    rows = k // 2
+    units = rows // kern.split_rows
+    strips = -(-n // _GEMV_BLOCK_COLS)
+    want = -(-2 * _SM_COUNT[idx] // strips)
+    min_units = max(1, 4 * kern.chunk_rows // kern.split_rows)
+    nsplit = max(1, min(want, units // min_units))
+    per = -(-units // nsplit) * kern.split_rows
+    return per, -(-rows // per)  # no empty split
+
+
+def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
+                       dtype: DType) -> torch.Tensor:
+    """y[T,N] f32 = x[T,K] @ W for a Q4_0 / Q4_K / Q5_K / Q6_K matrix given
+    as its planes (core/layout.py; f16 planes as int16 bits). On a CPU
+    tensor this is the plain twin; on a CUDA tensor it launches the kernel
+    or raises."""
+    t, k, n = check_shapes(x, planes, dtype)
+    if x.device.type == "cpu":
+        return nibble_matmul_plain(x, planes, dtype)
+    if not x.is_cuda or any(a.device != x.device for a in planes.values()):
+        raise ValueError(f"{dtype.value} matmul: tensors on "
+                         f"{[str(a.device) for a in planes.values()]} and "
+                         f"{x.device}; want one CUDA device")
+    if not all(a.is_contiguous() for a in planes.values()):
+        raise ValueError(f"{dtype.value} matmul wants contiguous planes")
+    x = x.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    kern = KERNELS[dtype]
+    lib = build.load(NAME, _SIGNATURES)
+    vec = int(n % 16 == 0 and all(a.data_ptr() % 16 == 0
+                                  for a in planes.values()))
+    split_rows, nsplit = (split_plan(x.device, dtype, k, n) if t == 1
+                          else (k // 2, 1))
+    if t == 1 and split_rows > _MAX_SPLIT_ROWS:
+        raise ValueError(f"K={k} stages more x than one block's shared "
+                         "memory holds")
+    y = torch.empty(t, n, dtype=torch.float32, device=x.device)
+    work = (torch.empty(nsplit, n, dtype=torch.float32, device=x.device)
+            if nsplit > 1 else y)
+    by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
+    ptrs = [by_slot[s].data_ptr() if s in by_slot else None for s in SLOTS]
+    rc = getattr(lib, kern.name)(
+        x.data_ptr(), *ptrs, y.data_ptr(), work.data_ptr(), t, k, n,
+        split_rows, nsplit, vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, rc, kern.name)
+    kern.launches += 2 if nsplit > 1 else 1
+    return y

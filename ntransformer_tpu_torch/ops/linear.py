@@ -3,10 +3,11 @@
 Port of ntransformer_tpu/ops/linear.py. A QLinear holds the transposed
 planes of one weight matrix (core/layout.py) as torch tensors, with the JAX
 package's plane names; f16-bit scale planes are held as int16 with the same
-bits. `qmatmul` launches the hand-written Q8_0 kernel (ops/cuda/matmul.py)
-when kernels are on for the activations' device, and otherwise computes
-what the JAX CPU path computes: bf16 dequant, bf16 activations, f32
-accumulation.
+bits. `qmatmul` launches the hand-written kernel of the matrix's format
+(Q8_0: ops/cuda/matmul.py; Q4_0, Q4_K, Q5_K, Q6_K: ops/cuda/
+nibble_matmul.py) when kernels are on for the activations' device, and
+otherwise computes what the JAX CPU path computes: bf16 dequant, bf16
+activations, f32 accumulation.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import DType
-from ..core.layout import LAYOUTS
+from ..core.layout import LAYOUTS, SPLIT_UNIT
 from .dequant_torch import FLOAT_KINDS, dequant_planes_torch, not_ported
 
 # "auto": the CUDA kernels iff the tensors are on CUDA. "off": plain PyTorch
@@ -49,6 +50,19 @@ class QLinear:
                        {nm: v[index] for nm, v in self.planes.items()})
 
 
+def split_x(x: torch.Tensor, dtype: DType):
+    """(x_lo, x_hi), each [..., K/2]: the activations reordered to a nibble
+    format's split layout (a reshape and two slices). Plane row r's low and
+    high nibbles multiply x_lo[..., r] and x_hi[..., r]; the CUDA kernels
+    read x at those positions instead of copying it."""
+    u = SPLIT_UNIT[dtype]
+    k = x.shape[-1]
+    lead = x.shape[:-1]
+    xs = x.reshape(*lead, k // u, u)
+    return (xs[..., : u // 2].reshape(*lead, k // 2),
+            xs[..., u // 2:].reshape(*lead, k // 2))
+
+
 def plane_dims(planes: dict, dtype: DType) -> tuple[int, int]:
     """(k, n) read off the plane tensors themselves."""
     if dtype in FLOAT_KINDS:
@@ -78,11 +92,16 @@ def qmatmul(x: torch.Tensor, ql: QLinear, *,
     if ql.dtype in FLOAT_KINDS:
         w = ql.planes["w"]
         return x.to(w.dtype).to(torch.float32) @ w.to(torch.float32)
-    if ql.dtype != DType.Q8_0:
+    if ql.dtype == DType.Q8_0:
+        from .cuda.matmul import quant_matmul_cuda, quant_matmul_plain
+        fn = quant_matmul_cuda if kernels_enabled(x) else quant_matmul_plain
+        return fn(x, ql.planes["qs"], ql.planes["d"])
+    from .cuda import nibble_matmul as nm
+    if ql.dtype not in nm.KERNELS:
         raise not_ported(ql.dtype)
-    from .cuda.matmul import quant_matmul_cuda, quant_matmul_plain
-    fn = quant_matmul_cuda if kernels_enabled(x) else quant_matmul_plain
-    return fn(x, ql.planes["qs"], ql.planes["d"])
+    fn = nm.nibble_matmul_cuda if kernels_enabled(x) else \
+        nm.nibble_matmul_plain
+    return fn(x, ql.planes, ql.dtype)
 
 
 def gather_columns(ql: QLinear, ids: torch.Tensor) -> QLinear:

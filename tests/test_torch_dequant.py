@@ -1,5 +1,7 @@
-"""Port parity: f16-bit decode, the Q8_0 dequant oracle and the port's own
-copies of the numpy modules, against the JAX package on the same inputs."""
+"""Port parity: f16-bit decode, the dequant oracle of every GGUF format the
+port loads (Q8_0, Q4_0, Q4_K, Q5_K, Q6_K) and the port's own copies of the
+numpy modules (dequant, layout, quant, the GGUF reader and writer), against
+the JAX package on the same inputs."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -7,12 +9,15 @@ import torch
 
 from ntransformer_tpu.core.dequant import dequantize as jax_dequantize
 from ntransformer_tpu.core.dtypes import DType
+from ntransformer_tpu.core.gguf import GGUFReader as JGGUFReader
 from ntransformer_tpu.core.layout import dequant_planes, relayout
 from ntransformer_tpu.core.quant import quantize
 from ntransformer_tpu.ops.dequant_jnp import dequant_planes_jnp
 from ntransformer_tpu.ops.f16bits import f16_bits_to_f32 as jax_f16_bits
 from ntransformer_tpu_torch.core import dequant as port_dequant
+from ntransformer_tpu_torch.core import gguf as port_gguf
 from ntransformer_tpu_torch.core import layout as port_layout
+from ntransformer_tpu_torch.core import quant as port_quant
 from ntransformer_tpu_torch.core.dtypes import DType as PDType
 from ntransformer_tpu_torch.ops.dequant_torch import dequant_planes_torch
 from ntransformer_tpu_torch.ops.f16bits import f16_bits_to_f32
@@ -87,10 +92,117 @@ def test_dequant_stacked_planes():
             got[i].numpy(), dequant_planes(p, DType.Q8_0, 256, 128))
 
 
-@pytest.mark.parametrize("dtype", ["q4_0", "q4_k", "q6_k"])
+@pytest.mark.parametrize("dtype", ["w4a8", "w8a8"])
 def test_unported_quant_dtypes_raise(dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dequant_planes_torch({}, PDType(dtype), 256, 128)
+    """Only the engine-native formats are still refused (queue 1 item 10)."""
+    planes = {"w": torch.zeros(512, 128)}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        dequant_planes_torch(planes, PDType(dtype), 512, 128)
+
+
+NIBBLE = ["q4_0", "q4_k", "q5_k", "q6_k"]
+
+
+def _nibble_planes(dtype, n, k, seed):
+    x = (np.random.default_rng(seed).standard_normal((n, k)) * 0.05) \
+        .astype(np.float32)
+    return relayout(quantize(x, DType(dtype)), DType(dtype), n, k)
+
+
+def _to_torch(planes):
+    return {nm: torch.from_numpy(np.ascontiguousarray(v).view(np.int16)
+                                 if v.dtype == np.uint16 else v)
+            for nm, v in planes.items()}
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("n,k", [(256, 512), (128, 1280)])
+@pytest.mark.parametrize("dtype", NIBBLE)
+def test_dequant_nibble_formats_bit_exact(dtype, n, k, out):
+    """Q4_0, Q4_K, Q5_K and Q6_K planes dequantize to dequant_planes_jnp's
+    f32 and bf16 bits exactly (and, in f32, to the numpy golden's)."""
+    planes = _nibble_planes(dtype, n, k, seed=n + k)
+    tdt, jdt, view = ((torch.float32, jnp.float32, np.uint32) if out == "f32"
+                      else (torch.bfloat16, jnp.bfloat16, np.uint16))
+    got = dequant_planes_torch(_to_torch(planes), PDType(dtype), k, n,
+                               out_dtype=tdt)
+    want = np.asarray(dequant_planes_jnp(
+        {nm: jnp.asarray(v) for nm, v in planes.items()}, DType(dtype), k, n,
+        out_dtype=jdt))
+    bits = got.view(torch.int32 if out == "f32" else torch.int16).numpy()
+    np.testing.assert_array_equal(bits.view(view), want.view(view))
+    if out == "f32":
+        np.testing.assert_array_equal(
+            got.numpy(), dequant_planes(planes, DType(dtype), k, n))
+
+
+@pytest.mark.parametrize("dtype", NIBBLE)
+def test_dequant_nibble_stacked_planes(dtype):
+    """[L, rows, N] planes: every plane repeats along K, not along L."""
+    n, k = 128, 512
+    parts = [_nibble_planes(dtype, n, k, seed=s) for s in (4, 5)]
+    stacked = {nm: torch.stack([_to_torch(p)[nm] for p in parts])
+               for nm in parts[0]}
+    got = dequant_planes_torch(stacked, PDType(dtype), k, n)
+    assert tuple(got.shape) == (2, k, n)
+    for i, p in enumerate(parts):
+        np.testing.assert_array_equal(
+            got[i].numpy(), dequant_planes(p, DType(dtype), k, n))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f16", "q8_0", "q4_0", "q4_k",
+                                   "q5_k", "q6_k"])
+def test_port_quantizer_bytes_equal(dtype):
+    """The port's copy of core/quant.py gives the JAX package's bytes, on
+    an input with a zero block, a constant block and outliers."""
+    x = (np.random.default_rng(8).standard_normal((64, 512)) * 0.05) \
+        .astype(np.float32)
+    x[3] = 0.0
+    x[5, :256] = 0.25
+    x[7, 17] = 4.0
+    got = port_quant.quantize(x, PDType(dtype))
+    assert bytes(got) == bytes(quantize(x, DType(dtype)))
+
+
+def test_port_gguf_writer_round_trips(tmp_path):
+    """A file written by the port's GGUFWriter reads back the same through
+    both packages' readers: metadata of every kind and f32, f16 and
+    quantized tensors."""
+    path = str(tmp_path / "w.gguf")
+    w = port_gguf.GGUFWriter(path)
+    meta = {"general.architecture": "llama", "llama.block_count": 4,
+            "llama.rope.freq_base": 10000.0, "flag": True, "neg": -3,
+            "big": 2 ** 40,
+            "tokenizer.ggml.tokens": ["<s>", "▁a", "b"],
+            "tokenizer.ggml.scores": np.array([0.0, -1.5, -2.0],
+                                              np.float32),
+            "tokenizer.ggml.token_type": np.array([3, 1, 1], np.int32)}
+    for key, v in meta.items():
+        w.add_meta(key, v)
+    rng = np.random.default_rng(9)
+    a32 = rng.standard_normal((4, 8)).astype(np.float32)
+    a16 = rng.standard_normal(16).astype(np.float16)
+    q = (rng.standard_normal((8, 256)) * 0.05).astype(np.float32)
+    w.add_tensor("a", a32)
+    w.add_tensor("b", a16)
+    w.add_tensor("c", raw=port_quant.quantize(q, PDType.Q4_K), shape=(8, 256),
+                 dtype=PDType.Q4_K)
+    w.write()
+    for reader in (port_gguf.GGUFReader(path), JGGUFReader(path)):
+        for key, v in meta.items():
+            got = reader.metadata[key]
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(got, v)
+            else:
+                assert got == v, key
+        assert reader.tensor_order == ["a", "b", "c"]
+        assert reader.info("c").dtype.value == "q4_k"
+        assert reader.info("a").shape == (4, 8)
+        np.testing.assert_array_equal(
+            reader.raw_bytes("a").view(np.float32).reshape(4, 8), a32)
+        np.testing.assert_array_equal(reader.raw_bytes("b").view(np.float16),
+                                      a16)
+        assert bytes(reader.raw_bytes("c")) == bytes(quantize(q, DType.Q4_K))
 
 
 @pytest.mark.parametrize("dtype", ["w4a8", "w8a8"])

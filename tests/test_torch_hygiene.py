@@ -51,6 +51,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "load_model('models/repolm512_q8.gguf')",
     "from ntransformer_tpu_torch.models.synth import synth_model\n"
     "synth_model('tiny', 'q8_0')",
+    "from ntransformer_tpu_torch.models.synth import synth_model\n"
+    "synth_model('tiny', 'q4_k_m')",
     "from ntransformer_tpu_torch.inference.engine import Engine\n"
     "Engine.load('models/repolm512_q8.gguf')",
 ])
@@ -102,6 +104,33 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     r = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
     assert r.returncode == 0, r.stderr
     assert "REFUSED nvcc not found" in r.stdout
+
+
+def test_kquant_file_load_defaults_to_cuda_and_raises_without_it(tmp_path):
+    from tools.make_test_gguf import write_model
+    path = write_model(str(tmp_path / "q4km.gguf"), "tiny", "q4_k_m", seed=2)
+    r = _run("from ntransformer_tpu_torch.models.loader import load_model\n"
+             f"load_model({path!r})")
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_nibble_kernel_module_runs_on_cpu_without_nvcc(tmp_path):
+    """With no nvcc anywhere, the nibble-format wrapper on CPU tensors is
+    its plain twin and launches nothing."""
+    code = (
+        "import torch\n"
+        "from ntransformer_tpu_torch.core.dtypes import DType\n"
+        "from ntransformer_tpu_torch.models.synth import synth_qlinear\n"
+        "from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm\n"
+        "for dt in nm.KERNELS:\n"
+        "    ql = synth_qlinear(64, 256, dt, device='cpu')\n"
+        "    y = nm.nibble_matmul_cuda(torch.ones(1, 256), ql.planes, dt)\n"
+        "    assert y.shape == (1, 64) and bool(torch.isfinite(y).all())\n"
+        "assert all(k.launches == 0 for k in nm.KERNELS.values())\n"
+        "print('OK')\n")
+    r = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
+    assert r.returncode == 0, r.stderr
+    assert "OK" in r.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -312,10 +312,12 @@ def test_benchmark_runs_greedy(repolm_engines):
 
 
 def test_unsupported_weights_refused_at_load(tmp_path):
+    # Q4_K_M files load since the nibble-format slice
+    # (tests/test_torch_quant_model.py); mixture-of-experts files do not
     path = write_model(str(tmp_path / "tiny_q4km.gguf"), "tiny", "q4_k_m",
                        seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 row 1b"):
-        load_model(path, device="cpu")
+    assert load_model(path, device="cpu").weights.lm_head.dtype.value \
+        == "q6_k"
     moe = write_model(str(tmp_path / "moe.gguf"), "moe", "q8_0", seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_model(moe, device="cpu")
