@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught); the set-up always
 runs, `python3 chip_smoke.py kernels,serve` (names comma-separated) runs a
 subset of the rest:
 
-  set-up: the card's name and power limit, TF32 off, the five kernel
+  set-up: the card's name and power limit, TF32 off, the seven kernel
      sources built from csrc/ with nvcc (one process each, in parallel) and
      nvcc's register report printed;
   kernels: the Q8_0 matmul and prefill flash attention against their plain
@@ -45,7 +45,21 @@ subset of the rest:
      giving |w| ~ 0.02) through Engine.benchmark and BatchServer as in
      `full` and `bfull` (its launch counts are the Q4_K and Q6_K kernels'
      main path), then bench.py's B = 1 batched step for Q4_0 (the Q4_0
-     kernel's main path) and Q6_K.
+     kernel's main path) and Q6_K;
+  wkernels: the W8A8 int8 matmul (bit-equal to its twin), the W4A8 decode
+     matmul (bit-equal by construction, held to 2e-5) and the W4A8 T > 1
+     tile against their plain twins at the 8B shapes (W8A8 at T = 1, 8, 32,
+     512), a stacked layer view, repolm512's shapes, a ragged N and a
+     column-major x, with torch._int_mm (cuBLASLt int8) as the W8A8
+     yardstick where it takes the shape;
+  wreal: repolm512 requantized at load with --w4a8 and with --w8a8, each
+     as `real` (prefill layers held to the int8 limit: a flipped activation
+     code moves a whole int8 step), the --w8a8 model also as `serve`;
+  wfull: a synthetic Llama-3.1-8B in W4A8 through Engine.benchmark (the
+     main path of the W4A8 tile and of the decode kernel) and bench.py's
+     B = 1 step, then in W8A8 served by BatchServer (the W8A8 kernel's main
+     path) with the bench-style steps (B = 1, B = 32 int8, verify), each
+     with profiles and a 2-layer on/off view.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -64,7 +78,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # f32 outside the tensor cores
+INT8_OPS = 1979e12             # dense int8 tensor-core peak
 MATMUL_RTOL = 1e-3             # max|kernel-plain| <= 1e-3 * max|plain|
+# the W4A8 decode kernel against its twin, the JAX suite's own limit
+# (tests/test_w4a8.py); the twin takes the kernel's steps in its order, so
+# the two are bit-equal in fact (the row records it)
+W4A8_DECODE_RTOL = 2e-5
 # batched flash, for every query token: max|kernel-plain| <= 1e-4 *
 # max|plain| over the token's heads and lanes. Kernel and twin compute in
 # f32 from the same values; only the order of the sums (the kernel merges
@@ -84,6 +103,15 @@ FLASH_RTOL = 1e-2
 # summation order (1.6e-7 measured), and a bf16 flip that such an order
 # change can cause moves a layer output by ~1e-4
 LAYER_RTOL = {"prefill": 5e-3, "decode": 1e-4}
+# the same with weights requantized to W4A8 / W8A8, whose products quantize
+# their activations to int8: where the prefill's flash kernel moves an
+# attention output across a rounding edge, the next product's code flips and
+# moves a whole int8 step of its row (W8A8) or group (W4A8), so a prefill
+# layer is held to the JAX suite's int8 limit, as the int8 cache is
+# (measured 7.8e-3 for W8A8 and 1.2e-3 for W4A8 on repolm512, H100 80GB
+# HBM3 at 700 W). A decode layer's products are bit-equal to their twins
+# (0.0 measured), so the decode limit stays.
+WFORMAT_LAYER_RTOL = {"prefill": 2e-2, "decode": 1e-4}
 # repolm512 end to end, teacher-forced on the CPU's tokens: every step's
 # max|dlogit| / max|logit| of the kernel path against the CPU is at most
 # max(REAL_LOGIT_RTOL, 2 * r), r the card's plain path against the CPU at
@@ -122,6 +150,15 @@ FULL_LOGIT_RTOL = 2e-2
 # with the kernel's exact scale fold: 1.42e-2 on the Q8_0 weights, 2.12e-2
 # on Q4_K_M's; chip runs 4-6, PR 3.)
 BATCHED_LOGIT_RTOL = {"bf16": 5e-3, "int8": 2e-2}
+# logits of two paths over W4A8 / W8A8 weights that differ only in
+# attention's summation order (the int8 part of the 8B 2-layer check): each
+# product quantizes its activations to int8, and a code that an attention
+# rounding moves across an edge moves the product by a whole int8 step of
+# its row or group, through every later layer. Measured 4.7e-2 on the 8B
+# W8A8 weights (H100 80GB HBM3 at 700 W), where the same check reads
+# 9.9e-3 on Q8_0's; the matmul kernels themselves are bit-equal to their
+# twins (0.0).
+WFORMAT_LOGIT_RTOL = 0.1
 # the kernels each path launches: the single-stream Engine path, and the
 # serving path (the batched step adds batched flash and, at B > 1, the
 # in-place KV append)
@@ -130,7 +167,7 @@ SERVE_KERNELS = ENGINE_KERNELS + ("batched_attention", "kv_update")
 REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
-          "bfull", "qreal", "qfull")
+          "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -644,16 +681,19 @@ def layer_by_layer(torch, engine, ids) -> dict:
 
 
 def real_model_phase(torch, counters, card: str, gguf: str = REPOLM,
-                     kernels=ENGINE_KERNELS) -> dict:
-    """`gguf` (repolm512 or a requantized copy) through the CLI on the card
-    (every kernel of `kernels` launched), Engine greedy generation on the
-    card against the CPU, teacher-forced, and layer by layer."""
+                     kernels=ENGINE_KERNELS, fmt: str | None = None) -> dict:
+    """`gguf` (repolm512 or a requantized copy; with fmt "w4a8" or "w8a8"
+    requantized at load) through the CLI on the card (every kernel of
+    `kernels` launched), Engine greedy generation on the card against the
+    CPU, teacher-forced, and layer by layer."""
     from ntransformer_tpu_torch import cli
     from ntransformer_tpu_torch.inference.engine import Engine, GenerateConfig
-    tag = os.path.basename(gguf)
+    tag = os.path.basename(gguf) + (f" --{fmt}" if fmt else "")
+    flags = [f"--{fmt}"] if fmt else []
+    load_kw = {fmt: True} if fmt else {}
     reset(counters)
     rc = cli.main(["-m", gguf, "-p", PROMPT, "-n", "32", "-t", "0",
-                   "--repeat-penalty", "1.0", "--device", "cuda"])
+                   "--repeat-penalty", "1.0", "--device", "cuda"] + flags)
     torch.cuda.synchronize()
     got = read(counters)
     print(f"cli launches {got}", flush=True)
@@ -661,8 +701,8 @@ def real_model_phase(torch, counters, card: str, gguf: str = REPOLM,
     check(all(got[k] > 0 for k in kernels),
           f"{tag}: CLI run on the card launched a kernel zero times: {got}")
 
-    gpu = Engine.load(gguf, device="cuda", fuse=True)
-    cpu = Engine.load(gguf, device="cpu", fuse=True)
+    gpu = Engine.load(gguf, device="cuda", fuse=True, **load_kw)
+    cpu = Engine.load(gguf, device="cpu", fuse=True, **load_kw)
     ids = gpu._encode(PROMPT)
     check(len(ids) >= 70, f"prompt is {len(ids)} tokens; want >= 70")
     cfg = GenerateConfig(max_tokens=32, temperature=0.0, repeat_penalty=1.0)
@@ -706,12 +746,13 @@ def real_model_phase(torch, counters, card: str, gguf: str = REPOLM,
         check(r <= lim, f"{tag} step {i}: teacher-forced logits differ "
               f"by {r} of their range (> {lim})")
     layers = layer_by_layer(torch, gpu, ids)
+    layer_rtol = WFORMAT_LAYER_RTOL if fmt else LAYER_RTOL
     print(f"{tag} layer by layer, kernels vs plain on the card: "
-          f"{layers} (tol {LAYER_RTOL})", flush=True)
+          f"{layers} (tol {layer_rtol})", flush=True)
     for phase, r in layers.items():
-        check(r <= LAYER_RTOL[phase],
+        check(r <= layer_rtol[phase],
               f"{tag} {phase}: a layer's kernel output differs by {r} "
-              f"of its range from the plain path's (> {LAYER_RTOL[phase]})")
+              f"of its range from the plain path's (> {layer_rtol[phase]})")
     worst = max(kern)
     return {"tokens_agree": agree, "tokens": len(cpu_toks),
             "logit_rel_err": worst, "logit_rel_err_steps": kern,
@@ -772,8 +813,9 @@ def batched_pass(torch, model, bkv, lens, first, n: int, impl: str,
 
 
 def real_serve_phase(torch, counters, card: str, gguf: str = REPOLM,
-                     kernels=SERVE_KERNELS) -> dict:
-    """repolm512 (or a requantized copy) served on the card: the CLI's
+                     kernels=SERVE_KERNELS, fmt: str | None = None) -> dict:
+    """repolm512 (or a requantized copy; with fmt "w4a8" or "w8a8"
+    requantized at load) served on the card: the CLI's
     --serve (bf16 and int8; every kernel of `kernels` launched), the
     batched step from the CPU's prefill teacher-forced on the CPU's tokens
     (kernel path and the card's plain path against the CPU, every step and
@@ -784,9 +826,11 @@ def real_serve_phase(torch, counters, card: str, gguf: str = REPOLM,
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
     from ntransformer_tpu_torch.models.loader import load_model
     from ntransformer_tpu_torch.ops import linear
-    tag = os.path.basename(gguf)
-    gpu = load_model(gguf, device="cuda", fuse=True)
-    cpu = load_model(gguf, device="cpu", fuse=True)
+    tag = os.path.basename(gguf) + (f" --{fmt}" if fmt else "")
+    fmt_flags = [f"--{fmt}"] if fmt else []
+    load_kw = {fmt: True} if fmt else {}
+    gpu = load_model(gguf, device="cuda", fuse=True, **load_kw)
+    cpu = load_model(gguf, device="cpu", fuse=True, **load_kw)
     prompts = serve_prompts(gpu.tokenizer)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -797,7 +841,7 @@ def real_serve_phase(torch, counters, card: str, gguf: str = REPOLM,
             reset(counters)
             rc = cli.main(["-m", gguf, "--serve", path, "--batch-size", "4",
                            "-n", "16", "-t", "0", "--repeat-penalty", "1.0",
-                           "--device", "cuda"] + flags)
+                           "--device", "cuda"] + fmt_flags + flags)
             torch.cuda.synchronize()
             got = read(counters)
             print(f"{tag} cli --serve {' '.join(flags)} launches {got}",
@@ -879,7 +923,9 @@ class IdsTokenizer:
 
 
 def full_batched_phase(torch, counters, card: str, synth,
-                       kernels=SERVE_KERNELS) -> tuple:
+                       kernels=SERVE_KERNELS,
+                       int8_attention_rtol=BATCHED_LOGIT_RTOL["int8"]
+                       ) -> tuple:
     """A synthetic Llama-3.1-8B served at full width: BatchServer with 8
     slots answering 8 requests (launch counts read around it; every kernel
     of `kernels` launched), then the batched step as the bench drives it
@@ -972,7 +1018,8 @@ def full_batched_phase(torch, counters, card: str, synth,
     for name, c in cells.items():
         print(json.dumps({f"{tag}_batched_{name}": c}), flush=True)
     summary.update(cells=cells, profile_b1=prof_b1, profile_b32=prof_b32,
-                   two_layer=batched_on_off(torch, arch, weights))
+                   two_layer=batched_on_off(torch, arch, weights,
+                                            int8_attention_rtol))
     return summary, launches
 
 
@@ -1063,7 +1110,8 @@ def profile_batched(torch, arch, weights, bkv, b_n: int, pos0: int,
     return out
 
 
-def batched_on_off(torch, arch, weights) -> dict:
+def batched_on_off(torch, arch, weights,
+                   int8_attention_rtol=BATCHED_LOGIT_RTOL["int8"]) -> dict:
     """The batched step on a 2-layer view of the 8B weights, kernels on vs
     off (the plain path writes each layer's rows, then attends the whole
     cache in plain PyTorch), B = 4 from a random mid-context cache with one
@@ -1075,7 +1123,8 @@ def batched_on_off(torch, arch, weights) -> dict:
     attention on both sides) to the bf16 limit, and the attention and
     append kernels against plain attention over an f32 cache holding the
     exact dequantized values (matmul kernels on both sides) to the int8
-    limit (the new rows' codes round on the kernel side only)."""
+    limit (the new rows' codes round on the kernel side only), or to
+    `int8_attention_rtol` where the weights quantize their activations."""
     import dataclasses
     from ntransformer_tpu_torch.models import llama
     from ntransformer_tpu_torch.models.batched import (BatchedKV,
@@ -1134,7 +1183,7 @@ def batched_on_off(torch, arch, weights) -> dict:
             parts = {"matmul kernels": (rel_of(outs["matmul"][0], b),
                                         BATCHED_LOGIT_RTOL["bf16"]),
                      "int8 attention": (rel_of(a, outs["exact"][0]),
-                                        BATCHED_LOGIT_RTOL["int8"])}
+                                        int8_attention_rtol)}
             del exact
         print(f"8b 2-layer batched step {mode}, kernels on vs off: "
               f"max|d|/max|off| = {rel:.3e}; by part (value, tol): {parts}",
@@ -1169,15 +1218,21 @@ def batched_on_off(torch, arch, weights) -> dict:
 # [-8, 8] at d = 0.004). Q4_0: (nib - 8) * 0.005; Q4_K: q * (0.000625 * 8) -
 # 0.0046875 * 8 = 0.005 q - 0.0375; Q5_K: 0.0025 q - 0.03875; Q6_K:
 # (q - 32) * (0.00015625 * 8) = 0.00125 (q - 32); sc / mn stay 8.
+# W4A8: c * 0.004 - 0.03 over c in [0, 15] (|w| ~ 0.015); W8A8: codes
+# uniform over [-127, 127] at s = 0.0003 (|w| ~ 0.019).
 SYNTH_SCALES = {"q4_0": {"d": 0.005}, "q4_k": {"d": 0.000625,
                                               "dmin": 0.0046875},
                 "q5_k": {"d": 0.0003125, "dmin": 0.00484375},
-                "q6_k": {"d": 0.00015625}}
+                "q6_k": {"d": 0.00015625},
+                "w4a8": {"s_lo": 0.004, "s_hi": 0.004, "m_lo": 0.03,
+                         "m_hi": 0.03},
+                "w8a8": {"s": 0.0003}}
 
 
 def build_synth(torch, dtype: str = "q8_0"):
     """The synthetic Llama-3.1-8B in `dtype` ("q4_k_m" takes the Q4_K_M
-    policy) on the card, with seeded random codes of a realistic spread:
+    policy; "w4a8" and "w8a8" are built in the format, as the JAX synth
+    builds them) on the card, with seeded random codes of a realistic spread:
     (cfg, arch, weights, bytes read per decoded token)."""
     from ntransformer_tpu_torch.models.synth import model_nbytes, synth_model
     from ntransformer_tpu_torch.ops import linear
@@ -1197,10 +1252,14 @@ def build_synth(torch, dtype: str = "q8_0"):
         for nm, p in ql.planes.items():
             if nm in ("qs", "ql", "qh"):
                 p.random_(0, 256, generator=g)
+            elif nm == "q":  # W8A8 codes
+                p.random_(-127, 128, generator=g)
             elif nm in ("d", "dmin"):
                 p.copy_(torch.full_like(p, SYNTH_SCALES[ql.dtype.value][nm],
                                         dtype=torch.float16)
                         .view(torch.int16))
+            elif p.dtype == torch.float32:  # W4A8 / W8A8 scales and mins
+                p.fill_(SYNTH_SCALES[ql.dtype.value][nm])
     torch.cuda.synchronize()
     nbytes = model_nbytes(weights)
     per_token = nbytes - weights.embed.nbytes - (weights.rope_cos.numel()
@@ -1212,7 +1271,11 @@ def build_synth(torch, dtype: str = "q8_0"):
 
 
 def full_width_phase(torch, counters, card: str, synth,
-                     kernels=ENGINE_KERNELS):
+                     kernels=ENGINE_KERNELS, prefill_kernels=None):
+    """Engine.benchmark on the synthetic 8B (every kernel of `kernels`
+    launched), a decode profile, and a 2-layer prefill view with the kernels
+    on and off (every kernel of `prefill_kernels`, by default `kernels`,
+    launched)."""
     import dataclasses
     from ntransformer_tpu_torch.inference.engine import Engine
     from ntransformer_tpu_torch.models import llama
@@ -1274,7 +1337,7 @@ def full_width_phase(torch, counters, card: str, synth,
             outs[mode] = (lg, read(counters))
         finally:
             linear.KERNEL_MODE = "auto"
-    check(all(outs["auto"][1][k] > 0 for k in kernels),
+    check(all(outs["auto"][1][k] > 0 for k in prefill_kernels or kernels),
           f"2-layer kernel run launched {outs['auto'][1]}")
     check(all(v == 0 for v in outs["off"][1].values()),
           f"2-layer plain run launched kernels: {outs['off'][1]}")
@@ -1366,7 +1429,7 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
     g = torch.Generator(device="cuda")
     g.manual_seed(5678)
     out = {}
-    for dtype in nm.KERNELS:
+    for dtype in (DType.Q4_0, DType.Q4_K, DType.Q5_K, DType.Q6_K):
         kern = nm.KERNELS[dtype]
         shapes = [("8b qkv", 4096, 6144, (1, 32, 512)),
                   ("8b wo", 4096, 4096, (1, 32, 512)),
@@ -1428,6 +1491,237 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
                           "planes": [s_.name for s_ in LAYOUTS[dtype]]}
     print(f"nibble kernel phase done on {card}", flush=True)
     return out
+
+
+# ------------------------------------------------------ W4A8 / W8A8
+def random_wplanes(torch, g, dtype, k: int, n: int, lead: int | None = None
+                   ) -> dict:
+    """Planes of a random [K, N] matrix (or [lead, K, N]) in an engine-
+    native format on the card, spread as a requantized |w| ~ 0.02 matrix:
+    W8A8 codes uniform over [-127, 127] with column scales in [1e-4, 3e-4];
+    W4A8 nibbles uniform with scales in [0.004, 0.01] and mins in [0.03,
+    0.07]. Nothing is symmetric in K."""
+    from ntransformer_tpu_torch.core.layout import LAYOUTS
+    pre = () if lead is None else (lead,)
+    planes = {}
+    for spec in LAYOUTS[dtype]:
+        shape = pre + ((1 if spec.rows_div == 0 else k // spec.rows_div), n)
+        if spec.name == "q":
+            planes["q"] = torch.randint(-127, 128, shape, dtype=torch.int8,
+                                        device="cuda", generator=g)
+        elif spec.name == "qs":
+            planes["qs"] = torch.randint(0, 256, shape, dtype=torch.uint8,
+                                         device="cuda", generator=g)
+        else:
+            lo, hi = {"s": (1e-4, 3e-4), "s_lo": (0.004, 0.01),
+                      "s_hi": (0.004, 0.01), "m_lo": (0.03, 0.07),
+                      "m_hi": (0.03, 0.07)}[spec.name]
+            planes[spec.name] = lo + (hi - lo) * torch.rand(
+                shape, device="cuda", generator=g)
+    return planes
+
+
+def skewed_x(torch, g, t: int, k: int):
+    """Activations whose scale and offset drift along K (nothing symmetric
+    in K or across the W4A8 groups), rounded to bf16 as the layers give
+    them."""
+    ramp = torch.linspace(0.5, 2.0, k, device="cuda")
+    x = torch.randn(t, k, device="cuda", generator=g) * ramp + 0.1 * ramp
+    return x.to(torch.bfloat16)
+
+
+def wformat_kernel_phase(torch, timer, card: str) -> dict:
+    """The W8A8 matmul, the W4A8 decode matmul and the W4A8 T > 1 tile
+    against their plain twins on the card: the 8B shapes (fused qkv, wo,
+    fused gate|up, down, the 128256-token head), a layer view of stacked
+    planes, repolm512's K = 1024 down and 384-wide head, and a ragged N =
+    200. W8A8 at T = 1, 8, 32 and 512 (the 8-slot server's decode step is
+    T = 8); W4A8 decode at T = 1; the W4A8 tile at T = 32 and 512. Times by
+    CUDA events as in the kernels phase. Yardsticks: torch._int_mm (cuBLASLt
+    int8) plus the same fixup for W8A8, where it takes the shape, and
+    torch.matmul on the pre-dequantized bf16 weight for W4A8."""
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
+    from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
+    from ntransformer_tpu_torch.ops.cuda import w8a8 as cw8
+    from ntransformer_tpu_torch.ops.dequant_torch import (
+        dequant_planes_torch, quantize_activations_torch, quantize_rows_torch)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2468)
+    b8 = [("8b qkv", 4096, 6144), ("8b wo", 4096, 4096),
+          ("8b gate|up", 4096, 28672), ("8b down", 14336, 4096)]
+    small = [("repolm512 down", 1024, 512), ("repolm512 head", 512, 384),
+             ("ragged 1024x200", 1024, 200)]
+    # x as a dense transposed view, as the embedding lookup leaves the
+    # first layer's activations
+    colmajor = ("repolm512 qkv, x column-major", 512, 1024, (128,))
+    # (label, K, N, rows per kernel); a stacked case reads layer 1 of 2
+    cases = {
+        "w8a8_matmul": [(lb, k, n, (1, 8, 32, 512)) for lb, k, n in b8]
+        + [("8b head", 4096, 128256, (1, 8, 32)),
+           ("8b stacked[1] wo", 4096, 4096, (1, 32))]
+        + [(lb, k, n, (1, 70)) for lb, k, n in small] + [colmajor],
+        "w4a8_decode": [(lb, k, n, (1,)) for lb, k, n in b8]
+        + [("8b head", 4096, 128256, (1,)),
+           ("8b stacked[1] wo", 4096, 4096, (1,))]
+        + [(lb, k, n, (1,)) for lb, k, n in small if k % 512 == 0],
+        "w4a8_matmul": [(lb, k, n, (32, 512)) for lb, k, n in b8]
+        + [("8b head", 4096, 128256, (32,)),
+           ("8b stacked[1] wo", 4096, 4096, (32,))]
+        + [(lb, k, n, (32, 70)) for lb, k, n in small if k % 512 == 0]
+        + [colmajor],
+    }
+    out = {}
+    for name, shapes in cases.items():
+        dtype = DType.W8A8 if name == "w8a8_matmul" else DType.W4A8
+        rows = []
+        for label, k, n, ts in shapes:
+            stacked = label.startswith("8b stacked")
+            planes = random_wplanes(torch, g, dtype, k, n,
+                                    2 if stacked else None)
+            if stacked:
+                planes = {nm_: p[1] for nm_, p in planes.items()}
+            pbytes = sum(a.numel() * a.element_size()
+                         for a in planes.values())
+            w = (None if dtype == DType.W8A8 else dequant_planes_torch(
+                planes, dtype, k, n, out_dtype=torch.bfloat16))
+            for t in ts:
+                x = skewed_x(torch, g, t, k)
+                if "column-major" in label:
+                    x = x.t().contiguous().t()
+                if name == "w8a8_matmul":
+                    q, s = planes["q"], planes["s"]
+                    fns = {"kernel": lambda: cw8.w8a8_matmul_cuda(x, q, s),
+                           "plain": lambda: cw8.w8a8_matmul_plain(x, q, s)}
+                    if t > 16 and k % 8 == 0 and n % 8 == 0:
+                        def library():
+                            a, am = quantize_rows_torch(x.float())
+                            return torch._int_mm(a, q).float() * am * s
+                        fns["library"] = library
+                    # the wrapper's plain activation quantization alone
+                    fns["act_quant"] = lambda: quantize_rows_torch(
+                        x.float().contiguous())
+                    ops_peak = INT8_OPS
+                elif name == "w4a8_decode":
+                    fns = {"kernel": lambda: cw4.w4a8_decode_cuda(x, planes),
+                           "plain": lambda: cw4.w4a8_decode_plain(x, planes),
+                           "library": lambda: torch.matmul(x, w),
+                           "act_quant": lambda: quantize_activations_torch(x)}
+                    ops_peak = INT8_OPS
+                else:
+                    fns = {"kernel": lambda: nm.nibble_matmul_cuda(
+                               x, planes, dtype),
+                           "plain": lambda: nm.nibble_matmul_plain(
+                               x, planes, dtype),
+                           "library": lambda: torch.matmul(x, w)}
+                    ops_peak = BF16_FLOPS
+                y = fns["kernel"]()
+                y0 = fns["plain"]()
+                torch.cuda.synchronize()
+                err = float((y - y0).abs().max())
+                scale = float(y0.abs().max())
+                tag = f"{name} {label} T={t}"
+                check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+                if name == "w8a8_matmul":
+                    tol = 0.0
+                    check(torch.equal(y, y0), f"{tag}: kernel and plain twin "
+                          f"differ (max abs {err}); want bit-equal")
+                else:
+                    tol = (W4A8_DECODE_RTOL if name == "w4a8_decode"
+                           else MATMUL_RTOL) * scale
+                    check(err <= tol, f"{tag}: max|kernel-plain| {err} > "
+                          f"{tol}")
+                if "library" in fns:  # the yardstick computes the product
+                    lib = fns["library"]()
+                    lib_rel = float((lib - y0).abs().max()) / scale
+                else:
+                    lib_rel = None
+                ms = timer.compare(fns)
+                b_ms, b_by = bound(pbytes + t * k * 2 + t * n * 4,
+                                   2.0 * t * k * n, ops_peak)
+                row = {"shape": f"{label} T={t}", "T": t, "K": k, "N": n,
+                       "plane_bytes": pbytes, "max_abs_err": err, "tol": tol,
+                       "bit_equal": bool(torch.equal(y, y0)),
+                       "ms": ms["kernel"], "plain_ms": ms["plain"],
+                       "library_ms": ms.get("library"),
+                       "act_quant_ms": ms.get("act_quant"),
+                       "library_rel_err": lib_rel,
+                       "library_note": (None if "library" in fns else
+                                        "torch._int_mm refuses M <= 16"),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                rows.append(row)
+                print(json.dumps({name: row}), flush=True)
+                del x, y, y0
+            del planes, w
+        main = {"w8a8_matmul": "8b gate|up T=8",
+                "w4a8_decode": "8b gate|up T=1",
+                "w4a8_matmul": "8b gate|up T=512"}[name]
+        out[name] = {"rows": rows, "main": main}
+    print(f"w-format kernel phase done on {card}", flush=True)
+    return out
+
+
+# the kernels of each requantized format's paths: the Engine path (prefill
+# chunks and decode steps) and the served batched steps
+WFORMAT_ENGINE = {"w4a8": ("w4a8_matmul", "w4a8_decode", "flash_attention"),
+                  "w8a8": ("w8a8_matmul", "flash_attention")}
+WFORMAT_SERVE = {"w4a8": ("w4a8_matmul", "w4a8_decode", "flash_attention",
+                          "batched_attention", "kv_update"),
+                 "w8a8": ("w8a8_matmul", "flash_attention",
+                          "batched_attention", "kv_update")}
+
+
+def wformat_real_phase(torch, counters, card: str) -> dict:
+    """repolm512 requantized at load with --w4a8 and with --w8a8: each
+    through the CLI, Engine greedy generation against the CPU, teacher-
+    forced and layer by layer, as the real phase does; the --w8a8 model
+    also served (--serve B = 4, bf16 and --kv-int8) as the serve phase
+    does."""
+    out = {fmt: real_model_phase(torch, counters, card, REPOLM,
+                                 WFORMAT_ENGINE[fmt], fmt)
+           for fmt in ("w4a8", "w8a8")}
+    out["serve_w8a8"] = real_serve_phase(torch, counters, card, REPOLM,
+                                         WFORMAT_SERVE["w8a8"], "w8a8")
+    return out
+
+
+def wformat_full_phase(torch, counters, card: str) -> tuple[dict, dict]:
+    """The synthetic Llama-3.1-8B in the engine-native formats at full
+    width and depth. W4A8: Engine.benchmark (the main path of w4a8_matmul,
+    the prefill chunks, and of w4a8_decode) with its decode profile and
+    2-layer on/off view, then bench.py's B = 1 batched step
+    (llama8b_w4a8_resident_decode) with a profile. W8A8: BatchServer with 8
+    slots (the main path of w8a8_matmul) and the bench-style batched steps
+    (B = 1: llama8b_w8a8_resident_decode; B = 32 int8:
+    llama8b_w8a8_b32_int8_aggregate; a verify window) with profiles and
+    the 2-layer on/off view. Returns (summaries, launch counts by path)."""
+    import dataclasses
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    summaries, launches = {}, {}
+    synth = build_synth(torch, "w4a8")
+    summaries["engine_w4a8"], launches["engine_w4a8"] = full_width_phase(
+        torch, counters, card, synth, WFORMAT_ENGINE["w4a8"],
+        ("w4a8_matmul", "flash_attention"))
+    _, arch, weights, per_token = synth
+    cell = bench_b1(torch, counters, arch, weights, per_token)
+    check(cell["launches"]["w4a8_decode"] > 0,
+          f"8b w4a8 B=1 step launched {cell['launches']}")
+    arch1k = dataclasses.replace(arch, max_seq_len=1024)
+    cell["profile"] = profile_batched(torch, arch1k, weights,
+                                      BatchedKV.create(arch1k, 1,
+                                                       device="cuda"),
+                                      1, 160)
+    print(json.dumps({"8b_w4a8_batched_b1_bf16": cell}), flush=True)
+    summaries["b1_w4a8"], launches["b1_w4a8"] = cell, cell["launches"]
+    del synth, weights
+    synth = build_synth(torch, "w8a8")
+    summaries["serve_w8a8"], launches["serve_w8a8"] = full_batched_phase(
+        torch, counters, card, synth, WFORMAT_SERVE["w8a8"],
+        WFORMAT_LOGIT_RTOL)
+    print(json.dumps({"full_width_8b_w8a8_serving":
+                      summaries["serve_w8a8"]}), flush=True)
+    del synth
+    return summaries, launches
 
 
 # requantized repolm512 files: tag -> the kernels its Engine path must
@@ -1564,8 +1858,10 @@ def main() -> int:
     from ntransformer_tpu_torch.ops.cuda import kv_update as ck
     from ntransformer_tpu_torch.ops.cuda import matmul as cm
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as cn
+    from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
+    from ntransformer_tpu_torch.ops.cuda import w8a8 as cw8
     t0 = time.perf_counter()
-    mods = (cm, ca, cb, ck, cn)
+    mods = (cm, ca, cb, ck, cw8, cw4, cn)
     with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, together
         reports = list(ex.map(build.build, [m.NAME for m in mods]))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1575,7 +1871,7 @@ def main() -> int:
                 print("  " + line.split("'")[1][:90], flush=True)
             elif "registers" in line or "spill" in line:
                 print("    " + line.strip(), flush=True)
-    counters = {m.NAME: m for m in mods[:4]}
+    counters = {m.NAME: m for m in mods[:6]}
     counters.update({k.name: k for k in cn.KERNELS.values()})
 
     timer = Timer(torch)
@@ -1587,6 +1883,8 @@ def main() -> int:
         res[cb.NAME], res[ck.NAME] = batched_kernel_phase(torch, timer, card)
     if "qkernels" in phases:
         res.update(nibble_kernel_phase(torch, timer, card))
+    if "wkernels" in phases:
+        res.update(wformat_kernel_phase(torch, timer, card))
     if "real" in phases:
         real_model_phase(torch, counters, card)
     if "serve" in phases:
@@ -1618,6 +1916,17 @@ def main() -> int:
     if "qfull" in phases:
         _, got = quant_full_phase(torch, counters, card)
         qlaunch.update(got)
+    # the engine-native formats' main paths: the 8B W8A8 server for
+    # w8a8_matmul, the 8B W4A8 B = 1 step for w4a8_decode (Engine.benchmark
+    # beside it) and the 8B W4A8 Engine.benchmark's prefill for w4a8_matmul
+    qpath.update({"w8a8_matmul": ("serve_w8a8", None),
+                  "w4a8_decode": ("b1_w4a8", "engine_w4a8"),
+                  "w4a8_matmul": ("engine_w4a8", "engine_w4a8")})
+    if "wreal" in phases:
+        wformat_real_phase(torch, counters, card)
+    if "wfull" in phases:
+        _, got = wformat_full_phase(torch, counters, card)
+        qlaunch.update(got)
     for name, (main_path, engine_path) in qpath.items():
         launches[name] = qlaunch.get(main_path, {}).get(name, 0)
         engine_launches[name] = qlaunch.get(engine_path, {}).get(name, 0)
@@ -1629,11 +1938,16 @@ def main() -> int:
                      f"in every query row",
             cb.NAME: f"max|kernel-plain| <= {BATCHED_RTOL} * max|plain| "
                      f"in every query token",
-            ck.NAME: "bit-equal"}
+            ck.NAME: "bit-equal",
+            cw8.NAME: "bit-equal",
+            cw4.NAME: f"max|kernel-plain| <= {W4A8_DECODE_RTOL} * "
+                      f"max|plain| (bit-equal by construction)"}
     entries = [(cm.NAME, "csrc/q8_0_matmul.cu", cm.REPLACES),
                (ca.NAME, "csrc/flash_attention.cu", ca.REPLACES),
                (cb.NAME, "csrc/batched_attention.cu", cb.REPLACES),
-               (ck.NAME, "csrc/kv_update.cu", ck.REPLACES)]
+               (ck.NAME, "csrc/kv_update.cu", ck.REPLACES),
+               (cw8.NAME, "csrc/w8a8_matmul.cu", cw8.REPLACES),
+               (cw4.NAME, "csrc/w4a8_decode.cu", cw4.REPLACES)]
     entries += [(k.name, "csrc/nibble_matmul.cu", k.replaces)
                 for k in cn.KERNELS.values()]
     for name, src, replaces in entries:

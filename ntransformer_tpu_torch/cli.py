@@ -2,8 +2,9 @@
 
 It runs resident generation (bf16 or --kv-int8 cache), --benchmark and
 --serve (continuous batching over a prompts file, with --batch-size,
---prefix-cache and --kv-int8) on one device. Every other mode exits with 2
-and names the ROADMAP item that ports it.
+--prefix-cache and --kv-int8) on one device, each in the file's formats or
+requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8). Every other mode
+exits with 2 and names the ROADMAP item that ports it.
 
 Usage: python -m ntransformer_tpu_torch -m model.gguf -p "prompt" [-n 128]
 """
@@ -29,10 +30,6 @@ _NOT_PORTED = {
     "--self-spec": "speculative decoding is ROADMAP queue 1 item 13",
     "--draft-model": "speculative decoding is ROADMAP queue 1 item 13",
     "--spec-k": "speculative serving is ROADMAP queue 1 item 13",
-    "--w4a8": "the W4A8 format and kernel are ROADMAP queue 1 item 10 and "
-              "queue 2 row 7",
-    "--w8a8": "the W8A8 format and kernel are ROADMAP queue 1 item 10 and "
-              "queue 2 row 6",
 }
 
 
@@ -82,8 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-cache", type=int, default=0)
     p.add_argument("--no-fuse", action="store_true",
                    help="disable fused wqkv / gate|up weights")
-    p.add_argument("--w4a8", action="store_true")
-    p.add_argument("--w8a8", action="store_true")
+    p.add_argument("--w4a8", action="store_true",
+                   help="requantize weights to the W4A8 format at load "
+                        "(int8 decode kernel); changes numerics")
+    p.add_argument("--w8a8", action="store_true",
+                   help="requantize weights to the W8A8 serving format at "
+                        "load (one int8 product at any batch size); changes "
+                        "numerics")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -99,7 +101,7 @@ def refused_mode(args) -> str | None:
         "--requant-q4k/--requant-ram": args.requant_q4k or args.requant_ram,
         "--tp": args.tp, "--cp": args.cp, "--ep": args.ep, "--dp": args.dp,
         "--self-spec": args.self_spec, "--draft-model": args.draft_model,
-        "--spec-k": args.spec_k, "--w4a8": args.w4a8, "--w8a8": args.w8a8,
+        "--spec-k": args.spec_k,
     }
     return next((mode for mode, on in asked.items() if on), None)
 
@@ -122,6 +124,10 @@ def main(argv=None) -> int:
         log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
                   "port runs resident generation, --benchmark and --serve.")
         return 2
+    if args.w4a8 and args.w8a8:
+        log.error("--w4a8 and --w8a8 are mutually exclusive (pick the "
+                  "decode-optimized or the serving format)")
+        return 2
     if args.serve:
         return serve(args)
 
@@ -134,7 +140,8 @@ def main(argv=None) -> int:
     log.info(f"loading {args.model} (resident, {args.device})")
     engine = Engine.load(args.model, max_seq_len=args.ctx_size,
                          fuse=not args.no_fuse, device=args.device,
-                         kv_quant=args.kv_int8)
+                         kv_quant=args.kv_int8, w4a8=args.w4a8,
+                         w8a8=args.w8a8)
 
     if args.benchmark:
         stats = engine.benchmark(args.prompt, n_tokens=args.bench_tokens)
@@ -164,7 +171,8 @@ def serve(args) -> int:
     log.info(f"loading {args.model} (resident, {args.device}) to serve "
              f"{args.batch_size} slots")
     model = load_model(args.model, max_seq_len=args.ctx_size,
-                       fuse=not args.no_fuse, device=args.device)
+                       fuse=not args.no_fuse, device=args.device,
+                       w4a8=args.w4a8, w8a8=args.w8a8)
     srv = BatchServer(model, batch_size=args.batch_size,
                       prefix_cache=args.prefix_cache, kv_quant=args.kv_int8,
                       sampler_cfg=SamplerConfig(

@@ -221,10 +221,12 @@ def split_x(x: np.ndarray, dtype: DType) -> tuple[np.ndarray, np.ndarray]:
 def dequant_planes(planes: dict[str, np.ndarray], dtype: DType,
                    k: int, n: int) -> np.ndarray:
     """Reconstruct W^T [K, N] f32 in ORIGINAL element order from planes."""
-    if dtype in (DType.W4A8, DType.W8A8):
-        raise NotImplementedError(
-            f"{dtype.value} planes are not ported yet (ROADMAP queue 1 "
-            "item 10: core/w4a8.py and core/w8a8.py)")
+    if dtype == DType.W4A8:
+        from .w4a8 import dequant_w4a8
+        return dequant_w4a8(planes, k, n)
+    if dtype == DType.W8A8:
+        from .w8a8 import dequant_w8a8
+        return dequant_w8a8(planes, k, n)
 
     if dtype == DType.Q8_0:
         d = planes["d"].view(np.float16).astype(np.float32)

@@ -1,12 +1,14 @@
 // Fused dequant-matmul of the GGUF nibble formats (Q4_0, Q4_K, Q5_K, Q6_K)
-// for Hopper (sm_90a), plain C interface: one entry point per format.
+// and of the engine-native W4A8 format for Hopper (sm_90a), plain C
+// interface: one entry point per format.
 //
 // Replaces the TPU kernel ntransformer_tpu/ops/pallas/matmul.py::
-// _quant_matmul_impl with its _q4_0_tile, _q4_k_tile, _q5_k_tile and
-// _q6_k_tile bodies (entry quant_matmul_pallas, reached from
+// _quant_matmul_impl with its _q4_0_tile, _q4_k_tile, _q5_k_tile,
+// _q6_k_tile and _w4a8_tile bodies (entry quant_matmul_pallas, reached from
 // ops/linear.py::qmatmul): every quantized product of a Q4_0, Q4_K_M, Q5_K
 // or Q6_K model, at T = 1 (decode) and at T > 1 (prefill chunks, batched
-// steps, verify windows).
+// steps, verify windows), and the T > 1 products of a W4A8 model (its T = 1
+// product is w4a8_decode.cu).
 //
 // What it computes. y[T,N] f32 = bf16(x)[T,K] @ W with W[k,n] the bf16 of
 // the weight exactly as the plain dequant (ops/dequant_torch.py, the JAX
@@ -14,13 +16,18 @@
 //   Q4_0:        (nib - 8) * d
 //   Q4_K, Q5_K:  q * (d * sc) - dmin * mn      (Q5_K: q = nib | hb << 4)
 //   Q6_K:        ((nib | hb << 4) - 32) * (d * sc)
+//   W4A8:        nib * s - m                  (s, m f32 planes)
 // with f32 accumulation. For Q4_0, Q4_K and Q5_K every product is exact in
 // f32 (at most 11 + 6 + 5 significant bits), so only the one subtraction
 // rounds, as in the plain dequant; for Q6_K (d * sc) is exact and the one
 // multiply by q rounds, in the plain dequant's order. Kernel and plain twin
 // thus see the same bf16 weights and differ only in the order of the f32
-// sums. The TPU kernel's group-sum correction dot for the min term (a VPU
-// trade with its own rounding) is not carried over.
+// sums. W4A8's nib * s is not exact in f32 for an arbitrary s, so an FMA
+// contraction of nib * s - m would round once where the plain dequant
+// rounds twice and change the bf16 weight: its body multiplies and
+// subtracts with __fmul_rn and __fsub_rn. The TPU kernel's group-sum
+// correction dot for the min term (a VPU trade with its own rounding) is not
+// carried over.
 //
 // Plane layout (core/layout.py): transposed planes, N contiguous. Nibble
 // plane row r of a format with split unit u (32 / 64 / 64 / 128) holds
@@ -33,6 +40,8 @@
 //   Q6_K: sc_lo / sc_hi (signed int8) row r / 16, d row r / 128; qh [K/4, N]
 //     row 32 * (r / 64) + r % 32, whose bit pair at shift 2e belongs to the
 //     low nibble and the one at 4 + 2e to the high, e = r % 64 / 32.
+//   W4A8 (split unit 512): s_lo / m_lo (low nibble) and s_hi / m_hi (high)
+//     f32 row r / 256, passed in the sc_* / mn_* slots.
 // f16 planes hold the raw bits (int16 on the PyTorch side).
 //
 // What bounds it on the H100. At T = 1 it streams the planes once: bytes
@@ -69,14 +78,14 @@
 
 namespace {
 
-enum Kind { KQ4_0 = 0, KQ4_K = 1, KQ5_K = 2, KQ6_K = 3 };
+enum Kind { KQ4_0 = 0, KQ4_K = 1, KQ5_K = 2, KQ6_K = 3, KW4A8 = 4 };
 
 struct Planes {
   const uint8_t* q;      // qs / ql: nibble pairs [K/2, N]
   const uint8_t* qh;     // high bits: Q5_K [K/8, N], Q6_K [K/4, N]
-  const uint8_t* sc_lo;  // u8 [K/64, N] (K-quants) or int8 [K/32, N] (Q6_K)
-  const uint8_t* sc_hi;
-  const uint8_t* mn_lo;  // u8 [K/64, N]
+  const uint8_t* sc_lo;  // u8 [K/64, N] (K-quants) or int8 [K/32, N] (Q6_K);
+  const uint8_t* sc_hi;  //   W4A8: s_lo / s_hi, f32 [K/512, N]
+  const uint8_t* mn_lo;  // u8 [K/64, N]; W4A8: m_lo / m_hi, f32 [K/512, N]
   const uint8_t* mn_hi;
   const uint16_t* d;     // f16 bits: [K/32, N] (Q4_0) or [K/256, N]
   const uint16_t* dmin;  // f16 bits [K/256, N]
@@ -85,9 +94,11 @@ struct Planes {
 // plane rows per half unit (u / 2): the high nibble's element is this far on
 template <int KIND>
 struct Fmt {
-  static constexpr int HALF = KIND == KQ4_0 ? 16 : (KIND == KQ6_K ? 64 : 32);
+  static constexpr int HALF =
+      KIND == KQ4_0 ? 16 : (KIND == KQ6_K ? 64 : (KIND == KW4A8 ? 256 : 32));
   // plane rows that share one set of decoded scales
-  static constexpr int SCALE_ROWS = KIND == KQ4_0 || KIND == KQ6_K ? 16 : 32;
+  static constexpr int SCALE_ROWS =
+      KIND == KQ4_0 || KIND == KQ6_K ? 16 : (KIND == KW4A8 ? 256 : 32);
   // plane rows a warp takes at a time in the GEMV
   static constexpr int CHUNK_ROWS = KIND == KQ4_0 ? 16 : 32;
 };
@@ -170,6 +181,9 @@ struct Scales<KQ6_K> {
   float sl[16], sh[16];
 };
 
+template <>
+struct Scales<KW4A8> : Scales<KQ4_K> {};
+
 template <int KIND>
 __device__ __forceinline__ void load_scales(const Planes& p, int r, int c0,
                                             int N, bool full, Scales<KIND>& s);
@@ -231,6 +245,37 @@ __device__ __forceinline__ void load_scales<KQ6_K>(const Planes& p, int r,
     s.sl[j] = dv * static_cast<float>(static_cast<int8_t>(a.b[j]));
     s.sh[j] = dv * static_cast<float>(static_cast<int8_t>(b.b[j]));
   }
+}
+
+// f32 [c0, c0 + 16) of an f32 plane row, zero beyond N
+__device__ __forceinline__ void ldf(const uint8_t* plane, size_t off, int c0,
+                                    int N, bool full, float (&v)[16]) {
+  const float* row = reinterpret_cast<const float*>(plane) + off;
+  if (full) {
+    const float4* p = reinterpret_cast<const float4*>(row + c0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 f = __ldg(p + i);
+      v[4 * i] = f.x;
+      v[4 * i + 1] = f.y;
+      v[4 * i + 2] = f.z;
+      v[4 * i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = (c0 + j < N) ? row[c0 + j] : 0.f;
+  }
+}
+
+template <>
+__device__ __forceinline__ void load_scales<KW4A8>(const Planes& p, int r,
+                                                   int c0, int N, bool full,
+                                                   Scales<KW4A8>& s) {
+  const size_t g = (size_t)(r / 256) * N;
+  ldf(p.sc_lo, g, c0, N, full, s.sl);
+  ldf(p.sc_hi, g, c0, N, full, s.sh);
+  ldf(p.mn_lo, g, c0, N, full, s.ml);
+  ldf(p.mn_hi, g, c0, N, full, s.mh);
 }
 
 template <int KIND>
@@ -304,6 +349,21 @@ __device__ __forceinline__ void row_weights<KQ6_K>(
     const int hi = ((q.b[j] >> 4) | (((h.b[j] >> (sh + 4)) & 3) << 4)) - 32;
     wl[j] = static_cast<float>(lo) * s.sl[j];
     wh[j] = static_cast<float>(hi) * s.sh[j];
+  }
+}
+
+template <>
+__device__ __forceinline__ void row_weights<KW4A8>(
+    const Planes& p, int r, int c0, int N, bool full, const Scales<KW4A8>& s,
+    float (&wl)[16], float (&wh)[16]) {
+  const U8x16 q = ld8(p.q + (size_t)r * N, c0, N, full);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    // two roundings, in the plain dequant's order: no FMA contraction
+    wl[j] = __fsub_rn(__fmul_rn(static_cast<float>(q.b[j] & 15), s.sl[j]),
+                      s.ml[j]);
+    wh[j] = __fsub_rn(__fmul_rn(static_cast<float>(q.b[j] >> 4), s.sh[j]),
+                      s.mh[j]);
   }
 }
 
@@ -406,12 +466,17 @@ __device__ __forceinline__ int swz(int n, int k) {
 
 // x element of tile column kc (0..63) at K step st. Q4_0, Q4_K and Q5_K
 // step over 64 contiguous elements; a Q6_K step's 32 plane rows hold the
-// low nibbles of 32 elements and the high nibbles of the 32 that lie 64 on.
+// low nibbles of 32 elements and the high nibbles of the 32 that lie 64 on,
+// a W4A8 step's those of 32 elements and of the 32 that lie 256 on.
 template <int KIND>
 __device__ __forceinline__ int tile_elem(int st, int kc) {
   if (KIND == KQ6_K) {
     const int lo_base = 128 * (st / 2) + 32 * (st % 2);
     return lo_base + (kc < 32 ? kc : kc + 32);
+  }
+  if (KIND == KW4A8) {
+    const int lo_base = 512 * (st / 8) + 32 * (st % 8);
+    return lo_base + (kc < 32 ? kc : kc + 224);
   }
   return MM_BK * st + kc;
 }
@@ -553,7 +618,12 @@ int launch(const void* x, const void* q, const void* qh, const void* sc_lo,
   p.d = static_cast<const uint16_t*>(d);
   p.dmin = static_cast<const uint16_t*>(dmin);
   float* out = static_cast<float*>(y);
-  if (T == 1) {
+  if constexpr (KIND == KW4A8) {
+    // T = 1 is the quantized-activation product of w4a8_decode.cu
+    if (T == 1) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((N + MM_BN - 1) / MM_BN, (T + MM_BM - 1) / MM_BM);
+    nib_mma_kernel<KIND><<<grid, 128, 0, st>>>(xb, p, out, T, K, N, vec);
+  } else if (T == 1) {
     const int smem = 2 * split_rows * 2;  // the split's x, bf16
     if (smem > 40 * 1024) {  // beyond the default 48 KB with `red`
       const cudaError_t e = cudaFuncSetAttribute(
@@ -596,6 +666,7 @@ NIBBLE_ENTRY(q4_0_matmul, KQ4_0)
 NIBBLE_ENTRY(q4_k_matmul, KQ4_K)
 NIBBLE_ENTRY(q5_k_matmul, KQ5_K)
 NIBBLE_ENTRY(q6_k_matmul, KQ6_K)
+NIBBLE_ENTRY(w4a8_matmul, KW4A8)
 
 extern "C" const char* nt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

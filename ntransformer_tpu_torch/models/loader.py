@@ -10,7 +10,9 @@ The port computes the GGUF formats Q8_0, Q4_0, Q4_K, Q5_K and Q6_K (so
 Q4_K_M files, which mix Q4_K, Q5_K and Q6_K, load) and float matrices; a
 file with another quantized matrix is refused here, at load, with the
 ROADMAP item that ports its kernel, rather than run through a plain dequant
-on the card.
+on the card. `w4a8=True` / `w8a8=True` requantize every eligible matrix to
+an engine-native format on the host before placement, with the JAX
+package's eligibility and tied-head rules.
 
 No lane padding of K-quant LM heads. The JAX package pads a K-quant head's
 N to a multiple of 2048 (and slices the logits back) because its Pallas
@@ -21,7 +23,7 @@ head, so padded planes give the same logits.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -33,13 +35,13 @@ from ..core.layout import LAYOUTS, relayout
 from ..inference.tokenizer import Tokenizer
 from ..ops.dequant_torch import not_ported
 from ..ops.layers import rope_table
-from ..ops.linear import QLinear
+from ..ops.linear import QLinear, convert_qlinear_w4a8, convert_qlinear_w8a8
 from .config import ModelConfig
 from .llama import Arch, LayerWeights, ModelWeights, fuse_layer_weights, \
     stack_layers
 
 PORTED_QUANT = (DType.Q8_0, DType.Q4_0, DType.Q4_K, DType.Q5_K,
-                DType.Q6_K)
+                DType.Q6_K, DType.W4A8, DType.W8A8)
 
 
 def resolve_device(device) -> torch.device:
@@ -144,6 +146,69 @@ def layer_to_device(lw: LayerWeights, device) -> LayerWeights:
                            for f in lw.__dataclass_fields__})
 
 
+def _w4a8_eligible(ql: QLinear) -> bool:
+    return ql.k % 512 == 0 and ql.n % 128 == 0
+
+
+def _w8a8_eligible(ql: QLinear) -> bool:
+    return ql.n % 128 == 0
+
+
+# format -> (eligible, convert)
+_ENGINE_FORMATS = {
+    DType.W4A8: (_w4a8_eligible, convert_qlinear_w4a8),
+    DType.W8A8: (_w8a8_eligible, convert_qlinear_w8a8),
+}
+
+
+def _convert_layer(lw: LayerWeights, target: DType) -> LayerWeights:
+    eligible, convert = _ENGINE_FORMATS[target]
+
+    def conv(v):
+        if v.dtype == target or not eligible(v):
+            return v
+        return convert(v)
+
+    return replace(lw, **{
+        f: conv(getattr(lw, f)) for f in lw.__dataclass_fields__
+        if isinstance(getattr(lw, f), QLinear)})
+
+
+def _convert_weights(weights: ModelWeights, target: DType) -> ModelWeights:
+    eligible, convert = _ENGINE_FORMATS[target]
+    lm_head = weights.lm_head
+    if lm_head.dtype != target and eligible(lm_head):
+        lm_head = convert(lm_head)
+    return replace(weights, layers=_convert_layer(weights.layers, target),
+                   lm_head=lm_head)
+
+
+def convert_layer_w4a8(lw: LayerWeights) -> LayerWeights:
+    """Requantize every eligible matrix of one layer to W4A8 (K % 512 and
+    N % 128; changes numerics). A matrix whose shape does not fit keeps its
+    source format: qmatmul dispatches per QLinear."""
+    return _convert_layer(lw, DType.W4A8)
+
+
+def convert_layer_w8a8(lw: LayerWeights) -> LayerWeights:
+    """Requantize every eligible matrix of one layer to W8A8 (N % 128;
+    changes numerics), as convert_layer_w4a8."""
+    return _convert_layer(lw, DType.W8A8)
+
+
+def convert_weights_w4a8(weights: ModelWeights) -> ModelWeights:
+    """W4A8-convert a built ModelWeights (the synthetic path; the GGUF load
+    converts each layer on the host before placement). The embedding table
+    keeps its format (a gather, not a product); a tied head gets its own
+    converted copy."""
+    return _convert_weights(weights, DType.W4A8)
+
+
+def convert_weights_w8a8(weights: ModelWeights) -> ModelWeights:
+    """W8A8-convert a built ModelWeights, as convert_weights_w4a8."""
+    return _convert_weights(weights, DType.W8A8)
+
+
 @dataclass
 class LoadedModel:
     config: ModelConfig
@@ -155,28 +220,45 @@ class LoadedModel:
 
 
 def load_model(path: str, *, max_seq_len: int | None = None,
-               fuse: bool = False, device="cuda") -> LoadedModel:
+               fuse: bool = False, device="cuda", w4a8: bool = False,
+               w8a8: bool = False) -> LoadedModel:
     """Load a GGUF model fully resident on `device` (the card by default;
     raises without CUDA unless device="cpu"). fuse=True builds the fused
-    wqkv / w_gate_up matrices of the single-device resident path."""
+    wqkv / w_gate_up matrices of the single-device resident path.
+    w4a8=True / w8a8=True (mutually exclusive) requantize every eligible
+    matrix to that engine-native format on the host before placement; the
+    gather table keeps its format, a tied head gets a converted copy.
+    Changes numerics."""
+    if w4a8 and w8a8:
+        raise ValueError("w4a8 and w8a8 are mutually exclusive")
+    target = DType.W4A8 if w4a8 else DType.W8A8 if w8a8 else None
     dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = ModelConfig.from_gguf_metadata(reader.metadata, max_seq_len)
     arch = Arch.from_config(cfg)
 
-    embed = qlinear_to_device(load_qlinear_host(reader, "token_embd.weight"),
-                              dev)
-    stacked = stack_layers([layer_to_device(load_layer_host(reader, i), dev)
+    def host_layer(i):
+        lw = load_layer_host(reader, i)
+        return lw if target is None else _convert_layer(lw, target)
+
+    embed_host = load_qlinear_host(reader, "token_embd.weight")
+    embed = qlinear_to_device(embed_host, dev)
+    stacked = stack_layers([layer_to_device(host_layer(i), dev)
                             for i in range(cfg.n_layers)])
     if fuse:
         stacked = fuse_layer_weights(stacked)
     output_norm = torch.from_numpy(
         load_norm(reader, "output_norm.weight")).to(dev)
-    if "output.weight" in reader:
-        lm_head = qlinear_to_device(load_qlinear_host(reader, "output.weight"),
+    tied = "output.weight" not in reader
+    head_host = (embed_host if tied
+                 else load_qlinear_host(reader, "output.weight"))
+    if target is not None and _ENGINE_FORMATS[target][0](head_host):
+        lm_head = qlinear_to_device(_ENGINE_FORMATS[target][1](head_host),
                                     dev)
-    else:
+    elif tied:
         lm_head = embed  # tied embeddings
+    else:
+        lm_head = qlinear_to_device(head_host, dev)
     cos, sin = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
                           rope_freq_factors(reader), device=dev)
     if cfg.rope_local_theta:

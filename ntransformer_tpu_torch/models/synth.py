@@ -2,10 +2,11 @@
 
 Port of ntransformer_tpu/models/synth.py: full-size models built directly
 as planes on the device — no multi-GB GGUF on disk. The planes are filled
-as the JAX package fills them: code planes (qs, ql, qh) zero, f16 scale
+as the JAX package fills them: code planes (qs, ql, qh, q) zero, f16 scale
 planes (d, dmin) the same small constant (~2^-8), 6-bit scale and min
-planes (sc_*, mn_*) 8; a caller that wants non-trivial logits fills the
-codes itself (chip_smoke.py does, from a seeded generator). dtype "q4_k_m"
+planes (sc_*, mn_*) 8, the f32 planes of W4A8 and W8A8 (s_*, m_*, s) 0.004;
+a caller that wants non-trivial logits fills the codes itself
+(chip_smoke.py does, from a seeded generator). dtype "q4_k_m"
 takes the per-tensor policy of `presets.q4_k_m_policy` (ffn_down and the
 head Q6_K, the rest Q4_K). A K-quant LM head is not lane-padded (see
 models/loader.py). Layer planes are allocated pre-stacked ([L, rows, n]).
@@ -36,11 +37,15 @@ def synth_qlinear(n: int, k: int, dtype: DType, lead: int | None = None,
         raise not_ported(dtype, "synthetic ")
     planes = {}
     for spec in LAYOUTS[dtype]:
-        rows = k // spec.rows_div
+        # rows_div 0: a fixed one-row plane (W8A8's column scales)
+        rows = 1 if spec.rows_div == 0 else k // spec.rows_div
         shape = (rows, n) if lead is None else (lead, rows, n)
         if spec.np_dtype == "uint16":
             planes[spec.name] = torch.full(shape, _F16_SMALL,
                                            dtype=torch.int16, device=device)
+        elif spec.np_dtype == "float32":
+            planes[spec.name] = torch.full(shape, 0.004, dtype=torch.float32,
+                                           device=device)
         else:
             fill = 8 if spec.name.startswith(("sc", "mn")) else 0
             planes[spec.name] = torch.full(shape, fill,

@@ -1,13 +1,16 @@
 """Fused dequant-matmul of the GGUF nibble formats (Q4_0, Q4_K, Q5_K,
-Q6_K): the wrapper of `csrc/nibble_matmul.cu` and its plain PyTorch twin.
+Q6_K) and of W4A8 at T > 1: the wrapper of `csrc/nibble_matmul.cu` and its
+plain PyTorch twin.
 
 Replaces ntransformer_tpu/ops/pallas/matmul.py::_quant_matmul_impl with its
-_q4_0_tile, _q4_k_tile, _q5_k_tile and _q6_k_tile bodies (entry
+_q4_0_tile, _q4_k_tile, _q5_k_tile, _q6_k_tile and _w4a8_tile bodies (entry
 quant_matmul_pallas). y[T,N] f32 = bf16(x)[T,K] @ W with W the bf16 of the
 weight as the plain dequant (ops/dequant_torch.py) computes it in f32, and
 f32 accumulation: kernel and twin differ only in the order of the sums. The
 TPU kernel's group-sum correction dot for the min term is not carried over
-(it rounds differently: bf16(q·s) and bf16(Σx)·bf16(m)).
+(it rounds differently: bf16(q·s) and bf16(Σx)·bf16(m)). W4A8 takes this
+path only at T > 1, as on the TPU, and raises at T = 1: its decode product
+quantizes the activations (ops/cuda/w4a8.py).
 
 On the H100 it is bound by bytes at T = 1 (0.5625 to 0.8203125 bytes per
 weight over 3.35 TB/s), with the per-weight dequant close behind on the
@@ -35,11 +38,13 @@ from . import build
 NAME = "nibble_matmul"
 _TPU = "ntransformer_tpu/ops/pallas/matmul.py:344 _quant_matmul_impl"
 # the eight plane slots of the C entries, in order; a format's "qs"/"ql"
-# plane goes to "q", a slot it lacks gets a null pointer
+# plane goes to "q", W4A8's f32 s_* / m_* planes to the sc_* / mn_* slots,
+# and a slot a format lacks gets a null pointer
 SLOTS = ("q", "qh", "sc_lo", "sc_hi", "mn_lo", "mn_hi", "d", "dmin")
-_SLOT_OF = {"qs": "q", "ql": "q"}
+_SLOT_OF = {"qs": "q", "ql": "q", "s_lo": "sc_lo", "s_hi": "sc_hi",
+            "m_lo": "mn_lo", "m_hi": "mn_hi"}
 _TORCH_DTYPE = {"uint8": torch.uint8, "int8": torch.int8,
-                "uint16": torch.int16}
+                "uint16": torch.int16, "float32": torch.float32}
 _GEMV_BLOCK_COLS = 512  # columns per block of the T == 1 kernel
 _MAX_SPLIT_ROWS = 50_000  # the GEMV stages 2 x split rows of bf16 x (200 KB)
 _SM_COUNT: dict[int, int] = {}
@@ -62,7 +67,12 @@ KERNELS = {
     DType.Q4_K: Kernel("q4_k_matmul", f"{_TPU} + _q4_k_tile :134", 32, 128),
     DType.Q5_K: Kernel("q5_k_matmul", f"{_TPU} + _q5_k_tile :172", 32, 128),
     DType.Q6_K: Kernel("q6_k_matmul", f"{_TPU} + _q6_k_tile :211", 32, 128),
+    # T > 1 only: no GEMV, so no chunk or split rows
+    DType.W4A8: Kernel("w4a8_matmul", f"{_TPU} + _w4a8_tile :248", 0, 0),
 }
+# the block along K of each format: 32 elements for Q4_0, 512 (two 256
+# groups) for W4A8, a 256-element superblock for the K-quants
+_K_UNIT = {DType.Q4_0: 32, DType.W4A8: 512}
 _SIGNATURES = {kern.name: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                + [ctypes.c_void_p] for kern in KERNELS.values()}
 
@@ -76,7 +86,7 @@ def check_shapes(x: torch.Tensor, planes: dict, dtype: DType):
         raise ValueError(f"{dtype.value} matmul wants x [T,K]; got "
                          f"{tuple(x.shape)}")
     t, k = x.shape
-    unit = 32 if dtype == DType.Q4_0 else 256
+    unit = _K_UNIT.get(dtype, 256)
     if k % unit:
         raise ValueError(f"K={k} is not a multiple of {unit} (the "
                          f"{dtype.value} block)")
@@ -130,11 +140,15 @@ def split_plan(device: torch.device, dtype: DType, k: int,
 
 def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
                        dtype: DType) -> torch.Tensor:
-    """y[T,N] f32 = x[T,K] @ W for a Q4_0 / Q4_K / Q5_K / Q6_K matrix given
-    as its planes (core/layout.py; f16 planes as int16 bits). On a CPU
-    tensor this is the plain twin; on a CUDA tensor it launches the kernel
-    or raises."""
+    """y[T,N] f32 = x[T,K] @ W for a Q4_0 / Q4_K / Q5_K / Q6_K matrix, or a
+    W4A8 matrix at T > 1, given as its planes (core/layout.py; f16 planes as
+    int16 bits). On a CPU tensor this is the plain twin; on a CUDA tensor it
+    launches the kernel or raises."""
     t, k, n = check_shapes(x, planes, dtype)
+    if dtype == DType.W4A8 and t == 1:
+        raise ValueError("w4a8_matmul is the T > 1 product; at T = 1 the "
+                         "W4A8 product is the w4a8_decode kernel "
+                         "(ops/cuda/w4a8.py)")
     if x.device.type == "cpu":
         return nibble_matmul_plain(x, planes, dtype)
     if not x.is_cuda or any(a.device != x.device for a in planes.values()):

@@ -4,14 +4,24 @@ Reconstructs W^T [k, n] from a QLinear's planes on whatever device they
 live, on any leading [L, ...] dims: the plain twins' dequant, the
 embedding lookup's dequant (a gather of token columns, plain PyTorch on
 the card as the JAX package leaves it to XLA) and the CPU oracle. Every
-GGUF layout the port loads is here; the engine-native W4A8/W8A8 formats
-arrive with their kernels (ROADMAP queue 1 item 10) and raise until then.
+GGUF layout the port loads is here, and the engine-native W4A8 and W8A8
+formats.
+
+Also the torch twins of the numpy functions of core/w4a8.py and
+core/w8a8.py that run on tensors: the requant of planes that live on the
+card (`synth_model`'s, converted there) and the run-time activation
+quantization of the W4A8 and W8A8 products. The JAX package computes
+these outside any Pallas kernel, so they stay plain PyTorch on every
+device. Each repeats its numpy twin's operations one for one (IEEE
+division, round half to even, the same clamps), so codes and scales come
+out bit for bit the same on the card and on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.dtypes import DType
+from ..core.w4a8 import GRP, UNIT
 from .f16bits import f16_bits_to_f32
 
 FLOAT_KINDS = (DType.F16, DType.BF16, DType.F32)
@@ -21,8 +31,8 @@ def not_ported(dtype: DType, what: str = "") -> NotImplementedError:
     """The error for a quantized dtype whose kernel the port lacks."""
     return NotImplementedError(
         f"{what}{dtype.value} is not ported yet: the port computes the GGUF "
-        "formats Q8_0, Q4_0, Q4_K, Q5_K, Q6_K and float matrices (ROADMAP "
-        "queue 1 item 10: the engine-native W4A8/W8A8 formats)")
+        "formats Q8_0, Q4_0, Q4_K, Q5_K, Q6_K, the engine-native W4A8 and "
+        "W8A8 formats and float matrices (see ROADMAP.md, queue 2)")
 
 
 def _rep(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -94,4 +104,85 @@ def dequant_planes_torch(planes: dict, dtype: DType, k: int, n: int,
         w = torch.stack([w_lo.reshape(*lead, k // 128, 64, n),
                          w_hi.reshape(*lead, k // 128, 64, n)], dim=-3)
         return w.reshape(*lead, k, n).to(out_dtype)
+
+    if dtype == DType.W4A8:
+        return dequant_w4a8_torch(planes, k, n).to(out_dtype)
+    if dtype == DType.W8A8:
+        return (_f32(planes["q"]) * _f32(planes["s"])).to(out_dtype)
     raise not_ported(dtype)
+
+
+# ------------------------------------------------- W4A8 / W8A8 (core twins)
+def dequant_w4a8_torch(planes: dict, k: int, n: int) -> torch.Tensor:
+    """W^T [..., k, n] f32 of W4A8 planes: c * s - m per element, the two
+    roundings in core/w4a8.dequant_w4a8's order."""
+    qs = planes["qs"]
+    lead = tuple(qs.shape[:-2])
+    g2 = k // UNIT
+
+    def half(codes, s, m):
+        c3 = codes.reshape(*lead, g2, GRP, n)
+        return c3 * s.unsqueeze(-2) - m.unsqueeze(-2)
+
+    w_lo = half(_f32(qs & 0x0F), planes["s_lo"], planes["m_lo"])
+    w_hi = half(_f32(qs >> 4), planes["s_hi"], planes["m_hi"])
+    return torch.stack([w_lo, w_hi], dim=-3).reshape(*lead, k, n)
+
+
+def requant_w8a8_torch(w_t: torch.Tensor) -> dict:
+    """Torch twin of core/w8a8.requant_w8a8: [K, N] W^T -> planes."""
+    w = w_t.to(torch.float32)
+    s = w.abs().amax(dim=0, keepdim=True) / 127.0
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def requant_w4a8_torch(w_t: torch.Tensor) -> dict:
+    """Torch twin of core/w4a8.requant_w4a8: [K, N] W^T -> planes."""
+    k, n = w_t.shape
+    if k % UNIT:
+        raise ValueError(f"w4a8 needs K % {UNIT} == 0, got K={k}")
+    g_all = k // GRP
+    wg = w_t.to(torch.float32).reshape(g_all, GRP, n)
+    mx = wg.amax(dim=1)
+    mn = wg.amin(dim=1)
+    scale = (mx - mn) / 15.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round((wg - mn[:, None, :]) / scale[:, None, :]),
+                    0, 15).to(torch.uint8).reshape(g_all // 2, 2, GRP, n)
+    qs = q[:, 0].reshape(k // 2, n) | (q[:, 1].reshape(k // 2, n) << 4)
+    s2 = scale.reshape(g_all // 2, 2, n)
+    m2 = (-mn).reshape(g_all // 2, 2, n)
+    return {"qs": qs, "s_lo": s2[:, 0].contiguous(),
+            "s_hi": s2[:, 1].contiguous(), "m_lo": m2[:, 0].contiguous(),
+            "m_hi": m2[:, 1].contiguous()}
+
+
+def quantize_rows_torch(x: torch.Tensor):
+    """Torch twin of core/w8a8.quantize_rows: x [T, K] f32 -> (codes int8
+    [T, K], scale f32 [T, 1]); a zero row keeps scale 1."""
+    am = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    am = torch.where(am > 0, am, torch.ones_like(am))
+    codes = torch.clamp(torch.round(x / am), -127, 127).to(torch.int8)
+    return codes, am
+
+
+def quantize_activations_torch(x: torch.Tensor) -> dict:
+    """Torch twin of core/w4a8.quantize_activations: x [T, K] -> int32
+    codes a_lo / a_hi [T, K/2], alpha_lo / alpha_hi = max(amax/127, 1e-30)
+    and the exact group sums xsum_lo / xsum_hi [T, K/512] (their
+    summation order is the device's)."""
+    t, k = x.shape
+    g_all = k // GRP
+    xg = x.to(torch.float32).reshape(t, g_all, GRP)
+    alpha = torch.clamp_min(xg.abs().amax(dim=2) / 127.0, 1e-30)
+    ahat = torch.round(xg / alpha[:, :, None]).to(torch.int32)
+    xsum = xg.sum(dim=2)
+    a2 = ahat.reshape(t, g_all // 2, 2, GRP)
+    alpha2 = alpha.reshape(t, g_all // 2, 2)
+    xsum2 = xsum.reshape(t, g_all // 2, 2)
+    return dict(a_lo=a2[:, :, 0].reshape(t, k // 2),
+                a_hi=a2[:, :, 1].reshape(t, k // 2),
+                alpha_lo=alpha2[:, :, 0], alpha_hi=alpha2[:, :, 1],
+                xsum_lo=xsum2[:, :, 0], xsum_hi=xsum2[:, :, 1])

@@ -4,21 +4,31 @@ Port of ntransformer_tpu/ops/linear.py. A QLinear holds the transposed
 planes of one weight matrix (core/layout.py) as torch tensors, with the JAX
 package's plane names; f16-bit scale planes are held as int16 with the same
 bits. `qmatmul` launches the hand-written kernel of the matrix's format
-(Q8_0: ops/cuda/matmul.py; Q4_0, Q4_K, Q5_K, Q6_K: ops/cuda/
-nibble_matmul.py) when kernels are on for the activations' device, and
-otherwise computes what the JAX CPU path computes: bf16 dequant, bf16
-activations, f32 accumulation.
+(Q8_0: ops/cuda/matmul.py; Q4_0, Q4_K, Q5_K, Q6_K and W4A8 at T > 1:
+ops/cuda/nibble_matmul.py; W4A8 at T = 1: ops/cuda/w4a8.py; W8A8:
+ops/cuda/w8a8.py) when kernels are on for the activations' device, and
+otherwise its plain twin, which computes what the JAX CPU path computes:
+bf16 dequant, bf16 activations and f32 accumulation for the GGUF formats,
+the quantized-activation products of core/w4a8.py and core/w8a8.py for the
+engine-native formats.
+
+`convert_qlinear_w4a8` / `convert_qlinear_w8a8` requantize a QLinear of any
+format to an engine-native one (the --w4a8 / --w8a8 load path).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import DType
-from ..core.layout import LAYOUTS, SPLIT_UNIT
-from .dequant_torch import FLOAT_KINDS, dequant_planes_torch, not_ported
+from ..core.layout import LAYOUTS, SPLIT_UNIT, dequant_planes
+from ..core.w4a8 import requant_w4a8
+from ..core.w8a8 import requant_w8a8
+from .dequant_torch import (FLOAT_KINDS, dequant_planes_torch, not_ported,
+                            requant_w4a8_torch, requant_w8a8_torch)
 
 # "auto": the CUDA kernels iff the tensors are on CUDA. "off": plain PyTorch
 # on every device (chip_smoke.py runs the plain path on the card with it to
@@ -86,7 +96,10 @@ def pad_qlinear_lanes(ql: QLinear, multiple: int) -> QLinear:
 def qmatmul(x: torch.Tensor, ql: QLinear, *,
             layer: int | None = None) -> torch.Tensor:
     """y[T, N] f32 = x[T, K] @ W^T in file terms. layer: index into stacked
-    [L, ...] planes (a free view)."""
+    [L, ...] planes (a free view). The W4A8 and W8A8 products split by rows
+    as the JAX `qmatmul` does: W4A8 at T = 1 is the quantized-activation
+    decode product and at T > 1 the exact-dequant tile; W8A8 is one int8
+    product up to MAX_ROWS rows."""
     if layer is not None:
         ql = ql.layer(layer)
     if ql.dtype in FLOAT_KINDS:
@@ -96,12 +109,92 @@ def qmatmul(x: torch.Tensor, ql: QLinear, *,
         from .cuda.matmul import quant_matmul_cuda, quant_matmul_plain
         fn = quant_matmul_cuda if kernels_enabled(x) else quant_matmul_plain
         return fn(x, ql.planes["qs"], ql.planes["d"])
+    if ql.dtype == DType.W4A8 and x.shape[0] == 1:
+        from .cuda import w4a8 as cw4
+        fn = cw4.w4a8_decode_cuda if kernels_enabled(x) else \
+            cw4.w4a8_decode_plain
+        return fn(x, ql.planes)
+    if ql.dtype == DType.W8A8:
+        from .cuda import w8a8 as cw8
+        if x.shape[0] <= cw8.MAX_ROWS:
+            fn = cw8.w8a8_matmul_cuda if kernels_enabled(x) else \
+                cw8.w8a8_matmul_plain
+            return fn(x, ql.planes["q"], ql.planes["s"])
+        if x.is_cuda:
+            # no path of the port reaches it: prefill and admission chunks
+            # are 512 rows (ROADMAP queue 3)
+            raise ValueError(f"W8A8 product of {x.shape[0]} rows: the card "
+                             f"takes at most {cw8.MAX_ROWS}")
+        # the JAX package's dequant tail above MAX_ROWS
+        k, n = plane_dims(ql.planes, ql.dtype)
+        w = dequant_planes_torch(ql.planes, ql.dtype, k, n,
+                                 out_dtype=torch.bfloat16)
+        return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
     from .cuda import nibble_matmul as nm
     if ql.dtype not in nm.KERNELS:
         raise not_ported(ql.dtype)
     fn = nm.nibble_matmul_cuda if kernels_enabled(x) else \
         nm.nibble_matmul_plain
     return fn(x, ql.planes, ql.dtype)
+
+
+def convert_qlinear_w4a8(ql: QLinear) -> QLinear:
+    """Requantize any QLinear to the engine-native W4A8 format
+    (core/w4a8.py): dequantize each [rows, N] plane set to f32 W^T and
+    requantize per (256-group, column), over any stacked leading dims. numpy
+    planes stay numpy (the host load path), torch planes stay on their
+    device (the synthetic path). Changes numerics: callers gate it with
+    --w4a8."""
+    return _convert_qlinear(ql, DType.W4A8)
+
+
+def convert_qlinear_w8a8(ql: QLinear) -> QLinear:
+    """Requantize any QLinear to W8A8 (core/w8a8.py: per-column symmetric
+    int8 and [1, N] scales), as convert_qlinear_w4a8. Changes numerics:
+    callers gate it with --w8a8."""
+    return _convert_qlinear(ql, DType.W8A8)
+
+
+def _float_source(w, dtype: DType):
+    """A float matrix's f32 values as the JAX package requantizes them. Its
+    loader holds a BF16 matrix as bf16 before conversion; the port's host
+    plane is f32 until placement, so it is rounded to bf16 here first, or
+    the planes would differ."""
+    host = isinstance(w, np.ndarray)
+    t = torch.from_numpy(np.ascontiguousarray(w)) if host else w
+    t = t.to(torch.bfloat16 if dtype == DType.BF16 else t.dtype)
+    t = t.to(torch.float32)
+    return t.numpy() if host else t
+
+
+def _convert_qlinear(ql: QLinear, target: DType) -> QLinear:
+    if ql.dtype == target:
+        return ql
+    first = next(iter(ql.planes.values()))
+    host = isinstance(first, np.ndarray)
+    if host:
+        requant = requant_w4a8 if target == DType.W4A8 else requant_w8a8
+    else:
+        requant = (requant_w4a8_torch if target == DType.W4A8
+                   else requant_w8a8_torch)
+    lead = tuple(first.shape[:-2])
+    flat = {nm: v.reshape((-1,) + tuple(v.shape[len(lead):]))
+            for nm, v in ql.planes.items()}
+    outs = []
+    for i in range(next(iter(flat.values())).shape[0]):
+        sl = {nm: v[i] for nm, v in flat.items()}
+        if ql.dtype in FLOAT_KINDS:
+            w = _float_source(sl["w"], ql.dtype)
+        else:
+            k, n = plane_dims(sl, ql.dtype)
+            w = (dequant_planes(sl, ql.dtype, k, n) if host
+                 else dequant_planes_torch(sl, ql.dtype, k, n))
+        outs.append(requant(w))
+    stack = np.stack if host else torch.stack
+    planes = {nm: stack([o[nm] for o in outs]) for nm in outs[0]}
+    planes = {nm: v.reshape(lead + tuple(v.shape[1:]))
+              for nm, v in planes.items()}
+    return QLinear(target, ql.k, ql.n, planes)
 
 
 def gather_columns(ql: QLinear, ids: torch.Tensor) -> QLinear:

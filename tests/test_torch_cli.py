@@ -52,7 +52,6 @@ def test_benchmark_on_cpu(capsys):
     ["--streaming"], ["--max-hbm-layers", "2"], ["--requant-q4k"],
     ["--tp", "2"], ["--cp", "2"], ["--ep", "2"], ["--dp", "2"],
     ["--self-spec"], ["--draft-model", "d.gguf"], ["--spec-k", "2"],
-    ["--w4a8"], ["--w8a8"],
 ], ids=lambda f: f[0])
 def test_unported_modes_exit_2_naming_the_roadmap(flags, capsys):
     assert cli.main(BASE + flags) == 2

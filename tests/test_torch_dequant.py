@@ -92,11 +92,12 @@ def test_dequant_stacked_planes():
             got[i].numpy(), dequant_planes(p, DType.Q8_0, 256, 128))
 
 
-@pytest.mark.parametrize("dtype", ["w4a8", "w8a8"])
+@pytest.mark.parametrize("dtype", ["q2_k"])
 def test_unported_quant_dtypes_raise(dtype):
-    """Only the engine-native formats are still refused (queue 1 item 10)."""
+    """A quantized dtype without planes or a kernel is refused by name (the
+    loader dequantizes such a GGUF matrix to bf16 instead)."""
     planes = {"w": torch.zeros(512, 128)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="q2_k is not ported yet"):
         dequant_planes_torch(planes, PDType(dtype), 512, 128)
 
 
@@ -207,8 +208,27 @@ def test_port_gguf_writer_round_trips(tmp_path):
 
 @pytest.mark.parametrize("dtype", ["w4a8", "w8a8"])
 def test_port_layout_engine_formats_raise(dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_layout.dequant_planes({}, PDType(dtype), 512, 128)
+    """The engine-native formats come from load-time requant only: the
+    port's relayout refuses file bytes in them, as the JAX package's does."""
+    with pytest.raises(ValueError, match="no planar layout"):
+        port_layout.relayout(np.zeros(512 * 128, np.uint8), PDType(dtype),
+                             128, 512)
+    with pytest.raises(ValueError, match="no planar layout"):
+        relayout(np.zeros(512 * 128, np.uint8), DType(dtype), 128, 512)
+
+
+@pytest.mark.parametrize("dtype", ["w4a8", "w8a8"])
+def test_port_layout_dequant_engine_formats(dtype):
+    """The port's core/layout.dequant_planes reconstructs W4A8 / W8A8 planes
+    bit for bit as the JAX package's does."""
+    from ntransformer_tpu.core.w4a8 import requant_w4a8
+    from ntransformer_tpu.core.w8a8 import requant_w8a8
+    w = (np.random.default_rng(4).standard_normal((1024, 128)) * 0.02) \
+        .astype(np.float32)
+    planes = (requant_w4a8 if dtype == "w4a8" else requant_w8a8)(w)
+    np.testing.assert_array_equal(
+        port_layout.dequant_planes(planes, PDType(dtype), 1024, 128),
+        dequant_planes(planes, DType(dtype), 1024, 128))
 
 
 @pytest.mark.parametrize("dtype", ["q8_0", "q4_0", "q4_k", "q5_k", "q6_k"])

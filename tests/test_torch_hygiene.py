@@ -55,6 +55,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "synth_model('tiny', 'q4_k_m')",
     "from ntransformer_tpu_torch.inference.engine import Engine\n"
     "Engine.load('models/repolm512_q8.gguf')",
+    "from ntransformer_tpu_torch.models.synth import synth_model\n"
+    "synth_model('tiny512', 'w4a8')",
+    "from ntransformer_tpu_torch.inference.engine import Engine\n"
+    "Engine.load('models/repolm512_q8.gguf', w8a8=True)",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     r = _run("import torch\nassert not torch.cuda.is_available()\n" + call)
@@ -97,6 +101,16 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         "torch.tensor([2]), torch.tensor([True]))\n"
         "assert o.shape == (1, 2, 64) and float(c[0, 0, 0, 2].sum()) == 64\n"
         "assert batched_attention.launches == kv_update.launches == 0\n"
+        "from ntransformer_tpu_torch.ops.cuda import w4a8, w8a8\n"
+        "y = w8a8.w8a8_matmul_cuda(torch.ones(3, 32), torch.ones(32, 16, "
+        "dtype=torch.int8), torch.ones(1, 16))\n"
+        "assert y.shape == (3, 16) and float(y[0, 0]) == 32.0\n"
+        "from ntransformer_tpu_torch.core.dtypes import DType\n"
+        "from ntransformer_tpu_torch.models.synth import synth_qlinear\n"
+        "ql = synth_qlinear(16, 512, DType.W4A8, device='cpu')\n"
+        "y = w4a8.w4a8_decode_cuda(torch.ones(1, 512), ql.planes)\n"
+        "assert y.shape == (1, 16) and bool(torch.isfinite(y).all())\n"
+        "assert w8a8.launches == w4a8.launches == 0\n"
         "try:\n"
         "    build.nvcc_path()\n"
         "except RuntimeError as e:\n"
@@ -123,9 +137,11 @@ def test_nibble_kernel_module_runs_on_cpu_without_nvcc(tmp_path):
         "from ntransformer_tpu_torch.models.synth import synth_qlinear\n"
         "from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm\n"
         "for dt in nm.KERNELS:\n"
-        "    ql = synth_qlinear(64, 256, dt, device='cpu')\n"
-        "    y = nm.nibble_matmul_cuda(torch.ones(1, 256), ql.planes, dt)\n"
-        "    assert y.shape == (1, 64) and bool(torch.isfinite(y).all())\n"
+        "    # W4A8 takes this path at T > 1 only, on whole 512-unit K\n"
+        "    t, k = (2, 512) if dt == DType.W4A8 else (1, 256)\n"
+        "    ql = synth_qlinear(64, k, dt, device='cpu')\n"
+        "    y = nm.nibble_matmul_cuda(torch.ones(t, k), ql.planes, dt)\n"
+        "    assert y.shape == (t, 64) and bool(torch.isfinite(y).all())\n"
         "assert all(k.launches == 0 for k in nm.KERNELS.values())\n"
         "print('OK')\n")
     r = _run(code, {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path)})
