@@ -10,8 +10,9 @@ runs, `python3 chip_smoke.py kernels,serve` (names comma-separated) runs a
 subset of the rest:
 
   set-up: the card's name and power limit, TF32 off, the seven kernel
-     sources built from csrc/ with nvcc (one process each, in parallel) and
-     nvcc's register report printed;
+     sources built from csrc/ with nvcc (one process each, in parallel;
+     the streamer's host library csrc/ntstage.cpp with g++ beside them)
+     and nvcc's register report printed;
   kernels: the Q8_0 matmul and prefill flash attention against their plain
      PyTorch twins on the card at the full-width shapes (Llama-3.1-8B and
      repolm512), with times (CUDA events, L2 flushed before every launch,
@@ -58,8 +59,25 @@ subset of the rest:
   wfull: a synthetic Llama-3.1-8B in W4A8 through Engine.benchmark (the
      main path of the W4A8 tile and of the decode kernel) and bench.py's
      B = 1 step, then in W8A8 served by BatchServer (the W8A8 kernel's main
-     path) with the bench-style steps (B = 1, B = 32 int8, verify), each
-     with profiles and a 2-layer on/off view.
+     path) with the bench-style steps (B = 1, B = 32 int8 also with the
+     int8 cache dots, verify), each with profiles and a 2-layer on/off view;
+  tiered: repolm512 streamed at (2 HBM, 2 RAM, 2 disk) layers against the
+     unfused resident model (greedy tokens identical; pipelined and
+     synchronous runs bit-identical; int8 cache, a skip set, early exit;
+     the runtime tier-B requant of a Q4_K_M requant bit-identical to the
+     offline requant pack; the CLI's --streaming against the resident CLI),
+     then a synthetic Llama-3.1-8B Q4_K_M GGUF of random valid blocks
+     streamed at (8, 16, 8) (16 layers at (4, 8, 4) without the disk room):
+     a 512-token prefill and 32 greedy tokens identical to the unfused
+     resident model, ms per token pipelined and synchronous (in turns), the
+     copy stream's H2D rate and the tier-C read rate beside a pinned-copy
+     and an O_DIRECT read probe, and a profile's busy shares.
+
+The bkernels phase also holds the batched flash kernel's cache-dot forms
+(dot_impl int8, int8_s, int8_v, bf16) against their twins and the f32
+kernel; the serve phase also serves with NT_ATTN_DOT=int8 through the CLI
+and with each form through BatchServer (the forms' main path); bfull also
+times the B = 32 int8 step with the int8 forms beside f32.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -167,7 +185,7 @@ SERVE_KERNELS = ENGINE_KERNELS + ("batched_attention", "kv_update")
 REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
-          "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull")
+          "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "tiered")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -615,6 +633,158 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
             {"rows": app_rows, "main": "8b L=32 B=32 int8 codes+scales"})
 
 
+# the cache-dot forms of batched flash (dot_impl), kernel against its plain
+# twin, for every query token: max|kernel-plain| <= DOT_RTOL * max|plain|.
+# "int8_s" computes from the same values as "f32" (its integer score dot is
+# exact): BATCHED_RTOL. The forms that round p per key block can turn a
+# 1-ulp difference in a score or an exp into one rounding of p that goes the
+# other way: an int8 code of p * vs by a step (1/127 of its block's largest),
+# a bf16 p by an ulp (2^-8 of itself); the CPU tests measured up to 2.05e-3
+# (int8_v) and 3.9e-4 (bf16) of the output against the JAX kernel, and the
+# card 1.6e-6 and 2.1e-3 on a first kernel that started each block from its
+# own max (H100 80GB HBM3, 700 W).
+DOT_FORMS = ("int8", "int8_s", "int8_v", "bf16")
+DOT_RTOL = {"f32": BATCHED_RTOL, "int8_s": BATCHED_RTOL, "int8": 4e-3,
+            "int8_v": 4e-3, "bf16": 1e-3}
+
+
+def dot_kernel_phase(torch, timer, card: str) -> dict:
+    """The batched flash kernel's cache-dot forms against their plain twins
+    and against the f32 kernel at the 8B shapes (Hq 32, Hkv 8, D 128): B =
+    32 int8 at positions 512-600 with an inactive slot, B = 1, a T = 4
+    verify window at B = 8, "bf16" on a bf16 cache, and an s_live of 2176
+    (17 key blocks of 128). Times in turns with the twin and SDPA over the
+    dequantized cache, as the f32 rows."""
+    from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5150)
+    hq, hkv, dh = 32, 8, 128
+    scale = 1.0 / math.sqrt(dh)
+    pos32 = [512 + (37 * i) % 89 for i in range(32)]
+    # label, B, S, T, int8 cache, positions, active, s_live
+    cases = [
+        ("8b B=32 int8 S=1024 pos 512-600, slot 5 inactive", 32, 1024, 1,
+         True, pos32, [i != 5 for i in range(32)], None),
+        ("8b B=1 int8 S=1024 pos=700", 1, 1024, 1, True, [700], None, None),
+        ("8b B=8 int8 verify T=4, slot 2 inactive", 8, 1024, 4, True,
+         [3, 64, 500, 900, 1000, 700, 200, 1019],
+         [i != 2 for i in range(8)], None),
+        ("8b B=8 bf16 S=4096", 8, 4096, 1, False,
+         [0, 7, 130, 1000, 2047, 2500, 3333, 4090], None, None),
+        ("8b B=4 int8 S=4096 s_live=2176", 4, 4096, 1, True,
+         [2100, 1500, 2175, 2000], [True, False, True, True], 2176),
+    ]
+    rows = {f: [] for f in DOT_FORMS}
+    for label, b_n, s, t, int8, pos_l, act_l, s_live in cases:
+        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+        act = torch.tensor([True] * b_n if act_l is None else act_l,
+                           device="cuda").to(torch.int32)
+        shape = (2, b_n, hkv, s, dh)
+        if int8:
+            kc, vc = (torch.randint(-127, 128, shape, dtype=torch.int8,
+                                    device="cuda", generator=g)
+                      for _ in range(2))
+            ks, vs = (torch.rand(shape[:-1], device="cuda", generator=g)
+                      * 0.02 for _ in range(2))
+            kn, vn = (torch.randint(-127, 128, (b_n, hkv, t, dh),
+                                    dtype=torch.int8, device="cuda",
+                                    generator=g) for _ in range(2))
+            kns, vns = (torch.rand(b_n, hkv, t, device="cuda", generator=g)
+                        * 0.02 for _ in range(2))
+            kcache, vcache, knew, vnew = (kc, ks), (vc, vs), (kn, kns), \
+                (vn, vns)
+        else:
+            kc, vc = (torch.randn(shape, device="cuda", generator=g).to(
+                torch.bfloat16) for _ in range(2))
+            kn, vn = (torch.randn(b_n, hkv, t, dh, device="cuda",
+                                  generator=g) for _ in range(2))
+            ks = vs = kns = vns = None
+            kcache, vcache, knew, vnew = kc, vc, kn, vn
+        q = torch.randn((b_n, t, hq, dh), device="cuda", generator=g)
+        qr = (q.reshape(b_n, t, hkv, hq // hkv, dh).permute(0, 2, 1, 3, 4)
+              .reshape(b_n, hkv, t * hq // hkv, dh))
+        live = s if s_live is None else s_live
+
+        def kern(dot):
+            return cb.flash_verify_batched(q, kcache, vcache, knew, vnew, pos,
+                                           scale, layer=1, active=act,
+                                           s_live=s_live, dot_impl=dot)
+
+        def plain(dot):
+            o = cb.batched_flash_plain(
+                qr, kc, vc, ks, vs, kn if int8 else kn.to(torch.bfloat16),
+                vn if int8 else vn.to(torch.bfloat16), kns, vns, pos, act,
+                layer=1, scale=scale, window=cb.NO_WINDOW, softcap=0.0,
+                s_live=live, group=hq // hkv, dot_impl=dot)
+            return (o.reshape(b_n, hkv, t, hq // hkv, dh)
+                    .permute(0, 2, 1, 3, 4).reshape(q.shape))
+
+        o32 = kern("f32")
+        # yardstick: SDPA over the layer's bf16 cache (dequantized for int8)
+        # with the new rows written in, heads expanded, the same mask
+        deq = (lambda c, sc: (c.float() * sc[..., None]).to(torch.bfloat16)) \
+            if int8 else (lambda c, sc: c.to(torch.bfloat16))
+        kf, vf = deq(kc[1], ks[1] if int8 else None), \
+            deq(vc[1], vs[1] if int8 else None)
+        knf, vnf = deq(kn, kns), deq(vn, vns)
+        for bi in range(b_n):
+            if act_l is None or act_l[bi]:
+                kf[bi, :, pos_l[bi]:pos_l[bi] + t] = knf[bi]
+                vf[bi, :, pos_l[bi]:pos_l[bi] + t] = vnf[bi]
+        kpos = torch.arange(s, device="cuda")
+        qpos = pos.long()[:, None] + torch.arange(t, device="cuda")
+        mask = kpos[None, None, :] <= qpos[:, :, None]
+        qb = q.transpose(1, 2).to(torch.bfloat16)
+        kb = kf.repeat_interleave(hq // hkv, 1)
+        vb = vf.repeat_interleave(hq // hkv, 1)
+        keys = sum(max(0, min(pos_l[bi] - 1 if (act_l is None or act_l[bi])
+                              else pos_l[bi] + t - 1, live - 1) + 1)
+                   for bi in range(b_n))
+        esz = 1 if int8 else 2
+        nbytes = (keys * (2 * hkv * dh * esz + (2 * hkv * 4 if int8 else 0))
+                  + 2 * b_n * hkv * t * (dh * esz + (4 if int8 else 0))
+                  + 2 * q.numel() * 4 + 2 * b_n * 4)
+        ops = 4.0 * (hq // hkv) * t * dh * hkv * (keys + b_n * t)
+        for dot in DOT_FORMS:
+            if not int8 and dot != "bf16":
+                continue  # an int8 form on a bf16 cache is the f32 kernel
+            o, o0 = kern(dot), plain(dot)
+            torch.cuda.synchronize()
+            per_tok = ((o - o0).abs().reshape(b_n, t, -1).amax(-1)
+                       / o0.abs().reshape(b_n, t, -1).amax(-1))
+            rel = float(per_tok.max())
+            vs_f32 = float((o - o32).abs().max() / o32.abs().max())
+            check(bool(torch.isfinite(o).all()),
+                  f"batched flash {dot} {label}: non-finite")
+            check(rel <= DOT_RTOL[dot],
+                  f"batched flash {dot} {label}: a query token's "
+                  f"max|kernel-plain| is {rel} of its max|plain| "
+                  f"(> {DOT_RTOL[dot]})")
+            check(vs_f32 > 0.0, f"batched flash {dot} {label}: equal to the "
+                  "f32 kernel, so the form did not run")
+            ms = timer.compare({
+                "kernel": lambda: kern(dot), "plain": lambda: plain(dot),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qb, kb, vb, attn_mask=mask[:, None], scale=scale)})
+            peak = {"int8": INT8_OPS, "bf16": BF16_FLOPS}.get(dot, F32_FLOPS)
+            b_ms, b_by = bound(nbytes, ops, peak)
+            row = {"shape": label, "dot_impl": dot, "B": b_n, "S": s, "T": t,
+                   "int8": int8, "s_live": s_live, "live_keys": keys,
+                   "max_abs_err": float((o - o0).abs().max()),
+                   "row_rel_err": rel, "tol": DOT_RTOL[dot],
+                   "rel_to_f32_kernel": vs_f32, "ms": ms["kernel"],
+                   "plain_ms": ms["plain"], "library_ms": ms["library"],
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows[dot].append(row)
+            print(json.dumps({"batched_flash_dot": row}), flush=True)
+        del kc, vc, kf, vf, kb, vb
+    print(f"batched flash cache-dot phase done on {card}", flush=True)
+    main = cases[0][0]
+    return {f"{cb.NAME}[{dot}]": {"rows": r, "main": main}
+            for dot, r in rows.items()}
+
+
 # ---------------------------------------------------------------- phase 3
 def greedy_pass(engine, torch, ids, n: int, forced=None,
                 plain_decode: bool = False):
@@ -813,13 +983,16 @@ def batched_pass(torch, model, bkv, lens, first, n: int, impl: str,
 
 
 def real_serve_phase(torch, counters, card: str, gguf: str = REPOLM,
-                     kernels=SERVE_KERNELS, fmt: str | None = None) -> dict:
+                     kernels=SERVE_KERNELS, fmt: str | None = None,
+                     dot_forms: bool = False) -> dict:
     """repolm512 (or a requantized copy; with fmt "w4a8" or "w8a8"
     requantized at load) served on the card: the CLI's
     --serve (bf16 and int8; every kernel of `kernels` launched), the
     batched step from the CPU's prefill teacher-forced on the CPU's tokens
     (kernel path and the card's plain path against the CPU, every step and
-    slot), and greedy serving on the card against the CPU, end to end."""
+    slot), and greedy serving on the card against the CPU, end to end. With
+    dot_forms, also --serve --kv-int8 under NT_ATTN_DOT=int8 and the server
+    with each cache-dot form (the forms' main path; out["dot_launches"])."""
     import tempfile
     from ntransformer_tpu_torch import cli
     from ntransformer_tpu_torch.inference.sampler import SamplerConfig
@@ -851,6 +1024,51 @@ def real_serve_phase(torch, counters, card: str, gguf: str = REPOLM,
                   f"{tag} --serve {flags} on the card launched a kernel "
                   f"zero times: {got}")
             out["cli_launches" + "_int8" * bool(flags)] = got
+        if dot_forms:
+            # the JAX package's switch for the int8 cache dots, as an
+            # operator sets it
+            os.environ["NT_ATTN_DOT"] = "int8"
+            try:
+                reset(counters)
+                rc = cli.main(["-m", gguf, "--serve", path, "--batch-size",
+                               "4", "-n", "16", "-t", "0", "--repeat-penalty",
+                               "1.0", "--device", "cuda", "--kv-int8"])
+                torch.cuda.synchronize()
+                got = read(counters)
+            finally:
+                del os.environ["NT_ATTN_DOT"]
+            print(f"{tag} NT_ATTN_DOT=int8 cli --serve --kv-int8 launches "
+                  f"{got}", flush=True)
+            check(rc == 0 and got["batched_attention[int8]"] > 0,
+                  f"NT_ATTN_DOT=int8 --serve: exit {rc}, launches {got}")
+            out["cli_launches_attn_dot_int8"] = got
+    if dot_forms:
+        # BatchServer with each cache-dot form: the forms' main path
+        out["dot_launches"], out["dot_tokens_agree_with_f32"] = {}, {}
+        for dot in ("f32",) + DOT_FORMS:
+            quant = dot != "bf16"
+            srv = BatchServer(gpu, batch_size=4, kv_quant=quant,
+                              admit_chunk=SERVE_CHUNK, dot_impl=dot,
+                              sampler_cfg=SamplerConfig(temperature=0.0))
+            reqs = [Request(prompt=p, max_tokens=16) for p in prompts]
+            reset(counters)
+            srv.run(reqs)
+            torch.cuda.synchronize()
+            got = read(counters)
+            key = "batched_attention" + ("" if dot == "f32" else f"[{dot}]")
+            check(got[key] > 0, f"{tag} BatchServer(dot_impl={dot!r}, "
+                  f"kv_quant={quant}) launched {key} zero times: {got}")
+            out["dot_launches"][dot] = got[key]
+            ids_out = [r.output_ids for r in reqs]
+            if dot == "f32":
+                ref_ids = ids_out
+            out["dot_tokens_agree_with_f32"][dot] = [
+                sum(a == b for a, b in zip(x, y))
+                for x, y in zip(ids_out, ref_ids)]
+        print(f"{tag} BatchServer by cache-dot form: launches "
+              f"{out['dot_launches']}, greedy tokens equal to the f32 "
+              f"cache dots' (per request, of 16): "
+              f"{out['dot_tokens_agree_with_f32']}", flush=True)
     ids = [gpu.tokenizer.encode(p, add_bos=True) for p in prompts]
     lens = [len(p) for p in ids]
     n = 16
@@ -924,14 +1142,15 @@ class IdsTokenizer:
 
 def full_batched_phase(torch, counters, card: str, synth,
                        kernels=SERVE_KERNELS,
-                       int8_attention_rtol=BATCHED_LOGIT_RTOL["int8"]
-                       ) -> tuple:
+                       int8_attention_rtol=BATCHED_LOGIT_RTOL["int8"],
+                       dot_forms: bool = False) -> tuple:
     """A synthetic Llama-3.1-8B served at full width: BatchServer with 8
     slots answering 8 requests (launch counts read around it; every kernel
     of `kernels` launched), then the batched step as the bench drives it
     (B = 1 bf16 with the s_live bucket, B = 32 int8 from mid-context, a
     T = 4 verify window), a profile of the step, and kernels on vs off on a
-    2-layer view."""
+    2-layer view; with dot_forms, the B = 32 int8 step also with the int8
+    cache dots of batched flash beside f32."""
     import dataclasses
     from ntransformer_tpu_torch.inference.sampler import SamplerConfig
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
@@ -995,6 +1214,23 @@ def full_batched_phase(torch, counters, card: str, synth,
                          "launches": read(counters),
                          "s_live": s_live_bucket(512 + 64 + 72 + 1)}
     prof_b32 = profile_batched(torch, arch1k, weights, bkv, 32, 700)
+    if dot_forms:
+        # the same step with the int8 cache dots (NT_ATTN_DOT=int8), in
+        # turns with f32: f32, int8, int8, f32
+        times = {"f32": [], "int8": []}
+        for dot in ("f32", "int8", "int8", "f32"):
+            t0 = time.perf_counter()
+            tok = batched_chain(torch, arch1k, weights, bkv, 32, 24, 512,
+                                tok, dot)
+            times[dot].append((time.perf_counter() - t0) / 24 * 1e3)
+        prof_dot = profile_batched(torch, arch1k, weights, bkv, 32, 700,
+                                   dot_impl="int8")
+        cells["b32_int8_dot_forms"] = {
+            "ms_per_step": {k: min(v) for k, v in times.items()},
+            "batched_flash_device_ms_per_step": {
+                "f32": prof_b32["batched_flash_device_ms_per_step"],
+                "int8": prof_dot["batched_flash_device_ms_per_step"]},
+            "note": "chained 24-step runs (s_live 768) in turns, best of two"}
     del bkv
     # a T = 4 verify window, B = 8 bf16 from mid-context
     bkv = BatchedKV.create(arch1k, 8, device="cuda")
@@ -1033,7 +1269,7 @@ def s_live_bucket(needed: int):
 
 
 def batched_chain(torch, arch1k, weights, bkv, b_n: int, n: int, base: int,
-                  tokens):
+                  tokens, dot_impl: str = "f32"):
     """n greedy batched decode steps from position `base` with the s_live
     bucket, as bench.py chains them; ends in a real fence."""
     from ntransformer_tpu_torch.models.batched import batched_decode_step
@@ -1042,7 +1278,8 @@ def batched_chain(torch, arch1k, weights, bkv, b_n: int, n: int, base: int,
     for i in range(n):
         pos = torch.full((b_n,), base + i, dtype=torch.long, device="cuda")
         logits, bkv = batched_decode_step(arch1k, weights, bkv, tokens, pos,
-                                          active, s_live=sl)
+                                          active, s_live=sl,
+                                          dot_impl=dot_impl)
         tokens = torch.argmax(logits, -1)
     tokens.cpu()  # a real fence
     return tokens
@@ -1072,7 +1309,7 @@ def bench_b1(torch, counters, arch, weights, per_token: int) -> dict:
 
 
 def profile_batched(torch, arch, weights, bkv, b_n: int, pos0: int,
-                    steps: int = 4) -> dict:
+                    steps: int = 4, dot_impl: str = "f32") -> dict:
     """Device time by kernel over a few chained batched steps
     (torch.profiler with CUDA activity) and the share of the wall time the
     card was busy; the profiler's own host cost inflates the wall time."""
@@ -1088,7 +1325,8 @@ def profile_batched(torch, arch, weights, bkv, b_n: int, pos0: int,
             pos = torch.full((b_n,), pos0 + i, dtype=torch.long,
                              device="cuda")
             logits, bkv = batched_decode_step(arch, weights, bkv, tok, pos,
-                                              act, s_live=768)
+                                              act, s_live=768,
+                                              dot_impl=dot_impl)
             tok = torch.argmax(logits, -1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1101,8 +1339,13 @@ def profile_batched(torch, arch, weights, bkv, b_n: int, pos0: int,
             rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    out = {"B": b_n, "steps": steps, "wall_ms_per_step": wall_ms / steps,
+    flash = sum(ms for ms, _, k in rows
+                if "batched_attention" in k or "split_kernel" in k
+                or "group_kernel" in k or "combine_kernel" in k)
+    out = {"B": b_n, "steps": steps, "dot_impl": dot_impl,
+           "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": busy,
+           "batched_flash_device_ms_per_step": flash,
            "device_busy_share": busy * steps / wall_ms if wall_ms else 0.0,
            "top": [{"kernel": k[:80], "ms_per_step": ms, "per_step": c}
                    for ms, c, k in rows[:12]]}
@@ -1538,8 +1781,9 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
     200. W8A8 at T = 1, 8, 32 and 512 (the 8-slot server's decode step is
     T = 8); W4A8 decode at T = 1; the W4A8 tile at T = 32 and 512. Times by
     CUDA events as in the kernels phase. Yardsticks: torch._int_mm (cuBLASLt
-    int8) plus the same fixup for W8A8, where it takes the shape, and
-    torch.matmul on the pre-dequantized bf16 weight for W4A8."""
+    int8) plus the same fixup for W8A8, where it takes the shape (T > 16),
+    and torch.matmul on the pre-dequantized bf16 weight for W4A8 and for
+    W8A8 at T <= 16."""
     from ntransformer_tpu_torch.core.dtypes import DType
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
     from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
@@ -1583,8 +1827,8 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                 planes = {nm_: p[1] for nm_, p in planes.items()}
             pbytes = sum(a.numel() * a.element_size()
                          for a in planes.values())
-            w = (None if dtype == DType.W8A8 else dequant_planes_torch(
-                planes, dtype, k, n, out_dtype=torch.bfloat16))
+            w = dequant_planes_torch(planes, dtype, k, n,
+                                     out_dtype=torch.bfloat16)
             for t in ts:
                 x = skewed_x(torch, g, t, k)
                 if "column-major" in label:
@@ -1598,6 +1842,9 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                             a, am = quantize_rows_torch(x.float())
                             return torch._int_mm(a, q).float() * am * s
                         fns["library"] = library
+                    elif t <= 16:  # _int_mm refuses M <= 16: bf16 instead
+                        fns["library"] = lambda: torch.matmul(
+                            x.to(torch.bfloat16), w)
                     # the wrapper's plain activation quantization alone
                     fns["act_quant"] = lambda: quantize_rows_torch(
                         x.float().contiguous())
@@ -1646,8 +1893,9 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                        "library_ms": ms.get("library"),
                        "act_quant_ms": ms.get("act_quant"),
                        "library_rel_err": lib_rel,
-                       "library_note": (None if "library" in fns else
-                                        "torch._int_mm refuses M <= 16"),
+                       "library_note": (
+                           "torch.matmul, pre-dequantized bf16 weight"
+                           if name == "w8a8_matmul" and t <= 16 else None),
                        "bound_ms": b_ms, "bound_by": b_by}
                 rows.append(row)
                 print(json.dumps({name: row}), flush=True)
@@ -1717,7 +1965,7 @@ def wformat_full_phase(torch, counters, card: str) -> tuple[dict, dict]:
     synth = build_synth(torch, "w8a8")
     summaries["serve_w8a8"], launches["serve_w8a8"] = full_batched_phase(
         torch, counters, card, synth, WFORMAT_SERVE["w8a8"],
-        WFORMAT_LOGIT_RTOL)
+        WFORMAT_LOGIT_RTOL, dot_forms=True)
     print(json.dumps({"full_width_8b_w8a8_serving":
                       summaries["serve_w8a8"]}), flush=True)
     del synth
@@ -1821,7 +2069,489 @@ def quant_full_phase(torch, counters, card: str) -> tuple[dict, dict]:
     return summaries, launches
 
 
+# ---------------------------------------------------------------- tiered
+# the kernels the tiered path launches: repolm512 is Q8_0, the 8B cell Q4_K_M
+TIERED_KERNELS = {"repolm512": ("q8_0_matmul", "flash_attention"),
+                  "8b": ("q4_k_matmul", "q6_k_matmul", "flash_attention")}
+TIERED_8B_ROOM = 14 << 30  # the 8B GGUF (~5.3 GB), its pack (~4.5 GB), slack
+
+
+def greedy_ids(torch, step, ids, n: int):
+    """Prefill `ids` (one forward, no bucketing) and n greedy steps through
+    step(tokens, pos) -> logits, the argmax kept on the card. Returns
+    (tokens [n] CPU tensor, [logits of each step] on the card)."""
+    logits = step(ids, 0)
+    toks, outs = [], []
+    for i in range(n):
+        outs.append(logits[-1])
+        t = torch.argmax(logits[-1])
+        toks.append(t)
+        logits = step(t.reshape(1), len(ids) + i)
+    return torch.stack(toks).cpu(), outs
+
+
+def resident_step(torch, arch, weights, layer_sel=None, quant=False):
+    from ntransformer_tpu_torch.models import llama
+    kv = llama.KVCache.create(arch, quant=quant, device="cuda")
+
+    def step(tokens, pos):
+        return llama.forward(arch, weights, kv, tokens, pos,
+                             layer_sel=layer_sel)[0]
+    return step
+
+
+def tiered_step(torch, tm, quant=False, **fw):
+    from ntransformer_tpu_torch.models import tiered
+    kv = tiered.TieredKV.create(tm.arch, tm.tiers, quant=quant,
+                                device="cuda")
+
+    def step(tokens, pos):
+        return tiered.forward_tiered(tm, kv, tokens, pos, **fw)[0]
+    return step
+
+
+def tiered_repolm_phase(torch, counters, card: str, tmp: str) -> dict:
+    """repolm512 tiered on the card at (2 HBM, 2 RAM, 2 disk): 32 greedy
+    tokens against the unfused resident model (identical tokens), the
+    pipelined and synchronous runs bit-identical at every step, the int8
+    cache, a skip set and early exit against the resident forward over the
+    same layers, the runtime tier-B requant of the Q4_K_M requant of
+    repolm512 bit-identical to the offline requant pack, that Q4_K_M model
+    tiered against its resident model (the pack's Q4_K and Q6_K planes
+    against the GGUF loader's), and the CLI's --streaming against the
+    resident CLI."""
+    import contextlib
+    import io
+    import shutil
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.models.tiered import load_model_tiered
+    path = os.path.join(tmp, "repolm512_q8.gguf")
+    shutil.copy(REPOLM, path)
+    res = load_model(path, device="cuda", fuse=False)
+    ids = res.tokenizer.encode(PROMPT, add_bos=True)
+    n = 32
+    tm = load_model_tiered(path, max_hbm_layers=2, max_ram_layers=2)
+    t = tm.tiers
+    check((t.n_hbm, t.n_ram, t.n_disk) == (2, 2, 2),
+          f"repolm512 tiers {t}: want (2, 2, 2)")
+    ref, ref_logits = greedy_ids(
+        torch, resident_step(torch, res.arch, res.weights), ids, n)
+    reset(counters)
+    got, logits = greedy_ids(torch, tiered_step(torch, tm), ids, n)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    check(all(launches[k] > 0 for k in TIERED_KERNELS["repolm512"]),
+          f"repolm512 tiered launched a kernel zero times: {launches}")
+    check(torch.equal(got, ref), f"repolm512 tiered tokens {got.tolist()} "
+          f"differ from the resident model's {ref.tolist()}")
+    same = all(torch.equal(a, b) for a, b in zip(logits, ref_logits))
+    tm.streamer.synchronous = True
+    got_s, logits_s = greedy_ids(torch, tiered_step(torch, tm), ids, n)
+    tm.streamer.synchronous = False
+    check(all(torch.equal(a, b) for a, b in zip(logits, logits_s)),
+          "repolm512 tiered: the synchronous run differs from the pipelined")
+    out = {"tiers": [2, 2, 2], "tokens": got.tolist(),
+           "logits_bit_equal_to_resident": same, "launches": launches,
+           "misaligned_plane_copies": tm.streamer.misaligned_copies}
+    # int8 KV, a skip set, early exit: tokens of the resident forward over
+    # the same layers with the same cache
+    for name, kw, sel, quant in (
+            ("int8_kv", {}, None, True),
+            ("skip_1_3", {"skip": frozenset({1, 3})}, [0, 2, 4, 5], False),
+            # half = 3: layer 3's cosine stops the streamed loop before 4
+            ("early_exit", {"early_exit_threshold": 1e-9}, [0, 1, 2, 3],
+             False)):
+        a, _ = greedy_ids(torch, tiered_step(torch, tm, quant, **kw), ids, n)
+        b, _ = greedy_ids(torch, resident_step(torch, res.arch, res.weights,
+                                                sel, quant), ids, n)
+        check(torch.equal(a, b), f"repolm512 tiered {name}: tokens "
+              f"{a.tolist()} differ from the resident {b.tolist()}")
+        out[name] = "tokens identical"
+    tm.close()
+    del res
+    # --requant-ram on the Q4_K_M requant of repolm512 (it has Q6_K)
+    q4 = os.path.join(tmp, "repolm512_q4_k_m.gguf")
+    requantize(REPOLM, q4, "q4_k_m")
+    runtime = load_model_tiered(q4, max_hbm_layers=0, max_ram_layers=6,
+                                requant_ram=DType.Q4_K)
+    offline = load_model_tiered(q4, max_hbm_layers=0, max_ram_layers=6,
+                                requant=DType.Q4_K)
+    check(len(runtime.streamer.ram_meta) == 6,
+          "requant_ram requantized no layer")
+    a, la = greedy_ids(torch, tiered_step(torch, runtime), ids, 8)
+    b, lb = greedy_ids(torch, tiered_step(torch, offline), ids, 8)
+    check(all(torch.equal(x, y) for x, y in zip(la, lb)),
+          "repolm512 Q4_K_M: the runtime tier-B requant differs from the "
+          "offline requant pack")
+    out["requant_ram"] = {
+        "bit_equal_to_offline": True,
+        "ram_bytes_per_layer": runtime.streamer.layer_nbytes(0),
+        "pack_bytes_per_layer": runtime.pack.layer_nbytes(0)}
+    runtime.close()
+    offline.close()
+    mixed = load_model_tiered(q4, max_hbm_layers=2, max_ram_layers=2,
+                              requant_ram=DType.Q4_K)
+    c, _ = greedy_ids(torch, tiered_step(torch, mixed), ids, 8)
+    mixed.close()
+    out["requant_ram"]["tiers_2_2_2_tokens"] = c.tolist()
+    # the pack's Q4_K and Q6_K planes against the GGUF loader's
+    q4_tiered = load_model_tiered(q4, max_hbm_layers=2, max_ram_layers=2)
+    q4_res = load_model(q4, device="cuda", fuse=False)
+    a, la = greedy_ids(torch, tiered_step(torch, q4_tiered), ids, n)
+    b, lb = greedy_ids(torch, resident_step(torch, q4_res.arch,
+                                            q4_res.weights), ids, n)
+    q4_tiered.close()
+    del q4_res
+    check(torch.equal(a, b), f"repolm512 Q4_K_M tiered tokens {a.tolist()} "
+          f"differ from the resident model's {b.tolist()}")
+    out["q4_k_m_tiers_2_2_2"] = {
+        "tokens": "identical to the resident Q4_K_M model",
+        "logits_bit_equal_to_resident": all(torch.equal(x, y)
+                                            for x, y in zip(la, lb))}
+    # the CLI end to end: --streaming against the resident CLI (unfused)
+    texts = {}
+    for name, flags in (("streaming", ["--streaming", "--max-hbm-layers",
+                                       "2", "--max-ram-layers", "2"]),
+                        ("resident", ["--no-fuse"])):
+        buf = io.StringIO()
+        reset(counters)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-m", path, "-p", PROMPT, "-n", "16", "-t", "0",
+                           "--repeat-penalty", "1.0", "--device", "cuda"]
+                          + flags)
+        torch.cuda.synchronize()
+        got_l = read(counters)
+        check(rc == 0, f"cli {name}: exit code {rc}")
+        check(all(got_l[k] > 0 for k in TIERED_KERNELS["repolm512"]),
+              f"cli {name} launched {got_l}")
+        texts[name] = buf.getvalue()
+    check(texts["streaming"] == texts["resident"],
+          f"cli --streaming wrote {texts['streaming']!r}, the resident CLI "
+          f"{texts['resident']!r}")
+    out["cli_streaming"] = "text identical to the resident CLI"
+    print(json.dumps({"tiered_repolm512": out}), flush=True)
+    return out
+
+
+def write_q4km_8b(path: str, n_layers: int) -> None:
+    """A Llama-3.1-8B-shaped GGUF in Q4_K_M (Q4_K, and Q6_K for ffn_down,
+    the embedding and the head) of random valid blocks: random codes, the
+    6-bit scales and mins all 8, fixed f16 super-block scales giving |w| ~
+    0.02 (as SYNTH_SCALES), f32 norms of ones."""
+    import numpy as np
+    from ntransformer_tpu_torch.core.dequant import pack_kquant_scales
+    from ntransformer_tpu_torch.core.dtypes import DType, GGUFValueType
+    from ntransformer_tpu_torch.core.gguf import GGUFWriter
+    from ntransformer_tpu_torch.models.presets import q4_k_m_policy
+    hidden, inter, heads, kv_heads, vocab = 4096, 14336, 32, 8, 128256
+    rng = np.random.default_rng(88)
+    eight = np.full((1, 8), 8, np.uint8)
+    q4k_scales = pack_kquant_scales(eight, eight).reshape(-1)
+    f16 = lambda x: np.frombuffer(np.float16(x).tobytes(), np.uint8)
+    q4k = SYNTH_SCALES["q4_k"]
+    q6k = SYNTH_SCALES["q6_k"]
+
+    def blocks(rows: int, cols: int, dt) -> bytes:
+        nb = rows * cols // 256
+        if dt == DType.Q4_K:
+            b = rng.integers(0, 256, (nb, 144), dtype=np.uint8)
+            b[:, 0:2] = f16(q4k["d"])
+            b[:, 2:4] = f16(q4k["dmin"])
+            b[:, 4:16] = q4k_scales
+        else:  # Q6_K: ql, qh, 16 int8 scales, d
+            b = rng.integers(0, 256, (nb, 210), dtype=np.uint8)
+            b[:, 192:208] = 8
+            b[:, 208:210] = f16(q6k["d"])
+        return b.tobytes()
+
+    w = GGUFWriter(path)
+    md = {"general.architecture": "llama", "general.name": "synthetic-8b",
+          "llama.vocab_size": vocab, "llama.embedding_length": hidden,
+          "llama.feed_forward_length": inter, "llama.block_count": n_layers,
+          "llama.attention.head_count": heads,
+          "llama.attention.head_count_kv": kv_heads,
+          "llama.attention.layer_norm_rms_epsilon": 1e-5,
+          "llama.rope.freq_base": 500000.0, "llama.context_length": 8192,
+          "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2}
+    for k, v in md.items():
+        w.add_meta(k, v)
+    w.add_meta("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(vocab)],
+               vtype=GGUFValueType.ARRAY, elem_type=GGUFValueType.STRING)
+
+    def mat(name, rows, cols):
+        dt = q4_k_m_policy(name)
+        w.add_tensor(name, raw=blocks(rows, cols, dt), shape=(rows, cols),
+                     dtype=dt)
+
+    ones = np.ones(hidden, np.float32)
+    mat("token_embd.weight", vocab, hidden)
+    for i in range(n_layers):
+        pre = f"blk.{i}."
+        w.add_tensor(pre + "attn_norm.weight", ones)
+        mat(pre + "attn_q.weight", hidden, hidden)
+        mat(pre + "attn_k.weight", kv_heads * 128, hidden)
+        mat(pre + "attn_v.weight", kv_heads * 128, hidden)
+        mat(pre + "attn_output.weight", hidden, hidden)
+        w.add_tensor(pre + "ffn_norm.weight", ones)
+        mat(pre + "ffn_gate.weight", inter, hidden)
+        mat(pre + "ffn_up.weight", inter, hidden)
+        mat(pre + "ffn_down.weight", hidden, inter)
+    w.add_tensor("output_norm.weight", ones)
+    mat("output.weight", vocab, hidden)
+    w.write()
+
+
+def h2d_probe(torch, nbytes: int = 1 << 30) -> float:
+    """GB/s of one pinned host -> device copy (the bound of tier-B/C
+    transfers), best of 5, timed with CUDA events."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    best = float("inf")
+    for _ in range(5):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        dst.copy_(src, non_blocking=True)
+        e.record()
+        e.synchronize()
+        best = min(best, s.elapsed_time(e))
+    del src, dst
+    return nbytes / best / 1e6
+
+
+def direct_read_probe(pack, layers, rounds: int = 3) -> float:
+    """GB/s of O_DIRECT reads of `layers` of the pack, two in flight into
+    two aligned buffers as the streamer's two staging slots read them,
+    nothing else running (the bound of tier-C reads); best of `rounds`."""
+    from ntransformer_tpu_torch.memory.native import StagePool, aligned_empty
+    pool = StagePool(8)
+    size = max(pack.layer_nbytes(j) for j in layers)
+    bufs = [aligned_empty((size + 4095) // 4096 * 4096) for _ in range(2)]
+    best = 0.0
+    for _ in range(rounds):
+        total, pending, t0 = 0, [], time.perf_counter()
+        for i, j in enumerate(layers):
+            if len(pending) == 2:
+                pool.wait(pending.pop(0))
+            m = pack.layer_meta(j)
+            pending.append(pool.read(pack.path, m["offset"], m["size"],
+                                     bufs[i % 2], direct=True))
+            total += m["size"]
+        for h in pending:
+            pool.wait(h)
+        best = max(best, total / (time.perf_counter() - t0) / 1e9)
+    direct = pool.direct_reads
+    pool.close()
+    check(direct == rounds * len(layers), f"the read probe read {direct} of "
+          f"{rounds * len(layers)} layers with O_DIRECT")
+    return best
+
+
+def profile_tiered(torch, step, pos0: int, steps: int = 2) -> dict:
+    """Device time over a few tiered decode steps (torch.profiler): the
+    compute kernels' share of the wall time, and the copies'."""
+    from torch.profiler import ProfilerActivity, profile
+    tok = torch.tensor([3], device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = torch.argmax(step(tok, pos0 + i)[-1]).reshape(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = copy = 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type) or e.self_device_time_total <= 0:
+            continue
+        if "Memcpy" in e.key or "memcpy" in e.key:
+            copy += e.self_device_time_total / 1e3
+        else:
+            kern += e.self_device_time_total / 1e3
+    return {"steps": steps, "wall_ms_per_token": wall_ms / steps,
+            "compute_ms_per_token": kern / steps,
+            "copy_ms_per_token": copy / steps,
+            "device_busy_share": kern / wall_ms if wall_ms else 0.0,
+            "copy_busy_share": copy / wall_ms if wall_ms else 0.0}
+
+
+def filesystem_of(path: str) -> dict:
+    """The mount that holds `path` (/proc/mounts: the longest mount point
+    above it), its filesystem type and source, and the block device behind
+    its st_dev (None for a filesystem without one, such as tmpfs or a 9p
+    mount). ram_backed: True for tmpfs and ramfs, False with a block
+    device behind it, else None (the backing cannot be seen)."""
+    real = os.path.realpath(path)
+    best = ("", "?", "?", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            src, mnt, fstype, opts = line.split()[:4]
+            mnt = mnt.replace("\\040", " ")
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[0]):
+                best = (mnt, fstype, src, opts[:200])
+    dev = os.stat(real).st_dev
+    major, minor = os.major(dev), os.minor(dev)
+    sys_dev = f"/sys/dev/block/{major}:{minor}"
+    block = (os.path.basename(os.path.realpath(sys_dev))
+             if os.path.exists(sys_dev) else None)
+    return {"mount": best[0], "fstype": best[1], "source": best[2],
+            "options": best[3], "st_dev": f"{major}:{minor}", "block_device": block,
+            "ram_backed": True if best[1] in ("tmpfs", "ramfs")
+            else False if block else None}
+
+
+def tiered_8b_phase(torch, counters, card: str) -> dict:
+    """The 8B preset in Q4_K_M at full width, tiered on the card at (8 HBM,
+    16 RAM, 8 disk): a 512-token prefill and 32 greedy tokens identical to
+    the unfused resident 8B, pipelined and synchronous bit-identical; ms
+    per token, streamed bytes per token, the copy stream's H2D rate against
+    a pinned-copy probe and the tier-C read rate against an O_DIRECT probe,
+    the card's busy share and the overlap gain (synchronous / pipelined).
+    Without the disk room for both files, 16 layers at (4, 8, 4). The
+    resident reference is the GGUF loader's unfused model (load_model), so
+    the pack is held against it too. The filesystem that holds the GGUF and
+    its pack (tier C) is recorded, since a RAM-backed one (tmpfs) reads at
+    memory speed."""
+    import shutil
+    import tempfile
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.models.tiered import load_model_tiered
+    from ntransformer_tpu_torch.utils.timing import PROFILER
+    base = None
+    for d in (tempfile.gettempdir(), HERE):
+        if shutil.disk_usage(d).free >= TIERED_8B_ROOM:
+            base = d
+            break
+    n_layers, tiers = (32, (8, 16, 8)) if base else (16, (4, 8, 4))
+    if base is None:
+        base = tempfile.gettempdir()
+        print(f"tiered 8b: less than {TIERED_8B_ROOM >> 30} GiB free; cut "
+              f"to {n_layers} layers at {tiers}", flush=True)
+    out = {"card": card, "layers": n_layers, "tiers": list(tiers),
+           "cut": n_layers != 32, "tier_c_filesystem": filesystem_of(base)}
+    print(f"tiered 8b: tier C on {out['tier_c_filesystem']}", flush=True)
+    with tempfile.TemporaryDirectory(dir=base) as tmp:
+        path = os.path.join(tmp, "llama8b_q4_k_m.gguf")
+        t0 = time.perf_counter()
+        write_q4km_8b(path, n_layers)
+        out["gguf_bytes"] = os.path.getsize(path)
+        out["gguf_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tm = load_model_tiered(path, max_seq_len=1024,
+                               max_hbm_layers=tiers[0],
+                               max_ram_layers=tiers[1],
+                               with_tokenizer=False)
+        out["tiered_load_s"] = time.perf_counter() - t0  # pack build too
+        check((tm.tiers.n_hbm, tm.tiers.n_ram, tm.tiers.n_disk) == tiers,
+              f"8b tiers {tm.tiers}: want {tiers}")
+        t0 = time.perf_counter()
+        res = load_model(path, max_seq_len=1024, device="cuda", fuse=False)
+        out["resident_load_s"] = time.perf_counter() - t0
+        g = torch.Generator().manual_seed(9)
+        ids = torch.randint(3, res.arch.vocab_size, (512,),
+                            generator=g).tolist()
+        n = 32
+        ref, ref_logits = greedy_ids(
+            torch, resident_step(torch, res.arch, res.weights), ids, n)
+        ref_logits = [x.cpu() for x in ref_logits]
+        del res
+        torch.cuda.empty_cache()
+        os.sync()  # the pack's pages on disk before the O_DIRECT probe
+        s = tm.streamer
+        per_token = sum(s.layer_nbytes(j) for j in s.schedule())
+        runs = {}
+        for mode in ("pipelined", "synchronous", "synchronous",
+                     "pipelined"):
+            s.synchronous = mode == "synchronous"
+            s.reset_stats()
+            PROFILER.reset()
+            PROFILER.enabled = True
+            step = tiered_step(torch, tm)
+            reset(counters)
+            t0 = time.perf_counter()
+            logits = step(ids, 0)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            toks, outs = [], []
+            t0 = time.perf_counter()
+            for i in range(n):
+                outs.append(logits[-1])
+                tk = torch.argmax(logits[-1])
+                toks.append(tk)
+                logits = step(tk.reshape(1), len(ids) + i)
+            torch.cuda.synchronize()
+            ms_tok = (time.perf_counter() - t0) * 1e3 / n
+            PROFILER.enabled = False
+            launches = read(counters)
+            copies, h2d_bytes, copy_ms = PROFILER.copy_stats("stream/h2d")
+            toks = torch.stack(toks).cpu()
+            check(torch.equal(toks, ref), f"8b tiered {mode}: tokens "
+                  f"{toks.tolist()} differ from the resident "
+                  f"{ref.tolist()}")
+            outs = [x.cpu() for x in outs]
+            if "pipelined" in runs or "synchronous" in runs:
+                first = runs.get("pipelined") or runs["synchronous"]
+                check(all(torch.equal(a, b)
+                          for a, b in zip(outs, first["_logits"])),
+                      f"8b tiered {mode}: logits differ from an earlier run")
+            cell = {"prefill_ms": prefill_ms, "ms_per_token": ms_tok,
+                    "streamed_bytes_per_token": per_token,
+                    "streamed_GB_s": per_token / ms_tok / 1e6,
+                    "h2d_copies": copies, "h2d_bytes": h2d_bytes,
+                    "h2d_copy_ms": copy_ms,
+                    "h2d_copy_GB_s": h2d_bytes / copy_ms / 1e6
+                    if copy_ms else 0.0,
+                    "disk_bytes": s.disk_bytes,
+                    "tier_c_read_GB_s": s.disk_bytes / s.disk_s / 1e9
+                    if s.disk_s else 0.0,
+                    "direct_reads": s.pool.direct_reads,
+                    "buffered_reads": s.pool.buffered_reads,
+                    "misaligned_plane_copies": s.misaligned_copies,
+                    "launches": launches, "_logits": outs}
+            if mode not in runs or ms_tok < runs[mode]["ms_per_token"]:
+                runs[mode] = cell
+            check(all(launches[k] > 0 for k in TIERED_KERNELS["8b"]),
+                  f"8b tiered {mode} launched {launches}")
+        s.synchronous = False
+        same = all(torch.equal(a, b) for a, b in
+                   zip(runs["pipelined"]["_logits"], ref_logits))
+        for c in runs.values():
+            c.pop("_logits")
+        prof = profile_tiered(torch, tiered_step(torch, tm), 0)
+        disk_layers = list(range(tiers[0] + tiers[1], n_layers))
+        out.update(
+            runs=runs, logits_bit_equal_to_resident=same,
+            tokens=ref.tolist(), profile=prof,
+            overlap_gain=(runs["synchronous"]["ms_per_token"]
+                          / runs["pipelined"]["ms_per_token"]),
+            h2d_probe_GB_s=h2d_probe(torch),
+            direct_read_probe_GB_s=direct_read_probe(tm.pack, disk_layers))
+        tm.close()
+        del tm
+        torch.cuda.empty_cache()
+    print(json.dumps({"tiered_8b_q4_k_m": out}), flush=True)
+    return out
+
+
 # ------------------------------------------------------------------- main
+class DotCounter:
+    """The launch count of one cache-dot form of batched flash, read and
+    reset like a wrapper module's `launches`."""
+
+    def __init__(self, mod, dot: str):
+        self.mod, self.dot = mod, dot
+
+    @property
+    def launches(self) -> int:
+        return self.mod.launches_by_dot[self.dot]
+
+    @launches.setter
+    def launches(self, value: int):
+        self.mod.launches_by_dot[self.dot] = value
+
+
 def reset(counters):
     for mod in counters.values():
         mod.launches = 0
@@ -1862,8 +2592,11 @@ def main() -> int:
     from ntransformer_tpu_torch.ops.cuda import w8a8 as cw8
     t0 = time.perf_counter()
     mods = (cm, ca, cb, ck, cw8, cw4, cn)
-    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, together
+    from ntransformer_tpu_torch.memory import native
+    with ThreadPoolExecutor(len(mods) + 1) as ex:  # one compiler per source
+        host = ex.submit(native.build)
         reports = list(ex.map(build.build, [m.NAME for m in mods]))
+        host.result()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for rep in reports:
         for line in rep.splitlines():
@@ -1873,6 +2606,8 @@ def main() -> int:
                 print("    " + line.strip(), flush=True)
     counters = {m.NAME: m for m in mods[:6]}
     counters.update({k.name: k for k in cn.KERNELS.values()})
+    counters.update({f"{cb.NAME}[{d}]": DotCounter(cb, d)
+                     for d in DOT_FORMS})
 
     timer = Timer(torch)
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
@@ -1881,14 +2616,18 @@ def main() -> int:
         res[cm.NAME], res[ca.NAME] = kernel_phase(torch, timer, card)
     if "bkernels" in phases:
         res[cb.NAME], res[ck.NAME] = batched_kernel_phase(torch, timer, card)
+        res.update(dot_kernel_phase(torch, timer, card))
     if "qkernels" in phases:
         res.update(nibble_kernel_phase(torch, timer, card))
     if "wkernels" in phases:
         res.update(wformat_kernel_phase(torch, timer, card))
     if "real" in phases:
         real_model_phase(torch, counters, card)
+    dot_launches = {}
     if "serve" in phases:
-        real_serve_phase(torch, counters, card)
+        got = real_serve_phase(torch, counters, card, dot_forms=True)
+        dot_launches = {f"{cb.NAME}[{d}]": got["dot_launches"][d]
+                        for d in DOT_FORMS}
     engine_launches, launches = {}, {}
     if "full" in phases or "bfull" in phases:
         synth = build_synth(torch)
@@ -1897,7 +2636,7 @@ def main() -> int:
                                                   synth)
         if "bfull" in phases:
             summary, launches = full_batched_phase(torch, counters, card,
-                                                   synth)
+                                                   synth, dot_forms=True)
             print(json.dumps({"full_width_8b_serving": summary}), flush=True)
         del synth
     # each nibble kernel's main path: the 8B Q4_K_M server for Q4_K and
@@ -1930,6 +2669,13 @@ def main() -> int:
     for name, (main_path, engine_path) in qpath.items():
         launches[name] = qlaunch.get(main_path, {}).get(name, 0)
         engine_launches[name] = qlaunch.get(engine_path, {}).get(name, 0)
+    # the cache-dot forms' main path: the server with each form (serve)
+    launches.update(dot_launches)
+    if "tiered" in phases:
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            tiered_repolm_phase(torch, counters, card, tmp)
+        tiered_8b_phase(torch, counters, card)
 
     kernels = []
     mm_tol = f"max|kernel-plain| <= {MATMUL_RTOL} * max|plain|"
@@ -1950,6 +2696,10 @@ def main() -> int:
                (cw4.NAME, "csrc/w4a8_decode.cu", cw4.REPLACES)]
     entries += [(k.name, "csrc/nibble_matmul.cu", k.replaces)
                 for k in cn.KERNELS.values()]
+    entries += [(f"{cb.NAME}[{d}]", "csrc/batched_attention.cu",
+                 cb.REPLACES_DOT + f" dot_impl={d!r}") for d in DOT_FORMS]
+    tols.update({f"{cb.NAME}[{d}]": f"max|kernel-plain| <= {DOT_RTOL[d]} * "
+                 f"max|plain| in every query token" for d in DOT_FORMS})
     for name, src, replaces in entries:
         if name not in res:
             continue

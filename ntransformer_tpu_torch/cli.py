@@ -3,14 +3,28 @@
 It runs resident generation (bf16 or --kv-int8 cache), --benchmark and
 --serve (continuous batching over a prompts file, with --batch-size,
 --prefix-cache and --kv-int8) on one device, each in the file's formats or
-requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8). Every other mode
-exits with 2 and names the ROADMAP item that ports it.
+requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8), and tiered streaming
+(--streaming, --max-hbm-layers, --max-ram-layers, --requant-q4k,
+--requant-ram; automatic when the file does not fit the card's free memory).
+Every other mode exits with 2 and names the ROADMAP item that ports it.
+
+This module is the one place of the port that reads the JAX package's
+environment switches of these modes, with their names, values and defaults,
+and passes them on as keyword arguments:
+  NT_ATTN_DOT          the batched flash cache-dot form of --serve ("f32")
+  NT_H2D               "planes": one host -> device copy per plane ("blob")
+  NT_DIRECT_IO         "0": streamed reads through the page cache ("1")
+  NT_REQUANT_RAM       a dtype name (Q4_K): the tier-B requant, as
+                       --requant-ram (unset, "" or "0": off)
+  NT_MAX_HBM_LAYERS    caps, as --max-hbm-layers / --max-ram-layers
+  NT_MAX_RAM_LAYERS
 
 Usage: python -m ntransformer_tpu_torch -m model.gguf -p "prompt" [-n 128]
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 # mode → why it is refused (the ROADMAP item that ports it)
@@ -18,16 +32,14 @@ _NOT_PORTED = {
     "--http": "the HTTP server is ROADMAP queue 1 item 9 "
               "(inference/http_server.py)",
     "--chat": "chat templates are ROADMAP queue 1 item 9 (inference/chat.py)",
-    "--streaming": "tiered streaming is ROADMAP queue 1 item 12",
-    "--max-hbm-layers/--max-ram-layers": "tiered streaming is ROADMAP "
-                                         "queue 1 item 12",
-    "--requant-q4k/--requant-ram": "requantizing for the tiered pack is "
-                                   "ROADMAP queue 1 item 12",
     "--tp": "tensor parallelism is ROADMAP queue 1 item 14",
     "--cp": "context parallelism is ROADMAP queue 1 item 14",
     "--ep": "expert parallelism is ROADMAP queue 1 item 14",
     "--dp": "data-parallel serving is ROADMAP queue 1 item 14",
-    "--self-spec": "speculative decoding is ROADMAP queue 1 item 13",
+    # the JAX package streams for --self-spec (the resident prefix drafts);
+    # the port refuses it until speculation is ported
+    "--self-spec": "speculative decoding (tiered self-speculation "
+                   "included) is ROADMAP queue 1 item 13",
     "--draft-model": "speculative decoding is ROADMAP queue 1 item 13",
     "--spec-k": "speculative serving is ROADMAP queue 1 item 13",
 }
@@ -94,16 +106,37 @@ def refused_mode(args) -> str | None:
     """The first requested mode this slice does not run, or None."""
     asked = {
         "--http": args.http is not None,
-        "--chat": args.chat, "--streaming": args.streaming,
-        "--max-hbm-layers/--max-ram-layers": (args.max_hbm_layers is not None
-                                              or args.max_ram_layers
-                                              is not None),
-        "--requant-q4k/--requant-ram": args.requant_q4k or args.requant_ram,
+        "--chat": args.chat,
         "--tp": args.tp, "--cp": args.cp, "--ep": args.ep, "--dp": args.dp,
         "--self-spec": args.self_spec, "--draft-model": args.draft_model,
         "--spec-k": args.spec_k,
     }
     return next((mode for mode, on in asked.items() if on), None)
+
+
+def should_stream(path: str, args) -> bool:
+    """Tiered or resident: the streaming flags force it; otherwise the
+    file plus a margin against the card's free memory (a CPU run streams
+    only when asked)."""
+    if (args.streaming or args.requant_q4k or args.requant_ram
+            or args.max_hbm_layers is not None
+            or args.max_ram_layers is not None):
+        return True
+    import torch
+    if torch.device(args.device).type != "cuda" \
+            or not torch.cuda.is_available():
+        return False
+    from .memory.tiers import HBM_MARGIN_BYTES, hbm_free_bytes
+    try:
+        need = os.path.getsize(path)
+    except OSError:
+        return False
+    return need + HBM_MARGIN_BYTES + (1 << 30) > hbm_free_bytes()
+
+
+def _env_int(name: str):
+    v = os.environ.get(name)
+    return int(v) if v not in (None, "") else None
 
 
 def main(argv=None) -> int:
@@ -122,43 +155,86 @@ def main(argv=None) -> int:
     mode = refused_mode(args)
     if mode is not None:
         log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
-                  "port runs resident generation, --benchmark and --serve.")
+                  "port runs resident and tiered generation, --benchmark "
+                  "and --serve.")
         return 2
     if args.w4a8 and args.w8a8:
         log.error("--w4a8 and --w8a8 are mutually exclusive (pick the "
                   "decode-optimized or the serving format)")
         return 2
     if args.serve:
+        if args.streaming:
+            log.error("--serve is the resident continuous-batching loop; "
+                      "--draft-model/--self-spec/--streaming are "
+                      "single-request engine modes and do not compose "
+                      "with it")
+            return 2
         return serve(args)
 
-    from .inference.engine import Engine, GenerateConfig
+    stream = should_stream(args.model, args)
+    if (args.w4a8 or args.w8a8) and stream:
+        log.error("--w4a8/--w8a8 are resident single-chip modes for now: "
+                  "the tiered pack streams SOURCE-dtype planes, and the "
+                  "parallel engines shard source planes (convert-then-"
+                  "shard lands with a parity test before it is enabled). "
+                  "Drop the parallel/streaming flags, or drop the "
+                  "requant flag.")
+        return 2
+    from .inference.engine import Engine, GenerateConfig, TieredEngine
     cfg = GenerateConfig(
         max_tokens=args.max_tokens, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
         repeat_penalty=args.repeat_penalty, seed=args.seed,
-        skip_threshold=args.skip_threshold)
-    log.info(f"loading {args.model} (resident, {args.device})")
-    engine = Engine.load(args.model, max_seq_len=args.ctx_size,
-                         fuse=not args.no_fuse, device=args.device,
-                         kv_quant=args.kv_int8, w4a8=args.w4a8,
-                         w8a8=args.w8a8)
+        skip_threshold=args.skip_threshold,
+        early_exit_threshold=args.early_exit)
+    if stream:
+        from .core.dtypes import DType
+        log.info(f"loading {args.model} (tiered streaming, {args.device})")
+        requant_ram = DType.Q4_K if args.requant_ram else None
+        env_rq = os.environ.get("NT_REQUANT_RAM", "")
+        if requant_ram is None and env_rq and env_rq != "0":
+            requant_ram = DType[env_rq.upper()]
+        engine = TieredEngine.load(
+            args.model, max_seq_len=args.ctx_size, device=args.device,
+            requant=DType.Q4_K if args.requant_q4k else None,
+            requant_ram=requant_ram,
+            max_hbm_layers=(args.max_hbm_layers
+                            if args.max_hbm_layers is not None
+                            else _env_int("NT_MAX_HBM_LAYERS")),
+            max_ram_layers=(args.max_ram_layers
+                            if args.max_ram_layers is not None
+                            else _env_int("NT_MAX_RAM_LAYERS")),
+            kv_quant=args.kv_int8,
+            direct_io=os.environ.get("NT_DIRECT_IO", "1") != "0",
+            h2d="planes" if os.environ.get("NT_H2D", "blob") == "planes"
+            else "blob")
+    else:
+        log.info(f"loading {args.model} (resident, {args.device})")
+        engine = Engine.load(args.model, max_seq_len=args.ctx_size,
+                             fuse=not args.no_fuse, device=args.device,
+                             kv_quant=args.kv_int8, w4a8=args.w4a8,
+                             w8a8=args.w8a8)
 
-    if args.benchmark:
-        stats = engine.benchmark(args.prompt, n_tokens=args.bench_tokens)
+    try:
+        if args.benchmark:
+            stats = engine.benchmark(args.prompt, n_tokens=args.bench_tokens)
+            print(stats.report(), file=sys.stderr)
+            return 0
+
+        def emit(piece: str):
+            print(piece, end="", flush=True)
+
+        text, stats = engine.generate(args.prompt, cfg, emit)
+        print()
         print(stats.report(), file=sys.stderr)
+        if args.verbose:
+            print(PROFILER.summary(), file=sys.stderr)
+            from .utils.timing import device_memory_report
+            print(device_memory_report(), file=sys.stderr)
         return 0
-
-    def emit(piece: str):
-        print(piece, end="", flush=True)
-
-    text, stats = engine.generate(args.prompt, cfg, emit)
-    print()
-    print(stats.report(), file=sys.stderr)
-    if args.verbose:
-        print(PROFILER.summary(), file=sys.stderr)
-        from .utils.timing import device_memory_report
-        print(device_memory_report(), file=sys.stderr)
-    return 0
+    finally:
+        if stream:
+            engine.tm.close()
 
 
 def serve(args) -> int:
@@ -168,6 +244,12 @@ def serve(args) -> int:
     from .inference.serve import BatchServer, Request
     from .models.loader import load_model
     from .utils import logging as log
+    from .ops.cuda.batched_attention import DOT_IMPLS
+    dot_impl = os.environ.get("NT_ATTN_DOT", "f32")
+    if dot_impl not in DOT_IMPLS:
+        log.error(f"NT_ATTN_DOT={dot_impl!r}: want one of "
+                  f"{', '.join(DOT_IMPLS)}")
+        return 2
     log.info(f"loading {args.model} (resident, {args.device}) to serve "
              f"{args.batch_size} slots")
     model = load_model(args.model, max_seq_len=args.ctx_size,
@@ -175,6 +257,7 @@ def serve(args) -> int:
                        w4a8=args.w4a8, w8a8=args.w8a8)
     srv = BatchServer(model, batch_size=args.batch_size,
                       prefix_cache=args.prefix_cache, kv_quant=args.kv_int8,
+                      dot_impl=dot_impl,
                       sampler_cfg=SamplerConfig(
                           temperature=args.temperature, top_k=args.top_k,
                           top_p=args.top_p,

@@ -9,8 +9,11 @@ shapes; the cache is updated in place by each forward. In `benchmark` a
 Python loop of forwards takes the place of the jitted `lax.scan` decode
 loop; the argmax stays on the card, so the loop never waits for the host.
 
-Speculative generation and the tensor-, context- and expert-parallel and
-tiered engines wait for their ROADMAP items (queue 1 items 12-14).
+`TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
+per-token layer streaming, layer-skip that drops streamed I/O, and early
+exit. Speculative generation (the tiered self-speculation and the separate
+draft model among it) and the tensor-, context- and expert-parallel engines
+wait for their ROADMAP items (queue 1 items 13 and 14).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ class GenerateConfig:
     repeat_penalty: float = 1.1
     seed: int = 42
     skip_threshold: float = 0.0  # >0 enables layer-skip calibration
+    early_exit_threshold: float = 0.0  # >0: tiered early exit (cosine)
 
     def sampler(self) -> SamplerConfig:
         return SamplerConfig(temperature=self.temperature, top_k=self.top_k,
@@ -283,3 +287,89 @@ def decode_loop_greedy(engine: Engine, kv: KVCache, token: torch.Tensor,
         token = torch.argmax(logits[0])
         toks.append(token)
     return torch.stack(toks), kv
+
+
+class TieredEngine(Engine):
+    """Engine over a TieredModel: per-token layer streaming, layer-skip
+    calibration that drops streamed layers (and their I/O), early exit."""
+
+    def __init__(self, tiered, kv_quant: bool = False):
+        self.tm = tiered
+        self.model = None
+        self.arch = tiered.arch
+        self.tokenizer = tiered.tokenizer
+        self.device = tiered.device
+        self.layer_sel = None
+        self.skip: frozenset = frozenset()
+        self.early_exit_threshold = 0.0  # set per generate() from cfg
+        self.kv_quant = kv_quant  # int8 KV cache (half its device memory)
+
+    @classmethod
+    def load(cls, path: str, kv_quant: bool = False, **kw) -> "TieredEngine":
+        """Load `path` tiered (load_model_tiered keywords: device,
+        max_hbm_layers, requant_ram, ...)."""
+        from ..models.tiered import load_model_tiered
+        return cls(load_model_tiered(path, kv_quant=kv_quant, **kw),
+                   kv_quant=kv_quant)
+
+    def _make_kv(self):
+        from ..models.tiered import TieredKV
+        return TieredKV.create(self.arch, self.tm.tiers, quant=self.kv_quant,
+                               device=self.device)
+
+    def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
+                       with_cosine=False):
+        from ..models.tiered import forward_tiered
+        return forward_tiered(self.tm, kv, torch.from_numpy(padded), off,
+                              n_valid=n_valid, with_cosine=with_cosine,
+                              skip=self.skip)
+
+    def _decode_step(self, kv, token, pos: int, with_cosine=False):
+        from ..models.tiered import forward_tiered
+        tok = torch.as_tensor(token, device=self.device).reshape(1)
+        return forward_tiered(self.tm, kv, tok, pos, with_cosine=with_cosine,
+                              skip=self.skip,
+                              early_exit_threshold=self.early_exit_threshold)
+
+    def _calibrate(self, cosines, threshold: float) -> list[int]:
+        n = self.arch.n_layers
+        lo, hi = n // 4, (3 * n) // 4
+        skip = [i for i in range(lo, hi) if float(cosines[i]) > threshold]
+        self.skip = frozenset(skip)
+        return skip
+
+    def generate(self, prompt: str, cfg: GenerateConfig | None = None,
+                 callback=None, *, prompt_ids: list[int] | None = None,
+                 session: ChatSession | None = None) -> tuple[str, Stats]:
+        if cfg is not None:
+            # early exit pays only on the tiered path: breaking the streamed
+            # loop skips the remaining layers' transfers
+            self.early_exit_threshold = cfg.early_exit_threshold
+        return super().generate(prompt, cfg, callback,
+                                prompt_ids=prompt_ids, session=session)
+
+    def benchmark(self, prompt: str = "The capital of France is",
+                  n_tokens: int = 64, *,
+                  prompt_ids: list[int] | None = None) -> Stats:
+        """Greedy benchmark: prefill, then n_tokens decode steps with the
+        argmax kept on the card between steps; one synchronize at the end
+        times the run."""
+        stats = Stats()
+        ids = (self._clamp_ids(prompt_ids) if prompt_ids is not None
+               else self._encode(prompt))
+        n_tokens = min(n_tokens, max(1, self.arch.max_seq_len - len(ids)))
+        kv = self._make_kv()
+        t0 = time.perf_counter()
+        logits, kv, _ = self._prefill(kv, ids)
+        nxt = torch.argmax(logits[0])
+        _sync(self.device)
+        stats.prefill_tokens = len(ids)
+        stats.prefill_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for i in range(n_tokens):
+            logits, kv, _ = self._decode_step(kv, nxt, len(ids) + i)
+            nxt = torch.argmax(logits[0])
+        _sync(self.device)
+        stats.decode_tokens = n_tokens
+        stats.decode_ms = (time.perf_counter() - t0) * 1e3
+        return stats

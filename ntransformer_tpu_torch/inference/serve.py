@@ -146,13 +146,16 @@ class BatchServer:
     slot's position, so attention reads no row past the batch's fill level.
     prefix_cache > 0 keeps the last N admitted prompts' prefill caches; a
     prompt sharing a prefix of 8 or more tokens with one prefills only the
-    rest (one single-sequence cache of device memory per entry)."""
+    rest (one single-sequence cache of device memory per entry). dot_impl:
+    the cache-dot form of the batched flash kernel ("f32", "bf16", "int8",
+    "int8_s", "int8_v"; the JAX package takes it from NT_ATTN_DOT, which
+    the port's CLI reads)."""
 
     def __init__(self, model: LoadedModel, batch_size: int = 8,
                  sampler_cfg: SamplerConfig | None = None,
                  kv_quant: bool = False, admit_chunk: int | None = None,
                  mesh=None, prefix_cache: int = 0, spec_k: int = 0,
-                 attn_buckets: int = 4):
+                 attn_buckets: int = 4, dot_impl: str = "f32"):
         if mesh is not None:
             raise NotImplementedError(
                 "serving over a device mesh is not ported yet (ROADMAP "
@@ -174,6 +177,7 @@ class BatchServer:
         self.prefix_cache = prefix_cache
         self._pcache: list[tuple[list[int], KVCache]] = []  # LRU, newest last
         self.attn_buckets = attn_buckets
+        self.dot_impl = dot_impl
         S = self.arch.max_seq_len
         n = max(attn_buckets, 1)
         self._attn_ladder = sorted({
@@ -182,7 +186,8 @@ class BatchServer:
 
     def _step(self, bkv, tokens, pos, active, s_live=None):
         return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
-                                   active, s_live=s_live)
+                                   active, s_live=s_live,
+                                   dot_impl=self.dot_impl)
 
     def _make_bkv(self) -> BatchedKV:
         return BatchedKV.create(self.arch, self.B, quant=self.kv_quant,

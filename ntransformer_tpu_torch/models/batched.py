@@ -250,18 +250,20 @@ def _layer_step_plain(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV, pos,
 
 
 def _layer_step_deferred(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV,
-                         pos, active, cos_t, sin_t, layer: int, s_live=None):
+                         pos, active, cos_t, sin_t, layer: int, s_live=None,
+                         dot_impl: str = "f32"):
     """Kernel-path layer step (decode or verify window): the flash kernel
     reads this layer of the stacked cache plus the T new rows as a virtual
-    block; nothing is written here, the rows are returned for the bulk
-    append after the layer loop. Returns (x, rows tuple)."""
+    block, with cache dots of form `dot_impl`; nothing is written here, the
+    rows are returned for the bulk append after the layer loop. Returns (x,
+    rows tuple)."""
     q, k_t, v_t = _qkv_rows(arch, x, lw, cos_t, sin_t, layer)
     window, _ = layer_window(arch, layer)
     decode = x.dim() == 2
     fn = flash_decode_batched if decode else flash_verify_batched
     qq = q[:, 0] if decode else q
     kw = dict(layer=layer, active=active, window=window,
-              softcap=arch.attn_softcap, s_live=s_live)
+              softcap=arch.attn_softcap, s_live=s_live, dot_impl=dot_impl)
     if bkv.quantized:
         kq, ks_new, vq, vs_new = quantize_rows(k_t, v_t)
         att = fn(qq, (bkv.k, bkv.ks), (bkv.v, bkv.vs), (kq, ks_new),
@@ -320,10 +322,11 @@ def _head(arch: Arch, weights: ModelWeights, x) -> torch.Tensor:
 
 def _run_layers(arch: Arch, weights: ModelWeights, kv: BatchedKV, x, pos,
                 active, cos_t, sin_t, impl: str, kv_append: str,
-                n_sel: int, s_live):
+                n_sel: int, s_live, dot_impl: str):
     """The layer loop of both steps; the kernel path ends in one bulk
     append (the indexed write for a layer prefix, a verify window, or
-    kv_append "dus")."""
+    kv_append "dus"). dot_impl reaches the kernel path's attention only:
+    the plain path attends in f32, as the JAX package's jnp path does."""
     if impl != "kernel":
         for li in range(n_sel):
             x = _layer_step_plain(arch, x, weights.layers, kv, pos, active,
@@ -334,7 +337,7 @@ def _run_layers(arch: Arch, weights: ModelWeights, kv: BatchedKV, x, pos,
     rows = []
     for li in range(n_sel):
         x, r = _layer_step_deferred(arch, x, weights.layers, kv, pos, active,
-                                    cos_t, sin_t, li, s_live)
+                                    cos_t, sin_t, li, s_live, dot_impl)
         rows.append(r)
     stacked = tuple(torch.stack(parts) for parts in zip(*rows))
     verify = x.dim() == 3
@@ -349,7 +352,8 @@ def _run_layers(arch: Arch, weights: ModelWeights, kv: BatchedKV, x, pos,
 def batched_decode_step(arch: Arch, weights: ModelWeights, kv: BatchedKV,
                         tokens, pos, active, impl: str | None = None,
                         kv_append: str | None = None,
-                        n_layers: int | None = None, s_live=None):
+                        n_layers: int | None = None, s_live=None,
+                        dot_impl: str = "f32"):
     """One decode step for B sequences.
 
     tokens [B] int; pos [B] (each sequence's write position); active [B]
@@ -358,8 +362,9 @@ def batched_decode_step(arch: Arch, weights: ModelWeights, kv: BatchedKV,
     speculative draft through the resident prefix); rows are written for
     those layers only. s_live: the caller guarantees max(pos) < s_live
     (inactive slots' frozen row included); attention reads no cache row at
-    or past it. The cache is written in place. Returns (logits [B, V] f32,
-    kv)."""
+    or past it. dot_impl: the kernel path's cache-dot form ("f32", "bf16",
+    "int8", "int8_s", "int8_v"; ops/cuda/batched_attention.py). The cache
+    is written in place. Returns (logits [B, V] f32, kv)."""
     dev = weights.output_norm.device
     tokens = _vec(tokens, dev, torch.long).reshape(-1)
     pos = _vec(pos, dev, torch.long).reshape(-1)
@@ -372,21 +377,21 @@ def batched_decode_step(arch: Arch, weights: ModelWeights, kv: BatchedKV,
     cos_t, sin_t = _rope_rows(weights, pos[:, None])
     n_sel = n_layers if n_layers is not None else arch.n_layers
     x = _run_layers(arch, weights, kv, x, pos, active, cos_t, sin_t, impl,
-                    kv_append, n_sel, s_live)
+                    kv_append, n_sel, s_live, dot_impl)
     return _head(arch, weights, x), kv
 
 
 @torch.inference_mode()
 def batched_verify_step(arch: Arch, weights: ModelWeights, kv: BatchedKV,
                         tokens, pos, active, impl: str | None = None,
-                        s_live=None):
+                        s_live=None, dot_impl: str = "f32"):
     """Speculative verify over the whole batch: tokens [B, T] = [anchor,
     draft_0 .. draft_{T-2}] per sequence, written and attended at positions
     [pos, pos + T). Rows past a sequence's accepted prefix are dead: never
     attended (attention masks by position) and overwritten by later steps.
-    impl as in batched_decode_step; the kernel path attends the stacked
-    cache plus a causal T-row virtual block, then writes all rows with one
-    indexed write per cache. Returns (logits [B, T, V] f32, kv)."""
+    impl and dot_impl as in batched_decode_step; the kernel path attends the
+    stacked cache plus a causal T-row virtual block, then writes all rows
+    with one indexed write per cache. Returns (logits [B, T, V] f32, kv)."""
     dev = weights.output_norm.device
     tokens = _vec(tokens, dev, torch.long)
     b_n, t_n = tokens.shape
@@ -400,5 +405,5 @@ def batched_verify_step(arch: Arch, weights: ModelWeights, kv: BatchedKV,
     cos_t, sin_t = _rope_rows(
         weights, pos[:, None] + torch.arange(t_n, device=dev))
     x = _run_layers(arch, weights, kv, x, pos, active, cos_t, sin_t, impl,
-                    "dus", arch.n_layers, s_live)
+                    "dus", arch.n_layers, s_live, dot_impl)
     return _head(arch, weights, x).reshape(b_n, t_n, -1), kv

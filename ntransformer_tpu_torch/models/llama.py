@@ -203,14 +203,18 @@ def _norm_w(arch: Arch, w: torch.Tensor, layer: int) -> torch.Tensor:
 
 
 def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
-               sin_t, n_valid=None, layer: int = 0):
+               sin_t, n_valid=None, layer: int = 0, abs_layer=None):
     """The attention half of one block through its residual add. x [T, H]
     f32; kv_k/kv_v [Hkv, S, D] views of this layer's cache, written in
-    place at rows [pos, pos + n_valid)."""
+    place at rows [pos, pos + n_valid). `layer` indexes the stacked
+    weights; abs_layer (default `layer`) is the layer's depth in the model,
+    which picks its sliding window and rope table (a streamed layer's
+    weights are a stack of one)."""
     T = x.shape[0]
     Hq, Hkv, D = arch.n_heads, arch.n_kv_heads, arch.head_dim
     q_scale = arch.query_scale if arch.query_scale else 1.0 / math.sqrt(D)
-    window, local = layer_window(arch, layer)
+    window, local = layer_window(arch, layer if abs_layer is None
+                                 else abs_layer)
 
     h = rms_norm(x, _norm_w(arch, lw.attn_norm, layer),
                  arch.norm_eps).to(torch.bfloat16)
@@ -286,16 +290,16 @@ def quantize_rows(k: torch.Tensor, v: torch.Tensor):
 
 
 def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
-               sin_t, n_valid=None, layer: int = 0):
+               sin_t, n_valid=None, layer: int = 0, abs_layer=None):
     """One transformer block (dense FFN). x [T, H] f32; kv_k/kv_v this
-    layer's cache views ((codes, scales) tuples for an int8 cache); returns
-    x."""
+    layer's cache views ((codes, scales) tuples for an int8 cache);
+    layer / abs_layer as in attn_block; returns x."""
     if arch.n_experts:
         raise NotImplementedError(
             "mixture-of-experts FFNs are not ported yet (ROADMAP queue 1 "
             "item 4: moe_ffn)")
     x = attn_block(arch, x, lw, kv_k, kv_v, pos, cos_t, sin_t, n_valid,
-                   layer)
+                   layer, abs_layer)
     hf = rms_norm(x, _norm_w(arch, lw.ffn_norm, layer),
                   arch.norm_eps).to(torch.bfloat16)
     if lw.w_gate_up is not None:

@@ -20,6 +20,7 @@ import torch
 
 from ntransformer_tpu.models.batched import batched_attention as j_batched
 from ntransformer_tpu.ops.layers import attention_jnp
+from ntransformer_tpu.ops.pallas import batched_attention as jba
 from ntransformer_tpu.ops.pallas.batched_attention import (
     flash_decode_batched as j_decode, flash_verify_batched as j_verify)
 from ntransformer_tpu_torch.models.batched import batched_attention
@@ -248,3 +249,126 @@ def test_cpu_tensors_take_the_plain_twin():
                                    torch.tensor([3, 31]), 0.125)
     assert pba.launches == before and out.shape == (B, 4, D)
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+
+
+# --- the cache-dot forms (dot_impl) -------------------------------------------
+# The twin against the JAX kernel in interpret mode, called through _impl
+# with the form asked for (the JAX entries force "f32" when they interpret).
+# "f32" and "int8_s" compute from the same values up to f32 summation order:
+# TWIN_TOL. The forms that round p per key block ("int8", "int8_v", "bf16")
+# can turn a 1-ulp score difference (another summation order, another exp)
+# into one rounding of p that goes the other way: an int8 code of p * vs
+# moves a step (1/127 of its block's largest), a bf16 p an ulp (2^-8 of
+# itself). Measured over 39 cases (max|twin - JAX| / max|JAX|): "int8" 2e-7
+# (its scores are exact integer dots), "int8_v" 2.05e-3, "bf16" 3.9e-4;
+# each form differs from "f32" by 1.5e-3 (bf16) to 3.8e-2 (int8) in the
+# same cases, which the limits still tell apart.
+DOT_TOL = {"f32": TWIN_TOL, "int8_s": TWIN_TOL, "int8": 4e-3,
+           "int8_v": 4e-3, "bf16": 1e-3}
+# label: B, Hq, Hkv, S, D, T, pos, active, int8 cache, s_live, window, softcap
+DOT_CASES = {
+    "decode": (3, 8, 2, 256, 64, 1, [5, 100, 200], [1, 1, 0], True, None,
+               None, 0.0),
+    "verify_window_softcap": (3, 8, 2, 256, 64, 2, [5, 100, 200], [1, 0, 1],
+                              True, None, 40, 30.0),
+    # S = 2560 int8 at Hkv 8, D 128: five 512-key blocks
+    "blocks_512": (2, 16, 8, 2560, 128, 2, [700, 2500], [1, 0], True, None,
+                   None, 0.0),
+    # s_live 2101 rounds to 2176 = 17 x 128: 128-key blocks
+    "s_live_2101": (2, 8, 8, 2560, 128, 1, [1900, 2100], [1, 1], True, 2101,
+                    None, 0.0),
+    # a bf16 cache of 1536 keys: three 512-key blocks
+    "bf16_cache": (2, 16, 8, 1536, 128, 1, [1000, 1400], [1, 1], False, None,
+                   None, 0.0),
+}
+
+
+def _dot_case(name, dot, seed):
+    (b_n, hq, hkv, s, d, t, pos, act, int8, s_live, win,
+     cap) = DOT_CASES[name]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b_n, t, hq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b_n, hkv, s, d)).astype(np.float32)
+            for _ in range(2))
+    kn, vn = (rng.standard_normal((b_n, hkv, t, d)).astype(np.float32)
+              for _ in range(2))
+    group = hq // hkv
+    qr = (q.reshape(b_n, t, hkv, group, d).transpose(0, 2, 1, 3, 4)
+          .reshape(b_n, hkv, t * group, d))
+    scale = 1.0 / math.sqrt(d)
+    scal = jnp.stack([jnp.zeros((b_n,), jnp.int32), jnp.asarray(pos,
+                                                                jnp.int32),
+                      jnp.asarray(act, jnp.int32),
+                      jnp.full((b_n,), 2 ** 30 if win is None else win,
+                               jnp.int32)])
+    kw = dict(scale=scale, stacked=False, interpret=True, softcap=cap,
+              n_virtual=t, dot_impl=dot, s_live=s_live)
+    if int8:
+        (kc, ks), (vc, vs) = _quant(k), _quant(v)
+        (knc, kns), (vnc, vns) = _quant(kn), _quant(vn)
+        ks, vs, kns, vns = (x[..., 0] for x in (ks, vs, kns, vns))
+        want = jba._impl(*(jnp.asarray(x) for x in (qr, kc, vc, ks, vs, knc,
+                                                    vnc, kns, vns)),
+                         scal, quant=True, **kw)
+        args = ((_t(kc), _t(ks)), (_t(vc), _t(vs)), (_t(knc), _t(kns)),
+                (_t(vnc), _t(vns)))
+    else:
+        kb, vb, knb, vnb = (jnp.asarray(x, jnp.bfloat16)
+                            for x in (k, v, kn, vn))
+        want = jba._impl(jnp.asarray(qr), kb, vb, None, None, knb, vnb, None,
+                         None, scal, quant=False, **kw)
+        args = tuple(_bf16(np.asarray(x.astype(jnp.float32)))
+                     for x in (kb, vb, knb, vnb))
+    want = (np.asarray(want).reshape(b_n, hkv, t, group, d)
+            .transpose(0, 2, 1, 3, 4).reshape(b_n, t, hq, d))
+    got = pba.flash_verify_batched(
+        _t(q), *args, _t(np.asarray(pos, np.int32)), scale,
+        active=_t(np.asarray(act, np.int32)), window=win, softcap=cap,
+        s_live=s_live, dot_impl=dot).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("case,dot", [
+    (c, d) for c in DOT_CASES for d in ("int8", "int8_s", "int8_v", "bf16")
+    if DOT_CASES[c][8] or d == "bf16"])  # an int8 form is f32 on bf16
+def test_dot_forms_match_jax_kernel(case, dot):
+    got, want = _dot_case(case, dot, seed=len(case) + len(dot))
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    assert rel <= DOT_TOL[dot], (case, dot, rel)
+    # the form really ran: it differs from the f32 result
+    f32, _ = _dot_case(case, "f32", seed=len(case) + len(dot))
+    assert float(np.abs(got - f32).max() / np.abs(f32).max()) > 1e-4
+
+
+def test_int8_forms_on_a_bf16_cache_are_f32():
+    for dot in ("int8", "int8_s", "int8_v"):
+        assert pba.effective_dot(dot, quant=False) == "f32"
+        assert pba.effective_dot(dot, quant=True) == dot
+    got, _ = _dot_case("bf16_cache", "int8", seed=2)
+    f32, _ = _dot_case("bf16_cache", "f32", seed=2)
+    np.testing.assert_array_equal(got, f32)
+    with pytest.raises(ValueError, match="dot_impl"):
+        pba.effective_dot("fp8", quant=True)
+
+
+@pytest.mark.parametrize("s_live,want", [
+    (None, (512, 5)), (2560, (512, 5)), (2101, (128, 17)), (2048, (2048, 1)),
+    (600, (640, 1)), (4096, (512, 5))])
+def test_key_blocks_match_jax(s_live, want):
+    """The twin's grouping is the TPU kernel's: _pick_block_s of the
+    128-rounded s_live at an int8 Hkv 8, D 128 cache of 2560 keys."""
+    live = 2560 if s_live is None else min(s_live, 2560)
+    got = pba.key_blocks(2560, live, 8, 128, quant=True)
+    assert got == want
+    s_r = 2560 if s_live is None or s_live > 2560 else \
+        min(2560, (s_live + 127) // 128 * 128)
+    jb = jba._pick_block_s(s_r, 8 * 128)
+    assert got == (jb, s_r // jb)
+    for s in (1536, 4096, 1500):
+        assert pba.pick_block_s(s, 2048) == jba._pick_block_s(s, 2048)
+
+
+def test_cpu_dot_forms_launch_nothing():
+    before = dict(pba.launches_by_dot)
+    _dot_case("decode", "int8", seed=0)
+    assert pba.launches_by_dot == before

@@ -59,6 +59,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "synth_model('tiny512', 'w4a8')",
     "from ntransformer_tpu_torch.inference.engine import Engine\n"
     "Engine.load('models/repolm512_q8.gguf', w8a8=True)",
+    "from ntransformer_tpu_torch.models.tiered import load_model_tiered\n"
+    "load_model_tiered('models/repolm512_q8.gguf', max_hbm_layers=1)",
+    "from ntransformer_tpu_torch.inference.engine import TieredEngine\n"
+    "TieredEngine.load('models/repolm512_q8.gguf', max_hbm_layers=1)",
+    "from ntransformer_tpu_torch.memory.tiers import TierConfig\n"
+    "TierConfig.compute(4, 1 << 20, 0)",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     r = _run("import torch\nassert not torch.cuda.is_available()\n" + call)
@@ -79,6 +85,27 @@ def test_cli_serve_defaults_to_cuda_and_raises_without_it(tmp_path):
              f"main(['-m', 'models/repolm512_q8.gguf', '--serve', "
              f"{str(prompts)!r}])")
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_cli_streaming_defaults_to_cuda_and_raises_without_it():
+    r = _run("from ntransformer_tpu_torch.cli import main\n"
+             "main(['-m', 'models/repolm512_q8.gguf', '--streaming', "
+             "'-n', '2'])")
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_port_imports_no_ml_dtypes():
+    """The pack writes bf16 without ml_dtypes (a JAX dependency the machine
+    with the card does not have): no port module imports it."""
+    mods = _port_modules()
+    assert "ntransformer_tpu_torch.memory.pack" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'ml_dtypes' not in sys.modules\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):
