@@ -61,6 +61,22 @@ subset of the rest:
      B = 1 step, then in W8A8 served by BatchServer (the W8A8 kernel's main
      path) with the bench-style steps (B = 1, B = 32 int8 also with the
      int8 cache dots, verify), each with profiles and a 2-layer on/off view;
+  cp: the flash-attention partials kernel (the second entry of
+     csrc/flash_attention.cu) at 8B widths, T = 512, in 4 shards of the
+     path's own 9,216-key cache at pos 2,048, of a 32,768-key cache at pos
+     20,000 (two shards visible, one straddling, one masked) and at pos
+     16,350 (a shard boundary inside a query block), each shard against its
+     twin and the 4 shards combined on the card against the unsplit flash
+     kernel, the first two timed as above; then the synthetic 8B Q8_0 (the
+     weights of `full`) through CPEngine with 4 shards on the one card, ctx
+     9,216 and a 4,600-token prompt (Engine.benchmark's protocol, the
+     partials kernel's main path: its launch count in the kernels line is
+     read around it) beside the resident Engine, 32 steps teacher-forced on
+     the resident's greedy tokens, and the CLI's --cp 1 on repolm512 (its
+     text equal to the resident CLI's);
+  cpcards: on a host with 4 cards or more (else it says so and passes),
+     repolm512 through CPEngine with one shard per card, bit-equal to the 4
+     shards on one card, and the CLI's --cp 4;
   tiered: repolm512 streamed at (2 HBM, 2 RAM, 2 disk) layers against the
      unfused resident model (greedy tokens identical; pipelined and
      synchronous runs bit-identical; int8 cache, a skip set, early exit;
@@ -185,7 +201,8 @@ SERVE_KERNELS = ENGINE_KERNELS + ("batched_attention", "kv_update")
 REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
-          "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "tiered")
+          "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
+          "cpcards", "tiered")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -791,9 +808,8 @@ def greedy_pass(engine, torch, ids, n: int, forced=None,
     """Prefill `ids`, then n greedy steps (or steps fed with `forced`);
     plain_decode runs the decode steps with the kernels off. Returns
     (tokens, [logits of each step as f32 CPU tensors])."""
-    from ntransformer_tpu_torch.models.llama import KVCache
     from ntransformer_tpu_torch.ops import linear
-    kv = KVCache.create(engine.arch, device=engine.device)
+    kv = engine._make_kv()
     logits, kv, _ = engine._prefill(kv, ids)
     toks, out = [], [logits[0].float().cpu()]
     pos = len(ids)
@@ -2535,6 +2551,320 @@ def tiered_8b_phase(torch, counters, card: str) -> dict:
     return out
 
 
+
+# ------------------------------------------------------ context parallelism
+CP_SHARDS = 4
+CP_CTX = 9216       # 2,304 keys a shard
+CP_PROMPT = 4600    # chunk [2048, 2560) crosses key 2,304; decode crosses
+#                     4,608; shard 3 stays masked
+
+
+def cp_kernel_phase(torch, timer, card: str) -> dict:
+    """The partials entry of csrc/flash_attention.cu at 8B widths (Hq 32,
+    Hkv 8, D 128, bf16 cache, T = 512 queries), in three cases:
+      path      the CP path's own shapes: a 9,216-key cache in 4 shards of
+                2,304, the prompt chunk at pos 2,048 (shards 0-1 straddle
+                the queries, on 64-row query block edges; 2-3 masked);
+      long      a 32,768-key cache in 4 shards of 8,192 at pos 20,000
+                (shards 0-1 wholly visible, 2 straddles, 3 masked);
+      straddle  the same cache at pos 16,350: shard 2's first key, 16,384,
+                falls inside the first query block, whose rows before it
+                see no key of a tile the block runs.
+    Per shard, the kernel against its twin: acc, m and l within FLASH_RTOL
+    of max|plain| in every query row that sees a key of the shard, and
+    exactly 0, NEG_INF, 0 in every row that sees none; the 4 shards
+    combined on the card against the unsplit row-2 kernel over the whole
+    cache, within FLASH_RTOL in every query row. The path and long cases
+    are timed as the kernels phase times; SDPA over the same shard (with
+    the causal mask, heads expanded) is the nearest library call: it also
+    normalizes."""
+    import torch.nn.functional as F
+    from ntransformer_tpu_torch.ops import layers
+    from ntransformer_tpu_torch.ops.cuda import attention as ca
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(66)
+    t, hq, hkv, d = 512, 32, 8, 128
+    q = torch.randn(t, hq, d, device="cuda", generator=g)
+    scale = 1.0 / math.sqrt(d)
+
+    def cache(s):
+        kc = torch.randn(hkv, s, d, device="cuda", generator=g)
+        vc = torch.randn(hkv, s, d, device="cuda", generator=g)
+        return kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+
+    def row_rel(a, b):
+        dims = tuple(range(1, a.dim()))
+        return float(((a - b).abs().amax(dim=dims)
+                      / b.abs().amax(dim=dims)).max())
+
+    def shard_row(tag, kc, vc, pos, i, timed):
+        sl = kc.shape[1] // CP_SHARDS
+        off = i * sl
+        k_i = kc[:, off:off + sl].contiguous()
+        v_i = vc[:, off:off + sl].contiguous()
+        label = f"8b {tag} T={t} pos={pos} shard {i} of {CP_SHARDS} keys " \
+                f"[{off}, {off + sl})"
+        got = ca.flash_attention_partials(q, k_i, v_i, pos, scale,
+                                          kpos_offset=off)
+        want = ca.flash_attention_partials_plain(q, k_i, v_i, pos, scale,
+                                                 kpos_offset=off)
+        torch.cuda.synchronize()
+        for a in got:
+            check(bool(torch.isfinite(a).all()), f"partials {label}: "
+                  "non-finite")
+        err = float((got[0] - want[0]).abs().max())
+        blind = max(0, min(t, off - pos))  # leading rows that see no key
+        for a, b, v in zip(got, want, (0.0, ca.NEG_INF, 0.0)):
+            full = torch.full_like(a[:blind], v)
+            check(torch.equal(a[:blind], full)
+                  and torch.equal(b[:blind], full),
+                  f"partials {label}: the {blind} query rows that see no key "
+                  f"are not exactly (0, NEG_INF, 0)")
+        rel = {nm: row_rel(a[blind:], b[blind:]) if blind < t else 0.0
+               for nm, a, b in zip(("acc", "m", "l"), got, want)}
+        check(max(rel.values()) <= FLASH_RTOL,
+              f"partials {label}: a query row's max|kernel-plain| is {rel} of "
+              f"its max|plain| (> {FLASH_RTOL})")
+        row = {"shape": label, "T": t, "pos": pos, "kpos_offset": off,
+               "Hq": hq, "Hkv": hkv, "S_local": sl, "D": d,
+               "max_abs_err": err, "row_rel_err": rel, "blind_rows": blind,
+               "tol": FLASH_RTOL}
+        if timed:
+            mask = ((off + torch.arange(sl, device="cuda"))[None, :]
+                    <= (pos + torch.arange(t, device="cuda"))[:, None])
+            qb = q.to(torch.bfloat16).transpose(0, 1)[None]
+            kb = k_i.repeat_interleave(hq // hkv, 0)[None]
+            vb = v_i.repeat_interleave(hq // hkv, 0)[None]
+            ms = timer.compare({
+                "kernel": lambda: ca.flash_attention_partials(
+                    q, k_i, v_i, pos, scale, kpos_offset=off),
+                "plain": lambda: ca.flash_attention_partials_plain(
+                    q, k_i, v_i, pos, scale, kpos_offset=off),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qb, kb, vb, attn_mask=mask, scale=scale)})
+            keys = max(0, min(sl, pos + t - off))
+            visible = sum(max(0, min(sl, pos + j + 1 - off))
+                          for j in range(t))
+            b_ms, b_by = bound(t * hq * d * 2 + 2 * keys * hkv * d * 2
+                               + t * hq * d * 4 + 2 * t * hq * 4,
+                               4.0 * hq * d * visible)
+            row.update(ms=ms["kernel"], plain_ms=ms["plain"],
+                       library_ms=ms["library"], bound_ms=b_ms,
+                       bound_by=b_by)
+            del qb, kb, vb, mask
+        print(json.dumps({"flash_partials": row}), flush=True)
+        return row
+
+    def combine(tag, kc, vc, pos):
+        sl = kc.shape[1] // CP_SHARDS
+        ks = [kc[:, i * sl:(i + 1) * sl].contiguous()
+              for i in range(CP_SHARDS)]
+        vs = [vc[:, i * sl:(i + 1) * sl].contiguous()
+              for i in range(CP_SHARDS)]
+        combined = layers.attention_cp_flash(q, ks, vs, pos, t, scale)
+        whole = ca.flash_attention_cuda(q, kc, vc, pos, t, scale)
+        torch.cuda.synchronize()
+        rel = row_rel(combined, whole)
+        print(f"{tag}: {CP_SHARDS} shards' partials combined on the card vs "
+              f"the unsplit flash kernel over {kc.shape[1]} keys at pos "
+              f"{pos}: max row rel err {rel:.3e} (tol {FLASH_RTOL})",
+              flush=True)
+        check(bool(torch.isfinite(combined).all()),
+              f"cp combine {tag}: non-finite")
+        check(rel <= FLASH_RTOL, f"cp combine {tag}: a query row differs "
+              f"from the unsplit kernel by {rel} of its max (> {FLASH_RTOL})")
+        return rel
+
+    rows, combined = [], {}
+    kc, vc = cache(CP_CTX)
+    path_pos = 2048  # the prompt chunk [2048, 2560) of the path phase
+    rows += [shard_row("path", kc, vc, path_pos, i, True)
+             for i in range(CP_SHARDS)]
+    combined["path"] = combine("path", kc, vc, path_pos)
+    del kc, vc
+    kc, vc = cache(32768)
+    rows += [shard_row("long", kc, vc, 20000, i, True)
+             for i in range(CP_SHARDS)]
+    combined["long"] = combine("long", kc, vc, 20000)
+    rows += [shard_row("straddle", kc, vc, 16350, i, False)
+             for i in range(CP_SHARDS)]
+    check(rows[-2]["blind_rows"] == 34, "straddle: shard 2's boundary does "
+          "not fall inside the first query block")
+    combined["straddle"] = combine("straddle", kc, vc, 16350)
+    del kc, vc
+    print(f"cp kernel phase done on {card}", flush=True)
+    # the heaviest call of the path's chunk: shard 0, nearly all visible
+    return {"rows": rows, "combine_row_rel_err": combined,
+            "main": rows[0]["shape"]}
+
+
+def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
+    """CPEngine on the synthetic 8B at full depth and width, 4 shards on
+    cuda:0, ctx 9,216, a 4,600-token prompt: Engine.benchmark's protocol
+    (the launch counts of the kernels line are read around it), beside the
+    resident Engine on the same weights; then 32 decode steps teacher-forced
+    on the resident engine's greedy tokens, every step's logits against the
+    resident's. The limit is the larger of FULL_LOGIT_RTOL and twice the
+    resident kernel path's own spread against the resident plain path at
+    that step: both engines run the same matmul kernels, and their prefill
+    attention kernels round p to bf16 against different maxima (a shard's
+    own against the whole row's), a rounding the plain path does not make
+    at all. Last, the CLI's --cp 1 on repolm512."""
+    import contextlib
+    import dataclasses
+    import io
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.inference.engine import CPEngine, Engine
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.ops import linear
+    from ntransformer_tpu_torch.ops.cuda import attention as ca
+    from ntransformer_tpu_torch.ops.layers import rope_table
+    from ntransformer_tpu_torch.parallel.cp import make_cp_mesh
+
+    cfg, arch, weights, _ = synth
+    arch = dataclasses.replace(arch, max_seq_len=CP_CTX)
+    cos, sin = rope_table(CP_CTX, arch.head_dim, arch.rope_theta,
+                          device="cuda")
+    weights = dataclasses.replace(weights, rope_cos=cos, rope_sin=sin)
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    cp = CPEngine(model, make_cp_mesh(CP_SHARDS, ["cuda:0"] * CP_SHARDS))
+    res = Engine(model)
+    ids = torch.randint(0, arch.vocab_size, (CP_PROMPT,),
+                        generator=torch.Generator().manual_seed(46)).tolist()
+    reset(counters)
+    st_cp = cp.benchmark(prompt_ids=ids, n_tokens=32)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    print(f"8b CPEngine path launches {launches}", flush=True)
+    check(launches[ca.PARTIALS_NAME] > 0 and launches["q8_0_matmul"] > 0,
+          f"8b CPEngine: a kernel of the CP path launched zero times: "
+          f"{launches}")
+    check(launches[ca.NAME] == 0,
+          f"8b CPEngine: the resident flash kernel ran: {launches}")
+    st_res = res.benchmark(prompt_ids=ids, n_tokens=32)
+
+    res_toks, res_logits = greedy_pass(res, torch, ids, 32)
+    cp_toks, _ = greedy_pass(cp, torch, ids, 32)
+    _, cp_logits = greedy_pass(cp, torch, ids, 32, forced=res_toks)
+    linear.KERNEL_MODE = "off"
+    try:
+        _, plain_logits = greedy_pass(res, torch, ids, 32, forced=res_toks)
+    finally:
+        linear.KERNEL_MODE = "auto"
+
+    def rels(got):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, res_logits)]
+    for a in cp_logits:
+        check(bool(torch.isfinite(a).all()), "8b CPEngine: non-finite logits")
+    kern, plain = rels(cp_logits), rels(plain_logits)
+    limits = [max(FULL_LOGIT_RTOL, 2 * r) for r in plain]
+    forced_agree = sum(int(torch.argmax(a)) == tk
+                       for a, tk in zip(cp_logits[:-1], res_toks))
+    agree = sum(a == b for a, b in zip(cp_toks, res_toks))
+    print(f"8b CPEngine vs resident Engine: {agree}/32 greedy tokens agree, "
+          f"{forced_agree}/32 teacher-forced argmaxes; max|dlogit|/"
+          f"max|logit| per step {[round(r, 4) for r in kern]}; resident "
+          f"plain path vs kernels {[round(r, 4) for r in plain]}", flush=True)
+    for i, (r, lim) in enumerate(zip(kern, limits)):
+        check(r <= lim, f"8b CPEngine step {i}: teacher-forced logits differ "
+              f"from the resident engine's by {r} of their range (> {lim})")
+
+    reset(counters)
+    outs = {}
+    for flags in ([], ["--cp", "1"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-m", REPOLM, "-p", PROMPT, "-n", "32", "-t", "0",
+                           "--repeat-penalty", "1.0", "--no-fuse"] + flags)
+        check(rc == 0, f"cli {flags}: exit code {rc}")
+        outs[" ".join(flags) or "resident"] = buf.getvalue()
+    torch.cuda.synchronize()
+    cli_launches = read(counters)
+    check(cli_launches[ca.PARTIALS_NAME] > 0,
+          f"cli --cp 1 launched no partials kernel: {cli_launches}")
+    same = outs["--cp 1"] == outs["resident"]
+    print(f"cli --cp 1 on repolm512: text "
+          f"{'equals' if same else 'differs from'} the resident CLI's "
+          f"(--no-fuse): {outs['--cp 1']!r}", flush=True)
+    # one shard: the prefill's combine weighs by exp(m - m) = 1 and
+    # divides acc by l, the resident kernel's finish bit for bit; the plain
+    # CP decode differs from the resident softmax only in rounding (it
+    # divides after the PV product), too little to turn a greedy token here
+    check(same, f"cli --cp 1 wrote {outs['--cp 1']!r}, the resident CLI "
+          f"{outs['resident']!r}")
+
+    summary = {"card": card, "shards": CP_SHARDS, "ctx": CP_CTX,
+               "prompt_tokens": CP_PROMPT}
+    for tag, st in (("cp", st_cp), ("resident", st_res)):
+        summary[f"{tag}_prefill_tok_s"] = st.prefill_tps
+        summary[f"{tag}_prefill_ms"] = st.prefill_ms
+        summary[f"{tag}_decode_ms_per_token"] = (st.decode_ms
+                                                 / st.decode_tokens)
+    summary.update(greedy_agree=agree, forced_argmax_agree=forced_agree,
+                   logit_rel_err_steps=kern, plain_rel_err_steps=plain,
+                   cli_cp1_text_equal=same, launches=launches)
+    print(json.dumps({"cp_8b": summary}), flush=True)
+    del cp, res
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def cp_cards_phase(torch, counters, card: str) -> dict | None:
+    """One shard per card, on a host with CP_SHARDS cards or more (on
+    fewer it says so and returns None): repolm512 through
+    CPEngine.load(cp=4), whose default mesh puts shard i on cuda:i, against
+    the same weights with the 4 shards on cuda:0; a 300-token prompt (4
+    shards of 128 keys) and 32 greedy steps. Every kernel launches on its
+    tensors' card and the cross-card copies are exact, so tokens and
+    logits must be bit-equal. Then the CLI's --cp 4."""
+    import contextlib
+    import io
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.inference.engine import CPEngine
+    from ntransformer_tpu_torch.ops.cuda import attention as ca
+    from ntransformer_tpu_torch.parallel.cp import make_cp_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < CP_SHARDS:
+        print(f"cpcards: {n_cards} card(s); one shard per card needs "
+              f"{CP_SHARDS}: not run", flush=True)
+        return None
+    cards = CPEngine.load(REPOLM, cp=CP_SHARDS)
+    want = tuple(torch.device("cuda", i) for i in range(CP_SHARDS))
+    check(cards.mesh == want, f"CPEngine.load(cp={CP_SHARDS}) mesh "
+          f"{cards.mesh}, not {want}")
+    check([s.k.device for s in cards._make_kv()] == list(want),
+          "cpcards: a shard's cache is not on its card")
+    one = CPEngine(cards.model, make_cp_mesh(CP_SHARDS,
+                                             ["cuda:0"] * CP_SHARDS))
+    ids = torch.randint(0, cards.arch.vocab_size, (300,),
+                        generator=torch.Generator().manual_seed(47)).tolist()
+    reset(counters)
+    toks_c, logits_c = greedy_pass(cards, torch, ids, 32)
+    launches = read(counters)
+    check(launches[ca.PARTIALS_NAME] > 0,
+          f"cpcards: no partials kernel launched: {launches}")
+    toks_o, logits_o = greedy_pass(one, torch, ids, 32)
+    diff = max(float((a - b).abs().max()) for a, b in zip(logits_c, logits_o))
+    print(f"cpcards: shards on cuda:0-{CP_SHARDS - 1} vs all on cuda:0: "
+          f"tokens {'equal' if toks_c == toks_o else 'differ'}, max "
+          f"|dlogit| {diff}", flush=True)
+    check(toks_c == toks_o and diff == 0.0, "cpcards: one shard per card "
+          "is not bit-equal to the shards on one card")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-m", REPOLM, "-p", PROMPT, "-n", "32", "-t", "0",
+                       "--repeat-penalty", "1.0", "--cp", str(CP_SHARDS)])
+    check(rc == 0, f"cli --cp {CP_SHARDS}: exit code {rc}")
+    out = {"card": card, "cards": n_cards, "launches": launches,
+           "max_abs_dlogit": diff, "cli_text": buf.getvalue()}
+    print(json.dumps({"cp_cards": out}), flush=True)
+    del cards, one
+    torch.cuda.empty_cache()
+    return out
+
 # ------------------------------------------------------------------- main
 class DotCounter:
     """The launch count of one cache-dot form of batched flash, read and
@@ -2550,6 +2880,22 @@ class DotCounter:
     @launches.setter
     def launches(self, value: int):
         self.mod.launches_by_dot[self.dot] = value
+
+
+class ModuleCounter:
+    """A wrapper module's second launch count (`attr`), read and reset like
+    its `launches`."""
+
+    def __init__(self, mod, attr: str):
+        self.mod, self.attr = mod, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.mod, self.attr)
+
+    @launches.setter
+    def launches(self, value: int):
+        setattr(self.mod, self.attr, value)
 
 
 def reset(counters):
@@ -2608,6 +2954,7 @@ def main() -> int:
     counters.update({k.name: k for k in cn.KERNELS.values()})
     counters.update({f"{cb.NAME}[{d}]": DotCounter(cb, d)
                      for d in DOT_FORMS})
+    counters[ca.PARTIALS_NAME] = ModuleCounter(ca, "partials_launches")
 
     timer = Timer(torch)
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
@@ -2621,6 +2968,8 @@ def main() -> int:
         res.update(nibble_kernel_phase(torch, timer, card))
     if "wkernels" in phases:
         res.update(wformat_kernel_phase(torch, timer, card))
+    if "cp" in phases:
+        res[ca.PARTIALS_NAME] = cp_kernel_phase(torch, timer, card)
     if "real" in phases:
         real_model_phase(torch, counters, card)
     dot_launches = {}
@@ -2629,7 +2978,7 @@ def main() -> int:
         dot_launches = {f"{cb.NAME}[{d}]": got["dot_launches"][d]
                         for d in DOT_FORMS}
     engine_launches, launches = {}, {}
-    if "full" in phases or "bfull" in phases:
+    if {"full", "bfull", "cp"} & set(phases):
         synth = build_synth(torch)
         if "full" in phases:
             _, engine_launches = full_width_phase(torch, counters, card,
@@ -2638,7 +2987,13 @@ def main() -> int:
             summary, launches = full_batched_phase(torch, counters, card,
                                                    synth, dot_forms=True)
             print(json.dumps({"full_width_8b_serving": summary}), flush=True)
+        if "cp" in phases:
+            _, got = cp_path_phase(torch, counters, card, synth)
+            launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
+            engine_launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
         del synth
+    if "cpcards" in phases:
+        cp_cards_phase(torch, counters, card)
     # each nibble kernel's main path: the 8B Q4_K_M server for Q4_K and
     # Q6_K (Engine.benchmark beside it), bench.py's q4_0 B = 1 step for
     # Q4_0, the CLI run of repolm512 all-Q5_K for Q5_K
@@ -2682,6 +3037,9 @@ def main() -> int:
     tols = {cm.NAME: mm_tol,
             ca.NAME: f"max|kernel-plain| <= {FLASH_RTOL} * max|plain| "
                      f"in every query row",
+            ca.PARTIALS_NAME: f"acc, m and l: max|kernel-plain| <= "
+                              f"{FLASH_RTOL} * max|plain| in every query "
+                              f"row; the masked shard exact",
             cb.NAME: f"max|kernel-plain| <= {BATCHED_RTOL} * max|plain| "
                      f"in every query token",
             ck.NAME: "bit-equal",
@@ -2690,6 +3048,8 @@ def main() -> int:
                       f"max|plain| (bit-equal by construction)"}
     entries = [(cm.NAME, "csrc/q8_0_matmul.cu", cm.REPLACES),
                (ca.NAME, "csrc/flash_attention.cu", ca.REPLACES),
+               (ca.PARTIALS_NAME, "csrc/flash_attention.cu",
+                ca.PARTIALS_REPLACES),
                (cb.NAME, "csrc/batched_attention.cu", cb.REPLACES),
                (ck.NAME, "csrc/kv_update.cu", ck.REPLACES),
                (cw8.NAME, "csrc/w8a8_matmul.cu", cw8.REPLACES),

@@ -3,15 +3,20 @@
 It runs resident generation (bf16 or --kv-int8 cache), --benchmark and
 --serve (continuous batching over a prompts file, with --batch-size,
 --prefix-cache and --kv-int8) on one device, each in the file's formats or
-requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8), and tiered streaming
+requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8); tiered streaming
 (--streaming, --max-hbm-layers, --max-ram-layers, --requant-q4k,
---requant-ram; automatic when the file does not fit the card's free memory).
-Every other mode exits with 2 and names the ROADMAP item that ports it.
+--requant-ram; automatic when the file does not fit the card's free memory);
+and context-parallel generation and --benchmark (--cp N: the cache split
+along the sequence over N shards, one on each of the first N cards, or all
+on the CPU with --device cpu). Every other mode exits with 2 and names the
+ROADMAP item that ports it; so do the JAX CLI's refusals of --cp with
+--serve, --draft-model, --w4a8/--w8a8, streaming and --kv-int8.
 
 This module is the one place of the port that reads the JAX package's
 environment switches of these modes, with their names, values and defaults,
 and passes them on as keyword arguments:
   NT_ATTN_DOT          the batched flash cache-dot form of --serve ("f32")
+  NT_ATTN_BUCKETS      the rungs of --serve's s_live ladder ("4"; "0": none)
   NT_H2D               "planes": one host -> device copy per plane ("blob")
   NT_DIRECT_IO         "0": streamed reads through the page cache ("1")
   NT_REQUANT_RAM       a dtype name (Q4_K): the tier-B requant, as
@@ -32,8 +37,8 @@ _NOT_PORTED = {
     "--http": "the HTTP server is ROADMAP queue 1 item 9 "
               "(inference/http_server.py)",
     "--chat": "chat templates are ROADMAP queue 1 item 9 (inference/chat.py)",
-    "--tp": "tensor parallelism is ROADMAP queue 1 item 14",
-    "--cp": "context parallelism is ROADMAP queue 1 item 14",
+    "--tp": "tensor parallelism (and so --cp with --tp) is ROADMAP queue "
+            "1 item 14",
     "--ep": "expert parallelism is ROADMAP queue 1 item 14",
     "--dp": "data-parallel serving is ROADMAP queue 1 item 14",
     # the JAX package streams for --self-spec (the resident prefix drafts);
@@ -107,7 +112,7 @@ def refused_mode(args) -> str | None:
     asked = {
         "--http": args.http is not None,
         "--chat": args.chat,
-        "--tp": args.tp, "--cp": args.cp, "--ep": args.ep, "--dp": args.dp,
+        "--tp": args.tp, "--ep": args.ep, "--dp": args.dp,
         "--self-spec": args.self_spec, "--draft-model": args.draft_model,
         "--spec-k": args.spec_k,
     }
@@ -152,11 +157,22 @@ def main(argv=None) -> int:
                   "garbage; weights across layers are uncorrelated). "
                   "Refusing.")
         return 2
+    if args.cp and args.serve:
+        log.error("--serve shards slots over dp and weights over tp; "
+                  "context parallelism (--cp) is a single-request "
+                  "long-context mode and does not compose with the "
+                  "batch server")
+        return 2
+    if args.cp and args.draft_model:
+        log.error("--draft-model pairs with the single-chip resident or "
+                  "tiered engine (reference main.cpp:121-132); it is not "
+                  "supported under --tp/--cp/--ep")
+        return 2
     mode = refused_mode(args)
     if mode is not None:
         log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
-                  "port runs resident and tiered generation, --benchmark "
-                  "and --serve.")
+                  "port runs resident, tiered and context-parallel "
+                  "generation, --benchmark and --serve.")
         return 2
     if args.w4a8 and args.w8a8:
         log.error("--w4a8 and --w8a8 are mutually exclusive (pick the "
@@ -172,7 +188,7 @@ def main(argv=None) -> int:
         return serve(args)
 
     stream = should_stream(args.model, args)
-    if (args.w4a8 or args.w8a8) and stream:
+    if (args.w4a8 or args.w8a8) and (stream or args.cp):
         log.error("--w4a8/--w8a8 are resident single-chip modes for now: "
                   "the tiered pack streams SOURCE-dtype planes, and the "
                   "parallel engines shard source planes (convert-then-"
@@ -180,7 +196,14 @@ def main(argv=None) -> int:
                   "Drop the parallel/streaming flags, or drop the "
                   "requant flag.")
         return 2
-    from .inference.engine import Engine, GenerateConfig, TieredEngine
+    if stream and args.cp:
+        log.error("--cp is a resident long-context mode; it does not "
+                  "compose with tiered streaming (drop --cp, or drop the "
+                  "flags/model-size that force streaming — use --tp for "
+                  "streamed-layer sharding)")
+        return 2
+    from .inference.engine import (CPEngine, Engine, GenerateConfig,
+                                   TieredEngine)
     cfg = GenerateConfig(
         max_tokens=args.max_tokens, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
@@ -208,6 +231,17 @@ def main(argv=None) -> int:
             direct_io=os.environ.get("NT_DIRECT_IO", "1") != "0",
             h2d="planes" if os.environ.get("NT_H2D", "blob") == "planes"
             else "blob")
+    elif args.cp:
+        log.info(f"loading {args.model} (resident, {args.cp}-way context "
+                 f"parallel, {args.device})")
+        try:
+            engine = CPEngine.load(args.model, cp=args.cp,
+                                   max_seq_len=args.ctx_size,
+                                   device=args.device,
+                                   kv_quant=args.kv_int8)
+        except NotImplementedError as e:
+            log.error(str(e))
+            return 2
     else:
         log.info(f"loading {args.model} (resident, {args.device})")
         engine = Engine.load(args.model, max_seq_len=args.ctx_size,
@@ -250,6 +284,7 @@ def serve(args) -> int:
         log.error(f"NT_ATTN_DOT={dot_impl!r}: want one of "
                   f"{', '.join(DOT_IMPLS)}")
         return 2
+    attn_buckets = int(os.environ.get("NT_ATTN_BUCKETS", "4"))
     log.info(f"loading {args.model} (resident, {args.device}) to serve "
              f"{args.batch_size} slots")
     model = load_model(args.model, max_seq_len=args.ctx_size,
@@ -257,7 +292,7 @@ def serve(args) -> int:
                        w4a8=args.w4a8, w8a8=args.w8a8)
     srv = BatchServer(model, batch_size=args.batch_size,
                       prefix_cache=args.prefix_cache, kv_quant=args.kv_int8,
-                      dot_impl=dot_impl,
+                      dot_impl=dot_impl, attn_buckets=attn_buckets,
                       sampler_cfg=SamplerConfig(
                           temperature=args.temperature, top_k=args.top_k,
                           top_p=args.top_p,

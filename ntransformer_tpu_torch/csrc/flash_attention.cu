@@ -28,6 +28,18 @@
 // memory row-major, V transposed, with strides chosen so the fragment loads
 // are free of bank conflicts. GQA re-reads each KV head once per query head
 // of its group (through L2); no TMA, wgmma or pipelining yet.
+//
+// Second entry, flash_attention_partials_fwd: the same kernel with PARTIALS
+// set replaces flash_attention_partials (attention.py:210, _flash_impl with
+// partials=True), one shard's pass under context parallelism. The cache is
+// a [Hkv, S_local, D] slice whose key i sits at global position
+// kpos_offset + i; the tile range and the causal test use global positions,
+// so tiles past a block's last query are still skipped, and a shard wholly
+// past its queries runs no tile. It writes the UNNORMALIZED acc [T,Hq,D]
+// with the running max m and sum l [T,Hq] of each (query row, head), for
+// the caller's exact combine across shards. A row that sees no key of the
+// shard writes acc = 0, m = NEG_INF, l = 0 (the combine weights it by
+// exp(NEG_INF - m) = 0); no window, no softcap.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,12 +102,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D, typename Tin>
+template <int D, typename Tin, bool PARTIALS>
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
-                 const Tin* __restrict__ v, float* __restrict__ o, int T,
-                 int Hq, int Hkv, int S, int pos, int window, float scale,
-                 float softcap) {
+                 const Tin* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int T,
+                 int Hq, int Hkv, int S, int pos, int kpos_offset, int window,
+                 float scale, float softcap) {
   constexpr int LDK = D + 8;      // Ks row stride (bf16); also stages Q
   constexpr int LDV = FA_BS + 8;  // Vt row stride (bf16)
   constexpr int CH = D / 8;       // 8-element chunks per row
@@ -136,11 +149,12 @@ flash_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
-  // the KV tiles any row of this block can see
-  const int max_kpos = min(pos + q_end - 1, S - 1);
-  const int min_kpos = pos + q0 - window + 1;
+  // the KV tiles any row of this block can see, as local key indices (the
+  // global position of local key i is kpos_offset + i)
+  const int max_kpos = min(pos + q_end - 1 - kpos_offset, S - 1);
+  const int min_kpos = pos + q0 - window + 1 - kpos_offset;
   const int j_begin = min_kpos > 0 ? min_kpos / FA_BS : 0;
-  const int j_end = max_kpos / FA_BS;
+  const int j_end = max_kpos >= 0 ? max_kpos / FA_BS : -1;
   const Tin* kh = k + (size_t)hkv * S * D;
   const Tin* vh = v + (size_t)hkv * S * D;
 
@@ -181,8 +195,9 @@ flash_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
         float val = s[nt][e] * scale;
         if (softcap > 0.f) val = softcap * tanhf(val * (1.0f / softcap));
         const int key = kbase + nt * 8 + 2 * t4 + (e & 1);
+        const int gkey = kpos_offset + key;
         const int qp = e < 2 ? qpos0 : qpos1;
-        const bool vis = key <= qp && key > qp - window && key < S;
+        const bool vis = gkey <= qp && gkey > qp - window && key < S;
         val = vis ? val : NEG_INF;
         s[nt][e] = val;
         if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
@@ -229,6 +244,37 @@ flash_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   }
 
   const int t0 = q0 + r0, t1 = t0 + 8;
+  if constexpr (PARTIALS) {
+    // a row that saw no key keeps m = NEG_INF: the tiles it sat in summed
+    // p = exp(NEG_INF - NEG_INF) = 1 for it, so its acc and l are zeroed
+    const bool none0 = m0 == NEG_INF, none1 = m1 == NEG_INF;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int col = dt * 8 + 2 * t4;
+      if (t0 < T) {
+        float* out = o + ((size_t)t0 * Hq + hq) * D + col;
+        out[0] = none0 ? 0.f : acc[dt][0];
+        out[1] = none0 ? 0.f : acc[dt][1];
+      }
+      if (t1 < T) {
+        float* out = o + ((size_t)t1 * Hq + hq) * D + col;
+        out[0] = none1 ? 0.f : acc[dt][2];
+        out[1] = none1 ? 0.f : acc[dt][3];
+      }
+    }
+    // m and l are equal across the four lanes of a fragment row's quad
+    if (t4 == 0) {
+      if (t0 < T) {
+        m_out[(size_t)t0 * Hq + hq] = m0;
+        l_out[(size_t)t0 * Hq + hq] = none0 ? 0.f : l0;
+      }
+      if (t1 < T) {
+        m_out[(size_t)t1 * Hq + hq] = m1;
+        l_out[(size_t)t1 * Hq + hq] = none1 ? 0.f : l1;
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * t4;
@@ -245,15 +291,41 @@ flash_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   }
 }
 
-template <int D, typename Tin>
-void launch(const void* q, const void* k, const void* v, void* o, int T,
-            int Hq, int Hkv, int S, int pos, int window, float scale,
-            float softcap, cudaStream_t st) {
+template <int D, typename Tin, bool PARTIALS>
+void launch(const void* q, const void* k, const void* v, void* o, void* m,
+            void* l, int T, int Hq, int Hkv, int S, int pos, int kpos_offset,
+            int window, float scale, float softcap, cudaStream_t st) {
   const dim3 grid((T + FA_BT - 1) / FA_BT, Hq);
-  flash_fwd_kernel<D, Tin><<<grid, 128, 0, st>>>(
+  flash_fwd_kernel<D, Tin, PARTIALS><<<grid, 128, 0, st>>>(
       static_cast<const Tin*>(q), static_cast<const Tin*>(k),
-      static_cast<const Tin*>(v), static_cast<float*>(o), T, Hq, Hkv, S, pos,
-      window, scale, softcap);
+      static_cast<const Tin*>(v), static_cast<float*>(o),
+      static_cast<float*>(m), static_cast<float*>(l), T, Hq, Hkv, S, pos,
+      kpos_offset, window, scale, softcap);
+}
+
+template <bool PARTIALS>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* m,
+             void* l, int T, int Hq, int Hkv, int S, int D, int is_f32,
+             int pos, int kpos_offset, int window, float scale, float softcap,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64 && !is_f32)
+    launch<64, __nv_bfloat16, PARTIALS>(q, k, v, o, m, l, T, Hq, Hkv, S, pos,
+                                        kpos_offset, window, scale, softcap,
+                                        st);
+  else if (D == 128 && !is_f32)
+    launch<128, __nv_bfloat16, PARTIALS>(q, k, v, o, m, l, T, Hq, Hkv, S, pos,
+                                         kpos_offset, window, scale, softcap,
+                                         st);
+  else if (D == 64)
+    launch<64, float, PARTIALS>(q, k, v, o, m, l, T, Hq, Hkv, S, pos,
+                                kpos_offset, window, scale, softcap, st);
+  else if (D == 128)
+    launch<128, float, PARTIALS>(q, k, v, o, m, l, T, Hq, Hkv, S, pos,
+                                 kpos_offset, window, scale, softcap, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,22 +336,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int T, int Hq, int Hkv, int S,
                                    int D, int is_f32, int pos, int window,
                                    float scale, float softcap, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64 && !is_f32)
-    launch<64, __nv_bfloat16>(q, k, v, o, T, Hq, Hkv, S, pos, window, scale,
-                              softcap, st);
-  else if (D == 128 && !is_f32)
-    launch<128, __nv_bfloat16>(q, k, v, o, T, Hq, Hkv, S, pos, window, scale,
-                               softcap, st);
-  else if (D == 64)
-    launch<64, float>(q, k, v, o, T, Hq, Hkv, S, pos, window, scale, softcap,
-                      st);
-  else if (D == 128)
-    launch<128, float>(q, k, v, o, T, Hq, Hkv, S, pos, window, scale, softcap,
-                       st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, T, Hq, Hkv, S, D,
+                         is_f32, pos, 0, window, scale, softcap, stream);
+}
+
+// One shard's partials: acc [T,Hq,D], m and l [T,Hq], all f32, of q [T,Hq,D]
+// (global positions pos + t) over k/v [Hkv,S,D] whose key i sits at global
+// position kpos_offset + i. Types and D as above; causal, no window.
+extern "C" int flash_attention_partials_fwd(
+    const void* q, const void* k, const void* v, void* acc, void* m, void* l,
+    int T, int Hq, int Hkv, int S, int D, int is_f32, int pos,
+    int kpos_offset, float scale, void* stream) {
+  return dispatch<true>(q, k, v, acc, m, l, T, Hq, Hkv, S, D, is_f32, pos,
+                        kpos_offset, 1 << 30, scale, 0.f, stream);
 }
 
 extern "C" const char* nt_error_string(int code) {

@@ -11,9 +11,12 @@ loop; the argmax stays on the card, so the loop never waits for the host.
 
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, and early
-exit. Speculative generation (the tiered self-speculation and the separate
-draft model among it) and the tensor-, context- and expert-parallel engines
-wait for their ROADMAP items (queue 1 items 13 and 14).
+exit. `CPEngine` runs them with context parallelism (parallel/cp.py): the
+cache split along the sequence axis over a list of shard devices, one
+process driving every shard. Speculative generation (the tiered
+self-speculation and the separate draft model among it) and the tensor-
+and expert-parallel engines wait for their ROADMAP items (queue 1 items 13
+and 14).
 """
 from __future__ import annotations
 
@@ -278,15 +281,73 @@ class Engine:
 
 def decode_loop_greedy(engine: Engine, kv: KVCache, token: torch.Tensor,
                        pos0: int, n_steps: int):
-    """Greedy decode of n_steps tokens from `token` at pos0, the argmax kept
-    on the device. Returns (tokens [n_steps] tensor, kv)."""
+    """Greedy decode of n_steps tokens from `token` at pos0 through the
+    engine's decode step, the argmax kept on the device. Returns (tokens
+    [n_steps] tensor, kv)."""
     toks = []
     for i in range(n_steps):
-        logits, kv, _ = forward(engine.arch, engine.model.weights, kv,
-                                token.reshape(1), pos0 + i)
+        logits, kv, _ = engine._decode_step(kv, token, pos0 + i)
         token = torch.argmax(logits[0])
         toks.append(token)
     return torch.stack(toks), kv
+
+
+class CPEngine(Engine):
+    """Resident engine with CONTEXT parallelism: the cache splits along the
+    sequence axis over the mesh's shards (parallel/cp.py), so the longest
+    context is bounded by the shards' memory together; one process drives
+    every shard. The weights and every replicated step run on the mesh's
+    first device; a shard's cache slice and attention partials on its own.
+    Generation and `benchmark` run the shared loops through the CP forward;
+    layer-skip calibration and the int8 cache are refused, as in the JAX
+    package."""
+
+    def __init__(self, model: LoadedModel, mesh):
+        from ..parallel.cp import shard_rows
+        shard_rows(model.arch, len(mesh))  # refuse an uneven split early
+        super().__init__(model)
+        self.mesh = tuple(mesh)
+
+    @classmethod
+    def load(cls, path: str, cp: int, *, device="cuda",
+             kv_quant: bool = False, **kw) -> "CPEngine":
+        """Load `path` unfused onto the first device of a cp-way mesh: every
+        shard on the CPU for device="cpu", else one shard on each of the
+        first `cp` cards (another shard list: CPEngine(model,
+        make_cp_mesh(n, devices))); load_model keywords as Engine.load."""
+        if kv_quant:
+            # fail at load time, not at the first decode step
+            raise NotImplementedError(
+                "--kv-int8 with context parallelism is not supported "
+                "(int8 KV + CP guard, models/llama.py); drop --kv-int8 "
+                "or use --tp, where int8 KV composes")
+        from ..parallel.cp import make_cp_mesh
+        mesh = make_cp_mesh(cp, [device] * cp
+                            if torch.device(device).type == "cpu" else None)
+        return cls(load_model(path, device=mesh[0], fuse=False, **kw), mesh)
+
+    def _make_kv(self):
+        from ..parallel.cp import make_cp_kv
+        return make_cp_kv(self.arch, self.mesh)
+
+    def _check_step(self, with_cosine: bool):
+        if with_cosine or self.layer_sel is not None:
+            raise NotImplementedError(
+                "CPEngine: no layer-skip calibration or schedule under "
+                "context parallelism")
+
+    def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
+                       with_cosine=False):
+        self._check_step(with_cosine)
+        return forward(self.arch, self.model.weights, kv,
+                       torch.from_numpy(padded), off, n_valid=n_valid,
+                       cp=self.mesh)
+
+    def _decode_step(self, kv, token, pos: int, with_cosine=False):
+        self._check_step(with_cosine)
+        tok = torch.as_tensor(token, device=self.device).reshape(1)
+        return forward(self.arch, self.model.weights, kv, tok, pos,
+                       cp=self.mesh)
 
 
 class TieredEngine(Engine):

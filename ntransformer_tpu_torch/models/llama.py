@@ -20,7 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.layers import apply_rope, attention, rms_norm, swiglu
+from ..ops.layers import (apply_rope, attention, attention_cp_dispatch,
+                          rms_norm, swiglu)
 from ..ops.linear import QLinear, embed_lookup, qmatmul
 
 
@@ -209,7 +210,9 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     place at rows [pos, pos + n_valid). `layer` indexes the stacked
     weights; abs_layer (default `layer`) is the layer's depth in the model,
     which picks its sliding window and rope table (a streamed layer's
-    weights are a stack of one)."""
+    weights are a stack of one). Under context parallelism (parallel/cp.py)
+    kv_k/kv_v are lists of the shards' [Hkv, S/n, D] views, shard i holding
+    global rows [i*S/n, (i+1)*S/n)."""
     T = x.shape[0]
     Hq, Hkv, D = arch.n_heads, arch.n_kv_heads, arch.head_dim
     q_scale = arch.query_scale if arch.query_scale else 1.0 / math.sqrt(D)
@@ -249,12 +252,33 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     k = k.transpose(0, 1)  # [Hkv, T, D] f32
     v = v.transpose(0, 1)
     n = T if n_valid is None else int(n_valid)
-    rows = (kv_k[0] if isinstance(kv_k, tuple) else kv_k).shape[1]
+    cp = isinstance(kv_k, list)
+    if cp:
+        rows = kv_k[0].shape[1] * len(kv_k)
+    else:
+        rows = (kv_k[0] if isinstance(kv_k, tuple) else kv_k).shape[1]
     if pos + T > rows:
         raise ValueError(f"rows [{pos}, {pos + T}) exceed the {rows}-row "
                          "cache")
     # padding rows beyond n_valid keep the cache's previous contents
-    if isinstance(kv_k, tuple):
+    if cp:
+        if window is not None or arch.attn_softcap:
+            raise NotImplementedError(
+                "sliding-window/softcap attention (gemma2) is not supported "
+                "under context parallelism")
+        # each shard takes the new rows that fall in its slice; the JAX
+        # package scatters the others, and padding, out of bounds
+        s_local = kv_k[0].shape[1]
+        for i, (kk, vv) in enumerate(zip(kv_k, kv_v)):
+            lo, hi = max(pos, i * s_local), min(pos + n, (i + 1) * s_local)
+            if lo < hi:
+                rows_new = slice(lo - pos, hi - pos)
+                dst = slice(lo - i * s_local, hi - i * s_local)
+                kk[:, dst] = k[:, rows_new].to(kk.device, kk.dtype)
+                vv[:, dst] = v[:, rows_new].to(vv.device, vv.dtype)
+        att = attention_cp_dispatch(q, kv_k, kv_v, pos, T,
+                                    1.0 / math.sqrt(D))
+    elif isinstance(kv_k, tuple):
         # int8 cache (codes, scales): absmax-quantize the new rows per
         # (head, position), write them, then attend a bf16 dequant
         (kc, ksc), (vc, vsc) = kv_k, kv_v
@@ -269,8 +293,9 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
         kv_k[:, pos:pos + n] = k[:, :n].to(kv_k.dtype)
         kv_v[:, pos:pos + n] = v[:, :n].to(kv_v.dtype)
         kf, vf = kv_k, kv_v
-    att = attention(q, kf, vf, pos, T, q_scale, window=window,
-                    softcap=arch.attn_softcap)
+    if not cp:
+        att = attention(q, kf, vf, pos, T, q_scale, window=window,
+                        softcap=arch.attn_softcap)
     o = qmatmul(att.reshape(T, Hq * D).to(torch.bfloat16), lw.wo,
                 layer=layer)
     if arch.post_norms:
@@ -292,8 +317,9 @@ def quantize_rows(k: torch.Tensor, v: torch.Tensor):
 def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
                sin_t, n_valid=None, layer: int = 0, abs_layer=None):
     """One transformer block (dense FFN). x [T, H] f32; kv_k/kv_v this
-    layer's cache views ((codes, scales) tuples for an int8 cache);
-    layer / abs_layer as in attn_block; returns x."""
+    layer's cache views ((codes, scales) tuples for an int8 cache; lists of
+    the shards' views under context parallelism); layer / abs_layer as in
+    attn_block; returns x."""
     if arch.n_experts:
         raise NotImplementedError(
             "mixture-of-experts FFNs are not ported yet (ROADMAP queue 1 "
@@ -351,22 +377,38 @@ def head_logits(arch: Arch, weights: ModelWeights, x, n_valid=None,
 @torch.inference_mode()
 def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
             layer_sel=None, n_valid=None, all_logits: bool = False,
-            with_cosine: bool = False):
+            with_cosine: bool = False, cp=None):
     """Forward pass over (a subset of) the layer stack.
 
     tokens [T] int; pos: write offset into the cache. layer_sel: indices of
     the layers to run, in order (None = all). n_valid: real tokens of a
-    bucketed prefill. The cache is updated in place. Returns (logits
-    [T or 1, V] f32, kv, cosines [len(layers)] f32 or None)."""
+    bucketed prefill. The cache is updated in place. cp: a context-parallel
+    mesh (parallel/cp.py); kv is then the list of the shards' bf16 caches
+    (parallel/cp.make_cp_kv), and everything but attention runs on the
+    weights' device. Returns (logits [T or 1, V] f32, kv, cosines
+    [len(layers)] f32 or None)."""
     dev = weights.output_norm.device
     tokens = torch.as_tensor(tokens, device=dev).reshape(-1)
     pos = int(pos)
+    if cp is not None:
+        if len(kv) != len(cp):
+            raise ValueError(f"{len(kv)} cache shards for a {len(cp)}-way "
+                             "CP mesh")
+        if any(shard.quantized for shard in kv):
+            raise NotImplementedError(
+                "int8 KV + context parallelism is not supported (the JAX "
+                "package's global-position write would clamp into the "
+                "sequence-sharded cache)")
     x, cos_t, sin_t = embed_positions(arch, weights, tokens, pos)
-    indices = (range(kv.k.shape[0]) if layer_sel is None
+    n_layers = (kv if cp is None else kv[0]).k.shape[0]
+    indices = (range(n_layers) if layer_sel is None
                else [int(i) for i in layer_sel])
     cosines = []
     for li in indices:
-        kk, vv = kv.layer(li)
+        if cp is None:
+            kk, vv = kv.layer(li)
+        else:
+            kk, vv = [s.k[li] for s in kv], [s.v[li] for s in kv]
         x2 = layer_step(arch, x, weights.layers, kk, vv, pos, cos_t, sin_t,
                         n_valid, layer=li)
         if with_cosine:

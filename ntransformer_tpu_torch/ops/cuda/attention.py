@@ -1,11 +1,19 @@
-"""Prefill flash attention: the wrapper of `csrc/flash_attention.cu` and its
-plain PyTorch twin.
+"""Prefill flash attention: the wrappers of `csrc/flash_attention.cu` and
+their plain PyTorch twins.
 
 Replaces ntransformer_tpu/ops/pallas/attention.py::_flash_impl /
-_attn_kernel (entry flash_attention). Causal GQA attention of q [T,Hq,D]
-over the cache k/v [Hkv,S,D]: online softmax in f32, p rounded to bf16
-before the PV product, KV tiles past causality or below the window skipped.
-Returns [T,Hq,D] f32.
+_attn_kernel, both entries:
+  flash_attention           causal GQA attention of q [T,Hq,D] over the
+                            cache k/v [Hkv,S,D]: online softmax in f32, p
+                            rounded to bf16 before the PV product, KV tiles
+                            past causality or below the window skipped.
+                            Returns [T,Hq,D] f32.
+  flash_attention_partials  one shard's pass under context parallelism: the
+                            cache is a [Hkv,S_local,D] slice whose key i sits
+                            at global position kpos_offset + i. Returns the
+                            unnormalized acc [T,Hq,D], m [T,Hq], l [T,Hq]
+                            f32 for the exact combine across shards
+                            (ops/layers.attention_cp_flash).
 
 On the H100 it is bound by operations (the tensor cores); the kernel keeps
 16 query rows per warp in mma fragments and loops over the visible KV tiles
@@ -23,17 +31,37 @@ from . import build
 
 NAME = "flash_attention"
 REPLACES = "ntransformer_tpu/ops/pallas/attention.py:120 _flash_impl"
+PARTIALS_NAME = "flash_attention_partials"
+PARTIALS_REPLACES = ("ntransformer_tpu/ops/pallas/attention.py:210 "
+                     "flash_attention_partials")
 _SIGNATURES = {"flash_attention_fwd": [ctypes.c_void_p] * 4
                + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-               + [ctypes.c_void_p]}
+               + [ctypes.c_void_p],
+               "flash_attention_partials_fwd": [ctypes.c_void_p] * 6
+               + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_void_p]}
 NO_WINDOW = 2 ** 30  # a window larger than any context masks nothing
+# the masked score, finite (the TPU kernel's): a shard whose keys are all
+# masked exports m = NEG_INF and drops out of the combine with no NaN
+NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them), one count per entry
 launches = 0
+partials_launches = 0
 
 
 def check_shapes(q, k_cache, v_cache, pos: int):
     """(T, Hq, Hkv, S, D) of a flash call, or ValueError."""
+    t, hq, hkv, s, d = check_dims(q, k_cache, v_cache)
+    if not 0 <= pos <= s - t:
+        raise ValueError(f"rows [{pos}, {pos + t}) fall outside the "
+                         f"{s}-row cache")
+    return t, hq, hkv, s, d
+
+
+def check_dims(q, k_cache, v_cache):
+    """(T, Hq, Hkv, S, D) of q [T,Hq,D] over k/v [Hkv,S,D], or
+    ValueError."""
     if q.dim() != 3 or k_cache.dim() != 3:
         raise ValueError(f"flash attention wants q [T,Hq,D], k/v [Hkv,S,D]; "
                          f"got {tuple(q.shape)}, {tuple(k_cache.shape)}")
@@ -46,9 +74,6 @@ def check_shapes(q, k_cache, v_cache, pos: int):
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     if d not in (64, 128):
         raise ValueError(f"head dim {d} not supported (64 or 128)")
-    if not 0 <= pos <= s - t:
-        raise ValueError(f"rows [{pos}, {pos + t}) fall outside the "
-                         f"{s}-row cache")
     return t, hq, hkv, s, d
 
 
@@ -73,6 +98,24 @@ def flash_attention_cuda(q, k_cache, v_cache, pos: int, q_len: int,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k_cache, v_cache, pos, q_len, scale,
                                      window=window, softcap=softcap)
+    q = _kernel_operands(q, k_cache, v_cache)
+    lib = build.load(NAME, _SIGNATURES)
+    out = torch.empty(t, hq, d, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), t, hq, hkv, s, d,
+            int(k_cache.dtype == torch.float32), pos,
+            NO_WINDOW if window is None else int(window), float(scale),
+            float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, NAME)
+    launches += 1
+    return out
+
+
+def _kernel_operands(q, k_cache, v_cache):
+    """Check the caches a kernel entry reads; q cast to their dtype,
+    contiguous and 16-byte aligned."""
     if not (q.is_cuda and k_cache.device == q.device
             and v_cache.device == q.device):
         raise ValueError("flash attention wants q, k, v on one CUDA device")
@@ -85,15 +128,67 @@ def flash_attention_cuda(q, k_cache, v_cache, pos: int, q_len: int,
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("flash attention wants 16-byte aligned caches")
     q = q.to(k_cache.dtype).contiguous()
-    if q.data_ptr() % 16:
-        q = q.clone()
+    return q.clone() if q.data_ptr() % 16 else q
+
+
+def flash_attention_partials_plain(q, k_local, v_local, pos: int,
+                                   scale: float, *, kpos_offset: int):
+    """The partials kernel's function in plain PyTorch, in f32 from q cast
+    to the cache dtype: per (query row, head) the largest visible score m
+    (NEG_INF where the shard holds no visible key), l = sum exp(s - m) and
+    acc = sum exp(s - m) v over the visible keys. A row with no visible key
+    gives acc 0, m NEG_INF, l 0. (The TPU kernel leaves in such a row's acc
+    and l what its processed blocks summed at p = exp(0) = 1; the combine
+    weights the row by exp(NEG_INF - m) = 0 either way.)"""
+    t, hq, d = q.shape
+    hkv, s, _ = k_local.shape
+    group = hq // hkv
+    qf = q.to(k_local.dtype).to(torch.float32).reshape(t, hkv, group, d)
+    scores = torch.einsum("thgd,hsd->hgts", qf,
+                          k_local.to(torch.float32)) * scale
+    key_pos = kpos_offset + torch.arange(s, device=q.device)[None, :]
+    q_pos = pos + torch.arange(t, device=q.device)[:, None]
+    vis = (key_pos <= q_pos)[None, None]                 # [1, 1, T, S]
+    scores = scores.masked_fill(~vis, NEG_INF)
+    m = scores.amax(-1, keepdim=True)                    # [Hkv, g, T, 1]
+    p = torch.exp(scores - m).masked_fill(~vis, 0.0)
+    acc = torch.einsum("hgts,hsd->thgd", p, v_local.to(torch.float32))
+
+    def back(x):  # [Hkv, g, T] -> [T, Hq]
+        return x.reshape(hq, t).transpose(0, 1)
+    return acc.reshape(t, hq, d), back(m[..., 0]), back(p.sum(-1))
+
+
+def flash_attention_partials(q, k_local, v_local, pos: int, scale: float, *,
+                             kpos_offset: int):
+    """One shard's flash pass: (acc [T,Hq,D], m [T,Hq], l [T,Hq]) f32, q at
+    global positions pos + t, key i of k/v_local [Hkv,S_local,D] at
+    kpos_offset + i, causal. On a CPU tensor this is the plain twin; on a
+    CUDA tensor it launches the kernel or raises."""
+    global partials_launches
+    pos, kpos_offset = int(pos), int(kpos_offset)
+    t, hq, hkv, s, d = check_dims(q, k_local, v_local)
+    if pos < 0 or kpos_offset < 0 or pos + t > NO_WINDOW \
+            or kpos_offset + s > NO_WINDOW:
+        raise ValueError(f"query positions [{pos}, {pos + t}) or key "
+                         f"positions [{kpos_offset}, {kpos_offset + s}) "
+                         f"out of range")
+    if q.device.type == "cpu":
+        return flash_attention_partials_plain(q, k_local, v_local, pos, scale,
+                                              kpos_offset=kpos_offset)
+    q = _kernel_operands(q, k_local, v_local)
     lib = build.load(NAME, _SIGNATURES)
-    out = torch.empty(t, hq, d, dtype=torch.float32, device=q.device)
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        t, hq, hkv, s, d, int(k_cache.dtype == torch.float32), pos,
-        NO_WINDOW if window is None else int(window), float(scale),
-        float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, rc, NAME)
-    launches += 1
-    return out
+    acc = torch.empty(t, hq, d, dtype=torch.float32, device=q.device)
+    m = torch.empty(t, hq, dtype=torch.float32, device=q.device)
+    l = torch.empty(t, hq, dtype=torch.float32, device=q.device)
+    # a shard's device need not be the current one: the launch (and the
+    # default stream's handle, 0) go to the current device
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_partials_fwd(
+            q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), t, hq, hkv, s, d,
+            int(k_local.dtype == torch.float32), pos, kpos_offset,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, PARTIALS_NAME)
+    partials_launches += 1
+    return acc, m, l

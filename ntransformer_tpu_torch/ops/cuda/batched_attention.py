@@ -355,16 +355,18 @@ def _call(qr, k_cache, v_cache, k_new, v_new, pos, active, *, layer, scale,
     part = _scratch(dev, stream, n_acc + 2 * n_ml)
     out = torch.empty(b_n, hkv, r_n, d, dtype=torch.float32, device=dev)
     lib = build.load(NAME, _SIGNATURES)
-    rc = lib.batched_flash_attention(
-        qr.data_ptr(), k.data_ptr(), v.data_ptr(),
-        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
-        kn.data_ptr(), vn.data_ptr(), kns.data_ptr() if quant else None,
-        vns.data_ptr() if quant else None, pos32.data_ptr(),
-        act32.data_ptr(), part.data_ptr(), part[n_acc:].data_ptr(),
-        part[n_acc + n_ml:].data_ptr(), out.data_ptr(), b_n, hkv, s, r_n,
-        t_n, group, d, int(quant), 0 if layer is None else int(layer), live,
-        win, nsplit, DOT_IMPLS[dot], block_s, float(scale), float(softcap),
-        scale / 127.0, 1.0 / 127.0, stream)
+    with torch.cuda.device(dev):
+        rc = lib.batched_flash_attention(
+            qr.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ks.data_ptr() if quant else None,
+            vs.data_ptr() if quant else None,
+            kn.data_ptr(), vn.data_ptr(), kns.data_ptr() if quant else None,
+            vns.data_ptr() if quant else None, pos32.data_ptr(),
+            act32.data_ptr(), part.data_ptr(), part[n_acc:].data_ptr(),
+            part[n_acc + n_ml:].data_ptr(), out.data_ptr(), b_n, hkv, s, r_n,
+            t_n, group, d, int(quant), 0 if layer is None else int(layer),
+            live, win, nsplit, DOT_IMPLS[dot], block_s, float(scale),
+            float(softcap), scale / 127.0, 1.0 / 127.0, stream)
     build.check(lib, rc, NAME)
     launches += 2
     launches_by_dot[dot] += 2

@@ -158,9 +158,10 @@ def _launch(caches, rows, pos, active, n_layers: int):
         raise ValueError(f"pos/active must hold one entry per sequence "
                          f"({b_n})")
     lib = build.load(NAME, _SIGNATURES)
-    rc = lib.kv_append(len(caches), *args, n_layers, b_n, h_n, s,
-                       pos32.data_ptr(), act32.data_ptr(),
-                       torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = lib.kv_append(len(caches), *args, n_layers, b_n, h_n, s,
+                           pos32.data_ptr(), act32.data_ptr(),
+                           torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, NAME)
     launches += 1
 

@@ -108,9 +108,11 @@ def quant_matmul_cuda(x: torch.Tensor, qs: torch.Tensor,
     y = torch.empty(t, n, dtype=torch.float32, device=x.device)
     work = (torch.empty(nsplit, n, dtype=torch.float32, device=x.device)
             if nsplit > 1 else y)
-    rc = lib.q8_0_matmul(x.data_ptr(), qs.data_ptr(), d.data_ptr(),
-                         y.data_ptr(), work.data_ptr(), t, k, n, nsplit, vec,
-                         torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = lib.q8_0_matmul(x.data_ptr(), qs.data_ptr(), d.data_ptr(),
+                             y.data_ptr(), work.data_ptr(), t, k, n, nsplit,
+                             vec,
+                             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, NAME)
     launches += 2 if nsplit > 1 else 1
     return y

@@ -174,10 +174,11 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
             if nsplit > 1 else y)
     by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
     ptrs = [by_slot[s].data_ptr() if s in by_slot else None for s in SLOTS]
-    rc = getattr(lib, kern.name)(
-        x.data_ptr(), *ptrs, y.data_ptr(), work.data_ptr(), t, k, n,
-        split_rows, nsplit, vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, kern.name)(
+            x.data_ptr(), *ptrs, y.data_ptr(), work.data_ptr(), t, k, n,
+            split_rows, nsplit, vec,
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, kern.name)
     kern.launches += 2 if nsplit > 1 else 1
     return y

@@ -126,13 +126,15 @@ def w4a8_decode_cuda(x: torch.Tensor, planes: dict) -> torch.Tensor:
     y = torch.empty(1, n, dtype=torch.float32, device=x.device)
     work = (torch.empty(pairs, n, dtype=torch.float32, device=x.device)
             if pairs > 1 else y)
-    rc = lib.w4a8_decode(
-        *(acts[nm].data_ptr() for nm in ("a_lo", "a_hi", "alpha_lo",
-                                         "alpha_hi", "xsum_lo", "xsum_hi")),
-        *(planes[nm].data_ptr() for nm in ("qs", "s_lo", "s_hi", "m_lo",
-                                           "m_hi")),
-        y.data_ptr(), work.data_ptr(), k, n, vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = lib.w4a8_decode(
+            *(acts[nm].data_ptr() for nm in ("a_lo", "a_hi", "alpha_lo",
+                                             "alpha_hi", "xsum_lo",
+                                             "xsum_hi")),
+            *(planes[nm].data_ptr() for nm in ("qs", "s_lo", "s_hi", "m_lo",
+                                               "m_hi")),
+            y.data_ptr(), work.data_ptr(), k, n, vec,
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, NAME)
     launches += 2 if pairs > 1 else 1
     return y

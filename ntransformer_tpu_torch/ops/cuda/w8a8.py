@@ -112,10 +112,11 @@ def w8a8_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
     y = torch.empty(t, n, dtype=torch.float32, device=x.device)
     work = (torch.empty(nsplit, n, dtype=torch.int32, device=x.device)
             if nsplit > 1 else y)
-    rc = lib.w8a8_matmul(a.data_ptr(), am.data_ptr(), q.data_ptr(),
-                         s.data_ptr(), y.data_ptr(), work.data_ptr(), t, k, n,
-                         split_rows, nsplit, vec,
-                         torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = lib.w8a8_matmul(a.data_ptr(), am.data_ptr(), q.data_ptr(),
+                             s.data_ptr(), y.data_ptr(), work.data_ptr(), t,
+                             k, n, split_rows, nsplit, vec,
+                             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, NAME)
     launches += 2 if nsplit > 1 else 1
     return y

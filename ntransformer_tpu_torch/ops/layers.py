@@ -5,6 +5,13 @@ PyTorch. Attention dispatches to the flash kernel (ops/cuda/attention.py)
 for prefill-sized q on CUDA, exactly as the JAX package picks its Pallas
 kernel; decode-sized q (q_len < 64) is plain PyTorch on every device, as the
 JAX package computes it outside Pallas too.
+
+Under context parallelism the cache is split along the sequence axis into
+per-shard slices, each on its shard's device (parallel/cp.py); the
+attention_cp* functions take the list of slices, compute each shard's
+partials on its device, and combine them exactly on q's device, where the
+JAX package's pmax and psums over the mesh axis become a max and sums over
+the list.
 """
 from __future__ import annotations
 
@@ -103,3 +110,80 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                     scale, window=window, softcap=softcap)
     return attention_torch(q, k_cache, v_cache, pos_start, q_len, scale,
                            window=window, softcap=softcap)
+
+
+def _pmax(xs: list[torch.Tensor], device) -> torch.Tensor:
+    """The shards' tensors moved to `device`, their elementwise max."""
+    return torch.stack([x.to(device) for x in xs]).amax(0)
+
+
+def _psum(xs: list[torch.Tensor], device) -> torch.Tensor:
+    """The shards' tensors moved to `device`, summed in shard order."""
+    out = xs[0].to(device)
+    for x in xs[1:]:
+        out = out + x.to(device)
+    return out
+
+
+def attention_cp(q: torch.Tensor, k_locals: list, v_locals: list,
+                 pos_start: int, q_len: int, scale: float) -> torch.Tensor:
+    """Context-parallel GQA attention (twin of the JAX attention_cp): shard
+    i holds keys [i*S_l, (i+1)*S_l) as k/v_locals[i] [Hkv, S_l, D] on its
+    device. Each shard scores q against its slice with -inf masks; the max
+    over shards, then the two sums over shards, combine them exactly.
+    Returns [T, Hq, D] f32 on q's device."""
+    T, Hq, D = q.shape
+    Hkv, s_local, _ = k_locals[0].shape
+    group = Hq // Hkv
+    scores = []
+    for i, k in enumerate(k_locals):
+        qf = q.to(k.device, torch.float32).reshape(T, Hkv, group, D)
+        sc = torch.einsum("thgd,hsd->hgts", qf, k.to(torch.float32)) * scale
+        key_pos = i * s_local + torch.arange(s_local, device=k.device)[None]
+        q_pos = pos_start + torch.arange(T, device=k.device)[:, None]
+        scores.append(sc.masked_fill(~(key_pos <= q_pos)[None, None],
+                                     float("-inf")))
+    # a wholly masked shard's max is -inf; the global max is finite
+    # because key 0 is always visible, so its exp(-inf - m) is 0
+    m = _pmax([sc.amax(-1) for sc in scores], q.device)     # [Hkv, g, T]
+    ps = [torch.exp(sc - m.to(sc.device)[..., None]) for sc in scores]
+    l = _psum([p.sum(-1) for p in ps], q.device)
+    o = _psum([torch.einsum("hgts,hsd->thgd", p, v.to(torch.float32))
+               for p, v in zip(ps, v_locals)], q.device)
+    return (o / l.permute(2, 0, 1)[..., None]).reshape(T, Hq, D)
+
+
+def attention_cp_flash(q: torch.Tensor, k_locals: list, v_locals: list,
+                       pos_start: int, q_len: int,
+                       scale: float) -> torch.Tensor:
+    """Flash attention under context parallelism (twin of the JAX
+    attention_cp_flash): each shard runs the partials kernel over its slice
+    (global key positions i*S_l + j, the causal tile skip intact), then the
+    unnormalized partials combine exactly on q's device: the max m_g over
+    shards, w = exp(m - m_g), and the sums of l*w and acc*w."""
+    from .cuda.attention import flash_attention_partials
+    s_local = k_locals[0].shape[1]
+    parts = [flash_attention_partials(q.to(k.device), k, v, pos_start, scale,
+                                      kpos_offset=i * s_local)
+             for i, (k, v) in enumerate(zip(k_locals, v_locals))]
+    m_g = _pmax([m for _, m, _ in parts], q.device)         # [T, Hq]
+    ws = [torch.exp(m.to(q.device) - m_g) for _, m, _ in parts]
+    l_g = _psum([l.to(q.device) * w for (_, _, l), w in zip(parts, ws)],
+                q.device)
+    out = _psum([acc.to(q.device) * w[..., None]
+                 for (acc, _, _), w in zip(parts, ws)], q.device)
+    return out / l_g[..., None]
+
+
+def attention_cp_dispatch(q: torch.Tensor, k_locals: list, v_locals: list,
+                          pos_start: int, q_len: int,
+                          scale: float) -> torch.Tensor:
+    """CP attention dispatch, as `attention` dispatches: the partials
+    kernel for q_len >= 64 when kernels are on for q's device, the plain
+    combine otherwise (so CP decode stays plain PyTorch, as in the JAX
+    package)."""
+    from .linear import kernels_enabled
+    if kernels_enabled(q) and q_len >= FLASH_MIN_Q:
+        return attention_cp_flash(q, k_locals, v_locals, pos_start, q_len,
+                                  scale)
+    return attention_cp(q, k_locals, v_locals, pos_start, q_len, scale)

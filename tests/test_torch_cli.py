@@ -52,7 +52,7 @@ def test_benchmark_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--http", "8080"], ["--chat"],
-    ["--tp", "2"], ["--cp", "2"], ["--ep", "2"], ["--dp", "2"],
+    ["--tp", "2"], ["--cp", "2", "--tp", "2"], ["--ep", "2"], ["--dp", "2"],
     ["--self-spec"], ["--draft-model", "d.gguf"], ["--spec-k", "2"],
 ], ids=lambda f: f[0])
 def test_unported_modes_exit_2_naming_the_roadmap(flags, capsys):
@@ -147,3 +147,34 @@ def test_serve_attn_dot_env_refuses_unknown(tmp_path, monkeypatch, capsys):
     prompts.write_text("def f(x):\n")
     assert cli.main(BASE + ["--serve", str(prompts)]) == 2
     assert "NT_ATTN_DOT" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("buckets", [None, "0", "2"], ids=["unset", "0", "2"])
+def test_serve_attn_buckets_env_matches_jax(buckets, tmp_path, monkeypatch,
+                                            capsys):
+    """NT_ATTN_BUCKETS sets --serve's s_live ladder as it sets the JAX
+    BatchServer's (unset: 4 rungs; "0": none)."""
+    from ntransformer_tpu.inference.serve import BatchServer as JBatchServer
+    from ntransformer_tpu.models.loader import load_model as jax_load_model
+    from ntransformer_tpu_torch.inference import serve as pserve
+    from tools.make_test_gguf import write_model
+    if buckets is None:
+        monkeypatch.delenv("NT_ATTN_BUCKETS", raising=False)
+    else:
+        monkeypatch.setenv("NT_ATTN_BUCKETS", buckets)
+    path = write_model(str(tmp_path / "tiny.gguf"), "tiny", "q8_0", seed=3)
+    servers = []
+
+    class Recording(pserve.BatchServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+    monkeypatch.setattr(pserve, "BatchServer", Recording)
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("alpha beta\n")
+    assert cli.main(["-m", path, "--device", "cpu", "-n", "2", "-t", "0",
+                     "--serve", str(prompts), "--batch-size", "2"]) == 0
+    capsys.readouterr()
+    want = JBatchServer(jax_load_model(path), batch_size=2)._attn_ladder
+    assert servers[0]._attn_ladder == want
+    assert bool(want) == (buckets != "0")

@@ -65,6 +65,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "TieredEngine.load('models/repolm512_q8.gguf', max_hbm_layers=1)",
     "from ntransformer_tpu_torch.memory.tiers import TierConfig\n"
     "TierConfig.compute(4, 1 << 20, 0)",
+    "from ntransformer_tpu_torch.inference.engine import CPEngine\n"
+    "CPEngine.load('models/repolm512_q8.gguf', cp=1)",
+    "from ntransformer_tpu_torch.parallel.cp import make_cp_mesh\n"
+    "make_cp_mesh(1)",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     r = _run("import torch\nassert not torch.cuda.is_available()\n" + call)
@@ -208,3 +212,34 @@ def test_chip_smoke_and_port_sources_name_no_jax():
                     assert mod.split(".")[0] not in ("jax", "jaxlib",
                                                      "ntransformer_tpu"), \
                         f"{path}: {s}"
+
+
+def test_kernel_launches_run_on_their_tensors_card():
+    """A static check: every C entry a wrapper calls through ctypes runs
+    inside `with torch.cuda.device(...)`, since a ctypes launch (and the
+    default stream's handle, 0) goes to the current card, not to the card
+    of the tensors (a context-parallel shard on cuda:1, say)."""
+    import ast
+    cuda_dir = os.path.join(PKG, "ops", "cuda")
+    launches = 0
+    for name in sorted(os.listdir(cuda_dir)):
+        if not name.endswith(".py") or name in ("__init__.py", "build.py"):
+            continue
+        tree = ast.parse(open(os.path.join(cuda_dir, name)).read())
+        guarded = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.With) and any(
+                    ast.unparse(it.context_expr).startswith(
+                        "torch.cuda.device(") for it in node.items):
+                guarded.update(id(n) for n in ast.walk(node))
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = ast.unparse(node.func)
+            if (fn.startswith("lib.") or fn.startswith("getattr(lib")) \
+                    and fn != "lib.nt_error_string":
+                launches += 1
+                assert id(node) in guarded, \
+                    f"ops/cuda/{name}:{node.lineno}: {fn} outside " \
+                    "torch.cuda.device"
+    assert launches >= 8
