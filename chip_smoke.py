@@ -48,11 +48,14 @@ subset of the rest:
      main path), then bench.py's B = 1 batched step for Q4_0 (the Q4_0
      kernel's main path) and Q6_K;
   wkernels: the W8A8 int8 matmul (bit-equal to its twin), the W4A8 decode
-     matmul (bit-equal by construction, held to 2e-5) and the W4A8 T > 1
-     tile against their plain twins at the 8B shapes (W8A8 at T = 1, 8, 32,
-     512), a stacked layer view, repolm512's shapes, a ragged N and a
-     column-major x, with torch._int_mm (cuBLASLt int8) as the W8A8
-     yardstick where it takes the shape;
+     matmul (it quantizes x itself; bit-equal by construction, held to
+     2e-5; one launch a call, two where its pairs are split, the counter
+     and the profiler agreeing that the call launches nothing else) and the
+     W4A8 T > 1 wgmma tile against their plain twins at the 8B shapes (W8A8
+     at T = 1, 8, 32, 512), a stacked layer view, repolm512's shapes, a
+     ragged N and a column-major x, with torch._int_mm (cuBLASLt int8) as
+     the W8A8 yardstick where it takes the shape, and each W4A8 kernel's
+     device time from the profiler beside its call time;
   wreal: repolm512 requantized at load with --w4a8 and with --w8a8, each
      as `real` (prefill layers held to the int8 limit: a flipped activation
      code moves a whole int8 step), the --w8a8 model also as `serve`;
@@ -260,6 +263,24 @@ def bound(nbytes: float, flops: float,
           peak: float = BF16_FLOPS) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def profile_calls(torch, fn, calls: int = 10) -> dict:
+    """Device time and count of every CUDA kernel that `calls` calls of fn
+    launch (torch.profiler), per call, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
+            out[e.key[:80]] = {"ms": e.self_device_time_total / 1e3 / calls,
+                               "per_call": e.count / calls}
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1361,6 +1382,7 @@ def profile_batched(torch, arch, weights, bkv, b_n: int, pos0: int,
     out = {"B": b_n, "steps": steps, "dot_impl": dot_impl,
            "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": busy,
+           "kernels_per_step": sum(r[1] for r in rows),
            "batched_flash_device_ms_per_step": flash,
            "device_busy_share": busy * steps / wall_ms if wall_ms else 0.0,
            "top": [{"kernel": k[:80], "ms_per_step": ms, "per_step": c}
@@ -1641,6 +1663,7 @@ def profile_decode(torch, arch, weights, kv, logits, pos: int,
     busy = sum(r[0] for r in rows)
     out = {"steps": steps, "wall_ms_per_token": wall_ms / steps,
            "device_ms_per_token": busy,
+           "kernels_per_token": sum(r[1] for r in rows),
            "device_busy_share": busy * steps / wall_ms if wall_ms else 0.0,
            "top": [{"kernel": k[:80], "ms_per_token": ms, "per_token": c}
                    for ms, c, k in rows[:12]]}
@@ -1866,10 +1889,10 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                         x.float().contiguous())
                     ops_peak = INT8_OPS
                 elif name == "w4a8_decode":
+                    # the kernel quantizes x itself: no PyTorch op around it
                     fns = {"kernel": lambda: cw4.w4a8_decode_cuda(x, planes),
                            "plain": lambda: cw4.w4a8_decode_plain(x, planes),
-                           "library": lambda: torch.matmul(x, w),
-                           "act_quant": lambda: quantize_activations_torch(x)}
+                           "library": lambda: torch.matmul(x, w)}
                     ops_peak = INT8_OPS
                 else:
                     fns = {"kernel": lambda: nm.nibble_matmul_cuda(
@@ -1878,13 +1901,41 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                                x, planes, dtype),
                            "library": lambda: torch.matmul(x, w)}
                     ops_peak = BF16_FLOPS
+                before = cw4.launches
                 y = fns["kernel"]()
+                per_call = cw4.launches - before
                 y0 = fns["plain"]()
                 torch.cuda.synchronize()
                 err = float((y - y0).abs().max())
                 scale = float(y0.abs().max())
                 tag = f"{name} {label} T={t}"
                 check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+                dev_ms = None
+                if name != "w8a8_matmul":
+                    # the call's kernels on the card, by name (a tile call
+                    # on a column-major x also copies x)
+                    prof = profile_calls(torch, fns["kernel"])
+                    mine = {kn: v for kn, v in prof.items()
+                            if "w4_" in kn or "tile_kernel" in kn}
+                    dev_ms = sum(v["ms"] for v in mine.values())
+                if name == "w4a8_decode":
+                    check(mine == prof, f"{tag}: the wrapper launched other "
+                          f"kernels: {prof}")
+                    pairs = k // 512
+                    split = cw4.pair_plan(k) < pairs
+                    check(per_call == (2 if split else 1),
+                          f"{tag}: {per_call} launches a call; want "
+                          f"{2 if split else 1}")
+                    check(sum(v["per_call"] for v in prof.values())
+                          == per_call, f"{tag}: the profiler saw {prof}, "
+                          f"the counter {per_call} launches a call")
+                    # the kernel's alpha is an IEEE division, as the twin's;
+                    # PyTorch divides by the Python scalar 127.0 through its
+                    # reciprocal on the card (information, not a check)
+                    alpha_diff = sum(int((cw4._activations(x)[f"alpha_{h}"]
+                                          != quantize_activations_torch(
+                                              x.float())[f"alpha_{h}"][0])
+                                         .sum()) for h in ("lo", "hi"))
                 if name == "w8a8_matmul":
                     tol = 0.0
                     check(torch.equal(y, y0), f"{tag}: kernel and plain twin "
@@ -1908,6 +1959,11 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                        "ms": ms["kernel"], "plain_ms": ms["plain"],
                        "library_ms": ms.get("library"),
                        "act_quant_ms": ms.get("act_quant"),
+                       "device_ms": dev_ms,
+                       "launches_per_call": (per_call if name == "w4a8_decode"
+                                             else None),
+                       "alpha_differs_from_quantize_activations_torch": (
+                           alpha_diff if name == "w4a8_decode" else None),
                        "library_rel_err": lib_rel,
                        "library_note": (
                            "torch.matmul, pre-dequantized bf16 weight"

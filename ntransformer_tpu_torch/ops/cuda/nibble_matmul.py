@@ -18,7 +18,11 @@ CUDA cores, and by operations at T > 1. The kernel reads x at the two
 element positions of each plane row's nibbles (no activation reorder on the
 card), splits K across blocks on superblock boundaries at T = 1 (a
 fixed-order second pass sums the partials, so runs repeat bit for bit), and
-tiles T x N on the tensor cores (mma.sync) at T > 1; see the source.
+tiles T x N on the tensor cores at T > 1: mma.sync 64 x 128 tiles for the
+GGUF formats; for W4A8 a warp-specialized wgmma tile (256 x 128, 128 x 256
+or 128 x 128, `w4a8_tile`) whose producer warpgroup dequantizes each stage
+once for all the tile's rows of x while the consumers' wgmma runs; see the
+source.
 
 One C entry and one launch counter per format (`KERNELS`): a split-K
 product at T = 1 counts two launches, the GEMV and its reduce pass.
@@ -37,12 +41,11 @@ from . import build
 
 NAME = "nibble_matmul"
 _TPU = "ntransformer_tpu/ops/pallas/matmul.py:344 _quant_matmul_impl"
-# the eight plane slots of the C entries, in order; a format's "qs"/"ql"
-# plane goes to "q", W4A8's f32 s_* / m_* planes to the sc_* / mn_* slots,
-# and a slot a format lacks gets a null pointer
+# the eight plane slots of the GGUF formats' C entries, in order; a
+# format's "qs"/"ql" plane goes to "q", and a slot a format lacks gets a
+# null pointer (W4A8 has an entry of its own)
 SLOTS = ("q", "qh", "sc_lo", "sc_hi", "mn_lo", "mn_hi", "d", "dmin")
-_SLOT_OF = {"qs": "q", "ql": "q", "s_lo": "sc_lo", "s_hi": "sc_hi",
-            "m_lo": "mn_lo", "m_hi": "mn_hi"}
+_SLOT_OF = {"qs": "q", "ql": "q"}
 _TORCH_DTYPE = {"uint8": torch.uint8, "int8": torch.int8,
                 "uint16": torch.int16, "float32": torch.float32}
 _GEMV_BLOCK_COLS = 512  # columns per block of the T == 1 kernel
@@ -75,6 +78,8 @@ KERNELS = {
 _K_UNIT = {DType.Q4_0: 32, DType.W4A8: 512}
 _SIGNATURES = {kern.name: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                + [ctypes.c_void_p] for kern in KERNELS.values()}
+_SIGNATURES["w4a8_matmul"] = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                              + [ctypes.c_void_p])
 
 
 def check_shapes(x: torch.Tensor, planes: dict, dtype: DType):
@@ -117,25 +122,41 @@ def nibble_matmul_plain(x: torch.Tensor, planes: dict,
     return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
 
 
-def split_plan(device: torch.device, dtype: DType, k: int,
-               n: int) -> tuple[int, int]:
-    """(plane rows per split, splits) at T = 1: enough (strip, split)
-    blocks to cover the SMs twice, a split holding whole split units and at
-    least one chunk per warp."""
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _SM_COUNT:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def split_plan(device: torch.device, dtype: DType, k: int,
+               n: int) -> tuple[int, int]:
+    """(plane rows per split, splits) at T = 1: enough (strip, split)
+    blocks to cover the SMs twice, a split holding whole split units and at
+    least one chunk per warp."""
     kern = KERNELS[dtype]
     rows = k // 2
     units = rows // kern.split_rows
     strips = -(-n // _GEMV_BLOCK_COLS)
-    want = -(-2 * _SM_COUNT[idx] // strips)
+    want = -(-2 * sm_count(device) // strips)
     min_units = max(1, 4 * kern.chunk_rows // kern.split_rows)
     nsplit = max(1, min(want, units // min_units))
     per = -(-units // nsplit) * kern.split_rows
     return per, -(-rows // per)  # no empty split
+
+
+def w4a8_tile(device: torch.device, t: int, n: int) -> tuple[int, int]:
+    """(rows, columns) of the W4A8 tile, the first that gives at least half
+    the SMs a block: 256 x 128 when T > 128 (each dequantized weight feeds
+    256 rows), 128 x 256, then 128 x 128 (the 8B wo and down at T = 512)."""
+    sms = sm_count(device)
+    for bm, bn in (((256, 128),) if t > 128 else ()) + ((128, 256),):
+        if 2 * -(-t // bm) * -(-n // bn) >= sms:
+            return bm, bn
+    return 128, 128
 
 
 def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
@@ -164,6 +185,17 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
     lib = build.load(NAME, _SIGNATURES)
     vec = int(n % 16 == 0 and all(a.data_ptr() % 16 == 0
                                   for a in planes.values()))
+    if dtype == DType.W4A8:
+        y = torch.empty(t, n, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.w4a8_matmul(
+                x.data_ptr(), *(planes[nm].data_ptr() for nm in
+                                ("qs", "s_lo", "s_hi", "m_lo", "m_hi")),
+                y.data_ptr(), t, k, n, *w4a8_tile(x.device, t, n), vec,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, rc, kern.name)
+        kern.launches += 1
+        return y
     split_rows, nsplit = (split_plan(x.device, dtype, k, n) if t == 1
                           else (k // 2, 1))
     if t == 1 and split_rows > _MAX_SPLIT_ROWS:

@@ -229,3 +229,135 @@ def test_shape_checks_raise(k):
         cw4.w4a8_decode_cuda(torch.zeros(1, k), pq.planes)
     with pytest.raises(ValueError):
         nm.nibble_matmul_cuda(torch.zeros(2, k), pq.planes, PDType.W4A8)
+
+
+# ------------------------------------------------------------------------
+# The decode kernel quantizes x itself: the twin's quantization (alpha by an
+# IEEE division, xsum in the kernel's fixed tree) and the pair plan; the
+# T > 1 tile at shapes that cut its 128-row, 128/256-column tiles.
+
+def _wplanes_kn(seed, k, n):
+    return jw4.requant_w4a8(_w(seed, (k, n)))
+
+
+def _ql_kn(planes, k, n, on="torch"):
+    if on == "torch":
+        return plinear.QLinear(PDType.W4A8, k, n,
+                               {nm_: torch.from_numpy(np.ascontiguousarray(v))
+                                for nm_, v in planes.items()})
+    return JQLinear(DType.W4A8, k, n,
+                    {nm_: jnp.asarray(v) for nm_, v in planes.items()})
+
+
+@pytest.mark.parametrize("k", [512, 1024, 14336])
+def test_tree_xsum_against_float64_and_jax(k):
+    """The twin's group sums (the kernel's tree) against an exact float64
+    sum, within the f32 rounding of 255 adds, and against the JAX package's
+    quantize_activations within the same; codes and alpha bit for bit."""
+    x = _x(1, 30 + k, k)
+    acts = cw4._activations(torch.from_numpy(x))
+    want = jw4.quantize_activations(x)
+    g = x.reshape(-1, 256).astype(np.float64)
+    exact = g.sum(axis=1)
+    # 255 roundings of at most half an ulp of a partial of |x| sums
+    tol = 255 * np.finfo(np.float32).eps * np.abs(g).sum(axis=1)
+    for half, sl in (("lo", slice(0, None, 2)), ("hi", slice(1, None, 2))):
+        got = acts[f"xsum_{half}"].numpy().astype(np.float64)
+        assert np.all(np.abs(got - exact[sl]) <= tol[sl])
+        np.testing.assert_allclose(got, want[f"xsum_{half}"][0],
+                                   rtol=0, atol=float(tol.max()))
+        np.testing.assert_array_equal(acts[f"alpha_{half}"].numpy(),
+                                      want[f"alpha_{half}"][0])
+        np.testing.assert_array_equal(acts[f"a_{half}"].numpy(),
+                                      want[f"a_{half}"][0].astype(np.int8))
+
+
+def test_tree_sum_order():
+    """tree_sum halves the axis: ((v0 + v2) + (v1 + v3)) for four values,
+    not the left-to-right order."""
+    v = torch.tensor([[1.0, 2.0 ** -24, -1.0, 2.0 ** -24]])
+    assert float(cw4.tree_sum(v)[0]) == float((v[0, 0] + v[0, 2])
+                                              + (v[0, 1] + v[0, 3]))
+    assert float(cw4.tree_sum(v)[0]) != float(((v[0, 0] + v[0, 1])
+                                               + v[0, 2]) + v[0, 3])
+
+
+@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n", [(512, 256), (1024, 256), (14336, 64)])
+def test_decode_twin_matches_jax_across_k(k, n, x_dtype):
+    """T = 1 at one pair, two pairs and the 8B down's 28 pairs (narrow N),
+    with f32 and bf16 activations: the plain twin and the CPU qmatmul
+    against the JAX decode (the interpret-mode Pallas kernel) and the JAX
+    package's golden (core/w4a8.w4a8_matmul_golden). The JAX CPU qmatmul
+    joins where K is the JAX suite's size: at 28 pairs it is itself
+    2.2e-5 of its largest value from the golden."""
+    planes = _wplanes_kn(40 + k, k, n)
+    x = _x(1, 41 + k, k)
+    if x_dtype == "bf16":
+        x = x.astype(ml_dtypes.bfloat16)
+    xt = array_to_torch(x, "cpu")
+    pq = _ql_kn(planes, k, n)
+    plain = cw4.w4a8_decode_plain(xt, pq.planes).numpy()
+    np.testing.assert_array_equal(plinear.qmatmul(xt, pq).numpy(), plain)
+    kern = np.asarray(w4a8_decode_pallas(
+        jnp.asarray(x), _ql_kn(planes, k, n, "jax"), interpret=True))
+    gold = jw4.w4a8_matmul_golden(x.astype(np.float32), planes, k, n)
+    for want in (kern, gold):
+        assert _rel(plain, want) <= DECODE_RTOL
+    if k <= 1024:
+        want = np.asarray(jax_qmatmul(jnp.asarray(x),
+                                      _ql_kn(planes, k, n, "jax")))
+        assert _rel(plain, want) <= DECODE_RTOL
+
+
+@pytest.mark.parametrize("k,want", [
+    (512, 1),      # one pair
+    (1024, 2),     # repolm512's down
+    (4096, 8),     # the 8B qkv, wo, gate|up and head: one pass
+    (14336, 7),    # the 8B down, 28 pairs: 4 runs of 7
+    (28672, 8),    # 56 pairs: 7 runs of 8
+])
+def test_pair_plan(k, want):
+    """Pairs a block: all of K up to 8 (one warp a pair), else the fewest
+    runs of at most 8."""
+    pps = cw4.pair_plan(k)
+    assert pps == want
+    pairs = k // 512
+    assert pps <= 8 and -(-pairs // pps) == -(-pairs // 8)
+
+
+@pytest.mark.parametrize("t,n", [(130, 256), (70, 200), (257, 512)])
+def test_t_gt_1_tile_ragged_shapes_match_jax(t, n):
+    """T > 1 at a T that is not a multiple of the tile's 128 rows and a
+    ragged N (200: no 16-column vector copies), through a stacked layer
+    view: the w4a8_matmul twin and the CPU qmatmul against the JAX CPU
+    qmatmul."""
+    k = 1024
+    one, two = _wplanes_kn(50 + t, k, n), _wplanes_kn(51 + t, k, n)
+    stacked = {nm_: np.stack([one[nm_], two[nm_]]) for nm_ in one}
+    x = _x(t, 52 + t, k)
+    want = np.asarray(jax_qmatmul(jnp.asarray(x),
+                                  _ql_kn(stacked, k, n, "jax"),
+                                  layer=jnp.int32(1)))
+    pq = _ql_kn(stacked, k, n)
+    got = plinear.qmatmul(torch.from_numpy(x), pq, layer=1).numpy()
+    plain = nm.nibble_matmul_plain(torch.from_numpy(x), pq.layer(1).planes,
+                                   PDType.W4A8).numpy()
+    assert got.shape == (t, n)
+    np.testing.assert_allclose(got, want, rtol=MATMUL_TOL, atol=MATMUL_TOL)
+    np.testing.assert_allclose(plain, want, rtol=MATMUL_TOL, atol=MATMUL_TOL)
+
+
+@pytest.mark.parametrize("t,n,want", [
+    (512, 28672, (256, 128)),  # gate|up prefill: 448 tiles of 256 rows
+    (512, 6144, (256, 128)),   # qkv: 96 tiles, at least half the SMs
+    (512, 4096, (128, 128)),   # wo, down: 64 tiles of either larger shape
+    (130, 28672, (256, 128)),
+    (32, 28672, (128, 256)),   # a batched step: 256 rows would be empty
+    (70, 512, (128, 128)),     # repolm512
+])
+def test_w4a8_tile_shape(monkeypatch, t, n, want):
+    """The T > 1 tile's shape: the first of 256 x 128 (T > 128), 128 x 256
+    and 128 x 128 that gives at least half of 132 SMs a block."""
+    monkeypatch.setattr(nm, "sm_count", lambda device: 132)
+    assert nm.w4a8_tile(None, t, n) == want
