@@ -283,6 +283,17 @@ def profile_calls(torch, fn, calls: int = 10) -> dict:
     return out
 
 
+def device_profile(torch, fn, marker: str, calls: int = 10) -> dict:
+    """profile_calls of fn, summed per call: the device ms of every CUDA
+    kernel it launches, of those whose name holds `marker` (the kernel's
+    own), and the number of CUDA kernels."""
+    prof = profile_calls(torch, fn, calls)
+    return {"device_ms": sum(v["ms"] for v in prof.values()),
+            "kernel_device_ms": sum(v["ms"] for k, v in prof.items()
+                                    if marker in k),
+            "kernels_per_call": sum(v["per_call"] for v in prof.values())}
+
+
 # ---------------------------------------------------------------- phase 2
 def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
     from ntransformer_tpu_torch.ops.cuda import attention as ca
@@ -363,12 +374,20 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
     fa_cases += [
         ("8b T=70 pos=100", 70, 32, 8, 4096, 128, 100, torch.bfloat16, None,
          0.0),
-        ("8b f32-cache T=128 pos=512", 128, 32, 8, 4096, 128, 512,
-         torch.float32, None, 0.0),
         ("8b T=128 pos=512 window=256 softcap=50", 128, 32, 8, 4096, 128, 512,
          torch.bfloat16, 256, 50.0),
         ("repolm512 T=128 pos=0", 128, 8, 4, 512, 64, 0, torch.bfloat16, None,
          0.0)]
+    # an f32 cache: no path of the port holds one, so the kernel's wrapper
+    # refuses it on the card (the plain twin still takes it on the CPU)
+    qf = torch.randn(128, 32, 128, device="cuda", generator=g)
+    kf = torch.randn(8, 4096, 128, device="cuda", generator=g)
+    try:
+        ca.flash_attention_cuda(qf, kf, kf, 512, 128, 0.125)
+        fail("flash: an f32 cache was not refused on the card")
+    except ValueError as e:
+        print(f"flash: f32 cache refused on the card ({e})", flush=True)
+    del qf, kf
     fa_rows = []
     for label, t, hq, hkv, s, dh, p, dt, win, cap in fa_cases:
         q = torch.randn(t, hq, dh, device="cuda", generator=g)
@@ -377,11 +396,7 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
         scale = 1.0 / math.sqrt(dh)
         kw = {"window": win, "softcap": cap}
         o = ca.flash_attention_cuda(q, kc, vc, p, t, scale, **kw)
-        # an f32 cache: the kernel rounds its operands to bf16 (the TPU
-        # kernel's default-precision dots), so the twin gets them rounded
-        rq, rk, rv = ((x.to(torch.bfloat16).to(dt) for x in (q, kc, vc))
-                      if dt == torch.float32 else (q, kc, vc))
-        o0 = ca.flash_attention_plain(rq, rk, rv, p, t, scale, **kw)
+        o0 = ca.flash_attention_plain(q, kc, vc, p, t, scale, **kw)
         torch.cuda.synchronize()
         err = float((o - o0).abs().max())
         row_rel = float(((o - o0).abs().amax(dim=(1, 2))
@@ -419,6 +434,9 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
                "ms": ms["kernel"], "plain_ms": ms["plain"],
                "library_ms": ms.get("library"), "bound_ms": b_ms,
                "bound_by": b_by}
+        if label == "8b T=512 pos=0":  # row 2's main shape
+            row.update(device_profile(torch, fns["kernel"],
+                                      "flash_fwd_kernel"))
         fa_rows.append(row)
         print(json.dumps({"flash": row}), flush=True)
         del q, kc, vc, qb, kb, vb
@@ -807,13 +825,22 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
                     qb, kb, vb, attn_mask=mask[:, None], scale=scale)})
             peak = {"int8": INT8_OPS, "bf16": BF16_FLOPS}.get(dot, F32_FLOPS)
             b_ms, b_by = bound(nbytes, ops, peak)
+            before = cb.launches_by_dot[dot]
+            kern(dot)
+            per_call = cb.launches_by_dot[dot] - before
+            # device time at the main shape and at 17 key blocks
+            prof = device_profile(torch, lambda: kern(dot),
+                                  "split_kernel" if dot == "int8_s"
+                                  else "group_kernel") \
+                if label in (cases[0][0], cases[-1][0]) else {}
             row = {"shape": label, "dot_impl": dot, "B": b_n, "S": s, "T": t,
                    "int8": int8, "s_live": s_live, "live_keys": keys,
                    "max_abs_err": float((o - o0).abs().max()),
                    "row_rel_err": rel, "tol": DOT_RTOL[dot],
                    "rel_to_f32_kernel": vs_f32, "ms": ms["kernel"],
                    "plain_ms": ms["plain"], "library_ms": ms["library"],
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "launches_per_call": per_call, **prof}
             rows[dot].append(row)
             print(json.dumps({"batched_flash_dot": row}), flush=True)
         del kc, vc, kf, vf, kb, vb
@@ -2708,6 +2735,11 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
             row.update(ms=ms["kernel"], plain_ms=ms["plain"],
                        library_ms=ms["library"], bound_ms=b_ms,
                        bound_by=b_by)
+            if i == 0:  # the path's main shape; the long case's full shard
+                row.update(device_profile(
+                    torch, lambda: ca.flash_attention_partials(
+                        q, k_i, v_i, pos, scale, kpos_offset=off),
+                    "flash_fwd_kernel"))
             del qb, kb, vb, mask
         print(json.dumps({"flash_partials": row}), flush=True)
         return row
@@ -2755,6 +2787,48 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
             "main": rows[0]["shape"]}
 
 
+def cp_chunk_profile(torch, cp, ids, off: int = 2048) -> dict:
+    """One torch.profiler trace of CPEngine's prefill chunk [off, off +
+    512) (the chunk whose shard-0 pass is the partials kernel's main-path
+    shape), after the chunks before it: the chunk's wall time, the device
+    time of every kernel and of the partials kernel (flash_fwd_kernel), the
+    partials kernel's share of the device time and the device's busy share
+    of the wall time, and the heaviest kernels."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    c = cp.PREFILL_CHUNK
+    kv = cp._make_kv()
+    toks = np.asarray(ids, dtype=np.int64)
+    for o in range(0, off, c):
+        cp._prefill_chunk(kv, toks[o:o + c], o, c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cp._prefill_chunk(kv, toks[off:off + c], off, c)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
+            kern[e.key[:80]] = (e.self_device_time_total / 1e3, e.count)
+    dev = sum(v[0] for v in kern.values())
+    part = sum(v[0] for k, v in kern.items() if "flash_fwd_kernel" in k)
+    top = sorted(kern.items(), key=lambda kv_: -kv_[1][0])[:6]
+    out = {"chunk": [off, off + c], "wall_ms": wall, "device_ms": dev,
+           "partials_device_ms": part,
+           "partials_launches": sum(v[1] for k, v in kern.items()
+                                    if "flash_fwd_kernel" in k),
+           "partials_share_of_device": part / dev if dev else None,
+           "device_busy_share": dev / wall if wall else None,
+           "cuda_kernels": sum(v[1] for v in kern.values()),
+           "top": {k: {"ms": v[0], "count": v[1]} for k, v in top}}
+    print(json.dumps({"cp_prefill_chunk_profile": out}), flush=True)
+    del kv
+    torch.cuda.empty_cache()
+    return out
+
+
 def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     """CPEngine on the synthetic 8B at full depth and width, 4 shards on
     cuda:0, ctx 9,216, a 4,600-token prompt: Engine.benchmark's protocol
@@ -2798,6 +2872,7 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
           f"{launches}")
     check(launches[ca.NAME] == 0,
           f"8b CPEngine: the resident flash kernel ran: {launches}")
+    chunk_prof = cp_chunk_profile(torch, cp, ids)
     st_res = res.benchmark(prompt_ids=ids, n_tokens=32)
 
     res_toks, res_logits = greedy_pass(res, torch, ids, 32)
@@ -2860,7 +2935,8 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
                                                  / st.decode_tokens)
     summary.update(greedy_agree=agree, forced_argmax_agree=forced_agree,
                    logit_rel_err_steps=kern, plain_rel_err_steps=plain,
-                   cli_cp1_text_equal=same, launches=launches)
+                   cli_cp1_text_equal=same, launches=launches,
+                   prefill_chunk_profile=chunk_prof)
     print(json.dumps({"cp_8b": summary}), flush=True)
     del cp, res
     torch.cuda.empty_cache()

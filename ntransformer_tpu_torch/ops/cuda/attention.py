@@ -15,10 +15,12 @@ _attn_kernel, both entries:
                             f32 for the exact combine across shards
                             (ops/layers.attention_cp_flash).
 
-On the H100 it is bound by operations (the tensor cores); the kernel keeps
-16 query rows per warp in mma fragments and loops over the visible KV tiles
-inside the block — the TPU grid's sequential KV axis becomes that loop, and
-nothing carries between blocks. See the source for the details.
+On the H100 it is bound by operations (the tensor cores). A block packs
+128 query rows of one kv head (128 / group tokens x the group's heads), a
+producer warpgroup streams that head's visible K/V tiles through a TMA ring,
+and two wgmma warpgroups run QK^T and PV on them — the TPU grid's sequential KV
+axis becomes that loop, and nothing carries between blocks. The kernel
+takes a bf16 cache; see the source for the details.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ _SIGNATURES = {"flash_attention_fwd": [ctypes.c_void_p] * 4
                "flash_attention_partials_fwd": [ctypes.c_void_p] * 6
                + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_void_p]}
 NO_WINDOW = 2 ** 30  # a window larger than any context masks nothing
+MAX_GROUP = 128      # query heads a kv head: a block packs 128 query rows
 # the masked score, finite (the TPU kernel's): a shard whose keys are all
 # masked exports m = NEG_INF and drops out of the combine with no NaN
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -90,8 +93,8 @@ def flash_attention_cuda(q, k_cache, v_cache, pos: int, q_len: int,
                          scale: float, *, window=None,
                          softcap: float = 0.0) -> torch.Tensor:
     """Causal GQA flash attention, [T,Hq,D] f32. q is cast to the cache
-    dtype (bf16 or f32). On a CPU tensor this is the plain twin; on a CUDA
-    tensor it launches the kernel or raises."""
+    dtype. On a CPU tensor this is the plain twin (any float cache); on a
+    CUDA tensor it launches the kernel (a bf16 cache) or raises."""
     global launches
     pos = int(pos)
     t, hq, hkv, s, d = check_shapes(q, k_cache, v_cache, pos)
@@ -115,14 +118,19 @@ def flash_attention_cuda(q, k_cache, v_cache, pos: int, q_len: int,
 
 def _kernel_operands(q, k_cache, v_cache):
     """Check the caches a kernel entry reads; q cast to their dtype,
-    contiguous and 16-byte aligned."""
+    contiguous and 16-byte aligned. The kernel takes a bf16 cache only: no
+    path of the port holds an f32 one (KVCache is bf16, or int8 codes
+    attended as a bf16 dequant)."""
     if not (q.is_cuda and k_cache.device == q.device
             and v_cache.device == q.device):
         raise ValueError("flash attention wants q, k, v on one CUDA device")
-    if k_cache.dtype not in (torch.bfloat16, torch.float32) \
-            or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"flash attention wants a bf16 or f32 cache; got "
-                         f"{k_cache.dtype}, {v_cache.dtype}")
+    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
+        raise ValueError(f"the flash attention kernel wants a bf16 cache; "
+                         f"got {k_cache.dtype}, {v_cache.dtype}")
+    if q.shape[1] // k_cache.shape[0] > MAX_GROUP:
+        raise ValueError(f"GQA group {q.shape[1] // k_cache.shape[0]} "
+                         f"exceeds the kernel's {MAX_GROUP} query heads a "
+                         f"kv head")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("flash attention wants contiguous caches")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:

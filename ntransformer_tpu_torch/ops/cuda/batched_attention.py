@@ -27,7 +27,11 @@ interpret mode).
 On the H100 it is bound by bytes (every live K/V row once). The kernel
 splits each sequence's live keys across blocks and merges the partials in a
 fixed-order second pass, so small batches fill the card; a block stops at
-its own sequence's last live key. See the source for the details.
+its own sequence's last live key. The per-block forms run each TPU key block
+on a thread-block cluster (`group_layout` sizes it) that reads K and V once,
+keeps the scores in shared memory and exchanges the exact row maxima; past
+one key block a max pass first writes the per-block maxima whose prefix max
+is the TPU kernel's running max. See the source for the details.
 
 `s_live` keeps the JAX argument's contract: every attended key lies below
 it, and the result equals the whole-cache result. The kernel reads no key
@@ -45,8 +49,8 @@ NAME = "batched_attention"
 REPLACES = "ntransformer_tpu/ops/pallas/batched_attention.py:269 _impl"
 # the cache-dot forms of its _kernel
 REPLACES_DOT = "ntransformer_tpu/ops/pallas/batched_attention.py:175 _kernel"
-_SIGNATURES = {"batched_flash_attention": [ctypes.c_void_p] * 15
-               + [ctypes.c_int] * 14 + [ctypes.c_float] * 4
+_SIGNATURES = {"batched_flash_attention": [ctypes.c_void_p] * 16
+               + [ctypes.c_int] * 16 + [ctypes.c_float] * 4
                + [ctypes.c_void_p]}
 NO_WINDOW = 2 ** 30  # a window larger than any context masks nothing
 MAX_ROWS = 32        # query rows per (sequence, kv head): group * T
@@ -58,10 +62,17 @@ DOT_IMPLS = {"f32": 0, "bf16": 1, "int8": 2, "int8_s": 3, "int8_v": 4}
 BLOCKED_DOTS = ("bf16", "int8", "int8_v")
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _BLOCK_TARGET = 1 << 21  # the TPU kernel's K-tile target, bytes
+# the group kernel (the per-block forms): a key block runs on a cluster of
+# at most MAX_CLUSTER blocks, each a slice of whole 128-key tiles whose f32
+# scores and int8 codes ([rows][slice]) take at most _SLICE_BYTES
+MAX_CLUSTER = 8
+_GROUP_TILE = 128
+_SLICE_BYTES = 96 << 10
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it):
-# a call is two, the split pass and its combine pass; by_dot splits the
-# same count by the form the kernel ran
+# a call is two, the split or group pass and its combine pass, and three for
+# a per-block form over more than one key block (its max pass first);
+# by_dot splits the same count by the form the kernel ran
 launches = 0
 launches_by_dot = dict.fromkeys(DOT_IMPLS, 0)
 _SM_COUNT: dict[int, int] = {}
@@ -245,13 +256,41 @@ def batched_flash_plain(qr, k, v, ks, vs, kn, vn, kns, vns, pos, active, *,
 def _split_count(device: torch.device, b_n: int, hkv: int, keys: int) -> int:
     """Blocks per (sequence, head): enough to cover the SMs twice, with at
     least _MIN_SPLIT_KEYS keys each when the cache is full."""
+    want = -(-2 * _sm_count(device) // (b_n * hkv))
+    return max(1, min(want, -(-keys // _MIN_SPLIT_KEYS)))
+
+
+def row_capacity(r_n: int) -> int:
+    """The group kernel's row capacity for R query rows (its template
+    instance: 4, 8 or 32)."""
+    return 4 if r_n <= 4 else (8 if r_n <= 8 else MAX_ROWS)
+
+
+def group_layout(r_n: int, block_s: int, n_blocks: int, b_n: int, hkv: int,
+                 sm_count: int) -> tuple[int, int]:
+    """(cluster size, slice capacity in keys) of the group kernel: enough
+    blocks to cover the SMs twice, no more than one per 128-key tile of a
+    key block, and enough that a slice's scores and codes fit in
+    _SLICE_BYTES; ValueError past MAX_CLUSTER."""
+    per_key = 5 * row_capacity(r_n)  # f32 score + int8 code per row
+    max_slice = _SLICE_BYTES // per_key // _GROUP_TILE * _GROUP_TILE
+    need = -(-block_s // max_slice)
+    fill = -(-2 * sm_count // (n_blocks * hkv * b_n))
+    csize = max(need, min(fill, MAX_CLUSTER, max(1, block_s // _GROUP_TILE)))
+    if csize > MAX_CLUSTER:
+        raise ValueError(f"a {block_s}-key block of {r_n} query rows needs "
+                         f"{need} blocks a cluster (at most {MAX_CLUSTER})")
+    slice_keys = -(-block_s // csize)
+    return csize, -(-slice_keys // _GROUP_TILE) * _GROUP_TILE
+
+
+def _sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _SM_COUNT:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
-    want = -(-2 * _SM_COUNT[idx] // (b_n * hkv))
-    return max(1, min(want, -(-keys // _MIN_SPLIT_KEYS)))
+    return _SM_COUNT[idx]
 
 
 def _scratch(dev: torch.device, stream: int, numel: int) -> torch.Tensor:
@@ -344,15 +383,18 @@ def _call(qr, k_cache, v_cache, k_new, v_new, pos, active, *, layer, scale,
     pos32 = pos.to(dev, torch.int32).contiguous()
     act32 = active.to(dev, torch.int32).contiguous()
     if dot in BLOCKED_DOTS:
-        # one split per key block of the TPU kernel
+        # one split per key block of the TPU kernel, each on a cluster
         block_s, nsplit = key_blocks(s, live, hkv, d, quant)
+        csize, slice_cap = group_layout(r_n, block_s, nsplit, b_n, hkv,
+                                        _sm_count(dev))
     else:
         # from the shapes alone, so an s_live bucket changes no bit of the
         # result
         block_s, nsplit = s, _split_count(dev, b_n, hkv, s)
+        csize, slice_cap = 1, 0  # no cluster
     n_acc, n_ml = b_n * hkv * nsplit * r_n * d, b_n * hkv * nsplit * r_n
     stream = torch.cuda.current_stream(dev).cuda_stream
-    part = _scratch(dev, stream, n_acc + 2 * n_ml)
+    part = _scratch(dev, stream, n_acc + 3 * n_ml)
     out = torch.empty(b_n, hkv, r_n, d, dtype=torch.float32, device=dev)
     lib = build.load(NAME, _SIGNATURES)
     with torch.cuda.device(dev):
@@ -363,13 +405,15 @@ def _call(qr, k_cache, v_cache, k_new, v_new, pos, active, *, layer, scale,
             kn.data_ptr(), vn.data_ptr(), kns.data_ptr() if quant else None,
             vns.data_ptr() if quant else None, pos32.data_ptr(),
             act32.data_ptr(), part.data_ptr(), part[n_acc:].data_ptr(),
-            part[n_acc + n_ml:].data_ptr(), out.data_ptr(), b_n, hkv, s, r_n,
-            t_n, group, d, int(quant), 0 if layer is None else int(layer),
-            live, win, nsplit, DOT_IMPLS[dot], block_s, float(scale),
-            float(softcap), scale / 127.0, 1.0 / 127.0, stream)
+            part[n_acc + n_ml:].data_ptr(),
+            part[n_acc + 2 * n_ml:].data_ptr(), out.data_ptr(), b_n, hkv, s,
+            r_n, t_n, group, d, int(quant), 0 if layer is None else int(layer),
+            live, win, nsplit, DOT_IMPLS[dot], block_s, csize, slice_cap,
+            float(scale), float(softcap), scale / 127.0, 1.0 / 127.0, stream)
     build.check(lib, rc, NAME)
-    launches += 2
-    launches_by_dot[dot] += 2
+    n_launch = 3 if dot in BLOCKED_DOTS and nsplit > 1 else 2
+    launches += n_launch
+    launches_by_dot[dot] += n_launch
     return out
 
 

@@ -163,8 +163,9 @@ def attention_cp_flash(q: torch.Tensor, k_locals: list, v_locals: list,
     shards, w = exp(m - m_g), and the sums of l*w and acc*w."""
     from .cuda.attention import flash_attention_partials
     s_local = k_locals[0].shape[1]
-    parts = [flash_attention_partials(q.to(k.device), k, v, pos_start, scale,
-                                      kpos_offset=i * s_local)
+    qc = q.to(k_locals[0].dtype)  # the kernel's operand type, cast once
+    parts = [flash_attention_partials(qc.to(k.device), k, v, pos_start,
+                                      scale, kpos_offset=i * s_local)
              for i, (k, v) in enumerate(zip(k_locals, v_locals))]
     m_g = _pmax([m for _, m, _ in parts], q.device)         # [T, Hq]
     ws = [torch.exp(m.to(q.device) - m_g) for _, m, _ in parts]
