@@ -13,11 +13,13 @@ subset of the rest:
      sources built from csrc/ with nvcc (one process each, in parallel;
      the streamer's host library csrc/ntstage.cpp with g++ beside them)
      and nvcc's register report printed;
-  kernels: the Q8_0 matmul and prefill flash attention against their plain
-     PyTorch twins on the card at the full-width shapes (Llama-3.1-8B and
-     repolm512), with times (CUDA events, L2 flushed before every launch,
-     runs in turns), the least time the card could take, and one PyTorch
-     library call as a yardstick;
+  kernels: the Q8_0 matmul (T = 1, 8, 32, 70, 512: its skinny kernel and
+     its wgmma tile; each row's profiler device time, one kernel a call,
+     the counter and the profiler agreeing) and prefill flash attention
+     against their plain PyTorch twins on the card at the full-width shapes
+     (Llama-3.1-8B and repolm512), with times (CUDA events, L2 flushed
+     before every launch, runs in turns), the least time the card could
+     take, and one PyTorch library call as a yardstick;
   bkernels: the same for batched flash decode/verify and the in-place KV
      append at the serving shapes (8B, B = 1 to 32, bf16 and int8);
   qkernels: the same for the Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul
@@ -47,15 +49,19 @@ subset of the rest:
      `full` and `bfull` (its launch counts are the Q4_K and Q6_K kernels'
      main path), then bench.py's B = 1 batched step for Q4_0 (the Q4_0
      kernel's main path) and Q6_K;
-  wkernels: the W8A8 int8 matmul (bit-equal to its twin), the W4A8 decode
-     matmul (it quantizes x itself; bit-equal by construction, held to
-     2e-5; one launch a call, two where its pairs are split, the counter
-     and the profiler agreeing that the call launches nothing else) and the
-     W4A8 T > 1 wgmma tile against their plain twins at the 8B shapes (W8A8
-     at T = 1, 8, 32, 512), a stacked layer view, repolm512's shapes, a
-     ragged N and a column-major x, with torch._int_mm (cuBLASLt int8) as
-     the W8A8 yardstick where it takes the shape, and each W4A8 kernel's
-     device time from the profiler beside its call time;
+  wkernels: first the plain quantizers the card runs (W8A8 rows, W4A8
+     groups, the int8 KV rows) against their numpy twins, bit for bit;
+     then the W8A8 int8 matmul (it quantizes x itself; bit-equal to its
+     twin; two launches a call, its quantize pass and the matmul), the
+     W4A8 decode matmul (it quantizes x itself; bit-equal by construction,
+     held to 2e-5; one launch a call, two where its pairs are split) - both
+     with the counter and the profiler agreeing that the call launches
+     nothing else - and the W4A8 T > 1 wgmma tile against their plain twins
+     at the 8B shapes (W8A8 at T = 1, 8, 32, 512), a stacked layer view,
+     repolm512's shapes, a ragged N and a column-major x, with
+     torch._int_mm (cuBLASLt int8) as the W8A8 yardstick where it takes
+     the shape, and each kernel's device time from the profiler beside its
+     call time;
   wreal: repolm512 requantized at load with --w4a8 and with --w8a8, each
      as `real` (prefill layers held to the int8 limit: a flipped activation
      code moves a whole int8 step), the --w8a8 model also as `serve`;
@@ -194,7 +200,14 @@ BATCHED_LOGIT_RTOL = {"bf16": 5e-3, "int8": 2e-2}
 # its row or group, through every later layer. Measured 4.7e-2 on the 8B
 # W8A8 weights (H100 80GB HBM3 at 700 W), where the same check reads
 # 9.9e-3 on Q8_0's; the matmul kernels themselves are bit-equal to their
-# twins (0.0).
+# twins (0.0). It is also the floor of repolm512's end-to-end W8A8 checks
+# (real, serve), whose limit is otherwise twice the card's plain path
+# against the CPU: that plain path is now bit-equal to the CPU's (exact
+# integer dots, IEEE row scales on both), so it measures no amplification,
+# while the kernel path's flash roundings still cross int8 code edges
+# (0.0082-0.0373 of the range, H100 80GB HBM3 at 700 W). The plain path
+# read 0.0132-0.0698 while its row scales were divided through the
+# reciprocal of 127 on the card.
 WFORMAT_LOGIT_RTOL = 0.1
 # the kernels each path launches: the single-stream Engine path, and the
 # serving path (the batched step adds batched flash and, at B > 1, the
@@ -265,22 +278,54 @@ def bound(nbytes: float, flops: float,
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def profile_calls(torch, fn, calls: int = 10) -> dict:
+def profile_calls(torch, fn, calls: int = 10, warm: int = 5,
+                  tries: int = 20) -> dict:
     """Device time and count of every CUDA kernel that `calls` calls of fn
-    launch (torch.profiler), per call, by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
+    launch (torch.profiler), per call, by kernel name.
+
+    The profiler (torch 2.11, CUDA 12.8, H100) loses kernel records: in
+    some processes the first two kernels after it starts tracing (a trace
+    of 10 one-kernel calls after a one-call warm-up step read 9 in 58-60
+    of 60 traces), and at random a few records or a whole trace (up to 15
+    of 60 traces); it never adds one (`experiments/profiler_loss.py`).
+    So each trace opens with a warm-up step of `warm` calls whose records
+    are dropped; a trace is whole when it holds records and every kernel's
+    count is a whole number a call; traces are taken until two whole ones
+    agree, up to `tries`, and the fullest whole trace is returned ({} when
+    none was whole)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
-            out[e.key[:80]] = {"ms": e.self_device_time_total / 1e3 / calls,
-                               "per_call": e.count / calls}
-    return out
+    whole = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(warm):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        out = {}
+        for e in prof.key_averages():
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
+                out[e.key[:80]] = {
+                    "ms": e.self_device_time_total / 1e3 / calls,
+                    "per_call": e.count / calls}
+        if not out or any(v["per_call"] != int(v["per_call"])
+                          for v in out.values()):
+            continue
+        counts = {k: v["per_call"] for k, v in out.items()}
+        agree = any(counts == {k: v["per_call"] for k, v in w.items()}
+                    for w in whole)
+        whole.append(out)
+        if agree:
+            break
+    return max(whole, key=lambda w: sum(v["per_call"] for v in w.values()),
+               default={})
 
 
 def device_profile(torch, fn, marker: str, calls: int = 10) -> dict:
@@ -316,7 +361,9 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
         d = scales.to(torch.float16).view(torch.int16)
         w_bf16 = dequant_planes_torch({"qs": qs, "d": d}, DType.Q8_0, k, n,
                                       out_dtype=torch.bfloat16)
-        for t in (1, 70, 512):
+        # decode, the 8-slot server's step, the B = 32 step, a prompt
+        # bucket, a prefill chunk
+        for t in (1, 8, 32, 70, 512):
             mm_cases.append((f"{label} T={t}", t, qs, d, w_bf16))
     # a stacked [L, K, N] plane read through its free layer view
     qs2 = torch.randint(-127, 128, (2, 4096, 4096), dtype=torch.int8,
@@ -347,7 +394,9 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
     for label, t, qs, d, w in mm_cases:
         k, n = qs.shape
         x = torch.randn(t, k, device="cuda", generator=g).to(torch.bfloat16)
+        before = cm.launches
         y = cm.quant_matmul_cuda(x, qs, d)
+        per_call = cm.launches - before
         y0 = cm.quant_matmul_plain(x, qs, d)
         torch.cuda.synchronize()
         err = float((y - y0).abs().max())
@@ -359,10 +408,23 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
                             "library": lambda: torch.matmul(x, w)})
         b_ms, b_by = bound(k * n + (k // 32) * n * 2 + t * k * 2 + t * n * 4,
                            2.0 * t * k * n)
+        # the call's CUDA kernels (torch.profiler): the kernel's own and
+        # nothing else, as many as the launch counter counts
+        prof = profile_calls(torch, lambda: cm.quant_matmul_cuda(x, qs, d))
+        mine = {kn: v for kn, v in prof.items()
+                if "skinny_kernel" in kn or "tile_kernel" in kn}
+        check(mine == prof, f"matmul {label}: the wrapper launched other "
+              f"kernels: {prof}")
+        check(per_call == 1 and sum(v["per_call"] for v in prof.values())
+              == per_call, f"matmul {label}: the profiler saw {prof}, the "
+              f"counter {per_call} launches a call; want 1")
         row = {"shape": label, "T": t, "K": k, "N": n, "max_abs_err": err,
                "tol": tol, "ms": ms["kernel"], "plain_ms": ms["plain"],
                "library_ms": ms["library"], "bound_ms": b_ms,
-               "bound_by": b_by}
+               "bound_by": b_by,
+               "device_ms": sum(v["ms"] for v in prof.values()),
+               "kernels_per_call": sum(v["per_call"] for v in prof.values()),
+               "launches_per_call": per_call}
         mm_rows.append(row)
         print(json.dumps({"matmul": row}), flush=True)
 
@@ -969,7 +1031,8 @@ def real_model_phase(torch, counters, card: str, gguf: str = REPOLM,
     mixed = rels(mixed_logits)
     # step 0 (the prefill) against the plain path's spread; a decode step
     # against the larger of that and the spread the kernel prefill leaves
-    limits = [max(REAL_LOGIT_RTOL, 2 * r, 2 * m * (i > 0))
+    floor = WFORMAT_LOGIT_RTOL if fmt == "w8a8" else REAL_LOGIT_RTOL
+    limits = [max(floor, 2 * r, 2 * m * (i > 0))
               for i, (r, m) in enumerate(zip(plain, mixed))]
     print(f"{tag}: {agree}/{len(cpu_toks)} greedy tokens agree; "
           f"teacher-forced max|dlogit|/max|logit| per step, kernels vs CPU: "
@@ -1172,7 +1235,8 @@ def real_serve_phase(torch, counters, card: str, gguf: str = REPOLM,
               f"{[round(max(r), 4) for r in rp]}", flush=True)
         for s, (ks, ps) in enumerate(zip(rk, rp)):
             for b, (k, p) in enumerate(zip(ks, ps)):
-                lim = max(SERVE_LOGIT_RTOL[mode], 2 * p)
+                lim = max(WFORMAT_LOGIT_RTOL if fmt == "w8a8"
+                          else SERVE_LOGIT_RTOL[mode], 2 * p)
                 check(k <= lim, f"{tag} serving {mode} step {s} slot {b}:"
                       f" logits differ by {k} of their range (> {lim})")
         texts = {}
@@ -1839,17 +1903,69 @@ def skewed_x(torch, g, t: int, k: int):
     return x.to(torch.bfloat16)
 
 
+def quant_twins_check(torch) -> dict:
+    """The plain quantizers the card runs against the port's numpy copies
+    on the same x, bit for bit: quantize_rows_torch (W8A8 rows; the twin of
+    the W8A8 kernel's quantize pass) against core/w8a8.quantize_rows,
+    quantize_activations_torch's codes and alphas against
+    core/w4a8.quantize_activations, and the int8 KV rows of
+    models/llama.quantize_rows against numpy's f32 amax / 127 + 1e-9 and
+    round. A divisor that is a Python scalar would go through its
+    reciprocal on the card and move ~5% of the scales one ulp."""
+    import numpy as np
+    from ntransformer_tpu_torch.core import w4a8 as nw4
+    from ntransformer_tpu_torch.core import w8a8 as nw8
+    from ntransformer_tpu_torch.models.llama import quantize_rows as kv_rows
+    from ntransformer_tpu_torch.ops.dequant_torch import (
+        quantize_activations_torch, quantize_rows_torch)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4321)
+    out = {}
+    for k in (4096, 14336):
+        x = skewed_x(torch, g, 64, k).float()
+        x[3] = 0.0
+        xn = x.cpu().numpy()
+        a, am = quantize_rows_torch(x)
+        na, nam = nw8.quantize_rows(xn)
+        out[f"quantize_rows_torch K={k}"] = int(
+            (a.cpu().numpy() != na).sum() + (am.cpu().numpy() != nam).sum())
+        got = quantize_activations_torch(x)
+        want = nw4.quantize_activations(xn)
+        out[f"quantize_activations_torch K={k}"] = int(sum(
+            (got[kk].cpu().numpy() != want[kk]).sum()
+            for kk in ("a_lo", "a_hi", "alpha_lo", "alpha_hi")))
+    kv = torch.randn(2, 8, 600, 128, device="cuda", generator=g)
+    kq, ks, vq, vs = kv_rows(kv[0], kv[1])
+    diff = 0
+    for codes, scales, src in ((kq, ks, kv[0]), (vq, vs, kv[1])):
+        xn = src.cpu().numpy()
+        ns = (np.abs(xn).max(-1, keepdims=True) / np.float32(127.0)
+              + np.float32(1e-9)).astype(np.float32)
+        nc = np.round(xn / ns).astype(np.int8)
+        diff += int((scales.cpu().numpy() != ns).sum()
+                    + (codes.cpu().numpy() != nc).sum())
+    out["kv quantize_rows"] = diff
+    for what, n in out.items():
+        check(n == 0, f"{what}: {n} codes or scales differ from numpy")
+    print(json.dumps({"quant_twins": out}), flush=True)
+    return out
+
+
 def wformat_kernel_phase(torch, timer, card: str) -> dict:
-    """The W8A8 matmul, the W4A8 decode matmul and the W4A8 T > 1 tile
-    against their plain twins on the card: the 8B shapes (fused qkv, wo,
-    fused gate|up, down, the 128256-token head), a layer view of stacked
-    planes, repolm512's K = 1024 down and 384-wide head, and a ragged N =
-    200. W8A8 at T = 1, 8, 32 and 512 (the 8-slot server's decode step is
-    T = 8); W4A8 decode at T = 1; the W4A8 tile at T = 32 and 512. Times by
-    CUDA events as in the kernels phase. Yardsticks: torch._int_mm (cuBLASLt
-    int8) plus the same fixup for W8A8, where it takes the shape (T > 16),
-    and torch.matmul on the pre-dequantized bf16 weight for W4A8 and for
-    W8A8 at T <= 16."""
+    """The W8A8 matmul (with its quantize pass), the W4A8 decode matmul and
+    the W4A8 T > 1 tile against their plain twins on the card: the 8B
+    shapes (fused qkv, wo, fused gate|up, down, the 128256-token head), a
+    layer view of stacked planes, repolm512's K = 1024 down and 384-wide
+    head, and a ragged N = 200. W8A8 at T = 1, 8, 32 and 512 (the 8-slot
+    server's decode step is T = 8); W4A8 decode at T = 1; the W4A8 tile at
+    T = 32 and 512. Times by CUDA events as in the kernels phase, and each
+    call's kernels by torch.profiler: the W8A8 and W4A8 decode calls launch
+    their own kernels alone, as many as their counters count. First the
+    plain quantizers against numpy (`quant_twins_check`). Yardsticks:
+    torch._int_mm (cuBLASLt int8) plus the same fixup for W8A8, where it
+    takes the shape (T > 16), and torch.matmul on the pre-dequantized bf16
+    weight for W4A8 and for W8A8 at T <= 16."""
+    quant_twins_check(torch)
     from ntransformer_tpu_torch.core.dtypes import DType
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
     from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
@@ -1928,41 +2044,50 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                                x, planes, dtype),
                            "library": lambda: torch.matmul(x, w)}
                     ops_peak = BF16_FLOPS
-                before = cw4.launches
+                ctr = cw8 if name == "w8a8_matmul" else (
+                    cw4 if name == "w4a8_decode" else nm.KERNELS[dtype])
+                before = ctr.launches
                 y = fns["kernel"]()
-                per_call = cw4.launches - before
+                per_call = ctr.launches - before
                 y0 = fns["plain"]()
                 torch.cuda.synchronize()
                 err = float((y - y0).abs().max())
                 scale = float(y0.abs().max())
                 tag = f"{name} {label} T={t}"
                 check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
-                dev_ms = None
-                if name != "w8a8_matmul":
-                    # the call's kernels on the card, by name (a tile call
-                    # on a column-major x also copies x)
-                    prof = profile_calls(torch, fns["kernel"])
-                    mine = {kn: v for kn, v in prof.items()
-                            if "w4_" in kn or "tile_kernel" in kn}
-                    dev_ms = sum(v["ms"] for v in mine.values())
-                if name == "w4a8_decode":
+                # the call's kernels on the card, by name (a W4A8 tile call
+                # on a column-major x also copies x)
+                prof = profile_calls(torch, fns["kernel"])
+                mine = {kn: v for kn, v in prof.items()
+                        if any(m in kn for m in ("w4_", "tile_kernel",
+                                                 "quant_kernel",
+                                                 "skinny_kernel"))}
+                dev_ms = sum(v["ms"] for v in mine.values())
+                if name != "w4a8_matmul":
+                    # the W8A8 and W4A8 decode calls quantize x themselves:
+                    # no PyTorch op around them, the counter's launches
                     check(mine == prof, f"{tag}: the wrapper launched other "
                           f"kernels: {prof}")
-                    pairs = k // 512
-                    split = cw4.pair_plan(k) < pairs
-                    check(per_call == (2 if split else 1),
-                          f"{tag}: {per_call} launches a call; want "
-                          f"{2 if split else 1}")
+                    want = 2
+                    if name == "w4a8_decode":
+                        want = 2 if cw4.pair_plan(k) < k // 512 else 1
+                    check(per_call == want, f"{tag}: {per_call} launches a "
+                          f"call; want {want}")
                     check(sum(v["per_call"] for v in prof.values())
                           == per_call, f"{tag}: the profiler saw {prof}, "
                           f"the counter {per_call} launches a call")
-                    # the kernel's alpha is an IEEE division, as the twin's;
-                    # PyTorch divides by the Python scalar 127.0 through its
-                    # reciprocal on the card (information, not a check)
+                if name == "w4a8_decode":
+                    # the kernel's alpha is an IEEE division, as the twin's
+                    # and quantize_activations_torch's (both divide by a
+                    # tensor: PyTorch divides by a Python scalar through its
+                    # reciprocal on the card)
                     alpha_diff = sum(int((cw4._activations(x)[f"alpha_{h}"]
                                           != quantize_activations_torch(
                                               x.float())[f"alpha_{h}"][0])
                                          .sum()) for h in ("lo", "hi"))
+                    check(alpha_diff == 0, f"{tag}: {alpha_diff} alphas of "
+                          "quantize_activations_torch differ from the "
+                          "kernel's twin")
                 if name == "w8a8_matmul":
                     tol = 0.0
                     check(torch.equal(y, y0), f"{tag}: kernel and plain twin "
@@ -1987,8 +2112,9 @@ def wformat_kernel_phase(torch, timer, card: str) -> dict:
                        "library_ms": ms.get("library"),
                        "act_quant_ms": ms.get("act_quant"),
                        "device_ms": dev_ms,
-                       "launches_per_call": (per_call if name == "w4a8_decode"
-                                             else None),
+                       "launches_per_call": per_call,
+                       "kernels_per_call": sum(v["per_call"]
+                                               for v in prof.values()),
                        "alpha_differs_from_quantize_activations_torch": (
                            alpha_diff if name == "w4a8_decode" else None),
                        "library_rel_err": lib_rel,

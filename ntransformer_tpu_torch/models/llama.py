@@ -307,9 +307,12 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
 def quantize_rows(k: torch.Tensor, v: torch.Tensor):
     """Absmax int8 quantization of new k/v rows, one f32 scale per row of
     the last axis: (k codes, k scales, v codes, v scales), scales keeping a
-    trailing axis of 1."""
-    ks = k.abs().amax(-1, keepdim=True) / 127.0 + 1e-9
-    vs = v.abs().amax(-1, keepdim=True) / 127.0 + 1e-9
+    trailing axis of 1. The divisor is a tensor, so the division is IEEE on
+    the card too (a Python scalar divisor goes through its reciprocal)."""
+    ka = k.abs().amax(-1, keepdim=True)
+    va = v.abs().amax(-1, keepdim=True)
+    ks = ka / torch.full_like(ka, 127.0) + 1e-9
+    vs = va / torch.full_like(va, 127.0) + 1e-9
     return (torch.round(k / ks).to(torch.int8), ks,
             torch.round(v / vs).to(torch.int8), vs)
 

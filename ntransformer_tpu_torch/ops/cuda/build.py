@@ -2,9 +2,9 @@
 
 Each source has a plain C interface. `nvcc` compiles it for sm_90a into a
 shared library under `ntransformer_tpu_torch/_build/` (listed in
-.gitignore), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing here
-runs at import time: a CPU-only machine without `nvcc` imports every
+.gitignore), named by a hash of the source, the shared headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. Nothing here runs at import time: a CPU-only machine without `nvcc` imports every
 module of the port, and only a call on a CUDA tensor builds.
 """
 from __future__ import annotations
@@ -41,10 +41,15 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> tuple[str, str]:
-    """(source, shared library) paths of kernel source `csrc/<name>.cu`."""
+    """(source, shared library) paths of kernel source `csrc/<name>.cu`.
+    The hash covers the source, every shared header of csrc/ (`*.cuh`) and
+    the flags, so an edited header rebuilds the sources that include it."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}-{digest.hexdigest()[:16]}.so")
 

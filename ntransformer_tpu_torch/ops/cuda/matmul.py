@@ -6,11 +6,14 @@ _q8_0_tile body (entry quant_matmul_pallas). y[T,N] f32 = x[T,K] @ W with
 W = bf16(qs * d): bf16 operands, f32 accumulation — the TPU kernel's
 default-precision dot and the JAX CPU path alike.
 
-On the H100 it is bound by bytes at T = 1 (1.0625 bytes per weight over
-3.35 TB/s) and by operations at prefill T. The kernel streams qs with
-coalesced 16-byte loads and splits K across blocks at T = 1 (a fixed-order
-second pass sums the partials, so runs repeat bit for bit), and tiles T x N
-on the tensor cores (mma.sync) at T > 1; see the source for the details.
+On the H100 it is bound by bytes at small T (1.0625 bytes per weight over
+3.35 TB/s) and by operations at prefill T. Up to `plans.SKINNY_ROWS`
+tokens the kernel streams qs once through mma.sync with the weight as the
+M side (one launch: the K splits of a column strip are one cluster, summed
+in rank order, so runs repeat bit for bit); past it a warp-specialized
+wgmma tile dequantizes each weight stage once for 256 or 128 rows of x,
+its K split in two where that measured faster (`plans.tile_plan`). See the
+source for the details.
 
 A stacked [L, K, N] plane picks its layer as a free view (`planes[l]`): the
 TPU kernel's scalar-prefetch layer select is not needed.
@@ -23,18 +26,16 @@ import torch
 
 from ...core.dtypes import DType
 from ..dequant_torch import dequant_planes_torch
-from . import build
+from . import build, plans
 
 NAME = "q8_0_matmul"
 REPLACES = "ntransformer_tpu/ops/pallas/matmul.py:344 _quant_matmul_impl"
-_SIGNATURES = {"q8_0_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_SIGNATURES = {"q8_0_matmul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                + [ctypes.c_void_p]}
-_GEMV_BLOCK_COLS = 512  # columns per block of the T == 1 kernel
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it):
-# a split-K product at T = 1 is two, the GEMV and its reduce pass
+# one a product
 launches = 0
-_SM_COUNT: dict[int, int] = {}
 
 
 def check_shapes(x: torch.Tensor, qs: torch.Tensor, d: torch.Tensor):
@@ -64,22 +65,6 @@ def quant_matmul_plain(x: torch.Tensor, qs: torch.Tensor,
     return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
 
 
-def _split_count(device: torch.device, k: int, n: int) -> int:
-    """Blocks along K at T = 1: enough (strip, split) blocks to cover the
-    SMs twice, with at least four 32-row groups (one per warp) each."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    groups = k // 32
-    strips = -(-n // _GEMV_BLOCK_COLS)
-    want = -(-2 * _SM_COUNT[idx] // strips)
-    nsplit = max(1, min(want, groups // 4))
-    per = -(-groups // nsplit)
-    return -(-groups // per)  # no empty split
-
-
 def quant_matmul_cuda(x: torch.Tensor, qs: torch.Tensor,
                       d: torch.Tensor) -> torch.Tensor:
     """y[T,N] f32 = x[T,K] @ bf16(qs·d). x any float dtype (rounded to
@@ -104,15 +89,19 @@ def quant_matmul_cuda(x: torch.Tensor, qs: torch.Tensor,
     lib = build.load(NAME, _SIGNATURES)
     vec = int(n % 16 == 0 and qs.data_ptr() % 16 == 0
               and d.data_ptr() % 16 == 0)
-    nsplit = _split_count(x.device, k, n) if t == 1 else 1
+    sms = plans.sm_count(x.device)
+    if t <= plans.SKINNY_ROWS:
+        path, bm = 0, 0
+        nsplit, split_k = plans.skinny_plan(sms, t, k, n)
+    else:
+        path = 1
+        bm, nsplit, split_k = plans.tile_plan(sms, t, k, n, 64)
     y = torch.empty(t, n, dtype=torch.float32, device=x.device)
-    work = (torch.empty(nsplit, n, dtype=torch.float32, device=x.device)
-            if nsplit > 1 else y)
     with torch.cuda.device(x.device):
         rc = lib.q8_0_matmul(x.data_ptr(), qs.data_ptr(), d.data_ptr(),
-                             y.data_ptr(), work.data_ptr(), t, k, n, nsplit,
-                             vec,
+                             y.data_ptr(), t, k, n, path, nsplit, split_k,
+                             bm, vec,
                              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, NAME)
-    launches += 2 if nsplit > 1 else 1
+    launches += 1
     return y

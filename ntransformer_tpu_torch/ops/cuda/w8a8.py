@@ -2,19 +2,27 @@
 plain PyTorch twin.
 
 Replaces ntransformer_tpu/ops/pallas/w8a8.py::_w8a8_impl (entry
-w8a8_matmul_pallas). y[T,N] f32 = (f32(a . q) * am) * s with (a, am) the
-per-row int8 quantization of x (`quantize_rows_torch`, plain PyTorch on
-every device, as the JAX package leaves it to XLA), q the int8 [K, N]
-weight codes and s their [1, N] column scales. The dot is exact in int32,
-so the kernel is bit-equal to its twin; the twin takes the dot in float64,
-where every partial sum is an integer below 2^53 (PyTorch has no int32
-matmul on CUDA).
+w8a8_matmul_pallas) and the row quantization the JAX package leaves to XLA
+in front of it. y[T,N] f32 = (f32(a . q) * am) * s with (a, am) the per-row
+int8 quantization of x (core/w8a8.quantize_rows: am = amax / 127 by an IEEE
+division, 1 for a zero row; codes rint(x / am) clamped to +-127), q the
+int8 [K, N] weight codes and s their [1, N] column scales. The dot is exact
+in int32, so the kernel is bit-equal to its twin; the twin quantizes with
+`quantize_rows_torch` (a tensor divisor, so IEEE on the card too) and takes
+the dot in float64, where every partial sum is an integer below 2^53
+(PyTorch has no int32 matmul on CUDA).
 
-On the H100 it is bound by bytes at small T (one byte a weight over 3.35
-TB/s) and by operations at prefill T (int8 tensor cores). The kernel runs a
-dp4a GEMV with split-K at T = 1 and int8 mma.sync tiles at T > 1; see the
-source. Rows are capped at MAX_ROWS, as on the TPU: the port's prefill
-chunks and admission chunks are 512 rows, so no path reaches the cap.
+The kernel quantizes x itself (bf16 or f32, any strides: the embedding
+lookup hands layer 0 a dense transposed view), so a call is its own two
+launches and no PyTorch op: a quantize pass writes the codes and row scales
+once, and the matmul, launched with programmatic dependent launch, streams
+weights while it runs. On the H100 the product is bound by bytes at small
+T (one byte a weight over 3.35 TB/s) and by operations at prefill T (int8
+tensor cores). Up to `plans.SKINNY_ROWS` tokens the matmul streams q once
+through int8 mma.sync with the K splits of a column strip in one cluster;
+past it an int8 wgmma tile (`plans.tile_plan`). Rows are capped at
+MAX_ROWS, as on the TPU: the port's prefill chunks and admission chunks
+are 512 rows, so no path reaches the cap.
 """
 from __future__ import annotations
 
@@ -23,20 +31,19 @@ import ctypes
 import torch
 
 from ..dequant_torch import quantize_rows_torch
-from . import build
+from . import build, plans
 
 NAME = "w8a8_matmul"
 REPLACES = "ntransformer_tpu/ops/pallas/w8a8.py:49 _w8a8_impl"
 MAX_ROWS = 2048
-_SIGNATURES = {NAME: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-               + [ctypes.c_void_p]}
-_GEMV_BLOCK_COLS = 512  # columns per block of the T == 1 kernel
+_SIGNATURES = {NAME: [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong] + [ctypes.c_void_p] * 4
+               + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
 _MAX_K = (2 ** 31 - 1) // (127 * 127)  # int32 dot cannot overflow below it
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it):
-# a split-K product at T = 1 is two, the GEMV and its reduce pass
+# two a product, the quantize pass and the matmul
 launches = 0
-_SM_COUNT: dict[int, int] = {}
 
 
 def check_shapes(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor):
@@ -63,23 +70,6 @@ def w8a8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return p * am * s.to(torch.float32)
 
 
-def split_plan(device: torch.device, k: int, n: int) -> tuple[int, int]:
-    """(K rows per split, splits) at T = 1: enough (strip, split) blocks to
-    cover the SMs twice, each split a multiple of 64 rows and at least 256
-    (16 rows for each of the block's four warps, four times over)."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    strips = -(-n // _GEMV_BLOCK_COLS)
-    want = -(-2 * _SM_COUNT[idx] // strips)
-    nsplit = max(1, min(want, k // 256))
-    per = -(-k // nsplit)
-    per = -(-per // 64) * 64
-    return per, -(-k // per)  # no empty split
-
-
 def w8a8_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
                      s: torch.Tensor) -> torch.Tensor:
     """y[T,N] f32 = W8A8 product of x[T,K] (any float dtype) with q int8
@@ -103,20 +93,27 @@ def w8a8_matmul_cuda(x: torch.Tensor, q: torch.Tensor,
     if k % 16 or k > _MAX_K:
         raise ValueError(f"w8a8 kernel wants K % 16 == 0 and K <= {_MAX_K}; "
                          f"got K={k}")
-    # row-major codes: the layers may hand over a dense transposed view
-    # (the embedding lookup's), whose layout an elementwise op keeps
-    a, am = quantize_rows_torch(x.to(torch.float32).contiguous())
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.to(torch.float32)  # exact: no path of the port passes one
     lib = build.load(NAME, _SIGNATURES)
     vec = int(n % 16 == 0 and q.data_ptr() % 16 == 0)
-    split_rows, nsplit = split_plan(x.device, k, n) if t == 1 else (k, 1)
+    sms = plans.sm_count(x.device)
     y = torch.empty(t, n, dtype=torch.float32, device=x.device)
-    work = (torch.empty(nsplit, n, dtype=torch.int32, device=x.device)
-            if nsplit > 1 else y)
+    if t <= plans.SKINNY_ROWS:
+        path, bm = 0, 0
+        nsplit, split_k = plans.skinny_plan(sms, t, k, n)
+    else:
+        path = 1
+        bm, nsplit, split_k = plans.tile_plan(sms, t, k, n, 128)
+    # the quantize pass's codes [T, Kp] and row scales [T] f32
+    kp = -(-k // 128) * 128
+    work = torch.empty(t * kp + 4 * t, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.w8a8_matmul(a.data_ptr(), am.data_ptr(), q.data_ptr(),
+        rc = lib.w8a8_matmul(x.data_ptr(), int(x.dtype == torch.float32),
+                             x.stride(0), x.stride(1), q.data_ptr(),
                              s.data_ptr(), y.data_ptr(), work.data_ptr(), t,
-                             k, n, split_rows, nsplit, vec,
+                             k, n, path, nsplit, split_k, bm, vec,
                              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, NAME)
-    launches += 2 if nsplit > 1 else 1
+    launches += 2
     return y

@@ -10,11 +10,13 @@ formats.
 Also the torch twins of the numpy functions of core/w4a8.py and
 core/w8a8.py that run on tensors: the requant of planes that live on the
 card (`synth_model`'s, converted there) and the run-time activation
-quantization of the W4A8 and W8A8 products. The JAX package computes
-these outside any Pallas kernel, so they stay plain PyTorch on every
-device. Each repeats its numpy twin's operations one for one (IEEE
+quantization of the W4A8 and W8A8 products: the plain paths' (the CPU's,
+and the card's with the kernels off), since the W4A8 decode and W8A8
+kernels quantize x themselves and are held to these. Each repeats its numpy twin's operations one for one (IEEE
 division, round half to even, the same clamps), so codes and scales come
-out bit for bit the same on the card and on the CPU.
+out bit for bit the same on the card and on the CPU. A divisor is always a
+tensor: PyTorch on CUDA divides by a Python scalar through its reciprocal,
+which moves ~5% of the quotients one ulp from the IEEE division.
 """
 from __future__ import annotations
 
@@ -132,7 +134,8 @@ def dequant_w4a8_torch(planes: dict, k: int, n: int) -> torch.Tensor:
 def requant_w8a8_torch(w_t: torch.Tensor) -> dict:
     """Torch twin of core/w8a8.requant_w8a8: [K, N] W^T -> planes."""
     w = w_t.to(torch.float32)
-    s = w.abs().amax(dim=0, keepdim=True) / 127.0
+    amax = w.abs().amax(dim=0, keepdim=True)
+    s = amax / torch.full_like(amax, 127.0)
     s = torch.where(s > 0, s, torch.ones_like(s))
     q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
@@ -147,7 +150,8 @@ def requant_w4a8_torch(w_t: torch.Tensor) -> dict:
     wg = w_t.to(torch.float32).reshape(g_all, GRP, n)
     mx = wg.amax(dim=1)
     mn = wg.amin(dim=1)
-    scale = (mx - mn) / 15.0
+    span = mx - mn
+    scale = span / torch.full_like(span, 15.0)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round((wg - mn[:, None, :]) / scale[:, None, :]),
                     0, 15).to(torch.uint8).reshape(g_all // 2, 2, GRP, n)
@@ -162,7 +166,8 @@ def requant_w4a8_torch(w_t: torch.Tensor) -> dict:
 def quantize_rows_torch(x: torch.Tensor):
     """Torch twin of core/w8a8.quantize_rows: x [T, K] f32 -> (codes int8
     [T, K], scale f32 [T, 1]); a zero row keeps scale 1."""
-    am = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    am = amax / torch.full_like(amax, 127.0)
     am = torch.where(am > 0, am, torch.ones_like(am))
     codes = torch.clamp(torch.round(x / am), -127, 127).to(torch.int8)
     return codes, am
@@ -176,7 +181,8 @@ def quantize_activations_torch(x: torch.Tensor) -> dict:
     t, k = x.shape
     g_all = k // GRP
     xg = x.to(torch.float32).reshape(t, g_all, GRP)
-    alpha = torch.clamp_min(xg.abs().amax(dim=2) / 127.0, 1e-30)
+    amax = xg.abs().amax(dim=2)
+    alpha = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-30)
     ahat = torch.round(xg / alpha[:, :, None]).to(torch.int32)
     xsum = xg.sum(dim=2)
     a2 = ahat.reshape(t, g_all // 2, 2, GRP)

@@ -243,3 +243,29 @@ def test_kernel_launches_run_on_their_tensors_card():
                     f"ops/cuda/{name}:{node.lineno}: {fn} outside " \
                     "torch.cuda.device"
     assert launches >= 8
+
+
+@pytest.mark.parametrize("path,func", [
+    ("ops/dequant_torch.py", "quantize_rows_torch"),
+    ("ops/dequant_torch.py", "requant_w8a8_torch"),
+    ("ops/dequant_torch.py", "requant_w4a8_torch"),
+    ("ops/dequant_torch.py", "quantize_activations_torch"),
+    ("models/llama.py", "quantize_rows"),
+])
+def test_quantizers_divide_by_tensors(path, func):
+    """A static check: the quantizers the card runs divide by no Python
+    number. PyTorch on CUDA divides a tensor by a Python scalar through the
+    scalar's reciprocal, which moves ~5% of the scales one ulp from the
+    IEEE division of the JAX package (core/w8a8.quantize_rows and its
+    kin); a tensor divisor (torch.full_like) divides exactly."""
+    import ast
+    tree = ast.parse(open(os.path.join(PKG, path)).read())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == func)
+    divs = [n for n in ast.walk(fn)
+            if isinstance(n, ast.BinOp) and isinstance(n.op, ast.Div)]
+    assert divs, f"{func} divides nothing"
+    for n in divs:
+        assert not (isinstance(n.right, ast.Constant)
+                    and isinstance(n.right.value, (int, float))), \
+            f"{path}:{n.lineno}: {ast.unparse(n)} divides by a Python number"

@@ -16,6 +16,7 @@ from ntransformer_tpu.ops.linear import qmatmul as jax_qmatmul
 from ntransformer_tpu_torch.core.dtypes import DType as PDType
 from ntransformer_tpu_torch.ops import linear as plinear
 from ntransformer_tpu_torch.ops.cuda import matmul as cuda_matmul
+from ntransformer_tpu_torch.ops.cuda import plans
 
 TOL = 1e-4
 
@@ -48,7 +49,7 @@ def _x(t, k, seed):
         .astype(np.float32)
 
 
-@pytest.mark.parametrize("t", [1, 4, 70])
+@pytest.mark.parametrize("t", [1, 4, 8, 32, 70])
 @pytest.mark.parametrize("n,k", [(256, 512), (384, 512), (128, 1376)])
 def test_qmatmul_matches_jax(t, n, k):
     planes = _planes(n, k, seed=n * 7 + k)
@@ -154,3 +155,109 @@ def test_pad_qlinear_lanes_pads_zero_columns():
     torch.testing.assert_close(y[:, :n], plinear.qmatmul(x, ql), rtol=0,
                                atol=0)
     assert float(y[:, n:].abs().max()) == 0.0
+
+
+def _kernel_order_model(x, qs, d, sms=132):
+    """The CUDA kernel's order of f32 sums, on the CPU: up to
+    plans.SKINNY_ROWS tokens, each 16-row mma product added to its warp's
+    sum in step order (a warp's steps are rows kb + 32 (w + 4 i) of its K
+    split), a block's 4 warps added in warp order and the cluster's splits
+    in rank order; past it the tile adds the 16-row products in K order."""
+    t, k = x.shape
+    n = qs.shape[1]
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    w = cuda_matmul.dequant_planes_torch(
+        {"qs": qs, "d": d}, PDType.Q8_0, k, n,
+        out_dtype=torch.bfloat16).to(torch.float32)
+
+    def mma(k0):
+        return xb[:, k0:k0 + 16] @ w[k0:k0 + 16]
+
+    if t > plans.SKINNY_ROWS:
+        y = torch.zeros(t, n)
+        for k0 in range(0, k, 16):
+            y = y + mma(k0)
+        return y
+    nsplit, split_k = plans.skinny_plan(sms, t, k, n)
+    y = None
+    for r in range(nsplit):
+        kb, ke = r * split_k, min((r + 1) * split_k, k)
+        blk = None
+        for wp in range(4):
+            acc = torch.zeros(t, n)
+            for k0 in range(kb + 32 * wp, ke, 128):
+                acc = acc + mma(k0)
+                acc = acc + mma(k0 + 16)
+            blk = acc if blk is None else blk + acc
+        y = blk if y is None else y + blk
+    return y
+
+
+@pytest.mark.parametrize("t", [1, 8, 32, 70])
+@pytest.mark.parametrize("n,k", [(384, 512), (128, 1376)])
+def test_kernel_summation_order_matches_jax(t, n, k):
+    """The kernel's summation order (split-K clusters and warps at small T,
+    the tile's K order past plans.SKINNY_ROWS), reproduced on the CPU, stays
+    within the JAX suite's 1e-4 of JAX's qmatmul."""
+    planes = _planes(n, k, seed=t + n)
+    x = _x(t, k, seed=t + 1)
+    want = np.asarray(jax_qmatmul(jnp.asarray(x), _jax_ql(planes, k, n)))
+    ql = _port_ql(planes, k, n)
+    got = _kernel_order_model(torch.from_numpy(x), ql.planes["qs"],
+                              ql.planes["d"]).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+_SHAPES_8B = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+              (4096, 128256)]
+
+
+@pytest.mark.parametrize("t", [1, 8, 16, 32])
+@pytest.mark.parametrize("k,n", _SHAPES_8B,
+                         ids=["qkv", "wo", "gate_up", "down", "head"])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_skinny_plan_covers_the_sms(sms, k, n, t):
+    """The skinny kernel's plan at the 8B shapes: at least one block an SM,
+    at most one portable cluster of splits, each split whole 128-row units,
+    the splits covering K in rank order with none empty."""
+    nsplit, split_k = plans.skinny_plan(sms, t, k, n)
+    assert -(-n // plans.STRIP_COLS) * nsplit >= sms
+    assert 1 <= nsplit <= plans.MAX_CLUSTER
+    assert split_k % plans.SPLIT_UNIT == 0
+    bounds = [(r * split_k, min((r + 1) * split_k, k))
+              for r in range(nsplit)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(a < b for a, b in bounds)
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(nsplit - 1))
+
+
+@pytest.mark.parametrize("stage_k", [64, 128], ids=["q8_0", "w8a8"])
+@pytest.mark.parametrize("t", [33, 70, 128, 256, 512])
+@pytest.mark.parametrize("k,n", _SHAPES_8B,
+                         ids=["qkv", "wo", "gate_up", "down", "head"])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_tile_plan_covers_the_sms(sms, k, n, t, stage_k):
+    """The tile's plan: 256 rows only past 128 tokens; K split in at most
+    two in rank order, none empty nor shallower than MIN_TILE_STAGES; and
+    the blocks cover the SMs unless every plan that covers them costs more
+    in the measured model (a second wave of blocks: at T = 512 the 8B qkv's
+    96 256-row blocks, 0.0808 ms on an H100 80GB HBM3 at 700 W, beat its
+    192 128-row ones, 0.1234; experiments/matmul_plans.py)."""
+    bm, nsplit, split_k = plans.tile_plan(sms, t, k, n, stage_k)
+    assert bm in (128, 256) and (bm == 128 or t > 128)
+    assert nsplit in (1, 2) and split_k % stage_k == 0
+    stages = -(-k // stage_k)
+    assert nsplit == 1 or split_k // stage_k >= plans.MIN_TILE_STAGES
+    bounds = [(r * split_k, min((r + 1) * split_k, k))
+              for r in range(nsplit)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(a < b for a, b in bounds)
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(nsplit - 1))
+    blocks = -(-t // bm) * -(-n // plans.TILE_COLS) * nsplit
+    if blocks < sms:
+        cost = plans.tile_cost(sms, t, n, bm, nsplit)
+        for cbm in ((128, 256) if t > 128 else (128,)):
+            for cns in ((1, 2) if stages >= 2 * plans.MIN_TILE_STAGES
+                        else (1,)):
+                if -(-t // cbm) * -(-n // plans.TILE_COLS) * cns >= sms:
+                    assert plans.tile_cost(sms, t, n, cbm, cns) > cost

@@ -164,7 +164,7 @@ def _wplanes(seed):
     return jw8.requant_w8a8(_w(seed, (K, N)))
 
 
-@pytest.mark.parametrize("t", [1, 4, 64])
+@pytest.mark.parametrize("t", [1, 4, 8, 32, 64, 70, 512])
 def test_plain_twin_matches_jax(t):
     """The plain twin and the port's CPU qmatmul against the interpret-mode
     Pallas kernel and the JAX CPU qmatmul at 1e-5, and the numpy golden
@@ -269,3 +269,57 @@ def test_shape_checks_raise(q_shape, s_shape):
         cw8.w8a8_matmul_cuda(torch.zeros(1, K),
                              torch.zeros(q_shape, dtype=torch.int8),
                              torch.ones(s_shape))
+
+
+def _quant_case(case):
+    """x [T, K] f32 for a folded-quantization case, and its layout/dtype:
+    the kernel's quantize pass reads bf16 or f32 x at any strides."""
+    kind, k = case
+    rng = np.random.default_rng(k + len(kind))
+    if kind == "ties":
+        # amax 127 gives am = 1: every x.5 is a rounding tie (half to even)
+        x = rng.integers(-126, 126, size=(4, k)).astype(np.float32) + 0.5
+        x[:, 0] = 127.0
+        x[2, ::3] = -127.0
+        x[3, 1] = -0.5
+        return x
+    x = (rng.normal(size=(8, k)) * np.linspace(0.5, 2.0, k)
+         + 0.1).astype(np.float32)
+    x[3] = 0.0  # a zero row keeps scale 1
+    x[5, :7] = 1e-42  # subnormal values in a live row
+    return x
+
+
+_QUANT_CASES = [("ties", 512), ("rows", 512), ("rows", 4096),
+                ("rows", 14336)]
+
+
+@pytest.mark.parametrize("layout", ["f32", "bf16", "f32 column-major",
+                                    "bf16 column-major"])
+@pytest.mark.parametrize("case", _QUANT_CASES,
+                         ids=[f"{a}-{b}" for a, b in _QUANT_CASES])
+def test_folded_quantization_matches_jax(case, layout):
+    """The quantization the W8A8 kernel folds in (its twin,
+    quantize_rows_torch, on the f32 values of x as the wrapper hands them
+    over) against JAX's core/w8a8.quantize_rows, codes and scales bit for
+    bit: zero rows, exact .5 ties, K 512-14336, bf16 and f32 x, and the
+    column-major view the embedding lookup gives layer 0."""
+    x = _quant_case(case)
+    if layout.startswith("bf16"):
+        x = x.astype(ml_dtypes.bfloat16)
+    want_a, want_am = jw8.quantize_rows(jnp.asarray(x.astype(np.float32)),
+                                        jnp)
+    xt = array_to_torch(x, "cpu")
+    if "column-major" in layout:
+        xt = xt.t().contiguous().t()
+        assert not xt.is_contiguous()
+    got_a, got_am = pdq.quantize_rows_torch(xt.to(torch.float32))
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    np.testing.assert_array_equal(got_am.numpy(), np.asarray(want_am))
+    # and through the matmul twin the wrapper runs on a CPU tensor
+    planes = jw8.requant_w8a8(_w(30, (x.shape[1], 64)))
+    want = jw8.w8a8_matmul_golden(x.astype(np.float32), planes, x.shape[1],
+                                  64)
+    got = cw8.w8a8_matmul_cuda(xt, torch.from_numpy(planes["q"]),
+                               torch.from_numpy(planes["s"]))
+    np.testing.assert_array_equal(got.numpy(), want)
