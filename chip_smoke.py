@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught); the set-up always
 runs, `python3 chip_smoke.py kernels,serve` (names comma-separated) runs a
 subset of the rest:
 
-  set-up: the card's name and power limit, TF32 off, the seven kernel
+  set-up: the card's name and power limit, TF32 off, the eight kernel
      sources built from csrc/ with nvcc (one process each, in parallel;
      the streamer's host library csrc/ntstage.cpp with g++ beside them)
      and nvcc's register report printed;
@@ -24,7 +24,10 @@ subset of the rest:
      append at the serving shapes (8B, B = 1 to 32, bf16 and int8);
   qkernels: the same for the Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul
      kernels at T = 1, 32 and 512 (8B shapes, the Q6_K head, repolm512's
-     shapes, a ragged N);
+     shapes, a ragged N), and T = 8 and 64 at the 8B gate|up (Q4_K) and
+     down (Q6_K); each Q4_K and Q6_K row with its profiler device time,
+     one kernel a call (the skinny kernel or the wgmma tile of
+     csrc/kquant_matmul.cu), the counter and the profiler agreeing;
   real: models/repolm512_q8.gguf through the CLI on the card, Engine greedy
      generation on the card against the CPU, teacher-forced on the CPU's
      tokens with every step's logits compared, and each layer of the kernel
@@ -1793,8 +1796,13 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
     qkv, wo, fused gate|up, down; the 128256-token head for Q6_K), a layer
     view of stacked planes, repolm512's K = 1024 down and 384-wide head,
     a ragged N = 200 (scalar loads) and, for Q4_0, K = 1056 (a half K
-    step). Times by CUDA events as in the kernels phase; the library
-    yardstick is torch.matmul on the pre-dequantized bf16 weight."""
+    step); for Q4_K at the 8B gate|up and Q6_K at the 8B down also T = 8
+    (the 8-slot server's step) and T = 64 (the first tile T). Times by CUDA
+    events as in the kernels phase; the library yardstick is torch.matmul
+    on the pre-dequantized bf16 weight. A Q4_K or Q6_K call is one kernel
+    (the skinny kernel up to 32 tokens, the wgmma tile past it): each of
+    their rows carries the profiler's device time and kernels a call, both
+    the counter and the profiler reading one, and no other kernel."""
     from ntransformer_tpu_torch.core.dtypes import DType
     from ntransformer_tpu_torch.core.layout import LAYOUTS
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
@@ -1804,10 +1812,14 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
     out = {}
     for dtype in (DType.Q4_0, DType.Q4_K, DType.Q5_K, DType.Q6_K):
         kern = nm.KERNELS[dtype]
-        shapes = [("8b qkv", 4096, 6144, (1, 32, 512)),
-                  ("8b wo", 4096, 4096, (1, 32, 512)),
-                  ("8b gate|up", 4096, 28672, (1, 32, 512)),
-                  ("8b down", 14336, 4096, (1, 32, 512))]
+        one_kernel = dtype in nm.KQUANT
+        wide = {DType.Q4_K: "8b gate|up", DType.Q6_K: "8b down"}.get(dtype)
+        shapes = [(label, k, n, (1, 8, 32, 64, 512) if label == wide
+                   else (1, 32, 512))
+                  for label, k, n in (("8b qkv", 4096, 6144),
+                                      ("8b wo", 4096, 4096),
+                                      ("8b gate|up", 4096, 28672),
+                                      ("8b down", 14336, 4096))]
         if dtype == DType.Q6_K:
             shapes.append(("8b head", 4096, 128256, (1, 32, 512)))
         shapes += [("8b stacked[1] wo", 4096, 4096, (1, 32)),
@@ -1832,7 +1844,9 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
             for t in ts:
                 x = torch.randn(t, k, device="cuda", generator=g).to(
                     torch.bfloat16)
+                before = kern.launches
                 y = nm.nibble_matmul_cuda(x, planes, dtype)
+                per_call = kern.launches - before
                 y0 = nm.nibble_matmul_plain(x, planes, dtype)
                 torch.cuda.synchronize()
                 err = float((y - y0).abs().max())
@@ -1853,7 +1867,26 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
                        "plane_bytes": pbytes, "max_abs_err": err,
                        "tol": tol, "ms": ms["kernel"],
                        "plain_ms": ms["plain"], "library_ms": ms["library"],
-                       "bound_ms": b_ms, "bound_by": b_by}
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "launches_per_call": per_call}
+                if one_kernel:
+                    # the call's CUDA kernels (torch.profiler): the
+                    # kernel's own and nothing else, one as the counter
+                    prof = profile_calls(
+                        torch, lambda: nm.nibble_matmul_cuda(x, planes,
+                                                             dtype))
+                    mine = {kn: v for kn, v in prof.items()
+                            if "skinny_kernel" in kn or "tile_kernel" in kn}
+                    check(mine == prof, f"{name}: the wrapper launched "
+                          f"other kernels: {prof}")
+                    check(per_call == 1 and sum(v["per_call"] for v in
+                                                prof.values()) == 1,
+                          f"{name}: the profiler saw {prof}, the counter "
+                          f"{per_call} launches a call; want 1")
+                    row.update({
+                        "device_ms": sum(v["ms"] for v in prof.values()),
+                        "kernels_per_call": sum(v["per_call"]
+                                                for v in prof.values())})
                 rows.append(row)
                 print(json.dumps({kern.name: row}), flush=True)
                 del x, y, y0
@@ -3197,9 +3230,10 @@ def main() -> int:
     t0 = time.perf_counter()
     mods = (cm, ca, cb, ck, cw8, cw4, cn)
     from ntransformer_tpu_torch.memory import native
-    with ThreadPoolExecutor(len(mods) + 1) as ex:  # one compiler per source
+    with ThreadPoolExecutor(len(mods) + 2) as ex:  # one compiler per source
         host = ex.submit(native.build)
-        reports = list(ex.map(build.build, [m.NAME for m in mods]))
+        reports = list(ex.map(build.build,
+                              [m.NAME for m in mods] + [cn.KQ_NAME]))
         host.result()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for rep in reports:
@@ -3312,7 +3346,7 @@ def main() -> int:
                (ck.NAME, "csrc/kv_update.cu", ck.REPLACES),
                (cw8.NAME, "csrc/w8a8_matmul.cu", cw8.REPLACES),
                (cw4.NAME, "csrc/w4a8_decode.cu", cw4.REPLACES)]
-    entries += [(k.name, "csrc/nibble_matmul.cu", k.replaces)
+    entries += [(k.name, k.source, k.replaces)
                 for k in cn.KERNELS.values()]
     entries += [(f"{cb.NAME}[{d}]", "csrc/batched_attention.cu",
                  cb.REPLACES_DOT + f" dot_impl={d!r}") for d in DOT_FORMS]

@@ -1,7 +1,7 @@
-// Pieces shared by q8_0_matmul.cu and w8a8_matmul.cu (sm_90a): PTX
-// wrappers (cp.async, named barriers, wgmma, mma.sync), the 4 x 4 byte
-// transpose of an N-major int8 plane, and the warp-specialized wgmma tile
-// both formats run at prefill T (namespace tile).
+// Pieces shared by q8_0_matmul.cu, w8a8_matmul.cu and kquant_matmul.cu
+// (sm_90a): PTX wrappers (cp.async, named barriers, wgmma, mma.sync), the
+// 4 x 4 byte transpose of an N-major int8 plane, and the warp-specialized
+// wgmma tile the formats run at prefill T (namespace tile).
 //
 // The tile. A block computes a BM x 128 tile of y (BM = 128 MW, MW = 1 or
 // 2) with three warpgroups:
@@ -12,8 +12,8 @@
 //    memory; one wgmma batch stays in flight while the next is issued;
 //  * one producer: copies the raw weight rows of a stage with cp.async and
 //    turns them into a ring of 3 K-major B tiles (the format's `transform`:
-//    the Q8_0 dequant, or the int8 transpose), each weight once for BM rows
-//    of activations.
+//    the Q8_0 or K-quant dequant, or the int8 transpose), each weight once
+//    for BM rows of activations.
 // A stage is 128 bytes of K a row: 64 bf16 or 128 int8 values. Named
 // barriers hand the B tiles over: FULL[s % 3] (the producer arrives when
 // tile s is written, the consumers wait) and EMPTY[s % 3] (the consumers
@@ -30,7 +30,9 @@
 //     zeros),
 //   issue_raw(args, raw, st, n0, pt): the producer thread pt's cp.async
 //     copies of stage st into raw,
-//   transform(args, raw, bt, n0, pt): raw -> the swizzled B tile,
+//   transform(args, raw, bt, n0, pt): raw -> the swizzled B tile (a
+//     format that declares STAGED = true gets the stage's index too:
+//     transform(args, raw, bt, n0, pt, st); Q6_K's shared qh rows),
 //   mma(acc, da, db): one wgmma of 32 bytes of K,
 //   store(args, r, c, v0, v1): y[r, c], y[r, c + 1] from a pair.
 // Where the tiles alone leave SMs idle (few tokens, or a narrow N), K is
@@ -41,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hop {
 
@@ -253,6 +257,13 @@ struct Smem {
                 "a split tile's sums do not fit its shared memory");
 };
 
+// F::STAGED, or false where F does not declare it
+template <class F, class = void>
+struct staged : std::false_type {};
+template <class F>
+struct staged<F, std::void_t<decltype(F::STAGED)>>
+    : std::integral_constant<bool, F::STAGED> {};
+
 // stages s0 .. s0 + steps - 1 (a K split's; ring slots count from s0)
 template <class F, int MW>
 __device__ __forceinline__ void produce(const typename F::Args& args,
@@ -276,8 +287,12 @@ __device__ __forceinline__ void produce(const typename F::Args& args,
     issue(st + R_AHEAD);
     if (st >= B_SLOTS)  // the wgmma of stage st - 3 is done with its tile
       bar_sync(BAR_EMPTY + st % B_SLOTS, THREADS);
-    F::transform(args, sm + L::RAW_OFF + (st % RAW_SLOTS) * F::RAW_BYTES,
-                 sm + L::B_OFF + (st % B_SLOTS) * L::B_BYTES, n0, pt);
+    const uint8_t* raw = sm + L::RAW_OFF + (st % RAW_SLOTS) * F::RAW_BYTES;
+    uint8_t* bt = sm + L::B_OFF + (st % B_SLOTS) * L::B_BYTES;
+    if constexpr (staged<F>::value)
+      F::transform(args, raw, bt, n0, pt, s0 + st);
+    else
+      F::transform(args, raw, bt, n0, pt);
     fence_proxy_async();
     bar_arrive(BAR_FULL + st % B_SLOTS, THREADS);
   }

@@ -1,53 +1,47 @@
-// Fused dequant-matmul of the GGUF nibble formats (Q4_0, Q4_K, Q5_K, Q6_K)
-// and of the engine-native W4A8 format for Hopper (sm_90a), plain C
-// interface: one entry point per format.
+// Fused dequant-matmul of the GGUF nibble formats Q4_0 and Q5_K and of the
+// engine-native W4A8 format for Hopper (sm_90a), plain C interface: one
+// entry point per format. (Q4_K and Q6_K, the Q4_K_M pair, are
+// kquant_matmul.cu.)
 //
 // Replaces the TPU kernel ntransformer_tpu/ops/pallas/matmul.py::
-// _quant_matmul_impl with its _q4_0_tile, _q4_k_tile, _q5_k_tile,
-// _q6_k_tile and _w4a8_tile bodies (entry quant_matmul_pallas, reached from
-// ops/linear.py::qmatmul): every quantized product of a Q4_0, Q4_K_M, Q5_K
-// or Q6_K model, at T = 1 (decode) and at T > 1 (prefill chunks, batched
-// steps, verify windows), and the T > 1 products of a W4A8 model (its T = 1
-// product is w4a8_decode.cu).
+// _quant_matmul_impl with its _q4_0_tile, _q5_k_tile and _w4a8_tile bodies
+// (entry quant_matmul_pallas, reached from ops/linear.py::qmatmul): every
+// quantized product of a Q4_0 or Q5_K model, at T = 1 (decode) and at T > 1
+// (prefill chunks, batched steps, verify windows), and the T > 1 products
+// of a W4A8 model (its T = 1 product is w4a8_decode.cu).
 //
 // What it computes. y[T,N] f32 = bf16(x)[T,K] @ W with W[k,n] the bf16 of
 // the weight exactly as the plain dequant (ops/dequant_torch.py, the JAX
 // package's dequant_jnp.py) computes it in f32:
-//   Q4_0:        (nib - 8) * d
-//   Q4_K, Q5_K:  q * (d * sc) - dmin * mn      (Q5_K: q = nib | hb << 4)
-//   Q6_K:        ((nib | hb << 4) - 32) * (d * sc)
-//   W4A8:        nib * s - m                  (s, m f32 planes)
-// with f32 accumulation. For Q4_0, Q4_K and Q5_K every product is exact in
-// f32 (at most 11 + 6 + 5 significant bits), so only the one subtraction
-// rounds, as in the plain dequant; for Q6_K (d * sc) is exact and the one
-// multiply by q rounds, in the plain dequant's order. Kernel and plain twin
-// thus see the same bf16 weights and differ only in the order of the f32
-// sums. W4A8's nib * s is not exact in f32 for an arbitrary s, so an FMA
-// contraction of nib * s - m would round once where the plain dequant
+//   Q4_0:  (nib - 8) * d
+//   Q5_K:  q * (d * sc) - dmin * mn      (q = nib | hb << 4)
+//   W4A8:  nib * s - m                   (s, m f32 planes)
+// with f32 accumulation. For Q4_0 and Q5_K every product is exact in f32
+// (at most 11 + 6 + 5 significant bits), so only the one subtraction
+// rounds, as in the plain dequant. Kernel and plain twin thus see the same
+// bf16 weights and differ only in the order of the f32 sums. W4A8's nib * s
+// is not exact in f32 for an arbitrary s, so an FMA contraction of nib * s - m would round once where the plain dequant
 // rounds twice and change the bf16 weight: its tile rounds the product
 // alone (one fma whose exact result is nib * s, see nib_mul) and then
 // subtracts with __fsub_rn. The TPU kernel's group-sum correction dot for
 // the min term (a VPU trade with its own rounding) is not carried over.
 //
 // Plane layout (core/layout.py): transposed planes, N contiguous. Nibble
-// plane row r of a format with split unit u (32 / 64 / 64 / 128) holds
-// element u * (r / (u/2)) + r % (u/2) in its low nibble and that element
-// + u/2 in its high nibble; the kernel reads x at those two positions.
+// plane row r of a format with split unit u (32 / 64) holds element
+// u * (r / (u/2)) + r % (u/2) in its low nibble and that element + u/2 in
+// its high nibble; the kernel reads x at those two positions.
 //   Q4_0: d row r / 16.
-//   Q4_K, Q5_K: sc_lo / mn_lo (low nibble) and sc_hi / mn_hi (high) row
-//     r / 32, d / dmin row r / 128; Q5_K's qh [K/8, N] row
-//     32 * (r / 128) + r % 32, bit 2c (low) and 2c + 1 (high), c = r%128/32.
-//   Q6_K: sc_lo / sc_hi (signed int8) row r / 16, d row r / 128; qh [K/4, N]
-//     row 32 * (r / 64) + r % 32, whose bit pair at shift 2e belongs to the
-//     low nibble and the one at 4 + 2e to the high, e = r % 64 / 32.
+//   Q5_K: sc_lo / mn_lo (low nibble) and sc_hi / mn_hi (high) row r / 32,
+//     d / dmin row r / 128; qh [K/8, N] row 32 * (r / 128) + r % 32, bit 2c
+//     (low) and 2c + 1 (high), c = r%128/32.
 //   W4A8 (split unit 512): s_lo / m_lo (low nibble) and s_hi / m_hi (high)
 //     f32 row r / 256 (an entry of its own, w4a8_matmul).
 // f16 planes hold the raw bits (int16 on the PyTorch side).
 //
 // What bounds it on the H100. At T = 1 it streams the planes once: bytes
-// over 3.35 TB/s (0.5625 / 0.578125 / 0.703125 / 0.8203125 bytes per
-// weight; Q4_K fused gate|up of an 8B model, K 4096 x N 28672, 67.9 MB:
-// ~20 us). The per-weight dequant (a nibble, a convert, one or two f32 ops
+// over 3.35 TB/s (0.5625 / 0.703125 bytes per weight; Q4_0 fused gate|up
+// of an 8B model, K 4096 x N 28672, 66.1 MB: ~20 us). The per-weight
+// dequant (a nibble, a convert, one or two f32 ops
 // and a bf16 round) is ~7 integer/f32 operations, so unlike Q8_0 the CUDA
 // cores come close to the memory as the limit. At T > 1 it is bound by
 // operations: 2*T*K*N on the bf16 tensor cores (989 TFLOP/s; W4A8's fused
@@ -67,8 +61,7 @@
 //    repeat bit for bit.
 //  * T > 1: nib_mma_kernel. 64x128 output tiles, K stepped 32 plane rows
 //    (64 elements) at a time. Each step stages the 64 x values the step's
-//    planes multiply (two 32-element pieces for Q6_K, whose low and high
-//    nibbles are 64 elements apart), dequantizes the 32 plane rows x 128
+//    planes multiply, dequantizes the 32 plane rows x 128
 //    columns to bf16 in shared memory (transposed, with the XOR swizzle of
 //    q8_0_matmul.cu), and runs mma.sync m16n8k16 bf16 -> f32 on the tensor
 //    cores. No TMA, wgmma or pipelining yet: that is later work.
@@ -84,12 +77,12 @@
 
 namespace {
 
-enum Kind { KQ4_0 = 0, KQ4_K = 1, KQ5_K = 2, KQ6_K = 3 };
+enum Kind { KQ4_0 = 0, KQ5_K = 2 };
 
 struct Planes {
-  const uint8_t* q;      // qs / ql: nibble pairs [K/2, N]
-  const uint8_t* qh;     // high bits: Q5_K [K/8, N], Q6_K [K/4, N]
-  const uint8_t* sc_lo;  // u8 [K/64, N] (K-quants) or int8 [K/32, N] (Q6_K)
+  const uint8_t* q;      // qs: nibble pairs [K/2, N]
+  const uint8_t* qh;     // Q5_K high bits [K/8, N]
+  const uint8_t* sc_lo;  // u8 [K/64, N]
   const uint8_t* sc_hi;
   const uint8_t* mn_lo;  // u8 [K/64, N]
   const uint8_t* mn_hi;
@@ -100,9 +93,9 @@ struct Planes {
 // plane rows per half unit (u / 2): the high nibble's element is this far on
 template <int KIND>
 struct Fmt {
-  static constexpr int HALF = KIND == KQ4_0 ? 16 : (KIND == KQ6_K ? 64 : 32);
+  static constexpr int HALF = KIND == KQ4_0 ? 16 : 32;
   // plane rows that share one set of decoded scales
-  static constexpr int SCALE_ROWS = KIND == KQ4_0 || KIND == KQ6_K ? 16 : 32;
+  static constexpr int SCALE_ROWS = KIND == KQ4_0 ? 16 : 32;
   // plane rows a warp takes at a time in the GEMV
   static constexpr int CHUNK_ROWS = KIND == KQ4_0 ? 16 : 32;
 };
@@ -173,16 +166,8 @@ struct Scales<KQ4_0> {
 };
 
 template <>
-struct Scales<KQ4_K> {
+struct Scales<KQ5_K> {
   float sl[16], sh[16], ml[16], mh[16];
-};
-
-template <>
-struct Scales<KQ5_K> : Scales<KQ4_K> {};
-
-template <>
-struct Scales<KQ6_K> {
-  float sl[16], sh[16];
 };
 
 template <int KIND>
@@ -198,9 +183,10 @@ __device__ __forceinline__ void load_scales<KQ4_0>(const Planes& p, int r,
   for (int j = 0; j < 16; ++j) s.d[j] = f16(dh.h[j]);
 }
 
-__device__ __forceinline__ void load_kscales(const Planes& p, int r, int c0,
-                                             int N, bool full,
-                                             Scales<KQ4_K>& s) {
+template <>
+__device__ __forceinline__ void load_scales<KQ5_K>(const Planes& p, int r,
+                                                   int c0, int N, bool full,
+                                                   Scales<KQ5_K>& s) {
   const size_t g = (size_t)(r / 32) * N, sb = (size_t)(r / 128) * N;
   const H16 dh = ld16(p.d + sb, c0, N, full);
   const H16 mh = ld16(p.dmin + sb, c0, N, full);
@@ -215,36 +201,6 @@ __device__ __forceinline__ void load_kscales(const Planes& p, int r, int c0,
     s.sh[j] = dv * static_cast<float>(b.b[j]);
     s.ml[j] = mv * static_cast<float>(c.b[j]);
     s.mh[j] = mv * static_cast<float>(e.b[j]);
-  }
-}
-
-template <>
-__device__ __forceinline__ void load_scales<KQ4_K>(const Planes& p, int r,
-                                                   int c0, int N, bool full,
-                                                   Scales<KQ4_K>& s) {
-  load_kscales(p, r, c0, N, full, s);
-}
-
-template <>
-__device__ __forceinline__ void load_scales<KQ5_K>(const Planes& p, int r,
-                                                   int c0, int N, bool full,
-                                                   Scales<KQ5_K>& s) {
-  load_kscales(p, r, c0, N, full, s);
-}
-
-template <>
-__device__ __forceinline__ void load_scales<KQ6_K>(const Planes& p, int r,
-                                                   int c0, int N, bool full,
-                                                   Scales<KQ6_K>& s) {
-  const H16 dh = ld16(p.d + (size_t)(r / 128) * N, c0, N, full);
-  const size_t g = (size_t)(r / 16) * N;
-  const U8x16 a = ld8(p.sc_lo + g, c0, N, full);
-  const U8x16 b = ld8(p.sc_hi + g, c0, N, full);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float dv = f16(dh.h[j]);  // signed 8-bit scales: exact products
-    s.sl[j] = dv * static_cast<float>(static_cast<int8_t>(a.b[j]));
-    s.sh[j] = dv * static_cast<float>(static_cast<int8_t>(b.b[j]));
   }
 }
 
@@ -266,59 +222,22 @@ __device__ __forceinline__ void row_weights<KQ4_0>(
   }
 }
 
-template <bool Q5>
-__device__ __forceinline__ void krow(const Planes& p, int r, int c0, int N,
-                                     bool full, const Scales<KQ4_K>& s,
-                                     float (&wl)[16], float (&wh)[16]) {
-  const U8x16 q = ld8(p.q + (size_t)r * N, c0, N, full);
-  U8x16 h;
-  int sh = 0;
-  if (Q5) {
-    h = ld8(p.qh + (size_t)(32 * (r / 128) + r % 32) * N, c0, N, full);
-    sh = 2 * ((r % 128) / 32);
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    int lo = q.b[j] & 15, hi = q.b[j] >> 4;
-    if (Q5) {
-      lo |= ((h.b[j] >> sh) & 1) << 4;
-      hi |= ((h.b[j] >> (sh + 1)) & 1) << 4;
-    }
-    // q * s is exact, so the one rounding is the subtraction's (an FMA
-    // contraction gives the same value)
-    wl[j] = static_cast<float>(lo) * s.sl[j] - s.ml[j];
-    wh[j] = static_cast<float>(hi) * s.sh[j] - s.mh[j];
-  }
-}
-
-template <>
-__device__ __forceinline__ void row_weights<KQ4_K>(
-    const Planes& p, int r, int c0, int N, bool full, const Scales<KQ4_K>& s,
-    float (&wl)[16], float (&wh)[16]) {
-  krow<false>(p, r, c0, N, full, s, wl, wh);
-}
-
 template <>
 __device__ __forceinline__ void row_weights<KQ5_K>(
     const Planes& p, int r, int c0, int N, bool full, const Scales<KQ5_K>& s,
     float (&wl)[16], float (&wh)[16]) {
-  krow<true>(p, r, c0, N, full, s, wl, wh);
-}
-
-template <>
-__device__ __forceinline__ void row_weights<KQ6_K>(
-    const Planes& p, int r, int c0, int N, bool full, const Scales<KQ6_K>& s,
-    float (&wl)[16], float (&wh)[16]) {
   const U8x16 q = ld8(p.q + (size_t)r * N, c0, N, full);
-  const U8x16 h = ld8(p.qh + (size_t)(32 * (r / 64) + r % 32) * N, c0, N,
-                      full);
-  const int sh = 2 * ((r % 64) / 32);
+  const U8x16 h =
+      ld8(p.qh + (size_t)(32 * (r / 128) + r % 32) * N, c0, N, full);
+  const int sh = 2 * ((r % 128) / 32);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const int lo = ((q.b[j] & 15) | (((h.b[j] >> sh) & 3) << 4)) - 32;
-    const int hi = ((q.b[j] >> 4) | (((h.b[j] >> (sh + 4)) & 3) << 4)) - 32;
-    wl[j] = static_cast<float>(lo) * s.sl[j];
-    wh[j] = static_cast<float>(hi) * s.sh[j];
+    const int lo = (q.b[j] & 15) | (((h.b[j] >> sh) & 1) << 4);
+    const int hi = (q.b[j] >> 4) | (((h.b[j] >> (sh + 1)) & 1) << 4);
+    // q * s is exact, so the one rounding is the subtraction's (an FMA
+    // contraction gives the same value)
+    wl[j] = static_cast<float>(lo) * s.sl[j] - s.ml[j];
+    wh[j] = static_cast<float>(hi) * s.sh[j] - s.mh[j];
   }
 }
 
@@ -419,15 +338,10 @@ __device__ __forceinline__ int swz(int n, int k) {
   return k ^ (((n >> 4) & 7) << 2);
 }
 
-// x element of tile column kc (0..63) at K step st. Q4_0, Q4_K and Q5_K
-// step over 64 contiguous elements; a Q6_K step's 32 plane rows hold the
-// low nibbles of 32 elements and the high nibbles of the 32 that lie 64 on.
+// x element of tile column kc (0..63) at K step st: Q4_0 and Q5_K step
+// over 64 contiguous elements
 template <int KIND>
 __device__ __forceinline__ int tile_elem(int st, int kc) {
-  if (KIND == KQ6_K) {
-    const int lo_base = 128 * (st / 2) + 32 * (st % 2);
-    return lo_base + (kc < 32 ? kc : kc + 32);
-  }
   return MM_BK * st + kc;
 }
 
@@ -476,7 +390,7 @@ nib_mma_kernel(const __nv_bfloat16* __restrict__ x, Planes p,
   const int steps = (rows + 31) / 32;
   for (int st = 0; st < steps; ++st) {
     // x tile: 64 rows x 64 bf16, as 512 chunks of 8 (a chunk never
-    // straddles a Q6_K piece or the end of K: K % 32 == 0)
+    // straddles the end of K: K % 32 == 0)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = tid + i * 128, row = c >> 3, col = (c & 7) * 8;
@@ -1105,7 +1019,7 @@ int launch(const void* x, const void* q, const void* qh, const void* sc_lo,
 // y [T,N] f32 = x [T,K] bf16 @ dequant(planes). Plane pointers a format does
 // not have are null. work: [nsplit, N] f32 scratch when T == 1 and
 // nsplit > 1. split_rows: plane rows per split at T == 1 (whole scale units;
-// superblocks for the K-quants). vec: 1 when N % 16 == 0 and every plane is
+// superblocks for Q5_K). vec: 1 when N % 16 == 0 and every plane is
 // 16-byte aligned (vector loads).
 #define NIBBLE_ENTRY(fn, KIND)                                                \
   extern "C" int fn(const void* x, const void* q, const void* qh,             \
@@ -1118,9 +1032,7 @@ int launch(const void* x, const void* q, const void* qh, const void* sc_lo,
   }
 
 NIBBLE_ENTRY(q4_0_matmul, KQ4_0)
-NIBBLE_ENTRY(q4_k_matmul, KQ4_K)
 NIBBLE_ENTRY(q5_k_matmul, KQ5_K)
-NIBBLE_ENTRY(q6_k_matmul, KQ6_K)
 
 // y [T,N] f32 = x [T,K] bf16 @ the W4A8 weight (T > 1; T = 1 is the
 // quantized-activation product of w4a8_decode.cu). qs u8 [K/2, N]; s_* /

@@ -1,6 +1,7 @@
 """Fused dequant-matmul of the GGUF nibble formats (Q4_0, Q4_K, Q5_K,
-Q6_K) and of W4A8 at T > 1: the wrapper of `csrc/nibble_matmul.cu` and its
-plain PyTorch twin.
+Q6_K) and of W4A8 at T > 1: the wrapper of `csrc/nibble_matmul.cu` (Q4_0,
+Q5_K, W4A8) and `csrc/kquant_matmul.cu` (Q4_K, Q6_K) and their plain
+PyTorch twin.
 
 Replaces ntransformer_tpu/ops/pallas/matmul.py::_quant_matmul_impl with its
 _q4_0_tile, _q4_k_tile, _q5_k_tile, _q6_k_tile and _w4a8_tile bodies (entry
@@ -12,20 +13,29 @@ TPU kernel's group-sum correction dot for the min term is not carried over
 path only at T > 1, as on the TPU, and raises at T = 1: its decode product
 quantizes the activations (ops/cuda/w4a8.py).
 
-On the H100 it is bound by bytes at T = 1 (0.5625 to 0.8203125 bytes per
-weight over 3.35 TB/s), with the per-weight dequant close behind on the
-CUDA cores, and by operations at T > 1. The kernel reads x at the two
-element positions of each plane row's nibbles (no activation reorder on the
-card), splits K across blocks on superblock boundaries at T = 1 (a
-fixed-order second pass sums the partials, so runs repeat bit for bit), and
-tiles T x N on the tensor cores at T > 1: mma.sync 64 x 128 tiles for the
-GGUF formats; for W4A8 a warp-specialized wgmma tile (256 x 128, 128 x 256
-or 128 x 128, `w4a8_tile`) whose producer warpgroup dequantizes each stage
-once for all the tile's rows of x while the consumers' wgmma runs; see the
-source.
+On the H100 it is bound by bytes at small T (0.5625 to 0.8203125 bytes
+per weight over 3.35 TB/s), with the per-weight dequant close behind on
+the CUDA cores, and by operations at prefill T. The kernels read x at the
+two element positions of each plane row's nibbles (no activation reorder
+on the card).
 
-One C entry and one launch counter per format (`KERNELS`): a split-K
-product at T = 1 counts two launches, the GEMV and its reduce pass.
+Q4_K and Q6_K, the Q4_K_M pair, run the shapes of the Q8_0 kernel: up to
+`plans.SKINNY_ROWS` tokens a skinny mma.sync kernel that streams the planes
+once with the weight as the M side, its K splits (whole superblocks) one
+cluster summed in rank order, one launch; past it the warp-specialized
+wgmma tile of `csrc/hopper_tile.cuh`, its producer dequantizing each
+32-plane-row stage once for 256 or 128 rows of x (`plans.tile_plan`).
+
+Q4_0 and Q5_K split K across blocks on superblock boundaries at T = 1 (a
+fixed-order second pass sums the partials, so runs repeat bit for bit) and
+tile T x N with mma.sync 64 x 128 tiles at T > 1; W4A8 runs a
+warp-specialized wgmma tile (256 x 128, 128 x 256 or 128 x 128,
+`w4a8_tile`) whose producer warpgroup dequantizes each stage once for all
+the tile's rows of x while the consumers' wgmma runs; see the sources.
+
+One C entry and one launch counter per format (`KERNELS`): a Q4_0 or Q5_K
+split-K product at T = 1 counts two launches, the GEMV and its reduce
+pass; every other product one.
 """
 from __future__ import annotations
 
@@ -37,9 +47,10 @@ import torch
 from ...core.dtypes import DType
 from ...core.layout import LAYOUTS
 from ..dequant_torch import dequant_planes_torch
-from . import build
+from . import build, plans
 
 NAME = "nibble_matmul"
+KQ_NAME = "kquant_matmul"  # csrc/kquant_matmul.cu: Q4_K and Q6_K
 _TPU = "ntransformer_tpu/ops/pallas/matmul.py:344 _quant_matmul_impl"
 # the eight plane slots of the GGUF formats' C entries, in order; a
 # format's "qs"/"ql" plane goes to "q", and a slot a format lacks gets a
@@ -62,24 +73,35 @@ class Kernel:
     replaces: str
     chunk_rows: int   # plane rows a GEMV warp takes at a time
     split_rows: int   # plane rows of a split unit (whole d / dmin rows)
+    source: str = f"csrc/{NAME}.cu"
     launches: int = 0
 
 
 KERNELS = {
     DType.Q4_0: Kernel("q4_0_matmul", f"{_TPU} + _q4_0_tile :91", 16, 16),
-    DType.Q4_K: Kernel("q4_k_matmul", f"{_TPU} + _q4_k_tile :134", 32, 128),
+    # the skinny kernel and the wgmma tile: no GEMV, so no chunk or split
+    # rows (the skinny plan splits K in superblocks, plans.KQUANT_UNIT)
+    DType.Q4_K: Kernel("q4_k_matmul",
+                       f"{_TPU} + _q4_k_tile :134 (+ _group_sums :111)",
+                       0, 0, f"csrc/{KQ_NAME}.cu"),
     DType.Q5_K: Kernel("q5_k_matmul", f"{_TPU} + _q5_k_tile :172", 32, 128),
-    DType.Q6_K: Kernel("q6_k_matmul", f"{_TPU} + _q6_k_tile :211", 32, 128),
+    DType.Q6_K: Kernel("q6_k_matmul", f"{_TPU} + _q6_k_tile :211", 0, 0,
+                       f"csrc/{KQ_NAME}.cu"),
     # T > 1 only: no GEMV, so no chunk or split rows
     DType.W4A8: Kernel("w4a8_matmul", f"{_TPU} + _w4a8_tile :248", 0, 0),
 }
+KQUANT = (DType.Q4_K, DType.Q6_K)
 # the block along K of each format: 32 elements for Q4_0, 512 (two 256
 # groups) for W4A8, a 256-element superblock for the K-quants
 _K_UNIT = {DType.Q4_0: 32, DType.W4A8: 512}
-_SIGNATURES = {kern.name: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-               + [ctypes.c_void_p] for kern in KERNELS.values()}
+_SIGNATURES = {KERNELS[dt].name: [ctypes.c_void_p] * 11
+               + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+               for dt in (DType.Q4_0, DType.Q5_K)}
 _SIGNATURES["w4a8_matmul"] = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                               + [ctypes.c_void_p])
+_KQ_SIGNATURES = {KERNELS[dt].name: [ctypes.c_void_p] * 10
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p] for dt in KQUANT}
+_MAGIC = 0x4B000000  # the f32 2^23 the K-quant kernels build codes on
 
 
 def check_shapes(x: torch.Tensor, planes: dict, dtype: DType):
@@ -134,9 +156,9 @@ def sm_count(device: torch.device) -> int:
 
 def split_plan(device: torch.device, dtype: DType, k: int,
                n: int) -> tuple[int, int]:
-    """(plane rows per split, splits) at T = 1: enough (strip, split)
-    blocks to cover the SMs twice, a split holding whole split units and at
-    least one chunk per warp."""
+    """(plane rows per split, splits) of the Q4_0 / Q5_K GEMV at T = 1:
+    enough (strip, split) blocks to cover the SMs twice, a split holding
+    whole split units and at least one chunk per warp."""
     kern = KERNELS[dtype]
     rows = k // 2
     units = rows // kern.split_rows
@@ -182,9 +204,30 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
     if x.data_ptr() % 16:
         x = x.clone()
     kern = KERNELS[dtype]
-    lib = build.load(NAME, _SIGNATURES)
     vec = int(n % 16 == 0 and all(a.data_ptr() % 16 == 0
                                   for a in planes.values()))
+    by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
+    ptrs = [by_slot[s].data_ptr() if s in by_slot else None for s in SLOTS]
+    if dtype in KQUANT:
+        lib = build.load(KQ_NAME, _KQ_SIGNATURES)
+        sms = plans.sm_count(x.device)
+        if t <= plans.SKINNY_ROWS:
+            path, bm = 0, 0
+            nsplit, split_k = plans.skinny_plan(sms, t, k, n,
+                                                plans.KQUANT_UNIT)
+        else:
+            path = 1
+            bm, nsplit, split_k = plans.tile_plan(sms, t, k, n, 64)
+        y = torch.empty(t, n, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            rc = getattr(lib, kern.name)(
+                x.data_ptr(), *ptrs, y.data_ptr(), t, k, n, path, nsplit,
+                split_k, bm, vec, _MAGIC,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, rc, kern.name)
+        kern.launches += 1
+        return y
+    lib = build.load(NAME, _SIGNATURES)
     if dtype == DType.W4A8:
         y = torch.empty(t, n, dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
@@ -204,8 +247,6 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
     y = torch.empty(t, n, dtype=torch.float32, device=x.device)
     work = (torch.empty(nsplit, n, dtype=torch.float32, device=x.device)
             if nsplit > 1 else y)
-    by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
-    ptrs = [by_slot[s].data_ptr() if s in by_slot else None for s in SLOTS]
     with torch.cuda.device(x.device):
         rc = getattr(lib, kern.name)(
             x.data_ptr(), *ptrs, y.data_ptr(), work.data_ptr(), t, k, n,
