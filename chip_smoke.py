@@ -21,13 +21,18 @@ subset of the rest:
      before every launch, runs in turns), the least time the card could
      take, and one PyTorch library call as a yardstick;
   bkernels: the same for batched flash decode/verify and the in-place KV
-     append at the serving shapes (8B, B = 1 to 32, bf16 and int8);
+     append at the serving shapes (8B, B = 1 to 32, bf16 and int8), each
+     row with its profiler device time and kernels a call, the launch
+     counter and the profiler agreeing (the split kernel of "f32" and
+     "int8_s" one launch a call where its splits fit a cluster), and the
+     s_live bucket's result bit-equal to the whole cache's;
   qkernels: the same for the Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul
      kernels at T = 1, 32 and 512 (8B shapes, the Q6_K head, repolm512's
-     shapes, a ragged N), and T = 8 and 64 at the 8B gate|up (Q4_K) and
-     down (Q6_K); each Q4_K and Q6_K row with its profiler device time,
-     one kernel a call (the skinny kernel or the wgmma tile of
-     csrc/kquant_matmul.cu), the counter and the profiler agreeing;
+     shapes, a ragged N), and T = 8 and 64 at the 8B gate|up (Q4_K, Q5_K)
+     and down (Q6_K); every row with its profiler device time and kernels
+     a call, the counter and the profiler agreeing; the K-quants (Q4_K,
+     Q5_K, Q6_K) one kernel a call (the skinny kernel or the wgmma tile of
+     csrc/kquant_matmul.cu);
   real: models/repolm512_q8.gguf through the CLI on the card, Engine greedy
      generation on the card against the CPU, teacher-forced on the CPU's
      tokens with every step's logits compared, and each layer of the kernel
@@ -331,15 +336,21 @@ def profile_calls(torch, fn, calls: int = 10, warm: int = 5,
                default={})
 
 
-def device_profile(torch, fn, marker: str, calls: int = 10) -> dict:
+def device_profile(torch, fn, marker, calls: int = 10) -> dict:
     """profile_calls of fn, summed per call: the device ms of every CUDA
-    kernel it launches, of those whose name holds `marker` (the kernel's
-    own), and the number of CUDA kernels."""
+    kernel it launches and of those whose name holds `marker` (or, given a
+    tuple, its first: the kernel's own), the number of CUDA kernels, and
+    of those whose name holds any of the tuple's markers (the wrapper's
+    launches, which its counter counts)."""
     prof = profile_calls(torch, fn, calls)
+    marks = (marker,) if isinstance(marker, str) else marker
+    own = {k: v for k, v in prof.items() if any(m in k for m in marks)}
     return {"device_ms": sum(v["ms"] for v in prof.values()),
             "kernel_device_ms": sum(v["ms"] for k, v in prof.items()
-                                    if marker in k),
-            "kernels_per_call": sum(v["per_call"] for v in prof.values())}
+                                    if marks[0] in k),
+            "kernels_per_call": sum(v["per_call"] for v in prof.values()),
+            "own_kernels_per_call": sum(v["per_call"]
+                                        for v in own.values())}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -649,6 +660,15 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
             fns["library"] = lambda: F.scaled_dot_product_attention(
                 qb, kb, vb, attn_mask=mask[:, None], scale=scale)
         ms = timer.compare(fns)
+        # the call's CUDA kernels (torch.profiler) against the counter
+        before = cb.launches_by_dot["f32"]
+        kern()
+        per_call = cb.launches_by_dot["f32"] - before
+        prof = device_profile(torch, kern, ("split_kernel", "combine_kernel"))
+        check(prof["own_kernels_per_call"] == per_call,
+              f"batched flash {label}: the profiler saw "
+              f"{prof['own_kernels_per_call']} of its kernels a call, the "
+              f"counter {per_call}")
         keys = 0
         for bi in range(b_n):
             a = act_l is None or act_l[bi]
@@ -668,7 +688,8 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
                "live_keys": keys, "max_abs_err": err, "row_rel_err": row_rel,
                "tol": BATCHED_RTOL, "ms": ms["kernel"],
                "plain_ms": ms["plain"], "library_ms": ms.get("library"),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "launches_per_call": per_call, **prof}
         att_rows.append(row)
         print(json.dumps({"batched_flash": row}), flush=True)
         del kc, vc, kcache, vcache, kf, vf, kb, vb
@@ -734,6 +755,15 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
         ms = timer.compare({"kernel": lambda: launch(caches, rows, pos, act),
                             "plain": lambda: plain_fn(caches, rows, pos, act),
                             "library": library})
+        before = ck.launches
+        launch(caches, rows, pos, act)
+        per_call = ck.launches - before
+        prof = device_profile(torch, lambda: launch(caches, rows, pos, act),
+                              "kv_append")
+        check(prof["own_kernels_per_call"] == per_call == 1,
+              f"kv append {label}: the profiler saw "
+              f"{prof['own_kernels_per_call']} of its kernels a call, the "
+              f"counter {per_call}; want 1")
         n_act = sum(act_l)
         # the kernel reads and writes the active slots' rows only
         rows_in = sum(r.numel() // b_n * n_act * r.element_size()
@@ -744,7 +774,8 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
         row = {"shape": label, "L": layers, "B": b_n, "S": s, "int8": int8,
                "max_abs_err": 0.0, "tol": "bit-equal", "ms": ms["kernel"],
                "plain_ms": ms["plain"], "library_ms": ms["library"],
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "launches_per_call": per_call, **prof}
         app_rows.append(row)
         print(json.dumps({"kv_append": row}), flush=True)
         del caches, ref, rows, lib_rows
@@ -894,10 +925,23 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
             kern(dot)
             per_call = cb.launches_by_dot[dot] - before
             # device time at the main shape and at 17 key blocks
-            prof = device_profile(torch, lambda: kern(dot),
-                                  "split_kernel" if dot == "int8_s"
-                                  else "group_kernel") \
+            prof = device_profile(
+                torch, lambda: kern(dot),
+                ("split_kernel" if dot == "int8_s" else "group_kernel",
+                 "combine_kernel")) \
                 if label in (cases[0][0], cases[-1][0]) else {}
+            check(not prof or prof["own_kernels_per_call"] == per_call,
+                  f"batched flash {dot} {label}: the profiler saw "
+                  f"{prof.get('own_kernels_per_call')} of its kernels a "
+                  f"call, the counter {per_call}")
+            if dot == "int8_s" and label == cases[0][0]:
+                # the split form's bucket contract: bit-equal to full S
+                ob = cb.flash_verify_batched(
+                    q, kcache, vcache, knew, vnew, pos, scale, layer=1,
+                    active=act, s_live=640, dot_impl=dot)
+                torch.cuda.synchronize()
+                check(torch.equal(o, ob), f"batched flash {dot} {label}: "
+                      "the s_live 640 result differs from the full-S one")
             row = {"shape": label, "dot_impl": dot, "B": b_n, "S": s, "T": t,
                    "int8": int8, "s_live": s_live, "live_keys": keys,
                    "max_abs_err": float((o - o0).abs().max()),
@@ -1797,12 +1841,13 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
     view of stacked planes, repolm512's K = 1024 down and 384-wide head,
     a ragged N = 200 (scalar loads) and, for Q4_0, K = 1056 (a half K
     step); for Q4_K at the 8B gate|up and Q6_K at the 8B down also T = 8
-    (the 8-slot server's step) and T = 64 (the first tile T). Times by CUDA
-    events as in the kernels phase; the library yardstick is torch.matmul
-    on the pre-dequantized bf16 weight. A Q4_K or Q6_K call is one kernel
-    (the skinny kernel up to 32 tokens, the wgmma tile past it): each of
-    their rows carries the profiler's device time and kernels a call, both
-    the counter and the profiler reading one, and no other kernel."""
+    (the 8-slot server's step) and T = 64 (the first tile T), Q5_K at the
+    8B gate|up too. Times by CUDA events as in the kernels phase; the
+    library yardstick is torch.matmul on the pre-dequantized bf16 weight.
+    Every row carries the profiler's device time and kernels a call, the
+    counter reading as many. A K-quant call (Q4_K, Q5_K, Q6_K) is one
+    kernel (the skinny kernel up to 32 tokens, the wgmma tile past it) and
+    no other."""
     from ntransformer_tpu_torch.core.dtypes import DType
     from ntransformer_tpu_torch.core.layout import LAYOUTS
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
@@ -1813,7 +1858,8 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
     for dtype in (DType.Q4_0, DType.Q4_K, DType.Q5_K, DType.Q6_K):
         kern = nm.KERNELS[dtype]
         one_kernel = dtype in nm.KQUANT
-        wide = {DType.Q4_K: "8b gate|up", DType.Q6_K: "8b down"}.get(dtype)
+        wide = {DType.Q4_K: "8b gate|up", DType.Q5_K: "8b gate|up",
+                DType.Q6_K: "8b down"}.get(dtype)
         shapes = [(label, k, n, (1, 8, 32, 64, 512) if label == wide
                    else (1, 32, 512))
                   for label, k, n in (("8b qkv", 4096, 6144),
@@ -1869,24 +1915,22 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
                        "plain_ms": ms["plain"], "library_ms": ms["library"],
                        "bound_ms": b_ms, "bound_by": b_by,
                        "launches_per_call": per_call}
+                # the call's CUDA kernels (torch.profiler), as many as the
+                # counter's launches; a K-quant's the kernel's own, one
+                prof = profile_calls(
+                    torch, lambda: nm.nibble_matmul_cuda(x, planes, dtype))
+                n_prof = sum(v["per_call"] for v in prof.values())
+                check(n_prof == per_call, f"{name}: the profiler saw "
+                      f"{prof}, the counter {per_call} launches a call")
                 if one_kernel:
-                    # the call's CUDA kernels (torch.profiler): the
-                    # kernel's own and nothing else, one as the counter
-                    prof = profile_calls(
-                        torch, lambda: nm.nibble_matmul_cuda(x, planes,
-                                                             dtype))
                     mine = {kn: v for kn, v in prof.items()
                             if "skinny_kernel" in kn or "tile_kernel" in kn}
                     check(mine == prof, f"{name}: the wrapper launched "
                           f"other kernels: {prof}")
-                    check(per_call == 1 and sum(v["per_call"] for v in
-                                                prof.values()) == 1,
-                          f"{name}: the profiler saw {prof}, the counter "
-                          f"{per_call} launches a call; want 1")
-                    row.update({
-                        "device_ms": sum(v["ms"] for v in prof.values()),
-                        "kernels_per_call": sum(v["per_call"]
-                                                for v in prof.values())})
+                    check(per_call == 1, f"{name}: {per_call} launches a "
+                          "call; want 1")
+                row.update({"device_ms": sum(v["ms"] for v in prof.values()),
+                            "kernels_per_call": n_prof})
                 rows.append(row)
                 print(json.dumps({kern.name: row}), flush=True)
                 del x, y, y0

@@ -40,22 +40,35 @@
 //
 // What bounds it on the H100. The bytes: every live K and V row (and its
 // scales) is read once; q, the new rows and the output are small. Decode
-// attention does a few operations per byte, far below the card's ratio.
+// (R = 4) does about 8 operations per cache byte, under the CUDA cores' 20
+// (67 TFLOP/s over 3.35 TB/s): bytes set the time. A verify window of 16 or
+// 32 rows does 32-64, and the f32 operations set it.
 //
-// What the design does about it. The split kernel ("f32", "int8_s"): one
-// block cannot fill the card at small batch (B = 1 has Hkv = 8 (sequence, head) pairs for 132 SMs), so the live
-// key range of each (sequence, head) is split over `nsplit` blocks; each
-// writes an unnormalised partial (m, l, acc) and a second pass merges the
-// partials in a fixed order, then folds in the virtual rows and normalises
-// (deterministic, no atomics), as the Q8_0 GEMV splits K. A block stops at
-// its sequence's own last live key, so a short sequence reads only its
-// rows. Inside a block a tile of 32 keys is staged in shared memory; a lane
-// computes one key's scores for the rows of its warp, the online softmax runs
-// as warp reductions, and each thread then owns one output column. The TPU
-// kernel's head-merged block-diagonal dot is a VPU trade of that chip and is
-// not carried over. f32 FMAs on the CUDA cores for the f32 and bf16 forms,
-// dp4a and int32 multiply-adds for the int8 forms: bytes, not operations,
-// set the time.
+// The split kernel ("f32", "int8_s"). The live keys of each (sequence,
+// head) are split over `nsplit` blocks, a count the wrapper takes from the
+// shapes alone (never from s_live, so an s_live bucket changes no bit): a
+// block an SM (B = 1 has Hkv = 8 (sequence, head) pairs for 132 SMs; at B =
+// 32 one block a pair walks longest and measured fastest). A block walks its
+// share in tiles of 128 keys through a two-stage cp.async ring of the raw
+// cache rows (codes or bf16, with the codes' scales, and the virtual rows
+// with the first tile), so one tile is in flight while the last is computed
+// and no thread holds a byte in flight; values are converted to f32 in
+// registers where they are used (int8 codes exactly, through the f32 2^23:
+// one byte permute and one subtraction a value), never expanded in shared
+// memory. One key a thread for the score dot (dp4a on the raw codes for
+// "int8_s"), 8 query rows at a time into shared memory, the rows instanced
+// at 4, 8 and 32. Warp w owns keys [32 w, 32 w + 32) of every tile and
+// keeps its own online softmax over them, a row at a time (row r's running
+// max and denominator in lane r, so any S works with no score kept), and
+// its own value sums, a lane D / 32 columns, with p * vs broadcast from
+// shared memory. After the walk the four warps are added in warp order,
+// each scaled to the block's row max. Where the splits of a (sequence, head)
+// fit one thread-block cluster (8 or fewer), every rank takes a share of the
+// output and adds the splits in rank order through distributed shared
+// memory, folds in the virtual rows and normalises: one launch a call.
+// Otherwise each block writes its unnormalised partial (m, l, acc) and the
+// combine pass merges them in split order: two launches. Every order is
+// fixed, so runs repeat bit for bit.
 //
 // The group kernel (the per-block forms). Its clusters follow the key
 // blocks of the TPU kernel: one cluster of csize blocks (csize <= 8) per
@@ -103,10 +116,8 @@
 namespace {
 
 constexpr int NT = 128;    // threads per block (4 warps)
-constexpr int BK = 32;     // cache keys per tile: one per lane
 constexpr int RMAX = 32;   // query rows per (sequence, kv head): group * T
 constexpr int TMAX = 8;    // new (virtual) rows per sequence
-constexpr int WROWS = RMAX / 4;  // rows per warp in the score passes
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 
 // dot_impl codes, as the wrapper passes them
@@ -134,10 +145,13 @@ struct Params {
   float* part_max;    // [B, Hkv, nsplit, R] per-block row max (group forms)
   float* out;         // [B, Hkv, R, D]
   int B, Hkv, S, R, T, group, layer, s_live, window, nsplit, block_s;
-  int csize, slice_cap;  // the group kernel's cluster and slice capacity
+  int csize;          // blocks a cluster (split forms: 0, no cluster)
+  int slice_cap;      // the group kernel's slice capacity
   float scale, softcap;
   float qscale;       // f32(scale / 127): the int8 score dot's fix-up
   float inv127;       // f32(1 / 127): the int8 value dot's fix-up
+  uint32_t magic;     // 0x4B000000, the f32 2^23 (a run-time value keeps
+                      // the byte permutes' selectors immediate)
 };
 
 template <typename Tc>
@@ -198,292 +212,12 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Shared memory of the split kernel: q (f32, and its int8 codes for the int8
-// score dot), one tile of K (f32, or the raw int8 codes with a padded row)
-// and of V (f32), the tile's probabilities and per-row and per-key scalars.
-struct Smem {
-  float* Qs;     // [R][D]
-  float* Ks;     // [BK][D + 4] f32, or int8 [BK][D + 16]
-  float* Vs;     // [BK][D] f32
-  float* Ps;     // [R][BK] f32
-  float* Al;     // [RMAX] rescale of the running sums
-  float* QMS;    // [RMAX] qm * scale / 127 of each row (int8 score dot)
-  float* Ksc;    // [BK]
-  float* Vsc;    // [BK]
-  int8_t* Q8;    // [R][D]
-  __device__ Smem(float* s, int R, int D) {
-    Qs = s;
-    Ks = Qs + R * D;
-    Vs = Ks + BK * (D + 4);
-    Ps = Vs + BK * D;
-    Al = Ps + R * BK;
-    QMS = Al + RMAX;
-    Ksc = QMS + RMAX;
-    Vsc = Ksc + BK;
-    Q8 = reinterpret_cast<int8_t*>(Vsc + BK);
-  }
-};
-
-size_t smem_bytes(int R, int D) {
-  return sizeof(float) * (size_t)(R * D + BK * (D + 4) + BK * D + R * BK +
-                                  2 * RMAX + 2 * BK) +
-         (size_t)R * D;
-}
-
-// q of (b, h) into shared memory: f32, rounded to bf16 for the bf16 score
-// dot, and quantized per row for the int8 score dot. The caller syncs.
-template <int D, int SC>
-__device__ __forceinline__ void load_q(const Params& p, size_t bh,
-                                       const Smem& sm, int tid) {
-  const int R = p.R;
-  const float4* q4 = reinterpret_cast<const float4*>(p.q + bh * R * D);
-  for (int i = tid; i < R * D / 4; i += NT) {
-    float4 x = q4[i];
-    if constexpr (SC == SC_BF16) {
-      x.x = bf16_round(x.x);
-      x.y = bf16_round(x.y);
-      x.z = bf16_round(x.z);
-      x.w = bf16_round(x.w);
-    }
-    reinterpret_cast<float4*>(sm.Qs)[i] = x;
-  }
-  if constexpr (SC == SC_I8) {
-    __syncthreads();
-    const int lane = tid & 31, warp = tid >> 5;
-    for (int r = warp; r < R; r += 4) {
-      float a = 0.f;
-      for (int d = lane; d < D; d += 32) a = fmaxf(a, fabsf(sm.Qs[r * D + d]));
-      const float qm = warp_max(a) + 1e-30f;
-      const float inv = 127.0f / qm;
-      for (int d = lane; d < D; d += 32)
-        sm.Q8[r * D + d] =
-            static_cast<int8_t>(rintf(sm.Qs[r * D + d] * inv));
-      if (lane == 0) sm.QMS[r] = qm * p.qscale;
-    }
-  }
-}
-
-// One tile of nk (<= BK) keys from kt into shared memory; rows past nk are
-// zero. KRAW: K as raw int8 codes (int8 score dot), else as f32; V as f32.
-template <int D, typename Tc, bool KRAW>
-__device__ __forceinline__ void load_tile(const Tc* kb, const Tc* vb, int kt,
-                                          int nk, const Smem& sm, int tid) {
-  constexpr int CN = Chunk<Tc>::N;
-  constexpr int CPR = D / CN;       // 16-byte chunks per cache row
-  constexpr int LDK = D + 4;        // f32 Ks row stride: conflict-free float4s
-  constexpr int LDK8 = D + 16;      // int8 Ks row stride: conflict-free int4s
-  for (int c = tid; c < BK * CPR; c += NT) {
-    const int j = c / CPR, c0 = (c % CPR) * CN;
-    const bool in = j < nk;
-    const size_t off = (size_t)(kt + j) * D + c0;
-    if constexpr (KRAW) {
-      const int4 u = in ? *reinterpret_cast<const int4*>(kb + off)
-                        : make_int4(0, 0, 0, 0);
-      *reinterpret_cast<int4*>(reinterpret_cast<int8_t*>(sm.Ks) + j * LDK8 +
-                               c0) = u;
-    } else {
-      float f[CN];
-      if (in) {
-        Chunk<Tc>::load(f, kb + off);
-      } else {
-#pragma unroll
-        for (int e = 0; e < CN; ++e) f[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < CN; e += 4)
-        *reinterpret_cast<float4*>(&sm.Ks[j * LDK + c0 + e]) =
-            make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
-    }
-    float f[CN];
-    if (in) {
-      Chunk<Tc>::load(f, vb + off);
-    } else {
-#pragma unroll
-      for (int e = 0; e < CN; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < CN; e += 4)
-      *reinterpret_cast<float4*>(&sm.Vs[j * D + c0 + e]) =
-          make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
-  }
-}
-
-// The scores of this lane's key for the warp's rows (warp w: rows w, w + 4,
-// ...), scaled (the int8 dot by qm * scale / 127, the others by scale);
-// the key scale and the softcap are the caller's.
-template <int D, int SC>
-__device__ __forceinline__ void tile_scores(float (&s)[WROWS], const Smem& sm,
-                                            int R, int lane, int warp,
-                                            float scale) {
-  if constexpr (SC == SC_I8) {
-    constexpr int LDK8 = D + 16;
-    const int8_t* K8 = reinterpret_cast<const int8_t*>(sm.Ks);
-    int si[WROWS];
-#pragma unroll
-    for (int i = 0; i < WROWS; ++i) si[i] = 0;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 16) {
-      const int4 k4 = *reinterpret_cast<const int4*>(K8 + lane * LDK8 + d);
-#pragma unroll
-      for (int i = 0; i < WROWS; ++i) {
-        const int r = warp + 4 * i;
-        if (r < R) {
-          const int4 q4 = *reinterpret_cast<const int4*>(sm.Q8 + r * D + d);
-          si[i] = __dp4a(q4.x, k4.x, si[i]);
-          si[i] = __dp4a(q4.y, k4.y, si[i]);
-          si[i] = __dp4a(q4.z, k4.z, si[i]);
-          si[i] = __dp4a(q4.w, k4.w, si[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < WROWS; ++i) {
-      const int r = warp + 4 * i;
-      s[i] = r < R ? static_cast<float>(si[i]) * sm.QMS[r] : 0.f;
-    }
-  } else {
-    constexpr int LDK = D + 4;
-#pragma unroll
-    for (int i = 0; i < WROWS; ++i) s[i] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 k4 = *reinterpret_cast<const float4*>(&sm.Ks[lane * LDK + d]);
-#pragma unroll
-      for (int i = 0; i < WROWS; ++i) {
-        const int r = warp + 4 * i;
-        if (r < R) {
-          const float4 qv = *reinterpret_cast<const float4*>(&sm.Qs[r * D + d]);
-          s[i] = fmaf(qv.x, k4.x, s[i]);
-          s[i] = fmaf(qv.y, k4.y, s[i]);
-          s[i] = fmaf(qv.z, k4.z, s[i]);
-          s[i] = fmaf(qv.w, k4.w, s[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < WROWS; ++i) s[i] *= scale;
-  }
-}
-
-// Is key kp (lane < nk of its tile) seen from row r?
+// Is cache key kp (in_tile: within the walked range) seen from row r?
 __device__ __forceinline__ bool visible(const Params& p, int r, int kp,
                                         bool in_tile, int pos, bool act) {
   const int qpos = pos + r / p.group;
   return in_tile && (act ? kp <= pos - 1 : kp <= qpos) &&
          kp > qpos - p.window;
-}
-
-__device__ __forceinline__ void scale_tile(const Params& p, const Smem& sm,
-                                           size_t row0, int kt, int nk,
-                                           int tid) {
-  if (tid < BK)
-    sm.Ksc[tid] = tid < nk ? p.ks[row0 + kt + tid] : 0.f;
-  else if (tid < 2 * BK)
-    sm.Vsc[tid - BK] = tid - BK < nk ? p.vs[row0 + kt + tid - BK] : 0.f;
-}
-
-// Pass 1 of "f32" and "int8_s": block (split, h, b) runs the online softmax
-// over its share of the live cache keys of (b, h) and writes the
-// unnormalised partial.
-template <int D, typename Tc, int SC>
-__global__ void __launch_bounds__(NT) split_kernel(const Params p) {
-  constexpr bool QUANT = sizeof(Tc) == 1;
-  constexpr int RSTRIDE = NT / D;   // threads per column in the PV pass
-  constexpr int ACC = RMAX / RSTRIDE;
-  extern __shared__ __align__(16) float smem[];
-  const int R = p.R;
-  const Smem sm(smem, R, D);
-
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t bh = (size_t)b * p.Hkv + h;
-  const size_t row0 = (((size_t)p.layer * p.B + b) * p.Hkv + h) * p.S;
-  const Tc* kb = static_cast<const Tc*>(p.k) + row0 * D;
-  const Tc* vb = static_cast<const Tc*>(p.v) + row0 * D;
-  load_q<D, SC>(p, bh, sm, tid);
-
-  // the live cache keys of (b, h): the union over the window tokens
-  const int pos = p.pos[b];
-  const bool act = p.active[b] != 0;
-  int last = act ? pos - 1 : pos + p.T - 1;
-  last = min(last, min(p.S, p.s_live) - 1);
-  const int first = max(pos - p.window + 1, 0);
-  const int n = last - first + 1;
-  int chunk = n > 0 ? (n + p.nsplit - 1) / p.nsplit : 0;
-  chunk = (chunk + BK - 1) / BK * BK;
-  const int k0 = first + split * chunk;
-  const int k1 = min(k0 + chunk, last + 1);
-
-  float m_run[WROWS], l_run[WROWS];
-#pragma unroll
-  for (int i = 0; i < WROWS; ++i) {
-    m_run[i] = NEG_INF;
-    l_run[i] = 0.f;
-  }
-  const int col = tid % D, r_first = tid / D;
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-
-  for (int kt = k0; kt < k1; kt += BK) {
-    const int nk = min(BK, k1 - kt);
-    load_tile<D, Tc, SC == SC_I8>(kb, vb, kt, nk, sm, tid);
-    if (QUANT) scale_tile(p, sm, row0, kt, nk, tid);
-    __syncthreads();
-
-    float s[WROWS];
-    tile_scores<D, SC>(s, sm, R, lane, warp, p.scale);
-    const int kp = kt + lane;
-#pragma unroll
-    for (int i = 0; i < WROWS; ++i) {
-      const int r = warp + 4 * i;
-      if (r >= R) break;  // warp-uniform
-      float sc = s[i];
-      if (QUANT) sc *= sm.Ksc[lane];
-      sc = cap(sc, p.softcap);
-      const bool vis = visible(p, r, kp, lane < nk, pos, act);
-      const float m_new = fmaxf(m_run[i], warp_max(vis ? sc : NEG_INF));
-      const float alpha = expf(m_run[i] - m_new);
-      float pr = vis ? expf(sc - m_new) : 0.f;
-      l_run[i] = alpha * l_run[i] + warp_sum(pr);
-      m_run[i] = m_new;
-      if (QUANT) pr *= sm.Vsc[lane];
-      sm.Ps[r * BK + lane] = pr;
-      if (lane == 0) sm.Al[r] = alpha;
-    }
-    __syncthreads();
-
-    // P x V: this thread's column, its rows
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      const int r = r_first + RSTRIDE * i;
-      if (r < R) acc[i] *= sm.Al[r];
-    }
-    for (int j = 0; j < nk; ++j) {
-      const float vv = sm.Vs[j * D + col];
-#pragma unroll
-      for (int i = 0; i < ACC; ++i) {
-        const int r = r_first + RSTRIDE * i;
-        if (r < R) acc[i] = fmaf(sm.Ps[r * BK + j], vv, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const size_t pb = (bh * p.nsplit + split) * R;
-#pragma unroll
-  for (int i = 0; i < WROWS; ++i) {
-    const int r = warp + 4 * i;
-    if (r < R && lane == 0) {
-      p.part_m[pb + r] = m_run[i];
-      p.part_l[pb + r] = l_run[i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    const int r = r_first + RSTRIDE * i;
-    if (r < R) p.part_acc[(pb + r) * D + col] = acc[i];
-  }
 }
 
 // ------------------------------------------------------------ group kernel
@@ -951,42 +685,576 @@ __global__ void __launch_bounds__(NT) group_kernel(const Params p) {
   cluster.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
-// Pass 2: block (h, b) merges the splits in order, folds in the T virtual
-// rows (always f32) and normalises.
+// ------------------------------------------------------------ virtual rows
+// The T new rows of (b, h) into shared memory as the cache stores them, KN
+// and VN [T][D], and their scales Kns and Vns [T] (int8 cache). The caller
+// syncs.
+template <int D, typename Tc>
+__device__ __forceinline__ void load_virtual(const Params& p, size_t bh,
+                                             Tc* KN, Tc* VN, float* Kns,
+                                             float* Vns, int tid) {
+  const int T = p.T;
+  const Tc* kn = static_cast<const Tc*>(p.kn) + bh * T * D;
+  const Tc* vn = static_cast<const Tc*>(p.vn) + bh * T * D;
+  for (int i = tid; i < T * D; i += NT) {
+    KN[i] = kn[i];
+    VN[i] = vn[i];
+  }
+  if (sizeof(Tc) == 1 && tid < T) {
+    Kns[tid] = p.kns[bh * T + tid];
+    Vns[tid] = p.vns[bh * T + tid];
+  }
+}
+
+// Sv[r][i]: row r's score of virtual row i, scaled, scale-folded and
+// capped, from q (f32 [R][D]): warp w takes the pairs w, w + 4, ..., its
+// lanes split D. The caller syncs.
+template <int D, typename Tc>
+__device__ __forceinline__ void virtual_scores(const Params& p,
+                                               const float* Qs, const Tc* KN,
+                                               const float* Kns, float* Sv,
+                                               int lane, int warp) {
+  const int T = p.T;
+  for (int c = warp; c < p.R * T; c += NT / 32) {
+    const int r = c / T, i = c % T;
+    float s = 0.f;
+#pragma unroll
+    for (int d = lane; d < D; d += 32)
+      s = fmaf(Qs[r * D + d], Chunk<Tc>::one(KN, i * D + d), s);
+    s = warp_sum(s) * p.scale;
+    if (sizeof(Tc) == 1) s *= Kns[i];
+    if (lane == 0) Sv[c] = cap(s, p.softcap);
+  }
+}
+
+// Row r's virtual rows (row i sits at pos + i, seen from window token t >=
+// i) against its merged cache part (m, l): alpha, the cache part's scale;
+// den, the final denominator; pv[i], virtual row i's p times its v scale.
+// The output at column c is then (a alpha + sum_i pv[i] VN[i][c]) / den.
+__device__ __forceinline__ void virtual_row(const Params& p, bool act, int r,
+                                            float m, float l,
+                                            const float* Sv,
+                                            const float* Vns, bool quant,
+                                            float& alpha, float& den,
+                                            float* pv) {
+  const int T = p.T, t = r / p.group;
+  float mv = m;
+  for (int i = 0; i < T; ++i)
+    if (act && i <= t && i > t - p.window) mv = fmaxf(mv, Sv[r * T + i]);
+  alpha = expf(m - mv);
+  float pl = 0.f;
+  for (int i = 0; i < T; ++i) {
+    float pr = 0.f;
+    if (act && i <= t && i > t - p.window) {
+      pr = expf(Sv[r * T + i] - mv);
+      pl += pr;
+      if (quant) pr *= Vns[i];
+    }
+    pv[i] = pr;
+  }
+  den = alpha * l + pl;
+}
+
+// The output of row r at column col: the merged cache part a scaled by
+// alpha, the virtual rows' values added in order, normalised
+template <int D, typename Tc>
+__device__ __forceinline__ float finish(const Params& p, float a,
+                                        float alpha, float den,
+                                        const float* pv, const Tc* VN,
+                                        int col) {
+  float pa = 0.f;
+  for (int i = 0; i < p.T; ++i)
+    pa = fmaf(pv[i], Chunk<Tc>::one(VN, i * D + col), pa);
+  return (a * alpha + pa) / den;
+}
+
+// ------------------------------------------------------------ split kernel
+// "f32" and "int8_s": block (split, h, b) walks its share [k0, k1) of the
+// live cache keys of (b, h). With csize > 0 the nsplit blocks of (b, h) are
+// one cluster and rank 0 writes the output; with csize = 0 every block
+// writes its unnormalised partial for the combine pass.
+constexpr int S_TK = 128;  // keys per ring tile: one per thread
+constexpr int S_NST = 2;   // ring stages
+constexpr int S_WK = 32;   // the keys of a tile that one warp owns
+constexpr int MAX_CLUSTER = 8;
+constexpr float CODE_BIAS = 8388736.0f;  // 2^23 + 128
+
+// The split kernel's shared memory, byte offsets: q (f32 [RB][D], its int8
+// codes [RB][D] and qm * scale / 127 [RB]), the virtual rows as the cache
+// stores them ([TMAX][D] each, with their scales [TMAX]) and their scores
+// ([RB][TMAX] f32), each warp's scores, then p * vs, of its keys
+// ([4][RB][S_WK] f32) and its rows' rescale of a tile ([4][RB]), each
+// row's query position ([RB]), the ring
+// (S_NST stages of a K tile, a V tile and, int8, their scales); after
+// the walk, over the ring, the block's partial (acc [RB][D], m, l), the
+// warps' (m, l), the splits' weights of each row, and each row's virtual
+// fold (alpha, the final denominator, p of the virtual rows).
+template <int RB, int D, int ESZ>
+struct SplitSmem {
+  static constexpr int ROW = D * ESZ + 16;  // ring row: conflict-free int4s
+  static constexpr int KV = S_TK * ROW;     // a tile of K or of V
+  static constexpr int STAGE = 2 * KV + (ESZ == 1 ? 2 * S_TK * 4 : 0);
+  static constexpr int Q8 = RB * D * 4;
+  static constexpr int QMS = Q8 + RB * D;
+  static constexpr int KN = align16(QMS + RB * 4);
+  static constexpr int VN = KN + TMAX * D * ESZ;
+  static constexpr int KNS = VN + TMAX * D * ESZ;
+  static constexpr int VNS = KNS + TMAX * 4;
+  static constexpr int SV = VNS + TMAX * 4;
+  static constexpr int PW = align16(SV + RB * TMAX * 4);
+  static constexpr int AL = PW + 4 * RB * S_WK * 4;  // f32 [4][RB]
+  static constexpr int QP = AL + 4 * RB * 4;  // int [RB]: each row's position
+  static constexpr int RING = align16(QP + RB * 4);
+  static constexpr int BUF = RING;
+  static constexpr int WM = BUF + RB * D * 4;
+  static constexpr int WL = WM + 4 * RB * 4;
+  static constexpr int BM = WL + 4 * RB * 4;
+  static constexpr int BL = BM + RB * 4;
+  static constexpr int WQ = BL + RB * 4;
+  static constexpr int ALPHA = WQ + MAX_CLUSTER * RB * 4;
+  static constexpr int DEN = ALPHA + RB * 4;
+  static constexpr int PV = DEN + RB * 4;
+  static constexpr int POST = PV + RB * TMAX * 4;
+  static constexpr int WALK = RING + S_NST * STAGE;
+  static constexpr int BYTES = POST > WALK ? POST : WALK;
+};
+
+// 4 bytes global -> shared (a key's scale), zero-filled past src_bytes
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// int8 code i (0-3) of w as an exact f32: the code plus 128 is the low
+// byte of the f32 2^23 + code + 128 (mg holds its bits 0x4B000000)
+__device__ __forceinline__ float code_f32(uint32_t w_biased, int i,
+                                          uint32_t mg) {
+  return __uint_as_float(__byte_perm(w_biased, mg, 0x7650 | i)) - CODE_BIAS;
+}
+
+// A lane's CPL (2 or 4) cache values of one row, as f32
+template <typename Tc, int CPL>
+__device__ __forceinline__ void lane_vals(float (&f)[CPL],
+                                          const uint8_t* src, uint32_t mg) {
+  if constexpr (sizeof(Tc) == 1) {
+    uint32_t w = CPL == 4 ? *reinterpret_cast<const uint32_t*>(src)
+                          : *reinterpret_cast<const uint16_t*>(src);
+    w ^= 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) f[i] = code_f32(w, i, mg);
+  } else if constexpr (CPL == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 c =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = c.x;
+    f[3] = c.y;
+  } else {
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+    f[0] = a.x;
+    f[1] = a.y;
+  }
+}
+
+// The scores of one key (its ring row krow) for rows [0, min(RB, R)),
+// scaled (the int8 dot by qm * scale / 127, the f32 one by scale); the key
+// scale and the softcap are the caller's. The f32 dot adds d in order.
+template <int D, typename Tc, int SC, int RB>
+__device__ __forceinline__ void key_scores(float (&s)[RB],
+                                           const uint8_t* krow,
+                                           const float* Qs, const int8_t* Q8,
+                                           const float* qms, int R,
+                                           float scale, uint32_t mg) {
+  if constexpr (SC == SC_I8) {
+    int si[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) si[r] = 0;
+#pragma unroll (RB <= 8 ? 2 : 1)
+    for (int d = 0; d < D; d += 16) {
+      const int4 k4 = *reinterpret_cast<const int4*>(krow + d);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (r < R) {
+          const int4 q4 = *reinterpret_cast<const int4*>(Q8 + r * D + d);
+          si[r] = __dp4a(q4.x, k4.x, si[r]);
+          si[r] = __dp4a(q4.y, k4.y, si[r]);
+          si[r] = __dp4a(q4.z, k4.z, si[r]);
+          si[r] = __dp4a(q4.w, k4.w, si[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      s[r] = r < R ? static_cast<float>(si[r]) * qms[r] : 0.f;
+  } else {
+    constexpr int CN = 16 / sizeof(Tc);  // values in 16 bytes
+#pragma unroll
+    for (int r = 0; r < RB; ++r) s[r] = 0.f;
+#pragma unroll (RB <= 8 ? 2 : 1)
+    for (int c = 0; c < D / CN; ++c) {
+      float f[CN];
+      if constexpr (sizeof(Tc) == 1) {
+        const int4 u = *reinterpret_cast<const int4*>(krow + 16 * c);
+        const uint32_t w[4] = {static_cast<uint32_t>(u.x) ^ 0x80808080u,
+                               static_cast<uint32_t>(u.y) ^ 0x80808080u,
+                               static_cast<uint32_t>(u.z) ^ 0x80808080u,
+                               static_cast<uint32_t>(u.w) ^ 0x80808080u};
+#pragma unroll
+        for (int e = 0; e < 16; ++e) f[e] = code_f32(w[e >> 2], e & 3, mg);
+      } else {
+        Chunk<Tc>::load(f, reinterpret_cast<const Tc*>(krow) + c * CN);
+      }
+#pragma unroll
+      for (int e = 0; e < CN; e += 4) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          if (r < R) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(&Qs[r * D + c * CN + e]);
+            s[r] = fmaf(qv.x, f[e], s[r]);
+            s[r] = fmaf(qv.y, f[e + 1], s[r]);
+            s[r] = fmaf(qv.z, f[e + 2], s[r]);
+            s[r] = fmaf(qv.w, f[e + 3], s[r]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) s[r] *= scale;
+  }
+}
+
+template <int D, typename Tc, int SC, int RB>
+__global__ void __launch_bounds__(NT) split_kernel(const Params p) {
+  namespace cg = cooperative_groups;
+  constexpr bool QUANT = sizeof(Tc) == 1;
+  constexpr int ESZ = sizeof(Tc);
+  using L = SplitSmem<RB, D, ESZ>;
+  constexpr int ROW = L::ROW, KV = L::KV;
+  constexpr int CPR = D * ESZ / 16;  // 16-byte chunks a cache row
+  constexpr int CPL = D / 32;        // output columns a lane
+  extern __shared__ __align__(16) uint8_t ssm[];
+  float* Qs = reinterpret_cast<float*>(ssm);
+  int8_t* Q8 = reinterpret_cast<int8_t*>(ssm + L::Q8);
+  float* qms = reinterpret_cast<float*>(ssm + L::QMS);
+  uint8_t* ring = ssm + L::RING;
+  const int R = p.R;
+  const uint32_t mg = p.magic;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t bh = (size_t)b * p.Hkv + h;
+  const size_t row0 = (((size_t)p.layer * p.B + b) * p.Hkv + h) * p.S;
+  const uint8_t* kb = static_cast<const uint8_t*>(p.k) + row0 * D * ESZ;
+  const uint8_t* vb = static_cast<const uint8_t*>(p.v) + row0 * D * ESZ;
+
+  // the live cache keys of (b, h), the union over the window tokens, and
+  // this split's share: whole tiles but the last
+  const int pos = p.pos[b];
+  const bool act = p.active[b] != 0;
+  int last = act ? pos - 1 : pos + p.T - 1;
+  last = min(last, min(p.S, p.s_live) - 1);
+  const int first = max(pos - p.window + 1, 0);
+  const int n = last - first + 1;
+  int chunk = n > 0 ? (n + p.nsplit - 1) / p.nsplit : 0;
+  chunk = (chunk + S_TK - 1) / S_TK * S_TK;
+  const int k0 = first + split * chunk;
+  const int k1 = min(k0 + chunk, last + 1);
+  const int ntile = k1 > k0 ? (k1 - k0 + S_TK - 1) / S_TK : 0;
+
+  // tile t (keys k0 + 128 t ...) into ring stage t % S_NST: K and V rows,
+  // zeros past k1, and (int8) each key's two scales
+  auto fetch = [&](int t) {
+    if (t < ntile) {
+      const int kt = k0 + t * S_TK;
+      uint8_t* dst = ring + (t % S_NST) * L::STAGE;
+      for (int c = tid; c < S_TK * CPR; c += NT) {
+        const int j = c / CPR, cc = c % CPR;
+        const bool in = kt + j < k1;
+        const size_t off = (size_t)(in ? kt + j : k0) * D * ESZ + 16 * cc;
+        cp_async16(dst + j * ROW + 16 * cc, kb + off, in ? 16 : 0);
+        cp_async16(dst + KV + j * ROW + 16 * cc, vb + off, in ? 16 : 0);
+      }
+      if constexpr (QUANT) {
+        const bool in = kt + tid < k1;
+        const size_t at = row0 + (in ? kt + tid : k0);
+        cp_async4(dst + 2 * KV + 4 * tid, p.ks + at, in ? 4 : 0);
+        cp_async4(dst + 2 * KV + 4 * S_TK + 4 * tid, p.vs + at, in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // the virtual rows and their scales, with the first tile's copies
+  {
+    const int T = p.T;
+    const uint8_t* kn = static_cast<const uint8_t*>(p.kn) + bh * T * D * ESZ;
+    const uint8_t* vn = static_cast<const uint8_t*>(p.vn) + bh * T * D * ESZ;
+    for (int c = tid; c < T * CPR; c += NT) {
+      cp_async16(ssm + L::KN + 16 * c, kn + 16 * c, 16);
+      cp_async16(ssm + L::VN + 16 * c, vn + 16 * c, 16);
+    }
+    if (QUANT && tid < T) {
+      cp_async4(ssm + L::KNS + 4 * tid, p.kns + bh * T + tid, 4);
+      cp_async4(ssm + L::VNS + 4 * tid, p.vns + bh * T + tid, 4);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < S_NST - 1; ++t) fetch(t);
+
+  // q: f32, and per-row int8 codes for the int8 score dot; each row's
+  // query position
+  int* qp = reinterpret_cast<int*>(ssm + L::QP);
+  if (tid < R) qp[tid] = pos + tid / p.group;
+  for (int i = tid; i < R * D / 4; i += NT)
+    reinterpret_cast<float4*>(Qs)[i] =
+        reinterpret_cast<const float4*>(p.q + bh * R * D)[i];
+  if constexpr (SC == SC_I8) {
+    __syncthreads();
+    for (int r = warp; r < R; r += 4) {
+      float a = 0.f;
+      for (int d = lane; d < D; d += 32) a = fmaxf(a, fabsf(Qs[r * D + d]));
+      const float qm = warp_max(a) + 1e-30f;
+      const float inv = 127.0f / qm;
+      for (int d = lane; d < D; d += 32)
+        Q8[r * D + d] = static_cast<int8_t>(rintf(Qs[r * D + d] * inv));
+      if (lane == 0) qms[r] = qm * p.qscale;
+    }
+  }
+
+  // this warp's online softmax: lane r holds row r's running max and
+  // denominator; a lane's value sums cover columns CPL lane ...
+  float mreg = NEG_INF, lreg = 0.f;
+  float acc[RB][CPL];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
+  float* pw = reinterpret_cast<float*>(ssm + L::PW) + warp * RB * S_WK;
+  float* al = reinterpret_cast<float*>(ssm + L::AL) + warp * RB;
+
+  for (int t = 0; t < ntile; ++t) {
+    cp_async_wait<S_NST - 2>();
+    __syncthreads();  // tile t landed; stage (t - 1) % S_NST is free
+    fetch(t + S_NST - 1);
+    const uint8_t* st = ring + (t % S_NST) * L::STAGE;
+    const int kt = k0 + t * S_TK, wk0 = kt + S_WK * warp;
+    if (wk0 >= k1) continue;  // warp-uniform: past the share
+    const int key = kt + tid;
+    const bool in = key < k1;
+    {  // this thread's key: its scores, scaled, scale-folded and capped,
+       // -inf where a row does not see it, into the warp's rows of pw; 8
+       // rows at a time, so few registers hold scores beside acc
+      constexpr int G = RB < 8 ? RB : 8;
+      const float ksc =
+          QUANT ? reinterpret_cast<const float*>(st + 2 * KV)[tid] : 1.f;
+      for (int r0 = 0; r0 < R; r0 += G) {
+        float s[G];
+        key_scores<D, Tc, SC, G>(s, st + tid * ROW, Qs + r0 * D, Q8 + r0 * D,
+                                 qms + r0, R - r0, p.scale, mg);
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          if (r0 + r < R) {
+            float sc = s[r];
+            if (QUANT) sc *= ksc;
+            sc = cap(sc, p.softcap);
+            const int q_at = qp[r0 + r];
+            const bool vis = in && (act ? key <= pos - 1 : key <= q_at) &&
+                             key > q_at - p.window;
+            pw[(r0 + r) * S_WK + lane] = vis ? sc : -INFINITY;
+          }
+        }
+      }
+    }
+    // the online softmax over the warp's keys, a row at a time: p, times
+    // the key's v scale, back into pw, the row's rescale into al
+    const float vsc =
+        QUANT ? reinterpret_cast<const float*>(st + 2 * KV)[S_TK + tid] : 1.f;
+#pragma unroll (RB <= 8 ? RB : 1)
+    for (int r = 0; r < R; ++r) {
+      const float x = pw[r * S_WK + lane];
+      const float m_old = __shfl_sync(0xffffffffu, mreg, r);
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float alpha = expf(m_old - m_new);
+      const float pr = expf(x - m_new);  // 0 where the row does not see it
+      const float ls = warp_sum(pr);
+      if (lane == r) {
+        mreg = m_new;
+        lreg = alpha * lreg + ls;
+      }
+      pw[r * S_WK + lane] = QUANT ? pr * vsc : pr;
+      if (lane == 0) al[r] = alpha;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < R) {
+        const float a = al[r];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[r][c] *= a;
+      }
+    }
+    // P x V over the warp's keys, four at a time (past k1 both p and the
+    // zero-filled V rows are 0), each row's four p one broadcast float4
+    const int nk = min(S_WK, k1 - wk0);
+    const uint8_t* vt = st + KV + S_WK * warp * ROW + lane * CPL * ESZ;
+    for (int j = 0; j < nk; j += 4) {
+      float v[4][CPL];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        lane_vals<Tc, CPL>(v[i], vt + (j + i) * ROW, mg);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (r < R) {
+          const float4 pj = *reinterpret_cast<const float4*>(pw + r * S_WK + j);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            acc[r][c] = fmaf(pj.x, v[0][c], acc[r][c]);
+            acc[r][c] = fmaf(pj.y, v[1][c], acc[r][c]);
+            acc[r][c] = fmaf(pj.z, v[2][c], acc[r][c]);
+            acc[r][c] = fmaf(pj.w, v[3][c], acc[r][c]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partials take its place
+
+  // the block's partial: the warps in warp order, each scaled to the
+  // block's row max
+  float* buf = reinterpret_cast<float*>(ssm + L::BUF);
+  float* wm = reinterpret_cast<float*>(ssm + L::WM);
+  float* wl = reinterpret_cast<float*>(ssm + L::WL);
+  float* bm = reinterpret_cast<float*>(ssm + L::BM);
+  float* bl = reinterpret_cast<float*>(ssm + L::BL);
+  if (lane < R) {
+    wm[warp * RB + lane] = mreg;
+    wl[warp * RB + lane] = lreg;
+  }
+  __syncthreads();
+  for (int w = 0; w < 4; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (r >= R) break;
+        const float m = fmaxf(fmaxf(wm[r], wm[RB + r]),
+                              fmaxf(wm[2 * RB + r], wm[3 * RB + r]));
+        const float e = expf(wm[w * RB + r] - m);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          float* o = buf + r * D + lane * CPL + c;
+          const float v = acc[r][c] * e;
+          *o = w == 0 ? v : *o + v;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tid < R) {
+    const float m = fmaxf(fmaxf(wm[tid], wm[RB + tid]),
+                          fmaxf(wm[2 * RB + tid], wm[3 * RB + tid]));
+    float l = 0.f;
+    for (int w = 0; w < 4; ++w)
+      l += expf(wm[w * RB + tid] - m) * wl[w * RB + tid];
+    bm[tid] = m;
+    bl[tid] = l;
+  }
+
+  if (p.csize == 0) {  // the combine pass merges the splits
+    const size_t pb = (bh * p.nsplit + split) * R;
+    for (int i = tid; i < R * D; i += NT) p.part_acc[pb * D + i] = buf[i];
+    if (tid < R) {
+      p.part_m[pb + tid] = bm[tid];
+      p.part_l[pb + tid] = bl[tid];
+    }
+    return;
+  }
+  // one cluster: the splits merged in rank order, the virtual rows folded
+  // in, normalised; every rank takes a share of the output
+  const Tc* KN = reinterpret_cast<const Tc*>(ssm + L::KN);
+  const Tc* VN = reinterpret_cast<const Tc*>(ssm + L::VN);
+  const float* Kns = reinterpret_cast<const float*>(ssm + L::KNS);
+  const float* Vns = reinterpret_cast<const float*>(ssm + L::VNS);
+  float* Sv = reinterpret_cast<float*>(ssm + L::SV);
+  float* wq = reinterpret_cast<float*>(ssm + L::WQ);
+  float* alpha = reinterpret_cast<float*>(ssm + L::ALPHA);
+  float* den = reinterpret_cast<float*>(ssm + L::DEN);
+  float* pv = reinterpret_cast<float*>(ssm + L::PV);
+  virtual_scores<D, Tc>(p, Qs, KN, Kns, Sv, lane, warp);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csz = p.csize;
+  cluster.sync();  // every split's partial is in its shared memory
+  if (tid < R) {
+    float mq[MAX_CLUSTER], lq[MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q) {
+      if (q < csz) {
+        mq[q] = cluster.map_shared_rank(bm, q)[tid];
+        lq[q] = cluster.map_shared_rank(bl, q)[tid];
+      }
+    }
+    float m = NEG_INF;
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q)
+      if (q < csz) m = fmaxf(m, mq[q]);
+    float l = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q) {
+      if (q < csz) {
+        const float w = expf(mq[q] - m);
+        wq[q * RB + tid] = w;
+        l += w * lq[q];
+      }
+    }
+    virtual_row(p, act, tid, m, l, Sv, Vns, QUANT, alpha[tid], den[tid],
+                pv + tid * TMAX);
+  }
+  __syncthreads();
+  const int share = (R * D + csz - 1) / csz;
+  const int e1 = min(R * D, (int)(cluster.block_rank() + 1) * share);
+  for (int i = cluster.block_rank() * share + tid; i < e1; i += NT) {
+    const int r = i / D;
+    float x[MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q)
+      if (q < csz) x[q] = cluster.map_shared_rank(buf, q)[i];
+    float a = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q)
+      if (q < csz) a += wq[q * RB + r] * x[q];
+    p.out[(bh * R + r) * D + i % D] =
+        finish<D, Tc>(p, a, alpha[r], den[r], pv + r * TMAX, VN, i % D);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// Pass 2 (nsplit past a cluster, and the group forms): block (h, b) merges
+// the splits in order, folds in the T virtual rows (always f32) and
+// normalises.
 template <int D, typename Tc>
 __global__ void __launch_bounds__(NT) combine_kernel(const Params p) {
   constexpr bool QUANT = sizeof(Tc) == 1;
   constexpr int RSTRIDE = NT / D;
   constexpr int ACC = RMAX / RSTRIDE;
   __shared__ __align__(16) float Qs[RMAX * D];
-  __shared__ __align__(16) float KN[TMAX * D];
-  __shared__ __align__(16) float VN[TMAX * D];
+  __shared__ __align__(16) Tc KN[TMAX * D];
+  __shared__ __align__(16) Tc VN[TMAX * D];
   __shared__ float Sv[RMAX * TMAX];
   __shared__ float Kns[TMAX], Vns[TMAX];
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int R = p.R, T = p.T;
+  const int R = p.R;
   const size_t bh = (size_t)b * p.Hkv + h;
-  const Tc* kn = static_cast<const Tc*>(p.kn) + bh * T * D;
-  const Tc* vn = static_cast<const Tc*>(p.vn) + bh * T * D;
   for (int i = tid; i < R * D; i += NT) Qs[i] = p.q[bh * R * D + i];
-  for (int i = tid; i < T * D; i += NT) {
-    KN[i] = Chunk<Tc>::one(kn, i);
-    VN[i] = Chunk<Tc>::one(vn, i);
-  }
-  if (QUANT && tid < T) {
-    Kns[tid] = p.kns[bh * T + tid];
-    Vns[tid] = p.vns[bh * T + tid];
-  }
+  load_virtual<D, Tc>(p, bh, KN, VN, Kns, Vns, tid);
   __syncthreads();
   const bool act = p.active[b] != 0;
-  for (int c = tid; c < R * T; c += NT) {
-    const int r = c / T, i = c % T;
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(Qs[r * D + d], KN[i * D + d], s);
-    s *= p.scale;
-    if (QUANT) s *= Kns[i];
-    Sv[c] = cap(s, p.softcap);
-  }
+  virtual_scores<D, Tc>(p, Qs, KN, Kns, Sv, tid & 31, tid >> 5);
   __syncthreads();
 
   const int col = tid % D, r_first = tid / D;
@@ -996,31 +1264,20 @@ __global__ void __launch_bounds__(NT) combine_kernel(const Params p) {
     if (r >= R) break;
     const size_t pr0 = bh * p.nsplit * R + r;  // split s at pr0 + s * R
     float m = NEG_INF;
+#pragma unroll 8
     for (int s = 0; s < p.nsplit; ++s) m = fmaxf(m, p.part_m[pr0 + s * R]);
     float l = 0.f, a = 0.f;
+#pragma unroll 8
     for (int s = 0; s < p.nsplit; ++s) {
       const size_t pi = pr0 + (size_t)s * R;
       const float w = expf(p.part_m[pi] - m);
       l += w * p.part_l[pi];
       a += w * p.part_acc[pi * D + col];
     }
-    // the virtual rows: row i sits at pos + i, seen from window token t >= i
-    const int t = r / p.group;
-    float mv = m;
-    for (int i = 0; i < T; ++i)
-      if (act && i <= t && i > t - p.window) mv = fmaxf(mv, Sv[r * T + i]);
-    const float alpha = expf(m - mv);
-    float pl = 0.f, pa = 0.f;
-    for (int i = 0; i < T; ++i) {
-      if (!(act && i <= t && i > t - p.window)) continue;
-      float pr = expf(Sv[r * T + i] - mv);
-      pl += pr;
-      if (QUANT) pr *= Vns[i];
-      pa = fmaf(pr, VN[i * D + col], pa);
-    }
-    l = alpha * l + pl;
-    a = a * alpha + pa;
-    p.out[(bh * R + r) * D + col] = a / l;
+    float alpha, den, pv[TMAX];
+    virtual_row(p, act, r, m, l, Sv, Vns, QUANT, alpha, den, pv);
+    p.out[(bh * R + r) * D + col] =
+        finish<D, Tc>(p, a, alpha, den, pv, VN, col);
   }
 }
 
@@ -1043,28 +1300,20 @@ int set_smem(const void* fn, int bytes) {
   return static_cast<int>(e);
 }
 
+// a grid of clusters of csize blocks along x
 template <typename K>
-int launch_split(K kernel, const Params& p, cudaStream_t st, int D) {
-  const size_t smem = smem_bytes(p.R, D);
-  const int e = set_smem(reinterpret_cast<const void*>(kernel), (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(p.nsplit, p.Hkv, p.B), NT, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// a group pass: clusters of csize blocks, one cluster per key block
-template <typename K>
-int launch_cluster(K kernel, const Params& p, int smem, cudaStream_t st) {
+int launch_clusters(K kernel, const Params& p, dim3 grid, int csize,
+                    int smem, cudaStream_t st) {
   const int se = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (se != cudaSuccess) return se;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.nsplit * p.csize, p.Hkv, p.B);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.csize;
+  attr[0].val.clusterDim.x = csize;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1073,22 +1322,49 @@ int launch_cluster(K kernel, const Params& p, int smem, cudaStream_t st) {
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// the split pass: one cluster of nsplit blocks a (sequence, head) when
+// csize = nsplit (at most MAX_CLUSTER), which then writes the output; plain
+// blocks writing partials when csize = 0
+template <int D, typename Tc, int SC, int RB>
+int launch_split(const Params& p, cudaStream_t st) {
+  constexpr int SMEM = SplitSmem<RB, D, sizeof(Tc)>::BYTES;
+  static_assert(SMEM <= 227 * 1024, "split kernel shared memory over 227 KB");
+  const auto kernel = split_kernel<D, Tc, SC, RB>;
+  const dim3 grid(p.nsplit, p.Hkv, p.B);
+  if (p.csize != 0)
+    return p.csize == p.nsplit && p.csize <= MAX_CLUSTER
+               ? launch_clusters(kernel, p, grid, p.csize, SMEM, st)
+               : static_cast<int>(cudaErrorInvalidValue);
+  const int e = set_smem(reinterpret_cast<const void*>(kernel), SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, NT, SMEM, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename Tc, int SC>
+int launch_split_rows(const Params& p, cudaStream_t st) {
+  if (p.R <= 4) return launch_split<D, Tc, SC, 4>(p, st);
+  if (p.R <= 8) return launch_split<D, Tc, SC, 8>(p, st);
+  return launch_split<D, Tc, SC, RMAX>(p, st);
+}
+
 // past the first key block, a max pass first (the per-block row maxima
 // whose prefix max is the TPU kernel's running max), then the main pass
 template <int D, typename Tc, int SC, int PV, int RB>
 int launch_group(const Params& p, cudaStream_t st) {
   const GSmem L(RB, D, sizeof(Tc), p.slice_cap);
-  if (p.csize < 1 || p.csize > 8 || p.slice_cap < G_TK ||
+  if (p.csize < 1 || p.csize > MAX_CLUSTER || p.slice_cap < G_TK ||
       p.slice_cap % G_TK || (long long)p.slice_cap * p.csize < p.block_s ||
       L.bytes > 227 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.nsplit * p.csize, p.Hkv, p.B);
   if (p.nsplit > 1) {
-    const int e = launch_cluster(group_kernel<D, Tc, SC, PV, RB, true>, p,
-                                 L.bytes, st);
+    const int e = launch_clusters(group_kernel<D, Tc, SC, PV, RB, true>, p,
+                                  grid, p.csize, L.bytes, st);
     if (e != cudaSuccess) return e;
   }
-  return launch_cluster(group_kernel<D, Tc, SC, PV, RB, false>, p, L.bytes,
-                        st);
+  return launch_clusters(group_kernel<D, Tc, SC, PV, RB, false>, p, grid,
+                         p.csize, L.bytes, st);
 }
 
 template <int D, typename Tc, int SC, int PV>
@@ -1101,19 +1377,23 @@ int launch_group_rows(const Params& p, cudaStream_t st) {
 template <int D, typename Tc>
 int launch(const Params& p, int dot, cudaStream_t st) {
   int e = static_cast<int>(cudaErrorInvalidValue);
+  bool merged = false;  // the split pass wrote the output itself
   if (dot == DOT_F32) {
-    e = launch_split(split_kernel<D, Tc, SC_F32>, p, st, D);
+    e = launch_split_rows<D, Tc, SC_F32>(p, st);
+    merged = p.csize > 0;
   } else if (dot == DOT_BF16) {
     e = launch_group_rows<D, Tc, SC_BF16, PV_BF16>(p, st);
   } else if constexpr (sizeof(Tc) == 1) {  // the int8 forms: int8 cache
-    if (dot == DOT_INT8_S)
-      e = launch_split(split_kernel<D, Tc, SC_I8>, p, st, D);
-    else if (dot == DOT_INT8_V)
+    if (dot == DOT_INT8_S) {
+      e = launch_split_rows<D, Tc, SC_I8>(p, st);
+      merged = p.csize > 0;
+    } else if (dot == DOT_INT8_V) {
       e = launch_group_rows<D, Tc, SC_F32, PV_I8>(p, st);
-    else if (dot == DOT_INT8)
+    } else if (dot == DOT_INT8) {
       e = launch_group_rows<D, Tc, SC_I8, PV_I8>(p, st);
+    }
   }
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || merged) return e;
   combine_kernel<D, Tc><<<dim3(p.Hkv, p.B), NT, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1125,14 +1405,17 @@ int launch(const Params& p, int dot, cudaStream_t st) {
 // 1); kn/vn [B, Hkv, T, D] in the cache dtype, kns/vns [B, Hkv, T]; pos and
 // active int32 [B]; window: keys kept in (qpos - window, qpos]; s_live: no
 // key at or past it is read. dot: the cache-dot form (0 f32, 1 bf16, 2 int8,
-// 3 int8_s, 4 int8_v; the int8 forms on an int8 cache only); block_s: the
-// key block of the bf16, int8 and int8_v forms, which take nsplit = the
-// number of key blocks, each on a cluster of csize blocks (1-8) whose slices
-// hold at most slice_cap keys (a multiple of 128; the split forms ignore
-// both). Scratch: part_acc [B, Hkv,
-// nsplit, R, D], part_m / part_l / part_max [B, Hkv, nsplit, R] f32.
-// Launches: the split or group pass, then the combine pass; a group form
-// with nsplit > 1 runs its max pass first (three).
+// 3 int8_s, 4 int8_v; the int8 forms on an int8 cache only). The split
+// forms (f32, int8_s) take nsplit blocks a (sequence, head) and csize =
+// nsplit (one cluster, at most 8, whose rank 0 writes out) or 0 (the
+// combine pass merges); they ignore block_s and slice_cap. The per-block
+// forms (bf16, int8, int8_v) take block_s, their key block, nsplit = the
+// number of key blocks, each on a cluster of csize blocks (1-8) whose
+// slices hold at most slice_cap keys (a multiple of 128). Scratch: part_acc
+// [B, Hkv, nsplit, R, D], part_m / part_l / part_max [B, Hkv, nsplit, R]
+// f32. Launches: a split form one (csize > 0) or two (the split pass, then
+// the combine pass); a per-block form the group pass and the combine pass,
+// with its max pass first when nsplit > 1 (three).
 extern "C" int batched_flash_attention(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* kn, const void* vn, const void* kns,
@@ -1180,6 +1463,7 @@ extern "C" int batched_flash_attention(
   p.softcap = softcap;
   p.qscale = qscale;
   p.inv127 = inv127;
+  p.magic = 0x4B000000u;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128 && !is_int8) return launch<128, __nv_bfloat16>(p, dot, st);
   if (D == 128) return launch<128, int8_t>(p, dot, st);

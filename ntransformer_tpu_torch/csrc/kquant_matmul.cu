@@ -1,18 +1,21 @@
-// Fused Q4_K and Q6_K dequant-matmul for Hopper (sm_90a), plain C
-// interface: the Q4_K_M pair (Q6_K for ffn_down and the head, Q4_K for the
-// rest).
+// Fused Q4_K, Q5_K and Q6_K dequant-matmul for Hopper (sm_90a), plain C
+// interface: the K-quant formats (the Q4_K_M pair, Q6_K for ffn_down and
+// the head and Q4_K for the rest, and Q5_K, the fifth-bit format of Q5_K_M
+// files).
 //
 // Replaces the TPU kernel ntransformer_tpu/ops/pallas/matmul.py::
-// _quant_matmul_impl with its _q4_k_tile (and _group_sums) and _q6_k_tile
-// bodies (entry quant_matmul_pallas, reached from ops/linear.py::qmatmul):
-// every Q4_K and Q6_K product of a model, at T = 1 (decode), at the
-// serving T (batched steps, verify windows) and at prefill T.
+// _quant_matmul_impl with its _q4_k_tile (and _group_sums), _q5_k_tile and
+// _q6_k_tile bodies (entry quant_matmul_pallas, reached from
+// ops/linear.py::qmatmul): every Q4_K, Q5_K and Q6_K product of a model, at
+// T = 1 (decode), at the serving T (batched steps, verify windows) and at
+// prefill T.
 //
 // What it computes. y[T,N] f32 = bf16(x)[T,K] @ W with W[k,n] the bf16 of
 // the weight exactly as the plain dequant (ops/dequant_torch.py) computes
 // it in f32:
 //   Q4_K:  q * (d * sc) - dmin * mn   (the products exact in f32, so the
 //          subtraction rounds once: one fma of the exact q, then bf16)
+//   Q5_K:  the same with q = nib | hb << 4 (q <= 31: still exact)
 //   Q6_K:  ((nib | hb << 4) - 32) * (d * sc)   (d * sc exact; the one
 //          multiply rounds, then bf16)
 // Products are summed in f32; kernel and plain twin differ only in the
@@ -22,48 +25,51 @@
 // Plane layout (core/layout.py; transposed, N contiguous). Plane row r of
 // Q4_K holds element 64 (r / 32) + r % 32 in its low nibble and that + 32
 // in its high one; sc_lo / mn_lo (low nibble), sc_hi / mn_hi (high) row
-// r / 32, d / dmin row r / 128. Q6_K: ql row r holds element 128 (r / 64)
-// + r % 64 (low) and that + 64 (high); qh [K/4, N] row 32 (r / 64) + r %
-// 32, bit pair 2e (low) and 4 + 2e (high), e = r % 64 / 32; sc_lo / sc_hi
-// (int8) row r / 16, d row r / 128. f16 planes hold the raw bits.
+// r / 32, d / dmin row r / 128. Q5_K: Q4_K's planes and qh [K/8, N] row
+// 32 (r / 128) + r % 32, bit 2c (low) and 2c + 1 (high), c = r % 128 / 32.
+// Q6_K: ql row r holds element 128 (r / 64) + r % 64 (low) and that + 64
+// (high); qh [K/4, N] row 32 (r / 64) + r % 32, bit pair 2e (low) and 4 +
+// 2e (high), e = r % 64 / 32; sc_lo / sc_hi (int8) row r / 16, d row
+// r / 128. f16 planes hold the raw bits.
 //
 // What bounds it on the H100. At small T it streams the planes once:
-// 0.5625 (Q4_K) and 0.8203125 (Q6_K) bytes a weight over 3.35 TB/s (8B
-// fused gate|up in Q4_K, 117.4 M weights in 67.9 MB: 20.3 us). Unlike
-// Q8_0 the dequant nearly keeps pace: a weight costs a byte permute, a
-// subtract, an fma (Q6_K: a multiply) and half a bf16x2 convert, plus the
-// nibble masks (~3.5-4 operations; 12-15 us of the CUDA cores at the 8B
-// gate|up). At prefill T it is bound by operations: 2 T K N on the bf16
-// tensor cores (989 TFLOP/s).
+// 0.5625 (Q4_K), 0.703125 (Q5_K) and 0.8203125 (Q6_K) bytes a weight over
+// 3.35 TB/s (8B fused gate|up in Q4_K, 117.4 M weights in 67.9 MB: 20.3 us;
+// in Q5_K 82.6 MB: 24.7 us). Unlike Q8_0 the dequant nearly keeps pace: a
+// weight costs a byte permute, a subtract, an fma (Q6_K: a multiply) and
+// half a bf16x2 convert, plus the nibble masks (~3.5-4 operations, Q5_K's
+// fifth bit ~1 more; 12-15 us of the CUDA cores at the 8B gate|up). At
+// prefill T it is bound by operations: 2 T K N on the bf16 tensor cores
+// (989 TFLOP/s).
 //
 // What the design does about it.
 //  * T <= 32 (plans.SKINNY_ROWS): skinny_kernel, one launch, the shape of
 //    q8_0_matmul.cu's. The weight is the M side of mma.sync m16n8k16 and
 //    the tokens its N side (padded to 8, 16 or 32). A block owns a strip of
 //    128 columns and a K split of whole superblocks; its 4 warps (3 for
-//    Q6_K at 17-32 tokens, so two blocks fit an SM) take interleaved steps
-//    of 32 plane rows, each warp keeping its next step in
-//    a ring of two cp.async slots (codes, the step's scale rows, the
-//    tokens' x), so the bytes in flight cost no registers; slots small
-//    enough for two blocks an SM measured faster than deeper rings
-//    (experiments/kquant_skinny_variants.py) or Q6_K steps of 64 rows that
-//    read each qh row once. The K order inside an mma k-block is free: a
-//    k16 block is 16 consecutive elements, the low nibbles of 16 plane rows
-//    or the high nibbles of the same rows, so x is staged in its own order
-//    and the same 16-byte code loads (4 rows x a lane's 16 columns) feed
-//    both blocks; the mma rows are permuted as in q8_0_matmul.cu so every
-//    byte lands in the lane's own fragments. A step's scales are decoded
-//    once a column into the warp's shared memory (each lane 4 columns) and
-//    read back tile by tile, so no lane holds 16 columns' scales in
-//    registers beside its accumulators. The splits of a strip form one
-//    thread-block cluster (at most 8), added in rank order through
-//    distributed shared memory (a fixed order: runs repeat bit for bit).
-//    There is no split-K pass.
+//    Q5_K and Q6_K at 17-32 tokens, so two blocks fit an SM) take
+//    interleaved steps of 32 plane rows, each warp keeping its next step in
+//    a ring of two cp.async slots (codes, Q5_K's and Q6_K's qh rows, the
+//    step's scale rows, the tokens' x), so the bytes in flight cost no
+//    registers; slots small enough for two blocks an SM measured faster
+//    than deeper rings (experiments/kquant_skinny_variants.py) or Q6_K
+//    steps of 64 rows that read each qh row once. The K order inside an mma
+//    k-block is free: a k16 block is 16 consecutive elements, the low
+//    nibbles of 16 plane rows or the high nibbles of the same rows, so x is
+//    staged in its own order and the same 16-byte code loads (4 rows x a
+//    lane's 16 columns) feed both blocks; the mma rows are permuted as in
+//    q8_0_matmul.cu so every byte lands in the lane's own fragments. A
+//    step's scales are decoded once a column into the warp's shared memory
+//    (each lane 4 columns) and read back tile by tile, so no lane holds 16
+//    columns' scales in registers beside its accumulators. The splits of a
+//    strip form one thread-block cluster (at most 8), added in rank order
+//    through distributed shared memory (a fixed order: runs repeat bit for
+//    bit). There is no split-K pass.
 //  * T > 32: the warp-specialized wgmma tile of hopper_tile.cuh with the
-//    Q4_K and Q6_K formats below: the producer warpgroup dequantizes each
-//    32-plane-row stage (64 k-values: Q4_K's 64 consecutive elements,
-//    Q6_K's two 32-element pieces 64 apart) once for 256 or 128 rows of x
-//    into the 128-byte-swizzled K-major tile.
+//    K-quant formats below: the producer warpgroup dequantizes each
+//    32-plane-row stage (64 k-values: Q4_K's and Q5_K's 64 consecutive
+//    elements, Q6_K's two 32-element pieces 64 apart) once for 256 or 128
+//    rows of x into the 128-byte-swizzled K-major tile.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -78,14 +84,14 @@ namespace {
 using namespace hop;
 
 struct Planes {
-  const uint8_t* q;      // qs (Q4_K) / ql (Q6_K): nibble pairs [K/2, N]
-  const uint8_t* qh;     // Q6_K high bit pairs [K/4, N]
-  const uint8_t* sc_lo;  // Q4_K u8 [K/64, N]; Q6_K int8 [K/32, N]
+  const uint8_t* q;      // qs (Q4_K, Q5_K) / ql (Q6_K): nibbles [K/2, N]
+  const uint8_t* qh;     // Q5_K high bits [K/8, N]; Q6_K bit pairs [K/4, N]
+  const uint8_t* sc_lo;  // Q4_K, Q5_K u8 [K/64, N]; Q6_K int8 [K/32, N]
   const uint8_t* sc_hi;
-  const uint8_t* mn_lo;  // Q4_K u8 [K/64, N]
+  const uint8_t* mn_lo;  // Q4_K, Q5_K u8 [K/64, N]
   const uint8_t* mn_hi;
   const uint16_t* d;     // f16 bits [K/256, N]
-  const uint16_t* dmin;  // Q4_K f16 bits [K/256, N]
+  const uint16_t* dmin;  // Q4_K, Q5_K f16 bits [K/256, N]
   // 0x4B000000 (the f32 2^23), given at run time: held in a register, it
   // leaves the byte permutes' selectors to their immediate operand (as a
   // known constant it takes that operand, and the compiler copies each
@@ -95,6 +101,7 @@ struct Planes {
 
 constexpr uint32_t NIB = 0x0F0F0F0Fu;
 constexpr uint32_t HB = 0x30303030u;
+constexpr uint32_t B5 = 0x10101010u;  // Q5_K's fifth bit of four codes
 
 __device__ __forceinline__ float f16f(uint16_t bits) {
   return __half2float(__ushort_as_half(bits));
@@ -106,8 +113,8 @@ __device__ __forceinline__ float magic(uint32_t u, int j, uint32_t mg) {
   return __uint_as_float(__byte_perm(u, mg, 0x7650 | j));
 }
 
-// Q4_K: fl(q s - m) (q s exact, so one fma of the exact q rounds as the
-// plain dequant's subtraction does)
+// Q4_K and Q5_K: fl(q s - m) (q s exact, so one fma of the exact q rounds
+// as the plain dequant's subtraction does)
 __device__ __forceinline__ float q4k_w(uint32_t u, int j, uint32_t mg,
                                        float s, float m) {
   return __fmaf_rn(__fsub_rn(magic(u, j, mg), 8388608.f), s, -m);
@@ -196,11 +203,19 @@ __device__ __forceinline__ void a_frag(const uint32_t (&nb)[4][2], int b,
   a[3] = bf16x2(f(nb[2][1], b, 1), f(nb[3][1], b, 1));
 }
 
-// Q4_K: a warp step is 32 plane rows, 64 consecutive elements
-struct Q4K {
+// Q4_K (QH = false) and Q5_K (QH = true): a warp step is 32 plane rows,
+// 64 consecutive elements (k = 64 s: rows 32 s .. 32 s + 31). Q5_K adds the
+// step's 32 qh rows (32 G + r, G = k / 256), whose bits 2 c (the low
+// nibble's element) and 2 c + 1 (the high one's), c = k / 64 % 4, are the
+// codes' fifth; the superblock's four steps read the same 32 rows, each
+// again from L2 (Q6_K's trade: slots small enough for two blocks an SM)
+template <bool QH>
+struct Q45K {
   static constexpr int STEP = 64;
-  static constexpr int SC_OFF = 32 * SC;           // sc_lo, sc_hi, mn_lo,
-  static constexpr int D_OFF = SC_OFF + 4 * SC;    // mn_hi rows; d, dmin
+  static constexpr int QH_OFF = 32 * SC;                  // Q5_K qh rows
+  static constexpr int SC_OFF = QH_OFF + (QH ? 32 * SC : 0);  // sc_lo,
+  static constexpr int D_OFF = SC_OFF + 4 * SC;    // sc_hi, mn_lo, mn_hi
+                                                   // rows; d, dmin
   static constexpr int X_OFF = D_OFF + 2 * SC * 2;  // x [8 NT][64] bf16,
   static constexpr int X_LD = 144;                  // rows 144 bytes apart
   // decoded scales: [lo, hi][tile j][g] float4 {s, m} of columns 16 g + j
@@ -216,6 +231,9 @@ struct Q4K {
     for (int i = 0; i < 8; ++i) {  // 32 rows x 8 chunks of 16 codes
       const int id = lane + 32 * i, r = id >> 3, c = id & 7;
       copy_u8(slot + chunk_at(r, c), p.q, pr + r, n0 + 16 * c, N, vec);
+      if constexpr (QH)
+        copy_u8(slot + QH_OFF + chunk_at(r, c), p.qh, 32 * (k >> 8) + r,
+                n0 + 16 * c, N, vec);
     }
     {  // the step's scale and min rows: 4 planes x 8 chunks
       const int pl = lane >> 3, c = lane & 7;
@@ -263,13 +281,15 @@ struct Q4K {
   template <int NT>
   __device__ static void compute(const uint8_t* slot, const uint8_t* scr,
                                  float (&acc)[8][NT][4], int lane,
-                                 uint32_t mg, int) {
+                                 uint32_t mg, int k) {
     const int g = lane >> 2, t = lane & 3;
+    const int c2 = 2 * ((k >> 6) & 3);  // Q5_K: the step's bit pair
     const float4* sv = reinterpret_cast<const float4*>(scr);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      uint32_t cw[4][4];
+      uint32_t cw[4][4], hw[4][4];
       load_rows(slot, 16 * h, t, g, cw);
+      if constexpr (QH) load_rows(slot + QH_OFF, 16 * h, t, g, hw);
       uint32_t b[2][NT][2];  // [lo, hi block][token tile]
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -284,6 +304,8 @@ struct Q4K {
       for (int hi = 0; hi < 2; ++hi) {
 #pragma unroll
         for (int wq = 0; wq < 2; ++wq) {
+          // 4-bit codes, and Q5_K's fifth bit moved from bit 2 c (low
+          // nibble) or 2 c + 1 (high) of the qh byte to bit 4
           uint32_t nb[4][2];
 #pragma unroll
           for (int e = 0; e < 4; ++e)
@@ -291,6 +313,10 @@ struct Q4K {
             for (int u = 0; u < 2; ++u) {
               const uint32_t w = cw[e][wq + 2 * u];
               nb[e][u] = hi ? (w >> 4) & NIB : w & NIB;
+              if constexpr (QH) {
+                const uint32_t hb = hw[e][wq + 2 * u] >> c2;
+                nb[e][u] |= (hi ? hb << 3 : hb << 4) & B5;
+              }
             }
 #pragma unroll
           for (int bb = 0; bb < 4; ++bb) {
@@ -446,8 +472,8 @@ struct Skinny {
   // one block an SM; experiments/kquant_skinny_variants.py "slots3")
   static constexpr int STAGES = 2;
   // 4 warps a block, or 3 where 4 warps' slots would leave one block an SM
-  // (Q6_K at 17-32 tokens: its 8B down would run its 160 blocks in two
-  // waves)
+  // (Q5_K and Q6_K at 17-32 tokens, whose qh rows fill the slots: Q6_K's 8B
+  // down would run its 160 blocks in two waves)
   static constexpr int WARPS =
       4 * (STAGES * SLOT + F::SCR) <= SMEM_TWO ? 4 : 3;
   static constexpr int THREADS = 32 * WARPS;
@@ -634,12 +660,18 @@ struct TileBase {
   }
 };
 
-// Q4_K stage st: plane rows 32 st + r, elements 64 st + r (low nibble) and
-// 64 st + 32 + r (high): x in its own order
-struct TileQ4K : TileBase {
-  static constexpr int SC_OFF = CODE_BYTES;            // sc_lo, sc_hi,
-  static constexpr int D_OFF = SC_OFF + 4 * tile::BN;  // mn_lo, mn_hi; d,
-  static constexpr int RAW_BYTES = D_OFF + 2 * tile::BN * 2;  // dmin
+// Q4_K and Q5_K stage st: plane rows 32 st + r, elements 64 st + r (low
+// nibble) and 64 st + 32 + r (high): x in its own order. Q5_K's qh rows are
+// 32 (st / 4) + r, its fifth bits 2 c and 2 c + 1, c = st % 4, so its
+// transform takes the stage
+template <bool QH>
+struct TileQ45K : TileBase {
+  static constexpr bool STAGED = QH;
+  static constexpr int QH_OFF = CODE_BYTES;
+  static constexpr int SC_OFF = QH_OFF + (QH ? CODE_BYTES : 0);  // sc_lo,
+  static constexpr int D_OFF = SC_OFF + 4 * tile::BN;  // sc_hi, mn_lo,
+  static constexpr int RAW_BYTES = D_OFF + 2 * tile::BN * 2;  // mn_hi; d,
+                                                              // dmin
 
   __device__ static const void* a_chunk(const Args& a, int row, int st,
                                         int c, int& bytes) {
@@ -651,6 +683,8 @@ struct TileQ4K : TileBase {
   __device__ static void issue_raw(const Args& a, uint8_t* raw, int st,
                                    int n0, int pt) {
     issue_codes(a, raw, a.p.q, 32 * st, n0, pt);
+    if constexpr (QH)
+      issue_codes(a, raw + QH_OFF, a.p.qh, 32 * (st >> 2), n0, pt);
     if (pt < 32) {  // the stage's scale and min rows: 4 planes x 8 chunks
       const int pl = pt >> 3, c = pt & 7;
       const uint8_t* plane =
@@ -669,16 +703,23 @@ struct TileQ4K : TileBase {
   // is taken at step q = j - rot, so the 8 lanes of a store phase write 8
   // rows n with 8 distinct n % 8 (distinct swizzled chunks)
   __device__ static void transform(const Args& a, const uint8_t* raw,
-                                   uint8_t* bt, int, int pt) {
+                                   uint8_t* bt, int, int pt, int st = 0) {
     const uint32_t mg = a.p.magic;
     const int cgp = pt & 31, rg = pt >> 5, rot = (cgp >> 1) & 3;
+    const int c2 = 2 * (st & 3);
     uint32_t lo[8], hi[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(
-          raw + (8 * rg + i) * tile::BN + 4 * cgp);
+      const int o = (8 * rg + i) * tile::BN + 4 * cgp;
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + o);
       lo[i] = w & NIB;
       hi[i] = (w >> 4) & NIB;
+      if constexpr (QH) {
+        const uint32_t hb =
+            *reinterpret_cast<const uint32_t*>(raw + QH_OFF + o) >> c2;
+        lo[i] |= (hb << 4) & B5;
+        hi[i] |= (hb << 3) & B5;
+      }
     }
     const uint8_t* sc = raw + SC_OFF;
     const uint16_t* dd = reinterpret_cast<const uint16_t*>(raw + D_OFF);
@@ -849,7 +890,8 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
                       N, path, nsplit, split_k, bm, vec, magic, stream);      \
   }
 
-KQUANT_ENTRY(q4_k_matmul, Q4K, TileQ4K)
+KQUANT_ENTRY(q4_k_matmul, Q45K<false>, TileQ45K<false>)
+KQUANT_ENTRY(q5_k_matmul, Q45K<true>, TileQ45K<true>)
 KQUANT_ENTRY(q6_k_matmul, Q6K, TileQ6K)
 
 extern "C" const char* nt_error_string(int code) {

@@ -1,12 +1,12 @@
-// Fused dequant-matmul of the GGUF nibble formats Q4_0 and Q5_K and of the
+// Fused dequant-matmul of the GGUF nibble format Q4_0 and of the
 // engine-native W4A8 format for Hopper (sm_90a), plain C interface: one
-// entry point per format. (Q4_K and Q6_K, the Q4_K_M pair, are
+// entry point per format. (The K-quants Q4_K, Q5_K and Q6_K are
 // kquant_matmul.cu.)
 //
 // Replaces the TPU kernel ntransformer_tpu/ops/pallas/matmul.py::
-// _quant_matmul_impl with its _q4_0_tile, _q5_k_tile and _w4a8_tile bodies
-// (entry quant_matmul_pallas, reached from ops/linear.py::qmatmul): every
-// quantized product of a Q4_0 or Q5_K model, at T = 1 (decode) and at T > 1
+// _quant_matmul_impl with its _q4_0_tile and _w4a8_tile bodies (entry
+// quant_matmul_pallas, reached from ops/linear.py::qmatmul): every
+// quantized product of a Q4_0 model, at T = 1 (decode) and at T > 1
 // (prefill chunks, batched steps, verify windows), and the T > 1 products
 // of a W4A8 model (its T = 1 product is w4a8_decode.cu).
 //
@@ -14,11 +14,10 @@
 // the weight exactly as the plain dequant (ops/dequant_torch.py, the JAX
 // package's dequant_jnp.py) computes it in f32:
 //   Q4_0:  (nib - 8) * d
-//   Q5_K:  q * (d * sc) - dmin * mn      (q = nib | hb << 4)
 //   W4A8:  nib * s - m                   (s, m f32 planes)
-// with f32 accumulation. For Q4_0 and Q5_K every product is exact in f32
-// (at most 11 + 6 + 5 significant bits), so only the one subtraction
-// rounds, as in the plain dequant. Kernel and plain twin thus see the same
+// with f32 accumulation. For Q4_0 every product is exact in f32 (at most
+// 11 + 4 significant bits), as in the plain dequant. Kernel and plain twin
+// thus see the same
 // bf16 weights and differ only in the order of the f32 sums. W4A8's nib * s
 // is not exact in f32 for an arbitrary s, so an FMA contraction of nib * s - m would round once where the plain dequant
 // rounds twice and change the bf16 weight: its tile rounds the product
@@ -27,19 +26,16 @@
 // the min term (a VPU trade with its own rounding) is not carried over.
 //
 // Plane layout (core/layout.py): transposed planes, N contiguous. Nibble
-// plane row r of a format with split unit u (32 / 64) holds element
+// plane row r of a format with split unit u (32) holds element
 // u * (r / (u/2)) + r % (u/2) in its low nibble and that element + u/2 in
 // its high nibble; the kernel reads x at those two positions.
 //   Q4_0: d row r / 16.
-//   Q5_K: sc_lo / mn_lo (low nibble) and sc_hi / mn_hi (high) row r / 32,
-//     d / dmin row r / 128; qh [K/8, N] row 32 * (r / 128) + r % 32, bit 2c
-//     (low) and 2c + 1 (high), c = r%128/32.
 //   W4A8 (split unit 512): s_lo / m_lo (low nibble) and s_hi / m_hi (high)
 //     f32 row r / 256 (an entry of its own, w4a8_matmul).
 // f16 planes hold the raw bits (int16 on the PyTorch side).
 //
 // What bounds it on the H100. At T = 1 it streams the planes once: bytes
-// over 3.35 TB/s (0.5625 / 0.703125 bytes per weight; Q4_0 fused gate|up
+// over 3.35 TB/s (0.5625 bytes per weight; Q4_0 fused gate|up
 // of an 8B model, K 4096 x N 28672, 66.1 MB: ~20 us). The per-weight
 // dequant (a nibble, a convert, one or two f32 ops
 // and a bf16 round) is ~7 integer/f32 operations, so unlike Q8_0 the CUDA
@@ -52,11 +48,11 @@
 //  * T == 1: nib_gemv_kernel. Each lane owns 16 neighbouring columns and
 //    reads 16-byte row segments of each plane (a warp covers 512
 //    contiguous bytes of a row: coalesced). The scales of a lane's columns
-//    are decoded once per scale group (16 or 32 plane rows) into f32
+//    are decoded once per scale group (16 plane rows) into f32
 //    registers. x of the block's K range is staged in shared memory as
-//    bf16 (8 KB at K = 4096). Four warps take interleaved chunks of 16 (Q4_0)
-//    or 32 plane rows. K is split across blocks on superblock boundaries
-//    (so each split reads whole d / dmin rows) to cover the 132 SMs, and a
+//    bf16 (8 KB at K = 4096). Four warps take interleaved chunks of 16
+//    plane rows. K is split across blocks on scale-group boundaries
+//    (so each split reads whole d rows) to cover the 132 SMs, and a
 //    second kernel sums the partial rows in a fixed order: no atomics, runs
 //    repeat bit for bit.
 //  * T > 1: nib_mma_kernel. 64x128 output tiles, K stepped 32 plane rows
@@ -77,27 +73,21 @@
 
 namespace {
 
-enum Kind { KQ4_0 = 0, KQ5_K = 2 };
+enum Kind { KQ4_0 = 0 };
 
 struct Planes {
   const uint8_t* q;      // qs: nibble pairs [K/2, N]
-  const uint8_t* qh;     // Q5_K high bits [K/8, N]
-  const uint8_t* sc_lo;  // u8 [K/64, N]
-  const uint8_t* sc_hi;
-  const uint8_t* mn_lo;  // u8 [K/64, N]
-  const uint8_t* mn_hi;
-  const uint16_t* d;     // f16 bits: [K/32, N] (Q4_0) or [K/256, N]
-  const uint16_t* dmin;  // f16 bits [K/256, N]
+  const uint16_t* d;     // f16 bits [K/32, N]
 };
 
 // plane rows per half unit (u / 2): the high nibble's element is this far on
 template <int KIND>
 struct Fmt {
-  static constexpr int HALF = KIND == KQ4_0 ? 16 : 32;
+  static constexpr int HALF = 16;
   // plane rows that share one set of decoded scales
-  static constexpr int SCALE_ROWS = KIND == KQ4_0 ? 16 : 32;
+  static constexpr int SCALE_ROWS = 16;
   // plane rows a warp takes at a time in the GEMV
-  static constexpr int CHUNK_ROWS = KIND == KQ4_0 ? 16 : 32;
+  static constexpr int CHUNK_ROWS = 16;
 };
 
 // element of plane row r's low nibble (the high one is + HALF)
@@ -165,10 +155,6 @@ struct Scales<KQ4_0> {
   float d[16];
 };
 
-template <>
-struct Scales<KQ5_K> {
-  float sl[16], sh[16], ml[16], mh[16];
-};
 
 template <int KIND>
 __device__ __forceinline__ void load_scales(const Planes& p, int r, int c0,
@@ -181,27 +167,6 @@ __device__ __forceinline__ void load_scales<KQ4_0>(const Planes& p, int r,
   const H16 dh = ld16(p.d + (size_t)(r / 16) * N, c0, N, full);
 #pragma unroll
   for (int j = 0; j < 16; ++j) s.d[j] = f16(dh.h[j]);
-}
-
-template <>
-__device__ __forceinline__ void load_scales<KQ5_K>(const Planes& p, int r,
-                                                   int c0, int N, bool full,
-                                                   Scales<KQ5_K>& s) {
-  const size_t g = (size_t)(r / 32) * N, sb = (size_t)(r / 128) * N;
-  const H16 dh = ld16(p.d + sb, c0, N, full);
-  const H16 mh = ld16(p.dmin + sb, c0, N, full);
-  const U8x16 a = ld8(p.sc_lo + g, c0, N, full);
-  const U8x16 b = ld8(p.sc_hi + g, c0, N, full);
-  const U8x16 c = ld8(p.mn_lo + g, c0, N, full);
-  const U8x16 e = ld8(p.mn_hi + g, c0, N, full);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float dv = f16(dh.h[j]), mv = f16(mh.h[j]);
-    s.sl[j] = dv * static_cast<float>(a.b[j]);  // exact: 11 + 6 bits
-    s.sh[j] = dv * static_cast<float>(b.b[j]);
-    s.ml[j] = mv * static_cast<float>(c.b[j]);
-    s.mh[j] = mv * static_cast<float>(e.b[j]);
-  }
 }
 
 template <int KIND>
@@ -219,25 +184,6 @@ __device__ __forceinline__ void row_weights<KQ4_0>(
   for (int j = 0; j < 16; ++j) {
     wl[j] = static_cast<float>((q.b[j] & 15) - 8) * s.d[j];
     wh[j] = static_cast<float>((q.b[j] >> 4) - 8) * s.d[j];
-  }
-}
-
-template <>
-__device__ __forceinline__ void row_weights<KQ5_K>(
-    const Planes& p, int r, int c0, int N, bool full, const Scales<KQ5_K>& s,
-    float (&wl)[16], float (&wh)[16]) {
-  const U8x16 q = ld8(p.q + (size_t)r * N, c0, N, full);
-  const U8x16 h =
-      ld8(p.qh + (size_t)(32 * (r / 128) + r % 32) * N, c0, N, full);
-  const int sh = 2 * ((r % 128) / 32);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int lo = (q.b[j] & 15) | (((h.b[j] >> sh) & 1) << 4);
-    const int hi = (q.b[j] >> 4) | (((h.b[j] >> (sh + 1)) & 1) << 4);
-    // q * s is exact, so the one rounding is the subtraction's (an FMA
-    // contraction gives the same value)
-    wl[j] = static_cast<float>(lo) * s.sl[j] - s.ml[j];
-    wh[j] = static_cast<float>(hi) * s.sh[j] - s.mh[j];
   }
 }
 
@@ -338,8 +284,8 @@ __device__ __forceinline__ int swz(int n, int k) {
   return k ^ (((n >> 4) & 7) << 2);
 }
 
-// x element of tile column kc (0..63) at K step st: Q4_0 and Q5_K step
-// over 64 contiguous elements
+// x element of tile column kc (0..63) at K step st: Q4_0 steps over 64
+// contiguous elements
 template <int KIND>
 __device__ __forceinline__ int tile_elem(int st, int kc) {
   return MM_BK * st + kc;
@@ -349,8 +295,7 @@ __device__ __forceinline__ int tile_elem(int st, int kc) {
 // rr (0..31)
 template <int KIND>
 __device__ __forceinline__ int tile_col(int rr, int hi) {
-  if (KIND == KQ4_0) return 32 * (rr / 16) + rr % 16 + 16 * hi;
-  return rr + 32 * hi;
+  return 32 * (rr / 16) + rr % 16 + 16 * hi;
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -976,21 +921,14 @@ int launch(const void* x, const void* qs, const void* s_lo, const void* s_hi,
 }  // namespace w4
 
 template <int KIND>
-int launch(const void* x, const void* q, const void* qh, const void* sc_lo,
-           const void* sc_hi, const void* mn_lo, const void* mn_hi,
-           const void* d, const void* dmin, void* y, void* work, int T, int K,
-           int N, int split_rows, int nsplit, int vec, void* stream) {
+int launch(const void* x, const void* q, const void* d, void* y, void* work,
+           int T, int K, int N, int split_rows, int nsplit, int vec,
+           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   Planes p;
   p.q = static_cast<const uint8_t*>(q);
-  p.qh = static_cast<const uint8_t*>(qh);
-  p.sc_lo = static_cast<const uint8_t*>(sc_lo);
-  p.sc_hi = static_cast<const uint8_t*>(sc_hi);
-  p.mn_lo = static_cast<const uint8_t*>(mn_lo);
-  p.mn_hi = static_cast<const uint8_t*>(mn_hi);
   p.d = static_cast<const uint16_t*>(d);
-  p.dmin = static_cast<const uint16_t*>(dmin);
   float* out = static_cast<float*>(y);
   if (T == 1) {
     const int smem = 2 * split_rows * 2;  // the split's x, bf16
@@ -1016,23 +954,19 @@ int launch(const void* x, const void* q, const void* qh, const void* sc_lo,
 
 }  // namespace
 
-// y [T,N] f32 = x [T,K] bf16 @ dequant(planes). Plane pointers a format does
-// not have are null. work: [nsplit, N] f32 scratch when T == 1 and
-// nsplit > 1. split_rows: plane rows per split at T == 1 (whole scale units;
-// superblocks for Q5_K). vec: 1 when N % 16 == 0 and every plane is
-// 16-byte aligned (vector loads).
-#define NIBBLE_ENTRY(fn, KIND)                                                \
-  extern "C" int fn(const void* x, const void* q, const void* qh,             \
-                    const void* sc_lo, const void* sc_hi, const void* mn_lo,  \
-                    const void* mn_hi, const void* d, const void* dmin,       \
-                    void* y, void* work, int T, int K, int N, int split_rows, \
-                    int nsplit, int vec, void* stream) {                      \
-    return launch<KIND>(x, q, qh, sc_lo, sc_hi, mn_lo, mn_hi, d, dmin, y,     \
-                        work, T, K, N, split_rows, nsplit, vec, stream);      \
-  }
-
-NIBBLE_ENTRY(q4_0_matmul, KQ4_0)
-NIBBLE_ENTRY(q5_k_matmul, KQ5_K)
+// y [T,N] f32 = x [T,K] bf16 @ dequant(Q4_0 planes qs, d). The plane slots
+// of the K-quant entries (qh, sc_lo, sc_hi, mn_lo, mn_hi, dmin) are null.
+// work: [nsplit, N] f32 scratch when T == 1 and nsplit > 1. split_rows:
+// plane rows per split at T == 1 (whole scale units). vec: 1 when
+// N % 16 == 0 and every plane is 16-byte aligned (vector loads).
+extern "C" int q4_0_matmul(const void* x, const void* q, const void*,
+                           const void*, const void*, const void*,
+                           const void*, const void* d, const void*, void* y,
+                           void* work, int T, int K, int N, int split_rows,
+                           int nsplit, int vec, void* stream) {
+  return launch<KQ4_0>(x, q, d, y, work, T, K, N, split_rows, nsplit, vec,
+                       stream);
+}
 
 // y [T,N] f32 = x [T,K] bf16 @ the W4A8 weight (T > 1; T = 1 is the
 // quantized-activation product of w4a8_decode.cu). qs u8 [K/2, N]; s_* /

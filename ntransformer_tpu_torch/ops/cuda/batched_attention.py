@@ -24,11 +24,15 @@ softmax, and the kernel cuts its work at the same blocks. On CPU tensors the
 twin computes the form it is asked for (the JAX entries force "f32" in
 interpret mode).
 
-On the H100 it is bound by bytes (every live K/V row once). The kernel
-splits each sequence's live keys across blocks and merges the partials in a
-fixed-order second pass, so small batches fill the card; a block stops at
-its own sequence's last live key. The per-block forms run each TPU key block
-on a thread-block cluster (`group_layout` sizes it) that reads K and V once,
+On the H100 it is bound by bytes (every live K/V row once). "f32" and
+"int8_s" run the split kernel: each sequence's live keys are split across
+blocks (`split_plan`, from the shapes alone), each walking 128-key tiles of
+the raw cache through a cp.async ring with one online softmax a warp; where
+the splits of a (sequence, head) fit one thread-block cluster, the cluster
+merges them in rank order and writes the output (one launch a call), else a
+fixed-order second pass merges them (two). A block stops at its own
+sequence's last live key. The per-block forms run each TPU key block on a
+thread-block cluster (`group_layout` sizes it) that reads K and V once,
 keeps the scores in shared memory and exchanges the exact row maxima; past
 one key block a max pass first writes the per-block maxima whose prefix max
 is the TPU kernel's running max. See the source for the details.
@@ -55,7 +59,8 @@ _SIGNATURES = {"batched_flash_attention": [ctypes.c_void_p] * 16
 NO_WINDOW = 2 ** 30  # a window larger than any context masks nothing
 MAX_ROWS = 32        # query rows per (sequence, kv head): group * T
 MAX_NEW = 8          # virtual rows per sequence
-_MIN_SPLIT_KEYS = 64  # fewest live keys worth a block of their own
+_MIN_SPLIT_KEYS = 128  # the split kernel's tile: fewest keys worth a block
+_SPLIT_TILES = 4       # tiles a split may walk before splits pass a cluster
 # the cache-dot forms and their codes in the kernel's C interface
 DOT_IMPLS = {"f32": 0, "bf16": 1, "int8": 2, "int8_s": 3, "int8_v": 4}
 # the forms that round p against one key block's running max
@@ -70,9 +75,10 @@ _GROUP_TILE = 128
 _SLICE_BYTES = 96 << 10
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it):
-# a call is two, the split or group pass and its combine pass, and three for
-# a per-block form over more than one key block (its max pass first);
-# by_dot splits the same count by the form the kernel ran
+# a split form's call is one where its splits fit a cluster, else two (the
+# split pass and the combine pass); a per-block form's is two, the group pass
+# and its combine pass, and three over more than one key block (its max pass
+# first); by_dot splits the same count by the form the kernel ran
 launches = 0
 launches_by_dot = dict.fromkeys(DOT_IMPLS, 0)
 _SM_COUNT: dict[int, int] = {}
@@ -253,11 +259,22 @@ def batched_flash_plain(qr, k, v, ks, vs, kn, vn, kns, vns, pos, active, *,
     return acc / l
 
 
-def _split_count(device: torch.device, b_n: int, hkv: int, keys: int) -> int:
-    """Blocks per (sequence, head): enough to cover the SMs twice, with at
-    least _MIN_SPLIT_KEYS keys each when the cache is full."""
-    want = -(-2 * _sm_count(device) // (b_n * hkv))
-    return max(1, min(want, -(-keys // _MIN_SPLIT_KEYS)))
+def split_plan(s: int, b_n: int, hkv: int, sm_count: int) -> tuple[int, int]:
+    """(blocks per (sequence, head), cluster size) of the split kernel
+    ("f32", "int8_s"), from the shapes alone so that an s_live bucket
+    changes no bit of the result: one block an SM, at most one a 128-key
+    tile of the cache (fewer, longer walks measured faster than covering
+    the SMs twice; experiments/split_plans.py, PERF.md). The splits of a
+    (sequence, head) form one cluster that merges them when they fit
+    (MAX_CLUSTER); past that they stay MAX_CLUSTER where each would walk at
+    most _SPLIT_TILES tiles (one launch beat more splits and the combine
+    pass at B = 1, S 4096), else cluster size 0 leaves the merge to the
+    combine pass."""
+    tiles = -(-s // _MIN_SPLIT_KEYS)
+    nsplit = max(1, min(-(-sm_count // (b_n * hkv)), tiles))
+    if nsplit > MAX_CLUSTER:
+        nsplit = max(MAX_CLUSTER, min(nsplit, -(-tiles // _SPLIT_TILES)))
+    return nsplit, (nsplit if nsplit <= MAX_CLUSTER else 0)
 
 
 def row_capacity(r_n: int) -> int:
@@ -377,8 +394,8 @@ def _call(qr, k_cache, v_cache, k_new, v_new, pos, active, *, layer, scale,
     if quant:
         kns = kns.to(torch.float32).contiguous()
         vns = vns.to(torch.float32).contiguous()
-    if qr.data_ptr() % 16:
-        qr = qr.clone()
+    # 16-byte rows for the kernel's vector copies
+    qr, kn, vn = (x.clone() if x.data_ptr() % 16 else x for x in (qr, kn, vn))
     # no-ops for the int32 vectors the batched steps pass
     pos32 = pos.to(dev, torch.int32).contiguous()
     act32 = active.to(dev, torch.int32).contiguous()
@@ -387,11 +404,13 @@ def _call(qr, k_cache, v_cache, k_new, v_new, pos, active, *, layer, scale,
         block_s, nsplit = key_blocks(s, live, hkv, d, quant)
         csize, slice_cap = group_layout(r_n, block_s, nsplit, b_n, hkv,
                                         _sm_count(dev))
+        n_launch = 3 if nsplit > 1 else 2
     else:
         # from the shapes alone, so an s_live bucket changes no bit of the
         # result
-        block_s, nsplit = s, _split_count(dev, b_n, hkv, s)
-        csize, slice_cap = 1, 0  # no cluster
+        nsplit, csize = split_plan(s, b_n, hkv, _sm_count(dev))
+        block_s, slice_cap = s, 0
+        n_launch = 1 if csize else 2
     n_acc, n_ml = b_n * hkv * nsplit * r_n * d, b_n * hkv * nsplit * r_n
     stream = torch.cuda.current_stream(dev).cuda_stream
     part = _scratch(dev, stream, n_acc + 3 * n_ml)
@@ -411,7 +430,6 @@ def _call(qr, k_cache, v_cache, k_new, v_new, pos, active, *, layer, scale,
             live, win, nsplit, DOT_IMPLS[dot], block_s, csize, slice_cap,
             float(scale), float(softcap), scale / 127.0, 1.0 / 127.0, stream)
     build.check(lib, rc, NAME)
-    n_launch = 3 if dot in BLOCKED_DOTS and nsplit > 1 else 2
     launches += n_launch
     launches_by_dot[dot] += n_launch
     return out

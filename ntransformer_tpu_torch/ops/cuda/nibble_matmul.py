@@ -1,7 +1,7 @@
 """Fused dequant-matmul of the GGUF nibble formats (Q4_0, Q4_K, Q5_K,
 Q6_K) and of W4A8 at T > 1: the wrapper of `csrc/nibble_matmul.cu` (Q4_0,
-Q5_K, W4A8) and `csrc/kquant_matmul.cu` (Q4_K, Q6_K) and their plain
-PyTorch twin.
+W4A8) and `csrc/kquant_matmul.cu` (the K-quants Q4_K, Q5_K, Q6_K) and their
+plain PyTorch twin.
 
 Replaces ntransformer_tpu/ops/pallas/matmul.py::_quant_matmul_impl with its
 _q4_0_tile, _q4_k_tile, _q5_k_tile, _q6_k_tile and _w4a8_tile bodies (entry
@@ -19,23 +19,23 @@ the CUDA cores, and by operations at prefill T. The kernels read x at the
 two element positions of each plane row's nibbles (no activation reorder
 on the card).
 
-Q4_K and Q6_K, the Q4_K_M pair, run the shapes of the Q8_0 kernel: up to
+The K-quants Q4_K, Q5_K and Q6_K run the shapes of the Q8_0 kernel: up to
 `plans.SKINNY_ROWS` tokens a skinny mma.sync kernel that streams the planes
 once with the weight as the M side, its K splits (whole superblocks) one
 cluster summed in rank order, one launch; past it the warp-specialized
 wgmma tile of `csrc/hopper_tile.cuh`, its producer dequantizing each
 32-plane-row stage once for 256 or 128 rows of x (`plans.tile_plan`).
 
-Q4_0 and Q5_K split K across blocks on superblock boundaries at T = 1 (a
+Q4_0 splits K across blocks on scale-group boundaries at T = 1 (a
 fixed-order second pass sums the partials, so runs repeat bit for bit) and
-tile T x N with mma.sync 64 x 128 tiles at T > 1; W4A8 runs a
+tiles T x N with mma.sync 64 x 128 tiles at T > 1; W4A8 runs a
 warp-specialized wgmma tile (256 x 128, 128 x 256 or 128 x 128,
 `w4a8_tile`) whose producer warpgroup dequantizes each stage once for all
 the tile's rows of x while the consumers' wgmma runs; see the sources.
 
-One C entry and one launch counter per format (`KERNELS`): a Q4_0 or Q5_K
-split-K product at T = 1 counts two launches, the GEMV and its reduce
-pass; every other product one.
+One C entry and one launch counter per format (`KERNELS`): a Q4_0 split-K
+product at T = 1 counts two launches, the GEMV and its reduce pass; every
+other product one.
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ from ..dequant_torch import dequant_planes_torch
 from . import build, plans
 
 NAME = "nibble_matmul"
-KQ_NAME = "kquant_matmul"  # csrc/kquant_matmul.cu: Q4_K and Q6_K
+KQ_NAME = "kquant_matmul"  # csrc/kquant_matmul.cu: Q4_K, Q5_K and Q6_K
 _TPU = "ntransformer_tpu/ops/pallas/matmul.py:344 _quant_matmul_impl"
 # the eight plane slots of the GGUF formats' C entries, in order; a
 # format's "qs"/"ql" plane goes to "q", and a slot a format lacks gets a
@@ -84,19 +84,19 @@ KERNELS = {
     DType.Q4_K: Kernel("q4_k_matmul",
                        f"{_TPU} + _q4_k_tile :134 (+ _group_sums :111)",
                        0, 0, f"csrc/{KQ_NAME}.cu"),
-    DType.Q5_K: Kernel("q5_k_matmul", f"{_TPU} + _q5_k_tile :172", 32, 128),
+    DType.Q5_K: Kernel("q5_k_matmul", f"{_TPU} + _q5_k_tile :172", 0, 0,
+                       f"csrc/{KQ_NAME}.cu"),
     DType.Q6_K: Kernel("q6_k_matmul", f"{_TPU} + _q6_k_tile :211", 0, 0,
                        f"csrc/{KQ_NAME}.cu"),
     # T > 1 only: no GEMV, so no chunk or split rows
     DType.W4A8: Kernel("w4a8_matmul", f"{_TPU} + _w4a8_tile :248", 0, 0),
 }
-KQUANT = (DType.Q4_K, DType.Q6_K)
+KQUANT = (DType.Q4_K, DType.Q5_K, DType.Q6_K)
 # the block along K of each format: 32 elements for Q4_0, 512 (two 256
 # groups) for W4A8, a 256-element superblock for the K-quants
 _K_UNIT = {DType.Q4_0: 32, DType.W4A8: 512}
-_SIGNATURES = {KERNELS[dt].name: [ctypes.c_void_p] * 11
-               + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-               for dt in (DType.Q4_0, DType.Q5_K)}
+_SIGNATURES = {KERNELS[DType.Q4_0].name: [ctypes.c_void_p] * 11
+               + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
 _SIGNATURES["w4a8_matmul"] = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                               + [ctypes.c_void_p])
 _KQ_SIGNATURES = {KERNELS[dt].name: [ctypes.c_void_p] * 10
@@ -156,7 +156,7 @@ def sm_count(device: torch.device) -> int:
 
 def split_plan(device: torch.device, dtype: DType, k: int,
                n: int) -> tuple[int, int]:
-    """(plane rows per split, splits) of the Q4_0 / Q5_K GEMV at T = 1:
+    """(plane rows per split, splits) of the Q4_0 GEMV at T = 1:
     enough (strip, split) blocks to cover the SMs twice, a split holding
     whole split units and at least one chunk per warp."""
     kern = KERNELS[dtype]

@@ -1,4 +1,4 @@
-"""The Q4_K and Q6_K kernels of `csrc/kquant_matmul.cu` on the CPU: their
+"""The Q4_K, Q5_K and Q6_K kernels of `csrc/kquant_matmul.cu` on the CPU: their
 launch plans (`ops/cuda/plans.py` with the K-quant unit) at the 8B shapes,
 and a model of their order of f32 sums held against the JAX `qmatmul` (its
 CPU jnp path: bf16 dequant, bf16 activations, f32 dot) at the JAX suite's
@@ -20,17 +20,17 @@ from ntransformer_tpu_torch.ops.cuda import plans
 from ntransformer_tpu_torch.ops.dequant_torch import dequant_planes_torch
 
 TOL = 1e-4
-KQUANT = ["q4_k", "q6_k"]
+KQUANT = ["q4_k", "q5_k", "q6_k"]
 # a skinny warp step is 32 plane rows at element k = 64 s; the elements
 # that start its k16 blocks, in the order each accumulator takes them (the
 # low nibbles of rows 0-15, their high nibbles, then rows 16-31): Q4_K's
-# are the 64 elements from k; Q6_K's the low nibbles of 128 G + 32 e + 0-31
-# (G = k // 128, e = k // 64 % 2) and their high nibbles 64 on
+# and Q5_K's are the 64 elements from k; Q6_K's the low nibbles of 128 G +
+# 32 e + 0-31 (G = k // 128, e = k // 64 % 2) and their high nibbles 64 on
 STEP = 64
 
 
 def step_blocks(dtype: str, k: int) -> tuple:
-    if dtype == "q4_k":
+    if dtype in ("q4_k", "q5_k"):
         return tuple(k + o for o in (0, 32, 16, 48))
     base = 128 * (k // 128) + 32 * (k // 64 % 2)
     return tuple(base + o for o in (0, 64, 16, 80))
@@ -38,8 +38,9 @@ def step_blocks(dtype: str, k: int) -> tuple:
 
 def skinny_warps(dtype: str, t: int) -> int:
     """Warps a skinny block (csrc/kquant_matmul.cu Skinny::WARPS): 4, or 3
-    for Q6_K at 17-32 tokens, where 4 warps' slots leave one block an SM."""
-    return 3 if dtype == "q6_k" and t > 16 else 4
+    for Q5_K and Q6_K at 17-32 tokens, where 4 warps' slots (their qh rows
+    among them) leave one block an SM."""
+    return 3 if dtype in ("q5_k", "q6_k") and t > 16 else 4
 
 
 _SHAPES_8B = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
@@ -60,10 +61,11 @@ def _x(t, k, seed):
 
 def tile_blocks(dtype: str, st: int) -> tuple:
     """Elements that start the k16 blocks of tile stage st (32 plane rows,
-    64 k-values), in wgmma order: Q4_K's are 64 consecutive elements; Q6_K
+    64 k-values), in wgmma order: Q4_K's and Q5_K's are 64 consecutive
+    elements; Q6_K
     stage st holds the low nibbles of 128 (st // 2) + 32 (st % 2) + 0-31
     and their high nibbles 64 elements on."""
-    if dtype == "q4_k":
+    if dtype in ("q4_k", "q5_k"):
         return tuple(64 * st + o for o in (0, 16, 32, 48))
     base = 128 * (st // 2) + 32 * (st % 2)
     return tuple(base + o for o in (0, 16, 64, 80))
@@ -198,7 +200,7 @@ def test_skinny_plan_shortens_splits_to_cover_the_sms():
 
 @pytest.mark.parametrize("dtype", KQUANT)
 def test_kquant_kernels_are_the_new_source(dtype):
-    """Q4_K and Q6_K are the skinny kernel and the wgmma tile of
+    """Q4_K, Q5_K and Q6_K are the skinny kernel and the wgmma tile of
     csrc/kquant_matmul.cu: one launch a product, no GEMV split rows."""
     kern = nm.KERNELS[PDType(dtype)]
     assert kern.source == "csrc/kquant_matmul.cu"
