@@ -27,12 +27,12 @@ subset of the rest:
      "int8_s" one launch a call where its splits fit a cluster), and the
      s_live bucket's result bit-equal to the whole cache's;
   qkernels: the same for the Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul
-     kernels at T = 1, 32 and 512 (8B shapes, the Q6_K head, repolm512's
-     shapes, a ragged N), and T = 8 and 64 at the 8B gate|up (Q4_K, Q5_K)
-     and down (Q6_K); every row with its profiler device time and kernels
-     a call, the counter and the profiler agreeing; the K-quants (Q4_K,
-     Q5_K, Q6_K) one kernel a call (the skinny kernel or the wgmma tile of
-     csrc/kquant_matmul.cu);
+     kernels at T = 1, 32 and 512 (8B shapes, the Q6_K and Q4_0 heads,
+     repolm512's shapes, a ragged N, Q4_0's half step at K = 1056), and
+     T = 8 and 64 at the 8B gate|up (Q4_0, Q4_K, Q5_K) and down (Q6_K);
+     every row with its profiler device time and kernels a call, the
+     counter and the profiler agreeing; each format one kernel a call (the
+     skinny kernel or the wgmma tile of csrc/kquant_matmul.cu);
   real: models/repolm512_q8.gguf through the CLI on the card, Engine greedy
      generation on the card against the CPU, teacher-forced on the CPU's
      tokens with every step's logits compared, and each layer of the kernel
@@ -524,7 +524,9 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
 def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
     """The serving path's kernels against their plain twins at the 8B
     shapes (Hq 32, Hkv 8, D 128): batched flash decode/verify over a stacked
-    2-layer cache, and the in-place KV append at L = 32."""
+    2-layer cache, and the in-place KV append at L = 32 (B = 8 bf16 and
+    int8 at S 4096, the 8-slot server's; B = 32 int8 at S 1024) and at one
+    layer (append_rows, B = 8 bf16)."""
     from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
     from ntransformer_tpu_torch.ops.cuda import kv_update as ck
     import torch.nn.functional as F
@@ -697,13 +699,15 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
     app_rows = []
     for label, layers, b_n, int8, stacked in (
             ("8b L=32 B=8 bf16", 32, 8, False, True),
+            ("8b L=32 B=8 int8 codes+scales S 4096", 32, 8, True, True),
             ("8b L=32 B=32 int8 codes+scales", 32, 32, True, True),
             ("8b append_rows one layer B=8 bf16", 1, 8, False, False)):
-        s = 4096 if not int8 else 1024
+        s = 4096 if not int8 or b_n == 8 else 1024
         pos_l = [(977 * i + 13) % s for i in range(b_n)]
         act_l = [i % 7 != 3 for i in range(b_n)]
         pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
-        act = torch.tensor(act_l, device="cuda")
+        # int32 on the card, as the batched step hands them over
+        act = torch.tensor(act_l, device="cuda").to(torch.int32)
         shape = (layers, b_n, hkv, s, dh)
         if int8:
             caches = [torch.randint(-127, 128, shape, dtype=torch.int8,
@@ -1837,17 +1841,17 @@ def random_planes(torch, g, dtype, k: int, n: int) -> dict:
 def nibble_kernel_phase(torch, timer, card: str) -> dict:
     """The Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul kernels against their
     plain twins on the card, at T = 1, 32 and 512, at the 8B shapes (fused
-    qkv, wo, fused gate|up, down; the 128256-token head for Q6_K), a layer
-    view of stacked planes, repolm512's K = 1024 down and 384-wide head,
-    a ragged N = 200 (scalar loads) and, for Q4_0, K = 1056 (a half K
-    step); for Q4_K at the 8B gate|up and Q6_K at the 8B down also T = 8
-    (the 8-slot server's step) and T = 64 (the first tile T), Q5_K at the
-    8B gate|up too. Times by CUDA events as in the kernels phase; the
-    library yardstick is torch.matmul on the pre-dequantized bf16 weight.
-    Every row carries the profiler's device time and kernels a call, the
-    counter reading as many. A K-quant call (Q4_K, Q5_K, Q6_K) is one
-    kernel (the skinny kernel up to 32 tokens, the wgmma tile past it) and
-    no other."""
+    qkv, wo, fused gate|up, down; the 128256-token head for Q6_K, and for
+    Q4_0 at T = 1), a layer view of stacked planes, repolm512's K = 1024
+    down and 384-wide head, a ragged N = 200 (scalar loads) and, for Q4_0,
+    K = 1056 (a half K step and stage) at T = 1, 32, 70 and 512; for Q4_0,
+    Q4_K and Q5_K at the 8B gate|up and Q6_K at the 8B down also T = 8
+    (the 8-slot server's step) and T = 64 (the first tile T). Times by
+    CUDA events as in the kernels phase; the library yardstick is
+    torch.matmul on the pre-dequantized bf16 weight. Every row carries the
+    profiler's device time and kernels a call, the counter reading as
+    many. Every call is one kernel (the skinny kernel up to 32 tokens, the
+    wgmma tile past it) and no other."""
     from ntransformer_tpu_torch.core.dtypes import DType
     from ntransformer_tpu_torch.core.layout import LAYOUTS
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
@@ -1857,9 +1861,9 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
     out = {}
     for dtype in (DType.Q4_0, DType.Q4_K, DType.Q5_K, DType.Q6_K):
         kern = nm.KERNELS[dtype]
-        one_kernel = dtype in nm.KQUANT
-        wide = {DType.Q4_K: "8b gate|up", DType.Q5_K: "8b gate|up",
-                DType.Q6_K: "8b down"}.get(dtype)
+        one_kernel = dtype in nm.KQ_FORMATS
+        wide = {DType.Q4_0: "8b gate|up", DType.Q4_K: "8b gate|up",
+                DType.Q5_K: "8b gate|up", DType.Q6_K: "8b down"}.get(dtype)
         shapes = [(label, k, n, (1, 8, 32, 64, 512) if label == wide
                    else (1, 32, 512))
                   for label, k, n in (("8b qkv", 4096, 6144),
@@ -1868,12 +1872,14 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
                                       ("8b down", 14336, 4096))]
         if dtype == DType.Q6_K:
             shapes.append(("8b head", 4096, 128256, (1, 32, 512)))
+        if dtype == DType.Q4_0:
+            shapes.append(("8b head", 4096, 128256, (1,)))
         shapes += [("8b stacked[1] wo", 4096, 4096, (1, 32)),
                    ("repolm512 down", 1024, 512, (1, 32, 70)),
                    ("repolm512 head", 512, 384, (1, 70)),
                    ("ragged 1024x200", 1024, 200, (1, 70))]
         if dtype == DType.Q4_0:
-            shapes.append(("odd K 1056x256", 1056, 256, (1, 70)))
+            shapes.append(("odd K 1056x256", 1056, 256, (1, 32, 70, 512)))
         rows = []
         for label, k, n, ts in shapes:
             if label.startswith("8b stacked"):

@@ -1,18 +1,19 @@
-// Fused Q4_K, Q5_K and Q6_K dequant-matmul for Hopper (sm_90a), plain C
-// interface: the K-quant formats (the Q4_K_M pair, Q6_K for ffn_down and
-// the head and Q4_K for the rest, and Q5_K, the fifth-bit format of Q5_K_M
-// files).
+// Fused Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul for Hopper (sm_90a), plain
+// C interface: the GGUF nibble formats (the Q4_K_M pair, Q6_K for ffn_down
+// and the head and Q4_K for the rest; Q5_K, the fifth-bit format of Q5_K_M
+// files; Q4_0, the legacy 32-element block format).
 //
 // Replaces the TPU kernel ntransformer_tpu/ops/pallas/matmul.py::
-// _quant_matmul_impl with its _q4_k_tile (and _group_sums), _q5_k_tile and
-// _q6_k_tile bodies (entry quant_matmul_pallas, reached from
-// ops/linear.py::qmatmul): every Q4_K, Q5_K and Q6_K product of a model, at
-// T = 1 (decode), at the serving T (batched steps, verify windows) and at
-// prefill T.
+// _quant_matmul_impl with its _q4_0_tile, _q4_k_tile (and _group_sums),
+// _q5_k_tile and _q6_k_tile bodies (entry quant_matmul_pallas, reached from
+// ops/linear.py::qmatmul): every Q4_0, Q4_K, Q5_K and Q6_K product of a
+// model, at T = 1 (decode), at the serving T (batched steps, verify
+// windows) and at prefill T.
 //
 // What it computes. y[T,N] f32 = bf16(x)[T,K] @ W with W[k,n] the bf16 of
 // the weight exactly as the plain dequant (ops/dequant_torch.py) computes
 // it in f32:
+//   Q4_0:  (q - 8) * d   (an f16 d times a 4-bit integer: exact in f32)
 //   Q4_K:  q * (d * sc) - dmin * mn   (the products exact in f32, so the
 //          subtraction rounds once: one fma of the exact q, then bf16)
 //   Q5_K:  the same with q = nib | hb << 4 (q <= 31: still exact)
@@ -23,9 +24,11 @@
 // dot are not carried over: they never round the weight to bf16.
 //
 // Plane layout (core/layout.py; transposed, N contiguous). Plane row r of
-// Q4_K holds element 64 (r / 32) + r % 32 in its low nibble and that + 32
-// in its high one; sc_lo / mn_lo (low nibble), sc_hi / mn_hi (high) row
-// r / 32, d / dmin row r / 128. Q5_K: Q4_K's planes and qh [K/8, N] row
+// Q4_0 holds element 32 (r / 16) + r % 16 in its low nibble and that + 16
+// in its high one; d row r / 16. Q4_K: plane row r holds element
+// 64 (r / 32) + r % 32 in its low nibble and that + 32 in its high one;
+// sc_lo / mn_lo (low nibble), sc_hi / mn_hi (high) row r / 32, d / dmin
+// row r / 128. Q5_K: Q4_K's planes and qh [K/8, N] row
 // 32 (r / 128) + r % 32, bit 2c (low) and 2c + 1 (high), c = r % 128 / 32.
 // Q6_K: ql row r holds element 128 (r / 64) + r % 64 (low) and that + 64
 // (high); qh [K/4, N] row 32 (r / 64) + r % 32, bit pair 2e (low) and 4 +
@@ -33,21 +36,22 @@
 // r / 128. f16 planes hold the raw bits.
 //
 // What bounds it on the H100. At small T it streams the planes once:
-// 0.5625 (Q4_K), 0.703125 (Q5_K) and 0.8203125 (Q6_K) bytes a weight over
-// 3.35 TB/s (8B fused gate|up in Q4_K, 117.4 M weights in 67.9 MB: 20.3 us;
-// in Q5_K 82.6 MB: 24.7 us). Unlike Q8_0 the dequant nearly keeps pace: a
-// weight costs a byte permute, a subtract, an fma (Q6_K: a multiply) and
-// half a bf16x2 convert, plus the nibble masks (~3.5-4 operations, Q5_K's
-// fifth bit ~1 more; 12-15 us of the CUDA cores at the 8B gate|up). At
-// prefill T it is bound by operations: 2 T K N on the bf16 tensor cores
-// (989 TFLOP/s).
+// 0.5625 (Q4_0, Q4_K), 0.703125 (Q5_K) and 0.8203125 (Q6_K) bytes a weight
+// over 3.35 TB/s (8B fused gate|up in Q4_K, 117.4 M weights in 67.9 MB:
+// 20.3 us; in Q5_K 82.6 MB: 24.7 us). Unlike Q8_0 the dequant nearly keeps
+// pace: a weight costs a byte permute, a subtract, an fma (Q4_0, Q6_K: a
+// multiply) and half a bf16x2 convert, plus the nibble masks (~3.5-4
+// operations, Q5_K's fifth bit ~1 more; 12-15 us of the CUDA cores at the
+// 8B gate|up). At prefill T it is bound by operations: 2 T K N on the bf16
+// tensor cores (989 TFLOP/s).
 //
 // What the design does about it.
 //  * T <= 32 (plans.SKINNY_ROWS): skinny_kernel, one launch, the shape of
 //    q8_0_matmul.cu's. The weight is the M side of mma.sync m16n8k16 and
 //    the tokens its N side (padded to 8, 16 or 32). A block owns a strip of
-//    128 columns and a K split of whole superblocks; its 4 warps (3 for
-//    Q5_K and Q6_K at 17-32 tokens, so two blocks fit an SM) take
+//    128 columns and a K split of whole steps (the K-quants' plan: whole
+//    superblocks); its 4 warps (3 for Q5_K and Q6_K at 17-32 tokens, so
+//    two blocks fit an SM) take
 //    interleaved steps of 32 plane rows, each warp keeping its next step in
 //    a ring of two cp.async slots (codes, Q5_K's and Q6_K's qh rows, the
 //    step's scale rows, the tokens' x), so the bytes in flight cost no
@@ -56,8 +60,9 @@
 //    steps of 64 rows that read each qh row once. The K order inside an mma
 //    k-block is free: a k16 block is 16 consecutive elements, the low
 //    nibbles of 16 plane rows or the high nibbles of the same rows, so x is
-//    staged in its own order and the same 16-byte code loads (4 rows x a
-//    lane's 16 columns) feed both blocks; the mma rows are permuted as in
+//    staged in its own order (Q4_0: with two 16-element pieces swapped) and
+//    the same 16-byte code loads (4 rows x a lane's 16 columns) feed both
+//    blocks; the mma rows are permuted as in
 //    q8_0_matmul.cu so every byte lands in the lane's own fragments. A
 //    step's scales are decoded once a column into the warp's shared memory
 //    (each lane 4 columns) and read back tile by tile, so no lane holds 16
@@ -66,10 +71,14 @@
 //    through distributed shared memory (a fixed order: runs repeat bit for
 //    bit). There is no split-K pass.
 //  * T > 32: the warp-specialized wgmma tile of hopper_tile.cuh with the
-//    K-quant formats below: the producer warpgroup dequantizes each
-//    32-plane-row stage (64 k-values: Q4_K's and Q5_K's 64 consecutive
-//    elements, Q6_K's two 32-element pieces 64 apart) once for 256 or 128
-//    rows of x into the 128-byte-swizzled K-major tile.
+//    formats below: the producer warpgroup dequantizes each
+//    32-plane-row stage (64 k-values: Q4_0's, Q4_K's and Q5_K's 64
+//    consecutive elements, Q6_K's two 32-element pieces 64 apart) once for
+//    256 or 128 rows of x into the 128-byte-swizzled K-major tile.
+//  * Q4_0 admits K % 64 == 32: its last step or stage is then half, its
+//    second 16 plane rows, second d row and x past K zero-filled (a zero d
+//    gives an exact 0 weight); a step checks the rows once, and only the
+//    copies of its second half.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -126,42 +135,55 @@ __device__ __forceinline__ float q6k_w(uint32_t u, int j, uint32_t mg,
   return __fmul_rn(__fsub_rn(magic(u, j, mg), 8388640.f), s);
 }
 
-// 16 bytes of a u8 plane, row `row`, columns [col, col + 16), zero past N:
+// Q4_0: (q - 8) d, exact (q - 8 exact, an f16 d times a 4-bit integer)
+__device__ __forceinline__ float q40_w(uint32_t u, int j, uint32_t mg,
+                                       float d) {
+  return __fmul_rn(__fsub_rn(magic(u, j, mg), 8388616.f), d);
+}
+
+// 16 bytes of a u8 plane, row `row`, columns [col, col + 16), zero past N
+// and where the row is not in the plane (row_in false: Q4_0's half step):
 // cp.async, or plain loads when the planes are not 16-byte aligned
 __device__ __forceinline__ void copy_u8(uint8_t* dst,
                                         const uint8_t* __restrict__ plane,
-                                        int row, int col, int N, int vec) {
+                                        int row, int col, int N, int vec,
+                                        bool row_in = true) {
   const uint8_t* src = plane + (size_t)row * N + col;
   if (vec) {
-    const bool in = col < N;
+    const bool in = row_in && col < N;
     cp_async16(smem_u32(dst), in ? src : plane, in ? 16 : 0);
   } else {
 #pragma unroll
-    for (int e = 0; e < 16; ++e) dst[e] = col + e < N ? src[e] : 0;
+    for (int e = 0; e < 16; ++e) dst[e] = row_in && col + e < N ? src[e] : 0;
   }
 }
 
 // 8 values of a u16 (f16 bits) plane, columns [col, col + 8)
 __device__ __forceinline__ void copy_u16(uint8_t* dst,
                                          const uint16_t* __restrict__ plane,
-                                         int row, int col, int N, int vec) {
+                                         int row, int col, int N, int vec,
+                                         bool row_in = true) {
   const uint16_t* src = plane + (size_t)row * N + col;
   if (vec) {
-    const bool in = col < N;
+    const bool in = row_in && col < N;
     cp_async16(smem_u32(dst), in ? src : plane, in ? 16 : 0);
   } else {
     uint16_t* dd = reinterpret_cast<uint16_t*>(dst);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) dd[e] = col + e < N ? src[e] : 0;
+    for (int e = 0; e < 8; ++e) dd[e] = row_in && col + e < N ? src[e] : 0;
   }
 }
 
-// 8 bf16 of x row r from element k; rows past T are left alone (the
-// skinny kernel zeroes them once in every slot)
+// 8 bf16 of x row r from element k, zeros where k_in is false (past K);
+// rows past T are left alone (the skinny kernel zeroes them once in every
+// slot)
 __device__ __forceinline__ void copy_x(uint8_t* dst,
                                        const __nv_bfloat16* __restrict__ x,
-                                       int r, int k, int T, int K) {
-  if (r < T) cp_async16(smem_u32(dst), x + (size_t)r * K + k, 16);
+                                       int r, int k, int T, int K,
+                                       bool k_in = true) {
+  if (r < T)
+    cp_async16(smem_u32(dst), k_in ? x + (size_t)r * K + k : x,
+               k_in ? 16 : 0);
 }
 
 // ------------------------------------------------------------- T <= 32
@@ -212,6 +234,7 @@ __device__ __forceinline__ void a_frag(const uint32_t (&nb)[4][2], int b,
 template <bool QH>
 struct Q45K {
   static constexpr int STEP = 64;
+  static constexpr int K_UNIT = 256;  // K: whole superblocks
   static constexpr int QH_OFF = 32 * SC;                  // Q5_K qh rows
   static constexpr int SC_OFF = QH_OFF + (QH ? 32 * SC : 0);  // sc_lo,
   static constexpr int D_OFF = SC_OFF + 4 * SC;    // sc_hi, mn_lo, mn_hi
@@ -347,6 +370,7 @@ struct Q45K {
 // an SM, and measured slower at every shape)
 struct Q6K {
   static constexpr int STEP = 64;
+  static constexpr int K_UNIT = 256;
   static constexpr int QH_OFF = 32 * SC;           // qh rows [32][128]
   static constexpr int SC_OFF = QH_OFF + 32 * SC;  // sc_lo [2][128], sc_hi
   static constexpr int D_OFF = SC_OFF + 4 * SC;    // d [128] f16
@@ -452,6 +476,126 @@ struct Q6K {
             a_frag(nb, bb,
                    [&](uint32_t w, int by, int c) {
                      return q6k_w(w, by, mg, c ? s2 : s1);
+                   },
+                   a);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma_bf16_16816(acc[j][nt], a, b[hi][nt][0], b[hi][nt][1]);
+          }
+        }
+      }
+    }
+  }
+};
+
+// Q4_0: a warp step is 32 plane rows at element k = 64 s, two Q4_0 blocks:
+// rows 0-15 hold elements k + 0-15 in their low nibbles and k + 16-31 in
+// their high ones, rows 16-31 the next 32; d rows 2 s (rows 0-15) and
+// 2 s + 1. x is staged with its 16-element pieces 1 and 2 swapped, so
+// compute reads the k16 blocks where Q4_K's reads its own: per
+// accumulator, in order, elements k + 0-15, 16-31, 32-47, 48-63. Where
+// K % 64 == 32 the last step is half: its rows 16-31, second d row and x
+// past K are zero-filled
+struct Q40 {
+  static constexpr int STEP = 64;
+  static constexpr int K_UNIT = 32;                 // K: whole blocks
+  static constexpr int D_OFF = 32 * SC;             // d [2][128] f16
+  static constexpr int X_OFF = D_OFF + 2 * SC * 2;  // x [8 NT][64] bf16,
+  static constexpr int X_LD = 144;                  // rows 144 bytes apart
+  // decoded scales: [h][tile j][g] float2 {d} of columns 16 g + j and
+  // 16 g + 8 + j
+  static constexpr int SCR = 2 * 8 * 8 * 8;
+
+  template <int NT, bool HALF>
+  __device__ static void fill(uint8_t* slot, const __nv_bfloat16* x,
+                              const Planes& p, int k, int n0, int T, int K,
+                              int N, int vec, int lane) {
+    const int pr = k >> 1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // 32 rows x 8 chunks (i < 4: rows 0-15)
+      const int id = lane + 32 * i, r = id >> 3, c = id & 7;
+      copy_u8(slot + chunk_at(r, c), p.q, pr + r, n0 + 16 * c, N, vec,
+              !HALF || i < 4);
+    }
+    {  // d rows 2 s and 2 s + 1: 2 x 16 chunks of 8
+      const int rr = lane >> 4, c = lane & 15;
+      copy_u16(slot + D_OFF + 2 * SC * rr + 16 * c, p.d, (k >> 5) + rr,
+               n0 + 8 * c, N, vec, !HALF || rr == 0);
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) {  // 8 NT tokens x 8 chunks of 8 bf16
+      const int id = lane + 32 * i, r = id >> 3, c = id & 7;
+      const int xc = c >= 2 && c < 6 ? c ^ 6 : c;  // x chunk of slot chunk c
+      copy_x(slot + X_OFF + r * X_LD + 16 * c, x, r, k + 8 * xc, T, K,
+             !HALF || xc < 4);
+    }
+  }
+
+  template <int NT>
+  __device__ static void issue(uint8_t* slot, const __nv_bfloat16* x,
+                               const Planes& p, int k, int n0, int T, int K,
+                               int N, int vec, int lane) {
+    if (k + STEP <= K)
+      fill<NT, false>(slot, x, p, k, n0, T, K, N, vec, lane);
+    else
+      fill<NT, true>(slot, x, p, k, n0, T, K, N, vec, lane);
+  }
+
+  // lane l decodes (j, g) = (l / 8 + 4 i, l % 8) of both d rows
+  __device__ static void scales(const uint8_t* slot, uint8_t* scr, int lane) {
+    const uint16_t* dd = reinterpret_cast<const uint16_t*>(slot + D_OFF);
+    float2* out = reinterpret_cast<float2*>(scr);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int g = lane & 7, j = (lane >> 3) + 4 * i;
+      const int c1 = 16 * g + j, c2 = c1 + 8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        out[(8 * h + j) * 8 + g] =
+            make_float2(f16f(dd[SC * h + c1]), f16f(dd[SC * h + c2]));
+    }
+  }
+
+  template <int NT>
+  __device__ static void compute(const uint8_t* slot, const uint8_t* scr,
+                                 float (&acc)[8][NT][4], int lane,
+                                 uint32_t mg, int) {
+    const int g = lane >> 2, t = lane & 3;
+    const float2* sv = reinterpret_cast<const float2*>(scr);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t cw[4][4];
+      load_rows(slot, 16 * h, t, g, cw);
+      uint32_t b[2][NT][2];  // [lo, hi block][token tile]
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint8_t* xr =
+            slot + X_OFF + (8 * nt + g) * X_LD + 32 * h + 4 * t;
+        b[0][nt][0] = *reinterpret_cast<const uint32_t*>(xr);
+        b[0][nt][1] = *reinterpret_cast<const uint32_t*>(xr + 16);
+        b[1][nt][0] = *reinterpret_cast<const uint32_t*>(xr + 64);
+        b[1][nt][1] = *reinterpret_cast<const uint32_t*>(xr + 80);
+      }
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+#pragma unroll
+        for (int wq = 0; wq < 2; ++wq) {
+          uint32_t nb[4][2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const uint32_t w = cw[e][wq + 2 * u];
+              nb[e][u] = hi ? (w >> 4) & NIB : w & NIB;
+            }
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb) {
+            const int j = 4 * wq + bb;
+            const float2 d = sv[(8 * h + j) * 8 + g];
+            uint32_t a[4];
+            a_frag(nb, bb,
+                   [&](uint32_t w, int by, int c) {
+                     return q40_w(w, by, mg, c ? d.y : d.x);
                    },
                    a);
 #pragma unroll
@@ -629,7 +773,8 @@ struct TileBase {
   static constexpr int X_AHEAD = 3, R_AHEAD = 3;
   static constexpr int CODE_BYTES = 32 * tile::BN;  // [32][128]
 
-  __device__ static int steps(const Args& a) { return a.K / 64; }
+  // Q4_0's K % 64 == 32 ends in a half stage
+  __device__ static int steps(const Args& a) { return (a.K + 63) / 64; }
 
   __device__ static void mma(float (&acc)[64], uint64_t da, uint64_t db) {
     wgmma_bf16_m64n128(acc, da, db);
@@ -821,6 +966,86 @@ struct TileQ6K : TileBase {
   }
 };
 
+// Q4_0 stage st: plane rows 32 st + r, the 64 elements from 64 st in x's
+// own order: rows 0-15's low nibbles at k-values 0-15 and their high ones
+// at 16-31, rows 16-31's at 32-47 and 48-63; d rows 2 st and 2 st + 1. A
+// half stage (K % 64 == 32) zero-fills its rows 16-31, its second d row
+// and x past K
+struct TileQ40 : TileBase {
+  static constexpr int D_OFF = CODE_BYTES;                    // d [2][128]
+  static constexpr int RAW_BYTES = D_OFF + 2 * tile::BN * 2;  // f16
+
+  __device__ static const void* a_chunk(const Args& a, int row, int st,
+                                        int c, int& bytes) {
+    const int k = 64 * st + 8 * c;
+    const bool in = row < a.T && k < a.K;
+    bytes = in ? 16 : 0;
+    return a.x + (in ? (size_t)row * a.K + k : 0);
+  }
+
+  template <bool HALF>
+  __device__ static void fill(const Args& a, uint8_t* raw, int st, int n0,
+                              int pt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // 32 rows x 8 chunks (i = 0: rows 0-15)
+      const int id = pt + tile::PRODUCERS * i, r = id >> 3, c = id & 7;
+      copy_u8(raw + r * tile::BN + 16 * c, a.p.q, 32 * st + r, n0 + 16 * c,
+              a.N, a.vec, !HALF || i == 0);
+    }
+    if (pt < 32) {  // d rows 2 st and 2 st + 1: 2 x 16 chunks of 8
+      const int rr = pt >> 4, c = pt & 15;
+      copy_u16(raw + D_OFF + 2 * tile::BN * rr + 16 * c, a.p.d, 2 * st + rr,
+               n0 + 8 * c, a.N, a.vec, !HALF || rr == 0);
+    }
+  }
+
+  __device__ static void issue_raw(const Args& a, uint8_t* raw, int st,
+                                   int n0, int pt) {
+    if (64 * st + 64 <= a.K)
+      fill<false>(a, raw, st, n0, pt);
+    else
+      fill<true>(a, raw, st, n0, pt);
+  }
+
+  // item pt: plane rows [8 rg, 8 rg + 8) x 4 columns from 4 cgp (d row
+  // rg / 2), their low nibbles to chunk (rg % 2) + 4 (rg / 2) of the B
+  // row and their high ones two chunks on; column j is taken at step
+  // q = j - rot, as in TileQ45K
+  __device__ static void transform(const Args& a, const uint8_t* raw,
+                                   uint8_t* bt, int, int pt) {
+    const uint32_t mg = a.p.magic;
+    const int cgp = pt & 31, rg = pt >> 5, rot = (cgp >> 1) & 3;
+    const int cl = (rg & 1) + 4 * (rg >> 1);
+    uint32_t lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          raw + (8 * rg + i) * tile::BN + 4 * cgp);
+      lo[i] = w & NIB;
+      hi[i] = (w >> 4) & NIB;
+    }
+    const uint16_t* dd =
+        reinterpret_cast<const uint16_t*>(raw + D_OFF) + tile::BN * (rg >> 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = (q + rot) & 3, n = 4 * cgp + j;
+      const float d = f16f(dd[n]);
+      uint32_t ol[4], oh[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        ol[p] = bf16x2(q40_w(lo[2 * p], j, mg, d),
+                       q40_w(lo[2 * p + 1], j, mg, d));
+        oh[p] = bf16x2(q40_w(hi[2 * p], j, mg, d),
+                       q40_w(hi[2 * p + 1], j, mg, d));
+      }
+      *reinterpret_cast<uint4*>(bt + sw128(n, cl)) =
+          make_uint4(ol[0], ol[1], ol[2], ol[3]);
+      *reinterpret_cast<uint4*>(bt + sw128(n, cl + 2)) =
+          make_uint4(oh[0], oh[1], oh[2], oh[3]);
+    }
+  }
+};
+
 template <class F, class TF>
 int run(const void* x, const void* q, const void* qh, const void* sc_lo,
         const void* sc_hi, const void* mn_lo, const void* mn_hi,
@@ -828,8 +1053,9 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
         int path, int nsplit, int split_k, int bm, int vec, int magic,
         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T < 1 || N < 1 || K < 256 || K % 256 != 0 || nsplit < 1 ||
-      nsplit > SK_MAX_CLUSTER || (long long)nsplit * split_k < K ||
+  if (T < 1 || N < 1 || K < F::K_UNIT || K % F::K_UNIT != 0 ||
+      nsplit < 1 || nsplit > SK_MAX_CLUSTER ||
+      (long long)nsplit * split_k < K ||
       (long long)(nsplit - 1) * split_k >= K)
     return static_cast<int>(cudaErrorInvalidValue);
   Planes p;
@@ -846,7 +1072,7 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   float* out = static_cast<float*>(y);
   if (path == 0) {
-    if (T > 32 || split_k % 256 != 0)
+    if (T > 32 || split_k % F::STEP != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     if (T <= 8)
       return launch_skinny<F, 1>(xb, p, out, T, K, N, nsplit, split_k, vec,
@@ -873,11 +1099,12 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
 }  // namespace
 
 // y [T,N] f32 = x [T,K] bf16 @ dequant(planes). Plane pointers a format
-// does not have are null (Q4_K: qh; Q6_K: mn_lo, mn_hi, dmin). x contiguous
-// and 16-byte aligned, K % 256 == 0. path 0: the skinny kernel (T <= 32)
-// on nsplit (1-8) clusters of split_k elements (a multiple of 256: whole
-// superblocks, nsplit = ceil(K / split_k)); path 1: the wgmma tile with bm
-// (256 or 128) rows, its K split likewise (split_k a multiple of 64). vec:
+// does not have are null (Q4_0: all but q and d; Q4_K: qh; Q6_K: mn_lo,
+// mn_hi, dmin). x contiguous and 16-byte aligned, K % 256 == 0 (Q4_0:
+// K % 32 == 0). path 0: the skinny kernel (T <= 32) on nsplit (1-8)
+// clusters of split_k elements (a multiple of 64: whole steps, nsplit =
+// ceil(K / split_k)); path 1: the wgmma tile with bm (256 or 128) rows,
+// its K split likewise (split_k a multiple of 64). vec:
 // 1 when N % 16 == 0 and every plane is 16-byte aligned (cp.async copies).
 // magic: 0x4B000000 (Planes::magic).
 #define KQUANT_ENTRY(fn, F, TF)                                               \
@@ -890,6 +1117,7 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
                       N, path, nsplit, split_k, bm, vec, magic, stream);      \
   }
 
+KQUANT_ENTRY(q4_0_matmul, Q40, TileQ40)
 KQUANT_ENTRY(q4_k_matmul, Q45K<false>, TileQ45K<false>)
 KQUANT_ENTRY(q5_k_matmul, Q45K<true>, TileQ45K<true>)
 KQUANT_ENTRY(q6_k_matmul, Q6K, TileQ6K)

@@ -8,11 +8,14 @@ lands at pos[b] of its cache; inactive sequences keep their contents. The
 caches are written IN PLACE and returned, where the JAX package aliases
 them into the kernel's outputs.
 
-On the H100 the append is bound by the bytes written (about 2 MB at L = 32,
-B = 32 int8 with scales, under a microsecond), so one launch's cost sets its
-time: the kernel writes only the rows (the TPU kernel's read-merge-write of
-a whole sublane tile is a Mosaic rule) and covers every layer and cache in
-one launch.
+On the H100 the append is bound by the bytes moved (about 2 MB each way at
+L = 32, B = 32 int8 with scales, about a microsecond), so one launch's cost
+sets its time: the kernel moves only the rows, 16 bytes a thread (the TPU
+kernel's read-merge-write of a whole sublane tile is a Mosaic rule), and
+covers every layer and cache in one launch. The wrapper's host work is
+most of a call at decode sizes; it hands the arrays to the C entry as one
+packed descriptor and makes no view or copy of a tensor that is already
+as the kernel takes it.
 
 `append_rows_stacked_dus` is the JAX package's own non-Pallas path (its
 dynamic-update-slice variant): rows for a leading prefix of the layers and T
@@ -23,6 +26,7 @@ verify step always, as the JAX package does.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,11 +35,14 @@ from . import build
 NAME = "kv_update"
 REPLACES = "ntransformer_tpu/ops/pallas/kv_update.py:130 _append_stacked_impl"
 _KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+_SIZE = (2, 1, 4)  # element bytes by kind
 _MAX_ARRAYS = 4
-_SIGNATURES = {"kv_append": [ctypes.c_int]
-               + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int] * _MAX_ARRAYS
-               + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3}
+THREADS = 128  # the kernel's threads a block
+_SIGNATURES = {"kv_append": [ctypes.c_void_p] + [ctypes.c_int] * 6
+               + [ctypes.c_void_p] * 3}
+# the C entry's descriptor, an array's 8 values: cache, rows, cache kind,
+# row kind, dc, and its launch_plan (vec, units a row, first block)
+_DESC = ctypes.c_longlong * (8 * _MAX_ARRAYS)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -123,45 +130,104 @@ def append_rows_stacked_dus(caches, rows, pos, active):
     return caches
 
 
-def _launch(caches, rows, pos, active, n_layers: int):
+@functools.lru_cache(maxsize=None)
+def _array_plan(cs: int, rs: int, dc: int, aligned: bool,
+                rows_per_seq: int) -> tuple[int, int, int]:
+    """(vec, units a row, blocks a sequence) of one array: 16-byte chunks
+    of the cache row where its bytes, and the row's, divide into them and
+    both arrays are 16-byte aligned, else elements."""
+    vec = aligned and dc * cs % 16 == 0 and dc * rs % 16 == 0
+    units = dc * cs // 16 if vec else dc
+    return int(vec), units, -(-rows_per_seq * units // THREADS)
+
+
+def launch_plan(arrays, n_layers: int, n_heads: int):
+    """The kernel's grid along x (its y is the sequence): `arrays` holds an
+    (cache element bytes, row element bytes, dc, both 16-byte aligned)
+    tuple an array. Returns ([(vec, units a row, first block)] an array,
+    blocks). A thread of block x moves unit u = (x - first) * THREADS +
+    thread of its sequence's n_layers * n_heads rows, layer u // (n_heads
+    units), head u // units % n_heads, unit u % units: a 16-byte chunk of
+    the cache row where vec, else an element. The wrapper builds the same
+    plan array by array (_array_plan)."""
+    plan, blocks = [], 0
+    for cs, rs, dc, aligned in arrays:
+        vec, units, nb = _array_plan(cs, rs, dc, aligned,
+                                     n_layers * n_heads)
+        plan.append((vec, units, blocks))
+        blocks += nb
+    return plan, blocks
+
+
+def _vector(v, dev: torch.device, di: int) -> torch.Tensor:
+    """pos or active as the kernel reads it: a contiguous int32 vector on
+    card di (the batched step hands them over so: then nothing is made)."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.as_tensor(v)
+    if v.dtype != torch.int32 or v.get_device() != di \
+            or not v.is_contiguous():
+        v = v.to(dev, torch.int32).contiguous()
+    return v
+
+
+def _launch(caches, rows, pos, active, stacked: bool):
+    """One kernel launch writing `rows` into `caches` ([L, B, Hkv, S(, Dc)]
+    when stacked, else [B, Hkv, S(, Dc)]: an L = 1 view) at pos[b]. The
+    checks of the CPU path (_check_dtypes) are made here array by array,
+    beside the rest: at decode sizes the host work is most of a call."""
     global launches
-    dev = caches[0].device
-    if not 1 <= len(caches) <= _MAX_ARRAYS or len(rows) != len(caches):
+    n = len(caches)
+    if not 1 <= n <= _MAX_ARRAYS or len(rows) != n:
         raise ValueError(f"kv append takes 1 to {_MAX_ARRAYS} caches, each "
-                         f"with its rows; got {len(caches)} and {len(rows)}")
-    b_n, h_n, s = caches[0].shape[1:4]
+                         f"with its rows; got {n} and {len(rows)}")
+    c0 = caches[0]
+    dev, di = c0.device, c0.get_device()
+    nd = 4 if stacked else 3  # the leading dims: (L,) B, Hkv, S
+    lead = c0.shape[:nd]
+    if len(lead) != nd:
+        raise ValueError(f"cache {tuple(c0.shape)} has fewer than {nd} "
+                         "leading dims")
+    l_n = lead[0] if stacked else 1
+    b_n, h_n, s = lead[-3:]
+    desc = _DESC()
     # keep: the rows' contiguous copies stay alive until the launch is
     # enqueued (a copy freed early could be handed to the next one)
-    args, keep = [], []
-    for c, r in zip(caches, rows):
-        if c.device != dev or r.device != dev:
+    keep, blocks, per_seq = [], 0, l_n * h_n
+    for i, (c, r) in enumerate(zip(caches, rows)):
+        ck, rk = _KINDS.get(c.dtype), _KINDS.get(r.dtype)
+        if ck is None or rk is None or (ck == 1) != (rk == 1):
+            _check_dtypes((c,), (r,))  # raises, saying which rule
+        if c.get_device() != di or r.get_device() != di:
             raise ValueError("kv append wants every cache and row on one "
                              "CUDA device")
         if not c.is_contiguous():
             raise ValueError("kv append writes contiguous caches in place")
-        if tuple(c.shape[:4]) != (n_layers, b_n, h_n, s):
+        if c.shape[:nd] != lead:
             raise ValueError(f"cache {tuple(c.shape)} does not match "
-                             f"[{n_layers}, {b_n}, {h_n}, {s}, ...]")
-        dc = c.shape[-1] if c.dim() == 5 else 1
-        if r.numel() != n_layers * b_n * h_n * dc:
+                             f"{list(lead)} + [...]")
+        dc = c.shape[nd] if c.dim() > nd else 1
+        if r.numel() != per_seq * b_n * dc:
             raise ValueError(f"rows {tuple(r.shape)} are not one row per "
                              f"(layer, sequence, head) of {tuple(c.shape)}")
-        r = r.contiguous()
-        keep.append(r)
-        args += [c.data_ptr(), r.data_ptr(), _KINDS[c.dtype],
-                 _KINDS[r.dtype], dc]
-    for _ in range(_MAX_ARRAYS - len(caches)):
-        args += [None, None, 0, 0, 1]
-    pos32 = pos.to(dev, torch.int32).contiguous()
-    act32 = active.to(dev, torch.int32).contiguous()
-    if pos32.numel() != b_n or act32.numel() != b_n:
+        if not r.is_contiguous():
+            r = r.contiguous()
+            keep.append(r)
+        cp, rp = c.data_ptr(), r.data_ptr()
+        vec, units, nb = _array_plan(_SIZE[ck], _SIZE[rk], dc,
+                                     (cp | rp) % 16 == 0, per_seq)
+        desc[8 * i:8 * i + 8] = (cp, rp, ck, rk, dc, vec, units, blocks)
+        blocks += nb
+    pos, active = _vector(pos, dev, di), _vector(active, dev, di)
+    if pos.numel() != b_n or active.numel() != b_n:
         raise ValueError(f"pos/active must hold one entry per sequence "
                          f"({b_n})")
     lib = build.load(NAME, _SIGNATURES)
     with torch.cuda.device(dev):
-        rc = lib.kv_append(len(caches), *args, n_layers, b_n, h_n, s,
-                           pos32.data_ptr(), act32.data_ptr(),
-                           torch.cuda.current_stream(dev).cuda_stream)
+        # the raw handle of the current stream: torch.cuda.current_stream
+        # builds a Stream object, ~3.5 us of the call's host time
+        rc = lib.kv_append(desc, n, blocks, l_n, b_n, h_n, s,
+                           pos.data_ptr(), active.data_ptr(),
+                           torch._C._cuda_getCurrentRawStream(di))
     build.check(lib, rc, NAME)
     launches += 1
 
@@ -171,13 +237,12 @@ def append_rows_stacked(caches, rows, pos, active):
     and/or [L, B, Hkv, S] S-minor scale buffers; rows [L, B, Hkv, (1,) Dc]
     (scales [L, B, Hkv, 1(, 1)]); pos/active [B]. On a CPU tensor this is
     the plain twin; on a CUDA tensor it launches the kernel or raises."""
-    caches, rows = tuple(caches), tuple(rows)
-    _check_dtypes(caches, rows)
-    if caches[0].device.type == "cpu":
+    if caches[0].is_cpu:
+        caches, rows = tuple(caches), tuple(rows)
+        _check_dtypes(caches, rows)
         return append_rows_stacked_plain(caches, rows, pos, active)
-    _launch(caches, rows, torch.as_tensor(pos),
-            torch.as_tensor(active), caches[0].shape[0])
-    return caches
+    _launch(caches, rows, pos, active, True)
+    return tuple(caches)
 
 
 def append_rows(caches, rows, pos, active):
@@ -185,12 +250,12 @@ def append_rows(caches, rows, pos, active):
     (rows [B, Hkv, (1,) Dc]); inactive slots keep their contents. On a CPU
     tensor this is the plain twin; on a CUDA tensor it launches the kernel
     (as an L = 1 view) or raises."""
-    caches, rows = tuple(caches), tuple(rows)
-    _check_dtypes(caches, rows)
-    if caches[0].device.type == "cpu":
+    if caches[0].is_cpu:
+        caches, rows = tuple(caches), tuple(rows)
+        _check_dtypes(caches, rows)
         return append_rows_plain(caches, rows, pos, active)
-    if any(c.dim() != 4 for c in caches):
-        raise ValueError("append_rows takes [B, Hkv, S, Dc] caches")
-    _launch(tuple(c[None] for c in caches), rows,
-            torch.as_tensor(pos), torch.as_tensor(active), 1)
-    return caches
+    if any(c.dim() not in (3, 4) for c in caches):
+        raise ValueError("append_rows takes [B, Hkv, S, Dc] caches (scales "
+                         "[B, Hkv, S])")
+    _launch(caches, rows, pos, active, False)
+    return tuple(caches)

@@ -1,7 +1,7 @@
 """Fused dequant-matmul of the GGUF nibble formats (Q4_0, Q4_K, Q5_K,
-Q6_K) and of W4A8 at T > 1: the wrapper of `csrc/nibble_matmul.cu` (Q4_0,
-W4A8) and `csrc/kquant_matmul.cu` (the K-quants Q4_K, Q5_K, Q6_K) and their
-plain PyTorch twin.
+Q6_K) and of W4A8 at T > 1: the wrapper of `csrc/kquant_matmul.cu` (Q4_0
+and the K-quants Q4_K, Q5_K, Q6_K) and `csrc/nibble_matmul.cu` (W4A8) and
+their plain PyTorch twin.
 
 Replaces ntransformer_tpu/ops/pallas/matmul.py::_quant_matmul_impl with its
 _q4_0_tile, _q4_k_tile, _q5_k_tile, _q6_k_tile and _w4a8_tile bodies (entry
@@ -19,23 +19,19 @@ the CUDA cores, and by operations at prefill T. The kernels read x at the
 two element positions of each plane row's nibbles (no activation reorder
 on the card).
 
-The K-quants Q4_K, Q5_K and Q6_K run the shapes of the Q8_0 kernel: up to
-`plans.SKINNY_ROWS` tokens a skinny mma.sync kernel that streams the planes
-once with the weight as the M side, its K splits (whole superblocks) one
-cluster summed in rank order, one launch; past it the warp-specialized
-wgmma tile of `csrc/hopper_tile.cuh`, its producer dequantizing each
-32-plane-row stage once for 256 or 128 rows of x (`plans.tile_plan`).
-
-Q4_0 splits K across blocks on scale-group boundaries at T = 1 (a
-fixed-order second pass sums the partials, so runs repeat bit for bit) and
-tiles T x N with mma.sync 64 x 128 tiles at T > 1; W4A8 runs a
-warp-specialized wgmma tile (256 x 128, 128 x 256 or 128 x 128,
+Q4_0 and the K-quants Q4_K, Q5_K and Q6_K run the shapes of the Q8_0
+kernel: up to `plans.SKINNY_ROWS` tokens a skinny mma.sync kernel that
+streams the planes once with the weight as the M side, its K splits (whole
+superblocks for the K-quants, whole 64-element steps for Q4_0) one cluster
+summed in rank order, one launch; past it the warp-specialized wgmma tile
+of `csrc/hopper_tile.cuh`, its producer dequantizing each 32-plane-row
+stage once for 256 or 128 rows of x (`plans.tile_plan`). W4A8 runs a
+warp-specialized wgmma tile of its own (256 x 128, 128 x 256 or 128 x 128,
 `w4a8_tile`) whose producer warpgroup dequantizes each stage once for all
 the tile's rows of x while the consumers' wgmma runs; see the sources.
 
-One C entry and one launch counter per format (`KERNELS`): a Q4_0 split-K
-product at T = 1 counts two launches, the GEMV and its reduce pass; every
-other product one.
+One C entry, one launch counter and one launch per product for each format
+(`KERNELS`).
 """
 from __future__ import annotations
 
@@ -49,8 +45,8 @@ from ...core.layout import LAYOUTS
 from ..dequant_torch import dequant_planes_torch
 from . import build, plans
 
-NAME = "nibble_matmul"
-KQ_NAME = "kquant_matmul"  # csrc/kquant_matmul.cu: Q4_K, Q5_K and Q6_K
+NAME = "nibble_matmul"      # csrc/nibble_matmul.cu: W4A8 at T > 1
+KQ_NAME = "kquant_matmul"  # csrc/kquant_matmul.cu: Q4_0, Q4_K, Q5_K, Q6_K
 _TPU = "ntransformer_tpu/ops/pallas/matmul.py:344 _quant_matmul_impl"
 # the eight plane slots of the GGUF formats' C entries, in order; a
 # format's "qs"/"ql" plane goes to "q", and a slot a format lacks gets a
@@ -59,9 +55,6 @@ SLOTS = ("q", "qh", "sc_lo", "sc_hi", "mn_lo", "mn_hi", "d", "dmin")
 _SLOT_OF = {"qs": "q", "ql": "q"}
 _TORCH_DTYPE = {"uint8": torch.uint8, "int8": torch.int8,
                 "uint16": torch.int16, "float32": torch.float32}
-_GEMV_BLOCK_COLS = 512  # columns per block of the T == 1 kernel
-_MAX_SPLIT_ROWS = 50_000  # the GEMV stages 2 x split rows of bf16 x (200 KB)
-_SM_COUNT: dict[int, int] = {}
 
 
 @dataclass
@@ -71,36 +64,32 @@ class Kernel:
 
     name: str
     replaces: str
-    chunk_rows: int   # plane rows a GEMV warp takes at a time
-    split_rows: int   # plane rows of a split unit (whole d / dmin rows)
-    source: str = f"csrc/{NAME}.cu"
+    source: str = f"csrc/{KQ_NAME}.cu"
     launches: int = 0
 
 
 KERNELS = {
-    DType.Q4_0: Kernel("q4_0_matmul", f"{_TPU} + _q4_0_tile :91", 16, 16),
-    # the skinny kernel and the wgmma tile: no GEMV, so no chunk or split
-    # rows (the skinny plan splits K in superblocks, plans.KQUANT_UNIT)
+    DType.Q4_0: Kernel("q4_0_matmul", f"{_TPU} + _q4_0_tile :91"),
     DType.Q4_K: Kernel("q4_k_matmul",
-                       f"{_TPU} + _q4_k_tile :134 (+ _group_sums :111)",
-                       0, 0, f"csrc/{KQ_NAME}.cu"),
-    DType.Q5_K: Kernel("q5_k_matmul", f"{_TPU} + _q5_k_tile :172", 0, 0,
-                       f"csrc/{KQ_NAME}.cu"),
-    DType.Q6_K: Kernel("q6_k_matmul", f"{_TPU} + _q6_k_tile :211", 0, 0,
-                       f"csrc/{KQ_NAME}.cu"),
-    # T > 1 only: no GEMV, so no chunk or split rows
-    DType.W4A8: Kernel("w4a8_matmul", f"{_TPU} + _w4a8_tile :248", 0, 0),
+                       f"{_TPU} + _q4_k_tile :134 (+ _group_sums :111)"),
+    DType.Q5_K: Kernel("q5_k_matmul", f"{_TPU} + _q5_k_tile :172"),
+    DType.Q6_K: Kernel("q6_k_matmul", f"{_TPU} + _q6_k_tile :211"),
+    # T > 1 only
+    DType.W4A8: Kernel("w4a8_matmul", f"{_TPU} + _w4a8_tile :248",
+                       f"csrc/{NAME}.cu"),
 }
 KQUANT = (DType.Q4_K, DType.Q5_K, DType.Q6_K)
+# the formats of csrc/kquant_matmul.cu: the skinny kernel and the wgmma
+# tile, one launch a product
+KQ_FORMATS = (DType.Q4_0,) + KQUANT
 # the block along K of each format: 32 elements for Q4_0, 512 (two 256
 # groups) for W4A8, a 256-element superblock for the K-quants
 _K_UNIT = {DType.Q4_0: 32, DType.W4A8: 512}
-_SIGNATURES = {KERNELS[DType.Q4_0].name: [ctypes.c_void_p] * 11
-               + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
-_SIGNATURES["w4a8_matmul"] = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                              + [ctypes.c_void_p])
+_SIGNATURES = {"w4a8_matmul": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+               + [ctypes.c_void_p]}
 _KQ_SIGNATURES = {KERNELS[dt].name: [ctypes.c_void_p] * 10
-                  + [ctypes.c_int] * 9 + [ctypes.c_void_p] for dt in KQUANT}
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+                  for dt in KQ_FORMATS}
 _MAGIC = 0x4B000000  # the f32 2^23 the K-quant kernels build codes on
 
 
@@ -144,37 +133,11 @@ def nibble_matmul_plain(x: torch.Tensor, planes: dict,
     return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
 
 
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (cached)."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNT[idx]
-
-
-def split_plan(device: torch.device, dtype: DType, k: int,
-               n: int) -> tuple[int, int]:
-    """(plane rows per split, splits) of the Q4_0 GEMV at T = 1:
-    enough (strip, split) blocks to cover the SMs twice, a split holding
-    whole split units and at least one chunk per warp."""
-    kern = KERNELS[dtype]
-    rows = k // 2
-    units = rows // kern.split_rows
-    strips = -(-n // _GEMV_BLOCK_COLS)
-    want = -(-2 * sm_count(device) // strips)
-    min_units = max(1, 4 * kern.chunk_rows // kern.split_rows)
-    nsplit = max(1, min(want, units // min_units))
-    per = -(-units // nsplit) * kern.split_rows
-    return per, -(-rows // per)  # no empty split
-
-
 def w4a8_tile(device: torch.device, t: int, n: int) -> tuple[int, int]:
     """(rows, columns) of the W4A8 tile, the first that gives at least half
     the SMs a block: 256 x 128 when T > 128 (each dequantized weight feeds
     256 rows), 128 x 256, then 128 x 128 (the 8B wo and down at T = 512)."""
-    sms = sm_count(device)
+    sms = plans.sm_count(device)
     for bm, bn in (((256, 128),) if t > 128 else ()) + ((128, 256),):
         if 2 * -(-t // bm) * -(-n // bn) >= sms:
             return bm, bn
@@ -206,15 +169,17 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
     kern = KERNELS[dtype]
     vec = int(n % 16 == 0 and all(a.data_ptr() % 16 == 0
                                   for a in planes.values()))
-    by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
-    ptrs = [by_slot[s].data_ptr() if s in by_slot else None for s in SLOTS]
-    if dtype in KQUANT:
+    if dtype in KQ_FORMATS:
+        by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
+        ptrs = [by_slot[s].data_ptr() if s in by_slot else None
+                for s in SLOTS]
         lib = build.load(KQ_NAME, _KQ_SIGNATURES)
         sms = plans.sm_count(x.device)
         if t <= plans.SKINNY_ROWS:
             path, bm = 0, 0
-            nsplit, split_k = plans.skinny_plan(sms, t, k, n,
-                                                plans.KQUANT_UNIT)
+            nsplit, split_k = plans.skinny_plan(
+                sms, t, k, n, plans.Q4_0_UNIT if dtype == DType.Q4_0
+                else plans.KQUANT_UNIT)
         else:
             path = 1
             bm, nsplit, split_k = plans.tile_plan(sms, t, k, n, 64)
@@ -228,30 +193,13 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
         kern.launches += 1
         return y
     lib = build.load(NAME, _SIGNATURES)
-    if dtype == DType.W4A8:
-        y = torch.empty(t, n, dtype=torch.float32, device=x.device)
-        with torch.cuda.device(x.device):
-            rc = lib.w4a8_matmul(
-                x.data_ptr(), *(planes[nm].data_ptr() for nm in
-                                ("qs", "s_lo", "s_hi", "m_lo", "m_hi")),
-                y.data_ptr(), t, k, n, *w4a8_tile(x.device, t, n), vec,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(lib, rc, kern.name)
-        kern.launches += 1
-        return y
-    split_rows, nsplit = (split_plan(x.device, dtype, k, n) if t == 1
-                          else (k // 2, 1))
-    if t == 1 and split_rows > _MAX_SPLIT_ROWS:
-        raise ValueError(f"K={k} stages more x than one block's shared "
-                         "memory holds")
     y = torch.empty(t, n, dtype=torch.float32, device=x.device)
-    work = (torch.empty(nsplit, n, dtype=torch.float32, device=x.device)
-            if nsplit > 1 else y)
     with torch.cuda.device(x.device):
-        rc = getattr(lib, kern.name)(
-            x.data_ptr(), *ptrs, y.data_ptr(), work.data_ptr(), t, k, n,
-            split_rows, nsplit, vec,
+        rc = lib.w4a8_matmul(
+            x.data_ptr(), *(planes[nm].data_ptr() for nm in
+                            ("qs", "s_lo", "s_hi", "m_lo", "m_hi")),
+            y.data_ptr(), t, k, n, *w4a8_tile(x.device, t, n), vec,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, kern.name)
-    kern.launches += 2 if nsplit > 1 else 1
+    kern.launches += 1
     return y

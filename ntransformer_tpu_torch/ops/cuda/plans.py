@@ -1,12 +1,12 @@
-"""Launch plans of the Q8_0, W8A8 and K-quant (Q4_K, Q5_K, Q6_K) matmul
-kernels (`csrc/q8_0_matmul.cu`, `csrc/w8a8_matmul.cu`,
+"""Launch plans of the Q8_0, W8A8, Q4_0 and K-quant (Q4_K, Q5_K, Q6_K)
+matmul kernels (`csrc/q8_0_matmul.cu`, `csrc/w8a8_matmul.cu`,
 `csrc/kquant_matmul.cu`): plain integer arithmetic on the shapes and the SM
 count, so the CPU tests hold them.
 
 Up to SKINNY_ROWS tokens a product runs the skinny kernel: blocks of 4 warps
 (3 for Q5_K and Q6_K past 16 tokens) own a strip of 128 columns and a K
 split of whole units (128 rows for Q8_0 and W8A8, a 256-element superblock
-for the K-quants); the splits of a strip
+for the K-quants, a 64-element step for Q4_0); the splits of a strip
 are one thread-block cluster of at most 8 blocks, summed in rank order.
 Past SKINNY_ROWS it runs the wgmma tile of 256 or 128 rows by 128 columns,
 its K split in two the same way where that measured faster.
@@ -19,6 +19,7 @@ SKINNY_ROWS = 32      # the skinny kernel's most tokens
 MAX_CLUSTER = 8       # K splits of a skinny strip: one portable cluster
 SPLIT_UNIT = 128      # K rows: one 32-row step for each of a block's warps
 KQUANT_UNIT = 256     # K elements: a K-quant superblock (128 plane rows)
+Q4_0_UNIT = 64        # K elements: a skinny step, two Q4_0 blocks
 MIN_TILE_STAGES = 8   # a tile's K split keeps at least these stages
 STRIP_COLS = 128      # the skinny kernel's columns a block
 TILE_COLS = 128

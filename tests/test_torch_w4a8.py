@@ -359,5 +359,5 @@ def test_t_gt_1_tile_ragged_shapes_match_jax(t, n):
 def test_w4a8_tile_shape(monkeypatch, t, n, want):
     """The T > 1 tile's shape: the first of 256 x 128 (T > 128), 128 x 256
     and 128 x 128 that gives at least half of 132 SMs a block."""
-    monkeypatch.setattr(nm, "sm_count", lambda device: 132)
+    monkeypatch.setattr(nm.plans, "sm_count", lambda device: 132)
     assert nm.w4a8_tile(None, t, n) == want
