@@ -94,6 +94,23 @@ subset of the rest:
   cpcards: on a host with 4 cards or more (else it says so and passes),
      repolm512 through CPEngine with one shard per card, bit-equal to the 4
      shards on one card, and the CLI's --cp 4;
+  spec: speculation (python3 chip_smoke.py spec runs it alone): batched
+     flash's verify at B = 8, K = 3 (T = 4, S 1024; bf16 "f32", int8 "f32"
+     and "int8_v") and the Q8_0 and Q4_K matmuls at T = 4 and 32 against
+     their twins, timed, with device times and launches a call; the price
+     sheet of bench.py's spec_serve_breakeven_b8 on the synthetic 8B Q8_0
+     (plain, draft and verify steps at B = 1 and 8, break-even acceptance,
+     full-accept ceiling, a round's profile); the synthetic 8B served with
+     --spec-k 3 (this slice's main path: the kernels line's spec_launches)
+     beside spec-off; and repolm512: Engine's three speculative modes (a
+     Q4_K_M requant drafts), the CLI's --draft-model, --self-spec and
+     --serve --spec-k, and BatchServer greedy spec against spec-off (bf16,
+     int8; acceptance and steps saved with bench.py's four prompts) and
+     sampled twice with one seed. Greedy speculation on the card is held
+     by spec_rule: every verify row teacher-forced on the plain tokens
+     within max(1e-2, 2 r) of the sequential step (r the card's plain path
+     against the CPU), and where the tokens part, a top-2 margin no more
+     than twice that step's difference;
   tiered: repolm512 streamed at (2 HBM, 2 RAM, 2 disk) layers against the
      unfused resident model (greedy tokens identical; pipelined and
      synchronous runs bit-identical; int8 cache, a skip set, early exit;
@@ -104,7 +121,9 @@ subset of the rest:
      a 512-token prefill and 32 greedy tokens identical to the unfused
      resident model, ms per token pipelined and synchronous (in turns), the
      copy stream's H2D rate and the tier-C read rate beside a pinned-copy
-     and an O_DIRECT read probe, and a profile's busy shares.
+     and an O_DIRECT read probe, a profile's busy shares, and
+     TieredEngine.generate_self_speculative (the 8 resident layers draft,
+     16 tokens) held to the tiered greedy tokens by spec_rule.
 
 The bkernels phase also holds the batched flash kernel's cache-dot forms
 (dot_impl int8, int8_s, int8_v, bf16) against their twins and the f32
@@ -226,7 +245,7 @@ REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
           "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
-          "cpcards", "tiered")
+          "cpcards", "spec", "tiered")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -804,6 +823,93 @@ DOT_RTOL = {"f32": BATCHED_RTOL, "int8_s": BATCHED_RTOL, "int8": 4e-3,
             "int8_v": 4e-3, "bf16": 1e-3}
 
 
+def verify_case(torch, g, b_n: int, s: int, t: int, int8: bool, pos_l,
+                act_l=None, s_live=None):
+    """A batched flash verify call at the 8B widths (Hq 32, Hkv 8, D 128)
+    over a random 2-layer bf16 or int8 cache (layer 1 attended), B slots at
+    positions pos_l with T new rows each. Returns (kern(dot), plain(dot),
+    library(), bytes, operations, live keys): the kernel (s_live as given
+    unless overridden), its plain twin, SDPA over
+    the layer's bf16 cache (dequantized for int8) with the new rows written
+    in and the same mask, and the work a call must do."""
+    from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
+    import torch.nn.functional as F
+    hq, hkv, dh = 32, 8, 128
+    scale = 1.0 / math.sqrt(dh)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    act = torch.tensor([True] * b_n if act_l is None else act_l,
+                       device="cuda").to(torch.int32)
+    shape = (2, b_n, hkv, s, dh)
+    if int8:
+        kc, vc = (torch.randint(-127, 128, shape, dtype=torch.int8,
+                                device="cuda", generator=g)
+                  for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], device="cuda", generator=g)
+                  * 0.02 for _ in range(2))
+        kn, vn = (torch.randint(-127, 128, (b_n, hkv, t, dh),
+                                dtype=torch.int8, device="cuda",
+                                generator=g) for _ in range(2))
+        kns, vns = (torch.rand(b_n, hkv, t, device="cuda", generator=g)
+                    * 0.02 for _ in range(2))
+        kcache, vcache, knew, vnew = (kc, ks), (vc, vs), (kn, kns), \
+            (vn, vns)
+    else:
+        kc, vc = (torch.randn(shape, device="cuda", generator=g).to(
+            torch.bfloat16) for _ in range(2))
+        kn, vn = (torch.randn(b_n, hkv, t, dh, device="cuda",
+                              generator=g) for _ in range(2))
+        ks = vs = kns = vns = None
+        kcache, vcache, knew, vnew = kc, vc, kn, vn
+    q = torch.randn((b_n, t, hq, dh), device="cuda", generator=g)
+    qr = (q.reshape(b_n, t, hkv, hq // hkv, dh).permute(0, 2, 1, 3, 4)
+          .reshape(b_n, hkv, t * hq // hkv, dh))
+    live = s if s_live is None else s_live
+
+    def kern(dot, s_live=s_live):
+        return cb.flash_verify_batched(q, kcache, vcache, knew, vnew, pos,
+                                       scale, layer=1, active=act,
+                                       s_live=s_live, dot_impl=dot)
+
+    def plain(dot):
+        o = cb.batched_flash_plain(
+            qr, kc, vc, ks, vs, kn if int8 else kn.to(torch.bfloat16),
+            vn if int8 else vn.to(torch.bfloat16), kns, vns, pos, act,
+            layer=1, scale=scale, window=cb.NO_WINDOW, softcap=0.0,
+            s_live=live, group=hq // hkv, dot_impl=dot)
+        return (o.reshape(b_n, hkv, t, hq // hkv, dh)
+                .permute(0, 2, 1, 3, 4).reshape(q.shape))
+
+    deq = (lambda c, sc: (c.float() * sc[..., None]).to(torch.bfloat16)) \
+        if int8 else (lambda c, sc: c.to(torch.bfloat16))
+    kf, vf = deq(kc[1], ks[1] if int8 else None), \
+        deq(vc[1], vs[1] if int8 else None)
+    knf, vnf = deq(kn, kns), deq(vn, vns)
+    for bi in range(b_n):
+        if act_l is None or act_l[bi]:
+            kf[bi, :, pos_l[bi]:pos_l[bi] + t] = knf[bi]
+            vf[bi, :, pos_l[bi]:pos_l[bi] + t] = vnf[bi]
+    kpos = torch.arange(s, device="cuda")
+    qpos = pos.long()[:, None] + torch.arange(t, device="cuda")
+    mask = kpos[None, None, :] <= qpos[:, :, None]
+    qb = q.transpose(1, 2).to(torch.bfloat16)
+    kb = kf.repeat_interleave(hq // hkv, 1)
+    vb = vf.repeat_interleave(hq // hkv, 1)
+
+    def library():
+        return F.scaled_dot_product_attention(qb, kb, vb,
+                                              attn_mask=mask[:, None],
+                                              scale=scale)
+    keys = sum(max(0, min(pos_l[bi] - 1 if (act_l is None or act_l[bi])
+                          else pos_l[bi] + t - 1, live - 1) + 1)
+               for bi in range(b_n))
+    esz = 1 if int8 else 2
+    nbytes = (keys * (2 * hkv * dh * esz + (2 * hkv * 4 if int8 else 0))
+              + 2 * b_n * hkv * t * (dh * esz + (4 if int8 else 0))
+              + 2 * q.numel() * 4 + 2 * b_n * 4)
+    ops = 4.0 * (hq // hkv) * t * dh * hkv * (keys + b_n * t)
+    return kern, plain, library, nbytes, ops, keys
+
+
 def dot_kernel_phase(torch, timer, card: str) -> dict:
     """The batched flash kernel's cache-dot forms against their plain twins
     and against the f32 kernel at the 8B shapes (Hq 32, Hkv 8, D 128): B =
@@ -812,11 +918,8 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
     (17 key blocks of 128). Times in turns with the twin and SDPA over the
     dequantized cache, as the f32 rows."""
     from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
-    import torch.nn.functional as F
     g = torch.Generator(device="cuda")
     g.manual_seed(5150)
-    hq, hkv, dh = 32, 8, 128
-    scale = 1.0 / math.sqrt(dh)
     pos32 = [512 + (37 * i) % 89 for i in range(32)]
     # label, B, S, T, int8 cache, positions, active, s_live
     cases = [
@@ -833,75 +936,9 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
     ]
     rows = {f: [] for f in DOT_FORMS}
     for label, b_n, s, t, int8, pos_l, act_l, s_live in cases:
-        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
-        act = torch.tensor([True] * b_n if act_l is None else act_l,
-                           device="cuda").to(torch.int32)
-        shape = (2, b_n, hkv, s, dh)
-        if int8:
-            kc, vc = (torch.randint(-127, 128, shape, dtype=torch.int8,
-                                    device="cuda", generator=g)
-                      for _ in range(2))
-            ks, vs = (torch.rand(shape[:-1], device="cuda", generator=g)
-                      * 0.02 for _ in range(2))
-            kn, vn = (torch.randint(-127, 128, (b_n, hkv, t, dh),
-                                    dtype=torch.int8, device="cuda",
-                                    generator=g) for _ in range(2))
-            kns, vns = (torch.rand(b_n, hkv, t, device="cuda", generator=g)
-                        * 0.02 for _ in range(2))
-            kcache, vcache, knew, vnew = (kc, ks), (vc, vs), (kn, kns), \
-                (vn, vns)
-        else:
-            kc, vc = (torch.randn(shape, device="cuda", generator=g).to(
-                torch.bfloat16) for _ in range(2))
-            kn, vn = (torch.randn(b_n, hkv, t, dh, device="cuda",
-                                  generator=g) for _ in range(2))
-            ks = vs = kns = vns = None
-            kcache, vcache, knew, vnew = kc, vc, kn, vn
-        q = torch.randn((b_n, t, hq, dh), device="cuda", generator=g)
-        qr = (q.reshape(b_n, t, hkv, hq // hkv, dh).permute(0, 2, 1, 3, 4)
-              .reshape(b_n, hkv, t * hq // hkv, dh))
-        live = s if s_live is None else s_live
-
-        def kern(dot):
-            return cb.flash_verify_batched(q, kcache, vcache, knew, vnew, pos,
-                                           scale, layer=1, active=act,
-                                           s_live=s_live, dot_impl=dot)
-
-        def plain(dot):
-            o = cb.batched_flash_plain(
-                qr, kc, vc, ks, vs, kn if int8 else kn.to(torch.bfloat16),
-                vn if int8 else vn.to(torch.bfloat16), kns, vns, pos, act,
-                layer=1, scale=scale, window=cb.NO_WINDOW, softcap=0.0,
-                s_live=live, group=hq // hkv, dot_impl=dot)
-            return (o.reshape(b_n, hkv, t, hq // hkv, dh)
-                    .permute(0, 2, 1, 3, 4).reshape(q.shape))
-
+        kern, plain, library, nbytes, ops, keys = verify_case(
+            torch, g, b_n, s, t, int8, pos_l, act_l, s_live)
         o32 = kern("f32")
-        # yardstick: SDPA over the layer's bf16 cache (dequantized for int8)
-        # with the new rows written in, heads expanded, the same mask
-        deq = (lambda c, sc: (c.float() * sc[..., None]).to(torch.bfloat16)) \
-            if int8 else (lambda c, sc: c.to(torch.bfloat16))
-        kf, vf = deq(kc[1], ks[1] if int8 else None), \
-            deq(vc[1], vs[1] if int8 else None)
-        knf, vnf = deq(kn, kns), deq(vn, vns)
-        for bi in range(b_n):
-            if act_l is None or act_l[bi]:
-                kf[bi, :, pos_l[bi]:pos_l[bi] + t] = knf[bi]
-                vf[bi, :, pos_l[bi]:pos_l[bi] + t] = vnf[bi]
-        kpos = torch.arange(s, device="cuda")
-        qpos = pos.long()[:, None] + torch.arange(t, device="cuda")
-        mask = kpos[None, None, :] <= qpos[:, :, None]
-        qb = q.transpose(1, 2).to(torch.bfloat16)
-        kb = kf.repeat_interleave(hq // hkv, 1)
-        vb = vf.repeat_interleave(hq // hkv, 1)
-        keys = sum(max(0, min(pos_l[bi] - 1 if (act_l is None or act_l[bi])
-                              else pos_l[bi] + t - 1, live - 1) + 1)
-                   for bi in range(b_n))
-        esz = 1 if int8 else 2
-        nbytes = (keys * (2 * hkv * dh * esz + (2 * hkv * 4 if int8 else 0))
-                  + 2 * b_n * hkv * t * (dh * esz + (4 if int8 else 0))
-                  + 2 * q.numel() * 4 + 2 * b_n * 4)
-        ops = 4.0 * (hq // hkv) * t * dh * hkv * (keys + b_n * t)
         for dot in DOT_FORMS:
             if not int8 and dot != "bf16":
                 continue  # an int8 form on a bf16 cache is the f32 kernel
@@ -919,10 +956,9 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
                   f"(> {DOT_RTOL[dot]})")
             check(vs_f32 > 0.0, f"batched flash {dot} {label}: equal to the "
                   "f32 kernel, so the form did not run")
-            ms = timer.compare({
-                "kernel": lambda: kern(dot), "plain": lambda: plain(dot),
-                "library": lambda: F.scaled_dot_product_attention(
-                    qb, kb, vb, attn_mask=mask[:, None], scale=scale)})
+            ms = timer.compare({"kernel": lambda: kern(dot),
+                                "plain": lambda: plain(dot),
+                                "library": library})
             peak = {"int8": INT8_OPS, "bf16": BF16_FLOPS}.get(dot, F32_FLOPS)
             b_ms, b_by = bound(nbytes, ops, peak)
             before = cb.launches_by_dot[dot]
@@ -940,9 +976,7 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
                   f"call, the counter {per_call}")
             if dot == "int8_s" and label == cases[0][0]:
                 # the split form's bucket contract: bit-equal to full S
-                ob = cb.flash_verify_batched(
-                    q, kcache, vcache, knew, vnew, pos, scale, layer=1,
-                    active=act, s_live=640, dot_impl=dot)
+                ob = kern(dot, s_live=640)
                 torch.cuda.synchronize()
                 check(torch.equal(o, ob), f"batched flash {dot} {label}: "
                       "the s_live 640 result differs from the full-S one")
@@ -956,7 +990,7 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
                    "launches_per_call": per_call, **prof}
             rows[dot].append(row)
             print(json.dumps({"batched_flash_dot": row}), flush=True)
-        del kc, vc, kf, vf, kb, vb
+        del kern, plain, library
     print(f"batched flash cache-dot phase done on {card}", flush=True)
     main = cases[0][0]
     return {f"{cb.NAME}[{dot}]": {"rows": r, "main": main}
@@ -2710,6 +2744,59 @@ def filesystem_of(path: str) -> dict:
             else False if block else None}
 
 
+class PromptIds(IdsTokenizer):
+    """IdsTokenizer whose encode gives one fixed prompt's ids."""
+
+    def __init__(self, ids):
+        self.ids = list(ids)
+
+    def encode(self, text, add_bos=True):
+        return list(self.ids)
+
+
+def tiered_self_spec(torch, counters, tm, ids, ref) -> dict:
+    """TieredEngine.generate_self_speculative on a tiered model, the
+    resident layers drafting, K = 3, 16 tokens after `ids`, held to the
+    tiered greedy tokens `ref` by spec_rule (the verify's teacher-forced
+    rows computed only where the tokens part)."""
+    from ntransformer_tpu_torch.inference.engine import (GenerateConfig,
+                                                         TieredEngine)
+    from ntransformer_tpu_torch.models import tiered
+    eng = TieredEngine(tm)
+    eng.tokenizer = PromptIds(ids)
+    cfg = GenerateConfig(max_tokens=16, temperature=0.0, repeat_penalty=1.0,
+                         draft_k=SPEC_K)
+    reset(counters)
+    got, st = engine_ids(eng, "generate_self_speculative", "", cfg)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    n = min(len(got), len(ref))
+    part = next((i for i in range(n) if got[i] != ref[i]), None)
+    rule = {"tokens_agree": [n if part is None else part]}
+    if part is not None:
+        base = len(ids)
+        kv = eng._make_kv()
+        tiered.forward_tiered(tm, kv, ids, 0)
+        tf = teacher_forced(
+            torch, lambda kv, t, i: tiered.forward_tiered(
+                tm, kv, t.cuda(), base + i)[0],
+            lambda kv, w, i: tiered.forward_tiered(
+                tm, kv, w[0].cuda(), base + i, all_logits=True)[0][None],
+            lambda kv: tiered.TieredKV(*(None if c is None else c.clone()
+                                         for c in (kv.res, kv.str))),
+            kv, [torch.tensor([t]) for t in ref[:part + SPEC_K + 1]], SPEC_K)
+        rule = spec_rule(torch, "tiered 8b self-speculation",
+                         {"kernel": tf, "plain": tf, "cpu": tf}, [ref], [got])
+    out = {"draft_layers": tm.n_resident, "K": SPEC_K,
+           "ms_per_token": st.decode_ms / st.decode_tokens,
+           "acceptance": st.accepted / st.drafted, "drafted": st.drafted,
+           "accepted": st.accepted, "tokens": len(got),
+           "launches": launches, **rule,
+           "note": "synthetic weights: the acceptance prices nothing"}
+    print(f"tiered self-speculation: {st.report()!r}; {rule}", flush=True)
+    return out
+
+
 def tiered_8b_phase(torch, counters, card: str) -> dict:
     """The 8B preset in Q4_K_M at full width, tiered on the card at (8 HBM,
     16 RAM, 8 disk): a 512-token prefill and 32 greedy tokens identical to
@@ -2828,6 +2915,8 @@ def tiered_8b_phase(torch, counters, card: str) -> dict:
         for c in runs.values():
             c.pop("_logits")
         prof = profile_tiered(torch, tiered_step(torch, tm), 0)
+        out["self_spec"] = tiered_self_spec(torch, counters, tm, ids,
+                                            ref.tolist())
         disk_layers = list(range(tiers[0] + tiers[1], n_layers))
         out.update(
             runs=runs, logits_bit_equal_to_resident=same,
@@ -3206,6 +3295,561 @@ def cp_cards_phase(torch, counters, card: str) -> dict | None:
     torch.cuda.empty_cache()
     return out
 
+# ------------------------------------------------------------ speculation
+SPEC_K = 3
+# bench.py's spec_repolm_acceptance prompts (the second assembled from
+# parts, so that a grep of this file for import lines finds none)
+SPEC_PROMPTS = ["def forward(",
+                "import {0}\nimport {0}.numpy as jnp\n".format("jax"),
+                "the reference's warp-per-row quantized GEMV family",
+                "## Performance notes"]
+SPEC_KERNELS = ("q8_0_matmul", "flash_attention", "batched_attention")
+
+
+class TokenRecorder:
+    """A tokenizer that keeps the ids of its last decode: an engine's
+    generated tokens."""
+
+    def __init__(self, tok):
+        self.tok, self.ids = tok, None
+
+    def decode(self, ids):
+        self.ids = [int(t) for t in ids]
+        return self.tok.decode(ids)
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+
+def engine_ids(eng, method: str, prompt: str, cfg, **kw):
+    """(generated ids, stats) of eng.<method>(prompt, cfg)."""
+    eng.tokenizer = TokenRecorder(eng.tokenizer)
+    try:
+        _, stats = getattr(eng, method)(prompt, cfg, **kw)
+        return eng.tokenizer.ids, stats
+    finally:
+        eng.tokenizer = eng.tokenizer.tok
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def teacher_forced(torch, step, verify, clone, kv, toks, k: int):
+    """Logits teacher-forced on the token rows toks [n] (each [B], toks[0]
+    the prefill's token): L[i] [B, V], the sequential step's logits for
+    step i >= 1, and V[i], the verify rows [B, V] that predict step i,
+    over every window [toks[s-1] .. toks[s+k-1]] written at offset s - 1
+    into a copy of the cache taken before step s. step(kv, tokens [B],
+    offset) and verify(kv, window [B, k+1], offset) return logits; f32 on
+    the CPU."""
+    n = len(toks)
+    L, V, snaps = [None], [[] for _ in range(n)], {}
+    for i in range(1, n):
+        if i <= n - k:
+            snaps[i] = clone(kv)
+        L.append(step(kv, toks[i - 1], i - 1).float().cpu())
+    for s in range(1, n - k + 1):
+        w = torch.stack(toks[s - 1:s + k], dim=1)
+        rows = verify(snaps.pop(s), w, s - 1).float().cpu()
+        for j in range(k + 1):
+            if s + j < n:
+                V[s + j].append(rows[:, j])
+    return L, V
+
+
+def spec_rule(torch, label: str, runs: dict, plain, spec_rows,
+              floor: float = REAL_LOGIT_RTOL) -> dict:
+    """The card's rule for greedy speculation. runs: teacher_forced's (L,
+    V) for "kernel" (the card's kernel path), "plain" (the card's plain
+    path) and "cpu" on the plain greedy tokens. Every verify row within
+    max(REAL_LOGIT_RTOL, 2 r) of the largest logit of the sequential step,
+    r the card's plain path against the CPU at that step; and where a slot's
+    speculative tokens leave the plain tokens (spec_rows [B] lists, plain
+    [B] lists), the plain path's top-2 margin there no more than twice the
+    verify's logit difference at that step (what it takes to swap the two
+    tokens). floor: the limit's least value (REAL_LOGIT_RTOL; an int8
+    cache's SERVE_LOGIT_RTOL). Returns the worst difference and each slot's
+    agreement."""
+    L, V = runs["kernel"]
+    n, b_n = len(L), L[1].shape[0]
+    diff = [[0.0] * n for _ in range(b_n)]
+    worst = 0.0
+    for i in range(1, n):
+        for b in range(b_n):
+            if not V[i]:
+                continue
+            d = max(rel_err(v[b], L[i][b]) for v in V[i])
+            r = max([rel_err(runs["plain"][0][i][b], runs["cpu"][0][i][b])]
+                    + [rel_err(vp[b], vc[b]) for vp, vc in
+                       zip(runs["plain"][1][i], runs["cpu"][1][i])])
+            lim = max(floor, 2 * r)
+            check(d <= lim, f"{label} slot {b} step {i}: the verify rows "
+                  f"differ from the sequential step by {d} of the largest "
+                  f"logit (> {lim})")
+            diff[b][i], worst = d, max(worst, d)
+    agree = []
+    for b in range(b_n):
+        p, s = plain[b], spec_rows[b]
+        m = min(len(p), len(s), n)
+        i = next((j for j in range(m) if p[j] != s[j]), None)
+        agree.append(m if i is None else i)
+        if i is None:
+            continue
+        check(i > 0, f"{label} slot {b}: the first token differs")
+        top = torch.topk(L[i][b], 2).values
+        margin = float((top[0] - top[1]) / L[i][b].abs().max())
+        print(f"{label} slot {b}: speculative tokens leave the plain ones "
+              f"at step {i}: top-2 margin {margin:.5f}, verify difference "
+              f"{diff[b][i]:.5f} of the largest logit", flush=True)
+        check(margin <= 2 * diff[b][i], f"{label} slot {b} step {i}: the "
+              f"tokens differ at a top-2 margin of {margin}, more than "
+              f"twice the verify difference {diff[b][i]}")
+    return {"max_verify_rel_err": worst, "tokens_agree": agree}
+
+
+def engine_teacher_forced(torch, eng, ids, toks, k: int):
+    """teacher_forced through an Engine's decode step and verify (B = 1)."""
+    base = len(ids)
+    _, kv, _ = eng._prefill(eng._make_kv(), ids)
+    rows = [torch.tensor([t]) for t in toks]
+    return teacher_forced(
+        torch, lambda kv, t, i: eng._decode_step(kv, int(t[0]), base + i)[0],
+        lambda kv, w, i: eng._verify(kv, w[0].to(eng.device),
+                                     base + i)[0][None],
+        lambda kv: kv.clone(), kv, rows, k)
+
+
+def batched_teacher_forced(torch, model, ids, toks, k: int, quant: bool,
+                           impl: str | None = None):
+    """teacher_forced through the batched decode and verify steps, the
+    slots prefilled as the Engine prefills (toks [B] lists)."""
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step,
+                                                       batched_verify_step)
+    bkv, _ = prefill_batch(torch, model, ids, quant)
+    dev = model.device
+    pos = torch.tensor([len(p) for p in ids], device=dev)
+    act = torch.ones(len(ids), dtype=torch.bool, device=dev)
+    rows = [torch.tensor(r) for r in zip(*toks)]
+    return teacher_forced(
+        torch, lambda kv, t, i: batched_decode_step(
+            model.arch, model.weights, kv, t.to(dev), pos + i, act,
+            impl=impl)[0],
+        lambda kv, w, i: batched_verify_step(
+            model.arch, model.weights, kv, w.to(dev), pos + i, act,
+            impl=impl)[0],
+        lambda kv: BatchedKV(*(None if t is None else t.clone()
+                               for t in (kv.k, kv.v, kv.ks, kv.vs))),
+        bkv, rows, k)
+
+
+def three_paths(torch, run, card_model, cpu_model):
+    """run(model) on the card's kernel path, the card's plain path
+    (KERNEL_MODE off) and the CPU."""
+    from ntransformer_tpu_torch.ops import linear
+    out = {"kernel": run(card_model)}
+    linear.KERNEL_MODE = "off"
+    try:
+        out["plain"] = run(card_model)
+    finally:
+        linear.KERNEL_MODE = "auto"
+    out["cpu"] = run(cpu_model)
+    return out
+
+
+def spec_kernel_rows(torch, timer, card: str) -> dict:
+    """The spec path's kernels at its shapes: batched flash's verify at
+    B = 8, K = 3 (T = 4 rows a slot, S 1024) over a bf16 cache ("f32") and
+    an int8 cache ("f32", "int8_v"), and the Q8_0 and Q4_K matmuls at the
+    8B gate|up at T = 4 (the resident verify) and 32 (the B = 8 verify),
+    each against its plain twin, timed beside it and beside the library
+    call, with the profiler's device time and kernels a call equal to the
+    counter's launches."""
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
+    from ntransformer_tpu_torch.ops.cuda import matmul as cm
+    from ntransformer_tpu_torch.ops.cuda import nibble_matmul as nm
+    from ntransformer_tpu_torch.ops.dequant_torch import dequant_planes_torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1313)
+    b_n, t = 8, SPEC_K + 1
+    pos_l = [3, 64, 500, 900, 1000, 700, 200, 1019]
+    rows = []
+    for int8, dots in ((False, ("f32",)), (True, ("f32", "int8_v"))):
+        kern, plain, library, nbytes, ops, _ = verify_case(
+            torch, g, b_n, 1024, t, int8, pos_l)
+        for dot in dots:
+            o, o0 = kern(dot), plain(dot)
+            torch.cuda.synchronize()
+            r = float(((o - o0).abs().reshape(b_n, t, -1).amax(-1)
+                       / o0.abs().reshape(b_n, t, -1).amax(-1)).max())
+            label = (f"batched verify B=8 T=4 S=1024 "
+                     f"{'int8' if int8 else 'bf16'} {dot}")
+            check(bool(torch.isfinite(o).all()) and r <= DOT_RTOL[dot],
+                  f"{label}: a query token's max|kernel-plain| is {r} of "
+                  f"its max|plain| (> {DOT_RTOL[dot]})")
+            ms = timer.compare({"kernel": lambda: kern(dot),
+                                "plain": lambda: plain(dot),
+                                "library": library})
+            before = cb.launches_by_dot[dot]
+            kern(dot)
+            per_call = cb.launches_by_dot[dot] - before
+            prof = device_profile(torch, lambda: kern(dot), (
+                "split_kernel" if dot == "f32" else "group_kernel",
+                "combine_kernel"))
+            check(prof["own_kernels_per_call"] == per_call,
+                  f"{label}: the profiler saw {prof['own_kernels_per_call']}"
+                  f" of its kernels a call, the counter {per_call}")
+            b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+            rows.append({"kernel": f"{cb.NAME}[{dot}]", "shape": label,
+                         "row_rel_err": r, "tol": DOT_RTOL[dot],
+                         "ms": ms["kernel"], "plain_ms": ms["plain"],
+                         "library_ms": ms["library"], "bound_ms": b_ms,
+                         "bound_by": b_by, "launches_per_call": per_call,
+                         **prof})
+            print(json.dumps({"spec_kernel": rows[-1]}), flush=True)
+        del kern, plain, library
+    k_, n_ = 4096, 28672
+    qs = torch.randint(-127, 128, (k_, n_), dtype=torch.int8, device="cuda",
+                       generator=g)
+    d = (torch.rand(k_ // 32, n_, device="cuda", generator=g) * 0.01
+         + 1e-3).to(torch.float16).view(torch.int16)
+    q4k = random_planes(torch, g, DType.Q4_K, k_, n_)
+    mats = {"q8_0_matmul": (
+        lambda x: cm.quant_matmul_cuda(x, qs, d),
+        lambda x: cm.quant_matmul_plain(x, qs, d),
+        dequant_planes_torch({"qs": qs, "d": d}, DType.Q8_0, k_, n_,
+                             out_dtype=torch.bfloat16),
+        qs.numel() + d.numel() * 2, cm),
+        "q4_k_matmul": (
+        lambda x: nm.nibble_matmul_cuda(x, q4k, DType.Q4_K),
+        lambda x: nm.nibble_matmul_plain(x, q4k, DType.Q4_K),
+        dequant_planes_torch(q4k, DType.Q4_K, k_, n_,
+                             out_dtype=torch.bfloat16),
+        sum(a.numel() * a.element_size() for a in q4k.values()),
+        nm.KERNELS[DType.Q4_K])}
+    for name, (kern, plain, w, pbytes, counter) in mats.items():
+        for tt in (SPEC_K + 1, 8 * (SPEC_K + 1)):
+            x = torch.randn(tt, k_, device="cuda", generator=g).to(
+                torch.bfloat16)
+            y, y0 = kern(x), plain(x)
+            torch.cuda.synchronize()
+            err = float((y - y0).abs().max())
+            check(err <= MATMUL_RTOL * float(y0.abs().max()),
+                  f"{name} 8b gate|up T={tt}: max|kernel-plain| {err}")
+            ms = timer.compare({"kernel": lambda: kern(x),
+                                "plain": lambda: plain(x),
+                                "library": lambda: torch.matmul(x, w)})
+            before = counter.launches
+            kern(x)
+            per_call = counter.launches - before
+            prof = profile_calls(torch, lambda: kern(x))
+            n_prof = sum(v["per_call"] for v in prof.values())
+            check(n_prof == per_call, f"{name} T={tt}: the profiler saw "
+                  f"{prof}, the counter {per_call} launches a call")
+            b_ms, b_by = bound(pbytes + tt * k_ * 2 + tt * n_ * 4,
+                               2.0 * tt * k_ * n_)
+            rows.append({"kernel": name, "shape": f"8b gate|up T={tt}",
+                         "max_abs_err": err, "ms": ms["kernel"],
+                         "plain_ms": ms["plain"],
+                         "library_ms": ms["library"], "bound_ms": b_ms,
+                         "bound_by": b_by, "launches_per_call": per_call,
+                         "device_ms": sum(v["ms"] for v in prof.values()),
+                         "kernels_per_call": n_prof})
+            print(json.dumps({"spec_kernel": rows[-1]}), flush=True)
+    del qs, d, q4k, mats
+    return {"card": card, "rows": rows}
+
+
+def profile_round(torch, fn, rounds: int = 2) -> dict:
+    """Device time by kernel over `rounds` calls of fn (torch.profiler
+    with CUDA activity) and the share of the wall time the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3 / rounds,
+                    e.count // rounds, e.key)
+                   for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type)
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"wall_ms_per_round": wall_ms / rounds,
+            "device_ms_per_round": busy,
+            "kernels_per_round": sum(r[1] for r in rows),
+            "device_busy_share": busy * rounds / wall_ms,
+            "top": [{"kernel": k[:80], "ms_per_round": ms, "per_round": c}
+                    for ms, c, k in rows[:8]]}
+
+
+def spec_price_sheet(torch, synth, card: str) -> dict:
+    """bench.py's spec_serve_breakeven_b8 on the port's batched steps: the
+    synthetic 8B Q8_0 at ctx 1024 from position 512, K = 3, the draft the
+    first 16 of 32 layers, at B = 1 and 8: ms of the plain, draft and
+    verify steps (bench.py's delta timing: 3n calls less n calls, each run
+    ending in a host read), the break-even acceptance ((K t_draft +
+    t_verify) / t_plain - 1) / K, the tokens/s ceiling at full accept, and
+    one spec round's profile at B = 8."""
+    import dataclasses
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step,
+                                                       batched_verify_step)
+    _, arch, weights, _ = synth
+    arch1k = dataclasses.replace(arch, max_seq_len=1024)
+    k, nd, base = SPEC_K, arch.n_layers // 2, 512
+    sl = s_live_bucket(base + 128 + k + 1)
+    out = {"card": card, "K": k, "draft_layers": nd, "s_live": sl,
+           "rows": []}
+    for b_n in (1, 8):
+        bkv = BatchedKV.create(arch1k, b_n, device="cuda")
+        toks = torch.arange(b_n, device="cuda") + 3
+        vt = toks[:, None].repeat(1, k + 1)
+        act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+
+        def at(i):
+            return torch.full((b_n,), base + i % 128, dtype=torch.long,
+                              device="cuda")
+        fns = {"plain": lambda i: batched_decode_step(
+                   arch1k, weights, bkv, toks, at(i), act, s_live=sl),
+               "draft": lambda i: batched_decode_step(
+                   arch1k, weights, bkv, toks, at(i), act, n_layers=nd,
+                   s_live=sl),
+               "verify": lambda i: batched_verify_step(
+                   arch1k, weights, bkv, vt, at(i), act, s_live=sl)}
+
+        def run(fn, n):
+            for i in range(n):
+                lg, _ = fn(i)
+            torch.argmax(lg, -1).cpu()
+
+        ms = {}
+        for name, fn in fns.items():
+            iters = 6 if name == "verify" else 12
+            run(fn, 3)
+            t0 = time.perf_counter()
+            run(fn, iters)
+            t1 = time.perf_counter()
+            run(fn, 3 * iters)
+            t2 = time.perf_counter()
+            ms[name] = ((t2 - t1) - (t1 - t0)) / (2 * iters) * 1e3
+        rnd = k * ms["draft"] + ms["verify"]
+        row = {"B": b_n, "ms_plain": ms["plain"], "ms_draft": ms["draft"],
+               "ms_verify": ms["verify"],
+               "breakeven_acceptance": max(0.0, (rnd / ms["plain"] - 1) / k),
+               "full_accept_tok_s": b_n * (1 + k) / rnd * 1e3,
+               "speedup_at_full_accept": (1 + k) * ms["plain"] / rnd}
+        if b_n == 8:
+            def one_round():
+                for j in range(k):
+                    fns["draft"](j)
+                fns["verify"](0)
+            row["round_profile"] = profile_round(torch, one_round)
+        out["rows"].append(row)
+        print(json.dumps({"spec_price_sheet": row}), flush=True)
+        del bkv
+    return out
+
+
+def spec_serve_8b(torch, counters, synth, card: str) -> tuple[dict, dict]:
+    """This slice's main path at full width: the synthetic 8B Q8_0 served
+    with self-speculation (BatchServer spec_k = 3, the first 16 of 32
+    layers drafting), 8 slots answering 8 requests of 9-1000 prompt and 16
+    output tokens, launch counts read around it; then the same requests
+    spec-off in the same process. Synthetic weights make the acceptance
+    meaningless: the cell prices the mechanism."""
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, IdsTokenizer(), None,
+                        torch.device("cuda"))
+    rng = torch.Generator().manual_seed(21)
+    lens = [700, 130, 64, 9, 300, 20, 90, 1000]
+    prompts = [torch.randint(3, arch.vocab_size, (n,),
+                             generator=rng).tolist() for n in lens]
+    out, launches = {"card": card}, {}
+    for tag, spec in (("spec", dict(spec_k=SPEC_K,
+                                    spec_draft_layers=arch.n_layers // 2)),
+                      ("plain", {})):
+        srv = BatchServer(model, batch_size=8,
+                          sampler_cfg=SamplerConfig(temperature=0.0), **spec)
+        reqs = [Request(prompt="", max_tokens=16, prompt_ids=list(p))
+                for p in prompts]
+        warm = srv.warmup()
+        reset(counters)
+        stats = srv.run(reqs)
+        torch.cuda.synchronize()
+        got = read(counters)
+        check(all(len(r.output_ids) == 16 for r in reqs),
+              f"8b {tag} server: a request finished short")
+        out[tag] = {"tok_s": stats.tokens_per_s, "wall_s": stats.wall_s,
+                    "steps": stats.steps, "draft_steps": stats.draft_steps,
+                    "acceptance": stats.acceptance, "warmup_s": warm,
+                    "launches": got,
+                    "tokens": [r.output_ids for r in reqs]}
+        print(f"8b q8_0 server {tag}: {stats.report()}; launches {got}",
+              flush=True)
+        if tag == "spec":
+            launches = got
+            check(all(got[k] > 0 for k in SPEC_KERNELS),
+                  f"8b spec serving launched a kernel zero times: {got}")
+        del srv
+    out["tokens_agree"] = [
+        next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+        for x, y in zip(out["spec"].pop("tokens"), out["plain"].pop("tokens"))]
+    print(json.dumps({"spec_serve_8b_q8_0": out}), flush=True)
+    return out, launches
+
+
+def spec_repolm(torch, counters, card: str, tmp: str) -> dict:
+    """repolm512 on the card: the three Engine modes (the draft model is
+    repolm512 requantized to Q4_K_M on the host; self-speculation drafts on
+    3 of 6 layers), the CLI's --draft-model and --self-spec (it streams),
+    --serve --spec-k 3 through the CLI, and BatchServer at B = 4 with
+    bench.py's four acceptance prompts, greedy spec against spec-off (bf16
+    and int8 caches; 64 tokens a request) and sampled twice with one seed.
+    Greedy speculation is held by spec_rule against the teacher-forced
+    verify rows of each path."""
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.inference.engine import Engine, GenerateConfig
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    import shutil
+    k, n = SPEC_K, 32
+    draft_path = os.path.join(tmp, "repolm512_q4_k_m.gguf")
+    requantize(REPOLM, draft_path, "q4_k_m")
+    gpu = load_model(REPOLM, device="cuda", fuse=True)
+    cpu = load_model(REPOLM, device="cpu", fuse=True)
+    draft = load_model(draft_path, device="cuda", fuse=True)
+    out = {"card": card, "K": k}
+    # --- the Engine modes
+    eng = Engine(gpu, draft)
+    ids = eng._encode(PROMPT)
+    cfg = GenerateConfig(max_tokens=n, temperature=0.0, repeat_penalty=1.0,
+                         draft_k=k)
+    plain, pst = engine_ids(eng, "generate", PROMPT, cfg)
+    runs = three_paths(torch, lambda m: engine_teacher_forced(
+        torch, Engine(m), ids, plain, k), gpu, cpu)
+    out["engine_plain_ms_per_token"] = pst.decode_ms / pst.decode_tokens
+    for method, kw in (("generate_speculative", {}),
+                       ("generate_self_speculative", {"draft_layers": 3}),
+                       ("generate_self_speculative_fused",
+                        {"draft_layers": 3})):
+        reset(counters)
+        got, st = engine_ids(eng, method, PROMPT, cfg, **kw)
+        torch.cuda.synchronize()
+        launches = read(counters)
+        check(all(launches[x] > 0 for x in ("q8_0_matmul", "q4_k_matmul")
+                  if method == "generate_speculative" or x == "q8_0_matmul"),
+              f"repolm512 {method}: launches {launches}")
+        rule = spec_rule(torch, f"repolm512 {method}", runs, [plain], [got])
+        out[method] = {"acceptance": st.accepted / st.drafted,
+                       "drafted": st.drafted, "accepted": st.accepted,
+                       "ms_per_token": st.decode_ms / st.decode_tokens,
+                       "tokens": len(got), "launches": launches, **rule}
+        print(f"repolm512 {method} on {card}: {st.report()!r}; {rule}",
+              flush=True)
+    del eng, runs
+    # --- the CLI
+    copy = os.path.join(tmp, "repolm512_stream.gguf")
+    shutil.copy(REPOLM, copy)
+    greedy = ["-p", PROMPT, "-n", "16", "-t", "0", "--repeat-penalty", "1.0",
+              "--device", "cuda", "--draft-k", str(k)]
+    for tag, argv in (("cli_draft_model", ["-m", REPOLM, "--draft-model",
+                                           draft_path]),
+                      ("cli_self_spec", ["-m", copy, "--self-spec",
+                                         "--max-hbm-layers", "3",
+                                         "--max-ram-layers", "2"])):
+        reset(counters)
+        rc = cli.main(argv + greedy)
+        torch.cuda.synchronize()
+        got = read(counters)
+        check(rc == 0 and got["q8_0_matmul"] > 0,
+              f"{tag}: exit {rc}, launches {got}")
+        out[tag] = got
+    prompts_file = os.path.join(tmp, "spec_prompts.txt")
+    with open(prompts_file, "w") as f:
+        f.write("\n".join(p.replace("\n", " ") for p in SPEC_PROMPTS) + "\n")
+    reset(counters)
+    rc = cli.main(["-m", REPOLM, "--serve", prompts_file, "--batch-size", "4",
+                   "-n", "16", "-t", "0", "--repeat-penalty", "1.0",
+                   "--device", "cuda", "--spec-k", str(k)])
+    torch.cuda.synchronize()
+    got = read(counters)
+    check(rc == 0 and all(got[x] > 0 for x in SPEC_KERNELS),
+          f"cli --serve --spec-k: exit {rc}, launches {got}")
+    out["cli_serve_spec_k"] = got
+    # --- BatchServer, greedy spec against spec-off, on the card, 64 tokens
+    # a request as bench.py's spec_repolm_acceptance
+    n = 64
+    ids4 = [gpu.tokenizer.encode(p, add_bos=True) for p in SPEC_PROMPTS]
+    for quant in (False, True):
+        mode = "int8" if quant else "bf16"
+        res = {}
+        for tag, spec in (("plain", {}), ("spec", {"spec_k": k})):
+            srv = BatchServer(gpu, batch_size=4, kv_quant=quant,
+                              sampler_cfg=SamplerConfig(temperature=0.0),
+                              **spec)
+            reqs = [Request(prompt=p, max_tokens=n) for p in SPEC_PROMPTS]
+            srv.warmup()
+            t0 = time.perf_counter()
+            stats = srv.run(reqs)
+            res[tag] = (reqs, stats, time.perf_counter() - t0)
+        plain_rows = [r.output_ids for r in res["plain"][0]]
+        runs = three_paths(torch, lambda m: batched_teacher_forced(
+            torch, m, ids4, plain_rows, k, quant), gpu, cpu)
+        rule = spec_rule(torch, f"repolm512 serving {mode}", runs,
+                         plain_rows, [r.output_ids for r in res["spec"][0]],
+                         SERVE_LOGIT_RTOL[mode])
+        st0, st1 = res["plain"][1], res["spec"][1]
+        out[f"serve_{mode}"] = {
+            "acceptance": st1.acceptance, "spec_drafted": st1.spec_drafted,
+            "spec_accepted": st1.spec_accepted, "steps_spec": st1.steps,
+            "draft_steps": st1.draft_steps, "steps_plain": st0.steps,
+            "steps_saved_ratio": 1 - st1.steps / st0.steps,
+            "tok_s_spec": st1.tokens_per_s, "tok_s_plain": st0.tokens_per_s,
+            **rule}
+        print(json.dumps({f"repolm512_spec_serve_{mode}":
+                          out[f"serve_{mode}"]}), flush=True)
+    # --- sampled speculative serving: deterministic per seed
+    outs = []
+    for _ in range(2):
+        srv = BatchServer(gpu, batch_size=4, spec_k=k,
+                          sampler_cfg=SamplerConfig(temperature=0.8, seed=7))
+        reqs = [Request(prompt=p, max_tokens=n) for p in SPEC_PROMPTS]
+        stats = srv.run(reqs)
+        outs.append([r.output_ids for r in reqs])
+    check(outs[0] == outs[1], "repolm512 sampled spec serving: two runs "
+          "with one seed differ")
+    out["serve_sampled"] = {"acceptance": stats.acceptance,
+                            "deterministic": True}
+    del gpu, cpu, draft
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_phase(torch, counters, timer, card: str, synth) -> tuple:
+    """Phase spec: the kernels at the spec shapes, the price sheet and
+    self-speculative serving of the synthetic 8B (this slice's main path:
+    the kernels line's spec_launches), and the repolm512 cells."""
+    import tempfile
+    out = {"kernels": spec_kernel_rows(torch, timer, card),
+           "price_sheet": spec_price_sheet(torch, synth, card)}
+    out["serve_8b"], launches = spec_serve_8b(torch, counters, synth, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["repolm512"] = spec_repolm(torch, counters, card, tmp)
+    print(json.dumps({"spec_repolm512": out["repolm512"]}), flush=True)
+    return out, launches
+
+
 # ------------------------------------------------------------------- main
 class DotCounter:
     """The launch count of one cache-dot form of batched flash, read and
@@ -3319,8 +3963,8 @@ def main() -> int:
         got = real_serve_phase(torch, counters, card, dot_forms=True)
         dot_launches = {f"{cb.NAME}[{d}]": got["dot_launches"][d]
                         for d in DOT_FORMS}
-    engine_launches, launches = {}, {}
-    if {"full", "bfull", "cp"} & set(phases):
+    engine_launches, launches, spec_launches = {}, {}, {}
+    if {"full", "bfull", "cp", "spec"} & set(phases):
         synth = build_synth(torch)
         if "full" in phases:
             _, engine_launches = full_width_phase(torch, counters, card,
@@ -3333,6 +3977,9 @@ def main() -> int:
             _, got = cp_path_phase(torch, counters, card, synth)
             launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
             engine_launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
+        if "spec" in phases:
+            _, spec_launches = spec_phase(torch, counters, timer, card,
+                                          synth)
         del synth
     if "cpcards" in phases:
         cp_cards_phase(torch, counters, card)
@@ -3413,6 +4060,7 @@ def main() -> int:
             "source": "ntransformer_tpu_torch/" + src,
             "replaces": replaces, "launches": launches.get(name, 0),
             "engine_launches": engine_launches.get(name, 0),
+            "spec_launches": spec_launches.get(name, 0),
             "max_abs_err": err, "tol": tols.get(name, mm_tol),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -2,15 +2,20 @@
 
 It runs resident generation (bf16 or --kv-int8 cache), --benchmark and
 --serve (continuous batching over a prompts file, with --batch-size,
---prefix-cache and --kv-int8) on one device, each in the file's formats or
-requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8); tiered streaming
-(--streaming, --max-hbm-layers, --max-ram-layers, --requant-q4k,
---requant-ram; automatic when the file does not fit the card's free memory);
-and context-parallel generation and --benchmark (--cp N: the cache split
-along the sequence over N shards, one on each of the first N cards, or all
-on the CPU with --device cpu). Every other mode exits with 2 and names the
-ROADMAP item that ports it; so do the JAX CLI's refusals of --cp with
---serve, --draft-model, --w4a8/--w8a8, streaming and --kv-int8.
+--prefix-cache, --kv-int8 and self-speculative serving --spec-k K
+[--spec-draft-layers N]) on one device, each in the file's formats or
+requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8); speculative decoding
+with a separate draft model (--draft-model, --draft-k), resident or tiered;
+tiered streaming (--streaming, --max-hbm-layers, --max-ram-layers,
+--requant-q4k, --requant-ram, and --self-spec, which streams and drafts on
+the resident prefix; automatic when the file does not fit the card's free
+memory); and context-parallel generation and --benchmark (--cp N: the cache
+split along the sequence over N shards, one on each of the first N cards,
+or all on the CPU with --device cpu). Every other mode exits with 2 and
+names the ROADMAP item that ports it; the JAX CLI's refusals (--cp with
+--serve, --draft-model with --cp/--tp/--ep, --serve with
+--draft-model/--self-spec/--streaming, --w4a8/--w8a8 with streaming or
+--cp, --kv-int8 with --cp) exit with 2 and the JAX messages.
 
 This module is the one place of the port that reads the JAX package's
 environment switches of these modes, with their names, values and defaults,
@@ -41,12 +46,6 @@ _NOT_PORTED = {
             "1 item 14",
     "--ep": "expert parallelism is ROADMAP queue 1 item 14",
     "--dp": "data-parallel serving is ROADMAP queue 1 item 14",
-    # the JAX package streams for --self-spec (the resident prefix drafts);
-    # the port refuses it until speculation is ported
-    "--self-spec": "speculative decoding (tiered self-speculation "
-                   "included) is ROADMAP queue 1 item 13",
-    "--draft-model": "speculative decoding is ROADMAP queue 1 item 13",
-    "--spec-k": "speculative serving is ROADMAP queue 1 item 13",
 }
 
 
@@ -113,18 +112,16 @@ def refused_mode(args) -> str | None:
         "--http": args.http is not None,
         "--chat": args.chat,
         "--tp": args.tp, "--ep": args.ep, "--dp": args.dp,
-        "--self-spec": args.self_spec, "--draft-model": args.draft_model,
-        "--spec-k": args.spec_k,
     }
     return next((mode for mode, on in asked.items() if on), None)
 
 
 def should_stream(path: str, args) -> bool:
-    """Tiered or resident: the streaming flags force it; otherwise the
-    file plus a margin against the card's free memory (a CPU run streams
-    only when asked)."""
-    if (args.streaming or args.requant_q4k or args.requant_ram
-            or args.max_hbm_layers is not None
+    """Tiered or resident: the streaming flags (--self-spec among them: the
+    resident prefix drafts) force it; otherwise the file plus a margin
+    against the card's free memory (a CPU run streams only when asked)."""
+    if (args.streaming or args.self_spec or args.requant_q4k
+            or args.requant_ram or args.max_hbm_layers is not None
             or args.max_ram_layers is not None):
         return True
     import torch
@@ -163,7 +160,13 @@ def main(argv=None) -> int:
                   "long-context mode and does not compose with the "
                   "batch server")
         return 2
-    if args.cp and args.draft_model:
+    if args.serve and (args.draft_model or args.self_spec or args.streaming):
+        log.error("--serve is the resident continuous-batching loop; "
+                  "--draft-model/--self-spec/--streaming are "
+                  "single-request engine modes and do not compose "
+                  "with it")
+        return 2
+    if args.draft_model and (args.cp or args.tp or args.ep):
         log.error("--draft-model pairs with the single-chip resident or "
                   "tiered engine (reference main.cpp:121-132); it is not "
                   "supported under --tp/--cp/--ep")
@@ -179,12 +182,6 @@ def main(argv=None) -> int:
                   "decode-optimized or the serving format)")
         return 2
     if args.serve:
-        if args.streaming:
-            log.error("--serve is the resident continuous-batching loop; "
-                      "--draft-model/--self-spec/--streaming are "
-                      "single-request engine modes and do not compose "
-                      "with it")
-            return 2
         return serve(args)
 
     stream = should_stream(args.model, args)
@@ -208,11 +205,18 @@ def main(argv=None) -> int:
         max_tokens=args.max_tokens, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
         repeat_penalty=args.repeat_penalty, seed=args.seed,
-        skip_threshold=args.skip_threshold,
+        draft_k=args.draft_k, skip_threshold=args.skip_threshold,
         early_exit_threshold=args.early_exit)
     if stream:
         from .core.dtypes import DType
-        log.info(f"loading {args.model} (tiered streaming, {args.device})")
+        if args.draft_model:
+            # the draft loads first, resident; the tiered target sizes
+            # itself on the memory left
+            log.info(f"loading draft {args.draft_model} (resident, "
+                     f"{args.device}) + target (tiered streaming)")
+        else:
+            log.info(f"loading {args.model} (tiered streaming, "
+                     f"{args.device})")
         requant_ram = DType.Q4_K if args.requant_ram else None
         env_rq = os.environ.get("NT_REQUANT_RAM", "")
         if requant_ram is None and env_rq and env_rq != "0":
@@ -227,7 +231,7 @@ def main(argv=None) -> int:
             max_ram_layers=(args.max_ram_layers
                             if args.max_ram_layers is not None
                             else _env_int("NT_MAX_RAM_LAYERS")),
-            kv_quant=args.kv_int8,
+            kv_quant=args.kv_int8, draft_path=args.draft_model,
             direct_io=os.environ.get("NT_DIRECT_IO", "1") != "0",
             h2d="planes" if os.environ.get("NT_H2D", "blob") == "planes"
             else "blob")
@@ -244,7 +248,9 @@ def main(argv=None) -> int:
             return 2
     else:
         log.info(f"loading {args.model} (resident, {args.device})")
-        engine = Engine.load(args.model, max_seq_len=args.ctx_size,
+        # the draft loads first (Engine.load)
+        engine = Engine.load(args.model, draft_path=args.draft_model,
+                             max_seq_len=args.ctx_size,
                              fuse=not args.no_fuse, device=args.device,
                              kv_quant=args.kv_int8, w4a8=args.w4a8,
                              w8a8=args.w8a8)
@@ -258,7 +264,13 @@ def main(argv=None) -> int:
         def emit(piece: str):
             print(piece, end="", flush=True)
 
-        text, stats = engine.generate(args.prompt, cfg, emit)
+        if args.self_spec:
+            text, stats = engine.generate_self_speculative(args.prompt, cfg,
+                                                           emit)
+        elif args.draft_model:
+            text, stats = engine.generate_speculative(args.prompt, cfg, emit)
+        else:
+            text, stats = engine.generate(args.prompt, cfg, emit)
         print()
         print(stats.report(), file=sys.stderr)
         if args.verbose:
@@ -292,6 +304,8 @@ def serve(args) -> int:
                        w4a8=args.w4a8, w8a8=args.w8a8)
     srv = BatchServer(model, batch_size=args.batch_size,
                       prefix_cache=args.prefix_cache, kv_quant=args.kv_int8,
+                      spec_k=args.spec_k,
+                      spec_draft_layers=args.spec_draft_layers,
                       dot_impl=dot_impl, attn_buckets=attn_buckets,
                       sampler_cfg=SamplerConfig(
                           temperature=args.temperature, top_k=args.top_k,

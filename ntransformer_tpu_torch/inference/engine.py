@@ -9,14 +9,22 @@ shapes; the cache is updated in place by each forward. In `benchmark` a
 Python loop of forwards takes the place of the jitted `lax.scan` decode
 loop; the argmax stays on the card, so the loop never waits for the host.
 
+Speculative decoding (greedy): `generate_speculative` drafts K tokens
+with a separate draft model, `generate_self_speculative` with the model's
+first layers; one all-logits verify of [anchor, d0 .. dK-1] then accepts
+the longest prefix whose argmax matches and emits the correction or bonus
+token. The anchor is fed again at the head of every verify window, so no
+cache rollback is ever needed. `generate_self_speculative_fused` runs one
+iteration as a function on tensors (`spec_iter_greedy`): the draft argmaxes
+stay on the card and the host reads (emit, n_acc) once an iteration.
+
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
-per-token layer streaming, layer-skip that drops streamed I/O, and early
-exit. `CPEngine` runs them with context parallelism (parallel/cp.py): the
-cache split along the sequence axis over a list of shard devices, one
-process driving every shard. Speculative generation (the tiered
-self-speculation and the separate draft model among it) and the tensor-
-and expert-parallel engines wait for their ROADMAP items (queue 1 items 13
-and 14).
+per-token layer streaming, layer-skip that drops streamed I/O, early exit,
+self-speculation drafting on the resident prefix and a separate resident
+draft model. `CPEngine` runs them with context parallelism
+(parallel/cp.py): the cache split along the sequence axis over a list of
+shard devices, one process driving every shard. The tensor- and
+expert-parallel engines wait for ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ class GenerateConfig:
     top_p: float = 0.95
     repeat_penalty: float = 1.1
     seed: int = 42
+    draft_k: int = 4
     skip_threshold: float = 0.0  # >0 enables layer-skip calibration
     early_exit_threshold: float = 0.0  # >0: tiered early exit (cosine)
 
@@ -56,6 +65,8 @@ class Stats:
     prefill_ms: float = 0.0
     decode_tokens: int = 0
     decode_ms: float = 0.0
+    accepted: int = 0
+    drafted: int = 0
     skipped_layers: list = field(default_factory=list)
 
     @property
@@ -73,6 +84,10 @@ class Stats:
                  f"{self.prefill_ms:.1f} ms ({self.prefill_tps:.2f} tok/s)",
                  f"decode:  {self.decode_tokens} tok in "
                  f"{self.decode_ms:.1f} ms ({self.decode_tps:.2f} tok/s)"]
+        if self.drafted:
+            lines.append(f"speculative: {self.accepted}/{self.drafted} "
+                         f"accepted "
+                         f"({100.0 * self.accepted / self.drafted:.1f}%)")
         if self.skipped_layers:
             lines.append(f"layer-skip: {len(self.skipped_layers)} skipped "
                          f"{self.skipped_layers}")
@@ -102,12 +117,15 @@ def _sync(device: torch.device):
 
 
 class Engine:
-    """High-level generation engine over a loaded model."""
+    """High-level generation engine over a loaded model; `draft`: a
+    separate draft model for generate_speculative, on the same device."""
 
     PREFILL_CHUNK = 512
 
-    def __init__(self, model: LoadedModel, kv_quant: bool = False):
+    def __init__(self, model: LoadedModel, draft: LoadedModel | None = None,
+                 kv_quant: bool = False):
         self.model = model
+        self.draft = draft
         self.kv_quant = kv_quant  # int8 KV cache (half the cache memory)
         self.arch = model.arch
         self.tokenizer = model.tokenizer
@@ -115,9 +133,12 @@ class Engine:
         self.layer_sel: np.ndarray | None = None  # layer-skip schedule
 
     @classmethod
-    def load(cls, path: str, kv_quant: bool = False, **kw) -> "Engine":
-        """Load `path` resident (load_model keywords: device, fuse, ...)."""
-        return cls(load_model(path, **kw), kv_quant=kv_quant)
+    def load(cls, path: str, draft_path: str | None = None,
+             kv_quant: bool = False, **kw) -> "Engine":
+        """Load `path` resident (load_model keywords: device, fuse, ...);
+        draft_path: a draft model, loaded first with the same keywords."""
+        draft = load_model(draft_path, **kw) if draft_path else None
+        return cls(load_model(path, **kw), draft, kv_quant=kv_quant)
 
     # --- internals ----------------------------------------------------------
     def _clamp_ids(self, ids: list[int]) -> list[int]:
@@ -131,19 +152,21 @@ class Engine:
         return KVCache.create(self.arch, quant=self.kv_quant,
                               device=self.device)
 
-    def _prefill(self, kv: KVCache, tokens: list[int], with_cosine=False,
-                 start: int = 0):
+    def _prefill(self, kv: KVCache, tokens: list[int], model=None,
+                 with_cosine=False, start: int = 0):
         """Bucketed prefill of tokens[start:] at their true offsets, in
-        512-token chunks past one chunk. Returns (last logits [1, V], kv,
-        cosines of the final chunk)."""
+        512-token chunks past one chunk, through `model` (default the
+        engine's). Returns (last logits [1, V], kv, cosines of the final
+        chunk)."""
+        arch = model.arch if model is not None else self.arch
         t = len(tokens)
-        S = self.arch.max_seq_len
+        S = arch.max_seq_len
         if t - start <= self.PREFILL_CHUNK:
             # the padded rows must stay inside the cache
             p = min(_bucket(t - start), S - start)
             padded = np.zeros(p, dtype=np.int64)
             padded[: t - start] = tokens[start:]
-            return self._prefill_chunk(kv, padded, start, t - start,
+            return self._prefill_chunk(kv, padded, start, t - start, model,
                                        with_cosine)
         c = self.PREFILL_CHUNK
         logits = cos = None
@@ -153,19 +176,37 @@ class Engine:
             padded = np.zeros(p, dtype=np.int64)
             padded[: len(chunk)] = chunk
             logits, kv, cos = self._prefill_chunk(kv, padded, off, len(chunk),
-                                                  with_cosine)
+                                                  model, with_cosine)
         return logits, kv, cos
 
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
-                       with_cosine=False):
-        return forward(self.arch, self.model.weights, kv,
-                       torch.from_numpy(padded), off, layer_sel=self.layer_sel,
-                       n_valid=n_valid, with_cosine=with_cosine)
+                       model=None, with_cosine=False):
+        m = model if model is not None else self.model
+        sel = self.layer_sel if m is self.model else None
+        return forward(m.arch, m.weights, kv, torch.from_numpy(padded), off,
+                       layer_sel=sel, n_valid=n_valid,
+                       with_cosine=with_cosine)
 
-    def _decode_step(self, kv: KVCache, token, pos: int, with_cosine=False):
-        tok = torch.as_tensor(token, device=self.device).reshape(1)
-        return forward(self.arch, self.model.weights, kv, tok, pos,
-                       layer_sel=self.layer_sel, with_cosine=with_cosine)
+    def _decode_step(self, kv: KVCache, token, pos: int, model=None,
+                     with_cosine=False, layer_sel=None):
+        """One token through `model` (default the engine's) at pos;
+        layer_sel (a draft's layer prefix) replaces the engine's layer-skip
+        schedule."""
+        m = model if model is not None else self.model
+        tok = torch.as_tensor(token, device=m.device).reshape(1)
+        sel = layer_sel if layer_sel is not None else (
+            self.layer_sel if m is self.model else None)
+        return forward(m.arch, m.weights, kv, tok, pos, layer_sel=sel,
+                       with_cosine=with_cosine)
+
+    def _verify(self, kv, tokens, pos: int):
+        """All-position logits [T, V] of tokens written at pos through the
+        full model (its layer-skip schedule applied). Returns (logits,
+        kv)."""
+        logits, kv, _ = forward(self.arch, self.model.weights, kv, tokens,
+                                pos, layer_sel=self.layer_sel,
+                                all_logits=True)
+        return logits, kv
 
     def _calibrate(self, cosines, threshold: float) -> list[int]:
         """Layer-skip calibration: skip middle-band layers whose cosine is
@@ -247,6 +288,156 @@ class Engine:
             session.ids_in_kv = ids + out_ids[:fed]
         return tok.decode(out_ids), stats
 
+    # --- speculative decoding -------------------------------------------------
+    def generate_speculative(self, prompt: str,
+                             cfg: GenerateConfig | None = None,
+                             callback=None) -> tuple[str, Stats]:
+        """Greedy speculative decoding with the separate draft model."""
+        if self.draft is None:
+            raise ValueError("no draft model loaded")
+        return self._speculate(prompt, cfg, callback, self_spec=False)
+
+    def generate_self_speculative(self, prompt: str,
+                                  cfg: GenerateConfig | None = None,
+                                  callback=None,
+                                  draft_layers: int | None = None
+                                  ) -> tuple[str, Stats]:
+        """Self-speculative: the first `draft_layers` layers of the model
+        (default half) draft."""
+        return self._speculate(prompt, cfg, callback, self_spec=True,
+                               draft_layers=draft_layers or max(
+                                   1, self.arch.n_layers // 2))
+
+    def _speculate(self, prompt: str, cfg, callback, self_spec: bool,
+                   draft_layers: int | None = None) -> tuple[str, Stats]:
+        """The host-driven protocol: K greedy draft steps (a host read
+        each), one verify of [anchor, d0 .. dK-1] at pos, the longest
+        matching prefix accepted and the target's token at the first
+        mismatch (or the bonus token after a full accept) emitted."""
+        cfg = cfg or GenerateConfig()
+        stats = Stats()
+        tok = self.tokenizer
+        ids = self._encode(prompt)
+        K = cfg.draft_k
+        kv = self._make_kv()
+
+        if self_spec:
+            draft_model = None
+            draft_sel = np.arange(draft_layers)
+            draft_kv = None  # the draft layers share the main cache
+        else:
+            draft_model = self.draft
+            draft_sel = None
+            draft_kv = KVCache.create(draft_model.arch,
+                                      device=draft_model.device)
+
+        t0 = time.perf_counter()
+        logits, kv, _ = self._prefill(kv, ids)
+        if not self_spec:
+            _, draft_kv, _ = self._prefill(draft_kv, ids, model=draft_model)
+        anchor = int(torch.argmax(logits[0]))  # waits for the card
+        stats.prefill_tokens = len(ids)
+        stats.prefill_ms = (time.perf_counter() - t0) * 1e3
+
+        out_ids = [anchor]
+        dec = tok.stream_decoder() if callback else None
+        if callback:
+            callback(dec.push(anchor))
+        pos = len(ids)  # the anchor takes position pos in the verify
+        max_new = min(cfg.max_tokens, self.arch.max_seq_len - len(ids) - K - 2)
+
+        t0 = time.perf_counter()
+        while len(out_ids) < max_new and out_ids[-1] not in tok.stop_ids:
+            drafts = []
+            dt = out_ids[-1]
+            for j in range(K):
+                if self_spec:
+                    dl, kv, _ = self._decode_step(kv, dt, pos + j,
+                                                  layer_sel=draft_sel)
+                else:
+                    dl, draft_kv, _ = self._decode_step(
+                        draft_kv, dt, pos + j, model=draft_model)
+                dt = int(torch.argmax(dl[0]))
+                drafts.append(dt)
+            # the verify rewrites positions pos .. pos + K in every layer
+            vt = torch.tensor([out_ids[-1]] + drafts, device=self.device)
+            vlogits, kv = self._verify(kv, vt, pos)
+            targets = torch.argmax(vlogits, dim=-1).cpu().numpy()  # [K+1]
+            n_acc = 0
+            while n_acc < K and targets[n_acc] == drafts[n_acc]:
+                n_acc += 1
+            emitted = drafts[:n_acc] + [int(targets[n_acc])]
+            stats.drafted += K
+            stats.accepted += n_acc
+            if n_acc == K and not self_spec:
+                # full accept: the draft never saw d_{K-1}; write its row
+                # at pos + K so the draft cache stays contiguous
+                _, draft_kv, _ = self._decode_step(
+                    draft_kv, drafts[-1], pos + K, model=draft_model)
+            for t in emitted:
+                out_ids.append(t)
+                if callback:
+                    callback(dec.push(t))
+                if t in tok.stop_ids:
+                    break
+            pos += n_acc + 1
+        if callback:
+            dec.flush_to(callback)
+        stats.decode_tokens = len(out_ids)
+        stats.decode_ms = (time.perf_counter() - t0) * 1e3
+        return tok.decode(out_ids), stats
+
+    def generate_self_speculative_fused(self, prompt: str,
+                                        cfg: GenerateConfig | None = None,
+                                        callback=None,
+                                        draft_layers: int | None = None
+                                        ) -> tuple[str, Stats]:
+        """Greedy self-speculation with one iteration on the card
+        (spec_iter_greedy): one host read per iteration instead of one per
+        drafted token. The output is the greedy generation."""
+        cfg = cfg or GenerateConfig()
+        stats = Stats()
+        tok = self.tokenizer
+        ids = self._encode(prompt)
+        K = cfg.draft_k
+        n_draft = draft_layers or max(1, self.arch.n_layers // 2)
+        kv = self._make_kv()
+
+        t0 = time.perf_counter()
+        logits, kv, _ = self._prefill(kv, ids)
+        anchor = torch.argmax(logits[0])
+        out_ids = [int(anchor)]  # waits for the card
+        dec = tok.stream_decoder() if callback else None
+        if callback:
+            callback(dec.push(out_ids[0]))
+        stats.prefill_tokens = len(ids)
+        stats.prefill_ms = (time.perf_counter() - t0) * 1e3
+
+        pos = len(ids)
+        max_new = min(cfg.max_tokens, self.arch.max_seq_len - len(ids) - K - 2)
+        t0 = time.perf_counter()
+        while len(out_ids) < max_new and out_ids[-1] not in tok.stop_ids:
+            kv, emit, n_acc, anchor = spec_iter_greedy(
+                self.arch, self.model.weights, kv, anchor, pos, K, n_draft)
+            got = torch.cat([emit, n_acc.reshape(1)]).tolist()  # one read
+            en = got[-1] + 1
+            stats.drafted += K
+            stats.accepted += en - 1
+            pos += en
+            for t in got[:en]:
+                if len(out_ids) >= max_new:
+                    break
+                out_ids.append(t)
+                if callback:
+                    callback(dec.push(t))
+                if t in tok.stop_ids:
+                    break
+        if callback:
+            dec.flush_to(callback)
+        stats.decode_tokens = len(out_ids)
+        stats.decode_ms = (time.perf_counter() - t0) * 1e3
+        return tok.decode(out_ids), stats
+
     def benchmark(self, prompt: str = "The capital of France is",
                   n_tokens: int = 64, *,
                   prompt_ids: list[int] | None = None) -> Stats:
@@ -290,6 +481,33 @@ def decode_loop_greedy(engine: Engine, kv: KVCache, token: torch.Tensor,
         token = torch.argmax(logits[0])
         toks.append(token)
     return torch.stack(toks), kv
+
+
+@torch.inference_mode()
+def spec_iter_greedy(arch, weights, kv: KVCache, anchor: torch.Tensor,
+                     pos: int, k: int, n_draft: int):
+    """One fused self-speculative iteration on the card: k greedy draft
+    steps through the first n_draft layers (each argmax kept on the card as
+    the next token), one all-logits verify of [anchor, drafts] at pos
+    through the full stack, and the longest-prefix accept. Returns (kv,
+    emit [k+1], n_acc, new anchor), all on the card; the first n_acc + 1
+    entries of emit are the tokens to emit."""
+    draft_sel = range(n_draft)
+    tok, drafts = anchor, []
+    for i in range(k):
+        logits, kv, _ = forward(arch, weights, kv, tok.reshape(1), pos + i,
+                                layer_sel=draft_sel)
+        tok = torch.argmax(logits[0])
+        drafts.append(tok)
+    drafts = torch.stack(drafts)
+    vt = torch.cat([anchor.reshape(1), drafts])
+    vlogits, kv, _ = forward(arch, weights, kv, vt, pos, all_logits=True)
+    targets = torch.argmax(vlogits, dim=-1)                    # [k+1]
+    match = targets[:k] == drafts
+    n_acc = torch.where(match.all(), k, torch.argmin(match.to(torch.int32)))
+    emit = torch.cat([drafts, targets[-1:]])
+    emit[n_acc] = targets[n_acc]  # the correction or bonus token
+    return kv, emit, n_acc, targets[n_acc]
 
 
 class CPEngine(Engine):
@@ -337,26 +555,52 @@ class CPEngine(Engine):
                 "context parallelism")
 
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
-                       with_cosine=False):
+                       model=None, with_cosine=False):
+        if model is not None:
+            raise ValueError("CPEngine: no draft model under context "
+                             "parallelism")
         self._check_step(with_cosine)
         return forward(self.arch, self.model.weights, kv,
                        torch.from_numpy(padded), off, n_valid=n_valid,
                        cp=self.mesh)
 
-    def _decode_step(self, kv, token, pos: int, with_cosine=False):
+    def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
+                     layer_sel=None):
+        if model is not None or layer_sel is not None:
+            # the JAX CPEngine asserts the same: the CP forward runs the
+            # whole stack of the one model
+            raise ValueError("CPEngine: no draft model or draft layer "
+                             "prefix under context parallelism")
         self._check_step(with_cosine)
         tok = torch.as_tensor(token, device=self.device).reshape(1)
         return forward(self.arch, self.model.weights, kv, tok, pos,
                        cp=self.mesh)
 
+    def _verify(self, kv, tokens, pos: int):
+        self._check_step(False)
+        logits, kv, _ = forward(self.arch, self.model.weights, kv, tokens,
+                                pos, all_logits=True, cp=self.mesh)
+        return logits, kv
+
+    def generate_self_speculative_fused(self, prompt: str, cfg=None,
+                                        callback=None, draft_layers=None):
+        """The fused iteration runs the unsharded forward; under CP this
+        delegates to the host-driven protocol over the CP forward."""
+        return self.generate_self_speculative(prompt, cfg, callback,
+                                              draft_layers)
+
 
 class TieredEngine(Engine):
     """Engine over a TieredModel: per-token layer streaming, layer-skip
-    calibration that drops streamed layers (and their I/O), early exit."""
+    calibration that drops streamed layers (and their I/O), early exit, and
+    speculation: self-speculation drafts on the resident prefix (no
+    streaming I/O), a separate draft model stays resident."""
 
-    def __init__(self, tiered, kv_quant: bool = False):
+    def __init__(self, tiered, kv_quant: bool = False,
+                 draft: LoadedModel | None = None):
         self.tm = tiered
         self.model = None
+        self.draft = draft  # a separate resident draft model
         self.arch = tiered.arch
         self.tokenizer = tiered.tokenizer
         self.device = tiered.device
@@ -366,12 +610,25 @@ class TieredEngine(Engine):
         self.kv_quant = kv_quant  # int8 KV cache (half its device memory)
 
     @classmethod
-    def load(cls, path: str, kv_quant: bool = False, **kw) -> "TieredEngine":
+    def load(cls, path: str, kv_quant: bool = False,
+             draft_path: str | None = None, **kw) -> "TieredEngine":
         """Load `path` tiered (load_model_tiered keywords: device,
-        max_hbm_layers, requant_ram, ...)."""
+        max_hbm_layers, requant_ram, ...). draft_path: a draft model loaded
+        first, resident on the same device; the tiered loader then sizes
+        the resident prefix on what is left, less the draft's bf16 cache."""
         from ..models.tiered import load_model_tiered
-        return cls(load_model_tiered(path, kv_quant=kv_quant, **kw),
-                   kv_quant=kv_quant)
+        draft = None
+        extra = 0
+        if draft_path:
+            draft = load_model(draft_path,
+                               max_seq_len=kw.get("max_seq_len") or None,
+                               device=kw.get("device", "cuda"))
+            da = draft.arch
+            extra = (da.n_layers * da.n_kv_heads * da.max_seq_len
+                     * da.head_dim * 2 * 2)  # the draft's bf16 k and v
+        tm = load_model_tiered(path, reserve_extra_bytes=extra,
+                               kv_quant=kv_quant, **kw)
+        return cls(tm, kv_quant=kv_quant, draft=draft)
 
     def _make_kv(self):
         from ..models.tiered import TieredKV
@@ -379,18 +636,34 @@ class TieredEngine(Engine):
                                device=self.device)
 
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
-                       with_cosine=False):
+                       model=None, with_cosine=False):
         from ..models.tiered import forward_tiered
+        if model is not None:  # the resident draft model's prefill
+            return super()._prefill_chunk(kv, padded, off, n_valid, model,
+                                          with_cosine)
         return forward_tiered(self.tm, kv, torch.from_numpy(padded), off,
                               n_valid=n_valid, with_cosine=with_cosine,
                               skip=self.skip)
 
-    def _decode_step(self, kv, token, pos: int, with_cosine=False):
+    def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
+                     layer_sel=None):
         from ..models.tiered import forward_tiered
+        if model is not None:  # the draft model: resident, no streaming
+            return super()._decode_step(kv, token, pos, model, with_cosine,
+                                        layer_sel)
         tok = torch.as_tensor(token, device=self.device).reshape(1)
+        # any layer_sel (the draft prefix of _speculate) is the resident
+        # prefix alone: no streaming I/O
         return forward_tiered(self.tm, kv, tok, pos, with_cosine=with_cosine,
                               skip=self.skip,
+                              draft_only=layer_sel is not None,
                               early_exit_threshold=self.early_exit_threshold)
+
+    def _verify(self, kv, tokens, pos: int):
+        from ..models.tiered import forward_tiered
+        logits, kv, _ = forward_tiered(self.tm, kv, tokens, pos,
+                                       all_logits=True, skip=self.skip)
+        return logits, kv
 
     def _calibrate(self, cosines, threshold: float) -> list[int]:
         n = self.arch.n_layers
@@ -408,6 +681,20 @@ class TieredEngine(Engine):
             self.early_exit_threshold = cfg.early_exit_threshold
         return super().generate(prompt, cfg, callback,
                                 prompt_ids=prompt_ids, session=session)
+
+    def generate_self_speculative(self, prompt: str, cfg=None,
+                                  callback=None, draft_layers=None):
+        """The resident prefix drafts; draft_layers is implied by it."""
+        return self._speculate(prompt, cfg, callback, self_spec=True,
+                               draft_layers=self.tm.n_resident or 1)
+
+    def generate_self_speculative_fused(self, prompt: str, cfg=None,
+                                        callback=None, draft_layers=None):
+        """The fused iteration needs the whole stack resident; on the
+        tiered path this delegates to the host-driven protocol (draft = the
+        resident prefix, verify = one streamed pass)."""
+        return self.generate_self_speculative(prompt, cfg, callback,
+                                              draft_layers)
 
     def benchmark(self, prompt: str = "The capital of France is",
                   n_tokens: int = 64, *,

@@ -10,7 +10,9 @@ so tests compare distributions, not draws.
 `BatchedSampler` is the serving loop's sampler: per-slot state (parameters,
 repeat windows, one generator per slot) stays on the device and a step
 costs one host read for the whole batch. A slot's random stream is fixed by
-its request: its generator is seeded from (seed, request_id).
+its request: its generator is seeded from (seed, request_id). Its
+`spec_accept` is the accept round of speculative serving: greedy-draft
+rejection sampling (`spec_accept_rows`), one host read a round.
 """
 from __future__ import annotations
 
@@ -143,9 +145,22 @@ def sample_rows(logits: torch.Tensor, u: torch.Tensor, recent: torch.Tensor,
     the static width k_cap), top-p and an inverse-CDF draw at the uniform
     u. logits [B, V]; u, temps, top_ps, penalties, k_limits [B]; recent
     [B, W] padded with vocab_size. Returns [B] int64."""
-    lg = logits.to(torch.float32)
-    b_n = lg.shape[0]
-    seen = torch.zeros(b_n, vocab_size + 1, dtype=torch.bool,
+    idx, probs, gmax = _target_dist(logits, recent, temps, top_ps, penalties,
+                                    k_limits, k_cap, vocab_size)
+    cdf = torch.cumsum(probs, -1)
+    choice = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+    sampled = idx.gather(1, choice.clamp(max=k_cap - 1))[:, 0]
+    return torch.where(temps <= 0.0, gmax, sampled)
+
+
+def _target_dist(lg: torch.Tensor, recent: torch.Tensor, temps, top_ps,
+                 penalties, k_limits, k_cap: int, vocab_size: int):
+    """Each row's sampling distribution as sample_rows builds it: (top-k
+    token ids [B, k_cap], their probabilities with the ranks past the row's
+    top-k and top-p masked to 0 (not renormalised), the penalized argmax
+    [B])."""
+    lg = lg.to(torch.float32)
+    seen = torch.zeros(lg.shape[0], vocab_size + 1, dtype=torch.bool,
                        device=lg.device)
     seen.scatter_(1, recent.clamp(0, vocab_size), True)
     pen = penalties[:, None]
@@ -156,10 +171,64 @@ def sample_rows(logits: torch.Tensor, u: torch.Tensor, recent: torch.Tensor,
     keep = torch.arange(k_cap, device=lg.device)[None] < k_limits[:, None]
     probs = torch.softmax(vals.masked_fill(~keep, float("-inf")), dim=-1)
     keep = keep & ((torch.cumsum(probs, -1) - probs) < top_ps[:, None])
-    cdf = torch.cumsum(probs.masked_fill(~keep, 0.0), -1)
-    choice = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
-    sampled = idx.gather(1, choice.clamp(max=k_cap - 1))[:, 0]
-    return torch.where(temps <= 0.0, torch.argmax(lg, dim=-1), sampled)
+    return idx, probs.masked_fill(~keep, 0.0), torch.argmax(lg, dim=-1)
+
+
+def spec_accept_rows(vlogits: torch.Tensor, drafts: torch.Tensor,
+                     u_acc: torch.Tensor, u_corr: torch.Tensor,
+                     recent: torch.Tensor, n: torch.Tensor,
+                     temps: torch.Tensor, top_ps: torch.Tensor,
+                     penalties: torch.Tensor, k_limits: torch.Tensor,
+                     active: torch.Tensor, k_cap: int, vocab_size: int):
+    """The accept round of speculative serving (the JAX package's
+    _spec_accept_batched): greedy-draft rejection sampling, position by
+    position over the K + 1 verify rows. The draft's distribution is the
+    point mass at its argmax d_j, so d_j is accepted with probability
+    p_j(d_j) (the row's penalized, tempered, top-k / top-p target
+    distribution) at the uniform u_acc[:, j]; on a rejection the correction
+    is drawn from p_j with d_j masked out, by inverse CDF at u_corr[:, j].
+    Row K (the bonus) draws from the full p_K. The repeat-penalty window
+    advances inside the round, so position j + 1 sees position j's token. A
+    greedy row (temperature <= 0) accepts iff its argmax equals d_j, the
+    argmax being the correction.
+
+    vlogits [B, K+1, V]; drafts [B, K]; u_acc, u_corr [B, K+1]; recent
+    [B, W] and n [B] (updated in place). Returns (tokens [B, K+1] with
+    vocab_size past each row's emitted prefix, n_acc [B])."""
+    b_n, k1, _ = vlogits.shape
+    dev = vlogits.device
+    rows = torch.arange(b_n, device=dev)
+    w = recent.shape[1]
+    alive = active.to(torch.bool).clone()
+    n_acc = torch.zeros(b_n, dtype=torch.long, device=dev)
+    drafts = torch.cat([drafts.to(dev, torch.long),
+                        torch.full((b_n, 1), -1, dtype=torch.long,
+                                   device=dev)], dim=1)
+    greedy = temps <= 0.0
+    out = []
+    for j in range(k1):
+        bonus = j == k1 - 1
+        d = drafts[:, j]
+        idx, probs, gmax = _target_dist(vlogits[:, j], recent, temps, top_ps,
+                                        penalties, k_limits, k_cap,
+                                        vocab_size)
+        is_d = idx == d[:, None]
+        p_d = torch.where(is_d, probs, torch.zeros_like(probs)).sum(-1)
+        accept = torch.where(greedy, gmax == d, u_acc[:, j] < p_d)
+        accept = accept & (not bonus)
+        cdf = torch.cumsum(probs.masked_fill(is_d, 0.0), -1)
+        choice = torch.searchsorted(cdf, (u_corr[:, j] * cdf[:, -1])[:, None],
+                                    right=True)
+        corr = idx.gather(1, choice.clamp(max=k_cap - 1))[:, 0]
+        corr = torch.where(greedy, gmax, corr)
+        tok = torch.where(accept, d, corr)
+        out.append(torch.where(alive, tok, torch.full_like(tok, vocab_size)))
+        slot = n % w
+        recent[rows, slot] = torch.where(alive, tok, recent[rows, slot])
+        n += alive.to(n.dtype)
+        n_acc += (alive & accept).to(torch.long)
+        alive = alive & accept  # a rejection or the bonus ends the round
+    return torch.stack(out, dim=1), n_acc
 
 
 class BatchedSampler:
@@ -247,3 +316,26 @@ class BatchedSampler:
         self.recent[rows, self.n % w] = toks
         self.n += 1
         return toks.cpu().numpy()
+
+    def spec_accept(self, vlogits: torch.Tensor, drafts, active):
+        """A speculative accept round (spec_accept_rows) over verify logits
+        [B, K+1, V] and drafts [B, K]; active [B] bool. Every active slot
+        draws from its own generator, in this order: its K+1 accept
+        uniforms, then its K+1 correction uniforms (slots in order). The
+        slots' windows advance by their emitted tokens. Returns host (tokens
+        [B, K+1] with vocab_size past each emitted prefix, n_acc [B]), read
+        in one copy."""
+        dev = self.device
+        k1 = vlogits.shape[1]
+        live = np.asarray(torch.as_tensor(active).cpu(), dtype=bool)
+        act = torch.from_numpy(live).to(dev)
+        u = torch.zeros(self.B, 2, k1, dtype=torch.float32, device=dev)
+        for b in np.flatnonzero(live):
+            u[b, 0] = torch.rand(k1, generator=self.gens[b], device=dev)
+            u[b, 1] = torch.rand(k1, generator=self.gens[b], device=dev)
+        toks, n_acc = spec_accept_rows(
+            vlogits, torch.as_tensor(drafts), u[:, 0], u[:, 1], self.recent,
+            self.n, self.temps, self.top_ps, self.penalties, self.k_limits,
+            act, self.k_cap, self.V)
+        got = torch.cat([toks, n_acc[:, None]], dim=1).cpu().numpy()
+        return got[:, :-1], got[:, -1]

@@ -14,8 +14,14 @@ streaming callbacks (`Request.on_token`) fire as tokens are sampled, and
 fixed list; `serve_forever(inbox, stop)` takes Requests from other threads
 on a queue.Queue. All device work stays on the serving thread.
 
-Speculative serving (spec_k > 0) and the multi-device mesh wait for their
-ROADMAP items and raise.
+Self-speculative serving (spec_k > 0): each loop iteration runs K lock-step
+draft steps through the model's first spec_draft_layers layers, then one
+verify window of [anchor, drafts] per slot; a greedy slot accepts its
+longest argmax-matching prefix and the target's next token, a sampled slot
+takes greedy-draft rejection sampling (BatchedSampler.spec_accept). The
+draft tokens stay on the device; a round reads drafts and targets (or the
+accepted tokens) once. The multi-device mesh waits for ROADMAP queue 1 item
+14 and raises.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..models.batched import BatchedKV, batched_decode_step
+from ..models.batched import (BatchedKV, batched_decode_step,
+                              batched_verify_step)
 from ..models.llama import KVCache, forward
 from ..models.loader import LoadedModel
 from .engine import Engine, _bucket
@@ -83,23 +90,36 @@ class ServeStats:
     requests: int = 0
     tokens: int = 0
     wall_s: float = 0.0
-    steps: int = 0           # batched decode steps
+    steps: int = 0           # full-model batched steps (decode + verify)
     prefill_chunks: int = 0
     prefix_hits: int = 0     # admissions that reused a cached prompt prefix
+    # speculative serving: draft-prefix steps and the slots' drafted and
+    # accepted tokens
+    draft_steps: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     ttft_s: list = field(default_factory=list)  # per-request time to first token
 
     @property
     def tokens_per_s(self) -> float:
         return self.tokens / self.wall_s if self.wall_s else 0.0
 
+    @property
+    def acceptance(self) -> float:
+        return (self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else 0.0)
+
     def report(self) -> str:
         ttft = (f", ttft p50 {np.median(self.ttft_s)*1e3:.0f} ms"
                 if self.ttft_s else "")
         hits = f", {self.prefix_hits} prefix hits" if self.prefix_hits else ""
+        spec = (f", {self.draft_steps} draft steps, "
+                f"{self.acceptance:.0%} accepted"
+                if self.spec_drafted else "")
         return (f"served {self.requests} requests, {self.tokens} tokens in "
                 f"{self.wall_s:.2f}s ({self.tokens_per_s:.2f} tok/s, "
                 f"{self.steps} batched steps, {self.prefill_chunks} prefill "
-                f"chunks{hits}{ttft})")
+                f"chunks{hits}{spec}{ttft})")
 
 
 class _Admission:
@@ -149,21 +169,26 @@ class BatchServer:
     rest (one single-sequence cache of device memory per entry). dot_impl:
     the cache-dot form of the batched flash kernel ("f32", "bf16", "int8",
     "int8_s", "int8_v"; the JAX package takes it from NT_ATTN_DOT, which
-    the port's CLI reads)."""
+    the port's CLI reads). spec_k > 0: self-speculative serving with K
+    draft tokens a round through the first spec_draft_layers layers
+    (default n_layers // 2); greedy output equals spec-off serving's."""
 
     def __init__(self, model: LoadedModel, batch_size: int = 8,
                  sampler_cfg: SamplerConfig | None = None,
                  kv_quant: bool = False, admit_chunk: int | None = None,
                  mesh=None, prefix_cache: int = 0, spec_k: int = 0,
+                 spec_draft_layers: int | None = None,
                  attn_buckets: int = 4, dot_impl: str = "f32"):
         if mesh is not None:
             raise NotImplementedError(
                 "serving over a device mesh is not ported yet (ROADMAP "
                 "queue 1 item 14: the multi-GPU axes)")
-        if spec_k:
-            raise NotImplementedError(
-                "speculative serving (spec_k > 0) is not ported yet "
-                "(ROADMAP queue 1 item 13: speculation)")
+        self.spec_k = spec_k
+        self.spec_draft = (spec_draft_layers if spec_draft_layers is not None
+                           else max(1, model.arch.n_layers // 2))
+        if spec_k and not (1 <= self.spec_draft <= model.arch.n_layers):
+            raise ValueError(
+                f"spec_draft_layers must be in [1, {model.arch.n_layers}]")
         self.model = model
         self.arch = model.arch
         self.weights = model.weights
@@ -186,6 +211,16 @@ class BatchServer:
 
     def _step(self, bkv, tokens, pos, active, s_live=None):
         return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
+                                   active, s_live=s_live,
+                                   dot_impl=self.dot_impl)
+
+    def _draft(self, bkv, tokens, pos, active, s_live=None):
+        return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
+                                   active, n_layers=self.spec_draft,
+                                   s_live=s_live, dot_impl=self.dot_impl)
+
+    def _verify(self, bkv, tokens, pos, active, s_live=None):
+        return batched_verify_step(self.arch, self.weights, bkv, tokens, pos,
                                    active, s_live=s_live,
                                    dot_impl=self.dot_impl)
 
@@ -246,11 +281,12 @@ class BatchServer:
 
     def warmup(self, buckets=None) -> float:
         """Run every program the serving loop dispatches once before the
-        first request: the decode step at full S and at every s_live rung,
-        the slot insert, every prefill shape _Admission.step can produce
-        (the first-chunk bucket ladder up to admit_chunk, the steady chunk
-        and the tail chunk of a context that admit_chunk does not divide)
-        and the sampler. On the card this builds the kernels and warms the
+        first request: the decode step (with spec_k, the draft and verify
+        steps and the sampled accept round too) at full S and at every
+        s_live rung, the slot insert, every prefill shape _Admission.step
+        can produce (the first-chunk bucket ladder up to admit_chunk, the
+        steady chunk and the tail chunk of a context that admit_chunk does
+        not divide) and the sampler. On the card this builds the kernels and warms the
         allocator outside the serve clock. Returns the wall seconds."""
         t0 = time.perf_counter()
         arch = self.arch
@@ -260,6 +296,16 @@ class BatchServer:
         for sl in [None] + self._attn_ladder:
             logits, bkv = self._step(bkv, zeros, zeros, act, sl)
             torch.argmax(logits, dim=-1).cpu()
+            if self.spec_k:
+                dl, bkv = self._draft(bkv, zeros, zeros, act, sl)
+                torch.argmax(dl, dim=-1).cpu()
+                vt = torch.zeros(self.B, self.spec_k + 1, dtype=torch.long,
+                                 device=self.device)
+                vl, bkv = self._verify(bkv, vt, zeros, act, sl)
+                torch.argmax(vl, dim=-1).cpu()
+        if self.spec_k and not self.scfg.greedy:
+            BatchedSampler(self.scfg, arch.vocab_size, self.B,
+                           self.device).spec_accept(vl, vt[:, 1:], act)
         kv = self._make_kv()
         S, chunk = arch.max_seq_len, self.admit_chunk
         if buckets is None:
@@ -453,9 +499,79 @@ class BatchServer:
             # inactive slots' outputs are discarded, so 0 is safe
             pos[slot] = 0
 
+        def advance(b: int, emitted) -> None:
+            """Emit slot b's tokens of this step; retire it on a stop token,
+            its request's limit or the end of the cache."""
+            r = slot_req[b]
+            for nxt in emitted:
+                emit(r, nxt)
+                pos[b] += 1
+                tokens[b] = nxt
+                if (nxt in stop or len(r.output_ids) >= r.max_tokens
+                        or pos[b] + 1 >= self.arch.max_seq_len):
+                    retire(b)
+                    return
+
+        def spec_round():
+            """K lock-step drafts through the layer prefix, then one verify
+            window. Greedy: each slot accepts its longest argmax-matching
+            prefix and the target's token after it, the plain step's
+            output. Sampled: greedy-draft rejection sampling, whose output
+            has the plain step's distribution."""
+            nonlocal bkv
+            K = self.spec_k
+            act = self._vec(active, torch.bool)
+            # one s_live rung for the whole round: the verify window's rows
+            # reach pos + K
+            sl = self._bucket_live(int(pos.max()) + K + 1)
+            pos_dev, tok_dev = self._vec(pos), self._vec(tokens)
+            dtok, drafts = tok_dev, []
+            for j in range(K):
+                dl, bkv = self._draft(bkv, dtok, pos_dev + j, act, sl)
+                dtok = torch.argmax(dl, dim=-1)  # stays on the device
+                drafts.append(dtok)
+            stats.draft_steps += K
+            drafts = torch.stack(drafts, dim=1)                 # [B, K]
+            vt = torch.cat([tok_dev[:, None], drafts], dim=1)
+            vlogits, bkv = self._verify(bkv, vt, pos_dev, act, sl)
+            stats.steps += 1
+            if self.scfg.greedy:
+                got = torch.cat([drafts, torch.argmax(vlogits, dim=-1)],
+                                dim=1).cpu().numpy()  # one read
+                rows = []
+                for b in range(B):
+                    dr, tg = got[b, :K], got[b, K:]
+                    n_acc = 0
+                    while n_acc < K and tg[n_acc] == dr[n_acc]:
+                        n_acc += 1
+                    rows.append(([int(t) for t in dr[:n_acc]]
+                                 + [int(tg[n_acc])], n_acc))
+            else:
+                toks_acc, n_accs = bsampler.spec_accept(vlogits, drafts,
+                                                        active)
+                rows = [([int(t) for t in toks_acc[b]
+                          if t < self.arch.vocab_size], int(n_accs[b]))
+                        for b in range(B)]
+            for b in range(B):
+                if not active[b]:
+                    continue
+                if slot_req[b].cancelled:
+                    retire(b)
+                    continue
+                emitted, n_acc = rows[b]
+                stats.spec_drafted += K
+                stats.spec_accepted += n_acc
+                advance(b, emitted)
+
         while any(active) or pending is not None or not drained():
-            # 1) one lock-step decode step for the active batch
-            if any(active):
+            # 1) one lock-step decode step (or spec round) for the batch
+            if any(active) and self.spec_k and all(
+                    pos[b] + self.spec_k + 1 < self.arch.max_seq_len
+                    for b in range(B) if active[b]):
+                spec_round()
+            elif any(active):
+                # near the end of a slot's cache the verify window has no
+                # room: plain steps decode the rest
                 logits, bkv = self._step(
                     bkv, self._vec(tokens), self._vec(pos),
                     self._vec(active, torch.bool),
@@ -468,17 +584,10 @@ class BatchServer:
                 for b in range(B):
                     if not active[b]:
                         continue
-                    r = slot_req[b]
-                    if r.cancelled:
+                    if slot_req[b].cancelled:
                         retire(b)  # the client went away: free the slot
                         continue
-                    nxt = int(toks_np[b])
-                    emit(r, nxt)
-                    pos[b] += 1
-                    tokens[b] = nxt
-                    if (nxt in stop or len(r.output_ids) >= r.max_tokens
-                            or pos[b] + 1 >= self.arch.max_seq_len):
-                        retire(b)
+                    advance(b, [int(toks_np[b])])
 
             # 2) advance admission by at most one prefill chunk
             if pending is None and free_slot() >= 0:

@@ -6,7 +6,8 @@ are stacked and resident (tier A), unfused as in the JAX tiered loader; the
 rest stream every token from pinned host RAM (tier B) or disk (tier C)
 through the two-slot pipeline of memory/streamer.py, compute overlapping the
 next layer's host -> device copy. The skip schedule drops streamed layers
-(their I/O too), `draft_only` runs the resident prefix alone, and early exit
+(their I/O too), `draft_only` runs the resident prefix alone (the
+self-speculative draft, `TieredModel.n_resident` layers), and early exit
 stops streaming once a late layer's hidden-state cosine (the previous
 layer's, so the check does not stall on the layer just queued) passes the
 threshold.
@@ -71,6 +72,11 @@ class TieredModel:
     tokenizer: Tokenizer | None
     pack: PackReader
     device: torch.device
+
+    @property
+    def n_resident(self) -> int:
+        """Layers resident on the device (the self-speculative draft)."""
+        return self.tiers.n_hbm
 
     def close(self):
         if self.streamer is not None:
@@ -192,7 +198,8 @@ def load_model_tiered(path: str, *, max_seq_len: int | None = None,
                       kv_quant: bool = False,
                       requant_ram: DType | None = None, device="cuda",
                       direct_io: bool = True,
-                      h2d: str = "blob") -> TieredModel:
+                      h2d: str = "blob",
+                      reserve_extra_bytes: int = 0) -> TieredModel:
     """Load a GGUF with HBM / RAM / disk tier assignment (the card by
     default; raises without CUDA unless device="cpu", where the host's
     available memory stands for the device's).
@@ -203,7 +210,10 @@ def load_model_tiered(path: str, *, max_seq_len: int | None = None,
     hbm_bytes / ram_bytes: the budgets (default: the card's free memory and
     the host's available memory); max_hbm_layers / max_ram_layers cap the
     tiers. direct_io: tier-B and tier-C reads bypass the page cache where
-    O_DIRECT allows; h2d: "blob" (one copy per layer) or "planes"."""
+    O_DIRECT allows; h2d: "blob" (one copy per layer) or "planes".
+    reserve_extra_bytes: device memory promised to state the loader does
+    not see, such as a separate draft model's cache (the draft itself loads
+    first and is gone from the free memory already)."""
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
@@ -230,7 +240,7 @@ def load_model_tiered(path: str, *, max_seq_len: int | None = None,
     slot_bytes = 2 * ((layer_bytes + 4095) // 4096 * 4096)
     reserve = (_device_nbytes(embed) + (0 if tied else _device_nbytes(head))
                + kv_cache_bytes(arch, quant=kv_quant) + WORKSPACE_BYTES
-               + slot_bytes)
+               + slot_bytes + reserve_extra_bytes)
     ram_layer_bytes = None
     if requant_ram is not None:
         ram_layer_bytes = requant_layer_meta(pack.layer_meta(0),

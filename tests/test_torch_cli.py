@@ -1,7 +1,8 @@
 """Port CLI on the CPU: resident generation (bf16 and --kv-int8 caches),
---benchmark, --serve and tiered streaming run; every mode the port does not
-run yet exits with 2 and names its ROADMAP item; the refusals the JAX CLI
-makes of the ported modes are the port's too."""
+--benchmark, --serve, tiered streaming and speculation (--self-spec,
+--draft-model, --serve --spec-k) run; every mode the port does not run yet
+exits with 2 and names its ROADMAP item; the refusals the JAX CLI makes of
+the ported modes are the port's too."""
 import os
 import shutil
 
@@ -53,7 +54,6 @@ def test_benchmark_on_cpu(capsys):
 @pytest.mark.parametrize("flags", [
     ["--http", "8080"], ["--chat"],
     ["--tp", "2"], ["--cp", "2", "--tp", "2"], ["--ep", "2"], ["--dp", "2"],
-    ["--self-spec"], ["--draft-model", "d.gguf"], ["--spec-k", "2"],
 ], ids=lambda f: f[0])
 def test_unported_modes_exit_2_naming_the_roadmap(flags, capsys):
     assert cli.main(BASE + flags) == 2
@@ -123,11 +123,77 @@ def test_streaming_refusals_match_jax(flags, says, capsys):
     assert tail(port_err).endswith(tail(jax_err)[-60:])
 
 
-def test_self_spec_stays_refused(capsys):
-    """The JAX CLI streams for --self-spec; the port refuses it until
-    speculation is ported."""
-    assert cli.main(BASE + ["--self-spec"]) == 2
-    assert "item 13" in capsys.readouterr().err
+@pytest.fixture(scope="module")
+def spec_files(tmp_path_factory):
+    """A tiny target, a tiny draft of another seed, and two copies of
+    repolm512 (each tiered run writes its pack beside its model)."""
+    from tools.make_test_gguf import write_model
+    d = tmp_path_factory.mktemp("spec")
+    out = {"tiny": write_model(str(d / "tiny.gguf"), "tiny", "q8_0", seed=3),
+           "draft": write_model(str(d / "draft.gguf"), "tiny", "q8_0",
+                                seed=99)}
+    for who in ("port", "jax"):
+        out[who] = str(d / f"repolm512_{who}.gguf")
+        shutil.copy(MODEL, out[who])
+    return out
+
+
+@pytest.mark.parametrize("mode", ["--self-spec", "--draft-model",
+                                  "--spec-k"])
+def test_speculation_modes_print_the_jax_text(mode, spec_files, tmp_path,
+                                              capsys):
+    """--self-spec (it streams; the resident prefix drafts), --draft-model
+    with --draft-k and --serve --spec-k print the JAX CLI's text, and the
+    report's speculation line."""
+    greedy = ["-n", "8", "-t", "0", "--repeat-penalty", "1.0"]
+    if mode == "--self-spec":
+        port = ["-m", spec_files["port"]]
+        ref = ["-m", spec_files["jax"]]
+        flags = ["--self-spec", "--max-hbm-layers", "3",
+                 "--max-ram-layers", "2", "-p", "def forward(",
+                 "--draft-k", "3"]
+        says = "speculative: "
+    elif mode == "--draft-model":
+        port = ref = ["-m", spec_files["tiny"]]
+        flags = ["--draft-model", spec_files["draft"], "--draft-k", "3",
+                 "-p", "hello world"]
+        says = "speculative: 0/"
+    else:
+        prompts = tmp_path / "prompts.txt"
+        prompts.write_text("def f(x):\nimport numpy\nclass A:\n")
+        port = ref = ["-m", MODEL]
+        flags = ["--serve", str(prompts), "--batch-size", "2", "--spec-k",
+                 "2", "--spec-draft-layers", "3"]
+        says = " draft steps, "
+    assert cli.main(port + greedy + flags + ["--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert jcli.main(ref + greedy + flags) == 0
+    want = capsys.readouterr()
+    assert got.out == want.out and got.out.strip()
+    assert says in got.err and says in want.err
+    if mode == "--self-spec":
+        assert "tiered streaming" in got.err
+
+
+@pytest.mark.parametrize("flags,says", [
+    (["--serve", "p.txt", "--draft-model", "d.gguf"], "do not compose"),
+    (["--serve", "p.txt", "--self-spec"], "do not compose"),
+    (["--draft-model", "d.gguf", "--cp", "2"], "not supported under"),
+    (["--draft-model", "d.gguf", "--tp", "2"], "not supported under"),
+    (["--draft-model", "d.gguf", "--ep", "2"], "not supported under"),
+], ids=["serve-draft", "serve-self-spec", "draft-cp", "draft-tp",
+        "draft-ep"])
+def test_speculation_refusals_match_jax(flags, says, capsys):
+    """The JAX CLI's refusals of the speculation modes: --serve with a draft
+    or self-speculation, and a draft model with --cp/--tp/--ep; the same
+    exit code 2 and message."""
+    assert cli.main(BASE + flags) == 2
+    port_err = capsys.readouterr().err
+    assert jcli.main(["-m", MODEL, "-n", "4"] + flags) == 2
+    jax_err = capsys.readouterr().err
+    assert says in port_err and says in jax_err
+    tail = lambda e: e.strip().splitlines()[-1].split(": ", 1)[-1]
+    assert tail(port_err).endswith(tail(jax_err)[-60:])
 
 
 @pytest.mark.parametrize("dot", ["int8", "int8_s", "int8_v", "bf16"])

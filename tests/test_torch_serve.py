@@ -216,8 +216,6 @@ def test_serve_forever_drains_the_inbox(model):
 
 
 def test_unported_options_raise(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        BatchServer(model, spec_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
         BatchServer(model, mesh=object())
 
