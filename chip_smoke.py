@@ -123,7 +123,24 @@ subset of the rest:
      copy stream's H2D rate and the tier-C read rate beside a pinned-copy
      and an O_DIRECT read probe, a profile's busy shares, and
      TieredEngine.generate_self_speculative (the 8 resident layers draft,
-     16 tokens) held to the tiered greedy tokens by spec_rule.
+     16 tokens) held to the tiered greedy tokens by spec_rule;
+  moe: mixture of experts (python3 chip_smoke.py moe runs it alone): the
+     T = 1 kernels' device-side select at the Mixtral-8x7B expert shapes
+     (Q4_K, Q6_K, Q8_0, Q4_0, Q5_K, W8A8, W4A8 decode on stacked [8, K, N]
+     planes, the index a CUDA int32 tensor): each against its plain twin,
+     bit-equal to the same kernel on the host-int view of the expert, its
+     launches a call by the counter and the profiler with no other kernel,
+     device times beside the host view's; a synthetic Mixtral-8x7B Q4_K_M
+     (this slice's main path: Engine.benchmark and BatchServer with the
+     bench-style steps, their launch counts the kernels line's
+     moe_launches), its 2-layer prefill and decode held to the card's
+     plain path with the routing forced (the kernel path replays the plain
+     path's expert ids and weights, RouteTape), one decode step's
+     moe_ffn calls under set_sync_debug_mode("error"); small MoE GGUFs
+     written with the port's writer (Q8_0, Q4_K_M, qwen3moe) against the
+     CPU as `real`, the Q8_0 one served as `serve`; and a 4-layer Mixtral
+     Q4_K_M GGUF tiered with an LRU smaller than a token's working set and
+     its last layer on disk, bit-equal to the resident model.
 
 The bkernels phase also holds the batched flash kernel's cache-dot forms
 (dot_impl int8, int8_s, int8_v, bf16) against their twins and the f32
@@ -136,6 +153,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -245,7 +263,7 @@ REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
           "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
-          "cpcards", "spec", "tiered")
+          "cpcards", "spec", "tiered", "moe")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -1025,7 +1043,9 @@ def layer_by_layer(torch, engine, ids) -> dict:
     """Each layer of the kernel path against the plain path on the card,
     both fed the plain path's input and cache: the bucketed prefill of
     `ids`, then one decode step. Returns the worst max|d| / max|plain| of a
-    layer's output rows, per phase."""
+    layer's output rows, per phase. In a mixture-of-experts model the
+    kernel path replays the plain path's routing (RouteTape), so every row
+    is held; the rows it would have routed differently are printed."""
     from ntransformer_tpu_torch.inference.engine import _bucket
     from ntransformer_tpu_torch.models import llama
     from ntransformer_tpu_torch.ops import linear
@@ -1045,15 +1065,22 @@ def layer_by_layer(torch, engine, ids) -> dict:
             worst[phase] = 0.0
             for li in range(arch.n_layers):
                 kk, vv = kv.k[li].clone(), kv.v[li].clone()
-                y = llama.layer_step(arch, x, w.layers, kk, vv, pos, cos_t,
-                                     sin_t, n_valid, layer=li)
+                tape = RouteTape()
                 linear.KERNEL_MODE = "off"
                 try:
-                    y0 = llama.layer_step(arch, x, w.layers, kv.k[li],
-                                          kv.v[li], pos, cos_t, sin_t,
-                                          n_valid, layer=li)
+                    with tape.record():
+                        y0 = llama.layer_step(arch, x, w.layers, kv.k[li],
+                                              kv.v[li], pos, cos_t, sin_t,
+                                              n_valid, layer=li)
                 finally:
                     linear.KERNEL_MODE = "auto"
+                with tape.replay():
+                    y = llama.layer_step(arch, x, w.layers, kk, vv, pos,
+                                         cos_t, sin_t, n_valid, layer=li)
+                if arch.n_experts:
+                    print(f"layer {li} {phase}: the kernel path would route "
+                          f"{tape.flips['rows']} of {tape.flips['of']} rows "
+                          f"(padding included) otherwise", flush=True)
                 r = float((y - y0)[:rows].abs().max() / y0[:rows].abs().max())
                 worst[phase] = max(worst[phase], r)
                 x = y0
@@ -1571,7 +1598,8 @@ def batched_on_off(torch, arch, weights,
                    int8_attention_rtol=BATCHED_LOGIT_RTOL["int8"]) -> dict:
     """The batched step on a 2-layer view of the 8B weights, kernels on vs
     off (the plain path writes each layer's rows, then attends the whole
-    cache in plain PyTorch), B = 4 from a random mid-context cache with one
+    cache in plain PyTorch; an MoE model's kernel runs replay the plain
+    run's routing, RouteTape), B = 4 from a random mid-context cache with one
     inactive slot: logits within BATCHED_LOGIT_RTOL, rows no path writes
     bit-equal, layer 0's written rows equal but for rare bf16 flips. With
     an int8 cache the plain path attends a bf16 dequant of the codes where
@@ -1610,8 +1638,9 @@ def batched_on_off(torch, arch, weights,
             else:
                 c.copy_(torch.rand(c.shape, device="cuda", generator=g)
                         * (0.02 if c.dtype == torch.float32 else 1.0))
-        outs = {}
-        runs = {"auto": ("auto", None, base), "off": ("off", None, base)}
+        # the plain run first: an MoE model's kernel runs replay its routing
+        outs, tape = {}, RouteTape()
+        runs = {"off": ("off", None, base), "auto": ("auto", None, base)}
         if quant:
             exact = BatchedKV(base.k.float() * base.ks[..., None],
                               base.v.float() * base.vs[..., None])
@@ -1622,8 +1651,9 @@ def batched_on_off(torch, arch, weights,
                              for t in (src.k, src.v, src.ks, src.vs)))
             linear.KERNEL_MODE = mode
             try:
-                lg, kv = batched_decode_step(arch2, w2, kv, tok, pos, act,
-                                             impl=impl)
+                with (tape.record() if name == "off" else tape.replay()):
+                    lg, kv = batched_decode_step(arch2, w2, kv, tok, pos,
+                                                 act, impl=impl)
                 torch.cuda.synchronize()
             finally:
                 linear.KERNEL_MODE = "auto"
@@ -1686,18 +1716,11 @@ SYNTH_SCALES = {"q4_0": {"d": 0.005}, "q4_k": {"d": 0.000625,
                 "w8a8": {"s": 0.0003}}
 
 
-def build_synth(torch, dtype: str = "q8_0"):
-    """The synthetic Llama-3.1-8B in `dtype` ("q4_k_m" takes the Q4_K_M
-    policy; "w4a8" and "w8a8" are built in the format, as the JAX synth
-    builds them) on the card, with seeded random codes of a realistic spread:
-    (cfg, arch, weights, bytes read per decoded token)."""
-    from ntransformer_tpu_torch.models.synth import model_nbytes, synth_model
+def fill_codes(torch, weights, g) -> None:
+    """Seeded random codes of a realistic spread (SYNTH_SCALES) in every
+    quantized matrix of the synthetic weights; a float router (MoE) gets
+    N(0, 0.02) weights, so tokens route to different experts."""
     from ntransformer_tpu_torch.ops import linear
-    t0 = time.perf_counter()
-    cfg, arch, weights = synth_model("8b", dtype, fuse=True,
-                                     max_seq_len=4096)
-    g = torch.Generator(device="cuda")
-    g.manual_seed(8)
     mats = [weights.embed, weights.lm_head] + [
         v for v in (getattr(weights.layers, f)
                     for f in weights.layers.__dataclass_fields__)
@@ -1715,8 +1738,25 @@ def build_synth(torch, dtype: str = "q8_0"):
                 p.copy_(torch.full_like(p, SYNTH_SCALES[ql.dtype.value][nm],
                                         dtype=torch.float16)
                         .view(torch.int16))
+            elif nm == "w":  # a float matrix: the MoE router
+                p.copy_(torch.randn(p.shape, device="cuda", generator=g)
+                        * 0.02)
             elif p.dtype == torch.float32:  # W4A8 / W8A8 scales and mins
                 p.fill_(SYNTH_SCALES[ql.dtype.value][nm])
+
+
+def build_synth(torch, dtype: str = "q8_0"):
+    """The synthetic Llama-3.1-8B in `dtype` ("q4_k_m" takes the Q4_K_M
+    policy; "w4a8" and "w8a8" are built in the format, as the JAX synth
+    builds them) on the card, with seeded random codes of a realistic spread:
+    (cfg, arch, weights, bytes read per decoded token)."""
+    from ntransformer_tpu_torch.models.synth import model_nbytes, synth_model
+    t0 = time.perf_counter()
+    cfg, arch, weights = synth_model("8b", dtype, fuse=True,
+                                     max_seq_len=4096)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    fill_codes(torch, weights, g)
     torch.cuda.synchronize()
     nbytes = model_nbytes(weights)
     per_token = nbytes - weights.embed.nbytes - (weights.rope_cos.numel()
@@ -1773,23 +1813,19 @@ def full_width_phase(torch, counters, card: str, synth,
                                                logits2, 513)
     del kv
 
-    # kernels on vs off on a 2-layer view of the same weights
-    layers2 = llama.LayerWeights(**{
-        f: (None if v is None else
-            linear.QLinear(v.dtype, v.k, v.n,
-                           {nm: a[:2] for nm, a in v.planes.items()})
-            if isinstance(v, linear.QLinear) else v[:2])
-        for f, v in ((f, getattr(weights.layers, f))
-                     for f in weights.layers.__dataclass_fields__)})
+    # kernels on vs off on a 2-layer view of the same weights; an MoE
+    # model's kernel run replays the plain run's routing (RouteTape)
     arch2 = dataclasses.replace(arch, n_layers=2)
-    w2 = dataclasses.replace(weights, layers=layers2)
-    outs = {}
-    for mode in ("auto", "off"):
+    w2 = layer_view(weights, 2)
+    outs, tape = {}, RouteTape()
+    for mode in ("off", "auto"):
         linear.KERNEL_MODE = mode
         try:
             reset(counters)
             kv2 = llama.KVCache.create(arch2, device="cuda")
-            lg, _, _ = llama.forward(arch2, w2, kv2, ids, 0, all_logits=True)
+            with (tape.record() if mode == "off" else tape.replay()):
+                lg, _, _ = llama.forward(arch2, w2, kv2, ids, 0,
+                                         all_logits=True)
             torch.cuda.synchronize()
             outs[mode] = (lg, read(counters))
         finally:
@@ -1800,11 +1836,14 @@ def full_width_phase(torch, counters, card: str, synth,
           f"2-layer plain run launched kernels: {outs['off'][1]}")
     a, b = outs["auto"][0], outs["off"][0]
     rel = float((a - b).abs().max() / b.abs().max())
+    if arch.n_experts:
+        summary["two_layer_natural_route_flips"] = tape.flips
     print(f"{tag} 2-layer prefill logits, kernels on vs off: "
-          f"max|d|/max|off| = {rel:.3e} (tol {FULL_LOGIT_RTOL})", flush=True)
+          f"max|d|/max|off| = {rel:.3e} (tol {FULL_LOGIT_RTOL}); routing "
+          f"forced, natural flips {tape.flips}", flush=True)
     check(bool(torch.isfinite(a).all()), "8b 2-layer: non-finite logits")
     check(rel <= FULL_LOGIT_RTOL,
-          f"8b 2-layer logits differ by {rel} of their range")
+          f"{tag} 2-layer logits differ by {rel} of their range")
     summary["two_layer_logit_rel_err"] = rel
     return summary, launches
 
@@ -3850,6 +3889,658 @@ def spec_phase(torch, counters, timer, card: str, synth) -> tuple:
     return out, launches
 
 
+# -------------------------------------------------------------------- moe
+# Mixtral-8x7B at its published widths (mistralai/Mixtral-8x7B-v0.1,
+# config.json: hidden 4096, intermediate 14336, 32 layers, 32 / 8 heads,
+# 8 local experts, 2 per token, vocab 32000, rope theta 1e6, rms eps 1e-5);
+# the context is the cell's 4096
+MIXTRAL = dict(name="mixtral8x7b", vocab=32000, hidden=4096, inter=14336,
+               layers=32, heads=32, kv_heads=8, ctx=4096, rope_theta=1e6,
+               norm_eps=1e-5, experts=8, experts_used=2)
+MOE_Q4KM = ("q4_k_matmul", "q6_k_matmul")
+# the select rows: (format, label, K, N) at the Mixtral expert shapes
+SELECT_ROWS = [("q4_k", "gate|up", 4096, 14336),
+               ("q6_k", "down", 14336, 4096),
+               ("q8_0", "gate|up", 4096, 14336),
+               ("q4_0", "gate|up", 4096, 14336),
+               ("q5_k", "gate|up", 4096, 14336),
+               ("w8a8", "gate|up", 4096, 14336),
+               ("w4a8", "gate|up", 4096, 14336),
+               ("w4a8", "down", 14336, 4096)]
+# the small MoE files: (tag, format, arch, hidden, expert FFN, kernels);
+# head dim 64 (the flash kernel takes 64 or 128), so 2 heads at hidden 128
+MOE_FILES = [("moe_q8_0", "q8_0", "llama", 128, 192,
+              ("q8_0_matmul", "flash_attention")),
+             ("moe_q4_k_m", "q4_k_m", "llama", 256, 512,
+              MOE_Q4KM + ("flash_attention",)),
+             ("qwen3moe_q8_0", "q8_0", "qwen3moe", 128, 192,
+              ("q8_0_matmul", "flash_attention"))]
+MOE_TIERED_LAYERS = 4
+MOE_TIERED_ROOM = 10 << 30  # the 4-layer GGUF (~3.8 GB), its pack, slack
+
+
+def select_row(torch, timer, g, fmt: str, label: str, k: int, n: int,
+               n_exp: int = 8, e: int = 5) -> tuple[str, dict]:
+    """One T = 1 product of expert e of stacked [n_exp, K, N] planes with the
+    index as a CUDA int32 tensor (the device-side select), against its plain
+    twin (the same index), the same kernel on the host-int view of the
+    expert (bit-equal), launches a call by the counter and the profiler with
+    no other kernel, device ms against the bytes bound and the host-int
+    view's, and torch.matmul on the pre-dequantized bf16 expert. Returns
+    (kernel name, row)."""
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.core.w4a8 import UNIT
+    from ntransformer_tpu_torch.ops.cuda import matmul as cm
+    from ntransformer_tpu_torch.ops.cuda import nibble_matmul as cn
+    from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
+    from ntransformer_tpu_torch.ops.cuda import w8a8 as cw8
+    from ntransformer_tpu_torch.ops.dequant_torch import dequant_planes_torch
+    dt = DType(fmt)
+    if fmt == "q8_0":
+        planes = {"qs": torch.randint(-127, 128, (n_exp, k, n),
+                                      dtype=torch.int8, device="cuda",
+                                      generator=g),
+                  "d": (torch.rand((n_exp, k // 32, n), device="cuda",
+                                   generator=g) * 0.01 + 1e-3)
+                  .to(torch.float16).view(torch.int16)}
+
+        def fn(x, p, s=None):
+            return cm.quant_matmul_cuda(x, p["qs"], p["d"], s)
+
+        def plain(x, p, s):
+            return cm.quant_matmul_plain(x, p["qs"], p["d"], s)
+        counter, marks, expect, rtol = cm, ("skinny_kernel",), 1, MATMUL_RTOL
+    elif fmt == "w8a8":
+        planes = random_wplanes(torch, g, dt, k, n, lead=n_exp)
+
+        def fn(x, p, s=None):
+            return cw8.w8a8_matmul_cuda(x, p["q"], p["s"], s)
+
+        def plain(x, p, s):
+            return cw8.w8a8_matmul_plain(x, p["q"], p["s"], s)
+        counter, marks, expect, rtol = (cw8, ("quant_kernel", "skinny_kernel"),
+                                        2, 0.0)
+    elif fmt == "w4a8":
+        planes = random_wplanes(torch, g, dt, k, n, lead=n_exp)
+
+        def fn(x, p, s=None):
+            return cw4.w4a8_decode_cuda(x, p, s)
+
+        def plain(x, p, s):
+            return cw4.w4a8_decode_plain(x, p, s)
+        split = cw4.pair_plan(k) < k // UNIT
+        counter, marks, expect, rtol = (cw4, ("w4_decode_kernel",
+                                              "w4_pairs_kernel"),
+                                        2 if split else 1, W4A8_DECODE_RTOL)
+    else:
+        stack = [random_planes(torch, g, dt, k, n) for _ in range(n_exp)]
+        planes = {nm: torch.stack([p[nm] for p in stack]) for nm in stack[0]}
+        del stack
+
+        def fn(x, p, s=None):
+            return cn.nibble_matmul_cuda(x, p, dt, s)
+
+        def plain(x, p, s):
+            return cn.nibble_matmul_plain(x, p, dt, s)
+        counter, marks, expect, rtol = (cn.KERNELS[dt], ("skinny_kernel",),
+                                        1, MATMUL_RTOL)
+    name = counter.NAME if hasattr(counter, "NAME") else counter.name
+    tag = f"{name} select {label} T=1"
+    x = skewed_x(torch, g, 1, k)
+    sel = torch.tensor([e], dtype=torch.int32, device="cuda")
+    one = {nm: a[e] for nm, a in planes.items()}
+    before = counter.launches
+    y = fn(x, planes, sel)
+    per_call = counter.launches - before
+    y_host = fn(x, one)
+    y0 = plain(x, planes, sel)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+    check(torch.equal(y, y_host), f"{tag}: the select differs from the "
+          "same kernel on the host-int view of the expert")
+    err = float((y - y0).abs().max())
+    tol = rtol * float(y0.abs().max())
+    check(err <= tol, f"{tag}: max|kernel-plain| {err} > {tol}")
+    check(per_call == expect, f"{tag}: {per_call} launches a call; want "
+          f"{expect}")
+    w = dequant_planes_torch(one, dt, k, n, out_dtype=torch.bfloat16)
+    ms = timer.compare({"kernel": lambda: fn(x, planes, sel),
+                        "host": lambda: fn(x, one),
+                        "plain": lambda: plain(x, planes, sel),
+                        "library": lambda: torch.matmul(x, w)})
+    pbytes = sum(a.numel() * a.element_size() for a in one.values())
+    peak = INT8_OPS if fmt in ("w8a8", "w4a8") else BF16_FLOPS
+    b_ms, b_by = bound(pbytes + k * 2 + n * 4 + 4, 2.0 * k * n, peak)
+    prof = profile_calls(torch, lambda: fn(x, planes, sel))
+    prof_host = profile_calls(torch, lambda: fn(x, one))
+    n_prof = sum(v["per_call"] for v in prof.values())
+    check(n_prof == per_call, f"{tag}: the profiler saw {prof}, the counter "
+          f"{per_call} launches a call")
+    check(all(any(m in kn for m in marks) for kn in prof),
+          f"{tag}: the wrapper launched other kernels: {prof}")
+    row = {"shape": f"mixtral {label} select T=1", "T": 1, "K": k, "N": n,
+           "experts": n_exp, "expert": e, "plane_bytes": pbytes,
+           "max_abs_err": err, "tol": tol, "bit_equal_host_view": True,
+           "ms": ms["kernel"], "host_view_ms": ms["host"],
+           "plain_ms": ms["plain"], "library_ms": ms["library"],
+           "bound_ms": b_ms, "bound_by": b_by,
+           "launches_per_call": per_call, "kernels_per_call": n_prof,
+           "device_ms": sum(v["ms"] for v in prof.values()),
+           "host_view_device_ms": sum(v["ms"] for v in prof_host.values())}
+    print(json.dumps({tag: row}), flush=True)
+    del planes, one, w, x
+    torch.cuda.empty_cache()
+    return name, row
+
+
+def build_mixtral(torch):
+    """The synthetic Mixtral-8x7B in Q4_K_M (gate/up experts and attention
+    Q4_K, down experts and the head Q6_K, a bf16 router) on the card, with
+    seeded random codes (fill_codes): (cfg, arch, weights, bytes a B = 1
+    decode token reads: everything but the embedding table and the rope
+    tables, the experts at k of E)."""
+    from ntransformer_tpu_torch.models.synth import model_nbytes, synth_model
+    t0 = time.perf_counter()
+    cfg, arch, weights = synth_model(MIXTRAL, "q4_k_m", fuse=True,
+                                     max_seq_len=4096)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    fill_codes(torch, weights, g)
+    torch.cuda.synchronize()
+    lw = weights.layers
+    nbytes = model_nbytes(weights)
+    experts = sum(q.nbytes for q in (lw.w_gate_exps, lw.w_up_exps,
+                                     lw.w_down_exps))
+    per_token = (nbytes - weights.embed.nbytes
+                 - (weights.rope_cos.numel() + weights.rope_sin.numel()) * 4
+                 - experts + experts * arch.n_experts_used // arch.n_experts)
+    print(f"mixtral q4_k_m synth: {nbytes / 1e9:.3f} GB of planes (experts "
+          f"{experts / 1e9:.3f} GB), {per_token / 1e9:.3f} GB read per "
+          f"B = 1 decode token, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return cfg, arch, weights, per_token
+
+
+class RouteTape:
+    """Forced routing for a kernels-on/off comparison of an MoE model: under
+    `record()` every models/llama.route call (the router's weights and
+    expert ids) of the plain path's run is kept; under `replay()` a kernel
+    path's run gets them back in the same order, so both paths run the same
+    experts with the same weights and every row is held. A replaying run
+    still routes for itself, and the rows it would have routed differently
+    (a router near-tie, discontinuous in the logits) are counted for
+    information (`flips`). On a dense model route is never called."""
+
+    def __init__(self):
+        self.calls = []
+        self.flips = {"rows": 0, "of": 0}
+
+    @contextlib.contextmanager
+    def _patched(self, replay: bool):
+        from ntransformer_tpu_torch.models import llama
+        orig, tape = llama.route, iter(list(self.calls))
+        if not replay:
+            self.calls = []
+
+        def route(arch, hf, router, layer=None):
+            topv, tope = orig(arch, hf, router, layer)
+            if not replay:
+                self.calls.append((topv.clone(), tope.clone()))
+                return topv, tope
+            kept = next(tape, None)
+            check(kept is not None and kept[1].shape == tope.shape,
+                  "route replay: the run routed more or other rows than "
+                  "the recorded one")
+            own, rec = tope.sort(-1).values, kept[1].sort(-1).values
+            self.flips["rows"] += int((own != rec).any(-1).sum())
+            self.flips["of"] += tope.shape[0]
+            return kept
+        llama.route = route
+        try:
+            yield self
+        finally:
+            llama.route = orig
+        if replay:
+            check(next(tape, None) is None, "route replay: the run routed "
+                  "fewer rows than the recorded one")
+
+    def record(self):
+        return self._patched(False)
+
+    def replay(self):
+        return self._patched(True)
+
+
+def layer_view(weights, n: int = 2):
+    """The first n layers of stacked weights (free views)."""
+    import dataclasses
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.ops import linear
+    layers2 = llama.LayerWeights(**{
+        f: (None if v is None else
+            linear.QLinear(v.dtype, v.k, v.n,
+                           {nm: a[:n] for nm, a in v.planes.items()})
+            if isinstance(v, linear.QLinear) else v[:n])
+        for f, v in ((f, getattr(weights.layers, f))
+                     for f in weights.layers.__dataclass_fields__)})
+    return dataclasses.replace(weights, layers=layers2)
+
+
+def moe_decode_on_off(torch, counters, synth, steps: int = 8) -> dict:
+    """Decode steps (T = 1: the routed experts through the select) on a
+    2-layer view of the Mixtral weights, kernels on vs off, each path from
+    its own 64-token prefill, teacher-forced on fixed tokens, the kernel
+    path replaying the plain path's routing (RouteTape): every step's
+    logits within FULL_LOGIT_RTOL; the select launches only on the kernel
+    side."""
+    import dataclasses
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.ops import linear
+    _, arch, weights, _ = synth
+    arch2 = dataclasses.replace(arch, n_layers=2)
+    w2 = layer_view(weights, 2)
+    gen = torch.Generator().manual_seed(12)
+    ids = torch.randint(3, arch.vocab_size, (64,), generator=gen).tolist()
+    forced = torch.randint(3, arch.vocab_size, (steps,),
+                           generator=gen).tolist()
+    outs, tape = {}, RouteTape()
+    for mode in ("off", "auto"):
+        linear.KERNEL_MODE = mode
+        try:
+            kv = llama.KVCache.create(arch2, device="cuda")
+            with (tape.record() if mode == "off" else tape.replay()):
+                llama.forward(arch2, w2, kv, ids, 0)
+                reset(counters)
+                lgs = [llama.forward(arch2, w2, kv, [t], 64 + i)[0]
+                       for i, t in enumerate(forced)]
+            torch.cuda.synchronize()
+            outs[mode] = (lgs, read(counters))
+        finally:
+            linear.KERNEL_MODE = "auto"
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(outs["auto"][0], outs["off"][0])]
+    print(f"mixtral 2-layer decode (select), kernels on vs off, routing "
+          f"forced, teacher-forced max|d|/max|off| per step: "
+          f"{[round(r, 5) for r in rels]} (tol {FULL_LOGIT_RTOL}); natural "
+          f"flips {tape.flips}; launches {outs['auto'][1]}", flush=True)
+    check(all(bool(torch.isfinite(a).all()) for a in outs["auto"][0]),
+          "mixtral 2-layer decode: non-finite logits")
+    check(max(rels) <= FULL_LOGIT_RTOL,
+          f"mixtral 2-layer decode logits differ by {max(rels)}")
+    check(all(outs["auto"][1][k] > 0 for k in MOE_Q4KM),
+          f"mixtral 2-layer decode launched {outs['auto'][1]}")
+    check(not any(outs["off"][1].values()),
+          f"mixtral 2-layer plain decode launched {outs['off'][1]}")
+    return {"logit_rel_err_steps": rels, "natural_route_flips": tape.flips,
+            "launches": outs["auto"][1]}
+
+
+def moe_sync_check(torch, synth) -> dict:
+    """One resident decode step of the full model with each moe_ffn call run
+    under torch.cuda.set_sync_debug_mode("error"): the routed experts'
+    index and weight stay on the card (a host read would raise)."""
+    from ntransformer_tpu_torch.models import llama
+    _, arch, weights, _ = synth
+    kv = llama.KVCache.create(arch, device="cuda")
+    llama.forward(arch, weights, kv, list(range(3, 19)), 0)
+    torch.cuda.synchronize()
+    orig, calls = llama.moe_ffn, []
+
+    def guarded(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(a[1].shape[0])
+        return out
+    llama.moe_ffn = guarded
+    try:
+        lg = llama.forward(arch, weights, kv, [7], 16)[0]
+    finally:
+        llama.moe_ffn = orig
+    torch.cuda.synchronize()
+    check(len(calls) == arch.n_layers and set(calls) == {1},
+          f"mixtral sync check: moe_ffn ran {calls}")
+    check(bool(torch.isfinite(lg).all()), "mixtral sync check: non-finite")
+    print(f"mixtral decode step: {len(calls)} moe_ffn calls (T = 1) under "
+          f"set_sync_debug_mode('error'), no host read", flush=True)
+    return {"moe_ffn_calls": len(calls), "sync_free": True}
+
+
+def write_moe_gguf(path: str, fmt: str, arch: str, hidden: int, inter: int,
+                   seed: int = 0) -> None:
+    """A small MoE GGUF of random weights (N(0, 0.02), quantized with the
+    port's quantizer; the f32 router unquantized, as llama.cpp keeps it)
+    with the port's own writer: the moe preset's 3 layers, 4 experts, 2 a
+    token, at `hidden` / `inter`, with heads of 64 (hidden / 64 heads, half
+    as many kv heads), and repolm512's byte tokenizer, so the smoke prompt
+    is 70+ tokens. qwen3moe adds random q/k norms."""
+    import numpy as np
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.core.gguf import GGUFReader, GGUFWriter
+    from ntransformer_tpu_torch.core.quant import quantize
+    from ntransformer_tpu_torch.models.presets import q4_k_m_policy
+    layers, n_exp, used, hd = 3, 4, 2, 64
+    heads = hidden // hd
+    kv_heads = heads // 2
+    r = GGUFReader(REPOLM)
+    vocab = int(r.metadata["llama.vocab_size"])
+    w = GGUFWriter(path)
+    md = {"general.architecture": arch, "general.name": f"synthetic-{arch}",
+          "ntransformer.rope_style": "half", f"{arch}.vocab_size": vocab,
+          f"{arch}.embedding_length": hidden,
+          f"{arch}.feed_forward_length": inter,
+          f"{arch}.block_count": layers,
+          f"{arch}.attention.head_count": heads,
+          f"{arch}.attention.head_count_kv": kv_heads,
+          f"{arch}.attention.layer_norm_rms_epsilon": 1e-5,
+          f"{arch}.rope.freq_base": 10000.0, f"{arch}.context_length": 512,
+          f"{arch}.expert_count": n_exp, f"{arch}.expert_used_count": used,
+          f"{arch}.expert_feed_forward_length": inter}
+    for key, value in md.items():
+        w.add_meta(key, value)
+    for key, value in r.metadata.items():
+        if key.startswith("tokenizer."):
+            w.add_meta(key, value)
+    r.close()
+    rng = np.random.default_rng(seed)
+
+    def policy(name):
+        return q4_k_m_policy(name) if fmt == "q4_k_m" else DType(fmt)
+
+    def rand(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    def mat(name, rows, cols):
+        dt = policy(name)
+        w.add_tensor(name, raw=quantize(rand(rows, cols), dt),
+                     shape=(rows, cols), dtype=dt)
+
+    def experts(name, rows, cols):
+        dt = policy(name)
+        x = rand(n_exp, rows, cols)
+        w.add_tensor(name, raw=b"".join(bytes(quantize(x[i], dt))
+                                        for i in range(n_exp)),
+                     shape=(n_exp, rows, cols), dtype=dt)
+
+    ones = np.ones(hidden, np.float32)
+    mat("token_embd.weight", vocab, hidden)
+    for i in range(layers):
+        pre = f"blk.{i}."
+        w.add_tensor(pre + "attn_norm.weight", ones)
+        mat(pre + "attn_q.weight", hidden, hidden)
+        mat(pre + "attn_k.weight", kv_heads * hd, hidden)
+        mat(pre + "attn_v.weight", kv_heads * hd, hidden)
+        if arch == "qwen3moe":
+            for nm in ("attn_q_norm", "attn_k_norm"):
+                w.add_tensor(pre + nm + ".weight",
+                             (1 + rng.standard_normal(hd) * 0.1)
+                             .astype(np.float32))
+        mat(pre + "attn_output.weight", hidden, hidden)
+        w.add_tensor(pre + "ffn_norm.weight", ones)
+        w.add_tensor(pre + "ffn_gate_inp.weight", rand(n_exp, hidden) * 10)
+        experts(pre + "ffn_gate_exps.weight", inter, hidden)
+        experts(pre + "ffn_up_exps.weight", inter, hidden)
+        experts(pre + "ffn_down_exps.weight", hidden, inter)
+    w.add_tensor("output_norm.weight", ones)
+    mat("output.weight", vocab, hidden)
+    w.write()
+
+
+def moe_real_phase(torch, counters, card: str, tmp: str) -> dict:
+    """The small MoE files (MOE_FILES) through the CLI and Engine on the card
+    against the CPU, as the real phase holds repolm512 (greedy tokens,
+    teacher-forced logits within max(1e-2, 2 r), layer by layer); the Q8_0
+    file also served at B = 4 as the serve phase serves repolm512."""
+    out = {}
+    for tag, fmt, arch, hidden, inter, kernels in MOE_FILES:
+        path = os.path.join(tmp, f"{tag}.gguf")
+        write_moe_gguf(path, fmt, arch, hidden, inter, seed=len(out))
+        out[tag] = real_model_phase(torch, counters, card, path, kernels)
+    out["serve_moe_q8_0"] = real_serve_phase(
+        torch, counters, card, os.path.join(tmp, "moe_q8_0.gguf"),
+        SERVE_KERNELS)
+    return out
+
+
+def write_mixtral_q4km(path: str, n_layers: int) -> None:
+    """A Mixtral-8x7B-shaped GGUF in Q4_K_M of random valid blocks, as
+    write_q4km_8b writes the 8B (expert gate/up and attention Q4_K, expert
+    down, the embedding and the head Q6_K), with an f32 N(0, 0.02) router,
+    cut to n_layers."""
+    import numpy as np
+    from ntransformer_tpu_torch.core.dequant import pack_kquant_scales
+    from ntransformer_tpu_torch.core.dtypes import DType, GGUFValueType
+    from ntransformer_tpu_torch.core.gguf import GGUFWriter
+    from ntransformer_tpu_torch.models.presets import q4_k_m_policy
+    p = MIXTRAL
+    hidden, inter, vocab = p["hidden"], p["inter"], p["vocab"]
+    n_exp, kv_dim = p["experts"], p["kv_heads"] * 128
+    rng = np.random.default_rng(89)
+    eight = np.full((1, 8), 8, np.uint8)
+    q4k_scales = pack_kquant_scales(eight, eight).reshape(-1)
+    f16 = lambda x: np.frombuffer(np.float16(x).tobytes(), np.uint8)
+    q4k, q6k = SYNTH_SCALES["q4_k"], SYNTH_SCALES["q6_k"]
+
+    def blocks(rows: int, cols: int, dt) -> bytes:
+        nb = rows * cols // 256
+        if dt == DType.Q4_K:
+            b = rng.integers(0, 256, (nb, 144), dtype=np.uint8)
+            b[:, 0:2] = f16(q4k["d"])
+            b[:, 2:4] = f16(q4k["dmin"])
+            b[:, 4:16] = q4k_scales
+        else:
+            b = rng.integers(0, 256, (nb, 210), dtype=np.uint8)
+            b[:, 192:208] = 8
+            b[:, 208:210] = f16(q6k["d"])
+        return b.tobytes()
+
+    w = GGUFWriter(path)
+    md = {"general.architecture": "llama", "general.name": "synthetic-mixtral",
+          "llama.vocab_size": vocab, "llama.embedding_length": hidden,
+          "llama.feed_forward_length": inter, "llama.block_count": n_layers,
+          "llama.attention.head_count": p["heads"],
+          "llama.attention.head_count_kv": p["kv_heads"],
+          "llama.attention.layer_norm_rms_epsilon": p["norm_eps"],
+          "llama.rope.freq_base": p["rope_theta"],
+          "llama.context_length": 32768, "llama.expert_count": n_exp,
+          "llama.expert_used_count": p["experts_used"],
+          "llama.expert_feed_forward_length": inter,
+          "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2}
+    for k, v in md.items():
+        w.add_meta(k, v)
+    w.add_meta("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(vocab)],
+               vtype=GGUFValueType.ARRAY, elem_type=GGUFValueType.STRING)
+
+    def mat(name, rows, cols, lead=()):
+        dt = q4_k_m_policy(name)
+        n = int(np.prod(lead)) if lead else 1
+        w.add_tensor(name, raw=blocks(n * rows, cols, dt),
+                     shape=tuple(lead) + (rows, cols), dtype=dt)
+
+    ones = np.ones(hidden, np.float32)
+    mat("token_embd.weight", vocab, hidden)
+    for i in range(n_layers):
+        pre = f"blk.{i}."
+        w.add_tensor(pre + "attn_norm.weight", ones)
+        mat(pre + "attn_q.weight", hidden, hidden)
+        mat(pre + "attn_k.weight", kv_dim, hidden)
+        mat(pre + "attn_v.weight", kv_dim, hidden)
+        mat(pre + "attn_output.weight", hidden, hidden)
+        w.add_tensor(pre + "ffn_norm.weight", ones)
+        w.add_tensor(pre + "ffn_gate_inp.weight",
+                     (rng.standard_normal((n_exp, hidden)) * 0.02)
+                     .astype(np.float32))
+        mat(pre + "ffn_gate_exps.weight", inter, hidden, (n_exp,))
+        mat(pre + "ffn_up_exps.weight", inter, hidden, (n_exp,))
+        mat(pre + "ffn_down_exps.weight", hidden, inter, (n_exp,))
+    w.add_tensor("output_norm.weight", ones)
+    mat("output.weight", vocab, hidden)
+    w.write()
+
+
+def moe_tiered_phase(torch, counters, card: str) -> dict:
+    """Tiered MoE at the Mixtral widths, cut to MOE_TIERED_LAYERS layers: a
+    Q4_K_M GGUF of random valid blocks written to a temp directory, streamed
+    with an LRU of 6 expert sets (a token's working set is 8) and the last
+    layer's experts read from the pack on disk, against the resident model
+    of the same file (the GGUF loader's, unfused): a 128-token prefill and
+    16 greedy tokens, the tokens identical and the logits bit-equal (the
+    select kernels equal the kernels on one expert's planes); ms a token,
+    expert bytes a token, the hit rate, evictions, and the copy stream's
+    rate beside a pinned-copy probe."""
+    import shutil
+    import tempfile
+    from ntransformer_tpu_torch.core.gguf import GGUFReader
+    from ntransformer_tpu_torch.memory.pack import ensure_pack
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.models.tiered_moe import (
+        forward_tiered_moe, load_model_tiered_moe)
+    base = next((d for d in (tempfile.gettempdir(), HERE)
+                 if shutil.disk_usage(d).free >= MOE_TIERED_ROOM), None)
+    check(base is not None, f"tiered moe: no directory with "
+          f"{MOE_TIERED_ROOM >> 30} GiB free")
+    n_layers = MOE_TIERED_LAYERS
+    out = {"card": card, "layers": n_layers,
+           "tier_c_filesystem": filesystem_of(base)}
+    with tempfile.TemporaryDirectory(dir=base) as tmp:
+        path = os.path.join(tmp, "mixtral_q4_k_m.gguf")
+        t0 = time.perf_counter()
+        write_mixtral_q4km(path, n_layers)
+        out["gguf_bytes"] = os.path.getsize(path)
+        out["gguf_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pack = ensure_pack(GGUFReader(path), path)
+        out["pack_write_s"] = time.perf_counter() - t0
+        ram = sum(pack.layer_nbytes(i) for i in range(n_layers - 1))
+        slots = 6
+        t0 = time.perf_counter()
+        tm = load_model_tiered_moe(path, max_seq_len=1024,
+                                   hbm_expert_slots=slots, ram_bytes=ram)
+        out["tiered_load_s"] = time.perf_counter() - t0
+        est = tm.estreamer
+        check(len(est.ram_blobs) == n_layers - 1 and est.stages,
+              f"tiered moe: {len(est.ram_blobs)} RAM layers, "
+              f"{len(est.stages)} staging buffers")
+        t0 = time.perf_counter()
+        res = load_model(path, max_seq_len=1024, device="cuda", fuse=False)
+        out["resident_load_s"] = time.perf_counter() - t0
+        arch = tm.arch
+        ids = torch.randint(3, arch.vocab_size, (128,),
+                            generator=torch.Generator().manual_seed(4))
+        kv_r = llama.KVCache.create(arch, device="cuda")
+        kv_t = llama.KVCache.create(arch, device="cuda")
+
+        def step_r(tokens, pos):
+            return llama.forward(arch, res.weights, kv_r, tokens, pos)[0]
+
+        def step_t(tokens, pos):
+            return forward_tiered_moe(tm, kv_t, tokens, pos)[0]
+        reset(counters)
+        toks_r, lg_r = greedy_ids(torch, step_r, ids.cuda(), 16)
+        est.reset_stats()
+        est.timed = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks_t, lg_t = greedy_ids(torch, step_t, ids.cuda(), 16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = est.stats()
+        copy_s = est.copy_seconds()
+        est.timed = False
+        launches = read(counters)
+        check(torch.equal(toks_r, toks_t),
+              f"tiered moe tokens {toks_t.tolist()} != resident "
+              f"{toks_r.tolist()}")
+        equal = [bool(torch.equal(a, b)) for a, b in zip(lg_t, lg_r)]
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(lg_t, lg_r))
+        check(all(equal), f"tiered moe logits not bit-equal to the resident "
+              f"model's: {equal}, max rel {rel}")
+        check(st["evictions"] > 0 and st["disk_bytes"] > 0,
+              f"tiered moe: evictions and disk reads not both exercised: "
+              f"{st}")
+        check(all(launches[k] > 0 for k in MOE_Q4KM + ("flash_attention",)),
+              f"tiered moe launched {launches}")
+        # decode alone: 16 more greedy tokens from each cache with no host
+        # read between tokens (a token's prefetch is queued while the last
+        # token's expert kernels may still run), the streamed logits held
+        # bit for bit to the resident ones after the timed loop
+        def decode(step):
+            nxt, out = toks_t[-1].reshape(1).cuda(), []
+            for i in range(16):
+                out.append(step(nxt, 128 + 16 + i)[-1])
+                nxt = torch.argmax(out[-1]).reshape(1)
+            return out
+        dec_r = decode(step_r)
+        est.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec_t = decode(step_t)
+        torch.cuda.synchronize()
+        dec = est.stats()
+        ms_tok = (time.perf_counter() - t0) * 1e3 / 16
+        check(all(torch.equal(a, b) for a, b in zip(dec_t, dec_r)),
+              "tiered moe decode without host reads between tokens: logits "
+              "not bit-equal to the resident model's")
+        check(dec["evictions"] > 0, f"tiered moe decode: no eviction {dec}")
+        out.update({
+            "hbm_expert_slots": slots, "ram_layers": n_layers - 1,
+            "disk_layers": 1, "tokens_equal": True,
+            "logits_bit_equal": True, "decode_logits_bit_equal": True,
+            "greedy_run_s": wall,
+            "greedy_run_stats": st,
+            "copy_GB_s": st["h2d_bytes"] / copy_s / 1e9 if copy_s else None,
+            "decode_ms_per_token": ms_tok,
+            "decode_hit_rate": dec["hit_rate"],
+            "decode_expert_bytes_per_token": dec["h2d_bytes"] / 16,
+            "decode_disk_bytes_per_token": dec["disk_bytes"] / 16,
+            "decode_stats": dec, "h2d_probe_GB_s": h2d_probe(torch),
+            "launches": launches})
+        print(json.dumps({"tiered_mixtral_q4_k_m": out}), flush=True)
+        tm.close()
+        del res, tm
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, counters, timer, card: str) -> tuple[dict, dict]:
+    """Phase moe: the select rows, the synthetic Mixtral-8x7B (this slice's
+    main path: Engine.benchmark and BatchServer with the bench-style steps;
+    their launch counts are the kernels line's moe_launches), its decode
+    held to the plain path and free of host reads, the small MoE files
+    against the CPU, and tiered MoE at Mixtral widths. Returns (the select
+    rows by kernel, launches)."""
+    import tempfile
+    g = torch.Generator(device="cuda")
+    g.manual_seed(41)
+    rows = {}
+    for fmt, label, k, n in SELECT_ROWS:
+        name, row = select_row(torch, timer, g, fmt, label, k, n)
+        rows.setdefault(name, []).append(row)
+    synth = build_mixtral(torch)
+    kernels = MOE_Q4KM + ("flash_attention",)
+    summary, engine = full_width_phase(torch, counters, card, synth, kernels)
+    serve, served = full_batched_phase(torch, counters, card, synth,
+                                       kernels + ("batched_attention",
+                                                  "kv_update"))
+    print(json.dumps({"full_width_mixtral_serving": serve}), flush=True)
+    on_off = moe_decode_on_off(torch, counters, synth)
+    sync = moe_sync_check(torch, synth)
+    print(json.dumps({"mixtral_q4_k_m": {
+        "engine": summary, "decode_on_off": on_off, "sync": sync}}),
+        flush=True)
+    del synth
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        moe_real_phase(torch, counters, card, tmp)
+    moe_tiered_phase(torch, counters, card)
+    launches = {k: engine.get(k, 0) + served.get(k, 0) for k in counters}
+    return rows, launches
+
+
 # ------------------------------------------------------------------- main
 class DotCounter:
     """The launch count of one cache-dot form of batched flash, read and
@@ -4020,6 +4711,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             tiered_repolm_phase(torch, counters, card, tmp)
         tiered_8b_phase(torch, counters, card)
+    select_rows, moe_launches = {}, {}
+    if "moe" in phases:
+        select_rows, moe_launches = moe_phase(torch, counters, timer, card)
 
     kernels = []
     mm_tol = f"max|kernel-plain| <= {MATMUL_RTOL} * max|plain|"
@@ -4051,7 +4745,12 @@ def main() -> int:
                  f"max|plain| in every query token" for d in DOT_FORMS})
     for name, src, replaces in entries:
         if name not in res:
-            continue
+            if name not in select_rows:
+                continue
+            # phase moe alone: the select row at the Mixtral shape is the
+            # kernel's row
+            res[name] = {"rows": select_rows[name],
+                         "main": select_rows[name][0]["shape"]}
         r = res[name]
         main_row = next(x for x in r["rows"] if x["shape"] == r["main"])
         err = max(x["max_abs_err"] for x in r["rows"])
@@ -4061,6 +4760,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches.get(name, 0),
             "engine_launches": engine_launches.get(name, 0),
             "spec_launches": spec_launches.get(name, 0),
+            "moe_launches": moe_launches.get(name, 0),
+            "select": select_rows.get(name),
             "max_abs_err": err, "tol": tols.get(name, mm_tol),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -108,6 +108,38 @@ struct Planes {
   uint32_t magic;
 };
 
+// bytes from one matrix of a stacked [M, K, N] plane set to the next, for
+// each Planes pointer in its order (0 for a plane the format lacks)
+struct Strides {
+  long long q, qh, sc_lo, sc_hi, mn_lo, mn_hi, d, dmin;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* offset_plane(const T* p, long long e,
+                                                 long long stride) {
+  return p == nullptr ? p
+                      : reinterpret_cast<const T*>(
+                            reinterpret_cast<const uint8_t*>(p) + e * stride);
+}
+
+// the planes of matrix sel[0] of a stacked set, the index read on the card
+// (the TPU kernel's scalar-prefetch select)
+__device__ __forceinline__ Planes select_planes(const Planes& p,
+                                                const int* sel,
+                                                const Strides& s) {
+  const long long e = __ldg(sel);
+  Planes o = p;
+  o.q = offset_plane(p.q, e, s.q);
+  o.qh = offset_plane(p.qh, e, s.qh);
+  o.sc_lo = offset_plane(p.sc_lo, e, s.sc_lo);
+  o.sc_hi = offset_plane(p.sc_hi, e, s.sc_hi);
+  o.mn_lo = offset_plane(p.mn_lo, e, s.mn_lo);
+  o.mn_hi = offset_plane(p.mn_hi, e, s.mn_hi);
+  o.d = offset_plane(p.d, e, s.d);
+  o.dmin = offset_plane(p.dmin, e, s.dmin);
+  return o;
+}
+
 constexpr uint32_t NIB = 0x0F0F0F0Fu;
 constexpr uint32_t HB = 0x30303030u;
 constexpr uint32_t B5 = 0x10101010u;  // Q5_K's fifth bit of four codes
@@ -632,11 +664,15 @@ struct Skinny {
 // y rows [0, T) x the 128 columns of this cluster's strip; blockIdx.x: the
 // K split (the cluster's rank), blockIdx.y: the strip. Dynamic shared
 // memory: the warps' rings and scale scratch, later the block's sums.
-template <class F, int NT>
+// SEL: the planes are the first matrix of a stacked set, and every block
+// reads the index sel[0] and offsets them by it before its first copy (a
+// template flag, as in q8_0_matmul.cu).
+template <class F, int NT, bool SEL>
 __global__ void __launch_bounds__(Skinny<F, NT>::THREADS)
-skinny_kernel(const __nv_bfloat16* __restrict__ x, const Planes p,
+skinny_kernel(const __nv_bfloat16* __restrict__ x, const Planes p_in,
               float* __restrict__ y, int T, int K, int N, int split_k,
-              int vec) {
+              int vec, const int* __restrict__ sel, const Strides ps) {
+  const Planes p = SEL ? select_planes(p_in, sel, ps) : p_in;
   using L = Skinny<F, NT>;
   constexpr int MT = 8;         // m16 tiles: a lane's 16 columns
   constexpr int ROWS = 8 * NT;  // padded tokens
@@ -732,13 +768,14 @@ skinny_kernel(const __nv_bfloat16* __restrict__ x, const Planes p,
   cluster.sync();  // no block leaves while another reads its red
 }
 
-template <class F, int NT>
+template <class F, int NT, bool SEL = false>
 int launch_skinny(const __nv_bfloat16* x, const Planes& p, float* y, int T,
                   int K, int N, int nsplit, int split_k, int vec,
-                  cudaStream_t st) {
+                  cudaStream_t st, const int* sel = nullptr,
+                  const Strides& ps = Strides{}) {
   constexpr int SMEM = Skinny<F, NT>::SMEM;
   const cudaError_t ae = cudaFuncSetAttribute(
-      skinny_kernel<F, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      skinny_kernel<F, NT, SEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM);
   if (ae != cudaSuccess) return static_cast<int>(ae);
   cudaLaunchConfig_t cfg = {};
@@ -753,8 +790,9 @@ int launch_skinny(const __nv_bfloat16* x, const Planes& p, float* y, int T,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, skinny_kernel<F, NT>, x, p,
-                                           y, T, K, N, split_k, vec);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, skinny_kernel<F, NT, SEL>,
+                                           x, p, y, T, K, N, split_k, vec,
+                                           sel, ps);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -1051,13 +1089,23 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
         const void* sc_hi, const void* mn_lo, const void* mn_hi,
         const void* d, const void* dmin, void* y, int T, int K, int N,
         int path, int nsplit, int split_k, int bm, int vec, int magic,
-        void* stream) {
+        const void* sel, const long long* strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T < 1 || N < 1 || K < F::K_UNIT || K % F::K_UNIT != 0 ||
       nsplit < 1 || nsplit > SK_MAX_CLUSTER ||
       (long long)nsplit * split_k < K ||
       (long long)(nsplit - 1) * split_k >= K)
     return static_cast<int>(cudaErrorInvalidValue);
+  Strides ps{};
+  if (sel != nullptr) {
+    if (path != 0 || T > 8 || strides == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    ps = Strides{strides[0], strides[1], strides[2], strides[3],
+                 strides[4], strides[5], strides[6], strides[7]};
+    for (int i = 0; i < 8; ++i)
+      if (strides[i] < 0 || (vec && strides[i] % 16 != 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
   Planes p;
   p.q = static_cast<const uint8_t*>(q);
   p.qh = static_cast<const uint8_t*>(qh);
@@ -1074,6 +1122,10 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
   if (path == 0) {
     if (T > 32 || split_k % F::STEP != 0)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (sel != nullptr)
+      return launch_skinny<F, 1, true>(xb, p, out, T, K, N, nsplit, split_k,
+                                       vec, st, static_cast<const int*>(sel),
+                                       ps);
     if (T <= 8)
       return launch_skinny<F, 1>(xb, p, out, T, K, N, nsplit, split_k, vec,
                                  st);
@@ -1106,15 +1158,21 @@ int run(const void* x, const void* q, const void* qh, const void* sc_lo,
 // ceil(K / split_k)); path 1: the wgmma tile with bm (256 or 128) rows,
 // its K split likewise (split_k a multiple of 64). vec:
 // 1 when N % 16 == 0 and every plane is 16-byte aligned (cp.async copies).
-// magic: 0x4B000000 (Planes::magic).
+// magic: 0x4B000000 (Planes::magic). sel: null, or (path 0, T <= 8) a
+// device int32 index into stacked [M, rows, N] planes that start at the
+// given pointers, matrix m of each plane `strides[i]` m bytes on (a host
+// array of 8 in the pointers' order, 0 for a null plane; with vec, each a
+// multiple of 16).
 #define KQUANT_ENTRY(fn, F, TF)                                               \
   extern "C" int fn(const void* x, const void* q, const void* qh,             \
                     const void* sc_lo, const void* sc_hi, const void* mn_lo,  \
                     const void* mn_hi, const void* d, const void* dmin,       \
                     void* y, int T, int K, int N, int path, int nsplit,       \
-                    int split_k, int bm, int vec, int magic, void* stream) {  \
+                    int split_k, int bm, int vec, int magic, const void* sel, \
+                    const long long* strides, void* stream) {                 \
     return run<F, TF>(x, q, qh, sc_lo, sc_hi, mn_lo, mn_hi, d, dmin, y, T, K, \
-                      N, path, nsplit, split_k, bm, vec, magic, stream);      \
+                      N, path, nsplit, split_k, bm, vec, magic, sel, strides, \
+                      stream);                                                \
   }
 
 KQUANT_ENTRY(q4_0_matmul, Q40, TileQ40)

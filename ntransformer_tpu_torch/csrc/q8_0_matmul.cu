@@ -141,13 +141,28 @@ __device__ __forceinline__ void issue_step(uint8_t* slot,
 
 // y rows [0, T) x the 128 columns of this cluster's strip; blockIdx.x: the
 // K split (the cluster's rank), blockIdx.y: the strip. Dynamic shared
-// memory: the warps' rings, later the block's sums.
-template <int NT>
+// memory: the warps' rings, later the block's sums. SEL: qs and d are the
+// first matrix of a stacked [M, K, N] plane set and every block reads the
+// index sel[0] on the card and offsets both by it times their strides in
+// bytes before its first copy (the TPU kernel's scalar-prefetch select:
+// a routed expert never reaches the host). A template flag, not a runtime
+// test of sel, so the dense instantiations compile as they did without the
+// select: a runtime test moved the dense T = 1 device times of the skinny
+// kernels by -2.6% (Q5_K) to +4.5% (Q6_K) on an H100 (select_ab.py in
+// experiments/).
+template <int NT, bool SEL>
 __global__ void __launch_bounds__(SK_THREADS)
 skinny_kernel(const __nv_bfloat16* __restrict__ x,
               const int8_t* __restrict__ qs, const uint16_t* __restrict__ d,
               float* __restrict__ y, int T, int K, int N, int split_k,
-              int vec) {
+              int vec, const int* __restrict__ sel, long long qs_stride,
+              long long d_stride) {
+  if constexpr (SEL) {
+    const long long e = __ldg(sel);
+    qs += e * qs_stride;
+    d = reinterpret_cast<const uint16_t*>(
+        reinterpret_cast<const uint8_t*>(d) + e * d_stride);
+  }
   constexpr int MT = 8;         // m16 tiles: a lane's 16 columns
   constexpr int ROWS = 8 * NT;  // padded tokens
   constexpr int SLOT = Skinny<NT>::SLOT;
@@ -279,13 +294,15 @@ skinny_kernel(const __nv_bfloat16* __restrict__ x,
   cluster.sync();  // no block leaves while another reads its red
 }
 
-template <int NT>
+template <int NT, bool SEL = false>
 int launch_skinny(const void* x, const void* qs, const void* d, void* y,
                   int T, int K, int N, int nsplit, int split_k, int vec,
-                  cudaStream_t st) {
+                  cudaStream_t st, const int* sel = nullptr,
+                  long long qs_stride = 0, long long d_stride = 0) {
   constexpr int SMEM = Skinny<NT>::SMEM;
   const cudaError_t ae = cudaFuncSetAttribute(
-      skinny_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      skinny_kernel<NT, SEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
   if (ae != cudaSuccess) return static_cast<int>(ae);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nsplit, (N + SC - 1) / SC, 1);
@@ -300,9 +317,10 @@ int launch_skinny(const void* x, const void* qs, const void* d, void* y,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, skinny_kernel<NT>, static_cast<const __nv_bfloat16*>(x),
+      &cfg, skinny_kernel<NT, SEL>, static_cast<const __nv_bfloat16*>(x),
       static_cast<const int8_t*>(qs), static_cast<const uint16_t*>(d),
-      static_cast<float*>(y), T, K, N, split_k, vec);
+      static_cast<float*>(y), T, K, N, split_k, vec, sel, qs_stride,
+      d_stride);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -423,19 +441,31 @@ struct Q8 {
 // x contiguous and 16-byte aligned, K % 32 == 0. path 0: the skinny
 // kernel (T <= 32) on nsplit (1-8) clusters of split_k rows (a multiple of
 // 128, nsplit = ceil(K / split_k)); path 1: the wgmma tile with bm (256 or
-// 128) rows, its K split likewise (split_k a multiple of 64). vec: 1 when N % 16 == 0 and qs/d are 16-byte aligned
-// (cp.async copies).
+// 128) rows, its K split likewise (split_k a multiple of 64). vec: 1 when
+// N % 16 == 0 and qs/d are 16-byte aligned (cp.async copies). sel: null,
+// or (path 0, T <= 8) a device int32 index into stacked [M, K, N] planes
+// that start at qs and d, matrix m at qs + m qs_stride and d + m d_stride
+// bytes (with vec, both strides multiples of 16).
 extern "C" int q8_0_matmul(const void* x, const void* qs, const void* d,
                            void* y, int T, int K, int N, int path,
                            int nsplit, int split_k, int bm, int vec,
-                           void* stream) {
+                           const void* sel, long long qs_stride,
+                           long long d_stride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T < 1 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (sel != nullptr &&
+      (path != 0 || T > 8 ||
+       (vec && (qs_stride % 16 != 0 || d_stride % 16 != 0))))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (path == 0) {
     if (T > 32 || nsplit < 1 || nsplit > SK_MAX_CLUSTER ||
         split_k % 128 != 0 || (long long)nsplit * split_k < K ||
         (long long)(nsplit - 1) * split_k >= K)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (sel != nullptr)
+      return launch_skinny<1, true>(x, qs, d, y, T, K, N, nsplit, split_k,
+                                    vec, st, static_cast<const int*>(sel),
+                                    qs_stride, d_stride);
     if (T <= 8)
       return launch_skinny<1>(x, qs, d, y, T, K, N, nsplit, split_k, vec, st);
     if (T <= 16)

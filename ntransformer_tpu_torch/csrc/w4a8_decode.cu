@@ -160,8 +160,12 @@ __device__ __forceinline__ void keep_half(int (&v)[32], bool upper, int xr) {
 
 // blockIdx.x: column strip, blockIdx.y: run of pairs [y * pps, ...). With
 // part == nullptr the block sums its pairs in order and writes y;
-// otherwise it writes part[pair, n] for the pair-sum pass.
-template <typename XT>
+// otherwise it writes part[pair, n] for the pair-sum pass. SEL: sel is
+// the device index of a matrix in stacked planes that start at qs and the
+// four f32 planes, read once by every block (the TPU kernel's
+// scalar-prefetch select), matrix m qs_stride / f_stride m bytes on; a
+// template flag, as in q8_0_matmul.cu.
+template <typename XT, bool SEL>
 __global__ void __launch_bounds__(DW_MAX_WARPS * 32)
 w4_decode_kernel(const XT* __restrict__ x, int64_t xs,
                  const uint8_t* __restrict__ qs,
@@ -169,7 +173,15 @@ w4_decode_kernel(const XT* __restrict__ x, int64_t xs,
                  const float* __restrict__ s_hi,
                  const float* __restrict__ m_lo,
                  const float* __restrict__ m_hi, float* __restrict__ y,
-                 float* __restrict__ part, int K, int N, int pps, int vec) {
+                 float* __restrict__ part, int K, int N, int pps, int vec,
+                 const int* __restrict__ sel, long long qs_stride,
+                 long long f_stride) {
+  if constexpr (SEL) {
+    const long long e = __ldg(sel);
+    qs += e * qs_stride;
+    const long long fo = e * f_stride / 4;
+    s_lo += fo, s_hi += fo, m_lo += fo, m_hi += fo;
+  }
   __shared__ __align__(16) int8_t codes[DW_MAX_WARPS][2 * PAIR_ROWS];
   __shared__ float parts[DW_MAX_WARPS][DW_STRIP];  // one pass: pair parts
   const int lane = threadIdx.x & 31;
@@ -275,17 +287,21 @@ __global__ void w4_pairs_kernel(const float* __restrict__ part,
 template <typename XT>
 int launch(const void* x, long long xs, const void* qs, const void* s_lo,
            const void* s_hi, const void* m_lo, const void* m_hi, void* y,
-           void* work, int K, int N, int pps, int vec, cudaStream_t st) {
+           void* work, int K, int N, int pps, int vec, const int* sel,
+           long long qs_stride, long long f_stride, cudaStream_t st) {
   const int pairs = K / 512;
   const int nsplit = (pairs + pps - 1) / pps;
   float* out = static_cast<float*>(y);
   float* part = nsplit > 1 ? static_cast<float*>(work) : nullptr;
   const dim3 grid((N + DW_STRIP - 1) / DW_STRIP, nsplit);
-  w4_decode_kernel<XT><<<grid, pps * 32, 0, st>>>(
+  const auto kernel = sel != nullptr ? w4_decode_kernel<XT, true>
+                                      : w4_decode_kernel<XT, false>;
+  kernel<<<grid, pps * 32, 0, st>>>(
       static_cast<const XT*>(x), static_cast<int64_t>(xs),
       static_cast<const uint8_t*>(qs), static_cast<const float*>(s_lo),
       static_cast<const float*>(s_hi), static_cast<const float*>(m_lo),
-      static_cast<const float*>(m_hi), out, part, K, N, pps, vec);
+      static_cast<const float*>(m_hi), out, part, K, N, pps, vec, sel,
+      qs_stride, f_stride);
   if (part) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -301,19 +317,29 @@ int launch(const void* x, long long xs, const void* qs, const void* s_lo,
 // [K/512, N]. pps: group pairs per block, 1 to 8, one warp each; when it
 // is below K/512, work is [K/512, N] f32 scratch and a second kernel sums
 // the pairs. vec: 1 when N % 16 == 0 and qs is 16-byte aligned.
-// K % 512 == 0.
+// K % 512 == 0. sel: null, or a device int32 index into stacked planes
+// [M, K/2, N] and [M, K/512, N] that start at the given pointers, matrix m
+// at qs + m qs_stride and each f32 plane + m f_stride bytes (with vec,
+// qs_stride a multiple of 16; f_stride a multiple of 4); the decode kernel
+// reads it, the pair-sum pass reads no plane.
 extern "C" int w4a8_decode(const void* x, int x_f32, long long xs,
                            const void* qs, const void* s_lo, const void* s_hi,
                            const void* m_lo, const void* m_hi, void* y,
                            void* work, int K, int N, int pps, int vec,
-                           void* stream) {
+                           const void* sel, long long qs_stride,
+                           long long f_stride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pps < 1 || pps > DW_MAX_WARPS || K % 512 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (sel != nullptr &&
+      ((vec && qs_stride % 16 != 0) || f_stride % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* si = static_cast<const int*>(sel);
   return x_f32 ? launch<float>(x, xs, qs, s_lo, s_hi, m_lo, m_hi, y, work, K,
-                               N, pps, vec, st)
+                               N, pps, vec, si, qs_stride, f_stride, st)
                : launch<__nv_bfloat16>(x, xs, qs, s_lo, s_hi, m_lo, m_hi, y,
-                                       work, K, N, pps, vec, st);
+                                       work, K, N, pps, vec, si, qs_stride,
+                                       f_stride, st);
 }
 
 extern "C" const char* nt_error_string(int code) {

@@ -161,12 +161,25 @@ __device__ __forceinline__ void issue_codes(uint8_t* slot,
 // dependent launch: the first weight steps are in flight before they are
 // waited for). Dynamic shared memory: the warps' rings, later the block's
 // sums.
-template <int NT>
+// SEL: q and s are the first matrix of a stacked [M, K, N] / [M, 1, N]
+// plane set; every block reads the index sel[0] on the card and offsets
+// both by it times their strides in bytes before its first copy (the TPU
+// kernel's scalar-prefetch select; a template flag, as in q8_0_matmul.cu).
+// sel was written before the quantize pass was launched, so it is read
+// before pdl_wait.
+template <int NT, bool SEL>
 __global__ void __launch_bounds__(SK_THREADS)
 skinny_kernel(const int8_t* __restrict__ a, const float* __restrict__ am,
               const int8_t* __restrict__ q, const float* __restrict__ s,
               float* __restrict__ y, int T, int K, int Kp, int N,
-              int split_k, int vec) {
+              int split_k, int vec, const int* __restrict__ sel,
+              long long q_stride, long long s_stride) {
+  if constexpr (SEL) {
+    const long long e = __ldg(sel);
+    q += e * q_stride;
+    s = reinterpret_cast<const float*>(
+        reinterpret_cast<const uint8_t*>(s) + e * s_stride);
+  }
   constexpr int MT = 8;         // m16 tiles: a lane's 16 columns
   constexpr int ROWS = 8 * NT;  // padded tokens
   constexpr int SLOT = Skinny<NT>::SLOT;
@@ -300,13 +313,16 @@ skinny_kernel(const int8_t* __restrict__ a, const float* __restrict__ am,
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <int NT>
+template <int NT, bool SEL = false>
 int launch_skinny(const int8_t* a, const float* am, const void* q,
                   const void* s, void* y, int T, int K, int Kp, int N,
-                  int nsplit, int split_k, int vec, cudaStream_t st) {
+                  int nsplit, int split_k, int vec, cudaStream_t st,
+                  const int* sel = nullptr, long long q_stride = 0,
+                  long long s_stride = 0) {
   constexpr int SMEM = Skinny<NT>::SMEM;
   const cudaError_t ae = cudaFuncSetAttribute(
-      skinny_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      skinny_kernel<NT, SEL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
   if (ae != cudaSuccess) return static_cast<int>(ae);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nsplit, (N + SC - 1) / SC, 1);
@@ -323,9 +339,9 @@ int launch_skinny(const int8_t* a, const float* am, const void* q,
   cfg.attrs = attr;
   cfg.numAttrs = 2;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, skinny_kernel<NT>, a, am, static_cast<const int8_t*>(q),
+      &cfg, skinny_kernel<NT, SEL>, a, am, static_cast<const int8_t*>(q),
       static_cast<const float*>(s), static_cast<float*>(y), T, K, Kp, N,
-      split_k, vec);
+      split_k, vec, sel, q_stride, s_stride);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -506,7 +522,12 @@ struct W8 {
 template <typename XT>
 int launch(const void* x, long long xst, long long xsk, const void* q,
            const void* s, void* y, void* work, int T, int K, int N, int path,
-           int nsplit, int split_k, int bm, int vec, cudaStream_t st) {
+           int nsplit, int split_k, int bm, int vec, const int* sel,
+           long long q_stride, long long s_stride, cudaStream_t st) {
+  if (sel != nullptr &&
+      (path != 0 || T > 8 ||
+       (vec && (q_stride % 16 != 0 || s_stride % 16 != 0))))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (path == 0) {
     if (nsplit < 1 || nsplit > SK_MAX_CLUSTER || split_k % 128 != 0 ||
         (long long)nsplit * split_k < K ||
@@ -528,6 +549,10 @@ int launch(const void* x, long long xst, long long xsk, const void* q,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (path == 0) {
+    if (sel != nullptr)
+      return launch_skinny<1, true>(a, am, q, s, y, T, K, Kp, N, nsplit,
+                                    split_k, vec, st, sel, q_stride,
+                                    s_stride);
     if (T <= 8)
       return launch_skinny<1>(a, am, q, s, y, T, K, Kp, N, nsplit, split_k,
                               vec, st);
@@ -557,18 +582,26 @@ int launch(const void* x, long long xst, long long xsk, const void* q,
 // kernel (T <= 32) on nsplit (1-8) clusters of split_k rows (a multiple of
 // 128, nsplit = ceil(K / split_k)), or path 1, the wgmma tile of bm (256 or
 // 128) rows, its K split likewise. work: T * roundup(K, 128) code bytes then T f32 scales,
-// 16-byte aligned. vec: 1 when N % 16 == 0 and q is 16-byte aligned.
+// 16-byte aligned. vec: 1 when N % 16 == 0 and q is 16-byte aligned. sel:
+// null, or (path 0, T <= 8) a device int32 index into stacked planes
+// [M, K, N] / [M, 1, N] that start at q and s, matrix m at q + m q_stride
+// and s + m s_stride bytes (with vec, both multiples of 16); only the
+// matmul reads it.
 extern "C" int w8a8_matmul(const void* x, int x_f32, long long xst,
                            long long xsk, const void* q, const void* s,
                            void* y, void* work, int T, int K, int N,
                            int path, int nsplit, int split_k, int bm,
-                           int vec, void* stream) {
+                           int vec, const void* sel, long long q_stride,
+                           long long s_stride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T < 1 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int* si = static_cast<const int*>(sel);
   return x_f32 ? launch<float>(x, xst, xsk, q, s, y, work, T, K, N, path,
-                               nsplit, split_k, bm, vec, st)
+                               nsplit, split_k, bm, vec, si, q_stride,
+                               s_stride, st)
                : launch<__nv_bfloat16>(x, xst, xsk, q, s, y, work, T, K, N,
-                                       path, nsplit, split_k, bm, vec, st);
+                                       path, nsplit, split_k, bm, vec, si,
+                                       q_stride, s_stride, st);
 }
 
 extern "C" const char* nt_error_string(int code) {

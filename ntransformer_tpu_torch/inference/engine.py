@@ -632,6 +632,12 @@ class TieredEngine(Engine):
 
     def _make_kv(self):
         from ..models.tiered import TieredKV
+        from ..models.tiered_moe import TieredMoEModel
+        if isinstance(self.tm, TieredMoEModel):
+            # MoE tiering streams experts: the whole attention stack is
+            # resident, so one full-depth cache
+            return KVCache.create(self.arch, quant=self.kv_quant,
+                                  device=self.device)
         return TieredKV.create(self.arch, self.tm.tiers, quant=self.kv_quant,
                                device=self.device)
 

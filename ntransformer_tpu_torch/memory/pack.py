@@ -12,8 +12,10 @@ The port writes the JAX package's NTP1 version-5 format byte for byte (the
 same header JSON, offsets and plane bytes), so either package reads the
 other's pack. Float matrices stream as bf16: the f32 -> bf16 conversion is
 round-to-nearest-even on the f32 bits, equal to ml_dtypes' bfloat16 cast.
-MoE packs (per-expert sub-ranges) wait for ROADMAP queue 1 item 4 and are
-refused.
+A mixture-of-experts layer's blob holds its attention, router and vectors,
+then each expert's gate, up and down planes at a 4096-aligned sub-range
+(meta["experts"]), so one expert is one O_DIRECT read: the (layer, expert)
+streaming unit of memory/experts.py.
 
 File layout: magic NTP1 | u32 version | u64 json_len | header JSON |
 zero-pad to 4096 | per-layer blobs, each 4096-aligned; the file end padded
@@ -98,11 +100,11 @@ def bf16_bits(x: np.ndarray) -> np.ndarray:
     return rounded
 
 
-def _refuse_moe(reader, i: int):
-    if f"blk.{i}.ffn_gate_inp.weight" in reader:
-        raise NotImplementedError(
-            "mixture-of-experts packs (per-expert streaming) are not ported "
-            "yet (ROADMAP queue 1 item 4: moe_ffn)")
+# an MoE layer's expert matrices, in their order inside an expert's range
+EXPERT_TENSORS = {"w_gate": "ffn_gate_exps.weight",
+                  "w_up": "ffn_up_exps.weight",
+                  "w_down": "ffn_down_exps.weight"}
+ROUTER = "ffn_gate_inp"
 
 
 class PackWriter:
@@ -140,15 +142,18 @@ class PackWriter:
 
     def _layer_meta(self, i: int) -> dict:
         """Layer i's plane offsets and shapes, from the tensor infos alone."""
-        _refuse_moe(self.reader, i)
         pre = f"blk.{i}."
+        moe = f"{pre}{ROUTER}.weight" in self.reader
         off = 0
         tensors = {}
         for key, suffix in LAYER_TENSORS.items():
             if pre + suffix not in self.reader:
-                continue
+                continue  # pure-MoE layers carry no dense FFN
             tensors[key], off = self._tensor_meta(
                 self.reader.info(pre + suffix), off)
+        if moe:
+            tensors[ROUTER], off = self._tensor_meta(
+                self.reader.info(f"{pre}{ROUTER}.weight"), off)
         norms = {}
         for key, suffix in list(LAYER_NORMS.items()) + list(
                 LAYER_BIASES.items()):
@@ -158,7 +163,23 @@ class PackWriter:
             n_elems = int(np.prod(info.shape))
             norms[key] = {"off": off, "dtype": "float32", "shape": [n_elems]}
             off += n_elems * 4
-        return {"tensors": tensors, "norms": norms, "size": off}
+        meta = {"tensors": tensors, "norms": norms}
+        if moe:
+            # each expert's planes at a 4096-aligned offset of the blob
+            n_exp = int(self.reader.info(pre + EXPERT_TENSORS["w_gate"])
+                        .shape[0])
+            experts = []
+            for _ in range(n_exp):
+                off = _align(off)
+                emeta = {"off": off, "tensors": {}}
+                for key, suffix in EXPERT_TENSORS.items():
+                    emeta["tensors"][key], off = self._tensor_meta(
+                        self.reader.info(pre + suffix), off)
+                emeta["size"] = off - emeta["off"]
+                experts.append(emeta)
+            meta["experts"] = experts
+        meta["size"] = off
+        return meta
 
     def _tensor_chunks(self, raw, info, n: int, k: int) -> list[bytes]:
         dtype = self._effective_dtype(info)
@@ -177,7 +198,7 @@ class PackWriter:
         pre = f"blk.{i}."
         chunks: list[bytes] = []
         for key in meta["tensors"]:
-            suffix = LAYER_TENSORS[key]
+            suffix = LAYER_TENSORS.get(key, f"{ROUTER}.weight")
             info = self.reader.info(pre + suffix)
             n, k = info.shape
             chunks += self._tensor_chunks(self.reader.raw_bytes(pre + suffix),
@@ -187,6 +208,20 @@ class PackWriter:
             if key in meta["norms"]:
                 chunks.append(load_norm(self.reader, pre + suffix)
                               .astype(np.float32).tobytes())
+        size = sum(len(c) for c in chunks)
+        for e, emeta in enumerate(meta.get("experts", ())):
+            chunks.append(b"\0" * (emeta["off"] - size))  # 4096 alignment
+            size = emeta["off"]
+            for suffix in EXPERT_TENSORS.values():
+                info = self.reader.info(pre + suffix)
+                n_exp, n, k = info.shape
+                raw = np.frombuffer(self.reader.raw_bytes(pre + suffix),
+                                    np.uint8)
+                per = raw.size // n_exp
+                part = self._tensor_chunks(raw[e * per:(e + 1) * per], info,
+                                           n, k)
+                chunks += part
+                size += sum(len(c) for c in part)
         out = b"".join(chunks)
         if len(out) != meta["size"]:
             raise AssertionError(f"layer {i}: blob of {len(out)} bytes, meta "
@@ -263,6 +298,27 @@ def unpack_layer(blob: torch.Tensor, meta: dict) -> tuple[LayerWeights, int]:
     return LayerWeights(**fields), copied
 
 
+def expert_views(blob: torch.Tensor, emeta: dict, base: int = 0) -> dict:
+    """{w_gate, w_up, w_down} QLinears of views into `blob` (a uint8 tensor
+    on any device) laid out as the expert meta `emeta`, its plane offsets
+    less `base` (emeta["off"] when blob holds only this expert's bytes).
+    A view that is not 16-byte aligned is handed to the kernels as it is:
+    their wrappers turn the 16-byte copies off for it."""
+    out = {}
+    for key, t in emeta["tensors"].items():
+        planes = {}
+        for p, m in t["planes"].items():
+            dt, _ = _PLANE_DTYPES[m["dtype"]]
+            off = m["off"] - base
+            planes[p] = blob[off: off + plane_nbytes(m)].view(dt).reshape(
+                m["shape"])
+        dt = DType[t["qdtype"]]
+        if dt not in LAYOUTS and dt not in (DType.F32, DType.BF16):
+            dt = DType.F32
+        out[key] = QLinear(dt, t["k"], t["n"], planes)
+    return out
+
+
 class PackReader:
     """Reads layer blobs and rebuilds LayerWeights from their bytes."""
 
@@ -278,10 +334,6 @@ class PackReader:
         self.n_layers = self.header["n_layers"]
         self.layer_ids = self.header.get("layer_ids",
                                          list(range(self.n_layers)))
-        if any("experts" in m for m in self.header["layers"]):
-            raise NotImplementedError(
-                f"{path}: a mixture-of-experts pack; per-expert streaming is "
-                "not ported yet (ROADMAP queue 1 item 4: moe_ffn)")
 
     def layer_meta(self, j: int) -> dict:
         return self.header["layers"][j]
@@ -293,10 +345,11 @@ class PackReader:
     def max_layer_nbytes(self) -> int:
         return max(m["size"] for m in self.header["layers"])
 
-    def read_layer(self, j: int, out: np.ndarray | None = None) -> np.ndarray:
-        """Layer j's blob (into `out` when given)."""
+    def read_layer(self, j: int, out: np.ndarray | None = None,
+                   nbytes: int | None = None) -> np.ndarray:
+        """Layer j's blob, or its first `nbytes` (into `out` when given)."""
         meta = self.layer_meta(j)
-        size = meta["size"]
+        size = meta["size"] if nbytes is None else nbytes
         if out is None:
             out = np.empty(size, np.uint8)
         with open(self.path, "rb") as f:
@@ -314,6 +367,41 @@ class PackReader:
         lw, _ = unpack_layer(torch.from_numpy(blob),
                              meta if meta is not None else self.layer_meta(j))
         return lw
+
+    # -- per-expert access (MoE packs; models/tiered_moe.py) -----------------
+    def n_experts(self, j: int) -> int:
+        return len(self.layer_meta(j).get("experts", ()))
+
+    def expert_meta(self, j: int, e: int) -> dict:
+        return self.layer_meta(j)["experts"][e]
+
+    def expert_nbytes(self, j: int, e: int) -> int:
+        return self.expert_meta(j, e)["size"]
+
+    def read_expert(self, j: int, e: int,
+                    out: np.ndarray | None = None) -> np.ndarray:
+        """One expert's bytes (its 4096-aligned sub-range of the layer's
+        blob), into `out` when given."""
+        lmeta = self.layer_meta(j)
+        emeta = lmeta["experts"][e]
+        size = emeta["size"]
+        if out is None:
+            out = np.empty(size, np.uint8)
+        with open(self.path, "rb") as f:
+            f.seek(lmeta["offset"] + emeta["off"])
+            n = f.readinto(memoryview(out)[:size])
+        if n != size:
+            raise OSError(f"{self.path}: short read {n} != {size}")
+        return out
+
+    def expert_weights(self, j: int, e: int, blob: np.ndarray,
+                       whole_layer: bool = True) -> dict:
+        """{w_gate, w_up, w_down} QLinears of CPU tensor views into `blob`:
+        the whole layer's blob, or (whole_layer=False) one expert's bytes as
+        read_expert gives them."""
+        emeta = self.expert_meta(j, e)
+        return expert_views(torch.from_numpy(blob), emeta,
+                            base=0 if whole_layer else emeta["off"])
 
 
 def requant_layer_meta(meta: dict, target: DType) -> dict:

@@ -33,10 +33,10 @@ import torch
 from ..ops.cuda import kv_update
 from ..ops.cuda.batched_attention import (flash_decode_batched,
                                           flash_verify_batched)
-from ..ops.layers import apply_rope, rms_norm, swiglu
+from ..ops.layers import apply_rope, rms_norm
 from ..ops.linear import embed_lookup, kernels_enabled, qmatmul
 from .llama import (Arch, KVCache, LayerWeights, ModelWeights, _norm_w,
-                    layer_window, quantize_rows)
+                    dense_ffn, layer_window, moe_ffn, quantize_rows)
 
 
 def attention_rows(q, kf, vf, pos, scale: float, window=None,
@@ -191,11 +191,10 @@ def _qkv_rows(arch: Arch, x, lw: LayerWeights, cos_t, sin_t, layer: int):
 
 
 def _ffn_tail(arch: Arch, x, att, lw: LayerWeights, layer: int):
-    """Shared back half: o-projection, residual, FFN."""
-    if arch.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts FFNs are not ported yet (ROADMAP queue 1 "
-            "item 4: moe_ffn)")
+    """Shared back half: o-projection, residual, FFN. A mixture-of-experts
+    layer runs moe_ffn on the [B(*T), H] rows: at one row the k routed
+    experts through the device-side select, past it the dense loop over
+    every expert with each row's own routing (JAX batched.py:201-208)."""
     hq, d = arch.n_heads, arch.head_dim
     o = qmatmul(att.reshape(-1, hq * d).to(torch.bfloat16), lw.wo,
                 layer=layer).reshape(x.shape)
@@ -205,15 +204,8 @@ def _ffn_tail(arch: Arch, x, att, lw: LayerWeights, layer: int):
     x = x + o
     hf = rms_norm(x, _norm_w(arch, lw.ffn_norm, layer), arch.norm_eps) \
         .to(torch.bfloat16).reshape(-1, x.shape[-1])
-    if lw.w_gate_up is not None:
-        gu = qmatmul(hf, lw.w_gate_up, layer=layer)
-        it = gu.shape[-1] // 2
-        g, u = gu[:, :it], gu[:, it:]
-    else:
-        g = qmatmul(hf, lw.w_gate, layer=layer)
-        u = qmatmul(hf, lw.w_up, layer=layer)
-    dn = qmatmul(swiglu(g, u, arch.act).to(torch.bfloat16), lw.w_down,
-                 layer=layer).reshape(x.shape)
+    ffn = moe_ffn if arch.n_experts else dense_ffn
+    dn = ffn(arch, hf, lw, layer).reshape(x.shape)
     if arch.post_norms:
         dn = rms_norm(dn, _norm_w(arch, lw.ffn_post_norm, layer),
                       arch.norm_eps)

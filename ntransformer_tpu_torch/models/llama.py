@@ -10,7 +10,10 @@ framework:
     the JAX package donates the cache buffer to a jitted forward; `forward`
     still returns the cache so callers read the same as in the JAX package.
 
-Dense FFN only: mixture-of-experts models raise until their ROADMAP item.
+Mixture-of-experts layers (mixtral, qwen3moe) run `moe_ffn`: at T = 1 the
+k routed experts go through the T = 1 kernels' device-side select (the
+expert index never leaves the card), at T > 1 a dense loop over every
+expert weighs each row by its routing, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -66,7 +69,9 @@ class LayerWeights:
     """One block's weights; in a model every tensor is stacked [L, ...].
     wqkv / w_gate_up are the fused matrices (fuse_layer_weights); the
     optional vectors are the qwen2 biases, gemma2 post norms and qwen3/gemma3
-    q/k norms."""
+    q/k norms. A mixture-of-experts layer has no dense FFN: its router
+    ffn_gate_inp [H -> E] and the expert matrices w_*_exps, whose planes
+    carry a leading expert axis ([E, rows, N]; [L, E, rows, N] stacked)."""
 
     attn_norm: torch.Tensor
     wq: QLinear | None
@@ -87,6 +92,10 @@ class LayerWeights:
     ffn_post_norm: torch.Tensor | None = None
     q_norm: torch.Tensor | None = None
     k_norm: torch.Tensor | None = None
+    ffn_gate_inp: QLinear | None = None
+    w_gate_exps: QLinear | None = None
+    w_up_exps: QLinear | None = None
+    w_down_exps: QLinear | None = None
 
 
 @dataclass
@@ -173,7 +182,7 @@ def _concat_qlinear(parts: list[QLinear]) -> QLinear | None:
 
 def fuse_layer_weights(lw: LayerWeights) -> LayerWeights:
     """Build fused wqkv / w_gate_up (dropping the unfused copies); a
-    mixed-dtype triple fuses q|k alone."""
+    mixed-dtype triple fuses q|k alone. Expert planes stay unfused."""
     wqkv = _concat_qlinear([lw.wq, lw.wk, lw.wv])
     w_gate_up = _concat_qlinear([lw.w_gate, lw.w_up])
     out = lw
@@ -186,6 +195,75 @@ def fuse_layer_weights(lw: LayerWeights) -> LayerWeights:
     if w_gate_up is not None:
         out = dataclasses.replace(out, w_gate_up=w_gate_up, w_gate=None,
                                   w_up=None)
+    return out
+
+
+def _flatten_experts(ql: QLinear) -> QLinear:
+    """[..., E, rows, N] planes -> [(...·E), rows, N], a free reshape: expert
+    e of layer l is matrix l·E + e of the flattened stack."""
+    return QLinear(ql.dtype, ql.k, ql.n,
+                   {nm: a.reshape((-1,) + tuple(a.shape[-2:]))
+                    for nm, a in ql.planes.items()})
+
+
+def route(arch: Arch, hf: torch.Tensor, router: QLinear,
+          layer: int | None = None):
+    """(weights [T, K] f32, expert ids [T, K] int64) of the rows hf [T, H]:
+    f32 softmax over every router logit, top-k, renormalized."""
+    logits = qmatmul(hf, router, layer=layer)                 # [T, E]
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    topv, tope = torch.topk(probs, arch.n_experts_used, dim=-1)
+    return topv / topv.sum(-1, keepdim=True), tope
+
+
+def expert_ffn(arch: Arch, hf: torch.Tensor, gate: QLinear, up: QLinear,
+               down: QLinear, **at) -> torch.Tensor:
+    """One expert's SwiGLU FFN of hf [T, H] -> [T, H] f32; `at` is qmatmul's
+    layer= or sel= into stacked expert planes."""
+    g = qmatmul(hf, gate, **at)
+    u = qmatmul(hf, up, **at)
+    return qmatmul(swiglu(g, u, arch.act).to(torch.bfloat16), down, **at)
+
+
+def moe_ffn(arch: Arch, hf: torch.Tensor, lw: LayerWeights,
+            layer: int | None = None) -> torch.Tensor:
+    """Mixture-of-experts FFN (mixtral; qwen3moe). hf [T, H] bf16 (after
+    ffn_norm); returns [T, H] f32. layer: the host index of stacked
+    [L, E, ...] expert planes (None: planes [E, ...] of one layer).
+
+    Routing: f32 softmax over every router logit, top-k, renormalized (the
+    JAX package's order: the k weights summed j = 0..k-1, descending).
+    T = 1: only the k routed experts run, each through the flattened
+    stacked planes with its index as a device tensor (`qmatmul(sel=)`):
+    the T = 1 kernels read it on the card, so neither the index nor the
+    weight is read to the host. T > 1: the routing weights scattered to a
+    [T, E] matrix and out += column e * expert(e) for e = 0..E-1 in f32,
+    each expert by host index (the JAX semantics; a token gather would
+    change the plans, and so the bits, with the tokens routed)."""
+    E, K = arch.n_experts, arch.n_experts_used
+    T = hf.shape[0]
+    topv, tope = route(arch, hf, lw.ffn_gate_inp, layer)
+
+    gql = _flatten_experts(lw.w_gate_exps)
+    uql = _flatten_experts(lw.w_up_exps)
+    dql = _flatten_experts(lw.w_down_exps)
+    e_local = next(iter(lw.w_gate_exps.planes.values())).shape[-3]
+    base = (layer * e_local) if layer is not None else 0
+
+    def expert(**at):
+        return expert_ffn(arch, hf, gql, uql, dql, **at)
+
+    out = torch.zeros(T, hf.shape[-1], dtype=torch.float32,
+                      device=hf.device)
+    if T == 1:
+        ids = tope[0].to(torch.int32) + base                 # on the device
+        for j in range(K):
+            out = out + topv[0, j] * expert(sel=ids[j:j + 1])
+    else:
+        cols = torch.zeros(T, E, dtype=torch.float32, device=hf.device)
+        cols.scatter_(1, tope, topv)
+        for e in range(e_local):
+            out = out + cols[:, e:e + 1] * expert(layer=base + e)
     return out
 
 
@@ -319,18 +397,27 @@ def quantize_rows(k: torch.Tensor, v: torch.Tensor):
 
 def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
                sin_t, n_valid=None, layer: int = 0, abs_layer=None):
-    """One transformer block (dense FFN). x [T, H] f32; kv_k/kv_v this
-    layer's cache views ((codes, scales) tuples for an int8 cache; lists of
-    the shards' views under context parallelism); layer / abs_layer as in
-    attn_block; returns x."""
-    if arch.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts FFNs are not ported yet (ROADMAP queue 1 "
-            "item 4: moe_ffn)")
+    """One transformer block. x [T, H] f32; kv_k/kv_v this layer's cache
+    views ((codes, scales) tuples for an int8 cache; lists of the shards'
+    views under context parallelism); layer / abs_layer as in attn_block;
+    returns x."""
     x = attn_block(arch, x, lw, kv_k, kv_v, pos, cos_t, sin_t, n_valid,
                    layer, abs_layer)
     hf = rms_norm(x, _norm_w(arch, lw.ffn_norm, layer),
                   arch.norm_eps).to(torch.bfloat16)
+    if arch.n_experts:
+        dn = moe_ffn(arch, hf, lw, layer)
+    else:
+        dn = dense_ffn(arch, hf, lw, layer)
+    if arch.post_norms:
+        dn = rms_norm(dn, _norm_w(arch, lw.ffn_post_norm, layer),
+                      arch.norm_eps)
+    return x + dn
+
+
+def dense_ffn(arch: Arch, hf: torch.Tensor, lw: LayerWeights,
+              layer: int) -> torch.Tensor:
+    """The SwiGLU FFN of a dense layer: hf [T, H] bf16 -> [T, H] f32."""
     if lw.w_gate_up is not None:
         gu = qmatmul(hf, lw.w_gate_up, layer=layer)
         it = gu.shape[-1] // 2
@@ -338,12 +425,8 @@ def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     else:
         g = qmatmul(hf, lw.w_gate, layer=layer)
         u = qmatmul(hf, lw.w_up, layer=layer)
-    dn = qmatmul(swiglu(g, u, arch.act).to(torch.bfloat16), lw.w_down,
-                 layer=layer)
-    if arch.post_norms:
-        dn = rms_norm(dn, _norm_w(arch, lw.ffn_post_norm, layer),
-                      arch.norm_eps)
-    return x + dn
+    return qmatmul(swiglu(g, u, arch.act).to(torch.bfloat16), lw.w_down,
+                   layer=layer)
 
 
 def embed_positions(arch: Arch, weights: ModelWeights, tokens: torch.Tensor,

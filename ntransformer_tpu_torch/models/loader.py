@@ -106,17 +106,45 @@ def rope_freq_factors(reader: GGUFReader) -> np.ndarray | None:
                       info.dtype, 1, n).reshape(-1)
 
 
+def load_qlinear_experts(reader: GGUFReader, name: str) -> QLinear:
+    """A stacked expert matrix ([E, N, K] in the file: llama.cpp's
+    ffn_*_exps) as host planes with a leading expert axis [E, rows, N]:
+    each expert relayouts as a 2-D matrix does, and moe_ffn indexes the
+    flattened axis."""
+    info = reader.info(name)
+    e, n, k = info.shape
+    raw = np.frombuffer(reader.raw_bytes(name), np.uint8)
+    per = raw.size // e
+    if info.dtype not in LAYOUTS:
+        w = np.stack([np.ascontiguousarray(
+            dequantize(raw[i * per:(i + 1) * per], info.dtype, n, k).T)
+            for i in range(e)])
+        return QLinear(DType.BF16, k, n, {"w": w})
+    if info.dtype not in PORTED_QUANT:
+        raise not_ported(info.dtype, f"{name}: ")
+    parts = [relayout(raw[i * per:(i + 1) * per], info.dtype, n, k)
+             for i in range(e)]
+    return QLinear(info.dtype, k, n,
+                   {nm: np.stack([p[nm] for p in parts]) for nm in parts[0]})
+
+
 def load_layer_host(reader: GGUFReader, i: int) -> LayerWeights:
-    """One layer's weights on the host (numpy planes and vectors)."""
+    """One layer's weights on the host (numpy planes and vectors). A
+    mixture-of-experts layer carries its f32 router (a float matrix, bf16
+    once placed) and the stacked expert matrices, and no dense FFN."""
     pre = f"blk.{i}."
-    if pre + "ffn_gate_inp.weight" in reader:
-        raise NotImplementedError(
-            "mixture-of-experts models are not ported yet (ROADMAP queue 1 "
-            "item 4: moe_ffn)")
+    moe = pre + "ffn_gate_inp.weight" in reader
 
     def opt(name):
         full = pre + name
         return load_norm(reader, full) if full in reader else None
+
+    def dense(name):
+        full = pre + name
+        return load_qlinear_host(reader, full) if full in reader else None
+
+    def experts(name):
+        return load_qlinear_experts(reader, pre + name) if moe else None
 
     return LayerWeights(
         attn_norm=load_norm(reader, pre + "attn_norm.weight"),
@@ -125,13 +153,17 @@ def load_layer_host(reader: GGUFReader, i: int) -> LayerWeights:
         wv=load_qlinear_host(reader, pre + "attn_v.weight"),
         wo=load_qlinear_host(reader, pre + "attn_output.weight"),
         ffn_norm=load_norm(reader, pre + "ffn_norm.weight"),
-        w_gate=load_qlinear_host(reader, pre + "ffn_gate.weight"),
-        w_up=load_qlinear_host(reader, pre + "ffn_up.weight"),
-        w_down=load_qlinear_host(reader, pre + "ffn_down.weight"),
+        w_gate=dense("ffn_gate.weight"),
+        w_up=dense("ffn_up.weight"),
+        w_down=dense("ffn_down.weight"),
         bq=opt("attn_q.bias"), bk=opt("attn_k.bias"), bv=opt("attn_v.bias"),
         attn_post_norm=opt("post_attention_norm.weight"),
         ffn_post_norm=opt("post_ffw_norm.weight"),
         q_norm=opt("attn_q_norm.weight"), k_norm=opt("attn_k_norm.weight"),
+        ffn_gate_inp=dense("ffn_gate_inp.weight"),
+        w_gate_exps=experts("ffn_gate_exps.weight"),
+        w_up_exps=experts("ffn_up_exps.weight"),
+        w_down_exps=experts("ffn_down_exps.weight"),
     )
 
 

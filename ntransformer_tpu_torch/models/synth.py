@@ -10,6 +10,13 @@ a caller that wants non-trivial logits fills the codes itself
 takes the per-tensor policy of `presets.q4_k_m_policy` (ffn_down and the
 head Q6_K, the rest Q4_K). A K-quant LM head is not lane-padded (see
 models/loader.py). Layer planes are allocated pre-stacked ([L, rows, n]).
+
+The shape is a preset name or a dict with the presets' keys, which may add
+`experts` and `experts_used` (a mixture-of-experts model, mixtral-shaped:
+`inter` is then the per-expert width) and `norm_eps`. Expert matrices are
+stacked [L, E, rows, n] and take the same policy by their llama.cpp names
+(ffn_down_exps Q6_K, gate/up Q4_K under q4_k_m); the router ffn_gate_inp
+is a float [H, E] matrix (llama.cpp keeps it f32), bf16 on the device.
 """
 from __future__ import annotations
 
@@ -54,21 +61,27 @@ def synth_qlinear(n: int, k: int, dtype: DType, lead: int | None = None,
     return QLinear(dtype, k, n, planes)
 
 
-def synth_model(preset: str, dtype: str, max_seq_len: int = 4096,
+def synth_model(preset: str | dict, dtype: str, max_seq_len: int = 4096,
                 fuse: bool = False, device="cuda"):
-    """(config, arch, weights) for a preset, built on `device` (the card by
-    default; raises without CUDA unless device="cpu")."""
+    """(config, arch, weights) for a preset name or shape dict (see the
+    module docstring), built on `device` (the card by default; raises
+    without CUDA unless device="cpu")."""
     dev = resolve_device(device)
-    p = PRESETS[preset]
+    p = PRESETS[preset] if isinstance(preset, str) else preset
+    name = preset if isinstance(preset, str) else p.get("name", "custom")
     head_dim = p["hidden"] // p["heads"]
     kv_dim = p["kv_heads"] * head_dim
+    n_exp = p.get("experts", 0)
     cfg = ModelConfig(
-        model_name=f"synth-{preset}-{dtype}",
+        model_name=f"synth-{name}-{dtype}",
         vocab_size=p["vocab"], hidden_size=p["hidden"],
         intermediate_size=p["inter"], n_layers=p["layers"],
         n_heads=p["heads"], n_kv_heads=p["kv_heads"], head_dim=head_dim,
-        rope_theta=p["rope_theta"],
+        rope_theta=p["rope_theta"], norm_eps=p.get("norm_eps", 1e-5),
         max_seq_len=min(p["ctx"], max_seq_len),
+        n_experts=n_exp,
+        n_experts_used=p.get("experts_used", 2) if n_exp else 0,
+        moe_inter=p["inter"] if n_exp else 0,
     )
     arch = Arch.from_config(cfg)
     if dtype == "q4_k_m":
@@ -84,14 +97,27 @@ def synth_model(preset: str, dtype: str, max_seq_len: int = 4096,
     def mat(name, n, k, lead=L):
         return synth_qlinear(n, k, policy(name), lead, dev)
 
+    def experts(name, n, k):
+        ql = synth_qlinear(n, k, policy(name), L * n_exp, dev)
+        return QLinear(ql.dtype, k, n,
+                       {nm: a.reshape((L, n_exp) + tuple(a.shape[1:]))
+                        for nm, a in ql.planes.items()})
+
+    ffn = (dict(ffn_gate_inp=QLinear(DType.BF16, h, n_exp, {
+                    "w": torch.full((L, h, n_exp), 0.004,
+                                    dtype=torch.bfloat16, device=dev)}),
+                w_gate_exps=experts("ffn_gate_exps", it, h),
+                w_up_exps=experts("ffn_up_exps", it, h),
+                w_down_exps=experts("ffn_down_exps", h, it),
+                w_gate=None, w_up=None, w_down=None)
+           if n_exp else
+           dict(w_gate=mat("ffn_gate", it, h), w_up=mat("ffn_up", it, h),
+                w_down=mat("ffn_down", h, it)))
     stacked = LayerWeights(
         attn_norm=torch.ones(L, h, device=dev),
         wq=mat("attn_q", h, h), wk=mat("attn_k", kv_dim, h),
         wv=mat("attn_v", kv_dim, h), wo=mat("attn_output", h, h),
-        ffn_norm=torch.ones(L, h, device=dev),
-        w_gate=mat("ffn_gate", it, h), w_up=mat("ffn_up", it, h),
-        w_down=mat("ffn_down", h, it),
-    )
+        ffn_norm=torch.ones(L, h, device=dev), **ffn)
     if fuse:
         stacked = fuse_layer_weights(stacked)
     cos, sin = rope_table(cfg.max_seq_len, head_dim, cfg.rope_theta,

@@ -14,9 +14,10 @@ threshold.
 
 A streamed layer's weights are views into its slot buffer, presented to the
 model's layer_step as a stack of one (`layer=0`) with its depth as
-`abs_layer` (sliding window, rope table). Mixture-of-experts models and
-device meshes are refused: their tiered forms wait for ROADMAP queue 1
-items 4 and 14.
+`abs_layer` (sliding window, rope table). A mixture-of-experts model
+streams (layer, expert) sets instead of layers: `load_model_tiered` and
+`forward_tiered` hand it to models/tiered_moe.py. Device meshes are
+refused: their tiered form waits for ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -118,7 +119,14 @@ def forward_tiered(tm: TieredModel, kv: TieredKV, tokens, pos: int, *,
     early_exit_threshold > 0: stop streaming once a layer at or past
     n_layers / 2 has a hidden-state cosine above it (checked one layer
     late). The caches are written in place. Returns (logits, kv, cosines
-    [n_layers] f32 CPU tensor or None; a layer that did not run reads 0)."""
+    [n_layers] f32 CPU tensor or None; a layer that did not run reads 0).
+    A TieredMoEModel runs forward_tiered_moe."""
+    from .tiered_moe import TieredMoEModel, forward_tiered_moe
+    if isinstance(tm, TieredMoEModel):
+        return forward_tiered_moe(
+            tm, kv, tokens, pos, n_valid=n_valid, all_logits=all_logits,
+            with_cosine=with_cosine, skip=skip, draft_only=draft_only,
+            early_exit_threshold=early_exit_threshold)
     arch = tm.arch
     tokens = torch.as_tensor(tokens, device=tm.device).reshape(-1)
     pos = int(pos)
@@ -213,7 +221,9 @@ def load_model_tiered(path: str, *, max_seq_len: int | None = None,
     O_DIRECT allows; h2d: "blob" (one copy per layer) or "planes".
     reserve_extra_bytes: device memory promised to state the loader does
     not see, such as a separate draft model's cache (the draft itself loads
-    first and is gone from the free memory already)."""
+    first and is gone from the free memory already). A mixture-of-experts
+    file loads as a TieredMoEModel (load_model_tiered_moe: its ram_bytes
+    budget; the layer caps, requant and h2d do not apply)."""
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
@@ -223,9 +233,15 @@ def load_model_tiered(path: str, *, max_seq_len: int | None = None,
     cfg = ModelConfig.from_gguf_metadata(reader.metadata, max_seq_len)
     arch = Arch.from_config(cfg)
     if arch.n_experts:
-        raise NotImplementedError(
-            "tiered mixture-of-experts models (per-expert streaming) are not "
-            "ported yet (ROADMAP queue 1 item 4: moe_ffn)")
+        # experts stream as (layer, expert) sets (tiered_moe.py)
+        if requant is not None or requant_ram is not None:
+            raise NotImplementedError(
+                "tiered MoE does not compose with TP meshes or requant yet "
+                "— drop those flags, or serve resident/EP")
+        from .tiered_moe import load_model_tiered_moe
+        return load_model_tiered_moe(
+            path, max_seq_len=max_seq_len, ram_bytes=ram_bytes,
+            with_tokenizer=with_tokenizer, device=dev, direct_io=direct_io)
     pack = ensure_pack(reader, path, requant)
 
     embed = load_qlinear_host(reader, "token_embd.weight")

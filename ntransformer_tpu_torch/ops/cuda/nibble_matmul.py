@@ -31,7 +31,10 @@ warp-specialized wgmma tile of its own (256 x 128, 128 x 256 or 128 x 128,
 the tile's rows of x while the consumers' wgmma runs; see the sources.
 
 One C entry, one launch counter and one launch per product for each format
-(`KERNELS`).
+(`KERNELS`). With `sel` (a device int32 index into stacked [M, rows, N]
+planes: a routed expert, models/llama.moe_ffn) the skinny kernel of
+csrc/kquant_matmul.cu reads the index on the card and offsets every plane
+by it (ops/cuda/select.py), up to 8 tokens; the tiles take no select.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import torch
 from ...core.dtypes import DType
 from ...core.layout import LAYOUTS
 from ..dequant_torch import dequant_planes_torch
-from . import build, plans
+from . import build, plans, select
 
 NAME = "nibble_matmul"      # csrc/nibble_matmul.cu: W4A8 at T > 1
 KQ_NAME = "kquant_matmul"  # csrc/kquant_matmul.cu: Q4_0, Q4_K, Q5_K, Q6_K
@@ -88,14 +91,16 @@ _K_UNIT = {DType.Q4_0: 32, DType.W4A8: 512}
 _SIGNATURES = {"w4a8_matmul": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                + [ctypes.c_void_p]}
 _KQ_SIGNATURES = {KERNELS[dt].name: [ctypes.c_void_p] * 10
-                  + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
                   for dt in KQ_FORMATS}
 _MAGIC = 0x4B000000  # the f32 2^23 the K-quant kernels build codes on
 
 
-def check_shapes(x: torch.Tensor, planes: dict, dtype: DType):
+def check_shapes(x: torch.Tensor, planes: dict, dtype: DType,
+                 lead: int = 0):
     """(T, K, N) of a product in format `dtype`, or ValueError: x [T, K],
-    every plane [K // rows_div, N] of core/layout.py's dtype."""
+    every plane [K // rows_div, N] of core/layout.py's dtype, after `lead`
+    stacked axes (1 for a select's [M, rows, N] stack)."""
     if dtype not in KERNELS:
         raise ValueError(f"{dtype.value} is not a nibble format")
     if x.dim() != 2:
@@ -113,7 +118,8 @@ def check_shapes(x: torch.Tensor, planes: dict, dtype: DType):
     n = planes[specs[0].name].shape[-1]
     for s in specs:
         a = planes[s.name]
-        if tuple(a.shape) != (k // s.rows_div, n):
+        if a.dim() != 2 + lead or tuple(a.shape[lead:]) != (k // s.rows_div,
+                                                             n):
             raise ValueError(f"{dtype.value} plane {s.name} "
                              f"{tuple(a.shape)} does not match x "
                              f"{tuple(x.shape)} (want "
@@ -124,10 +130,13 @@ def check_shapes(x: torch.Tensor, planes: dict, dtype: DType):
     return t, k, n
 
 
-def nibble_matmul_plain(x: torch.Tensor, planes: dict,
-                        dtype: DType) -> torch.Tensor:
+def nibble_matmul_plain(x: torch.Tensor, planes: dict, dtype: DType,
+                        sel: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: bf16 dequant, bf16 x, f32
-    products and sums."""
+    products and sums. sel: the matrix of stacked planes, gathered on the
+    planes' device."""
+    if sel is not None:
+        planes = select.select_plain(planes, sel)
     _, k, n = check_shapes(x, planes, dtype)
     w = dequant_planes_torch(planes, dtype, k, n, out_dtype=torch.bfloat16)
     return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
@@ -144,19 +153,27 @@ def w4a8_tile(device: torch.device, t: int, n: int) -> tuple[int, int]:
     return 128, 128
 
 
-def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
-                       dtype: DType) -> torch.Tensor:
+def nibble_matmul_cuda(x: torch.Tensor, planes: dict, dtype: DType,
+                       sel: torch.Tensor | None = None) -> torch.Tensor:
     """y[T,N] f32 = x[T,K] @ W for a Q4_0 / Q4_K / Q5_K / Q6_K matrix, or a
     W4A8 matrix at T > 1, given as its planes (core/layout.py; f16 planes as
-    int16 bits). On a CPU tensor this is the plain twin; on a CUDA tensor it
-    launches the kernel or raises."""
-    t, k, n = check_shapes(x, planes, dtype)
+    int16 bits). sel: an int32 index (one element) into stacked planes
+    [M, rows, N], read on the card (Q4_0 and the K-quants, T <= 8). On a
+    CPU tensor this is the plain twin; on a CUDA tensor it launches the
+    kernel or raises."""
+    t, k, n = check_shapes(x, planes, dtype, int(sel is not None))
     if dtype == DType.W4A8 and t == 1:
         raise ValueError("w4a8_matmul is the T > 1 product; at T = 1 the "
                          "W4A8 product is the w4a8_decode kernel "
                          "(ops/cuda/w4a8.py)")
     if x.device.type == "cpu":
-        return nibble_matmul_plain(x, planes, dtype)
+        return nibble_matmul_plain(x, planes, dtype, sel)
+    if sel is not None:
+        if dtype not in KQ_FORMATS:
+            raise ValueError(f"{dtype.value} matmul takes no select (the "
+                             "W4A8 tile runs at T > 1, where the experts "
+                             "are indexed by host ints)")
+        select.check(x, sel, planes, KERNELS[dtype].name)
     if not x.is_cuda or any(a.device != x.device for a in planes.values()):
         raise ValueError(f"{dtype.value} matmul: tensors on "
                          f"{[str(a.device) for a in planes.values()]} and "
@@ -167,10 +184,13 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
     if x.data_ptr() % 16:
         x = x.clone()
     kern = KERNELS[dtype]
+    by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
+    strides = (select.strides(by_slot, SLOTS) if sel is not None
+               else [0] * len(SLOTS))
     vec = int(n % 16 == 0 and all(a.data_ptr() % 16 == 0
-                                  for a in planes.values()))
+                                  for a in planes.values())
+              and all(st % 16 == 0 for st in strides))
     if dtype in KQ_FORMATS:
-        by_slot = {_SLOT_OF.get(nm, nm): a for nm, a in planes.items()}
         ptrs = [by_slot[s].data_ptr() if s in by_slot else None
                 for s in SLOTS]
         lib = build.load(KQ_NAME, _KQ_SIGNATURES)
@@ -188,6 +208,8 @@ def nibble_matmul_cuda(x: torch.Tensor, planes: dict,
             rc = getattr(lib, kern.name)(
                 x.data_ptr(), *ptrs, y.data_ptr(), t, k, n, path, nsplit,
                 split_k, bm, vec, _MAGIC,
+                None if sel is None else sel.data_ptr(),
+                None if sel is None else (ctypes.c_longlong * 8)(*strides),
                 torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, kern.name)
         kern.launches += 1

@@ -25,7 +25,10 @@ warp a pair), reads the codes in 16-byte rows, and sums the pairs in order
 in the block; a K of more than 8 pairs is split into runs summed by a
 second, fixed-order pass (`pair_plan`); see the source. T > 1 (prefill,
 verify, batched steps) is the exact-dequant `w4a8_matmul` entry of
-ops/cuda/nibble_matmul.py.
+ops/cuda/nibble_matmul.py. With `sel` (a device int32 index into stacked
+planes: a routed expert) the decode kernel reads the index on the card and
+offsets its five planes by it (ops/cuda/select.py); the pair-sum pass reads
+no plane.
 """
 from __future__ import annotations
 
@@ -36,13 +39,14 @@ import torch
 from ...core.dtypes import DType
 from ...core.layout import LAYOUTS
 from ...core.w4a8 import GRP, UNIT
-from . import build
+from . import build, select
 
 NAME = "w4a8_decode"
 REPLACES = "ntransformer_tpu/ops/pallas/w4a8.py:69 _w4a8_decode_impl"
 _SIGNATURES = {NAME: [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
                + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-               + [ctypes.c_void_p]}
+               + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_void_p]}
 _MAX_PAIRS = 8  # warps a block (one group pair each)
 _ROWS_DIV = {s.name: s.rows_div for s in LAYOUTS[DType.W4A8]}
 # plane -> (rows_div, dtype), in the C entry's order
@@ -55,9 +59,10 @@ _PLANES = {nm: (_ROWS_DIV[nm], torch.uint8 if nm == "qs" else torch.float32)
 launches = 0
 
 
-def check_shapes(x: torch.Tensor, planes: dict):
+def check_shapes(x: torch.Tensor, planes: dict, lead: int = 0):
     """(T, K, N) of a W4A8 decode product, or ValueError: x [1, K], qs
-    [K/2, N] and the four f32 planes [K/512, N]."""
+    [K/2, N] and the four f32 planes [K/512, N], after `lead` stacked axes
+    (1 for a select's stack)."""
     if x.dim() != 2:
         raise ValueError(f"w4a8 decode wants x [1,K]; got {tuple(x.shape)}")
     t, k = x.shape
@@ -72,7 +77,7 @@ def check_shapes(x: torch.Tensor, planes: dict):
     n = planes["qs"].shape[-1]
     for nm, (rows_div, dtype) in _PLANES.items():
         a = planes[nm]
-        if a.shape != (k // rows_div, n):
+        if a.dim() != 2 + lead or a.shape[lead:] != (k // rows_div, n):
             raise ValueError(f"w4a8 plane {nm} {tuple(a.shape)} does not "
                              f"match x {tuple(x.shape)}")
         if a.dtype != dtype:
@@ -106,10 +111,14 @@ def _activations(x: torch.Tensor) -> dict:
     return out
 
 
-def w4a8_decode_plain(x: torch.Tensor, planes: dict) -> torch.Tensor:
+def w4a8_decode_plain(x: torch.Tensor, planes: dict,
+                      sel: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: its quantization, exact
     group dots (float64), the per-(pair, column) f32 fixup, the pairs
-    summed in order."""
+    summed in order. sel: the matrix of stacked planes, gathered on the
+    planes' device."""
+    if sel is not None:
+        planes = select.select_plain(planes, sel)
     _, k, n = check_shapes(x, planes)
     acts = _activations(x)
     pairs = k // UNIT
@@ -141,17 +150,28 @@ def pair_plan(k: int) -> int:
     return -(-pairs // nsplit)
 
 
-def w4a8_decode_cuda(x: torch.Tensor, planes: dict) -> torch.Tensor:
+def w4a8_decode_cuda(x: torch.Tensor, planes: dict,
+                     sel: torch.Tensor | None = None) -> torch.Tensor:
     """y[1,N] f32 = the W4A8 decode product of x[1,K] with the planes of
-    core/layout.py. On a CPU tensor this is the plain twin; on a CUDA
-    tensor it launches the kernel (which quantizes x: bf16 or f32 as
-    given, any stride) or raises."""
+    core/layout.py. sel: an int32 index (one element) into stacked planes
+    [M, rows, N], read on the card. On a CPU tensor this is the plain twin;
+    on a CUDA tensor it launches the kernel (which quantizes x: bf16 or f32
+    as given, any stride) or raises."""
     global launches
-    _, k, n = check_shapes(x, planes)
     if x.device.type == "cpu":
-        return w4a8_decode_plain(x, planes)
+        return w4a8_decode_plain(x, planes, sel)
+    if sel is not None:
+        select.check(x, sel, planes, NAME)
+    _, k, n = check_shapes(x, planes, int(sel is not None))
     dev = x.get_device()
     ptrs = [planes[nm].data_ptr() for nm in _PLANES]
+    qs_stride, f_stride = (select.strides(planes, ("qs", "s_lo"))
+                           if sel is not None else (0, 0))
+    if sel is not None and any(
+            select.strides(planes, (nm,))[0] != f_stride
+            for nm in ("s_hi", "m_lo", "m_hi")):
+        raise ValueError("w4a8 decode: the four f32 planes of a stack "
+                         "must share one stride")
     if not x.is_cuda or any(a.get_device() != dev for a in planes.values()):
         raise ValueError(f"w4a8 decode: tensors on "
                          f"{[str(a.device) for a in planes.values()]} and "
@@ -163,7 +183,8 @@ def w4a8_decode_cuda(x: torch.Tensor, planes: dict) -> torch.Tensor:
     lib = build.load(NAME, _SIGNATURES)
     pairs = k // UNIT
     pps = pair_plan(k)
-    vec = int(n % 16 == 0 and all(p % 16 == 0 for p in ptrs))
+    vec = int(n % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+              and qs_stride % 16 == 0)
     split = pps < pairs
     # one allocation: y, then the pairs' parts when they are split
     y = torch.empty(pairs + 1 if split else 1, n, dtype=torch.float32,
@@ -173,6 +194,7 @@ def w4a8_decode_cuda(x: torch.Tensor, planes: dict) -> torch.Tensor:
         rc = lib.w4a8_decode(
             x.data_ptr(), int(x.dtype == torch.float32), x.stride(1), *ptrs,
             out, out + 4 * n if split else 0, k, n, pps, vec,
+            None if sel is None else sel.data_ptr(), qs_stride, f_stride,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, NAME)
     launches += 2 if split else 1

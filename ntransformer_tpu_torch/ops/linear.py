@@ -93,39 +93,52 @@ def pad_qlinear_lanes(ql: QLinear, multiple: int) -> QLinear:
                    {nm: F.pad(a, (0, pad)) for nm, a in ql.planes.items()})
 
 
-def qmatmul(x: torch.Tensor, ql: QLinear, *,
-            layer: int | None = None) -> torch.Tensor:
-    """y[T, N] f32 = x[T, K] @ W^T in file terms. layer: index into stacked
-    [L, ...] planes (a free view). The W4A8 and W8A8 products split by rows
-    as the JAX `qmatmul` does: W4A8 at T = 1 is the quantized-activation
-    decode product and at T > 1 the exact-dequant tile; W8A8 is one int8
-    product up to MAX_ROWS rows."""
+def qmatmul(x: torch.Tensor, ql: QLinear, *, layer: int | None = None,
+            sel: torch.Tensor | None = None) -> torch.Tensor:
+    """y[T, N] f32 = x[T, K] @ W^T in file terms. layer: a host index into
+    stacked [L, ...] planes (a free view). sel: an int32 tensor holding one
+    index into stacked [M, ...] planes that stays on the device (a routed
+    expert of the flattened [L·E, ...] expert planes, models/llama.moe_ffn):
+    the T = 1 kernels read it on the card and the plain twins gather with
+    it, so no path reads it to the host (T <= 8; a float matrix, which has
+    no kernel, gathers its matrix as the plain twins do). The W4A8 and W8A8
+    products split by rows as the JAX `qmatmul` does: W4A8 at T = 1 is the
+    quantized-activation decode product and at T > 1 the exact-dequant
+    tile; W8A8 is one int8 product up to MAX_ROWS rows."""
     if layer is not None:
+        if sel is not None:
+            raise ValueError("qmatmul takes a host layer or a device sel, "
+                             "not both")
         ql = ql.layer(layer)
     if ql.dtype in FLOAT_KINDS:
         w = ql.planes["w"]
+        if sel is not None:
+            from .cuda.select import select_plain
+            w = select_plain({"w": w}, sel)["w"]
         return x.to(w.dtype).to(torch.float32) @ w.to(torch.float32)
     if ql.dtype == DType.Q8_0:
         from .cuda.matmul import quant_matmul_cuda, quant_matmul_plain
         fn = quant_matmul_cuda if kernels_enabled(x) else quant_matmul_plain
-        return fn(x, ql.planes["qs"], ql.planes["d"])
+        return fn(x, ql.planes["qs"], ql.planes["d"], sel)
     if ql.dtype == DType.W4A8 and x.shape[0] == 1:
         from .cuda import w4a8 as cw4
         fn = cw4.w4a8_decode_cuda if kernels_enabled(x) else \
             cw4.w4a8_decode_plain
-        return fn(x, ql.planes)
+        return fn(x, ql.planes, sel)
     if ql.dtype == DType.W8A8:
         from .cuda import w8a8 as cw8
         if x.shape[0] <= cw8.MAX_ROWS:
             fn = cw8.w8a8_matmul_cuda if kernels_enabled(x) else \
                 cw8.w8a8_matmul_plain
-            return fn(x, ql.planes["q"], ql.planes["s"])
+            return fn(x, ql.planes["q"], ql.planes["s"], sel)
         if x.is_cuda:
             # no path of the port reaches it: prefill and admission chunks
             # are 512 rows (ROADMAP queue 3)
             raise ValueError(f"W8A8 product of {x.shape[0]} rows: the card "
                              f"takes at most {cw8.MAX_ROWS}")
         # the JAX package's dequant tail above MAX_ROWS
+        if sel is not None:
+            raise ValueError("a select takes at most 8 rows")
         k, n = plane_dims(ql.planes, ql.dtype)
         w = dequant_planes_torch(ql.planes, ql.dtype, k, n,
                                  out_dtype=torch.bfloat16)
@@ -135,7 +148,7 @@ def qmatmul(x: torch.Tensor, ql: QLinear, *,
         raise not_ported(ql.dtype)
     fn = nm.nibble_matmul_cuda if kernels_enabled(x) else \
         nm.nibble_matmul_plain
-    return fn(x, ql.planes, ql.dtype)
+    return fn(x, ql.planes, ql.dtype, sel)
 
 
 def convert_qlinear_w4a8(ql: QLinear) -> QLinear:

@@ -271,6 +271,26 @@ def test_tile_plan_in_stages(sms, k, n, t):
     assert all(a < b for a, b in bounds)
 
 
+@pytest.mark.parametrize("unit", [plans.KQUANT_UNIT, plans.Q4_0_UNIT],
+                         ids=["kquant", "q4_0"])
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096)],
+                         ids=["gate_up", "down"])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_skinny_plan_at_mixtral_expert_shapes(sms, k, n, unit):
+    """The T = 1 select's plan at the Mixtral-8x7B expert shapes (Q4_K
+    gate/up, Q6_K down; Q4_0 and Q5_K alike): every SM gets a block, the
+    splits are one portable cluster of whole superblocks (or 64-element
+    steps) covering K once in rank order."""
+    nsplit, split_k = plans.skinny_plan(sms, 1, k, n, unit)
+    assert -(-n // plans.STRIP_COLS) * nsplit >= sms
+    assert 1 <= nsplit <= plans.MAX_CLUSTER
+    assert split_k % unit == 0
+    bounds = _bounds(nsplit, split_k, k)
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(a < b for a, b in bounds)
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(nsplit - 1))
+
+
 def test_skinny_plan_shortens_splits_to_cover_the_sms():
     """16 superblocks (the 8B wo) over 32 strips: 5 splits are wanted but
     equal splits of 4 superblocks give 4 (128 blocks); splits of 3 give 6

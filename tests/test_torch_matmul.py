@@ -231,6 +231,24 @@ def test_skinny_plan_covers_the_sms(sms, k, n, t):
     assert all(bounds[i][1] == bounds[i + 1][0] for i in range(nsplit - 1))
 
 
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096)],
+                         ids=["gate_up", "down"])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_skinny_plan_at_mixtral_expert_shapes(sms, k, n):
+    """The T = 1 select's plan (Q8_0 and W8A8) at the Mixtral-8x7B expert
+    shapes: one routed expert is planned as a matrix of its own shape, so
+    every SM gets a block, the splits are one portable cluster of whole
+    128-row units and cover K once, in rank order."""
+    nsplit, split_k = plans.skinny_plan(sms, 1, k, n)
+    assert -(-n // plans.STRIP_COLS) * nsplit >= sms
+    assert 1 <= nsplit <= plans.MAX_CLUSTER
+    assert split_k % plans.SPLIT_UNIT == 0
+    bounds = [(r * split_k, min((r + 1) * split_k, k))
+              for r in range(nsplit)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(nsplit - 1))
+
+
 @pytest.mark.parametrize("stage_k", [64, 128], ids=["q8_0", "w8a8"])
 @pytest.mark.parametrize("t", [33, 70, 128, 256, 512])
 @pytest.mark.parametrize("k,n", _SHAPES_8B,

@@ -313,14 +313,18 @@ def test_benchmark_runs_greedy(repolm_engines):
 
 def test_unsupported_weights_refused_at_load(tmp_path):
     # Q4_K_M files load since the nibble-format slice
-    # (tests/test_torch_quant_model.py); mixture-of-experts files do not
+    # (tests/test_torch_quant_model.py) and mixture-of-experts files since
+    # the MoE slice (tests/test_torch_moe.py); what a load still refuses is
+    # two engine-native formats at once, as the JAX loader does
     path = write_model(str(tmp_path / "tiny_q4km.gguf"), "tiny", "q4_k_m",
                        seed=1)
     assert load_model(path, device="cpu").weights.lm_head.dtype.value \
         == "q6_k"
     moe = write_model(str(tmp_path / "moe.gguf"), "moe", "q8_0", seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model(moe, device="cpu")
+    lw = load_model(moe, device="cpu").weights.layers
+    assert lw.w_gate is None and lw.w_gate_exps.dtype.value == "q8_0"
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        load_model(moe, device="cpu", w4a8=True, w8a8=True)
     # the int8 KV cache is ported: codes and [L, Hkv, S, 1] scales, as the
     # JAX package lays them out
     ref = jax_load_model(REPOLM)

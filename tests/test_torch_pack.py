@@ -233,6 +233,64 @@ def test_unpack_copies_misaligned_planes(ggufs):
 
 
 def test_pack_refuses_moe(tmp_path):
+    """An MoE pack without per-expert sub-ranges (as a pack from before the
+    format's version 5 would be) is refused by the tiered MoE loader with
+    the JAX package's exception and message."""
+    from ntransformer_tpu_torch.models.tiered_moe import \
+        load_model_tiered_moe
     path = write_model(str(tmp_path / "moe.gguf"), "moe", "q8_0", seed=1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ppack.PackWriter(GGUFReader(path)).write(str(tmp_path / "m.ntp"))
+
+    class NoExperts(ppack.PackWriter):
+        def _layer_meta(self, i):
+            meta = super()._layer_meta(i)
+            meta.pop("experts")
+            meta["size"] = max(m["off"] + ppack.plane_nbytes(m) for m in
+                               [*meta["norms"].values(),
+                                *(pm for t in meta["tensors"].values()
+                                  for pm in t["planes"].values())])
+            return meta
+    NoExperts(GGUFReader(path)).write(ppack.pack_path_for(path),
+                                      src_key=ppack.gguf_content_key(path))
+    with pytest.raises(RuntimeError, match="no per-expert ranges"):
+        load_model_tiered_moe(path, device="cpu")
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "f32", "q4_k_m"])
+def test_pack_moe_bytes_equal_jax(fmt, tmp_path):
+    """An MoE file's pack: byte for byte the JAX PackWriter's (each expert's
+    planes at a 4096-aligned sub-range), read by either package; one
+    expert read alone equals its slice of the layer's blob."""
+    from ntransformer_tpu.models.presets import PRESETS
+    with pytest.MonkeyPatch.context() as mp:  # Q4_K wants K % 256
+        mp.setitem(PRESETS, "moe256",
+                   dict(PRESETS["moe"], hidden=256, inter=512))
+        path = write_model(str(tmp_path / f"moe_{fmt}.gguf"),
+                           "moe256" if fmt == "q4_k_m" else "moe", fmt,
+                           seed=9)
+    mine, theirs = str(tmp_path / "p.ntp"), str(tmp_path / "j.ntp")
+    pr = ppack.PackWriter(GGUFReader(path)).write(mine, src_key="k")
+    jpack.PackWriter(JReader(path)).write(theirs, src_key="k")
+    with open(mine, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    jr = jpack.PackReader(mine)
+    for j in range(pr.n_layers):
+        assert pr.n_experts(j) == jr.n_experts(j) == 4
+        blob = pr.read_layer(j)
+        for e in range(4):
+            em = pr.expert_meta(j, e)
+            assert em["off"] % 4096 == 0
+            assert pr.expert_nbytes(j, e) == jr.expert_nbytes(j, e)
+            one = pr.read_expert(j, e)
+            np.testing.assert_array_equal(
+                one, blob[em["off"]: em["off"] + em["size"]])
+            whole = pr.expert_weights(j, e, blob)
+            alone = pr.expert_weights(j, e, one, whole_layer=False)
+            ref = jr.expert_weights(j, e, jr.read_layer(j))
+            for key, ql in whole.items():
+                for nm, a in ql.planes.items():
+                    assert torch.equal(a, alone[key].planes[nm])
+                    want = np.asarray(ref[key].planes[nm])
+                    got = a.view(torch.int16) if a.dtype == torch.bfloat16 \
+                        else a
+                    np.testing.assert_array_equal(
+                        got.numpy().view(want.dtype), want)

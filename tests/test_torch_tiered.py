@@ -278,9 +278,32 @@ def test_tiered_engine_skip_calibration(tiny):
 
 
 def test_tiered_refuses_moe(tmp_path):
+    """A mixture-of-experts file streams experts (models/tiered_moe.py) and
+    refuses what the JAX package refuses of it: requant, of the pack or of
+    the RAM tier."""
     path = write_model(str(tmp_path / "moe.gguf"), "moe", "q8_0", seed=1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _port(path, 1, 1)
+    for kw in ({"requant": DType.Q4_K}, {"requant_ram": DType.Q4_K}):
+        with pytest.raises(NotImplementedError, match="requant"):
+            _port(path, 1, 1, **kw)
+
+
+def test_tiered_loads_moe_as_expert_streamer(tmp_path):
+    """load_model_tiered hands an MoE file to the expert streamer (the JAX
+    package's dispatch); forward_tiered and TieredEngine's cache take it."""
+    from ntransformer_tpu_torch.models.tiered_moe import TieredMoEModel
+    path = write_model(str(tmp_path / "moe.gguf"), "moe", "q8_0", seed=1)
+    tm = _port(path, 1, 1)
+    assert isinstance(tm, TieredMoEModel)
+    assert tm.n_resident == tm.arch.n_layers
+    kv = TieredEngine(tm)._make_kv()
+    assert isinstance(kv, pllama.KVCache)
+    got, _, _ = ptiered.forward_tiered(tm, kv, TOKENS, 0)
+    res = load_model(path, device="cpu")
+    want, _, _ = pllama.forward(res.arch, res.weights,
+                                pllama.KVCache.create(res.arch, device="cpu"),
+                                TOKENS, 0)
+    assert torch.equal(got, want)
+    tm.close()
 
 
 def test_tiered_kv_bytes_match_jax():
