@@ -140,7 +140,26 @@ subset of the rest:
      written with the port's writer (Q8_0, Q4_K_M, qwen3moe) against the
      CPU as `real`, the Q8_0 one served as `serve`; and a 4-layer Mixtral
      Q4_K_M GGUF tiered with an LRU smaller than a token's working set and
-     its last layer on disk, bit-equal to the resident model.
+     its last layer on disk, bit-equal to the resident model;
+  http: the user-facing surfaces (python3 chip_smoke.py http runs it
+     alone): a synthetic Llama-3.1-8B Q4_K_M with Llama-3's chat tokens
+     and template (32 layers, resident, fused) served by BatchServer(B = 8)
+     behind HttpFrontend: /health, /stats, 400 and 404, 8 concurrent
+     greedy completions and 8 chat completions equal to BatchServer.run's
+     texts, streamed pieces equal to the text, an abandoned stream's slot
+     freed, and time to first token and served tok/s with 8 and 32 clients
+     arriving together and every 0.1 s (the kernels line's http_launches
+     are all its HTTP traffic's); then repolm512 with a chat template:
+     Engine.chat over two turns (chat_launches; the second turn prefills
+     only its new tokens and is held to a fresh generate of the history),
+     the api's nt_engine_* (resident and streaming), a template-less
+     model's 501, the CLI's --http 0 in a subprocess (a POST, SIGINT, exit
+     0) and --chat on two stdin lines;
+  quality: perplexity on repolm512 on the card in prefill and decode modes
+     (Q8_0, its Q6_K, Q4_K_M and Q4_0 requants, --w8a8 and --w4a8 at
+     load), each nll against the CPU's; the quality gate with every budget
+     row (it must pass) and against the committed fixture (its verdict and
+     failed sub-checks printed); ppl_launches are the card's runs'.
 
 The bkernels phase also holds the batched flash kernel's cache-dot forms
 (dot_impl int8, int8_s, int8_v, bf16) against their twins and the f32
@@ -263,7 +282,7 @@ REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
           "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
-          "cpcards", "spec", "tiered", "moe")
+          "cpcards", "spec", "tiered", "moe", "http", "quality")
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
@@ -2372,29 +2391,13 @@ def requant_dtype(tag: str, name: str):
 
 
 def requantize(src: str, dst: str, tag: str) -> None:
-    """Write `src` (a GGUF) to `dst` with every 2-D weight matrix
-    requantized on the host to requant_dtype(tag, name), with the port's
-    own quantizer and GGUF writer; metadata and other tensors are copied."""
-    from ntransformer_tpu_torch.core.dequant import dequantize
-    from ntransformer_tpu_torch.core.gguf import GGUFReader, GGUFWriter
-    from ntransformer_tpu_torch.core.quant import quantize
-    r = GGUFReader(src)
-    w = GGUFWriter(dst, alignment=r.alignment)
-    for key, value in r.metadata.items():
-        w.add_meta(key, value)
-    for name in r.tensor_order:
-        info = r.info(name)
-        raw = r.raw_bytes(name)
-        if len(info.shape) == 2 and name.endswith(".weight"):
-            dt = requant_dtype(tag, name)
-            x = dequantize(raw, info.dtype, *info.shape)
-            w.add_tensor(name, raw=quantize(x, dt), shape=info.shape,
-                         dtype=dt)
-        else:
-            w.add_tensor(name, raw=bytes(raw), shape=info.shape,
-                         dtype=info.dtype)
-    w.write()
-    r.close()
+    """Write `src` (a GGUF) to `dst` with every weight matrix requantized
+    on the host to requant_dtype(tag, name) by the port's requant tool
+    (its quantizer and GGUF writer); metadata and other tensors are
+    copied."""
+    from ntransformer_tpu_torch.tools.requant_gguf import requant
+    requant(src, dst, lambda name: requant_dtype(tag, name),
+            progress=lambda _msg: None)
 
 
 def quant_real_phase(torch, counters, card: str, tmp: str) -> dict:
@@ -2616,11 +2619,27 @@ def tiered_repolm_phase(torch, counters, card: str, tmp: str) -> dict:
     return out
 
 
-def write_q4km_8b(path: str, n_layers: int) -> None:
+# Llama-3's ids of its chat control tokens and of the plain pieces its
+# template's scaffold spells: write_q4km_8b(chat="llama3") names them
+LLAMA3_CHAT_IDS = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                   128006: "<|start_header_id|>",
+                   128007: "<|end_header_id|>", 128009: "<|eot_id|>",
+                   882: "user", 78191: "assistant", 9125: "system",
+                   271: "\n\n"}
+LLAMA3_TEMPLATE = ("{{ '<|begin_of_text|>' }}{% for m in messages %}"
+                   "{{ '<|start_header_id|>' + m['role'] + "
+                   "'<|end_header_id|>\n\n' + m['content'] + "
+                   "'<|eot_id|>' }}{% endfor %}")
+
+
+def write_q4km_8b(path: str, n_layers: int, chat: str | None = None) -> None:
     """A Llama-3.1-8B-shaped GGUF in Q4_K_M (Q4_K, and Q6_K for ffn_down,
     the embedding and the head) of random valid blocks: random codes, the
     6-bit scales and mins all 8, fixed f16 super-block scales giving |w| ~
-    0.02 (as SYNTH_SCALES), f32 norms of ones."""
+    0.02 (as SYNTH_SCALES), f32 norms of ones. The vocabulary is <t{i}>;
+    chat="llama3" names Llama-3's control tokens and scaffold pieces at
+    their ids (LLAMA3_CHAT_IDS; bos and eos become <|begin_of_text|> and
+    <|end_of_text|>) and adds a tokenizer.chat_template."""
     import numpy as np
     from ntransformer_tpu_torch.core.dequant import pack_kquant_scales
     from ntransformer_tpu_torch.core.dtypes import DType, GGUFValueType
@@ -2656,9 +2675,17 @@ def write_q4km_8b(path: str, n_layers: int) -> None:
           "llama.attention.layer_norm_rms_epsilon": 1e-5,
           "llama.rope.freq_base": 500000.0, "llama.context_length": 8192,
           "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2}
+    tokens = [f"<t{i}>" for i in range(vocab)]
+    if chat is not None:
+        check(chat == "llama3", f"write_q4km_8b: no {chat!r} chat preset")
+        for i, t in LLAMA3_CHAT_IDS.items():
+            tokens[i] = t
+        md.update({"tokenizer.ggml.bos_token_id": 128000,
+                   "tokenizer.ggml.eos_token_id": 128001,
+                   "tokenizer.chat_template": LLAMA3_TEMPLATE})
     for k, v in md.items():
         w.add_meta(k, v)
-    w.add_meta("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(vocab)],
+    w.add_meta("tokenizer.ggml.tokens", tokens,
                vtype=GGUFValueType.ARRAY, elem_type=GGUFValueType.STRING)
 
     def mat(name, rows, cols):
@@ -4541,6 +4568,573 @@ def moe_phase(torch, counters, timer, card: str) -> tuple[dict, dict]:
     return rows, launches
 
 
+# ------------------------------------------------------ user-facing surfaces
+HTTP_KERNELS = ("q4_k_matmul", "q6_k_matmul", "flash_attention",
+                "batched_attention", "kv_update")
+HTTP_B = 8
+HTTP_CTX = 1024
+HTTP_8B_ROOM = 8 << 30  # the 32-layer 8B GGUF (~5.3 GB) and slack
+# ids the synthetic vocabulary's prompts draw from: plain <t{i}> pieces
+HTTP_PIECES = (1000, 120000)
+
+
+def http_call(port: int, path: str, body=None, timeout: float = 600.0):
+    """(status, JSON body) of a GET (body None) or POST to the front end;
+    an HTTP error gives its status and error body."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def http_stream(port: int, path: str, body: dict, timeout: float = 600.0,
+                keep: int | None = None) -> dict:
+    """A streamed request: its SSE pieces, whether [DONE] came, the seconds
+    to the first piece and to the end (host clock, from the send). keep:
+    close the connection after that many pieces (a client going away)."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    pieces, done, first = [], False, None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for line in resp:
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            payload = line[len(b"data: "):]
+            if payload == b"[DONE]":
+                done = True
+                break
+            if first is None:
+                first = time.perf_counter() - t0
+            got = json.loads(payload)
+            pieces.append(got["text"] if "text" in got
+                          else got["delta"]["content"])
+            if keep is not None and len(pieces) >= keep:
+                break
+    return {"pieces": pieces, "done": done, "ttft_s": first,
+            "total_s": time.perf_counter() - t0}
+
+
+def piece_prompt(g, n: int) -> tuple[str, list[int]]:
+    """A prompt of n pieces of the synthetic vocabulary: its text and ids
+    (none of the named chat ids)."""
+    ids = []
+    while len(ids) < n:
+        i = int(g.integers(*HTTP_PIECES))
+        if i not in LLAMA3_CHAT_IDS:
+            ids.append(i)
+    return "".join(f"<t{i}>" for i in ids), ids
+
+
+def http_load(fe, n_clients: int, spacing_s: float, prompts, max_tokens: int
+              ) -> dict:
+    """n_clients streamed completions arriving together (spacing 0) or one
+    every spacing_s: each client's time to its first token and the served
+    tokens per second (completion tokens over the wall from the first send
+    to the last finish), host clock."""
+    res = [None] * n_clients
+    t0 = time.perf_counter()
+
+    def client(i):
+        time.sleep(max(0.0, i * spacing_s - (time.perf_counter() - t0)))
+        res[i] = http_stream(fe.port, "/v1/completions",
+                             {"prompt": prompts[i % len(prompts)],
+                              "max_tokens": max_tokens})
+
+    with ThreadPoolExecutor(n_clients) as ex:
+        list(ex.map(client, range(n_clients)))
+    wall = time.perf_counter() - t0
+    check(all(r["done"] and len(r["pieces"]) == max_tokens for r in res),
+          f"http load {n_clients}@{spacing_s}s: a stream ended short")
+    ttft = sorted(r["ttft_s"] for r in res)
+    return {"clients": n_clients, "spacing_s": spacing_s,
+            "max_tokens": max_tokens, "wall_s": wall,
+            "served_tok_s": n_clients * max_tokens / wall,
+            "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_p90_s": ttft[int(len(ttft) * 0.9)],
+            "ttft_max_s": ttft[-1]}
+
+
+def http_8b(torch, counters, card: str) -> tuple[dict, dict]:
+    """The synthetic Llama-3.1-8B Q4_K_M with Llama-3's chat tokens and
+    template, 32 layers, resident and fused, served by BatchServer(B = 8)
+    behind HttpFrontend(port=0): /health, /stats, 400 and 404; 8 concurrent
+    greedy completions and 8 concurrent chat completions against
+    BatchServer.run of the same requests (every slot's tokens equal: the
+    kernels' launch plans and split counts depend on the shapes and the
+    batch width, not on which slots are live, so a request's rows do not
+    depend on its neighbours); streamed pieces equal to the text; a client
+    that goes away frees its slot; time to first token and served tok/s
+    with 8 and 32 clients arriving together and spaced. Returns (summary,
+    the launch counts of all the HTTP traffic)."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    from ntransformer_tpu_torch.inference.chat import LLAMA3, encode_chat
+    from ntransformer_tpu_torch.inference.http_server import HttpFrontend
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    base = next((d for d in (tempfile.gettempdir(), HERE)
+                 if shutil.disk_usage(d).free >= HTTP_8B_ROOM), None)
+    check(base is not None, f"http: no directory with {HTTP_8B_ROOM >> 30} "
+          f"GiB free for the 8B GGUF")
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(dir=base) as tmp:
+        path = os.path.join(tmp, "llama8b_chat_q4_k_m.gguf")
+        t0 = time.perf_counter()
+        write_q4km_8b(path, 32, chat="llama3")
+        out["gguf_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = load_model(path, max_seq_len=HTTP_CTX, device="cuda",
+                           fuse=True)
+        out["load_s"] = time.perf_counter() - t0
+    tok = model.tokenizer
+    g = np.random.default_rng(15)
+    lens = [300, 12, 150, 40, 230, 7, 90, 64]
+    prompts, pids = zip(*(piece_prompt(g, n) for n in lens))
+    for p, ids in zip(prompts, pids):
+        check(tok.encode(p, add_bos=True) == [tok.bos_id] + ids,
+              "http: a prompt of vocabulary pieces does not encode to its "
+              "pieces' ids")
+    chats = []
+    for i, n in enumerate((20, 60, 5, 120, 33, 8, 77, 2)):
+        msgs = [{"role": "user", "content": piece_prompt(g, n)[0]}]
+        if i % 2:
+            msgs.insert(0, {"role": "system",
+                            "content": piece_prompt(g, 9)[0]})
+        chats.append(msgs)
+    fmt_ids = [encode_chat(tok, LLAMA3, m) for m in chats]
+    check(all(ids[:2] == [128000, 128006] and ids[-4:] == [128006, 78191,
+                                                           128007, 271]
+              for ids in fmt_ids),
+          "http: the chat messages do not render through Llama-3's ids")
+    n_tok = 16
+    greedy = SamplerConfig(temperature=0.0)
+    ref = BatchServer(model, batch_size=HTTP_B, sampler_cfg=greedy)
+    ref.warmup()
+    want = [Request(prompt=p, max_tokens=n_tok) for p in prompts]
+    ref.run(want)
+    want_chat = [Request(prompt="", max_tokens=n_tok, prompt_ids=list(ids))
+                 for ids in fmt_ids]
+    ref.run(want_chat)
+    del ref
+    srv = BatchServer(model, batch_size=HTTP_B, sampler_cfg=greedy)
+    out["warmup_s"] = srv.warmup()  # before the serving thread starts
+    fe = HttpFrontend(srv, port=0, request_timeout_s=600.0)
+    fe.start()
+    try:
+        reset(counters)
+        st, health = http_call(fe.port, "/health")
+        check(st == 200 and health["chat_format"] == "llama3"
+              and health["slots"] == HTTP_B, f"http /health: {st} {health}")
+        for path_, body, code in (
+                ("/v1/completions", {"prompt": 7}, 400),
+                ("/v1/completions", [1], 400),
+                ("/v1/chat/completions", {"messages": []}, 400),
+                ("/v1/chat/completions",
+                 {"messages": [{"role": "user<|eot_id|>", "content": "x"}]},
+                 400),
+                ("/v1/nope", {"prompt": "x"}, 404), ("/nope", None, 404)):
+            st, _ = http_call(fe.port, path_, body)
+            check(st == code, f"http {path_} {body!r}: {st}, want {code}")
+
+        def together(path_, bodies):
+            with ThreadPoolExecutor(len(bodies)) as ex:
+                return list(ex.map(lambda b: http_call(fe.port, path_, b),
+                                   bodies))
+
+        got = together("/v1/completions", [{"prompt": p, "max_tokens": n_tok}
+                                           for p in prompts])
+        got_chat = together("/v1/chat/completions",
+                            [{"messages": m, "max_tokens": n_tok}
+                             for m in chats])
+        texts = [b["choices"][0]["text"] for _, b in got]
+        ctexts = [b["choices"][0]["message"]["content"] for _, b in got_chat]
+        check(all(st == 200 for st, _ in got + got_chat),
+              "http: a concurrent request failed")
+        partings = sum(a != r.text for a, r in zip(texts, want)) + sum(
+            a != r.text for a, r in zip(ctexts, want_chat))
+        print(f"http 8b: {len(texts)} completions and {len(ctexts)} chat "
+              f"completions over HTTP against BatchServer.run: {partings} "
+              f"part", flush=True)
+        check(partings == 0, "http 8b: a greedy text served over HTTP "
+              "differs from BatchServer.run's on the same weights")
+        check(all(b["usage"]["prompt_tokens"] == len(ids) for (_, b), ids in
+                  zip(got_chat, fmt_ids)), "http: chat usage prompt_tokens")
+        s = http_stream(fe.port, "/v1/chat/completions",
+                        {"messages": chats[3], "max_tokens": n_tok})
+        check(s["done"] and "".join(s["pieces"]) == ctexts[3],
+              "http: the streamed pieces differ from the text")
+        # a client that goes away after 4 pieces: its slot frees
+        before = srv.snapshot()["tokens"]
+        http_stream(fe.port, "/v1/completions",
+                    {"prompt": prompts[1], "max_tokens": 600}, keep=4)
+        t0 = time.perf_counter()
+        while (srv.snapshot()["slots_active"]
+               and time.perf_counter() - t0 < 120):
+            time.sleep(0.05)
+        snap = srv.snapshot()
+        served = snap["tokens"] - before
+        check(snap["slots_active"] == 0 and served < 600,
+              f"http: the abandoned stream kept its slot ({snap}, "
+              f"{served} tokens)")
+        out["cancelled_after_tokens"] = served
+        load = {}
+        for n_clients in (8, 32):
+            for spacing in (0.0, 0.1):
+                key = f"{n_clients}_clients_" + (
+                    "together" if not spacing else f"every_{spacing}s")
+                load[key] = http_load(fe, n_clients, spacing, prompts, 32)
+                print(json.dumps({f"http_8b_{key}": load[key]}), flush=True)
+        st, stats = http_call(fe.port, "/stats")
+        check(st == 200 and stats["running"], f"http /stats: {stats}")
+        torch.cuda.synchronize()
+        launches = read(counters)
+    finally:
+        fe.stop()
+    check(not any(t.name in ("nt-serve-loop", "nt-http") and t.is_alive()
+                  for t in threading.enumerate()),
+          "http: a front-end thread outlived stop()")
+    print(f"http 8b launches {launches}", flush=True)
+    check(all(launches[k] > 0 for k in HTTP_KERNELS),
+          f"http 8b: the HTTP path launched a kernel zero times: {launches}")
+    out.update(load=load, stats=stats, launches=launches)
+    del srv, model
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def forced_logits(torch, eng, kv, ids, start: int, toks) -> list:
+    """The logits [V] (f32, CPU) of a prefill of ids[start:] into kv and of
+    each decode step fed toks."""
+    logits, kv, _ = eng._prefill(kv, ids, start=start)
+    out = [logits[0].float().cpu()]
+    for i, t in enumerate(toks[:-1]):
+        logits, kv, _ = eng._decode_step(kv, t, len(ids) + i)
+        out.append(logits[0].float().cpu())
+    return out
+
+
+def chat_turns(eng, cfg, turns) -> tuple[list, list]:
+    """Engine.chat over scripted turns: (printed texts, per turn (prompt
+    ids, prefilled tokens, generated ids))."""
+    printed, calls = [], []
+    real = eng.generate
+    eng.tokenizer = TokenRecorder(eng.tokenizer)
+
+    def spy(prompt, cfg=None, callback=None, *, prompt_ids=None,
+            session=None):
+        text, stats = real(prompt, cfg, callback, prompt_ids=prompt_ids,
+                           session=session)
+        calls.append((list(prompt_ids or []), stats.prefill_tokens,
+                      eng.tokenizer.ids))
+        return text, stats
+    eng.generate = spy
+    lines = iter(list(turns) + [""])
+    try:
+        eng.chat(cfg, input_fn=lambda _: next(lines),
+                 print_fn=printed.append)
+    finally:
+        del eng.generate
+        eng.tokenizer = eng.tokenizer.tok
+    return [p for p in printed[1:] if not p.endswith("tok/s]")], calls
+
+
+def http_repolm(torch, counters, card: str, tmp: str) -> tuple[dict, dict]:
+    """repolm512 on the card: a copy with a Llama-3 chat template written by
+    the port's requant tool (every matrix kept); Engine.chat over two
+    scripted turns (the second prefills only its new tokens; its tokens
+    against a fresh generate of the whole history: teacher-forced logits of
+    the two within max(REAL_LOGIT_RTOL, 2 c), c the fresh run on the card
+    against the CPU, and where the tokens part a top-2 margin at most twice
+    that step's difference); the api's nt_engine_* (greedy text equal to
+    Engine.generate's, streaming=True equal to the resident text, the
+    property calls); a template-less model's 501; the CLI's --http 0 in a
+    subprocess (one POST, SIGINT, drain, exit 0) and --chat with two lines
+    on stdin. Returns (summary, Engine.chat's launch counts)."""
+    import io
+    import shutil
+    import signal
+    from ntransformer_tpu_torch import api, cli
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.inference.engine import (ChatSession, Engine,
+                                                         GenerateConfig)
+    from ntransformer_tpu_torch.inference.http_server import HttpFrontend
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.tools.requant_gguf import requant
+    out = {"card": card}
+    chat_path = os.path.join(tmp, "repolm512_chat.gguf")
+    requant(REPOLM, chat_path, lambda _name: DType.Q8_0,
+            progress=lambda _msg: None,
+            metadata={"tokenizer.chat_template": LLAMA3_TEMPLATE})
+    cfg = GenerateConfig(max_tokens=12, temperature=0.0, repeat_penalty=1.0)
+    turns = ["def rms_norm(x, weight, eps):", "and the rope table?"]
+    eng = Engine.load(chat_path, device="cuda", fuse=True)
+    reset(counters)
+    texts, calls = chat_turns(eng, cfg, turns)
+    torch.cuda.synchronize()
+    chat_launches = read(counters)
+    print(f"chat on {card}: {texts!r}; launches {chat_launches}", flush=True)
+    check(all(chat_launches[k] > 0 for k in ENGINE_KERNELS),
+          f"Engine.chat launched a kernel zero times: {chat_launches}")
+    (ids1, pre1, _), (ids2, pre2, got2) = calls
+    check(ids2[:len(ids1)] == ids1 and pre1 == len(ids1)
+          and 0 < pre2 <= len(ids2) - len(ids1),
+          f"chat turn 2 prefilled {pre2} of {len(ids2)} tokens (turn 1: "
+          f"{len(ids1)})")
+    # the second turn against a fresh generate of the whole history
+    eng.tokenizer = TokenRecorder(eng.tokenizer)
+    try:
+        eng.generate("", cfg, prompt_ids=ids2)
+        fresh = eng.tokenizer.ids
+    finally:
+        eng.tokenizer = eng.tokenizer.tok
+    session = ChatSession()
+    eng.generate("", cfg, prompt_ids=ids1, session=session)
+    n = 0
+    while (n < len(session.ids_in_kv) and n < len(ids2) - 1
+           and session.ids_in_kv[n] == ids2[n]):
+        n += 1
+    check(n >= len(ids1), "chat: the session does not cover turn 1")
+    cpu = Engine.load(chat_path, device="cpu", fuse=True)
+    sess = forced_logits(torch, eng, session.kv, ids2, n, fresh)
+    full = forced_logits(torch, eng, eng._make_kv(), ids2, 0, fresh)
+    ref = forced_logits(torch, cpu, cpu._make_kv(), ids2, 0, fresh)
+    d = [rel_err(a, b) for a, b in zip(sess, full)]
+    c = [rel_err(a, b) for a, b in zip(full, ref)]
+    for i, (di, ci) in enumerate(zip(d, c)):
+        check(di <= max(REAL_LOGIT_RTOL, 2 * ci), f"chat turn 2 step {i}: "
+              f"the session's logits differ from a fresh prefill's by {di} "
+              f"of their range (> max({REAL_LOGIT_RTOL}, 2 * {ci}))")
+    part = next((i for i, (a, b) in enumerate(zip(got2, fresh)) if a != b),
+                None)
+    if part is not None:
+        top = torch.topk(full[part], 2).values
+        margin = float((top[0] - top[1]) / full[part].abs().max())
+        print(f"chat turn 2 leaves the fresh tokens at step {part}: top-2 "
+              f"margin {margin:.5f}, difference {d[part]:.5f}", flush=True)
+        check(margin <= 2 * d[part], f"chat turn 2 step {part}: the tokens "
+              f"part at a top-2 margin of {margin} (> 2 * {d[part]})")
+    out["chat"] = {"texts": texts, "turn2_prefill": pre2,
+                   "turn2_prompt": len(ids2), "session_vs_fresh": d,
+                   "fresh_vs_cpu": c, "parting_step": part}
+    print(json.dumps({"chat_repolm512": out["chat"]}), flush=True)
+    del cpu
+
+    # the C-shaped API
+    prompt = "def rms_norm(x, weight, eps):\n"
+    want, _ = Engine.load(REPOLM, max_seq_len=512, device="cuda").generate(
+        prompt, GenerateConfig(max_tokens=16, temperature=0.0))
+    api_texts = {}
+    for streaming in (False, True):
+        path = REPOLM
+        if streaming:  # the tiered loader writes its pack beside the model
+            path = os.path.join(tmp, "repolm512_api.gguf")
+            shutil.copy(REPOLM, path)
+        h = api.nt_engine_create()
+        check(api.nt_engine_load(h, path, max_ctx=512, streaming=streaming)
+              == api.NT_OK, f"api load (streaming={streaming}) failed")
+        check((api.nt_engine_vocab_size(h), api.nt_engine_n_layers(h),
+               api.nt_engine_hidden_size(h)) == (384, 6, 512),
+              "api: repolm512's properties")
+        api_texts[streaming] = api.nt_engine_generate(h, prompt, 16, 0.0)
+        api.nt_engine_destroy(h)
+    check(api_texts[False] == want, f"api text {api_texts[False]!r} differs "
+          f"from Engine.generate's {want!r}")
+    check(api_texts[True] == want, f"api streaming text {api_texts[True]!r} "
+          f"differs from the resident {want!r}")
+    out["api_text"] = want
+
+    # a model without a template answers the chat endpoint 501
+    srv = BatchServer(load_model(REPOLM, device="cuda"), batch_size=2)
+    srv.warmup()
+    fe = HttpFrontend(srv, port=0)
+    fe.start()
+    try:
+        st, body = http_call(fe.port, "/v1/chat/completions",
+                             {"messages": [{"role": "user", "content": "x"}]})
+    finally:
+        fe.stop()
+    check(st == 501, f"http chat without a template: {st} {body}")
+
+    # the CLI: --http 0 in its own process, then --chat on two stdin lines
+    srv = BatchServer(load_model(REPOLM, device="cuda", fuse=True),
+                      batch_size=8, sampler_cfg=SamplerConfig(temperature=0))
+    r = Request(prompt=prompt, max_tokens=16)
+    srv.run([r])
+    del srv
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ntransformer_tpu_torch", "-m", REPOLM,
+         "-t", "0", "--http", "0", "--batch-size", "8"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE))
+    try:
+        line = proc.stdout.readline()
+        check(line.startswith("listening on http://127.0.0.1:"),
+              f"cli --http printed {line!r}")
+        port = int(line.split(":")[2].split(" ")[0])
+        st, body = http_call(port, "/v1/completions",
+                             {"prompt": prompt, "max_tokens": 16})
+        proc.send_signal(signal.SIGINT)
+        rest, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0 and "draining" in rest,
+          f"cli --http: exit {proc.returncode} after SIGINT: {err[-2000:]}")
+    check(st == 200 and body["choices"][0]["text"] == r.text,
+          f"cli --http answered {st} {body}, want {r.text!r}")
+    buf = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("\n".join(turns) + "\n\n")
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-m", chat_path, "--chat", "-n", "12", "-t", "0",
+                           "--repeat-penalty", "1.0", "--device", "cuda"])
+    finally:
+        sys.stdin = stdin
+    # input() writes its "> " prompt to stdout, ahead of each reply
+    lines = buf.getvalue().splitlines()
+    replies = [ln.removeprefix("> ") for ln in lines[1:]
+               if not ln.endswith("tok/s]") and ln != "> "]
+    check(rc == 0 and "llama3 template" in lines[0] and replies == texts,
+          f"cli --chat: exit {rc}, printed {lines!r}, want {texts!r}")
+    out["cli_http_text"] = r.text
+    return out, chat_launches
+
+
+def http_phase(torch, counters, card: str) -> tuple[dict, dict, dict]:
+    """The user-facing surfaces: the 8B over HTTP, then repolm512's chat,
+    API and CLI modes. Returns (summary, HTTP launches, chat launches)."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {}
+    out["8b"], http_launches = http_8b(torch, counters, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["repolm512"], chat_launches = http_repolm(torch, counters, card,
+                                                      tmp)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"http": out}), flush=True)
+    return out, http_launches, chat_launches
+
+
+# quality: card against CPU nll per token (a mean over 254 tokens): the
+# Q8_0, K-quant and bf16-cache paths differ only by rounding; W8A8 and
+# W4A8 quantize activations, where an order difference moves a whole int8
+# step. The smallest quality-gate budget is 0.02.
+QUALITY_NLL_TOL = {"plain": 5e-3, "act": 2e-2}
+QUALITY_KERNELS = ("q8_0_matmul", "q4_k_matmul", "q6_k_matmul",
+                   "q4_0_matmul", "flash_attention", "w8a8_matmul",
+                   "w4a8_decode", "w4a8_matmul")
+
+
+def quality_phase(torch, counters, card: str) -> tuple[dict, dict]:
+    """The quality tools on repolm512 on the card: perplexity in prefill and
+    decode modes (ctx 128, 2 windows of the README) for the file (Q8_0),
+    its Q6_K, Q4_K_M and Q4_0 requants (the port's requant tool) and the
+    file with --w8a8 and --w4a8 at load, each nll beside the same run on
+    the CPU within QUALITY_NLL_TOL; then the quality gate at ctx 256, 2
+    windows with every PPL_BUDGET row (fresh fixtures; it must pass) and
+    against the committed fixture (the verdict and any failed sub-check
+    printed). Returns
+    (summary, the launch counts of the card's perplexity and gate runs)."""
+    import tempfile
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.models.presets import q4_k_m_policy
+    from ntransformer_tpu_torch.tools import quality_gate as gate
+    from ntransformer_tpu_torch.tools.perplexity import perplexity
+    from ntransformer_tpu_torch.tools.requant_gguf import requant
+    t_phase = time.perf_counter()
+    readme = os.path.join(HERE, "README.md")
+    ctx, windows = 128, 2
+    out = {"card": card, "ctx": ctx, "windows": windows, "rows": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {"q8_0": REPOLM}
+        for tag, target in (("q6_k", DType.Q6_K), ("q4_k_m", q4_k_m_policy),
+                            ("q4_0", DType.Q4_0)):
+            files[tag] = os.path.join(tmp, f"repolm512_{tag}.gguf")
+            requant(REPOLM, files[tag], target, progress=lambda _msg: None)
+        rows = [(tag, path, {}) for tag, path in files.items()]
+        rows += [("w8a8", REPOLM, {"w8a8": True}),
+                 ("w4a8", REPOLM, {"w4a8": True})]
+        tok = load_model(REPOLM, device="cpu", n_layers=1).tokenizer
+        with open(readme, encoding="utf-8") as f:
+            ids = tok.encode(f.read(), add_bos=True)[: windows * ctx]
+        reset(counters)
+        card_nll = {}
+        for tag, path, kw in rows:
+            model = load_model(path, device="cuda", **kw)
+            for mode in ("prefill", "decode"):
+                t0 = time.perf_counter()
+                r = perplexity(model, ids, ctx, mode=mode)
+                card_nll[tag, mode] = (r["nll_per_token"],
+                                       time.perf_counter() - t0)
+            del model
+        t0 = time.perf_counter()
+        fx = os.path.join(tmp, "fixtures.json")
+        res = gate.run_gate(REPOLM, readme, list(gate.PPL_BUDGET), fx, True,
+                            ctx=256, windows=2, device="cuda")
+        gate_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read(counters)
+        for tag, path, kw in rows:
+            model = load_model(path, device="cpu", **kw)
+            for mode in ("prefill", "decode"):
+                cpu = perplexity(model, ids, ctx, mode=mode)["nll_per_token"]
+                nll, secs = card_nll[tag, mode]
+                lim = QUALITY_NLL_TOL["act" if kw else "plain"]
+                row = {"row": tag, "mode": mode, "nll_card": nll,
+                       "nll_cpu": cpu, "diff": abs(nll - cpu), "limit": lim,
+                       "card_s": secs}
+                print(json.dumps({"ppl": row}), flush=True)
+                out["rows"].append(row)
+                check(abs(nll - cpu) <= lim, f"ppl {tag} {mode}: the card's "
+                      f"nll {nll} differs from the CPU's {cpu} by more than "
+                      f"{lim}")
+            del model
+    print(f"quality gate on {card} ({gate_s:.1f} s): pass {res['pass']}, "
+          f"failed {res['failed']}, ppl {res['checks']['ppl']}, goldens "
+          f"logit_rel_err {res['checks']['goldens']['logit_rel_err']}",
+          flush=True)
+    check(res["pass"], f"quality gate failed: {res['failed']}: "
+          f"{[res['checks'][c].get('errors') for c in res['failed']]}")
+    committed = REPOLM + ".quality.json"
+    old = gate.run_gate(REPOLM, readme, [], committed, False, ctx=256,
+                        windows=2, device="cuda")
+    print(f"quality gate against the committed fixture {committed}: pass "
+          f"{old['pass']}, failed sub-checks {old['failed']}: "
+          f"{[old['checks'][c].get('errors') for c in old['failed']]}",
+          flush=True)
+    print(f"quality launches {launches}", flush=True)
+    check(all(launches[k] > 0 for k in QUALITY_KERNELS),
+          f"quality: a kernel of the path launched zero times: {launches}")
+    out.update(gate={"pass": res["pass"], "failed": res["failed"],
+                     "ppl": res["checks"]["ppl"], "seconds": gate_s,
+                     "logit_rel_err":
+                         res["checks"]["goldens"]["logit_rel_err"]},
+               committed_fixture={"pass": old["pass"],
+                                  "failed": old["failed"]},
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    print(json.dumps({"quality": out}), flush=True)
+    return out, launches
+
+
 # ------------------------------------------------------------------- main
 class DotCounter:
     """The launch count of one cache-dot form of batched flash, read and
@@ -4714,6 +5308,11 @@ def main() -> int:
     select_rows, moe_launches = {}, {}
     if "moe" in phases:
         select_rows, moe_launches = moe_phase(torch, counters, timer, card)
+    http_launches, chat_launches, ppl_launches = {}, {}, {}
+    if "http" in phases:
+        _, http_launches, chat_launches = http_phase(torch, counters, card)
+    if "quality" in phases:
+        _, ppl_launches = quality_phase(torch, counters, card)
 
     kernels = []
     mm_tol = f"max|kernel-plain| <= {MATMUL_RTOL} * max|plain|"
@@ -4761,6 +5360,9 @@ def main() -> int:
             "engine_launches": engine_launches.get(name, 0),
             "spec_launches": spec_launches.get(name, 0),
             "moe_launches": moe_launches.get(name, 0),
+            "http_launches": http_launches.get(name, 0),
+            "chat_launches": chat_launches.get(name, 0),
+            "ppl_launches": ppl_launches.get(name, 0),
             "select": select_rows.get(name),
             "max_abs_err": err, "tol": tols.get(name, mm_tol),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

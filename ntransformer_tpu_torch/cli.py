@@ -1,20 +1,23 @@
 """CLI of the port: the JAX package's parser, flag for flag, plus --device.
 
-It runs resident generation (bf16 or --kv-int8 cache), --benchmark and
---serve (continuous batching over a prompts file, with --batch-size,
---prefix-cache, --kv-int8 and self-speculative serving --spec-k K
-[--spec-draft-layers N]) on one device, each in the file's formats or
-requantized at load to W4A8 (--w4a8) or W8A8 (--w8a8); speculative decoding
-with a separate draft model (--draft-model, --draft-k), resident or tiered;
-tiered streaming (--streaming, --max-hbm-layers, --max-ram-layers,
---requant-q4k, --requant-ram, and --self-spec, which streams and drafts on
-the resident prefix; automatic when the file does not fit the card's free
-memory); and context-parallel generation and --benchmark (--cp N: the cache
-split along the sequence over N shards, one on each of the first N cards,
-or all on the CPU with --device cpu). Every other mode exits with 2 and
-names the ROADMAP item that ports it; the JAX CLI's refusals (--cp with
---serve, --draft-model with --cp/--tp/--ep, --serve with
---draft-model/--self-spec/--streaming, --w4a8/--w8a8 with streaming or
+It runs resident generation (bf16 or --kv-int8 cache), --benchmark, --chat
+(the model's chat template and a session cache across turns, or the raw
+loop without one), --serve (continuous batching over a prompts file, with
+--batch-size, --prefix-cache, --kv-int8 and self-speculative serving
+--spec-k K [--spec-draft-layers N]) and --http PORT [--host] (the same
+server behind the HTTP front end, until interrupted) on one device, each in
+the file's formats or requantized at load to W4A8 (--w4a8) or W8A8
+(--w8a8); speculative decoding with a separate draft model (--draft-model,
+--draft-k), resident or tiered; tiered streaming (--streaming,
+--max-hbm-layers, --max-ram-layers, --requant-q4k, --requant-ram, and
+--self-spec, which streams and drafts on the resident prefix; automatic
+when the file does not fit the card's free memory); and context-parallel
+generation and --benchmark (--cp N: the cache split along the sequence over
+N shards, one on each of the first N cards, or all on the CPU with --device
+cpu). The multi-GPU modes (--tp, --ep, --dp) exit with 2 and name the
+ROADMAP item that ports them; the JAX CLI's refusals (--serve with --http,
+--cp with --serve/--http, --draft-model with --cp/--tp/--ep, --serve/--http
+with --draft-model/--self-spec/--streaming, --w4a8/--w8a8 with streaming or
 --cp, --kv-int8 with --cp) exit with 2 and the JAX messages.
 
 This module is the one place of the port that reads the JAX package's
@@ -39,9 +42,6 @@ import sys
 
 # mode → why it is refused (the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "--http": "the HTTP server is ROADMAP queue 1 item 9 "
-              "(inference/http_server.py)",
-    "--chat": "chat templates are ROADMAP queue 1 item 9 (inference/chat.py)",
     "--tp": "tensor parallelism (and so --cp with --tp) is ROADMAP queue "
             "1 item 14",
     "--ep": "expert parallelism is ROADMAP queue 1 item 14",
@@ -108,11 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refused_mode(args) -> str | None:
     """The first requested mode this slice does not run, or None."""
-    asked = {
-        "--http": args.http is not None,
-        "--chat": args.chat,
-        "--tp": args.tp, "--ep": args.ep, "--dp": args.dp,
-    }
+    asked = {"--tp": args.tp, "--ep": args.ep, "--dp": args.dp}
     return next((mode for mode, on in asked.items() if on), None)
 
 
@@ -154,14 +150,21 @@ def main(argv=None) -> int:
                   "garbage; weights across layers are uncorrelated). "
                   "Refusing.")
         return 2
-    if args.cp and args.serve:
-        log.error("--serve shards slots over dp and weights over tp; "
+    if args.serve and args.http is not None:
+        log.error("--serve replays a prompts file to completion; --http is "
+                  "the live network server — pick one")
+        return 2
+    server_mode = ("--serve" if args.serve
+                   else "--http" if args.http is not None else None)
+    if server_mode and args.cp:
+        log.error(f"{server_mode} shards slots over dp and weights over tp; "
                   "context parallelism (--cp) is a single-request "
                   "long-context mode and does not compose with the "
                   "batch server")
         return 2
-    if args.serve and (args.draft_model or args.self_spec or args.streaming):
-        log.error("--serve is the resident continuous-batching loop; "
+    if server_mode and (args.draft_model or args.self_spec
+                        or args.streaming):
+        log.error(f"{server_mode} is the resident continuous-batching loop; "
                   "--draft-model/--self-spec/--streaming are "
                   "single-request engine modes and do not compose "
                   "with it")
@@ -175,13 +178,13 @@ def main(argv=None) -> int:
     if mode is not None:
         log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
                   "port runs resident, tiered and context-parallel "
-                  "generation, --benchmark and --serve.")
+                  "generation, --benchmark, --chat, --serve and --http.")
         return 2
     if args.w4a8 and args.w8a8:
         log.error("--w4a8 and --w8a8 are mutually exclusive (pick the "
                   "decode-optimized or the serving format)")
         return 2
-    if args.serve:
+    if server_mode:
         return serve(args)
 
     stream = should_stream(args.model, args)
@@ -256,6 +259,9 @@ def main(argv=None) -> int:
                              w8a8=args.w8a8)
 
     try:
+        if args.chat:
+            engine.chat(cfg)
+            return 0
         if args.benchmark:
             stats = engine.benchmark(args.prompt, n_tokens=args.bench_tokens)
             print(stats.report(), file=sys.stderr)
@@ -285,7 +291,9 @@ def main(argv=None) -> int:
 
 def serve(args) -> int:
     """--serve: continuous batching over a prompts file (one prompt per
-    line); prints each completion and the aggregate throughput."""
+    line); prints each completion and the aggregate throughput. --http:
+    the same server behind the HTTP front end until interrupted (SIGINT
+    drains the in-flight requests and exits 0)."""
     from .inference.sampler import SamplerConfig
     from .inference.serve import BatchServer, Request
     from .models.loader import load_model
@@ -312,6 +320,10 @@ def serve(args) -> int:
                           top_p=args.top_p,
                           repeat_penalty=args.repeat_penalty,
                           seed=args.seed))
+    if args.http is not None:
+        from .inference.http_server import serve_http
+        serve_http(srv, host=args.host, port=args.http)
+        return 0
     with open(args.serve) as f:
         prompts = [ln.rstrip("\n") for ln in f if ln.strip()]
     # the replay file is written by the operator (trusted): chat-template

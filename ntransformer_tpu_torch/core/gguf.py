@@ -301,15 +301,15 @@ class GGUFWriter:
                     elem_type = GGUFValueType.FLOAT32
                 else:
                     elem_type = GGUFValueType.INT32
-            out = struct.pack("<IQ", int(elem_type), len(value))
+            # one join: appending to a bytes object copies it each time,
+            # quadratic in a 128k-token vocabulary
+            parts = [struct.pack("<IQ", int(elem_type), len(value))]
             if elem_type == GGUFValueType.STRING:
-                for v in value:
-                    out += self._pack_str(v)
+                parts += [self._pack_str(v) for v in value]
             else:
-                fmt = self._SCALAR_FMT[elem_type]
-                for v in value:
-                    out += struct.pack("<" + fmt, v)
-            return out
+                fmt = "<" + self._SCALAR_FMT[elem_type]
+                parts += [struct.pack(fmt, v) for v in value]
+            return b"".join(parts)
         return struct.pack("<" + self._SCALAR_FMT[vtype], value)
 
     def write(self):

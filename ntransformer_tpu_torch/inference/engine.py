@@ -18,6 +18,9 @@ cache rollback is ever needed. `generate_self_speculative_fused` runs one
 iteration as a function on tensors (`spec_iter_greedy`): the draft argmaxes
 stay on the card and the host reads (emit, n_acc) once an iteration.
 
+`chat` is the REPL of the CLI's --chat: with the model's chat template
+(inference/chat.py) a ChatSession carries the cache across turns.
+
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, early exit,
 self-speculation drafting on the resident prefix and a separate resident
@@ -101,6 +104,10 @@ class ChatSession:
 
     kv: object | None = None
     ids_in_kv: list[int] = field(default_factory=list)
+
+    def reset(self) -> None:
+        self.kv = None
+        self.ids_in_kv = []
 
 
 def _bucket(n: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048,
@@ -437,6 +444,42 @@ class Engine:
         stats.decode_tokens = len(out_ids)
         stats.decode_ms = (time.perf_counter() - t0) * 1e3
         return tok.decode(out_ids), stats
+
+    # --- chat ----------------------------------------------------------------
+    def chat(self, cfg: GenerateConfig | None = None, input_fn=input,
+             print_fn=print):
+        """Chat REPL. With a recognized chat template (the GGUF's
+        tokenizer.chat_template, inference/chat.py) each turn renders the
+        whole message history through the model's own format, and a
+        ChatSession carries the cache across turns, so a turn prefills only
+        its new tokens; without a template each line goes to generate()
+        alone (the raw stateless loop)."""
+        from .chat import detect_format, encode_chat
+        mdl = self.model if self.model is not None else getattr(self, "tm",
+                                                                None)
+        fmt = (detect_format(mdl.config.metadata, self.tokenizer)
+               if mdl is not None else None)
+        print_fn(f"Chat mode ({fmt.name + ' template' if fmt else 'raw'})."
+                 f" Empty line or 'exit' to quit.")
+        history: list[dict] = []
+        session = ChatSession()
+        while True:
+            try:
+                line = input_fn("> ")
+            except EOFError:
+                break
+            if not line or line.strip() == "exit":
+                break
+            if fmt is None:
+                text, stats = self.generate(line, cfg)
+            else:
+                history.append({"role": "user", "content": line})
+                ids = encode_chat(self.tokenizer, fmt, history)
+                text, stats = self.generate("", cfg, prompt_ids=ids,
+                                            session=session)
+                history.append({"role": "assistant", "content": text})
+            print_fn(text)
+            print_fn(f"[{stats.decode_tps:.2f} tok/s]")
 
     def benchmark(self, prompt: str = "The capital of France is",
                   n_tokens: int = 64, *,

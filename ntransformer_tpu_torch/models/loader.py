@@ -55,14 +55,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def load_qlinear_host(reader: GGUFReader, name: str) -> QLinear:
+def load_qlinear_host(reader: GGUFReader, name: str,
+                      compute: str = "quant") -> QLinear:
     """One weight matrix as host planes (numpy): the planes of a ported
     quantized format, or an f32 [K, N] 'w' plane for float matrices (bf16
-    once placed)."""
+    once placed). compute="bf16" dequantizes every matrix to such a
+    plane."""
     info = reader.info(name)
     n, k = info.shape  # file rows = out_features
     raw = reader.raw_bytes(name)
-    if info.dtype not in LAYOUTS:
+    if compute == "bf16" or info.dtype not in LAYOUTS:
         w = dequantize(raw, info.dtype, n, k)  # [N, K] f32
         return QLinear(DType.BF16, k, n, {"w": np.ascontiguousarray(w.T)})
     if info.dtype not in PORTED_QUANT:
@@ -106,7 +108,8 @@ def rope_freq_factors(reader: GGUFReader) -> np.ndarray | None:
                       info.dtype, 1, n).reshape(-1)
 
 
-def load_qlinear_experts(reader: GGUFReader, name: str) -> QLinear:
+def load_qlinear_experts(reader: GGUFReader, name: str,
+                         compute: str = "quant") -> QLinear:
     """A stacked expert matrix ([E, N, K] in the file: llama.cpp's
     ffn_*_exps) as host planes with a leading expert axis [E, rows, N]:
     each expert relayouts as a 2-D matrix does, and moe_ffn indexes the
@@ -115,7 +118,7 @@ def load_qlinear_experts(reader: GGUFReader, name: str) -> QLinear:
     e, n, k = info.shape
     raw = np.frombuffer(reader.raw_bytes(name), np.uint8)
     per = raw.size // e
-    if info.dtype not in LAYOUTS:
+    if compute == "bf16" or info.dtype not in LAYOUTS:
         w = np.stack([np.ascontiguousarray(
             dequantize(raw[i * per:(i + 1) * per], info.dtype, n, k).T)
             for i in range(e)])
@@ -128,10 +131,12 @@ def load_qlinear_experts(reader: GGUFReader, name: str) -> QLinear:
                    {nm: np.stack([p[nm] for p in parts]) for nm in parts[0]})
 
 
-def load_layer_host(reader: GGUFReader, i: int) -> LayerWeights:
+def load_layer_host(reader: GGUFReader, i: int,
+                    compute: str = "quant") -> LayerWeights:
     """One layer's weights on the host (numpy planes and vectors). A
     mixture-of-experts layer carries its f32 router (a float matrix, bf16
-    once placed) and the stacked expert matrices, and no dense FFN."""
+    once placed) and the stacked expert matrices, and no dense FFN.
+    compute: as load_qlinear_host."""
     pre = f"blk.{i}."
     moe = pre + "ffn_gate_inp.weight" in reader
 
@@ -139,19 +144,20 @@ def load_layer_host(reader: GGUFReader, i: int) -> LayerWeights:
         full = pre + name
         return load_norm(reader, full) if full in reader else None
 
+    def mat(name):
+        return load_qlinear_host(reader, pre + name, compute)
+
     def dense(name):
-        full = pre + name
-        return load_qlinear_host(reader, full) if full in reader else None
+        return mat(name) if pre + name in reader else None
 
     def experts(name):
-        return load_qlinear_experts(reader, pre + name) if moe else None
+        return (load_qlinear_experts(reader, pre + name, compute) if moe
+                else None)
 
     return LayerWeights(
         attn_norm=load_norm(reader, pre + "attn_norm.weight"),
-        wq=load_qlinear_host(reader, pre + "attn_q.weight"),
-        wk=load_qlinear_host(reader, pre + "attn_k.weight"),
-        wv=load_qlinear_host(reader, pre + "attn_v.weight"),
-        wo=load_qlinear_host(reader, pre + "attn_output.weight"),
+        wq=mat("attn_q.weight"), wk=mat("attn_k.weight"),
+        wv=mat("attn_v.weight"), wo=mat("attn_output.weight"),
         ffn_norm=load_norm(reader, pre + "ffn_norm.weight"),
         w_gate=dense("ffn_gate.weight"),
         w_up=dense("ffn_up.weight"),
@@ -252,28 +258,38 @@ class LoadedModel:
 
 
 def load_model(path: str, *, max_seq_len: int | None = None,
-               fuse: bool = False, device="cuda", w4a8: bool = False,
+               compute: str = "quant", n_layers: int | None = None,
+               with_tokenizer: bool = True, fuse: bool = False,
+               device="cuda", w4a8: bool = False,
                w8a8: bool = False) -> LoadedModel:
     """Load a GGUF model fully resident on `device` (the card by default;
-    raises without CUDA unless device="cpu"). fuse=True builds the fused
-    wqkv / w_gate_up matrices of the single-device resident path.
-    w4a8=True / w8a8=True (mutually exclusive) requantize every eligible
-    matrix to that engine-native format on the host before placement; the
-    gather table keeps its format, a tied head gets a converted copy.
-    Changes numerics."""
+    raises without CUDA unless device="cpu"). compute="quant" keeps the
+    quantized planes (the kernels dequantize on the fly); "bf16"
+    dequantizes every matrix at load to a bf16 float matrix (a plain
+    product, the quality tools' reference compute). n_layers limits the
+    stack. fuse=True builds the fused wqkv / w_gate_up matrices of the
+    single-device resident path. w4a8=True / w8a8=True (mutually exclusive)
+    requantize every eligible matrix to that engine-native format on the
+    host before placement; the gather table keeps its format, a tied head
+    gets a converted copy. Changes numerics."""
     if w4a8 and w8a8:
         raise ValueError("w4a8 and w8a8 are mutually exclusive")
+    if compute not in ("quant", "bf16"):
+        raise ValueError(f"compute must be 'quant' or 'bf16', got "
+                         f"{compute!r}")
     target = DType.W4A8 if w4a8 else DType.W8A8 if w8a8 else None
     dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = ModelConfig.from_gguf_metadata(reader.metadata, max_seq_len)
+    if n_layers is not None:
+        cfg.n_layers = n_layers
     arch = Arch.from_config(cfg)
 
     def host_layer(i):
-        lw = load_layer_host(reader, i)
+        lw = load_layer_host(reader, i, compute)
         return lw if target is None else _convert_layer(lw, target)
 
-    embed_host = load_qlinear_host(reader, "token_embd.weight")
+    embed_host = load_qlinear_host(reader, "token_embd.weight", compute)
     embed = qlinear_to_device(embed_host, dev)
     stacked = stack_layers([layer_to_device(host_layer(i), dev)
                             for i in range(cfg.n_layers)])
@@ -283,7 +299,7 @@ def load_model(path: str, *, max_seq_len: int | None = None,
         load_norm(reader, "output_norm.weight")).to(dev)
     tied = "output.weight" not in reader
     head_host = (embed_host if tied
-                 else load_qlinear_host(reader, "output.weight"))
+                 else load_qlinear_host(reader, "output.weight", compute))
     if target is not None and _ENGINE_FORMATS[target][0](head_host):
         lm_head = qlinear_to_device(_ENGINE_FORMATS[target][1](head_host),
                                     dev)
@@ -301,6 +317,6 @@ def load_model(path: str, *, max_seq_len: int | None = None,
     weights = ModelWeights(embed=embed, layers=stacked,
                            output_norm=output_norm, lm_head=lm_head,
                            rope_cos=cos, rope_sin=sin)
-    return LoadedModel(cfg, arch, weights,
-                       Tokenizer.from_gguf_metadata(reader.metadata), reader,
-                       dev)
+    tok = (Tokenizer.from_gguf_metadata(reader.metadata) if with_tokenizer
+           else None)
+    return LoadedModel(cfg, arch, weights, tok, reader, dev)

@@ -1,10 +1,16 @@
 """Port CLI on the CPU: resident generation (bf16 and --kv-int8 caches),
---benchmark, --serve, tiered streaming and speculation (--self-spec,
---draft-model, --serve --spec-k) run; every mode the port does not run yet
-exits with 2 and names its ROADMAP item; the refusals the JAX CLI makes of
-the ported modes are the port's too."""
+--benchmark, --serve, --chat, --http, tiered streaming and speculation
+(--self-spec, --draft-model, --serve --spec-k) run; every mode the port
+does not run yet exits with 2 and names its ROADMAP item; the refusals the
+JAX CLI makes of the ported modes are the port's too."""
+import io
+import json
 import os
 import shutil
+import signal
+import subprocess
+import sys
+import urllib.request
 
 import pytest
 
@@ -52,13 +58,21 @@ def test_benchmark_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--http", "8080"], ["--chat"],
     ["--tp", "2"], ["--cp", "2", "--tp", "2"], ["--ep", "2"], ["--dp", "2"],
 ], ids=lambda f: f[0])
 def test_unported_modes_exit_2_naming_the_roadmap(flags, capsys):
     assert cli.main(BASE + flags) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP" in err
+
+
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"]],
+                         ids=lambda f: f[0])
+def test_http_over_multi_gpu_axes_stays_refused(flags, capsys):
+    """--http over --tp/--dp waits for the multi-GPU axes (item 14)."""
+    assert cli.main(BASE + ["--http", "0"] + flags) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and "item 14" in err
 
 
 def test_delta_model_refused(capsys):
@@ -244,3 +258,92 @@ def test_serve_attn_buckets_env_matches_jax(buckets, tmp_path, monkeypatch,
     want = JBatchServer(jax_load_model(path), batch_size=2)._attn_ladder
     assert servers[0]._attn_ladder == want
     assert bool(want) == (buckets != "0")
+
+
+@pytest.mark.parametrize("flags,says", [
+    (["--serve", "p.txt", "--http", "0"], "pick one"),
+    (["--http", "0", "--cp", "2"], "does not compose with the batch server"),
+    (["--http", "0", "--draft-model", "d.gguf"], "do not compose"),
+    (["--http", "0", "--self-spec"], "do not compose"),
+    (["--http", "0", "--streaming"], "do not compose"),
+], ids=["serve-http", "http-cp", "http-draft", "http-self-spec",
+        "http-streaming"])
+def test_http_refusals_match_jax(flags, says, capsys):
+    """The JAX CLI's refusals of --http: with --serve, and with --cp,
+    --draft-model, --self-spec or --streaming; exit 2, the JAX message."""
+    assert cli.main(BASE + flags) == 2
+    port_err = capsys.readouterr().err
+    assert jcli.main(["-m", MODEL, "-n", "4"] + flags) == 2
+    jax_err = capsys.readouterr().err
+    assert says in port_err and says in jax_err
+    tail = lambda e: e.strip().splitlines()[-1].split(": ", 1)[-1]
+    assert tail(port_err) == tail(jax_err)
+
+
+@pytest.fixture(scope="module")
+def chat_gguf(tmp_path_factory):
+    from tools.make_test_gguf import write_model
+    d = tmp_path_factory.mktemp("chat")
+    return write_model(str(d / "chat.gguf"), "tiny", "q8_0", seed=44,
+                       chat="llama3")
+
+
+@pytest.mark.parametrize("which", ["template", "raw", "tiered"])
+def test_chat_prints_the_jax_text(which, chat_gguf, tmp_path, monkeypatch,
+                                  capsys):
+    """--chat reads turns from stdin until an empty line: the template
+    (llama3 vocabulary), the raw loop (repolm512, no template) and the
+    tiered engine print the JAX CLI's texts (the tok/s lines aside)."""
+    path = MODEL if which == "raw" else chat_gguf
+    flags = ["-n", "5", "-t", "0", "--chat"]
+    if which == "tiered":
+        path = str(tmp_path / "chat.gguf")
+        shutil.copy(chat_gguf, path)
+        flags += ["--streaming", "--max-hbm-layers", "1"]
+    lines = "def f(x):\nreturn\n\n"
+    texts = lambda out: [ln for ln in out.splitlines()
+                         if not ln.endswith("tok/s]")]
+    monkeypatch.setattr(sys, "stdin", io.StringIO(lines))
+    assert cli.main(["-m", path, "--device", "cpu"] + flags) == 0
+    got = texts(capsys.readouterr().out)
+    monkeypatch.setattr(sys, "stdin", io.StringIO(lines))
+    assert jcli.main(["-m", path] + flags) == 0
+    want = texts(capsys.readouterr().out)
+    assert got == want and len(got) >= 3
+    assert ("raw" if which == "raw" else "llama3 template") in got[0]
+
+
+def test_http_subprocess_serves_and_drains_on_sigint(chat_gguf):
+    """--http 0 in its own process: it prints the bound port, answers a
+    POST with the greedy text of --serve on the same prompt, and on SIGINT
+    drains and exits 0."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ntransformer_tpu_torch", "-m", chat_gguf,
+         "--device", "cpu", "-t", "0", "--http", "0", "--batch-size", "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=REPO)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("listening on http://127.0.0.1:"), line
+        port = int(line.split(":")[2].split(" ")[0])
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/completions",
+            data=json.dumps({"prompt": "alpha beta", "max_tokens": 4}
+                            ).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = json.loads(resp.read())
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert "draining" in out
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    r = Request(prompt="alpha beta", max_tokens=4)
+    BatchServer(load_model(chat_gguf, device="cpu"), batch_size=2).run([r])
+    assert body["choices"][0]["text"] == r.text

@@ -69,6 +69,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "CPEngine.load('models/repolm512_q8.gguf', cp=1)",
     "from ntransformer_tpu_torch.parallel.cp import make_cp_mesh\n"
     "make_cp_mesh(1)",
+    "from ntransformer_tpu_torch.tools.perplexity import main\n"
+    "main(['-m', 'models/repolm512_q8.gguf', '-f', 'README.md'])",
+    "from ntransformer_tpu_torch.tools.quality_gate import run_gate\n"
+    "run_gate('models/repolm512_q8.gguf', 'README.md', [], "
+    "'/nonexistent/fx.json', False)",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     r = _run("import torch\nassert not torch.cuda.is_available()\n" + call)
@@ -88,6 +93,14 @@ def test_cli_serve_defaults_to_cuda_and_raises_without_it(tmp_path):
     r = _run("from ntransformer_tpu_torch.cli import main\n"
              f"main(['-m', 'models/repolm512_q8.gguf', '--serve', "
              f"{str(prompts)!r}])")
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+@pytest.mark.parametrize("flags", [["--http", "0"], ["--chat"]],
+                         ids=lambda f: f[0])
+def test_cli_http_and_chat_default_to_cuda_and_raise_without_it(flags):
+    r = _run("from ntransformer_tpu_torch.cli import main\n"
+             f"main(['-m', 'models/repolm512_q8.gguf'] + {flags!r})")
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
 
 
