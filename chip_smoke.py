@@ -94,6 +94,23 @@ subset of the rest:
   cpcards: on a host with 4 cards or more (else it says so and passes),
      repolm512 through CPEngine with one shard per card, bit-equal to the 4
      shards on one card, and the CLI's --cp 4;
+  tp: tensor parallelism (python3 chip_smoke.py tp runs it alone): the
+     synthetic 8B Q8_0 of `full` through TPEngine with 2 shards on the one
+     card (Engine.benchmark's protocol, prefill 512, ctx 4096; its launch
+     counts are the kernels line's tp_launches) beside the resident Engine,
+     decode profiles of both (kernels a token, busy share), 32 steps
+     teacher-forced on the resident's greedy tokens with the bf16 and the
+     int8 cache (each step within the CP phase's rule), and repolm512
+     through the CLI's --tp 2 (both shards on cuda:0: resident, fused and
+     --streaming at (2, 2, 2), texts equal to TPEngine's) and its
+     refusals. With phase tiered also run, the tiered 8B's resident model
+     as a 2-shard TPEngine and the GGUF streamed over that mesh at its
+     tiers: 32 greedy tokens bit-identical, ms per token and the H2D bytes
+     of each shard. The kernels and qkernels phases hold the Q8_0, Q4_K,
+     Q6_K and flash kernels at the 8B's tp = 2 and 4 shard shapes;
+  tpcards: on a host with 4 cards or more (else it says so and passes),
+     repolm512 and the synthetic 8B through TPEngine with one shard per
+     card, bit-equal to the 4 shards on cuda:0, and the CLI's --tp 4;
   spec: speculation (python3 chip_smoke.py spec runs it alone): batched
      flash's verify at B = 8, K = 3 (T = 4, S 1024; bf16 "f32", int8 "f32"
      and "int8_v") and the Q8_0 and Q4_K matmuls at T = 4 and 32 against
@@ -282,11 +299,30 @@ REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
           "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
-          "cpcards", "spec", "tiered", "moe", "http", "quality")
+          "cpcards", "tp", "tpcards", "spec", "tiered", "moe", "http",
+          "quality")
+
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
           "    var = jnp.mean(xf * xf, axis=-1, keepdims=True)\n"
           "    return ")
+
+
+def tp_shapes(fmt: str) -> list[tuple[str, int, int]]:
+    """The 8B's tensor-parallel shard shapes (label, K, N) at tp = 2 and 4
+    in format fmt: the column-split qkv and gate|up and the row-split wo,
+    down and head. Q8_0 (the synthetic 8B of phase tp) takes them all; in
+    Q4_K_M, Q4_K the first three and Q6_K the down and the head."""
+    out = []
+    for tp in (2, 4):
+        for name, k, n, kq in (("qkv", 4096, 6144 // tp, "q4_k"),
+                               ("gate|up", 4096, 28672 // tp, "q4_k"),
+                               ("wo", 4096 // tp, 4096, "q4_k"),
+                               ("down", 14336 // tp, 4096, "q6_k"),
+                               ("head", 4096 // tp, 128256, "q6_k")):
+            if fmt in ("q8_0", kq):
+                out.append((f"8b tp{tp} {name}", k, n))
+    return out
 
 
 def fail(msg: str):
@@ -422,7 +458,7 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
     mm_cases = []
     shapes = [("8b qkv", 4096, 6144), ("8b wo", 4096, 4096),
               ("8b gate|up", 4096, 28672), ("8b head", 4096, 128256),
-              ("8b down", 14336, 4096)]
+              ("8b down", 14336, 4096)] + tp_shapes("q8_0")
     for label, k, n in shapes:
         qs = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda",
                            generator=g)
@@ -432,8 +468,8 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
         w_bf16 = dequant_planes_torch({"qs": qs, "d": d}, DType.Q8_0, k, n,
                                       out_dtype=torch.bfloat16)
         # decode, the 8-slot server's step, the B = 32 step, a prompt
-        # bucket, a prefill chunk
-        for t in (1, 8, 32, 70, 512):
+        # bucket, a prefill chunk; a shard shape decode and a prefill chunk
+        for t in ((1, 512) if "tp" in label else (1, 8, 32, 70, 512)):
             mm_cases.append((f"{label} T={t}", t, qs, d, w_bf16))
     # a stacked [L, K, N] plane read through its free layer view
     qs2 = torch.randint(-127, 128, (2, 4096, 4096), dtype=torch.int8,
@@ -478,23 +514,28 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
                             "library": lambda: torch.matmul(x, w)})
         b_ms, b_by = bound(k * n + (k // 32) * n * 2 + t * k * 2 + t * n * 4,
                            2.0 * t * k * n)
-        # the call's CUDA kernels (torch.profiler): the kernel's own and
-        # nothing else, as many as the launch counter counts
-        prof = profile_calls(torch, lambda: cm.quant_matmul_cuda(x, qs, d))
-        mine = {kn: v for kn, v in prof.items()
-                if "skinny_kernel" in kn or "tile_kernel" in kn}
-        check(mine == prof, f"matmul {label}: the wrapper launched other "
-              f"kernels: {prof}")
-        check(per_call == 1 and sum(v["per_call"] for v in prof.values())
-              == per_call, f"matmul {label}: the profiler saw {prof}, the "
-              f"counter {per_call} launches a call; want 1")
+        check(per_call == 1, f"matmul {label}: {per_call} launches a "
+              "call; want 1")
         row = {"shape": label, "T": t, "K": k, "N": n, "max_abs_err": err,
                "tol": tol, "ms": ms["kernel"], "plain_ms": ms["plain"],
                "library_ms": ms["library"], "bound_ms": b_ms,
-               "bound_by": b_by,
-               "device_ms": sum(v["ms"] for v in prof.values()),
-               "kernels_per_call": sum(v["per_call"] for v in prof.values()),
-               "launches_per_call": per_call}
+               "bound_by": b_by, "launches_per_call": per_call}
+        if "tp" not in label:
+            # the call's CUDA kernels (torch.profiler): the kernel's own
+            # and nothing else, as many as the launch counter counts (the
+            # shard shapes run the same two kernels: no profile, for time)
+            prof = profile_calls(torch,
+                                 lambda: cm.quant_matmul_cuda(x, qs, d))
+            mine = {kn: v for kn, v in prof.items()
+                    if "skinny_kernel" in kn or "tile_kernel" in kn}
+            check(mine == prof, f"matmul {label}: the wrapper launched "
+                  f"other kernels: {prof}")
+            check(sum(v["per_call"] for v in prof.values()) == per_call,
+                  f"matmul {label}: the profiler saw {prof}, the counter "
+                  f"{per_call} launches a call")
+            row.update(device_ms=sum(v["ms"] for v in prof.values()),
+                       kernels_per_call=sum(v["per_call"]
+                                            for v in prof.values()))
         mm_rows.append(row)
         print(json.dumps({"matmul": row}), flush=True)
 
@@ -503,6 +544,12 @@ def kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
                  (128, 3584), (512, 0), (512, 512), (512, 3584)):
         fa_cases.append((f"8b T={t} pos={p}", t, 32, 8, 4096, 128, p,
                          torch.bfloat16, None, 0.0))
+    # a TP shard's heads: 16 query and 4 KV heads at tp = 2, 8 and 2 at 4
+    for tp in (2, 4):
+        for p in (0, 3584):
+            fa_cases.append((f"8b tp{tp} T=512 pos={p}", 512, 32 // tp,
+                             8 // tp, 4096, 128, p, torch.bfloat16, None,
+                             0.0))
     fa_cases += [
         ("8b T=70 pos=100", 70, 32, 8, 4096, 128, 100, torch.bfloat16, None,
          0.0),
@@ -1868,10 +1915,11 @@ def full_width_phase(torch, counters, card: str, synth,
 
 
 def profile_decode(torch, arch, weights, kv, logits, pos: int,
-                   steps: int = 4) -> dict:
+                   steps: int = 4, **fw) -> dict:
     """Device time by kernel over a few greedy decode steps (torch.profiler
     with CUDA activity), and the share of the wall time the card was busy.
-    The profiler's own host cost inflates the wall time."""
+    The profiler's own host cost inflates the wall time. fw: forward's
+    keywords (tp=mesh, weights and kv then the shards')."""
     from torch.profiler import ProfilerActivity, profile
     from ntransformer_tpu_torch.models import llama
     tok = torch.argmax(logits[0])
@@ -1881,7 +1929,7 @@ def profile_decode(torch, arch, weights, kv, logits, pos: int,
         t0 = time.perf_counter()
         for i in range(steps):
             logits, kv, _ = llama.forward(arch, weights, kv, tok.reshape(1),
-                                          pos + i)
+                                          pos + i, **fw)
             tok = torch.argmax(logits[0])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1966,6 +2014,10 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
             shapes.append(("8b head", 4096, 128256, (1, 32, 512)))
         if dtype == DType.Q4_0:
             shapes.append(("8b head", 4096, 128256, (1,)))
+        # the 8B Q4_K_M's TP shard shapes (Q4_K: qkv, gate|up, wo; Q6_K:
+        # down and the head)
+        shapes += [(label, k, n, (1, 512))
+                   for label, k, n in tp_shapes(dtype.value)]
         shapes += [("8b stacked[1] wo", 4096, 4096, (1, 32)),
                    ("repolm512 down", 1024, 512, (1, 32, 70)),
                    ("repolm512 head", 512, 384, (1, 70)),
@@ -2013,22 +2065,28 @@ def nibble_kernel_phase(torch, timer, card: str) -> dict:
                        "plain_ms": ms["plain"], "library_ms": ms["library"],
                        "bound_ms": b_ms, "bound_by": b_by,
                        "launches_per_call": per_call}
-                # the call's CUDA kernels (torch.profiler), as many as the
-                # counter's launches; a K-quant's the kernel's own, one
-                prof = profile_calls(
-                    torch, lambda: nm.nibble_matmul_cuda(x, planes, dtype))
-                n_prof = sum(v["per_call"] for v in prof.values())
-                check(n_prof == per_call, f"{name}: the profiler saw "
-                      f"{prof}, the counter {per_call} launches a call")
                 if one_kernel:
-                    mine = {kn: v for kn, v in prof.items()
-                            if "skinny_kernel" in kn or "tile_kernel" in kn}
-                    check(mine == prof, f"{name}: the wrapper launched "
-                          f"other kernels: {prof}")
                     check(per_call == 1, f"{name}: {per_call} launches a "
                           "call; want 1")
-                row.update({"device_ms": sum(v["ms"] for v in prof.values()),
-                            "kernels_per_call": n_prof})
+                if "tp" not in label:
+                    # the call's CUDA kernels (torch.profiler), as many as
+                    # the counter's launches; a K-quant's the kernel's own
+                    # (the shard shapes run the same kernels: no profile)
+                    prof = profile_calls(
+                        torch,
+                        lambda: nm.nibble_matmul_cuda(x, planes, dtype))
+                    n_prof = sum(v["per_call"] for v in prof.values())
+                    check(n_prof == per_call, f"{name}: the profiler saw "
+                          f"{prof}, the counter {per_call} launches a call")
+                    if one_kernel:
+                        mine = {kn: v for kn, v in prof.items()
+                                if "skinny_kernel" in kn
+                                or "tile_kernel" in kn}
+                        check(mine == prof, f"{name}: the wrapper launched "
+                              f"other kernels: {prof}")
+                    row.update({"device_ms": sum(v["ms"]
+                                                 for v in prof.values()),
+                                "kernels_per_call": n_prof})
                 rows.append(row)
                 print(json.dumps({kern.name: row}), flush=True)
                 del x, y, y0
@@ -2487,7 +2545,7 @@ def resident_step(torch, arch, weights, layer_sel=None, quant=False):
 def tiered_step(torch, tm, quant=False, **fw):
     from ntransformer_tpu_torch.models import tiered
     kv = tiered.TieredKV.create(tm.arch, tm.tiers, quant=quant,
-                                device="cuda")
+                                device="cuda", mesh=tm.mesh)
 
     def step(tokens, pos):
         return tiered.forward_tiered(tm, kv, tokens, pos, **fw)[0]
@@ -2863,7 +2921,73 @@ def tiered_self_spec(torch, counters, tm, ids, ref) -> dict:
     return out
 
 
-def tiered_8b_phase(torch, counters, card: str) -> dict:
+def tiered_tp_step(torch, counters, path: str, tiers, ids, ref,
+                   ref_logits) -> dict:
+    """The 8B Q4_K_M GGUF streamed over a TP_SHARDS-way mesh on cuda:0 at
+    the phase's tiers (each shard its slice of every streamed layer): a
+    512-token prefill and 32 greedy tokens bit-identical to the resident
+    TPEngine's (`ref`: the same shard planes, kernels and sums), ms per
+    token, and the H2D bytes of each shard."""
+    from ntransformer_tpu_torch.models.tiered import load_model_tiered
+    from ntransformer_tpu_torch.parallel.tp import make_tp_mesh
+    from ntransformer_tpu_torch.utils.timing import PROFILER
+    t0 = time.perf_counter()
+    tm = load_model_tiered(path, max_seq_len=1024, max_hbm_layers=tiers[0],
+                           max_ram_layers=tiers[1], with_tokenizer=False,
+                           mesh=make_tp_mesh(TP_SHARDS,
+                                             ["cuda:0"] * TP_SHARDS))
+    load_s = time.perf_counter() - t0
+    check((tm.tiers.n_hbm, tm.tiers.n_ram, tm.tiers.n_disk) == tuple(tiers),
+          f"8b tiered TP tiers {tm.tiers}: want {tiers}")
+    s = tm.streamer
+    step = tiered_step(torch, tm)
+    reset(counters)
+    t0 = time.perf_counter()
+    logits = step(ids, 0)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    s.reset_stats()
+    PROFILER.reset()
+    PROFILER.enabled = True
+    toks, outs = [], []
+    n = len(ref)
+    t0 = time.perf_counter()
+    for i in range(n):
+        outs.append(logits[-1])
+        tk = torch.argmax(logits[-1])
+        toks.append(tk)
+        logits = step(tk.reshape(1), len(ids) + i)
+    torch.cuda.synchronize()
+    ms_tok = (time.perf_counter() - t0) * 1e3 / n
+    PROFILER.enabled = False
+    launches = read(counters)
+    copies, h2d_bytes, copy_ms = PROFILER.copy_stats("stream/h2d")
+    toks = torch.stack(toks).cpu()
+    check(torch.equal(toks, ref), f"8b tiered TP: tokens {toks.tolist()} "
+          f"differ from the resident TPEngine's {ref.tolist()}")
+    check(all(launches[k] > 0 for k in TIERED_KERNELS["8b"]),
+          f"8b tiered TP launched {launches}")
+    out = {"shards": TP_SHARDS, "tiers": list(tiers), "load_s": load_s,
+           "prefill_ms": prefill_ms, "ms_per_token": ms_tok,
+           "tokens_bit_identical_to_resident_tp": True,
+           "logits_bit_equal_to_resident_tp": all(
+               torch.equal(a.cpu(), b) for a, b in zip(outs, ref_logits)),
+           "h2d_bytes_per_token_per_shard": [b / n
+                                             for b in s.shard_h2d_bytes],
+           "h2d_copies": copies, "h2d_copy_ms": copy_ms,
+           "h2d_copy_GB_s": h2d_bytes / copy_ms / 1e6 if copy_ms else 0.0,
+           "tier_c_read_GB_s": s.disk_bytes / s.disk_s / 1e9
+           if s.disk_s else 0.0,
+           "relayout_s_per_token": s.relayout_s / n,
+           "misaligned_plane_copies": s.misaligned_copies,
+           "launches": launches}
+    tm.close()
+    print(json.dumps({"tiered_8b_tp": out}), flush=True)
+    return out
+
+
+def tiered_8b_phase(torch, counters, card: str, with_tp: bool = False
+                    ) -> dict:
     """The 8B preset in Q4_K_M at full width, tiered on the card at (8 HBM,
     16 RAM, 8 disk): a 512-token prefill and 32 greedy tokens identical to
     the unfused resident 8B, pipelined and synchronous bit-identical; ms
@@ -2874,7 +2998,9 @@ def tiered_8b_phase(torch, counters, card: str) -> dict:
     resident reference is the GGUF loader's unfused model (load_model), so
     the pack is held against it too. The filesystem that holds the GGUF and
     its pack (tier C) is recorded, since a RAM-backed one (tmpfs) reads at
-    memory speed."""
+    memory speed. with_tp (phase tp): the resident model also as a
+    TP_SHARDS-way TPEngine, and the GGUF streamed over that mesh
+    (tiered_tp_step)."""
     import shutil
     import tempfile
     from ntransformer_tpu_torch.models.loader import load_model
@@ -2917,6 +3043,20 @@ def tiered_8b_phase(torch, counters, card: str) -> dict:
         ref, ref_logits = greedy_ids(
             torch, resident_step(torch, res.arch, res.weights), ids, n)
         ref_logits = [x.cpu() for x in ref_logits]
+        if with_tp:
+            # phase tp: the same resident model as a TP_SHARDS-way
+            # TPEngine on cuda:0, the reference of the tiered TP step
+            from ntransformer_tpu_torch.inference.engine import TPEngine
+            from ntransformer_tpu_torch.parallel.tp import make_tp_mesh
+            tpe = TPEngine(res, make_tp_mesh(TP_SHARDS,
+                                             ["cuda:0"] * TP_SHARDS))
+            reset(counters)
+            tp_ref, tp_logits = greedy_ids(torch, tp_step(torch, tpe), ids,
+                                           n)
+            torch.cuda.synchronize()
+            tp_res_launches = read(counters)
+            tp_logits = [x.cpu() for x in tp_logits]
+            del tpe
         del res
         torch.cuda.empty_cache()
         os.sync()  # the pack's pages on disk before the O_DIRECT probe
@@ -2994,6 +3134,10 @@ def tiered_8b_phase(torch, counters, card: str) -> dict:
         tm.close()
         del tm
         torch.cuda.empty_cache()
+        if with_tp:
+            out["tp"] = tiered_tp_step(torch, counters, path, tiers, ids,
+                                       tp_ref, tp_logits)
+            out["tp"]["resident_tp_launches"] = tp_res_launches
     print(json.dumps({"tiered_8b_q4_k_m": out}), flush=True)
     return out
 
@@ -3360,6 +3504,282 @@ def cp_cards_phase(torch, counters, card: str) -> dict | None:
     del cards, one
     torch.cuda.empty_cache()
     return out
+
+# ------------------------------------------------------ tensor parallelism
+TP_SHARDS = 2   # phase tp: the shards on the one card
+TP_CARDS = 4    # phase tpcards: one shard a card
+
+
+def tp_step(torch, eng, quant=False):
+    """step(tokens, pos) -> logits through a TPEngine's shards and a cache
+    of its own (greedy_ids' protocol)."""
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.parallel.tp import make_tp_kv
+    kv = make_tp_kv(eng.arch, eng.mesh, quant)
+
+    def step(tokens, pos):
+        return llama.forward(eng.arch, eng.shards, kv, tokens, pos,
+                             tp=eng.mesh)[0]
+    return step
+
+
+def tp_forced(torch, tp, res, ids, n: int) -> dict:
+    """n decode steps of the TPEngine teacher-forced on the resident
+    Engine's greedy tokens (the cache both engines' kv_quant says), every
+    step's logits held to the resident's by the CP phase's rule: within the
+    larger of FULL_LOGIT_RTOL and twice the resident kernel path's spread
+    against its plain path at that step."""
+    from ntransformer_tpu_torch.ops import linear
+    res_toks, res_logits = greedy_pass(res, torch, ids, n)
+    _, tp_logits = greedy_pass(tp, torch, ids, n, forced=res_toks)
+    linear.KERNEL_MODE = "off"
+    try:
+        _, plain_logits = greedy_pass(res, torch, ids, n, forced=res_toks)
+    finally:
+        linear.KERNEL_MODE = "auto"
+    for a in tp_logits:
+        check(bool(torch.isfinite(a).all()), "8b TPEngine: non-finite logits")
+    kern = [rel_err(a, b) for a, b in zip(tp_logits, res_logits)]
+    plain = [rel_err(a, b) for a, b in zip(plain_logits, res_logits)]
+    limits = [max(FULL_LOGIT_RTOL, 2 * r) for r in plain]
+    cache = "int8" if tp.kv_quant else "bf16"
+    for i, (r, lim) in enumerate(zip(kern, limits)):
+        check(r <= lim, f"8b TPEngine {cache} step {i}: teacher-forced "
+              f"logits differ from the resident engine's by {r} of their "
+              f"range (> {lim})")
+    agree = sum(int(torch.argmax(a)) == tk
+                for a, tk in zip(tp_logits[:-1], res_toks))
+    print(f"8b TPEngine ({TP_SHARDS} shards, {cache} cache) vs resident "
+          f"Engine, teacher-forced: {agree}/{n} argmaxes agree; max|dlogit|/"
+          f"max|logit| per step {[round(r, 4) for r in kern]}; resident "
+          f"plain path vs kernels {[round(r, 4) for r in plain]}",
+          flush=True)
+    return {"forced_argmax_agree": agree, "logit_rel_err_steps": kern,
+            "plain_rel_err_steps": plain, "resident_tokens": res_toks}
+
+
+def tp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
+    """TPEngine on the synthetic 8B Q8_0 at full depth and width (the
+    weights of `full`, fused in tp = 1 order: each shard's q|k|v and
+    gate|up are rebuilt from its slices of the parts), TP_SHARDS shards on
+    cuda:0: Engine.benchmark's protocol (prefill 512, ctx 4096; the kernels
+    line's tp_launches are read around it) beside the resident Engine on
+    the same weights, and a decode profile of each (kernels a token, the
+    card's busy share); then 32 decode steps teacher-forced on the resident
+    engine's greedy tokens with the bf16 and the int8 cache (tp_forced).
+    Last, the CLI on repolm512 (tp_cli)."""
+    from ntransformer_tpu_torch.inference.engine import Engine, TPEngine
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel.tp import make_tp_mesh
+
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    t0 = time.perf_counter()
+    tp = TPEngine(model, make_tp_mesh(TP_SHARDS, ["cuda:0"] * TP_SHARDS))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    lw = tp.shards[0].layers
+    check((lw.wqkv.n, lw.w_gate_up.n, lw.wo.k, lw.w_down.k,
+           tp.shards[0].lm_head.k) == (6144 // TP_SHARDS, 28672 // TP_SHARDS,
+                                       4096 // TP_SHARDS,
+                                       14336 // TP_SHARDS,
+                                       4096 // TP_SHARDS),
+          "8b TPEngine: unexpected shard shapes")
+    res = Engine(model)
+    ids = torch.randint(0, arch.vocab_size, (512,),
+                        generator=torch.Generator().manual_seed(9)).tolist()
+    # one untimed prefill each first: the first launches of a kernel load
+    # its module (run alone, this phase launches first)
+    for eng in (tp, res):
+        eng._prefill(eng._make_kv(), ids)
+    torch.cuda.synchronize()
+    reset(counters)
+    st_tp = tp.benchmark(prompt_ids=ids, n_tokens=64)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    print(f"8b TPEngine path launches {launches}", flush=True)
+    check(all(launches[k] > 0 for k in ENGINE_KERNELS),
+          f"8b TPEngine: a kernel of the path launched zero times: "
+          f"{launches}")
+    st_res = res.benchmark(prompt_ids=ids, n_tokens=64)
+    profiles = {}
+    for tag, w, kv, fw in (("tp", tp.shards, tp._make_kv(),
+                            {"tp": tp.mesh}),
+                           ("resident", weights, res._make_kv(), {})):
+        logits, kv, _ = llama.forward(arch, w, kv, ids, 0, n_valid=512,
+                                      **fw)
+        profiles[tag] = profile_decode(torch, arch, w, kv, logits, 512,
+                                       **fw)
+        del kv
+    forced = {}
+    for quant in (False, True):
+        tp.kv_quant = res.kv_quant = quant
+        forced["int8" if quant else "bf16"] = tp_forced(torch, tp, res, ids,
+                                                        32)
+    tp.kv_quant = res.kv_quant = False
+    summary = {"card": card, "shards": TP_SHARDS, "ctx": arch.max_seq_len,
+               "shard_s": shard_s, "launches": launches,
+               "tp_kernels_per_token": profiles["tp"]["kernels_per_token"],
+               "resident_kernels_per_token":
+                   profiles["resident"]["kernels_per_token"],
+               "tp_device_busy_share": profiles["tp"]["device_busy_share"],
+               "resident_device_busy_share":
+                   profiles["resident"]["device_busy_share"],
+               "tp_device_ms_per_token":
+                   profiles["tp"]["device_ms_per_token"],
+               "resident_device_ms_per_token":
+                   profiles["resident"]["device_ms_per_token"],
+               "forced": {k: {kk: vv for kk, vv in v.items()
+                              if kk != "resident_tokens"}
+                          for k, v in forced.items()}}
+    for tag, st in (("tp", st_tp), ("resident", st_res)):
+        summary[f"{tag}_prefill_tok_s"] = st.prefill_tps
+        summary[f"{tag}_prefill_ms"] = st.prefill_ms
+        summary[f"{tag}_decode_ms_per_token"] = (st.decode_ms
+                                                 / st.decode_tokens)
+    print(json.dumps({"tp_8b": summary}), flush=True)
+    del tp, res
+    torch.cuda.empty_cache()
+    summary["cli"] = tp_cli(torch, counters)
+    return summary, launches
+
+
+def tp_cli(torch, counters) -> dict:
+    """repolm512 through the CLI's --tp 2 with both shards on cuda:0
+    (--device cuda:0): resident generation unfused and fused, and
+    --streaming --tp 2 at (2, 2, 2) layers; the unfused and streamed texts
+    equal to TPEngine.generate's (the same shard planes, kernels and sums);
+    then the refusals, each exit code 2 (--tp 9 over the one card's
+    default mesh included)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.inference.engine import (GenerateConfig,
+                                                         TPEngine)
+    eng = TPEngine.load(REPOLM, tp=2, device="cuda:0")
+    want, _ = eng.generate(PROMPT, GenerateConfig(
+        max_tokens=16, temperature=0.0, repeat_penalty=1.0))
+    del eng
+    out = {"tpengine_text": want}
+    base = ["-p", PROMPT, "-n", "16", "-t", "0", "--repeat-penalty", "1.0",
+            "--tp", "2", "--device", "cuda:0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "repolm512_q8.gguf")
+        shutil.copy(REPOLM, path)
+        for name, flags in (("resident", ["--no-fuse"]), ("fused", []),
+                            ("streaming", ["--streaming",
+                                           "--max-hbm-layers", "2",
+                                           "--max-ram-layers", "2"])):
+            buf, err = io.StringIO(), io.StringIO()
+            reset(counters)
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["-m", path] + base + flags)
+            torch.cuda.synchronize()
+            got = read(counters)
+            check(rc == 0, f"cli --tp 2 {name}: exit code {rc}: "
+                  f"{err.getvalue()[-400:]}")
+            check(all(got[k] > 0 for k in ENGINE_KERNELS),
+                  f"cli --tp 2 {name} launched {got}")
+            text = buf.getvalue().rstrip("\n")
+            out[name] = {"text": text, "equal": text == want,
+                         "launches": got}
+            if name == "streaming":
+                check("tiers: 2 HBM + 2 RAM + 2 disk" in err.getvalue(),
+                      f"cli --streaming --tp 2: {err.getvalue()[-400:]}")
+    for name in ("resident", "streaming"):
+        check(out[name]["equal"], f"cli --tp 2 {name} wrote "
+              f"{out[name]['text']!r}, TPEngine {want!r}")
+    refused = {}
+    for flags in (["--w4a8", "--tp", "2"], ["--w8a8", "--tp", "2"],
+                  ["--draft-model", REPOLM, "--tp", "2"],
+                  ["--ep", "2", "--tp", "2"],
+                  ["--tp", "2", "--serve", "prompts.txt"],
+                  ["--tp", "2", "--http", "0"],
+                  ["--cp", "2", "--tp", "2"], ["--tp", "9"]):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["-m", REPOLM, "-n", "4"] + flags)
+        check(rc == 2, f"cli {flags}: exit code {rc}, want 2")
+        refused[" ".join(flags)] = err.getvalue().strip().splitlines()[-1]
+    out["refused"] = refused
+    print(json.dumps({"tp_cli": out}), flush=True)
+    return out
+
+
+def tp_cards_phase(torch, counters, card: str, synth) -> dict | None:
+    """One shard per card, on a host with TP_CARDS cards or more (on fewer
+    it says so and returns None): repolm512 through TPEngine.load(tp=4),
+    whose default mesh puts shard i on cuda:i, against the same shards all
+    on cuda:0 (a 300-token prompt, 32 greedy steps); then the synthetic 8B
+    Q8_0 of `full` the same way (a 512-token prompt, 16 steps). Every
+    kernel launches on its tensors' card, the cross-card copies are exact
+    and the sums run in shard order on cuda:0, so tokens and logits must
+    be bit-equal. Then the CLI's --tp 4."""
+    import contextlib
+    import io
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.inference.engine import TPEngine
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel.tp import make_tp_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < TP_CARDS:
+        print(f"tpcards: {n_cards} card(s); one shard per card needs "
+              f"{TP_CARDS}: not run", flush=True)
+        return None
+    want = tuple(torch.device("cuda", i) for i in range(TP_CARDS))
+    one = make_tp_mesh(TP_CARDS, ["cuda:0"] * TP_CARDS)
+    out = {"card": card, "cards": n_cards}
+    cfg, arch, weights, _ = synth
+    synth_model = LoadedModel(cfg, arch, weights, None, None,
+                              torch.device("cuda"))
+    for name, n_prompt, n, make in (
+            ("repolm512", 300, 32,
+             lambda mesh: TPEngine.load(REPOLM, tp=TP_CARDS,
+                                        device="cuda" if mesh is None
+                                        else "cuda:0")),
+            ("8b", 512, 16,
+             lambda mesh: TPEngine(synth_model, mesh or make_tp_mesh(
+                 TP_CARDS)))):
+        cards = make(None)
+        check(cards.mesh == want, f"tpcards {name}: mesh {cards.mesh}, not "
+              f"{want}")
+        check([c.k.device for c in cards._make_kv()] == list(want),
+              f"tpcards {name}: a shard's cache is not on its card")
+        ids = torch.randint(0, cards.arch.vocab_size, (n_prompt,),
+                            generator=torch.Generator().manual_seed(48)
+                            ).tolist()
+        reset(counters)
+        toks_c, logits_c = greedy_pass(cards, torch, ids, n)
+        launches = read(counters)
+        check(all(launches[k] > 0 for k in ENGINE_KERNELS),
+              f"tpcards {name}: launched {launches}")
+        del cards
+        same = make(one)
+        toks_o, logits_o = greedy_pass(same, torch, ids, n)
+        del same
+        torch.cuda.empty_cache()
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(logits_c, logits_o))
+        print(f"tpcards {name}: shards on cuda:0-{TP_CARDS - 1} vs all on "
+              f"cuda:0: tokens {'equal' if toks_c == toks_o else 'differ'}, "
+              f"max |dlogit| {diff}", flush=True)
+        check(toks_c == toks_o and diff == 0.0, f"tpcards {name}: one shard "
+              "per card is not bit-equal to the shards on one card")
+        out[name] = {"launches": launches, "max_abs_dlogit": diff}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-m", REPOLM, "-p", PROMPT, "-n", "32", "-t", "0",
+                       "--repeat-penalty", "1.0", "--tp", str(TP_CARDS)])
+    check(rc == 0, f"cli --tp {TP_CARDS}: exit code {rc}")
+    out["cli_text"] = buf.getvalue()
+    print(json.dumps({"tp_cards": out}), flush=True)
+    return out
+
 
 # ------------------------------------------------------------ speculation
 SPEC_K = 3
@@ -5178,6 +5598,13 @@ def read(counters) -> dict:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
+
+    def clock(name: str):
+        """The script's seconds so far, as a phase starts."""
+        print(f"[{time.perf_counter() - t_main:.1f} s] phase {name}",
+              flush=True)
+
     if not os.path.exists(os.path.join(HERE, "ntransformer_tpu_torch",
                                        "__init__.py")):
         fail("run chip_smoke.py from the root of the repository: "
@@ -5231,42 +5658,60 @@ def main() -> int:
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
     res = {}
     if "kernels" in phases:
+        clock("kernels")
         res[cm.NAME], res[ca.NAME] = kernel_phase(torch, timer, card)
     if "bkernels" in phases:
+        clock("bkernels")
         res[cb.NAME], res[ck.NAME] = batched_kernel_phase(torch, timer, card)
         res.update(dot_kernel_phase(torch, timer, card))
     if "qkernels" in phases:
+        clock("qkernels")
         res.update(nibble_kernel_phase(torch, timer, card))
     if "wkernels" in phases:
+        clock("wkernels")
         res.update(wformat_kernel_phase(torch, timer, card))
     if "cp" in phases:
+        clock("cp")
         res[ca.PARTIALS_NAME] = cp_kernel_phase(torch, timer, card)
     if "real" in phases:
+        clock("real")
         real_model_phase(torch, counters, card)
     dot_launches = {}
     if "serve" in phases:
+        clock("serve")
         got = real_serve_phase(torch, counters, card, dot_forms=True)
         dot_launches = {f"{cb.NAME}[{d}]": got["dot_launches"][d]
                         for d in DOT_FORMS}
-    engine_launches, launches, spec_launches = {}, {}, {}
-    if {"full", "bfull", "cp", "spec"} & set(phases):
+    engine_launches, launches, spec_launches, tp_launches = {}, {}, {}, {}
+    if {"full", "bfull", "cp", "tp", "tpcards", "spec"} & set(phases):
         synth = build_synth(torch)
         if "full" in phases:
+            clock("full")
             _, engine_launches = full_width_phase(torch, counters, card,
                                                   synth)
         if "bfull" in phases:
+            clock("bfull")
             summary, launches = full_batched_phase(torch, counters, card,
                                                    synth, dot_forms=True)
             print(json.dumps({"full_width_8b_serving": summary}), flush=True)
         if "cp" in phases:
+            clock("cp")
             _, got = cp_path_phase(torch, counters, card, synth)
             launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
             engine_launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
+        if "tp" in phases:
+            clock("tp")
+            _, tp_launches = tp_path_phase(torch, counters, card, synth)
+        if "tpcards" in phases:
+            clock("tpcards")
+            tp_cards_phase(torch, counters, card, synth)
         if "spec" in phases:
+            clock("spec")
             _, spec_launches = spec_phase(torch, counters, timer, card,
                                           synth)
         del synth
     if "cpcards" in phases:
+        clock("cpcards")
         cp_cards_phase(torch, counters, card)
     # each nibble kernel's main path: the 8B Q4_K_M server for Q4_K and
     # Q6_K (Engine.benchmark beside it), bench.py's q4_0 B = 1 step for
@@ -5277,11 +5722,13 @@ def main() -> int:
              "q5_k_matmul": ("real_q5_k", None)}
     qlaunch = {}
     if "qreal" in phases:
+        clock("qreal")
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
             qr = quant_real_phase(torch, counters, card, tmp)
         qlaunch["real_q5_k"] = qr["q5_k"]["cli_launches"]
     if "qfull" in phases:
+        clock("qfull")
         _, got = quant_full_phase(torch, counters, card)
         qlaunch.update(got)
     # the engine-native formats' main paths: the 8B W8A8 server for
@@ -5291,8 +5738,10 @@ def main() -> int:
                   "w4a8_decode": ("b1_w4a8", "engine_w4a8"),
                   "w4a8_matmul": ("engine_w4a8", "engine_w4a8")})
     if "wreal" in phases:
+        clock("wreal")
         wformat_real_phase(torch, counters, card)
     if "wfull" in phases:
+        clock("wfull")
         _, got = wformat_full_phase(torch, counters, card)
         qlaunch.update(got)
     for name, (main_path, engine_path) in qpath.items():
@@ -5301,17 +5750,26 @@ def main() -> int:
     # the cache-dot forms' main path: the server with each form (serve)
     launches.update(dot_launches)
     if "tiered" in phases:
+        clock("tiered")
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
             tiered_repolm_phase(torch, counters, card, tmp)
-        tiered_8b_phase(torch, counters, card)
+        got = tiered_8b_phase(torch, counters, card, "tp" in phases)
+        # the TP path's K-quant launches: the resident TPEngine and the
+        # stream over the mesh (phase tp's tiered step)
+        for run in ("resident_tp_launches", "launches"):
+            for k, v in got.get("tp", {}).get(run, {}).items():
+                tp_launches[k] = tp_launches.get(k, 0) + v
     select_rows, moe_launches = {}, {}
     if "moe" in phases:
+        clock("moe")
         select_rows, moe_launches = moe_phase(torch, counters, timer, card)
     http_launches, chat_launches, ppl_launches = {}, {}, {}
     if "http" in phases:
+        clock("http")
         _, http_launches, chat_launches = http_phase(torch, counters, card)
     if "quality" in phases:
+        clock("quality")
         _, ppl_launches = quality_phase(torch, counters, card)
 
     kernels = []
@@ -5359,6 +5817,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches.get(name, 0),
             "engine_launches": engine_launches.get(name, 0),
             "spec_launches": spec_launches.get(name, 0),
+            "tp_launches": tp_launches.get(name, 0),
             "moe_launches": moe_launches.get(name, 0),
             "http_launches": http_launches.get(name, 0),
             "chat_launches": chat_launches.get(name, 0),
@@ -5370,6 +5829,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": r["main"],
             "card": card})
+    clock("end")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

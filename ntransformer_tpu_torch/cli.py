@@ -11,14 +11,20 @@ the file's formats or requantized at load to W4A8 (--w4a8) or W8A8
 --draft-k), resident or tiered; tiered streaming (--streaming,
 --max-hbm-layers, --max-ram-layers, --requant-q4k, --requant-ram, and
 --self-spec, which streams and drafts on the resident prefix; automatic
-when the file does not fit the card's free memory); and context-parallel
-generation and --benchmark (--cp N: the cache split along the sequence over
-N shards, one on each of the first N cards, or all on the CPU with --device
-cpu). The multi-GPU modes (--tp, --ep, --dp) exit with 2 and name the
-ROADMAP item that ports them; the JAX CLI's refusals (--serve with --http,
---cp with --serve/--http, --draft-model with --cp/--tp/--ep, --serve/--http
-with --draft-model/--self-spec/--streaming, --w4a8/--w8a8 with streaming or
---cp, --kv-int8 with --cp) exit with 2 and the JAX messages.
+when the file does not fit the card's free memory); tensor-parallel
+generation, --benchmark and --chat, resident or streamed (--tp N: the
+weights and KV heads split over N shards, one on each of the first N
+cards, or all on one device with --device cuda:0 or --device cpu; with
+--streaming each shard streams its slice of every layer); and
+context-parallel generation and --benchmark (--cp N: the cache split along
+the sequence over N shards, one on each of the first N cards, or all on
+the CPU with --device cpu). The multi-GPU modes still to come (--ep, --dp,
+--serve/--http with --tp, --cp with --tp) exit with 2 and name the ROADMAP
+item that ports them; the JAX CLI's refusals (--serve with --http, --cp with
+--serve/--http, --draft-model with --cp/--tp/--ep, --ep with --tp/--cp,
+--serve/--http with --draft-model/--self-spec/--streaming, --w4a8/--w8a8
+with streaming, --cp or --tp, --tp beyond the cards, --kv-int8 with --cp)
+exit with 2 and the JAX messages.
 
 This module is the one place of the port that reads the JAX package's
 environment switches of these modes, with their names, values and defaults,
@@ -42,10 +48,12 @@ import sys
 
 # mode → why it is refused (the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "--tp": "tensor parallelism (and so --cp with --tp) is ROADMAP queue "
-            "1 item 14",
-    "--ep": "expert parallelism is ROADMAP queue 1 item 14",
-    "--dp": "data-parallel serving is ROADMAP queue 1 item 14",
+    "--tp with --serve/--http": "the tensor-parallel batch server is "
+                                "ROADMAP queue 1 item 14b",
+    "--cp with --tp": "context x tensor parallelism is ROADMAP queue 1 "
+                      "item 14d",
+    "--ep": "expert parallelism is ROADMAP queue 1 item 14c",
+    "--dp": "data-parallel serving is ROADMAP queue 1 item 14b",
 }
 
 
@@ -108,7 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refused_mode(args) -> str | None:
     """The first requested mode this slice does not run, or None."""
-    asked = {"--tp": args.tp, "--ep": args.ep, "--dp": args.dp}
+    server = args.serve or args.http is not None
+    asked = {"--tp with --serve/--http": args.tp and server,
+             "--cp with --tp": args.cp and args.tp,
+             "--ep": args.ep, "--dp": args.dp}
     return next((mode for mode, on in asked.items() if on), None)
 
 
@@ -174,10 +185,14 @@ def main(argv=None) -> int:
                   "tiered engine (reference main.cpp:121-132); it is not "
                   "supported under --tp/--cp/--ep")
         return 2
+    if args.ep and (args.cp or args.tp):
+        log.error("--ep is its own mesh (expert axis); it does not "
+                  "compose with --tp/--cp yet")
+        return 2
     mode = refused_mode(args)
     if mode is not None:
         log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
-                  "port runs resident, tiered and context-parallel "
+                  "port runs resident, tiered, tensor- and context-parallel "
                   "generation, --benchmark, --chat, --serve and --http.")
         return 2
     if args.w4a8 and args.w8a8:
@@ -188,7 +203,7 @@ def main(argv=None) -> int:
         return serve(args)
 
     stream = should_stream(args.model, args)
-    if (args.w4a8 or args.w8a8) and (stream or args.cp):
+    if (args.w4a8 or args.w8a8) and (stream or args.tp or args.cp):
         log.error("--w4a8/--w8a8 are resident single-chip modes for now: "
                   "the tiered pack streams SOURCE-dtype planes, and the "
                   "parallel engines shard source planes (convert-then-"
@@ -202,8 +217,19 @@ def main(argv=None) -> int:
                   "flags/model-size that force streaming — use --tp for "
                   "streamed-layer sharding)")
         return 2
+    mesh = None
+    if args.tp:
+        from .parallel.tp import tp_mesh
+        try:
+            mesh = tp_mesh(args.tp, args.device)
+        except ValueError:  # fewer cards than shards
+            import torch
+            log.error(f"--tp {args.tp}: only {torch.cuda.device_count()} "
+                      "devices")
+            return 2
     from .inference.engine import (CPEngine, Engine, GenerateConfig,
-                                   TieredEngine)
+                                   TieredEngine, TPEngine)
+    from .models.loader import load_model
     cfg = GenerateConfig(
         max_tokens=args.max_tokens, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
@@ -218,8 +244,9 @@ def main(argv=None) -> int:
             log.info(f"loading draft {args.draft_model} (resident, "
                      f"{args.device}) + target (tiered streaming)")
         else:
+            ways = f", {args.tp}-way TP" if args.tp else ""
             log.info(f"loading {args.model} (tiered streaming, "
-                     f"{args.device})")
+                     f"{args.device}{ways})")
         requant_ram = DType.Q4_K if args.requant_ram else None
         env_rq = os.environ.get("NT_REQUANT_RAM", "")
         if requant_ram is None and env_rq and env_rq != "0":
@@ -237,7 +264,7 @@ def main(argv=None) -> int:
             kv_quant=args.kv_int8, draft_path=args.draft_model,
             direct_io=os.environ.get("NT_DIRECT_IO", "1") != "0",
             h2d="planes" if os.environ.get("NT_H2D", "blob") == "planes"
-            else "blob")
+            else "blob", mesh=mesh)
     elif args.cp:
         log.info(f"loading {args.model} (resident, {args.cp}-way context "
                  f"parallel, {args.device})")
@@ -249,6 +276,12 @@ def main(argv=None) -> int:
         except NotImplementedError as e:
             log.error(str(e))
             return 2
+    elif args.tp:
+        log.info(f"loading {args.model} (resident, {args.tp}-way TP, "
+                 f"{args.device})")
+        engine = TPEngine(load_model(args.model, max_seq_len=args.ctx_size,
+                                     device="cpu"), mesh,
+                          fuse=not args.no_fuse, kv_quant=args.kv_int8)
     else:
         log.info(f"loading {args.model} (resident, {args.device})")
         # the draft loads first (Engine.load)

@@ -24,10 +24,12 @@ stay on the card and the host reads (emit, n_acc) once an iteration.
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, early exit,
 self-speculation drafting on the resident prefix and a separate resident
-draft model. `CPEngine` runs them with context parallelism
-(parallel/cp.py): the cache split along the sequence axis over a list of
-shard devices, one process driving every shard. The tensor- and
-expert-parallel engines wait for ROADMAP queue 1 item 14.
+draft model (over a TP mesh too). `TPEngine` runs them with tensor
+parallelism (parallel/tp.py): the weights and the KV heads split over a
+list of shard devices; `CPEngine` with context parallelism
+(parallel/cp.py): the cache split along the sequence axis. One process
+drives every shard. The expert-parallel engine waits for ROADMAP queue 1
+item 14c.
 """
 from __future__ import annotations
 
@@ -553,6 +555,75 @@ def spec_iter_greedy(arch, weights, kv: KVCache, anchor: torch.Tensor,
     return kv, emit, n_acc, targets[n_acc]
 
 
+class TPEngine(Engine):
+    """Resident engine with TENSOR parallelism (parallel/tp.py): the weights
+    and the KV heads split over the mesh's shards, Megatron-style; one
+    process drives every shard, and the replicated work (norms, residuals,
+    the sums of the shards' partials) runs on the mesh's first device.
+    Generation, the chat session, layer-skip calibration, the int8 cache
+    and `benchmark` (Engine's, through decode_loop_greedy with the JAX
+    clamp of n_tokens) run the shared loops through the TP forward. The
+    unsharded weights are dropped once the shards exist."""
+
+    def __init__(self, model: LoadedModel, mesh, fuse: bool = False,
+                 kv_quant: bool = False):
+        import dataclasses
+        from ..parallel.tp import shard_weights
+        super().__init__(model, None, kv_quant=kv_quant)
+        self.mesh = tuple(torch.device(d) for d in mesh)
+        self.shards = shard_weights(model.weights, self.mesh, model.arch,
+                                    fuse=fuse)
+        self.model = dataclasses.replace(model, weights=None)
+        self.device = self.mesh[0]
+
+    @classmethod
+    def load(cls, path: str, tp: int, *, device="cuda", fuse: bool = False,
+             kv_quant: bool = False, **kw) -> "TPEngine":
+        """Load `path` on the host, then shard it: device "cuda" puts one
+        shard on each of the first `tp` cards (raises if there are fewer);
+        a device with an index ("cuda:0") or "cpu" puts every shard on it
+        (another shard list: TPEngine(model, make_tp_mesh(n, devices)));
+        load_model keywords as Engine.load. No unsharded copy lands on a
+        card."""
+        from ..parallel.tp import tp_mesh
+        return cls(load_model(path, device="cpu", fuse=False, **kw),
+                   tp_mesh(tp, device), fuse=fuse, kv_quant=kv_quant)
+
+    def _make_kv(self):
+        from ..parallel.tp import make_tp_kv
+        return make_tp_kv(self.arch, self.mesh, self.kv_quant)
+
+    def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
+                       model=None, with_cosine=False):
+        if model is not None:
+            raise ValueError("TPEngine has no separate draft model")
+        return forward(self.arch, self.shards, kv, torch.from_numpy(padded),
+                       off, layer_sel=self.layer_sel, n_valid=n_valid,
+                       with_cosine=with_cosine, tp=self.mesh)
+
+    def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
+                     layer_sel=None):
+        if model is not None:
+            raise ValueError("TPEngine has no separate draft model")
+        tok = torch.as_tensor(token, device=self.device).reshape(1)
+        sel = layer_sel if layer_sel is not None else self.layer_sel
+        return forward(self.arch, self.shards, kv, tok, pos, layer_sel=sel,
+                       with_cosine=with_cosine, tp=self.mesh)
+
+    def _verify(self, kv, tokens, pos: int):
+        logits, kv, _ = forward(self.arch, self.shards, kv, tokens, pos,
+                                layer_sel=self.layer_sel, all_logits=True,
+                                tp=self.mesh)
+        return logits, kv
+
+    def generate_self_speculative_fused(self, prompt: str, cfg=None,
+                                        callback=None, draft_layers=None):
+        """The fused iteration runs the unsharded forward; under TP this
+        delegates to the host-driven protocol over the TP forward."""
+        return self.generate_self_speculative(prompt, cfg, callback,
+                                              draft_layers)
+
+
 class CPEngine(Engine):
     """Resident engine with CONTEXT parallelism: the cache splits along the
     sequence axis over the mesh's shards (parallel/cp.py), so the longest
@@ -655,7 +726,7 @@ class TieredEngine(Engine):
     @classmethod
     def load(cls, path: str, kv_quant: bool = False,
              draft_path: str | None = None, **kw) -> "TieredEngine":
-        """Load `path` tiered (load_model_tiered keywords: device,
+        """Load `path` tiered (load_model_tiered keywords: device, mesh,
         max_hbm_layers, requant_ram, ...). draft_path: a draft model loaded
         first, resident on the same device; the tiered loader then sizes
         the resident prefix on what is left, less the draft's bf16 cache."""
@@ -682,7 +753,7 @@ class TieredEngine(Engine):
             return KVCache.create(self.arch, quant=self.kv_quant,
                                   device=self.device)
         return TieredKV.create(self.arch, self.tm.tiers, quant=self.kv_quant,
-                               device=self.device)
+                               device=self.device, mesh=self.tm.mesh)
 
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
                        model=None, with_cosine=False):

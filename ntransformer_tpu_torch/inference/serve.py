@@ -182,7 +182,7 @@ class BatchServer:
         if mesh is not None:
             raise NotImplementedError(
                 "serving over a device mesh is not ported yet (ROADMAP "
-                "queue 1 item 14: the multi-GPU axes)")
+                "queue 1 item 14b: the sharded batch server)")
         self.spec_k = spec_k
         self.spec_draft = (spec_draft_layers if spec_draft_layers is not None
                            else max(1, model.arch.n_layers // 2))

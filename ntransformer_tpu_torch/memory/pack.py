@@ -473,6 +473,94 @@ def requant_layer_blob(meta: dict, blob: np.ndarray, new_meta: dict,
     return out
 
 
+# --- tensor parallelism: shard-major layer blobs ------------------------------
+SHARD_ALIGN = 256  # each plane of a shard's blob (>= PLANE_ALIGN)
+_UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+
+
+def shard_layer_meta(meta: dict, tp: int) -> list[dict]:
+    """The layer's blob re-described for a tp-way TP mesh (parallel/tp.py):
+    one meta a shard, holding its planes and vectors at their shard shapes
+    (column-parallel matrices and the qwen2 biases split on N, wo and down
+    on their plane rows, the norms whole), laid out from the shard's own
+    offset 0, with "size" and "base", its offset in the shard-major blob
+    (shard after shard, each 4096-aligned). A shard's bytes are then one
+    contiguous span that unpack_layer turns into its LayerWeights."""
+    from ..parallel.tp import COLUMN, LANE_VECTORS, ROW
+    if "experts" in meta or ROUTER in meta["tensors"]:
+        raise NotImplementedError(
+            "tiered MoE does not compose with TP meshes or requant yet — "
+            "drop those flags, or serve resident/EP")
+    shards, base = [], 0
+    for _ in range(tp):
+        off, tensors, norms = 0, {}, {}
+        for key, t in meta["tensors"].items():
+            col = key in COLUMN
+            if not col and key not in ROW:
+                raise ValueError(f"{key}: no tensor-parallel split")
+            planes = {}
+            for p, pm in t["planes"].items():
+                rows, n = pm["shape"]
+                off = _align(off, SHARD_ALIGN)
+                planes[p] = {"off": off, "dtype": pm["dtype"],
+                             "shape": [rows, n // tp] if col
+                             else [rows // tp, n]}
+                off += plane_nbytes(planes[p])
+            tensors[key] = {**t, "k": t["k"] if col else t["k"] // tp,
+                            "n": t["n"] // tp if col else t["n"],
+                            "planes": planes}
+        for key, m in meta["norms"].items():
+            n = m["shape"][0]
+            off = _align(off, SHARD_ALIGN)
+            norms[key] = {**m, "off": off,
+                          "shape": [n // tp] if key in LANE_VECTORS else [n]}
+            off += plane_nbytes(norms[key])
+        shards.append({"tensors": tensors, "norms": norms, "size": off,
+                       "base": base})
+        base = _align(base + off)
+    return shards
+
+
+def shard_blob_nbytes(shards: list[dict]) -> int:
+    """Bytes of the shard-major blob that shard_layer_meta describes."""
+    return shards[-1]["base"] + shards[-1]["size"]
+
+
+def _bits(buf: np.ndarray, m: dict, base: int = 0) -> np.ndarray:
+    """A plane or vector of a uint8 buffer as same-width unsigned ints of
+    its shape (a bit copy needs no float type)."""
+    nb = plane_nbytes(m)
+    item = _PLANE_DTYPES[m["dtype"]][1]
+    return buf[base + m["off"]: base + m["off"] + nb].view(
+        _UINT[item]).reshape(m["shape"])
+
+
+def shard_layer_blob(meta: dict, blob: np.ndarray, shards: list[dict],
+                     out: np.ndarray) -> np.ndarray:
+    """Copy a layer's blob (laid out as `meta`) into `out` as the
+    shard-major blob of shard_layer_meta: every shard's slice of every
+    plane (strided column slices become contiguous) and vector."""
+    from ..parallel.tp import COLUMN, LANE_VECTORS
+    for s, sm in enumerate(shards):
+        b = sm["base"]
+        for key, t in meta["tensors"].items():
+            for p, pm in t["planes"].items():
+                dm = sm["tensors"][key]["planes"][p]
+                src, dst = _bits(blob, pm), _bits(out, dm, b)
+                if key in COLUMN:
+                    w = dm["shape"][1]
+                    dst[...] = src[:, s * w:(s + 1) * w]
+                else:
+                    r = dm["shape"][0]
+                    dst[...] = src[s * r:(s + 1) * r]
+        for key, m in meta["norms"].items():
+            dm = sm["norms"][key]
+            src, dst = _bits(blob, m), _bits(out, dm, b)
+            n = dm["shape"][0]
+            dst[...] = src[s * n:(s + 1) * n] if key in LANE_VECTORS else src
+    return out
+
+
 def pack_path_for(gguf_path: str, requant: DType | None = None) -> str:
     suffix = f".requant_{requant.name.lower()}.ntp" if requant else ".ntp"
     return gguf_path + suffix

@@ -38,6 +38,20 @@ reads. `synchronous=True` waits out every stage before going on (no
 overlap), which measures what the pipeline buys and must give bit-identical
 results.
 
+Over a tensor-parallel mesh (`mesh=`, parallel/tp.py) every shard receives
+its own slice of each streamed layer, and the slices are staged on the
+host: a layer's blob is re-laid shard-major (memory/pack.shard_layer_blob:
+shard after shard, each shard's planes contiguous at their shard shapes),
+for tier B once at load (only the shard-major blob stays in pinned RAM),
+for tier C on the worker thread after the disk read, into a second pinned
+staging buffer. Each shard's copy is then one contiguous span of pinned
+memory into its own slot buffer on its own device, on that device's copy
+stream, with its own events; a column slice of a [K, N] plane is never
+copied from a strided host view (which would stage through pageable
+memory). `shard_h2d_bytes` counts each shard's bytes. With the shards on
+one card this moves the layer's bytes once, as without a mesh; on
+distinct cards each card receives its share.
+
 On CPU tensors (device="cpu", the tests) the same protocol runs with plain
 copies and no events; there is nothing to pin.
 """
@@ -51,11 +65,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..models.llama import LayerWeights
 from ..utils.timing import PROFILER
 from .native import DIRECT_ALIGN, StagePool, aligned_empty
 from .pack import (PackReader, plane_nbytes, requant_layer_blob,
-                   requant_layer_meta, unpack_layer)
+                   requant_layer_meta, shard_blob_nbytes, shard_layer_blob,
+                   shard_layer_meta, unpack_layer)
 from .tiers import TierConfig
 
 STAGE_THREADS = 8  # the worker threads of the tier-B load and tier-C reads
@@ -67,17 +81,19 @@ def _round_up(n: int) -> int:
 
 @dataclass
 class _Slot:
-    staging: np.ndarray                 # host staging buffer (tier C)
-    staging_t: torch.Tensor             # the same memory as a tensor
-    buf: torch.Tensor                   # the slot's buffer on the device
+    staging: np.ndarray        # host staging buffer of tier-C reads
+    staging_t: torch.Tensor    # what its copies read: staging, or `host`
+    host: np.ndarray | None    # under TP: staging re-laid shard-major
+    bufs: list                 # the slot's buffer on each shard's device
     layer: int = -1
-    stage_job: object = None            # StagePool handle of a pending read
-    transfer_done: object = None        # event after the last H2D copy
-    compute_done: object = None         # event after the last compute
-    # the event after the H2D that last read `staging`: the fence before
-    # the staging buffer is overwritten (survives signal_compute_done)
-    staging_read: object = None
-    views: dict = field(default_factory=dict)  # layer -> LayerWeights
+    stage_job: object = None   # StagePool handle of a pending read
+    # per shard: the event after its last H2D copy, after its last compute
+    transfer_done: list = field(default_factory=list)
+    compute_done: list = field(default_factory=list)
+    # the events after the copies that last read `staging_t`: the fence
+    # before it is overwritten (survives signal_compute_done)
+    staging_read: list = field(default_factory=list)
+    views: dict = field(default_factory=dict)  # layer -> [LayerWeights]
 
 
 class LayerStreamer:
@@ -88,16 +104,22 @@ class LayerStreamer:
     layers to as they load (less RAM and fewer bytes per token; tier C is
     untouched). direct_io: tier-C and tier-B reads bypass the page cache
     where O_DIRECT allows. h2d: "blob" copies a layer as one transfer,
-    "planes" as one transfer per plane (the JAX package's NT_H2D switch)."""
+    "planes" as one transfer per plane (the JAX package's NT_H2D switch).
+    mesh: a TP mesh (parallel/tp.py); each shard then receives its slice
+    (the module docstring) and get_weights returns a list."""
 
     def __init__(self, pack: PackReader, tiers: TierConfig, *, device,
                  requant_ram=None, direct_io: bool = True,
-                 h2d: str = "blob"):
+                 h2d: str = "blob", mesh=None):
         if h2d not in ("blob", "planes"):
             raise ValueError(f"h2d {h2d!r}: want 'blob' or 'planes'")
         self.pack = pack
         self.tiers = tiers
-        self.device = torch.device(device)
+        self.mesh = (None if mesh is None
+                     else tuple(torch.device(d) for d in mesh))
+        self.devices = (list(self.mesh) if self.mesh is not None
+                        else [torch.device(device)])
+        self.device = self.devices[0]
         self.cuda = self.device.type == "cuda"
         self.pool = StagePool(STAGE_THREADS)
         self.first = tiers.n_hbm                      # first streamed layer
@@ -109,22 +131,39 @@ class LayerStreamer:
         self.synchronous = False
         self._pinned: list[int] = []          # registered host pointers
         self._lock = threading.Lock()
+        self._layouts: dict[int, list] = {}
         # counters (bytes and host seconds) since the last reset_stats
         self.h2d_bytes = 0
+        self.shard_h2d_bytes = [0] * len(self.devices)
         self.disk_bytes = 0
         self.disk_s = 0.0
+        self.relayout_s = 0.0
         self.misaligned_copies = 0
-        self.copy_stream = torch.cuda.Stream(self.device) if self.cuda \
-            else None
-        buf = _round_up(pack.max_layer_nbytes)
-        self.slots = []
-        for _ in range(2):
-            staging = self._host_buffer(buf)
-            self.slots.append(_Slot(
-                staging, torch.from_numpy(staging),
-                torch.empty(buf, dtype=torch.uint8, device=self.device)))
+        self.copy_streams = ({d: torch.cuda.Stream(d)
+                              for d in dict.fromkeys(self.devices)}
+                             if self.cuda else {})
         self.ram_blobs: dict[int, torch.Tensor] = {}
         self._load_ram_tier()
+        streamed = range(self.first, self.first + self.n_streamed)
+        buf_sizes = [_round_up(max(self._layout(j)[s][2] for j in streamed))
+                     for s in range(len(self.devices))]
+        disk = [j for j in streamed if j not in self.ram_blobs]
+        host = (_round_up(max(shard_blob_nbytes(self._shard_metas(j))
+                              for j in disk))
+                if self.mesh is not None and disk else 0)
+        self.slots = []
+        for _ in range(2):
+            # under TP the raw staging buffer is read by the relayout only
+            staging = self._host_buffer(_round_up(pack.max_layer_nbytes),
+                                        pin=self.mesh is None)
+            shard_major = self._host_buffer(host) if host else None
+            self.slots.append(_Slot(
+                staging, torch.from_numpy(staging if shard_major is None
+                                          else shard_major), shard_major,
+                [torch.empty(n, dtype=torch.uint8, device=d)
+                 for n, d in zip(buf_sizes, self.devices)],
+                transfer_done=[None] * len(self.devices),
+                compute_done=[None] * len(self.devices)))
 
     # -- host memory ----------------------------------------------------------
     def _pin(self, a: np.ndarray) -> None:
@@ -140,9 +179,10 @@ class LayerStreamer:
                                "page-locked host buffers")
         self._pinned.append(a.ctypes.data)
 
-    def _host_buffer(self, size: int) -> np.ndarray:
+    def _host_buffer(self, size: int, pin: bool = True) -> np.ndarray:
         a = aligned_empty(size)
-        self._pin(a)
+        if pin:
+            self._pin(a)
         return a
 
     # -- init -------------------------------------------------------------------
@@ -174,6 +214,11 @@ class LayerStreamer:
                     saved += meta["size"] - new_meta["size"]
                     self.ram_meta[layer] = new_meta
                     blob = new_blob
+            if self.mesh is not None:
+                shards = self._shard_metas(layer)
+                blob = shard_layer_blob(
+                    self.layer_meta(layer), blob, shards,
+                    aligned_empty(_round_up(shard_blob_nbytes(shards))))
             self._pin(blob)
             self.ram_blobs[layer] = torch.from_numpy(blob)
         if saved:
@@ -187,6 +232,21 @@ class LayerStreamer:
 
     def layer_meta(self, layer: int) -> dict:
         return self.ram_meta.get(layer) or self.pack.layer_meta(layer)
+
+    def _shard_metas(self, layer: int) -> list[dict]:
+        return shard_layer_meta(self.layer_meta(layer), len(self.devices))
+
+    def _layout(self, layer: int) -> list[tuple[dict, int, int]]:
+        """(meta, offset in the staged blob, bytes) of each shard's span of
+        the layer: the whole blob without a mesh."""
+        if layer not in self._layouts:
+            if self.mesh is None:
+                meta = self.layer_meta(layer)
+                self._layouts[layer] = [(meta, 0, meta["size"])]
+            else:
+                self._layouts[layer] = [(m, m["base"], m["size"])
+                                        for m in self._shard_metas(layer)]
+        return self._layouts[layer]
 
     # -- pipeline -----------------------------------------------------------------
     def prefetch_staging(self, layer: int, slot_id: int) -> None:
@@ -204,17 +264,30 @@ class LayerStreamer:
             return
         meta = self.pack.layer_meta(layer)
         fence = slot.staging_read
-        slot.staging_read = None
+        slot.staging_read = []
+        shards = self._shard_metas(layer) if self.mesh is not None else None
 
         def job():
-            if fence is not None:
-                fence.synchronize()
+            # the copies read `staging_t`: the staging buffer itself, or
+            # under TP its shard-major relayout, which alone waits
+            if shards is None:
+                for ev in fence:
+                    ev.synchronize()
             t0 = time.perf_counter()
             self.pool.wait(self.pool.read(self.pack.path, meta["offset"],
                                           meta["size"], slot.staging,
                                           direct=self.direct_io))
+            t1 = time.perf_counter()
+            t2 = t3 = t1
+            if shards is not None:
+                for ev in fence:
+                    ev.synchronize()
+                t2 = time.perf_counter()
+                shard_layer_blob(meta, slot.staging, shards, slot.host)
+                t3 = time.perf_counter()
             with self._lock:
-                self.disk_s += time.perf_counter() - t0
+                self.disk_s += t1 - t0
+                self.relayout_s += t3 - t2
                 self.disk_bytes += meta["size"]
 
         slot.stage_job = self.pool.run(job)
@@ -223,8 +296,9 @@ class LayerStreamer:
             slot.stage_job = None
 
     def begin_h2d(self, layer: int, slot_id: int) -> None:
-        """Start the host -> device copy of `layer` into `slot_id` on the
-        copy stream; returns without waiting for it."""
+        """Start the host -> device copy of `layer` into `slot_id` (each
+        shard's span into its own buffer, on its device's copy stream);
+        returns without waiting for it."""
         slot = self.slots[slot_id]
         if layer in self.ram_blobs:
             src = self.ram_blobs[layer]
@@ -234,36 +308,46 @@ class LayerStreamer:
                     self.pool.wait(slot.stage_job)
                 slot.stage_job = None
             src = slot.staging_t
-        meta = self.layer_meta(layer)
-        size = meta["size"]
-        spans = ([(0, size)] if self.h2d == "blob" else
-                 [(m["off"], m["off"] + n) for m, n in self._regions(meta)])
         with PROFILER.phase("stream/begin_h2d", sync=False):
-            if self.cuda:
-                timed = PROFILER.enabled
-                start = torch.cuda.Event(enable_timing=True) if timed \
-                    else None
-                done = torch.cuda.Event(enable_timing=timed, blocking=True)
-                with torch.cuda.stream(self.copy_stream):
-                    if slot.compute_done is not None:
-                        self.copy_stream.wait_event(slot.compute_done)
-                    if timed:
-                        start.record(self.copy_stream)
+            for s, (meta, base, size) in enumerate(self._layout(layer)):
+                spans = ([(0, size)] if self.h2d == "blob" else
+                         [(m["off"], m["off"] + n)
+                          for m, n in self._regions(meta)])
+                buf = slot.bufs[s]
+                if self.cuda:
+                    self._copy(slot, s, buf, src, base, spans, size)
+                else:
                     for a, b in spans:
-                        slot.buf[a:b].copy_(src[a:b], non_blocking=True)
-                    done.record(self.copy_stream)
-                slot.transfer_done = done
-                if src is slot.staging_t:
-                    slot.staging_read = done
-                if timed:
-                    PROFILER.record_copy("stream/h2d", start, done, size)
-            else:
-                for a, b in spans:
-                    slot.buf[a:b].copy_(src[a:b])
-        self.h2d_bytes += size
+                        buf[a:b].copy_(src[base + a:base + b])
+                self.h2d_bytes += size
+                self.shard_h2d_bytes[s] += size
+        if self.cuda and src is slot.staging_t:
+            slot.staging_read = list(slot.transfer_done)
         slot.layer = layer
         if self.synchronous and self.cuda:
-            slot.transfer_done.synchronize()
+            for ev in slot.transfer_done:
+                ev.synchronize()
+
+    def _copy(self, slot: _Slot, s: int, buf, src, base: int, spans,
+              size: int) -> None:
+        """Shard s's async copy on its device's copy stream, after the
+        compute that last read its buffer; records transfer_done[s]."""
+        dev = self.devices[s]
+        stream = self.copy_streams[dev]
+        timed = PROFILER.enabled
+        start = torch.cuda.Event(enable_timing=True) if timed else None
+        done = torch.cuda.Event(enable_timing=timed, blocking=True)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            if slot.compute_done[s] is not None:
+                stream.wait_event(slot.compute_done[s])
+            if timed:
+                start.record(stream)
+            for a, b in spans:
+                buf[a:b].copy_(src[base + a:base + b], non_blocking=True)
+            done.record(stream)
+        slot.transfer_done[s] = done
+        if timed:
+            PROFILER.record_copy("stream/h2d", start, done, size)
 
     @staticmethod
     def _regions(meta: dict):
@@ -273,40 +357,47 @@ class LayerStreamer:
         for m in meta["norms"].values():
             yield m, plane_nbytes(m)
 
-    def get_weights(self, slot_id: int) -> LayerWeights:
-        """The slot's layer as LayerWeights on the device: the compute
-        stream waits for its copy first (transfer_done)."""
+    def get_weights(self, slot_id: int):
+        """The slot's layer on the device as LayerWeights, or under TP the
+        list of each shard's on its own device: each compute stream waits
+        for its copy first (transfer_done)."""
         slot = self.slots[slot_id]
         if slot.layer < 0:
             raise RuntimeError(f"begin_h2d was not called for slot {slot_id}")
         if self.cuda:
-            torch.cuda.current_stream(self.device).wait_event(
-                slot.transfer_done)
-        lw = slot.views.get(slot.layer)
-        if lw is None:
-            lw, copied = unpack_layer(slot.buf, self.layer_meta(slot.layer))
+            for dev, ev in zip(self.devices, slot.transfer_done):
+                torch.cuda.current_stream(dev).wait_event(ev)
+        lws = slot.views.get(slot.layer)
+        if lws is None:
+            lws, copied = [], 0
+            for buf, (meta, _, _) in zip(slot.bufs,
+                                          self._layout(slot.layer)):
+                lw, n = unpack_layer(buf, meta)
+                lws.append(lw)
+                copied += n
             self.misaligned_copies += copied
-            if not copied:  # views of the slot buffer stay valid
-                slot.views[slot.layer] = lw
-        return lw
+            if not copied:  # views of the slot buffers stay valid
+                slot.views[slot.layer] = lws
+        return lws if self.mesh is not None else lws[0]
 
     def signal_compute_done(self, slot_id: int) -> None:
         """Mark the slot's layer as consumed by the work queued so far: the
-        next copy into the slot waits for it."""
+        next copy into the slot waits for it, shard by shard."""
         slot = self.slots[slot_id]
         if self.cuda:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            slot.compute_done = ev
-            if self.synchronous:
-                ev.synchronize()
+            for s, dev in enumerate(self.devices):
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                slot.compute_done[s] = ev
+                if self.synchronous:
+                    ev.synchronize()
         slot.layer = -1
 
     # -- convenience ------------------------------------------------------------
     def layer_nbytes(self, layer: int) -> int:
-        """Bytes this layer moves host -> device per token (a tier-B requant
-        shrinks them below the pack's)."""
-        return self.layer_meta(layer)["size"]
+        """Bytes this layer moves host -> device per token, its shards'
+        together (a tier-B requant shrinks them below the pack's)."""
+        return sum(size for _, _, size in self._layout(layer))
 
     def schedule(self, skip=frozenset()) -> list[int]:
         """Streamed layer ids in order, minus skipped ones (skipping a
@@ -317,7 +408,8 @@ class LayerStreamer:
     def reset_stats(self):
         with self._lock:
             self.h2d_bytes = self.disk_bytes = 0
-            self.disk_s = 0.0
+            self.shard_h2d_bytes = [0] * len(self.devices)
+            self.disk_s = self.relayout_s = 0.0
             self.misaligned_copies = 0
         self.pool.direct_reads = self.pool.buffered_reads = 0
 
@@ -329,7 +421,8 @@ class LayerStreamer:
                 self.pool.wait(slot.stage_job)
                 slot.stage_job = None
         if self.cuda:
-            torch.cuda.synchronize(self.device)
+            for dev in dict.fromkeys(self.devices):
+                torch.cuda.synchronize(dev)
             cudart = torch.cuda.cudart()
             for ptr in self._pinned:
                 cudart.cudaHostUnregister(ptr)

@@ -10,6 +10,11 @@ framework:
     the JAX package donates the cache buffer to a jitted forward; `forward`
     still returns the cache so callers read the same as in the JAX package.
 
+`forward(..., tp=mesh)` runs tensor parallelism (parallel/tp.py): one
+process drives a list of shards, the replicated work on the first shard's
+device and the shards' partials summed there in shard order
+(tp_layer_step).
+
 Mixture-of-experts layers (mixtral, qwen3moe) run `moe_ffn`: at T = 1 the
 k routed experts go through the T = 1 kernels' device-side select (the
 expert index never leaves the card), at T > 1 a dense loop over every
@@ -23,8 +28,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.layers import (apply_rope, attention, attention_cp_dispatch,
-                          rms_norm, swiglu)
+from ..ops.layers import (_psum, apply_rope, attention,
+                          attention_cp_dispatch, rms_norm, swiglu)
 from ..ops.linear import QLinear, embed_lookup, qmatmul
 
 
@@ -62,6 +67,12 @@ class Arch:
     def from_config(cls, cfg) -> "Arch":
         return cls(**{f.name: getattr(cfg, f.name)
                       for f in dataclasses.fields(cls)})
+
+    def local_arch(self, tp: int) -> "Arch":
+        """The arch one tensor-parallel shard computes: its share of the
+        query and KV heads (parallel/tp.py)."""
+        return dataclasses.replace(self, n_heads=self.n_heads // tp,
+                                   n_kv_heads=self.n_kv_heads // tp)
 
 
 @dataclass
@@ -167,29 +178,43 @@ def stack_layers(layers: list[LayerWeights]) -> LayerWeights:
                            for nm in names})
 
 
-def _concat_qlinear(parts: list[QLinear]) -> QLinear | None:
+def _concat_qlinear(parts: list[QLinear], tp: int = 1) -> QLinear | None:
     """Concatenate QLinears along the output (lane) axis when they share
-    dtype and K (single device, tp = 1)."""
+    dtype and K. tp > 1: the INTERLEAVED lane order [q_0|k_0|v_0 | q_1|k_1|
+    v_1 | ...], part_s being a part's s-th N/tp column slice, so a
+    contiguous column split over tp shards hands each shard its own q|k|v
+    (the JAX package's order; parallel/tp.shard_weights builds the shards'
+    planes from it without the interleaved copy). None when a part does not
+    split evenly."""
     if any(p is None for p in parts):
         return None
     if len({p.dtype for p in parts}) != 1 or len({p.k for p in parts}) != 1:
         return None
-    planes = {nm: torch.cat([p.planes[nm] for p in parts], dim=-1)
-              for nm in parts[0].planes}
+    if tp > 1 and any(p.n % tp for p in parts):
+        return None
+    planes = {}
+    for nm in parts[0].planes:
+        chunks = []
+        for s in range(tp):
+            for p in parts:
+                w = p.planes[nm].shape[-1] // tp
+                chunks.append(p.planes[nm][..., s * w:(s + 1) * w])
+        planes[nm] = torch.cat(chunks, dim=-1)
     return QLinear(parts[0].dtype, parts[0].k, sum(p.n for p in parts),
                    planes)
 
 
-def fuse_layer_weights(lw: LayerWeights) -> LayerWeights:
+def fuse_layer_weights(lw: LayerWeights, tp: int = 1) -> LayerWeights:
     """Build fused wqkv / w_gate_up (dropping the unfused copies); a
-    mixed-dtype triple fuses q|k alone. Expert planes stay unfused."""
-    wqkv = _concat_qlinear([lw.wq, lw.wk, lw.wv])
-    w_gate_up = _concat_qlinear([lw.w_gate, lw.w_up])
+    mixed-dtype triple fuses q|k alone. Expert planes stay unfused. tp > 1
+    builds the interleaved lane order of _concat_qlinear."""
+    wqkv = _concat_qlinear([lw.wq, lw.wk, lw.wv], tp)
+    w_gate_up = _concat_qlinear([lw.w_gate, lw.w_up], tp)
     out = lw
     if wqkv is not None:
         out = dataclasses.replace(out, wqkv=wqkv, wq=None, wk=None, wv=None)
     else:
-        wqk = _concat_qlinear([lw.wq, lw.wk])
+        wqk = _concat_qlinear([lw.wq, lw.wk], tp)
         if wqk is not None:
             out = dataclasses.replace(out, wqk=wqk, wq=None, wk=None)
     if w_gate_up is not None:
@@ -291,14 +316,27 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     weights are a stack of one). Under context parallelism (parallel/cp.py)
     kv_k/kv_v are lists of the shards' [Hkv, S/n, D] views, shard i holding
     global rows [i*S/n, (i+1)*S/n)."""
-    T = x.shape[0]
+    h = rms_norm(x, _norm_w(arch, lw.attn_norm, layer),
+                 arch.norm_eps).to(torch.bfloat16)
+    o = attn_heads(arch, h, lw, kv_k, kv_v, pos, cos_t, sin_t, n_valid,
+                   layer, abs_layer)
+    if arch.post_norms:
+        o = rms_norm(o, _norm_w(arch, lw.attn_post_norm, layer),
+                     arch.norm_eps)
+    return x + o
+
+
+def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
+               sin_t, n_valid=None, layer: int = 0, abs_layer=None):
+    """Attention from the normed input h [T, H] bf16 through the output
+    projection: [T, H] f32, before any post norm. Under tensor parallelism
+    `arch` is a shard's local arch and the result its row-parallel partial
+    of wo's product (tp_layer_step sums the shards')."""
+    T = h.shape[0]
     Hq, Hkv, D = arch.n_heads, arch.n_kv_heads, arch.head_dim
     q_scale = arch.query_scale if arch.query_scale else 1.0 / math.sqrt(D)
     window, local = layer_window(arch, layer if abs_layer is None
                                  else abs_layer)
-
-    h = rms_norm(x, _norm_w(arch, lw.attn_norm, layer),
-                 arch.norm_eps).to(torch.bfloat16)
     if lw.wqkv is not None:
         qkv = qmatmul(h, lw.wqkv, layer=layer)
         nq, nkv = Hq * D, Hkv * D
@@ -374,12 +412,8 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     if not cp:
         att = attention(q, kf, vf, pos, T, q_scale, window=window,
                         softcap=arch.attn_softcap)
-    o = qmatmul(att.reshape(T, Hq * D).to(torch.bfloat16), lw.wo,
-                layer=layer)
-    if arch.post_norms:
-        o = rms_norm(o, _norm_w(arch, lw.attn_post_norm, layer),
-                     arch.norm_eps)
-    return x + o
+    return qmatmul(att.reshape(T, Hq * D).to(torch.bfloat16), lw.wo,
+                   layer=layer)
 
 
 def quantize_rows(k: torch.Tensor, v: torch.Tensor):
@@ -460,10 +494,127 @@ def head_logits(arch: Arch, weights: ModelWeights, x, n_valid=None,
     return logits
 
 
+# --- tensor parallelism (parallel/tp.py) -------------------------------------
+# One process drives every shard. The replicated work (embedding reassembly,
+# norms, residual adds, the LM head's sum) runs on the first shard's device;
+# each shard's column- and row-parallel products, its heads' attention and
+# its cache run on its own. Where the JAX package psums (after wo, after
+# w_down, the LM head's partial logits) the shards' f32 partials are summed
+# here in shard order on the first shard's device, so the bits do not depend
+# on where the shards live; the embedding's K-slices are concatenated (the
+# JAX all-gather). On one card every hand-off is a view; across cards a
+# peer copy on the current streams.
+
+
+def tp_embed_positions(arch: Arch, shards: list[ModelWeights], tokens,
+                       pos: int):
+    """Token embedding from the row-sharded table: each shard dequantizes
+    its K-slice of the rows, concatenated on the first shard's device;
+    and each shard's RoPE rows on its own device. Returns (x [T, H] f32,
+    [(cos, sin) of each shard])."""
+    dev = shards[0].output_norm.device
+    T = tokens.shape[0]
+    x = torch.cat([embed_lookup(w.embed, tokens, out_dtype=torch.float32)
+                   .to(dev) for w in shards], dim=-1)
+    if arch.embed_scale != 1.0:
+        x = x * arch.embed_scale
+    ropes = [(w.rope_cos[..., pos:pos + T, :], w.rope_sin[..., pos:pos + T, :])
+             for w in shards]
+    return x, ropes
+
+
+def tp_layer_step(arch: Arch, x, lws: list[LayerWeights], kvs: list, pos: int,
+                  ropes: list, n_valid=None, layer: int = 0, abs_layer=None):
+    """One block over tp shards. arch: the shards' local arch; x [T, H] f32
+    on the first shard's device; lws, kvs ((k, v) cache views of this
+    layer) and ropes one per shard, each on its shard's device; layer /
+    abs_layer as in attn_block. The norms are replicated: shard 0's are
+    read. Returns x."""
+    dev = x.device
+    lw0 = lws[0]
+    h = rms_norm(x, _norm_w(arch, lw0.attn_norm, layer),
+                 arch.norm_eps).to(torch.bfloat16)
+    o = _psum([attn_heads(arch, h.to(c.device), lw, kk, vv, pos, c, s,
+                              n_valid, layer, abs_layer)
+                   for lw, (kk, vv), (c, s) in zip(lws, kvs, ropes)], dev)
+    if arch.post_norms:
+        o = rms_norm(o, _norm_w(arch, lw0.attn_post_norm, layer),
+                     arch.norm_eps)
+    x = x + o
+    hf = rms_norm(x, _norm_w(arch, lw0.ffn_norm, layer),
+                  arch.norm_eps).to(torch.bfloat16)
+    dn = _psum([dense_ffn(arch, hf.to(c.device), lw, layer)
+                    for lw, (c, _) in zip(lws, ropes)], dev)
+    if arch.post_norms:
+        dn = rms_norm(dn, _norm_w(arch, lw0.ffn_post_norm, layer),
+                      arch.norm_eps)
+    return x + dn
+
+
+def tp_head_logits(arch: Arch, shards: list[ModelWeights], x, n_valid=None,
+                   all_logits: bool = False):
+    """Final norm, then the row-parallel LM head: shard s multiplies its
+    K-slice of the selected rows by its rows of the head, and the partial
+    logits are summed in shard order on the first shard's device."""
+    from ..ops.linear import plane_dims
+    w = shards[0].output_norm
+    x = rms_norm(x, w + arch.norm_bias if arch.norm_bias != 0.0 else w,
+                 arch.norm_eps)
+    if all_logits:
+        sel = x
+    elif n_valid is not None:
+        sel = x[int(n_valid) - 1:int(n_valid)]
+    else:
+        sel = x[-1:]
+    sel = sel.to(torch.bfloat16)
+    parts, k0 = [], 0
+    for sw in shards:
+        head = sw.lm_head
+        kl, _ = plane_dims(head.planes, head.dtype)
+        dev = next(iter(head.planes.values())).device
+        parts.append(qmatmul(sel[:, k0:k0 + kl].to(dev), head))
+        k0 += kl
+    logits = _psum(parts, x.device)
+    if logits.shape[-1] > arch.vocab_size:
+        logits = logits[:, :arch.vocab_size]
+    if arch.final_softcap:
+        logits = arch.final_softcap * torch.tanh(logits / arch.final_softcap)
+    return logits
+
+
+def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list[KVCache],
+                tokens, pos: int, layer_sel, n_valid, all_logits: bool,
+                with_cosine: bool, mesh):
+    tp = len(mesh)
+    if len(shards) != tp or len(kv) != tp:
+        raise ValueError(f"{len(shards)} weight and {len(kv)} cache shards "
+                         f"for a {tp}-way TP mesh")
+    if arch.n_experts:
+        raise NotImplementedError(
+            "MoE x tensor parallelism not supported - shard the experts "
+            "instead (parallel/ep.py)")
+    arch_l = arch.local_arch(tp)
+    dev = shards[0].output_norm.device
+    tokens = torch.as_tensor(tokens, device=dev).reshape(-1)
+    x, ropes = tp_embed_positions(arch, shards, tokens, pos)
+    indices = (range(kv[0].k.shape[0]) if layer_sel is None
+               else [int(i) for i in layer_sel])
+    lws = [w.layers for w in shards]
+    cosines = []
+    for li in indices:
+        x2 = tp_layer_step(arch_l, x, lws, [c.layer(li) for c in kv], pos,
+                           ropes, n_valid, layer=li)
+        if with_cosine:
+            cosines.append(_cosine(x, x2))
+        x = x2
+    logits = tp_head_logits(arch, shards, x, n_valid, all_logits)
+    return logits, kv, (torch.stack(cosines) if with_cosine else None)
+
+
 @torch.inference_mode()
 def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
             layer_sel=None, n_valid=None, all_logits: bool = False,
-            with_cosine: bool = False, cp=None):
+            with_cosine: bool = False, cp=None, tp=None):
     """Forward pass over (a subset of) the layer stack.
 
     tokens [T] int; pos: write offset into the cache. layer_sel: indices of
@@ -471,11 +622,21 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
     bucketed prefill. The cache is updated in place. cp: a context-parallel
     mesh (parallel/cp.py); kv is then the list of the shards' bf16 caches
     (parallel/cp.make_cp_kv), and everything but attention runs on the
-    weights' device. Returns (logits [T or 1, V] f32, kv, cosines
+    weights' device. tp: a tensor-parallel mesh (parallel/tp.py); weights
+    and kv are then the lists of the shards' ModelWeights
+    (parallel/tp.shard_weights) and caches (parallel/tp.make_tp_kv), and
+    `arch` the whole model's. Returns (logits [T or 1, V] f32, kv, cosines
     [len(layers)] f32 or None)."""
+    pos = int(pos)
+    if tp is not None:
+        if cp is not None:
+            raise NotImplementedError(
+                "context x tensor parallelism is not ported yet (ROADMAP "
+                "queue 1 item 14d)")
+        return _forward_tp(arch, weights, kv, tokens, pos, layer_sel,
+                           n_valid, all_logits, with_cosine, tp)
     dev = weights.output_norm.device
     tokens = torch.as_tensor(tokens, device=dev).reshape(-1)
-    pos = int(pos)
     if cp is not None:
         if len(kv) != len(cp):
             raise ValueError(f"{len(kv)} cache shards for a {len(cp)}-way "

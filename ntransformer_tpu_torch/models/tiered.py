@@ -16,8 +16,18 @@ A streamed layer's weights are views into its slot buffer, presented to the
 model's layer_step as a stack of one (`layer=0`) with its depth as
 `abs_layer` (sliding window, rope table). A mixture-of-experts model
 streams (layer, expert) sets instead of layers: `load_model_tiered` and
-`forward_tiered` hand it to models/tiered_moe.py. Device meshes are
-refused: their tiered form waits for ROADMAP queue 1 item 14.
+`forward_tiered` hand it to models/tiered_moe.py.
+
+Over a tensor-parallel mesh (`mesh=`, parallel/tp.py) the resident
+prefix, embedding and head are sharded as TPEngine's are, the cache splits
+on its heads, and each shard receives its own slice of every streamed
+layer (memory/streamer.py stages the slices shard-major on the host);
+every layer then runs models/llama.tp_layer_step, so a tiered TP token
+runs the kernels and sums of resident TP. The tiers are sized by the bytes
+that land on the busiest card (`tier_budget`): with one shard a card a
+layer and the fixed reserve divide by tp (the JAX rule); with every shard
+on one card that card holds them whole. gemma3 (dual rope tables) and
+mixture-of-experts models are refused over a mesh, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,12 +42,13 @@ from ..core.gguf import GGUFReader
 from ..inference.tokenizer import Tokenizer
 from ..memory.pack import PackReader, ensure_pack, requant_layer_meta
 from ..memory.streamer import LayerStreamer
-from ..memory.tiers import TierConfig, ram_available_bytes
+from ..memory.tiers import TierConfig, hbm_free_bytes, ram_available_bytes
 from ..ops.layers import rope_table
 from ..ops.linear import QLinear
 from .config import ModelConfig
 from .llama import (Arch, KVCache, LayerWeights, ModelWeights, _cosine,
-                    embed_positions, head_logits, layer_step, stack_layers)
+                    embed_positions, head_logits, layer_step, stack_layers,
+                    tp_embed_positions, tp_head_logits, tp_layer_step)
 from .loader import (load_norm, load_qlinear_host, qlinear_to_device,
                      resolve_device, rope_freq_factors)
 
@@ -54,12 +65,18 @@ class TieredKV:
 
     @classmethod
     def create(cls, arch: Arch, tiers: TierConfig, quant: bool = False,
-               device="cuda") -> "TieredKV":
+               device="cuda", mesh=None) -> "TieredKV":
+        """mesh: a TP mesh; each tier's cache is then the list of the
+        shards' head slices (parallel/tp.make_tp_kv)."""
+        from ..parallel.tp import make_tp_kv
+
         def make(n):
             if not n:
                 return None
-            return KVCache.create(dataclasses.replace(arch, n_layers=n),
-                                  quant=quant, device=device)
+            a = dataclasses.replace(arch, n_layers=n)
+            if mesh is not None:
+                return make_tp_kv(a, mesh, quant)
+            return KVCache.create(a, quant=quant, device=device)
         return cls(make(tiers.n_hbm), make(tiers.n_streamed))
 
 
@@ -68,11 +85,13 @@ class TieredModel:
     config: ModelConfig
     arch: Arch
     tiers: TierConfig
-    resident: ModelWeights          # .layers = stacked [n_hbm] (or None)
+    # .layers = stacked [n_hbm] (or None); under TP a list, one a shard
+    resident: ModelWeights
     streamer: LayerStreamer | None
     tokenizer: Tokenizer | None
     pack: PackReader
-    device: torch.device
+    device: torch.device            # the mesh's first device under TP
+    mesh: tuple | None = None       # a TP mesh (parallel/tp.py)
 
     @property
     def n_resident(self) -> int:
@@ -130,14 +149,28 @@ def forward_tiered(tm: TieredModel, kv: TieredKV, tokens, pos: int, *,
     arch = tm.arch
     tokens = torch.as_tensor(tokens, device=tm.device).reshape(-1)
     pos = int(pos)
-    x, cos_t, sin_t = embed_positions(arch, tm.resident, tokens, pos)
+    if tm.mesh is None:
+        x, cos_t, sin_t = embed_positions(arch, tm.resident, tokens, pos)
+        res_layers = tm.resident.layers
+
+        def step(x, lw, caches, idx, layer, abs_layer=None):
+            kk, vv = caches.layer(idx)
+            return layer_step(arch, x, lw, kk, vv, pos, cos_t, sin_t,
+                              n_valid, layer=layer, abs_layer=abs_layer)
+    else:
+        arch_l = arch.local_arch(len(tm.mesh))
+        x, ropes = tp_embed_positions(arch, tm.resident, tokens, pos)
+        res_layers = [w.layers for w in tm.resident]
+
+        def step(x, lws, caches, idx, layer, abs_layer=None):
+            return tp_layer_step(arch_l, x, lws,
+                                 [c.layer(idx) for c in caches], pos, ropes,
+                                 n_valid, layer=layer, abs_layer=abs_layer)
     cos_parts: list[tuple[int, torch.Tensor]] = []
     for i in range(tm.tiers.n_hbm):
         if i in skip:
             continue
-        kk, vv = kv.res.layer(i)
-        x2 = layer_step(arch, x, tm.resident.layers, kk, vv, pos, cos_t,
-                        sin_t, n_valid, layer=i)
+        x2 = step(x, res_layers, kv.res, i, i)
         if with_cosine:
             cos_parts.append((i, _cosine(x, x2)))
         x = x2
@@ -157,14 +190,14 @@ def forward_tiered(tm: TieredModel, kv: TieredKV, tokens, pos: int, *,
                     and float(pending[1]) > early_exit_threshold):
                 break  # the remaining layers' streaming I/O is skipped
             slot = i % 2
-            lw = _stack_of_one(s.get_weights(slot))
+            lw = s.get_weights(slot)
+            lw = (_stack_of_one(lw) if tm.mesh is None
+                  else [_stack_of_one(w) for w in lw])
             if i + 1 < len(sched):
                 s.begin_h2d(sched[i + 1], (i + 1) % 2)
             if i + 2 < len(sched):
                 s.prefetch_staging(sched[i + 2], slot)
-            kk, vv = kv.str.layer(layer - s.first)
-            x2 = layer_step(arch, x, lw, kk, vv, pos, cos_t, sin_t, n_valid,
-                            layer=0, abs_layer=layer)
+            x2 = step(x, lw, kv.str, layer - s.first, 0, layer)
             cos_l = _cosine(x, x2) if want_cos else None
             x = x2
             s.signal_compute_done(slot)
@@ -173,7 +206,10 @@ def forward_tiered(tm: TieredModel, kv: TieredKV, tokens, pos: int, *,
             if early_exit_threshold > 0 and layer >= half:
                 pending = (layer, cos_l)
 
-    logits = head_logits(arch, tm.resident, x, n_valid, all_logits)
+    if tm.mesh is None:
+        logits = head_logits(arch, tm.resident, x, n_valid, all_logits)
+    else:
+        logits = tp_head_logits(arch, tm.resident, x, n_valid, all_logits)
     cosines = None
     if with_cosine:
         cosines = torch.zeros(arch.n_layers, dtype=torch.float32)
@@ -188,6 +224,19 @@ def kv_cache_bytes(arch: Arch, quant: bool = False) -> int:
     rows = arch.n_layers * arch.n_kv_heads * arch.max_seq_len
     per_row = (arch.head_dim + 4) if quant else arch.head_dim * 2
     return rows * per_row * 2  # k and v
+
+
+def tier_budget(mesh, layer_bytes: int, fixed_bytes: int) -> tuple[int, int]:
+    """(a streamed layer's bytes, the fixed device bytes: non-layer weights
+    and cache) that land on the busiest card of a TP mesh (no mesh: as
+    given). Each shard holds 1/tp of both, so a card holding c shards
+    holds c/tp: with one shard a card the JAX loader's per-shard rule
+    (both divided by tp), with every shard on one card the whole."""
+    if mesh is None:
+        return layer_bytes, fixed_bytes
+    tp = len(mesh)
+    c = max(list(mesh).count(d) for d in mesh)
+    return layer_bytes * c // tp, fixed_bytes * c // tp
 
 
 def _device_nbytes(ql: QLinear) -> int:
@@ -221,20 +270,28 @@ def load_model_tiered(path: str, *, max_seq_len: int | None = None,
     O_DIRECT allows; h2d: "blob" (one copy per layer) or "planes".
     reserve_extra_bytes: device memory promised to state the loader does
     not see, such as a separate draft model's cache (the draft itself loads
-    first and is gone from the free memory already). A mixture-of-experts
-    file loads as a TieredMoEModel (load_model_tiered_moe: its ram_bytes
-    budget; the layer caps, requant and h2d do not apply)."""
-    dev = resolve_device(device)
+    first and is gone from the free memory already). mesh: a TP mesh
+    (parallel/tp.make_tp_mesh; it replaces `device`): the model is sharded
+    over it (the module docstring) and hbm_bytes defaults to the least free
+    memory of its cards. A mixture-of-experts file loads as a
+    TieredMoEModel (load_model_tiered_moe: its ram_bytes budget; the layer
+    caps, requant and h2d do not apply)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "tiered streaming over a device mesh is not ported yet (ROADMAP "
-            "queue 1 item 14: the multi-GPU axes)")
+        mesh = tuple(resolve_device(d) for d in mesh)
+        dev = mesh[0]
+    else:
+        dev = resolve_device(device)
     reader = GGUFReader(path)
     cfg = ModelConfig.from_gguf_metadata(reader.metadata, max_seq_len)
     arch = Arch.from_config(cfg)
+    if arch.rope_local_theta and mesh is not None:
+        raise NotImplementedError(
+            "gemma3 (dual rope tables) x TP tiered streaming is not "
+            "supported yet — run tiered single-chip, or resident TP")
     if arch.n_experts:
         # experts stream as (layer, expert) sets (tiered_moe.py)
-        if requant is not None or requant_ram is not None:
+        if mesh is not None or requant is not None \
+                or requant_ram is not None:
             raise NotImplementedError(
                 "tiered MoE does not compose with TP meshes or requant yet "
                 "— drop those flags, or serve resident/EP")
@@ -247,55 +304,73 @@ def load_model_tiered(path: str, *, max_seq_len: int | None = None,
     embed = load_qlinear_host(reader, "token_embd.weight")
     tied = "output.weight" not in reader
     head = None if tied else load_qlinear_host(reader, "output.weight")
-    layer_bytes = pack.max_layer_nbytes
     # the device holds the resident prefix, the non-layer weights, the KV
     # cache, a workspace and the two streaming slots. A slot is one layer's
     # blob and the layer's weights are views into it: 2 x layer_bytes. (The
     # JAX loader reserves 4 x: each of its slots holds the transferred blob
-    # and the planes unpacked from it.)
+    # and the planes unpacked from it.) Over a mesh: the busiest card's
+    # share of each (tier_budget)
+    layer_bytes, fixed_bytes = tier_budget(
+        mesh, pack.max_layer_nbytes,
+        _device_nbytes(embed) + (0 if tied else _device_nbytes(head))
+        + kv_cache_bytes(arch, quant=kv_quant))
     slot_bytes = 2 * ((layer_bytes + 4095) // 4096 * 4096)
-    reserve = (_device_nbytes(embed) + (0 if tied else _device_nbytes(head))
-               + kv_cache_bytes(arch, quant=kv_quant) + WORKSPACE_BYTES
-               + slot_bytes + reserve_extra_bytes)
-    ram_layer_bytes = None
+    reserve = (fixed_bytes + WORKSPACE_BYTES + slot_bytes
+               + reserve_extra_bytes)
+    # host RAM holds every shard of a tier-B layer: the whole layer
+    ram_layer_bytes = None if mesh is None else pack.max_layer_nbytes
     if requant_ram is not None:
-        ram_layer_bytes = requant_layer_meta(pack.layer_meta(0),
-                                             requant_ram)["size"]
-        if ram_layer_bytes == pack.layer_meta(0)["size"]:
+        rq_bytes = requant_layer_meta(pack.layer_meta(0),
+                                      requant_ram)["size"]
+        if rq_bytes == pack.layer_meta(0)["size"]:
             print("requant_ram: no Q6_K tensors to requantize; ignored",
                   file=sys.stderr)
-            requant_ram = ram_layer_bytes = None
+            requant_ram = None
+        else:
+            ram_layer_bytes = rq_bytes
     if hbm_bytes is None and dev.type == "cpu":
         hbm_bytes = ram_available_bytes()
+    elif hbm_bytes is None and mesh is not None:
+        hbm_bytes = min(hbm_free_bytes(d) for d in dict.fromkeys(mesh))
     tiers = TierConfig.compute(
         cfg.n_layers, layer_bytes, reserve, hbm_bytes=hbm_bytes,
         ram_bytes=ram_bytes, max_hbm_layers=max_hbm_layers,
         max_ram_layers=max_ram_layers, ram_layer_bytes=ram_layer_bytes)
     print(tiers.describe(layer_bytes), file=sys.stderr)
 
-    # tier A: the resident stacked prefix, read from the pack
+    # tier A: the resident stacked prefix, read from the pack; over a mesh
+    # it is built on the host and goes straight to its shards
+    home = dev if mesh is None else torch.device("cpu")
     stacked = stack_layers([
-        _to_device(pack.layer_weights(i, pack.read_layer(i)), dev)
+        _to_device(pack.layer_weights(i, pack.read_layer(i)), home)
         for i in range(tiers.n_hbm)]) if tiers.n_hbm else None
 
-    embed_dev = qlinear_to_device(embed, dev)
-    lm_head = embed_dev if tied else qlinear_to_device(head, dev)
+    embed_dev = qlinear_to_device(embed, home)
+    lm_head = embed_dev if tied else qlinear_to_device(head, home)
     output_norm = torch.from_numpy(
-        load_norm(reader, "output_norm.weight")).to(dev)
+        load_norm(reader, "output_norm.weight")).to(home)
     cos, sin = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
-                          rope_freq_factors(reader), device=dev)
+                          rope_freq_factors(reader), device=home)
     if cfg.rope_local_theta:
         # gemma3: the local layers rotate with their own base
         lcos, lsin = rope_table(cfg.max_seq_len, cfg.head_dim,
-                                cfg.rope_local_theta, device=dev)
+                                cfg.rope_local_theta, device=home)
         cos, sin = torch.stack([cos, lcos]), torch.stack([sin, lsin])
     resident = ModelWeights(embed=embed_dev, layers=stacked,
                             output_norm=output_norm, lm_head=lm_head,
                             rope_cos=cos, rope_sin=sin)
+    if mesh is not None:
+        from ..parallel.tp import check_shardable, shard_weights
+        # the streamed layers are held to the plan too (layer 0's shapes)
+        template = pack.layer_weights(0, pack.read_layer(0))
+        check_shardable(arch, dataclasses.replace(resident, layers=template),
+                        len(mesh), dev.type == "cuda")
+        resident = shard_weights(resident, mesh, arch)
     streamer = (LayerStreamer(pack, tiers, device=dev,
                               requant_ram=requant_ram, direct_io=direct_io,
-                              h2d=h2d)
+                              h2d=h2d, mesh=mesh)
                 if tiers.n_streamed else None)
     tok = (Tokenizer.from_gguf_metadata(reader.metadata) if with_tokenizer
            else None)
-    return TieredModel(cfg, arch, tiers, resident, streamer, tok, pack, dev)
+    return TieredModel(cfg, arch, tiers, resident, streamer, tok, pack, dev,
+                       mesh)

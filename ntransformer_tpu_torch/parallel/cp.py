@@ -15,8 +15,9 @@ head) runs once, on the mesh's first device, where the weights live; only
 the cache slices and the attention partials live per shard, q and the new
 k/v rows copied to the shards' devices and the partials copied back
 (`forward(..., cp=mesh)` in models/llama.py). On one card nothing is
-copied. The CP x TP compose of the JAX package waits for tensor
-parallelism.
+copied. Tensor parallelism (parallel/tp.py) runs on its own, with the int8
+cache that CP refuses; the JAX package's CP x TP compose is ROADMAP queue 1
+item 14d.
 """
 from __future__ import annotations
 

@@ -58,12 +58,16 @@ def test_benchmark_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--cp", "2", "--tp", "2"], ["--ep", "2"], ["--dp", "2"],
+    ["--tp", "2", "--serve", "p.txt"], ["--cp", "2", "--tp", "2"],
+    ["--ep", "2"], ["--dp", "2"],
 ], ids=lambda f: f[0])
 def test_unported_modes_exit_2_naming_the_roadmap(flags, capsys):
+    """--tp runs alone (test_tp_*); the sharded batch server (--serve over
+    --tp) is item 14b, CP x TP item 14d, --ep 14c, --dp 14b."""
     assert cli.main(BASE + flags) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP" in err
+    assert "item 14" in err
 
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"]],
@@ -73,6 +77,72 @@ def test_http_over_multi_gpu_axes_stays_refused(flags, capsys):
     assert cli.main(BASE + ["--http", "0"] + flags) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "item 14" in err
+
+
+@pytest.mark.parametrize("flags", [[], ["--kv-int8", "--no-fuse"]],
+                         ids=["fused", "int8-unfused"])
+def test_tp_generate_prints_the_jax_text(flags, capsys):
+    """--tp 2 on the CPU (two shards, one process): the JAX CLI's --tp 2
+    text (its 8-device CPU mesh), and the resident port CLI's."""
+    args = ["-p", "def f(x):", "-t", "0", "--tp", "2"] + flags
+    assert cli.main(BASE + args) == 0
+    got = capsys.readouterr()
+    assert "2-way TP" in got.err and "decode:  4 tok" in got.err
+    assert jcli.main(["-m", MODEL, "-n", "4"] + args) == 0
+    assert capsys.readouterr().out == got.out
+    assert cli.main(BASE + args[:-2] + flags) == 0
+    assert capsys.readouterr().out == got.out
+
+
+def test_tp_benchmark_and_streaming_on_cpu(model_copy, capsys):
+    base = ["-m", model_copy, "--device", "cpu", "--tp", "2"]
+    assert cli.main(base + ["--benchmark", "--bench-tokens", "3"]) == 0
+    assert "decode:  3 tok" in capsys.readouterr().err
+    assert cli.main(base + ["-n", "4", "-p", "def f(x):", "-t", "0"]) == 0
+    resident = capsys.readouterr().out
+    assert cli.main(base + ["-n", "4", "-p", "def f(x):", "-t", "0",
+                            "--streaming", "--max-hbm-layers", "2",
+                            "--max-ram-layers", "2"]) == 0
+    got = capsys.readouterr()
+    assert "tiered streaming, cpu, 2-way TP" in got.err
+    assert "tiers: 2 HBM + 2 RAM + 2 disk" in got.err
+    assert got.out == resident
+
+
+@pytest.mark.parametrize("flags,says", [
+    (["--w4a8", "--tp", "2"], "resident single-chip modes"),
+    (["--w8a8", "--tp", "2"], "resident single-chip modes"),
+    (["--ep", "2", "--tp", "2"], "its own mesh"),
+], ids=["w4a8", "w8a8", "ep"])
+def test_tp_refusals_match_jax(flags, says, capsys):
+    """The JAX CLI's refusals of --tp with the engine-native formats and
+    with --ep: exit code 2 and the same message."""
+    assert cli.main(BASE + flags) == 2
+    port_err = capsys.readouterr().err
+    assert jcli.main(["-m", MODEL, "-n", "4"] + flags) == 2
+    jax_err = capsys.readouterr().err
+    assert says in port_err and says in jax_err
+    tail = lambda e: e.strip().splitlines()[-1].split(": ", 1)[-1]
+    assert tail(port_err).endswith(tail(jax_err)[-60:])
+
+
+def test_tp_beyond_the_cards_refused_as_jax(model_copy, monkeypatch,
+                                           capsys):
+    """--tp larger than the devices: the port counts the cards (one, as
+    the CLI would see on a one-card host), the JAX CLI its devices (8 on
+    the CPU mesh)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(cli, "should_stream", lambda path, args: False)
+    assert cli.main(["-m", MODEL, "-n", "4", "--tp", "2"]) == 2
+    port_err = capsys.readouterr().err
+    monkeypatch.undo()
+    assert jcli.main(["-m", model_copy, "-n", "4", "--streaming",
+                      "--tp", "16"]) == 2
+    jax_err = capsys.readouterr().err
+    assert "--tp 2: only 1 devices" in port_err
+    assert "--tp 16: only 8 devices" in jax_err
 
 
 def test_delta_model_refused(capsys):
@@ -288,14 +358,17 @@ def chat_gguf(tmp_path_factory):
                        chat="llama3")
 
 
-@pytest.mark.parametrize("which", ["template", "raw", "tiered"])
+@pytest.mark.parametrize("which", ["template", "raw", "tiered", "tp"])
 def test_chat_prints_the_jax_text(which, chat_gguf, tmp_path, monkeypatch,
                                   capsys):
     """--chat reads turns from stdin until an empty line: the template
-    (llama3 vocabulary), the raw loop (repolm512, no template) and the
-    tiered engine print the JAX CLI's texts (the tok/s lines aside)."""
+    (llama3 vocabulary), the raw loop (repolm512, no template), the tiered
+    engine and the 2-shard TPEngine print the JAX CLI's texts (the tok/s
+    lines aside)."""
     path = MODEL if which == "raw" else chat_gguf
     flags = ["-n", "5", "-t", "0", "--chat"]
+    if which == "tp":
+        flags += ["--tp", "2"]
     if which == "tiered":
         path = str(tmp_path / "chat.gguf")
         shutil.copy(chat_gguf, path)

@@ -69,6 +69,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "CPEngine.load('models/repolm512_q8.gguf', cp=1)",
     "from ntransformer_tpu_torch.parallel.cp import make_cp_mesh\n"
     "make_cp_mesh(1)",
+    "from ntransformer_tpu_torch.inference.engine import TPEngine\n"
+    "TPEngine.load('models/repolm512_q8.gguf', tp=1)",
+    "from ntransformer_tpu_torch.parallel.tp import make_tp_mesh\n"
+    "make_tp_mesh(1)",
+    "from ntransformer_tpu_torch.inference.engine import TPEngine\n"
+    "TPEngine.load('models/repolm512_q8.gguf', tp=2, device='cuda:0')",
+    "from ntransformer_tpu_torch.models.tiered import load_model_tiered\n"
+    "load_model_tiered('models/repolm512_q8.gguf', mesh=('cuda',) * 2)",
     "from ntransformer_tpu_torch.tools.perplexity import main\n"
     "main(['-m', 'models/repolm512_q8.gguf', '-f', 'README.md'])",
     "from ntransformer_tpu_torch.tools.quality_gate import run_gate\n"
@@ -101,6 +109,16 @@ def test_cli_serve_defaults_to_cuda_and_raises_without_it(tmp_path):
 def test_cli_http_and_chat_default_to_cuda_and_raise_without_it(flags):
     r = _run("from ntransformer_tpu_torch.cli import main\n"
              f"main(['-m', 'models/repolm512_q8.gguf'] + {flags!r})")
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+@pytest.mark.parametrize("flags", [["--tp", "2"],
+                                   ["--tp", "2", "--streaming"]],
+                         ids=["tp", "tp-streaming"])
+def test_cli_tp_defaults_to_cuda_and_raises_without_it(flags):
+    r = _run("from ntransformer_tpu_torch.cli import main\n"
+             f"main(['-m', 'models/repolm512_q8.gguf', '-n', '2'] + "
+             f"{flags!r})")
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
 
 
