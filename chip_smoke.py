@@ -12,7 +12,10 @@ subset of the rest:
   set-up: the card's name and power limit, TF32 off, the eight kernel
      sources built from csrc/ with nvcc (one process each, in parallel;
      the streamer's host library csrc/ntstage.cpp with g++ beside them)
-     and nvcc's register report printed;
+     and nvcc's register report printed; beside the build, in worker
+     processes, the selected phases' host set-up that needs no card
+     (start_prep: the tiered 8B and Mixtral GGUFs with their packs, phase
+     quality's requants and CPU perplexities), waited for after it;
   kernels: the Q8_0 matmul (T = 1, 8, 32, 70, 512: its skinny kernel and
      its wgmma tile; each row's profiler device time, one kernel a call,
      the counter and the profiler agreeing) and prefill flash attention
@@ -111,6 +114,25 @@ subset of the rest:
   tpcards: on a host with 4 cards or more (else it says so and passes),
      repolm512 and the synthetic 8B through TPEngine with one shard per
      card, bit-equal to the 4 shards on cuda:0, and the CLI's --tp 4;
+  dp: data parallelism and the sharded batch server (python3 chip_smoke.py
+     dp runs it alone): the synthetic 8B Q8_0 of `full` served by
+     BatchServer(B = 8, bfull's eight requests) on one device and over the
+     (2, 1) and (2, 2) meshes on cuda:0 (the kernels line's dp_launches are
+     the two mesh servers'), served tok/s, ttft, ms and kernels a step side
+     by side, the count of texts that differ from the one-device server's;
+     8 steps teacher-forced on the one-device server's tokens that fail
+     the run: at tp = 1 each dp group bit-equal to the unsharded step on
+     its slots alone, at tp = 2 every step within max(2e-2, 2 r) of the
+     largest logit (r: the one-device kernel path against its plain path);
+     spec serving (K = 3) on the (2, 1) mesh; repolm512 through the CLI's
+     --serve --dp 2, --serve --tp 2 --dp 2 and --http --dp 2 (--device
+     cuda:0), texts equal to BatchServer.run's over the same mesh; two
+     processes on cuda:0 joined over gloo (host-staged) serving repolm512
+     at dp = 2, both printing the one-process server's texts;
+  dpcards: on a host with 4 cards or more (else it says so and passes),
+     the 8B over the (2, 2) mesh one position a card, teacher-forced
+     bit-equal to the same mesh on cuda:0, and two processes over NCCL
+     (one card each) at dp = 2 and at tp = 2;
   spec: speculation (python3 chip_smoke.py spec runs it alone): batched
      flash's verify at B = 8, K = 3 (T = 4, S 1024; bf16 "f32", int8 "f32"
      and "int8_v") and the Q8_0 and Q4_K matmuls at T = 4 and 32 against
@@ -299,8 +321,8 @@ REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
           "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
-          "cpcards", "tp", "tpcards", "spec", "tiered", "moe", "http",
-          "quality")
+          "cpcards", "tp", "tpcards", "dp", "dpcards", "spec", "tiered",
+          "moe", "http", "quality")
 
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
@@ -662,8 +684,20 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
          [10, 255, 256, 700, 1500, 2600, 3900, 4095],
          [i != 3 for i in range(8)], 256, 50.0, None),
     ]
+    # the local shapes of a (dp, tp) mesh's groups: B/dp = 4 and 16 slots,
+    # the 8B's heads at tp = 2 (Hq 16, Hkv 4) and 4 (Hq 8, Hkv 2)
+    for b_n in (4, 16):
+        for heads in ((16, 4), (8, 2)):
+            for int8 in (False, True):
+                cases.append(
+                    (f"8b mesh-local B={b_n} {'int8' if int8 else 'bf16'} "
+                     f"S=1024 Hq {heads[0]} Hkv {heads[1]}", b_n, 1024, 1,
+                     int8, [512 + (37 * i) % 89 for i in range(b_n)], None,
+                     None, 0.0, None, heads))
     att_rows = []
-    for label, b_n, s, t, int8, pos_l, act_l, win, cap, s_live in cases:
+    for case in cases:
+        label, b_n, s, t, int8, pos_l, act_l, win, cap, s_live = case[:10]
+        hq, hkv = case[10] if len(case) > 10 else (32, 8)
         layers = 2
         pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
         # int32 pos and active, as the batched steps pass them
@@ -789,6 +823,7 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
         flops = 4.0 * (hq // hkv) * t * dh * hkv * (keys + b_n * t)
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
         row = {"shape": label, "B": b_n, "S": s, "T": t, "int8": int8,
+               "Hq": hq, "Hkv": hkv,
                "window": win, "softcap": cap, "s_live": s_live,
                "live_keys": keys, "max_abs_err": err, "row_rel_err": row_rel,
                "tol": BATCHED_RTOL, "ms": ms["kernel"],
@@ -800,11 +835,15 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
         del kc, vc, kcache, vcache, kf, vf, kb, vb
 
     app_rows = []
-    for label, layers, b_n, int8, stacked in (
-            ("8b L=32 B=8 bf16", 32, 8, False, True),
-            ("8b L=32 B=8 int8 codes+scales S 4096", 32, 8, True, True),
-            ("8b L=32 B=32 int8 codes+scales", 32, 32, True, True),
-            ("8b append_rows one layer B=8 bf16", 1, 8, False, False)):
+    for label, layers, b_n, int8, stacked, hkv in (
+            ("8b L=32 B=8 bf16", 32, 8, False, True, 8),
+            ("8b L=32 B=8 int8 codes+scales S 4096", 32, 8, True, True, 8),
+            ("8b L=32 B=32 int8 codes+scales", 32, 32, True, True, 8),
+            ("8b append_rows one layer B=8 bf16", 1, 8, False, False, 8),
+            # a (dp, tp) mesh group's cache: B/dp = 4 slots, Hkv/tp = 4
+            ("8b mesh-local L=32 B=4 bf16 Hkv 4", 32, 4, False, True, 4),
+            ("8b mesh-local L=32 B=4 int8 Hkv 4 S 1024", 32, 4, True, True,
+             4)):
         s = 4096 if not int8 or b_n == 8 else 1024
         pos_l = [(977 * i + 13) % s for i in range(b_n)]
         act_l = [i % 7 != 3 for i in range(b_n)]
@@ -879,7 +918,8 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
                       for c, r in zip(caches, rows))
         b_ms, b_by = bound(rows_in + written + 2 * b_n * 4, 0.0)
         row = {"shape": label, "L": layers, "B": b_n, "S": s, "int8": int8,
-               "max_abs_err": 0.0, "tol": "bit-equal", "ms": ms["kernel"],
+               "Hkv": hkv, "max_abs_err": 0.0, "tol": "bit-equal",
+               "ms": ms["kernel"],
                "plain_ms": ms["plain"], "library_ms": ms["library"],
                "bound_ms": b_ms, "bound_by": b_by,
                "launches_per_call": per_call, **prof}
@@ -908,17 +948,17 @@ DOT_RTOL = {"f32": BATCHED_RTOL, "int8_s": BATCHED_RTOL, "int8": 4e-3,
 
 
 def verify_case(torch, g, b_n: int, s: int, t: int, int8: bool, pos_l,
-                act_l=None, s_live=None):
-    """A batched flash verify call at the 8B widths (Hq 32, Hkv 8, D 128)
-    over a random 2-layer bf16 or int8 cache (layer 1 attended), B slots at
-    positions pos_l with T new rows each. Returns (kern(dot), plain(dot),
-    library(), bytes, operations, live keys): the kernel (s_live as given
-    unless overridden), its plain twin, SDPA over
-    the layer's bf16 cache (dequantized for int8) with the new rows written
-    in and the same mask, and the work a call must do."""
+                act_l=None, s_live=None, heads=(32, 8)):
+    """A batched flash verify call at the 8B widths (heads = (Hq, Hkv):
+    32 and 8 unsharded, D 128) over a random 2-layer bf16 or int8 cache
+    (layer 1 attended), B slots at positions pos_l with T new rows each.
+    Returns (kern(dot), plain(dot), library(), bytes, operations, live
+    keys): the kernel (s_live as given unless overridden), its plain twin,
+    SDPA over the layer's bf16 cache (dequantized for int8) with the new
+    rows written in and the same mask, and the work a call must do."""
     from ntransformer_tpu_torch.ops.cuda import batched_attention as cb
     import torch.nn.functional as F
-    hq, hkv, dh = 32, 8, 128
+    (hq, hkv), dh = heads, 128
     scale = 1.0 / math.sqrt(dh)
     pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
     act = torch.tensor([True] * b_n if act_l is None else act_l,
@@ -1018,10 +1058,22 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
         ("8b B=4 int8 S=4096 s_live=2176", 4, 4096, 1, True,
          [2100, 1500, 2175, 2000], [True, False, True, True], 2176),
     ]
+    # a (dp, tp) mesh group's local shapes: every slot count (B/dp = 4,
+    # 16) and head split (tp = 2: Hq 16 Hkv 4; tp = 4: Hq 8 Hkv 2) once
+    # with the int8 forms and once with "bf16"
+    for b_n, heads, int8 in ((4, (16, 4), True), (16, (8, 2), True),
+                             (16, (16, 4), False), (4, (8, 2), False)):
+        cases.append((f"8b mesh-local B={b_n} "
+                      f"{'int8' if int8 else 'bf16'} S=1024 Hq {heads[0]} "
+                      f"Hkv {heads[1]}", b_n, 1024, 1, int8,
+                      [512 + (37 * i) % 89 for i in range(b_n)], None, None,
+                      heads))
     rows = {f: [] for f in DOT_FORMS}
-    for label, b_n, s, t, int8, pos_l, act_l, s_live in cases:
+    for case in cases:
+        label, b_n, s, t, int8, pos_l, act_l, s_live = case[:8]
+        heads = case[8] if len(case) > 8 else (32, 8)
         kern, plain, library, nbytes, ops, keys = verify_case(
-            torch, g, b_n, s, t, int8, pos_l, act_l, s_live)
+            torch, g, b_n, s, t, int8, pos_l, act_l, s_live, heads)
         o32 = kern("f32")
         for dot in DOT_FORMS:
             if not int8 and dot != "bf16":
@@ -1053,7 +1105,7 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
                 torch, lambda: kern(dot),
                 ("split_kernel" if dot == "int8_s" else "group_kernel",
                  "combine_kernel")) \
-                if label in (cases[0][0], cases[-1][0]) else {}
+                if label in (cases[0][0], cases[4][0]) else {}
             check(not prof or prof["own_kernels_per_call"] == per_call,
                   f"batched flash {dot} {label}: the profiler saw "
                   f"{prof.get('own_kernels_per_call')} of its kernels a "
@@ -1065,7 +1117,8 @@ def dot_kernel_phase(torch, timer, card: str) -> dict:
                 check(torch.equal(o, ob), f"batched flash {dot} {label}: "
                       "the s_live 640 result differs from the full-S one")
             row = {"shape": label, "dot_impl": dot, "B": b_n, "S": s, "T": t,
-                   "int8": int8, "s_live": s_live, "live_keys": keys,
+                   "int8": int8, "Hq": heads[0], "Hkv": heads[1],
+                   "s_live": s_live, "live_keys": keys,
                    "max_abs_err": float((o - o0).abs().max()),
                    "row_rel_err": rel, "tol": DOT_RTOL[dot],
                    "rel_to_f32_kernel": vs_f32, "ms": ms["kernel"],
@@ -2516,6 +2569,7 @@ def quant_full_phase(torch, counters, card: str) -> tuple[dict, dict]:
 TIERED_KERNELS = {"repolm512": ("q8_0_matmul", "flash_attention"),
                   "8b": ("q4_k_matmul", "q6_k_matmul", "flash_attention")}
 TIERED_8B_ROOM = 14 << 30  # the 8B GGUF (~5.3 GB), its pack (~4.5 GB), slack
+TIERED_TP_TOKENS = 16      # the tiered TP step's greedy tokens (phase tp)
 
 
 def greedy_ids(torch, step, ids, n: int):
@@ -2688,6 +2742,17 @@ LLAMA3_TEMPLATE = ("{{ '<|begin_of_text|>' }}{% for m in messages %}"
                    "{{ '<|start_header_id|>' + m['role'] + "
                    "'<|end_header_id|>\n\n' + m['content'] + "
                    "'<|eot_id|>' }}{% endfor %}")
+
+
+@contextlib.contextmanager
+def prepared_dir(pre: dict):
+    """A tiered phase's directory, which start_prep filled; removed on
+    leaving."""
+    import shutil
+    try:
+        yield pre["dir"]
+    finally:
+        shutil.rmtree(pre["dir"], ignore_errors=True)
 
 
 def write_q4km_8b(path: str, n_layers: int, chat: str | None = None) -> None:
@@ -2925,7 +2990,8 @@ def tiered_tp_step(torch, counters, path: str, tiers, ids, ref,
                    ref_logits) -> dict:
     """The 8B Q4_K_M GGUF streamed over a TP_SHARDS-way mesh on cuda:0 at
     the phase's tiers (each shard its slice of every streamed layer): a
-    512-token prefill and 32 greedy tokens bit-identical to the resident
+    512-token prefill and TIERED_TP_TOKENS greedy tokens bit-identical to
+    the resident
     TPEngine's (`ref`: the same shard planes, kernels and sums), ms per
     token, and the H2D bytes of each shard."""
     from ntransformer_tpu_torch.models.tiered import load_model_tiered
@@ -2986,7 +3052,8 @@ def tiered_tp_step(torch, counters, path: str, tiers, ids, ref,
     return out
 
 
-def tiered_8b_phase(torch, counters, card: str, with_tp: bool = False
+def tiered_8b_phase(torch, counters, card: str, with_tp: bool = False,
+                    hold: dict | None = None, pre: dict | None = None
                     ) -> dict:
     """The 8B preset in Q4_K_M at full width, tiered on the card at (8 HBM,
     16 RAM, 8 disk): a 512-token prefill and 32 greedy tokens identical to
@@ -3000,37 +3067,33 @@ def tiered_8b_phase(torch, counters, card: str, with_tp: bool = False
     its pack (tier C) is recorded, since a RAM-backed one (tmpfs) reads at
     memory speed. with_tp (phase tp): the resident model also as a
     TP_SHARDS-way TPEngine, and the GGUF streamed over that mesh
-    (tiered_tp_step)."""
-    import shutil
-    import tempfile
+    (tiered_tp_step). hold (phase http runs next): the GGUF is written with
+    Llama-3's chat tokens (the same weights; this phase reads ids, not
+    text) and its resident model is left in hold["model"] for http_8b, so
+    the 8B is written and loaded once. pre: start_prep's GGUF and pack,
+    written beside the kernels' build (their seconds are reported)."""
     from ntransformer_tpu_torch.models.loader import load_model
     from ntransformer_tpu_torch.models.tiered import load_model_tiered
     from ntransformer_tpu_torch.utils.timing import PROFILER
-    base = None
-    for d in (tempfile.gettempdir(), HERE):
-        if shutil.disk_usage(d).free >= TIERED_8B_ROOM:
-            base = d
-            break
-    n_layers, tiers = (32, (8, 16, 8)) if base else (16, (4, 8, 4))
-    if base is None:
-        base = tempfile.gettempdir()
-        print(f"tiered 8b: less than {TIERED_8B_ROOM >> 30} GiB free; cut "
-              f"to {n_layers} layers at {tiers}", flush=True)
-    out = {"card": card, "layers": n_layers, "tiers": list(tiers),
-           "cut": n_layers != 32, "tier_c_filesystem": filesystem_of(base)}
-    print(f"tiered 8b: tier C on {out['tier_c_filesystem']}", flush=True)
-    with tempfile.TemporaryDirectory(dir=base) as tmp:
-        path = os.path.join(tmp, "llama8b_q4_k_m.gguf")
-        t0 = time.perf_counter()
-        write_q4km_8b(path, n_layers)
+    n_layers = pre["layers"]
+    tiers = (8, 16, 8) if n_layers == 32 else (4, 8, 4)
+    keep = hold is not None and n_layers == 32
+    check(pre["chat"] == ("llama3" if keep else None),
+          f"tiered 8b: prepared with chat {pre['chat']}")
+    with prepared_dir(pre) as tmp:
+        out = {"card": card, "layers": n_layers, "tiers": list(tiers),
+               "cut": n_layers != 32, "tier_c_filesystem": filesystem_of(tmp),
+               "gguf_write_s": pre["gguf_write_s"],
+               "pack_write_s": pre["pack_write_s"]}
+        print(f"tiered 8b: tier C on {out['tier_c_filesystem']}", flush=True)
+        path = pre["path"]
         out["gguf_bytes"] = os.path.getsize(path)
-        out["gguf_write_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         tm = load_model_tiered(path, max_seq_len=1024,
                                max_hbm_layers=tiers[0],
                                max_ram_layers=tiers[1],
                                with_tokenizer=False)
-        out["tiered_load_s"] = time.perf_counter() - t0  # pack build too
+        out["tiered_load_s"] = time.perf_counter() - t0
         check((tm.tiers.n_hbm, tm.tiers.n_ram, tm.tiers.n_disk) == tiers,
               f"8b tiers {tm.tiers}: want {tiers}")
         t0 = time.perf_counter()
@@ -3052,11 +3115,13 @@ def tiered_8b_phase(torch, counters, card: str, with_tp: bool = False
                                              ["cuda:0"] * TP_SHARDS))
             reset(counters)
             tp_ref, tp_logits = greedy_ids(torch, tp_step(torch, tpe), ids,
-                                           n)
+                                           TIERED_TP_TOKENS)
             torch.cuda.synchronize()
             tp_res_launches = read(counters)
             tp_logits = [x.cpu() for x in tp_logits]
             del tpe
+        if keep:
+            hold["model"] = res  # phase http serves it
         del res
         torch.cuda.empty_cache()
         os.sync()  # the pack's pages on disk before the O_DIRECT probe
@@ -3697,8 +3762,6 @@ def tp_cli(torch, counters) -> dict:
     for flags in (["--w4a8", "--tp", "2"], ["--w8a8", "--tp", "2"],
                   ["--draft-model", REPOLM, "--tp", "2"],
                   ["--ep", "2", "--tp", "2"],
-                  ["--tp", "2", "--serve", "prompts.txt"],
-                  ["--tp", "2", "--http", "0"],
                   ["--cp", "2", "--tp", "2"], ["--tp", "9"]):
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
@@ -3778,6 +3841,502 @@ def tp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     check(rc == 0, f"cli --tp {TP_CARDS}: exit code {rc}")
     out["cli_text"] = buf.getvalue()
     print(json.dumps({"tp_cards": out}), flush=True)
+    return out
+
+
+# ------------------------------------------------------ data parallelism
+DP_MESHES = ((2, 1), (2, 2))   # phase dp: (dp, tp) positions on cuda:0
+DP_STEPS = 8                   # teacher-forced steps of the mesh check
+DP_CARDS = 4                   # phase dpcards: one position a card
+DP_WORKER = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+rank, port, backend, devs, tp, dp, gguf = (int(sys.argv[2]), sys.argv[3],
+    sys.argv[4], sys.argv[5].split(","), int(sys.argv[6]), int(sys.argv[7]),
+    sys.argv[8])
+prompts = json.loads(sys.argv[9])
+import torch
+from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+from ntransformer_tpu_torch.models.loader import load_model
+from ntransformer_tpu_torch.parallel.multihost import (initialize, make_mesh,
+                                                       shutdown)
+if backend == "nccl":
+    torch.cuda.set_device(torch.device(devs[0]))
+initialize("127.0.0.1:" + port, 2, rank, backend=backend)
+mesh = make_mesh(tp=tp, dp=dp, devices=devs)
+srv = BatchServer(load_model(gguf, device="cpu"), batch_size=4, mesh=mesh,
+                  sampler_cfg=SamplerConfig(temperature=0.0))
+reqs = [Request(prompt=p, max_tokens=16) for p in prompts]
+srv.run(reqs)
+print("DP-TEXTS " + json.dumps([r.text for r in reqs]), flush=True)
+shutdown()
+"""
+
+
+def dp_requests(torch, arch):
+    """bfull's eight requests: 9-1,000 prompt tokens, 16 new tokens."""
+    from ntransformer_tpu_torch.inference.serve import Request
+    rng = torch.Generator().manual_seed(21)
+    lens = [700, 130, 64, 9, 300, 20, 90, 1000]
+    return lens, [Request(prompt="", max_tokens=16, prompt_ids=torch.randint(
+        3, arch.vocab_size, (n,), generator=rng).tolist()) for n in lens]
+
+
+def mesh_cache(torch, mesh, arch, bkv):
+    """The dp groups' caches of a (dp, tp) mesh filled from one [L, B, ...]
+    cache: group g's slots, shard s's heads, each a contiguous copy."""
+    from ntransformer_tpu_torch.parallel.dp import make_server_kv
+    b_n = bkv.k.shape[1]
+    grid = make_server_kv(mesh, arch, b_n, bkv.quantized)
+    per, h = b_n // mesh.dp, arch.n_kv_heads // mesh.tp
+    for g, row in enumerate(grid):
+        for s, c in enumerate(row):
+            for dst, src in zip(c.caches, bkv.caches):
+                dst.copy_(src[:, g * per:(g + 1) * per, s * h:(s + 1) * h])
+    return grid
+
+
+def dp_forced(torch, counters, mesh, arch, weights, grid_w, bkv, lens,
+              toks, ref_logits, plain_logits) -> dict:
+    """DP_STEPS steps of the sharded step teacher-forced on the one-device
+    server's tokens `toks` from the prefilled cache `bkv`. tp = 1: each
+    group's logits bit-equal to the unsharded step on its slots alone (a
+    cache of B/dp slots, the same plans). tp > 1: every step within the TP
+    rule, max(FULL_LOGIT_RTOL, 2 r) of the largest logit (r: the unsharded
+    kernel path's spread against its plain path at that step). Also the
+    step's ms and kernels a step."""
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step)
+    from ntransformer_tpu_torch.parallel.dp import make_batched_decode_sharded
+    grid = mesh_cache(torch, mesh, arch, bkv)
+    step = make_batched_decode_sharded(mesh, arch)
+    b_n = len(lens)
+    per = b_n // mesh.dp
+    pos = torch.tensor(lens, device="cuda")
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    alone = []
+    if mesh.tp == 1:
+        for g in range(mesh.dp):
+            sl = slice(g * per, (g + 1) * per)
+            alone.append(BatchedKV(*(None if t is None
+                                     else t[:, sl].contiguous()
+                                     for t in (bkv.k, bkv.v, bkv.ks,
+                                               bkv.vs))))
+    rels, bit_equal = [], True
+    for i in range(DP_STEPS):
+        tk = torch.as_tensor(toks[i], device="cuda")
+        logits, grid = step(grid_w, grid, tk, pos + i, act)
+        if mesh.tp == 1:
+            for g in range(mesh.dp):
+                sl = slice(g * per, (g + 1) * per)
+                a1, _ = batched_decode_step(arch, weights, alone[g], tk[sl],
+                                            (pos + i)[sl], act[sl])
+                bit_equal &= bool(torch.equal(a1, logits[sl]))
+        else:
+            rels.append(rel_err(logits, ref_logits[i]))
+    out = {"steps": DP_STEPS}
+    if mesh.tp == 1:
+        check(bit_equal, f"dp {mesh.shape}: a group's logits differ from "
+              "the unsharded step on its slots alone")
+        out["groups_bit_equal_to_unsharded_alone"] = True
+    else:
+        plain = [rel_err(p, r) for p, r in zip(plain_logits, ref_logits)]
+        limits = [max(FULL_LOGIT_RTOL, 2 * r) for r in plain]
+        for i, (r, lim) in enumerate(zip(rels, limits)):
+            check(r <= lim, f"dp {mesh.shape} step {i}: teacher-forced "
+                  f"logits differ from the one-device step's by {r} of "
+                  f"their range (> {lim})")
+        out.update(logit_rel_err_steps=rels, plain_rel_err_steps=plain)
+    # the sharded step alone, timed and counted: DP_STEPS more steps
+    torch.cuda.synchronize()
+    reset(counters)
+    t0 = time.perf_counter()
+    for i in range(DP_STEPS):
+        tk = torch.as_tensor(toks[i], device="cuda")
+        logits, grid = step(grid_w, grid, tk, pos + DP_STEPS + i, act)
+    logits.cpu()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    out.update(launches=launches, ms_per_step=wall * 1e3 / DP_STEPS,
+               kernels_per_step=sum(launches.values()) / DP_STEPS)
+    del grid, alone
+    return out
+
+
+def dp_one_device_forced(torch, counters, arch, weights, bkv, lens, toks):
+    """The unsharded batched step over the same DP_STEPS forced tokens:
+    its logits (kernel and plain paths), ms a step and kernels a step."""
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step)
+    from ntransformer_tpu_torch.ops import linear
+    pos = torch.tensor(lens, device="cuda")
+    act = torch.ones(len(lens), dtype=torch.bool, device="cuda")
+    runs = {}
+    for mode in ("auto", "off"):
+        linear.KERNEL_MODE = mode
+        try:
+            c = BatchedKV(*(None if t is None else t.clone()
+                            for t in (bkv.k, bkv.v, bkv.ks, bkv.vs)))
+            outs = []
+            torch.cuda.synchronize()
+            reset(counters)
+            t0 = time.perf_counter()
+            for i in range(DP_STEPS):
+                tk = torch.as_tensor(toks[i], device="cuda")
+                lg, c = batched_decode_step(arch, weights, c, tk, pos + i,
+                                            act)
+                outs.append(lg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[mode] = (outs, wall, read(counters))
+            del c
+        finally:
+            linear.KERNEL_MODE = "auto"
+    outs, wall, launches = runs["auto"]
+    return outs, runs["off"][0], {
+        "ms_per_step": wall * 1e3 / DP_STEPS, "launches": launches,
+        "kernels_per_step": sum(launches.values()) / DP_STEPS}
+
+
+def serve_8b(torch, counters, model, reqs_fn, **kw):
+    """BatchServer(B = 8) over fresh copies of the requests, warmed up
+    first: (texts, stats, launches)."""
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer
+    srv = BatchServer(model, batch_size=8,
+                      sampler_cfg=SamplerConfig(temperature=0.0), **kw)
+    _, reqs = reqs_fn()
+    warm = srv.warmup()
+    torch.cuda.synchronize()
+    reset(counters)
+    stats = srv.run(reqs)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    check(all(len(r.output_ids) == 16 for r in reqs),
+          f"8b server {kw.get('mesh') and kw['mesh'].shape}: a request "
+          "finished short")
+    del srv
+    return [r.output_ids for r in reqs], stats, launches, warm
+
+
+def dp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
+    """The sharded server on the synthetic 8B Q8_0 of `full` (no new load):
+    BatchServer(B = 8) one-device and over the (2, 1) and (2, 2) meshes on
+    cuda:0 serving bfull's eight requests (served tok/s, ttft; the kernels
+    line's dp_launches are the two mesh servers' launches), the count of
+    texts that differ from the one-device server's (printed, not held: the
+    plans depend on B and the shapes, so a near-tie may break the other
+    way at B/dp); the teacher-forced check that fails the run (dp_forced),
+    with ms and kernels a step beside the one-device step's; spec serving
+    (K = 3) on the (2, 1) mesh; then repolm512 through the CLI and two
+    processes (dp_cli, dp_two_process)."""
+    from ntransformer_tpu_torch.inference.engine import Engine
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel.dp import shard_server_state
+    from ntransformer_tpu_torch.parallel.multihost import make_mesh
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, IdsTokenizer(), None,
+                        torch.device("cuda"))
+
+    def requests():
+        return dp_requests(torch, arch)
+    lens, reqs = requests()
+    summary = {"card": card, "B": 8, "requests": lens, "meshes": {}}
+    ids1, st1, l1, warm1 = serve_8b(torch, counters, model, requests)
+    summary["one_device"] = {
+        "serve_tok_s": st1.tokens_per_s, "serve_wall_s": st1.wall_s,
+        "serve_steps": st1.steps, "warmup_s": warm1,
+        "ttft_p50_s": sorted(st1.ttft_s)[len(st1.ttft_s) // 2],
+        "launches": l1}
+    print(f"8b one-device server: {st1.report()}", flush=True)
+    # the teacher-forced check's start: each prompt prefilled by the
+    # Engine (the admission's chunks) into one [L, 8, ...] cache; step i
+    # is fed the one-device server's token i of every slot
+    eng = Engine(model)
+    bkv = BatchedKV.create(arch, 8, device="cuda")
+    for b, r in enumerate(reqs):
+        _, kv, _ = eng._prefill(eng._make_kv(), r.prompt_ids)
+        bkv.insert(b, kv)
+        del kv
+    toks = [[ids1[b][i] for b in range(8)] for i in range(DP_STEPS)]
+    ref_logits, plain_logits, one_step = dp_one_device_forced(
+        torch, counters, arch, weights, bkv, lens, toks)
+    summary["one_device"]["step"] = one_step
+    dp_launches = {}
+    for dp_n, tp_n in DP_MESHES:
+        mesh = make_mesh(tp=tp_n, dp=dp_n, devices=["cuda:0"] * (dp_n * tp_n))
+        t0 = time.perf_counter()
+        grid_w, _ = shard_server_state(mesh, arch, weights, 8,
+                                       with_kv=False)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        forced = dp_forced(torch, counters, mesh, arch, weights, grid_w, bkv,
+                           lens, toks, ref_logits, plain_logits)
+        del grid_w
+        ids_m, st, launches, warm = serve_8b(torch, counters, model,
+                                             requests, mesh=mesh)
+        for k, v in launches.items():
+            dp_launches[k] = dp_launches.get(k, 0) + v
+        differ = sum(a != b for a, b in zip(ids_m, ids1))
+        cell = {"shard_s": shard_s, "serve_tok_s": st.tokens_per_s,
+                "serve_wall_s": st.wall_s, "serve_steps": st.steps,
+                "warmup_s": warm,
+                "ttft_p50_s": sorted(st.ttft_s)[len(st.ttft_s) // 2],
+                "texts_differing_from_one_device": differ,
+                "launches": launches, "forced": forced, "_ids": ids_m}
+        summary["meshes"][f"{dp_n}x{tp_n}"] = cell
+        print(f"8b server over the ({dp_n}, {tp_n}) mesh on cuda:0: "
+              f"{st.report()}; {differ} of 8 texts differ from the "
+              f"one-device server's; step {forced['ms_per_step']:.2f} ms, "
+              f"{forced['kernels_per_step']:.0f} kernels (one-device "
+              f"{one_step['ms_per_step']:.2f} ms, "
+              f"{one_step['kernels_per_step']:.0f})", flush=True)
+        check(all(launches[k] > 0 for k in SERVE_KERNELS),
+              f"8b ({dp_n}, {tp_n}) server launched {launches}")
+    del bkv, ref_logits, plain_logits
+    torch.cuda.empty_cache()
+    # speculative serving on the (2, 1) mesh
+    mesh = make_mesh(tp=1, dp=2, devices=["cuda:0"] * 2)
+    ids_s, st, launches, _ = serve_8b(torch, counters, model, requests,
+                                      mesh=mesh, spec_k=SPEC_K)
+    check(st.spec_drafted > 0 and all(launches[k] > 0
+                                      for k in SPEC_KERNELS),
+          f"8b spec (2, 1): drafted {st.spec_drafted}, launched {launches}")
+    spec_off = summary["meshes"]["2x1"]
+    same = sum(a == b for a, b in zip(ids_s, spec_off.pop("_ids")))
+    summary["spec_2x1"] = {"k": SPEC_K, "serve_tok_s": st.tokens_per_s,
+                           "serve_steps": st.steps,
+                           "draft_steps": st.draft_steps,
+                           "acceptance": st.acceptance,
+                           "texts_equal_to_spec_off": same,
+                           "spec_off_tok_s": spec_off["serve_tok_s"]}
+    print(f"8b spec K={SPEC_K} over the (2, 1) mesh: {st.report()}; "
+          f"{same} of 8 texts equal to spec-off's on that mesh (greedy "
+          "speculation on the card: spec_rule, phase spec)", flush=True)
+    summary["meshes"]["2x2"].pop("_ids")
+    summary["dp_launches"] = dp_launches
+    print(json.dumps({"dp_8b": summary}), flush=True)
+    summary["cli"] = dp_cli(torch, counters)
+    summary["two_process"] = dp_two_process(torch, ["cuda:0"], "gloo")
+    return summary, dp_launches
+
+
+def dp_reference_texts(torch, mesh, prompts):
+    """BatchServer.run's texts on repolm512 over `mesh` (B = 4, the CLI's
+    fused weights and sampler settings with -t 0)."""
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    srv = BatchServer(load_model(REPOLM, device="cpu"), batch_size=4,
+                      mesh=mesh, fuse=True, sampler_cfg=SamplerConfig(
+                          temperature=0.0, top_k=40, top_p=0.95,
+                          repeat_penalty=1.1, seed=42))
+    reqs = [Request(prompt=p, max_tokens=16, parse_special=True)
+            for p in prompts]
+    srv.run(reqs)
+    return [r.text for r in reqs]
+
+
+def dp_cli(torch, counters) -> dict:
+    """repolm512 through the CLI's --serve --dp 2, --serve --tp 2 --dp 2
+    (--device cuda:0: every position on the card) and --http --dp 2 in a
+    subprocess (one request, SIGINT): texts equal to BatchServer.run's over
+    the same mesh, which runs the same plans."""
+    import contextlib
+    import io
+    import signal
+    import tempfile
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.parallel.multihost import make_mesh
+    from ntransformer_tpu_torch.models.loader import load_model
+    prompts = [p.replace("\n", " ")
+               for p in serve_prompts(load_model(REPOLM, device="cpu")
+                                      .tokenizer)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prompts.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(prompts) + "\n")
+        for dp_n, tp_n in ((2, 1), (2, 2)):
+            flags = ["--dp", "2"] + (["--tp", "2"] if tp_n > 1 else [])
+            buf, err = io.StringIO(), io.StringIO()
+            reset(counters)
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["-m", REPOLM, "--serve", path, "-n", "16",
+                               "-t", "0", "--batch-size", "4", "--device",
+                               "cuda:0"] + flags)
+            torch.cuda.synchronize()
+            got = read(counters)
+            check(rc == 0, f"cli --serve {flags}: exit {rc}: "
+                  f"{err.getvalue()[-400:]}")
+            check(all(got[k] > 0 for k in SERVE_KERNELS),
+                  f"cli --serve {flags} launched {got}")
+            want = dp_reference_texts(torch, make_mesh(
+                tp=tp_n, dp=dp_n, devices=["cuda:0"] * (dp_n * tp_n)),
+                prompts)
+            text = buf.getvalue()
+            equal = all(f"### {p!r}\n{t}\n" in text
+                        for p, t in zip(prompts, want))
+            check(equal, f"cli --serve {flags}: texts differ from "
+                  f"BatchServer.run's over the same mesh: {text[-600:]!r} "
+                  f"vs {want!r}")
+            out[" ".join(flags)] = {"launches": got, "texts": want,
+                                    "equal": equal}
+    mesh = make_mesh(tp=1, dp=2, devices=["cuda:0"] * 2)
+    want = dp_reference_texts(torch, mesh, [prompts[0]])[0]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ntransformer_tpu_torch", "-m", REPOLM,
+         "-t", "0", "--http", "0", "--batch-size", "4", "--dp", "2",
+         "--device", "cuda:0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE))
+    try:
+        line = proc.stdout.readline()
+        check(line.startswith("listening on http://127.0.0.1:"),
+              f"cli --http --dp 2 printed {line!r}")
+        port = int(line.split(":")[2].split(" ")[0])
+        st, body = http_call(port, "/v1/completions",
+                             {"prompt": prompts[0], "max_tokens": 16})
+        proc.send_signal(signal.SIGINT)
+        rest, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0 and "draining" in rest,
+          f"cli --http --dp 2: exit {proc.returncode}: {err[-2000:]}")
+    check(st == 200 and body["choices"][0]["text"] == want,
+          f"cli --http --dp 2 answered {st} {body}, want {want!r}")
+    out["--http --dp 2"] = {"text": want, "equal": True}
+    print(json.dumps({"dp_cli": out}), flush=True)
+    return out
+
+
+def dp_two_process(torch, devs_of, backend: str, tp: int = 1,
+                   dp: int = 2) -> dict:
+    """Two processes serving repolm512 over a (dp, tp) mesh whose positions
+    span both (process r on devs_of[r], or on devs_of[0] for both), joined
+    over `backend`: both print the texts of the one-process server over
+    the same mesh (all its positions in one process). A 300 s timeout a
+    process; both are stopped on the way out."""
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.parallel.multihost import make_mesh
+    prompts = [p.replace("\n", " ")
+               for p in serve_prompts(load_model(REPOLM, device="cpu")
+                                      .tokenizer)]
+    devs = [devs_of[r % len(devs_of)] for r in range(2)]
+    per = dp * tp // 2
+    one = sum(([d] * per for d in devs), [])
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    srv = BatchServer(load_model(REPOLM, device="cpu"), batch_size=4,
+                      mesh=make_mesh(tp=tp, dp=dp, devices=one),
+                      sampler_cfg=SamplerConfig(temperature=0.0))
+    reqs = [Request(prompt=p, max_tokens=16) for p in prompts]
+    srv.run(reqs)
+    want = [r.text for r in reqs]
+    del srv
+    s = __import__("socket").socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_WORKER, HERE, str(r), port, backend,
+         ",".join([devs[r]] * per), str(tp), str(dp), REPOLM,
+         json.dumps(prompts)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            o, _ = p.communicate(timeout=300)
+            outs.append(o)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = []
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"two-process {backend} rank {r}: exit "
+              f"{p.returncode}: {o[-2000:]}")
+        line = next((ln for ln in o.splitlines()
+                     if ln.startswith("DP-TEXTS ")), None)
+        check(line is not None, f"two-process rank {r}: no texts: "
+              f"{o[-2000:]}")
+        got.append(json.loads(line[len("DP-TEXTS "):]))
+    check(got[0] == got[1] == want, f"two-process {backend} ({dp}, {tp}) "
+          f"on {devs}: texts {got} differ from the one-process server's "
+          f"{want}")
+    out = {"backend": backend, "dp": dp, "tp": tp, "devices": devs,
+           "texts_equal": True}
+    print(json.dumps({"dp_two_process": out}), flush=True)
+    return out
+
+
+def dp_cards_phase(torch, counters, card: str, synth) -> dict | None:
+    """One position a card, on a host with DP_CARDS cards or more (on fewer
+    it says so and returns None): the synthetic 8B over the (2, 2) mesh of
+    cuda:0-3 teacher-forced as phase dp forces it, bit-equal to the same
+    mesh on cuda:0 (every kernel launches on its tensors' card, the copies
+    are exact and the sums run in shard order); the server's texts equal;
+    then two processes over NCCL, each owning one card, at dp = 2 and at
+    tp = 2 (the row's sums across processes)."""
+    from ntransformer_tpu_torch.inference.engine import Engine
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel.dp import (
+        make_batched_decode_sharded, shard_server_state)
+    from ntransformer_tpu_torch.parallel.multihost import make_mesh
+    n_cards = torch.cuda.device_count()
+    if n_cards < DP_CARDS:
+        print(f"dpcards: {n_cards} card(s); one position a card needs "
+              f"{DP_CARDS}: not run", flush=True)
+        return None
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, IdsTokenizer(), None,
+                        torch.device("cuda"))
+    lens, reqs = dp_requests(torch, arch)
+    eng = Engine(model)
+    bkv = BatchedKV.create(arch, 8, device="cuda")
+    for b, r in enumerate(reqs):
+        _, kv, _ = eng._prefill(eng._make_kv(), r.prompt_ids)
+        bkv.insert(b, kv)
+    toks = [[(37 * i + 11 * b) % arch.vocab_size for b in range(8)]
+            for i in range(DP_STEPS)]
+    pos = torch.tensor(lens, device="cuda")
+    act = torch.ones(8, dtype=torch.bool, device="cuda")
+    logits = {}
+    for name, devices in (("cards", None), ("cuda:0", ["cuda:0"] * 4)):
+        mesh = make_mesh(tp=2, dp=2, devices=devices)
+        grid_w, _ = shard_server_state(mesh, arch, weights, 8,
+                                       with_kv=False)
+        grid = mesh_cache(torch, mesh, arch, bkv)
+        step = make_batched_decode_sharded(mesh, arch)
+        outs = []
+        for i in range(DP_STEPS):
+            lg, grid = step(grid_w, grid, torch.tensor(toks[i]), pos + i,
+                            act)
+            outs.append(lg.cpu())
+        logits[name] = outs
+        if name == "cards":
+            check([c.k.device for row in grid for c in row]
+                  == [torch.device("cuda", i) for i in range(4)],
+                  "dpcards: a position's cache is not on its card")
+        del grid_w, grid
+        torch.cuda.empty_cache()
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(logits["cards"], logits["cuda:0"]))
+    check(diff == 0.0, f"dpcards: the (2, 2) mesh one position a card "
+          f"differs from the same mesh on cuda:0 by {diff}")
+    out = {"card": card, "cards": n_cards, "max_abs_dlogit": diff}
+    runs = [dp_two_process(torch, ["cuda:0", "cuda:1"], "nccl"),
+            dp_two_process(torch, ["cuda:0", "cuda:1"], "nccl", tp=2, dp=1)]
+    out["nccl"] = runs
+    print(json.dumps({"dp_cards": out}), flush=True)
     return out
 
 
@@ -4827,7 +5386,7 @@ def write_mixtral_q4km(path: str, n_layers: int) -> None:
     w.write()
 
 
-def moe_tiered_phase(torch, counters, card: str) -> dict:
+def moe_tiered_phase(torch, counters, card: str, pre: dict) -> dict:
     """Tiered MoE at the Mixtral widths, cut to MOE_TIERED_LAYERS layers: a
     Q4_K_M GGUF of random valid blocks written to a temp directory, streamed
     with an LRU of 6 expert sets (a token's working set is 8) and the last
@@ -4836,31 +5395,23 @@ def moe_tiered_phase(torch, counters, card: str) -> dict:
     16 greedy tokens, the tokens identical and the logits bit-equal (the
     select kernels equal the kernels on one expert's planes); ms a token,
     expert bytes a token, the hit rate, evictions, and the copy stream's
-    rate beside a pinned-copy probe."""
-    import shutil
-    import tempfile
+    rate beside a pinned-copy probe. pre: start_prep's GGUF and pack,
+    written beside the kernels' build (their seconds are reported)."""
     from ntransformer_tpu_torch.core.gguf import GGUFReader
     from ntransformer_tpu_torch.memory.pack import ensure_pack
     from ntransformer_tpu_torch.models import llama
     from ntransformer_tpu_torch.models.loader import load_model
     from ntransformer_tpu_torch.models.tiered_moe import (
         forward_tiered_moe, load_model_tiered_moe)
-    base = next((d for d in (tempfile.gettempdir(), HERE)
-                 if shutil.disk_usage(d).free >= MOE_TIERED_ROOM), None)
-    check(base is not None, f"tiered moe: no directory with "
-          f"{MOE_TIERED_ROOM >> 30} GiB free")
     n_layers = MOE_TIERED_LAYERS
-    out = {"card": card, "layers": n_layers,
-           "tier_c_filesystem": filesystem_of(base)}
-    with tempfile.TemporaryDirectory(dir=base) as tmp:
-        path = os.path.join(tmp, "mixtral_q4_k_m.gguf")
-        t0 = time.perf_counter()
-        write_mixtral_q4km(path, n_layers)
+    with prepared_dir(pre) as tmp:
+        out = {"card": card, "layers": n_layers,
+               "tier_c_filesystem": filesystem_of(tmp),
+               "gguf_write_s": pre["gguf_write_s"],
+               "pack_write_s": pre["pack_write_s"]}
+        path = pre["path"]
+        pack = ensure_pack(GGUFReader(path), path)  # start_prep's
         out["gguf_bytes"] = os.path.getsize(path)
-        out["gguf_write_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pack = ensure_pack(GGUFReader(path), path)
-        out["pack_write_s"] = time.perf_counter() - t0
         ram = sum(pack.layer_nbytes(i) for i in range(n_layers - 1))
         slots = 6
         t0 = time.perf_counter()
@@ -4953,13 +5504,15 @@ def moe_tiered_phase(torch, counters, card: str) -> dict:
     return out
 
 
-def moe_phase(torch, counters, timer, card: str) -> tuple[dict, dict]:
+def moe_phase(torch, counters, timer, card: str, pre: dict
+              ) -> tuple[dict, dict]:
     """Phase moe: the select rows, the synthetic Mixtral-8x7B (this slice's
     main path: Engine.benchmark and BatchServer with the bench-style steps;
     their launch counts are the kernels line's moe_launches), its decode
     held to the plain path and free of host reads, the small MoE files
-    against the CPU, and tiered MoE at Mixtral widths. Returns (the select
-    rows by kernel, launches)."""
+    against the CPU, and tiered MoE at Mixtral widths (pre: start_prep's
+    GGUF and pack for it). Returns (the select rows by kernel,
+    launches)."""
     import tempfile
     g = torch.Generator(device="cuda")
     g.manual_seed(41)
@@ -4983,7 +5536,7 @@ def moe_phase(torch, counters, timer, card: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         moe_real_phase(torch, counters, card, tmp)
-    moe_tiered_phase(torch, counters, card)
+    moe_tiered_phase(torch, counters, card, pre)
     launches = {k: engine.get(k, 0) + served.get(k, 0) for k in counters}
     return rows, launches
 
@@ -5085,7 +5638,7 @@ def http_load(fe, n_clients: int, spacing_s: float, prompts, max_tokens: int
             "ttft_max_s": ttft[-1]}
 
 
-def http_8b(torch, counters, card: str) -> tuple[dict, dict]:
+def http_8b(torch, counters, card: str, model=None) -> tuple[dict, dict]:
     """The synthetic Llama-3.1-8B Q4_K_M with Llama-3's chat tokens and
     template, 32 layers, resident and fused, served by BatchServer(B = 8)
     behind HttpFrontend(port=0): /health, /stats, 400 and 404; 8 concurrent
@@ -5096,7 +5649,9 @@ def http_8b(torch, counters, card: str) -> tuple[dict, dict]:
     depend on its neighbours); streamed pieces equal to the text; a client
     that goes away frees its slot; time to first token and served tok/s
     with 8 and 32 clients arriving together and spaced. Returns (summary,
-    the launch counts of all the HTTP traffic)."""
+    the launch counts of all the HTTP traffic). model: that 8B as phase
+    tiered loaded it (unfused; fused here), else it is written and
+    loaded here."""
     import shutil
     import tempfile
     import threading
@@ -5106,20 +5661,29 @@ def http_8b(torch, counters, card: str) -> tuple[dict, dict]:
     from ntransformer_tpu_torch.inference.sampler import SamplerConfig
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
     from ntransformer_tpu_torch.models.loader import load_model
-    base = next((d for d in (tempfile.gettempdir(), HERE)
-                 if shutil.disk_usage(d).free >= HTTP_8B_ROOM), None)
-    check(base is not None, f"http: no directory with {HTTP_8B_ROOM >> 30} "
-          f"GiB free for the 8B GGUF")
     out = {"card": card}
-    with tempfile.TemporaryDirectory(dir=base) as tmp:
-        path = os.path.join(tmp, "llama8b_chat_q4_k_m.gguf")
-        t0 = time.perf_counter()
-        write_q4km_8b(path, 32, chat="llama3")
-        out["gguf_write_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        model = load_model(path, max_seq_len=HTTP_CTX, device="cuda",
-                           fuse=True)
-        out["load_s"] = time.perf_counter() - t0
+    if model is not None:
+        import dataclasses
+        from ntransformer_tpu_torch.models.llama import fuse_layer_weights
+        check(model.arch.max_seq_len == HTTP_CTX, "http: the 8B from phase "
+              f"tiered has ctx {model.arch.max_seq_len}, not {HTTP_CTX}")
+        model = dataclasses.replace(model, weights=dataclasses.replace(
+            model.weights, layers=fuse_layer_weights(model.weights.layers)))
+        out["from_phase_tiered"] = True
+    else:
+        base = next((d for d in (tempfile.gettempdir(), HERE)
+                     if shutil.disk_usage(d).free >= HTTP_8B_ROOM), None)
+        check(base is not None, f"http: no directory with "
+              f"{HTTP_8B_ROOM >> 30} GiB free for the 8B GGUF")
+        with tempfile.TemporaryDirectory(dir=base) as tmp:
+            path = os.path.join(tmp, "llama8b_chat_q4_k_m.gguf")
+            t0 = time.perf_counter()
+            write_q4km_8b(path, 32, chat="llama3")
+            out["gguf_write_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            model = load_model(path, max_seq_len=HTTP_CTX, device="cuda",
+                               fuse=True)
+            out["load_s"] = time.perf_counter() - t0
     tok = model.tokenizer
     g = np.random.default_rng(15)
     lens = [300, 12, 150, 40, 230, 7, 90, 64]
@@ -5438,13 +6002,15 @@ def http_repolm(torch, counters, card: str, tmp: str) -> tuple[dict, dict]:
     return out, chat_launches
 
 
-def http_phase(torch, counters, card: str) -> tuple[dict, dict, dict]:
-    """The user-facing surfaces: the 8B over HTTP, then repolm512's chat,
-    API and CLI modes. Returns (summary, HTTP launches, chat launches)."""
+def http_phase(torch, counters, card: str, model=None
+               ) -> tuple[dict, dict, dict]:
+    """The user-facing surfaces: the 8B over HTTP (model: phase tiered's
+    resident 8B), then repolm512's chat, API and CLI modes. Returns
+    (summary, HTTP launches, chat launches)."""
     import tempfile
     t0 = time.perf_counter()
     out = {}
-    out["8b"], http_launches = http_8b(torch, counters, card)
+    out["8b"], http_launches = http_8b(torch, counters, card, model)
     with tempfile.TemporaryDirectory() as tmp:
         out["repolm512"], chat_launches = http_repolm(torch, counters, card,
                                                       tmp)
@@ -5463,71 +6029,105 @@ QUALITY_KERNELS = ("q8_0_matmul", "q4_k_matmul", "q6_k_matmul",
                    "w4a8_decode", "w4a8_matmul")
 
 
-def quality_phase(torch, counters, card: str) -> tuple[dict, dict]:
+QUALITY_CTX, QUALITY_WINDOWS = 128, 2
+
+
+def quality_ids() -> list[int]:
+    """The README's first QUALITY_WINDOWS * QUALITY_CTX ids, the text phase
+    quality's perplexities read."""
+    from ntransformer_tpu_torch.models.loader import load_model
+    tok = load_model(REPOLM, device="cpu", n_layers=1).tokenizer
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        return tok.encode(f.read(), add_bos=True)[
+            : QUALITY_WINDOWS * QUALITY_CTX]
+
+
+def prep_quality(tmp: str) -> dict:
+    """(worker) Phase quality's host side: repolm512's Q6_K, Q4_K_M and
+    Q4_0 requants written to tmp (the port's requant tool) and every row's
+    CPU nll in prefill and decode modes. Returns {"rows": [(tag, path,
+    load kwargs)], "cpu_nll": {(tag, mode): nll}, "seconds": s}."""
+    import torch
+    from ntransformer_tpu_torch.core.dtypes import DType
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.models.presets import q4_k_m_policy
+    from ntransformer_tpu_torch.tools.perplexity import perplexity
+    from ntransformer_tpu_torch.tools.requant_gguf import requant
+    torch.set_num_threads(2)  # beside the compilers
+    t0 = time.perf_counter()
+    files = {"q8_0": REPOLM}
+    for tag, target in (("q6_k", DType.Q6_K), ("q4_k_m", q4_k_m_policy),
+                        ("q4_0", DType.Q4_0)):
+        files[tag] = os.path.join(tmp, f"repolm512_{tag}.gguf")
+        requant(REPOLM, files[tag], target, progress=lambda _msg: None)
+    rows = [(tag, path, {}) for tag, path in files.items()]
+    rows += [("w8a8", REPOLM, {"w8a8": True}),
+             ("w4a8", REPOLM, {"w4a8": True})]
+    ids = quality_ids()
+    cpu_nll = {}
+    for tag, path, kw in rows:
+        model = load_model(path, device="cpu", **kw)
+        for mode in ("prefill", "decode"):
+            cpu_nll[tag, mode] = perplexity(model, ids, QUALITY_CTX,
+                                            mode=mode)["nll_per_token"]
+        del model
+    return {"rows": rows, "cpu_nll": cpu_nll,
+            "seconds": time.perf_counter() - t0}
+
+
+def quality_phase(torch, counters, card: str, pre: dict
+                  ) -> tuple[dict, dict]:
     """The quality tools on repolm512 on the card: perplexity in prefill and
     decode modes (ctx 128, 2 windows of the README) for the file (Q8_0),
     its Q6_K, Q4_K_M and Q4_0 requants (the port's requant tool) and the
     file with --w8a8 and --w4a8 at load, each nll beside the same run on
-    the CPU within QUALITY_NLL_TOL; then the quality gate at ctx 256, 2
-    windows with every PPL_BUDGET row (fresh fixtures; it must pass) and
-    against the committed fixture (the verdict and any failed sub-check
-    printed). Returns
+    the CPU within QUALITY_NLL_TOL (the requants and the CPU runs are
+    prep_quality's, made beside the kernels' build); then the quality gate
+    at ctx 256, 2 windows with every PPL_BUDGET row (fresh fixtures; it
+    must pass) and against the committed fixture (the verdict and any
+    failed sub-check printed). Returns
     (summary, the launch counts of the card's perplexity and gate runs)."""
     import tempfile
-    from ntransformer_tpu_torch.core.dtypes import DType
     from ntransformer_tpu_torch.models.loader import load_model
-    from ntransformer_tpu_torch.models.presets import q4_k_m_policy
     from ntransformer_tpu_torch.tools import quality_gate as gate
     from ntransformer_tpu_torch.tools.perplexity import perplexity
-    from ntransformer_tpu_torch.tools.requant_gguf import requant
     t_phase = time.perf_counter()
     readme = os.path.join(HERE, "README.md")
-    ctx, windows = 128, 2
-    out = {"card": card, "ctx": ctx, "windows": windows, "rows": []}
+    ctx = QUALITY_CTX
+    out = {"card": card, "ctx": ctx, "windows": QUALITY_WINDOWS,
+           "rows": [], "cpu_side_s": pre["seconds"]}
+    ids = quality_ids()
+    reset(counters)
+    card_nll = {}
+    for tag, path, kw in pre["rows"]:
+        model = load_model(path, device="cuda", **kw)
+        for mode in ("prefill", "decode"):
+            t0 = time.perf_counter()
+            r = perplexity(model, ids, ctx, mode=mode)
+            card_nll[tag, mode] = (r["nll_per_token"],
+                                   time.perf_counter() - t0)
+        del model
     with tempfile.TemporaryDirectory() as tmp:
-        files = {"q8_0": REPOLM}
-        for tag, target in (("q6_k", DType.Q6_K), ("q4_k_m", q4_k_m_policy),
-                            ("q4_0", DType.Q4_0)):
-            files[tag] = os.path.join(tmp, f"repolm512_{tag}.gguf")
-            requant(REPOLM, files[tag], target, progress=lambda _msg: None)
-        rows = [(tag, path, {}) for tag, path in files.items()]
-        rows += [("w8a8", REPOLM, {"w8a8": True}),
-                 ("w4a8", REPOLM, {"w4a8": True})]
-        tok = load_model(REPOLM, device="cpu", n_layers=1).tokenizer
-        with open(readme, encoding="utf-8") as f:
-            ids = tok.encode(f.read(), add_bos=True)[: windows * ctx]
-        reset(counters)
-        card_nll = {}
-        for tag, path, kw in rows:
-            model = load_model(path, device="cuda", **kw)
-            for mode in ("prefill", "decode"):
-                t0 = time.perf_counter()
-                r = perplexity(model, ids, ctx, mode=mode)
-                card_nll[tag, mode] = (r["nll_per_token"],
-                                       time.perf_counter() - t0)
-            del model
         t0 = time.perf_counter()
         fx = os.path.join(tmp, "fixtures.json")
         res = gate.run_gate(REPOLM, readme, list(gate.PPL_BUDGET), fx, True,
                             ctx=256, windows=2, device="cuda")
         gate_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        launches = read(counters)
-        for tag, path, kw in rows:
-            model = load_model(path, device="cpu", **kw)
-            for mode in ("prefill", "decode"):
-                cpu = perplexity(model, ids, ctx, mode=mode)["nll_per_token"]
-                nll, secs = card_nll[tag, mode]
-                lim = QUALITY_NLL_TOL["act" if kw else "plain"]
-                row = {"row": tag, "mode": mode, "nll_card": nll,
-                       "nll_cpu": cpu, "diff": abs(nll - cpu), "limit": lim,
-                       "card_s": secs}
-                print(json.dumps({"ppl": row}), flush=True)
-                out["rows"].append(row)
-                check(abs(nll - cpu) <= lim, f"ppl {tag} {mode}: the card's "
-                      f"nll {nll} differs from the CPU's {cpu} by more than "
-                      f"{lim}")
-            del model
+    torch.cuda.synchronize()
+    launches = read(counters)
+    for tag, path, kw in pre["rows"]:
+        for mode in ("prefill", "decode"):
+            cpu = pre["cpu_nll"][tag, mode]
+            nll, secs = card_nll[tag, mode]
+            lim = QUALITY_NLL_TOL["act" if kw else "plain"]
+            row = {"row": tag, "mode": mode, "nll_card": nll,
+                   "nll_cpu": cpu, "diff": abs(nll - cpu), "limit": lim,
+                   "card_s": secs}
+            print(json.dumps({"ppl": row}), flush=True)
+            out["rows"].append(row)
+            check(abs(nll - cpu) <= lim, f"ppl {tag} {mode}: the card's "
+                  f"nll {nll} differs from the CPU's {cpu} by more than "
+                  f"{lim}")
     print(f"quality gate on {card} ({gate_s:.1f} s): pass {res['pass']}, "
           f"failed {res['failed']}, ppl {res['checks']['ppl']}, goldens "
           f"logit_rel_err {res['checks']['goldens']['logit_rel_err']}",
@@ -5556,6 +6156,99 @@ def quality_phase(torch, counters, card: str) -> tuple[dict, dict]:
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------ host set-up beside the build
+# The kernels build for about two minutes, one compiler a source, and most
+# of the host's cores idle once the short sources are done. The phases' set-up
+# that needs no card runs beside it in worker processes: the tiered phases'
+# GGUFs with their packs (the loaders find a pack whose key matches and build
+# none) and phase quality's requants and CPU perplexities.
+
+
+def prep_gguf(kind: str, path: str, n_layers: int, chat: str | None
+              ) -> dict:
+    """(worker) Write a tiered phase's GGUF of n_layers to path ("8b":
+    write_q4km_8b; "mixtral": write_mixtral_q4km) and build its pack beside
+    it. Returns the seconds of each."""
+    from ntransformer_tpu_torch.core.gguf import GGUFReader
+    from ntransformer_tpu_torch.memory.pack import ensure_pack
+    t0 = time.perf_counter()
+    if kind == "8b":
+        write_q4km_8b(path, n_layers, chat=chat)
+    else:
+        write_mixtral_q4km(path, n_layers)
+    t1 = time.perf_counter()
+    ensure_pack(GGUFReader(path), path)
+    return {"gguf_write_s": t1 - t0, "pack_write_s": time.perf_counter() - t1}
+
+
+def start_prep(phases) -> tuple:
+    """Start the host set-up of the selected phases in worker processes.
+    The tiered GGUFs go to the first of the temp directory and the repo's
+    root with the room of both; without it the 8B is cut to 16 layers
+    (half its room). Every directory made here is removed at exit. Returns
+    (executor, {job: (future, info)})."""
+    import atexit
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    def scratch(base=None) -> str:
+        d = tempfile.mkdtemp(dir=base)
+        atexit.register(shutil.rmtree, d, True)
+        return d
+
+    def room_for(need: int):
+        return next((d for d in (tempfile.gettempdir(), HERE)
+                     if shutil.disk_usage(d).free >= need), None)
+    files = {}  # kind: [n_layers, room, file name, chat]
+    if "tiered" in phases:
+        files["8b"] = [32, TIERED_8B_ROOM, "llama8b_q4_k_m.gguf",
+                       "llama3" if "http" in phases else None]
+    if "moe" in phases:
+        files["mixtral"] = [MOE_TIERED_LAYERS, MOE_TIERED_ROOM,
+                            "mixtral_q4_k_m.gguf", None]
+    base = room_for(sum(f[1] for f in files.values()))
+    if base is None and "8b" in files:
+        files["8b"][:2] = [16, TIERED_8B_ROOM // 2]
+        files["8b"][3] = None  # phase http loads the 32-layer 8B itself
+        print(f"tiered 8b: less than {TIERED_8B_ROOM >> 30} GiB free; cut "
+              f"to 16 layers at (4, 8, 4)", flush=True)
+        base = room_for(sum(f[1] for f in files.values()))
+    check(base is not None or not files, f"no directory with "
+          f"{sum(f[1] for f in files.values()) >> 30} GiB free")
+    ex = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
+        "spawn"))
+    jobs = {}
+    for kind, (n_layers, _, name, chat) in files.items():
+        d = scratch(base)
+        info = {"dir": d, "path": os.path.join(d, name), "layers": n_layers,
+                "chat": chat}
+        jobs[kind] = (ex.submit(prep_gguf, kind, info["path"], n_layers,
+                                chat), info)
+    if "quality" in phases:
+        d = scratch()
+        jobs["quality"] = (ex.submit(prep_quality, d), {"dir": d})
+    return ex, jobs
+
+
+def finish_prep(ex, jobs) -> dict:
+    """Wait for start_prep's jobs and stop its workers; returns each job's
+    info with its results."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, (fut, info) in jobs.items():
+        info.update(fut.result())
+        out[name] = info
+    ex.shutdown()
+    secs = {k: round(v.get("seconds", v.get("gguf_write_s", 0)
+                           + v.get("pack_write_s", 0)), 1)
+            for k, v in out.items()}
+    print(f"host set-up beside the build (s): {secs}; waited "
+          f"{time.perf_counter() - t0:.1f} s after the build", flush=True)
+    return out
+
+
 class DotCounter:
     """The launch count of one cache-dot form of batched flash, read and
     reset like a wrapper module's `launches`."""
@@ -5633,6 +6326,8 @@ def main() -> int:
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as cn
     from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
     from ntransformer_tpu_torch.ops.cuda import w8a8 as cw8
+    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
+    prep = start_prep(phases)
     t0 = time.perf_counter()
     mods = (cm, ca, cb, ck, cw8, cw4, cn)
     from ntransformer_tpu_torch.memory import native
@@ -5642,6 +6337,7 @@ def main() -> int:
                               [m.NAME for m in mods] + [cn.KQ_NAME]))
         host.result()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    pre = finish_prep(*prep)
     for rep in reports:
         for line in rep.splitlines():
             if "Compiling entry function" in line:
@@ -5655,7 +6351,6 @@ def main() -> int:
     counters[ca.PARTIALS_NAME] = ModuleCounter(ca, "partials_launches")
 
     timer = Timer(torch)
-    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
     res = {}
     if "kernels" in phases:
         clock("kernels")
@@ -5683,7 +6378,9 @@ def main() -> int:
         dot_launches = {f"{cb.NAME}[{d}]": got["dot_launches"][d]
                         for d in DOT_FORMS}
     engine_launches, launches, spec_launches, tp_launches = {}, {}, {}, {}
-    if {"full", "bfull", "cp", "tp", "tpcards", "spec"} & set(phases):
+    dp_launches = {}
+    if {"full", "bfull", "cp", "tp", "tpcards", "dp", "dpcards",
+            "spec"} & set(phases):
         synth = build_synth(torch)
         if "full" in phases:
             clock("full")
@@ -5705,6 +6402,12 @@ def main() -> int:
         if "tpcards" in phases:
             clock("tpcards")
             tp_cards_phase(torch, counters, card, synth)
+        if "dp" in phases:
+            clock("dp")
+            _, dp_launches = dp_path_phase(torch, counters, card, synth)
+        if "dpcards" in phases:
+            clock("dpcards")
+            dp_cards_phase(torch, counters, card, synth)
         if "spec" in phases:
             clock("spec")
             _, spec_launches = spec_phase(torch, counters, timer, card,
@@ -5749,28 +6452,36 @@ def main() -> int:
         engine_launches[name] = qlaunch.get(engine_path, {}).get(name, 0)
     # the cache-dot forms' main path: the server with each form (serve)
     launches.update(dot_launches)
+    hold = {}
     if "tiered" in phases:
         clock("tiered")
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
             tiered_repolm_phase(torch, counters, card, tmp)
-        got = tiered_8b_phase(torch, counters, card, "tp" in phases)
+        got = tiered_8b_phase(torch, counters, card, "tp" in phases,
+                              hold=hold if "http" in phases else None,
+                              pre=pre["8b"])
         # the TP path's K-quant launches: the resident TPEngine and the
         # stream over the mesh (phase tp's tiered step)
         for run in ("resident_tp_launches", "launches"):
             for k, v in got.get("tp", {}).get(run, {}).items():
                 tp_launches[k] = tp_launches.get(k, 0) + v
+    http_launches, chat_launches, ppl_launches = {}, {}, {}
+    if "http" in phases:
+        # right after tiered, whose resident 8B it serves (one write and
+        # one load of the file for both phases)
+        clock("http")
+        _, http_launches, chat_launches = http_phase(
+            torch, counters, card, hold.pop("model", None))
     select_rows, moe_launches = {}, {}
     if "moe" in phases:
         clock("moe")
-        select_rows, moe_launches = moe_phase(torch, counters, timer, card)
-    http_launches, chat_launches, ppl_launches = {}, {}, {}
-    if "http" in phases:
-        clock("http")
-        _, http_launches, chat_launches = http_phase(torch, counters, card)
+        select_rows, moe_launches = moe_phase(torch, counters, timer, card,
+                                              pre["mixtral"])
     if "quality" in phases:
         clock("quality")
-        _, ppl_launches = quality_phase(torch, counters, card)
+        _, ppl_launches = quality_phase(torch, counters, card,
+                                        pre["quality"])
 
     kernels = []
     mm_tol = f"max|kernel-plain| <= {MATMUL_RTOL} * max|plain|"
@@ -5818,6 +6529,7 @@ def main() -> int:
             "engine_launches": engine_launches.get(name, 0),
             "spec_launches": spec_launches.get(name, 0),
             "tp_launches": tp_launches.get(name, 0),
+            "dp_launches": dp_launches.get(name, 0),
             "moe_launches": moe_launches.get(name, 0),
             "http_launches": http_launches.get(name, 0),
             "chat_launches": chat_launches.get(name, 0),

@@ -5,8 +5,11 @@ It runs resident generation (bf16 or --kv-int8 cache), --benchmark, --chat
 loop without one), --serve (continuous batching over a prompts file, with
 --batch-size, --prefix-cache, --kv-int8 and self-speculative serving
 --spec-k K [--spec-draft-layers N]) and --http PORT [--host] (the same
-server behind the HTTP front end, until interrupted) on one device, each in
-the file's formats or requantized at load to W4A8 (--w4a8) or W8A8
+server behind the HTTP front end, until interrupted), on one device or
+sharded over a (dp, tp) mesh (--dp and --tp: the slots split over dp
+groups, the weights over tp shards; one position on each card, or all on
+one device with --device cuda:0 or --device cpu), each in the file's
+formats or, on one device, requantized at load to W4A8 (--w4a8) or W8A8
 (--w8a8); speculative decoding with a separate draft model (--draft-model,
 --draft-k), resident or tiered; tiered streaming (--streaming,
 --max-hbm-layers, --max-ram-layers, --requant-q4k, --requant-ram, and
@@ -18,13 +21,13 @@ cards, or all on one device with --device cuda:0 or --device cpu; with
 --streaming each shard streams its slice of every layer); and
 context-parallel generation and --benchmark (--cp N: the cache split along
 the sequence over N shards, one on each of the first N cards, or all on
-the CPU with --device cpu). The multi-GPU modes still to come (--ep, --dp,
---serve/--http with --tp, --cp with --tp) exit with 2 and name the ROADMAP
-item that ports them; the JAX CLI's refusals (--serve with --http, --cp with
---serve/--http, --draft-model with --cp/--tp/--ep, --ep with --tp/--cp,
---serve/--http with --draft-model/--self-spec/--streaming, --w4a8/--w8a8
-with streaming, --cp or --tp, --tp beyond the cards, --kv-int8 with --cp)
-exit with 2 and the JAX messages.
+the CPU with --device cpu). The multi-GPU modes still to come (--ep, --cp
+with --tp) exit with 2 and name the ROADMAP item that ports them; the JAX
+CLI's refusals (--serve with --http, --cp with --serve/--http,
+--draft-model with --cp/--tp/--ep, --ep with --tp/--cp, --serve/--http
+with --draft-model/--self-spec/--streaming, --dp without a server,
+--w4a8/--w8a8 with streaming, --cp, --tp or a serving mesh, --tp beyond
+the cards, --kv-int8 with --cp) exit with 2 and the JAX messages.
 
 This module is the one place of the port that reads the JAX package's
 environment switches of these modes, with their names, values and defaults,
@@ -48,12 +51,9 @@ import sys
 
 # mode → why it is refused (the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "--tp with --serve/--http": "the tensor-parallel batch server is "
-                                "ROADMAP queue 1 item 14b",
     "--cp with --tp": "context x tensor parallelism is ROADMAP queue 1 "
                       "item 14d",
     "--ep": "expert parallelism is ROADMAP queue 1 item 14c",
-    "--dp": "data-parallel serving is ROADMAP queue 1 item 14b",
 }
 
 
@@ -116,10 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refused_mode(args) -> str | None:
     """The first requested mode this slice does not run, or None."""
-    server = args.serve or args.http is not None
-    asked = {"--tp with --serve/--http": args.tp and server,
-             "--cp with --tp": args.cp and args.tp,
-             "--ep": args.ep, "--dp": args.dp}
+    asked = {"--cp with --tp": args.cp and args.tp, "--ep": args.ep}
     return next((mode for mode, on in asked.items() if on), None)
 
 
@@ -193,14 +190,20 @@ def main(argv=None) -> int:
     if mode is not None:
         log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
                   "port runs resident, tiered, tensor- and context-parallel "
-                  "generation, --benchmark, --chat, --serve and --http.")
+                  "generation, --benchmark, --chat, and --serve and --http "
+                  "on one device or over --dp/--tp.")
+        return 2
+    if server_mode:
+        return serve(args)
+    if args.dp:
+        log.error("--dp shards batch slots of the continuous-batching "
+                  "server; it requires --serve or --http (use --tp for "
+                  "single-request tensor parallelism)")
         return 2
     if args.w4a8 and args.w8a8:
         log.error("--w4a8 and --w8a8 are mutually exclusive (pick the "
                   "decode-optimized or the serving format)")
         return 2
-    if server_mode:
-        return serve(args)
 
     stream = should_stream(args.model, args)
     if (args.w4a8 or args.w8a8) and (stream or args.tp or args.cp):
@@ -322,6 +325,29 @@ def main(argv=None) -> int:
             engine.tm.close()
 
 
+def serving_mesh(args):
+    """The (dp, tp) mesh of --serve/--http over --dp/--tp, built from
+    --device as --tp builds its shards: "cuda" spreads the positions over
+    the cards (an axis not given covers them all), a device with an index
+    or "cpu" puts every position on it. None (logged) if the cards are too
+    few."""
+    import torch
+    from .models.loader import resolve_device
+    from .parallel.multihost import make_mesh
+    from .utils import logging as log
+    dev = resolve_device(args.device)
+    tp = args.tp or 1
+    devices = None
+    if dev.type == "cpu" or dev.index is not None:
+        devices = [dev] * (tp * (args.dp or 1))
+    try:
+        return make_mesh(tp=tp, dp=args.dp, devices=devices)
+    except ValueError as e:
+        log.error(f"--dp {args.dp} --tp {args.tp}: {e} "
+                  f"({torch.cuda.device_count()} cards)")
+        return None
+
+
 def serve(args) -> int:
     """--serve: continuous batching over a prompts file (one prompt per
     line); prints each completion and the aggregate throughput. --http:
@@ -332,18 +358,38 @@ def serve(args) -> int:
     from .models.loader import load_model
     from .utils import logging as log
     from .ops.cuda.batched_attention import DOT_IMPLS
+    if args.w4a8 and args.w8a8:
+        log.error("--w4a8 and --w8a8 are mutually exclusive (pick the "
+                  "decode-optimized or the serving format)")
+        return 2
     dot_impl = os.environ.get("NT_ATTN_DOT", "f32")
     if dot_impl not in DOT_IMPLS:
         log.error(f"NT_ATTN_DOT={dot_impl!r}: want one of "
                   f"{', '.join(DOT_IMPLS)}")
         return 2
     attn_buckets = int(os.environ.get("NT_ATTN_BUCKETS", "4"))
-    log.info(f"loading {args.model} (resident, {args.device}) to serve "
+    mesh = None
+    if args.tp or args.dp:
+        if args.w4a8 or args.w8a8:
+            log.error("--w4a8/--w8a8 do not compose with --tp/--dp "
+                      "serving yet (convert-then-shard lands with a "
+                      "parity test)")
+            return 2
+        mesh = serving_mesh(args)
+        if mesh is None:
+            return 2
+        log.info(f"serving over mesh {mesh.shape}")
+    # under a mesh the weights go host -> shards (BatchServer fuses each
+    # shard's q|k|v and gate|up itself)
+    log.info(f"loading {args.model} (resident, "
+             f"{'cpu' if mesh is not None else args.device}) to serve "
              f"{args.batch_size} slots")
     model = load_model(args.model, max_seq_len=args.ctx_size,
-                       fuse=not args.no_fuse, device=args.device,
+                       fuse=mesh is None and not args.no_fuse,
+                       device="cpu" if mesh is not None else args.device,
                        w4a8=args.w4a8, w8a8=args.w8a8)
-    srv = BatchServer(model, batch_size=args.batch_size,
+    srv = BatchServer(model, batch_size=args.batch_size, mesh=mesh,
+                      fuse=not args.no_fuse,
                       prefix_cache=args.prefix_cache, kv_quant=args.kv_int8,
                       spec_k=args.spec_k,
                       spec_draft_layers=args.spec_draft_layers,

@@ -125,6 +125,26 @@ LAYOUTS: dict[DType, tuple[PlaneSpec, ...]] = {
 
 
 
+# Square tile of the transposing copy: 256 x 256 one-byte elements (64 KiB)
+# stay in cache while they are read by rows and written by columns.
+_TILE = 256
+
+
+def transposed(a: np.ndarray) -> np.ndarray:
+    """a.T of a 2-D array as a C-contiguous copy. numpy's own transposing
+    copy reads the source a column at a time, which for the 1-byte planes of
+    a vocabulary-sized matrix is an order of magnitude slower than copying
+    square tiles; the bytes are the same."""
+    n, m = a.shape
+    if n * m <= _TILE * _TILE:
+        return np.ascontiguousarray(a.T)
+    out = np.empty((m, n), a.dtype)
+    for i in range(0, n, _TILE):
+        for j in range(0, m, _TILE):
+            out[j:j + _TILE, i:i + _TILE] = a[i:i + _TILE, j:j + _TILE].T
+    return out
+
+
 def relayout(raw, dtype: DType, n: int, k: int) -> dict[str, np.ndarray]:
     """Re-layout packed GGUF bytes of a [n, k] tensor into transposed planes.
 
@@ -138,8 +158,8 @@ def relayout(raw, dtype: DType, n: int, k: int) -> dict[str, np.ndarray]:
         data = raw.reshape(nb, 34)
         d = data[:, :2].copy().view(np.uint16).reshape(n, k // 32)
         qs = data[:, 2:].view(np.int8).reshape(n, k)
-        return {"qs": np.ascontiguousarray(qs.T),
-                "d": np.ascontiguousarray(d.T)}
+        return {"qs": transposed(qs),
+                "d": transposed(d)}
 
     if dtype == DType.Q4_0:
         nb = n * k // 32
@@ -148,8 +168,8 @@ def relayout(raw, dtype: DType, n: int, k: int) -> dict[str, np.ndarray]:
         # File byte j of block b packs (elem 32b+j, elem 32b+16+j) — exactly
         # the (lo, hi) pair for split unit 32, so the raw bytes are the plane.
         qs = data[:, 2:].reshape(n, k // 2)
-        return {"qs": np.ascontiguousarray(qs.T),
-                "d": np.ascontiguousarray(d.T)}
+        return {"qs": transposed(qs),
+                "d": transposed(d)}
 
     if dtype in (DType.Q4_K, DType.Q5_K):
         nb = n * k // 256
@@ -162,22 +182,22 @@ def relayout(raw, dtype: DType, n: int, k: int) -> dict[str, np.ndarray]:
         sc = sc6.reshape(n, k // 256, 4, 2)
         mn = m6.reshape(n, k // 256, 4, 2)
         planes = {
-            "sc_lo": np.ascontiguousarray(sc[..., 0].reshape(n, k // 64).T),
-            "sc_hi": np.ascontiguousarray(sc[..., 1].reshape(n, k // 64).T),
-            "mn_lo": np.ascontiguousarray(mn[..., 0].reshape(n, k // 64).T),
-            "mn_hi": np.ascontiguousarray(mn[..., 1].reshape(n, k // 64).T),
-            "d": np.ascontiguousarray(d.T),
-            "dmin": np.ascontiguousarray(dmin.T),
+            "sc_lo": transposed(sc[..., 0].reshape(n, k // 64)),
+            "sc_hi": transposed(sc[..., 1].reshape(n, k // 64)),
+            "mn_lo": transposed(mn[..., 0].reshape(n, k // 64)),
+            "mn_hi": transposed(mn[..., 1].reshape(n, k // 64)),
+            "d": transposed(d),
+            "dmin": transposed(dmin),
         }
         if dtype == DType.Q4_K:
             qs = data[:, 16:144]
         else:
             qs = data[:, 48:176]
-            planes["qh"] = np.ascontiguousarray(
-                data[:, 16:48].reshape(n, k // 8).T)
+            planes["qh"] = transposed(
+                data[:, 16:48].reshape(n, k // 8))
         # File qs byte j of chunk c packs (elem 64c+j, elem 64c+32+j) — the
         # (lo, hi) pair for split unit 64; raw bytes are the plane.
-        planes["qs"] = np.ascontiguousarray(qs.reshape(n, k // 2).T)
+        planes["qs"] = transposed(qs.reshape(n, k // 2))
         return planes
 
     if dtype == DType.Q6_K:
@@ -193,11 +213,11 @@ def relayout(raw, dtype: DType, n: int, k: int) -> dict[str, np.ndarray]:
         sc_lo = scales[..., 0:4].reshape(n, k // 32)
         sc_hi = scales[..., 4:8].reshape(n, k // 32)
         return {
-            "ql": np.ascontiguousarray(ql.T),
-            "qh": np.ascontiguousarray(qh.T),
-            "sc_lo": np.ascontiguousarray(sc_lo.T),
-            "sc_hi": np.ascontiguousarray(sc_hi.T),
-            "d": np.ascontiguousarray(d.T),
+            "ql": transposed(ql),
+            "qh": transposed(qh),
+            "sc_lo": transposed(sc_lo),
+            "sc_hi": transposed(sc_hi),
+            "d": transposed(d),
         }
 
     raise ValueError(f"no planar layout for {dtype}")

@@ -1,10 +1,13 @@
 """Continuous batching: slot-based serving over the batched decode step
-(PyTorch, one device).
+(PyTorch), on one device or over a (dp, tp) mesh.
 
-Port of ntransformer_tpu/inference/serve.py without its mesh branch. A
-fixed pool of B sequence slots decodes in lock-step through
-models/batched.py; finished sequences retire and waiting requests are
-admitted mid-flight, so the batch stays full.
+Port of ntransformer_tpu/inference/serve.py. A fixed pool of B sequence
+slots decodes in lock-step through models/batched.py; finished sequences
+retire and waiting requests are admitted mid-flight, so the batch stays
+full. Over a mesh (parallel/multihost.make_mesh) the slots split over dp
+and the weights over tp (parallel/dp.py); a mesh that spans processes runs
+the same `run(requests)` in every process, each computing its own
+positions.
 
 Admission is chunked and interleaved with decode: each loop iteration runs
 one batched decode step, then at most one prefill chunk of the next waiting
@@ -20,8 +23,8 @@ verify window of [anchor, drafts] per slot; a greedy slot accepts its
 longest argmax-matching prefix and the target's next token, a sampled slot
 takes greedy-draft rejection sampling (BatchedSampler.spec_accept). The
 draft tokens stay on the device; a round reads drafts and targets (or the
-accepted tokens) once. The multi-device mesh waits for ROADMAP queue 1 item
-14 and raises.
+accepted tokens) once. On a mesh the draft and verify steps are the
+sharded ones.
 """
 from __future__ import annotations
 
@@ -171,18 +174,22 @@ class BatchServer:
     "int8_s", "int8_v"; the JAX package takes it from NT_ATTN_DOT, which
     the port's CLI reads). spec_k > 0: self-speculative serving with K
     draft tokens a round through the first spec_draft_layers layers
-    (default n_layers // 2); greedy output equals spec-off serving's."""
+    (default n_layers // 2); greedy output equals spec-off serving's.
+
+    mesh: a (dp, tp) parallel/multihost.Mesh makes this the sharded server
+    (parallel/dp.py): the slots split over dp, the weights over tp (fuse:
+    the shards' fused q|k|v and gate|up, as TPEngine), admission prefill
+    runs the TP forward over this process's first tp row and the slot
+    insert writes into the cache of the dp group that owns the slot. The
+    model's host weights are dropped once sharded. The mesh path has no
+    s_live ladder (attn_buckets is ignored), as in the JAX package."""
 
     def __init__(self, model: LoadedModel, batch_size: int = 8,
                  sampler_cfg: SamplerConfig | None = None,
                  kv_quant: bool = False, admit_chunk: int | None = None,
-                 mesh=None, prefix_cache: int = 0, spec_k: int = 0,
-                 spec_draft_layers: int | None = None,
+                 mesh=None, fuse: bool = False, prefix_cache: int = 0,
+                 spec_k: int = 0, spec_draft_layers: int | None = None,
                  attn_buckets: int = 4, dot_impl: str = "f32"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a device mesh is not ported yet (ROADMAP "
-                "queue 1 item 14b: the sharded batch server)")
         self.spec_k = spec_k
         self.spec_draft = (spec_draft_layers if spec_draft_layers is not None
                            else max(1, model.arch.n_layers // 2))
@@ -208,35 +215,106 @@ class BatchServer:
         self._attn_ladder = sorted({
             b for b in ((S * i) // n for i in range(1, n))
             if 256 <= b < S and b % 128 == 0}) if attn_buckets else []
+        self.mesh = mesh
+        if mesh is not None:
+            self._init_sharded(mesh, fuse)
+
+    def _init_sharded(self, mesh, fuse: bool) -> None:
+        """The DP x TP path (parallel/dp.py): shard the weights, swap the
+        step, cache and prefill functions for their mesh forms, and drop
+        the host copy of the weights."""
+        import dataclasses
+        from ..parallel import dp
+        from ..parallel.multihost import Mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.multihost.Mesh "
+                            f"(make_mesh), not {type(mesh).__name__}")
+        dp.group_size(mesh, self.B)
+        # each process prefills on the first tp row it takes part in and
+        # fills its own shards of every group: its rows must hold the same
+        # shards
+        for p in {r for rs in mesh.ranks for r in rs}:
+            mine = {rs for rs in mesh.ranks if p in rs}
+            if len(mine) > 1:
+                raise ValueError(
+                    f"process {p} holds different shards of the tp rows it "
+                    f"takes part in ({sorted(mine)}); the sharded server "
+                    "needs whole rows in a process or the same split in "
+                    "every row")
+        self.grid, _ = dp.shard_server_state(mesh, self.arch,
+                                             self.model.weights, self.B,
+                                             with_kv=False, fuse=fuse)
+        self.model = dataclasses.replace(self.model, weights=None)
+        g0 = next(g for g in range(mesh.dp) if mesh.touches(g))
+        self._row = mesh.row(g0)
+        self.weights = self.grid[g0]
+        self.device = mesh.home
+        self._attn_ladder = []
+        kw = dict(dot_impl=self.dot_impl)
+        self._sstep = dp.make_batched_decode_sharded(mesh, self.arch, **kw)
+        if self.spec_k:
+            self._sdraft = dp.make_batched_draft_sharded(
+                mesh, self.arch, self.spec_draft, **kw)
+            self._sverify = dp.make_batched_verify_sharded(mesh, self.arch,
+                                                           **kw)
 
     def _step(self, bkv, tokens, pos, active, s_live=None):
+        if self.mesh is not None:
+            return self._sstep(self.grid, bkv, tokens, pos, active)
         return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
                                    active, s_live=s_live,
                                    dot_impl=self.dot_impl)
 
     def _draft(self, bkv, tokens, pos, active, s_live=None):
+        if self.mesh is not None:
+            return self._sdraft(self.grid, bkv, tokens, pos, active)
         return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
                                    active, n_layers=self.spec_draft,
                                    s_live=s_live, dot_impl=self.dot_impl)
 
     def _verify(self, bkv, tokens, pos, active, s_live=None):
+        if self.mesh is not None:
+            return self._sverify(self.grid, bkv, tokens, pos, active)
         return batched_verify_step(self.arch, self.weights, bkv, tokens, pos,
                                    active, s_live=s_live,
                                    dot_impl=self.dot_impl)
 
-    def _make_bkv(self) -> BatchedKV:
+    def _make_bkv(self):
+        if self.mesh is not None:
+            from ..parallel.dp import make_server_kv
+            return make_server_kv(self.mesh, self.arch, self.B,
+                                  self.kv_quant)
         return BatchedKV.create(self.arch, self.B, quant=self.kv_quant,
                                 device=self.device)
 
-    def _make_kv(self) -> KVCache:
+    def _make_kv(self):
+        """An admission's cache: one KVCache, or on a mesh one per shard
+        of the prefill row (None for another process's shard)."""
+        if self.mesh is not None:
+            from ..parallel.tp import make_tp_kv
+            return make_tp_kv(self.arch, self._row, self.kv_quant)
         return KVCache.create(self.arch, quant=self.kv_quant,
                               device=self.device)
 
     def _prefill(self, weights, kv, padded, off, n_valid):
-        logits, kv, _ = forward(self.arch, weights, kv,
-                                torch.from_numpy(padded), off,
-                                n_valid=n_valid)
+        tokens = torch.from_numpy(padded)
+        if self.mesh is None:
+            logits, kv, _ = forward(self.arch, weights, kv, tokens, off,
+                                    n_valid=n_valid)
+        elif self.mesh.tp == 1:
+            # one shard: the one-device forward (the same kernels and bits)
+            logits, _, _ = forward(self.arch, weights[0], kv[0], tokens, off,
+                                   n_valid=n_valid)
+        else:
+            logits, kv, _ = forward(self.arch, weights, kv, tokens, off,
+                                    n_valid=n_valid, tp=self._row)
         return logits, kv
+
+    def _insert(self, bkv, kv, slot: int):
+        if self.mesh is not None:
+            from ..parallel.dp import insert_slot
+            return insert_slot(self.mesh, bkv, kv, slot, self.B)
+        return bkv.insert(slot, kv)
 
     def _vec(self, x, dtype=torch.long) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, dtype)
@@ -264,7 +342,10 @@ class BatchServer:
         if best_i < 0 or best_n < 8:  # a tiny shared prefix isn't worth
             return None, 0            # the cache copy
         self._pcache.append(self._pcache.pop(best_i))  # LRU refresh
-        return self._pcache[-1][1].clone(), best_n
+        kv = self._pcache[-1][1]
+        if isinstance(kv, list):   # a mesh's per-shard caches
+            return [None if c is None else c.clone() for c in kv], best_n
+        return kv.clone(), best_n
 
     def _prefix_store(self, ids: list[int], kv: KVCache) -> None:
         """Keep a finished admission's prompt cache for prefix reuse (the
@@ -321,7 +402,7 @@ class BatchServer:
             lg, kv = self._prefill(self.weights, kv, np.zeros(p, np.int64), 0,
                                    p)
             lg[0][:1].cpu()
-        bkv.insert(0, kv)
+        self._insert(bkv, kv, 0)
         if not self.scfg.greedy:
             bs = BatchedSampler(self.scfg, arch.vocab_size, self.B,
                                 self.device)
@@ -329,6 +410,10 @@ class BatchServer:
             bs.sample(logits)
         self._warm = True
         return time.perf_counter() - t0
+
+    @property
+    def _multiprocess(self) -> bool:
+        return self.mesh is not None and self.mesh.multiprocess
 
     @property
     def model_name(self) -> str:
@@ -372,7 +457,15 @@ class BatchServer:
 
     def run(self, requests: list[Request]) -> ServeStats:
         """Serve a fixed list of requests to completion (`arrival_s`
-        replays an arrival process); returns aggregate stats."""
+        replays an arrival process); returns aggregate stats. On a mesh
+        that spans processes every process runs the same list."""
+        if self._multiprocess and any(r.arrival_s > 0 for r in requests):
+            # the local wall clock gates an arrival: two processes crossing
+            # arrival_s on different iterations would issue different
+            # collectives
+            raise ValueError(
+                "arrival_s replay is wall-clock-gated and cannot run on a "
+                "multi-process mesh; submit all requests with arrival_s=0")
         stats = ServeStats(requests=len(requests))
         waiting = list(requests)
         for i, r in enumerate(waiting):
@@ -397,6 +490,13 @@ class BatchServer:
         `stop` (a threading.Event) is set and every in-flight sequence has
         drained. Submitters wait on Request.on_done / on_token. Not
         reentrant."""
+        if self._multiprocess:
+            # the inbox is process-local: processes would admit different
+            # requests on different iterations
+            raise NotImplementedError(
+                "serve_forever is single-process; on a torch.distributed "
+                "mesh use run() with the same request list on every "
+                "process")
         if not getattr(self, "_warm", False):
             self.warmup()  # before the ttft anchor: warmup is start-up cost
         stats = ServeStats()
@@ -483,7 +583,7 @@ class BatchServer:
             if first in stop or r.max_tokens <= 1:
                 r.done(self.tokenizer.decode(r.output_ids))
                 return
-            bkv.insert(slot, adm.kv)
+            self._insert(bkv, adm.kv, slot)
             self._prefix_store(r.prompt_ids, adm.kv)
             slot_req[slot] = r
             tokens[slot] = first

@@ -33,10 +33,11 @@ import torch
 from ..ops.cuda import kv_update
 from ..ops.cuda.batched_attention import (flash_decode_batched,
                                           flash_verify_batched)
-from ..ops.layers import apply_rope, rms_norm
+from ..ops.layers import _psum, apply_rope, rms_norm
 from ..ops.linear import embed_lookup, kernels_enabled, qmatmul
-from .llama import (Arch, KVCache, LayerWeights, ModelWeights, _norm_w,
-                    dense_ffn, layer_window, moe_ffn, quantize_rows)
+from .llama import (Arch, KVCache, LayerWeights, ModelWeights, _home,
+                    _norm_w, dense_ffn, layer_window, moe_ffn, quantize_rows,
+                    tp_embed, tp_head_logits)
 
 
 def attention_rows(q, kf, vf, pos, scale: float, window=None,
@@ -217,12 +218,11 @@ def _scale(arch: Arch) -> float:
         1.0 / math.sqrt(arch.head_dim)
 
 
-def _layer_step_plain(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV, pos,
-                      active, cos_t, sin_t, layer: int):
-    """Plain-path layer step (decode or verify window): write the T new
+def _attend_plain(arch: Arch, q, k_t, v_t, bkv: BatchedKV, pos, active,
+                  layer: int):
+    """Plain-path attention of a decode or verify window: write the T new
     rows of each active sequence at [pos, pos + T) of this layer's cache,
-    then attend the whole cache. x [B, H] or [B, T, H]."""
-    q, k_t, v_t = _qkv_rows(arch, x, lw, cos_t, sin_t, layer)
+    then attend the whole cache. Returns att [B, T, Hq, D] f32."""
     if bkv.quantized:
         kq, ks_new, vq, vs_new = quantize_rows(k_t, v_t)
         rows = (kq, ks_new, vq, vs_new)
@@ -236,22 +236,18 @@ def _layer_step_plain(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV, pos,
     v_cache = (bkv.v[layer], bkv.vs[layer]) if bkv.quantized \
         else bkv.v[layer]
     window, _ = layer_window(arch, layer)
-    att = attention_rows(q, _dequant(k_cache), _dequant(v_cache), pos,
-                         _scale(arch), window, arch.attn_softcap)
-    return _ffn_tail(arch, x, att, lw, layer)
+    return attention_rows(q, _dequant(k_cache), _dequant(v_cache), pos,
+                          _scale(arch), window, arch.attn_softcap)
 
 
-def _layer_step_deferred(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV,
-                         pos, active, cos_t, sin_t, layer: int, s_live=None,
-                         dot_impl: str = "f32"):
-    """Kernel-path layer step (decode or verify window): the flash kernel
-    reads this layer of the stacked cache plus the T new rows as a virtual
-    block, with cache dots of form `dot_impl`; nothing is written here, the
-    rows are returned for the bulk append after the layer loop. Returns (x,
-    rows tuple)."""
-    q, k_t, v_t = _qkv_rows(arch, x, lw, cos_t, sin_t, layer)
+def _attend_deferred(arch: Arch, q, k_t, v_t, bkv: BatchedKV, pos, active,
+                     layer: int, decode: bool, s_live=None,
+                     dot_impl: str = "f32"):
+    """Kernel-path attention: the flash kernel reads this layer of the
+    stacked cache plus the T new rows as a virtual block, with cache dots
+    of form `dot_impl`; nothing is written here, the rows are returned for
+    the bulk append after the layer loop. Returns (att, rows tuple)."""
     window, _ = layer_window(arch, layer)
-    decode = x.dim() == 2
     fn = flash_decode_batched if decode else flash_verify_batched
     qq = q[:, 0] if decode else q
     kw = dict(layer=layer, active=active, window=window,
@@ -260,10 +256,28 @@ def _layer_step_deferred(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV,
         kq, ks_new, vq, vs_new = quantize_rows(k_t, v_t)
         att = fn(qq, (bkv.k, bkv.ks), (bkv.v, bkv.vs), (kq, ks_new),
                  (vq, vs_new), pos, _scale(arch), **kw)
-        rows = (kq, ks_new, vq, vs_new)
-    else:
-        att = fn(qq, bkv.k, bkv.v, k_t, v_t, pos, _scale(arch), **kw)
-        rows = (k_t, v_t)
+        return att, (kq, ks_new, vq, vs_new)
+    att = fn(qq, bkv.k, bkv.v, k_t, v_t, pos, _scale(arch), **kw)
+    return att, (k_t, v_t)
+
+
+def _layer_step_plain(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV, pos,
+                      active, cos_t, sin_t, layer: int):
+    """Plain-path layer step (decode or verify window). x [B, H] or
+    [B, T, H]."""
+    q, k_t, v_t = _qkv_rows(arch, x, lw, cos_t, sin_t, layer)
+    att = _attend_plain(arch, q, k_t, v_t, bkv, pos, active, layer)
+    return _ffn_tail(arch, x, att, lw, layer)
+
+
+def _layer_step_deferred(arch: Arch, x, lw: LayerWeights, bkv: BatchedKV,
+                         pos, active, cos_t, sin_t, layer: int, s_live=None,
+                         dot_impl: str = "f32"):
+    """Kernel-path layer step (decode or verify window). Returns (x, rows
+    tuple)."""
+    q, k_t, v_t = _qkv_rows(arch, x, lw, cos_t, sin_t, layer)
+    att, rows = _attend_deferred(arch, q, k_t, v_t, bkv, pos, active, layer,
+                                 x.dim() == 2, s_live, dot_impl)
     return _ffn_tail(arch, x, att, lw, layer), rows
 
 
@@ -331,13 +345,21 @@ def _run_layers(arch: Arch, weights: ModelWeights, kv: BatchedKV, x, pos,
         x, r = _layer_step_deferred(arch, x, weights.layers, kv, pos, active,
                                     cos_t, sin_t, li, s_live, dot_impl)
         rows.append(r)
+    _bulk_append(arch, kv, rows, pos, active, kv_append, n_sel,
+                 x.dim() == 3)
+    return x
+
+
+def _bulk_append(arch: Arch, kv: BatchedKV, rows: list, pos, active,
+                 kv_append: str, n_sel: int, verify: bool) -> None:
+    """The kernel path's cache write after the layer loop: every layer's
+    rows in one in-place append (the indexed write for a layer prefix, a
+    verify window, or kv_append "dus")."""
     stacked = tuple(torch.stack(parts) for parts in zip(*rows))
-    verify = x.dim() == 3
     if kv_append == "dus" or n_sel < arch.n_layers or verify:
         kv_update.append_rows_stacked_dus(kv.caches, stacked, pos, active)
     else:
         kv_update.append_rows_stacked(kv.caches, stacked, pos, active)
-    return x
 
 
 @torch.inference_mode()
@@ -399,3 +421,128 @@ def batched_verify_step(arch: Arch, weights: ModelWeights, kv: BatchedKV,
     x = _run_layers(arch, weights, kv, x, pos, active, cos_t, sin_t, impl,
                     "dus", arch.n_layers, s_live, dot_impl)
     return _head(arch, weights, x).reshape(b_n, t_n, -1), kv
+
+
+# --- tensor parallelism (parallel/tp.py, parallel/dp.py) ---------------------
+# The batched step over one tp row of a mesh, the JAX package's step body
+# with tp_axis: each shard runs its column products, batched flash and the
+# KV append on its own heads, over a BatchedKV of its own ([L, B, Hkv/tp, S,
+# D]); the row products' f32 partials and the LM head's partial logits are
+# summed in shard order on the first shard's device (ops/layers._psum), the
+# embedding's K-slices concatenated (models/llama.tp_embed). Entries of
+# another process's shards are None.
+
+
+def _tp_layer(arch_l: Arch, x, lws: list, kvs: list, vecs: list, ropes: list,
+              layer: int, impl: str, dot_impl: str, row):
+    """One block over tp shards (arch_l: the shards' local arch). vecs:
+    each shard's (pos, active) on its device. Returns (x, each shard's
+    rows for the bulk append, or None on the plain path)."""
+    home = x.device
+    decode = x.dim() == 2
+    hq, d = arch_l.n_heads, arch_l.head_dim
+    parts, rows = [], []
+    for lw, kv, vec, rope, dev in zip(lws, kvs, vecs, ropes, row):
+        if lw is None:
+            parts.append(None)
+            rows.append(None)
+            continue
+        pos, active = vec
+        q, k_t, v_t = _qkv_rows(arch_l, x.to(dev), lw, rope[0], rope[1],
+                                layer)
+        if impl == "kernel":
+            att, r = _attend_deferred(arch_l, q, k_t, v_t, kv, pos, active,
+                                      layer, decode, dot_impl=dot_impl)
+        else:
+            att, r = _attend_plain(arch_l, q, k_t, v_t, kv, pos, active,
+                                   layer), None
+        parts.append(qmatmul(att.reshape(-1, hq * d).to(torch.bfloat16),
+                             lw.wo, layer=layer))
+        rows.append(r)
+    lw0 = _home(lws)
+    o = _psum(parts, home, row).reshape(x.shape)
+    if arch_l.post_norms:
+        o = rms_norm(o, _norm_w(arch_l, lw0.attn_post_norm, layer),
+                     arch_l.norm_eps)
+    x = x + o
+    hf = rms_norm(x, _norm_w(arch_l, lw0.ffn_norm, layer), arch_l.norm_eps) \
+        .to(torch.bfloat16).reshape(-1, x.shape[-1])
+    dn = _psum([None if lw is None else dense_ffn(arch_l, hf.to(dev), lw,
+                                                  layer)
+                for lw, dev in zip(lws, row)], home, row).reshape(x.shape)
+    if arch_l.post_norms:
+        dn = rms_norm(dn, _norm_w(arch_l, lw0.ffn_post_norm, layer),
+                      arch_l.norm_eps)
+    return x + dn, rows
+
+
+def _tp_step(arch: Arch, shards: list, kvs: list, tokens, pos, active, row,
+             kv_append, n_layers, dot_impl: str):
+    if len(shards) != len(row) or len(kvs) != len(row):
+        raise ValueError(f"{len(shards)} weight and {len(kvs)} cache shards "
+                         f"for a {len(row)}-way TP row")
+    if arch.n_experts:
+        raise NotImplementedError(
+            "MoE x TP serving not supported - DP replicates and works")
+    arch_l = arch.local_arch(len(row))
+    dev = _home(shards).output_norm.device
+    tokens = _vec(tokens, dev, torch.long)
+    pos = _vec(pos, dev, torch.long).reshape(-1)
+    active = _vec(active, dev, torch.bool).reshape(-1)
+    verify = tokens.dim() == 2
+    b_n = tokens.shape[0]
+    impl, kv_append = resolve_impl(None, kv_append, b_n, _home(kvs).k)
+    positions = pos[:, None]
+    if verify:
+        positions = positions + torch.arange(tokens.shape[1], device=dev)
+    x = tp_embed(arch, shards, tokens.reshape(-1), row)
+    if verify:
+        x = x.reshape(b_n, tokens.shape[1], -1)
+    vtype = (torch.int32, torch.int32) if impl == "kernel" \
+        else (torch.long, torch.bool)
+    vecs, ropes = [], []
+    for w, d in zip(shards, row):
+        vecs.append((pos.to(d, vtype[0]), active.to(d, vtype[1]))
+                    if w is not None else None)
+        ropes.append(_rope_rows(w, positions.to(d)) if w is not None
+                     else None)
+    n_sel = n_layers if n_layers is not None else arch.n_layers
+    lws = [None if w is None else w.layers for w in shards]
+    rows = [[] for _ in shards]
+    for li in range(n_sel):
+        x, r = _tp_layer(arch_l, x, lws, kvs, vecs, ropes, li, impl,
+                         dot_impl, row)
+        for s, rs in enumerate(r):
+            if rs is not None:
+                rows[s].append(rs)
+    if impl == "kernel":
+        for s, kv in enumerate(kvs):
+            if kv is not None:
+                _bulk_append(arch, kv, rows[s], *vecs[s], kv_append, n_sel,
+                             verify)
+    logits = tp_head_logits(arch, shards, x.reshape(-1, x.shape[-1]),
+                            all_logits=True, row=row)
+    return logits.reshape(b_n, -1, logits.shape[-1]) if verify else logits
+
+
+@torch.inference_mode()
+def batched_decode_step_tp(arch: Arch, shards: list, kvs: list, tokens, pos,
+                           active, row, n_layers: int | None = None,
+                           dot_impl: str = "f32"):
+    """batched_decode_step over a tp row (the JAX batched_decode_body with
+    tp_axis): shards (parallel/tp.shard_weights) and kvs (one BatchedKV of
+    the shard's heads each) on the row's devices; arch the whole model's;
+    impl and kv_append as batched_decode_step's defaults. Returns (logits
+    [B, V] f32 on the first shard's device, kvs)."""
+    tokens = torch.as_tensor(tokens).reshape(-1)
+    return _tp_step(arch, shards, kvs, tokens, pos, active, row, None,
+                    n_layers, dot_impl), kvs
+
+
+@torch.inference_mode()
+def batched_verify_step_tp(arch: Arch, shards: list, kvs: list, tokens, pos,
+                           active, row, dot_impl: str = "f32"):
+    """batched_verify_step over a tp row: tokens [B, T]. Returns (logits
+    [B, T, V] f32 on the first shard's device, kvs)."""
+    return _tp_step(arch, shards, kvs, tokens, pos, active, row, "dus",
+                    None, dot_impl), kvs

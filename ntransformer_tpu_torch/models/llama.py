@@ -495,56 +495,80 @@ def head_logits(arch: Arch, weights: ModelWeights, x, n_valid=None,
 
 
 # --- tensor parallelism (parallel/tp.py) -------------------------------------
-# One process drives every shard. The replicated work (embedding reassembly,
-# norms, residual adds, the LM head's sum) runs on the first shard's device;
-# each shard's column- and row-parallel products, its heads' attention and
-# its cache run on its own. Where the JAX package psums (after wo, after
-# w_down, the LM head's partial logits) the shards' f32 partials are summed
-# here in shard order on the first shard's device, so the bits do not depend
-# on where the shards live; the embedding's K-slices are concatenated (the
-# JAX all-gather). On one card every hand-off is a view; across cards a
-# peer copy on the current streams.
+# One process drives every shard it owns. The replicated work (embedding
+# reassembly, norms, residual adds, the LM head's sum) runs on the first
+# device of those shards; each shard's column- and row-parallel products,
+# its heads' attention and its cache run on its own. Where the JAX package
+# psums (after wo, after w_down, the LM head's partial logits) the shards'
+# f32 partials are summed here in shard order, so the bits do not depend on
+# where the shards live; the embedding's K-slices are concatenated (the JAX
+# all-gather). On one card every hand-off is a view; across cards a peer
+# copy on the current streams. A mesh row that spans processes
+# (parallel/multihost.Row) holds None for the other processes' shards, whose
+# partials are all-gathered over the row's process group (ops/layers._psum).
+
+
+def _home(shards: list):
+    """The first shard this process holds (None entries: another
+    process's)."""
+    return next(w for w in shards if w is not None)
+
+
+def tp_embed(arch: Arch, shards: list, tokens, row=None):
+    """Token embedding from the row-sharded table: each shard dequantizes
+    its K-slice of the rows, concatenated in shard order on the first
+    shard's device. tokens [N] -> x [N, H] f32."""
+    dev = _home(shards).output_norm.device
+    parts = [None if w is None else
+             embed_lookup(w.embed, tokens.to(w.output_norm.device),
+                          out_dtype=torch.float32) for w in shards]
+    if row is not None:
+        from ..parallel.multihost import gather_shards
+        parts = gather_shards(parts, row)
+    x = torch.cat([p.to(dev) for p in parts], dim=-1)
+    if arch.embed_scale != 1.0:
+        x = x * arch.embed_scale
+    return x
 
 
 def tp_embed_positions(arch: Arch, shards: list[ModelWeights], tokens,
-                       pos: int):
-    """Token embedding from the row-sharded table: each shard dequantizes
-    its K-slice of the rows, concatenated on the first shard's device;
-    and each shard's RoPE rows on its own device. Returns (x [T, H] f32,
-    [(cos, sin) of each shard])."""
-    dev = shards[0].output_norm.device
+                       pos: int, row=None):
+    """tp_embed, and each shard's RoPE rows on its own device (None for
+    another process's shard). Returns (x [T, H] f32, [(cos, sin) of each
+    shard])."""
     T = tokens.shape[0]
-    x = torch.cat([embed_lookup(w.embed, tokens, out_dtype=torch.float32)
-                   .to(dev) for w in shards], dim=-1)
-    if arch.embed_scale != 1.0:
-        x = x * arch.embed_scale
-    ropes = [(w.rope_cos[..., pos:pos + T, :], w.rope_sin[..., pos:pos + T, :])
+    x = tp_embed(arch, shards, tokens, row)
+    ropes = [None if w is None else
+             (w.rope_cos[..., pos:pos + T, :], w.rope_sin[..., pos:pos + T, :])
              for w in shards]
     return x, ropes
 
 
 def tp_layer_step(arch: Arch, x, lws: list[LayerWeights], kvs: list, pos: int,
-                  ropes: list, n_valid=None, layer: int = 0, abs_layer=None):
+                  ropes: list, n_valid=None, layer: int = 0, abs_layer=None,
+                  row=None):
     """One block over tp shards. arch: the shards' local arch; x [T, H] f32
     on the first shard's device; lws, kvs ((k, v) cache views of this
-    layer) and ropes one per shard, each on its shard's device; layer /
-    abs_layer as in attn_block. The norms are replicated: shard 0's are
-    read. Returns x."""
+    layer) and ropes one per shard, each on its shard's device (None for
+    another process's shard); layer / abs_layer as in attn_block. The
+    norms are replicated: the first shard's are read. Returns x."""
     dev = x.device
-    lw0 = lws[0]
+    lw0 = _home(lws)
     h = rms_norm(x, _norm_w(arch, lw0.attn_norm, layer),
                  arch.norm_eps).to(torch.bfloat16)
-    o = _psum([attn_heads(arch, h.to(c.device), lw, kk, vv, pos, c, s,
-                              n_valid, layer, abs_layer)
-                   for lw, (kk, vv), (c, s) in zip(lws, kvs, ropes)], dev)
+    o = _psum([None if lw is None else
+               attn_heads(arch, h.to(rp[0].device), lw, kv[0], kv[1], pos,
+                          rp[0], rp[1], n_valid, layer, abs_layer)
+               for lw, kv, rp in zip(lws, kvs, ropes)], dev, row)
     if arch.post_norms:
         o = rms_norm(o, _norm_w(arch, lw0.attn_post_norm, layer),
                      arch.norm_eps)
     x = x + o
     hf = rms_norm(x, _norm_w(arch, lw0.ffn_norm, layer),
                   arch.norm_eps).to(torch.bfloat16)
-    dn = _psum([dense_ffn(arch, hf.to(c.device), lw, layer)
-                    for lw, (c, _) in zip(lws, ropes)], dev)
+    dn = _psum([None if lw is None else
+                dense_ffn(arch, hf.to(rp[0].device), lw, layer)
+                for lw, rp in zip(lws, ropes)], dev, row)
     if arch.post_norms:
         dn = rms_norm(dn, _norm_w(arch, lw0.ffn_post_norm, layer),
                       arch.norm_eps)
@@ -552,12 +576,12 @@ def tp_layer_step(arch: Arch, x, lws: list[LayerWeights], kvs: list, pos: int,
 
 
 def tp_head_logits(arch: Arch, shards: list[ModelWeights], x, n_valid=None,
-                   all_logits: bool = False):
+                   all_logits: bool = False, row=None):
     """Final norm, then the row-parallel LM head: shard s multiplies its
     K-slice of the selected rows by its rows of the head, and the partial
     logits are summed in shard order on the first shard's device."""
     from ..ops.linear import plane_dims
-    w = shards[0].output_norm
+    w = _home(shards).output_norm
     x = rms_norm(x, w + arch.norm_bias if arch.norm_bias != 0.0 else w,
                  arch.norm_eps)
     if all_logits:
@@ -567,14 +591,17 @@ def tp_head_logits(arch: Arch, shards: list[ModelWeights], x, n_valid=None,
     else:
         sel = x[-1:]
     sel = sel.to(torch.bfloat16)
-    parts, k0 = [], 0
-    for sw in shards:
+    head0 = _home(shards).lm_head
+    kl, _ = plane_dims(head0.planes, head0.dtype)
+    parts = []
+    for s, sw in enumerate(shards):
+        if sw is None:
+            parts.append(None)
+            continue
         head = sw.lm_head
-        kl, _ = plane_dims(head.planes, head.dtype)
         dev = next(iter(head.planes.values())).device
-        parts.append(qmatmul(sel[:, k0:k0 + kl].to(dev), head))
-        k0 += kl
-    logits = _psum(parts, x.device)
+        parts.append(qmatmul(sel[:, s * kl:(s + 1) * kl].to(dev), head))
+    logits = _psum(parts, x.device, row)
     if logits.shape[-1] > arch.vocab_size:
         logits = logits[:, :arch.vocab_size]
     if arch.final_softcap:
@@ -594,20 +621,21 @@ def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list[KVCache],
             "MoE x tensor parallelism not supported - shard the experts "
             "instead (parallel/ep.py)")
     arch_l = arch.local_arch(tp)
-    dev = shards[0].output_norm.device
+    dev = _home(shards).output_norm.device
     tokens = torch.as_tensor(tokens, device=dev).reshape(-1)
-    x, ropes = tp_embed_positions(arch, shards, tokens, pos)
-    indices = (range(kv[0].k.shape[0]) if layer_sel is None
+    x, ropes = tp_embed_positions(arch, shards, tokens, pos, mesh)
+    indices = (range(_home(kv).k.shape[0]) if layer_sel is None
                else [int(i) for i in layer_sel])
-    lws = [w.layers for w in shards]
+    lws = [None if w is None else w.layers for w in shards]
     cosines = []
     for li in indices:
-        x2 = tp_layer_step(arch_l, x, lws, [c.layer(li) for c in kv], pos,
-                           ropes, n_valid, layer=li)
+        x2 = tp_layer_step(arch_l, x, lws,
+                           [None if c is None else c.layer(li) for c in kv],
+                           pos, ropes, n_valid, layer=li, row=mesh)
         if with_cosine:
             cosines.append(_cosine(x, x2))
         x = x2
-    logits = tp_head_logits(arch, shards, x, n_valid, all_logits)
+    logits = tp_head_logits(arch, shards, x, n_valid, all_logits, mesh)
     return logits, kv, (torch.stack(cosines) if with_cosine else None)
 
 

@@ -23,6 +23,8 @@ head, so padded planes give the same logits.
 """
 from __future__ import annotations
 
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -173,6 +175,24 @@ def load_layer_host(reader: GGUFReader, i: int,
     )
 
 
+# layers re-laid out on the host ahead of the one being placed: numpy's
+# copies release the GIL, so the layers' copies overlap on the host's cores
+HOST_WORKERS = 4
+
+
+def ahead(fn, n: int, workers: int = HOST_WORKERS):
+    """fn(0), ..., fn(n - 1) in order, each computed on a thread pool at
+    most `workers` calls ahead of the consumer (so at most that many
+    results are held at once)."""
+    with ThreadPoolExecutor(workers) as ex:
+        pending = deque(ex.submit(fn, i) for i in range(min(workers, n)))
+        for i in range(n):
+            out = pending.popleft().result()
+            if i + workers < n:
+                pending.append(ex.submit(fn, i + workers))
+            yield out
+
+
 def layer_to_device(lw: LayerWeights, device) -> LayerWeights:
     def put(v):
         if v is None:
@@ -291,8 +311,8 @@ def load_model(path: str, *, max_seq_len: int | None = None,
 
     embed_host = load_qlinear_host(reader, "token_embd.weight", compute)
     embed = qlinear_to_device(embed_host, dev)
-    stacked = stack_layers([layer_to_device(host_layer(i), dev)
-                            for i in range(cfg.n_layers)])
+    stacked = stack_layers([layer_to_device(lw, dev)
+                            for lw in ahead(host_layer, cfg.n_layers)])
     if fuse:
         stacked = fuse_layer_weights(stacked)
     output_norm = torch.from_numpy(

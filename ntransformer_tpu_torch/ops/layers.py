@@ -117,8 +117,13 @@ def _pmax(xs: list[torch.Tensor], device) -> torch.Tensor:
     return torch.stack([x.to(device) for x in xs]).amax(0)
 
 
-def _psum(xs: list[torch.Tensor], device) -> torch.Tensor:
-    """The shards' tensors moved to `device`, summed in shard order."""
+def _psum(xs: list, device, row=None) -> torch.Tensor:
+    """The shards' tensors moved to `device`, summed in shard order. Where
+    `row` (a parallel/multihost.Row) spans processes, xs holds None for
+    the shards of other processes, which are all-gathered first."""
+    if row is not None:
+        from ..parallel.multihost import gather_shards
+        xs = gather_shards(xs, row)
     out = xs[0].to(device)
     for x in xs[1:]:
         out = out + x.to(device)

@@ -20,8 +20,10 @@ torch devices in which a device may repeat (two or four shards on one card
 run every product at its shard shape; on a host with four cards, one shard
 on each). `forward(..., tp=mesh)` in models/llama.py runs the replicated
 work on the mesh's first device and sums the shards' partials there in
-shard order. torch.distributed waits for ROADMAP queue 1 item 14b
-(multihost.py).
+shard order. A tp row of a (dp, tp) mesh (parallel/multihost.py) may span
+processes: each process then places and computes only the shards it owns,
+and the partials are all-gathered and summed in shard order in every
+process.
 
 A shard's plane shapes stay valid layouts while K/tp keeps each format's
 block (rows_div) and N/tp is whole heads. On CUDA the shard shapes must
@@ -244,7 +246,7 @@ def shard_layer(lw: LayerWeights, s: int, tp: int, dev) -> LayerWeights:
 
 
 def shard_weights(weights: ModelWeights, mesh, arch: Arch,
-                  fuse: bool = False) -> list[ModelWeights]:
+                  fuse: bool = False, only=None) -> list[ModelWeights]:
     """One ModelWeights per shard, each on its own device of `mesh`, with
     the plan above. Host (CPU) weights go straight to their shards: no
     unsharded copy lands on a card. Weights fused in tp = 1 order
@@ -254,7 +256,9 @@ def shard_weights(weights: ModelWeights, mesh, arch: Arch,
     planes of the JAX package's `fuse_layer_weights(lw, tp)` followed by a
     contiguous column split. A tied head stays the embedding's object on
     every shard. weights.layers may be None (a tiered model with no
-    resident layer)."""
+    resident layer). only: the shard indices to place (default: the shards
+    this process owns, every shard of a plain tuple); the others are
+    None."""
     tp = len(mesh)
     lw = weights.layers
     if lw is not None and lw.ffn_gate_inp is not None:
@@ -266,8 +270,14 @@ def shard_weights(weights: ModelWeights, mesh, arch: Arch,
                                    for nm in FUSED)
     if fused:
         lw = unfuse_layer_weights(lw, arch)
+    if only is None:
+        from .multihost import owned
+        only = owned(mesh)
     out = []
     for s, dev in enumerate(mesh):
+        if s not in only:
+            out.append(None)
+            continue
         layers = None
         if lw is not None:
             layers = shard_layer(lw, s, tp, dev)
@@ -286,6 +296,9 @@ def shard_weights(weights: ModelWeights, mesh, arch: Arch,
 def make_tp_kv(arch: Arch, mesh, quant: bool = False) -> list[KVCache]:
     """The cache of a tp-way mesh: shard s's [L, Hkv/tp, S, D] heads (int8
     codes and their scales alike with quant=True), created on its own
-    device."""
+    device; None for a shard another process owns."""
+    from .multihost import owned
     local = local_arch(arch, len(mesh))
-    return [KVCache.create(local, quant=quant, device=d) for d in mesh]
+    mine = owned(mesh)
+    return [KVCache.create(local, quant=quant, device=d) if s in mine
+            else None for s, d in enumerate(mesh)]

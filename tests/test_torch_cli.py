@@ -1,8 +1,9 @@
 """Port CLI on the CPU: resident generation (bf16 and --kv-int8 caches),
---benchmark, --serve, --chat, --http, tiered streaming and speculation
-(--self-spec, --draft-model, --serve --spec-k) run; every mode the port
-does not run yet exits with 2 and names its ROADMAP item; the refusals the
-JAX CLI makes of the ported modes are the port's too."""
+--benchmark, --serve, --chat, --http, tiered streaming, speculation
+(--self-spec, --draft-model, --serve --spec-k) and --serve / --http over
+--tp / --dp run; every mode the port does not run yet exits with 2 and
+names its ROADMAP item; the refusals the JAX CLI makes of the ported modes
+are the port's too."""
 import io
 import json
 import os
@@ -57,26 +58,73 @@ def test_benchmark_on_cpu(capsys):
     assert "decode:  3 tok" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [
-    ["--tp", "2", "--serve", "p.txt"], ["--cp", "2", "--tp", "2"],
-    ["--ep", "2"], ["--dp", "2"],
-], ids=lambda f: f[0])
-def test_unported_modes_exit_2_naming_the_roadmap(flags, capsys):
-    """--tp runs alone (test_tp_*); the sharded batch server (--serve over
-    --tp) is item 14b, CP x TP item 14d, --ep 14c, --dp 14b."""
+@pytest.mark.parametrize("flags,item", [
+    (["--tp", "2", "--cp", "2"], "14d"), (["--cp", "2", "--tp", "2"], "14d"),
+    (["--ep", "2"], "14c"), (["--dp", "2", "--serve", "p.txt", "--ep", "2"],
+                             "14c"),
+], ids=lambda f: f[0] if isinstance(f, list) else "")
+def test_unported_modes_exit_2_naming_the_roadmap(flags, item, capsys):
+    """--tp runs alone and the sharded server runs over --tp/--dp
+    (test_sharded_serve_*); CP x TP (in either flag order) is item 14d,
+    --ep 14c, also under a --dp server."""
     assert cli.main(BASE + flags) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP" in err
-    assert "item 14" in err
+    assert f"item {item}" in err
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"]],
-                         ids=lambda f: f[0])
-def test_http_over_multi_gpu_axes_stays_refused(flags, capsys):
-    """--http over --tp/--dp waits for the multi-GPU axes (item 14)."""
+@pytest.mark.parametrize("flags,says", [
+    (["--tp", "2", "--cp", "2"], "does not compose with the batch server"),
+    (["--dp", "2", "--ep", "2"], "item 14c"),
+], ids=["--tp", "--dp"])
+def test_http_over_multi_gpu_axes_stays_refused(flags, says, capsys):
+    """--http over --tp/--dp runs (test_http_over_tp_dp_answers); with
+    --cp it stays refused with the JAX message, with --ep as item 14c."""
     assert cli.main(BASE + ["--http", "0"] + flags) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "item 14" in err
+    assert says in capsys.readouterr().err
+
+
+def test_dp_without_a_server_is_refused_as_jax(capsys):
+    """--dp shards the server's slots: without --serve/--http the JAX
+    refusal, exit 2."""
+    assert cli.main(BASE + ["--dp", "2"]) == 2
+    port_err = capsys.readouterr().err
+    assert jcli.main(["-m", MODEL, "-n", "4", "--dp", "2"]) == 2
+    jax_err = capsys.readouterr().err
+    tail = lambda e: e.strip().splitlines()[-1].split(": ", 1)[-1]
+    assert "requires --serve or --http" in port_err
+    assert tail(port_err) == tail(jax_err)
+
+
+@pytest.mark.parametrize("flags,dp,tp", [(["--dp", "2"], 2, 1),
+                                         (["--tp", "2", "--dp", "2"], 2, 2)],
+                         ids=["dp", "tp-dp"])
+def test_sharded_serve_prints_batchserver_texts(flags, dp, tp, tmp_path,
+                                                capsys):
+    """--serve over a mesh of CPU positions prints the texts of
+    BatchServer.run over the same mesh, with the CLI's sampler settings."""
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.parallel.multihost import make_mesh
+    lines = ["def f(x):", "import numpy", "class A:"]
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("\n".join(lines) + "\n")
+    assert cli.main(BASE + ["--serve", str(prompts), "-t", "0",
+                            "--batch-size", "2"] + flags) == 0
+    got = capsys.readouterr()
+    assert "serving over mesh" in got.err
+    assert "served 3 requests, 12 tokens" in got.err
+    mesh = make_mesh(tp=tp, dp=dp, devices=["cpu"] * (dp * tp))
+    srv = BatchServer(load_model(MODEL, device="cpu"), batch_size=2,
+                      mesh=mesh, fuse=True, sampler_cfg=SamplerConfig(
+                          temperature=0.0, top_k=40, top_p=0.95,
+                          repeat_penalty=1.1, seed=42))
+    reqs = [Request(prompt=p, max_tokens=4, parse_special=True)
+            for p in lines]
+    srv.run(reqs)
+    for r in reqs:
+        assert f"### {r.prompt!r}\n{r.text}\n" in got.out
 
 
 @pytest.mark.parametrize("flags", [[], ["--kv-int8", "--no-fuse"]],
@@ -386,14 +434,14 @@ def test_chat_prints_the_jax_text(which, chat_gguf, tmp_path, monkeypatch,
     assert ("raw" if which == "raw" else "llama3 template") in got[0]
 
 
-def test_http_subprocess_serves_and_drains_on_sigint(chat_gguf):
-    """--http 0 in its own process: it prints the bound port, answers a
-    POST with the greedy text of --serve on the same prompt, and on SIGINT
-    drains and exits 0."""
+def _http_once(gguf: str, flags=()):
+    """--http 0 in its own process: the bound port from its first line,
+    one POST, SIGINT. Returns (response body, exit code, stdout, stderr)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen(
-        [sys.executable, "-m", "ntransformer_tpu_torch", "-m", chat_gguf,
-         "--device", "cpu", "-t", "0", "--http", "0", "--batch-size", "2"],
+        [sys.executable, "-m", "ntransformer_tpu_torch", "-m", gguf,
+         "--device", "cpu", "-t", "0", "--http", "0", "--batch-size", "2"]
+        + list(flags),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=REPO)
     try:
@@ -413,10 +461,37 @@ def test_http_subprocess_serves_and_drains_on_sigint(chat_gguf):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    assert proc.returncode == 0, err
+    return body, proc.returncode, out, err
+
+
+def test_http_subprocess_serves_and_drains_on_sigint(chat_gguf):
+    """--http 0 in its own process: it prints the bound port, answers a
+    POST with the greedy text of --serve on the same prompt, and on SIGINT
+    drains and exits 0."""
+    body, rc, out, err = _http_once(chat_gguf)
+    assert rc == 0, err
     assert "draining" in out
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
     from ntransformer_tpu_torch.models.loader import load_model
     r = Request(prompt="alpha beta", max_tokens=4)
     BatchServer(load_model(chat_gguf, device="cpu"), batch_size=2).run([r])
+    assert body["choices"][0]["text"] == r.text
+
+
+@pytest.mark.parametrize("flags,dp,tp", [(["--tp", "2"], 1, 2),
+                                         (["--dp", "2"], 2, 1)],
+                         ids=["tp", "dp"])
+def test_http_over_tp_dp_answers(chat_gguf, flags, dp, tp):
+    """--http over a mesh of CPU positions answers a request with the text
+    of BatchServer.run over the same mesh, and drains on SIGINT."""
+    body, rc, out, err = _http_once(chat_gguf, flags)
+    assert rc == 0, err
+    assert "serving over mesh" in err and "draining" in out
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.parallel.multihost import make_mesh
+    r = Request(prompt="alpha beta", max_tokens=4)
+    BatchServer(load_model(chat_gguf, device="cpu"), batch_size=2, fuse=True,
+                mesh=make_mesh(tp=tp, dp=dp, devices=["cpu"] * (dp * tp))
+                ).run([r])
     assert body["choices"][0]["text"] == r.text

@@ -250,3 +250,21 @@ def test_port_numpy_copies_match(dtype):
     np.testing.assert_array_equal(
         port_dequant.dequantize(raw, PDType(dtype), n, k),
         jax_dequantize(raw, DType(dtype), n, k))
+
+
+@pytest.mark.parametrize("dtype", ["q8_0", "q4_0", "q4_k", "q5_k", "q6_k"])
+def test_port_layout_tiled_transpose(dtype):
+    """Planes larger than one tile of the port's transposing copy
+    (core/layout.transposed: 256 x 256 tiles, the last ones ragged here)
+    are C-contiguous and equal the JAX package's, byte for byte."""
+    n, k = 640, 1280
+    x = (np.random.default_rng(5).standard_normal((n, k)) * 0.05) \
+        .astype(np.float32)
+    raw = quantize(x, DType(dtype))
+    want = relayout(raw, DType(dtype), n, k)
+    got = port_layout.relayout(raw, PDType(dtype), n, k)
+    assert set(got) == set(want)
+    assert max(a.size for a in got.values()) > 256 * 256
+    for nm in want:
+        assert got[nm].flags["C_CONTIGUOUS"]
+        np.testing.assert_array_equal(got[nm], want[nm])

@@ -122,6 +122,23 @@ def test_cli_tp_defaults_to_cuda_and_raises_without_it(flags):
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
 
 
+@pytest.mark.parametrize("flags", [["--serve", "p.txt", "--dp", "2"],
+                                   ["--serve", "p.txt", "--tp", "2",
+                                    "--dp", "2"],
+                                   ["--http", "0", "--dp", "2"]],
+                         ids=["serve-dp", "serve-tp-dp", "http-dp"])
+def test_cli_sharded_serve_defaults_to_cuda_and_raises_without_it(flags):
+    r = _run("from ntransformer_tpu_torch.cli import main\n"
+             f"main(['-m', 'models/repolm512_q8.gguf'] + {flags!r})")
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_make_mesh_defaults_to_cuda_and_raises_without_it():
+    r = _run("from ntransformer_tpu_torch.parallel.multihost import "
+             "make_mesh\nmake_mesh(tp=1, dp=2)")
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
 def test_cli_streaming_defaults_to_cuda_and_raises_without_it():
     r = _run("from ntransformer_tpu_torch.cli import main\n"
              "main(['-m', 'models/repolm512_q8.gguf', '--streaming', "

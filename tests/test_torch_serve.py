@@ -216,7 +216,9 @@ def test_serve_forever_drains_the_inbox(model):
 
 
 def test_unported_options_raise(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+    """A mesh runs the sharded server (tests/test_torch_serve_sharded.py);
+    a value that is not a parallel.multihost.Mesh is refused."""
+    with pytest.raises(TypeError, match="parallel.multihost.Mesh"):
         BatchServer(model, mesh=object())
 
 
