@@ -10,12 +10,14 @@ runs, `python3 chip_smoke.py kernels,serve` (names comma-separated) runs a
 subset of the rest:
 
   set-up: the card's name and power limit, TF32 off, the eight kernel
-     sources built from csrc/ with nvcc (one process each, in parallel;
-     the streamer's host library csrc/ntstage.cpp with g++ beside them)
-     and nvcc's register report printed; beside the build, in worker
-     processes, the selected phases' host set-up that needs no card
-     (start_prep: the tiered 8B and Mixtral GGUFs with their packs, phase
-     quality's requants and CPU perplexities), waited for after it;
+     libraries built from csrc/ with nvcc (one process a translation unit,
+     all in parallel, ops/cuda/build.py; the streamer's host library
+     csrc/ntstage.cpp with g++ beside them) and nvcc's register report
+     printed; beside the build and the phases, in worker processes, the
+     selected phases' host set-up that needs no card (start_prep: the
+     tiered 8B and Mixtral GGUFs with their packs, phase quality's requants
+     and CPU perplexities), each waited for by the phase that takes it
+     (Prep, which prints the wait);
   kernels: the Q8_0 matmul (T = 1, 8, 32, 70, 512: its skinny kernel and
      its wgmma tile; each row's profiler device time, one kernel a call,
      the counter and the profiler agreeing) and prefill flash attention
@@ -28,7 +30,8 @@ subset of the rest:
      row with its profiler device time and kernels a call, the launch
      counter and the profiler agreeing (the split kernel of "f32" and
      "int8_s" one launch a call where its splits fit a cluster), and the
-     s_live bucket's result bit-equal to the whole cache's;
+     s_live bucket's result bit-equal to the whole cache's; rows also at a
+     (dp, tp) group's and a PP microbatch's and stage's shapes;
   qkernels: the same for the Q4_0, Q4_K, Q5_K and Q6_K dequant-matmul
      kernels at T = 1, 32 and 512 (8B shapes, the Q6_K and Q4_0 heads,
      repolm512's shapes, a ragged N, Q4_0's half step at K = 1056), and
@@ -85,9 +88,11 @@ subset of the rest:
      csrc/flash_attention.cu) at 8B widths, T = 512, in 4 shards of the
      path's own 9,216-key cache at pos 2,048, of a 32,768-key cache at pos
      20,000 (two shards visible, one straddling, one masked) and at pos
-     16,350 (a shard boundary inside a query block), each shard against its
-     twin and the 4 shards combined on the card against the unsplit flash
-     kernel, the first two timed as above; then the synthetic 8B Q8_0 (the
+     16,350 (a shard boundary inside a query block), and at a TP shard's
+     heads (Hq 16, Hkv 4) over the 9,216-key cache in 2 shards at pos 4,096
+     (phase cptp's), each shard against its twin and the shards combined on
+     the card against the unsplit flash kernel, all but the straddle case
+     timed as above; then the synthetic 8B Q8_0 (the
      weights of `full`) through CPEngine with 4 shards on the one card, ctx
      9,216 and a 4,600-token prompt (Engine.benchmark's protocol, the
      partials kernel's main path: its launch count in the kernels line is
@@ -133,6 +138,28 @@ subset of the rest:
      the 8B over the (2, 2) mesh one position a card, teacher-forced
      bit-equal to the same mesh on cuda:0, and two processes over NCCL
      (one card each) at dp = 2 and at tp = 2;
+  pp: pipeline parallelism (python3 chip_smoke.py pp runs it alone): the
+     synthetic 8B Q8_0 of `full`, B = 8 slots prefilled with 9-500-token
+     prompts, bf16 and int8 caches, through pp_decode_step at (2 stages, 2
+     microbatches) and (4, 2) on cuda:0 (each stage's layers a view of the
+     stacked planes), 16 steps fed the one-device B = 8 step's greedy
+     tokens: each microbatch's logits and cache bit-equal to the unsharded
+     step over its slots alone, the launches equal to those microbatch
+     steps' but for the stacked append, one a stage (the head M times a
+     step, counted), ms and kernels a step beside
+     the one-device step's (the kernels line's pp_launches);
+  cptp: CP x TP (python3 chip_smoke.py cptp runs it alone): the same 8B
+     through CPEngine over a (2, 2) mesh on cuda:0 (the weights over tp,
+     the cache over both axes), ctx 9,216 and a 4,600-token prompt as in
+     `cp`: Engine.benchmark's protocol (the kernels line's cptp_launches)
+     beside the resident Engine, 16 steps teacher-forced by tp's rule; and
+     repolm512 through the CLI's --cp 2 --tp 2 (--device cuda:0) and
+     CPEngine against the CPU;
+  meshcards: on a host with 4 cards or more (else it says so and passes),
+     one position a card against the same mesh on cuda:0, bit for bit: a
+     small MoE GGUF through EPEngine(ep = 4), the 8B through
+     pp_decode_step at (4 stages, 2 microbatches), repolm512 through
+     CPEngine over (2, 2);
   spec: speculation (python3 chip_smoke.py spec runs it alone): batched
      flash's verify at B = 8, K = 3 (T = 4, S 1024; bf16 "f32", int8 "f32"
      and "int8_v") and the Q8_0 and Q4_K matmuls at T = 4 and 32 against
@@ -180,6 +207,16 @@ subset of the rest:
      CPU as `real`, the Q8_0 one served as `serve`; and a 4-layer Mixtral
      Q4_K_M GGUF tiered with an LRU smaller than a token's working set and
      its last layer on disk, bit-equal to the resident model;
+  ep: expert parallelism, inside phase moe (python3 chip_smoke.py ep runs
+     moe with it): the select rows also at a shard's 4 of 8 experts; the
+     synthetic Mixtral split in place over 2 expert shards on cuda:0
+     (EPEngine): its prefill within FULL_LOGIT_RTOL of the one-device
+     prefill, 16 T = 1 steps bit-equal to the one-device steps on the same
+     cache, ms a token beside them, Engine.benchmark's protocol (the
+     kernels line's ep_launches), a step's launches by the counters and
+     the profiler, and the EP step under set_sync_debug_mode("error"); the
+     small MoE files through the CLI's --ep 2 and EPEngine against the
+     CPU;
   http: the user-facing surfaces (python3 chip_smoke.py http runs it
      alone): a synthetic Llama-3.1-8B Q4_K_M with Llama-3's chat tokens
      and template (32 layers, resident, fused) served by BatchServer(B = 8)
@@ -321,8 +358,8 @@ REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
           "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
-          "cpcards", "tp", "tpcards", "dp", "dpcards", "spec", "tiered",
-          "moe", "http", "quality")
+          "cpcards", "tp", "tpcards", "dp", "dpcards", "pp", "cptp",
+          "meshcards", "spec", "tiered", "moe", "ep", "http", "quality")
 
 PROMPT = ("def rms_norm(x, weight, eps):\n"
           "    xf = x.astype(jnp.float32)\n"
@@ -434,9 +471,11 @@ def profile_calls(torch, fn, calls: int = 10, warm: int = 5,
         out = {}
         for e in prof.key_averages():
             if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
-                out[e.key[:80]] = {
-                    "ms": e.self_device_time_total / 1e3 / calls,
-                    "per_call": e.count / calls}
+                # kernels whose names share their first 80 characters (a
+                # template's instances) are added up, not overwritten
+                row = out.setdefault(e.key[:80], {"ms": 0.0, "per_call": 0.0})
+                row["ms"] += e.self_device_time_total / 1e3 / calls
+                row["per_call"] += e.count / calls
         if not out or any(v["per_call"] != int(v["per_call"])
                           for v in out.values()):
             continue
@@ -694,6 +733,12 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
                      f"S=1024 Hq {heads[0]} Hkv {heads[1]}", b_n, 1024, 1,
                      int8, [512 + (37 * i) % 89 for i in range(b_n)], None,
                      None, 0.0, None, heads))
+    # a PP microbatch's shapes: B/M = 4 slots of the 8-slot server, every
+    # head, a stage's cache
+    for int8 in (False, True):
+        cases.append((f"8b pp-local B=4 {'int8' if int8 else 'bf16'} "
+                      f"S=4096", 4, 4096, 1, int8, [300, 40, 64, 9], None,
+                      None, 0.0, None))
     att_rows = []
     for case in cases:
         label, b_n, s, t, int8, pos_l, act_l, win, cap, s_live = case[:10]
@@ -843,7 +888,10 @@ def batched_kernel_phase(torch, timer, card: str) -> tuple[dict, dict]:
             # a (dp, tp) mesh group's cache: B/dp = 4 slots, Hkv/tp = 4
             ("8b mesh-local L=32 B=4 bf16 Hkv 4", 32, 4, False, True, 4),
             ("8b mesh-local L=32 B=4 int8 Hkv 4 S 1024", 32, 4, True, True,
-             4)):
+             4),
+            # a PP stage's cache: L/S = 16 and 8 layers, B/M = 4 slots
+            ("8b pp-stage L=16 B=4 bf16 S 4096", 16, 4, False, True, 8),
+            ("8b pp-stage L=8 B=4 int8 S 1024", 8, 4, True, True, 8)):
         s = 4096 if not int8 or b_n == 8 else 1024
         pos_l = [(977 * i + 13) % s for i in range(b_n)]
         act_l = [i % 7 != 3 for i in range(b_n)]
@@ -3213,6 +3261,7 @@ CP_SHARDS = 4
 CP_CTX = 9216       # 2,304 keys a shard
 CP_PROMPT = 4600    # chunk [2048, 2560) crosses key 2,304; decode crosses
 #                     4,608; shard 3 stays masked
+CP_STEPS = 32       # the path's benchmark tokens and forced steps
 
 
 def cp_kernel_phase(torch, timer, card: str) -> dict:
@@ -3225,7 +3274,10 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
                 (shards 0-1 wholly visible, 2 straddles, 3 masked);
       straddle  the same cache at pos 16,350: shard 2's first key, 16,384,
                 falls inside the first query block, whose rows before it
-                see no key of a tile the block runs.
+                see no key of a tile the block runs;
+      cptp      phase cptp's shapes: a TP shard's heads (Hq 16, Hkv 4) over
+                the 9,216-key cache in 2 CP shards of 4,608, the prompt
+                chunk at pos 4,096 (shard 0 wholly visible, 1 masked).
     Per shard, the kernel against its twin: acc, m and l within FLASH_RTOL
     of max|plain| in every query row that sees a key of the shard, and
     exactly 0, NEG_INF, 0 in every row that sees none; the 4 shards
@@ -3242,9 +3294,10 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
     g.manual_seed(66)
     t, hq, hkv, d = 512, 32, 8, 128
     q = torch.randn(t, hq, d, device="cuda", generator=g)
+    qs = {hkv: q, hkv // 2: q[:, :hq // 2].contiguous()}  # a TP shard's
     scale = 1.0 / math.sqrt(d)
 
-    def cache(s):
+    def cache(s, hkv=hkv):
         kc = torch.randn(hkv, s, d, device="cuda", generator=g)
         vc = torch.randn(hkv, s, d, device="cuda", generator=g)
         return kc.to(torch.bfloat16), vc.to(torch.bfloat16)
@@ -3254,13 +3307,17 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
         return float(((a - b).abs().amax(dim=dims)
                       / b.abs().amax(dim=dims)).max())
 
-    def shard_row(tag, kc, vc, pos, i, timed):
-        sl = kc.shape[1] // CP_SHARDS
+    def shard_row(tag, kc, vc, pos, i, timed, n=CP_SHARDS):
+        q, hkv = qs[kc.shape[0]], kc.shape[0]
+        hq = q.shape[1]
+        sl = kc.shape[1] // n
         off = i * sl
         k_i = kc[:, off:off + sl].contiguous()
         v_i = vc[:, off:off + sl].contiguous()
-        label = f"8b {tag} T={t} pos={pos} shard {i} of {CP_SHARDS} keys " \
+        label = f"8b {tag} T={t} pos={pos} shard {i} of {n} keys " \
                 f"[{off}, {off + sl})"
+        if hkv != 8:
+            label += f" Hq {hq} Hkv {hkv}"
         got = ca.flash_attention_partials(q, k_i, v_i, pos, scale,
                                           kpos_offset=off)
         want = ca.flash_attention_partials_plain(q, k_i, v_i, pos, scale,
@@ -3317,17 +3374,16 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
         print(json.dumps({"flash_partials": row}), flush=True)
         return row
 
-    def combine(tag, kc, vc, pos):
-        sl = kc.shape[1] // CP_SHARDS
-        ks = [kc[:, i * sl:(i + 1) * sl].contiguous()
-              for i in range(CP_SHARDS)]
-        vs = [vc[:, i * sl:(i + 1) * sl].contiguous()
-              for i in range(CP_SHARDS)]
+    def combine(tag, kc, vc, pos, n=CP_SHARDS):
+        q = qs[kc.shape[0]]
+        sl = kc.shape[1] // n
+        ks = [kc[:, i * sl:(i + 1) * sl].contiguous() for i in range(n)]
+        vs = [vc[:, i * sl:(i + 1) * sl].contiguous() for i in range(n)]
         combined = layers.attention_cp_flash(q, ks, vs, pos, t, scale)
         whole = ca.flash_attention_cuda(q, kc, vc, pos, t, scale)
         torch.cuda.synchronize()
         rel = row_rel(combined, whole)
-        print(f"{tag}: {CP_SHARDS} shards' partials combined on the card vs "
+        print(f"{tag}: {n} shards' partials combined on the card vs "
               f"the unsplit flash kernel over {kc.shape[1]} keys at pos "
               f"{pos}: max row rel err {rel:.3e} (tol {FLASH_RTOL})",
               flush=True)
@@ -3353,6 +3409,11 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
     check(rows[-2]["blind_rows"] == 34, "straddle: shard 2's boundary does "
           "not fall inside the first query block")
     combined["straddle"] = combine("straddle", kc, vc, 16350)
+    del kc, vc
+    kc, vc = cache(CP_CTX, hkv // 2)
+    rows += [shard_row("cptp", kc, vc, 4096, i, True, CPTP_MESH[0])
+             for i in range(CPTP_MESH[0])]
+    combined["cptp"] = combine("cptp", kc, vc, 4096, CPTP_MESH[0])
     del kc, vc
     print(f"cp kernel phase done on {card}", flush=True)
     # the heaviest call of the path's chunk: shard 0, nearly all visible
@@ -3406,7 +3467,8 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     """CPEngine on the synthetic 8B at full depth and width, 4 shards on
     cuda:0, ctx 9,216, a 4,600-token prompt: Engine.benchmark's protocol
     (the launch counts of the kernels line are read around it), beside the
-    resident Engine on the same weights; then 32 decode steps teacher-forced
+    resident Engine on the same weights; then CP_STEPS decode steps
+    teacher-forced
     on the resident engine's greedy tokens, every step's logits against the
     resident's. The limit is the larger of FULL_LOGIT_RTOL and twice the
     resident kernel path's own spread against the resident plain path at
@@ -3436,7 +3498,7 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     ids = torch.randint(0, arch.vocab_size, (CP_PROMPT,),
                         generator=torch.Generator().manual_seed(46)).tolist()
     reset(counters)
-    st_cp = cp.benchmark(prompt_ids=ids, n_tokens=32)
+    st_cp = cp.benchmark(prompt_ids=ids, n_tokens=CP_STEPS)
     torch.cuda.synchronize()
     launches = read(counters)
     print(f"8b CPEngine path launches {launches}", flush=True)
@@ -3446,14 +3508,16 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     check(launches[ca.NAME] == 0,
           f"8b CPEngine: the resident flash kernel ran: {launches}")
     chunk_prof = cp_chunk_profile(torch, cp, ids)
-    st_res = res.benchmark(prompt_ids=ids, n_tokens=32)
+    st_res = res.benchmark(prompt_ids=ids, n_tokens=CP_STEPS)
 
-    res_toks, res_logits = greedy_pass(res, torch, ids, 32)
-    cp_toks, _ = greedy_pass(cp, torch, ids, 32)
-    _, cp_logits = greedy_pass(cp, torch, ids, 32, forced=res_toks)
+    res_toks, res_logits = greedy_pass(res, torch, ids, CP_STEPS)
+    cp_toks, _ = greedy_pass(cp, torch, ids, CP_STEPS)
+    _, cp_logits = greedy_pass(cp, torch, ids, CP_STEPS,
+                               forced=res_toks)
     linear.KERNEL_MODE = "off"
     try:
-        _, plain_logits = greedy_pass(res, torch, ids, 32, forced=res_toks)
+        _, plain_logits = greedy_pass(res, torch, ids, CP_STEPS,
+                                      forced=res_toks)
     finally:
         linear.KERNEL_MODE = "auto"
 
@@ -3467,8 +3531,9 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     forced_agree = sum(int(torch.argmax(a)) == tk
                        for a, tk in zip(cp_logits[:-1], res_toks))
     agree = sum(a == b for a, b in zip(cp_toks, res_toks))
-    print(f"8b CPEngine vs resident Engine: {agree}/32 greedy tokens agree, "
-          f"{forced_agree}/32 teacher-forced argmaxes; max|dlogit|/"
+    print(f"8b CPEngine vs resident Engine: {agree}/{CP_STEPS} greedy tokens "
+          f"agree, {forced_agree}/{CP_STEPS} teacher-forced argmaxes; "
+          f"max|dlogit|/"
           f"max|logit| per step {[round(r, 4) for r in kern]}; resident "
           f"plain path vs kernels {[round(r, 4) for r in plain]}", flush=True)
     for i, (r, lim) in enumerate(zip(kern, limits)):
@@ -3572,6 +3637,7 @@ def cp_cards_phase(torch, counters, card: str) -> dict | None:
 
 # ------------------------------------------------------ tensor parallelism
 TP_SHARDS = 2   # phase tp: the shards on the one card
+TP_FORCED = 32  # phase tp: the forced steps a cache
 TP_CARDS = 4    # phase tpcards: one shard a card
 
 
@@ -3588,12 +3654,13 @@ def tp_step(torch, eng, quant=False):
     return step
 
 
-def tp_forced(torch, tp, res, ids, n: int) -> dict:
-    """n decode steps of the TPEngine teacher-forced on the resident
-    Engine's greedy tokens (the cache both engines' kv_quant says), every
-    step's logits held to the resident's by the CP phase's rule: within the
-    larger of FULL_LOGIT_RTOL and twice the resident kernel path's spread
-    against its plain path at that step."""
+def tp_forced(torch, tp, res, ids, n: int,
+              tag: str = f"8b TPEngine ({TP_SHARDS} shards") -> dict:
+    """n decode steps of the TPEngine (or another sharded engine, `tag`)
+    teacher-forced on the resident Engine's greedy tokens (the cache both
+    engines' kv_quant says), every step's logits held to the resident's by
+    the CP phase's rule: within the larger of FULL_LOGIT_RTOL and twice the
+    resident kernel path's spread against its plain path at that step."""
     from ntransformer_tpu_torch.ops import linear
     res_toks, res_logits = greedy_pass(res, torch, ids, n)
     _, tp_logits = greedy_pass(tp, torch, ids, n, forced=res_toks)
@@ -3603,18 +3670,18 @@ def tp_forced(torch, tp, res, ids, n: int) -> dict:
     finally:
         linear.KERNEL_MODE = "auto"
     for a in tp_logits:
-        check(bool(torch.isfinite(a).all()), "8b TPEngine: non-finite logits")
+        check(bool(torch.isfinite(a).all()), f"{tag}): non-finite logits")
     kern = [rel_err(a, b) for a, b in zip(tp_logits, res_logits)]
     plain = [rel_err(a, b) for a, b in zip(plain_logits, res_logits)]
     limits = [max(FULL_LOGIT_RTOL, 2 * r) for r in plain]
     cache = "int8" if tp.kv_quant else "bf16"
     for i, (r, lim) in enumerate(zip(kern, limits)):
-        check(r <= lim, f"8b TPEngine {cache} step {i}: teacher-forced "
+        check(r <= lim, f"{tag}) {cache} step {i}: teacher-forced "
               f"logits differ from the resident engine's by {r} of their "
               f"range (> {lim})")
     agree = sum(int(torch.argmax(a)) == tk
                 for a, tk in zip(tp_logits[:-1], res_toks))
-    print(f"8b TPEngine ({TP_SHARDS} shards, {cache} cache) vs resident "
+    print(f"{tag}, {cache} cache) vs resident "
           f"Engine, teacher-forced: {agree}/{n} argmaxes agree; max|dlogit|/"
           f"max|logit| per step {[round(r, 4) for r in kern]}; resident "
           f"plain path vs kernels {[round(r, 4) for r in plain]}",
@@ -3630,8 +3697,9 @@ def tp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     cuda:0: Engine.benchmark's protocol (prefill 512, ctx 4096; the kernels
     line's tp_launches are read around it) beside the resident Engine on
     the same weights, and a decode profile of each (kernels a token, the
-    card's busy share); then 32 decode steps teacher-forced on the resident
-    engine's greedy tokens with the bf16 and the int8 cache (tp_forced).
+    card's busy share); then TP_FORCED decode steps teacher-forced on the
+    resident engine's greedy tokens with the bf16 and the int8 cache
+    (tp_forced).
     Last, the CLI on repolm512 (tp_cli)."""
     from ntransformer_tpu_torch.inference.engine import Engine, TPEngine
     from ntransformer_tpu_torch.models import llama
@@ -3681,7 +3749,7 @@ def tp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     for quant in (False, True):
         tp.kv_quant = res.kv_quant = quant
         forced["int8" if quant else "bf16"] = tp_forced(torch, tp, res, ids,
-                                                        32)
+                                                        TP_FORCED)
     tp.kv_quant = res.kv_quant = False
     summary = {"card": card, "shards": TP_SHARDS, "ctx": arch.max_seq_len,
                "shard_s": shard_s, "launches": launches,
@@ -3716,7 +3784,7 @@ def tp_cli(torch, counters) -> dict:
     --streaming --tp 2 at (2, 2, 2) layers; the unfused and streamed texts
     equal to TPEngine.generate's (the same shard planes, kernels and sums);
     then the refusals, each exit code 2 (--tp 9 over the one card's
-    default mesh included)."""
+    default mesh included; --cp 2 --tp 2 runs, phase cptp)."""
     import contextlib
     import io
     import shutil
@@ -3761,8 +3829,7 @@ def tp_cli(torch, counters) -> dict:
     refused = {}
     for flags in (["--w4a8", "--tp", "2"], ["--w8a8", "--tp", "2"],
                   ["--draft-model", REPOLM, "--tp", "2"],
-                  ["--ep", "2", "--tp", "2"],
-                  ["--cp", "2", "--tp", "2"], ["--tp", "9"]):
+                  ["--ep", "2", "--tp", "2"], ["--tp", "9"]):
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
             rc = cli.main(["-m", REPOLM, "-n", "4"] + flags)
@@ -5181,14 +5248,14 @@ def moe_decode_on_off(torch, counters, synth, steps: int = 8) -> dict:
             "launches": outs["auto"][1]}
 
 
-def moe_sync_check(torch, synth) -> dict:
-    """One resident decode step of the full model with each moe_ffn call run
-    under torch.cuda.set_sync_debug_mode("error"): the routed experts'
-    index and weight stay on the card (a host read would raise)."""
+def moe_sync_check(torch, arch, step, tag: str = "mixtral") -> dict:
+    """One decode step (step(kv, tokens, pos) -> logits, on a cache of its
+    own after a 16-token prefill) with each moe_ffn call run under
+    torch.cuda.set_sync_debug_mode("error"): the routed experts' index and
+    weight stay on the card (a host read would raise)."""
     from ntransformer_tpu_torch.models import llama
-    _, arch, weights, _ = synth
     kv = llama.KVCache.create(arch, device="cuda")
-    llama.forward(arch, weights, kv, list(range(3, 19)), 0)
+    step(kv, list(range(3, 19)), 0)
     torch.cuda.synchronize()
     orig, calls = llama.moe_ffn, []
 
@@ -5202,14 +5269,14 @@ def moe_sync_check(torch, synth) -> dict:
         return out
     llama.moe_ffn = guarded
     try:
-        lg = llama.forward(arch, weights, kv, [7], 16)[0]
+        lg = step(kv, [7], 16)
     finally:
         llama.moe_ffn = orig
     torch.cuda.synchronize()
     check(len(calls) == arch.n_layers and set(calls) == {1},
-          f"mixtral sync check: moe_ffn ran {calls}")
-    check(bool(torch.isfinite(lg).all()), "mixtral sync check: non-finite")
-    print(f"mixtral decode step: {len(calls)} moe_ffn calls (T = 1) under "
+          f"{tag} sync check: moe_ffn ran {calls}")
+    check(bool(torch.isfinite(lg).all()), f"{tag} sync check: non-finite")
+    print(f"{tag} decode step: {len(calls)} moe_ffn calls (T = 1) under "
           f"set_sync_debug_mode('error'), no host read", flush=True)
     return {"moe_ffn_calls": len(calls), "sync_free": True}
 
@@ -5294,16 +5361,25 @@ def write_moe_gguf(path: str, fmt: str, arch: str, hidden: int, inter: int,
     w.write()
 
 
-def moe_real_phase(torch, counters, card: str, tmp: str) -> dict:
+def moe_real_phase(torch, counters, card: str, tmp: str,
+                   with_ep: bool = False) -> dict:
     """The small MoE files (MOE_FILES) through the CLI and Engine on the card
     against the CPU, as the real phase holds repolm512 (greedy tokens,
-    teacher-forced logits within max(1e-2, 2 r), layer by layer); the Q8_0
-    file also served at B = 4 as the serve phase serves repolm512."""
+    teacher-forced logits within max(1e-2, 2 r), layer by layer), with_ep
+    also through the CLI's --ep 2 and EPEngine on both (mesh_cli_vs_cpu);
+    the Q8_0 file also served at B = 4 as the serve phase serves
+    repolm512."""
+    from ntransformer_tpu_torch.inference.engine import EPEngine
     out = {}
     for tag, fmt, arch, hidden, inter, kernels in MOE_FILES:
         path = os.path.join(tmp, f"{tag}.gguf")
         write_moe_gguf(path, fmt, arch, hidden, inter, seed=len(out))
         out[tag] = real_model_phase(torch, counters, card, path, kernels)
+        if with_ep:
+            out[tag]["ep_cli"] = mesh_cli_vs_cpu(
+                torch, counters, path, ["--ep", "2"],
+                lambda dev, p=path: EPEngine.load(p, ep=2, device=dev,
+                                                  fuse=True), kernels)
     out["serve_moe_q8_0"] = real_serve_phase(
         torch, counters, card, os.path.join(tmp, "moe_q8_0.gguf"),
         SERVE_KERNELS)
@@ -5504,22 +5580,32 @@ def moe_tiered_phase(torch, counters, card: str, pre: dict) -> dict:
     return out
 
 
-def moe_phase(torch, counters, timer, card: str, pre: dict
-              ) -> tuple[dict, dict]:
-    """Phase moe: the select rows, the synthetic Mixtral-8x7B (this slice's
-    main path: Engine.benchmark and BatchServer with the bench-style steps;
-    their launch counts are the kernels line's moe_launches), its decode
-    held to the plain path and free of host reads, the small MoE files
-    against the CPU, and tiered MoE at Mixtral widths (pre: start_prep's
-    GGUF and pack for it). Returns (the select rows by kernel,
-    launches)."""
+def moe_phase(torch, counters, timer, card: str, pre: dict,
+              with_ep: bool = True) -> tuple[dict, dict, dict]:
+    """Phase moe: the select rows (also at a shard's E/ep experts), the
+    synthetic Mixtral-8x7B (this slice's main path: Engine.benchmark and
+    BatchServer with the bench-style steps; their launch counts are the
+    kernels line's moe_launches), its decode held to the plain path and
+    free of host reads, then (with_ep, phase ep) the same model through
+    EPEngine (ep_phase; the model's last use, as it is split in place),
+    the small MoE files against the CPU (with --ep 2 under phase ep), and
+    tiered MoE at Mixtral widths (pre: start_prep's GGUF and pack for it).
+    Returns (the select rows by kernel, launches, EP launches)."""
     import tempfile
+    from ntransformer_tpu_torch.models import llama
     g = torch.Generator(device="cuda")
     g.manual_seed(41)
     rows = {}
     for fmt, label, k, n in SELECT_ROWS:
         name, row = select_row(torch, timer, g, fmt, label, k, n)
         rows.setdefault(name, []).append(row)
+    if with_ep:
+        # a shard's stacked planes at EP_SHARDS: E/ep experts
+        for fmt, label, k, n in SELECT_ROWS[:2]:
+            name, row = select_row(
+                torch, timer, g, fmt, f"{label} ep={EP_SHARDS} shard", k, n,
+                n_exp=MIXTRAL["experts"] // EP_SHARDS, e=1)
+            rows.setdefault(name, []).append(row)
     synth = build_mixtral(torch)
     kernels = MOE_Q4KM + ("flash_attention",)
     summary, engine = full_width_phase(torch, counters, card, synth, kernels)
@@ -5528,17 +5614,552 @@ def moe_phase(torch, counters, timer, card: str, pre: dict
                                                   "kv_update"))
     print(json.dumps({"full_width_mixtral_serving": serve}), flush=True)
     on_off = moe_decode_on_off(torch, counters, synth)
-    sync = moe_sync_check(torch, synth)
+    sync = moe_sync_check(torch, synth[1], lambda kv, t, p: llama.forward(
+        synth[1], synth[2], kv, t, p)[0])
     print(json.dumps({"mixtral_q4_k_m": {
         "engine": summary, "decode_on_off": on_off, "sync": sync}}),
         flush=True)
+    ep_launches = {}
+    if with_ep:
+        _, ep_launches = ep_phase(torch, counters, card, synth)
     del synth
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        moe_real_phase(torch, counters, card, tmp)
+        moe_real_phase(torch, counters, card, tmp, with_ep)
     moe_tiered_phase(torch, counters, card, pre)
     launches = {k: engine.get(k, 0) + served.get(k, 0) for k in counters}
-    return rows, launches
+    return rows, launches, ep_launches
+
+
+# ------------------------------------- expert, pipeline and CP x TP meshes
+EP_SHARDS = 2     # phase ep: expert shards on cuda:0
+EP_TOKENS = 16    # the EP decode steps held bit for bit, and timed
+PP_CASES = ((2, 2), (4, 2))   # phase pp: (stages, microbatches) on cuda:0
+PP_STEPS = 16
+PP_LENS = [300, 40, 64, 9, 120, 20, 90, 500]   # the B = 8 slots' prompts
+CPTP_MESH = (2, 2)   # phase cptp: (cp, tp) positions on cuda:0
+CPTP_STEPS = 16
+MESH_CARDS = 4       # phase meshcards: one position a card
+
+
+def ep_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
+    """Expert parallelism on phase moe's synthetic Mixtral-8x7B Q4_K_M,
+    EP_SHARDS shards on cuda:0, split in place (EPEngine drops each
+    unsharded expert plane once its shards exist: the one-device model's
+    last use). First the one-device reference on a 128-token prompt: the
+    prefill's logits, the cache after it, EP_TOKENS greedy steps (timed,
+    the tokens kept on the card). Then EPEngine: its prefill within
+    FULL_LOGIT_RTOL of the one-device prefill (the T > 1 loop sums each
+    shard's experts, then the shards, in another order than the loop over
+    all E); EP_TOKENS T = 1 steps on a copy of the reference cache, fed the
+    reference tokens, bit-equal to the one-device steps (k = 2: a shard's
+    term for another shard's expert is an exact zero, and a sum of two
+    terms has one order's bits either way), timed; Engine.benchmark's
+    protocol (prefill 512, EP_TOKENS tokens; the kernels line's ep_launches
+    are read around it); one step's launches by the counters against the
+    profiler's skinny kernels; and moe_sync_check on the EP step."""
+    from ntransformer_tpu_torch.inference.engine import EPEngine
+    from ntransformer_tpu_torch.models import llama
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel.ep import EXPERT_FIELDS, make_ep_mesh
+    cfg, arch, weights, per_token = synth
+    gen = torch.Generator().manual_seed(17)
+    ids = torch.randint(3, arch.vocab_size, (128,), generator=gen).tolist()
+    n = len(ids)
+
+    def decode(w, kv, toks, **fw):
+        """EP_TOKENS steps fed `toks` (or greedy from toks[0]): (logits,
+        tokens, ms a step)."""
+        out, fed, tok = [], [], toks[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(EP_TOKENS):
+            tok = toks[i] if len(toks) > 1 else tok
+            fed.append(tok)
+            lg, kv, _ = llama.forward(arch, w, kv, tok.reshape(1), n + i,
+                                      **fw)
+            out.append(lg)
+            tok = torch.argmax(lg[0])
+        torch.cuda.synchronize()
+        return out, fed, (time.perf_counter() - t0) * 1e3 / EP_TOKENS
+
+    kv = llama.KVCache.create(arch, device="cuda")
+    pre1, kv, _ = llama.forward(arch, weights, kv, ids, 0)
+    kv_pre = kv.clone()
+    ref, toks, one_ms = decode(weights, kv, [torch.argmax(pre1[0])])
+    del kv
+    experts = sum(getattr(weights.layers, f).nbytes for f in EXPERT_FIELDS)
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    t0 = time.perf_counter()
+    eng = EPEngine(model, make_ep_mesh(EP_SHARDS, ["cuda:0"] * EP_SHARDS))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    e_local = arch.n_experts // EP_SHARDS
+    for sw in eng.shards:
+        for f in EXPERT_FIELDS:
+            for a in getattr(sw.layers, f).planes.values():
+                check(a.shape[1] == e_local and a.is_contiguous(),
+                      f"EPEngine: an expert plane of shape {tuple(a.shape)}")
+    check(all(not getattr(weights.layers, f).planes for f in EXPERT_FIELDS),
+          "EPEngine kept the unsharded expert planes")
+    del weights, model
+    torch.cuda.empty_cache()
+    fw = {"ep": eng.mesh}
+    kv = eng._make_kv()
+    pre_ep = llama.forward(arch, eng.shards, kv, ids, 0, **fw)[0]
+    pre_rel = rel_err(pre_ep, pre1)
+    check(bool(torch.isfinite(pre_ep).all()), "EPEngine: non-finite logits")
+    check(pre_rel <= FULL_LOGIT_RTOL, f"EPEngine prefill logits differ from "
+          f"the one-device prefill's by {pre_rel} of their range")
+    del kv
+    got, _, ep_ms = decode(eng.shards, kv_pre, toks, **fw)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    print(f"mixtral EP ({EP_SHARDS} shards on cuda:0): prefill max|dlogit|/"
+          f"max|logit| {pre_rel:.3e} (tol {FULL_LOGIT_RTOL}); {sum(equal)}/"
+          f"{EP_TOKENS} T = 1 steps bit-equal to the one-device steps; "
+          f"{ep_ms:.2f} ms a step against {one_ms:.2f}", flush=True)
+    check(all(equal), "EPEngine: a T = 1 step differs from the one-device "
+          "step on the same cache")
+    del ref, got
+    # one step's launches: the counters against the profiler
+    tok = toks[0].reshape(1)
+
+    def one_step():
+        return llama.forward(arch, eng.shards, kv_pre, tok, n, **fw)[0]
+    one_step()
+    torch.cuda.synchronize()
+    reset(counters)
+    one_step()
+    torch.cuda.synchronize()
+    step_launches = {k: v for k, v in read(counters).items() if v}
+    prof = profile_calls(torch, one_step, calls=4)
+    skinny = sum(v["per_call"] for k, v in prof.items()
+                 if "skinny_kernel" in k)
+    print(f"mixtral EP decode step: launches {step_launches}; the "
+          f"profiler's skinny kernels a step {skinny}, all kernels "
+          f"{sum(v['per_call'] for v in prof.values())}", flush=True)
+    check(skinny == sum(step_launches.values())
+          and set(step_launches) <= set(MOE_Q4KM),
+          f"mixtral EP decode step: counters {step_launches}, profiler "
+          f"{skinny} skinny kernels")
+    del kv_pre
+    sync = moe_sync_check(torch, arch, lambda kv, t, p: llama.forward(
+        arch, eng.shards, kv, t, p, **fw)[0], tag="mixtral EP")
+    gen = torch.Generator().manual_seed(9)
+    ids512 = torch.randint(0, arch.vocab_size, (512,), generator=gen).tolist()
+    reset(counters)
+    st = eng.benchmark(prompt_ids=ids512, n_tokens=EP_TOKENS)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    check(all(launches[k] > 0 for k in MOE_Q4KM + ("flash_attention",)),
+          f"mixtral EPEngine: a kernel of the path launched zero times: "
+          f"{launches}")
+    # a token reads the k routed experts' bytes on each shard
+    ep_bytes = per_token + experts * arch.n_experts_used * (EP_SHARDS - 1) \
+        // arch.n_experts
+    summary = {"card": card, "shards": EP_SHARDS, "shard_s": shard_s,
+               "prefill_rel_err": pre_rel, "t1_steps_bit_equal": sum(equal),
+               "forced_ms_per_token": ep_ms,
+               "one_device_ms_per_token": one_ms,
+               "prefill_tokens": st.prefill_tokens,
+               "prefill_ms": st.prefill_ms,
+               "decode_ms_per_token": st.decode_ms / st.decode_tokens,
+               "bytes_per_token": ep_bytes,
+               "one_device_bytes_per_token": per_token,
+               "bound_ms_per_token": ep_bytes / HBM_BYTES_PER_S * 1e3,
+               "step_launches": step_launches, "launches": launches,
+               "sync": sync}
+    print(json.dumps({"ep_mixtral": summary}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def mesh_cli_vs_cpu(torch, counters, path: str, flags: list, make,
+                    kernels) -> dict:
+    """A sharded mode on a small model, as the real phase holds the
+    resident one: the CLI with `flags` and --device cuda:0 (every kernel of
+    `kernels` launched; its text equal to the card engine's generate, the
+    same mesh, kernels and sums), and the card engine make("cuda:0")
+    against the CPU engine make("cpu"): greedy tokens counted, 32 steps
+    teacher-forced on the CPU's tokens, each step within max(1e-2, 2 r,
+    2 m) of the largest logit (r: the card's plain path against the CPU; m,
+    for a decode step, the card's kernel prefill with plain decode steps)."""
+    import contextlib
+    import io
+    from ntransformer_tpu_torch import cli
+    from ntransformer_tpu_torch.inference.engine import GenerateConfig
+    from ntransformer_tpu_torch.ops import linear
+    tag = f"{os.path.basename(path)} {' '.join(flags)}"
+    buf = io.StringIO()
+    reset(counters)
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-m", path, "-p", PROMPT, "-n", "32", "-t", "0",
+                       "--repeat-penalty", "1.0", "--device", "cuda:0"]
+                      + flags)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    check(rc == 0, f"cli {tag}: exit code {rc}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"cli {tag} launched {launches}")
+    card_eng, cpu_eng = make("cuda:0"), make("cpu")
+    want, _ = card_eng.generate(PROMPT, GenerateConfig(
+        max_tokens=32, temperature=0.0, repeat_penalty=1.0))
+    text = buf.getvalue().rstrip("\n")
+    check(text == want, f"cli {tag} wrote {text!r}, the engine {want!r}")
+    ids = card_eng._encode(PROMPT)
+    cpu_toks, cpu_logits = greedy_pass(cpu_eng, torch, ids, 32)
+    card_toks, _ = greedy_pass(card_eng, torch, ids, 32)
+    _, forced = greedy_pass(card_eng, torch, ids, 32, forced=cpu_toks)
+    _, mixed = greedy_pass(card_eng, torch, ids, 32, forced=cpu_toks,
+                           plain_decode=True)
+    linear.KERNEL_MODE = "off"
+    try:
+        _, plain = greedy_pass(card_eng, torch, ids, 32, forced=cpu_toks)
+    finally:
+        linear.KERNEL_MODE = "auto"
+    kern = [rel_err(a, b) for a, b in zip(forced, cpu_logits)]
+    pl = [rel_err(a, b) for a, b in zip(plain, cpu_logits)]
+    mx = [rel_err(a, b) for a, b in zip(mixed, cpu_logits)]
+    limits = [max(REAL_LOGIT_RTOL, 2 * r, 2 * m * (i > 0))
+              for i, (r, m) in enumerate(zip(pl, mx))]
+    agree = sum(a == b for a, b in zip(card_toks, cpu_toks))
+    print(f"{tag}: card vs CPU {agree}/32 greedy tokens agree; teacher-forced "
+          f"max|dlogit|/max|logit| per step {[round(r, 4) for r in kern]}; "
+          f"card plain vs CPU {[round(r, 4) for r in pl]}", flush=True)
+    for a in forced:
+        check(bool(torch.isfinite(a).all()), f"{tag}: non-finite logits")
+    for i, (r, lim) in enumerate(zip(kern, limits)):
+        check(r <= lim, f"{tag} step {i}: teacher-forced logits differ from "
+              f"the CPU's by {r} of their range (> {lim})")
+    out = {"cli_text": text, "tokens_agree": agree,
+           "logit_rel_err_steps": kern, "plain_rel_err_steps": pl,
+           "launches": launches}
+    print(json.dumps({f"cli {tag}": out}), flush=True)
+    return out
+
+
+def pp_prefilled(torch, model, quant: bool):
+    """The B = 8 slots' PP_LENS prompts, each prefilled by the Engine into
+    one [L, 8, ...] cache: (cache, the first greedy tokens on the card)."""
+    from ntransformer_tpu_torch.inference.engine import Engine
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    arch = model.arch
+    eng = Engine(model, kv_quant=quant)
+    gen = torch.Generator().manual_seed(23)
+    bkv = BatchedKV.create(arch, len(PP_LENS), quant, device="cuda")
+    first = []
+    for b, n in enumerate(PP_LENS):
+        ids = torch.randint(3, arch.vocab_size, (n,), generator=gen).tolist()
+        lg, kv, _ = eng._prefill(eng._make_kv(), ids)
+        bkv.insert(b, kv)
+        first.append(torch.argmax(lg[0]))
+        del kv
+    return bkv, torch.stack(first)
+
+
+def pp_fill(state, bkv) -> None:
+    """Each (stage, microbatch) cache of a PP state from one [L, B, ...]
+    cache: the stage's layers, the microbatch's slots."""
+    n_l = state.arch.n_layers
+    per = state.kv[0][0].k.shape[1]
+    for s, row in enumerate(state.kv):
+        for m, c in enumerate(row):
+            for dst, src in zip(c.caches, bkv.caches):
+                dst.copy_(src[s * n_l:(s + 1) * n_l, m * per:(m + 1) * per])
+
+
+def pp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
+    """Pipeline parallelism on the synthetic 8B Q8_0 of `full` (the stages
+    on cuda:0: each stage's layers a free view of the stacked planes), B =
+    8 slots prefilled with PP_LENS prompts, bf16 and int8 caches: the
+    one-device B = 8 step's PP_STEPS greedy tokens (its ms and kernels a
+    step), then for each (stages, microbatches) of PP_CASES PP_STEPS steps
+    of pp_decode_step fed those tokens (ms and kernels a step; the kernels
+    line's pp_launches are the bf16 runs'), each microbatch's logits and
+    cache bit-equal to the unsharded step over its slots alone (a cache of
+    B/M slots: the same kernels and plans), the launches equal to those
+    M unsharded microbatch steps' (one head a microbatch: M a step) but
+    for the stacked append, one a stage, and the head's calls counted."""
+    from ntransformer_tpu_torch.models.batched import (BatchedKV,
+                                                       batched_decode_step)
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel import pp
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    b_n = len(PP_LENS)
+    pos0 = torch.tensor(PP_LENS, device="cuda")
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    summary = {"card": card, "B": b_n, "lens": PP_LENS, "cases": {}}
+    pp_launches = {}
+    for quant in (False, True):
+        cache = "int8" if quant else "bf16"
+        bkv, tok = pp_prefilled(torch, model, quant)
+        c = BatchedKV(*(None if t is None else t.clone()
+                        for t in (bkv.k, bkv.v, bkv.ks, bkv.vs)))
+        toks = []
+        torch.cuda.synchronize()
+        reset(counters)
+        t0 = time.perf_counter()
+        for i in range(PP_STEPS):
+            toks.append(tok)
+            lg, c = batched_decode_step(arch, weights, c, tok, pos0 + i, act)
+            tok = torch.argmax(lg, -1)
+        torch.cuda.synchronize()
+        one = {"ms_per_step": (time.perf_counter() - t0) * 1e3 / PP_STEPS,
+               "kernels_per_step": sum(read(counters).values()) / PP_STEPS}
+        del c
+        summary["cases"][f"one_device {cache}"] = one
+        for n_st, n_mb in PP_CASES:
+            tag = f"8b PP ({n_st} stages, {n_mb} microbatches, {cache})"
+            per = b_n // n_mb
+            mesh = pp.make_pp_mesh(n_st, ["cuda:0"] * n_st)
+            state = pp.shard_pp_state(mesh, arch, weights, b_n, n_mb, quant)
+            n_l = state.arch.n_layers
+            views = all(
+                st.layers.wqkv.planes["qs"].data_ptr()
+                == weights.layers.wqkv.planes["qs"][s * n_l].data_ptr()
+                for s, st in enumerate(state.stages))
+            check(views, f"{tag}: a stage's layers are not views of the "
+                  "stacked planes")
+            pp_fill(state, bkv)
+            alone = [BatchedKV(*(None if t is None else
+                                 t[:, m * per:(m + 1) * per].contiguous()
+                                 for t in (bkv.k, bkv.v, bkv.ks, bkv.vs)))
+                     for m in range(n_mb)]
+            ref = []
+            torch.cuda.synchronize()
+            reset(counters)
+            for i in range(PP_STEPS):
+                row = []
+                for m in range(n_mb):
+                    sl = slice(m * per, (m + 1) * per)
+                    lg, alone[m] = batched_decode_step(
+                        arch, weights, alone[m], toks[i][sl],
+                        (pos0 + i)[sl], act[sl])
+                    row.append(lg)
+                ref.append(torch.cat(row))
+            torch.cuda.synchronize()
+            alone_launches = read(counters)
+            heads, head = [], pp._head
+            pp._head = lambda *a: heads.append(1) or head(*a)
+            try:
+                outs = []
+                torch.cuda.synchronize()
+                reset(counters)
+                t0 = time.perf_counter()
+                for i in range(PP_STEPS):
+                    lg, state = pp.pp_decode_step(mesh, arch, state, toks[i],
+                                                  pos0 + i, act, n_mb)
+                    outs.append(lg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                pp._head = head
+            launches = read(counters)
+            equal = all(bool(torch.equal(a, b)) for a, b in zip(outs, ref))
+            cache_equal = all(
+                bool(torch.equal(d, a[s * n_l:(s + 1) * n_l]))
+                for s in range(n_st) for m in range(n_mb)
+                for d, a in zip(state.kv[s][m].caches, alone[m].caches))
+            cell = {"ms_per_step": wall * 1e3 / PP_STEPS,
+                    "kernels_per_step": sum(launches.values()) / PP_STEPS,
+                    "head_calls_per_step": len(heads) / PP_STEPS,
+                    "launches": launches, "logits_bit_equal": equal,
+                    "caches_bit_equal": cache_equal}
+            summary["cases"][tag] = cell
+            print(f"{tag}: {cell['ms_per_step']:.2f} ms and "
+                  f"{cell['kernels_per_step']:.0f} kernels a step (one-device"
+                  f" B = {b_n}: {one['ms_per_step']:.2f} ms, "
+                  f"{one['kernels_per_step']:.0f}); head {len(heads)} calls "
+                  f"in {PP_STEPS} steps; logits and caches bit-equal to each "
+                  f"microbatch's slots alone: {equal}, {cache_equal}",
+                  flush=True)
+            check(equal and cache_equal, f"{tag}: a microbatch's logits or "
+                  "cache differ from the unsharded step on its slots alone")
+            check(len(heads) == n_mb * PP_STEPS,
+                  f"{tag}: the head ran {len(heads)} times in {PP_STEPS} "
+                  f"steps; want {n_mb} a step")
+            # the same kernels as the microbatches' unsharded steps, but
+            # the cache write: one stacked append a stage, not a step
+            want = dict(alone_launches, kv_update=alone_launches["kv_update"]
+                        * n_st)
+            check(launches == want, f"{tag}: launches {launches}; the "
+                  f"microbatches' unsharded steps {alone_launches}, with "
+                  f"{n_st} appends a microbatch")
+            check(all(launches[k] > 0 for k in ("q8_0_matmul",
+                                                "batched_attention",
+                                                "kv_update")),
+                  f"{tag}: launched {launches}")
+            if not quant:
+                for k, v in launches.items():
+                    pp_launches[k] = pp_launches.get(k, 0) + v
+            del state, alone, ref, outs
+        del bkv
+        torch.cuda.empty_cache()
+    print(json.dumps({"pp_8b": summary}), flush=True)
+    return summary, pp_launches
+
+
+def cptp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
+    """CP x TP on the synthetic 8B Q8_0 of `full`: CPEngine over the
+    CPTP_MESH (cp, tp) mesh on cuda:0 with the CP phase's ctx (CP_CTX) and
+    prompt (CP_PROMPT tokens): the weights split over tp, the cache over
+    both axes. Engine.benchmark's protocol (the kernels line's
+    cptp_launches are read around it: the Q8_0 products at the TP shard
+    shapes and the partials kernel at Hq/tp heads over S/cp keys, no
+    resident flash) beside the resident Engine on the same weights, then
+    CPTP_STEPS steps teacher-forced on the resident's greedy tokens by
+    tp_forced's rule; last, repolm512 through the CLI's --cp 2 --tp 2
+    against the CPU (mesh_cli_vs_cpu)."""
+    import dataclasses
+    from ntransformer_tpu_torch.inference.engine import CPEngine, Engine
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.ops.cuda import attention as ca
+    from ntransformer_tpu_torch.ops.layers import rope_table
+    from ntransformer_tpu_torch.parallel.cp import make_cp_tp_mesh
+    cfg, arch, weights, _ = synth
+    n_cp, n_tp = CPTP_MESH
+    arch = dataclasses.replace(arch, max_seq_len=CP_CTX)
+    cos, sin = rope_table(CP_CTX, arch.head_dim, arch.rope_theta,
+                          device="cuda")
+    weights = dataclasses.replace(weights, rope_cos=cos, rope_sin=sin)
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    t0 = time.perf_counter()
+    eng = CPEngine(model, make_cp_tp_mesh(n_cp, n_tp,
+                                          ["cuda:0"] * (n_cp * n_tp)))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    lw = eng.shards[0].layers
+    check((lw.wqkv.n, lw.w_down.k) == (6144 // n_tp, 14336 // n_tp),
+          f"8b CP x TP: unexpected shard shapes {lw.wqkv.n}, {lw.w_down.k}")
+    grid = eng._make_kv()
+    check(tuple(grid[0][0].k.shape) == (arch.n_layers, 8 // n_tp,
+                                        CP_CTX // n_cp, 128),
+          f"8b CP x TP: a cache slice of {tuple(grid[0][0].k.shape)}")
+    del grid
+    res = Engine(model)
+    ids = torch.randint(0, arch.vocab_size, (CP_PROMPT,),
+                        generator=torch.Generator().manual_seed(46)).tolist()
+    reset(counters)
+    st = eng.benchmark(prompt_ids=ids, n_tokens=CPTP_STEPS)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    print(f"8b CP x TP {CPTP_MESH} path launches {launches}", flush=True)
+    check(launches[ca.PARTIALS_NAME] > 0 and launches["q8_0_matmul"] > 0,
+          f"8b CP x TP: a kernel of the path launched zero times: "
+          f"{launches}")
+    check(launches[ca.NAME] == 0,
+          f"8b CP x TP: the resident flash kernel ran: {launches}")
+    st_res = res.benchmark(prompt_ids=ids, n_tokens=CPTP_STEPS)
+    forced = tp_forced(torch, eng, res, ids, CPTP_STEPS,
+                       tag=f"8b CPEngine ({n_cp} x {n_tp}")
+    summary = {"card": card, "mesh": CPTP_MESH, "ctx": CP_CTX,
+               "prompt_tokens": CP_PROMPT, "shard_s": shard_s,
+               "launches": launches,
+               "forced": {k: v for k, v in forced.items()
+                          if k != "resident_tokens"}}
+    for tag, s in (("cptp", st), ("resident", st_res)):
+        summary[f"{tag}_prefill_ms"] = s.prefill_ms
+        summary[f"{tag}_prefill_tok_s"] = s.prefill_tps
+        summary[f"{tag}_decode_ms_per_token"] = s.decode_ms / s.decode_tokens
+    print(json.dumps({"cptp_8b": summary}), flush=True)
+    del eng, res
+    torch.cuda.empty_cache()
+    summary["cli"] = mesh_cli_vs_cpu(
+        torch, counters, REPOLM, ["--cp", "2", "--tp", "2"],
+        lambda dev: CPEngine.load(REPOLM, cp=2, tp=2, device=dev),
+        ("q8_0_matmul", ca.PARTIALS_NAME))
+    return summary, launches
+
+
+def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
+    """One position a card, on a host with MESH_CARDS cards or more (on
+    fewer it says so and returns None), against the same mesh on cuda:0:
+    a small MoE GGUF through EPEngine.load(ep=4) (one expert shard a card;
+    32 greedy steps), the synthetic 8B Q8_0 through pp_decode_step at (4
+    stages, 2 microbatches) (one stage a card; PP_STEPS steps fed the same
+    tokens from the same prefilled cache) and repolm512 through
+    CPEngine.load(cp=2, tp=2) (one (cp, tp) position a card; 32 greedy
+    steps). Every kernel launches on its tensors' card, the cross-card
+    copies are exact and the sums run in shard order on cuda:0, so tokens,
+    logits and caches must be bit-equal."""
+    import tempfile
+    from ntransformer_tpu_torch.inference.engine import CPEngine, EPEngine
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel import pp
+    n_cards = torch.cuda.device_count()
+    if n_cards < MESH_CARDS:
+        print(f"meshcards: {n_cards} card(s); one position a card needs "
+              f"{MESH_CARDS}: not run", flush=True)
+        return None
+    want = [torch.device("cuda", i) for i in range(MESH_CARDS)]
+    out = {"card": card, "cards": n_cards}
+
+    def engines_equal(name, cards, one, ids, n=32):
+        reset(counters)
+        toks_c, logits_c = greedy_pass(cards, torch, ids, n)
+        launches = read(counters)
+        toks_o, logits_o = greedy_pass(one, torch, ids, n)
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(logits_c, logits_o))
+        print(f"meshcards {name}: one position a card vs all on cuda:0: "
+              f"tokens {'equal' if toks_c == toks_o else 'differ'}, max "
+              f"|dlogit| {diff}; launches {launches}", flush=True)
+        check(toks_c == toks_o and diff == 0.0, f"meshcards {name}: one "
+              "position a card is not bit-equal to the mesh on cuda:0")
+        return {"launches": launches, "max_abs_dlogit": diff}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe_q8_0.gguf")
+        write_moe_gguf(path, "q8_0", "llama", 128, 192)
+        cards = EPEngine.load(path, ep=MESH_CARDS, fuse=True)
+        check(list(cards.mesh) == want, f"meshcards ep: mesh {cards.mesh}")
+        one = EPEngine.load(path, ep=MESH_CARDS, device="cuda:0", fuse=True)
+        ids = cards._encode(PROMPT)
+        out["ep"] = engines_equal("ep", cards, one, ids)
+        del cards, one
+    cards = CPEngine.load(REPOLM, cp=2, tp=2)
+    check([d for row in cards.mesh for d in row] == want,
+          f"meshcards cptp: mesh {cards.mesh}")
+    one = CPEngine.load(REPOLM, cp=2, tp=2, device="cuda:0")
+    ids = torch.randint(0, cards.arch.vocab_size, (300,),
+                        generator=torch.Generator().manual_seed(47)).tolist()
+    out["cptp"] = engines_equal("cptp", cards, one, ids)
+    del cards, one
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    bkv, tok = pp_prefilled(torch, model, False)
+    pos0 = torch.tensor(PP_LENS, device="cuda")
+    act = torch.ones(len(PP_LENS), dtype=torch.bool, device="cuda")
+    runs = {}
+    for name, mesh in (("cards", pp.make_pp_mesh(MESH_CARDS)),
+                       ("cuda:0", pp.make_pp_mesh(MESH_CARDS,
+                                                  ["cuda:0"] * MESH_CARDS))):
+        state = pp.shard_pp_state(mesh, arch, weights, len(PP_LENS), 2)
+        pp_fill(state, bkv)
+        reset(counters)
+        outs, t = [], tok
+        for i in range(PP_STEPS):
+            lg, state = pp.pp_decode_step(mesh, arch, state, t, pos0 + i,
+                                          act, 2)
+            outs.append(lg.cpu())
+            t = torch.argmax(lg, -1)
+        torch.cuda.synchronize()
+        runs[name] = (outs, pp.gather_kv(state, "cuda:0"), read(counters))
+        del state
+    (oc, kc, lc), (oo, ko, _) = runs["cards"], runs["cuda:0"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(oc, oo))
+    same_kv = all(bool(torch.equal(a, b)) for a, b in zip(kc.caches,
+                                                          ko.caches))
+    print(f"meshcards pp: one stage a card vs all on cuda:0: max |dlogit| "
+          f"{diff}, caches {'equal' if same_kv else 'differ'}; launches "
+          f"{lc}", flush=True)
+    check(diff == 0.0 and same_kv, "meshcards pp: one stage a card is not "
+          "bit-equal to the stages on cuda:0")
+    out["pp"] = {"launches": lc, "max_abs_dlogit": diff}
+    print(json.dumps({"mesh_cards": out}), flush=True)
+    return out
 
 
 # ------------------------------------------------------ user-facing surfaces
@@ -6157,11 +6778,13 @@ def quality_phase(torch, counters, card: str, pre: dict
 
 # ------------------------------------------------------------------- main
 # ------------------------------------------ host set-up beside the build
-# The kernels build for about two minutes, one compiler a source, and most
-# of the host's cores idle once the short sources are done. The phases' set-up
-# that needs no card runs beside it in worker processes: the tiered phases'
+# The phases' set-up that needs no card runs in worker processes beside the
+# build and the phases before the one that takes it: the tiered phases'
 # GGUFs with their packs (the loaders find a pack whose key matches and build
-# none) and phase quality's requants and CPU perplexities.
+# none) and phase quality's requants and CPU perplexities. The build (about
+# a minute, its translation units in parallel) is shorter than the quality
+# set-up, and the phases run on the card while the workers use the host's
+# idle cores.
 
 
 def prep_gguf(kind: str, path: str, n_layers: int, chat: str | None
@@ -6232,21 +6855,29 @@ def start_prep(phases) -> tuple:
     return ex, jobs
 
 
-def finish_prep(ex, jobs) -> dict:
-    """Wait for start_prep's jobs and stop its workers; returns each job's
-    info with its results."""
-    t0 = time.perf_counter()
-    out = {}
-    for name, (fut, info) in jobs.items():
-        info.update(fut.result())
-        out[name] = info
-    ex.shutdown()
-    secs = {k: round(v.get("seconds", v.get("gguf_write_s", 0)
-                           + v.get("pack_write_s", 0)), 1)
-            for k, v in out.items()}
-    print(f"host set-up beside the build (s): {secs}; waited "
-          f"{time.perf_counter() - t0:.1f} s after the build", flush=True)
-    return out
+class Prep:
+    """start_prep's jobs, each waited for where a phase first takes its
+    result (`pre[name]`: the job's info with its results), so the workers
+    run on beside the phases that need none of them; `close` stops the
+    workers."""
+
+    def __init__(self, ex, jobs):
+        self.ex, self.jobs, self.done = ex, jobs, {}
+
+    def __getitem__(self, name: str) -> dict:
+        if name not in self.done:
+            fut, info = self.jobs[name]
+            t0 = time.perf_counter()
+            info.update(fut.result())
+            secs = info.get("seconds", info.get("gguf_write_s", 0)
+                            + info.get("pack_write_s", 0))
+            print(f"host set-up {name}: {secs:.1f} s in its worker; waited "
+                  f"{time.perf_counter() - t0:.1f} s for it", flush=True)
+            self.done[name] = info
+        return self.done[name]
+
+    def close(self) -> None:
+        self.ex.shutdown()
 
 
 class DotCounter:
@@ -6327,6 +6958,8 @@ def main() -> int:
     from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
     from ntransformer_tpu_torch.ops.cuda import w8a8 as cw8
     phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
+    if "ep" in phases and "moe" not in phases:
+        phases.append("moe")  # phase ep runs on phase moe's Mixtral
     prep = start_prep(phases)
     t0 = time.perf_counter()
     mods = (cm, ca, cb, ck, cw8, cw4, cn)
@@ -6337,7 +6970,7 @@ def main() -> int:
                               [m.NAME for m in mods] + [cn.KQ_NAME]))
         host.result()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
-    pre = finish_prep(*prep)
+    pre = Prep(*prep)
     for rep in reports:
         for line in rep.splitlines():
             if "Compiling entry function" in line:
@@ -6378,9 +7011,9 @@ def main() -> int:
         dot_launches = {f"{cb.NAME}[{d}]": got["dot_launches"][d]
                         for d in DOT_FORMS}
     engine_launches, launches, spec_launches, tp_launches = {}, {}, {}, {}
-    dp_launches = {}
-    if {"full", "bfull", "cp", "tp", "tpcards", "dp", "dpcards",
-            "spec"} & set(phases):
+    dp_launches, pp_launches, cptp_launches = {}, {}, {}
+    if {"full", "bfull", "cp", "tp", "tpcards", "dp", "dpcards", "pp",
+            "cptp", "meshcards", "spec"} & set(phases):
         synth = build_synth(torch)
         if "full" in phases:
             clock("full")
@@ -6408,6 +7041,15 @@ def main() -> int:
         if "dpcards" in phases:
             clock("dpcards")
             dp_cards_phase(torch, counters, card, synth)
+        if "pp" in phases:
+            clock("pp")
+            _, pp_launches = pp_phase(torch, counters, card, synth)
+        if "cptp" in phases:
+            clock("cptp")
+            _, cptp_launches = cptp_phase(torch, counters, card, synth)
+        if "meshcards" in phases:
+            clock("meshcards")
+            mesh_cards_phase(torch, counters, card, synth)
         if "spec" in phases:
             clock("spec")
             _, spec_launches = spec_phase(torch, counters, timer, card,
@@ -6473,11 +7115,11 @@ def main() -> int:
         clock("http")
         _, http_launches, chat_launches = http_phase(
             torch, counters, card, hold.pop("model", None))
-    select_rows, moe_launches = {}, {}
+    select_rows, moe_launches, ep_launches = {}, {}, {}
     if "moe" in phases:
         clock("moe")
-        select_rows, moe_launches = moe_phase(torch, counters, timer, card,
-                                              pre["mixtral"])
+        select_rows, moe_launches, ep_launches = moe_phase(
+            torch, counters, timer, card, pre["mixtral"], "ep" in phases)
     if "quality" in phases:
         clock("quality")
         _, ppl_launches = quality_phase(torch, counters, card,
@@ -6531,6 +7173,9 @@ def main() -> int:
             "tp_launches": tp_launches.get(name, 0),
             "dp_launches": dp_launches.get(name, 0),
             "moe_launches": moe_launches.get(name, 0),
+            "ep_launches": ep_launches.get(name, 0),
+            "pp_launches": pp_launches.get(name, 0),
+            "cptp_launches": cptp_launches.get(name, 0),
             "http_launches": http_launches.get(name, 0),
             "chat_launches": chat_launches.get(name, 0),
             "ppl_launches": ppl_launches.get(name, 0),
@@ -6541,6 +7186,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "shape": r["main"],
             "card": card})
+    pre.close()
     clock("end")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Variants of the Q4_K / Q6_K skinny kernel (csrc/kquant_matmul.cu, T <= 32)
-on one card: each a small text change to the source, compiled with nvcc
-into a library of its own under scratch_chip/kquant_variants/ (listed in
-.gitignore) and timed against the others in turns.
+"""Variants of the Q4_K / Q6_K skinny kernel (csrc/kquant_matmul.cuh, the
+code of csrc/kquant_matmul.cu and its parts, T <= 32) on one card: each a
+small text change to the code, compiled with nvcc with every format's entry
+into one translation unit, a library of its own under
+scratch_chip/kquant_variants/ (listed in .gitignore), and timed against
+the others in turns.
 
     python3 experiments/kquant_skinny_variants.py [NAME ...]
 
@@ -32,7 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(HERE, "ntransformer_tpu_torch", "csrc",
-                   "kquant_matmul.cu")
+                   "kquant_matmul.cuh")
 HDR = os.path.join(HERE, "ntransformer_tpu_torch", "csrc", "hopper_tile.cuh")
 OUT = os.path.join(HERE, "scratch_chip", "kquant_variants")
 
@@ -96,11 +98,18 @@ def make(name: str):
         if old not in s:
             return name, None, f"variant text not in the source: {old!r}"
         s = s.replace(old, new)
+    # every format's entry and the error string, from the library's sources
+    for src in build.sources("kquant_matmul"):
+        body = open(src).read()
+        s += "".join(ln + "\n" for ln in body.splitlines()
+                     if ln.startswith("KQUANT_ENTRY("))
+        if "nt_error_string" in body:
+            s += body[body.index('extern "C" const char* nt_error_string'):]
     open(os.path.join(d, "kquant_matmul.cu"), "w").write(s)
     shutil.copy(HDR, d)
     so = os.path.join(d, "kquant_matmul.so")
-    p = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so,
-                        os.path.join(d, "kquant_matmul.cu")],
+    p = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
+                        "-o", so, os.path.join(d, "kquant_matmul.cu")],
                        capture_output=True, text=True)
     if p.returncode:
         return name, None, p.stderr[-3000:]

@@ -69,7 +69,8 @@ def build_all(build) -> dict:
             made.append(sp)
             out = os.path.join(OUT, f"lib{vn}_{src}.so")
             procs[(vn, src)] = (subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, sp],
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", out,
+                 sp],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
                 out)
     libs = {}

@@ -18,16 +18,22 @@ when the file does not fit the card's free memory); tensor-parallel
 generation, --benchmark and --chat, resident or streamed (--tp N: the
 weights and KV heads split over N shards, one on each of the first N
 cards, or all on one device with --device cuda:0 or --device cpu; with
---streaming each shard streams its slice of every layer); and
+--streaming each shard streams its slice of every layer);
 context-parallel generation and --benchmark (--cp N: the cache split along
 the sequence over N shards, one on each of the first N cards, or all on
-the CPU with --device cpu). The multi-GPU modes still to come (--ep, --cp
-with --tp) exit with 2 and name the ROADMAP item that ports them; the JAX
-CLI's refusals (--serve with --http, --cp with --serve/--http,
---draft-model with --cp/--tp/--ep, --ep with --tp/--cp, --serve/--http
-with --draft-model/--self-spec/--streaming, --dp without a server,
---w4a8/--w8a8 with streaming, --cp, --tp or a serving mesh, --tp beyond
-the cards, --kv-int8 with --cp) exit with 2 and the JAX messages.
+the CPU with --device cpu; with --tp M as well, the weights and KV heads
+split over M shards too, on N * M positions, one a card or all on one
+device with --device cuda:0 or --device cpu); and expert-parallel
+generation, --benchmark and --chat of a mixture-of-experts model (--ep N:
+the expert planes split over N shards, one on each of the first N cards,
+or all on one device with --device cuda:0 or --device cpu). The JAX CLI's
+refusals (--serve with --http, --cp with --serve/--http, --draft-model
+with --cp/--tp/--ep, --ep with --tp/--cp or streaming, --serve/--http with
+--draft-model/--self-spec/--streaming, --dp without a server, --w4a8/--w8a8
+with streaming, --cp, --tp, --ep or a serving mesh, --tp beyond the cards,
+--kv-int8 with --cp) exit with 2 and the JAX messages; so does --ep with
+--serve/--http, which the JAX server ignores (the server shards over --dp
+and --tp).
 
 This module is the one place of the port that reads the JAX package's
 environment switches of these modes, with their names, values and defaults,
@@ -48,14 +54,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-# mode → why it is refused (the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "--cp with --tp": "context x tensor parallelism is ROADMAP queue 1 "
-                      "item 14d",
-    "--ep": "expert parallelism is ROADMAP queue 1 item 14c",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -112,12 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "numerics")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
-
-
-def refused_mode(args) -> str | None:
-    """The first requested mode this slice does not run, or None."""
-    asked = {"--cp with --tp": args.cp and args.tp, "--ep": args.ep}
-    return next((mode for mode, on in asked.items() if on), None)
 
 
 def should_stream(path: str, args) -> bool:
@@ -186,12 +178,10 @@ def main(argv=None) -> int:
         log.error("--ep is its own mesh (expert axis); it does not "
                   "compose with --tp/--cp yet")
         return 2
-    mode = refused_mode(args)
-    if mode is not None:
-        log.error(f"{mode} is not ported yet: {_NOT_PORTED[mode]}. The "
-                  "port runs resident, tiered, tensor- and context-parallel "
-                  "generation, --benchmark, --chat, and --serve and --http "
-                  "on one device or over --dp/--tp.")
+    if server_mode and args.ep:
+        log.error(f"{server_mode} shards slots over --dp and weights over "
+                  "--tp; expert parallelism (--ep) is a single-request "
+                  "engine mode and does not compose with the batch server")
         return 2
     if server_mode:
         return serve(args)
@@ -206,13 +196,18 @@ def main(argv=None) -> int:
         return 2
 
     stream = should_stream(args.model, args)
-    if (args.w4a8 or args.w8a8) and (stream or args.tp or args.cp):
+    if (args.w4a8 or args.w8a8) and (stream or args.tp or args.cp
+                                     or args.ep):
         log.error("--w4a8/--w8a8 are resident single-chip modes for now: "
                   "the tiered pack streams SOURCE-dtype planes, and the "
                   "parallel engines shard source planes (convert-then-"
                   "shard lands with a parity test before it is enabled). "
                   "Drop the parallel/streaming flags, or drop the "
                   "requant flag.")
+        return 2
+    if args.ep and stream:
+        log.error("--ep is a resident mode; it does not compose with "
+                  "tiered streaming")
         return 2
     if stream and args.cp:
         log.error("--cp is a resident long-context mode; it does not "
@@ -221,7 +216,7 @@ def main(argv=None) -> int:
                   "streamed-layer sharding)")
         return 2
     mesh = None
-    if args.tp:
+    if args.tp and not args.cp:
         from .parallel.tp import tp_mesh
         try:
             mesh = tp_mesh(args.tp, args.device)
@@ -230,8 +225,8 @@ def main(argv=None) -> int:
             log.error(f"--tp {args.tp}: only {torch.cuda.device_count()} "
                       "devices")
             return 2
-    from .inference.engine import (CPEngine, Engine, GenerateConfig,
-                                   TieredEngine, TPEngine)
+    from .inference.engine import (CPEngine, Engine, EPEngine,
+                                   GenerateConfig, TieredEngine, TPEngine)
     from .models.loader import load_model
     cfg = GenerateConfig(
         max_tokens=args.max_tokens, temperature=args.temperature,
@@ -268,11 +263,24 @@ def main(argv=None) -> int:
             direct_io=os.environ.get("NT_DIRECT_IO", "1") != "0",
             h2d="planes" if os.environ.get("NT_H2D", "blob") == "planes"
             else "blob", mesh=mesh)
-    elif args.cp:
-        log.info(f"loading {args.model} (resident, {args.cp}-way context "
+    elif args.ep:
+        log.info(f"loading {args.model} (resident, {args.ep}-way expert "
                  f"parallel, {args.device})")
         try:
-            engine = CPEngine.load(args.model, cp=args.cp,
+            engine = EPEngine.load(args.model, ep=args.ep,
+                                   max_seq_len=args.ctx_size,
+                                   device=args.device,
+                                   fuse=not args.no_fuse,
+                                   kv_quant=args.kv_int8)
+        except ValueError as e:  # a dense model, E % ep, too few cards
+            log.error(f"--ep {args.ep}: {e}")
+            return 2
+    elif args.cp:
+        ways = (f"{args.cp}x{args.tp} context x tensor parallel"
+                if args.tp else f"{args.cp}-way context parallel")
+        log.info(f"loading {args.model} (resident, {ways}, {args.device})")
+        try:
+            engine = CPEngine.load(args.model, cp=args.cp, tp=args.tp,
                                    max_seq_len=args.ctx_size,
                                    device=args.device,
                                    kv_quant=args.kv_int8)

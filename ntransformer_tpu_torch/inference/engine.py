@@ -27,9 +27,10 @@ self-speculation drafting on the resident prefix and a separate resident
 draft model (over a TP mesh too). `TPEngine` runs them with tensor
 parallelism (parallel/tp.py): the weights and the KV heads split over a
 list of shard devices; `CPEngine` with context parallelism
-(parallel/cp.py): the cache split along the sequence axis. One process
-drives every shard. The expert-parallel engine waits for ROADMAP queue 1
-item 14c.
+(parallel/cp.py): the cache split along the sequence axis, over a (cp, tp)
+mesh also the weights and the KV heads; `EPEngine` with expert parallelism
+(parallel/ep.py): a mixture-of-experts model's expert planes split on
+their expert axis. One process drives every shard.
 """
 from __future__ import annotations
 
@@ -630,36 +631,58 @@ class CPEngine(Engine):
     context is bounded by the shards' memory together; one process drives
     every shard. The weights and every replicated step run on the mesh's
     first device; a shard's cache slice and attention partials on its own.
-    Generation and `benchmark` run the shared loops through the CP forward;
-    layer-skip calibration and the int8 cache are refused, as in the JAX
-    package."""
+    Over a (cp, tp) mesh (parallel/cp.make_cp_tp_mesh) the weights and the
+    KV heads also split over tp, as in TPEngine, and the unsharded weights
+    are dropped once the shards exist. Generation and `benchmark` run the
+    shared loops through the CP forward; layer-skip calibration and the
+    int8 cache are refused, as in the JAX package."""
 
     def __init__(self, model: LoadedModel, mesh):
+        import dataclasses
         from ..parallel.cp import shard_rows
         shard_rows(model.arch, len(mesh))  # refuse an uneven split early
         super().__init__(model)
-        self.mesh = tuple(mesh)
+        self.shards = None
+        if isinstance(mesh[0], (tuple, list)):
+            from ..parallel.tp import shard_weights
+            self.mesh = tuple(tuple(torch.device(d) for d in row)
+                              for row in mesh)
+            self.shards = shard_weights(model.weights, self.mesh[0],
+                                        model.arch)
+            self.model = dataclasses.replace(model, weights=None)
+            self.device = self.mesh[0][0]
+        else:
+            self.mesh = tuple(mesh)
 
     @classmethod
-    def load(cls, path: str, cp: int, *, device="cuda",
-             kv_quant: bool = False, **kw) -> "CPEngine":
-        """Load `path` unfused onto the first device of a cp-way mesh: every
-        shard on the CPU for device="cpu", else one shard on each of the
-        first `cp` cards (another shard list: CPEngine(model,
-        make_cp_mesh(n, devices))); load_model keywords as Engine.load."""
+    def load(cls, path: str, cp: int, *, tp: int | None = None,
+             device="cuda", kv_quant: bool = False, **kw) -> "CPEngine":
+        """Load `path` unfused onto the first device of a cp-way mesh, or
+        with tp > 1 on the host, then sharded over a (cp, tp) mesh: every
+        position on the CPU for device="cpu", on the card for a device with
+        an index ("cuda:0"; without tp, one shard on each of the first `cp`
+        cards as before), else one position on each of the first cp (* tp)
+        cards (another mesh: CPEngine(model, make_cp_mesh(n, devices)) or
+        make_cp_tp_mesh); load_model keywords as Engine.load."""
         if kv_quant:
             # fail at load time, not at the first decode step
             raise NotImplementedError(
                 "--kv-int8 with context parallelism is not supported "
                 "(int8 KV + CP guard, models/llama.py); drop --kv-int8 "
                 "or use --tp, where int8 KV composes")
+        if tp and tp > 1:
+            from ..parallel.cp import cp_tp_mesh
+            return cls(load_model(path, device="cpu", fuse=False, **kw),
+                       cp_tp_mesh(cp, tp, device))
         from ..parallel.cp import make_cp_mesh
         mesh = make_cp_mesh(cp, [device] * cp
                             if torch.device(device).type == "cpu" else None)
         return cls(load_model(path, device=mesh[0], fuse=False, **kw), mesh)
 
     def _make_kv(self):
-        from ..parallel.cp import make_cp_kv
+        from ..parallel.cp import make_cp_kv, make_cp_tp_kv
+        if self.shards is not None:
+            return make_cp_tp_kv(self.arch, self.mesh)
         return make_cp_kv(self.arch, self.mesh)
 
     def _check_step(self, with_cosine: bool):
@@ -668,15 +691,21 @@ class CPEngine(Engine):
                 "CPEngine: no layer-skip calibration or schedule under "
                 "context parallelism")
 
+    def _forward(self, kv, tokens, pos: int, **kw):
+        if self.shards is not None:
+            return forward(self.arch, self.shards, kv, tokens, pos,
+                           cp=self.mesh, tp=self.mesh[0], **kw)
+        return forward(self.arch, self.model.weights, kv, tokens, pos,
+                       cp=self.mesh, **kw)
+
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
                        model=None, with_cosine=False):
         if model is not None:
             raise ValueError("CPEngine: no draft model under context "
                              "parallelism")
         self._check_step(with_cosine)
-        return forward(self.arch, self.model.weights, kv,
-                       torch.from_numpy(padded), off, n_valid=n_valid,
-                       cp=self.mesh)
+        return self._forward(kv, torch.from_numpy(padded), off,
+                             n_valid=n_valid)
 
     def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
                      layer_sel=None):
@@ -687,19 +716,82 @@ class CPEngine(Engine):
                              "prefix under context parallelism")
         self._check_step(with_cosine)
         tok = torch.as_tensor(token, device=self.device).reshape(1)
-        return forward(self.arch, self.model.weights, kv, tok, pos,
-                       cp=self.mesh)
+        return self._forward(kv, tok, pos)
 
     def _verify(self, kv, tokens, pos: int):
         self._check_step(False)
-        logits, kv, _ = forward(self.arch, self.model.weights, kv, tokens,
-                                pos, all_logits=True, cp=self.mesh)
+        logits, kv, _ = self._forward(kv, tokens, pos, all_logits=True)
         return logits, kv
 
     def generate_self_speculative_fused(self, prompt: str, cfg=None,
                                         callback=None, draft_layers=None):
         """The fused iteration runs the unsharded forward; under CP this
         delegates to the host-driven protocol over the CP forward."""
+        return self.generate_self_speculative(prompt, cfg, callback,
+                                              draft_layers)
+
+
+class EPEngine(Engine):
+    """Resident engine with EXPERT parallelism (parallel/ep.py): a
+    mixture-of-experts model's expert planes split on their expert axis
+    over the mesh's shards, so the bulk of its bytes divides over the
+    shards' memory; the router, attention, the cache and every other step
+    run once on the mesh's first device. Generation, the chat session and
+    `benchmark` run the shared loops through the EP forward; a draft model,
+    a layer prefix and layer-skip calibration are refused, as in the JAX
+    package. The unsharded expert planes are dropped one by one as their
+    shards are made (ep.shard_weights_ep): a model already on the card is
+    split in place."""
+
+    _REFUSAL = "EPEngine: no draft model / cosine calibration under EP"
+
+    def __init__(self, model: LoadedModel, mesh, kv_quant: bool = False):
+        import dataclasses
+        from ..parallel.ep import shard_weights_ep
+        if not model.arch.n_experts:
+            raise ValueError("--ep needs a mixture-of-experts model "
+                             "(expert_count metadata)")
+        super().__init__(model, None, kv_quant=kv_quant)
+        self.mesh = tuple(torch.device(d) for d in mesh)
+        self.shards = shard_weights_ep(model.weights, self.mesh, model.arch)
+        self.model = dataclasses.replace(model, weights=None)
+        self.device = self.mesh[0]
+
+    @classmethod
+    def load(cls, path: str, ep: int, *, device="cuda",
+             kv_quant: bool = False, **kw) -> "EPEngine":
+        """Load `path` on the host, then shard it: device "cuda" puts one
+        shard on each of the first `ep` cards (raises if there are fewer);
+        a device with an index ("cuda:0") or "cpu" puts every shard on it
+        (another shard list: EPEngine(model, make_ep_mesh(n, devices)));
+        load_model keywords as Engine.load."""
+        from ..parallel.ep import ep_mesh
+        return cls(load_model(path, device="cpu", **kw), ep_mesh(ep, device),
+                   kv_quant=kv_quant)
+
+    def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
+                       model=None, with_cosine=False):
+        if model is not None or with_cosine or self.layer_sel is not None:
+            raise ValueError(self._REFUSAL)
+        return forward(self.arch, self.shards, kv, torch.from_numpy(padded),
+                       off, n_valid=n_valid, ep=self.mesh)
+
+    def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
+                     layer_sel=None):
+        if model is not None or with_cosine or layer_sel is not None:
+            raise ValueError(self._REFUSAL)
+        tok = torch.as_tensor(token, device=self.device).reshape(1)
+        return forward(self.arch, self.shards, kv, tok, pos, ep=self.mesh)
+
+    def _verify(self, kv, tokens, pos: int):
+        logits, kv, _ = forward(self.arch, self.shards, kv, tokens, pos,
+                                all_logits=True, ep=self.mesh)
+        return logits, kv
+
+    def generate_self_speculative_fused(self, prompt: str, cfg=None,
+                                        callback=None, draft_layers=None):
+        """The fused iteration runs the unsharded forward; under EP this
+        delegates to the host-driven protocol over the EP forward."""
         return self.generate_self_speculative(prompt, cfg, callback,
                                               draft_layers)
 

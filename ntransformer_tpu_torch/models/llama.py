@@ -13,7 +13,10 @@ framework:
 `forward(..., tp=mesh)` runs tensor parallelism (parallel/tp.py): one
 process drives a list of shards, the replicated work on the first shard's
 device and the shards' partials summed there in shard order
-(tp_layer_step).
+(tp_layer_step); with cp= as well, each TP shard's attention runs as
+context parallelism over its cache slices (parallel/cp.py).
+`forward(..., ep=mesh)` runs expert parallelism (parallel/ep.py): each
+MoE layer's experts shard by shard, everything else once.
 
 Mixture-of-experts layers (mixtral, qwen3moe) run `moe_ffn`: at T = 1 the
 k routed experts go through the T = 1 kernels' device-side select (the
@@ -251,7 +254,7 @@ def expert_ffn(arch: Arch, hf: torch.Tensor, gate: QLinear, up: QLinear,
 
 
 def moe_ffn(arch: Arch, hf: torch.Tensor, lw: LayerWeights,
-            layer: int | None = None) -> torch.Tensor:
+            layer: int | None = None, ep: list | None = None) -> torch.Tensor:
     """Mixture-of-experts FFN (mixtral; qwen3moe). hf [T, H] bf16 (after
     ffn_norm); returns [T, H] f32. layer: the host index of stacked
     [L, E, ...] expert planes (None: planes [E, ...] of one layer).
@@ -264,32 +267,49 @@ def moe_ffn(arch: Arch, hf: torch.Tensor, lw: LayerWeights,
     weight is read to the host. T > 1: the routing weights scattered to a
     [T, E] matrix and out += column e * expert(e) for e = 0..E-1 in f32,
     each expert by host index (the JAX semantics; a token gather would
-    change the plans, and so the bits, with the tokens routed)."""
+    change the plans, and so the bits, with the tokens routed).
+
+    ep: expert parallelism (parallel/ep.py), the shards' LayerWeights, each
+    holding its E/ep experts' planes on its device; the router is read from
+    lw. e_local is read off the planes' shapes. At T = 1 shard s runs
+    selection j as local expert e = id - s * e_local, clamped into its
+    range and weighted 0 where the selection is another shard's (computed
+    on the device, as JAX masks it); at T > 1 its dense loop reads routing
+    columns s * e_local + e. The shards' outputs are summed in shard order
+    on hf's device (JAX's psum)."""
     E, K = arch.n_experts, arch.n_experts_used
     T = hf.shape[0]
     topv, tope = route(arch, hf, lw.ffn_gate_inp, layer)
-
-    gql = _flatten_experts(lw.w_gate_exps)
-    uql = _flatten_experts(lw.w_up_exps)
-    dql = _flatten_experts(lw.w_down_exps)
-    e_local = next(iter(lw.w_gate_exps.planes.values())).shape[-3]
+    shards = [lw] if ep is None else ep
+    e_local = next(iter(shards[0].w_gate_exps.planes.values())).shape[-3]
     base = (layer * e_local) if layer is not None else 0
-
-    def expert(**at):
-        return expert_ffn(arch, hf, gql, uql, dql, **at)
-
-    out = torch.zeros(T, hf.shape[-1], dtype=torch.float32,
-                      device=hf.device)
     if T == 1:
-        ids = tope[0].to(torch.int32) + base                 # on the device
-        for j in range(K):
-            out = out + topv[0, j] * expert(sel=ids[j:j + 1])
+        ids = tope[0].to(torch.int32)                        # on the device
     else:
         cols = torch.zeros(T, E, dtype=torch.float32, device=hf.device)
         cols.scatter_(1, tope, topv)
-        for e in range(e_local):
-            out = out + cols[:, e:e + 1] * expert(layer=base + e)
-    return out
+    parts = []
+    for s, sw in enumerate(shards):
+        gql = _flatten_experts(sw.w_gate_exps)
+        uql = _flatten_experts(sw.w_up_exps)
+        dql = _flatten_experts(sw.w_down_exps)
+        dev = next(iter(gql.planes.values())).device
+        x = hf.to(dev)
+        out = torch.zeros(T, hf.shape[-1], dtype=torch.float32, device=dev)
+        for j in range(K if T == 1 else e_local):
+            if T > 1:
+                w, at = cols[:, s * e_local + j:s * e_local + j + 1], \
+                    dict(layer=base + j)
+            elif ep is None:
+                w, at = topv[0, j], dict(sel=ids[j:j + 1] + base)
+            else:
+                e_loc = ids[j:j + 1] - s * e_local
+                w = torch.where((e_loc[0] >= 0) & (e_loc[0] < e_local),
+                                topv[0, j], 0.0)
+                at = dict(sel=(e_loc.clamp(0, e_local - 1) + base).to(dev))
+            out = out + w.to(dev) * expert_ffn(arch, x, gql, uql, dql, **at)
+        parts.append(out)
+    return _psum(parts, hf.device)
 
 
 def layer_window(arch: Arch, layer: int):
@@ -430,17 +450,18 @@ def quantize_rows(k: torch.Tensor, v: torch.Tensor):
 
 
 def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
-               sin_t, n_valid=None, layer: int = 0, abs_layer=None):
+               sin_t, n_valid=None, layer: int = 0, abs_layer=None,
+               ep: list | None = None):
     """One transformer block. x [T, H] f32; kv_k/kv_v this layer's cache
     views ((codes, scales) tuples for an int8 cache; lists of the shards'
     views under context parallelism); layer / abs_layer as in attn_block;
-    returns x."""
+    ep: the expert-parallel shards' LayerWeights (moe_ffn); returns x."""
     x = attn_block(arch, x, lw, kv_k, kv_v, pos, cos_t, sin_t, n_valid,
                    layer, abs_layer)
     hf = rms_norm(x, _norm_w(arch, lw.ffn_norm, layer),
                   arch.norm_eps).to(torch.bfloat16)
     if arch.n_experts:
-        dn = moe_ffn(arch, hf, lw, layer)
+        dn = moe_ffn(arch, hf, lw, layer, ep)
     else:
         dn = dense_ffn(arch, hf, lw, layer)
     if arch.post_norms:
@@ -609,9 +630,9 @@ def tp_head_logits(arch: Arch, shards: list[ModelWeights], x, n_valid=None,
     return logits
 
 
-def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list[KVCache],
+def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list,
                 tokens, pos: int, layer_sel, n_valid, all_logits: bool,
-                with_cosine: bool, mesh):
+                with_cosine: bool, mesh, cp=None):
     tp = len(mesh)
     if len(shards) != tp or len(kv) != tp:
         raise ValueError(f"{len(shards)} weight and {len(kv)} cache shards "
@@ -620,18 +641,27 @@ def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list[KVCache],
         raise NotImplementedError(
             "MoE x tensor parallelism not supported - shard the experts "
             "instead (parallel/ep.py)")
+    if cp is not None:
+        _check_cp_kv(kv, cp)
+        n_layers = kv[0][0].k.shape[0]
+    else:
+        n_layers = _home(kv).k.shape[0]
     arch_l = arch.local_arch(tp)
     dev = _home(shards).output_norm.device
     tokens = torch.as_tensor(tokens, device=dev).reshape(-1)
     x, ropes = tp_embed_positions(arch, shards, tokens, pos, mesh)
-    indices = (range(_home(kv).k.shape[0]) if layer_sel is None
+    indices = (range(n_layers) if layer_sel is None
                else [int(i) for i in layer_sel])
     lws = [None if w is None else w.layers for w in shards]
     cosines = []
     for li in indices:
-        x2 = tp_layer_step(arch_l, x, lws,
-                           [None if c is None else c.layer(li) for c in kv],
-                           pos, ropes, n_valid, layer=li, row=mesh)
+        if cp is not None:
+            views = [([c.k[li] for c in col], [c.v[li] for c in col])
+                     for col in kv]
+        else:
+            views = [None if c is None else c.layer(li) for c in kv]
+        x2 = tp_layer_step(arch_l, x, lws, views, pos, ropes, n_valid,
+                           layer=li, row=mesh)
         if with_cosine:
             cosines.append(_cosine(x, x2))
         x = x2
@@ -639,41 +669,64 @@ def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list[KVCache],
     return logits, kv, (torch.stack(cosines) if with_cosine else None)
 
 
-@torch.inference_mode()
-def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
-            layer_sel=None, n_valid=None, all_logits: bool = False,
-            with_cosine: bool = False, cp=None, tp=None):
-    """Forward pass over (a subset of) the layer stack.
-
-    tokens [T] int; pos: write offset into the cache. layer_sel: indices of
-    the layers to run, in order (None = all). n_valid: real tokens of a
-    bucketed prefill. The cache is updated in place. cp: a context-parallel
-    mesh (parallel/cp.py); kv is then the list of the shards' bf16 caches
-    (parallel/cp.make_cp_kv), and everything but attention runs on the
-    weights' device. tp: a tensor-parallel mesh (parallel/tp.py); weights
-    and kv are then the lists of the shards' ModelWeights
-    (parallel/tp.shard_weights) and caches (parallel/tp.make_tp_kv), and
-    `arch` the whole model's. Returns (logits [T or 1, V] f32, kv, cosines
-    [len(layers)] f32 or None)."""
-    pos = int(pos)
-    if tp is not None:
-        if cp is not None:
-            raise NotImplementedError(
-                "context x tensor parallelism is not ported yet (ROADMAP "
-                "queue 1 item 14d)")
-        return _forward_tp(arch, weights, kv, tokens, pos, layer_sel,
-                           n_valid, all_logits, with_cosine, tp)
-    dev = weights.output_norm.device
-    tokens = torch.as_tensor(tokens, device=dev).reshape(-1)
-    if cp is not None:
-        if len(kv) != len(cp):
-            raise ValueError(f"{len(kv)} cache shards for a {len(cp)}-way "
-                             "CP mesh")
-        if any(shard.quantized for shard in kv):
+def _check_cp_kv(kv: list, cp) -> None:
+    """A CP cache (kv a list of the shards' caches; under CP x TP a list of
+    such lists, one a TP shard) of as many shards as the mesh, bf16."""
+    n = len(cp)
+    for col in kv:
+        if len(col) != n:
+            raise ValueError(f"{len(col)} cache shards for a {n}-way CP "
+                             "mesh")
+        if any(shard.quantized for shard in col):
             raise NotImplementedError(
                 "int8 KV + context parallelism is not supported (the JAX "
                 "package's global-position write would clamp into the "
                 "sequence-sharded cache)")
+
+
+@torch.inference_mode()
+def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
+            layer_sel=None, n_valid=None, all_logits: bool = False,
+            with_cosine: bool = False, cp=None, tp=None, ep=None):
+    """Forward pass over (a subset of) the layer stack.
+
+    tokens [T] int; pos: write offset into the cache. layer_sel: indices of
+    the layers to run, in order (None = all). n_valid: real tokens of a
+    bucketed prefill. The cache is updated in place. Returns (logits [T or
+    1, V] f32, kv, cosines [len(layers)] f32 or None). The meshes (tuples
+    of torch devices, parallel/):
+
+      cp: context parallelism (parallel/cp.py); kv is the list of the
+          shards' bf16 caches (cp.make_cp_kv), and everything but
+          attention runs on the weights' device;
+      tp: tensor parallelism (parallel/tp.py); weights and kv are the lists
+          of the shards' ModelWeights (tp.shard_weights) and caches
+          (tp.make_tp_kv), and `arch` the whole model's;
+      cp and tp together: the (cp, tp) mesh's rows as cp and its first row,
+          where the weights live, as tp (parallel/cp.py make_cp_tp_mesh);
+          kv is the [tp][cp] grid of cp.make_cp_tp_kv, and each TP shard's
+          attention runs as CP over its column of the grid;
+      ep: expert parallelism (parallel/ep.py); weights is the list of the
+          shards' ModelWeights (ep.shard_weights_ep), the cache one cache
+          on the first device, where everything but the experts runs."""
+    pos = int(pos)
+    if ep is not None and (cp is not None or tp is not None):
+        raise ValueError("--ep is its own mesh (expert axis); it does not "
+                         "compose with --tp/--cp")
+    if tp is not None:
+        return _forward_tp(arch, weights, kv, tokens, pos, layer_sel,
+                           n_valid, all_logits, with_cosine, tp, cp)
+    lws_ep = None
+    if ep is not None:
+        if len(weights) != len(ep):
+            raise ValueError(f"{len(weights)} weight shards for a "
+                             f"{len(ep)}-way EP mesh")
+        lws_ep = [w.layers for w in weights]
+        weights = weights[0]
+    dev = weights.output_norm.device
+    tokens = torch.as_tensor(tokens, device=dev).reshape(-1)
+    if cp is not None:
+        _check_cp_kv([kv], cp)
     x, cos_t, sin_t = embed_positions(arch, weights, tokens, pos)
     n_layers = (kv if cp is None else kv[0]).k.shape[0]
     indices = (range(n_layers) if layer_sel is None
@@ -685,7 +738,7 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
         else:
             kk, vv = [s.k[li] for s in kv], [s.v[li] for s in kv]
         x2 = layer_step(arch, x, weights.layers, kk, vv, pos, cos_t, sin_t,
-                        n_valid, layer=li)
+                        n_valid, layer=li, ep=lws_ep)
         if with_cosine:
             cosines.append(_cosine(x, x2))
         x = x2

@@ -30,11 +30,12 @@ FLOAT_KINDS = (DType.F16, DType.BF16, DType.F32)
 
 
 def not_ported(dtype: DType, what: str = "") -> NotImplementedError:
-    """The error for a quantized dtype whose kernel the port lacks."""
+    """The error for a quantized dtype without a kernel (the JAX package
+    defines Q2_K's layout and has no kernel for it either)."""
     return NotImplementedError(
-        f"{what}{dtype.value} is not ported yet: the port computes the GGUF "
+        f"{what}{dtype.value} has no kernel: the port computes the GGUF "
         "formats Q8_0, Q4_0, Q4_K, Q5_K, Q6_K, the engine-native W4A8 and "
-        "W8A8 formats and float matrices (see ROADMAP.md, queue 2)")
+        "W8A8 formats and float matrices, as the JAX package does")
 
 
 def _rep(a: torch.Tensor, n: int) -> torch.Tensor:

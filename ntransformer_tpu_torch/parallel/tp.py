@@ -69,30 +69,40 @@ _MOE_REFUSAL = ("MoE x tensor parallelism not supported - shard the "
                 "experts instead (parallel/ep.py)")
 
 
-def make_tp_mesh(n: int, devices=None) -> tuple[torch.device, ...]:
-    """The first n of `devices` as a TP mesh; by default the first n CUDA
-    devices (raises without CUDA). Raises if there are fewer (a list given
-    may repeat a device)."""
+def make_mesh_of(kind: str, n: int, devices=None) -> tuple[torch.device, ...]:
+    """The first n of `devices` as a one-axis mesh of `kind` ("TP", "CP",
+    "EP", "PP"); by default the first n CUDA devices (raises without CUDA).
+    Raises if there are fewer (a list given may repeat a device)."""
     if devices is None:
         resolve_device("cuda")
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
     if n < 1 or len(devices) < n:
-        raise ValueError(f"a {n}-way TP mesh needs {n} devices; "
+        raise ValueError(f"a {n}-way {kind} mesh needs {n} devices; "
                          f"{len(devices)} given")
     return tuple(devices[:n])
 
 
-def tp_mesh(n: int, device="cuda") -> tuple[torch.device, ...]:
-    """The mesh the entry points place n shards on: one on each of the
-    first n cards for "cuda" (ValueError if there are fewer; raises without
-    CUDA), every shard on the device for one with an index ("cuda:0") or
-    "cpu"."""
+def make_tp_mesh(n: int, devices=None) -> tuple[torch.device, ...]:
+    """The first n of `devices` as a TP mesh (make_mesh_of)."""
+    return make_mesh_of("TP", n, devices)
+
+
+def entry_mesh(make, n: int, device="cuda"):
+    """The mesh the entry points place n positions on, built by `make(n,
+    devices=None)`: one on each of the first n cards for "cuda"
+    (ValueError if there are fewer; raises without CUDA), every position on
+    the device for one with an index ("cuda:0") or "cpu"."""
     dev = resolve_device(device)
     if dev.type == "cpu" or dev.index is not None:
-        return make_tp_mesh(n, [dev] * n)
-    return make_tp_mesh(n)
+        return make(n, [dev] * n)
+    return make(n)
+
+
+def tp_mesh(n: int, device="cuda") -> tuple[torch.device, ...]:
+    """entry_mesh of a TP mesh."""
+    return entry_mesh(make_tp_mesh, n, device)
 
 
 def local_arch(arch: Arch, tp: int) -> Arch:

@@ -1,9 +1,8 @@
 """Port CLI on the CPU: resident generation (bf16 and --kv-int8 caches),
 --benchmark, --serve, --chat, --http, tiered streaming, speculation
 (--self-spec, --draft-model, --serve --spec-k) and --serve / --http over
---tp / --dp run; every mode the port does not run yet exits with 2 and
-names its ROADMAP item; the refusals the JAX CLI makes of the ported modes
-are the port's too."""
+--tp / --dp, --cp with --tp and --ep run; the refusals the JAX CLI makes
+are the port's too, and --ep under a server is refused."""
 import io
 import json
 import os
@@ -58,28 +57,53 @@ def test_benchmark_on_cpu(capsys):
     assert "decode:  3 tok" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--tp", "2", "--cp", "2"], "14d"), (["--cp", "2", "--tp", "2"], "14d"),
-    (["--ep", "2"], "14c"), (["--dp", "2", "--serve", "p.txt", "--ep", "2"],
-                             "14c"),
+@pytest.fixture(scope="module")
+def moe_gguf(tmp_path_factory):
+    from tools.make_test_gguf import write_model
+    return write_model(str(tmp_path_factory.mktemp("moe") / "moe_q8.gguf"),
+                       "moe", "q8_0", seed=122)
+
+
+@pytest.mark.parametrize("flags,kind", [
+    (["--tp", "2", "--cp", "2"], "dense"), (["--cp", "2", "--tp", "2"],
+                                            "dense"),
+    (["--ep", "2"], "moe"), (["--dp", "2", "--serve", "p.txt", "--ep", "2"],
+                             "moe"),
 ], ids=lambda f: f[0] if isinstance(f, list) else "")
-def test_unported_modes_exit_2_naming_the_roadmap(flags, item, capsys):
-    """--tp runs alone and the sharded server runs over --tp/--dp
-    (test_sharded_serve_*); CP x TP (in either flag order) is item 14d,
-    --ep 14c, also under a --dp server."""
-    assert cli.main(BASE + flags) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP" in err
-    assert f"item {item}" in err
+def test_unported_modes_exit_2_naming_the_roadmap(flags, kind, moe_gguf,
+                                                  tmp_path, capsys):
+    """The multi-GPU modes ported last run: CP x TP (in either flag order)
+    on repolm512 and --ep on a mixture-of-experts model print the JAX
+    CLI's text (its CPU mesh). --ep under a --dp server exits with 2: the
+    JAX server never reads --ep and serves without it, the port says that
+    the server shards over --dp/--tp."""
+    model = MODEL if kind == "dense" else moe_gguf
+    prompts = tmp_path / "p.txt"
+    prompts.write_text("hello\n")
+    flags = [str(prompts) if f == "p.txt" else f for f in flags]
+    args = ["-m", model, "-n", "4", "-p", "def f(x):", "-t", "0"] + flags
+    if "--serve" in flags:
+        assert cli.main(args + ["--device", "cpu"]) == 2
+        err = capsys.readouterr().err
+        assert "does not compose with the batch server" in err
+        assert "not ported" not in err
+        return
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert "decode:  4 tok" in got.err
+    assert jcli.main(args) == 0
+    assert capsys.readouterr().out == got.out
 
 
 @pytest.mark.parametrize("flags,says", [
     (["--tp", "2", "--cp", "2"], "does not compose with the batch server"),
-    (["--dp", "2", "--ep", "2"], "item 14c"),
+    (["--dp", "2", "--ep", "2"], "shards slots over --dp and weights over "
+                                 "--tp; expert parallelism"),
 ], ids=["--tp", "--dp"])
 def test_http_over_multi_gpu_axes_stays_refused(flags, says, capsys):
     """--http over --tp/--dp runs (test_http_over_tp_dp_answers); with
-    --cp it stays refused with the JAX message, with --ep as item 14c."""
+    --cp it stays refused with the JAX message, with --ep because the
+    server shards over --dp/--tp (the JAX server ignores --ep)."""
     assert cli.main(BASE + ["--http", "0"] + flags) == 2
     assert says in capsys.readouterr().err
 

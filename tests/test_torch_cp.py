@@ -310,11 +310,13 @@ def test_cli_cp_refusals_match_jax(tiny, flags, says, capsys):
 
 
 def test_cli_cp_refuses_kv_int8_and_tp(tiny, capsys):
+    """--kv-int8 is refused with --cp, and with --cp --tp as well (CP x TP
+    runs, tests/test_torch_cp_tp.py)."""
     base = ["-m", tiny, "--device", "cpu", "--cp", "2"]
     assert cli.main(base + ["--kv-int8"]) == 2
     assert "--kv-int8 with context parallelism" in capsys.readouterr().err
-    assert cli.main(base + ["--tp", "2"]) == 2
-    assert "item 14" in capsys.readouterr().err
+    assert cli.main(base + ["--tp", "2", "--kv-int8"]) == 2
+    assert "--kv-int8 with context parallelism" in capsys.readouterr().err
 
 
 def test_cli_cp_more_shards_than_cards_raises(tiny, monkeypatch):

@@ -97,7 +97,7 @@ def test_unported_quant_dtypes_raise(dtype):
     """A quantized dtype without planes or a kernel is refused by name (the
     loader dequantizes such a GGUF matrix to bf16 instead)."""
     planes = {"w": torch.zeros(512, 128)}
-    with pytest.raises(NotImplementedError, match="q2_k is not ported yet"):
+    with pytest.raises(NotImplementedError, match="q2_k has no kernel"):
         dequant_planes_torch(planes, PDType(dtype), 512, 128)
 
 

@@ -77,6 +77,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "TPEngine.load('models/repolm512_q8.gguf', tp=2, device='cuda:0')",
     "from ntransformer_tpu_torch.models.tiered import load_model_tiered\n"
     "load_model_tiered('models/repolm512_q8.gguf', mesh=('cuda',) * 2)",
+    "from ntransformer_tpu_torch.inference.engine import EPEngine\n"
+    "EPEngine.load('models/repolm512_q8.gguf', ep=2)",
+    "from ntransformer_tpu_torch.parallel.ep import make_ep_mesh\n"
+    "make_ep_mesh(1)",
+    "from ntransformer_tpu_torch.parallel.pp import make_pp_mesh\n"
+    "make_pp_mesh(1)",
+    "from ntransformer_tpu_torch.parallel.cp import make_cp_tp_mesh\n"
+    "make_cp_tp_mesh(1, 2)",
+    "from ntransformer_tpu_torch.inference.engine import CPEngine\n"
+    "CPEngine.load('models/repolm512_q8.gguf', cp=2, tp=2)",
     "from ntransformer_tpu_torch.tools.perplexity import main\n"
     "main(['-m', 'models/repolm512_q8.gguf', '-f', 'README.md'])",
     "from ntransformer_tpu_torch.tools.quality_gate import run_gate\n"
@@ -113,8 +123,9 @@ def test_cli_http_and_chat_default_to_cuda_and_raise_without_it(flags):
 
 
 @pytest.mark.parametrize("flags", [["--tp", "2"],
-                                   ["--tp", "2", "--streaming"]],
-                         ids=["tp", "tp-streaming"])
+                                   ["--tp", "2", "--streaming"],
+                                   ["--ep", "2"], ["--cp", "2", "--tp", "2"]],
+                         ids=["tp", "tp-streaming", "ep", "cp-tp"])
 def test_cli_tp_defaults_to_cuda_and_raises_without_it(flags):
     r = _run("from ntransformer_tpu_torch.cli import main\n"
              f"main(['-m', 'models/repolm512_q8.gguf', '-n', '2'] + "

@@ -2,8 +2,8 @@
 T = 1 select strategy and the T > 1 dense loop), the loader's stacked
 expert planes, the select's plain twin, Engine, the batched step,
 BatchServer and the CLI, against the JAX package on the same seeded inputs.
-Mirrors tests/test_moe.py case for case, except expert parallelism, which
-the port leaves to ROADMAP item 14.
+Mirrors tests/test_moe.py case for case; expert parallelism is held in
+tests/test_torch_ep.py.
 
 Tolerances. Each layer, fed the JAX package's own input and cache and the
 same weights (the JAX package's, converted with weights_from_numpy), is
@@ -405,6 +405,11 @@ def test_cli_moe_serves(paths, flags, tmp_path, capsys):
 
 
 def test_cli_moe_ep_stays_refused(paths, capsys):
-    assert cli.main(["-m", paths["q8_0"], "--ep", "2", "-p", "x",
-                     "--device", "cpu"]) == 2
-    assert "item 14" in capsys.readouterr().err
+    """--ep 2 runs (tests/test_torch_ep.py holds it in full): the JAX CLI's
+    --ep 2 text."""
+    args = ["-m", paths["q8_0"], "--ep", "2", "-p", "x", "-n", "4", "-t",
+            "0"]
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(args) == 0
+    assert capsys.readouterr().out == got and got.strip()
