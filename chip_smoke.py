@@ -53,7 +53,24 @@ subset of the rest:
      slice's main path: the launch counts in the kernels line are read
      around it), the batched step as the bench drives it (B = 1 bf16, B = 32
      int8, a T = 4 verify window) with profiles, and a 2-layer batched step
-     with the kernels on and off;
+     with the kernels on and off; on the card the server replays captured
+     steps, so its launch counts are read around its warmup (each step
+     key's uncaptured warm-up call and capture) and its run;
+  graphs: the batched steps as CUDA graphs (models/graphs.py; python3
+     chip_smoke.py graphs runs it alone, building the 8B Q4_K_M itself
+     when qfull does not run): for the synthetic 8B Q8_0 (after bfull) and
+     Q4_K_M (inside qfull), the decode step at B = 1 bf16 and B = 32 int8
+     under the 768 rung, 64 chained steps replayed bit-equal to the
+     uncaptured chain (logits, tokens, caches), the wall ms a step of both
+     in turns, the kernels and device ms of a replay beside an uncaptured
+     step's by the profiler (the port's kernels a replay equal to the
+     uncaptured step's launch counters, which replays do not advance); on
+     the Q4_K_M also a K = 3 speculative round at B = 8 through the draft
+     and verify graphs bit-equal to the uncaptured round, and
+     BatchServer(B = 8) over bfull's requests replaying its steps, its
+     texts equal to the same server calling the steps directly; it prints
+     its seconds. Phase moe replays the Mixtral B = 1 and B = 8 steps
+     bit-equal to their uncaptured chains;
   qreal: repolm512 requantized on the host with the port's own quantizer
      and GGUF writer (Q4_K_M, Q4_K_M with a Q6_K attn_v, all-Q5_K,
      all-Q4_0), each through the CLI and Engine as in `real`, and the
@@ -357,8 +374,8 @@ SERVE_KERNELS = ENGINE_KERNELS + ("batched_attention", "kv_update")
 REPOLM = os.path.join(HERE, "models", "repolm512_q8.gguf")
 SERVE_CHUNK = 128  # repolm512's admission chunk in the serve phase
 PHASES = ("kernels", "bkernels", "qkernels", "real", "serve", "full",
-          "bfull", "qreal", "qfull", "wkernels", "wreal", "wfull", "cp",
-          "cpcards", "tp", "tpcards", "dp", "dpcards", "pp", "cptp",
+          "bfull", "graphs", "qreal", "qfull", "wkernels", "wreal", "wfull",
+          "cp", "cpcards", "tp", "tpcards", "dp", "dpcards", "pp", "cptp",
           "meshcards", "spec", "tiered", "moe", "ep", "http", "quality")
 
 PROMPT = ("def rms_norm(x, weight, eps):\n"
@@ -1552,8 +1569,9 @@ def full_batched_phase(torch, counters, card: str, synth,
                        int8_attention_rtol=BATCHED_LOGIT_RTOL["int8"],
                        dot_forms: bool = False) -> tuple:
     """A synthetic Llama-3.1-8B served at full width: BatchServer with 8
-    slots answering 8 requests (launch counts read around it; every kernel
-    of `kernels` launched), then the batched step as the bench drives it
+    slots answering 8 requests (launch counts read around its warmup, which
+    captures the steps it replays, and its run; every kernel of `kernels`
+    launched), then the batched step as the bench drives it
     (B = 1 bf16 with the s_live bucket, B = 32 int8 from mid-context, a
     T = 4 verify window), a profile of the step, and kernels on vs off on a
     2-layer view; with dot_forms, the B = 32 int8 step also with the int8
@@ -1563,6 +1581,7 @@ def full_batched_phase(torch, counters, card: str, synth,
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
     from ntransformer_tpu_torch.models.batched import (BatchedKV,
                                                        batched_verify_step)
+    from ntransformer_tpu_torch.models.graphs import StepGraphs
     from ntransformer_tpu_torch.models.loader import LoadedModel
     cfg, arch, weights, per_token = synth
     tag = cfg.model_name
@@ -1574,11 +1593,18 @@ def full_batched_phase(torch, counters, card: str, synth,
     lens = [700, 130, 64, 9, 300, 20, 90, 1000]
     reqs = [Request(prompt="", max_tokens=16, prompt_ids=torch.randint(
         3, arch.vocab_size, (n,), generator=rng).tolist()) for n in lens]
-    warm = srv.warmup()
+    # the counts are read around warmup and run: on the card the server's
+    # steps launch through the wrappers in warmup (each key's uncaptured
+    # warm-up call and its capture), and run replays them, which the
+    # host-side counters do not see
     reset(counters)
+    warm = srv.warmup()
     stats = srv.run(reqs)
     torch.cuda.synchronize()
     launches = read(counters)
+    if srv._graphs is not None:
+        print(f"{tag} server: {srv._graphs.captures} captured steps, "
+              f"{sum(srv._graphs.replays.values())} replays", flush=True)
     print(f"{tag} server (8 slots, 8 requests of {lens} tokens, warmup "
           f"{warm:.1f} s): {stats.report()}; launches {launches}", flush=True)
     check(all(launches[k] > 0 for k in kernels),
@@ -1599,17 +1625,20 @@ def full_batched_phase(torch, counters, card: str, synth,
 
     def chain(bkv, b_n, n, base, tokens):
         return batched_chain(torch, arch1k, weights, bkv, b_n, n, base,
-                             tokens)
+                             tokens, graphs=graphs)
 
     cells = {"b1_bf16": bench_b1(torch, counters, arch, weights, per_token)}
     bkv = BatchedKV.create(arch1k, 1, device="cuda")
     prof_b1 = profile_batched(torch, arch1k, weights, bkv, 1, 160)
     del bkv
-    # B = 32 int8 from mid-context (bench_b32_int8: delta-timed rounds)
+    # B = 32 int8 from mid-context (bench_b32_int8: delta-timed rounds),
+    # replayed; the launches are read around the warm chain, whose first
+    # step captures the graph
     bkv = BatchedKV.create(arch1k, 32, quant=True, device="cuda")
+    graphs = StepGraphs(arch1k, weights, bkv)
     tok = torch.arange(32, device="cuda") + 3
-    tok = chain(bkv, 32, 24, 512, tok)
     reset(counters)
+    tok = chain(bkv, 32, 24, 512, tok)
     t0 = time.perf_counter()
     tok = chain(bkv, 32, 24, 512 + 32, tok)
     t1 = time.perf_counter()
@@ -1625,10 +1654,12 @@ def full_batched_phase(torch, counters, card: str, synth,
         # the same step with the int8 cache dots (NT_ATTN_DOT=int8), in
         # turns with f32: f32, int8, int8, f32
         times = {"f32": [], "int8": []}
+        graphs.capture([graphs.key("decode", 1, s_live_bucket(512 + 25),
+                                   dot_impl="int8")])
         for dot in ("f32", "int8", "int8", "f32"):
             t0 = time.perf_counter()
             tok = batched_chain(torch, arch1k, weights, bkv, 32, 24, 512,
-                                tok, dot)
+                                tok, dot, graphs=graphs)
             times[dot].append((time.perf_counter() - t0) / 24 * 1e3)
         prof_dot = profile_batched(torch, arch1k, weights, bkv, 32, 700,
                                    dot_impl="int8")
@@ -1638,7 +1669,7 @@ def full_batched_phase(torch, counters, card: str, synth,
                 "f32": prof_b32["batched_flash_device_ms_per_step"],
                 "int8": prof_dot["batched_flash_device_ms_per_step"]},
             "note": "chained 24-step runs (s_live 768) in turns, best of two"}
-    del bkv
+    del bkv, graphs
     # a T = 4 verify window, B = 8 bf16 from mid-context
     bkv = BatchedKV.create(arch1k, 8, device="cuda")
     vt = torch.randint(3, arch.vocab_size, (8, 4), device="cuda")
@@ -1676,17 +1707,24 @@ def s_live_bucket(needed: int):
 
 
 def batched_chain(torch, arch1k, weights, bkv, b_n: int, n: int, base: int,
-                  tokens, dot_impl: str = "f32"):
+                  tokens, dot_impl: str = "f32", graphs=None):
     """n greedy batched decode steps from position `base` with the s_live
-    bucket, as bench.py chains them; ends in a real fence."""
+    bucket, as bench.py chains them: replayed through `graphs` (a
+    models/graphs.StepGraphs over bkv, which captures a key the first time
+    it meets it, so a timed chain follows an untimed one of the same
+    rung), or without it called directly; ends in a real fence."""
     from ntransformer_tpu_torch.models.batched import batched_decode_step
     sl = s_live_bucket(base + n + 1)
     active = torch.ones(b_n, dtype=torch.bool, device="cuda")
     for i in range(n):
         pos = torch.full((b_n,), base + i, dtype=torch.long, device="cuda")
-        logits, bkv = batched_decode_step(arch1k, weights, bkv, tokens, pos,
-                                          active, s_live=sl,
-                                          dot_impl=dot_impl)
+        if graphs is None:
+            logits, bkv = batched_decode_step(arch1k, weights, bkv, tokens,
+                                              pos, active, s_live=sl,
+                                              dot_impl=dot_impl)
+        else:
+            logits = graphs.run(bkv, "decode", tokens, pos, active, sl,
+                                dot_impl=dot_impl)
         tokens = torch.argmax(logits, -1)
     tokens.cpu()  # a real fence
     return tokens
@@ -1694,24 +1732,32 @@ def batched_chain(torch, arch1k, weights, bkv, b_n: int, n: int, base: int,
 
 def bench_b1(torch, counters, arch, weights, per_token: int) -> dict:
     """The B = 1 bf16 batched step as bench.py's resident decode keys time
-    it: S = 1024, chained with the s_live bucket, best of two 64-step
-    runs; launch counts read around the timed runs."""
+    it, replayed as a CUDA graph (models/graphs.py): S = 1024, chained
+    with the s_live bucket, best of two 64-step runs; launch counts read
+    around the untimed warm chain, whose first step captures the graph
+    (its warm-up call and the capture launch through the wrappers; the
+    replays advance no counter)."""
     import dataclasses
     from ntransformer_tpu_torch.models.batched import BatchedKV
+    from ntransformer_tpu_torch.models.graphs import StepGraphs
     arch1k = dataclasses.replace(arch, max_seq_len=1024)
     bkv = BatchedKV.create(arch1k, 1, device="cuda")
+    graphs = StepGraphs(arch1k, weights, bkv)
     tok = torch.full((1,), 3, dtype=torch.long, device="cuda")
-    tok = batched_chain(torch, arch1k, weights, bkv, 1, 8, 8, tok)
     reset(counters)
+    tok = batched_chain(torch, arch1k, weights, bkv, 1, 8, 8, tok,
+                        graphs=graphs)
+    launches = read(counters)
     best = float("inf")
     for i in range(2):
         t0 = time.perf_counter()
         tok = batched_chain(torch, arch1k, weights, bkv, 1, 64, 24 + i * 64,
-                            tok)
+                            tok, graphs=graphs)
         best = min(best, (time.perf_counter() - t0) / 64)
+    check(graphs.captures == 1, f"bench_b1: {graphs.captures} captures")
     return {"ms_per_step": best * 1e3, "tok_s": 1.0 / best,
             "effective_GB_s": per_token / best / 1e9,
-            "launches": read(counters),
+            "launches": launches, "replays": sum(graphs.replays.values()),
             "s_live": s_live_bucket(24 + 128 + 1)}
 
 
@@ -1864,6 +1910,354 @@ def batched_on_off(torch, arch, weights,
         res[mode] = {"logit_rel_err": rel, "parts": parts,
                      "layer0_rows_equal": eq0}
     return res
+
+
+# ---------------------------------------------------------------- graphs
+# phase graphs: the batched steps captured as CUDA graphs (models/graphs.py)
+GRAPH_STEPS = 64     # the chained steps held bit for bit against the
+GRAPH_TURN = 32      # uncaptured chain, and the second timed turn's steps
+GRAPH_BASE = 512     # the chains' first position, under
+GRAPH_RUNG = 768     # the server's s_live rung over a 1024-row cache
+GRAPH_MOE_STEPS = 16  # phase moe: the Mixtral chains' steps
+# profile_calls of a whole step: a trace of ~1,400-1,900 kernels a call
+# takes seconds to read, so fewer calls a trace than a kernel row's
+GRAPH_PROFILE = dict(calls=2, warm=2)
+# the port's own CUDA kernels by name (the profiler's records of them)
+OWN_KERNELS = ("skinny_kernel", "tile_kernel", "split_kernel",
+               "group_kernel", "combine_kernel", "kv_append_kernel",
+               "quant_kernel", "w4_decode_kernel", "w4_pairs_kernel",
+               "flash_fwd_kernel")
+
+
+def random_bkv(torch, arch, b_n: int, quant: bool, seed: int):
+    """A BatchedKV of random rows (int8 codes with scales of ~0.01, or bf16
+    in [0, 1)), as batched_on_off fills its mid-context cache."""
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    kv = BatchedKV.create(arch, b_n, quant=quant, device="cuda")
+    for c in kv.caches:
+        if c.dtype == torch.int8:
+            c.random_(-127, 128, generator=g)
+        else:
+            c.copy_(torch.rand(c.shape, device="cuda", generator=g)
+                    * (0.02 if c.dtype == torch.float32 else 1.0))
+    return kv
+
+
+def clone_bkv(kv):
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    return BatchedKV(*(None if t is None else t.clone()
+                       for t in (kv.k, kv.v, kv.ks, kv.vs)))
+
+
+def graph_chain(torch, step, kv, b_n: int, tokens, base: int, n: int,
+                keep: bool):
+    """n greedy steps chained on the device from position `base` through
+    step(kv, tokens, pos, active) -> logits, ending in a real fence:
+    (last tokens, each step's logits if keep, wall ms a step)."""
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    kept = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        pos = torch.full((b_n,), base + i, dtype=torch.long, device="cuda")
+        logits = step(kv, tokens, pos, act)
+        if keep:
+            kept.append(logits.clone())
+        tokens = torch.argmax(logits, -1)
+    tokens.cpu()
+    return tokens, kept, (time.perf_counter() - t0) / n * 1e3
+
+
+def graph_steps(torch, arch, weights, b_n: int, quant: bool, seed: int):
+    """The decode step at the GRAPH_RUNG s_live rung two ways over twin
+    random caches of a 1024-row arch: (arch1k, uncaptured step, replayed
+    step, uncaptured cache, the StepGraphs' cache, the StepGraphs, capture
+    seconds)."""
+    import dataclasses
+    from ntransformer_tpu_torch.models.batched import batched_decode_step
+    from ntransformer_tpu_torch.models.graphs import StepGraphs
+    arch1k = dataclasses.replace(arch, max_seq_len=1024)
+    kv = random_bkv(torch, arch1k, b_n, quant, seed)
+    ref = clone_bkv(kv)
+    sg = StepGraphs(arch1k, weights, kv)
+    t0 = time.perf_counter()
+    sg.capture([sg.key("decode", 1, GRAPH_RUNG)])
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+
+    def plain(kv_, tok, pos, act):
+        return batched_decode_step(arch1k, weights, kv_, tok, pos, act,
+                                   s_live=GRAPH_RUNG)[0]
+
+    def graph(kv_, tok, pos, act):
+        return sg.run(kv_, "decode", tok, pos, act, GRAPH_RUNG)
+    return arch1k, plain, graph, ref, kv, sg, cap_s
+
+
+def graph_bits(torch, tag: str, plain, graph, ref, kv, b_n: int, n: int):
+    """n chained steps uncaptured on `ref`, then replayed on `kv` from the
+    same tokens: every step's logits, the tokens and the caches bit-equal.
+    Returns (tokens, wall ms a step uncaptured, replayed)."""
+    tok0 = torch.arange(b_n, device="cuda") + 3
+    tu, lu, ms_u = graph_chain(torch, plain, ref, b_n, tok0, GRAPH_BASE, n,
+                               True)
+    tg, lg, ms_g = graph_chain(torch, graph, kv, b_n, tok0, GRAPH_BASE, n,
+                               True)
+    bad = [i for i, (a, b) in enumerate(zip(lu, lg)) if not torch.equal(a, b)]
+    check(not bad and torch.equal(tu, tg),
+          f"{tag}: replayed steps {bad[:8]} of {n} differ from the "
+          "uncaptured chain's logits")
+    check(all(torch.equal(a, b) for a, b in zip(ref.caches, kv.caches)),
+          f"{tag}: the replayed chain's cache differs from the uncaptured "
+          "chain's")
+    check(all(bool(torch.isfinite(x).all()) for x in lu[-1:]),
+          f"{tag}: non-finite logits")
+    return tu, ms_u, ms_g
+
+
+def graph_kernels(torch, counters, tag: str, plain, graph, ref, kv, b_n: int,
+                  tok, pos0: int) -> dict:
+    """One step's launches by the counters (uncaptured) and the kernels
+    and device ms of an uncaptured step and of a replay by the profiler:
+    the replay's own kernels equal the counters' launches, and the two
+    calls run the same number of kernels (copies aside: a replay copies its
+    three inputs in)."""
+    from ntransformer_tpu_torch.ops.cuda import attention as ca
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    pos = torch.full((b_n,), pos0, dtype=torch.long, device="cuda")
+    reset(counters)
+    plain(ref, tok, pos, act)
+    torch.cuda.synchronize()
+    got = read(counters)
+    # the wrapper modules' counts (a cache-dot form's and the partials'
+    # counters count launches a module count holds already)
+    launches = sum(v for k, v in got.items()
+                   if "[" not in k and k != ca.PARTIALS_NAME)
+    out = {"launches_uncaptured_step": launches}
+    for name, fn in (("uncaptured", lambda: plain(ref, tok, pos, act)),
+                     ("replay", lambda: graph(kv, tok, pos, act))):
+        prof = profile_calls(torch, fn, **GRAPH_PROFILE)
+        kern = {k: v for k, v in prof.items()
+                if not k.startswith(("Memcpy", "Memset"))}
+        out[name] = {
+            "device_ms": sum(v["ms"] for v in prof.values()),
+            "kernels": sum(v["per_call"] for v in kern.values()),
+            "own_kernels": sum(v["per_call"] for k, v in kern.items()
+                               if any(m in k for m in OWN_KERNELS)),
+            "copies": sum(v["per_call"] for k, v in prof.items()
+                          if k not in kern),
+            # the port's kernels one by one: [device ms, launches] a call
+            "by_kernel": {k: [v["ms"], v["per_call"]]
+                          for k, v in kern.items()
+                          if any(m in k for m in OWN_KERNELS)}}
+    check(out["replay"]["own_kernels"] == launches,
+          f"{tag}: a replay runs {out['replay']['own_kernels']} of the "
+          f"port's kernels, the uncaptured step launches {launches}")
+    check(out["replay"]["kernels"] == out["uncaptured"]["kernels"],
+          f"{tag}: a replay runs {out['replay']['kernels']} kernels, the "
+          f"uncaptured step {out['uncaptured']['kernels']}")
+    return out
+
+
+def graph_cell(torch, counters, tag: str, arch, weights, b_n: int,
+               quant: bool) -> dict:
+    """Phase graphs' cell: the decode step at B = b_n (int8 cache if
+    quant) from GRAPH_BASE under GRAPH_RUNG, GRAPH_STEPS chained steps
+    replayed bit-equal to the uncaptured chain, wall ms a step of both in
+    turns (uncaptured, replayed, replayed, uncaptured), and the kernels and
+    device ms of a replay beside an uncaptured step's."""
+    t0 = time.perf_counter()
+    arch1k, plain, graph, ref, kv, sg, cap_s = graph_steps(
+        torch, arch, weights, b_n, quant, seed=90 + b_n)
+    tok, ms_u1, ms_g1 = graph_bits(torch, tag, plain, graph, ref, kv, b_n,
+                                   GRAPH_STEPS)
+    base = GRAPH_BASE + GRAPH_STEPS
+    tg, _, ms_g2 = graph_chain(torch, graph, kv, b_n, tok, base, GRAPH_TURN,
+                               False)
+    tu, _, ms_u2 = graph_chain(torch, plain, ref, b_n, tok, base, GRAPH_TURN,
+                               False)
+    check(torch.equal(tu, tg), f"{tag}: the timed turns' tokens differ")
+    t1 = time.perf_counter()
+    prof = graph_kernels(torch, counters, tag, plain, graph, ref, kv, b_n,
+                         tu, base + GRAPH_TURN)
+    cell = {"seconds": {"chains": t1 - t0,
+                        "profiles": time.perf_counter() - t1},
+            "B": b_n, "cache": "int8" if quant else "bf16",
+            "s_live": GRAPH_RUNG, "steps_bit_equal": GRAPH_STEPS,
+            "capture_s": cap_s,
+            "wall_ms_uncaptured": [ms_u1, ms_u2],
+            "wall_ms_replayed": [ms_g1, ms_g2],
+            "ms_uncaptured": (ms_u1 + ms_u2) / 2,
+            "ms_replayed": (ms_g1 + ms_g2) / 2, **prof}
+    cell["replay_wall_over_device"] = (cell["ms_replayed"]
+                                       / prof["replay"]["device_ms"])
+    print(json.dumps({f"graphs_{tag}": cell}), flush=True)
+    del sg, kv, ref
+    return cell
+
+
+def graph_spec_round(torch, tag: str, arch, weights, k: int = 3,
+                     b_n: int = 8, rounds: int = 4) -> dict:
+    """A K = k speculative round at B = b_n (drafts through the first half
+    of the layers, then the T = k + 1 verify window) uncaptured and through
+    the draft and verify graphs, from twin random bf16 caches with the
+    slots at different positions: each round's draft and verify logits and
+    the caches bit-equal; ms a round of both, in turns."""
+    import dataclasses
+    from ntransformer_tpu_torch.models.batched import (batched_decode_step,
+                                                       batched_verify_step)
+    from ntransformer_tpu_torch.models.graphs import StepGraphs
+    arch1k = dataclasses.replace(arch, max_seq_len=1024)
+    draft = arch.n_layers // 2
+    kv = random_bkv(torch, arch1k, b_n, False, 70)
+    ref = clone_bkv(kv)
+    sg = StepGraphs(arch1k, weights, kv)
+    sg.capture([sg.key("draft", 1, GRAPH_RUNG, draft),
+                sg.key("verify", k + 1, GRAPH_RUNG)])
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    base = GRAPH_BASE + 7 * torch.arange(b_n, device="cuda")
+
+    def plain_draft(c, tok, pos):
+        return batched_decode_step(arch1k, weights, c, tok, pos, act,
+                                   n_layers=draft, s_live=GRAPH_RUNG)[0]
+
+    def plain_verify(c, vt, pos):
+        return batched_verify_step(arch1k, weights, c, vt, pos, act,
+                                   s_live=GRAPH_RUNG)[0]
+
+    def graph_draft(c, tok, pos):
+        return sg.run(c, "draft", tok, pos, act, GRAPH_RUNG, n_layers=draft)
+
+    def graph_verify(c, vt, pos):
+        return sg.run(c, "verify", vt, pos, act, GRAPH_RUNG)
+
+    def run(c, dfn, vfn, n: int, keep: bool):
+        tok, seen = torch.arange(b_n, device="cuda") + 3, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(n):
+            pos = base + r * (k + 1)
+            dtok, drafts = tok, []
+            for j in range(k):
+                dl = dfn(c, dtok, pos + j)
+                if keep:
+                    seen.append(dl.clone())
+                dtok = torch.argmax(dl, -1)
+                drafts.append(dtok)
+            vt = torch.cat([tok[:, None], torch.stack(drafts, 1)], 1)
+            vl = vfn(c, vt, pos)
+            if keep:
+                seen.append(vl.clone())
+            tok = torch.argmax(vl[:, -1], -1)
+        tok.cpu()
+        return seen, (time.perf_counter() - t0) / n * 1e3
+    lu, ms_u1 = run(ref, plain_draft, plain_verify, rounds, True)
+    lg, ms_g1 = run(kv, graph_draft, graph_verify, rounds, True)
+    bad = [i for i, (a, b) in enumerate(zip(lu, lg)) if not torch.equal(a, b)]
+    check(not bad and all(torch.equal(a, b)
+                          for a, b in zip(ref.caches, kv.caches)),
+          f"{tag} spec round: replayed draft/verify outputs {bad[:8]} (or "
+          "the caches) differ from the uncaptured round's")
+    _, ms_g2 = run(kv, graph_draft, graph_verify, rounds, False)
+    _, ms_u2 = run(ref, plain_draft, plain_verify, rounds, False)
+    out = {"B": b_n, "k": k, "draft_layers": draft, "rounds_bit_equal":
+           rounds, "ms_round_uncaptured": (ms_u1 + ms_u2) / 2,
+           "ms_round_replayed": (ms_g1 + ms_g2) / 2}
+    print(json.dumps({f"graphs_{tag}_spec_round": out}), flush=True)
+    del sg, kv, ref
+    return out
+
+
+def graph_server(torch, tag: str, synth) -> dict:
+    """The 8B served by BatchServer(B = 8) over bfull's eight requests,
+    replaying its captured steps, and the same server with the steps called
+    directly (the server's device test patched for this comparison only):
+    the same texts; served tok/s of both."""
+    from ntransformer_tpu_torch.inference import serve
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, IdsTokenizer(), None,
+                        torch.device("cuda"))
+    rng = torch.Generator().manual_seed(21)
+    lens = [700, 130, 64, 9, 300, 20, 90, 1000]
+    prompts = [torch.randint(3, arch.vocab_size, (n,),
+                             generator=rng).tolist() for n in lens]
+    out, texts = {}, {}
+    graphed = serve._graphed
+    for name in ("replayed", "uncaptured"):
+        if name == "uncaptured":
+            serve._graphed = lambda device: False
+        try:
+            srv = serve.BatchServer(model, batch_size=8,
+                                    sampler_cfg=SamplerConfig(
+                                        temperature=0.0))
+            reqs = [serve.Request(prompt="", max_tokens=16,
+                                  prompt_ids=list(p)) for p in prompts]
+            warm = srv.warmup()
+            st = srv.run(reqs)
+            torch.cuda.synchronize()
+        finally:
+            serve._graphed = graphed
+        check((srv._graphs is not None) == (name == "replayed"),
+              f"{tag} server ({name}): graphs {srv._graphs}")
+        texts[name] = [r.text for r in reqs]
+        out[name] = {"tok_s": st.tokens_per_s, "wall_s": st.wall_s,
+                     "steps": st.steps, "warmup_s": warm,
+                     "ttft_p50_s": sorted(st.ttft_s)[len(st.ttft_s) // 2]}
+        if srv._graphs is not None:
+            out[name]["graphs"] = srv._graphs.captures
+            out[name]["replays"] = sum(srv._graphs.replays.values())
+        print(f"{tag} server {name}: {st.report()}", flush=True)
+        del srv
+    check(texts["replayed"] == texts["uncaptured"],
+          f"{tag} server: the replaying server's texts differ from the "
+          "uncaptured server's")
+    out["texts_equal"] = True
+    print(json.dumps({f"graphs_{tag}_server": out}), flush=True)
+    return out
+
+
+def graphs_phase(torch, counters, card: str, synth, tag: str,
+                 serve_too: bool = False) -> dict:
+    """Phase graphs on one synthetic 8B: the B = 1 bf16 and B = 32 int8
+    cells (graph_cell); with serve_too the K = 3 spec round at B = 8 and the
+    BatchServer texts (graph_server) too. Prints its seconds."""
+    t0 = time.perf_counter()
+    _, arch, weights, _ = synth
+    out = {"card": card}
+    for b_n, quant in ((1, False), (32, True)):
+        name = f"b{b_n}_{'int8' if quant else 'bf16'}"
+        out[name] = graph_cell(torch, counters, f"{tag}_{name}", arch,
+                               weights, b_n, quant)
+    if serve_too:
+        out["spec_round_b8"] = graph_spec_round(torch, tag, arch, weights)
+        out["server"] = graph_server(torch, tag, synth)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase graphs ({tag}) took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def graph_moe_steps(torch, synth) -> dict:
+    """Phase moe: the Mixtral B = 1 and B = 8 bf16 decode steps replayed
+    bit-equal to their uncaptured chains over GRAPH_MOE_STEPS steps (the
+    T = 1 device select and the T = 8 dense loop over the experts), wall ms
+    a step of both."""
+    _, arch, weights, _ = synth
+    out = {}
+    for b_n in (1, 8):
+        tag = f"mixtral_b{b_n}_bf16"
+        _, plain, graph, ref, kv, sg, cap_s = graph_steps(
+            torch, arch, weights, b_n, False, seed=60 + b_n)
+        _, ms_u, ms_g = graph_bits(torch, tag, plain, graph, ref, kv, b_n,
+                                   GRAPH_MOE_STEPS)
+        out[tag] = {"steps_bit_equal": GRAPH_MOE_STEPS, "capture_s": cap_s,
+                    "ms_uncaptured": ms_u, "ms_replayed": ms_g}
+        del sg, kv, ref
+    print(json.dumps({"graphs_mixtral": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2580,11 +2974,13 @@ def quant_real_phase(torch, counters, card: str, tmp: str) -> dict:
     return out
 
 
-def quant_full_phase(torch, counters, card: str) -> tuple[dict, dict]:
+def quant_full_phase(torch, counters, card: str,
+                     graphs: bool = False) -> tuple[dict, dict]:
     """The synthetic Llama-3.1-8B at full width and depth in the nibble
     formats: Q4_K_M through Engine.benchmark and BatchServer with the
     bench-style batched steps (B = 1, B = 32 int8, verify), profiles and
-    the 2-layer on/off views; then the B = 1 batched step of bench.py's
+    the 2-layer on/off views (with graphs, phase graphs' Q4_K_M part on the
+    same weights); then the B = 1 batched step of bench.py's
     q4_0 and q6_k keys. Returns (summaries, launch counts by path)."""
     q4km = ("q4_k_matmul", "q6_k_matmul")
     summaries, launches = {}, {}
@@ -2598,6 +2994,10 @@ def quant_full_phase(torch, counters, card: str) -> tuple[dict, dict]:
                                    "kv_update"))
     print(json.dumps({"full_width_8b_q4_k_m_serving":
                       summaries["serve_q4_k_m"]}), flush=True)
+    if graphs:
+        print("[phase graphs, q4_k_m]", flush=True)
+        summaries["graphs"] = graphs_phase(torch, counters, card, synth,
+                                           "8b_q4_k_m", serve_too=True)
     del synth
     for dtype, names in (("q4_0", ("q4_0_matmul",)),
                          ("q6_k", ("q6_k_matmul",))):
@@ -4794,8 +5194,9 @@ def spec_serve_8b(torch, counters, synth, card: str) -> tuple[dict, dict]:
                           sampler_cfg=SamplerConfig(temperature=0.0), **spec)
         reqs = [Request(prompt="", max_tokens=16, prompt_ids=list(p))
                 for p in prompts]
-        warm = srv.warmup()
+        # around warmup (the captures) and run (replays), as in bfull
         reset(counters)
+        warm = srv.warmup()
         stats = srv.run(reqs)
         torch.cuda.synchronize()
         got = read(counters)
@@ -5589,7 +5990,9 @@ def moe_phase(torch, counters, timer, card: str, pre: dict,
     free of host reads, then (with_ep, phase ep) the same model through
     EPEngine (ep_phase; the model's last use, as it is split in place),
     the small MoE files against the CPU (with --ep 2 under phase ep), and
-    tiered MoE at Mixtral widths (pre: start_prep's GGUF and pack for it).
+    tiered MoE at Mixtral widths (pre: start_prep's GGUF and pack for
+    it); the B = 1 and B = 8 steps are also replayed as CUDA graphs
+    bit-equal to their uncaptured chains.
     Returns (the select rows by kernel, launches, EP launches)."""
     import tempfile
     from ntransformer_tpu_torch.models import llama
@@ -5613,6 +6016,7 @@ def moe_phase(torch, counters, timer, card: str, pre: dict,
                                        kernels + ("batched_attention",
                                                   "kv_update"))
     print(json.dumps({"full_width_mixtral_serving": serve}), flush=True)
+    graph_moe_steps(torch, synth)
     on_off = moe_decode_on_off(torch, counters, synth)
     sync = moe_sync_check(torch, synth[1], lambda kv, t, p: llama.forward(
         synth[1], synth[2], kv, t, p)[0])
@@ -6336,11 +6740,13 @@ def http_8b(torch, counters, card: str, model=None) -> tuple[dict, dict]:
     ref.run(want_chat)
     del ref
     srv = BatchServer(model, batch_size=HTTP_B, sampler_cfg=greedy)
+    # the counts include the warmup, which captures the steps the HTTP
+    # traffic replays (replays advance no counter)
+    reset(counters)
     out["warmup_s"] = srv.warmup()  # before the serving thread starts
     fe = HttpFrontend(srv, port=0, request_timeout_s=600.0)
     fe.start()
     try:
-        reset(counters)
         st, health = http_call(fe.port, "/health")
         check(st == 200 and health["chat_format"] == "llama3"
               and health["slots"] == HTTP_B, f"http /health: {st} {health}")
@@ -7012,8 +7418,8 @@ def main() -> int:
                         for d in DOT_FORMS}
     engine_launches, launches, spec_launches, tp_launches = {}, {}, {}, {}
     dp_launches, pp_launches, cptp_launches = {}, {}, {}
-    if {"full", "bfull", "cp", "tp", "tpcards", "dp", "dpcards", "pp",
-            "cptp", "meshcards", "spec"} & set(phases):
+    if {"full", "bfull", "graphs", "cp", "tp", "tpcards", "dp", "dpcards",
+            "pp", "cptp", "meshcards", "spec"} & set(phases):
         synth = build_synth(torch)
         if "full" in phases:
             clock("full")
@@ -7024,6 +7430,9 @@ def main() -> int:
             summary, launches = full_batched_phase(torch, counters, card,
                                                    synth, dot_forms=True)
             print(json.dumps({"full_width_8b_serving": summary}), flush=True)
+        if "graphs" in phases:
+            clock("graphs")
+            graphs_phase(torch, counters, card, synth, "8b_q8_0")
         if "cp" in phases:
             clock("cp")
             _, got = cp_path_phase(torch, counters, card, synth)
@@ -7074,8 +7483,15 @@ def main() -> int:
         qlaunch["real_q5_k"] = qr["q5_k"]["cli_launches"]
     if "qfull" in phases:
         clock("qfull")
-        _, got = quant_full_phase(torch, counters, card)
+        _, got = quant_full_phase(torch, counters, card,
+                                  graphs="graphs" in phases)
         qlaunch.update(got)
+    elif "graphs" in phases:
+        clock("graphs q4_k_m")
+        synth = build_synth(torch, "q4_k_m")
+        graphs_phase(torch, counters, card, synth, "8b_q4_k_m",
+                     serve_too=True)
+        del synth
     # the engine-native formats' main paths: the 8B W8A8 server for
     # w8a8_matmul, the 8B W4A8 B = 1 step for w4a8_decode (Engine.benchmark
     # beside it) and the 8B W4A8 Engine.benchmark's prefill for w4a8_matmul

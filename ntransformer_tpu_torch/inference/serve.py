@@ -25,6 +25,13 @@ takes greedy-draft rejection sampling (BatchedSampler.spec_accept). The
 draft tokens stay on the device; a round reads drafts and targets (or the
 accepted tokens) once. On a mesh the draft and verify steps are the
 sharded ones.
+
+On a CUDA device the one-device server replays captured steps
+(models/graphs.py, the JAX server's jitted steps): warmup() captures the
+decode step at full S and at every s_live rung (with spec_k, the draft and
+verify steps too) against the one batched cache the server serves from for
+its life, and each loop iteration copies its inputs in and replays. The CPU
+path and the mesh path are never captured: they call the steps directly.
 """
 from __future__ import annotations
 
@@ -37,10 +44,17 @@ import torch
 
 from ..models.batched import (BatchedKV, batched_decode_step,
                               batched_verify_step)
+from ..models.graphs import StepGraphs
 from ..models.llama import KVCache, forward
 from ..models.loader import LoadedModel
 from .engine import Engine, _bucket
 from .sampler import BatchedSampler, SamplerConfig
+
+
+def _graphed(device) -> bool:
+    """Whether a one-device server on `device` replays captured steps:
+    iff the device is CUDA."""
+    return torch.device(device).type == "cuda"
 
 
 @dataclass
@@ -216,6 +230,10 @@ class BatchServer:
             b for b in ((S * i) // n for i in range(1, n))
             if 256 <= b < S and b % 128 == 0}) if attn_buckets else []
         self.mesh = mesh
+        # the batched cache the loop serves from, made once (_server_kv),
+        # and on a CUDA device the graphs captured against it
+        self._bkv = None
+        self._graphs: StepGraphs | None = None
         if mesh is not None:
             self._init_sharded(mesh, fuse)
 
@@ -261,6 +279,9 @@ class BatchServer:
     def _step(self, bkv, tokens, pos, active, s_live=None):
         if self.mesh is not None:
             return self._sstep(self.grid, bkv, tokens, pos, active)
+        if self._graphs is not None:
+            return self._graphs.run(bkv, "decode", tokens, pos, active,
+                                    s_live, dot_impl=self.dot_impl), bkv
         return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
                                    active, s_live=s_live,
                                    dot_impl=self.dot_impl)
@@ -268,6 +289,10 @@ class BatchServer:
     def _draft(self, bkv, tokens, pos, active, s_live=None):
         if self.mesh is not None:
             return self._sdraft(self.grid, bkv, tokens, pos, active)
+        if self._graphs is not None:
+            return self._graphs.run(bkv, "draft", tokens, pos, active,
+                                    s_live, n_layers=self.spec_draft,
+                                    dot_impl=self.dot_impl), bkv
         return batched_decode_step(self.arch, self.weights, bkv, tokens, pos,
                                    active, n_layers=self.spec_draft,
                                    s_live=s_live, dot_impl=self.dot_impl)
@@ -275,17 +300,44 @@ class BatchServer:
     def _verify(self, bkv, tokens, pos, active, s_live=None):
         if self.mesh is not None:
             return self._sverify(self.grid, bkv, tokens, pos, active)
+        if self._graphs is not None:
+            return self._graphs.run(bkv, "verify", tokens, pos, active,
+                                    s_live, dot_impl=self.dot_impl), bkv
         return batched_verify_step(self.arch, self.weights, bkv, tokens, pos,
                                    active, s_live=s_live,
                                    dot_impl=self.dot_impl)
 
-    def _make_bkv(self):
-        if self.mesh is not None:
-            from ..parallel.dp import make_server_kv
-            return make_server_kv(self.mesh, self.arch, self.B,
-                                  self.kv_quant)
-        return BatchedKV.create(self.arch, self.B, quant=self.kv_quant,
-                                device=self.device)
+    def _server_kv(self):
+        """The batched cache of the server's life (warmup and every run
+        serve from it: an admission's insert overwrites its whole slot),
+        on a mesh one per (dp, tp) position; on a CUDA device without a
+        mesh, the StepGraphs bound to it."""
+        if self._bkv is None:
+            if self.mesh is not None:
+                from ..parallel.dp import make_server_kv
+                self._bkv = make_server_kv(self.mesh, self.arch, self.B,
+                                           self.kv_quant)
+            else:
+                self._bkv = BatchedKV.create(self.arch, self.B,
+                                             quant=self.kv_quant,
+                                             device=self.device)
+                if _graphed(self.device):
+                    self._graphs = StepGraphs(self.arch, self.weights,
+                                              self._bkv)
+        return self._bkv
+
+    def _graph_keys(self) -> list:
+        """The keys warmup captures: the decode step at full S and at
+        every s_live rung, with spec_k the draft and verify steps too."""
+        g, keys = self._graphs, []
+        for sl in [None] + self._attn_ladder:
+            keys.append(g.key("decode", 1, sl, dot_impl=self.dot_impl))
+            if self.spec_k:
+                keys.append(g.key("draft", 1, sl, self.spec_draft,
+                                  dot_impl=self.dot_impl))
+                keys.append(g.key("verify", self.spec_k + 1, sl,
+                                  dot_impl=self.dot_impl))
+        return keys
 
     def _make_kv(self):
         """An admission's cache: one KVCache, or on a mesh one per shard
@@ -368,10 +420,14 @@ class BatchServer:
         can produce (the first-chunk bucket ladder up to admit_chunk, the
         steady chunk and the tail chunk of a context that admit_chunk does
         not divide) and the sampler. On the card this builds the kernels and warms the
-        allocator outside the serve clock. Returns the wall seconds."""
+        allocator outside the serve clock, and on one device it first
+        captures every step key it then runs (the steps below replay).
+        Returns the wall seconds."""
         t0 = time.perf_counter()
         arch = self.arch
-        bkv = self._make_bkv()
+        bkv = self._server_kv()
+        if self._graphs is not None:
+            self._graphs.capture(self._graph_keys())
         zeros = self._vec(np.zeros(self.B, np.int64))
         act = self._vec(np.zeros(self.B, bool), torch.bool)
         for sl in [None] + self._attn_ladder:
@@ -534,7 +590,7 @@ class BatchServer:
         if not getattr(self, "_warm", False):
             self.warmup()
         B = self.B
-        bkv = self._make_bkv()
+        bkv = self._server_kv()
         slot_req: list[Request | None] = [None] * B
         tokens = np.zeros(B, np.int64)
         pos = np.zeros(B, np.int64)

@@ -21,7 +21,9 @@ the same semantics:
 CPU tensors the kernel path runs its wrappers' plain twins. Inactive slots
 keep their cache rows frozen. The cache is written IN PLACE (the JAX
 package donates it); the steps still return it. A Python loop over the
-layers takes the place of `lax.scan`.
+layers takes the place of `lax.scan`; models/graphs.py captures the steps
+as CUDA graphs, the counterpart of the JAX package's `jax.jit` over them,
+which the server replays on the card.
 """
 from __future__ import annotations
 
@@ -299,6 +301,15 @@ def resolve_impl(impl: str | None, kv_append: str | None, batch: int,
 
 
 def _vec(x, device, dtype) -> torch.Tensor:
+    """x as a tensor of `dtype` on `device`. Inside a CUDA graph capture
+    it must already be one (models/graphs.py's static inputs): a host
+    array's copy would be a pageable copy, which a capture refuses, and the
+    graph would keep the first call's values."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing() \
+            and not (isinstance(x, torch.Tensor) and x.device == device
+                     and x.dtype == dtype):
+        raise ValueError(f"a captured step takes tokens, pos and active as "
+                         f"{dtype} tensors on {device}")
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 

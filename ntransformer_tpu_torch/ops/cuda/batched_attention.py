@@ -313,13 +313,32 @@ def _sm_count(device: torch.device) -> int:
 def _scratch(dev: torch.device, stream: int, numel: int) -> torch.Tensor:
     """The split pass's partials (acc, m, l), one f32 buffer per (device,
     stream), grown on demand: the calls on a stream run their split and
-    combine passes in order, so each layer's call reuses it."""
+    combine passes in order, so each layer's call reuses it. It never grows
+    inside a CUDA graph capture: the new buffer would come from the graph's
+    private pool and the old one, which earlier graphs address, would be
+    dropped. A capture is preceded by an uncaptured call of the same shapes
+    on the capture stream, which sizes it (models/graphs.StepGraphs warms
+    every key before it captures the first)."""
     key = (dev.index, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < numel:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"batched flash attention: the scratch of stream {stream} "
+                f"holds {0 if buf is None else buf.numel()} of the {numel} "
+                "floats this call needs and cannot grow inside a CUDA graph "
+                "capture; run the call once uncaptured on the capture stream "
+                "first")
         buf = torch.empty(numel, dtype=torch.float32, device=dev)
         _SCRATCH[key] = buf
     return buf
+
+
+def scratch_buffer(dev: torch.device, stream) -> torch.Tensor | None:
+    """The scratch the calls on `stream` (a torch.cuda.Stream) of card
+    `dev` use now, or None: the graph layer holds it while its graphs
+    address it."""
+    return _SCRATCH.get((dev.index, stream.cuda_stream))
 
 
 def _call(qr, k_cache, v_cache, k_new, v_new, pos, active, *, layer, scale,

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -110,6 +112,15 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                # nvcc and dlopen inside a stream capture: refuse, and name
+                # the library the step reached before it was warmed up
+                raise RuntimeError(
+                    f"kernel library {name} is reached for the first time "
+                    "inside a CUDA graph capture: build and load it with an "
+                    "uncaptured call first (models/graphs.StepGraphs warms "
+                    "every key on its capture stream before capturing)")
             build(name)
             lib = ctypes.CDLL(library_path(name)[1])
             for fn, argtypes in signatures.items():

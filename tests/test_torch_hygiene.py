@@ -328,3 +328,33 @@ def test_quantizers_divide_by_tensors(path, func):
         assert not (isinstance(n.right, ast.Constant)
                     and isinstance(n.right.value, (int, float))), \
             f"{path}:{n.lineno}: {ast.unparse(n)} divides by a Python number"
+
+
+def test_graph_layer_catches_no_exception():
+    """A static check: models/graphs.py and the server's step dispatch
+    catch no exception around a capture or a replay, so a capture or replay
+    that fails fails its caller: no path falls back to the uncaptured
+    step."""
+    import ast
+    tree = ast.parse(open(os.path.join(PKG, "models", "graphs.py")).read())
+    assert not [n.lineno for n in ast.walk(tree)
+                if isinstance(n, ast.ExceptHandler)]
+    serve = ast.parse(open(os.path.join(PKG, "inference", "serve.py")).read())
+    names = {"_step", "_draft", "_verify", "_server_kv", "_graph_keys",
+             "warmup"}
+    seen = set()
+    for fn in ast.walk(serve):
+        if isinstance(fn, ast.FunctionDef) and fn.name in names:
+            seen.add(fn.name)
+            assert not any(isinstance(n, ast.Try) for n in ast.walk(fn)), \
+                f"inference/serve.py {fn.name} catches around a step"
+    assert seen == names
+
+
+def test_graph_layer_imports_no_jax():
+    r = _run("import sys\n"
+             "import ntransformer_tpu_torch.models.graphs\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'ntransformer_tpu')]\n"
+             "assert not bad, bad\n")
+    assert r.returncode == 0, r.stdout + r.stderr
