@@ -1299,6 +1299,9 @@ def real_model_phase(torch, counters, card: str, gguf: str = REPOLM,
     check(len(ids) >= 70, f"prompt is {len(ids)} tokens; want >= 70")
     cfg = GenerateConfig(max_tokens=32, temperature=0.0, repeat_penalty=1.0)
     text_gpu, st_gpu = gpu.generate(PROMPT, cfg)
+    steps = replay_count(gpu)
+    check(set(steps) == {"step"} and steps["step"] > 0,
+          f"{tag}: generate on the card replayed {steps}")
     text_cpu, _ = cpu.generate(PROMPT, cfg)
     print(f"{tag} gpu: {text_gpu!r}", flush=True)
     print(f"{tag} cpu: {text_cpu!r}", flush=True)
@@ -2017,18 +2020,16 @@ def graph_bits(torch, tag: str, plain, graph, ref, kv, b_n: int, n: int):
     return tu, ms_u, ms_g
 
 
-def graph_kernels(torch, counters, tag: str, plain, graph, ref, kv, b_n: int,
-                  tok, pos0: int) -> dict:
-    """One step's launches by the counters (uncaptured) and the kernels
-    and device ms of an uncaptured step and of a replay by the profiler:
-    the replay's own kernels equal the counters' launches, and the two
-    calls run the same number of kernels (copies aside: a replay copies its
-    three inputs in)."""
+def graph_kernels(torch, counters, tag: str, plain, graph,
+                  same_count: bool = True) -> dict:
+    """One uncaptured step's launches by the counters (plain(), a call)
+    and the kernels and device ms of an uncaptured step and of a replay
+    (graph()) by the profiler: the replay's own kernels equal the
+    counters' launches, and with same_count the two calls run the same
+    number of kernels (copies aside: a replay copies its inputs in)."""
     from ntransformer_tpu_torch.ops.cuda import attention as ca
-    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
-    pos = torch.full((b_n,), pos0, dtype=torch.long, device="cuda")
     reset(counters)
-    plain(ref, tok, pos, act)
+    plain()
     torch.cuda.synchronize()
     got = read(counters)
     # the wrapper modules' counts (a cache-dot form's and the partials'
@@ -2036,8 +2037,7 @@ def graph_kernels(torch, counters, tag: str, plain, graph, ref, kv, b_n: int,
     launches = sum(v for k, v in got.items()
                    if "[" not in k and k != ca.PARTIALS_NAME)
     out = {"launches_uncaptured_step": launches}
-    for name, fn in (("uncaptured", lambda: plain(ref, tok, pos, act)),
-                     ("replay", lambda: graph(kv, tok, pos, act))):
+    for name, fn in (("uncaptured", plain), ("replay", graph)):
         prof = profile_calls(torch, fn, **GRAPH_PROFILE)
         kern = {k: v for k, v in prof.items()
                 if not k.startswith(("Memcpy", "Memset"))}
@@ -2051,11 +2051,16 @@ def graph_kernels(torch, counters, tag: str, plain, graph, ref, kv, b_n: int,
             # the port's kernels one by one: [device ms, launches] a call
             "by_kernel": {k: [v["ms"], v["per_call"]]
                           for k, v in kern.items()
-                          if any(m in k for m in OWN_KERNELS)}}
+                          if any(m in k for m in OWN_KERNELS)},
+            # where the rest goes: the costliest kernels of any kind
+            "top": sorted(([k[:60], v["ms"], v["per_call"]]
+                           for k, v in kern.items()),
+                          key=lambda r: -r[1])[:8]}
     check(out["replay"]["own_kernels"] == launches,
           f"{tag}: a replay runs {out['replay']['own_kernels']} of the "
           f"port's kernels, the uncaptured step launches {launches}")
-    check(out["replay"]["kernels"] == out["uncaptured"]["kernels"],
+    check(not same_count or
+          out["replay"]["kernels"] == out["uncaptured"]["kernels"],
           f"{tag}: a replay runs {out['replay']['kernels']} kernels, the "
           f"uncaptured step {out['uncaptured']['kernels']}")
     return out
@@ -2080,8 +2085,12 @@ def graph_cell(torch, counters, tag: str, arch, weights, b_n: int,
                                False)
     check(torch.equal(tu, tg), f"{tag}: the timed turns' tokens differ")
     t1 = time.perf_counter()
-    prof = graph_kernels(torch, counters, tag, plain, graph, ref, kv, b_n,
-                         tu, base + GRAPH_TURN)
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    pos = torch.full((b_n,), base + GRAPH_TURN, dtype=torch.long,
+                     device="cuda")
+    prof = graph_kernels(torch, counters, tag,
+                         lambda: plain(ref, tu, pos, act),
+                         lambda: graph(kv, tu, pos, act))
     cell = {"seconds": {"chains": t1 - t0,
                         "profiles": time.perf_counter() - t1},
             "B": b_n, "cache": "int8" if quant else "bf16",
@@ -2224,7 +2233,8 @@ def graphs_phase(torch, counters, card: str, synth, tag: str,
                  serve_too: bool = False) -> dict:
     """Phase graphs on one synthetic 8B: the B = 1 bf16 and B = 32 int8
     cells (graph_cell); with serve_too the K = 3 spec round at B = 8 and the
-    BatchServer texts (graph_server) too. Prints its seconds."""
+    BatchServer texts (graph_server) too; then the resident Engine's cell
+    (engine_graph_cell). Prints its seconds."""
     t0 = time.perf_counter()
     _, arch, weights, _ = synth
     out = {"card": card}
@@ -2235,6 +2245,7 @@ def graphs_phase(torch, counters, card: str, synth, tag: str,
     if serve_too:
         out["spec_round_b8"] = graph_spec_round(torch, tag, arch, weights)
         out["server"] = graph_server(torch, tag, synth)
+    out["engine"] = engine_graph_cell(torch, counters, f"{tag}_engine", synth)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase graphs ({tag}) took {out['seconds']:.1f} s", flush=True)
     return out
@@ -2256,7 +2267,205 @@ def graph_moe_steps(torch, synth) -> dict:
         out[tag] = {"steps_bit_equal": GRAPH_MOE_STEPS, "capture_s": cap_s,
                     "ms_uncaptured": ms_u, "ms_replayed": ms_g}
         del sg, kv, ref
+    out["mixtral_engine_step"] = engine_moe_step(torch, synth)
     print(json.dumps({"graphs_mixtral": out}), flush=True)
+    return out
+
+
+# phase graphs' Engine cells: the resident Engine's programs replayed
+# (models/graphs.ForwardGraphs) on a synthetic 8B at its 4,096-row context
+ENGINE_PREFILL = 512     # the prompt ahead of the chains
+ENGINE_SPEC = (3, 16, 8)  # K, the draft's layers, iterations a turn
+
+
+def cuda_engine(torch, synth):
+    """The base Engine over a synthetic model on the card, which replays
+    its programs (Engine._graph_path)."""
+    from ntransformer_tpu_torch.inference.engine import Engine
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    cfg, arch, weights, _ = synth
+    eng = Engine(LoadedModel(cfg, arch, weights, None, None,
+                             torch.device("cuda")))
+    check(eng._graph_path(), "the Engine on the card takes no graph path")
+    return eng
+
+
+def engine_prefilled(torch, eng, n: int, seed: int):
+    """The engine's own cache (its ForwardGraphs bound to it) after an
+    n-token random prefill, a twin copy of it, and the first greedy token:
+    (kv, ref, token, n)."""
+    ids = torch.randint(0, eng.arch.vocab_size, (n,),
+                        generator=torch.Generator().manual_seed(seed)).tolist()
+    kv = eng._start_kv()
+    logits, kv, _ = eng._prefill(kv, ids)
+    return kv, kv.clone(), torch.argmax(logits[0]), n
+
+
+def engine_chain(torch, eng, kv, tok, pos0: int, n: int):
+    """n greedy steps of eng._decode_step chained on the device (a replay
+    of the step graph on the engine's own cache, the uncaptured forward on
+    any other), ending in a real fence: (tokens [n], last logits, wall ms a
+    token)."""
+    toks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, kv, _ = eng._decode_step(kv, tok, pos0 + i)
+        tok = torch.argmax(logits[0])
+        toks.append(tok)
+    toks = torch.stack(toks)
+    toks.cpu()
+    return toks, logits, (time.perf_counter() - t0) / n * 1e3
+
+
+def engine_loop(torch, g, kv, tok, pos0: int, n: int):
+    """The same n steps as the greedy loop step replayed n times
+    (ForwardGraphs.loop, decode_loop_greedy's graph path): (tokens [n],
+    last logits, wall ms a token)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = g.loop(kv, tok, pos0, n)
+    toks = toks.clone()
+    toks.cpu()
+    return toks, logits.clone(), (time.perf_counter() - t0) / n * 1e3
+
+
+def same_kv(torch, a, b) -> bool:
+    """Two KVCaches equal byte for byte."""
+    return all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip((a.k, a.v, a.ks, a.vs), (b.k, b.v, b.ks, b.vs)))
+
+
+def engine_graph_cell(torch, counters, tag: str, synth) -> dict:
+    """Phase graphs' Engine cell on a synthetic 8B (ctx 4,096): a 512-token
+    prefill, then GRAPH_STEPS greedy steps as the uncaptured chain (the
+    host-int forward on a twin cache) and as the loop step replayed on the
+    engine's cache: tokens, last logits and every cache byte bit-equal;
+    wall ms a token of both in turns (uncaptured, replayed, replayed,
+    uncaptured); the kernels and device ms of a replayed step against an
+    uncaptured one's (the device pos adds its index kernels, so the counts
+    are reported, not held equal) and the busy share; then spec
+    iterations (ENGINE_SPEC) replayed against the direct spec_iter_greedy
+    (engine_spec_turns)."""
+    t0 = time.perf_counter()
+    eng = cuda_engine(torch, synth)
+    kv, ref, first, base = engine_prefilled(torch, eng, ENGINE_PREFILL, 19)
+    g = eng._graphs_of(kv)
+    t1 = time.perf_counter()
+    g.capture([g.key("loop", n_steps=GRAPH_STEPS)])
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t1
+    tu, lu, ms_u1 = engine_chain(torch, eng, ref, first, base, GRAPH_STEPS)
+    tg, lg, ms_g1 = engine_loop(torch, g, kv, first, base, GRAPH_STEPS)
+    check(torch.equal(tu, tg) and torch.equal(lu, lg),
+          f"{tag}: the replayed loop's tokens or last logits differ from "
+          "the uncaptured chain's")
+    check(same_kv(torch, ref, kv), f"{tag}: the replayed loop's cache "
+          "differs from the uncaptured chain's")
+    check(bool(torch.isfinite(lg).all()), f"{tag}: non-finite logits")
+    base += GRAPH_STEPS
+    tg2, _, ms_g2 = engine_loop(torch, g, kv, tu[-1], base, GRAPH_STEPS)
+    tu2, _, ms_u2 = engine_chain(torch, eng, ref, tu[-1], base, GRAPH_STEPS)
+    check(torch.equal(tu2, tg2), f"{tag}: the timed turns' tokens differ")
+    base += GRAPH_STEPS
+    t2 = time.perf_counter()
+    tok = tu2[-1]
+    prof = graph_kernels(torch, counters, tag,
+                         lambda: eng._decode_step(ref, tok, base),
+                         lambda: eng._decode_step(kv, tok, base),
+                         same_count=False)
+    cell = {"seconds": {"chains": t2 - t0,
+                        "profiles": time.perf_counter() - t2},
+            "ctx": eng.arch.max_seq_len, "prefill": ENGINE_PREFILL,
+            "steps_bit_equal": GRAPH_STEPS, "capture_s": cap_s,
+            "wall_ms_uncaptured": [ms_u1, ms_u2],
+            "wall_ms_replayed": [ms_g1, ms_g2],
+            "ms_uncaptured": (ms_u1 + ms_u2) / 2,
+            "ms_replayed": (ms_g1 + ms_g2) / 2, **prof}
+    cell["replay_busy_share"] = (prof["replay"]["device_ms"]
+                                 / cell["ms_replayed"])
+    cell["uncaptured_busy_share"] = (prof["uncaptured"]["device_ms"]
+                                     / cell["ms_uncaptured"])
+    cell["spec"] = engine_spec_turns(torch, tag, eng, g, ref, kv, tok,
+                                     base + 1)
+    print(json.dumps({f"graphs_{tag}": cell}), flush=True)
+    del eng, g, kv, ref
+    return cell
+
+
+def engine_spec_turns(torch, tag: str, eng, g, ref, kv, anchor,
+                      pos: int) -> dict:
+    """ENGINE_SPEC's K = 3, n_draft = 16 fused self-speculative iterations
+    from one cache state, the direct spec_iter_greedy on ref (the host reads
+    emit and n_acc once an iteration, as the Engine does) and the spec
+    graph replayed on kv (anchor and pos carried on the device): every
+    iteration's emit and n_acc, the device pos and the caches bit-equal,
+    in two turns (direct, replayed; replayed, direct); ms an iteration."""
+    from ntransformer_tpu_torch.inference.engine import spec_iter_greedy
+    k, n_draft, iters = ENGINE_SPEC
+    arch, w = eng.arch, eng.model.weights
+    g.capture([g.key("spec", k=k, n_draft=n_draft)])
+
+    def direct(a, p):
+        outs, c = [], ref
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            c, emit, n_acc, a = spec_iter_greedy(arch, w, c, a, p, k,
+                                                 n_draft)
+            outs.append(torch.cat([emit, n_acc.reshape(1)]).tolist())
+            p += outs[-1][-1] + 1
+        return outs, a, p, (time.perf_counter() - t0) / iters * 1e3
+
+    def replayed(a, p):
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            outs.append(g.spec(kv, k, n_draft, a if i == 0 else None,
+                               p if i == 0 else None).tolist())
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        return outs, g._tok[0].clone(), int(g._pos), ms
+
+    ou, au, pu, ms_u1 = direct(anchor, pos)
+    og, _, pg, ms_g1 = replayed(anchor, pos)
+    check(ou == og and pu == pg and same_kv(torch, ref, kv),
+          f"{tag} spec: the replayed iterations (or the caches) differ from "
+          f"the direct ones: {ou} / {og}")
+    og2, _, pg2, ms_g2 = replayed(None, None)
+    ou2, _, pu2, ms_u2 = direct(au, pu)
+    check(ou2 == og2 and pu2 == pg2 and same_kv(torch, ref, kv),
+          f"{tag} spec: the timed turns differ")
+    return {"k": k, "n_draft": n_draft, "iterations_bit_equal": 2 * iters,
+            "n_acc": [o[-1] for o in ou + ou2],
+            "ms_iteration_direct": (ms_u1 + ms_u2) / 2,
+            "ms_iteration_replayed": (ms_g1 + ms_g2) / 2}
+
+
+def engine_moe_step(torch, synth) -> dict:
+    """Phase moe: the Mixtral Engine's T = 1 step (the device expert select
+    inside the captured forward) replayed GRAPH_MOE_STEPS times after a
+    64-token prefill, each step's logits, the tokens and the caches
+    bit-equal to the uncaptured step's on a twin cache; wall ms a token."""
+    eng = cuda_engine(torch, synth)
+    kv, ref, tok, base = engine_prefilled(torch, eng, 64, 23)
+    lu, lg = [], []
+    for i in range(GRAPH_MOE_STEPS):
+        lg.append(eng._decode_step(kv, tok, base + i)[0].clone())
+        lu.append(eng._decode_step(ref, tok, base + i)[0])
+        tok = torch.argmax(lu[-1][0])
+    bad = [i for i, (a, b) in enumerate(zip(lu, lg)) if not torch.equal(a, b)]
+    check(not bad and same_kv(torch, ref, kv), f"mixtral Engine step: "
+          f"replayed steps {bad} (or the caches) differ from the uncaptured "
+          "ones")
+    base += GRAPH_MOE_STEPS
+    _, _, ms_g = engine_chain(torch, eng, kv, tok, base, GRAPH_MOE_STEPS)
+    _, _, ms_u = engine_chain(torch, eng, ref, tok, base, GRAPH_MOE_STEPS)
+    g = eng._graphs_of(kv)
+    out = {"steps_bit_equal": GRAPH_MOE_STEPS, "ms_replayed": ms_g,
+           "ms_uncaptured": ms_u, "captures": g.captures,
+           "replays": sum(g.replays.values())}
+    del eng, g, kv, ref
     return out
 
 
@@ -2345,6 +2554,8 @@ def full_width_phase(torch, counters, card: str, synth,
     engine = Engine(model)
     ids = torch.randint(0, arch.vocab_size, (512,),
                         generator=torch.Generator().manual_seed(9)).tolist()
+    # the window opens before the Engine's first capture: its replays
+    # advance no counter, its warm-up and capture do
     reset(counters)
     stats = engine.benchmark(prompt_ids=ids, n_tokens=64)
     torch.cuda.synchronize()
@@ -2353,6 +2564,10 @@ def full_width_phase(torch, counters, card: str, synth,
     print(f"{tag} Engine path launches {launches}", flush=True)
     check(all(launches[k] > 0 for k in kernels),
           f"{tag}: the Engine path launched a kernel zero times: {launches}")
+    replays = replay_count(engine)
+    check(replays == {"loop": 2 * stats.decode_tokens},
+          f"{tag}: Engine.benchmark replayed {replays}, not its loop step "
+          f"in both runs")
     ms_tok = stats.decode_ms / stats.decode_tokens
     summary = {"card": card, "prefill_tokens": stats.prefill_tokens,
                "prefill_ms": stats.prefill_ms,
@@ -2360,7 +2575,8 @@ def full_width_phase(torch, counters, card: str, synth,
                "decode_tokens": stats.decode_tokens,
                "decode_ms_per_token": ms_tok, "decode_tok_s": stats.decode_tps,
                "effective_GB_s": per_token * stats.decode_tps / 1e9,
-               "decode_bound_ms_per_token": per_token / HBM_BYTES_PER_S * 1e3}
+               "decode_bound_ms_per_token": per_token / HBM_BYTES_PER_S * 1e3,
+               "graph_replays": replays}
     print(json.dumps({f"full_width_{tag}": summary}), flush=True)
 
     kv = engine._make_kv()
@@ -2407,6 +2623,16 @@ def full_width_phase(torch, counters, card: str, synth,
           f"{tag} 2-layer logits differ by {rel} of their range")
     summary["two_layer_logit_rel_err"] = rel
     return summary, launches
+
+
+def replay_count(eng) -> dict:
+    """The replays of a graph-path Engine's programs so far, by kind, over
+    its caches' ForwardGraphs."""
+    out = {}
+    for _, g in eng._held.values():
+        for key, n in g.replays.items():
+            out[key.kind] = out.get(key.kind, 0) + n
+    return out
 
 
 def profile_decode(torch, arch, weights, kv, logits, pos: int,
@@ -5257,9 +5483,16 @@ def spec_repolm(torch, counters, card: str, tmp: str) -> dict:
                        ("generate_self_speculative_fused",
                         {"draft_layers": 3})):
         reset(counters)
+        before = replay_count(eng)
         got, st = engine_ids(eng, method, PROMPT, cfg, **kw)
         torch.cuda.synchronize()
         launches = read(counters)
+        replays = {k: v - before.get(k, 0)
+                   for k, v in replay_count(eng).items()
+                   if v > before.get(k, 0)}
+        check(set(replays) == ({"spec"} if method.endswith("fused") else
+                               {"step", "verify"}),
+              f"repolm512 {method} on the card replayed {replays}")
         check(all(launches[x] > 0 for x in ("q8_0_matmul", "q4_k_matmul")
                   if method == "generate_speculative" or x == "q8_0_matmul"),
               f"repolm512 {method}: launches {launches}")
@@ -5267,7 +5500,8 @@ def spec_repolm(torch, counters, card: str, tmp: str) -> dict:
         out[method] = {"acceptance": st.accepted / st.drafted,
                        "drafted": st.drafted, "accepted": st.accepted,
                        "ms_per_token": st.decode_ms / st.decode_tokens,
-                       "tokens": len(got), "launches": launches, **rule}
+                       "tokens": len(got), "launches": launches,
+                       "replays": replays, **rule}
         print(f"repolm512 {method} on {card}: {st.report()!r}; {rule}",
               flush=True)
     del eng, runs

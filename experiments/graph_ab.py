@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The batched steps replayed as CUDA graphs (models/graphs.py) against the
-same steps launched from the host, one checkout against another, on one
-card.
+"""The batched steps and the resident Engine's programs replayed as CUDA
+graphs (models/graphs.py) against the same steps launched from the host,
+one checkout against another, on one card.
 
     python3 experiments/graph_ab.py ROOT [ROOT ...]
 
@@ -11,9 +11,9 @@ e.g. scratch_chip/parent). The roots' kernels are built side by side first
 (one process a root, each from its own csrc/); then each ROOT is measured
 in a process of its own, in the order given, so `parent change change
 parent` shows the spread between runs. A checkout with models/graphs.py
-replays its steps; an older one calls them. For each ROOT it prints one
-JSON line, for the synthetic 8B Q4_K_M and Q8_0 of chip_smoke.py's
-`build_synth`:
+replays its steps (and one with models/graphs.ForwardGraphs the Engine's);
+an older one calls them. For each ROOT it prints one JSON line, for the
+synthetic 8B Q4_K_M and Q8_0 of chip_smoke.py's `build_synth`:
 
   b1: bench.py's B = 1 bf16 chain as chip_smoke.py's `bench_b1` times it
      (S 1,024, the 256 rung, best of two 64-step runs): wall ms a step, and
@@ -24,7 +24,13 @@ JSON line, for the synthetic 8B Q4_K_M and Q8_0 of chip_smoke.py's
      its device ms and kernels the same way;
   server (Q4_K_M only): BatchServer(B = 8) over bfull's eight requests
      (9-1,000 prompt tokens, 16 new each), warmed up, then run twice:
-     served tok/s, wall, steps and the warmup's seconds.
+     served tok/s, wall, steps and the warmup's seconds;
+  engine: Engine.benchmark at ctx 4,096 after phase full's 512-token
+     prompt, 64 tokens, three runs (the first one warms up): decode ms a
+     token, the best and each; the device ms and CUDA kernels of one
+     decode step at position 512 by `profile_calls` (a replay where the
+     checkout's Engine captures), and the busy share, device ms over the
+     best ms a token.
 
 It imports chip_smoke.py and the port from ROOT, so it runs against any
 checkout whose chip_smoke.py has `build_synth`, `bench_b1`,
@@ -132,6 +138,33 @@ def chain_cells(torch, cs, captures: bool, synth, counters) -> dict:
     return out
 
 
+def engine_cell(torch, cs, synth) -> dict:
+    from ntransformer_tpu_torch.inference.engine import Engine
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    cfg, arch, weights, _ = synth
+    eng = Engine(LoadedModel(cfg, arch, weights, None, None,
+                             torch.device("cuda")))
+    ids = torch.randint(0, arch.vocab_size, (512,),
+                        generator=torch.Generator().manual_seed(9)).tolist()
+    runs = []
+    for _ in range(3):
+        st = eng.benchmark(prompt_ids=ids, n_tokens=64)
+        runs.append(st.decode_ms / st.decode_tokens)
+    # the engine's own cache where it keeps one (its step then replays)
+    kv = eng._start_kv() if hasattr(eng, "_start_kv") else eng._make_kv()
+    logits, kv, _ = eng._prefill(kv, ids)
+    tok = torch.argmax(logits[0])
+    prof = step_profile(torch, cs,
+                        lambda: eng._decode_step(kv, tok, len(ids)))
+    best = min(runs[1:])
+    out = {"ms_per_token": best, "runs_ms_per_token": runs,
+           "captures": getattr(eng, "_graphs_of", lambda kv: None)(kv)
+           is not None,
+           "profile": prof, "busy_share": prof["device_ms"] / best}
+    del eng, kv
+    return out
+
+
 def server(torch, cs, synth) -> dict:
     from ntransformer_tpu_torch.inference.sampler import SamplerConfig
     from ntransformer_tpu_torch.inference.serve import BatchServer, Request
@@ -173,6 +206,7 @@ def one(root: str) -> dict:
         out[fmt] = chain_cells(torch, cs, captures, synth, counters)
         if fmt == "q4_k_m":
             out[fmt]["server"] = server(torch, cs, synth)
+        out[fmt]["engine"] = engine_cell(torch, cs, synth)
         del synth
         torch.cuda.empty_cache()
     return out
@@ -216,6 +250,13 @@ def main() -> int:
                    for g, _ in runs]
             print(f"{fmt} {cell} ms a step (device ms, kernels): "
                   + " | ".join(row))
+    for fmt in ("q4_k_m", "q8_0"):
+        row = [f"{g[fmt]['engine']['ms_per_token']:.2f} "
+               f"({g[fmt]['engine']['profile']['device_ms']:.2f}, "
+               f"{g[fmt]['engine']['profile']['kernels']:g}, "
+               f"{g[fmt]['engine']['busy_share']:.3f})" for g, _ in runs]
+        print(f"{fmt} Engine.benchmark ms a token (device ms, kernels, busy "
+              "share): " + " | ".join(row))
     print("q4_k_m server tok/s: " + " | ".join(
         "/".join(f"{x['tok_s']:.1f}" for x in g["q4_k_m"]["server"]["runs"])
         for g, _ in runs))

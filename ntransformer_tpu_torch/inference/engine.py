@@ -21,6 +21,18 @@ stay on the card and the host reads (emit, n_acc) once an iteration.
 `chat` is the REPL of the CLI's --chat: with the model's chat template
 (inference/chat.py) a ChatSession carries the cache across turns.
 
+On a CUDA device the base Engine replays its programs as CUDA graphs
+(models/graphs.ForwardGraphs, the JAX package's jitted forward,
+_decode_loop_greedy and _spec_iter_greedy): `_decode_step` and `_verify`
+replay the T = 1 step and the verify window, `benchmark` the greedy loop
+step (the warm-up run captures it, the timed run replays it) and
+`generate_self_speculative_fused` the whole iteration; prefill runs
+uncaptured. Graphs hold addresses, so that Engine keeps its cache (and a
+draft model's) for its life and zeroes it where a generation starts from
+position 0, the state of a fresh cache; it serves one call at a time, as a
+BatchServer does. A step on any other cache (a caller's own KVCache) runs
+uncaptured, as does every step on the CPU.
+
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, early exit,
 self-speculation drafting on the resident prefix and a separate resident
@@ -40,6 +52,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..models.graphs import ForwardGraphs
 from ..models.llama import KVCache, forward
 from ..models.loader import LoadedModel, load_model
 from ..utils.timing import PROFILER
@@ -103,14 +116,20 @@ class Stats:
 @dataclass
 class ChatSession:
     """Multi-turn KV reuse: the cache and the token ids whose rows are live
-    in it, carried across generate() calls; only the new tokens prefill."""
+    in it, carried across generate() calls; only the new tokens prefill.
+    On the graph path the cache is the engine's own, and `writes` its
+    write count after this session's turn: the session resumes only if no
+    other call has written that cache since (else the turn prefills
+    whole)."""
 
     kv: object | None = None
     ids_in_kv: list[int] = field(default_factory=list)
+    writes: int = -1
 
     def reset(self) -> None:
         self.kv = None
         self.ids_in_kv = []
+        self.writes = -1
 
 
 def _bucket(n: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048,
@@ -124,6 +143,12 @@ def _bucket(n: int, buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 2048,
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _graphed(device) -> bool:
+    """Whether a resident base Engine on `device` replays captured
+    programs (models/graphs.ForwardGraphs): iff the device is CUDA."""
+    return torch.device(device).type == "cuda"
 
 
 class Engine:
@@ -141,6 +166,11 @@ class Engine:
         self.tokenizer = model.tokenizer
         self.device = model.device
         self.layer_sel: np.ndarray | None = None  # layer-skip schedule
+        # the graph path: "main" and "draft" -> (the cache kept for the
+        # engine's life, its ForwardGraphs); the count of calls that wrote
+        # the main cache
+        self._held: dict[str, tuple[KVCache, ForwardGraphs]] = {}
+        self._kv_writes = 0
 
     @classmethod
     def load(cls, path: str, draft_path: str | None = None,
@@ -161,6 +191,49 @@ class Engine:
     def _make_kv(self) -> KVCache:
         return KVCache.create(self.arch, quant=self.kv_quant,
                               device=self.device)
+
+    def _graph_path(self) -> bool:
+        """Whether this engine replays captured programs: the base Engine
+        with its model resident on a CUDA device (the mesh and tiered
+        engines keep their host-driven paths)."""
+        return type(self) is Engine and _graphed(self.device)
+
+    def _start_kv(self, draft: bool = False) -> KVCache:
+        """The cache a generation writes from position 0 (draft: the draft
+        model's bf16 cache). On the graph path the one the engine keeps,
+        zeroed, with its ForwardGraphs made the first time; else a new
+        cache."""
+        m = self.draft if draft else self.model
+        make = ((lambda: KVCache.create(m.arch, device=m.device)) if draft
+                else self._make_kv)
+        if not self._graph_path():
+            return make()
+        name = "draft" if draft else "main"
+        if name not in self._held:
+            kv = make()
+            self._held[name] = (kv, ForwardGraphs(m.arch, m.weights, kv))
+        kv = self._held[name][0]
+        for t in (kv.k, kv.v, kv.ks, kv.vs):
+            if t is not None:
+                t.zero_()
+        if not draft:
+            self._kv_writes += 1
+        return kv
+
+    def _graphs_of(self, kv) -> ForwardGraphs | None:
+        """The ForwardGraphs bound to kv on the graph path, else None."""
+        if not self._graph_path():
+            return None
+        return next((g for held, g in self._held.values() if held is kv),
+                    None)
+
+    def _resumes(self, session: ChatSession) -> bool:
+        """Whether session's cache is still its own: on the graph path no
+        call has written the engine's cache since the session's turn."""
+        return session.kv is not None and (
+            not self._graph_path() or (session.writes == self._kv_writes
+                                       and self._graphs_of(session.kv)
+                                       is not None))
 
     def _prefill(self, kv: KVCache, tokens: list[int], model=None,
                  with_cosine=False, start: int = 0):
@@ -203,9 +276,12 @@ class Engine:
         layer_sel (a draft's layer prefix) replaces the engine's layer-skip
         schedule."""
         m = model if model is not None else self.model
-        tok = torch.as_tensor(token, device=m.device).reshape(1)
         sel = layer_sel if layer_sel is not None else (
             self.layer_sel if m is self.model else None)
+        g = None if with_cosine else self._graphs_of(kv)
+        if g is not None:
+            return g.step(kv, token, pos, sel), kv, None
+        tok = torch.as_tensor(token, device=m.device).reshape(1)
         return forward(m.arch, m.weights, kv, tok, pos, layer_sel=sel,
                        with_cosine=with_cosine)
 
@@ -213,6 +289,9 @@ class Engine:
         """All-position logits [T, V] of tokens written at pos through the
         full model (its layer-skip schedule applied). Returns (logits,
         kv)."""
+        g = self._graphs_of(kv)
+        if g is not None:
+            return g.verify(kv, tokens, pos, self.layer_sel), kv
         logits, kv, _ = forward(self.arch, self.model.weights, kv, tokens,
                                 pos, layer_sel=self.layer_sel,
                                 all_logits=True)
@@ -245,7 +324,7 @@ class Engine:
         max_new = min(cfg.max_tokens, self.arch.max_seq_len - len(ids))
 
         start = 0
-        if session is not None and session.kv is not None:
+        if session is not None and self._resumes(session):
             cached = session.ids_in_kv
             n = 0
             while (n < len(cached) and n < len(ids) - 1
@@ -254,8 +333,11 @@ class Engine:
             if n > 0:
                 kv, start = session.kv, n
                 session.kv = None
+        graphed = self._graph_path()
         if start == 0:
-            kv = self._make_kv()
+            kv = self._start_kv()
+        elif graphed:
+            self._kv_writes += 1  # the session's turn writes the cache
 
         t0 = time.perf_counter()
         calibrate = cfg.skip_threshold > 0 and self.layer_sel is None
@@ -296,6 +378,8 @@ class Engine:
         if session is not None:
             session.kv = kv
             session.ids_in_kv = ids + out_ids[:fed]
+            if graphed:
+                session.writes = self._kv_writes
         return tok.decode(out_ids), stats
 
     # --- speculative decoding -------------------------------------------------
@@ -329,7 +413,7 @@ class Engine:
         tok = self.tokenizer
         ids = self._encode(prompt)
         K = cfg.draft_k
-        kv = self._make_kv()
+        kv = self._start_kv()
 
         if self_spec:
             draft_model = None
@@ -338,8 +422,7 @@ class Engine:
         else:
             draft_model = self.draft
             draft_sel = None
-            draft_kv = KVCache.create(draft_model.arch,
-                                      device=draft_model.device)
+            draft_kv = self._start_kv(draft=True)
 
         t0 = time.perf_counter()
         logits, kv, _ = self._prefill(kv, ids)
@@ -411,7 +494,8 @@ class Engine:
         ids = self._encode(prompt)
         K = cfg.draft_k
         n_draft = draft_layers or max(1, self.arch.n_layers // 2)
-        kv = self._make_kv()
+        kv = self._start_kv()
+        g = self._graphs_of(kv)
 
         t0 = time.perf_counter()
         logits, kv, _ = self._prefill(kv, ids)
@@ -427,9 +511,17 @@ class Engine:
         max_new = min(cfg.max_tokens, self.arch.max_seq_len - len(ids) - K - 2)
         t0 = time.perf_counter()
         while len(out_ids) < max_new and out_ids[-1] not in tok.stop_ids:
-            kv, emit, n_acc, anchor = spec_iter_greedy(
-                self.arch, self.model.weights, kv, anchor, pos, K, n_draft)
-            got = torch.cat([emit, n_acc.reshape(1)]).tolist()  # one read
+            if g is not None:
+                # the first iteration takes the anchor and pos; each later
+                # one the new anchor and pos the last left on the device
+                first = pos == len(ids)
+                got = g.spec(kv, K, n_draft, anchor if first else None,
+                             pos if first else None).tolist()  # one read
+            else:
+                kv, emit, n_acc, anchor = spec_iter_greedy(
+                    self.arch, self.model.weights, kv, anchor, pos, K,
+                    n_draft)
+                got = torch.cat([emit, n_acc.reshape(1)]).tolist()
             en = got[-1] + 1
             stats.drafted += K
             stats.accepted += en - 1
@@ -497,7 +589,7 @@ class Engine:
         # warm-up and timed runs both advance the cache; keep both inside
         n_tokens = min(n_tokens,
                        max(1, (self.arch.max_seq_len - len(ids) - 1) // 2))
-        kv = self._make_kv()
+        kv = self._start_kv()
         t0 = time.perf_counter()
         logits, kv, _ = self._prefill(kv, ids)
         first = torch.argmax(logits[0])
@@ -519,8 +611,13 @@ class Engine:
 def decode_loop_greedy(engine: Engine, kv: KVCache, token: torch.Tensor,
                        pos0: int, n_steps: int):
     """Greedy decode of n_steps tokens from `token` at pos0 through the
-    engine's decode step, the argmax kept on the device. Returns (tokens
-    [n_steps] tensor, kv)."""
+    engine's decode step, the argmax kept on the device. On the graph path
+    the loop step is replayed n_steps times (captured on first use).
+    Returns (tokens [n_steps] tensor, kv)."""
+    g = engine._graphs_of(kv)
+    if g is not None:
+        toks, _ = g.loop(kv, token, pos0, n_steps, engine.layer_sel)
+        return toks.clone(), kv
     toks = []
     for i in range(n_steps):
         logits, kv, _ = engine._decode_step(kv, token, pos0 + i)
@@ -531,13 +628,15 @@ def decode_loop_greedy(engine: Engine, kv: KVCache, token: torch.Tensor,
 
 @torch.inference_mode()
 def spec_iter_greedy(arch, weights, kv: KVCache, anchor: torch.Tensor,
-                     pos: int, k: int, n_draft: int):
+                     pos, k: int, n_draft: int):
     """One fused self-speculative iteration on the card: k greedy draft
     steps through the first n_draft layers (each argmax kept on the card as
-    the next token), one all-logits verify of [anchor, drafts] at pos
-    through the full stack, and the longest-prefix accept. Returns (kv,
-    emit [k+1], n_acc, new anchor), all on the card; the first n_acc + 1
-    entries of emit are the tokens to emit."""
+    the next token), one all-logits verify of [anchor, drafts] at pos (a
+    host int or a 0-d device tensor) through the full stack, and the
+    longest-prefix accept. Returns (kv, emit [k+1], n_acc, new anchor), all
+    on the card; the first n_acc + 1 entries of emit are the tokens to
+    emit. Nothing is read on the host (a 0-d tensor index would be), so
+    the iteration can be captured (models/graphs.py)."""
     draft_sel = range(n_draft)
     tok, drafts = anchor, []
     for i in range(k):
@@ -551,9 +650,12 @@ def spec_iter_greedy(arch, weights, kv: KVCache, anchor: torch.Tensor,
     targets = torch.argmax(vlogits, dim=-1)                    # [k+1]
     match = targets[:k] == drafts
     n_acc = torch.where(match.all(), k, torch.argmin(match.to(torch.int32)))
+    new_anchor = targets.index_select(0, n_acc.reshape(1))     # [1]
     emit = torch.cat([drafts, targets[-1:]])
-    emit[n_acc] = targets[n_acc]  # the correction or bonus token
-    return kv, emit, n_acc, targets[n_acc]
+    # the correction or bonus token at n_acc (the JAX emit.at[n_acc].set)
+    emit = torch.where(torch.arange(k + 1, device=emit.device) == n_acc,
+                       new_anchor, emit)
+    return kv, emit, n_acc, new_anchor[0]
 
 
 class TPEngine(Engine):

@@ -72,8 +72,10 @@ def weights_from_numpy(tree: dict, arch: Arch, device) -> ModelWeights:
         rope_sin=array_to_torch(tree["rope_sin"], device))
 
 
-def batched_kv_from_numpy(k, v, ks=None, vs=None, device="cpu") -> BatchedKV:
+def batched_kv_from_numpy(k, v, ks=None, vs=None, *,
+                          device) -> BatchedKV:
     """The port's BatchedKV from numpy arrays: k/v [L, B, Hkv, S, D] bf16
-    (ml_dtypes) or int8 codes, ks/vs [L, B, Hkv, S] f32 scales for int8."""
+    (ml_dtypes) or int8 codes, ks/vs [L, B, Hkv, S] f32 scales for int8,
+    placed on `device` (no default, as weights_from_numpy)."""
     conv = (lambda a: None if a is None else array_to_torch(a, device))
     return BatchedKV(conv(k), conv(v), conv(ks), conv(vs))

@@ -22,16 +22,27 @@ Mixture-of-experts layers (mixtral, qwen3moe) run `moe_ffn`: at T = 1 the
 k routed experts go through the T = 1 kernels' device-side select (the
 expert index never leaves the card), at T > 1 a dense loop over every
 expert weighs each row by its routing, as the JAX package does.
+
+`pos`, the first cache row a forward writes, is a host int or a 0-d int64
+tensor on the weights' device (the JAX forward's traced `pos`). With a
+tensor nothing reads it on the host: the RoPE rows are an index_select at
+pos + arange(T), the cache rows are written with index_copy_ and the mask
+is built on the device, so the forward can be captured once and replayed
+at any position (models/graphs.py). The two forms compute the same values.
+A device pos serves the one-device decode and verify windows (T < 64); the
+prefill (whose flash kernel takes its position as a launch argument) and
+the mesh paths take a host int.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import operator
 from dataclasses import dataclass
 
 import torch
 
-from ..ops.layers import (_psum, apply_rope, attention,
+from ..ops.layers import (FLASH_MIN_Q, _psum, apply_rope, attention,
                           attention_cp_dispatch, rms_norm, swiglu)
 from ..ops.linear import QLinear, embed_lookup, qmatmul
 
@@ -326,12 +337,13 @@ def _norm_w(arch: Arch, w: torch.Tensor, layer: int) -> torch.Tensor:
     return w if arch.norm_bias == 0.0 else w + arch.norm_bias
 
 
-def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
+def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
                sin_t, n_valid=None, layer: int = 0, abs_layer=None):
     """The attention half of one block through its residual add. x [T, H]
     f32; kv_k/kv_v [Hkv, S, D] views of this layer's cache, written in
-    place at rows [pos, pos + n_valid). `layer` indexes the stacked
-    weights; abs_layer (default `layer`) is the layer's depth in the model,
+    place at rows [pos, pos + n_valid); pos a host int or a 0-d device
+    tensor (forward). `layer` indexes the stacked weights; abs_layer
+    (default `layer`) is the layer's depth in the model,
     which picks its sliding window and rope table (a streamed layer's
     weights are a stack of one). Under context parallelism (parallel/cp.py)
     kv_k/kv_v are lists of the shards' [Hkv, S/n, D] views, shard i holding
@@ -346,7 +358,7 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     return x + o
 
 
-def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
+def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
                sin_t, n_valid=None, layer: int = 0, abs_layer=None):
     """Attention from the normed input h [T, H] bf16 through the output
     projection: [T, H] f32, before any post norm. Under tensor parallelism
@@ -389,11 +401,15 @@ def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
     v = v.transpose(0, 1)
     n = T if n_valid is None else int(n_valid)
     cp = isinstance(kv_k, list)
+    # a device pos: the new rows' indices, built on the device; the caller
+    # keeps them inside the cache, on the host
+    idx = (pos + torch.arange(T, device=pos.device)
+           if isinstance(pos, torch.Tensor) else None)
     if cp:
         rows = kv_k[0].shape[1] * len(kv_k)
     else:
         rows = (kv_k[0] if isinstance(kv_k, tuple) else kv_k).shape[1]
-    if pos + T > rows:
+    if idx is None and pos + T > rows:
         raise ValueError(f"rows [{pos}, {pos + T}) exceed the {rows}-row "
                          "cache")
     # padding rows beyond n_valid keep the cache's previous contents
@@ -419,15 +435,19 @@ def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
         # (head, position), write them, then attend a bf16 dequant
         (kc, ksc), (vc, vsc) = kv_k, kv_v
         kq, ks_new, vq, vs_new = quantize_rows(k, v)
-        kc[:, pos:pos + n] = kq[:, :n]
-        ksc[:, pos:pos + n] = ks_new[:, :n]
-        vc[:, pos:pos + n] = vq[:, :n]
-        vsc[:, pos:pos + n] = vs_new[:, :n]
+        for dst, new in ((kc, kq), (ksc, ks_new), (vc, vq), (vsc, vs_new)):
+            if idx is None:
+                dst[:, pos:pos + n] = new[:, :n]
+            else:
+                dst.index_copy_(1, idx, new)
         kf = kc.to(torch.bfloat16) * ksc.to(torch.bfloat16)
         vf = vc.to(torch.bfloat16) * vsc.to(torch.bfloat16)
     else:
-        kv_k[:, pos:pos + n] = k[:, :n].to(kv_k.dtype)
-        kv_v[:, pos:pos + n] = v[:, :n].to(kv_v.dtype)
+        for dst, new in ((kv_k, k), (kv_v, v)):
+            if idx is None:
+                dst[:, pos:pos + n] = new[:, :n].to(dst.dtype)
+            else:
+                dst.index_copy_(1, idx, new.to(dst.dtype))
         kf, vf = kv_k, kv_v
     if not cp:
         att = attention(q, kf, vf, pos, T, q_scale, window=window,
@@ -449,12 +469,13 @@ def quantize_rows(k: torch.Tensor, v: torch.Tensor):
             torch.round(v / vs).to(torch.int8), vs)
 
 
-def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos: int, cos_t,
+def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
                sin_t, n_valid=None, layer: int = 0, abs_layer=None,
                ep: list | None = None):
     """One transformer block. x [T, H] f32; kv_k/kv_v this layer's cache
     views ((codes, scales) tuples for an int8 cache; lists of the shards'
-    views under context parallelism); layer / abs_layer as in attn_block;
+    views under context parallelism); pos, layer and abs_layer as in
+    attn_block;
     ep: the expert-parallel shards' LayerWeights (moe_ffn); returns x."""
     x = attn_block(arch, x, lw, kv_k, kv_v, pos, cos_t, sin_t, n_valid,
                    layer, abs_layer)
@@ -485,12 +506,18 @@ def dense_ffn(arch: Arch, hf: torch.Tensor, lw: LayerWeights,
 
 
 def embed_positions(arch: Arch, weights: ModelWeights, tokens: torch.Tensor,
-                    pos: int):
-    """Token embedding (f32) + the RoPE table rows of this window."""
+                    pos):
+    """Token embedding (f32) + the RoPE table rows of this window (rows
+    [pos, pos + T) of [S, d2] or dual [2, S, d2] tables; pos a host int or
+    a 0-d device tensor, whose rows are gathered on the device)."""
     T = tokens.shape[0]
     x = embed_lookup(weights.embed, tokens, out_dtype=torch.float32)
     if arch.embed_scale != 1.0:
         x = x * arch.embed_scale
+    if isinstance(pos, torch.Tensor):
+        idx = pos + torch.arange(T, device=pos.device)
+        return (x, weights.rope_cos.index_select(-2, idx),
+                weights.rope_sin.index_select(-2, idx))
     return (x, weights.rope_cos[..., pos:pos + T, :],
             weights.rope_sin[..., pos:pos + T, :])
 
@@ -685,16 +712,19 @@ def _check_cp_kv(kv: list, cp) -> None:
 
 
 @torch.inference_mode()
-def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
+def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos,
             layer_sel=None, n_valid=None, all_logits: bool = False,
             with_cosine: bool = False, cp=None, tp=None, ep=None):
     """Forward pass over (a subset of) the layer stack.
 
-    tokens [T] int; pos: write offset into the cache. layer_sel: indices of
-    the layers to run, in order (None = all). n_valid: real tokens of a
-    bucketed prefill. The cache is updated in place. Returns (logits [T or
-    1, V] f32, kv, cosines [len(layers)] f32 or None). The meshes (tuples
-    of torch devices, parallel/):
+    tokens [T] int; pos: write offset into the cache, a host int or a 0-d
+    (or 1-element) int64 tensor on the weights' device, which nothing reads
+    on the host (the module docstring; T < 64, no n_valid, no cp/tp mesh;
+    the caller keeps rows [pos, pos + T) inside the cache). layer_sel:
+    indices of the layers to run, in order (None = all). n_valid: real
+    tokens of a bucketed prefill. The cache is updated in place. Returns
+    (logits [T or 1, V] f32, kv, cosines [len(layers)] f32 or None). The
+    meshes (tuples of torch devices, parallel/):
 
       cp: context parallelism (parallel/cp.py); kv is the list of the
           shards' bf16 caches (cp.make_cp_kv), and everything but
@@ -709,7 +739,17 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos: int,
       ep: expert parallelism (parallel/ep.py); weights is the list of the
           shards' ModelWeights (ep.shard_weights_ep), the cache one cache
           on the first device, where everything but the experts runs."""
-    pos = int(pos)
+    if isinstance(pos, torch.Tensor):
+        if cp is not None or tp is not None or n_valid is not None:
+            raise ValueError("a device pos runs the one-device decode and "
+                             "verify windows: no cp/tp mesh, no n_valid")
+        if torch.as_tensor(tokens).reshape(-1).shape[0] >= FLASH_MIN_Q:
+            raise ValueError(f"a device pos takes fewer than {FLASH_MIN_Q} "
+                             "tokens (the flash prefill takes its position "
+                             "as a launch argument)")
+        pos = pos.reshape(())
+    else:
+        pos = operator.index(pos)
     if ep is not None and (cp is not None or tp is not None):
         raise ValueError("--ep is its own mesh (expert axis); it does not "
                          "compose with --tp/--cp")

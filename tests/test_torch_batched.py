@@ -80,7 +80,8 @@ def _mid_context(ref, B: int, quant: bool, seed: int):
         _, kv, _ = jl.forward(ref.arch, ref.weights, kv, jnp.asarray(ids), 0)
         bkv = bkv.insert(b, kv)
     port = batched_kv_from_numpy(*(None if a is None else np.asarray(a)
-                                   for a in (bkv.k, bkv.v, bkv.ks, bkv.vs)))
+                                   for a in (bkv.k, bkv.v, bkv.ks, bkv.vs)),
+                                 device="cpu")
     return bkv, port, np.array(lens, np.int32)
 
 
