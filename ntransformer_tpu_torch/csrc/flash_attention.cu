@@ -96,6 +96,9 @@ struct Params {
   float* o;
   float* m_out;
   float* l_out;
+  // the first query's position on the device (int64, read once a block),
+  // or nullptr: then `pos`
+  const long long* pos_dev;
   int T, Hq, Hkv, S, pos, kpos_offset, window, group, tpb;
   float scale, softcap;
 };
@@ -358,12 +361,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int hkv = blockIdx.y;
   const int q0 = blockIdx.x * p.tpb;                  // first token
   const int q_end = min(q0 + p.tpb, p.T);             // past the last
-  // the KV tiles any row of this block can see, as local key indices (the
-  // global position of local key i is kpos_offset + i)
-  const int max_kpos = min(p.pos + q_end - 1 - p.kpos_offset, p.S - 1);
-  const int min_kpos = p.pos + q0 - p.window + 1 - p.kpos_offset;
-  const int j_begin = min_kpos > 0 ? min_kpos / BN : 0;
-  const int n_tiles = max_kpos >= 0 ? max_kpos / BN + 1 - j_begin : 0;
+  __shared__ int pos_s;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -372,8 +370,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_k,
       mbar_init(bar_empty + 8 * s, CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    pos_s = p.pos_dev != nullptr ? static_cast<int>(*p.pos_dev) : p.pos;
   }
   __syncthreads();
+  const int pos = pos_s;
+  // the KV tiles any row of this block can see, as local key indices (the
+  // global position of local key i is kpos_offset + i)
+  const int max_kpos = min(pos + q_end - 1 - p.kpos_offset, p.S - 1);
+  const int min_kpos = pos + q0 - p.window + 1 - p.kpos_offset;
+  const int j_begin = min_kpos > 0 ? min_kpos / BN : 0;
+  const int n_tiles = max_kpos >= 0 ? max_kpos / BN + 1 - j_begin : 0;
 
   if (warp >= CONSUMERS / 32) {  // the producer warpgroup: one lane works
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -422,11 +428,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   // this thread's two rows: fragment rows g and g + 8 of its warp
   const int rb0 = 64 * wg + 16 * wq + (lane >> 2), rb1 = rb0 + 8;
-  const int qpos0 = p.pos + q0 + rb0 / group;
-  const int qpos1 = p.pos + q0 + rb1 / group;
+  const int qpos0 = pos + q0 + rb0 / group;
+  const int qpos1 = pos + q0 + rb1 / group;
   const int t4 = lane & 3;
   // the block's rows see all of a tile's keys from key lo_all to hi_all
-  const int qmin = p.pos + q0, qmax = p.pos + q_end - 1;
+  const int qmin = pos + q0, qmax = pos + q_end - 1;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   float acc[D / 2];
 #pragma unroll
@@ -646,8 +652,8 @@ int launch(const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
 template <bool PARTIALS>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* m,
              void* l, int T, int Hq, int Hkv, int S, int D, int is_f32,
-             int pos, int kpos_offset, int window, float scale, float softcap,
-             void* stream) {
+             int pos, const void* pos_dev, int kpos_offset, int window,
+             float scale, float softcap, void* stream) {
   const int group = Hkv > 0 ? Hq / Hkv : 0;
   if (is_f32 || (D != 64 && D != 128) || T < 1 || S < 1 || group < 1 ||
       group > BM || Hq != group * Hkv)
@@ -665,6 +671,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* m,
   p.Hkv = Hkv;
   p.S = S;
   p.pos = pos;
+  p.pos_dev = static_cast<const long long*>(pos_dev);
   p.kpos_offset = kpos_offset;
   p.window = window;
   p.group = group;
@@ -680,13 +687,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* m,
 
 // o [T,Hq,D] f32 = attention(q [T,Hq,D], k/v [Hkv,S,D]); q, k, v bf16
 // (is_f32 = 1 is refused: cudaErrorInvalidValue). D is 64 or 128; Hq / Hkv
-// at most 128.
+// at most 128. The first query's position: pos_dev, a device int64 each
+// block reads (the TPU kernel's scalar-prefetch pos: a captured graph
+// replays at any offset), or, where pos_dev is null, pos. The caller keeps
+// rows [pos, pos + T) inside the cache.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int T, int Hq, int Hkv, int S,
                                    int D, int is_f32, int pos, int window,
-                                   float scale, float softcap, void* stream) {
+                                   float scale, float softcap,
+                                   const void* pos_dev, void* stream) {
   return dispatch<false>(q, k, v, o, nullptr, nullptr, T, Hq, Hkv, S, D,
-                         is_f32, pos, 0, window, scale, softcap, stream);
+                         is_f32, pos, pos_dev, 0, window, scale, softcap,
+                         stream);
 }
 
 // One shard's partials: acc [T,Hq,D], m and l [T,Hq], all f32, of q [T,Hq,D]
@@ -697,7 +709,7 @@ extern "C" int flash_attention_partials_fwd(
     int T, int Hq, int Hkv, int S, int D, int is_f32, int pos,
     int kpos_offset, float scale, void* stream) {
   return dispatch<true>(q, k, v, acc, m, l, T, Hq, Hkv, S, D, is_f32, pos,
-                        kpos_offset, 1 << 30, scale, 0.f, stream);
+                        nullptr, kpos_offset, 1 << 30, scale, 0.f, stream);
 }
 
 extern "C" const char* nt_error_string(int code) {

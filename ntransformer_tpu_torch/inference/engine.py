@@ -23,15 +23,17 @@ stay on the card and the host reads (emit, n_acc) once an iteration.
 
 On a CUDA device the base Engine replays its programs as CUDA graphs
 (models/graphs.ForwardGraphs, the JAX package's jitted forward,
-_decode_loop_greedy and _spec_iter_greedy): `_decode_step` and `_verify`
-replay the T = 1 step and the verify window, `benchmark` the greedy loop
-step (the warm-up run captures it, the timed run replays it) and
-`generate_self_speculative_fused` the whole iteration; prefill runs
-uncaptured. Graphs hold addresses, so that Engine keeps its cache (and a
-draft model's) for its life and zeroes it where a generation starts from
+_decode_loop_greedy and _spec_iter_greedy): `_prefill` replays each
+bucketed chunk (the main model's and a draft model's), `_decode_step` and
+`_verify` the T = 1 step and the verify window, `benchmark` the greedy
+loop step (the warm-up run captures it, the timed run replays it) and
+`generate_self_speculative_fused` the whole iteration; only the
+layer-skip calibration's prefill, which returns cosines, runs uncaptured.
+Graphs hold addresses, so that Engine keeps its cache (and a draft
+model's) for its life and zeroes it where a generation starts from
 position 0, the state of a fresh cache; it serves one call at a time, as a
-BatchServer does. A step on any other cache (a caller's own KVCache) runs
-uncaptured, as does every step on the CPU.
+BatchServer does. A forward on any other cache (a caller's own KVCache)
+runs uncaptured, as does every forward on the CPU.
 
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, early exit,
@@ -240,7 +242,12 @@ class Engine:
         """Bucketed prefill of tokens[start:] at their true offsets, in
         512-token chunks past one chunk, through `model` (default the
         engine's). Returns (last logits [1, V], kv, cosines of the final
-        chunk)."""
+        chunk). On the graph path each chunk replays the prefill graph of
+        its length (ForwardGraphs.prefill; the logits are its static
+        output); a prefill with cosines (layer-skip calibration, once an
+        engine) runs uncaptured, as _decode_step does with them. The
+        lengths, so the keys: the buckets 8-512 of a prompt of one chunk,
+        the 512-token chunk, and near the cache's end S - off."""
         arch = model.arch if model is not None else self.arch
         t = len(tokens)
         S = arch.max_seq_len
@@ -266,6 +273,9 @@ class Engine:
                        model=None, with_cosine=False):
         m = model if model is not None else self.model
         sel = self.layer_sel if m is self.model else None
+        g = None if with_cosine else self._graphs_of(kv)
+        if g is not None:
+            return g.prefill(kv, padded, off, n_valid, sel), kv, None
         return forward(m.arch, m.weights, kv, torch.from_numpy(padded), off,
                        layer_sel=sel, n_valid=n_valid,
                        with_cosine=with_cosine)

@@ -26,12 +26,18 @@ draft tokens stay on the device; a round reads drafts and targets (or the
 accepted tokens) once. On a mesh the draft and verify steps are the
 sharded ones.
 
-On a CUDA device the one-device server replays captured steps
-(models/graphs.py, the JAX server's jitted steps): warmup() captures the
-decode step at full S and at every s_live rung (with spec_k, the draft and
-verify steps too) against the one batched cache the server serves from for
-its life, and each loop iteration copies its inputs in and replays. The CPU
-path and the mesh path are never captured: they call the steps directly.
+On a CUDA device the one-device server replays captured programs
+(models/graphs.py, the JAX server's jitted steps and forward): warmup()
+captures the decode step at full S and at every s_live rung (with spec_k,
+the draft and verify steps too) against the one batched cache the server
+serves from for its life, and every prefill chunk length it warms against
+the one admission cache it prefills into for its life (one admission is
+pending at a time; the cache is zeroed where an admission starts at 0, and
+a prefix-cache hit's bytes are copied into it); each loop iteration copies
+its inputs in and replays. A chunk length no warm-up reached (after a
+prefix hit, min(admit_chunk, S - off) at an offset that admit_chunk does
+not divide) is captured at first use. The CPU path and the mesh path are
+never captured: they call the steps and the forward directly.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ import torch
 
 from ..models.batched import (BatchedKV, batched_decode_step,
                               batched_verify_step)
-from ..models.graphs import StepGraphs
+from ..models.graphs import ForwardGraphs, StepGraphs
 from ..models.llama import KVCache, forward
 from ..models.loader import LoadedModel
 from .engine import Engine, _bucket
@@ -55,6 +61,11 @@ def _graphed(device) -> bool:
     """Whether a one-device server on `device` replays captured steps:
     iff the device is CUDA."""
     return torch.device(device).type == "cuda"
+
+
+def _tensors(kv: KVCache) -> list:
+    """The tensors of a KVCache (codes and scales of an int8 cache)."""
+    return [t for t in (kv.k, kv.v, kv.ks, kv.vs) if t is not None]
 
 
 @dataclass
@@ -231,9 +242,11 @@ class BatchServer:
             if 256 <= b < S and b % 128 == 0}) if attn_buckets else []
         self.mesh = mesh
         # the batched cache the loop serves from, made once (_server_kv),
-        # and on a CUDA device the graphs captured against it
+        # and on a CUDA device the graphs captured against it; there also
+        # the admission cache and its prefill graphs (_admission_graphs)
         self._bkv = None
         self._graphs: StepGraphs | None = None
+        self._adm: tuple[KVCache, ForwardGraphs] | None = None
         if mesh is not None:
             self._init_sharded(mesh, fuse)
 
@@ -339,17 +352,37 @@ class BatchServer:
                                   dot_impl=self.dot_impl))
         return keys
 
+    def _admission_graphs(self):
+        """On a one-device CUDA server (the admission cache of the server's
+        life, the ForwardGraphs bound to it), made the first time; else
+        None."""
+        if self.mesh is not None or not _graphed(self.device):
+            return None
+        if self._adm is None:
+            kv = KVCache.create(self.arch, quant=self.kv_quant,
+                                device=self.device)
+            self._adm = (kv, ForwardGraphs(self.arch, self.weights, kv))
+        return self._adm
+
     def _make_kv(self):
-        """An admission's cache: one KVCache, or on a mesh one per shard
-        of the prefill row (None for another process's shard)."""
+        """An admission's cache from position 0: one KVCache (on a CUDA
+        device the server's own, zeroed), or on a mesh one per shard of the
+        prefill row (None for another process's shard)."""
         if self.mesh is not None:
             from ..parallel.tp import make_tp_kv
             return make_tp_kv(self.arch, self._row, self.kv_quant)
-        return KVCache.create(self.arch, quant=self.kv_quant,
-                              device=self.device)
+        held = self._admission_graphs()
+        if held is None:
+            return KVCache.create(self.arch, quant=self.kv_quant,
+                                  device=self.device)
+        for t in _tensors(held[0]):
+            t.zero_()
+        return held[0]
 
     def _prefill(self, weights, kv, padded, off, n_valid):
         tokens = torch.from_numpy(padded)
+        if self._adm is not None and kv is self._adm[0]:
+            return self._adm[1].prefill(kv, padded, off, n_valid), kv
         if self.mesh is None:
             logits, kv, _ = forward(self.arch, weights, kv, tokens, off,
                                     n_valid=n_valid)
@@ -381,8 +414,10 @@ class BatchServer:
 
     def _prefix_lookup(self, ids: list[int]):
         """(a copy of the cached cache, start) for the entry sharing the
-        longest prefix with `ids` (LRU-refreshed), or (None, 0). At least
-        one token always prefills (the sampler needs its logits)."""
+        longest prefix with `ids` (LRU-refreshed), or (None, 0); on a CUDA
+        device the copy is the admission cache the server keeps, the hit's
+        bytes copied into it. At least one token always prefills (the
+        sampler needs its logits)."""
         best_n, best_i = 0, -1
         for i, (cached, _) in enumerate(self._pcache):
             n = 0
@@ -397,13 +432,22 @@ class BatchServer:
         kv = self._pcache[-1][1]
         if isinstance(kv, list):   # a mesh's per-shard caches
             return [None if c is None else c.clone() for c in kv], best_n
-        return kv.clone(), best_n
+        held = self._admission_graphs()
+        if held is None:
+            return kv.clone(), best_n
+        for dst, src in zip(_tensors(held[0]), _tensors(kv)):
+            dst.copy_(src)
+        return held[0], best_n
 
     def _prefix_store(self, ids: list[int], kv: KVCache) -> None:
         """Keep a finished admission's prompt cache for prefix reuse (the
-        slot insert copies it into the batched cache, so it stays valid)."""
+        slot insert copies it into the batched cache, so it stays valid; the
+        server's own admission cache, which the next admission rewrites, is
+        kept as a clone)."""
         if not self.prefix_cache:
             return
+        if self._adm is not None and kv is self._adm[0]:
+            kv = kv.clone()
         for i, (cached, _) in enumerate(self._pcache):
             if cached == ids:       # replace an identical-prompt entry
                 self._pcache.pop(i)
@@ -417,12 +461,13 @@ class BatchServer:
         first request: the decode step (with spec_k, the draft and verify
         steps and the sampled accept round too) at full S and at every
         s_live rung, the slot insert, every prefill shape _Admission.step
-        can produce (the first-chunk bucket ladder up to admit_chunk, the
-        steady chunk and the tail chunk of a context that admit_chunk does
-        not divide) and the sampler. On the card this builds the kernels and warms the
-        allocator outside the serve clock, and on one device it first
-        captures every step key it then runs (the steps below replay).
-        Returns the wall seconds."""
+        can produce from position 0 (the first-chunk bucket ladder up to
+        admit_chunk, the steady chunk and the tail chunk of a context that
+        admit_chunk does not divide) and the sampler. On the card this
+        builds the kernels and warms the allocator outside the serve clock,
+        and on one device it first captures every step key and every
+        prefill length it then runs (the calls below replay). Returns the
+        wall seconds."""
         t0 = time.perf_counter()
         arch = self.arch
         bkv = self._server_kv()
@@ -454,6 +499,10 @@ class BatchServer:
         while off < S:
             shapes.add(min(chunk, S - off))
             off += chunk
+        held = self._admission_graphs()
+        if held is not None:
+            held[1].capture([held[1].key("prefill", p)
+                             for p in sorted(shapes)])
         for p in sorted(shapes):
             lg, kv = self._prefill(self.weights, kv, np.zeros(p, np.int64), 0,
                                    p)

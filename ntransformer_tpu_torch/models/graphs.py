@@ -12,11 +12,13 @@ uncaptured call computes from the same state.
   * StepGraphs: the batched decode and verify steps (ntransformer_tpu/
     models/batched.py: `jax.jit` of batched_decode_step with the cache
     donated, and of batched_verify_step), which BatchServer replays;
-  * ForwardGraphs: the resident Engine's programs (ntransformer_tpu/
-    models/llama.py `forward` with a traced pos, inference/engine.py
-    `_decode_loop_greedy` and `_spec_iter_greedy`): the T = 1 step, the
-    all-logits verify window, one step of the greedy loop and the fused
-    self-speculative iteration.
+  * ForwardGraphs: the one-device forward's programs (ntransformer_tpu/
+    models/llama.py `forward` with a traced pos and n_valid, inference/
+    engine.py `_decode_loop_greedy` and `_spec_iter_greedy`): the T = 1
+    step, the all-logits verify window of any length, a bucketed prefill
+    chunk, one step of the greedy loop and the fused self-speculative
+    iteration. The resident Engine, BatchServer's admissions and the
+    perplexity tool replay them.
 
 Each is bound to one cache and one ModelWeights on one CUDA device, since
 its graphs hold their addresses, and captures on its own stream into one
@@ -52,7 +54,7 @@ from .batched import (BatchedKV, batched_decode_step, batched_verify_step,
 from .llama import Arch, KVCache, ModelWeights, forward
 
 KINDS = ("decode", "draft", "verify")
-FORWARD_KINDS = ("step", "verify", "loop", "spec")
+FORWARD_KINDS = ("step", "verify", "prefill", "loop", "spec")
 
 
 class CudaGraph:
@@ -240,8 +242,8 @@ class StepGraphs:
 
 class ForwardKey(NamedTuple):
     """What fixes a captured resident program's kernels and plans."""
-    kind: str                 # "step", "verify", "loop", "spec"
-    t: int                    # tokens a forward: 1, or the verify window
+    kind: str                 # "step", "verify", "prefill", "loop", "spec"
+    t: int                    # tokens a forward: 1, or the window
     layers: tuple | None      # the layer list (None: the whole stack)
     k: int | None             # spec: the drafted tokens
     n_draft: int | None       # spec: the draft's layer prefix
@@ -251,14 +253,19 @@ class ForwardKey(NamedTuple):
 
 
 class ForwardGraphs:
-    """The resident Engine's captured programs over one KVCache, one graph
-    a ForwardKey. The kinds:
+    """The one-device forward's captured programs over one KVCache, one
+    graph a ForwardKey. The kinds:
 
       step:   forward at T = 1 of the static token at the static pos
               through `layers` (the engine's layer-skip schedule or a
               draft's prefix), returning logits [1, V];
-      verify: forward(all_logits=True) of a static [t] window at pos,
+      verify: forward(all_logits=True) of a static [t] window at pos, any
+              t (the flash kernel reads pos on the card from t = 64),
               returning logits [t, V];
+      prefill: forward(n_valid=) of a static [t] window (a bucketed chunk,
+              padded past its n_valid real tokens) at pos, with the static
+              n_valid on the device: the padded rows keep what the cache
+              held, and the logits [1, V] are the last valid row's;
       loop:   one step of the greedy loop (_decode_loop_greedy): the step,
               then its argmax written into the static token and at index i
               of a static [n_steps] buffer, pos and i advanced by one, all
@@ -270,8 +277,9 @@ class ForwardGraphs:
               device, returning [k + 2]: emit [k + 1], then n_acc.
 
     Positions are host ints the caller keeps inside the cache (checked
-    here); the static pos is a device tensor, which the captured forward
-    never reads on the host."""
+    here); the static pos and n_valid are device tensors, which the
+    captured forward never reads on the host. A prefill or verify window's
+    key is its length t, so one graph serves every offset and n_valid."""
 
     def __init__(self, arch: Arch, weights: ModelWeights, kv: KVCache):
         self.arch, self.weights, self.kv = arch, weights, kv
@@ -284,7 +292,8 @@ class ForwardGraphs:
         self._tok = zeros(1)     # the token fed next (spec: the anchor)
         self._pos = zeros()      # its position
         self._i = zeros()        # loop: the buffer index written next
-        self._windows: dict[int, torch.Tensor] = {}  # verify: [t] by t
+        self._n_valid = zeros()  # prefill: the window's real tokens
+        self._windows: dict[int, torch.Tensor] = {}  # verify, prefill: [t]
         self._bufs: dict[int, torch.Tensor] = {}     # loop: [n] by n_steps
         self._zeros = zeros
         self._graphs: dict[ForwardKey, tuple] = {}  # (graph, output)
@@ -307,7 +316,7 @@ class ForwardGraphs:
             raise ValueError("a loop step takes n_steps, and only it")
         if kind == "spec":
             t = k + 1
-        elif kind != "verify" and t != 1:
+        elif kind not in ("verify", "prefill") and t != 1:
             raise ValueError(f"a {kind} forward takes one token, not {t}")
         return ForwardKey(kind, int(t),
                           None if layers is None else
@@ -320,14 +329,14 @@ class ForwardGraphs:
 
     def _inputs(self, key: ForwardKey) -> None:
         """Make the key's static window or buffer."""
-        if key.kind == "verify" and key.t not in self._windows:
+        if key.kind in ("verify", "prefill") and key.t not in self._windows:
             self._windows[key.t] = self._zeros(key.t)
         if key.kind == "loop" and key.n_steps not in self._bufs:
             self._bufs[key.n_steps] = self._zeros(key.n_steps)
 
     def _statics(self) -> list:
-        return [self._tok, self._pos, self._i, *self._windows.values(),
-                *self._bufs.values()]
+        return [self._tok, self._pos, self._i, self._n_valid,
+                *self._windows.values(), *self._bufs.values()]
 
     def _body(self, key: ForwardKey):
         """The uncaptured program of `key` over the static tensors."""
@@ -340,6 +349,10 @@ class ForwardGraphs:
             win = self._windows[key.t]
             return lambda: forward(a, w, kv, win, self._pos, layer_sel=sel,
                                    all_logits=True)[0]
+        if key.kind == "prefill":
+            win = self._windows[key.t]
+            return lambda: forward(a, w, kv, win, self._pos, layer_sel=sel,
+                                   n_valid=self._n_valid)[0]
         if key.kind == "loop":
             buf = self._bufs[key.n_steps]
 
@@ -368,10 +381,10 @@ class ForwardGraphs:
     def capture(self, keys) -> None:
         """Capture every key not captured yet: one uncaptured warm-up call
         of each, then each capture, all into one memory pool. Every call
-        runs at the cache's last rows from zeroed inputs, and those rows
-        and the static inputs are put back afterwards: nothing a warm-up
-        (or a graph double that runs its program at capture) writes is
-        left for a later call to read."""
+        runs at the cache's last rows from zeroed inputs (n_valid 1), and
+        those rows and the static inputs are put back afterwards: nothing a
+        warm-up (or a graph double that runs its program at capture) writes
+        is left for a later call to read."""
         new = [k for k in dict.fromkeys(keys) if k not in self._graphs]
         if not new:
             return
@@ -388,6 +401,7 @@ class ForwardGraphs:
                 for s in self._statics():
                     s.zero_()
                 self._pos.fill_(lo)
+                self._n_valid.fill_(1)
             try:
                 for k in new:
                     park()
@@ -454,6 +468,22 @@ class ForwardGraphs:
         key = self.key("verify", tokens.numel(), layers=layers)
         graph, out = self._graph(kv, key, pos, key.t)
         self._feed(self._windows[key.t], tokens)
+        self._play(key, graph)
+        return out
+
+    @torch.inference_mode()
+    def prefill(self, kv: KVCache, tokens, pos: int, n_valid: int,
+                layers=None):
+        """Replay forward(kv, tokens, pos, layer_sel=layers,
+        n_valid=n_valid) of a padded [t] window, 1 <= n_valid <= t: the
+        last valid row's logits [1, V]."""
+        tokens = torch.as_tensor(tokens)
+        key = self.key("prefill", tokens.numel(), layers=layers)
+        if not 1 <= n_valid <= key.t:
+            raise ValueError(f"n_valid {n_valid} of a {key.t}-token window")
+        graph, out = self._graph(kv, key, pos, key.t)
+        self._feed(self._windows[key.t], tokens)
+        self._n_valid.fill_(n_valid)
         self._play(key, graph)
         return out
 

@@ -24,14 +24,17 @@ expert index never leaves the card), at T > 1 a dense loop over every
 expert weighs each row by its routing, as the JAX package does.
 
 `pos`, the first cache row a forward writes, is a host int or a 0-d int64
-tensor on the weights' device (the JAX forward's traced `pos`). With a
-tensor nothing reads it on the host: the RoPE rows are an index_select at
-pos + arange(T), the cache rows are written with index_copy_ and the mask
-is built on the device, so the forward can be captured once and replayed
-at any position (models/graphs.py). The two forms compute the same values.
-A device pos serves the one-device decode and verify windows (T < 64); the
-prefill (whose flash kernel takes its position as a launch argument) and
-the mesh paths take a host int.
+tensor on the weights' device (the JAX forward's traced `pos`), and
+`n_valid`, the real tokens of a bucketed prefill, takes the same form.
+With tensors nothing reads them on the host: the RoPE rows are an
+index_select at pos + arange(T), all T cache rows are written with
+index_copy_ (a padded row with the value it held, the JAX forward's
+where + dynamic_update_slice), the mask is built on the device, the flash
+kernel reads pos on the card and the head picks row n_valid - 1 with
+index_select, so the forward can be captured once and replayed at any
+position (models/graphs.py). The two forms compute the same values. A
+device pos serves the one-device forward at any T; the mesh paths take a
+host int.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.layers import (FLASH_MIN_Q, _psum, apply_rope, attention,
+from ..ops.layers import (_psum, apply_rope, attention,
                           attention_cp_dispatch, rms_norm, swiglu)
 from ..ops.linear import QLinear, embed_lookup, qmatmul
 
@@ -341,8 +344,9 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
                sin_t, n_valid=None, layer: int = 0, abs_layer=None):
     """The attention half of one block through its residual add. x [T, H]
     f32; kv_k/kv_v [Hkv, S, D] views of this layer's cache, written in
-    place at rows [pos, pos + n_valid); pos a host int or a 0-d device
-    tensor (forward). `layer` indexes the stacked weights; abs_layer
+    place at rows [pos, pos + n_valid); pos and n_valid host ints or 0-d
+    device tensors (forward; then all T rows are written, a padded one
+    with what it held). `layer` indexes the stacked weights; abs_layer
     (default `layer`) is the layer's depth in the model,
     which picks its sliding window and rope table (a streamed layer's
     weights are a stack of one). Under context parallelism (parallel/cp.py)
@@ -399,12 +403,17 @@ def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
     k = apply_rope(k, cos_t, sin_t, arch.rope_interleaved)
     k = k.transpose(0, 1)  # [Hkv, T, D] f32
     v = v.transpose(0, 1)
-    n = T if n_valid is None else int(n_valid)
     cp = isinstance(kv_k, list)
-    # a device pos: the new rows' indices, built on the device; the caller
-    # keeps them inside the cache, on the host
-    idx = (pos + torch.arange(T, device=pos.device)
-           if isinstance(pos, torch.Tensor) else None)
+    # a device pos: the new rows' indices, built on the device (the caller
+    # keeps them inside the cache, on the host), and with a device n_valid
+    # the rows to keep; every one of the T rows is written
+    idx = keep = None
+    if isinstance(pos, torch.Tensor):
+        ar = torch.arange(T, device=pos.device)
+        idx = pos + ar
+        if n_valid is not None:
+            keep = (ar < n_valid)[None, :, None]
+    n = T if n_valid is None or idx is not None else int(n_valid)
     if cp:
         rows = kv_k[0].shape[1] * len(kv_k)
     else:
@@ -439,7 +448,7 @@ def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
             if idx is None:
                 dst[:, pos:pos + n] = new[:, :n]
             else:
-                dst.index_copy_(1, idx, new)
+                _write_rows(dst, new, idx, keep)
         kf = kc.to(torch.bfloat16) * ksc.to(torch.bfloat16)
         vf = vc.to(torch.bfloat16) * vsc.to(torch.bfloat16)
     else:
@@ -447,13 +456,23 @@ def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
             if idx is None:
                 dst[:, pos:pos + n] = new[:, :n].to(dst.dtype)
             else:
-                dst.index_copy_(1, idx, new.to(dst.dtype))
+                _write_rows(dst, new.to(dst.dtype), idx, keep)
         kf, vf = kv_k, kv_v
     if not cp:
         att = attention(q, kf, vf, pos, T, q_scale, window=window,
                         softcap=arch.attn_softcap)
     return qmatmul(att.reshape(T, Hq * D).to(torch.bfloat16), lw.wo,
                    layer=layer)
+
+
+def _write_rows(dst: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+                keep) -> None:
+    """Write new [Hkv, T, ...] into dst's rows idx (axis 1) on the device;
+    keep [1, T, 1] (a device n_valid's rows) takes the rows that dst holds
+    where it is false, as the JAX forward merges the padding."""
+    if keep is not None:
+        new = torch.where(keep, new, dst.index_select(1, idx))
+    dst.index_copy_(1, idx, new)
 
 
 def quantize_rows(k: torch.Tensor, v: torch.Tensor):
@@ -530,6 +549,9 @@ def head_logits(arch: Arch, weights: ModelWeights, x, n_valid=None,
                  arch.norm_eps)
     if all_logits:
         sel = x
+    elif isinstance(n_valid, torch.Tensor):
+        # the JAX dynamic_slice at n_valid - 1, on the device
+        sel = x.index_select(0, n_valid.reshape(1) - 1)
     elif n_valid is not None:
         sel = x[int(n_valid) - 1:int(n_valid)]
     else:
@@ -719,10 +741,11 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos,
 
     tokens [T] int; pos: write offset into the cache, a host int or a 0-d
     (or 1-element) int64 tensor on the weights' device, which nothing reads
-    on the host (the module docstring; T < 64, no n_valid, no cp/tp mesh;
-    the caller keeps rows [pos, pos + T) inside the cache). layer_sel:
-    indices of the layers to run, in order (None = all). n_valid: real
-    tokens of a bucketed prefill. The cache is updated in place. Returns
+    on the host (the module docstring; no cp/tp mesh; the caller keeps rows
+    [pos, pos + T) inside the cache). layer_sel: indices of the layers to
+    run, in order (None = all). n_valid: real tokens of a bucketed prefill,
+    of pos's form (a host int, or with a device pos a 0-d int64 tensor
+    beside it). The cache is updated in place. Returns
     (logits [T or 1, V] f32, kv, cosines [len(layers)] f32 or None). The
     meshes (tuples of torch devices, parallel/):
 
@@ -740,15 +763,18 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos,
           shards' ModelWeights (ep.shard_weights_ep), the cache one cache
           on the first device, where everything but the experts runs."""
     if isinstance(pos, torch.Tensor):
-        if cp is not None or tp is not None or n_valid is not None:
-            raise ValueError("a device pos runs the one-device decode and "
-                             "verify windows: no cp/tp mesh, no n_valid")
-        if torch.as_tensor(tokens).reshape(-1).shape[0] >= FLASH_MIN_Q:
-            raise ValueError(f"a device pos takes fewer than {FLASH_MIN_Q} "
-                             "tokens (the flash prefill takes its position "
-                             "as a launch argument)")
+        if cp is not None or tp is not None:
+            raise ValueError("a device pos runs the one-device forward: no "
+                             "cp/tp mesh")
+        if n_valid is not None and not isinstance(n_valid, torch.Tensor):
+            raise ValueError("a device pos takes n_valid as a 0-d device "
+                             "tensor, not a host int")
         pos = pos.reshape(())
+        if n_valid is not None:
+            n_valid = n_valid.reshape(())
     else:
+        if isinstance(n_valid, torch.Tensor):
+            raise ValueError("a device n_valid goes with a device pos")
         pos = operator.index(pos)
     if ep is not None and (cp is not None or tp is not None):
         raise ValueError("--ep is its own mesh (expert axis); it does not "

@@ -7,7 +7,9 @@ _attn_kernel, both entries:
                             cache k/v [Hkv,S,D]: online softmax in f32, p
                             rounded to bf16 before the PV product, KV tiles
                             past causality or below the window skipped.
-                            Returns [T,Hq,D] f32.
+                            Returns [T,Hq,D] f32. The offset is a host int
+                            or, as the TPU kernel's scalar prefetch, an
+                            int64 on the card that each block reads.
   flash_attention_partials  one shard's pass under context parallelism: the
                             cache is a [Hkv,S_local,D] slice whose key i sits
                             at global position kpos_offset + i. Returns the
@@ -38,7 +40,7 @@ PARTIALS_REPLACES = ("ntransformer_tpu/ops/pallas/attention.py:210 "
                      "flash_attention_partials")
 _SIGNATURES = {"flash_attention_fwd": [ctypes.c_void_p] * 4
                + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-               + [ctypes.c_void_p],
+               + [ctypes.c_void_p] * 2,
                "flash_attention_partials_fwd": [ctypes.c_void_p] * 6
                + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_void_p]}
 NO_WINDOW = 2 ** 30  # a window larger than any context masks nothing
@@ -80,24 +82,39 @@ def check_dims(q, k_cache, v_cache):
     return t, hq, hkv, s, d
 
 
-def flash_attention_plain(q, k_cache, v_cache, pos: int, q_len: int,
+def flash_attention_plain(q, k_cache, v_cache, pos, q_len: int,
                           scale: float, *, window=None,
                           softcap: float = 0.0) -> torch.Tensor:
     """The kernel's function in plain PyTorch: attention_torch of q cast to
-    the cache dtype (the kernel's operand types)."""
+    the cache dtype (the kernel's operand types); pos a host int or a 0-d
+    device tensor."""
     return attention_torch(q.to(k_cache.dtype), k_cache, v_cache, pos, q_len,
                            scale, window=window, softcap=softcap)
 
 
-def flash_attention_cuda(q, k_cache, v_cache, pos: int, q_len: int,
+def flash_attention_cuda(q, k_cache, v_cache, pos, q_len: int,
                          scale: float, *, window=None,
                          softcap: float = 0.0) -> torch.Tensor:
     """Causal GQA flash attention, [T,Hq,D] f32. q is cast to the cache
-    dtype. On a CPU tensor this is the plain twin (any float cache); on a
+    dtype. pos: the first query's position, a host int (checked against the
+    cache here) or a 0-d int64 tensor on q's device, which the kernel reads
+    on the card and nothing reads on the host (the caller keeps rows
+    [pos, pos + T) inside the cache; a CUDA graph replays the call at any
+    offset). On a CPU tensor this is the plain twin (any float cache); on a
     CUDA tensor it launches the kernel (a bf16 cache) or raises."""
     global launches
-    pos = int(pos)
-    t, hq, hkv, s, d = check_shapes(q, k_cache, v_cache, pos)
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        t, hq, hkv, s, d = check_dims(q, k_cache, v_cache)
+        if pos.numel() != 1 or pos.dtype != torch.int64 \
+                or pos.device != q.device:
+            raise ValueError(f"a device pos is one int64 on q's device; got "
+                             f"{pos.dtype} {tuple(pos.shape)} on "
+                             f"{pos.device}")
+        pos = pos.reshape(())
+    else:
+        pos = int(pos)
+        t, hq, hkv, s, d = check_shapes(q, k_cache, v_cache, pos)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k_cache, v_cache, pos, q_len, scale,
                                      window=window, softcap=softcap)
@@ -108,9 +125,10 @@ def flash_attention_cuda(q, k_cache, v_cache, pos: int, q_len: int,
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), t, hq, hkv, s, d,
-            int(k_cache.dtype == torch.float32), pos,
+            int(k_cache.dtype == torch.float32), 0 if on_device else pos,
             NO_WINDOW if window is None else int(window), float(scale),
-            float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
+            float(softcap), pos.data_ptr() if on_device else None,
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, NAME)
     launches += 1
     return out

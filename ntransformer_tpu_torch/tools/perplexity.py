@@ -4,7 +4,11 @@ Port of tools/perplexity.py: the PPL of a GGUF model over a text corpus in
 non-overlapping teacher-forced windows, comparable across quantizations of
 the same model. Each window's summed NLL is computed on the model's device
 (log-softmax and the target gather included) and one scalar is read to the
-host per window.
+host per window. On a CUDA device a run holds one cache and replays its
+forwards as CUDA graphs (models/graphs.ForwardGraphs, the JAX package's
+jitted forward): each window's all-logits forward at pos 0 (one graph a
+window length), or in decode mode the T = 1 step; the NLL reduction runs
+outside the graphs.
 
 Usage: python -m ntransformer_tpu_torch.tools.perplexity -m model.gguf
        -f corpus.txt [--ctx 512] [--mode prefill|decode] [--device cpu]
@@ -17,32 +21,67 @@ import sys
 
 import torch
 
+from ..models.graphs import ForwardGraphs
 from ..models.llama import KVCache, forward
 from ..models.loader import load_model
 
 
+def _graphed(device) -> bool:
+    """Whether a run on `device` replays captured forwards: iff the device
+    is CUDA."""
+    return torch.device(device).type == "cuda"
+
+
+class _Run:
+    """The cache one run holds, zeroed for each window, and on a CUDA
+    device the ForwardGraphs bound to it (None on the CPU, which calls the
+    forward directly)."""
+
+    def __init__(self, model):
+        self.kv = KVCache.create(model.arch, device=model.device)
+        self.graphs = (ForwardGraphs(model.arch, model.weights, self.kv)
+                       if _graphed(model.device) else None)
+
+    def start(self) -> KVCache:
+        for t in (self.kv.k, self.kv.v):
+            t.zero_()
+        return self.kv
+
+
 @torch.inference_mode()
-def window_nll(model, ids: torch.Tensor) -> torch.Tensor:
-    """Summed NLL of one window through one all-logits forward (the T > 1
-    prefill path), as a device scalar."""
-    kv = KVCache.create(model.arch, device=model.device)
-    logits, _, _ = forward(model.arch, model.weights, kv, ids, 0,
-                           all_logits=True)
+def window_nll(model, ids: torch.Tensor, run: _Run | None = None
+               ) -> torch.Tensor:
+    """Summed NLL of one window through one all-logits forward at pos 0
+    (the T > 1 prefill path; a verify graph replayed on run's cache on a
+    CUDA device), as a device scalar."""
+    run = run or _Run(model)
+    kv = run.start()
+    if run.graphs is not None:
+        logits = run.graphs.verify(kv, ids, 0)
+    else:
+        logits, _, _ = forward(model.arch, model.weights, kv, ids, 0,
+                               all_logits=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp[:-1].gather(1, ids[1:, None]).sum()
 
 
 @torch.inference_mode()
-def window_nll_decode(model, ids: torch.Tensor) -> torch.Tensor:
+def window_nll_decode(model, ids: torch.Tensor, run: _Run | None = None
+                      ) -> torch.Tensor:
     """Summed NLL of one window stepped one token at a time (T = 1) through
-    the resident forward and its cache: the decode path, whose numerics the
-    W4A8 format changes (its T = 1 product quantizes the activations to
-    int8, its T > 1 product dequantizes exactly). A device scalar."""
-    kv = KVCache.create(model.arch, device=model.device)
+    the resident forward and its cache (the step graph replayed on run's
+    cache on a CUDA device): the decode path, whose numerics the W4A8
+    format changes (its T = 1 product quantizes the activations to int8,
+    its T > 1 product dequantizes exactly). A device scalar."""
+    run = run or _Run(model)
+    kv = run.start()
     total = torch.zeros((), dtype=torch.float32, device=model.device)
     for i in range(ids.shape[0] - 1):
-        logits, kv, _ = forward(model.arch, model.weights, kv, ids[i:i + 1],
-                                i)
+        if run.graphs is not None:
+            logits = run.graphs.step(kv, ids[i:i + 1], i)
+        else:
+            logits, kv, _ = forward(model.arch, model.weights, kv,
+                                    ids[i:i + 1], i)
         total -= torch.log_softmax(logits[0].float(), dim=-1)[ids[i + 1]]
     return total
 
@@ -57,6 +96,7 @@ def perplexity(model, token_ids: list[int], ctx: int = 512,
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     ctx = min(ctx, model.arch.max_seq_len)
     fn = window_nll if mode == "prefill" else window_nll_decode
+    run = _Run(model)
     total_nll, total_tok = 0.0, 0
     n_windows = max(1, len(token_ids) // ctx)
     for w in range(n_windows):
@@ -64,7 +104,7 @@ def perplexity(model, token_ids: list[int], ctx: int = 512,
         if len(ids) < 2:
             break
         t = torch.tensor(ids, dtype=torch.long, device=model.device)
-        total_nll += float(fn(model, t))  # the window's one host read
+        total_nll += float(fn(model, t, run))  # the window's one host read
         total_tok += len(ids) - 1
         if progress:
             progress(w + 1, n_windows, math.exp(total_nll / total_tok))

@@ -168,18 +168,20 @@ def test_device_pos_forward_matches_jax_and_host_pos(files, which, quant):
 
 
 def test_device_pos_refusals(files):
-    """A device pos runs the one-device decode and verify windows: with
-    n_valid, a mesh or a window the flash prefill would take, it raises."""
+    """A device pos runs the one-device forward at any T, with n_valid as
+    a device tensor beside it: a host n_valid with it (or a device n_valid
+    with a host pos) and a mesh raise, and write nothing."""
     m = load_model(files["llama_q8_0"], device="cpu", max_seq_len=128)
     kv = pl.KVCache.create(m.arch, device="cpu")
     pos = torch.tensor(0)
-    with pytest.raises(ValueError, match="no n_valid"):
+    with pytest.raises(ValueError, match="not a host int"):
         pl.forward(m.arch, m.weights, kv, [1, 2], pos, n_valid=1)
+    with pytest.raises(ValueError, match="device n_valid goes with"):
+        pl.forward(m.arch, m.weights, kv, [1, 2], 0,
+                   n_valid=torch.tensor(1))
     with pytest.raises(ValueError, match="mesh"):
         pl.forward(m.arch, [m.weights], [kv], [1], pos,
                    tp=(torch.device("cpu"),))
-    with pytest.raises(ValueError, match="fewer than 64"):
-        pl.forward(m.arch, m.weights, kv, list(range(64)), pos)
     assert float(kv.k.abs().max()) == 0.0
 
 
@@ -193,7 +195,8 @@ def test_graphed_generate_matches_jax_and_direct(recorded, files, which,
                                                  quant, sampled):
     """Engine.generate through the graph path: the JAX package's greedy
     text, and the direct path's tokens (greedy, or sampled with one seed)
-    bit for bit; every decode step a replay of the one step key."""
+    bit for bit; the prefill one replay of its chunk's key, every decode
+    step a replay of the one step key."""
     path = files[which]
     prompt = PROMPT["repolm512" if which == "repolm512" else "tiny"]
     m = load_model(path, device="cpu", max_seq_len=256)
@@ -204,7 +207,9 @@ def test_graphed_generate_matches_jax_and_direct(recorded, files, which,
     eng = Engine(m, kv_quant=quant)
     got, st = _run(eng, "generate", prompt, cfg)
     g = _held(eng)[1]
-    assert set(g.replays) == {g.key("step")} and g.captures == 1
+    pre = g.key("prefill", pe._bucket(st.prefill_tokens))
+    assert set(g.replays) == {pre, g.key("step")} and g.captures == 2
+    assert g.replays[pre] == 1
     assert g.replays[g.key("step")] == st.decode_tokens > 0
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pe, "_graphed", lambda device: False)
@@ -225,7 +230,8 @@ def test_graphed_loop_matches_jax_decode_loop(recorded, files, quant):
     times from one prefilled cache): the JAX _decode_loop_greedy's tokens,
     the direct loop's tokens and cache bit for bit; Engine.benchmark
     captures the loop key once in its warm-up run and replays it in both
-    runs."""
+    runs (and the prefill chunk's key, captured at the first prefill, in
+    its prefill)."""
     n = 8
     m = load_model(REPOLM, device="cpu", max_seq_len=256)
     jm = jax_load_model(REPOLM, max_seq_len=256)
@@ -250,10 +256,11 @@ def test_graphed_loop_matches_jax_decode_loop(recorded, files, quant):
     assert _same_cache(kv, direct)
     g = _held(eng)[1]
     loop = g.key("loop", n_steps=n)
-    assert g.replays == {loop: n}
+    pre = g.key("prefill", pe._bucket(len(ids)))
+    assert g.replays == {pre: 1, loop: n}
     st = eng.benchmark(prompt_ids=ids, n_tokens=n)
-    assert st.decode_tokens == n and g.captures == 1
-    assert g.replays == {loop: 3 * n}
+    assert st.decode_tokens == n and g.captures == 2
+    assert g.replays == {pre: 2, loop: 3 * n}
 
 
 @pytest.mark.parametrize("n_draft", [6, 1], ids=["full-accept", "mismatch"])
@@ -291,8 +298,9 @@ def test_graphed_spec_iter_matches_jax(recorded, files, n_draft):
         assert _same_cache(kv, direct)
         accepted.append(int(n_acc))
     assert (accepted == [K] * 4) == (n_draft == m.arch.n_layers)
-    assert g.captures == 1 and g.replays == {g.key("spec", k=K,
-                                                   n_draft=n_draft): 4}
+    assert g.captures == 2 and g.replays == {
+        g.key("prefill", pe._bucket(len(ids))): 1,
+        g.key("spec", k=K, n_draft=n_draft): 4}
 
 
 @pytest.mark.parametrize("which,method", [
@@ -318,11 +326,12 @@ def test_graphed_speculation_matches_jax_and_direct(recorded, files, which,
                  load_model(draft, device="cpu", **kw) if spec else None)
     got, st = _run(eng, method, prompt, cfg)
     kinds = {k.kind for k in _held(eng)[1].replays}
-    assert kinds == ({"spec"} if method.endswith("fused") else
-                     {"verify"} if spec else {"step", "verify"})
+    assert kinds == {"prefill"} | ({"spec"} if method.endswith("fused") else
+                                   {"verify"} if spec else {"step", "verify"})
     if spec:
-        assert set(_held(eng, "draft")[1].replays) == \
-            {_held(eng, "draft")[1].key("step")}
+        dg = _held(eng, "draft")[1]
+        assert set(dg.replays) == {dg.key("step"), dg.key(
+            "prefill", pe._bucket(st.prefill_tokens))}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pe, "_graphed", lambda device: False)
         plain, pst = _run(Engine(eng.model, eng.draft), method, prompt, cfg)
@@ -339,9 +348,9 @@ def test_graphed_speculation_matches_jax_and_direct(recorded, files, which,
 def test_graphed_chat_matches_jax_chat_session(recorded):
     """Two turns through one ChatSession on repolm512: the JAX
     ChatSession's texts and prefill counts (turn 2 prefills only its new
-    tokens, from the engine's own cache); a generate between the turns
-    writes that cache, so the next turn prefills whole and equals a fresh
-    prefill's text."""
+    tokens, from the engine's own cache, replaying its chunk's key); a
+    generate between the turns writes that cache, so the next turn
+    prefills whole and equals a fresh prefill's text."""
     m = load_model(REPOLM, device="cpu", max_seq_len=256)
     cfg, jcfg = _greedy(6)
     eng, jeng = Engine(m), JEngine(jax_load_model(REPOLM, max_seq_len=256))
@@ -370,7 +379,8 @@ def test_graphed_chat_matches_jax_chat_session(recorded):
     fresh, st_fresh = eng.generate("", cfg, prompt_ids=ids3)
     assert st3.prefill_tokens == st_fresh.prefill_tokens == len(ids3)
     assert again == fresh
-    assert _held(eng)[1].captures == 1
+    kinds = [k.kind for k in _held(eng)[1]._graphs]
+    assert kinds.count("step") == 1 and set(kinds) == {"prefill", "step"}
 
 
 # ------------------------------------------------- no host read in a capture
@@ -472,7 +482,7 @@ def test_no_captured_program_reads_the_device_on_the_host(
 def test_repeated_key_replays_without_a_new_capture(recorded, files):
     """Two generate calls and two benchmarks: one capture a key (the cache
     kept across calls, zeroed at each start); a layer-skip schedule is a
-    new key."""
+    new key, for the prefill and the step."""
     eng = Engine(load_model(files["llama_q8_0"], device="cpu",
                             max_seq_len=128))
     cfg, _ = _greedy(5)
@@ -482,11 +492,14 @@ def test_repeated_key_replays_without_a_new_capture(recorded, files):
     assert first == second and _held(eng)[0] is kv
     eng.benchmark(PROMPT["tiny"], n_tokens=4)
     eng.benchmark(PROMPT["tiny"], n_tokens=4)
-    assert g.captures == len(recorded) == 2
-    assert g.replays == {g.key("step"): 10, g.key("loop", n_steps=4): 16}
+    t = pe._bucket(len(eng._encode(PROMPT["tiny"])))
+    assert g.captures == len(recorded) == 3
+    assert g.replays == {g.key("prefill", t): 4, g.key("step"): 10,
+                         g.key("loop", n_steps=4): 16}
     eng.layer_sel = np.array([0, 1, 3])
     eng.generate(PROMPT["tiny"], cfg)
-    assert g.captures == 3 and g.key("step", layers=(0, 1, 3)) in g.replays
+    assert g.captures == 5 and g.key("step", layers=(0, 1, 3)) in g.replays
+    assert g.key("prefill", t, layers=(0, 1, 3)) in g.replays
 
 
 def test_foreign_cache_raises_and_runs_uncaptured_in_the_engine(recorded,
@@ -501,7 +514,7 @@ def test_foreign_cache_raises_and_runs_uncaptured_in_the_engine(recorded,
     with pytest.raises(ValueError, match="exceed"):
         g.step(kv, 3, 64)
     with pytest.raises(ValueError, match="forward kind"):
-        g.key("prefill")
+        g.key("decode")
     assert g.captures == 0
     eng = Engine(m)
     own = eng._make_kv()
@@ -510,9 +523,9 @@ def test_foreign_cache_raises_and_runs_uncaptured_in_the_engine(recorded,
 
 
 def test_failed_capture_raises_and_runs_nothing(monkeypatch, files):
-    """A capture that fails raises out of the Engine's step: no uncaptured
-    forward runs in its place, and the cache and the static inputs keep
-    what they held."""
+    """A capture that fails raises out of the Engine's prefill and step:
+    no uncaptured forward runs in its place, and the cache and the static
+    inputs keep what they held."""
     class Refusing(RecordingGraph):
         def capture(self, fn, pool=None):
             raise RuntimeError("operation not permitted when stream is "
@@ -522,8 +535,10 @@ def test_failed_capture_raises_and_runs_nothing(monkeypatch, files):
     eng = Engine(load_model(files["llama_q8_0"], device="cpu",
                             max_seq_len=64))
     kv = eng._start_kv()
-    eng._prefill(kv, [3, 4, 5])
+    kv.k.fill_(0.5)
     before = kv.clone()
+    with pytest.raises(RuntimeError, match="capturing"):
+        eng._prefill(kv, [3, 4, 5])
     with pytest.raises(RuntimeError, match="capturing"):
         eng._decode_step(kv, 6, 3)
     g = _held(eng)[1]
@@ -561,4 +576,4 @@ def test_subclasses_take_no_graph_path(recorded, files, tmp_path):
     base = Engine(m)
     assert base._graph_path()
     base.generate(PROMPT["tiny"], cfg)
-    assert len(recorded) == 1
+    assert len(recorded) == 2  # its prefill chunk and its step

@@ -121,8 +121,9 @@ def test_graphed_server_matches_jax_server(recorded, monkeypatch, tiny_path,
                                            which, kv_quant, spec):
     """Batch 2 over 4 requests through the server's graph path: the JAX
     server's greedy texts (and its speculative counts), the direct-call
-    server's tokens, every step a replay of a key warmup captured. int8
-    on the trained model only (tests/test_torch_serve.py says why)."""
+    server's tokens, every step and every admission's prefill chunk a
+    replay of a key warmup captured. int8 on the trained model only
+    (tests/test_torch_serve.py says why)."""
     path = tiny_path if which == "tiny" else REPOLM
     kw = dict(kv_quant=kv_quant)
     if spec:
@@ -141,16 +142,20 @@ def test_graphed_server_matches_jax_server(recorded, monkeypatch, tiny_path,
     # decode at full S and the 256 and 384 rungs, and with spec the draft
     # and verify steps at each: captured once, in warmup
     assert g is not None and len(keys) == (9 if spec else 3)
-    assert set(g.replays) == set(keys) and g.captures == len(recorded) \
-        == len(keys)
+    assert set(g.replays) == set(keys) and g.captures == len(keys)
     served = sum(g.replays.values()) - len(keys)  # warmup replays each once
     assert served == st.steps + st.draft_steps > 0
-    assert sum(r.replayed for r in recorded) == sum(g.replays.values())
+    adm = srv._adm[1]
+    assert {k.kind for k in adm.replays} == {"prefill"}
+    assert len(recorded) == len(keys) + adm.captures
+    assert sum(adm.replays.values()) - adm.captures == st.prefill_chunks > 0
+    assert sum(r.replayed for r in recorded) == sum(g.replays.values()) + \
+        sum(adm.replays.values())
     monkeypatch.setattr(pserve, "_graphed", lambda device: False)
     direct, plain, _ = _serve(BatchServer, Request, pm, PROMPTS[which],
                               sampler_cfg=SamplerConfig(temperature=0.0),
                               **kw)
-    assert direct._graphs is None and plain == got
+    assert direct._graphs is None and direct._adm is None and plain == got
 
 
 @pytest.mark.parametrize("dot", ["f32", "int8"])
