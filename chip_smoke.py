@@ -7,7 +7,10 @@ Run from the root of the repository on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught); the set-up always
 runs, `python3 chip_smoke.py kernels,serve` (names comma-separated) runs a
-subset of the rest:
+subset of the rest, and `--cut-layers N` (8 by default: CUT_LAYERS)
+sets the depth of the models that phase graphs (both formats), Mixtral's
+replayed steps in phase moe and the mesh phases cp, tp, dp, pp, cptp and
+ep run, at full width (32: full depth):
 
   set-up: the card's name and power limit, TF32 off, the eight kernel
      libraries built from csrc/ with nvcc (one process a translation unit,
@@ -57,20 +60,21 @@ subset of the rest:
      steps, so its launch counts are read around its warmup (each step
      key's uncaptured warm-up call and capture) and its run;
   graphs: the batched steps as CUDA graphs (models/graphs.py; python3
-     chip_smoke.py graphs runs it alone, building the 8B Q4_K_M itself
-     when qfull does not run): for the synthetic 8B Q8_0 (after bfull) and
-     Q4_K_M (inside qfull), the decode step at B = 1 bf16 and B = 32 int8
-     under the 768 rung, 64 chained steps replayed bit-equal to the
-     uncaptured chain (logits, tokens, caches), the wall ms a step of both
-     in turns, the kernels and device ms of a replay beside an uncaptured
-     step's by the profiler (the port's kernels a replay equal to the
-     uncaptured step's launch counters, which replays do not advance); on
-     the Q4_K_M also a K = 3 speculative round at B = 8 through the draft
-     and verify graphs bit-equal to the uncaptured round, and
-     BatchServer(B = 8) over bfull's requests replaying its steps, its
-     texts equal to the same server calling the steps directly; it prints
-     its seconds. Phase moe replays the Mixtral B = 1 and B = 8 steps
-     bit-equal to their uncaptured chains;
+     chip_smoke.py graphs runs it alone, building the 8B Q4_K_M itself when
+     qfull does not run): for the synthetic 8B Q8_0 (after bfull) and Q4_K_M
+     (inside qfull), each cut to its first 8 layers (CUT_LAYERS; `full`,
+     `bfull` and `qfull` replay the whole 32), the decode step at B = 1 bf16
+     and B = 32 int8 under the 768 rung, 64 chained steps replayed bit-equal
+     to the uncaptured chain (logits, tokens, caches), the wall ms a step of
+     both in turns, the kernels and device ms of a replay beside an
+     uncaptured step's by the profiler (the port's kernels a replay equal to
+     the uncaptured step's launch counters, which replays do not advance);
+     on the Q4_K_M also a K = 3 speculative round at B = 8 through the draft
+     and verify graphs bit-equal to the uncaptured round, and BatchServer(B
+     = 8) over bfull's requests replaying its steps, its texts equal to the
+     same server calling the steps directly; it prints its seconds. Phase
+     moe replays the Mixtral B = 1 and B = 8 steps (8 layers) bit-equal to
+     their uncaptured chains;
   qreal: repolm512 requantized on the host with the port's own quantizer
      and GGUF writer (Q4_K_M, Q4_K_M with a Q6_K attn_v, all-Q5_K,
      all-Q4_0), each through the CLI and Engine as in `real`, and the
@@ -110,7 +114,10 @@ subset of the rest:
      (phase cptp's), each shard against its twin and the shards combined on
      the card against the unsplit flash kernel, all but the straddle case
      timed as above; then the synthetic 8B Q8_0 (the
-     weights of `full`) through CPEngine with 4 shards on the one card, ctx
+     weights of `full`, its first CUT_LAYERS = 8 layers: phase graphs and
+     the mesh phases cp, tp, dp, pp, cptp and ep cut the depth, never a
+     width) through
+     CPEngine with 4 shards on the one card, ctx
      9,216 and a 4,600-token prompt (Engine.benchmark's protocol, the
      partials kernel's main path: its launch count in the kernels line is
      read around it) beside the resident Engine, 32 steps teacher-forced on
@@ -120,24 +127,24 @@ subset of the rest:
      repolm512 through CPEngine with one shard per card, bit-equal to the 4
      shards on one card, and the CLI's --cp 4;
   tp: tensor parallelism (python3 chip_smoke.py tp runs it alone): the
-     synthetic 8B Q8_0 of `full` through TPEngine with 2 shards on the one
-     card (Engine.benchmark's protocol, prefill 512, ctx 4096; its launch
-     counts are the kernels line's tp_launches) beside the resident Engine,
-     decode profiles of both (kernels a token, busy share), 32 steps
-     teacher-forced on the resident's greedy tokens with the bf16 and the
-     int8 cache (each step within the CP phase's rule), and repolm512
-     through the CLI's --tp 2 (both shards on cuda:0: resident, fused and
-     --streaming at (2, 2, 2), texts equal to TPEngine's) and its
-     refusals. With phase tiered also run, the tiered 8B's resident model
-     as a 2-shard TPEngine and the GGUF streamed over that mesh at its
-     tiers: 32 greedy tokens bit-identical, ms per token and the H2D bytes
-     of each shard. The kernels and qkernels phases hold the Q8_0, Q4_K,
-     Q6_K and flash kernels at the 8B's tp = 2 and 4 shard shapes;
+     synthetic 8B Q8_0 of `full` (8 layers) through TPEngine with 2 shards on
+     the one card (Engine.benchmark's protocol, prefill 512, ctx 4096; its
+     launch counts are the kernels line's tp_launches) beside the resident
+     Engine, decode profiles of both (kernels a token, busy share), 32 steps
+     teacher-forced on the resident's greedy tokens with the bf16 and the int8
+     cache (each step within the CP phase's rule), and repolm512 through the
+     CLI's --tp 2 (both shards on cuda:0: resident, fused and --streaming at
+     (2, 2, 2), texts equal to TPEngine's) and its refusals. With phase tiered
+     also run, the tiered 8B's resident model as a 2-shard TPEngine and the
+     GGUF streamed over that mesh at its tiers: 32 greedy tokens bit-identical,
+     ms per token and the H2D bytes of each shard. The kernels and qkernels
+     phases hold the Q8_0, Q4_K, Q6_K and flash kernels at the 8B's tp = 2 and
+     4 shard shapes;
   tpcards: on a host with 4 cards or more (else it says so and passes),
      repolm512 and the synthetic 8B through TPEngine with one shard per
      card, bit-equal to the 4 shards on cuda:0, and the CLI's --tp 4;
   dp: data parallelism and the sharded batch server (python3 chip_smoke.py
-     dp runs it alone): the synthetic 8B Q8_0 of `full` served by
+     dp runs it alone): the synthetic 8B Q8_0 of `full` (8 layers) served by
      BatchServer(B = 8, bfull's eight requests) on one device and over the
      (2, 1) and (2, 2) meshes on cuda:0 (the kernels line's dp_launches are
      the two mesh servers'), served tok/s, ttft, ms and kernels a step side
@@ -156,15 +163,15 @@ subset of the rest:
      bit-equal to the same mesh on cuda:0, and two processes over NCCL
      (one card each) at dp = 2 and at tp = 2;
   pp: pipeline parallelism (python3 chip_smoke.py pp runs it alone): the
-     synthetic 8B Q8_0 of `full`, B = 8 slots prefilled with 9-500-token
-     prompts, bf16 and int8 caches, through pp_decode_step at (2 stages, 2
-     microbatches) and (4, 2) on cuda:0 (each stage's layers a view of the
-     stacked planes), 16 steps fed the one-device B = 8 step's greedy
-     tokens: each microbatch's logits and cache bit-equal to the unsharded
-     step over its slots alone, the launches equal to those microbatch
-     steps' but for the stacked append, one a stage (the head M times a
-     step, counted), ms and kernels a step beside
-     the one-device step's (the kernels line's pp_launches);
+     synthetic 8B Q8_0 of `full` (8 layers), B = 8 slots prefilled with
+     9-500-token prompts, bf16 and int8 caches, through pp_decode_step at (2
+     stages, 2 microbatches) and (4, 2) on cuda:0 (each stage's layers a view
+     of the stacked planes), 16 steps fed the one-device B = 8 step's greedy
+     tokens: each microbatch's logits and cache bit-equal to the unsharded step
+     over its slots alone, the launches equal to those microbatch steps' but
+     for the stacked append, one a stage (the head M times a step, counted), ms
+     and kernels a step beside the one-device step's (the kernels line's
+     pp_launches);
   cptp: CP x TP (python3 chip_smoke.py cptp runs it alone): the same 8B
      through CPEngine over a (2, 2) mesh on cuda:0 (the weights over tp,
      the cache over both axes), ctx 9,216 and a 4,600-token prompt as in
@@ -224,16 +231,15 @@ subset of the rest:
      CPU as `real`, the Q8_0 one served as `serve`; and a 4-layer Mixtral
      Q4_K_M GGUF tiered with an LRU smaller than a token's working set and
      its last layer on disk, bit-equal to the resident model;
-  ep: expert parallelism, inside phase moe (python3 chip_smoke.py ep runs
-     moe with it): the select rows also at a shard's 4 of 8 experts; the
-     synthetic Mixtral split in place over 2 expert shards on cuda:0
-     (EPEngine): its prefill within FULL_LOGIT_RTOL of the one-device
-     prefill, 16 T = 1 steps bit-equal to the one-device steps on the same
-     cache, ms a token beside them, Engine.benchmark's protocol (the
-     kernels line's ep_launches), a step's launches by the counters and
-     the profiler, and the EP step under set_sync_debug_mode("error"); the
-     small MoE files through the CLI's --ep 2 and EPEngine against the
-     CPU;
+  ep: expert parallelism, inside phase moe (python3 chip_smoke.py ep runs moe
+     with it): the select rows also at a shard's 4 of 8 experts; the synthetic
+     Mixtral's first 8 layers split in place over 2 expert shards on cuda:0
+     (EPEngine): its prefill within FULL_LOGIT_RTOL of the one-device prefill,
+     16 T = 1 steps bit-equal to the one-device steps on the same cache, ms a
+     token beside them, Engine.benchmark's protocol (the kernels line's
+     ep_launches), a step's launches by the counters and the profiler, and the
+     EP step under set_sync_debug_mode("error"); the small MoE files through
+     the CLI's --ep 2 and EPEngine against the CPU;
   http: the user-facing surfaces (python3 chip_smoke.py http runs it
      alone): a synthetic Llama-3.1-8B Q4_K_M with Llama-3's chat tokens
      and template (32 layers, resident, fused) served by BatchServer(B = 8)
@@ -2012,12 +2018,6 @@ def random_bkv(torch, arch, b_n: int, quant: bool, seed: int):
     return kv
 
 
-def clone_bkv(kv):
-    from ntransformer_tpu_torch.models.batched import BatchedKV
-    return BatchedKV(*(None if t is None else t.clone()
-                       for t in (kv.k, kv.v, kv.ks, kv.vs)))
-
-
 def graph_chain(torch, step, kv, b_n: int, tokens, base: int, n: int,
                 keep: bool):
     """n greedy steps chained on the device from position `base` through
@@ -2047,7 +2047,7 @@ def graph_steps(torch, arch, weights, b_n: int, quant: bool, seed: int):
     from ntransformer_tpu_torch.models.graphs import StepGraphs
     arch1k = dataclasses.replace(arch, max_seq_len=1024)
     kv = random_bkv(torch, arch1k, b_n, quant, seed)
-    ref = clone_bkv(kv)
+    ref = clone_caches(kv)
     sg = StepGraphs(arch1k, weights, kv)
     t0 = time.perf_counter()
     sg.capture([sg.key("decode", 1, GRAPH_RUNG)])
@@ -2185,7 +2185,7 @@ def graph_spec_round(torch, tag: str, arch, weights, k: int = 3,
     arch1k = dataclasses.replace(arch, max_seq_len=1024)
     draft = arch.n_layers // 2
     kv = random_bkv(torch, arch1k, b_n, False, 70)
-    ref = clone_bkv(kv)
+    ref = clone_caches(kv)
     sg = StepGraphs(arch1k, weights, kv)
     sg.capture([sg.key("draft", 1, GRAPH_RUNG, draft),
                 sg.key("verify", k + 1, GRAPH_RUNG)])
@@ -2361,7 +2361,7 @@ def graph_moe_steps(torch, synth) -> dict:
 # phase graphs' Engine cells: the resident Engine's programs replayed
 # (models/graphs.ForwardGraphs) on a synthetic 8B at its 4,096-row context
 ENGINE_PREFILL = 512     # the prompt ahead of the chains
-ENGINE_SPEC = (3, 16, 8)  # K, the draft's layers, iterations a turn
+ENGINE_SPEC = (3, 8)  # K, iterations a turn (the draft: half the layers)
 # the prefill cell's prompt: 7 chunks of 512 and a 116-token tail, whose
 # window is a whole chunk at pos 3,584 (ctx 4,096) with n_valid 116
 ENGINE_PROMPT = 7 * 512 + 116
@@ -2419,12 +2419,6 @@ def engine_loop(torch, g, kv, tok, pos0: int, n: int):
     return toks, logits.clone(), (time.perf_counter() - t0) / n * 1e3
 
 
-def same_kv(torch, a, b) -> bool:
-    """Two KVCaches equal byte for byte."""
-    return all(x is None and y is None or torch.equal(x, y)
-               for x, y in zip((a.k, a.v, a.ks, a.vs), (b.k, b.v, b.ks, b.vs)))
-
-
 def engine_graph_cell(torch, counters, tag: str, synth) -> dict:
     """Phase graphs' Engine cell on a synthetic 8B (ctx 4,096): a 512-token
     prefill, then GRAPH_STEPS greedy steps as the uncaptured chain (the
@@ -2449,7 +2443,7 @@ def engine_graph_cell(torch, counters, tag: str, synth) -> dict:
     check(torch.equal(tu, tg) and torch.equal(lu, lg),
           f"{tag}: the replayed loop's tokens or last logits differ from "
           "the uncaptured chain's")
-    check(same_kv(torch, ref, kv), f"{tag}: the replayed loop's cache "
+    check(same_caches(torch, ref, kv), f"{tag}: the replayed loop's cache "
           "differs from the uncaptured chain's")
     check(bool(torch.isfinite(lg).all()), f"{tag}: non-finite logits")
     base += GRAPH_STEPS
@@ -2484,15 +2478,17 @@ def engine_graph_cell(torch, counters, tag: str, synth) -> dict:
 
 def engine_spec_turns(torch, tag: str, eng, g, ref, kv, anchor,
                       pos: int) -> dict:
-    """ENGINE_SPEC's K = 3, n_draft = 16 fused self-speculative iterations
-    from one cache state, the direct spec_iter_greedy on ref (the host reads
-    emit and n_acc once an iteration, as the Engine does) and the spec
+    """ENGINE_SPEC's K = 3 fused self-speculative iterations (the draft the
+    first half of the layers: 16 of 32, 4 of 8) from one cache state, the
+    direct spec_iter_greedy on ref (the host reads emit and n_acc once an
+    iteration, as the Engine does) and the spec
     graph replayed on kv (anchor and pos carried on the device): every
     iteration's emit and n_acc, the device pos and the caches bit-equal,
     in two turns (direct, replayed; replayed, direct); ms an iteration."""
     from ntransformer_tpu_torch.inference.engine import spec_iter_greedy
-    k, n_draft, iters = ENGINE_SPEC
+    k, iters = ENGINE_SPEC
     arch, w = eng.arch, eng.model.weights
+    n_draft = arch.n_layers // 2
     g.capture([g.key("spec", k=k, n_draft=n_draft)])
 
     def direct(a, p):
@@ -2518,12 +2514,12 @@ def engine_spec_turns(torch, tag: str, eng, g, ref, kv, anchor,
 
     ou, au, pu, ms_u1 = direct(anchor, pos)
     og, _, pg, ms_g1 = replayed(anchor, pos)
-    check(ou == og and pu == pg and same_kv(torch, ref, kv),
+    check(ou == og and pu == pg and same_caches(torch, ref, kv),
           f"{tag} spec: the replayed iterations (or the caches) differ from "
           f"the direct ones: {ou} / {og}")
     og2, _, pg2, ms_g2 = replayed(None, None)
     ou2, _, pu2, ms_u2 = direct(au, pu)
-    check(ou2 == og2 and pu2 == pg2 and same_kv(torch, ref, kv),
+    check(ou2 == og2 and pu2 == pg2 and same_caches(torch, ref, kv),
           f"{tag} spec: the timed turns differ")
     return {"k": k, "n_draft": n_draft, "iterations_bit_equal": 2 * iters,
             "n_acc": [o[-1] for o in ou + ou2],
@@ -2582,7 +2578,7 @@ def engine_prefill_cell(torch, counters, tag: str, synth) -> dict:
     check(torch.equal(lu, lg) and bool(torch.isfinite(lg).all()),
           f"{tag}: the replayed prefill's last logits differ from the "
           "uncaptured prefill's")
-    check(same_kv(torch, ref, kv), f"{tag}: the replayed prefill's cache "
+    check(same_caches(torch, ref, kv), f"{tag}: the replayed prefill's cache "
           "differs from the uncaptured prefill's")
     lg2, ms_g2 = prefill(kv)
     lu2, ms_u2 = prefill(ref)
@@ -2616,6 +2612,236 @@ def engine_prefill_cell(torch, counters, tag: str, synth) -> dict:
     return cell
 
 
+MESH_STEPS = 64   # phases tp, cp, cptp, ep, dp, pp: replayed steps held
+MESH_TURN = 32    # bit for bit, and the second timed turn's steps
+# phases graphs (the 8B Q8_0 and Q4_K_M cells), moe's replayed Mixtral steps
+# and the mesh phases cp, tp, dp, pp, cptp and ep: the layers of the model
+# they run (the widths are the model's own). Their uncaptured references
+# launch from the host, layer by layer: at full depth the mesh phases took
+# 290.1 of the script's 979.5 s on an H100 80GB HBM3 at 700 W, and the
+# graphs phases 83.8 of 807.3 s with the mesh phases at 8 layers.
+CUT_LAYERS = 8
+
+
+def depth_cut(synth, n: int = CUT_LAYERS):
+    """A synthetic model (build_synth's or build_mixtral's tuple) cut to
+    its first n layers: free views of the stacked planes, cfg and arch
+    with n_layers = n, and the bytes a decoded token reads cut to match
+    (each layer's share; routed experts at k of E)."""
+    import dataclasses
+    from ntransformer_tpu_torch.ops.linear import QLinear
+    from ntransformer_tpu_torch.parallel.ep import EXPERT_FIELDS
+    cfg, arch, weights, per_token = synth
+    lw = weights.layers
+    layer_bytes = 0
+    for f in lw.__dataclass_fields__:
+        v = getattr(lw, f)
+        b = (v.nbytes if isinstance(v, QLinear) else
+             0 if v is None else v.numel() * v.element_size())
+        if f in EXPERT_FIELDS and b:
+            b = b * arch.n_experts_used // arch.n_experts
+        layer_bytes += b
+    cut = layer_bytes * (arch.n_layers - n) // arch.n_layers
+    return (dataclasses.replace(cfg, n_layers=n),
+            dataclasses.replace(arch, n_layers=n), layer_view(weights, n),
+            per_token - cut)
+
+
+def clone_caches(kv):
+    """A copy of a KVCache, a BatchedKV, or a mesh's list (or grid) of
+    them."""
+    if isinstance(kv, list):
+        return [clone_caches(c) for c in kv]
+    return type(kv)(*(None if t is None else t.clone()
+                      for t in (kv.k, kv.v, kv.ks, kv.vs)))
+
+
+def cache_tensors(kv) -> list:
+    """Every tensor of a cache, a mesh's list of caches or a grid."""
+    if isinstance(kv, list):
+        return [t for c in kv for t in cache_tensors(c)]
+    return [t for t in (kv.k, kv.v, kv.ks, kv.vs) if t is not None]
+
+
+def same_caches(torch, a, b) -> bool:
+    """Two caches (or lists, grids of them) equal byte for byte."""
+    ta, tb = cache_tensors(a), cache_tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def replay_profile(torch, counters, tag: str, plain, graph) -> dict:
+    """graph_kernels of one uncaptured call and one replay, reduced to
+    what the PERF tables keep: kernels and device ms of each, and the
+    port's kernels a replay runs (held equal to the uncaptured call's
+    launches by graph_kernels)."""
+    prof = graph_kernels(torch, counters, tag, plain, graph,
+                         same_count=False)
+    return {"launches_uncaptured": prof["launches_uncaptured_step"],
+            **{f"{k}_{f}": prof[k][f] for k in ("uncaptured", "replay")
+               for f in ("device_ms", "kernels", "own_kernels", "copies")},
+            "replay_top": prof["replay"]["top"]}
+
+
+def mesh_engine_cell(torch, counters, tag: str, eng, ids: list,
+                     steps: int = MESH_STEPS) -> dict:
+    """A mesh engine's replayed programs on cuda:0 (Engine._graph_path:
+    the mesh's ForwardGraphs, bound to the engine's own cache) against its
+    uncaptured calls on a twin cache (every shard's bytes):
+      prefill: `ids` in the engine's chunks, replayed (the prefill key,
+               captured first) and uncaptured, each from a zeroed cache:
+               the last logits and every shard's cache bytes bit-equal;
+               wall ms a chunk in turns (uncaptured, replayed, replayed,
+               uncaptured);
+      decode:  `steps` greedy steps from the prefill's token as the loop
+               step replayed (ForwardGraphs.loop: the tokens chained on the
+               device) and as the uncaptured chain of eng._decode_step:
+               tokens, last logits and caches bit-equal; a second turn of
+               MESH_TURN steps the other way round; wall ms a token of
+               each, and of a replayed step (ForwardGraphs.step, the path
+               generate takes) beside them;
+      profile: the kernels and device ms of a replayed T = 1 step and of an
+               uncaptured one, and the replay's busy share of its wall."""
+    from ntransformer_tpu_torch.inference.engine import _bucket
+    check(eng._graph_path(), f"{tag}: the engine takes no graph path on "
+          "one card")
+    t0 = time.perf_counter()
+    c = eng.PREFILL_CHUNK
+    n = len(ids)
+    chunk = min(_bucket(n), eng.arch.max_seq_len) if n <= c else c
+    chunks = -(-n // c)
+    kv = eng._start_kv()
+    g = eng._graphs_of(kv)
+    ref = eng._make_kv()
+    t1 = time.perf_counter()
+    g.capture([g.key("prefill", chunk, layers=eng.layer_sel),
+               g.key("loop", n_steps=steps, layers=eng.layer_sel),
+               g.key("loop", n_steps=MESH_TURN, layers=eng.layer_sel),
+               g.key("step", layers=eng.layer_sel)])
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t1
+
+    def prefill(cache):
+        for x in cache_tensors(cache):
+            x.zero_()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _, _ = eng._prefill(cache, ids)
+        logits = logits.clone()
+        logits.cpu()
+        return logits, (time.perf_counter() - t) / chunks * 1e3
+    lu, pu1 = prefill(ref)
+    lg, pg1 = prefill(kv)
+    check(torch.equal(lu, lg) and bool(torch.isfinite(lg).all()),
+          f"{tag}: the replayed prefill's last logits differ from the "
+          "uncaptured prefill's")
+    check(same_caches(torch, ref, kv), f"{tag}: the replayed prefill's "
+          "cache differs from the uncaptured prefill's")
+    lg2, pg2 = prefill(kv)
+    lu2, pu2 = prefill(ref)
+    check(torch.equal(lu2, lg2) and torch.equal(lg, lg2),
+          f"{tag}: the timed prefill turns' logits differ")
+    first = torch.argmax(lu[0])
+    tu, lu_, mu1 = engine_chain(torch, eng, ref, first, n, steps)
+    tg, lg_, mg1 = engine_loop(torch, g, kv, first, n, steps)
+    check(torch.equal(tu, tg) and torch.equal(lu_, lg_),
+          f"{tag}: the replayed loop's tokens or last logits differ from "
+          f"the uncaptured chain's: {tu.tolist()} / {tg.tolist()}")
+    check(same_caches(torch, ref, kv), f"{tag}: the replayed loop's cache "
+          "differs from the uncaptured chain's")
+    base = n + steps
+    tg2, _, mg2 = engine_loop(torch, g, kv, tu[-1], base, MESH_TURN)
+    tu2, _, mu2 = engine_chain(torch, eng, ref, tu[-1], base, MESH_TURN)
+    check(torch.equal(tu2, tg2), f"{tag}: the timed turns' tokens differ")
+    base += MESH_TURN
+    # the replayed T = 1 step (generate's path) on the engine's cache
+    ts, _, ms_step = engine_chain(torch, eng, kv, tu2[-1], base, MESH_TURN)
+    tr, _, _ = engine_chain(torch, eng, ref, tu2[-1], base, MESH_TURN)
+    check(torch.equal(ts, tr) and same_caches(torch, ref, kv),
+          f"{tag}: the replayed steps differ from the uncaptured ones")
+    base += MESH_TURN
+    t2 = time.perf_counter()
+    tok = tr[-1]
+    prof = replay_profile(torch, counters, tag,
+                          lambda: eng._decode_step(ref, tok, base),
+                          lambda: eng._decode_step(kv, tok, base))
+    cell = {"seconds": {"chains": t2 - t0,
+                        "profiles": time.perf_counter() - t2},
+            "capture_s": cap_s, "prompt": n, "chunks": chunks,
+            "chunk": chunk, "steps_bit_equal": steps + 2 * MESH_TURN,
+            "prefill_ms_chunk_uncaptured": [pu1, pu2],
+            "prefill_ms_chunk_replayed": [pg1, pg2],
+            "loop_ms_token_uncaptured": [mu1, mu2],
+            "loop_ms_token_replayed": [mg1, mg2],
+            "step_ms_token_replayed": ms_step,
+            "ms_uncaptured": (mu1 + mu2) / 2,
+            "ms_replayed": (mg1 + mg2) / 2, **prof}
+    cell["replay_busy_share"] = (prof["replay_device_ms"]
+                                 / cell["ms_replayed"])
+    cell["uncaptured_busy_share"] = (prof["uncaptured_device_ms"]
+                                     / cell["ms_uncaptured"])
+    print(json.dumps({f"replay_{tag}": cell}), flush=True)
+    del g, kv, ref
+    eng._held.clear()
+    torch.cuda.empty_cache()
+    return cell
+
+
+def batched_replay_cell(torch, counters, tag: str, plain, graph, ref, kv,
+                        b_n: int, pos0, first, caches=lambda x: x,
+                        steps: int = MESH_STEPS) -> dict:
+    """A batched B = b_n step two ways from one cache state: plain(ref,
+    tokens, pos, active) uncaptured on one copy and graph(kv, ...)
+    replaying its captured program(s) on another (caches(x): x's caches):
+    `steps` greedy steps from `first` at positions pos0 + i, every step's
+    logits, the tokens and the caches bit-equal; a second turn of MESH_TURN
+    steps the other way round; wall ms a step of each; the kernels and
+    device ms of one step of each and the replay's busy share."""
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+
+    def chain(step, cache, tok, base, n, keep):
+        kept = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            lg = step(cache, tok, pos0 + base + i, act)
+            if keep:
+                kept.append(lg.clone())
+            tok = torch.argmax(lg, -1)
+        tok.cpu()
+        return tok, kept, (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    tu, lu, mu1 = chain(plain, ref, first, 0, steps, True)
+    tg, lg, mg1 = chain(graph, kv, first, 0, steps, True)
+    bad = [i for i, (a, b) in enumerate(zip(lu, lg)) if not torch.equal(a, b)]
+    check(not bad and torch.equal(tu, tg), f"{tag}: replayed steps "
+          f"{bad[:8]} of {steps} differ from the uncaptured chain's logits")
+    check(same_caches(torch, caches(ref), caches(kv)), f"{tag}: the replayed "
+          "chain's caches differ from the uncaptured chain's")
+    check(bool(torch.isfinite(lg[-1]).all()), f"{tag}: non-finite logits")
+    del lu, lg
+    tg2, _, mg2 = chain(graph, kv, tu, steps, MESH_TURN, False)
+    tu2, _, mu2 = chain(plain, ref, tu, steps, MESH_TURN, False)
+    check(torch.equal(tu2, tg2), f"{tag}: the timed turns' tokens differ")
+    t2 = time.perf_counter()
+    base = steps + MESH_TURN
+    prof = replay_profile(torch, counters, tag,
+                          lambda: plain(ref, tu2, pos0 + base, act),
+                          lambda: graph(kv, tu2, pos0 + base, act))
+    cell = {"seconds": {"chains": t2 - t0,
+                        "profiles": time.perf_counter() - t2},
+            "B": b_n, "steps_bit_equal": steps + MESH_TURN,
+            "ms_step_uncaptured": [mu1, mu2], "ms_step_replayed": [mg1, mg2],
+            "ms_uncaptured": (mu1 + mu2) / 2, "ms_replayed": (mg1 + mg2) / 2,
+            **prof}
+    cell["replay_busy_share"] = (prof["replay_device_ms"]
+                                 / cell["ms_replayed"])
+    cell["uncaptured_busy_share"] = (prof["uncaptured_device_ms"]
+                                     / cell["ms_uncaptured"])
+    print(json.dumps({f"replay_{tag}": cell}), flush=True)
+    return cell
+
+
 def engine_moe_step(torch, synth) -> dict:
     """Phase moe: the Mixtral Engine's T = 1 step (the device expert select
     inside the captured forward) replayed GRAPH_MOE_STEPS times after a
@@ -2629,7 +2855,7 @@ def engine_moe_step(torch, synth) -> dict:
         lu.append(eng._decode_step(ref, tok, base + i)[0])
         tok = torch.argmax(lu[-1][0])
     bad = [i for i, (a, b) in enumerate(zip(lu, lg)) if not torch.equal(a, b)]
-    check(not bad and same_kv(torch, ref, kv), f"mixtral Engine step: "
+    check(not bad and same_caches(torch, ref, kv), f"mixtral Engine step: "
           f"replayed steps {bad} (or the caches) differ from the uncaptured "
           "ones")
     base += GRAPH_MOE_STEPS
@@ -3375,13 +3601,14 @@ def quant_real_phase(torch, counters, card: str, tmp: str) -> dict:
 
 
 def quant_full_phase(torch, counters, card: str,
-                     graphs: bool = False) -> tuple[dict, dict]:
+                     graph_layers: int | None = None) -> tuple[dict, dict]:
     """The synthetic Llama-3.1-8B at full width and depth in the nibble
     formats: Q4_K_M through Engine.benchmark and BatchServer with the
     bench-style batched steps (B = 1, B = 32 int8, verify), profiles and
-    the 2-layer on/off views (with graphs, phase graphs' Q4_K_M part on the
-    same weights); then the B = 1 batched step of bench.py's
-    q4_0 and q6_k keys. Returns (summaries, launch counts by path)."""
+    the 2-layer on/off views (with graph_layers, phase graphs' Q4_K_M part
+    on the same weights' first graph_layers layers); then the B = 1
+    batched step of bench.py's q4_0 and q6_k keys. Returns (summaries,
+    launch counts by path)."""
     q4km = ("q4_k_matmul", "q6_k_matmul")
     summaries, launches = {}, {}
     synth = build_synth(torch, "q4_k_m")
@@ -3394,10 +3621,11 @@ def quant_full_phase(torch, counters, card: str,
                                    "kv_update"))
     print(json.dumps({"full_width_8b_q4_k_m_serving":
                       summaries["serve_q4_k_m"]}), flush=True)
-    if graphs:
+    if graph_layers:
         print("[phase graphs, q4_k_m]", flush=True)
-        summaries["graphs"] = graphs_phase(torch, counters, card, synth,
-                                           "8b_q4_k_m", serve_too=True)
+        summaries["graphs"] = graphs_phase(
+            torch, counters, card, depth_cut(synth, graph_layers),
+            "8b_q4_k_m", serve_too=True)
     del synth
     for dtype, names in (("q4_0", ("q4_0_matmul",)),
                          ("q6_k", ("q6_k_matmul",))):
@@ -4084,7 +4312,11 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
     cache, within FLASH_RTOL in every query row. The path and long cases
     are timed as the kernels phase times; SDPA over the same shard (with
     the causal mask, heads expanded) is the nearest library call: it also
-    normalizes."""
+    normalizes. Last, the device-offset form (pos an int64 on the card
+    that each block reads: the form a captured CP chunk launches) at the
+    path's and the straddle case's shards: acc, m and l bit-equal to the
+    host-int form's, one launch a call, and the two forms timed in turns
+    at the path's shard 0 (device_pos_rows)."""
     import torch.nn.functional as F
     from ntransformer_tpu_torch.ops import layers
     from ntransformer_tpu_torch.ops.cuda import attention as ca
@@ -4214,10 +4446,55 @@ def cp_kernel_phase(torch, timer, card: str) -> dict:
              for i in range(CPTP_MESH[0])]
     combined["cptp"] = combine("cptp", kc, vc, 4096, CPTP_MESH[0])
     del kc, vc
+
+    def device_row(tag, kc, vc, pos, i, timed):
+        """Shard i's call with pos on the card: bit-equal to the host-int
+        form, one launch a call; timed: both forms in turns, and the
+        device form's profiler device time."""
+        sl = kc.shape[1] // CP_SHARDS
+        off = i * sl
+        k_i = kc[:, off:off + sl].contiguous()
+        v_i = vc[:, off:off + sl].contiguous()
+        pd = torch.tensor(pos, device="cuda")
+        label = f"8b {tag} T={t} pos={pos} shard {i} of {CP_SHARDS} device pos"
+        before = ca.partials_launches
+        got = ca.flash_attention_partials(q, k_i, v_i, pd, scale,
+                                          kpos_offset=off)
+        per_call = ca.partials_launches - before
+        want = ca.flash_attention_partials(q, k_i, v_i, pos, scale,
+                                           kpos_offset=off)
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        check(equal, f"partials {label}: the device-offset form differs from "
+              "the host-int form")
+        check(per_call == 1, f"partials {label}: {per_call} launches a call")
+        row = {"shape": label, "pos": pos, "kpos_offset": off,
+               "bit_equal_to_host_form": equal, "launches_per_call": per_call}
+        if timed:
+            fns = {"kernel": lambda: ca.flash_attention_partials(
+                       q, k_i, v_i, pd, scale, kpos_offset=off),
+                   "host_form": lambda: ca.flash_attention_partials(
+                       q, k_i, v_i, pos, scale, kpos_offset=off)}
+            ms = timer.compare(fns)
+            row.update(ms=ms["kernel"], host_form_ms=ms["host_form"],
+                       **device_profile(torch, fns["kernel"],
+                                        "flash_fwd_kernel"))
+        print(json.dumps({"flash_partials_device_pos": row}), flush=True)
+        return row
+
+    device_rows = []
+    kc, vc = cache(CP_CTX)
+    device_rows += [device_row("path", kc, vc, path_pos, i, i == 0)
+                    for i in range(CP_SHARDS)]
+    del kc, vc
+    kc, vc = cache(32768)
+    device_rows += [device_row("straddle", kc, vc, 16350, i, False)
+                    for i in range(CP_SHARDS)]
+    del kc, vc
     print(f"cp kernel phase done on {card}", flush=True)
     # the heaviest call of the path's chunk: shard 0, nearly all visible
     return {"rows": rows, "combine_row_rel_err": combined,
-            "main": rows[0]["shape"]}
+            "device_pos_rows": device_rows, "main": rows[0]["shape"]}
 
 
 def cp_chunk_profile(torch, cp, ids, off: int = 2048) -> dict:
@@ -4262,7 +4539,8 @@ def cp_chunk_profile(torch, cp, ids, off: int = 2048) -> dict:
 
 
 def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
-    """CPEngine on the synthetic 8B at full depth and width, 4 shards on
+    """CPEngine on the synthetic 8B at full width, its first CUT_LAYERS
+    layers (depth_cut), 4 shards on
     cuda:0, ctx 9,216, a 4,600-token prompt: Engine.benchmark's protocol
     (the launch counts of the kernels line are read around it), beside the
     resident Engine on the same weights; then CP_STEPS decode steps
@@ -4273,7 +4551,9 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     that step: both engines run the same matmul kernels, and their prefill
     attention kernels round p to bf16 against different maxima (a shard's
     own against the whole row's), a rounding the plain path does not make
-    at all. Last, the CLI's --cp 1 on repolm512."""
+    at all. Then the replayed programs against the uncaptured ones
+    (mesh_engine_cell: the whole prompt in its 9 chunks, MESH_STEPS loop
+    steps across key 4,608). Last, the CLI's --cp 1 on repolm512."""
     import contextlib
     import dataclasses
     import io
@@ -4337,6 +4617,7 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     for i, (r, lim) in enumerate(zip(kern, limits)):
         check(r <= lim, f"8b CPEngine step {i}: teacher-forced logits differ "
               f"from the resident engine's by {r} of their range (> {lim})")
+    replay = mesh_engine_cell(torch, counters, "cp_8b", cp, ids)
 
     reset(counters)
     outs = {}
@@ -4372,7 +4653,7 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     summary.update(greedy_agree=agree, forced_argmax_agree=forced_agree,
                    logit_rel_err_steps=kern, plain_rel_err_steps=plain,
                    cli_cp1_text_equal=same, launches=launches,
-                   prefill_chunk_profile=chunk_prof)
+                   prefill_chunk_profile=chunk_prof, replay=replay)
     print(json.dumps({"cp_8b": summary}), flush=True)
     del cp, res
     torch.cuda.empty_cache()
@@ -4489,7 +4770,8 @@ def tp_forced(torch, tp, res, ids, n: int,
 
 
 def tp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
-    """TPEngine on the synthetic 8B Q8_0 at full depth and width (the
+    """TPEngine on the synthetic 8B Q8_0 at full width, its first
+    CUT_LAYERS layers (depth_cut; the
     weights of `full`, fused in tp = 1 order: each shard's q|k|v and
     gate|up are rebuilt from its slices of the parts), TP_SHARDS shards on
     cuda:0: Engine.benchmark's protocol (prefill 512, ctx 4096; the kernels
@@ -4497,8 +4779,11 @@ def tp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     the same weights, and a decode profile of each (kernels a token, the
     card's busy share); then TP_FORCED decode steps teacher-forced on the
     resident engine's greedy tokens with the bf16 and the int8 cache
-    (tp_forced).
-    Last, the CLI on repolm512 (tp_cli)."""
+    (tp_forced); the replayed programs against the uncaptured ones
+    (mesh_engine_cell: the 512-token prompt, MESH_STEPS loop steps).
+    Last, the CLI on repolm512 (tp_cli). TPEngine.benchmark runs
+    make_tp_decode_loop, which replays the engine's loop graph on one
+    card."""
     from ntransformer_tpu_torch.inference.engine import Engine, TPEngine
     from ntransformer_tpu_torch.models import llama
     from ntransformer_tpu_torch.models.loader import LoadedModel
@@ -4543,6 +4828,7 @@ def tp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
         profiles[tag] = profile_decode(torch, arch, w, kv, logits, 512,
                                        **fw)
         del kv
+    replay = mesh_engine_cell(torch, counters, "tp_8b", tp, ids)
     forced = {}
     for quant in (False, True):
         tp.kv_quant = res.kv_quant = quant
@@ -4563,7 +4849,7 @@ def tp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
                    profiles["resident"]["device_ms_per_token"],
                "forced": {k: {kk: vv for kk, vv in v.items()
                               if kk != "resident_tokens"}
-                          for k, v in forced.items()}}
+                          for k, v in forced.items()}, "replay": replay}
     for tag, st in (("tp", st_tp), ("resident", st_res)):
         summary[f"{tag}_prefill_tok_s"] = st.prefill_tps
         summary[f"{tag}_prefill_ms"] = st.prefill_ms
@@ -4646,11 +4932,14 @@ def tp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     Q8_0 of `full` the same way (a 512-token prompt, 16 steps). Every
     kernel launches on its tensors' card, the cross-card copies are exact
     and the sums run in shard order on cuda:0, so tokens and logits must
-    be bit-equal. Then the CLI's --tp 4."""
+    be bit-equal. The mesh over the cards keeps the host path (one capture
+    does not span cards), the mesh on cuda:0 replays. Then the CLI's
+    --tp 4."""
     import contextlib
     import io
     from ntransformer_tpu_torch import cli
     from ntransformer_tpu_torch.inference.engine import TPEngine
+    from ntransformer_tpu_torch.models.graphs import one_card
     from ntransformer_tpu_torch.models.loader import LoadedModel
     from ntransformer_tpu_torch.parallel.tp import make_tp_mesh
 
@@ -4678,6 +4967,11 @@ def tp_cards_phase(torch, counters, card: str, synth) -> dict | None:
               f"{want}")
         check([c.k.device for c in cards._make_kv()] == list(want),
               f"tpcards {name}: a shard's cache is not on its card")
+        # a mesh that spans cards keeps the host path
+        # (models/graphs.check_capturable)
+        check(not cards._graph_path() and one_card(one),
+              f"tpcards {name}: the graph path is not the one-card mesh's "
+              "alone")
         ids = torch.randint(0, cards.arch.vocab_size, (n_prompt,),
                             generator=torch.Generator().manual_seed(48)
                             ).tolist()
@@ -4829,6 +5123,38 @@ def dp_forced(torch, counters, mesh, arch, weights, grid_w, bkv, lens,
     return out
 
 
+def dp_replay_cell(torch, counters, mesh, arch, grid_w, bkv, lens,
+                   first) -> dict:
+    """The sharded B = 8 step over `mesh` on cuda:0 replayed (one
+    StepGraphs a dp group, dp.group_graphs, the decode key captured first)
+    against the uncaptured sharded step (batched_replay_cell), from the
+    prefilled cache bkv at the prompts' ends, greedy from `first`."""
+    from ntransformer_tpu_torch.parallel import dp
+    check(dp.captured(mesh), f"dp {mesh.shape}: the mesh on cuda:0 does "
+          "not replay")
+    ref = mesh_cache(torch, mesh, arch, bkv)
+    kv = mesh_cache(torch, mesh, arch, bkv)
+    graphs = dp.group_graphs(mesh, arch, grid_w, kv)
+    t0 = time.perf_counter()
+    for g in graphs:
+        g.capture([g.key("decode")])
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    step_u = dp.make_batched_decode_sharded(mesh, arch)
+    step_g = dp.make_batched_decode_sharded(mesh, arch, graphs=graphs)
+    cell = batched_replay_cell(
+        torch, counters, f"dp_8b_{mesh.dp}x{mesh.tp}",
+        lambda c, t, p, a: step_u(grid_w, c, t, p, a)[0],
+        lambda c, t, p, a: step_g(grid_w, c, t, p, a)[0], ref, kv,
+        len(lens), torch.tensor(lens, device="cuda"),
+        torch.as_tensor(first, device="cuda"))
+    cell.update(capture_s=cap_s, graphs=len(graphs),
+                replays=sum(sum(g.replays.values()) for g in graphs))
+    del graphs, ref, kv
+    torch.cuda.empty_cache()
+    return cell
+
+
 def dp_one_device_forced(torch, counters, arch, weights, bkv, lens, toks):
     """The unsharded batched step over the same DP_STEPS forced tokens:
     its logits (kernel and plain paths), ms a step and kernels a step."""
@@ -4866,15 +5192,18 @@ def dp_one_device_forced(torch, counters, arch, weights, bkv, lens, toks):
 
 def serve_8b(torch, counters, model, reqs_fn, **kw):
     """BatchServer(B = 8) over fresh copies of the requests, warmed up
-    first: (texts, stats, launches)."""
+    first: (texts, stats, launches, warm-up seconds). The launches are
+    counted from before the warm-up: on the card the server captures its
+    steps and admission chunks there and replays them in the run, and a
+    replay advances no counter."""
     from ntransformer_tpu_torch.inference.sampler import SamplerConfig
     from ntransformer_tpu_torch.inference.serve import BatchServer
     srv = BatchServer(model, batch_size=8,
                       sampler_cfg=SamplerConfig(temperature=0.0), **kw)
     _, reqs = reqs_fn()
-    warm = srv.warmup()
     torch.cuda.synchronize()
     reset(counters)
+    warm = srv.warmup()
     stats = srv.run(reqs)
     torch.cuda.synchronize()
     launches = read(counters)
@@ -4886,16 +5215,19 @@ def serve_8b(torch, counters, model, reqs_fn, **kw):
 
 
 def dp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
-    """The sharded server on the synthetic 8B Q8_0 of `full` (no new load):
+    """The sharded server on the synthetic 8B Q8_0 of `full` cut to its
+    first CUT_LAYERS layers (depth_cut: free views, no new load):
     BatchServer(B = 8) one-device and over the (2, 1) and (2, 2) meshes on
     cuda:0 serving bfull's eight requests (served tok/s, ttft; the kernels
     line's dp_launches are the two mesh servers' launches), the count of
     texts that differ from the one-device server's (printed, not held: the
     plans depend on B and the shapes, so a near-tie may break the other
     way at B/dp); the teacher-forced check that fails the run (dp_forced),
-    with ms and kernels a step beside the one-device step's; spec serving
-    (K = 3) on the (2, 1) mesh; then repolm512 through the CLI and two
-    processes (dp_cli, dp_two_process)."""
+    with ms and kernels a step beside the one-device step's; the replayed
+    group steps against the uncaptured ones (dp_replay_cell; the servers
+    replay theirs, captured in warmup); spec serving (K = 3) on the (2, 1)
+    mesh; then repolm512 through the CLI and two processes (dp_cli,
+    dp_two_process: two processes keep the host path)."""
     from ntransformer_tpu_torch.inference.engine import Engine
     from ntransformer_tpu_torch.models.batched import BatchedKV
     from ntransformer_tpu_torch.models.loader import LoadedModel
@@ -4939,6 +5271,8 @@ def dp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
         shard_s = time.perf_counter() - t0
         forced = dp_forced(torch, counters, mesh, arch, weights, grid_w, bkv,
                            lens, toks, ref_logits, plain_logits)
+        replay = dp_replay_cell(torch, counters, mesh, arch, grid_w, bkv,
+                                lens, toks[0])
         del grid_w
         ids_m, st, launches, warm = serve_8b(torch, counters, model,
                                              requests, mesh=mesh)
@@ -4950,7 +5284,8 @@ def dp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
                 "warmup_s": warm,
                 "ttft_p50_s": sorted(st.ttft_s)[len(st.ttft_s) // 2],
                 "texts_differing_from_one_device": differ,
-                "launches": launches, "forced": forced, "_ids": ids_m}
+                "launches": launches, "forced": forced, "replay": replay,
+                "_ids": ids_m}
         summary["meshes"][f"{dp_n}x{tp_n}"] = cell
         print(f"8b server over the ({dp_n}, {tp_n}) mesh on cuda:0: "
               f"{st.report()}; {differ} of 8 texts differ from the "
@@ -6387,13 +6722,14 @@ def moe_tiered_phase(torch, counters, card: str, pre: dict) -> dict:
 
 
 def moe_phase(torch, counters, timer, card: str, pre: dict,
-              with_ep: bool = True) -> tuple[dict, dict, dict]:
+              with_ep: bool = True, cut_layers: int = CUT_LAYERS
+              ) -> tuple[dict, dict, dict]:
     """Phase moe: the select rows (also at a shard's E/ep experts), the
     synthetic Mixtral-8x7B (this slice's main path: Engine.benchmark and
     BatchServer with the bench-style steps; their launch counts are the
     kernels line's moe_launches), its decode held to the plain path and
     free of host reads, then (with_ep, phase ep) the same model through
-    EPEngine (ep_phase; the model's last use, as it is split in place),
+    EPEngine (ep_phase, on its first cut_layers layers: depth_cut),
     the small MoE files against the CPU (with --ep 2 under phase ep), and
     tiered MoE at Mixtral widths (pre: start_prep's GGUF and pack for
     it); the B = 1 and B = 8 steps are also replayed as CUDA graphs
@@ -6401,6 +6737,13 @@ def moe_phase(torch, counters, timer, card: str, pre: dict,
     Returns (the select rows by kernel, launches, EP launches)."""
     import tempfile
     from ntransformer_tpu_torch.models import llama
+    t_part = [time.perf_counter()]
+
+    def part(name: str):
+        """The seconds the part of phase moe that just ended took."""
+        now = time.perf_counter()
+        print(f"moe: {name} took {now - t_part[0]:.1f} s", flush=True)
+        t_part[0] = now
     g = torch.Generator(device="cuda")
     g.manual_seed(41)
     rows = {}
@@ -6414,28 +6757,36 @@ def moe_phase(torch, counters, timer, card: str, pre: dict,
                 torch, timer, g, fmt, f"{label} ep={EP_SHARDS} shard", k, n,
                 n_exp=MIXTRAL["experts"] // EP_SHARDS, e=1)
             rows.setdefault(name, []).append(row)
+    part("select rows")
     synth = build_mixtral(torch)
     kernels = MOE_Q4KM + ("flash_attention",)
     summary, engine = full_width_phase(torch, counters, card, synth, kernels)
+    part("Mixtral Engine")
     serve, served = full_batched_phase(torch, counters, card, synth,
                                        kernels + ("batched_attention",
                                                   "kv_update"))
     print(json.dumps({"full_width_mixtral_serving": serve}), flush=True)
-    graph_moe_steps(torch, synth)
+    part("Mixtral server")
+    graph_moe_steps(torch, depth_cut(synth, cut_layers))
     on_off = moe_decode_on_off(torch, counters, synth)
     sync = moe_sync_check(torch, synth[1], lambda kv, t, p: llama.forward(
         synth[1], synth[2], kv, t, p)[0])
     print(json.dumps({"mixtral_q4_k_m": {
         "engine": summary, "decode_on_off": on_off, "sync": sync}}),
         flush=True)
+    part("Mixtral graphs and checks")
     ep_launches = {}
     if with_ep:
-        _, ep_launches = ep_phase(torch, counters, card, synth)
+        _, ep_launches = ep_phase(torch, counters, card,
+                                  depth_cut(synth, cut_layers))
+        part("ep")
     del synth
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         moe_real_phase(torch, counters, card, tmp, with_ep)
+    part("small MoE GGUFs")
     moe_tiered_phase(torch, counters, card, pre)
+    part("tiered MoE")
     launches = {k: engine.get(k, 0) + served.get(k, 0) for k in counters}
     return rows, launches, ep_launches
 
@@ -6452,21 +6803,22 @@ MESH_CARDS = 4       # phase meshcards: one position a card
 
 
 def ep_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
-    """Expert parallelism on phase moe's synthetic Mixtral-8x7B Q4_K_M,
-    EP_SHARDS shards on cuda:0, split in place (EPEngine drops each
-    unsharded expert plane once its shards exist: the one-device model's
-    last use). First the one-device reference on a 128-token prompt: the
-    prefill's logits, the cache after it, EP_TOKENS greedy steps (timed,
-    the tokens kept on the card). Then EPEngine: its prefill within
-    FULL_LOGIT_RTOL of the one-device prefill (the T > 1 loop sums each
-    shard's experts, then the shards, in another order than the loop over
-    all E); EP_TOKENS T = 1 steps on a copy of the reference cache, fed the
-    reference tokens, bit-equal to the one-device steps (k = 2: a shard's
-    term for another shard's expert is an exact zero, and a sum of two
-    terms has one order's bits either way), timed; Engine.benchmark's
-    protocol (prefill 512, EP_TOKENS tokens; the kernels line's ep_launches
-    are read around it); one step's launches by the counters against the
-    profiler's skinny kernels; and moe_sync_check on the EP step."""
+    """Expert parallelism on phase moe's synthetic Mixtral-8x7B Q4_K_M cut to
+    its first CUT_LAYERS layers (depth_cut: free views), EP_SHARDS shards on
+    cuda:0, split in place (EPEngine empties the view's expert planes once its
+    shards exist). First the one-device reference on a 128-token prompt: the
+    prefill's logits, the cache after it, EP_TOKENS greedy steps (timed, the
+    tokens kept on the card). Then EPEngine: its prefill within FULL_LOGIT_RTOL
+    of the one-device prefill (the T > 1 loop sums each shard's experts, then
+    the shards, in another order than the loop over all E); EP_TOKENS T = 1
+    steps on a copy of the reference cache, fed the reference tokens, bit-equal
+    to the one-device steps (k = 2: a shard's term for another shard's expert
+    is an exact zero, and a sum of two terms has one order's bits either way),
+    timed; Engine.benchmark's protocol (prefill 512, EP_TOKENS tokens; the
+    kernels line's ep_launches are read around it); one step's launches by the
+    counters against the profiler's skinny kernels; moe_sync_check on the EP
+    step; and the replayed programs against the uncaptured ones
+    (mesh_engine_cell: the 128-token prompt, MESH_STEPS loop steps)."""
     from ntransformer_tpu_torch.inference.engine import EPEngine
     from ntransformer_tpu_torch.models import llama
     from ntransformer_tpu_torch.models.loader import LoadedModel
@@ -6563,6 +6915,7 @@ def ep_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     check(all(launches[k] > 0 for k in MOE_Q4KM + ("flash_attention",)),
           f"mixtral EPEngine: a kernel of the path launched zero times: "
           f"{launches}")
+    replay = mesh_engine_cell(torch, counters, "ep_mixtral", eng, ids)
     # a token reads the k routed experts' bytes on each shard
     ep_bytes = per_token + experts * arch.n_experts_used * (EP_SHARDS - 1) \
         // arch.n_experts
@@ -6577,7 +6930,7 @@ def ep_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
                "one_device_bytes_per_token": per_token,
                "bound_ms_per_token": ep_bytes / HBM_BYTES_PER_S * 1e3,
                "step_launches": step_launches, "launches": launches,
-               "sync": sync}
+               "sync": sync, "replay": replay}
     print(json.dumps({"ep_mixtral": summary}), flush=True)
     del eng
     torch.cuda.empty_cache()
@@ -6678,8 +7031,41 @@ def pp_fill(state, bkv) -> None:
                 dst.copy_(src[s * n_l:(s + 1) * n_l, m * per:(m + 1) * per])
 
 
+def pp_replay_cell(torch, counters, tag: str, mesh, arch, weights, bkv,
+                   b_n: int, n_mb: int, pos0, first) -> dict:
+    """make_pp_decode's step (all S + M - 1 ticks one CUDA graph, captured
+    at its first call, here with no slot active) replayed against
+    pp_decode_step uncaptured (batched_replay_cell), each on its own state
+    filled from bkv."""
+    from ntransformer_tpu_torch.parallel import pp
+    states = []
+    for _ in range(2):
+        st = pp.shard_pp_state(mesh, arch, weights, b_n, n_mb)
+        pp_fill(st, bkv)
+        states.append(st)
+    ref, kv = states
+    step = pp.make_pp_decode(mesh, arch, kv, n_mb)
+    t0 = time.perf_counter()
+    step(first, pos0, torch.zeros(b_n, dtype=torch.bool, device="cuda"))
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    check(step.replays == 1, f"{tag}: the first call replayed "
+          f"{step.replays} times")
+    cell = batched_replay_cell(
+        torch, counters, tag.replace(" ", "_"),
+        lambda c, t, p, a: pp.pp_decode_step(mesh, arch, c, t, p, a,
+                                             n_mb)[0],
+        lambda c, t, p, a: step(t, p, a), ref, kv, b_n, pos0, first,
+        caches=lambda x: x.kv)
+    cell.update(capture_s=cap_s, replays=step.replays)
+    del states, ref, kv, step
+    torch.cuda.empty_cache()
+    return cell
+
+
 def pp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
-    """Pipeline parallelism on the synthetic 8B Q8_0 of `full` (the stages
+    """Pipeline parallelism on the synthetic 8B Q8_0 of `full` cut to its
+    first CUT_LAYERS layers (depth_cut; the stages
     on cuda:0: each stage's layers a free view of the stacked planes), B =
     8 slots prefilled with PP_LENS prompts, bf16 and int8 caches: the
     one-device B = 8 step's PP_STEPS greedy tokens (its ms and kernels a
@@ -6689,7 +7075,9 @@ def pp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     cache bit-equal to the unsharded step over its slots alone (a cache of
     B/M slots: the same kernels and plans), the launches equal to those
     M unsharded microbatch steps' (one head a microbatch: M a step) but
-    for the stacked append, one a stage, and the head's calls counted."""
+    for the stacked append, one a stage, and the head's calls counted; with
+    the bf16 cache, make_pp_decode's replayed step against pp_decode_step
+    (pp_replay_cell)."""
     from ntransformer_tpu_torch.models.batched import (BatchedKV,
                                                        batched_decode_step)
     from ntransformer_tpu_torch.models.loader import LoadedModel
@@ -6804,6 +7192,10 @@ def pp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
                 for k, v in launches.items():
                     pp_launches[k] = pp_launches.get(k, 0) + v
             del state, alone, ref, outs
+            if not quant:
+                cell["replay"] = pp_replay_cell(
+                    torch, counters, tag, mesh, arch, weights, bkv, b_n,
+                    n_mb, pos0, toks[0])
         del bkv
         torch.cuda.empty_cache()
     print(json.dumps({"pp_8b": summary}), flush=True)
@@ -6811,7 +7203,8 @@ def pp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
 
 
 def cptp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
-    """CP x TP on the synthetic 8B Q8_0 of `full`: CPEngine over the
+    """CP x TP on the synthetic 8B Q8_0 of `full` cut to its first
+    CUT_LAYERS layers (depth_cut): CPEngine over the
     CPTP_MESH (cp, tp) mesh on cuda:0 with the CP phase's ctx (CP_CTX) and
     prompt (CP_PROMPT tokens): the weights split over tp, the cache over
     both axes. Engine.benchmark's protocol (the kernels line's
@@ -6819,8 +7212,10 @@ def cptp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     shapes and the partials kernel at Hq/tp heads over S/cp keys, no
     resident flash) beside the resident Engine on the same weights, then
     CPTP_STEPS steps teacher-forced on the resident's greedy tokens by
-    tp_forced's rule; last, repolm512 through the CLI's --cp 2 --tp 2
-    against the CPU (mesh_cli_vs_cpu)."""
+    tp_forced's rule; the replayed programs against the uncaptured ones
+    (mesh_engine_cell: the whole prompt, MESH_STEPS loop steps across CP
+    key 4,608); last, repolm512 through the CLI's --cp 2 --tp 2 against the
+    CPU (mesh_cli_vs_cpu)."""
     import dataclasses
     from ntransformer_tpu_torch.inference.engine import CPEngine, Engine
     from ntransformer_tpu_torch.models.loader import LoadedModel
@@ -6863,9 +7258,10 @@ def cptp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     st_res = res.benchmark(prompt_ids=ids, n_tokens=CPTP_STEPS)
     forced = tp_forced(torch, eng, res, ids, CPTP_STEPS,
                        tag=f"8b CPEngine ({n_cp} x {n_tp}")
+    replay = mesh_engine_cell(torch, counters, "cptp_8b", eng, ids)
     summary = {"card": card, "mesh": CPTP_MESH, "ctx": CP_CTX,
                "prompt_tokens": CP_PROMPT, "shard_s": shard_s,
-               "launches": launches,
+               "launches": launches, "replay": replay,
                "forced": {k: v for k, v in forced.items()
                           if k != "resident_tokens"}}
     for tag, s in (("cptp", st), ("resident", st_res)):
@@ -7768,7 +8164,13 @@ def main() -> int:
     from ntransformer_tpu_torch.ops.cuda import nibble_matmul as cn
     from ntransformer_tpu_torch.ops.cuda import w4a8 as cw4
     from ntransformer_tpu_torch.ops.cuda import w8a8 as cw8
-    phases = sys.argv[1].split(",") if len(sys.argv) > 1 else list(PHASES)
+    argv = sys.argv[1:]
+    cut_layers = CUT_LAYERS
+    if "--cut-layers" in argv:  # e.g. 32: the mesh phases at full depth
+        i = argv.index("--cut-layers")
+        cut_layers = int(argv[i + 1])
+        del argv[i:i + 2]
+    phases = argv[0].split(",") if argv else list(PHASES)
     if "ep" in phases and "moe" not in phases:
         phases.append("moe")  # phase ep runs on phase moe's Mixtral
     prep = start_prep(phases)
@@ -7837,30 +8239,35 @@ def main() -> int:
             print(json.dumps({"full_width_8b_serving": summary}), flush=True)
         if "graphs" in phases:
             clock("graphs")
-            graphs_phase(torch, counters, card, synth, "8b_q8_0")
+            graphs_phase(torch, counters, card,
+                         depth_cut(synth, cut_layers), "8b_q8_0")
+        cut_synth = depth_cut(synth, cut_layers)
         if "cp" in phases:
             clock("cp")
-            _, got = cp_path_phase(torch, counters, card, synth)
+            _, got = cp_path_phase(torch, counters, card, cut_synth)
             launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
             engine_launches[ca.PARTIALS_NAME] = got[ca.PARTIALS_NAME]
         if "tp" in phases:
             clock("tp")
-            _, tp_launches = tp_path_phase(torch, counters, card, synth)
+            _, tp_launches = tp_path_phase(torch, counters, card,
+                                            cut_synth)
         if "tpcards" in phases:
             clock("tpcards")
             tp_cards_phase(torch, counters, card, synth)
         if "dp" in phases:
             clock("dp")
-            _, dp_launches = dp_path_phase(torch, counters, card, synth)
+            _, dp_launches = dp_path_phase(torch, counters, card,
+                                            cut_synth)
         if "dpcards" in phases:
             clock("dpcards")
             dp_cards_phase(torch, counters, card, synth)
         if "pp" in phases:
             clock("pp")
-            _, pp_launches = pp_phase(torch, counters, card, synth)
+            _, pp_launches = pp_phase(torch, counters, card, cut_synth)
         if "cptp" in phases:
             clock("cptp")
-            _, cptp_launches = cptp_phase(torch, counters, card, synth)
+            _, cptp_launches = cptp_phase(torch, counters, card,
+                                            cut_synth)
         if "meshcards" in phases:
             clock("meshcards")
             mesh_cards_phase(torch, counters, card, synth)
@@ -7868,7 +8275,7 @@ def main() -> int:
             clock("spec")
             _, spec_launches = spec_phase(torch, counters, timer, card,
                                           synth)
-        del synth
+        del synth, cut_synth
     if "cpcards" in phases:
         clock("cpcards")
         cp_cards_phase(torch, counters, card)
@@ -7888,14 +8295,15 @@ def main() -> int:
         qlaunch["real_q5_k"] = qr["q5_k"]["cli_launches"]
     if "qfull" in phases:
         clock("qfull")
-        _, got = quant_full_phase(torch, counters, card,
-                                  graphs="graphs" in phases)
+        _, got = quant_full_phase(
+            torch, counters, card,
+            cut_layers if "graphs" in phases else None)
         qlaunch.update(got)
     elif "graphs" in phases:
         clock("graphs q4_k_m")
         synth = build_synth(torch, "q4_k_m")
-        graphs_phase(torch, counters, card, synth, "8b_q4_k_m",
-                     serve_too=True)
+        graphs_phase(torch, counters, card, depth_cut(synth, cut_layers),
+                     "8b_q4_k_m", serve_too=True)
         del synth
     # the engine-native formats' main paths: the 8B W8A8 server for
     # w8a8_matmul, the 8B W4A8 B = 1 step for w4a8_decode (Engine.benchmark
@@ -7940,7 +8348,8 @@ def main() -> int:
     if "moe" in phases:
         clock("moe")
         select_rows, moe_launches, ep_launches = moe_phase(
-            torch, counters, timer, card, pre["mixtral"], "ep" in phases)
+            torch, counters, timer, card, pre["mixtral"], "ep" in phases,
+            cut_layers)
     if "quality" in phases:
         clock("quality")
         _, ppl_launches = quality_phase(torch, counters, card,

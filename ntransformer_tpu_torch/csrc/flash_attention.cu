@@ -703,13 +703,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 
 // One shard's partials: acc [T,Hq,D], m and l [T,Hq], all f32, of q [T,Hq,D]
 // (global positions pos + t) over k/v [Hkv,S,D] whose key i sits at global
-// position kpos_offset + i. Types and D as above; causal, no window.
+// position kpos_offset + i. Types and D as above; causal, no window. The
+// first query's position is read as flash_attention_fwd reads it: pos_dev,
+// a device int64, or, where pos_dev is null, pos. kpos_offset, the shard's
+// fixed start, is always a host int.
 extern "C" int flash_attention_partials_fwd(
     const void* q, const void* k, const void* v, void* acc, void* m, void* l,
     int T, int Hq, int Hkv, int S, int D, int is_f32, int pos,
-    int kpos_offset, float scale, void* stream) {
+    int kpos_offset, float scale, const void* pos_dev, void* stream) {
   return dispatch<true>(q, k, v, acc, m, l, T, Hq, Hkv, S, D, is_f32, pos,
-                        nullptr, kpos_offset, 1 << 30, scale, 0.f, stream);
+                        pos_dev, kpos_offset, 1 << 30, scale, 0.f, stream);
 }
 
 extern "C" const char* nt_error_string(int code) {

@@ -33,7 +33,12 @@ Graphs hold addresses, so that Engine keeps its cache (and a draft
 model's) for its life and zeroes it where a generation starts from
 position 0, the state of a fresh cache; it serves one call at a time, as a
 BatchServer does. A forward on any other cache (a caller's own KVCache)
-runs uncaptured, as does every forward on the CPU.
+runs uncaptured, as does every forward on the CPU. The mesh engines below
+replay the same way through the mesh forms of ForwardGraphs (the JAX
+make_tp_forward, make_cp_forward, make_cp_tp_forward and make_ep_forward,
+and TPEngine.benchmark's make_tp_decode_loop) where their mesh lies on one
+card of one process; a mesh that spans cards keeps the host path, by an
+explicit check (models/graphs.check_capturable), as TieredEngine does.
 
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, early exit,
@@ -54,7 +59,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..models.graphs import ForwardGraphs
+from ..models.graphs import ForwardGraphs, one_card
 from ..models.llama import KVCache, forward
 from ..models.loader import LoadedModel, load_model
 from ..utils.timing import PROFILER
@@ -194,11 +199,26 @@ class Engine:
         return KVCache.create(self.arch, quant=self.kv_quant,
                               device=self.device)
 
+    def _mesh(self) -> dict:
+        """The mesh keyword the engine's model runs under (forward's tp=,
+        cp= or ep=): none on one device."""
+        return {}
+
+    def _weights_of(self, m):
+        """The weights forward takes for model m (a mesh engine's model:
+        its shard list)."""
+        return m.weights
+
+    def _fw_of(self, m) -> tuple:
+        """(weights, mesh keyword) of the forward of model m."""
+        return self._weights_of(m), (self._mesh() if m is self.model else {})
+
     def _graph_path(self) -> bool:
-        """Whether this engine replays captured programs: the base Engine
-        with its model resident on a CUDA device (the mesh and tiered
-        engines keep their host-driven paths)."""
-        return type(self) is Engine and _graphed(self.device)
+        """Whether this engine replays captured programs: its model resident
+        on a CUDA device, on one card of one process under a mesh
+        (models/graphs.check_capturable; TieredEngine keeps its host-driven
+        path)."""
+        return _graphed(self.device) and one_card(*self._mesh().values())
 
     def _start_kv(self, draft: bool = False) -> KVCache:
         """The cache a generation writes from position 0 (draft: the draft
@@ -213,11 +233,10 @@ class Engine:
         name = "draft" if draft else "main"
         if name not in self._held:
             kv = make()
-            self._held[name] = (kv, ForwardGraphs(m.arch, m.weights, kv))
-        kv = self._held[name][0]
-        for t in (kv.k, kv.v, kv.ks, kv.vs):
-            if t is not None:
-                t.zero_()
+            w, mesh = self._fw_of(m)
+            self._held[name] = (kv, ForwardGraphs(m.arch, w, kv, **mesh))
+        kv, g = self._held[name]
+        g.zero_cache()
         if not draft:
             self._kv_writes += 1
         return kv
@@ -276,9 +295,10 @@ class Engine:
         g = None if with_cosine else self._graphs_of(kv)
         if g is not None:
             return g.prefill(kv, padded, off, n_valid, sel), kv, None
-        return forward(m.arch, m.weights, kv, torch.from_numpy(padded), off,
+        w, mesh = self._fw_of(m)
+        return forward(m.arch, w, kv, torch.from_numpy(padded), off,
                        layer_sel=sel, n_valid=n_valid,
-                       with_cosine=with_cosine)
+                       with_cosine=with_cosine, **mesh)
 
     def _decode_step(self, kv: KVCache, token, pos: int, model=None,
                      with_cosine=False, layer_sel=None):
@@ -291,9 +311,11 @@ class Engine:
         g = None if with_cosine else self._graphs_of(kv)
         if g is not None:
             return g.step(kv, token, pos, sel), kv, None
-        tok = torch.as_tensor(token, device=m.device).reshape(1)
-        return forward(m.arch, m.weights, kv, tok, pos, layer_sel=sel,
-                       with_cosine=with_cosine)
+        w, mesh = self._fw_of(m)
+        tok = torch.as_tensor(token, device=self.device if m is self.model
+                              else m.device).reshape(1)
+        return forward(m.arch, w, kv, tok, pos, layer_sel=sel,
+                       with_cosine=with_cosine, **mesh)
 
     def _verify(self, kv, tokens, pos: int):
         """All-position logits [T, V] of tokens written at pos through the
@@ -302,9 +324,10 @@ class Engine:
         g = self._graphs_of(kv)
         if g is not None:
             return g.verify(kv, tokens, pos, self.layer_sel), kv
-        logits, kv, _ = forward(self.arch, self.model.weights, kv, tokens,
-                                pos, layer_sel=self.layer_sel,
-                                all_logits=True)
+        w, mesh = self._fw_of(self.model)
+        logits, kv, _ = forward(self.arch, w, kv, tokens, pos,
+                                layer_sel=self.layer_sel, all_logits=True,
+                                **mesh)
         return logits, kv
 
     def _calibrate(self, cosines, threshold: float) -> list[int]:
@@ -673,10 +696,11 @@ class TPEngine(Engine):
     and the KV heads split over the mesh's shards, Megatron-style; one
     process drives every shard, and the replicated work (norms, residuals,
     the sums of the shards' partials) runs on the mesh's first device.
-    Generation, the chat session, layer-skip calibration, the int8 cache
-    and `benchmark` (Engine's, through decode_loop_greedy with the JAX
-    clamp of n_tokens) run the shared loops through the TP forward. The
-    unsharded weights are dropped once the shards exist."""
+    Generation, the chat session, layer-skip calibration and the int8
+    cache run the shared loops through the TP forward, replayed on one
+    card as the base Engine replays (Engine._graph_path); `benchmark` runs
+    make_tp_decode_loop, the JAX TPEngine's on-device loop. The unsharded
+    weights are dropped once the shards exist."""
 
     def __init__(self, model: LoadedModel, mesh, fuse: bool = False,
                  kv_quant: bool = False):
@@ -706,28 +730,63 @@ class TPEngine(Engine):
         from ..parallel.tp import make_tp_kv
         return make_tp_kv(self.arch, self.mesh, self.kv_quant)
 
+    def _mesh(self) -> dict:
+        return {"tp": self.mesh}
+
+    def _weights_of(self, m):
+        return self.shards if m is self.model else m.weights
+
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
                        model=None, with_cosine=False):
         if model is not None:
             raise ValueError("TPEngine has no separate draft model")
-        return forward(self.arch, self.shards, kv, torch.from_numpy(padded),
-                       off, layer_sel=self.layer_sel, n_valid=n_valid,
-                       with_cosine=with_cosine, tp=self.mesh)
+        return super()._prefill_chunk(kv, padded, off, n_valid, None,
+                                      with_cosine)
 
     def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
                      layer_sel=None):
         if model is not None:
             raise ValueError("TPEngine has no separate draft model")
-        tok = torch.as_tensor(token, device=self.device).reshape(1)
-        sel = layer_sel if layer_sel is not None else self.layer_sel
-        return forward(self.arch, self.shards, kv, tok, pos, layer_sel=sel,
-                       with_cosine=with_cosine, tp=self.mesh)
+        return super()._decode_step(kv, token, pos, None, with_cosine,
+                                    layer_sel)
 
-    def _verify(self, kv, tokens, pos: int):
-        logits, kv, _ = forward(self.arch, self.shards, kv, tokens, pos,
-                                layer_sel=self.layer_sel, all_logits=True,
-                                tp=self.mesh)
-        return logits, kv
+    def benchmark(self, prompt: str = "The capital of France is",
+                  n_tokens: int = 64, *,
+                  prompt_ids: list[int] | None = None) -> Stats:
+        """Greedy benchmark, the JAX TPEngine's: prefill, then
+        make_tp_decode_loop's run of n_tokens greedy tokens (clamped as the
+        JAX package clamps it, so the warm-up and the timed run both fit)
+        from the prefill's token, a warm-up from the prompt's end and the
+        timed run n_tokens past it. On one card the loop replays the
+        engine's own loop graph with no host read between tokens. The loop
+        runs the whole stack, as the JAX loop does."""
+        from ..parallel.tp import make_tp_decode_loop
+        stats = Stats()
+        ids = (self._clamp_ids(prompt_ids) if prompt_ids is not None
+               else self._encode(prompt))
+        kv = self._start_kv()
+        t0 = time.perf_counter()
+        logits, kv, _ = self._prefill(kv, ids)
+        nxt = torch.argmax(logits[0])
+        _sync(self.device)
+        stats.prefill_tokens = len(ids)
+        stats.prefill_ms = (time.perf_counter() - t0) * 1e3
+        pos = len(ids)
+        n_tokens = min(n_tokens,
+                       max(1, (self.arch.max_seq_len - len(ids) - 1) // 2))
+        loop = make_tp_decode_loop(self.mesh, self.arch, n_tokens,
+                                   kv_quant=self.kv_quant,
+                                   graphs=self._graphs_of)
+        # the warm-up captures the loop step and advances the cache; the
+        # timed run starts past it
+        toks, kv = loop(self.shards, kv, nxt, pos)
+        toks.cpu()
+        t0 = time.perf_counter()
+        toks, kv = loop(self.shards, kv, nxt, pos + n_tokens)
+        toks.cpu()
+        stats.decode_tokens = n_tokens
+        stats.decode_ms = (time.perf_counter() - t0) * 1e3
+        return stats
 
     def generate_self_speculative_fused(self, prompt: str, cfg=None,
                                         callback=None, draft_layers=None):
@@ -746,8 +805,9 @@ class CPEngine(Engine):
     Over a (cp, tp) mesh (parallel/cp.make_cp_tp_mesh) the weights and the
     KV heads also split over tp, as in TPEngine, and the unsharded weights
     are dropped once the shards exist. Generation and `benchmark` run the
-    shared loops through the CP forward; layer-skip calibration and the
-    int8 cache are refused, as in the JAX package."""
+    shared loops through the CP forward, replayed on one card as the base
+    Engine replays; layer-skip calibration and the int8 cache are refused,
+    as in the JAX package."""
 
     def __init__(self, model: LoadedModel, mesh):
         import dataclasses
@@ -803,12 +863,14 @@ class CPEngine(Engine):
                 "CPEngine: no layer-skip calibration or schedule under "
                 "context parallelism")
 
-    def _forward(self, kv, tokens, pos: int, **kw):
+    def _mesh(self) -> dict:
         if self.shards is not None:
-            return forward(self.arch, self.shards, kv, tokens, pos,
-                           cp=self.mesh, tp=self.mesh[0], **kw)
-        return forward(self.arch, self.model.weights, kv, tokens, pos,
-                       cp=self.mesh, **kw)
+            return {"cp": self.mesh, "tp": self.mesh[0]}
+        return {"cp": self.mesh}
+
+    def _weights_of(self, m):
+        return (self.shards if self.shards is not None and m is self.model
+                else m.weights)
 
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
                        model=None, with_cosine=False):
@@ -816,8 +878,7 @@ class CPEngine(Engine):
             raise ValueError("CPEngine: no draft model under context "
                              "parallelism")
         self._check_step(with_cosine)
-        return self._forward(kv, torch.from_numpy(padded), off,
-                             n_valid=n_valid)
+        return super()._prefill_chunk(kv, padded, off, n_valid)
 
     def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
                      layer_sel=None):
@@ -827,13 +888,11 @@ class CPEngine(Engine):
             raise ValueError("CPEngine: no draft model or draft layer "
                              "prefix under context parallelism")
         self._check_step(with_cosine)
-        tok = torch.as_tensor(token, device=self.device).reshape(1)
-        return self._forward(kv, tok, pos)
+        return super()._decode_step(kv, token, pos)
 
     def _verify(self, kv, tokens, pos: int):
         self._check_step(False)
-        logits, kv, _ = self._forward(kv, tokens, pos, all_logits=True)
-        return logits, kv
+        return super()._verify(kv, tokens, pos)
 
     def generate_self_speculative_fused(self, prompt: str, cfg=None,
                                         callback=None, draft_layers=None):
@@ -853,7 +912,8 @@ class EPEngine(Engine):
     a layer prefix and layer-skip calibration are refused, as in the JAX
     package. The unsharded expert planes are dropped one by one as their
     shards are made (ep.shard_weights_ep): a model already on the card is
-    split in place."""
+    split in place. On one card its chunks, steps and verify windows
+    replay as the base Engine's do."""
 
     _REFUSAL = "EPEngine: no draft model / cosine calibration under EP"
 
@@ -881,24 +941,23 @@ class EPEngine(Engine):
         return cls(load_model(path, device="cpu", **kw), ep_mesh(ep, device),
                    kv_quant=kv_quant)
 
+    def _mesh(self) -> dict:
+        return {"ep": self.mesh}
+
+    def _weights_of(self, m):
+        return self.shards if m is self.model else m.weights
+
     def _prefill_chunk(self, kv, padded: np.ndarray, off: int, n_valid: int,
                        model=None, with_cosine=False):
         if model is not None or with_cosine or self.layer_sel is not None:
             raise ValueError(self._REFUSAL)
-        return forward(self.arch, self.shards, kv, torch.from_numpy(padded),
-                       off, n_valid=n_valid, ep=self.mesh)
+        return super()._prefill_chunk(kv, padded, off, n_valid)
 
     def _decode_step(self, kv, token, pos: int, model=None, with_cosine=False,
                      layer_sel=None):
         if model is not None or with_cosine or layer_sel is not None:
             raise ValueError(self._REFUSAL)
-        tok = torch.as_tensor(token, device=self.device).reshape(1)
-        return forward(self.arch, self.shards, kv, tok, pos, ep=self.mesh)
-
-    def _verify(self, kv, tokens, pos: int):
-        logits, kv, _ = forward(self.arch, self.shards, kv, tokens, pos,
-                                all_logits=True, ep=self.mesh)
-        return logits, kv
+        return super()._decode_step(kv, token, pos)
 
     def generate_self_speculative_fused(self, prompt: str, cfg=None,
                                         callback=None, draft_layers=None):
@@ -926,6 +985,11 @@ class TieredEngine(Engine):
         self.skip: frozenset = frozenset()
         self.early_exit_threshold = 0.0  # set per generate() from cfg
         self.kv_quant = kv_quant  # int8 KV cache (half its device memory)
+
+    def _graph_path(self) -> bool:
+        """The tiered path stays host-driven (streaming and early exit
+        decide on the host), as in the JAX package."""
+        return False
 
     @classmethod
     def load(cls, path: str, kv_quant: bool = False,

@@ -36,8 +36,13 @@ pending at a time; the cache is zeroed where an admission starts at 0, and
 a prefix-cache hit's bytes are copied into it); each loop iteration copies
 its inputs in and replays. A chunk length no warm-up reached (after a
 prefix hit, min(admit_chunk, S - off) at an offset that admit_chunk does
-not divide) is captured at first use. The CPU path and the mesh path are
-never captured: they call the steps and the forward directly.
+not divide) is captured at first use. The sharded server replays the same
+way where its mesh lies on one card of one process (parallel/dp.captured):
+one StepGraphs a dp group (dp.group_graphs), whose decode, draft and verify
+steps warmup() captures, and one admission cache of the prefill row with
+its ForwardGraphs (tp.make_tp_kv's shards; the row's forward). A mesh that
+spans processes or cards, and the CPU, never capture: they call the steps
+and the forward directly.
 """
 from __future__ import annotations
 
@@ -63,9 +68,19 @@ def _graphed(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def _tensors(kv: KVCache) -> list:
-    """The tensors of a KVCache (codes and scales of an int8 cache)."""
+def _tensors(kv) -> list:
+    """The tensors of a KVCache (codes and scales of an int8 cache), or of
+    every cache of a mesh's shard list (None: another process's)."""
+    if isinstance(kv, list):
+        return [t for c in kv if c is not None for t in _tensors(c)]
     return [t for t in (kv.k, kv.v, kv.ks, kv.vs) if t is not None]
+
+
+def _clone(kv):
+    """A copy of a KVCache or of a mesh's shard list of them."""
+    if isinstance(kv, list):
+        return [None if c is None else c.clone() for c in kv]
+    return kv.clone()
 
 
 @dataclass
@@ -246,6 +261,7 @@ class BatchServer:
         # the admission cache and its prefill graphs (_admission_graphs)
         self._bkv = None
         self._graphs: StepGraphs | None = None
+        self._ggraphs: list | None = None   # a mesh's: one a dp group
         self._adm: tuple[KVCache, ForwardGraphs] | None = None
         if mesh is not None:
             self._init_sharded(mesh, fuse)
@@ -281,13 +297,20 @@ class BatchServer:
         self.weights = self.grid[g0]
         self.device = mesh.home
         self._attn_ladder = []
-        kw = dict(dot_impl=self.dot_impl)
-        self._sstep = dp.make_batched_decode_sharded(mesh, self.arch, **kw)
+        self._sharded_steps(None)
+
+    def _sharded_steps(self, graphs) -> None:
+        """The mesh's decode (with spec_k, draft and verify) steps; graphs:
+        dp.group_graphs' StepGraphs, replayed by them."""
+        from ..parallel import dp
+        kw = dict(dot_impl=self.dot_impl, graphs=graphs)
+        self._sstep = dp.make_batched_decode_sharded(self.mesh, self.arch,
+                                                     **kw)
         if self.spec_k:
             self._sdraft = dp.make_batched_draft_sharded(
-                mesh, self.arch, self.spec_draft, **kw)
-            self._sverify = dp.make_batched_verify_sharded(mesh, self.arch,
-                                                           **kw)
+                self.mesh, self.arch, self.spec_draft, **kw)
+            self._sverify = dp.make_batched_verify_sharded(
+                self.mesh, self.arch, **kw)
 
     def _step(self, bkv, tokens, pos, active, s_live=None):
         if self.mesh is not None:
@@ -324,12 +347,17 @@ class BatchServer:
         """The batched cache of the server's life (warmup and every run
         serve from it: an admission's insert overwrites its whole slot),
         on a mesh one per (dp, tp) position; on a CUDA device without a
-        mesh, the StepGraphs bound to it."""
+        mesh, the StepGraphs bound to it; on a mesh of one card, the dp
+        groups' StepGraphs bound to theirs."""
         if self._bkv is None:
             if self.mesh is not None:
-                from ..parallel.dp import make_server_kv
-                self._bkv = make_server_kv(self.mesh, self.arch, self.B,
-                                           self.kv_quant)
+                from ..parallel import dp
+                self._bkv = dp.make_server_kv(self.mesh, self.arch, self.B,
+                                              self.kv_quant)
+                if _graphed(self.device) and dp.captured(self.mesh):
+                    self._ggraphs = dp.group_graphs(self.mesh, self.arch,
+                                                    self.grid, self._bkv)
+                    self._sharded_steps(self._ggraphs)
             else:
                 self._bkv = BatchedKV.create(self.arch, self.B,
                                              quant=self.kv_quant,
@@ -339,10 +367,11 @@ class BatchServer:
                                               self._bkv)
         return self._bkv
 
-    def _graph_keys(self) -> list:
-        """The keys warmup captures: the decode step at full S and at
-        every s_live rung, with spec_k the draft and verify steps too."""
-        g, keys = self._graphs, []
+    def _graph_keys(self, g=None) -> list:
+        """The keys warmup captures on StepGraphs g (default the one-device
+        server's): the decode step at full S and at every s_live rung, with
+        spec_k the draft and verify steps too."""
+        g, keys = g if g is not None else self._graphs, []
         for sl in [None] + self._attn_ladder:
             keys.append(g.key("decode", 1, sl, dot_impl=self.dot_impl))
             if self.spec_k:
@@ -353,26 +382,41 @@ class BatchServer:
         return keys
 
     def _admission_graphs(self):
-        """On a one-device CUDA server (the admission cache of the server's
-        life, the ForwardGraphs bound to it), made the first time; else
-        None."""
-        if self.mesh is not None or not _graphed(self.device):
+        """On a CUDA server (the admission cache of the server's life, the
+        ForwardGraphs bound to it), made the first time: one KVCache, or on
+        a mesh of one card the prefill row's shard caches, their graphs
+        running the row's forward (the one-device forward of its one shard
+        at tp = 1); else None."""
+        if not _graphed(self.device):
             return None
+        if self.mesh is not None:
+            from ..parallel import dp
+            if not dp.captured(self.mesh):
+                return None
         if self._adm is None:
-            kv = KVCache.create(self.arch, quant=self.kv_quant,
-                                device=self.device)
-            self._adm = (kv, ForwardGraphs(self.arch, self.weights, kv))
+            if self.mesh is None:
+                kv = KVCache.create(self.arch, quant=self.kv_quant,
+                                    device=self.device)
+                g = ForwardGraphs(self.arch, self.weights, kv)
+            else:
+                from ..parallel.tp import make_tp_kv
+                kv = make_tp_kv(self.arch, self._row, self.kv_quant)
+                g = (ForwardGraphs(self.arch, self.weights[0], kv[0])
+                     if self.mesh.tp == 1 else
+                     ForwardGraphs(self.arch, self.weights, kv,
+                                   tp=self._row))
+            self._adm = (kv, g)
         return self._adm
 
     def _make_kv(self):
-        """An admission's cache from position 0: one KVCache (on a CUDA
-        device the server's own, zeroed), or on a mesh one per shard of the
-        prefill row (None for another process's shard)."""
-        if self.mesh is not None:
-            from ..parallel.tp import make_tp_kv
-            return make_tp_kv(self.arch, self._row, self.kv_quant)
+        """An admission's cache from position 0: one KVCache, or on a mesh
+        one per shard of the prefill row (None for another process's
+        shard); on the graph path the server's own, zeroed."""
         held = self._admission_graphs()
         if held is None:
+            if self.mesh is not None:
+                from ..parallel.tp import make_tp_kv
+                return make_tp_kv(self.arch, self._row, self.kv_quant)
             return KVCache.create(self.arch, quant=self.kv_quant,
                                   device=self.device)
         for t in _tensors(held[0]):
@@ -382,7 +426,9 @@ class BatchServer:
     def _prefill(self, weights, kv, padded, off, n_valid):
         tokens = torch.from_numpy(padded)
         if self._adm is not None and kv is self._adm[0]:
-            return self._adm[1].prefill(kv, padded, off, n_valid), kv
+            bound = kv[0] if self.mesh is not None and self.mesh.tp == 1 \
+                else kv
+            return self._adm[1].prefill(bound, padded, off, n_valid), kv
         if self.mesh is None:
             logits, kv, _ = forward(self.arch, weights, kv, tokens, off,
                                     n_valid=n_valid)
@@ -430,11 +476,9 @@ class BatchServer:
             return None, 0            # the cache copy
         self._pcache.append(self._pcache.pop(best_i))  # LRU refresh
         kv = self._pcache[-1][1]
-        if isinstance(kv, list):   # a mesh's per-shard caches
-            return [None if c is None else c.clone() for c in kv], best_n
         held = self._admission_graphs()
         if held is None:
-            return kv.clone(), best_n
+            return _clone(kv), best_n
         for dst, src in zip(_tensors(held[0]), _tensors(kv)):
             dst.copy_(src)
         return held[0], best_n
@@ -447,7 +491,7 @@ class BatchServer:
         if not self.prefix_cache:
             return
         if self._adm is not None and kv is self._adm[0]:
-            kv = kv.clone()
+            kv = _clone(kv)
         for i, (cached, _) in enumerate(self._pcache):
             if cached == ids:       # replace an identical-prompt entry
                 self._pcache.pop(i)
@@ -471,8 +515,9 @@ class BatchServer:
         t0 = time.perf_counter()
         arch = self.arch
         bkv = self._server_kv()
-        if self._graphs is not None:
-            self._graphs.capture(self._graph_keys())
+        for g in [self._graphs] + (self._ggraphs or []):
+            if g is not None:
+                g.capture(self._graph_keys(g))
         zeros = self._vec(np.zeros(self.B, np.int64))
         act = self._vec(np.zeros(self.B, bool), torch.bool)
         for sl in [None] + self._attn_ladder:

@@ -20,11 +20,33 @@ uncaptured call computes from the same state.
     iteration. The resident Engine, BatchServer's admissions and the
     perplexity tool replay them.
 
-Each is bound to one cache and one ModelWeights on one CUDA device, since
-its graphs hold their addresses, and captures on its own stream into one
-memory pool shared by its graphs. Inputs are copied into static device
-tensors before a replay; outputs are static tensors, valid until the next
-replay of any graph of the same object (the caller reads them first, as
+Both have mesh forms, the JAX package's jitted shard_map programs
+(parallel/): StepGraphs over a tp row (a dp group of the sharded server,
+parallel/dp.py group_graphs), ForwardGraphs over a tp, cp, (cp, tp) or
+ep mesh (the mesh engines, make_tp_decode_loop, the sharded server's
+admissions); parallel/pp.py make_pp_decode captures the pipeline step the
+same way. A mesh is captured only where it lies on one card of one
+process (check_capturable): a row that spans processes all-gathers its
+partials over a process group, which gloo stages through host memory, and
+a mesh that spans cards would need one capture to span cards, with the
+second card's stream joined by events and its memory in the graph's pool.
+experiments/mesh_capture.py probes that on two H100s (torch 2.11, CUDA
+12.8), each variant in a process of its own: the plain capture, the second
+card's stream forked and joined by events, fails ("AcceleratorError: CUDA
+error: operation failed due to a previous error during capture",
+cudaErrorStreamCaptureInvalidated); routing the second card's
+allocations to a torch.cuda.MemPool fails the same way, then aborts in
+the pool's destructor ("captures_underway.empty() INTERNAL ASSERT
+FAILED"); a pool warmed by an eager run fails at capture ("it->second->
+use_count > 0 INTERNAL ASSERT FAILED"). Those meshes keep the host
+path, by that explicit check, never by a caught capture failure.
+
+Each is bound to one cache (a mesh's shard list or grid) and one set of
+weights on one CUDA device, since its graphs hold their addresses, and
+captures on its own stream into one memory pool shared by its graphs.
+Inputs are copied into static device tensors before a replay; outputs are
+static tensors, valid until the next replay of any graph of the same
+object (the caller reads them first, as
 the server and the Engine do: argmax or sampling right after each step;
 sampling stays outside the graphs, as the JAX jitted steps return logits).
 
@@ -49,8 +71,9 @@ import torch
 
 from ..ops import linear
 from ..ops.cuda import batched_attention
-from .batched import (BatchedKV, batched_decode_step, batched_verify_step,
-                      resolve_impl)
+from .batched import (BatchedKV, batched_decode_step,
+                      batched_decode_step_tp, batched_verify_step,
+                      batched_verify_step_tp, resolve_impl)
 from .llama import Arch, KVCache, ModelWeights, forward
 
 KINDS = ("decode", "draft", "verify")
@@ -84,6 +107,55 @@ class CudaGraph:
 GRAPH = CudaGraph
 
 
+def _first(xs):
+    """The first entry of a shard list that this process holds."""
+    return next(x for x in xs if x is not None)
+
+
+def _mesh_devices(mesh) -> list:
+    """Every device of a mesh: a tuple of devices, a (cp, tp) grid of them,
+    or a parallel/multihost Row."""
+    out = []
+    for d in mesh:
+        out.extend(_mesh_devices(d) if isinstance(d, (tuple, list))
+                   else [torch.device(d)])
+    return out
+
+
+def _refusal(*meshes) -> str | None:
+    """Why a captured program cannot hold one of these meshes (None: a
+    mesh not given), or None."""
+    for mesh in meshes:
+        if mesh is None:
+            continue
+        if getattr(mesh, "group", None) is not None:
+            return ("a mesh row that spans processes keeps the host path: "
+                    "its collectives are not captured")
+        if len(set(_mesh_devices(mesh))) > 1:
+            return ("a mesh that spans cards keeps the host path: one "
+                    "capture does not span cards (the module docstring, "
+                    "experiments/mesh_capture.py)")
+    return None
+
+
+def check_capturable(*meshes) -> None:
+    """Refuse a mesh that a captured program cannot hold: a row whose
+    shards span processes (its partials are all-gathered over a process
+    group, which gloo stages through host memory: a capture refuses that;
+    those rows keep the host path), and a mesh that spans cards (the
+    cross-card capture probe, experiments/mesh_capture.py, and the module
+    docstring). ValueError either way."""
+    why = _refusal(*meshes)
+    if why is not None:
+        raise ValueError(why)
+
+
+def one_card(*meshes) -> bool:
+    """Whether every mesh given (None: none) lies on one device of one
+    process: what check_capturable takes."""
+    return _refusal(*meshes) is None
+
+
 @contextlib.contextmanager
 def _on_stream(device: torch.device, stream):
     """Run on the capture stream, ordered after the current stream's work
@@ -114,12 +186,21 @@ class StepKey(NamedTuple):
 
 class StepGraphs:
     """The captured batched steps of one cache: decode (the full stack),
-    draft (the first n_layers layers) and verify, one graph a StepKey."""
+    draft (the first n_layers layers) and verify, one graph a StepKey.
 
-    def __init__(self, arch: Arch, weights: ModelWeights, kv: BatchedKV):
-        self.arch, self.weights, self.kv = arch, weights, kv
-        self.device = kv.k.device
-        self.batch = kv.k.shape[1]
+    row: a tp row (parallel/dp.py's dp group at tp > 1): weights and kv are
+    then the row's shard lists (tp.shard_weights, one BatchedKV of the
+    shard's heads each), and the steps batched_decode_step_tp /
+    batched_verify_step_tp, which take no s_live. The row lies on one card
+    of one process (check_capturable)."""
+
+    def __init__(self, arch: Arch, weights, kv, row=None):
+        check_capturable(row)
+        self.arch, self.weights, self.kv, self.row = arch, weights, kv, row
+        ref = _first(kv) if row is not None else kv
+        self._ref = ref
+        self.device = ref.k.device
+        self.batch = ref.k.shape[1]
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self._pos = torch.zeros(self.batch, dtype=torch.long,
@@ -148,8 +229,11 @@ class StepGraphs:
             raise ValueError("a draft step takes n_layers, and only it")
         if kind != "verify" and t != 1:
             raise ValueError(f"a {kind} step takes one token a slot, not {t}")
+        if self.row is not None and s_live is not None:
+            raise ValueError("a tp row's step takes no s_live")
         impl, kv_append = resolve_impl(
-            None, "dus" if kind == "verify" else None, self.batch, self.kv.k)
+            None, "dus" if kind == "verify" else None, self.batch,
+            self._ref.k)
         return StepKey(kind, self.batch, int(t),
                        None if s_live is None else int(s_live), dot_impl,
                        impl, kv_append,
@@ -169,6 +253,15 @@ class StepGraphs:
         """The uncaptured step of `key` over the static inputs, returning
         its logits."""
         tokens = self._static_tokens(key)
+        if self.row is not None:
+            a, w, kv, row = self.arch, self.weights, self.kv, self.row
+            if key.kind == "verify":
+                return lambda: batched_verify_step_tp(
+                    a, w, kv, tokens, self._pos, self._active, row,
+                    dot_impl=key.dot_impl)[0]
+            return lambda: batched_decode_step_tp(
+                a, w, kv, tokens, self._pos, self._active, row,
+                n_layers=key.n_layers, dot_impl=key.dot_impl)[0]
         if key.kind == "verify":
             return lambda: batched_verify_step(
                 self.arch, self.weights, self.kv, tokens, self._pos,
@@ -217,7 +310,8 @@ class StepGraphs:
         on these inputs: tokens [B] (decode, draft) or [B, T] (verify),
         pos [B], active [B], s_live, n_layers (a draft's prefix) and
         dot_impl as batched_decode_step / batched_verify_step take them.
-        kv must be the bound cache, which the step writes in place. Returns
+        kv must be the bound cache (a tp row's: its list of shard caches),
+        which the step writes in place. Returns
         the static logits ([B, V] or [B, T, V] f32), valid until the next
         replay."""
         if kv is not self.kv:
@@ -279,11 +373,40 @@ class ForwardGraphs:
     Positions are host ints the caller keeps inside the cache (checked
     here); the static pos and n_valid are device tensors, which the
     captured forward never reads on the host. A prefill or verify window's
-    key is its length t, so one graph serves every offset and n_valid."""
+    key is its length t, so one graph serves every offset and n_valid.
 
-    def __init__(self, arch: Arch, weights: ModelWeights, kv: KVCache):
+    The mesh forms (parallel/): one mesh keyword, fixed here, as forward
+    takes it: tp= (weights and kv the shard lists of tp.shard_weights and
+    tp.make_tp_kv), cp= (kv the list of cp.make_cp_kv's sequence slices),
+    cp= with tp= (kv the [tp][cp] grid of cp.make_cp_tp_kv) or ep= (weights
+    the shard list of ep.shard_weights_ep). The statics live on the mesh's
+    first device, from which the forward hands pos and n_valid to each
+    shard; a cache's rows are a CP cache's slices together. The mesh lies
+    on one card of one process (check_capturable). spec stays a one-device
+    kind: the mesh engines delegate fused self-speculation to the host
+    protocol, as the JAX ones do."""
+
+    def __init__(self, arch: Arch, weights, kv, *, tp=None, cp=None,
+                 ep=None):
+        check_capturable(tp, cp, ep)
         self.arch, self.weights, self.kv = arch, weights, kv
-        self.device = kv.k.device
+        self.mesh_kw = {k: v for k, v in (("tp", tp), ("cp", cp), ("ep", ep))
+                        if v is not None}
+        home = weights if isinstance(weights, ModelWeights) \
+            else _first(weights)
+        self.device = home.output_norm.device
+        # every cache this process holds with the global row its row 0
+        # stands for (a CP slice's start), and the rows of the whole cache
+        cols = [kv] if cp is None or tp is None else kv
+        if cp is not None:
+            rows = _first(cols[0]).k.shape[2]
+            self._shards = [(c, i * rows) for col in cols
+                            for i, c in enumerate(col)]
+            self.rows = rows * len(cp)
+        else:
+            self._shards = [(c, 0) for c in (kv if tp is not None else [kv])
+                            if c is not None]
+            self.rows = self._shards[0][0].k.shape[2]
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
 
@@ -304,6 +427,14 @@ class ForwardGraphs:
     def captures(self) -> int:
         return len(self._graphs)
 
+    def zero_cache(self) -> None:
+        """Zero every tensor of the bound cache this process holds: the
+        state of a fresh cache."""
+        for c, _ in self._shards:
+            for t in (c.k, c.v, c.ks, c.vs):
+                if t is not None:
+                    t.zero_()
+
     def key(self, kind: str, t: int = 1, layers=None, k=None, n_draft=None,
             n_steps=None) -> ForwardKey:
         if kind not in FORWARD_KINDS:
@@ -314,6 +445,9 @@ class ForwardGraphs:
                              "only it")
         if (kind == "loop") != (n_steps is not None):
             raise ValueError("a loop step takes n_steps, and only it")
+        if kind == "spec" and self.mesh_kw:
+            raise ValueError("a spec iteration runs the one-device forward, "
+                             "not a mesh's")
         if kind == "spec":
             t = k + 1
         elif kind not in ("verify", "prefill") and t != 1:
@@ -324,7 +458,8 @@ class ForwardGraphs:
                           None if k is None else int(k),
                           None if n_draft is None else int(n_draft),
                           None if n_steps is None else int(n_steps),
-                          "int8" if self.kv.quantized else "bf16",
+                          "int8" if any(c.quantized for c, _ in self._shards)
+                          else "bf16",
                           linear.KERNEL_MODE)
 
     def _inputs(self, key: ForwardKey) -> None:
@@ -340,25 +475,25 @@ class ForwardGraphs:
 
     def _body(self, key: ForwardKey):
         """The uncaptured program of `key` over the static tensors."""
-        a, w, kv = self.arch, self.weights, self.kv
+        a, w, kv, mesh = self.arch, self.weights, self.kv, self.mesh_kw
         sel = None if key.layers is None else list(key.layers)
         if key.kind == "step":
             return lambda: forward(a, w, kv, self._tok, self._pos,
-                                   layer_sel=sel)[0]
+                                   layer_sel=sel, **mesh)[0]
         if key.kind == "verify":
             win = self._windows[key.t]
             return lambda: forward(a, w, kv, win, self._pos, layer_sel=sel,
-                                   all_logits=True)[0]
+                                   all_logits=True, **mesh)[0]
         if key.kind == "prefill":
             win = self._windows[key.t]
             return lambda: forward(a, w, kv, win, self._pos, layer_sel=sel,
-                                   n_valid=self._n_valid)[0]
+                                   n_valid=self._n_valid, **mesh)[0]
         if key.kind == "loop":
             buf = self._bufs[key.n_steps]
 
             def loop_step():
                 logits = forward(a, w, kv, self._tok, self._pos,
-                                 layer_sel=sel)[0]
+                                 layer_sel=sel, **mesh)[0]
                 nxt = torch.argmax(logits[0]).reshape(1)
                 self._tok.copy_(nxt)
                 buf.index_copy_(0, self._i.reshape(1), nxt)
@@ -390,11 +525,14 @@ class ForwardGraphs:
             return
         for k in new:
             self._inputs(k)
-        lo = self.kv.k.shape[2] - max(k.t for k in new)
-        caches = [c for c in (self.kv.k, self.kv.v, self.kv.ks, self.kv.vs)
-                  if c is not None]
+        lo = self.rows - max(k.t for k in new)
+        # the rows at or past global row lo of every cache this process
+        # holds (of a CP slice, those of its rows that lie there)
+        caches = [t[:, :, max(lo - off, 0):] for c, off in self._shards
+                  if lo - off < c.k.shape[2]
+                  for t in (c.k, c.v, c.ks, c.vs) if t is not None]
         with _on_stream(self.device, self.stream):
-            rows = [c[:, :, lo:].clone() for c in caches]
+            rows = [c.clone() for c in caches]
             statics = [s.clone() for s in self._statics()]
 
             def park():
@@ -416,19 +554,20 @@ class ForwardGraphs:
                     self.replays[k] = 0
             finally:
                 for c, r in zip(caches, rows):
-                    c[:, :, lo:].copy_(r)
+                    c.copy_(r)
                 for s, v in zip(self._statics(), statics):
                     s.copy_(v)
 
     def _graph(self, kv: KVCache, key: ForwardKey, pos, span: int):
         """The graph of `key` (captured first if new) and its output, after
-        the checks: kv is the bound cache, and rows [pos, pos + span) lie
-        inside it (host ints; pos None: the device pos as it stands)."""
+        the checks: kv is the bound cache (a mesh's: the bound list or
+        grid), and rows [pos, pos + span) lie inside it (host ints; pos
+        None: the device pos as it stands)."""
         if kv is not self.kv:
             raise ValueError("ForwardGraphs: this KVCache is not the one the "
                              "graphs were captured against (they hold its "
                              "addresses)")
-        rows = self.kv.k.shape[2]
+        rows = self.rows
         if pos is not None and not 0 <= pos <= rows - span:
             raise ValueError(f"rows [{pos}, {pos + span}) exceed the "
                              f"{rows}-row cache")

@@ -33,8 +33,9 @@ where + dynamic_update_slice), the mask is built on the device, the flash
 kernel reads pos on the card and the head picks row n_valid - 1 with
 index_select, so the forward can be captured once and replayed at any
 position (models/graphs.py). The two forms compute the same values. A
-device pos serves the one-device forward at any T; the mesh paths take a
-host int.
+device pos serves every forward, the meshes' included, at any T: each shard
+reads it on its own device (a TP shard's RoPE rows and cache write, a CP
+shard's masked write of the rows it owns and its attention partials).
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.layers import (_psum, apply_rope, attention,
+from ..ops.layers import (_on, _psum, apply_rope, attention,
                           attention_cp_dispatch, rms_norm, swiglu)
 from ..ops.linear import QLinear, embed_lookup, qmatmul
 
@@ -341,7 +342,8 @@ def _norm_w(arch: Arch, w: torch.Tensor, layer: int) -> torch.Tensor:
 
 
 def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
-               sin_t, n_valid=None, layer: int = 0, abs_layer=None):
+               sin_t, n_valid=None, layer: int = 0, abs_layer=None,
+               cp_plan=None):
     """The attention half of one block through its residual add. x [T, H]
     f32; kv_k/kv_v [Hkv, S, D] views of this layer's cache, written in
     place at rows [pos, pos + n_valid); pos and n_valid host ints or 0-d
@@ -351,11 +353,12 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
     which picks its sliding window and rope table (a streamed layer's
     weights are a stack of one). Under context parallelism (parallel/cp.py)
     kv_k/kv_v are lists of the shards' [Hkv, S/n, D] views, shard i holding
-    global rows [i*S/n, (i+1)*S/n)."""
+    global rows [i*S/n, (i+1)*S/n); cp_plan: a device pos's cp_write_plan,
+    made once a forward (None: made here)."""
     h = rms_norm(x, _norm_w(arch, lw.attn_norm, layer),
                  arch.norm_eps).to(torch.bfloat16)
     o = attn_heads(arch, h, lw, kv_k, kv_v, pos, cos_t, sin_t, n_valid,
-                   layer, abs_layer)
+                   layer, abs_layer, cp_plan)
     if arch.post_norms:
         o = rms_norm(o, _norm_w(arch, lw.attn_post_norm, layer),
                      arch.norm_eps)
@@ -363,7 +366,8 @@ def attn_block(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
 
 
 def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
-               sin_t, n_valid=None, layer: int = 0, abs_layer=None):
+               sin_t, n_valid=None, layer: int = 0, abs_layer=None,
+               cp_plan=None):
     """Attention from the normed input h [T, H] bf16 through the output
     projection: [T, H] f32, before any post norm. Under tensor parallelism
     `arch` is a shard's local arch and the result its row-parallel partial
@@ -430,7 +434,14 @@ def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
         # each shard takes the new rows that fall in its slice; the JAX
         # package scatters the others, and padding, out of bounds
         s_local = kv_k[0].shape[1]
+        if idx is not None:
+            if cp_plan is None:
+                cp_plan = cp_write_plan(pos, n_valid, T, kv_k)
+            kb, vb = k.to(kv_k[0].dtype), v.to(kv_v[0].dtype)
         for i, (kk, vv) in enumerate(zip(kv_k, kv_v)):
+            if idx is not None:
+                _write_cp_rows(kk, vv, kb, vb, cp_plan[i])
+                continue
             lo, hi = max(pos, i * s_local), min(pos + n, (i + 1) * s_local)
             if lo < hi:
                 rows_new = slice(lo - pos, hi - pos)
@@ -475,6 +486,43 @@ def _write_rows(dst: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
     dst.index_copy_(1, idx, new)
 
 
+def cp_write_plan(pos: torch.Tensor, n_valid, t_n: int,
+                  slices: list) -> list:
+    """The indices of a device-pos write of t_n new rows at global rows
+    pos + t (t < n_valid, every t without it) into a CP cache's shard
+    slices (each [Hkv, S_l, D] or [L, Hkv, S_l, D], shard i holding global
+    rows [i S_l, (i+1) S_l)), one (rows, keep, src) a shard on its device:
+    the same for every layer, so a forward makes them once. Each shard
+    reads and rewrites a fixed window of W = min(t_n, S_l) distinct local
+    rows that holds every row it owns of the t_n (its start clamped into
+    the slice): rows, the window; src, the new row each takes; keep, where
+    a valid token lands on it. So no index repeats and the rows outside the
+    shard drop out, as the JAX package's scatter drops them."""
+    plan = []
+    for i, sl in enumerate(slices):
+        dev, s_l = sl.device, sl.shape[-2]
+        w = min(t_n, s_l)
+        p = pos.to(dev)
+        rows = (p - i * s_l).clamp(0, s_l - w) + torch.arange(w, device=dev)
+        t = rows + i * s_l - p                           # the source token
+        keep = (t >= 0) & (t < (t_n if n_valid is None
+                                else n_valid.to(dev)))
+        plan.append((rows, keep[None, :, None], t.clamp(0, t_n - 1)))
+    return plan
+
+
+def _write_cp_rows(kk: torch.Tensor, vv: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, plan) -> None:
+    """One CP shard's part of a device-pos write (cp_write_plan): the new
+    rows k/v [Hkv, T, D], in the cache's dtype, merged into the shard's
+    window of kk/vv [Hkv, S_l, D] on the device."""
+    rows, keep, src = plan
+    for dst, new in ((kk, k), (vv, v)):
+        new = new.to(dst.device).index_select(1, src)
+        dst.index_copy_(1, rows, torch.where(keep, new,
+                                             dst.index_select(1, rows)))
+
+
 def quantize_rows(k: torch.Tensor, v: torch.Tensor):
     """Absmax int8 quantization of new k/v rows, one f32 scale per row of
     the last axis: (k codes, k scales, v codes, v scales), scales keeping a
@@ -490,14 +538,14 @@ def quantize_rows(k: torch.Tensor, v: torch.Tensor):
 
 def layer_step(arch: Arch, x, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
                sin_t, n_valid=None, layer: int = 0, abs_layer=None,
-               ep: list | None = None):
+               ep: list | None = None, cp_plan=None):
     """One transformer block. x [T, H] f32; kv_k/kv_v this layer's cache
     views ((codes, scales) tuples for an int8 cache; lists of the shards'
-    views under context parallelism); pos, layer and abs_layer as in
-    attn_block;
+    views under context parallelism); pos, layer, abs_layer and cp_plan as
+    in attn_block;
     ep: the expert-parallel shards' LayerWeights (moe_ffn); returns x."""
     x = attn_block(arch, x, lw, kv_k, kv_v, pos, cos_t, sin_t, n_valid,
-                   layer, abs_layer)
+                   layer, abs_layer, cp_plan)
     hf = rms_norm(x, _norm_w(arch, lw.ffn_norm, layer),
                   arch.norm_eps).to(torch.bfloat16)
     if arch.n_experts:
@@ -602,34 +650,49 @@ def tp_embed(arch: Arch, shards: list, tokens, row=None):
 
 
 def tp_embed_positions(arch: Arch, shards: list[ModelWeights], tokens,
-                       pos: int, row=None):
+                       pos, row=None):
     """tp_embed, and each shard's RoPE rows on its own device (None for
-    another process's shard). Returns (x [T, H] f32, [(cos, sin) of each
-    shard])."""
+    another process's shard); pos a host int or a 0-d device tensor, whose
+    rows each shard gathers on its device. Returns (x [T, H] f32, [(cos,
+    sin) of each shard])."""
     T = tokens.shape[0]
     x = tp_embed(arch, shards, tokens, row)
-    ropes = [None if w is None else
-             (w.rope_cos[..., pos:pos + T, :], w.rope_sin[..., pos:pos + T, :])
-             for w in shards]
+    ropes = []
+    for w in shards:
+        if w is None:
+            ropes.append(None)
+        elif isinstance(pos, torch.Tensor):
+            dev = w.rope_cos.device
+            idx = pos.to(dev) + torch.arange(T, device=dev)
+            ropes.append((w.rope_cos.index_select(-2, idx),
+                          w.rope_sin.index_select(-2, idx)))
+        else:
+            ropes.append((w.rope_cos[..., pos:pos + T, :],
+                          w.rope_sin[..., pos:pos + T, :]))
     return x, ropes
 
 
-def tp_layer_step(arch: Arch, x, lws: list[LayerWeights], kvs: list, pos: int,
+def tp_layer_step(arch: Arch, x, lws: list[LayerWeights], kvs: list, pos,
                   ropes: list, n_valid=None, layer: int = 0, abs_layer=None,
-                  row=None):
+                  row=None, cp_plans=None):
     """One block over tp shards. arch: the shards' local arch; x [T, H] f32
     on the first shard's device; lws, kvs ((k, v) cache views of this
     layer) and ropes one per shard, each on its shard's device (None for
-    another process's shard); layer / abs_layer as in attn_block. The
-    norms are replicated: the first shard's are read. Returns x."""
+    another process's shard); pos and n_valid host ints or 0-d device
+    tensors, which each shard reads on its device; layer / abs_layer as in
+    attn_block; cp_plans: under CP x TP with a device pos, each TP shard's
+    cp_write_plan. The norms are replicated: the first shard's are read.
+    Returns x."""
     dev = x.device
     lw0 = _home(lws)
     h = rms_norm(x, _norm_w(arch, lw0.attn_norm, layer),
                  arch.norm_eps).to(torch.bfloat16)
+    plans = cp_plans if cp_plans is not None else [None] * len(lws)
     o = _psum([None if lw is None else
-               attn_heads(arch, h.to(rp[0].device), lw, kv[0], kv[1], pos,
-                          rp[0], rp[1], n_valid, layer, abs_layer)
-               for lw, kv, rp in zip(lws, kvs, ropes)], dev, row)
+               attn_heads(arch, h.to(rp[0].device), lw, kv[0], kv[1],
+                          _on(pos, rp[0].device), rp[0], rp[1],
+                          _on(n_valid, rp[0].device), layer, abs_layer, pl)
+               for lw, kv, rp, pl in zip(lws, kvs, ropes, plans)], dev, row)
     if arch.post_norms:
         o = rms_norm(o, _norm_w(arch, lw0.attn_post_norm, layer),
                      arch.norm_eps)
@@ -649,13 +712,16 @@ def tp_head_logits(arch: Arch, shards: list[ModelWeights], x, n_valid=None,
                    all_logits: bool = False, row=None):
     """Final norm, then the row-parallel LM head: shard s multiplies its
     K-slice of the selected rows by its rows of the head, and the partial
-    logits are summed in shard order on the first shard's device."""
+    logits are summed in shard order on the first shard's device. n_valid:
+    a host int or a 0-d tensor on x's device (its row picked there)."""
     from ..ops.linear import plane_dims
     w = _home(shards).output_norm
     x = rms_norm(x, w + arch.norm_bias if arch.norm_bias != 0.0 else w,
                  arch.norm_eps)
     if all_logits:
         sel = x
+    elif isinstance(n_valid, torch.Tensor):
+        sel = x.index_select(0, n_valid.reshape(1) - 1)
     elif n_valid is not None:
         sel = x[int(n_valid) - 1:int(n_valid)]
     else:
@@ -680,7 +746,7 @@ def tp_head_logits(arch: Arch, shards: list[ModelWeights], x, n_valid=None,
 
 
 def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list,
-                tokens, pos: int, layer_sel, n_valid, all_logits: bool,
+                tokens, pos, layer_sel, n_valid, all_logits: bool,
                 with_cosine: bool, mesh, cp=None):
     tp = len(mesh)
     if len(shards) != tp or len(kv) != tp:
@@ -702,6 +768,12 @@ def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list,
     indices = (range(n_layers) if layer_sel is None
                else [int(i) for i in layer_sel])
     lws = [None if w is None else w.layers for w in shards]
+    plans = None
+    if cp is not None and isinstance(pos, torch.Tensor):
+        plans = [cp_write_plan(_on(pos, col[0].k.device),
+                               _on(n_valid, col[0].k.device),
+                               tokens.shape[0], [c.k for c in col])
+                 for col in kv]
     cosines = []
     for li in indices:
         if cp is not None:
@@ -710,7 +782,7 @@ def _forward_tp(arch: Arch, shards: list[ModelWeights], kv: list,
         else:
             views = [None if c is None else c.layer(li) for c in kv]
         x2 = tp_layer_step(arch_l, x, lws, views, pos, ropes, n_valid,
-                           layer=li, row=mesh)
+                           layer=li, row=mesh, cp_plans=plans)
         if with_cosine:
             cosines.append(_cosine(x, x2))
         x = x2
@@ -740,12 +812,12 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos,
     """Forward pass over (a subset of) the layer stack.
 
     tokens [T] int; pos: write offset into the cache, a host int or a 0-d
-    (or 1-element) int64 tensor on the weights' device, which nothing reads
-    on the host (the module docstring; no cp/tp mesh; the caller keeps rows
-    [pos, pos + T) inside the cache). layer_sel: indices of the layers to
-    run, in order (None = all). n_valid: real tokens of a bucketed prefill,
-    of pos's form (a host int, or with a device pos a 0-d int64 tensor
-    beside it). The cache is updated in place. Returns
+    (or 1-element) int64 tensor on the weights' device (a mesh's: its first
+    device), which nothing reads on the host (the module docstring; the
+    caller keeps rows [pos, pos + T) inside the cache). layer_sel: indices
+    of the layers to run, in order (None = all). n_valid: real tokens of a
+    bucketed prefill, of pos's form (a host int, or with a device pos a 0-d
+    int64 tensor beside it). The cache is updated in place. Returns
     (logits [T or 1, V] f32, kv, cosines [len(layers)] f32 or None). The
     meshes (tuples of torch devices, parallel/):
 
@@ -763,9 +835,6 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos,
           shards' ModelWeights (ep.shard_weights_ep), the cache one cache
           on the first device, where everything but the experts runs."""
     if isinstance(pos, torch.Tensor):
-        if cp is not None or tp is not None:
-            raise ValueError("a device pos runs the one-device forward: no "
-                             "cp/tp mesh")
         if n_valid is not None and not isinstance(n_valid, torch.Tensor):
             raise ValueError("a device pos takes n_valid as a 0-d device "
                              "tensor, not a host int")
@@ -795,6 +864,10 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos,
         _check_cp_kv([kv], cp)
     x, cos_t, sin_t = embed_positions(arch, weights, tokens, pos)
     n_layers = (kv if cp is None else kv[0]).k.shape[0]
+    plan = None
+    if cp is not None and isinstance(pos, torch.Tensor):
+        plan = cp_write_plan(pos, n_valid, tokens.shape[0],
+                             [s.k for s in kv])
     indices = (range(n_layers) if layer_sel is None
                else [int(i) for i in layer_sel])
     cosines = []
@@ -804,7 +877,7 @@ def forward(arch: Arch, weights: ModelWeights, kv: KVCache, tokens, pos,
         else:
             kk, vv = [s.k[li] for s in kv], [s.v[li] for s in kv]
         x2 = layer_step(arch, x, weights.layers, kk, vv, pos, cos_t, sin_t,
-                        n_valid, layer=li, ep=lws_ep)
+                        n_valid, layer=li, ep=lws_ep, cp_plan=plan)
         if with_cosine:
             cosines.append(_cosine(x, x2))
         x = x2

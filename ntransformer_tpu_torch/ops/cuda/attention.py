@@ -15,7 +15,10 @@ _attn_kernel, both entries:
                             at global position kpos_offset + i. Returns the
                             unnormalized acc [T,Hq,D], m [T,Hq], l [T,Hq]
                             f32 for the exact combine across shards
-                            (ops/layers.attention_cp_flash).
+                            (ops/layers.attention_cp_flash). Its offset
+                            takes the same two forms as the first entry's;
+                            kpos_offset, the shard's fixed start, is a host
+                            int.
 
 On the H100 it is bound by operations (the tensor cores). A block packs
 128 query rows of one kv head (128 / group tokens x the group's heads), a
@@ -42,7 +45,8 @@ _SIGNATURES = {"flash_attention_fwd": [ctypes.c_void_p] * 4
                + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                + [ctypes.c_void_p] * 2,
                "flash_attention_partials_fwd": [ctypes.c_void_p] * 6
-               + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_void_p]}
+               + [ctypes.c_int] * 8 + [ctypes.c_float]
+               + [ctypes.c_void_p] * 2}
 NO_WINDOW = 2 ** 30  # a window larger than any context masks nothing
 MAX_GROUP = 128      # query heads a kv head: a block packs 128 query rows
 # the masked score, finite (the TPU kernel's): a shard whose keys are all
@@ -157,10 +161,11 @@ def _kernel_operands(q, k_cache, v_cache):
     return q.clone() if q.data_ptr() % 16 else q
 
 
-def flash_attention_partials_plain(q, k_local, v_local, pos: int,
+def flash_attention_partials_plain(q, k_local, v_local, pos,
                                    scale: float, *, kpos_offset: int):
     """The partials kernel's function in plain PyTorch, in f32 from q cast
-    to the cache dtype: per (query row, head) the largest visible score m
+    to the cache dtype (pos a host int or a 0-d int64 tensor on q's
+    device): per (query row, head) the largest visible score m
     (NEG_INF where the shard holds no visible key), l = sum exp(s - m) and
     acc = sum exp(s - m) v over the visible keys. A row with no visible key
     gives acc 0, m NEG_INF, l 0. (The TPU kernel leaves in such a row's acc
@@ -185,18 +190,31 @@ def flash_attention_partials_plain(q, k_local, v_local, pos: int,
     return acc.reshape(t, hq, d), back(m[..., 0]), back(p.sum(-1))
 
 
-def flash_attention_partials(q, k_local, v_local, pos: int, scale: float, *,
+def flash_attention_partials(q, k_local, v_local, pos, scale: float, *,
                              kpos_offset: int):
     """One shard's flash pass: (acc [T,Hq,D], m [T,Hq], l [T,Hq]) f32, q at
     global positions pos + t, key i of k/v_local [Hkv,S_local,D] at
-    kpos_offset + i, causal. On a CPU tensor this is the plain twin; on a
-    CUDA tensor it launches the kernel or raises."""
+    kpos_offset + i, causal. pos: a host int (range-checked here) or a 0-d
+    int64 tensor on q's device, which the kernel reads on the card and
+    nothing reads on the host (a CUDA graph replays the call at any
+    offset); kpos_offset a host int. On a CPU tensor this is the plain
+    twin; on a CUDA tensor it launches the kernel or raises."""
     global partials_launches
-    pos, kpos_offset = int(pos), int(kpos_offset)
+    kpos_offset = int(kpos_offset)
     t, hq, hkv, s, d = check_dims(q, k_local, v_local)
-    if pos < 0 or kpos_offset < 0 or pos + t > NO_WINDOW \
-            or kpos_offset + s > NO_WINDOW:
-        raise ValueError(f"query positions [{pos}, {pos + t}) or key "
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        if pos.numel() != 1 or pos.dtype != torch.int64 \
+                or pos.device != q.device:
+            raise ValueError(f"a device pos is one int64 on q's device; got "
+                             f"{pos.dtype} {tuple(pos.shape)} on "
+                             f"{pos.device}")
+        pos = pos.reshape(())
+    else:
+        pos = int(pos)
+    if (not on_device and (pos < 0 or pos + t > NO_WINDOW)) \
+            or kpos_offset < 0 or kpos_offset + s > NO_WINDOW:
+        raise ValueError(f"query positions from {pos} ({t} rows) or key "
                          f"positions [{kpos_offset}, {kpos_offset + s}) "
                          f"out of range")
     if q.device.type == "cpu":
@@ -213,8 +231,10 @@ def flash_attention_partials(q, k_local, v_local, pos: int, scale: float, *,
         rc = lib.flash_attention_partials_fwd(
             q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), t, hq, hkv, s, d,
-            int(k_local.dtype == torch.float32), pos, kpos_offset,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            int(k_local.dtype == torch.float32), 0 if on_device else pos,
+            kpos_offset, float(scale),
+            pos.data_ptr() if on_device else None,
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, PARTIALS_NAME)
     partials_launches += 1
     return acc, m, l

@@ -130,13 +130,20 @@ def _psum(xs: list, device, row=None) -> torch.Tensor:
     return out
 
 
+def _on(pos, device):
+    """A position (or n_valid) on `device`: a host int or None as it is, a
+    device tensor moved (a no-op where it lies there already)."""
+    return pos.to(device) if isinstance(pos, torch.Tensor) else pos
+
+
 def attention_cp(q: torch.Tensor, k_locals: list, v_locals: list,
-                 pos_start: int, q_len: int, scale: float) -> torch.Tensor:
+                 pos_start, q_len: int, scale: float) -> torch.Tensor:
     """Context-parallel GQA attention (twin of the JAX attention_cp): shard
     i holds keys [i*S_l, (i+1)*S_l) as k/v_locals[i] [Hkv, S_l, D] on its
     device. Each shard scores q against its slice with -inf masks; the max
     over shards, then the two sums over shards, combine them exactly.
-    Returns [T, Hq, D] f32 on q's device."""
+    pos_start: a host int or a 0-d int64 tensor on q's device. Returns
+    [T, Hq, D] f32 on q's device."""
     T, Hq, D = q.shape
     Hkv, s_local, _ = k_locals[0].shape
     group = Hq // Hkv
@@ -145,7 +152,8 @@ def attention_cp(q: torch.Tensor, k_locals: list, v_locals: list,
         qf = q.to(k.device, torch.float32).reshape(T, Hkv, group, D)
         sc = torch.einsum("thgd,hsd->hgts", qf, k.to(torch.float32)) * scale
         key_pos = i * s_local + torch.arange(s_local, device=k.device)[None]
-        q_pos = pos_start + torch.arange(T, device=k.device)[:, None]
+        q_pos = _on(pos_start, k.device) + torch.arange(
+            T, device=k.device)[:, None]
         scores.append(sc.masked_fill(~(key_pos <= q_pos)[None, None],
                                      float("-inf")))
     # a wholly masked shard's max is -inf; the global max is finite
@@ -159,17 +167,20 @@ def attention_cp(q: torch.Tensor, k_locals: list, v_locals: list,
 
 
 def attention_cp_flash(q: torch.Tensor, k_locals: list, v_locals: list,
-                       pos_start: int, q_len: int,
+                       pos_start, q_len: int,
                        scale: float) -> torch.Tensor:
     """Flash attention under context parallelism (twin of the JAX
     attention_cp_flash): each shard runs the partials kernel over its slice
     (global key positions i*S_l + j, the causal tile skip intact), then the
     unnormalized partials combine exactly on q's device: the max m_g over
-    shards, w = exp(m - m_g), and the sums of l*w and acc*w."""
+    shards, w = exp(m - m_g), and the sums of l*w and acc*w. pos_start: a
+    host int or a 0-d int64 tensor on q's device, which each shard's kernel
+    reads on its card."""
     from .cuda.attention import flash_attention_partials
     s_local = k_locals[0].shape[1]
     qc = q.to(k_locals[0].dtype)  # the kernel's operand type, cast once
-    parts = [flash_attention_partials(qc.to(k.device), k, v, pos_start,
+    parts = [flash_attention_partials(qc.to(k.device), k, v,
+                                      _on(pos_start, k.device),
                                       scale, kpos_offset=i * s_local)
              for i, (k, v) in enumerate(zip(k_locals, v_locals))]
     m_g = _pmax([m for _, m, _ in parts], q.device)         # [T, Hq]
@@ -182,12 +193,12 @@ def attention_cp_flash(q: torch.Tensor, k_locals: list, v_locals: list,
 
 
 def attention_cp_dispatch(q: torch.Tensor, k_locals: list, v_locals: list,
-                          pos_start: int, q_len: int,
+                          pos_start, q_len: int,
                           scale: float) -> torch.Tensor:
     """CP attention dispatch, as `attention` dispatches: the partials
     kernel for q_len >= 64 when kernels are on for q's device, the plain
     combine otherwise (so CP decode stays plain PyTorch, as in the JAX
-    package)."""
+    package). pos_start: a host int or a 0-d device tensor."""
     from .linear import kernels_enabled
     if kernels_enabled(q) and q_len >= FLASH_MIN_Q:
         return attention_cp_flash(q, k_locals, v_locals, pos_start, q_len,

@@ -23,6 +23,14 @@ models/batched.py step at tp = 1 (the same kernels and plans as serving the
 group's slots alone) and the TP form (batched_decode_step_tp) past it. The
 groups run one after another on the host; on separate cards their kernels
 overlap, since nothing waits on a card until the logits are gathered.
+
+Where the groups lie on one card of one process, each group's step
+replays a captured program (the JAX package's one jitted shard_map step,
+as one CUDA graph a group): group_graphs binds a models/graphs.StepGraphs
+to each group's caches and weights, and the sharded steps replay them; the
+gather of the groups' logits in slot order stays outside the graphs. A
+mesh that spans processes (its collectives go over a process group) or
+cards keeps the host path, by the explicit check of group_graphs.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import dataclasses
 from ..models.batched import (BatchedKV, batched_decode_step,
                               batched_decode_step_tp, batched_verify_step,
                               batched_verify_step_tp)
+from ..models.graphs import StepGraphs, one_card
 from ..models.llama import (Arch, LayerWeights, ModelWeights,
                             fuse_layer_weights)
 from ..ops.linear import QLinear
@@ -126,10 +135,41 @@ def insert_slot(mesh: Mesh, bkv: list, kv: list, slot: int, batch: int):
     return bkv
 
 
-def _sharded(mesh: Mesh, run_one, run_tp):
+def captured(mesh: Mesh) -> bool:
+    """Whether the mesh's group steps can replay captured programs: every
+    position on one card of one process (models/graphs.check_capturable).
+    A mesh that spans processes all-gathers over a process group, which a
+    capture does not take; one that spans cards needs a capture that spans
+    them (experiments/mesh_capture.py)."""
+    return not mesh.multiprocess and one_card(mesh.devices)
+
+
+def group_graphs(mesh: Mesh, arch: Arch, weights: list, kv: list) -> list:
+    """One StepGraphs a dp group this process drives, bound to that group's
+    caches and weights (kv[g], weights[g]: the unsharded step at tp = 1,
+    the TP row's step past it), None for another process's group. The mesh
+    must be captured(mesh) (ValueError otherwise)."""
+    if not captured(mesh):
+        raise ValueError("the mesh's group steps keep the host path: it "
+                         "spans processes or cards")
+    out = []
+    for g in range(mesh.dp):
+        if not mesh.touches(g):
+            out.append(None)
+        elif mesh.tp == 1:
+            out.append(StepGraphs(arch, weights[g][0], kv[g][0]))
+        else:
+            out.append(StepGraphs(arch, weights[g], kv[g], mesh.row(g)))
+    return out
+
+
+def _sharded(mesh: Mesh, run_one, run_tp, kind: str = "decode",
+             n_layers: int | None = None, dot_impl: str = "f32",
+             graphs: list | None = None):
     """The step over every dp group this process drives: group g's slots
-    through run_one (tp = 1) or run_tp, the logits gathered in slot order
-    on the mesh's first device of this process."""
+    through run_one (tp = 1) or run_tp, or with graphs (group_graphs') a
+    replay of group g's StepGraphs of `kind`, the logits gathered in slot
+    order on the mesh's first device of this process."""
     home = mesh.home
 
     def step(weights, kv, tokens, pos, active):
@@ -141,6 +181,11 @@ def _sharded(mesh: Mesh, run_one, run_tp):
                 continue
             sl = slice(g * per, (g + 1) * per)
             args = (tokens[sl], pos[sl], active[sl])
+            if graphs is not None:
+                parts.append(graphs[g].run(
+                    kv[g][0] if mesh.tp == 1 else kv[g], kind, *args,
+                    n_layers=n_layers, dot_impl=dot_impl))
+                continue
             if mesh.tp == 1:
                 logits, _ = run_one(weights[g][0], kv[g][0], *args)
             else:
@@ -152,29 +197,37 @@ def _sharded(mesh: Mesh, run_one, run_tp):
 
 def make_batched_decode_sharded(mesh: Mesh, arch: Arch,
                                 dot_impl: str = "f32",
-                                n_layers: int | None = None):
+                                n_layers: int | None = None,
+                                graphs: list | None = None):
     """step(weights, kv, tokens, pos, active) -> (logits [B, V], kv) over
     the mesh (weights and kv from shard_server_state / make_server_kv;
     tokens, pos, active [B] tensors). The batch must divide over dp.
-    n_layers: the draft step through the first n layers."""
+    n_layers: the draft step through the first n layers. graphs: the
+    group_graphs of (weights, kv), whose replays then take each group's
+    step (kv must be the caches they are bound to)."""
     return _sharded(
         mesh,
         lambda w, kv, t, p, a: batched_decode_step(
             arch, w, kv, t, p, a, n_layers=n_layers, dot_impl=dot_impl),
         lambda w, kv, t, p, a, row: batched_decode_step_tp(
             arch, w, kv, t, p, a, row, n_layers=n_layers,
-            dot_impl=dot_impl))
+            dot_impl=dot_impl),
+        "decode" if n_layers is None else "draft", n_layers, dot_impl,
+        graphs)
 
 
 def make_batched_draft_sharded(mesh: Mesh, arch: Arch, n_layers: int,
-                               dot_impl: str = "f32"):
+                               dot_impl: str = "f32",
+                               graphs: list | None = None):
     """The sharded draft step of speculative serving: the decode step
     through the first n_layers layers."""
-    return make_batched_decode_sharded(mesh, arch, dot_impl, n_layers)
+    return make_batched_decode_sharded(mesh, arch, dot_impl, n_layers,
+                                       graphs)
 
 
 def make_batched_verify_sharded(mesh: Mesh, arch: Arch,
-                                dot_impl: str = "f32"):
+                                dot_impl: str = "f32",
+                                graphs: list | None = None):
     """The sharded verify window: tokens [B, K+1] split over dp with the
     slots; logits come back [B, K+1, V] in slot order."""
     return _sharded(
@@ -182,4 +235,5 @@ def make_batched_verify_sharded(mesh: Mesh, arch: Arch,
         lambda w, kv, t, p, a: batched_verify_step(
             arch, w, kv, t, p, a, dot_impl=dot_impl),
         lambda w, kv, t, p, a, row: batched_verify_step_tp(
-            arch, w, kv, t, p, a, row, dot_impl=dot_impl))
+            arch, w, kv, t, p, a, row, dot_impl=dot_impl),
+        "verify", None, dot_impl, graphs)

@@ -26,6 +26,10 @@ inactive, and the head in each; here a bubble runs nothing, and the logits
 are the same. Launches follow tick order, so on separate cards stage s+1's
 kernels on microbatch m overlap stage s's on m+1.
 
+make_pp_decode is the JAX make_pp_decode's form: all S + M - 1 ticks as
+one program, on a CUDA card with every stage on it one CUDA graph of
+pp_decode_step over static tokens, pos and active, replayed each step.
+
 A stage's layer loop is models/batched.py's over the stage's local arch
 (n_layers = L/S): each microbatch's logits and cache are those of the
 unsharded step over its slots alone. Sliding-window families are refused,
@@ -158,6 +162,67 @@ def pp_decode_step(mesh, arch: Arch, state: PPState, tokens, pos, active,
             else:
                 acts[m] = x
     return torch.cat(logits), state
+
+
+def _graphed(device) -> bool:
+    """Whether make_pp_decode's step replays a captured program on
+    `device`: iff it is a CUDA device."""
+    return torch.device(device).type == "cuda"
+
+
+def make_pp_decode(mesh, arch: Arch, state: PPState, n_micro: int):
+    """The pipelined batched decode step as one program (the JAX
+    make_pp_decode: the S + M - 1 GPipe ticks in one jitted scan). Returns
+    step(tokens, pos, active) -> logits [B, V] f32, pp_decode_step's
+    logits, its caches (state's) written in place.
+
+    With every stage on one CUDA card (models/graphs.check_capturable), the
+    first call captures the whole schedule as one CUDA graph (an uncaptured
+    warm-up with every slot inactive at position 0, which writes no cache
+    row, then the capture on a stream of its own); every call copies its
+    inputs into static tokens, pos and active and replays it, and the
+    logits are the graph's static output, valid until the next call.
+    step.replays counts the replays. A capture that fails raises. Elsewhere
+    each call runs pp_decode_step."""
+    from ..models import graphs
+    from ..ops.cuda import batched_attention
+    mesh = tuple(torch.device(d) for d in mesh)
+    _check(arch, len(mesh))
+    home = mesh[0]
+
+    def direct(tokens, pos, active):
+        return pp_decode_step(mesh, arch, state, tokens, pos, active,
+                              n_micro)[0]
+    if not (_graphed(home) and graphs.one_card(mesh)):
+        return direct
+    b_n = n_micro * state.kv[0][0].k.shape[1]
+    stream = torch.cuda.Stream(home) if home.type == "cuda" else None
+    tok = torch.zeros(b_n, dtype=torch.long, device=home)
+    pos_s = torch.zeros(b_n, dtype=torch.long, device=home)
+    act = torch.zeros(b_n, dtype=torch.bool, device=home)
+    held = {}
+
+    @torch.inference_mode()
+    def step(tokens, pos, active):
+        if "graph" not in held:
+            with graphs._on_stream(home, stream):
+                for t in (tok, pos_s, act):
+                    t.zero_()
+                direct(tok, pos_s, act)
+                graph = graphs.GRAPH()
+                held["out"] = graph.capture(lambda: direct(tok, pos_s, act))
+                held["graph"] = graph
+            if stream is not None:
+                # the batched flash scratch the graph addresses
+                held["scratch"] = batched_attention.scratch_buffer(home,
+                                                                   stream)
+        for dst, src in ((tok, tokens), (pos_s, pos), (act, active)):
+            dst.copy_(torch.as_tensor(src).reshape(b_n))
+        held["graph"].replay()
+        step.replays += 1
+        return held["out"]
+    step.replays = 0
+    return step
 
 
 def gather_kv(state: PPState, device) -> BatchedKV:

@@ -312,3 +312,55 @@ def make_tp_kv(arch: Arch, mesh, quant: bool = False) -> list[KVCache]:
     mine = owned(mesh)
     return [KVCache.create(local, quant=quant, device=d) if s in mine
             else None for s, d in enumerate(mesh)]
+
+
+def _graphed(device) -> bool:
+    """Whether make_tp_decode_loop's loop replays a captured program on
+    `device`: iff it is a CUDA device."""
+    return torch.device(device).type == "cuda"
+
+
+def make_tp_decode_loop(mesh, arch: Arch, n_steps: int, *,
+                        kv_quant: bool = False, graphs=None):
+    """The greedy decode loop over a TP mesh (the JAX make_tp_decode_loop,
+    whose lax.scan runs inside shard_map). Returns f(shards, kv,
+    first_token, pos0) -> (tokens [n_steps], kv): n_steps greedy tokens
+    from first_token (an int or a one-element device tensor) at pos0 (a
+    host int) through forward(tp=mesh), each argmax kept on the device as
+    the next token; the cache (make_tp_kv's, int8 iff kv_quant) is written
+    in place.
+
+    On a CUDA card with the mesh on that one card in one process
+    (models/graphs.check_capturable), the loop kind of a ForwardGraphs
+    bound to (shards, kv) replays n_steps times with no host read in
+    between: graphs(kv) gives it where the caller keeps one (TPEngine's
+    _graphs_of, for its own cache), else f keeps one bound to the last
+    (shards, kv) it was given. Elsewhere a Python loop of the same
+    forwards runs, the argmax on the device."""
+    from ..models.graphs import ForwardGraphs, one_card
+    from ..models.llama import forward
+    held = {}
+
+    def f(shards, kv, first_token, pos0):
+        if any(c is not None and c.quantized != kv_quant for c in kv):
+            raise ValueError(f"the loop was made for a "
+                             f"{'int8' if kv_quant else 'bf16'} cache")
+        pos0 = int(pos0)
+        dev = next(w for w in shards if w is not None).output_norm.device
+        g = graphs(kv) if graphs is not None else None
+        if g is None and _graphed(dev) and one_card(mesh):
+            if held.get("kv") is not kv or held.get("shards") is not shards:
+                held.update(kv=kv, shards=shards,
+                            g=ForwardGraphs(arch, shards, kv, tp=mesh))
+            g = held["g"]
+        if g is not None:
+            toks, _ = g.loop(kv, first_token, pos0, n_steps)
+            return toks.clone(), kv
+        tok = torch.as_tensor(first_token, device=dev).reshape(1)
+        toks = []
+        for i in range(n_steps):
+            logits, kv, _ = forward(arch, shards, kv, tok, pos0 + i, tp=mesh)
+            tok = torch.argmax(logits[0]).reshape(1)
+            toks.append(tok)
+        return torch.cat(toks), kv
+    return f

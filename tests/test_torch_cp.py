@@ -109,6 +109,33 @@ def test_partials_twin_matches_pallas_interpret(t, pos, off, s, hq, hkv, d,
     np.testing.assert_allclose(acc[sees], want[0][sees], rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("t,pos,off,s,hq,hkv,d", PARTIAL_CASES)
+def test_partials_take_a_device_offset(t, pos, off, s, hq, hkv, d):
+    """Row 2p's device-offset form: pos as a 0-d int64 tensor on q's device
+    gives the host int's acc, m and l bit for bit (on the CPU, the plain
+    twin, which test_partials_twin_matches_pallas_interpret holds to the
+    TPU kernel; on the card the kernel reads it there, and chip_smoke.py
+    holds that form to the host int's); a pos of another dtype or shape is
+    refused."""
+    q, k, v = _qkv(t + pos + off, t, hq, hkv, s, d)
+    args = (torch.from_numpy(q), torch.from_numpy(k).to(torch.bfloat16),
+            torch.from_numpy(v).to(torch.bfloat16))
+    scale = 1.0 / np.sqrt(d)
+    host = cuda_attn.flash_attention_partials(*args, pos, scale,
+                                              kpos_offset=off)
+    dev = cuda_attn.flash_attention_partials(*args, torch.tensor(pos), scale,
+                                             kpos_offset=off)
+    plain = cuda_attn.flash_attention_partials_plain(
+        *args, torch.tensor(pos), scale, kpos_offset=off)
+    for a, b, c in zip(host, dev, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for bad in (torch.tensor(pos, dtype=torch.int32), torch.tensor([pos,
+                                                                    pos])):
+        with pytest.raises(ValueError, match="one int64"):
+            cuda_attn.flash_attention_partials(*args, bad, scale,
+                                               kpos_offset=off)
+
+
 def _shard_map(fn, n, **kw):
     return shard_map(partial(fn, **kw), mesh=jcp.make_cp_mesh(n),
                      in_specs=(P(None, None, None), P(None, jcp.CP_AXIS, None),

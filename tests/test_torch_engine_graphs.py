@@ -168,9 +168,10 @@ def test_device_pos_forward_matches_jax_and_host_pos(files, which, quant):
 
 
 def test_device_pos_refusals(files):
-    """A device pos runs the one-device forward at any T, with n_valid as
-    a device tensor beside it: a host n_valid with it (or a device n_valid
-    with a host pos) and a mesh raise, and write nothing."""
+    """A device pos runs every forward at any T, a mesh's too, with
+    n_valid as a device tensor beside it: a host n_valid with it (or a
+    device n_valid with a host pos) raises, on one device and on a mesh,
+    and writes nothing."""
     m = load_model(files["llama_q8_0"], device="cpu", max_seq_len=128)
     kv = pl.KVCache.create(m.arch, device="cpu")
     pos = torch.tensor(0)
@@ -179,8 +180,8 @@ def test_device_pos_refusals(files):
     with pytest.raises(ValueError, match="device n_valid goes with"):
         pl.forward(m.arch, m.weights, kv, [1, 2], 0,
                    n_valid=torch.tensor(1))
-    with pytest.raises(ValueError, match="mesh"):
-        pl.forward(m.arch, [m.weights], [kv], [1], pos,
+    with pytest.raises(ValueError, match="not a host int"):
+        pl.forward(m.arch, [m.weights], [kv], [1, 2], pos, n_valid=1,
                    tp=(torch.device("cpu"),))
     assert float(kv.k.abs().max()) == 0.0
 
@@ -547,20 +548,22 @@ def test_failed_capture_raises_and_runs_nothing(monkeypatch, files):
 
 
 def test_subclasses_take_no_graph_path(recorded, files, tmp_path):
-    """The mesh and tiered engines keep their host-driven paths: with the
-    device test patched they hold no cache and capture nothing."""
+    """The tiered engine keeps its host-driven path, and so does a mesh
+    engine whose mesh spans devices (models/graphs.check_capturable; the
+    mesh engines on one device replay, tests/test_torch_mesh_graphs.py):
+    with the device test patched they hold no cache and capture nothing."""
     path = files["llama_q8_0"]
     m = load_model(path, device="cpu", max_seq_len=128)
     cfg, _ = _greedy(4)
-    cpu = torch.device("cpu")
-    engines = [TPEngine(m, (cpu, cpu)),
-               CPEngine(m, make_cp_mesh(2, [cpu] * 2)),
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    engines = [TPEngine(m, (cpu, meta)),
+               CPEngine(load_model(path, device="cpu", max_seq_len=128),
+                        make_cp_mesh(2, [cpu, meta])),
                EPEngine(load_model(files["mixtral"], device="cpu",
-                                   max_seq_len=128), (cpu, cpu))]
+                                   max_seq_len=128), (cpu, meta))]
     for eng in engines:
         assert not eng._graph_path()
-        eng.generate(PROMPT["tiny"], cfg)
-        eng.benchmark(PROMPT["tiny"], n_tokens=2)
+        assert eng._graphs_of(eng._start_kv()) is None
         assert eng._held == {}
     copy = str(tmp_path / "tiered.gguf")
     shutil.copy(path, copy)
