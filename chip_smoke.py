@@ -124,7 +124,8 @@ ep run, at full width (32: full depth):
      the resident's greedy tokens, and the CLI's --cp 1 on repolm512 (its
      text equal to the resident CLI's);
   cpcards: on a host with 4 cards or more (else it says so and passes),
-     repolm512 through CPEngine with one shard per card, bit-equal to the 4
+     repolm512 and the synthetic 8B (all 32 layers, as in every phase over
+     cards) through CPEngine with one shard per card, bit-equal to the 4
      shards on one card, and the CLI's --cp 4;
   tp: tensor parallelism (python3 chip_smoke.py tp runs it alone): the
      synthetic 8B Q8_0 of `full` (8 layers) through TPEngine with 2 shards on
@@ -141,8 +142,9 @@ ep run, at full width (32: full depth):
      phases hold the Q8_0, Q4_K, Q6_K and flash kernels at the 8B's tp = 2 and
      4 shard shapes;
   tpcards: on a host with 4 cards or more (else it says so and passes),
-     repolm512 and the synthetic 8B through TPEngine with one shard per
-     card, bit-equal to the 4 shards on cuda:0, and the CLI's --tp 4;
+     repolm512 and the synthetic 8B (32 layers) through TPEngine with one
+     shard per card, bit-equal to the 4 shards on cuda:0, and the CLI's
+     --tp 4;
   dp: data parallelism and the sharded batch server (python3 chip_smoke.py
      dp runs it alone): the synthetic 8B Q8_0 of `full` (8 layers) served by
      BatchServer(B = 8, bfull's eight requests) on one device and over the
@@ -159,7 +161,8 @@ ep run, at full width (32: full depth):
      processes on cuda:0 joined over gloo (host-staged) serving repolm512
      at dp = 2, both printing the one-process server's texts;
   dpcards: on a host with 4 cards or more (else it says so and passes),
-     the 8B over the (2, 2) mesh one position a card, teacher-forced
+     the 8B (32 layers) over the (2, 2) mesh one position a card,
+     teacher-forced
      bit-equal to the same mesh on cuda:0, and two processes over NCCL
      (one card each) at dp = 2 and at tp = 2;
   pp: pipeline parallelism (python3 chip_smoke.py pp runs it alone): the
@@ -181,9 +184,10 @@ ep run, at full width (32: full depth):
      CPEngine against the CPU;
   meshcards: on a host with 4 cards or more (else it says so and passes),
      one position a card against the same mesh on cuda:0, bit for bit: a
-     small MoE GGUF through EPEngine(ep = 4), the 8B through
-     pp_decode_step at (4 stages, 2 microbatches), repolm512 through
-     CPEngine over (2, 2);
+     small MoE GGUF and the synthetic Mixtral-8x7B (32 layers) through
+     EPEngine(ep = 4), the 8B (32 layers) through pp_decode_step at (4
+     stages, 2 microbatches), repolm512 and the 8B through CPEngine over
+     (2, 2);
   spec: speculation (python3 chip_smoke.py spec runs it alone): batched
      flash's verify at B = 8, K = 3 (T = 4, S 1024; bf16 "f32", int8 "f32"
      and "int8_v") and the Q8_0 and Q4_K matmuls at T = 4 and 32 against
@@ -2614,6 +2618,48 @@ def engine_prefill_cell(torch, counters, tag: str, synth) -> dict:
 
 MESH_STEPS = 64   # phases tp, cp, cptp, ep, dp, pp: replayed steps held
 MESH_TURN = 32    # bit for bit, and the second timed turn's steps
+STALL_STEPS = 4   # the card phases: replays with a card's stream stalled
+STALL_CYCLES = 50_000_000   # torch.cuda._sleep before each (~25 ms)
+
+
+def card_busy(torch, fn, cards, calls: int = 5) -> dict:
+    """Each card's device ms a call of fn and its share of the call's wall
+    (host clock over `calls` calls, then one torch.profiler trace of as
+    many; the profiler can lose a few records, so a share is a floor)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
+            ms[e.device_index] = (ms.get(e.device_index, 0.0)
+                                  + e.self_device_time_total / 1e3 / calls)
+    return {"wall_ms": wall, "cards": {
+        str(c): {"device_ms": ms.get(c.index, 0.0),
+                 "busy_share": ms.get(c.index, 0.0) / wall} for c in cards}}
+
+
+def stall(torch, card) -> None:
+    """A long kernel on `card`'s current stream: whatever is launched there
+    next starts ~25 ms late."""
+    with torch.cuda.device(card):
+        torch.cuda._sleep(STALL_CYCLES)
+
+
+def program_shape(prog) -> dict:
+    """The graphs and hand-offs a replay of a captured program launches: a
+    CardGraph's stretches and hand-offs, one graph and none on one card."""
+    return {"graphs": getattr(prog, "segments", 1),
+            "handoffs": getattr(prog, "handoffs", 0)}
 # phases graphs (the 8B Q8_0 and Q4_K_M cells), moe's replayed Mixtral steps
 # and the mesh phases cp, tp, dp, pp, cptp and ep: the layers of the model
 # they run (the widths are the model's own). Their uncaptured references
@@ -2684,7 +2730,7 @@ def replay_profile(torch, counters, tag: str, plain, graph) -> dict:
 
 
 def mesh_engine_cell(torch, counters, tag: str, eng, ids: list,
-                     steps: int = MESH_STEPS) -> dict:
+                     steps: int = MESH_STEPS, cards=None) -> dict:
     """A mesh engine's replayed programs on cuda:0 (Engine._graph_path:
     the mesh's ForwardGraphs, bound to the engine's own cache) against its
     uncaptured calls on a twin cache (every shard's bytes):
@@ -2701,7 +2747,12 @@ def mesh_engine_cell(torch, counters, tag: str, eng, ids: list,
                each, and of a replayed step (ForwardGraphs.step, the path
                generate takes) beside them;
       profile: the kernels and device ms of a replayed T = 1 step and of an
-               uncaptured one, and the replay's busy share of its wall."""
+               uncaptured one, and the replay's busy share of its wall.
+    cards: the cards of a mesh over several (the card phases): then also
+    STALL_STEPS replayed steps, each after a long kernel on one of the
+    other cards' streams, bit-equal to the uncaptured steps; each card's
+    busy share of a replayed step; the graphs and hand-offs of a replayed
+    step and loop step."""
     from ntransformer_tpu_torch.inference.engine import _bucket
     check(eng._graph_path(), f"{tag}: the engine takes no graph path on "
           "one card")
@@ -2760,6 +2811,27 @@ def mesh_engine_cell(torch, counters, tag: str, eng, ids: list,
     check(torch.equal(ts, tr) and same_caches(torch, ref, kv),
           f"{tag}: the replayed steps differ from the uncaptured ones")
     base += MESH_TURN
+    extra = {}
+    if cards is not None:
+        tok = tr[-1]
+        for i in range(STALL_STEPS):
+            stall(torch, cards[1 + i % (len(cards) - 1)])
+            lg, _, _ = eng._decode_step(kv, tok, base + i)
+            lu, _, _ = eng._decode_step(ref, tok, base + i)
+            check(torch.equal(lg, lu), f"{tag}: a replay after a stalled "
+                  f"card differs from the uncaptured step ({i})")
+            tok = torch.argmax(lu[0])
+        check(same_caches(torch, ref, kv), f"{tag}: the stalled replays' "
+              "cache differs from the uncaptured steps'")
+        base += STALL_STEPS
+        extra = {"stalled_steps_bit_equal": STALL_STEPS,
+                 "step_program": program_shape(g._graphs[g.key(
+                     "step", layers=eng.layer_sel)][0]),
+                 "loop_program": program_shape(g._graphs[g.key(
+                     "loop", n_steps=MESH_TURN, layers=eng.layer_sel)][0]),
+                 "busy": card_busy(torch, lambda: eng._decode_step(
+                     kv, tok, base), cards)}
+        tr = tok.reshape(1)
     t2 = time.perf_counter()
     tok = tr[-1]
     prof = replay_profile(torch, counters, tag,
@@ -2775,7 +2847,7 @@ def mesh_engine_cell(torch, counters, tag: str, eng, ids: list,
             "loop_ms_token_replayed": [mg1, mg2],
             "step_ms_token_replayed": ms_step,
             "ms_uncaptured": (mu1 + mu2) / 2,
-            "ms_replayed": (mg1 + mg2) / 2, **prof}
+            "ms_replayed": (mg1 + mg2) / 2, **prof, **extra}
     cell["replay_busy_share"] = (prof["replay_device_ms"]
                                  / cell["ms_replayed"])
     cell["uncaptured_busy_share"] = (prof["uncaptured_device_ms"]
@@ -2787,16 +2859,129 @@ def mesh_engine_cell(torch, counters, tag: str, eng, ids: list,
     return cell
 
 
+def replayed_pass(engine, torch, ids, n: int):
+    """greedy_pass on the engine's own cache (Engine._start_kv), which its
+    graph path replays: (tokens, every step's logits on the CPU, every
+    shard's cache tensors on the CPU)."""
+    kv = engine._start_kv()
+    logits, kv, _ = engine._prefill(kv, ids)
+    toks, out = [], [logits[0].float().cpu()]
+    pos = len(ids)
+    for i in range(n):
+        tok = int(torch.argmax(out[-1]))
+        toks.append(tok)
+        logits, kv, _ = engine._decode_step(kv, tok, pos + i)
+        out.append(logits[0].float().cpu())
+    return toks, out, [t.cpu() for t in cache_tensors(kv)]
+
+
+def turns(torch, runs: dict) -> dict:
+    """Each run (a callable returning its wall ms) twice, in turns: A, B,
+    B, A for two runs. Returns each run's [first, second] ms."""
+    names = list(runs)
+    ms = {k: [] for k in names}
+    for name in names + names[::-1]:
+        ms[name].append(runs[name]())
+    return ms
+
+
+def loop_turns(torch, engines: dict, ids: list) -> dict:
+    """MESH_TURN greedy loop steps replayed on each engine's own cache after
+    a replayed prefill of ids (the loop key captured first), the engines in
+    turns: wall ms a token of each, twice."""
+    state = {}
+    for name, eng in engines.items():
+        kv = eng._start_kv()
+        g = eng._graphs_of(kv)
+        g.capture([g.key("loop", n_steps=MESH_TURN, layers=eng.layer_sel)])
+        lg, _, _ = eng._prefill(kv, ids)
+        state[name] = [g, kv, torch.argmax(lg[0]), len(ids)]
+
+    def run(name):
+        def go():
+            g, kv, tok, pos = state[name]
+            toks, _, ms = engine_loop(torch, g, kv, tok, pos, MESH_TURN)
+            state[name][2:] = [toks[-1], pos + MESH_TURN]
+            return ms
+        return go
+    got = turns(torch, {k: run(k) for k in engines})
+    toks = {k: int(v[2]) for k, v in state.items()}
+    check(len(set(toks.values())) == 1, f"loop turns: the engines' last "
+          f"tokens differ: {toks}")
+    for eng in engines.values():
+        eng._held.clear()
+    return got
+
+
+def cards_vs_one(torch, counters, tag: str, cards, one, ids: list, n: int,
+                 cell_ids=None) -> dict:
+    """A mesh engine whose positions lie on several cards (`cards`) against
+    the same mesh on cuda:0 (`one`), both on their graph paths:
+      uncaptured: greedy_pass of both (on caches of the caller's own, which
+                  run uncaptured): tokens and every step's logits
+                  bit-equal;
+      replayed:   replayed_pass of both (CardGraphs over the cards, one
+                  graph a key on cuda:0): tokens, every step's logits and
+                  every shard's cache bytes bit-equal, and the tokens equal
+                  to the uncaptured pass's;
+      cell:       mesh_engine_cell over the cards (replayed against
+                  uncaptured on twin caches, the stalled-card steps, each
+                  card's busy share, the graphs and hand-offs of a replay),
+                  on cell_ids (default ids);
+      turns:      MESH_TURN loop steps replayed over the cards and on
+                  cuda:0, in turns (cards, cuda:0, cuda:0, cards).
+    Returns the uncaptured pass's launches with the cell and the turns."""
+    devs = cards._graphs_of(cards._start_kv()).cards
+    check(cards._graph_path() and one._graph_path() and len(devs) > 1,
+          f"{tag}: the mesh over cards (on {devs}) or the mesh on cuda:0 "
+          "takes no graph path")
+    reset(counters)
+    toks_c, logits_c = greedy_pass(cards, torch, ids, n)
+    launches = read(counters)
+    toks_o, logits_o = greedy_pass(one, torch, ids, n)
+    diff = max(float((a - b).abs().max()) for a, b in zip(logits_c, logits_o))
+    check(toks_c == toks_o and diff == 0.0, f"{tag}: uncaptured over the "
+          f"cards vs on cuda:0: tokens {toks_c} / {toks_o}, max |dlogit| "
+          f"{diff}")
+    rt_c, rl_c, kv_c = replayed_pass(cards, torch, ids, n)
+    rt_o, rl_o, kv_o = replayed_pass(one, torch, ids, n)
+    check(rt_c == rt_o == toks_c and all(torch.equal(a, b) for a, b in
+                                         zip(rl_c, rl_o)),
+          f"{tag}: replayed over the cards vs on cuda:0: tokens {rt_c} / "
+          f"{rt_o} (uncaptured {toks_c}), or logits differ")
+    check(len(kv_c) == len(kv_o) and all(torch.equal(a, b) for a, b in
+                                         zip(kv_c, kv_o)),
+          f"{tag}: replayed over the cards vs on cuda:0: a shard's cache "
+          "bytes differ")
+    print(f"{tag}: over {[str(d) for d in devs]} and on cuda:0, uncaptured "
+          f"and replayed: tokens, logits and caches bit-equal ({n} steps)",
+          flush=True)
+    del kv_c, kv_o
+    cell = mesh_engine_cell(torch, counters, tag, cards, cell_ids or ids,
+                            cards=devs)
+    walls = loop_turns(torch, {"cards": cards, "cuda:0": one},
+                       cell_ids or ids)
+    out = {"cards": [str(d) for d in devs], "launches": launches,
+           "steps_bit_equal": n, "replay": cell,
+           "loop_ms_token_replayed_in_turns": walls}
+    print(json.dumps({f"cards_{tag}": {k: v for k, v in out.items()
+                                       if k != "replay"}}), flush=True)
+    return out
+
+
 def batched_replay_cell(torch, counters, tag: str, plain, graph, ref, kv,
                         b_n: int, pos0, first, caches=lambda x: x,
-                        steps: int = MESH_STEPS) -> dict:
+                        steps: int = MESH_STEPS, cards=None) -> dict:
     """A batched B = b_n step two ways from one cache state: plain(ref,
     tokens, pos, active) uncaptured on one copy and graph(kv, ...)
     replaying its captured program(s) on another (caches(x): x's caches):
     `steps` greedy steps from `first` at positions pos0 + i, every step's
     logits, the tokens and the caches bit-equal; a second turn of MESH_TURN
     steps the other way round; wall ms a step of each; the kernels and
-    device ms of one step of each and the replay's busy share."""
+    device ms of one step of each and the replay's busy share. cards: the
+    cards of a mesh over several: also STALL_STEPS replayed steps, each
+    after a long kernel on one of the other cards' streams, bit-equal to
+    the uncaptured steps, and each card's busy share of a replay."""
     act = torch.ones(b_n, dtype=torch.bool, device="cuda")
 
     def chain(step, cache, tok, base, n, keep):
@@ -2823,8 +3008,23 @@ def batched_replay_cell(torch, counters, tag: str, plain, graph, ref, kv,
     tg2, _, mg2 = chain(graph, kv, tu, steps, MESH_TURN, False)
     tu2, _, mu2 = chain(plain, ref, tu, steps, MESH_TURN, False)
     check(torch.equal(tu2, tg2), f"{tag}: the timed turns' tokens differ")
-    t2 = time.perf_counter()
     base = steps + MESH_TURN
+    extra = {}
+    if cards is not None:
+        for i in range(STALL_STEPS):
+            stall(torch, cards[1 + i % (len(cards) - 1)])
+            lg = graph(kv, tu2, pos0 + base + i, act).clone()
+            lu = plain(ref, tu2, pos0 + base + i, act)
+            check(torch.equal(lg, lu), f"{tag}: a replay after a stalled "
+                  f"card differs from the uncaptured step ({i})")
+            tu2 = torch.argmax(lu, -1)
+        check(same_caches(torch, caches(ref), caches(kv)), f"{tag}: the "
+              "stalled replays' caches differ from the uncaptured steps'")
+        base += STALL_STEPS
+        extra = {"stalled_steps_bit_equal": STALL_STEPS,
+                 "busy": card_busy(torch, lambda: graph(
+                     kv, tu2, pos0 + base, act), cards)}
+    t2 = time.perf_counter()
     prof = replay_profile(torch, counters, tag,
                           lambda: plain(ref, tu2, pos0 + base, act),
                           lambda: graph(kv, tu2, pos0 + base, act))
@@ -2833,7 +3033,7 @@ def batched_replay_cell(torch, counters, tag: str, plain, graph, ref, kv,
             "B": b_n, "steps_bit_equal": steps + MESH_TURN,
             "ms_step_uncaptured": [mu1, mu2], "ms_step_replayed": [mg1, mg2],
             "ms_uncaptured": (mu1 + mu2) / 2, "ms_replayed": (mg1 + mg2) / 2,
-            **prof}
+            **prof, **extra}
     cell["replay_busy_share"] = (prof["replay_device_ms"]
                                  / cell["ms_replayed"])
     cell["uncaptured_busy_share"] = (prof["uncaptured_device_ms"]
@@ -4660,18 +4860,23 @@ def cp_path_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     return summary, launches
 
 
-def cp_cards_phase(torch, counters, card: str) -> dict | None:
+def cp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     """One shard per card, on a host with CP_SHARDS cards or more (on
     fewer it says so and returns None): repolm512 through
     CPEngine.load(cp=4), whose default mesh puts shard i on cuda:i, against
-    the same weights with the 4 shards on cuda:0; a 300-token prompt (4
-    shards of 128 keys) and 32 greedy steps. Every kernel launches on its
-    tensors' card and the cross-card copies are exact, so tokens and
-    logits must be bit-equal. Then the CLI's --cp 4."""
+    the same weights with the 4 shards on cuda:0 (a 300-token prompt, 4
+    shards of 128 keys, 32 greedy steps); then the synthetic 8B of `full`
+    (`synth`, all 32 layers), ctx 4,096, over 4 cards
+    and over 2 (a 1,000-token prompt in two chunks, 16 steps) against its
+    shards on cuda:0. Every kernel launches on its tensors' card and the
+    cross-card copies are exact, so tokens, logits and caches must be
+    bit-equal, uncaptured and replayed (cards_vs_one). Then the CLI's
+    --cp 4."""
     import contextlib
     import io
     from ntransformer_tpu_torch import cli
     from ntransformer_tpu_torch.inference.engine import CPEngine
+    from ntransformer_tpu_torch.models.loader import LoadedModel
     from ntransformer_tpu_torch.ops.cuda import attention as ca
     from ntransformer_tpu_torch.parallel.cp import make_cp_mesh
 
@@ -4680,39 +4885,47 @@ def cp_cards_phase(torch, counters, card: str) -> dict | None:
         print(f"cpcards: {n_cards} card(s); one shard per card needs "
               f"{CP_SHARDS}: not run", flush=True)
         return None
-    cards = CPEngine.load(REPOLM, cp=CP_SHARDS)
-    want = tuple(torch.device("cuda", i) for i in range(CP_SHARDS))
-    check(cards.mesh == want, f"CPEngine.load(cp={CP_SHARDS}) mesh "
-          f"{cards.mesh}, not {want}")
-    check([s.k.device for s in cards._make_kv()] == list(want),
-          "cpcards: a shard's cache is not on its card")
-    one = CPEngine(cards.model, make_cp_mesh(CP_SHARDS,
-                                             ["cuda:0"] * CP_SHARDS))
-    ids = torch.randint(0, cards.arch.vocab_size, (300,),
-                        generator=torch.Generator().manual_seed(47)).tolist()
-    reset(counters)
-    toks_c, logits_c = greedy_pass(cards, torch, ids, 32)
-    launches = read(counters)
-    check(launches[ca.PARTIALS_NAME] > 0,
-          f"cpcards: no partials kernel launched: {launches}")
-    toks_o, logits_o = greedy_pass(one, torch, ids, 32)
-    diff = max(float((a - b).abs().max()) for a, b in zip(logits_c, logits_o))
-    print(f"cpcards: shards on cuda:0-{CP_SHARDS - 1} vs all on cuda:0: "
-          f"tokens {'equal' if toks_c == toks_o else 'differ'}, max "
-          f"|dlogit| {diff}", flush=True)
-    check(toks_c == toks_o and diff == 0.0, "cpcards: one shard per card "
-          "is not bit-equal to the shards on one card")
+    out = {"card": card, "cards": n_cards}
+    cfg, arch, weights, _ = synth
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    small = CPEngine.load(REPOLM, cp=CP_SHARDS)
+    gen = torch.Generator().manual_seed(47)
+    for name, n_prompt, n, make in (
+            ("repolm512", 300, 32, lambda cp, devs: small if devs is None
+             else CPEngine(small.model, make_cp_mesh(cp, devs))),
+            ("8b_cp4", 1000, 16,
+             lambda cp, devs: CPEngine(model, make_cp_mesh(cp, devs))),
+            ("8b_cp2", 1000, 16,
+             lambda cp, devs: CPEngine(model, make_cp_mesh(cp, devs)))):
+        cp = 2 if name.endswith("cp2") else CP_SHARDS
+        want = tuple(torch.device("cuda", i) for i in range(cp))
+        cards, one = make(cp, None), make(cp, ["cuda:0"] * cp)
+        check(cards.mesh == want, f"cpcards {name}: mesh {cards.mesh}, not "
+              f"{want}")
+        check([s.k.device for s in cards._make_kv()] == list(want),
+              f"cpcards {name}: a shard's cache is not on its card")
+        ids = torch.randint(0, cards.arch.vocab_size, (n_prompt,),
+                            generator=gen).tolist()
+        got = cards_vs_one(torch, counters, f"cpcards_{name}", cards, one,
+                           ids, n)
+        check(got["launches"][ca.PARTIALS_NAME] > 0,
+              f"cpcards {name}: no partials kernel launched: "
+              f"{got['launches']}")
+        out[name] = got
+        del cards, one
+        torch.cuda.empty_cache()
+    del small
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["-m", REPOLM, "-p", PROMPT, "-n", "32", "-t", "0",
                        "--repeat-penalty", "1.0", "--cp", str(CP_SHARDS)])
     check(rc == 0, f"cli --cp {CP_SHARDS}: exit code {rc}")
-    out = {"card": card, "cards": n_cards, "launches": launches,
-           "max_abs_dlogit": diff, "cli_text": buf.getvalue()}
-    print(json.dumps({"cp_cards": out}), flush=True)
-    del cards, one
-    torch.cuda.empty_cache()
+    out["cli_text"] = buf.getvalue()
+    print(json.dumps({"cp_cards": {"card": card, "cards": n_cards,
+                                   "cli_text": out["cli_text"]}}),
+          flush=True)
     return out
+
 
 # ------------------------------------------------------ tensor parallelism
 TP_SHARDS = 2   # phase tp: the shards on the one card
@@ -4929,17 +5142,19 @@ def tp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     it says so and returns None): repolm512 through TPEngine.load(tp=4),
     whose default mesh puts shard i on cuda:i, against the same shards all
     on cuda:0 (a 300-token prompt, 32 greedy steps); then the synthetic 8B
-    Q8_0 of `full` the same way (a 512-token prompt, 16 steps). Every
-    kernel launches on its tensors' card, the cross-card copies are exact
-    and the sums run in shard order on cuda:0, so tokens and logits must
-    be bit-equal. The mesh over the cards keeps the host path (one capture
-    does not span cards), the mesh on cuda:0 replays. Then the CLI's
-    --tp 4."""
+    Q8_0 of `full` (`synth`, all 32 layers)
+    over 4 cards and over 2 (a 512-token prompt, 16 steps) against its
+    shards on cuda:0. Every kernel launches on its tensors' card, the
+    cross-card copies are exact and the sums run in shard order on
+    cuda:0, so tokens, logits and caches must be bit-equal, uncaptured and
+    replayed (cards_vs_one: the mesh over cards replays CardGraphs); with
+    the replayed programs over the cards held to their uncaptured calls,
+    a card stalled before some replays, and the loop's walls in turns
+    against the mesh on cuda:0. Then the CLI's --tp 4."""
     import contextlib
     import io
     from ntransformer_tpu_torch import cli
     from ntransformer_tpu_torch.inference.engine import TPEngine
-    from ntransformer_tpu_torch.models.graphs import one_card
     from ntransformer_tpu_torch.models.loader import LoadedModel
     from ntransformer_tpu_torch.parallel.tp import make_tp_mesh
 
@@ -4948,58 +5163,44 @@ def tp_cards_phase(torch, counters, card: str, synth) -> dict | None:
         print(f"tpcards: {n_cards} card(s); one shard per card needs "
               f"{TP_CARDS}: not run", flush=True)
         return None
-    want = tuple(torch.device("cuda", i) for i in range(TP_CARDS))
-    one = make_tp_mesh(TP_CARDS, ["cuda:0"] * TP_CARDS)
     out = {"card": card, "cards": n_cards}
     cfg, arch, weights, _ = synth
-    synth_model = LoadedModel(cfg, arch, weights, None, None,
-                              torch.device("cuda"))
+    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
+    gen = torch.Generator().manual_seed(48)
     for name, n_prompt, n, make in (
             ("repolm512", 300, 32,
-             lambda mesh: TPEngine.load(REPOLM, tp=TP_CARDS,
-                                        device="cuda" if mesh is None
-                                        else "cuda:0")),
-            ("8b", 512, 16,
-             lambda mesh: TPEngine(synth_model, mesh or make_tp_mesh(
-                 TP_CARDS)))):
-        cards = make(None)
+             lambda tp, dev: TPEngine.load(REPOLM, tp=tp, device=dev)),
+            ("8b_tp4", 512, 16, lambda tp, dev: TPEngine(
+                model, make_tp_mesh(tp, None if dev == "cuda"
+                                    else [dev] * tp))),
+            ("8b_tp2", 512, 16, lambda tp, dev: TPEngine(
+                model, make_tp_mesh(tp, None if dev == "cuda"
+                                    else [dev] * tp)))):
+        tp = 2 if name.endswith("tp2") else TP_CARDS
+        want = tuple(torch.device("cuda", i) for i in range(tp))
+        cards, one = make(tp, "cuda"), make(tp, "cuda:0")
         check(cards.mesh == want, f"tpcards {name}: mesh {cards.mesh}, not "
               f"{want}")
         check([c.k.device for c in cards._make_kv()] == list(want),
               f"tpcards {name}: a shard's cache is not on its card")
-        # a mesh that spans cards keeps the host path
-        # (models/graphs.check_capturable)
-        check(not cards._graph_path() and one_card(one),
-              f"tpcards {name}: the graph path is not the one-card mesh's "
-              "alone")
         ids = torch.randint(0, cards.arch.vocab_size, (n_prompt,),
-                            generator=torch.Generator().manual_seed(48)
-                            ).tolist()
-        reset(counters)
-        toks_c, logits_c = greedy_pass(cards, torch, ids, n)
-        launches = read(counters)
-        check(all(launches[k] > 0 for k in ENGINE_KERNELS),
-              f"tpcards {name}: launched {launches}")
-        del cards
-        same = make(one)
-        toks_o, logits_o = greedy_pass(same, torch, ids, n)
-        del same
+                            generator=gen).tolist()
+        got = cards_vs_one(torch, counters, f"tpcards_{name}", cards, one,
+                           ids, n)
+        check(all(got["launches"][k] > 0 for k in ENGINE_KERNELS),
+              f"tpcards {name}: launched {got['launches']}")
+        out[name] = got
+        del cards, one
         torch.cuda.empty_cache()
-        diff = max(float((a - b).abs().max())
-                   for a, b in zip(logits_c, logits_o))
-        print(f"tpcards {name}: shards on cuda:0-{TP_CARDS - 1} vs all on "
-              f"cuda:0: tokens {'equal' if toks_c == toks_o else 'differ'}, "
-              f"max |dlogit| {diff}", flush=True)
-        check(toks_c == toks_o and diff == 0.0, f"tpcards {name}: one shard "
-              "per card is not bit-equal to the shards on one card")
-        out[name] = {"launches": launches, "max_abs_dlogit": diff}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["-m", REPOLM, "-p", PROMPT, "-n", "32", "-t", "0",
                        "--repeat-penalty", "1.0", "--tp", str(TP_CARDS)])
     check(rc == 0, f"cli --tp {TP_CARDS}: exit code {rc}")
     out["cli_text"] = buf.getvalue()
-    print(json.dumps({"tp_cards": out}), flush=True)
+    print(json.dumps({"tp_cards": {"card": card, "cards": n_cards,
+                                   "cli_text": out["cli_text"]}}),
+          flush=True)
     return out
 
 
@@ -5029,6 +5230,10 @@ srv = BatchServer(load_model(gguf, device="cpu"), batch_size=4, mesh=mesh,
 reqs = [Request(prompt=p, max_tokens=16) for p in prompts]
 srv.run(reqs)
 print("DP-TEXTS " + json.dumps([r.text for r in reqs]), flush=True)
+gs = [g for g in (srv._ggraphs or []) if g is not None]
+print("DP-GRAPHS " + json.dumps({"captured": srv._ggraphs is not None,
+                                 "replays": sum(sum(g.replays.values())
+                                                for g in gs)}), flush=True)
 shutdown()
 """
 
@@ -5124,11 +5329,12 @@ def dp_forced(torch, counters, mesh, arch, weights, grid_w, bkv, lens,
 
 
 def dp_replay_cell(torch, counters, mesh, arch, grid_w, bkv, lens,
-                   first) -> dict:
-    """The sharded B = 8 step over `mesh` on cuda:0 replayed (one
-    StepGraphs a dp group, dp.group_graphs, the decode key captured first)
-    against the uncaptured sharded step (batched_replay_cell), from the
-    prefilled cache bkv at the prompts' ends, greedy from `first`."""
+                   first, cards=None) -> dict:
+    """The sharded B = 8 step over `mesh` replayed (one StepGraphs a dp
+    group, dp.group_graphs, the decode key captured first) against the
+    uncaptured sharded step (batched_replay_cell; cards: the cards of a
+    mesh over several), from the prefilled cache bkv at the prompts' ends,
+    greedy from `first`."""
     from ntransformer_tpu_torch.parallel import dp
     check(dp.captured(mesh), f"dp {mesh.shape}: the mesh on cuda:0 does "
           "not replay")
@@ -5143,13 +5349,17 @@ def dp_replay_cell(torch, counters, mesh, arch, grid_w, bkv, lens,
     step_u = dp.make_batched_decode_sharded(mesh, arch)
     step_g = dp.make_batched_decode_sharded(mesh, arch, graphs=graphs)
     cell = batched_replay_cell(
-        torch, counters, f"dp_8b_{mesh.dp}x{mesh.tp}",
+        torch, counters, f"dp_8b_{mesh.dp}x{mesh.tp}"
+        + ("_cards" if cards else ""),
         lambda c, t, p, a: step_u(grid_w, c, t, p, a)[0],
         lambda c, t, p, a: step_g(grid_w, c, t, p, a)[0], ref, kv,
         len(lens), torch.tensor(lens, device="cuda"),
-        torch.as_tensor(first, device="cuda"))
+        torch.as_tensor(first, device="cuda"), cards=cards)
     cell.update(capture_s=cap_s, graphs=len(graphs),
                 replays=sum(sum(g.replays.values()) for g in graphs))
+    if cards is not None:
+        cell["group_program"] = program_shape(
+            graphs[0]._graphs[graphs[0].key("decode")][0])
     del graphs, ref, kv
     torch.cuda.empty_cache()
     return cell
@@ -5459,37 +5669,52 @@ def dp_two_process(torch, devs_of, backend: str, tp: int = 1,
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    got = []
+    got, graphs = [], []
     for r, (p, o) in enumerate(zip(procs, outs)):
         check(p.returncode == 0, f"two-process {backend} rank {r}: exit "
               f"{p.returncode}: {o[-2000:]}")
-        line = next((ln for ln in o.splitlines()
-                     if ln.startswith("DP-TEXTS ")), None)
-        check(line is not None, f"two-process rank {r}: no texts: "
-              f"{o[-2000:]}")
-        got.append(json.loads(line[len("DP-TEXTS "):]))
+        lines = {ln.split(" ", 1)[0]: ln.split(" ", 1)[1]
+                 for ln in o.splitlines()
+                 if ln.startswith(("DP-TEXTS ", "DP-GRAPHS "))}
+        check("DP-TEXTS" in lines and "DP-GRAPHS" in lines,
+              f"two-process rank {r}: no texts: {o[-2000:]}")
+        got.append(json.loads(lines["DP-TEXTS"]))
+        graphs.append(json.loads(lines["DP-GRAPHS"]))
     check(got[0] == got[1] == want, f"two-process {backend} ({dp}, {tp}) "
           f"on {devs}: texts {got} differ from the one-process server's "
           f"{want}")
+    # NCCL processes whose rows each lie in one process replay their group
+    # steps; a row across processes, and gloo's host staging, keep the
+    # host path (models/graphs.check_capturable)
+    replay = backend == "nccl" and tp == 1
+    check(all(g["captured"] == replay and (g["replays"] > 0) == replay
+              for g in graphs), f"two-process {backend}: the servers' "
+          f"graphs {graphs}; want {'replays' if replay else 'the host path'}")
     out = {"backend": backend, "dp": dp, "tp": tp, "devices": devs,
-           "texts_equal": True}
+           "texts_equal": True, "graphs": graphs}
     print(json.dumps({"dp_two_process": out}), flush=True)
     return out
 
 
 def dp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     """One position a card, on a host with DP_CARDS cards or more (on fewer
-    it says so and returns None): the synthetic 8B over the (2, 2) mesh of
-    cuda:0-3 teacher-forced as phase dp forces it, bit-equal to the same
-    mesh on cuda:0 (every kernel launches on its tensors' card, the copies
-    are exact and the sums run in shard order); the server's texts equal;
-    then two processes over NCCL, each owning one card, at dp = 2 and at
-    tp = 2 (the row's sums across processes)."""
+    it says so and returns None): the synthetic 8B (`synth`, all 32
+    layers) over the (2, 2) mesh of cuda:0-3
+    teacher-forced as phase dp forces it, uncaptured and with each group's
+    step replayed (dp.group_graphs: a CardGraph a group over its two
+    cards), all bit-equal to the same mesh on cuda:0 both ways (every
+    kernel launches on its tensors' card, the copies are exact and the
+    sums run in shard order), caches too; the replayed step over the cards
+    against the uncaptured one (dp_replay_cell with a card stalled before
+    some replays, each card's busy share); its walls in turns against the
+    same mesh replayed on cuda:0; then two processes over NCCL, each owning
+    one card, at dp = 2 and at tp = 2 (the row's sums across processes):
+    their servers replay, the row's collectives inside the graphs, and
+    print the one-process server's texts."""
     from ntransformer_tpu_torch.inference.engine import Engine
     from ntransformer_tpu_torch.models.batched import BatchedKV
     from ntransformer_tpu_torch.models.loader import LoadedModel
-    from ntransformer_tpu_torch.parallel.dp import (
-        make_batched_decode_sharded, shard_server_state)
+    from ntransformer_tpu_torch.parallel import dp
     from ntransformer_tpu_torch.parallel.multihost import make_mesh
     n_cards = torch.cuda.device_count()
     if n_cards < DP_CARDS:
@@ -5505,38 +5730,90 @@ def dp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     for b, r in enumerate(reqs):
         _, kv, _ = eng._prefill(eng._make_kv(), r.prompt_ids)
         bkv.insert(b, kv)
+    del eng
     toks = [[(37 * i + 11 * b) % arch.vocab_size for b in range(8)]
             for i in range(DP_STEPS)]
     pos = torch.tensor(lens, device="cuda")
     act = torch.ones(8, dtype=torch.bool, device="cuda")
-    logits = {}
+    runs, meshes, programs = {}, {}, {}
     for name, devices in (("cards", None), ("cuda:0", ["cuda:0"] * 4)):
         mesh = make_mesh(tp=2, dp=2, devices=devices)
-        grid_w, _ = shard_server_state(mesh, arch, weights, 8,
-                                       with_kv=False)
+        check(dp.captured(mesh), f"dpcards: the (2, 2) mesh on {name} "
+              "does not replay")
+        grid_w, _ = dp.shard_server_state(mesh, arch, weights, 8,
+                                          with_kv=False)
+        meshes[name] = (mesh, grid_w)
+        for replayed in (False, True):
+            grid = mesh_cache(torch, mesh, arch, bkv)
+            graphs = (dp.group_graphs(mesh, arch, grid_w, grid) if replayed
+                      else None)
+            step = dp.make_batched_decode_sharded(mesh, arch, graphs=graphs)
+            outs = []
+            for i in range(DP_STEPS):
+                lg, grid = step(grid_w, grid, torch.tensor(toks[i]), pos + i,
+                                act)
+                outs.append(lg.cpu())
+            if name == "cards":
+                check([c.k.device for row in grid for c in row]
+                      == [torch.device("cuda", i) for i in range(4)],
+                      "dpcards: a position's cache is not on its card")
+            if replayed:
+                g0 = graphs[0]
+                prog = g0._graphs[g0.key("decode")][0]
+                programs[name] = program_shape(prog)
+            runs[name, replayed] = (outs, [t.cpu() for t in
+                                           cache_tensors(grid)])
+            del grid, graphs, step
+            torch.cuda.empty_cache()
+    oc, kc = runs["cards", False]
+    diff = 0.0
+    for key, (o, k) in runs.items():
+        diff = max([diff] + [float((a - b).abs().max())
+                             for a, b in zip(oc, o)])
+        check(diff == 0.0 and all(torch.equal(a, b) for a, b in zip(kc, k)),
+              f"dpcards: the (2, 2) mesh {key} differs from the mesh over "
+              f"the cards, uncaptured, by {diff} (or in its caches)")
+    out = {"card": card, "cards": n_cards, "max_abs_dlogit": diff,
+           "program": programs}
+    mesh, grid_w = meshes["cards"]
+    out["replay"] = dp_replay_cell(torch, counters, mesh, arch, grid_w, bkv,
+                                   lens, torch.tensor(toks[0]),
+                                   cards=[torch.device("cuda", i)
+                                          for i in range(4)])
+    state = {}
+    for name, (mesh, grid_w) in meshes.items():
         grid = mesh_cache(torch, mesh, arch, bkv)
-        step = make_batched_decode_sharded(mesh, arch)
-        outs = []
-        for i in range(DP_STEPS):
-            lg, grid = step(grid_w, grid, torch.tensor(toks[i]), pos + i,
-                            act)
-            outs.append(lg.cpu())
-        logits[name] = outs
-        if name == "cards":
-            check([c.k.device for row in grid for c in row]
-                  == [torch.device("cuda", i) for i in range(4)],
-                  "dpcards: a position's cache is not on its card")
-        del grid_w, grid
-        torch.cuda.empty_cache()
-    diff = max(float((a - b).abs().max())
-               for a, b in zip(logits["cards"], logits["cuda:0"]))
-    check(diff == 0.0, f"dpcards: the (2, 2) mesh one position a card "
-          f"differs from the same mesh on cuda:0 by {diff}")
-    out = {"card": card, "cards": n_cards, "max_abs_dlogit": diff}
+        graphs = dp.group_graphs(mesh, arch, grid_w, grid)
+        for g in graphs:
+            g.capture([g.key("decode")])
+        state[name] = [dp.make_batched_decode_sharded(mesh, arch,
+                                                      graphs=graphs),
+                       grid_w, grid, torch.tensor(toks[0], device="cuda"),
+                       0, graphs]
+
+    def run(name):
+        def go():
+            step, grid_w, grid, tk, base, _ = state[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(MESH_TURN):
+                lg, grid = step(grid_w, grid, tk, pos + base + i, act)
+                tk = torch.argmax(lg, -1)
+            tk.cpu()
+            state[name][3:5] = [tk, base + MESH_TURN]
+            return (time.perf_counter() - t0) / MESH_TURN * 1e3
+        return go
+    out["step_ms_replayed_in_turns"] = turns(torch, {k: run(k)
+                                                     for k in meshes})
+    check(torch.equal(state["cards"][3].cpu(), state["cuda:0"][3].cpu()),
+          "dpcards: the timed turns' tokens differ")
+    del state, meshes, bkv
+    torch.cuda.empty_cache()
     runs = [dp_two_process(torch, ["cuda:0", "cuda:1"], "nccl"),
             dp_two_process(torch, ["cuda:0", "cuda:1"], "nccl", tp=2, dp=1)]
     out["nccl"] = runs
-    print(json.dumps({"dp_cards": out}), flush=True)
+    print(json.dumps({"dp_cards": {k: v for k, v in out.items()
+                                   if k != "replay"}}), flush=True)
     return out
 
 
@@ -7280,19 +7557,28 @@ def cptp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
 
 def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
     """One position a card, on a host with MESH_CARDS cards or more (on
-    fewer it says so and returns None), against the same mesh on cuda:0:
-    a small MoE GGUF through EPEngine.load(ep=4) (one expert shard a card;
-    32 greedy steps), the synthetic 8B Q8_0 through pp_decode_step at (4
+    fewer it says so and returns None), against the same mesh on cuda:0,
+    uncaptured and replayed (cards_vs_one for the engines): a small MoE
+    GGUF through EPEngine.load(ep=4) (one expert shard a card; 32 greedy
+    steps), repolm512 through CPEngine.load(cp=2, tp=2) (one (cp, tp)
+    position a card; 32 greedy steps), the synthetic 8B Q8_0 of `full`
+    (`synth`, all 32 layers) through the same (2, 2) mesh
+    (a 512-token prompt, 16 steps) and through pp_decode_step at (4
     stages, 2 microbatches) (one stage a card; PP_STEPS steps fed the same
-    tokens from the same prefilled cache) and repolm512 through
-    CPEngine.load(cp=2, tp=2) (one (cp, tp) position a card; 32 greedy
-    steps). Every kernel launches on its tensors' card, the cross-card
-    copies are exact and the sums run in shard order on cuda:0, so tokens,
-    logits and caches must be bit-equal."""
+    tokens from the same prefilled cache, against the stages on cuda:0
+    uncaptured and replayed; the stages over the cards keep the host path,
+    parallel/pp.py), and phase moe's synthetic Mixtral-8x7B Q4_K_M (all 32
+    layers) through EPEngine over the cards (two experts a card) against
+    its 4 shards on cuda:0 (a 128-token prompt, 16 greedy steps). Every
+    kernel launches on its tensors' card, the cross-card copies are exact
+    and the sums run in shard order on cuda:0, so tokens, logits and caches
+    must be bit-equal."""
     import tempfile
     from ntransformer_tpu_torch.inference.engine import CPEngine, EPEngine
     from ntransformer_tpu_torch.models.loader import LoadedModel
     from ntransformer_tpu_torch.parallel import pp
+    from ntransformer_tpu_torch.parallel.cp import make_cp_tp_mesh
+    from ntransformer_tpu_torch.parallel.ep import make_ep_mesh
     n_cards = torch.cuda.device_count()
     if n_cards < MESH_CARDS:
         print(f"meshcards: {n_cards} card(s); one position a card needs "
@@ -7300,21 +7586,6 @@ def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
         return None
     want = [torch.device("cuda", i) for i in range(MESH_CARDS)]
     out = {"card": card, "cards": n_cards}
-
-    def engines_equal(name, cards, one, ids, n=32):
-        reset(counters)
-        toks_c, logits_c = greedy_pass(cards, torch, ids, n)
-        launches = read(counters)
-        toks_o, logits_o = greedy_pass(one, torch, ids, n)
-        diff = max(float((a - b).abs().max())
-                   for a, b in zip(logits_c, logits_o))
-        print(f"meshcards {name}: one position a card vs all on cuda:0: "
-              f"tokens {'equal' if toks_c == toks_o else 'differ'}, max "
-              f"|dlogit| {diff}; launches {launches}", flush=True)
-        check(toks_c == toks_o and diff == 0.0, f"meshcards {name}: one "
-              "position a card is not bit-equal to the mesh on cuda:0")
-        return {"launches": launches, "max_abs_dlogit": diff}
-
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "moe_q8_0.gguf")
         write_moe_gguf(path, "q8_0", "llama", 128, 192)
@@ -7322,7 +7593,8 @@ def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
         check(list(cards.mesh) == want, f"meshcards ep: mesh {cards.mesh}")
         one = EPEngine.load(path, ep=MESH_CARDS, device="cuda:0", fuse=True)
         ids = cards._encode(PROMPT)
-        out["ep"] = engines_equal("ep", cards, one, ids)
+        out["ep"] = cards_vs_one(torch, counters, "meshcards_ep", cards,
+                                 one, ids, 32)
         del cards, one
     cards = CPEngine.load(REPOLM, cp=2, tp=2)
     check([d for row in cards.mesh for d in row] == want,
@@ -7330,40 +7602,89 @@ def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
     one = CPEngine.load(REPOLM, cp=2, tp=2, device="cuda:0")
     ids = torch.randint(0, cards.arch.vocab_size, (300,),
                         generator=torch.Generator().manual_seed(47)).tolist()
-    out["cptp"] = engines_equal("cptp", cards, one, ids)
+    out["cptp"] = cards_vs_one(torch, counters, "meshcards_cptp", cards, one,
+                               ids, 32)
     del cards, one
     cfg, arch, weights, _ = synth
-    model = LoadedModel(cfg, arch, weights, None, None, torch.device("cuda"))
-    bkv, tok = pp_prefilled(torch, model, False)
+
+    def model():
+        return LoadedModel(cfg, arch, weights, None, None,
+                           torch.device("cuda"))
+    cards = CPEngine(model(), make_cp_tp_mesh(*CPTP_MESH))
+    one = CPEngine(model(), make_cp_tp_mesh(*CPTP_MESH, ["cuda:0"] * 4))
+    ids = torch.randint(0, arch.vocab_size, (512,),
+                        generator=torch.Generator().manual_seed(49)).tolist()
+    out["cptp_8b"] = cards_vs_one(torch, counters, "meshcards_cptp_8b",
+                                  cards, one, ids, 16)
+    del cards, one
+    torch.cuda.empty_cache()
+    bkv, tok = pp_prefilled(torch, model(), False)
     pos0 = torch.tensor(PP_LENS, device="cuda")
     act = torch.ones(len(PP_LENS), dtype=torch.bool, device="cuda")
     runs = {}
-    for name, mesh in (("cards", pp.make_pp_mesh(MESH_CARDS)),
-                       ("cuda:0", pp.make_pp_mesh(MESH_CARDS,
-                                                  ["cuda:0"] * MESH_CARDS))):
+    for name, mesh, replayed in (
+            ("cards", pp.make_pp_mesh(MESH_CARDS), False),
+            ("cuda:0", pp.make_pp_mesh(MESH_CARDS, ["cuda:0"] * MESH_CARDS),
+             False),
+            ("cuda:0", pp.make_pp_mesh(MESH_CARDS, ["cuda:0"] * MESH_CARDS),
+             True)):
         state = pp.shard_pp_state(mesh, arch, weights, len(PP_LENS), 2)
         pp_fill(state, bkv)
+        step = (pp.make_pp_decode(mesh, arch, state, 2) if replayed
+                else lambda t, p, a: pp.pp_decode_step(
+                    mesh, arch, state, t, p, a, 2)[0])
         reset(counters)
         outs, t = [], tok
         for i in range(PP_STEPS):
-            lg, state = pp.pp_decode_step(mesh, arch, state, t, pos0 + i,
-                                          act, 2)
+            lg = step(t, pos0 + i, act)
             outs.append(lg.cpu())
             t = torch.argmax(lg, -1)
         torch.cuda.synchronize()
-        runs[name] = (outs, pp.gather_kv(state, "cuda:0"), read(counters))
-        del state
-    (oc, kc, lc), (oo, ko, _) = runs["cards"], runs["cuda:0"]
-    diff = max(float((a - b).abs().max()) for a, b in zip(oc, oo))
-    same_kv = all(bool(torch.equal(a, b)) for a, b in zip(kc.caches,
-                                                          ko.caches))
-    print(f"meshcards pp: one stage a card vs all on cuda:0: max |dlogit| "
-          f"{diff}, caches {'equal' if same_kv else 'differ'}; launches "
+        if replayed:
+            check(step.replays == PP_STEPS, f"meshcards pp {name}: "
+                  f"{step.replays} replays of {PP_STEPS} steps")
+        runs[name, replayed] = (outs, [t.cpu() for t in cache_tensors(
+            [c for row in state.kv for c in row])], read(counters))
+        del state, step
+    # stages over several cards keep the host path (parallel/pp.py)
+    check(not hasattr(pp.make_pp_decode(
+        pp.make_pp_mesh(MESH_CARDS), arch, pp.shard_pp_state(
+            pp.make_pp_mesh(MESH_CARDS), arch, weights, len(PP_LENS), 2), 2),
+        "replays"), "meshcards pp: the stages over the cards replay")
+    (oc, kc, lc) = runs["cards", False]
+    for key, (o, k, _) in runs.items():
+        diff = max(float((a - b).abs().max()) for a, b in zip(oc, o))
+        same_kv = all(bool(torch.equal(a, b)) for a, b in zip(kc, k))
+        check(diff == 0.0 and same_kv, f"meshcards pp {key}: logits (max "
+              f"|d| {diff}) or caches differ from the stages over the "
+              "cards")
+    print(f"meshcards pp: one stage a card (host path), all on cuda:0 "
+          f"uncaptured and replayed: logits and caches bit-equal; launches "
           f"{lc}", flush=True)
-    check(diff == 0.0 and same_kv, "meshcards pp: one stage a card is not "
-          "bit-equal to the stages on cuda:0")
-    out["pp"] = {"launches": lc, "max_abs_dlogit": diff}
-    print(json.dumps({"mesh_cards": out}), flush=True)
+    out["pp"] = {"launches": lc, "max_abs_dlogit": 0.0}
+    del bkv
+    torch.cuda.empty_cache()
+    # Mixtral over the cards: EPEngine empties the expert planes it shards,
+    # so each engine gets its own build (the same seed, the same weights)
+    engines = []
+    for devs in (None, ["cuda:0"] * MESH_CARDS):
+        mcfg, march, mw, _ = build_mixtral(torch)
+        engines.append(EPEngine(LoadedModel(mcfg, march, mw, None, None,
+                                            torch.device("cuda")),
+                                make_ep_mesh(MESH_CARDS, devs)))
+        del mw
+        torch.cuda.empty_cache()
+    cards, one = engines
+    check(list(cards.mesh) == want, f"meshcards ep_mixtral: mesh "
+          f"{cards.mesh}")
+    ids = torch.randint(3, march.vocab_size, (128,),
+                        generator=torch.Generator().manual_seed(51)).tolist()
+    out["ep_mixtral"] = cards_vs_one(torch, counters, "meshcards_ep_mixtral",
+                                     cards, one, ids, 16)
+    del cards, one, engines
+    torch.cuda.empty_cache()
+    print(json.dumps({"mesh_cards": {"card": card, "cards": n_cards}}),
+          flush=True)
     return out
 
 
@@ -8226,7 +8547,7 @@ def main() -> int:
     engine_launches, launches, spec_launches, tp_launches = {}, {}, {}, {}
     dp_launches, pp_launches, cptp_launches = {}, {}, {}
     if {"full", "bfull", "graphs", "cp", "tp", "tpcards", "dp", "dpcards",
-            "pp", "cptp", "meshcards", "spec"} & set(phases):
+            "pp", "cptp", "meshcards", "cpcards", "spec"} & set(phases):
         synth = build_synth(torch)
         if "full" in phases:
             clock("full")
@@ -8271,14 +8592,14 @@ def main() -> int:
         if "meshcards" in phases:
             clock("meshcards")
             mesh_cards_phase(torch, counters, card, synth)
+        if "cpcards" in phases:
+            clock("cpcards")
+            cp_cards_phase(torch, counters, card, synth)
         if "spec" in phases:
             clock("spec")
             _, spec_launches = spec_phase(torch, counters, timer, card,
                                           synth)
         del synth, cut_synth
-    if "cpcards" in phases:
-        clock("cpcards")
-        cp_cards_phase(torch, counters, card)
     # each nibble kernel's main path: the 8B Q4_K_M server for Q4_K and
     # Q6_K (Engine.benchmark beside it), bench.py's q4_0 B = 1 step for
     # Q4_0, the CLI run of repolm512 all-Q5_K for Q5_K

@@ -32,9 +32,56 @@ step reported on its own:
     allocates tensors of c's size on cuda:1 after the capture, fills them
     with a sentinel, replays, and checks that they still hold it.
 
-A variant "spans cards" when every check holds. Each step's error, if
-any, is reported; nothing is retried. Run on a host with two cards or
-more:
+A variant "spans cards" when every check holds.
+
+"per_card" is the probe's program as one graph a card, each captured on
+its card's stream into that card's own pool, the two captures under way
+together. A hand-off is made inside the graphs: the source card's graph
+copies its tensor into a buffer on the other card (a cudaMemcpyAsync on
+its own stream, a memcpy node) and records an external event
+(torch.cuda.Event(external=True): an event record node); the other
+card's graph waits for it (an event wait node). Besides the checks above
+it asks what such a wait node waits for at replay N: before a replay the
+source card's stream is stalled by a long kernel, so that its graph starts
+late, the graphs launched in both orders, and the replay's output is held
+against the eager program on an input changed since the last replay. A
+wait that resolves at launch, to the record last enqueued, reads the last
+replay's data; "stalled_source_bit_equal" tells. "per_stream" is the same
+on one card: two streams of cuda:0 stand for the two cards, so the wait
+nodes' semantics can be read on a one-card host.
+
+"segments" is the form models/graphs.py keeps (CardGraph): one graph a
+card for each stretch up to a hand-off (ops/layers.handoff), an external
+event recorded at its end, the receiving card's graph waiting for it and
+copying the tensor in (a memcpy node that reads the other card), the
+graphs launched from the host in the order their stretches ended; the
+same capture, replay, stalled-source and pool checks. "tp_pull" and
+"tp_push" capture one layer of repolm512's TP forward over two cards as
+a CardGraph (kernels off), the second with each copy made by the source
+card into the receiver's memory before its event, and replay it on other
+tokens than the capture's: each hand-off's buffer and the logits against
+the uncaptured forward.
+
+"pp_cards" is the pipeline step that parallel/pp.py keeps on the host
+over several cards: repolm512's six layers at 2 stages and at 3 (one a
+card, 2 microbatches of 2 slots, kernels on), captured as a CardGraph by
+pp.captured_pp_step (the capture make_pp_decode makes on one card), and
+PP_STEPS steps each replayed against pp_decode_step run uncaptured on a
+twin state with the same inputs, the last steps after a long kernel on
+the second card's stream. The uncaptured step keeps every hand-off's
+value in order (a tape in ops/layers.CAPTURE's place: a plain .to that
+records), which is the order of the CardGraph's plan, so after each
+replay every hand-off is held to its tape entry: the source buffer the
+copy read (`first_bad_source`: the first hand-off whose source already
+differs, i.e. a stretch computed it wrongly) and the copy (`first_bad_copy`:
+the first whose source is right and whose copy is not). Also the logits
+and, at the end, every stage's cache bytes. "pp_cards_to" is the same
+with pp_decode_step's moves made by PyTorch's own .to copies (the form
+that replayed other logits at (4, 2) over four cards), which the
+CardGraph's plan does not see.
+
+Each step's error, if any, is reported; nothing is retried. Run on a host
+with two cards or more (with one, only "per_stream" runs):
 
     python3 experiments/mesh_capture.py
 
@@ -43,6 +90,7 @@ It prints one JSON line and writes it to chiprun_out/mesh_capture.json.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -52,7 +100,10 @@ import torch
 
 N = 1 << 20            # elements of each tensor
 SENTINEL = 12345.0
-VARIANTS = ("plain", "pool", "pool_warm")
+VARIANTS = ("plain", "pool", "pool_warm", "per_card", "segments",
+            "tp_pull", "tp_push", "pp_cards", "pp_cards_to")
+ONE_CARD = ("per_stream",)
+STALL = 200_000_000     # cycles of torch.cuda._sleep: ~0.1 s
 
 
 def card() -> str:
@@ -144,16 +195,435 @@ def variant(name: str) -> dict:
     return out
 
 
+def _memcpy(dst, src, stream) -> None:
+    """dst <- src (both dense, one size) by cuMemcpyAsync on `stream`,
+    which infers a card-to-card copy from the addresses: inside a capture a
+    memcpy node of that stream's graph."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    with torch.cuda.device(stream.device):
+        rc = lib.cuMemcpyAsync(ctypes.c_uint64(dst.data_ptr()),
+                               ctypes.c_uint64(src.data_ptr()),
+                               ctypes.c_size_t(src.numel()
+                                               * src.element_size()),
+                               ctypes.c_void_p(stream.cuda_stream))
+    if rc:
+        raise RuntimeError(f"cuMemcpyAsync returned CUresult {rc}")
+
+
+def eager(x0, w1):
+    """The probe's program with PyTorch's own cross-card copies."""
+    return ((x0 * 2).to(w1.device) * w1 + 1).to(x0.device) + x0
+
+
+def joined_program(x0, w1, s0, s1, buf1, buf0, ev_a, ev_c):
+    """The program as each card's launches on its stream, the hand-offs a
+    copy on the source card's stream into a buffer on the other card and
+    an external event that the other card's stream waits for."""
+    with torch.cuda.stream(s0):
+        a = x0 * 2
+        _memcpy(buf1, a, s0)
+        ev_a.record(s0)
+    with torch.cuda.stream(s1):
+        s1.wait_event(ev_a)
+        c = buf1 * w1 + 1
+        _memcpy(buf0, c, s1)
+        ev_c.record(s1)
+    with torch.cuda.stream(s0):
+        s0.wait_event(ev_c)
+        return buf0 + x0, c
+
+
+def _sync(*devs) -> None:
+    for d in devs:
+        torch.cuda.synchronize(d)
+
+
+def _replay_checks(out, x0, w1, launch, streams) -> dict:
+    """Replays against the eager program, each on an input changed since
+    the last: in capture order, then with each card's stream stalled
+    before the replay (its graph starts ~0.1 s late) in both launch
+    orders. launch(first, stall) launches the graphs, card `first`'s
+    first, after a long kernel on card `stall`'s stream (None: none)."""
+    res = {}
+    d0, d1 = x0.device, w1.device
+    for name, first, stall in (("replay_bit_equal", 0, None),
+                               ("replay_stalled_card1_bit_equal", 0, 1),
+                               ("replay_stalled_card0_bit_equal", 1, 0),
+                               ("replay_stalled_card1_card1_first", 1, 1),
+                               ("replay_stalled_card0_card0_first", 0, 0)):
+        x0.mul_(-0.5)
+        want = eager(x0, w1)
+        _sync(d0, d1)
+        if stall is not None:
+            with torch.cuda.stream(streams[stall]):
+                torch.cuda._sleep(STALL)
+        launch(first)
+        _sync(d0, d1)
+        res[name] = bool(torch.equal(out, want))
+    res["stalled_source_bit_equal"] = all(
+        v for k, v in res.items() if k.startswith("replay_stalled"))
+    return res
+
+
+def _pool_check(c_static, d1) -> tuple:
+    """Whether the graphs' cuda:1 intermediate stays out of the next
+    allocations there (the module docstring's pool check); c_static is
+    dropped here."""
+    ptr, n = c_static.data_ptr(), c_static.numel()
+    del c_static
+    held = [torch.full((n,), SENTINEL, device=d1) for _ in range(4)]
+    torch.cuda.synchronize(d1)
+    return {"allocation_took_the_graphs_block": any(
+        t.data_ptr() == ptr for t in held)}, held
+
+
+def joined(name: str) -> dict:
+    """per_card (cuda:0, cuda:1) or per_stream (two streams of cuda:0):
+    one graph a card joined by external events inside the graphs."""
+    out = {}
+    d0 = torch.device("cuda", 0)
+    d1 = torch.device("cuda", 1 if name == "per_card" else 0)
+    if d0 != d1:
+        out["peer_access"] = [torch.cuda.can_device_access_peer(0, 1),
+                              torch.cuda.can_device_access_peer(1, 0)]
+    g = torch.Generator(device=d0).manual_seed(0)
+    x0 = torch.randn(N, device=d0, generator=g)
+    w1 = torch.randn(N, generator=torch.Generator().manual_seed(1)).to(d1)
+    s0, s1 = torch.cuda.Stream(d0), torch.cuda.Stream(d1)
+    buf1 = torch.zeros(N, device=d1)
+    buf0 = torch.zeros(N, device=d0)
+    ev_a = torch.cuda.Event(external=True)
+    ev_c = torch.cuda.Event(external=True)
+    eager(x0, w1)
+    _sync(d0, d1)
+    # kept uninstantiated until both captures end: CUDA refuses an
+    # instantiation while another capture is under way
+    g0 = torch.cuda.CUDAGraph(keep_graph=True)
+    g1 = torch.cuda.CUDAGraph(keep_graph=True)
+    step = "capture"
+    try:
+        with torch.cuda.stream(s0):
+            g0.capture_begin()
+        try:
+            with torch.cuda.stream(s1):
+                g1.capture_begin()
+            try:
+                static, c_static = joined_program(x0, w1, s0, s1, buf1, buf0,
+                                                  ev_a, ev_c)
+            finally:
+                with torch.cuda.stream(s1):
+                    g1.capture_end()
+        finally:
+            with torch.cuda.stream(s0):
+                g0.capture_end()
+        g0.instantiate()
+        g1.instantiate()
+        out["capture"] = "ok"
+        step = "replay"
+        graphs = ((g0, s0), (g1, s1))
+
+        def launch(first):
+            for gr, st in graphs[first:] + graphs[:first]:
+                with torch.cuda.stream(st):
+                    gr.replay()
+        out.update(_replay_checks(static, x0, w1, launch, (s0, s1)))
+        step = "pool"
+        got, held = _pool_check(c_static, d1)
+        out.update(got)
+        launch(0)
+        _sync(d0, d1)
+        out["sentinel_intact_after_replay"] = all(
+            bool((t == SENTINEL).all()) for t in held)
+    except Exception as e:  # each step's failure is the probe's result
+        out[step + "_error"] = f"{type(e).__name__}: {e}"[:600]
+    out["result"] = _verdict(out)
+    print(json.dumps({name: out}), flush=True)
+    return out
+
+
+def _verdict(out: dict) -> str:
+    ok = (out.get("replay_bit_equal")
+          and out.get("stalled_source_bit_equal", True)
+          and out.get("sentinel_intact_after_replay"))
+    return "spans cards" if ok else "does not span cards"
+
+
+def segments() -> dict:
+    """The probe's program through models/graphs.CardGraph, the form the
+    port keeps: one graph a card a stretch between hand-offs, PyTorch's
+    cross-card copies between their launches (ops/layers.handoff)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from ntransformer_tpu_torch.models import graphs
+    from ntransformer_tpu_torch.ops.layers import handoff
+    out = {}
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    g = torch.Generator(device=d0).manual_seed(0)
+    x0 = torch.randn(N, device=d0, generator=g)
+    w1 = torch.randn(N, generator=torch.Generator().manual_seed(1)).to(d1)
+    cards = [d0, d1]
+    streams = [torch.cuda.Stream(d) for d in cards]
+
+    def program():
+        c = handoff(x0 * 2, d1) * w1 + 1
+        return handoff(c, d0) + x0, c
+    with graphs._on_stream(cards, streams):
+        program()
+    _sync(d0, d1)
+    step = "capture"
+    try:
+        graph = graphs.CardGraph(cards)
+        with graphs._on_stream(cards, streams):
+            static, c_static = graph.capture(program)
+        out["capture"] = "ok"
+        out["plan"] = [list(map(str, p)) for p in graph.plan]
+        step = "replay"
+        out.update(_replay_checks(static, x0, w1,
+                                  lambda first: graph.replay(),
+                                  [torch.cuda.current_stream(d)
+                                   for d in cards]))
+        step = "pool"
+        got, held = _pool_check(c_static, d1)
+        out.update(got)
+        graph.replay()
+        _sync(d0, d1)
+        out["sentinel_intact_after_replay"] = all(
+            bool((t == SENTINEL).all()) for t in held)
+    except Exception as e:  # each step's failure is the probe's result
+        out[step + "_error"] = f"{type(e).__name__}: {e}"[:600]
+    out["result"] = _verdict(out)
+    print(json.dumps({"segments": out}), flush=True)
+    return out
+
+
+def tp_layer(name: str) -> dict:
+    """tp_pull / tp_push (the module docstring)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from ntransformer_tpu_torch.models import graphs, llama
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.ops import linear
+    from ntransformer_tpu_torch.parallel import tp as ptp
+    if name == "tp_push":
+        def handoff(self, t, dst):
+            """The hand-off with the copy made by the source card, on its
+            stream, into the receiver's memory, before the event."""
+            key = (id(t), dst)
+            if key in self.moved:
+                return self.moved[key]
+            x = t.contiguous()
+            out = torch.empty_like(x, device=dst)
+            with torch.cuda.device(x.device):
+                rc = graphs._driver().cuMemcpyAsync(
+                    ctypes.c_uint64(out.data_ptr()),
+                    ctypes.c_uint64(x.data_ptr()),
+                    ctypes.c_size_t(x.numel() * x.element_size()),
+                    ctypes.c_void_p(torch.cuda.current_stream(
+                        x.device).cuda_stream))
+            if rc:
+                raise RuntimeError(f"cuMemcpyAsync returned CUresult {rc}")
+            ev = graphs.JOIN(t.device, dst)
+            self.plan.append(("handoff", t.device, dst))
+            self._end(t.device)
+            self._begin(t.device)
+            self.held += [t, x, out, ev]
+            self.moved[key] = out
+            return out
+        graphs._CardCapture.handoff = handoff
+    out = {}
+    linear.KERNEL_MODE = "off"
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    m = load_model(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "models", "repolm512_q8.gguf"),
+        device="cuda:0")
+    a = m.arch
+    mesh = ptp.make_tp_mesh(2, [d0, d1])
+    w = ptp.shard_weights(m.weights, mesh, a)
+    kv, ref = ptp.make_tp_kv(a, mesh), ptp.make_tp_kv(a, mesh)
+    tok, pos = torch.tensor([5], device=d0), torch.tensor(0, device=d0)
+    cards = [d0, d1]
+    streams = [torch.cuda.Stream(d) for d in cards]
+
+    def program():
+        return llama.forward(a, w, kv, tok, pos, layer_sel=[0], tp=mesh)[0]
+    step = "capture"
+    try:
+        with graphs._on_stream(cards, streams):
+            program()
+        _sync(d0, d1)
+        graph = graphs.CardGraph(cards)
+        with graphs._on_stream(cards, streams):
+            static = graph.capture(program)
+        out["capture"] = "ok"
+        step = "replay"
+        bufs, logits = [], []
+        for t in (9, 5, 11):
+            tok.fill_(t)
+            graph.replay()
+            _sync(d0, d1)
+            held = graph._held
+            bufs.append(all(bool(torch.equal(held[i].to(held[i + 2].device),
+                                              held[i + 2]))
+                            for i in range(0, len(held), 4)))
+            want = llama.forward(a, w, ref, torch.tensor([t], device=d0),
+                                 torch.tensor(0, device=d0), layer_sel=[0],
+                                 tp=mesh)[0]
+            _sync(d0, d1)
+            logits.append(bool(torch.equal(static, want)))
+        out["handoff_buffers_bit_equal"] = bufs
+        out["logits_bit_equal"] = logits
+    except Exception as e:  # each step's failure is the probe's result
+        out[step + "_error"] = f"{type(e).__name__}: {e}"[:600]
+    out["result"] = ("spans cards" if out.get("logits_bit_equal")
+                     and all(out["logits_bit_equal"])
+                     else "does not span cards")
+    print(json.dumps({name: out}), flush=True)
+    return out
+
+
+PP_STEPS = 4            # pp_cards: steps, the last two after a stall
+
+
+class Tape:
+    """ops/layers.CAPTURE's stand-in for an uncaptured run: every move
+    between cards as .to makes it, with its value kept, deduplicated as
+    the capture deduplicates (models/graphs.handoff_key)."""
+
+    def __init__(self, graphs):
+        self.key, self.moved, self.vals, self.held = \
+            graphs.handoff_key, {}, [], []
+
+    def handoff(self, t, dst):
+        key = self.key(t, dst)
+        if key in self.moved:
+            return self.moved[key]
+        out = t.to(dst)
+        self.vals.append((str(t.device), str(dst), list(t.shape),
+                          out.clone()))
+        self.held.append(t)
+        if key is not None:
+            self.moved[key] = out
+        return out
+
+
+def pp_stages(n: int, cards=None) -> dict:
+    """One pp_cards case: n stages over cuda:0 .. n-1 (cards: other
+    devices, one a stage) (the module docstring)."""
+    from ntransformer_tpu_torch.models import graphs
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.ops import layers
+    from ntransformer_tpu_torch.parallel import pp
+    out = {"stages": n}
+    cards = cards or [torch.device("cuda", i) for i in range(n)]
+    m = load_model(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "models", "repolm512_q8.gguf"),
+        device=cards[0])
+    a, mesh, b_n, n_micro = m.arch, pp.make_pp_mesh(n, cards), 4, 2
+    ref = pp.shard_pp_state(mesh, a, m.weights, b_n, n_micro)
+    cap = pp.shard_pp_state(mesh, a, m.weights, b_n, n_micro)
+    step = pp.captured_pp_step(mesh, a, cap, n_micro)
+    tok = torch.tensor([5, 9, 11, 3], device=cards[0])
+    pos0 = torch.tensor([7, 20, 3, 12], device=cards[0])
+    act = torch.ones(b_n, dtype=torch.bool, device=cards[0])
+    stage = "capture"
+    try:
+        rows = []
+        for i in range(PP_STEPS):
+            tape = Tape(graphs)
+            layers.CAPTURE = tape
+            try:
+                want = pp.pp_decode_step(mesh, a, ref, tok, pos0 + i, act,
+                                         n_micro)[0]
+            finally:
+                layers.CAPTURE = None
+            _sync(*cards)
+            stalled = i >= PP_STEPS - 2
+            if stalled and "graph" in out:
+                with torch.cuda.device(cards[1]):
+                    torch.cuda._sleep(STALL)
+            got = step(tok, pos0 + i, act)
+            _sync(*cards)
+            if step.graph is not None and "graph" not in out:
+                out["capture"] = "ok"
+                out["graph"] = {"type": type(step.graph).__name__,
+                                "segments": step.graph.segments,
+                                "handoffs": step.graph.handoffs}
+                stage = "replay"
+            held = step.graph._held
+            srcs, copies = held[1::4], held[2::4]
+            bad_src, bad_copy = [], []
+            for j, (x, y, (s, d, shape, v)) in enumerate(
+                    zip(srcs, copies, tape.vals)):
+                if not torch.equal(x.to(v.device), v):
+                    bad_src.append([j, s, d, shape])
+                elif not torch.equal(y, v):
+                    bad_copy.append([j, s, d, shape])
+            rows.append({
+                "step": i, "stalled": stalled,
+                "logits_bit_equal": bool(torch.equal(got, want)),
+                "max_abs_dlogit": float((got - want).abs().max()),
+                "handoffs_tape": len(tape.vals),
+                "handoffs_graph": len(copies),
+                "first_bad_source": bad_src[:1], "bad_sources": len(bad_src),
+                "first_bad_copy": bad_copy[:1], "bad_copies": len(bad_copy)})
+            tok = torch.argmax(want, -1)
+        out["steps"] = rows
+        stage = "caches"
+        kr, kc = pp.gather_kv(ref, cards[0]), pp.gather_kv(cap, cards[0])
+        out["caches_bit_equal"] = all(
+            getattr(kr, f) is None or bool(torch.equal(getattr(kr, f),
+                                                       getattr(kc, f)))
+            for f in ("k", "v", "ks", "vs"))
+    except Exception as e:  # each step's failure is the probe's result
+        out[stage + "_error"] = f"{type(e).__name__}: {e}"[:600]
+    out["result"] = ("spans cards" if out.get("steps") and all(
+        r["logits_bit_equal"] for r in out["steps"])
+        and out.get("caches_bit_equal") else "does not span cards")
+    return out
+
+
+def pp_cards(name: str = "pp_cards") -> dict:
+    """pp_cards and pp_cards_to (the module docstring): 2 stages, and 3
+    where there are three cards."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    if name == "pp_cards_to":
+        from ntransformer_tpu_torch.parallel import pp
+        pp.handoff = lambda t, device, dtype=None: (
+            t.to(device) if dtype is None else t.to(device, dtype))
+    out = {f"stages_{n}": pp_stages(n)
+           for n in (2, 3) if n <= torch.cuda.device_count()}
+    out["result"] = ("spans cards" if all(
+        v["result"] == "spans cards" for v in out.values())
+        else "does not span cards")
+    print(json.dumps({name: out}), flush=True)
+    return out
+
+
+def run_variant(name: str) -> None:
+    if name in ("per_card", "per_stream"):
+        joined(name)
+    elif name == "segments":
+        segments()
+    elif name.startswith("tp_"):
+        tp_layer(name)
+    elif name.startswith("pp_cards"):
+        pp_cards(name)
+    else:
+        variant(name)
+
+
 def main() -> int:
     out = {"cards": torch.cuda.device_count() if torch.cuda.is_available()
            else 0, "torch": torch.__version__,
            "cuda": torch.version.cuda}
-    if out["cards"] < 2:
-        out["result"] = "needs two cards"
+    if out["cards"] < 1:
+        out["result"] = "needs a card"
         print(json.dumps(out))
         return 0
     out["card"] = card()
-    for name in VARIANTS:
+    names = ONE_CARD + (VARIANTS if out["cards"] >= 2 else ())
+    for name in names:
         r = subprocess.run([sys.executable, __file__, name],
                            capture_output=True, text=True, timeout=240)
         got = [json.loads(x)[name] for x in r.stdout.splitlines()
@@ -165,8 +635,8 @@ def main() -> int:
             out[name]["exit_code"] = r.returncode
             out[name]["stderr"] = r.stderr.strip()[:600]
     out["result"] = ("spans cards" if any(
-        out[name]["result"] == "spans cards" for name in VARIANTS)
-        else "does not span cards")
+        out[name]["result"] == "spans cards" for name in VARIANTS
+        if name in out) else "does not span cards")
     line = json.dumps(out)
     print(line, flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -177,6 +647,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) > 1:
-        variant(sys.argv[1])
+        run_variant(sys.argv[1])
         sys.exit(0)
     sys.exit(main())

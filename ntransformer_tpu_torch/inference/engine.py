@@ -36,9 +36,10 @@ BatchServer does. A forward on any other cache (a caller's own KVCache)
 runs uncaptured, as does every forward on the CPU. The mesh engines below
 replay the same way through the mesh forms of ForwardGraphs (the JAX
 make_tp_forward, make_cp_forward, make_cp_tp_forward and make_ep_forward,
-and TPEngine.benchmark's make_tp_decode_loop) where their mesh lies on one
-card of one process; a mesh that spans cards keeps the host path, by an
-explicit check (models/graphs.check_capturable), as TieredEngine does.
+and TPEngine.benchmark's make_tp_decode_loop), on one card or over
+several (a CardGraph a key); a row across processes keeps the host path,
+by an explicit check (models/graphs.check_capturable), as TieredEngine
+does.
 
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, early exit,
@@ -215,7 +216,7 @@ class Engine:
 
     def _graph_path(self) -> bool:
         """Whether this engine replays captured programs: its model resident
-        on a CUDA device, on one card of one process under a mesh
+        on a CUDA device, under a mesh on one card or several
         (models/graphs.check_capturable; TieredEngine keeps its host-driven
         path)."""
         return _graphed(self.device) and one_card(*self._mesh().values())
@@ -757,7 +758,7 @@ class TPEngine(Engine):
         make_tp_decode_loop's run of n_tokens greedy tokens (clamped as the
         JAX package clamps it, so the warm-up and the timed run both fit)
         from the prefill's token, a warm-up from the prompt's end and the
-        timed run n_tokens past it. On one card the loop replays the
+        timed run n_tokens past it. On the card the loop replays the
         engine's own loop graph with no host read between tokens. The loop
         runs the whole stack, as the JAX loop does."""
         from ..parallel.tp import make_tp_decode_loop
@@ -805,9 +806,9 @@ class CPEngine(Engine):
     Over a (cp, tp) mesh (parallel/cp.make_cp_tp_mesh) the weights and the
     KV heads also split over tp, as in TPEngine, and the unsharded weights
     are dropped once the shards exist. Generation and `benchmark` run the
-    shared loops through the CP forward, replayed on one card as the base
-    Engine replays; layer-skip calibration and the int8 cache are refused,
-    as in the JAX package."""
+    shared loops through the CP forward, replayed on the card (or cards)
+    as the base Engine replays; layer-skip calibration and the int8 cache
+    are refused, as in the JAX package."""
 
     def __init__(self, model: LoadedModel, mesh):
         import dataclasses
@@ -912,8 +913,8 @@ class EPEngine(Engine):
     a layer prefix and layer-skip calibration are refused, as in the JAX
     package. The unsharded expert planes are dropped one by one as their
     shards are made (ep.shard_weights_ep): a model already on the card is
-    split in place. On one card its chunks, steps and verify windows
-    replay as the base Engine's do."""
+    split in place. On the card (or cards) its chunks, steps and verify
+    windows replay as the base Engine's do."""
 
     _REFUSAL = "EPEngine: no draft model / cosine calibration under EP"
 

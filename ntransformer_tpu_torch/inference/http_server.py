@@ -107,6 +107,14 @@ class HttpFrontend:
                     frontend._json(self, 404, {"error": "not found"})
 
             def do_POST(self):
+                # the body is read before any answer: a socket closed with
+                # unread bytes in it is reset, and the client can lose an
+                # answer sent before them (the 404 and the 501)
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                except ValueError:
+                    n = 0
+                raw = self.rfile.read(n) if n > 0 else b""
                 if self.path not in ("/v1/completions",
                                      "/v1/chat/completions"):
                     frontend._json(self, 404, {"error": "not found"})
@@ -118,8 +126,7 @@ class HttpFrontend:
                                  "use /v1/completions with a raw prompt"})
                     return
                 try:
-                    n = int(self.headers.get("Content-Length", "0"))
-                    body = json.loads(self.rfile.read(n) or b"{}")
+                    body = json.loads(raw or b"{}")
                     # non-dict JSON (lists, strings) must 400, not crash
                     max_tokens = int(body.get("max_tokens", 128))
                     sampling = frontend._sampling_overrides(body)

@@ -37,12 +37,13 @@ a prefix-cache hit's bytes are copied into it); each loop iteration copies
 its inputs in and replays. A chunk length no warm-up reached (after a
 prefix hit, min(admit_chunk, S - off) at an offset that admit_chunk does
 not divide) is captured at first use. The sharded server replays the same
-way where its mesh lies on one card of one process (parallel/dp.captured):
-one StepGraphs a dp group (dp.group_graphs), whose decode, draft and verify
-steps warmup() captures, and one admission cache of the prefill row with
-its ForwardGraphs (tp.make_tp_kv's shards; the row's forward). A mesh that
-spans processes or cards, and the CPU, never capture: they call the steps
-and the forward directly.
+way, on one card or over several, in one process or over NCCL processes
+whose rows each lie in one process (parallel/dp.captured): one StepGraphs
+a dp group (dp.group_graphs), whose decode, draft and verify steps
+warmup() captures, and one admission cache of the prefill row with its
+ForwardGraphs (tp.make_tp_kv's shards; the row's forward). A mesh over
+gloo processes or with a row across processes, and the CPU, never
+capture: they call the steps and the forward directly.
 """
 from __future__ import annotations
 
@@ -347,7 +348,7 @@ class BatchServer:
         """The batched cache of the server's life (warmup and every run
         serve from it: an admission's insert overwrites its whole slot),
         on a mesh one per (dp, tp) position; on a CUDA device without a
-        mesh, the StepGraphs bound to it; on a mesh of one card, the dp
+        mesh, the StepGraphs bound to it; on a mesh that captures, the dp
         groups' StepGraphs bound to theirs."""
         if self._bkv is None:
             if self.mesh is not None:
@@ -384,7 +385,7 @@ class BatchServer:
     def _admission_graphs(self):
         """On a CUDA server (the admission cache of the server's life, the
         ForwardGraphs bound to it), made the first time: one KVCache, or on
-        a mesh of one card the prefill row's shard caches, their graphs
+        a mesh that captures the prefill row's shard caches, their graphs
         running the row's forward (the one-device forward of its one shard
         at tp = 1); else None."""
         if not _graphed(self.device):

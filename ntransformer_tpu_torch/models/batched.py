@@ -35,7 +35,7 @@ import torch
 from ..ops.cuda import kv_update
 from ..ops.cuda.batched_attention import (flash_decode_batched,
                                           flash_verify_batched)
-from ..ops.layers import _psum, apply_rope, rms_norm
+from ..ops.layers import _psum, apply_rope, handoff, rms_norm
 from ..ops.linear import embed_lookup, kernels_enabled, qmatmul
 from .llama import (Arch, KVCache, LayerWeights, ModelWeights, _home,
                     _norm_w, dense_ffn, layer_window, moe_ffn, quantize_rows,
@@ -453,14 +453,15 @@ def _tp_layer(arch_l: Arch, x, lws: list, kvs: list, vecs: list, ropes: list,
     decode = x.dim() == 2
     hq, d = arch_l.n_heads, arch_l.head_dim
     parts, rows = [], []
-    for lw, kv, vec, rope, dev in zip(lws, kvs, vecs, ropes, row):
+    xs = [None if lw is None else handoff(x, dev)
+          for lw, dev in zip(lws, row)]
+    for lw, kv, vec, rope, xd in zip(lws, kvs, vecs, ropes, xs):
         if lw is None:
             parts.append(None)
             rows.append(None)
             continue
         pos, active = vec
-        q, k_t, v_t = _qkv_rows(arch_l, x.to(dev), lw, rope[0], rope[1],
-                                layer)
+        q, k_t, v_t = _qkv_rows(arch_l, xd, lw, rope[0], rope[1], layer)
         if impl == "kernel":
             att, r = _attend_deferred(arch_l, q, k_t, v_t, kv, pos, active,
                                       layer, decode, dot_impl=dot_impl)
@@ -478,9 +479,10 @@ def _tp_layer(arch_l: Arch, x, lws: list, kvs: list, vecs: list, ropes: list,
     x = x + o
     hf = rms_norm(x, _norm_w(arch_l, lw0.ffn_norm, layer), arch_l.norm_eps) \
         .to(torch.bfloat16).reshape(-1, x.shape[-1])
-    dn = _psum([None if lw is None else dense_ffn(arch_l, hf.to(dev), lw,
-                                                  layer)
-                for lw, dev in zip(lws, row)], home, row).reshape(x.shape)
+    hfs = [None if lw is None else handoff(hf, dev)
+           for lw, dev in zip(lws, row)]
+    dn = _psum([None if lw is None else dense_ffn(arch_l, hh, lw, layer)
+                for lw, hh in zip(lws, hfs)], home, row).reshape(x.shape)
     if arch_l.post_norms:
         dn = rms_norm(dn, _norm_w(arch_l, lw0.ffn_post_norm, layer),
                       arch_l.norm_eps)
@@ -513,9 +515,9 @@ def _tp_step(arch: Arch, shards: list, kvs: list, tokens, pos, active, row,
         else (torch.long, torch.bool)
     vecs, ropes = [], []
     for w, d in zip(shards, row):
-        vecs.append((pos.to(d, vtype[0]), active.to(d, vtype[1]))
+        vecs.append((handoff(pos, d, vtype[0]), handoff(active, d, vtype[1]))
                     if w is not None else None)
-        ropes.append(_rope_rows(w, positions.to(d)) if w is not None
+        ropes.append(_rope_rows(w, handoff(positions, d)) if w is not None
                      else None)
     n_sel = n_layers if n_layers is not None else arch.n_layers
     lws = [None if w is None else w.layers for w in shards]

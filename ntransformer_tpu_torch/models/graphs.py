@@ -25,25 +25,40 @@ Both have mesh forms, the JAX package's jitted shard_map programs
 parallel/dp.py group_graphs), ForwardGraphs over a tp, cp, (cp, tp) or
 ep mesh (the mesh engines, make_tp_decode_loop, the sharded server's
 admissions); parallel/pp.py make_pp_decode captures the pipeline step the
-same way. A mesh is captured only where it lies on one card of one
-process (check_capturable): a row that spans processes all-gathers its
-partials over a process group, which gloo stages through host memory, and
-a mesh that spans cards would need one capture to span cards, with the
-second card's stream joined by events and its memory in the graph's pool.
-experiments/mesh_capture.py probes that on two H100s (torch 2.11, CUDA
-12.8), each variant in a process of its own: the plain capture, the second
-card's stream forked and joined by events, fails ("AcceleratorError: CUDA
-error: operation failed due to a previous error during capture",
-cudaErrorStreamCaptureInvalidated); routing the second card's
-allocations to a torch.cuda.MemPool fails the same way, then aborts in
-the pool's destructor ("captures_underway.empty() INTERNAL ASSERT
-FAILED"); a pool warmed by an eager run fails at capture ("it->second->
-use_count > 0 INTERNAL ASSERT FAILED"). Those meshes keep the host
-path, by that explicit check, never by a caught capture failure.
+same way. Every mesh this process drives is captured (check_capturable),
+on one card or over several, except a row that spans processes (gloo
+stages its collectives through host memory, and two NCCL processes
+serving a captured row did not finish: chip_smoke.py dpcards), a mesh
+over processes that run over gloo, and pipeline stages over several
+cards (replayed as a CardGraph while its moves were PyTorch's own copies,
+their step gave other logits than the uncaptured step; with every move a
+hand-off, experiments/mesh_capture.py pp_cards replays it bit-equal at 2
+and 3 stages, and pp_cards_to keeps the old moves to reproduce the
+failure).
+Those keep the host path, by that explicit check, never by a caught
+capture failure. A (dp, tp) mesh over NCCL processes whose rows each lie
+in one process captures its groups' steps (its gather of the groups'
+logits stays outside the graphs); every process captures the same keys
+in the same order.
+
+A mesh on one card is one graph a key. A mesh over several cards is a
+CardGraph a key: one CUDA graph a card for each stretch of its launches
+up to a hand-off to another card, joined inside the graphs by external
+events (the receiving card copies the tensor in after its wait) and
+replayed in the order the stretches ended. One graph
+a card for the whole program cannot be joined so, and one capture cannot
+span cards: experiments/mesh_capture.py (torch 2.11, CUDA 12.8) found
+that a graph waiting for an event that another graph records waits for
+the record last enqueued when it is launched (launched first, it reads
+the last replay's data), and, on two H100s, that the second card's stream
+forked into one capture fails ("operation failed due to a previous error
+during capture", cudaErrorStreamCaptureInvalidated), also with its
+allocations routed to a torch.cuda.MemPool.
 
 Each is bound to one cache (a mesh's shard list or grid) and one set of
-weights on one CUDA device, since its graphs hold their addresses, and
-captures on its own stream into one memory pool shared by its graphs.
+weights, since its graphs hold their addresses, and captures on its own
+stream of each card into one memory pool of that card shared by its
+graphs.
 Inputs are copied into static device tensors before a replay; outputs are
 static tensors, valid until the next replay of any graph of the same
 object (the caller reads them first, as
@@ -65,11 +80,13 @@ CPU.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import warnings
 from typing import NamedTuple
 
 import torch
 
-from ..ops import linear
+from ..ops import layers, linear
 from ..ops.cuda import batched_attention
 from .batched import (BatchedKV, batched_decode_step,
                       batched_decode_step_tp, batched_verify_step,
@@ -107,62 +124,350 @@ class CudaGraph:
 GRAPH = CudaGraph
 
 
+def _driver():
+    """The CUDA driver library, loaded when a capture over cards first
+    needs it."""
+    return ctypes.CDLL("libcuda.so.1")
+
+
+class CardSegment:
+    """One card's stretch of a CardGraph: a torch.cuda.CUDAGraph captured on
+    the card's current stream, kept uninstantiated until every capture of
+    the pass has ended (CUDA refuses an instantiation while another capture
+    is under way: experiments/mesh_capture.py)."""
+
+    def __init__(self, card: torch.device, pool):
+        self.card = card
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.device(card):
+            self.graph.capture_begin(pool=pool)
+
+    @staticmethod
+    def new_pool():
+        """A memory pool the card's stretches share (a graph's pool() is
+        only there once its capture has ended)."""
+        return torch.cuda.graph_pool_handle()
+
+    def end(self) -> bool:
+        """End the capture; whether the stretch launched anything."""
+        with torch.cuda.device(self.card), warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            self.graph.capture_end()
+        n = ctypes.c_size_t(0)
+        rc = _driver().cuGraphGetNodes(
+            ctypes.c_void_p(self.graph.raw_cuda_graph()), None,
+            ctypes.byref(n))
+        if rc:
+            raise RuntimeError(f"cuGraphGetNodes returned CUresult {rc}")
+        return n.value > 0
+
+    def instantiate(self) -> None:
+        self.graph.instantiate()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def copy_on_stream(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst <- src (dense, of one size) by cuMemcpyAsync on the current
+    stream of dst's card, which infers a card-to-card copy from the
+    addresses: in a capture a memcpy node of dst's graph that reads src's
+    card."""
+    dev = dst.device
+    with torch.cuda.device(dev):
+        rc = _driver().cuMemcpyAsync(
+            ctypes.c_uint64(dst.data_ptr()), ctypes.c_uint64(src.data_ptr()),
+            ctypes.c_size_t(src.numel() * src.element_size()),
+            ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev.index)))
+    if rc:
+        raise RuntimeError(f"cuMemcpyAsync returned CUresult {rc}")
+
+
+def join_cards(src: torch.device, dst: torch.device):
+    """An external event recorded on src's current stream that dst's
+    current stream waits for: in a capture an event record node of src's
+    graph and a wait node of dst's. Returns the event, which the program
+    holds."""
+    ev = torch.cuda.Event(external=True)
+    with torch.cuda.device(src):
+        ev.record()
+    with torch.cuda.device(dst):
+        ev.wait()
+    return ev
+
+
+# the pieces of a capture over cards (tests put recording doubles here)
+SEGMENT = CardSegment
+COPY = copy_on_stream
+JOIN = join_cards
+
+
+def handoff_key(t: torch.Tensor, dst: torch.device):
+    """What identifies t's value for a move to dst within one capture: the
+    tensor (held for the capture's life, so its id is not reused), its
+    version counter, which every in-place write through PyTorch bumps, and
+    dst; None for an inference tensor, which keeps no version counter and
+    is moved anew at every hand-off. (A kernel of csrc/ that writes through
+    its pointer bumps no counter; none writes a tensor that is handed
+    off.)"""
+    if t.is_inference():
+        return None
+    return id(t), t._version, dst
+
+
+class _CardCapture:
+    """The capture pass of a CardGraph: every card's open stretch, the
+    stretches ended so far in order, and what the hand-offs hold."""
+
+    def __init__(self, cards: list, pools: dict):
+        self.pools = pools
+        self.open: dict = {}
+        self.ended: list = []      # the non-empty stretches, in order
+        self.plan: list = []       # ("handoff", src, dst) / ("graph", card)
+        self.held: list = []
+        self.moved: dict = {}      # handoff_key(t, dst) -> t's copy on dst
+        for c in cards:
+            self._begin(c)
+
+    def _begin(self, card) -> None:
+        if card not in self.pools:
+            self.pools[card] = SEGMENT.new_pool()
+        self.open[card] = SEGMENT(card, self.pools[card])
+
+    def _end(self, card) -> None:
+        seg = self.open.pop(card)
+        if seg.end():
+            self.ended.append(seg)
+            self.plan.append(("graph", card))
+
+    def handoff(self, t: torch.Tensor, dst: torch.device) -> torch.Tensor:
+        """t's copy on card dst: an external event recorded at the end of
+        the source card's stretch, which ends there, and in dst's stretch
+        a wait for it and the copy, which dst's card reads from the source
+        (a copy the source card pushed into dst's memory read wrong bytes
+        on two H100s: experiments/mesh_capture.py). A tensor handed to a
+        card again, unwritten since (handoff_key), gets the same copy."""
+        key = handoff_key(t, dst)
+        if key in self.moved:
+            return self.moved[key]
+        src = t.device
+        if src not in self.open or dst not in self.open:
+            raise ValueError(f"a hand-off from {src} to {dst}: the program "
+                             f"was captured over {list(self.open)}")
+        x = t.contiguous()
+        ev = JOIN(src, dst)
+        out = torch.empty_like(x, device=dst)
+        COPY(out, x)
+        self.plan.append(("handoff", src, dst))
+        self._end(src)
+        self._begin(src)
+        self.held += [t, x, out, ev]
+        if key is not None:
+            self.moved[key] = out
+        return out
+
+    def finish(self) -> list:
+        for card in list(self.open):
+            self._end(card)
+        for seg in self.ended:
+            seg.instantiate()
+        return self.ended
+
+
+class CardGraph:
+    """One captured program over several cards of this process (GRAPH's
+    interface: capture(fn, pool), replay(), pool()), the form a mesh's
+    program takes where its positions span cards.
+
+    The program is recorded in one pass of fn, every card's capture under
+    way together on its current stream, as a run of graphs: a card's
+    stretch ends where it hands a tensor to another card
+    (ops/layers.handoff, the one move between cards in the mesh code),
+    with an external event recorded there; the other card's open stretch
+    waits for the event (a wait node) and copies the tensor into a buffer
+    of its own (a memcpy node). replay() launches the stretches in the
+    order they ended, each on its card's current stream,
+    so every wait node is launched after its record: CUDA resolves the
+    wait at launch to the record last enqueued. Each card's stretches
+    share one memory pool of that card. A handed-off tensor and its copy
+    are held for the program's life and written once a replay, and the
+    cards join at the start and the end of each replay (the first card
+    waits for the others, and they for it), so no replay writes what
+    another replay still reads. `plan` lists the hand-offs and the
+    stretches in program order; `segments` and `handoffs` count them."""
+
+    def __init__(self, cards):
+        self.cards = [torch.device(c) for c in cards]
+        self._steps: list = []
+        self._held: list = []
+        self._pools: dict = {}
+        self.plan: list = []
+
+    @property
+    def segments(self) -> int:
+        return len(self._steps)
+
+    @property
+    def handoffs(self) -> int:
+        return sum(p[0] == "handoff" for p in self.plan)
+
+    def capture(self, fn, pool=None):
+        """Record fn()'s launches (see the class) and return its outputs,
+        the program's static tensors. pool: another CardGraph's pool() to
+        share, a pool a card. Every card is first let read every other's
+        memory (PyTorch enables peer access at a copy between two cards,
+        made here for each pair before any capture begins)."""
+        if self.cards[0].type == "cuda":
+            for a in self.cards:
+                for b in self.cards:
+                    if a != b:
+                        torch.zeros(1, device=a).to(b)
+        cap = _CardCapture(self.cards, dict(pool or {}))
+        layers.CAPTURE = cap
+        try:
+            out = fn()
+        finally:
+            layers.CAPTURE = None
+            self._steps = cap.finish()
+            self._held, self._pools, self.plan = cap.held, cap.pools, \
+                cap.plan
+        return out
+
+    def replay(self) -> None:
+        home, rest = self.cards[0], self.cards[1:]
+        start = torch.cuda.Event()
+        start.record(torch.cuda.current_stream(home))
+        for c in rest:
+            torch.cuda.current_stream(c).wait_event(start)
+        for seg in self._steps:
+            seg.replay()
+        for c in rest:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(c))
+            torch.cuda.current_stream(home).wait_event(done)
+
+    def pool(self) -> dict:
+        return dict(self._pools)
+
+
 def _first(xs):
     """The first entry of a shard list that this process holds."""
     return next(x for x in xs if x is not None)
 
 
 def _mesh_devices(mesh) -> list:
-    """Every device of a mesh: a tuple of devices, a (cp, tp) grid of them,
-    or a parallel/multihost Row."""
+    """Every device of a mesh this process drives: a tuple of devices, a
+    (cp, tp) grid of them, or a parallel/multihost Row (its owned
+    shards')."""
+    owned = getattr(mesh, "owned", None)
     out = []
-    for d in mesh:
+    for i, d in enumerate(mesh):
+        if owned is not None and i not in owned:
+            continue
         out.extend(_mesh_devices(d) if isinstance(d, (tuple, list))
                    else [torch.device(d)])
     return out
 
 
-def _refusal(*meshes) -> str | None:
+def _cards(home, *meshes) -> list:
+    """The cards a program over these meshes (None: none) runs on, home
+    first, each once."""
+    cards = [torch.device(home)]
+    for mesh in meshes:
+        for d in [] if mesh is None else _mesh_devices(mesh):
+            if d not in cards:
+                cards.append(d)
+    return cards
+
+
+def _refusal(*meshes, pipeline: bool = False) -> str | None:
     """Why a captured program cannot hold one of these meshes (None: a
-    mesh not given), or None."""
+    mesh not given), or None. pipeline: the meshes place parallel/pp.py
+    stages."""
     for mesh in meshes:
         if mesh is None:
             continue
+        if hasattr(mesh, "touches"):    # a parallel/multihost.Mesh
+            from ..parallel.multihost import backend_of
+            if mesh.multiprocess and backend_of() != "nccl":
+                return ("a mesh over processes keeps the host path unless "
+                        "they run over NCCL: gloo stages the gather of the "
+                        "groups' logits through host memory, which a "
+                        "capture refuses")
+            why = _refusal(*(mesh.row(g) for g in range(mesh.dp)
+                             if mesh.touches(g)))
+            if why is not None:
+                return why
+            continue
         if getattr(mesh, "group", None) is not None:
             return ("a mesh row that spans processes keeps the host path: "
-                    "its collectives are not captured")
-        if len(set(_mesh_devices(mesh))) > 1:
-            return ("a mesh that spans cards keeps the host path: one "
-                    "capture does not span cards (the module docstring, "
-                    "experiments/mesh_capture.py)")
+                    "gloo stages its collectives through host memory, "
+                    "which a capture refuses, and over NCCL two processes "
+                    "serving a captured row did not finish (PERF.md)")
+        devs = set(_mesh_devices(mesh))
+        if len(devs) > 1 and any(d.type != "cuda" for d in devs):
+            return ("a mesh that spans cards keeps the host path unless "
+                    "every card is a CUDA device")
+        if pipeline and len(devs) > 1:
+            return ("pipeline stages over several cards keep the host "
+                    "path: replayed as a CardGraph with its moves made by "
+                    "PyTorch's own copies, the (4, 2) step gave other "
+                    "logits than the uncaptured step on four H100s; with "
+                    "every move a hand-off it replays bit-equal at 2 and 3 "
+                    "stages (experiments/mesh_capture.py pp_cards), not yet "
+                    "held at (4, 2) (PERF.md)")
     return None
 
 
-def check_capturable(*meshes) -> None:
-    """Refuse a mesh that a captured program cannot hold: a row whose
-    shards span processes (its partials are all-gathered over a process
-    group, which gloo stages through host memory: a capture refuses that;
-    those rows keep the host path), and a mesh that spans cards (the
-    cross-card capture probe, experiments/mesh_capture.py, and the module
-    docstring). ValueError either way."""
-    why = _refusal(*meshes)
+def check_capturable(*meshes, pipeline: bool = False) -> None:
+    """Refuse a mesh that a captured program cannot hold, ValueError: a row
+    whose shards span processes (its partials are all-gathered over a
+    process group in every layer: gloo stages that through host memory,
+    which a capture refuses, and two NCCL processes serving a captured row
+    did not finish in 300 s on two H100s), a parallel/multihost.Mesh over
+    processes that run over another backend than NCCL, a mesh over several
+    devices that are not all CUDA cards, and (pipeline=True) pipeline
+    stages over several cards. Those keep the host path. Any other mesh of
+    this process is captured, over several cards as a CardGraph a key."""
+    why = _refusal(*meshes, pipeline=pipeline)
     if why is not None:
         raise ValueError(why)
 
 
-def one_card(*meshes) -> bool:
-    """Whether every mesh given (None: none) lies on one device of one
-    process: what check_capturable takes."""
-    return _refusal(*meshes) is None
+def one_card(*meshes, pipeline: bool = False) -> bool:
+    """Whether check_capturable takes every mesh given (None: none): one
+    card or several, all of this process."""
+    return _refusal(*meshes, pipeline=pipeline) is None
+
+
+def new_graph(cards: list):
+    """A graph for a program on these cards: GRAPH on one card, a
+    CardGraph over several."""
+    return GRAPH() if len(cards) == 1 else CardGraph(cards)
+
+
+def card_streams(cards: list) -> list | None:
+    """A capture stream on each card (None off CUDA)."""
+    if cards[0].type != "cuda":
+        return None
+    return [torch.cuda.Stream(c) for c in cards]
 
 
 @contextlib.contextmanager
-def _on_stream(device: torch.device, stream):
+def _on_stream(device, stream):
     """Run on the capture stream, ordered after the current stream's work
     and before its later work (the warm-ups write state the replays
-    read)."""
+    read). device and stream may be lists, a card and its stream each:
+    every card's capture stream is current inside, the first card's
+    device the current one."""
     if stream is None:
         yield
+        return
+    if isinstance(stream, (list, tuple)):
+        with contextlib.ExitStack() as stack:
+            for d, s in reversed(list(zip(device, stream))):
+                stack.enter_context(_on_stream(d, s))
+            yield
         return
     with torch.cuda.device(device):
         cur = torch.cuda.current_stream()
@@ -191,8 +496,9 @@ class StepGraphs:
     row: a tp row (parallel/dp.py's dp group at tp > 1): weights and kv are
     then the row's shard lists (tp.shard_weights, one BatchedKV of the
     shard's heads each), and the steps batched_decode_step_tp /
-    batched_verify_step_tp, which take no s_live. The row lies on one card
-    of one process (check_capturable)."""
+    batched_verify_step_tp, which take no s_live. A row over several
+    cards captures a CardGraph a key; a row over processes is refused
+    (check_capturable)."""
 
     def __init__(self, arch: Arch, weights, kv, row=None):
         check_capturable(row)
@@ -201,8 +507,8 @@ class StepGraphs:
         self._ref = ref
         self.device = ref.k.device
         self.batch = ref.k.shape[1]
-        self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+        self.cards = _cards(self.device, row)
+        self.streams = card_streams(self.cards)
         self._pos = torch.zeros(self.batch, dtype=torch.long,
                                 device=self.device)
         self._active = torch.zeros(self.batch, dtype=torch.bool,
@@ -210,8 +516,9 @@ class StepGraphs:
         self._tokens: dict[tuple, torch.Tensor] = {}  # by shape
         self._graphs: dict[StepKey, tuple] = {}      # (graph, logits)
         self._pool = None
-        # batched flash scratch buffers the graphs address (a later, larger
-        # key replaces the module's buffer; this keeps the old one alive)
+        # each card's batched flash scratch buffers the graphs address (a
+        # later, larger key replaces the module's buffer; this keeps the
+        # old one alive)
         self._held: list[torch.Tensor] = []
         self.replays: dict[StepKey, int] = {}
 
@@ -280,11 +587,11 @@ class StepGraphs:
         is written), then each capture, all into one memory pool. Every
         key is warmed before any is captured, so one batched flash split
         scratch, sized for the largest key, serves all of them (replays
-        run in order on one stream)."""
+        run in order on one stream a card)."""
         new = [k for k in dict.fromkeys(keys) if k not in self._graphs]
         if not new:
             return
-        with _on_stream(self.device, self.stream):
+        with _on_stream(self.cards, self.streams):
             for k in new:
                 self._static_tokens(k).zero_()
             self._pos.zero_()
@@ -292,14 +599,14 @@ class StepGraphs:
             for k in new:
                 self._step(k)()
             for k in new:
-                graph = GRAPH()
+                graph = new_graph(self.cards)
                 logits = graph.capture(self._step(k), pool=self._pool)
                 if self._pool is None:
                     self._pool = graph.pool()
                 self._graphs[k] = (graph, logits)
                 self.replays[k] = 0
-        if self.stream is not None:
-            buf = batched_attention.scratch_buffer(self.device, self.stream)
+        for card, stream in zip(self.cards, self.streams or ()):
+            buf = batched_attention.scratch_buffer(card, stream)
             if buf is not None and all(buf is not h for h in self._held):
                 self._held.append(buf)
 
@@ -381,8 +688,9 @@ class ForwardGraphs:
     cp= with tp= (kv the [tp][cp] grid of cp.make_cp_tp_kv) or ep= (weights
     the shard list of ep.shard_weights_ep). The statics live on the mesh's
     first device, from which the forward hands pos and n_valid to each
-    shard; a cache's rows are a CP cache's slices together. The mesh lies
-    on one card of one process (check_capturable). spec stays a one-device
+    shard; a cache's rows are a CP cache's slices together. A mesh over
+    several cards captures a CardGraph a key (check_capturable). spec
+    stays a one-device
     kind: the mesh engines delegate fused self-speculation to the host
     protocol, as the JAX ones do."""
 
@@ -407,11 +715,14 @@ class ForwardGraphs:
             self._shards = [(c, 0) for c in (kv if tp is not None else [kv])
                             if c is not None]
             self.rows = self._shards[0][0].k.shape[2]
-        self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+        self.cards = _cards(self.device, tp, cp, ep)
+        self.streams = card_streams(self.cards)
 
         def zeros(*shape, device=self.device):
-            return torch.zeros(shape, dtype=torch.long, device=device)
+            # never an inference tensor: a static keeps its version counter
+            # (handoff_key)
+            with torch.inference_mode(False):
+                return torch.zeros(shape, dtype=torch.long, device=device)
         self._tok = zeros(1)     # the token fed next (spec: the anchor)
         self._pos = zeros()      # its position
         self._i = zeros()        # loop: the buffer index written next
@@ -531,7 +842,7 @@ class ForwardGraphs:
         caches = [t[:, :, max(lo - off, 0):] for c, off in self._shards
                   if lo - off < c.k.shape[2]
                   for t in (c.k, c.v, c.ks, c.vs) if t is not None]
-        with _on_stream(self.device, self.stream):
+        with _on_stream(self.cards, self.streams):
             rows = [c.clone() for c in caches]
             statics = [s.clone() for s in self._statics()]
 
@@ -546,7 +857,7 @@ class ForwardGraphs:
                     self._body(k)()
                 for k in new:
                     park()
-                    graph = GRAPH()
+                    graph = new_graph(self.cards)
                     out = graph.capture(self._body(k), pool=self._pool)
                     if self._pool is None:
                         self._pool = graph.pool()

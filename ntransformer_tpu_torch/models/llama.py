@@ -47,7 +47,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.layers import (_on, _psum, apply_rope, attention,
-                          attention_cp_dispatch, rms_norm, swiglu)
+                          attention_cp_dispatch, handoff, rms_norm, swiglu)
 from ..ops.linear import QLinear, embed_lookup, qmatmul
 
 
@@ -303,26 +303,35 @@ def moe_ffn(arch: Arch, hf: torch.Tensor, lw: LayerWeights,
     else:
         cols = torch.zeros(T, E, dtype=torch.float32, device=hf.device)
         cols.scatter_(1, tope, topv)
-    parts = []
+    # each shard's inputs on its device first: hf, and its routing columns
+    # (T > 1) or its K weights and local expert ids (T = 1, ep)
+    ins = []
     for s, sw in enumerate(shards):
+        dev = next(iter(sw.w_gate_exps.planes.values())).device
+        if T > 1:
+            route_s = handoff(cols[:, s * e_local:(s + 1) * e_local], dev)
+        elif ep is not None:
+            e_loc = ids - s * e_local
+            mine = (e_loc >= 0) & (e_loc < e_local)
+            route_s = (handoff(torch.where(mine, topv[0], 0.0), dev),
+                       handoff(e_loc.clamp(0, e_local - 1) + base, dev))
+        else:
+            route_s = None
+        ins.append((dev, handoff(hf, dev), route_s))
+    parts = []
+    for sw, (dev, x, route_s) in zip(shards, ins):
         gql = _flatten_experts(sw.w_gate_exps)
         uql = _flatten_experts(sw.w_up_exps)
         dql = _flatten_experts(sw.w_down_exps)
-        dev = next(iter(gql.planes.values())).device
-        x = hf.to(dev)
         out = torch.zeros(T, hf.shape[-1], dtype=torch.float32, device=dev)
         for j in range(K if T == 1 else e_local):
             if T > 1:
-                w, at = cols[:, s * e_local + j:s * e_local + j + 1], \
-                    dict(layer=base + j)
+                w, at = route_s[:, j:j + 1], dict(layer=base + j)
             elif ep is None:
                 w, at = topv[0, j], dict(sel=ids[j:j + 1] + base)
             else:
-                e_loc = ids[j:j + 1] - s * e_local
-                w = torch.where((e_loc[0] >= 0) & (e_loc[0] < e_local),
-                                topv[0, j], 0.0)
-                at = dict(sel=(e_loc.clamp(0, e_local - 1) + base).to(dev))
-            out = out + w.to(dev) * expert_ffn(arch, x, gql, uql, dql, **at)
+                w, at = route_s[0][j], dict(sel=route_s[1][j:j + 1])
+            out = out + w * expert_ffn(arch, x, gql, uql, dql, **at)
         parts.append(out)
     return _psum(parts, hf.device)
 
@@ -438,16 +447,18 @@ def attn_heads(arch: Arch, h, lw: LayerWeights, kv_k, kv_v, pos, cos_t,
             if cp_plan is None:
                 cp_plan = cp_write_plan(pos, n_valid, T, kv_k)
             kb, vb = k.to(kv_k[0].dtype), v.to(kv_v[0].dtype)
+            news = [(handoff(kb, kk.device), handoff(vb, vv.device))
+                    for kk, vv in zip(kv_k, kv_v)]
         for i, (kk, vv) in enumerate(zip(kv_k, kv_v)):
             if idx is not None:
-                _write_cp_rows(kk, vv, kb, vb, cp_plan[i])
+                _write_cp_rows(kk, vv, *news[i], cp_plan[i])
                 continue
             lo, hi = max(pos, i * s_local), min(pos + n, (i + 1) * s_local)
             if lo < hi:
                 rows_new = slice(lo - pos, hi - pos)
                 dst = slice(lo - i * s_local, hi - i * s_local)
-                kk[:, dst] = k[:, rows_new].to(kk.device, kk.dtype)
-                vv[:, dst] = v[:, rows_new].to(vv.device, vv.dtype)
+                kk[:, dst] = handoff(k[:, rows_new], kk.device, kk.dtype)
+                vv[:, dst] = handoff(v[:, rows_new], vv.device, vv.dtype)
         att = attention_cp_dispatch(q, kv_k, kv_v, pos, T,
                                     1.0 / math.sqrt(D))
     elif isinstance(kv_k, tuple):
@@ -502,11 +513,11 @@ def cp_write_plan(pos: torch.Tensor, n_valid, t_n: int,
     for i, sl in enumerate(slices):
         dev, s_l = sl.device, sl.shape[-2]
         w = min(t_n, s_l)
-        p = pos.to(dev)
+        p = _on(pos, dev)
         rows = (p - i * s_l).clamp(0, s_l - w) + torch.arange(w, device=dev)
         t = rows + i * s_l - p                           # the source token
         keep = (t >= 0) & (t < (t_n if n_valid is None
-                                else n_valid.to(dev)))
+                                else _on(n_valid, dev)))
         plan.append((rows, keep[None, :, None], t.clamp(0, t_n - 1)))
     return plan
 
@@ -514,11 +525,11 @@ def cp_write_plan(pos: torch.Tensor, n_valid, t_n: int,
 def _write_cp_rows(kk: torch.Tensor, vv: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, plan) -> None:
     """One CP shard's part of a device-pos write (cp_write_plan): the new
-    rows k/v [Hkv, T, D], in the cache's dtype, merged into the shard's
-    window of kk/vv [Hkv, S_l, D] on the device."""
+    rows k/v [Hkv, T, D], in the cache's dtype and on the shard's device,
+    merged into the shard's window of kk/vv [Hkv, S_l, D]."""
     rows, keep, src = plan
     for dst, new in ((kk, k), (vv, v)):
-        new = new.to(dst.device).index_select(1, src)
+        new = new.index_select(1, src)
         dst.index_copy_(1, rows, torch.where(keep, new,
                                              dst.index_select(1, rows)))
 
@@ -621,9 +632,11 @@ def head_logits(arch: Arch, weights: ModelWeights, x, n_valid=None,
 # f32 partials are summed here in shard order, so the bits do not depend on
 # where the shards live; the embedding's K-slices are concatenated (the JAX
 # all-gather). On one card every hand-off is a view; across cards a peer
-# copy on the current streams. A mesh row that spans processes
-# (parallel/multihost.Row) holds None for the other processes' shards, whose
-# partials are all-gathered over the row's process group (ops/layers._psum).
+# copy on the current streams (ops/layers.handoff, also in a capture over
+# cards), each made as soon as its tensor is computed. A mesh row that spans
+# processes (parallel/multihost.Row) holds None for the other processes'
+# shards, whose partials are all-gathered over the row's process group
+# (ops/layers._psum).
 
 
 def _home(shards: list):
@@ -637,13 +650,15 @@ def tp_embed(arch: Arch, shards: list, tokens, row=None):
     its K-slice of the rows, concatenated in shard order on the first
     shard's device. tokens [N] -> x [N, H] f32."""
     dev = _home(shards).output_norm.device
+    toks = [None if w is None else handoff(tokens, w.output_norm.device)
+            for w in shards]
     parts = [None if w is None else
-             embed_lookup(w.embed, tokens.to(w.output_norm.device),
-                          out_dtype=torch.float32) for w in shards]
+             embed_lookup(w.embed, t, out_dtype=torch.float32)
+             for w, t in zip(shards, toks)]
     if row is not None:
         from ..parallel.multihost import gather_shards
         parts = gather_shards(parts, row)
-    x = torch.cat([p.to(dev) for p in parts], dim=-1)
+    x = torch.cat([handoff(p, dev) for p in parts], dim=-1)
     if arch.embed_scale != 1.0:
         x = x * arch.embed_scale
     return x
@@ -663,7 +678,7 @@ def tp_embed_positions(arch: Arch, shards: list[ModelWeights], tokens,
             ropes.append(None)
         elif isinstance(pos, torch.Tensor):
             dev = w.rope_cos.device
-            idx = pos.to(dev) + torch.arange(T, device=dev)
+            idx = _on(pos, dev) + torch.arange(T, device=dev)
             ropes.append((w.rope_cos.index_select(-2, idx),
                           w.rope_sin.index_select(-2, idx)))
         else:
@@ -688,20 +703,22 @@ def tp_layer_step(arch: Arch, x, lws: list[LayerWeights], kvs: list, pos,
     h = rms_norm(x, _norm_w(arch, lw0.attn_norm, layer),
                  arch.norm_eps).to(torch.bfloat16)
     plans = cp_plans if cp_plans is not None else [None] * len(lws)
+    hs = [None if rp is None else handoff(h, rp[0].device) for rp in ropes]
     o = _psum([None if lw is None else
-               attn_heads(arch, h.to(rp[0].device), lw, kv[0], kv[1],
+               attn_heads(arch, hh, lw, kv[0], kv[1],
                           _on(pos, rp[0].device), rp[0], rp[1],
                           _on(n_valid, rp[0].device), layer, abs_layer, pl)
-               for lw, kv, rp, pl in zip(lws, kvs, ropes, plans)], dev, row)
+               for lw, kv, rp, pl, hh in zip(lws, kvs, ropes, plans, hs)],
+              dev, row)
     if arch.post_norms:
         o = rms_norm(o, _norm_w(arch, lw0.attn_post_norm, layer),
                      arch.norm_eps)
     x = x + o
     hf = rms_norm(x, _norm_w(arch, lw0.ffn_norm, layer),
                   arch.norm_eps).to(torch.bfloat16)
-    dn = _psum([None if lw is None else
-                dense_ffn(arch, hf.to(rp[0].device), lw, layer)
-                for lw, rp in zip(lws, ropes)], dev, row)
+    hfs = [None if rp is None else handoff(hf, rp[0].device) for rp in ropes]
+    dn = _psum([None if lw is None else dense_ffn(arch, hh, lw, layer)
+                for lw, hh in zip(lws, hfs)], dev, row)
     if arch.post_norms:
         dn = rms_norm(dn, _norm_w(arch, lw0.ffn_post_norm, layer),
                       arch.norm_eps)
@@ -729,14 +746,12 @@ def tp_head_logits(arch: Arch, shards: list[ModelWeights], x, n_valid=None,
     sel = sel.to(torch.bfloat16)
     head0 = _home(shards).lm_head
     kl, _ = plane_dims(head0.planes, head0.dtype)
-    parts = []
-    for s, sw in enumerate(shards):
-        if sw is None:
-            parts.append(None)
-            continue
-        head = sw.lm_head
-        dev = next(iter(head.planes.values())).device
-        parts.append(qmatmul(sel[:, s * kl:(s + 1) * kl].to(dev), head))
+    sels = [None if sw is None else
+            handoff(sel[:, s * kl:(s + 1) * kl],
+                    next(iter(sw.lm_head.planes.values())).device)
+            for s, sw in enumerate(shards)]
+    parts = [None if sw is None else qmatmul(xs, sw.lm_head)
+             for sw, xs in zip(shards, sels)]
     logits = _psum(parts, x.device, row)
     if logits.shape[-1] > arch.vocab_size:
         logits = logits[:, :arch.vocab_size]

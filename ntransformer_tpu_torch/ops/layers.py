@@ -12,6 +12,12 @@ attention_cp* functions take the list of slices, compute each shard's
 partials on its device, and combine them exactly on q's device, where the
 JAX package's pmax and psums over the mesh axis become a max and sums over
 the list.
+
+Every move of a tensor between the cards of a mesh that is captured, here
+and in the mesh forwards and steps (models/llama.py, models/batched.py),
+goes through handoff: t.to(device) as ever, except while a program over
+several cards is being captured (models/graphs.CardGraph), when the move
+is made inside the graphs.
 """
 from __future__ import annotations
 
@@ -112,28 +118,48 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            window=window, softcap=softcap)
 
 
+# the capture over several cards under way (models/graphs.CardGraph sets
+# it for the pass that records its program), or None
+CAPTURE = None
+
+
+def handoff(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
+    """t on `device`, cast to `dtype` there if given: t.to(device, dtype),
+    t itself where it lies there already. While a capture over several
+    cards is under way, a move to another card is the capture's (an
+    in-graph copy its stretches are joined by, models/graphs.CardGraph),
+    then the cast on `device`: the same bits."""
+    device = torch.device(device)
+    if CAPTURE is None or t.device == device:
+        return t.to(device) if dtype is None else t.to(device, dtype)
+    out = CAPTURE.handoff(t, device)
+    return out if dtype is None else out.to(dtype)
+
+
 def _pmax(xs: list[torch.Tensor], device) -> torch.Tensor:
     """The shards' tensors moved to `device`, their elementwise max."""
-    return torch.stack([x.to(device) for x in xs]).amax(0)
+    return torch.stack([handoff(x, device) for x in xs]).amax(0)
 
 
 def _psum(xs: list, device, row=None) -> torch.Tensor:
-    """The shards' tensors moved to `device`, summed in shard order. Where
-    `row` (a parallel/multihost.Row) spans processes, xs holds None for
-    the shards of other processes, which are all-gathered first."""
+    """The shards' tensors moved to `device` (all of them first), summed
+    in shard order. Where `row` (a parallel/multihost.Row) spans
+    processes, xs holds None for the shards of other processes, which are
+    all-gathered first."""
     if row is not None:
         from ..parallel.multihost import gather_shards
         xs = gather_shards(xs, row)
-    out = xs[0].to(device)
+    xs = [handoff(x, device) for x in xs]
+    out = xs[0]
     for x in xs[1:]:
-        out = out + x.to(device)
+        out = out + x
     return out
 
 
 def _on(pos, device):
     """A position (or n_valid) on `device`: a host int or None as it is, a
-    device tensor moved (a no-op where it lies there already)."""
-    return pos.to(device) if isinstance(pos, torch.Tensor) else pos
+    device tensor handed off (a no-op where it lies there already)."""
+    return handoff(pos, device) if isinstance(pos, torch.Tensor) else pos
 
 
 def attention_cp(q: torch.Tensor, k_locals: list, v_locals: list,
@@ -147,9 +173,10 @@ def attention_cp(q: torch.Tensor, k_locals: list, v_locals: list,
     T, Hq, D = q.shape
     Hkv, s_local, _ = k_locals[0].shape
     group = Hq // Hkv
+    qs = [handoff(q, k.device, torch.float32) for k in k_locals]
     scores = []
-    for i, k in enumerate(k_locals):
-        qf = q.to(k.device, torch.float32).reshape(T, Hkv, group, D)
+    for i, (k, qk) in enumerate(zip(k_locals, qs)):
+        qf = qk.reshape(T, Hkv, group, D)
         sc = torch.einsum("thgd,hsd->hgts", qf, k.to(torch.float32)) * scale
         key_pos = i * s_local + torch.arange(s_local, device=k.device)[None]
         q_pos = _on(pos_start, k.device) + torch.arange(
@@ -159,7 +186,8 @@ def attention_cp(q: torch.Tensor, k_locals: list, v_locals: list,
     # a wholly masked shard's max is -inf; the global max is finite
     # because key 0 is always visible, so its exp(-inf - m) is 0
     m = _pmax([sc.amax(-1) for sc in scores], q.device)     # [Hkv, g, T]
-    ps = [torch.exp(sc - m.to(sc.device)[..., None]) for sc in scores]
+    ms = [handoff(m, sc.device) for sc in scores]
+    ps = [torch.exp(sc - mi[..., None]) for sc, mi in zip(scores, ms)]
     l = _psum([p.sum(-1) for p in ps], q.device)
     o = _psum([torch.einsum("hgts,hsd->thgd", p, v.to(torch.float32))
                for p, v in zip(ps, v_locals)], q.device)
@@ -179,16 +207,18 @@ def attention_cp_flash(q: torch.Tensor, k_locals: list, v_locals: list,
     from .cuda.attention import flash_attention_partials
     s_local = k_locals[0].shape[1]
     qc = q.to(k_locals[0].dtype)  # the kernel's operand type, cast once
-    parts = [flash_attention_partials(qc.to(k.device), k, v,
-                                      _on(pos_start, k.device),
-                                      scale, kpos_offset=i * s_local)
-             for i, (k, v) in enumerate(zip(k_locals, v_locals))]
+    args = [(handoff(qc, k.device), _on(pos_start, k.device))
+            for k in k_locals]
+    parts = [flash_attention_partials(qk, k, v, pk, scale,
+                                      kpos_offset=i * s_local)
+             for i, (k, v, (qk, pk)) in enumerate(zip(k_locals, v_locals,
+                                                      args))]
+    parts = [tuple(handoff(x, q.device) for x in p) for p in parts]
     m_g = _pmax([m for _, m, _ in parts], q.device)         # [T, Hq]
-    ws = [torch.exp(m.to(q.device) - m_g) for _, m, _ in parts]
-    l_g = _psum([l.to(q.device) * w for (_, _, l), w in zip(parts, ws)],
+    ws = [torch.exp(m - m_g) for _, m, _ in parts]
+    l_g = _psum([l * w for (_, _, l), w in zip(parts, ws)], q.device)
+    out = _psum([acc * w[..., None] for (acc, _, _), w in zip(parts, ws)],
                 q.device)
-    out = _psum([acc.to(q.device) * w[..., None]
-                 for (acc, _, _), w in zip(parts, ws)], q.device)
     return out / l_g[..., None]
 
 

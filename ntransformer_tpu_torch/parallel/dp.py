@@ -24,13 +24,16 @@ group's slots alone) and the TP form (batched_decode_step_tp) past it. The
 groups run one after another on the host; on separate cards their kernels
 overlap, since nothing waits on a card until the logits are gathered.
 
-Where the groups lie on one card of one process, each group's step
-replays a captured program (the JAX package's one jitted shard_map step,
-as one CUDA graph a group): group_graphs binds a models/graphs.StepGraphs
-to each group's caches and weights, and the sharded steps replay them; the
-gather of the groups' logits in slot order stays outside the graphs. A
-mesh that spans processes (its collectives go over a process group) or
-cards keeps the host path, by the explicit check of group_graphs.
+Each group's step replays a captured program (the JAX package's one
+jitted shard_map step, as one CUDA graph a group on one card, a
+models/graphs.CardGraph over several): group_graphs binds a
+models/graphs.StepGraphs to each group's caches and weights, and the
+sharded steps replay them; the gather of the groups' logits in slot order
+stays outside the graphs. A mesh over several processes replays where the
+processes run over NCCL and each row lies in one process; over gloo,
+which stages collectives through host memory, or with a row across
+processes (models/graphs.check_capturable), it keeps the host path, by
+the explicit check of group_graphs.
 """
 from __future__ import annotations
 
@@ -136,12 +139,12 @@ def insert_slot(mesh: Mesh, bkv: list, kv: list, slot: int, batch: int):
 
 
 def captured(mesh: Mesh) -> bool:
-    """Whether the mesh's group steps can replay captured programs: every
-    position on one card of one process (models/graphs.check_capturable).
-    A mesh that spans processes all-gathers over a process group, which a
-    capture does not take; one that spans cards needs a capture that spans
-    them (experiments/mesh_capture.py)."""
-    return not mesh.multiprocess and one_card(mesh.devices)
+    """Whether the mesh's group steps can replay captured programs
+    (models/graphs.check_capturable): the groups this process drives, on
+    one card or several, unless a row spans processes or the mesh spans
+    processes over another backend than NCCL (gloo stages the gather of
+    the groups' logits through host memory)."""
+    return one_card(mesh)
 
 
 def group_graphs(mesh: Mesh, arch: Arch, weights: list, kv: list) -> list:
@@ -150,8 +153,9 @@ def group_graphs(mesh: Mesh, arch: Arch, weights: list, kv: list) -> list:
     the TP row's step past it), None for another process's group. The mesh
     must be captured(mesh) (ValueError otherwise)."""
     if not captured(mesh):
-        raise ValueError("the mesh's group steps keep the host path: it "
-                         "spans processes or cards")
+        raise ValueError("the mesh's group steps keep the host path: a "
+                         "row spans processes, or the processes run over "
+                         "gloo")
     out = []
     for g in range(mesh.dp):
         if not mesh.touches(g):

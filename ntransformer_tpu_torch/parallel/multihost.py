@@ -215,11 +215,19 @@ def make_mesh(tp: int | None = None, dp: int | None = None,
     return Mesh(grid, ranks, rank, groups)
 
 
+def backend_of(group=None) -> str | None:
+    """The backend of a process group ("nccl" or "gloo"; None: the
+    default group), or None where no process group is up."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return str(dist.get_backend(group))
+
+
 def _staged(t: torch.Tensor, group) -> bool:
     """Whether a collective on t goes through host memory: gloo on a CUDA
     tensor."""
-    import torch.distributed as dist
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    return t.is_cuda and backend_of(group) == "gloo"
 
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:

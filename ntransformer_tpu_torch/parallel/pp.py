@@ -29,6 +29,15 @@ kernels on microbatch m overlap stage s's on m+1.
 make_pp_decode is the JAX make_pp_decode's form: all S + M - 1 ticks as
 one program, on a CUDA card with every stage on it one CUDA graph of
 pp_decode_step over static tokens, pos and active, replayed each step.
+pp_decode_step moves every tensor between cards through ops/layers.handoff,
+as the other meshes do. Stages over several cards still run it from the
+host (models/graphs.check_capturable with pipeline=True): captured as a
+models/graphs.CardGraph while its moves were PyTorch's own .to copies,
+the (4, 2) step replayed other logits than the uncaptured step on four
+H100s. With the hand-offs, experiments/mesh_capture.py pp_cards captures
+it through captured_pp_step and replays it bit-equal at 2 and 3 stages,
+every hand-off's buffers equal to the uncaptured step's; the refusal
+stays until the (4, 2) step over four cards is held so (PERF.md).
 
 A stage's layer loop is models/batched.py's over the stage's local arch
 (n_layers = L/S): each microbatch's logits and cache are those of the
@@ -46,6 +55,7 @@ import torch
 from ..models.batched import (BatchedKV, _head, _rope_rows, _run_layers,
                               _vec, resolve_impl)
 from ..models.llama import Arch, LayerWeights, ModelWeights
+from ..ops.layers import handoff
 from ..ops.linear import QLinear, embed_lookup
 from .dp import replicate
 from .tp import make_mesh_of
@@ -151,14 +161,14 @@ def pp_decode_step(mesh, arch: Arch, state: PPState, tokens, pos, active,
                 if arch.embed_scale != 1.0:
                     x = x * arch.embed_scale
             else:
-                x = acts[m].to(dev)
+                x = handoff(acts[m], dev)
             cos_t, sin_t = _rope_rows(base, pos[sl][:, None])
             x = _run_layers(state.arch, state.stages[s], state.kv[s][m], x,
-                            pos[sl].to(dev), active[sl].to(dev),
-                            cos_t.to(dev), sin_t.to(dev), impl, kv_append,
-                            state.arch.n_layers, None, "f32")
+                            handoff(pos[sl], dev), handoff(active[sl], dev),
+                            handoff(cos_t, dev), handoff(sin_t, dev), impl,
+                            kv_append, state.arch.n_layers, None, "f32")
             if s == n_stages - 1:
-                logits[m] = _head(arch, base, x.to(home))
+                logits[m] = _head(arch, base, handoff(x, home))
             else:
                 acts[m] = x
     return torch.cat(logits), state
@@ -176,52 +186,68 @@ def make_pp_decode(mesh, arch: Arch, state: PPState, n_micro: int):
     step(tokens, pos, active) -> logits [B, V] f32, pp_decode_step's
     logits, its caches (state's) written in place.
 
-    With every stage on one CUDA card (models/graphs.check_capturable), the
-    first call captures the whole schedule as one CUDA graph (an uncaptured
-    warm-up with every slot inactive at position 0, which writes no cache
-    row, then the capture on a stream of its own); every call copies its
-    inputs into static tokens, pos and active and replays it, and the
-    logits are the graph's static output, valid until the next call.
-    step.replays counts the replays. A capture that fails raises. Elsewhere
-    each call runs pp_decode_step."""
+    With every stage on one CUDA card (models/graphs.check_capturable with
+    pipeline=True: stages over several cards keep the host path, the
+    module docstring), the step is captured_pp_step's. Elsewhere each call
+    runs pp_decode_step."""
     from ..models import graphs
-    from ..ops.cuda import batched_attention
     mesh = tuple(torch.device(d) for d in mesh)
     _check(arch, len(mesh))
-    home = mesh[0]
+    if _graphed(mesh[0]) and graphs.one_card(mesh, pipeline=True):
+        return captured_pp_step(mesh, arch, state, n_micro)
 
     def direct(tokens, pos, active):
         return pp_decode_step(mesh, arch, state, tokens, pos, active,
                               n_micro)[0]
-    if not (_graphed(home) and graphs.one_card(mesh)):
-        return direct
+    return direct
+
+
+def captured_pp_step(mesh, arch: Arch, state: PPState, n_micro: int):
+    """make_pp_decode's captured step, on the cards of the mesh whatever
+    they are: the first call captures the whole schedule as one program
+    (models/graphs.new_graph: one CUDA graph on one card, a CardGraph over
+    several) after an uncaptured warm-up with every slot inactive at
+    position 0, which writes no cache row, both on a capture stream of
+    each card; every call copies its inputs into static tokens, pos and
+    active and replays it, and the logits are the program's static output,
+    valid until the next call. step.replays counts the replays, step.graph
+    is the program once captured. A capture that fails raises."""
+    from ..models import graphs
+    from ..ops.cuda import batched_attention
+    mesh = tuple(torch.device(d) for d in mesh)
+    home = mesh[0]
+    cards = graphs._cards(home, mesh)
     b_n = n_micro * state.kv[0][0].k.shape[1]
-    stream = torch.cuda.Stream(home) if home.type == "cuda" else None
+    streams = graphs.card_streams(cards)
     tok = torch.zeros(b_n, dtype=torch.long, device=home)
     pos_s = torch.zeros(b_n, dtype=torch.long, device=home)
     act = torch.zeros(b_n, dtype=torch.bool, device=home)
     held = {}
 
+    def direct():
+        return pp_decode_step(mesh, arch, state, tok, pos_s, act,
+                              n_micro)[0]
+
     @torch.inference_mode()
     def step(tokens, pos, active):
         if "graph" not in held:
-            with graphs._on_stream(home, stream):
+            with graphs._on_stream(cards, streams):
                 for t in (tok, pos_s, act):
                     t.zero_()
-                direct(tok, pos_s, act)
-                graph = graphs.GRAPH()
-                held["out"] = graph.capture(lambda: direct(tok, pos_s, act))
-                held["graph"] = graph
-            if stream is not None:
-                # the batched flash scratch the graph addresses
-                held["scratch"] = batched_attention.scratch_buffer(home,
-                                                                   stream)
+                direct()
+                graph = graphs.new_graph(cards)
+                held["out"] = graph.capture(direct)
+                held["graph"] = step.graph = graph
+            # the batched flash scratch the graphs address, a card each
+            held["scratch"] = [batched_attention.scratch_buffer(c, s)
+                               for c, s in zip(cards, streams or ())]
         for dst, src in ((tok, tokens), (pos_s, pos), (act, active)):
             dst.copy_(torch.as_tensor(src).reshape(b_n))
         held["graph"].replay()
         step.replays += 1
         return held["out"]
     step.replays = 0
+    step.graph = None
     return step
 
 

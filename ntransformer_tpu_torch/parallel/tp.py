@@ -330,7 +330,7 @@ def make_tp_decode_loop(mesh, arch: Arch, n_steps: int, *,
     the next token; the cache (make_tp_kv's, int8 iff kv_quant) is written
     in place.
 
-    On a CUDA card with the mesh on that one card in one process
+    On CUDA cards, the mesh on one or several of them
     (models/graphs.check_capturable), the loop kind of a ForwardGraphs
     bound to (shards, kv) replays n_steps times with no host read in
     between: graphs(kv) gives it where the caller keeps one (TPEngine's

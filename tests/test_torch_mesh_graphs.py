@@ -615,11 +615,14 @@ def test_pp_decode_off_the_card_runs_the_step(files):
 
 # ----------------------------------------------------------------- refusals
 def test_refusals(files):
-    """A row that spans processes keeps the host path: ForwardGraphs and
-    StepGraphs refuse it, and so does dp.group_graphs for a multi-process
-    mesh; a mesh that spans cards is refused alike. A graph refuses a cache
-    it was not captured against (a foreign shard list) and rows past the
-    CP cache's end, and captures nothing for them."""
+    """A row that spans processes over another backend than NCCL (here no
+    process group is up) keeps the host path: ForwardGraphs and StepGraphs
+    refuse it, and so does dp.group_graphs for a multi-process mesh; a
+    mesh over devices that are not all CUDA cards is refused alike, while
+    one over several CUDA cards is taken (tests/test_torch_card_graphs.py).
+    A graph refuses a cache it was not captured against (a foreign shard
+    list) and rows past the CP cache's end, and captures nothing for
+    them."""
     m = load_model(files["tiny"], device="cpu")
     a = m.arch
     row = Row(_cpu(2), ranks=(0, 1), rank=0, group=object())
@@ -631,7 +634,7 @@ def test_refusals(files):
     with pytest.raises(ValueError, match="spans cards"):
         graphs.ForwardGraphs(a, shards, ptp.make_tp_kv(a, _cpu(2)),
                              tp=("cpu", "meta"))
-    assert not graphs.one_card(("cuda:0", "cuda:1"))
+    assert graphs.one_card(("cuda:0", "cuda:1"))
     assert graphs.one_card(("cuda:0", "cuda:0"), None)
     mp = make_mesh(tp=1, dp=2, devices=["cpu"] * 2)
     mp = pdp.Mesh(mp.devices, ((0,), (1,)), 0, (None, None))
