@@ -5208,32 +5208,45 @@ def tp_cards_phase(torch, counters, card: str, synth) -> dict | None:
 DP_MESHES = ((2, 1), (2, 2))   # phase dp: (dp, tp) positions on cuda:0
 DP_STEPS = 8                   # teacher-forced steps of the mesh check
 DP_CARDS = 4                   # phase dpcards: one position a card
+ROW_TURN = 16                  # dpcards: timed steps of the 8B row
+TWO_PROCESS_S = 300            # a process of a two-process run
+DUMP_S = 240                   # ... dumps every thread's stack from here
 DP_WORKER = """
-import json, sys
+import faulthandler, json, sys
 sys.path.insert(0, sys.argv[1])
-rank, port, backend, devs, tp, dp, gguf = (int(sys.argv[2]), sys.argv[3],
-    sys.argv[4], sys.argv[5].split(","), int(sys.argv[6]), int(sys.argv[7]),
-    sys.argv[8])
-prompts = json.loads(sys.argv[9])
+rank, port, backend, devs = (int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                             sys.argv[5].split(","))
+job = json.loads(sys.argv[6])
+# a process that waits past DUMP_S prints every thread's stack, again each
+# DUMP_S / 4 s, before its parent's timeout stops it
+faulthandler.dump_traceback_later(job["dump_s"], repeat=True)
 import torch
-from ntransformer_tpu_torch.inference.sampler import SamplerConfig
-from ntransformer_tpu_torch.inference.serve import BatchServer, Request
-from ntransformer_tpu_torch.models.loader import load_model
 from ntransformer_tpu_torch.parallel.multihost import (initialize, make_mesh,
                                                        shutdown)
 if backend == "nccl":
     torch.cuda.set_device(torch.device(devs[0]))
 initialize("127.0.0.1:" + port, 2, rank, backend=backend)
-mesh = make_mesh(tp=tp, dp=dp, devices=devs)
-srv = BatchServer(load_model(gguf, device="cpu"), batch_size=4, mesh=mesh,
-                  sampler_cfg=SamplerConfig(temperature=0.0))
-reqs = [Request(prompt=p, max_tokens=16) for p in prompts]
-srv.run(reqs)
-print("DP-TEXTS " + json.dumps([r.text for r in reqs]), flush=True)
-gs = [g for g in (srv._ggraphs or []) if g is not None]
-print("DP-GRAPHS " + json.dumps({"captured": srv._ggraphs is not None,
-                                 "replays": sum(sum(g.replays.values())
-                                                for g in gs)}), flush=True)
+mesh = make_mesh(tp=job["tp"], dp=job["dp"], devices=devs)
+if job["kind"] == "serve":
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models.loader import load_model
+    srv = BatchServer(load_model(job["gguf"], device="cpu"), batch_size=4,
+                      mesh=mesh, sampler_cfg=SamplerConfig(temperature=0.0))
+    reqs = [Request(prompt=p, max_tokens=16) for p in job["prompts"]]
+    srv.run(reqs)
+    print("DP-TEXTS " + json.dumps([r.text for r in reqs]), flush=True)
+    gs = [g for g in (srv._ggraphs or []) if g is not None]
+    adm = srv._adm[1] if srv._adm is not None else None
+    print("DP-GRAPHS " + json.dumps({
+        "captured": srv._ggraphs is not None,
+        "replays": sum(sum(g.replays.values()) for g in gs),
+        "admission_replays": (sum(adm.replays.values()) if adm is not None
+                              else 0)}), flush=True)
+else:
+    import chip_smoke
+    print("DP-GRAPHS " + json.dumps(chip_smoke.row_steps(torch, mesh, job)),
+          flush=True)
 shutdown()
 """
 
@@ -5256,6 +5269,8 @@ def mesh_cache(torch, mesh, arch, bkv):
     per, h = b_n // mesh.dp, arch.n_kv_heads // mesh.tp
     for g, row in enumerate(grid):
         for s, c in enumerate(row):
+            if c is None:        # another process's position
+                continue
             for dst, src in zip(c.caches, bkv.caches):
                 dst.copy_(src[:, g * per:(g + 1) * per, s * h:(s + 1) * h])
     return grid
@@ -5625,13 +5640,66 @@ def dp_cli(torch, counters) -> dict:
     return out
 
 
+def two_processes(backend: str, devs: list, job: dict) -> list:
+    """DP_WORKER's `job` in two processes joined over `backend` at a free
+    port, process r on the devices of devs[r] (a comma-separated list),
+    each with NCCL_DEBUG=WARN and TWO_PROCESS_S s; a process still running
+    then is stopped, and so is every process on the way out. A process that
+    fails or does not finish fails the run with both processes' output
+    (from DUMP_S s on, every thread's stack). Returns each process's
+    DP- lines, {tag: parsed JSON}."""
+    s = __import__("socket").socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    job = dict(job, dump_s=DUMP_S)
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_WORKER, HERE, str(r), port, backend,
+         devs[r], json.dumps(job)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE, env=env) for r in range(2)]
+    outs = [None, None]
+    end = time.monotonic() + TWO_PROCESS_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs[r], _ = p.communicate(
+                    timeout=max(1.0, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for r, p in enumerate(procs):
+            if outs[r] is None:
+                outs[r], _ = p.communicate()
+    tails = "".join(f"\n--- rank {r} ---\n{o[-6000:]}"
+                    for r, o in enumerate(outs))
+    got = []
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"two-process {backend} {job['kind']} "
+              f"({job['dp']}, {job['tp']}) rank {r}: exit {p.returncode} "
+              f"(killed past {TWO_PROCESS_S} s if negative){tails}")
+        got.append({ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
+                    for ln in o.splitlines()
+                    if ln.startswith(("DP-TEXTS ", "DP-GRAPHS "))})
+        check("DP-GRAPHS" in got[-1], f"two-process rank {r}: printed no "
+              f"result{tails}")
+    return got
+
+
 def dp_two_process(torch, devs_of, backend: str, tp: int = 1,
                    dp: int = 2) -> dict:
     """Two processes serving repolm512 over a (dp, tp) mesh whose positions
     span both (process r on devs_of[r], or on devs_of[0] for both), joined
-    over `backend`: both print the texts of the one-process server over
-    the same mesh (all its positions in one process). A 300 s timeout a
-    process; both are stopped on the way out."""
+    over `backend` (two_processes): both print the texts of the
+    one-process server over the same mesh (all its positions in one
+    process). Over NCCL both servers replay their group steps and
+    admissions, a row across the processes with its collectives inside
+    the graphs; over gloo, which stages collectives through host memory,
+    they keep the host path (models/graphs.check_capturable)."""
     from ntransformer_tpu_torch.models.loader import load_model
     from ntransformer_tpu_torch.parallel.multihost import make_mesh
     prompts = [p.replace("\n", " ")
@@ -5649,50 +5717,167 @@ def dp_two_process(torch, devs_of, backend: str, tp: int = 1,
     srv.run(reqs)
     want = [r.text for r in reqs]
     del srv
-    s = __import__("socket").socket()
-    s.bind(("127.0.0.1", 0))
-    port = str(s.getsockname()[1])
-    s.close()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", DP_WORKER, HERE, str(r), port, backend,
-         ",".join([devs[r]] * per), str(tp), str(dp), REPOLM,
-         json.dumps(prompts)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        cwd=HERE) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            o, _ = p.communicate(timeout=300)
-            outs.append(o)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    got, graphs = [], []
-    for r, (p, o) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"two-process {backend} rank {r}: exit "
-              f"{p.returncode}: {o[-2000:]}")
-        lines = {ln.split(" ", 1)[0]: ln.split(" ", 1)[1]
-                 for ln in o.splitlines()
-                 if ln.startswith(("DP-TEXTS ", "DP-GRAPHS "))}
-        check("DP-TEXTS" in lines and "DP-GRAPHS" in lines,
-              f"two-process rank {r}: no texts: {o[-2000:]}")
-        got.append(json.loads(lines["DP-TEXTS"]))
-        graphs.append(json.loads(lines["DP-GRAPHS"]))
-    check(got[0] == got[1] == want, f"two-process {backend} ({dp}, {tp}) "
-          f"on {devs}: texts {got} differ from the one-process server's "
-          f"{want}")
-    # NCCL processes whose rows each lie in one process replay their group
-    # steps; a row across processes, and gloo's host staging, keep the
-    # host path (models/graphs.check_capturable)
-    replay = backend == "nccl" and tp == 1
+    t0 = time.perf_counter()
+    got = two_processes(backend, [",".join([d] * per) for d in devs],
+                        {"kind": "serve", "tp": tp, "dp": dp,
+                         "gguf": REPOLM, "prompts": prompts})
+    wall = time.perf_counter() - t0
+    texts = [g.get("DP-TEXTS") for g in got]
+    graphs = [g["DP-GRAPHS"] for g in got]
+    check(texts[0] == texts[1] == want, f"two-process {backend} ({dp}, "
+          f"{tp}) on {devs}: texts {texts} differ from the one-process "
+          f"server's {want}")
+    replay = backend == "nccl"
     check(all(g["captured"] == replay and (g["replays"] > 0) == replay
-              for g in graphs), f"two-process {backend}: the servers' "
-          f"graphs {graphs}; want {'replays' if replay else 'the host path'}")
+              and (g["admission_replays"] > 0) == replay for g in graphs),
+          f"two-process {backend}: the servers' graphs {graphs}; want "
+          f"{'replays' if replay else 'the host path'}")
     out = {"backend": backend, "dp": dp, "tp": tp, "devices": devs,
-           "texts_equal": True, "graphs": graphs}
+           "texts_equal": True, "graphs": graphs, "wall_s": wall}
     print(json.dumps({"dp_two_process": out}), flush=True)
+    return out
+
+
+ROW_CTX = 2048    # dpcards' 8B row across processes: cache positions
+
+
+def row_cache(torch, arch, b_n: int):
+    """A bf16 [L, b_n, Hkv, S, D] cache on the current card, every element
+    a value in [-0.5, 0.5] hashed from its index: the same bytes on every
+    card and in every process, with no generator involved."""
+    from ntransformer_tpu_torch.models.batched import BatchedKV
+    bkv = BatchedKV.create(arch, b_n, device="cuda")
+    for salt, t in enumerate((bkv.k, bkv.v)):
+        idx = torch.arange(t[0].numel(), device=t.device)
+        for layer in range(t.shape[0]):
+            h = (idx * 2654435761 + (2 * layer + salt) * 40503) % 2001
+            t[layer].copy_(((h - 1000).float() / 2000).reshape(t[layer].shape))
+    return bkv
+
+
+def weights_digest(torch, weights) -> list:
+    """The sum of the first 64 KiB of every tensor of a synthetic model's
+    layer stack, embedding and head, as bytes: equal where two builds
+    drew the same codes."""
+    from ntransformer_tpu_torch.ops.linear import QLinear
+    lw = weights.layers
+    out = []
+    for v in [weights.embed, weights.lm_head] + [
+            getattr(lw, f) for f in lw.__dataclass_fields__]:
+        ts = (list(v.planes.values()) if isinstance(v, QLinear)
+              else [] if v is None else [v])
+        out += [int(t.reshape(-1).view(torch.uint8)[:65536].long().sum())
+                for t in ts]
+    return out
+
+
+def row_steps(torch, mesh, job: dict) -> dict:
+    """One process's part of dpcards' 8B row across two NCCL processes
+    (DP_WORKER): the synthetic 8B of build_synth (the same seed in every
+    process; its weights_digest returned) with ctx ROW_CTX over `mesh`'s
+    row, this process's shard placed on its card; from row_cache's state
+    at positions job["lens"], the teacher-forced steps of job["toks"]
+    uncaptured, then replayed on a fresh copy of that state (dp.group_graphs,
+    the row's collectives inside the graphs), every step's logits saved to
+    job["out"] + ".rank<r>.pt"; each way then ROW_TURN greedy steps timed.
+    Returns the ms a step of both, the captures and the replays."""
+    import dataclasses
+    from ntransformer_tpu_torch.parallel import dp
+    _, arch, weights, _ = build_synth(torch)
+    digest = weights_digest(torch, weights)
+    arch = dataclasses.replace(arch, max_seq_len=ROW_CTX)
+    b_n = len(job["lens"])
+    grid_w, _ = dp.shard_server_state(mesh, arch, weights, b_n,
+                                      with_kv=False)
+    del weights
+    torch.cuda.empty_cache()
+    bkv = row_cache(torch, arch, b_n)
+    pos = torch.tensor(job["lens"], device="cuda")
+    act = torch.ones(b_n, dtype=torch.bool, device="cuda")
+    outs, out = {}, {"digest": digest}
+    for replayed in (False, True):
+        name = "replayed" if replayed else "uncaptured"
+        grid = mesh_cache(torch, mesh, arch, bkv)
+        graphs = (dp.group_graphs(mesh, arch, grid_w, grid) if replayed
+                  else None)
+        step = dp.make_batched_decode_sharded(mesh, arch, graphs=graphs)
+        got = []
+        for i, tk in enumerate(job["toks"]):
+            lg, grid = step(grid_w, grid, torch.tensor(tk, device="cuda"),
+                            pos + i, act)
+            got.append(lg.cpu())
+        tk = torch.argmax(lg, -1)
+        base = len(job["toks"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ROW_TURN):
+            lg, grid = step(grid_w, grid, tk, pos + base + i, act)
+            tk = torch.argmax(lg, -1)
+        tk.cpu()
+        out[f"ms_step_{name}"] = (time.perf_counter() - t0) / ROW_TURN * 1e3
+        outs[name] = got
+        if replayed:
+            gs = [g for g in graphs if g is not None]
+            out.update(captures=sum(g.captures for g in gs),
+                       replays=sum(sum(g.replays.values()) for g in gs))
+        del grid, graphs, step
+    torch.save(outs, f"{job['out']}.rank{mesh.rank}.pt")
+    return out
+
+
+def row_cards_cell(torch, synth, toks, lens) -> dict:
+    """dpcards' full-width row across processes: two NCCL processes, each
+    owning one card, run the synthetic 8B (all 32 layers) over a (1, 2)
+    row (row_steps), against the one-process (1, 2) mesh over the same two
+    cards (uncaptured, from the same row_cache state): every step's
+    logits bit-equal between the processes, to each process's uncaptured
+    steps and to the one-process mesh; replayed and uncaptured ms a
+    step."""
+    import dataclasses
+    import tempfile
+    from ntransformer_tpu_torch.parallel import dp
+    from ntransformer_tpu_torch.parallel.multihost import make_mesh
+    _, arch, weights, _ = synth
+    digest = weights_digest(torch, weights)
+    arch = dataclasses.replace(arch, max_seq_len=ROW_CTX)
+    mesh = make_mesh(tp=2, dp=1, devices=["cuda:0", "cuda:1"])
+    grid_w, _ = dp.shard_server_state(mesh, arch, weights, len(lens),
+                                      with_kv=False)
+    grid = mesh_cache(torch, mesh, arch, row_cache(torch, arch, len(lens)))
+    step = dp.make_batched_decode_sharded(mesh, arch)
+    pos = torch.tensor(lens, device="cuda")
+    act = torch.ones(len(lens), dtype=torch.bool, device="cuda")
+    want = []
+    for i, tk in enumerate(toks):
+        lg, grid = step(grid_w, grid, torch.tensor(tk, device="cuda"),
+                        pos + i, act)
+        want.append(lg.cpu())
+    del grid_w, grid, step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got = two_processes("nccl", ["cuda:0", "cuda:1"], {
+            "kind": "steps", "tp": 2, "dp": 1, "lens": list(lens),
+            "toks": toks, "out": os.path.join(tmp, "row")})
+        wall = time.perf_counter() - t0
+        runs = [torch.load(os.path.join(tmp, f"row.rank{r}.pt"))
+                for r in range(2)]
+    res = [g["DP-GRAPHS"] for g in got]
+    check(all(r["digest"] == digest for r in res), "dpcards row: a "
+          "process built other synthetic weights than this one")
+    check(all(r["replays"] > 0 for r in res), f"dpcards row: {res}")
+    for r, run in enumerate(runs):
+        for name, outs in run.items():
+            bad = [i for i, (a, b) in enumerate(zip(outs, want))
+                   if not torch.equal(a, b)]
+            check(len(outs) == len(want) and not bad, f"dpcards row: rank "
+                  f"{r}'s {name} steps {bad} differ from the one-process "
+                  "(1, 2) mesh over the same cards")
+    out = {"steps_bit_equal": len(toks), "processes": 2, "wall_s": wall,
+           **{k: [r[k] for r in res] for k in ("ms_step_uncaptured",
+                                              "ms_step_replayed",
+                                              "captures", "replays")}}
+    print(json.dumps({"dp_cards_row_8b": out}), flush=True)
     return out
 
 
@@ -5708,9 +5893,10 @@ def dp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     against the uncaptured one (dp_replay_cell with a card stalled before
     some replays, each card's busy share); its walls in turns against the
     same mesh replayed on cuda:0; then two processes over NCCL, each owning
-    one card, at dp = 2 and at tp = 2 (the row's sums across processes):
-    their servers replay, the row's collectives inside the graphs, and
-    print the one-process server's texts."""
+    one card, serving repolm512 at dp = 2 and at tp = 2 (the row's sums
+    across processes): their servers replay, the row's collectives inside
+    the graphs, and print the one-process server's texts; and the 8B over
+    a (1, 2) row across two such processes (row_cards_cell)."""
     from ntransformer_tpu_torch.inference.engine import Engine
     from ntransformer_tpu_torch.models.batched import BatchedKV
     from ntransformer_tpu_torch.models.loader import LoadedModel
@@ -5812,6 +5998,7 @@ def dp_cards_phase(torch, counters, card: str, synth) -> dict | None:
     runs = [dp_two_process(torch, ["cuda:0", "cuda:1"], "nccl"),
             dp_two_process(torch, ["cuda:0", "cuda:1"], "nccl", tp=2, dp=1)]
     out["nccl"] = runs
+    out["row_8b"] = row_cards_cell(torch, synth, toks, lens)
     print(json.dumps({"dp_cards": {k: v for k, v in out.items()
                                    if k != "replay"}}), flush=True)
     return out
@@ -7309,11 +7496,12 @@ def pp_fill(state, bkv) -> None:
 
 
 def pp_replay_cell(torch, counters, tag: str, mesh, arch, weights, bkv,
-                   b_n: int, n_mb: int, pos0, first) -> dict:
-    """make_pp_decode's step (all S + M - 1 ticks one CUDA graph, captured
-    at its first call, here with no slot active) replayed against
-    pp_decode_step uncaptured (batched_replay_cell), each on its own state
-    filled from bkv."""
+                   b_n: int, n_mb: int, pos0, first, cards=None) -> dict:
+    """make_pp_decode's step (all S + M - 1 ticks one CUDA graph, a
+    CardGraph where the stages span cards, captured at its first call,
+    here with no slot active) replayed against pp_decode_step uncaptured
+    (batched_replay_cell; cards: the stages' cards, for its stalled-card
+    replays and busy shares), each on its own state filled from bkv."""
     from ntransformer_tpu_torch.parallel import pp
     states = []
     for _ in range(2):
@@ -7333,8 +7521,9 @@ def pp_replay_cell(torch, counters, tag: str, mesh, arch, weights, bkv,
         lambda c, t, p, a: pp.pp_decode_step(mesh, arch, c, t, p, a,
                                              n_mb)[0],
         lambda c, t, p, a: step(t, p, a), ref, kv, b_n, pos0, first,
-        caches=lambda x: x.kv)
-    cell.update(capture_s=cap_s, replays=step.replays)
+        caches=lambda x: x.kv, cards=cards)
+    cell.update(capture_s=cap_s, replays=step.replays,
+                program=program_shape(step.graph))
     del states, ref, kv, step
     torch.cuda.empty_cache()
     return cell
@@ -7555,6 +7744,69 @@ def cptp_phase(torch, counters, card: str, synth) -> tuple[dict, dict]:
     return summary, launches
 
 
+def pp_cards_cell(torch, counters, synth) -> dict:
+    """meshcards' PP cell: the synthetic 8B (`synth`, all 32 layers)
+    through pp_decode_step at (MESH_CARDS stages, 2 microbatches), one
+    stage a card and all on cuda:0, PP_STEPS steps fed the same tokens from
+    the same prefilled cache, uncaptured and replayed by make_pp_decode (a
+    CardGraph over the cards, one graph on cuda:0): logits and caches
+    bit-equal; then pp_replay_cell over the cards (replays after a stalled
+    card, busy shares, ms a step, graphs and hand-offs)."""
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel import pp
+    cfg, arch, weights, _ = synth
+    want = [torch.device("cuda", i) for i in range(MESH_CARDS)]
+    bkv, tok = pp_prefilled(torch, LoadedModel(
+        cfg, arch, weights, None, None, torch.device("cuda")), False)
+    pos0 = torch.tensor(PP_LENS, device="cuda")
+    act = torch.ones(len(PP_LENS), dtype=torch.bool, device="cuda")
+    runs, shapes = {}, {}
+    cards_mesh = pp.make_pp_mesh(MESH_CARDS)
+    for name, mesh in (("cards", cards_mesh),
+                       ("cuda:0", pp.make_pp_mesh(MESH_CARDS,
+                                                  ["cuda:0"] * MESH_CARDS))):
+        for replayed in (False, True):
+            state = pp.shard_pp_state(mesh, arch, weights, len(PP_LENS), 2)
+            pp_fill(state, bkv)
+            step = (pp.make_pp_decode(mesh, arch, state, 2) if replayed
+                    else lambda t, p, a, m=mesh, st=state: pp.pp_decode_step(
+                        m, arch, st, t, p, a, 2)[0])
+            reset(counters)
+            outs, t = [], tok
+            for i in range(PP_STEPS):
+                lg = step(t, pos0 + i, act)
+                outs.append(lg.cpu())
+                t = torch.argmax(lg, -1)
+            torch.cuda.synchronize()
+            if replayed:
+                check(step.replays == PP_STEPS, f"meshcards pp {name}: "
+                      f"{step.replays} replays of {PP_STEPS} steps")
+                shapes[name] = program_shape(step.graph)
+            runs[name, replayed] = (outs, [t.cpu() for t in cache_tensors(
+                [c for row in state.kv for c in row])], read(counters))
+            del state, step
+    check(shapes["cards"]["graphs"] > 1, f"meshcards pp: the stages over "
+          f"the cards replayed {shapes['cards']}, not a CardGraph")
+    (oc, kc, lc) = runs["cards", False]
+    for key, (o, k, _) in runs.items():
+        diff = max(float((a - b).abs().max()) for a, b in zip(oc, o))
+        same_kv = all(bool(torch.equal(a, b)) for a, b in zip(kc, k))
+        check(diff == 0.0 and same_kv, f"meshcards pp {key}: logits (max "
+              f"|d| {diff}) or caches differ from the stages over the "
+              "cards uncaptured")
+    print(f"meshcards pp: one stage a card and all on cuda:0, uncaptured "
+          f"and replayed ({PP_STEPS} steps): logits and caches bit-equal; "
+          f"launches {lc}; a replay over the cards {shapes['cards']}",
+          flush=True)
+    cell = pp_replay_cell(torch, counters, "meshcards pp", cards_mesh, arch,
+                          weights, bkv, len(PP_LENS), 2, pos0, tok,
+                          cards=want)
+    del bkv
+    torch.cuda.empty_cache()
+    return {"launches": lc, "max_abs_dlogit": 0.0, "program": shapes,
+            "replay": cell}
+
+
 def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
     """One position a card, on a host with MESH_CARDS cards or more (on
     fewer it says so and returns None), against the same mesh on cuda:0,
@@ -7565,9 +7817,11 @@ def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
     (`synth`, all 32 layers) through the same (2, 2) mesh
     (a 512-token prompt, 16 steps) and through pp_decode_step at (4
     stages, 2 microbatches) (one stage a card; PP_STEPS steps fed the same
-    tokens from the same prefilled cache, against the stages on cuda:0
-    uncaptured and replayed; the stages over the cards keep the host path,
-    parallel/pp.py), and phase moe's synthetic Mixtral-8x7B Q4_K_M (all 32
+    tokens from the same prefilled cache, uncaptured and replayed by
+    make_pp_decode, a CardGraph over the cards, against the stages on
+    cuda:0 both ways; then pp_replay_cell over the cards: replays after a
+    stalled card, busy shares, ms a step, graphs and hand-offs), and phase
+    moe's synthetic Mixtral-8x7B Q4_K_M (all 32
     layers) through EPEngine over the cards (two experts a card) against
     its 4 shards on cuda:0 (a 128-token prompt, 16 greedy steps). Every
     kernel launches on its tensors' card, the cross-card copies are exact
@@ -7576,7 +7830,6 @@ def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
     import tempfile
     from ntransformer_tpu_torch.inference.engine import CPEngine, EPEngine
     from ntransformer_tpu_torch.models.loader import LoadedModel
-    from ntransformer_tpu_torch.parallel import pp
     from ntransformer_tpu_torch.parallel.cp import make_cp_tp_mesh
     from ntransformer_tpu_torch.parallel.ep import make_ep_mesh
     n_cards = torch.cuda.device_count()
@@ -7618,52 +7871,7 @@ def mesh_cards_phase(torch, counters, card: str, synth) -> dict | None:
                                   cards, one, ids, 16)
     del cards, one
     torch.cuda.empty_cache()
-    bkv, tok = pp_prefilled(torch, model(), False)
-    pos0 = torch.tensor(PP_LENS, device="cuda")
-    act = torch.ones(len(PP_LENS), dtype=torch.bool, device="cuda")
-    runs = {}
-    for name, mesh, replayed in (
-            ("cards", pp.make_pp_mesh(MESH_CARDS), False),
-            ("cuda:0", pp.make_pp_mesh(MESH_CARDS, ["cuda:0"] * MESH_CARDS),
-             False),
-            ("cuda:0", pp.make_pp_mesh(MESH_CARDS, ["cuda:0"] * MESH_CARDS),
-             True)):
-        state = pp.shard_pp_state(mesh, arch, weights, len(PP_LENS), 2)
-        pp_fill(state, bkv)
-        step = (pp.make_pp_decode(mesh, arch, state, 2) if replayed
-                else lambda t, p, a: pp.pp_decode_step(
-                    mesh, arch, state, t, p, a, 2)[0])
-        reset(counters)
-        outs, t = [], tok
-        for i in range(PP_STEPS):
-            lg = step(t, pos0 + i, act)
-            outs.append(lg.cpu())
-            t = torch.argmax(lg, -1)
-        torch.cuda.synchronize()
-        if replayed:
-            check(step.replays == PP_STEPS, f"meshcards pp {name}: "
-                  f"{step.replays} replays of {PP_STEPS} steps")
-        runs[name, replayed] = (outs, [t.cpu() for t in cache_tensors(
-            [c for row in state.kv for c in row])], read(counters))
-        del state, step
-    # stages over several cards keep the host path (parallel/pp.py)
-    check(not hasattr(pp.make_pp_decode(
-        pp.make_pp_mesh(MESH_CARDS), arch, pp.shard_pp_state(
-            pp.make_pp_mesh(MESH_CARDS), arch, weights, len(PP_LENS), 2), 2),
-        "replays"), "meshcards pp: the stages over the cards replay")
-    (oc, kc, lc) = runs["cards", False]
-    for key, (o, k, _) in runs.items():
-        diff = max(float((a - b).abs().max()) for a, b in zip(oc, o))
-        same_kv = all(bool(torch.equal(a, b)) for a, b in zip(kc, k))
-        check(diff == 0.0 and same_kv, f"meshcards pp {key}: logits (max "
-              f"|d| {diff}) or caches differ from the stages over the "
-              "cards")
-    print(f"meshcards pp: one stage a card (host path), all on cuda:0 "
-          f"uncaptured and replayed: logits and caches bit-equal; launches "
-          f"{lc}", flush=True)
-    out["pp"] = {"launches": lc, "max_abs_dlogit": 0.0}
-    del bkv
-    torch.cuda.empty_cache()
+    out["pp"] = pp_cards_cell(torch, counters, synth)
     # Mixtral over the cards: EPEngine empties the expert planes it shards,
     # so each engine gets its own build (the same seed, the same weights)
     engines = []

@@ -76,14 +76,27 @@ copy read (`first_bad_source`: the first hand-off whose source already
 differs, i.e. a stretch computed it wrongly) and the copy (`first_bad_copy`:
 the first whose source is right and whose copy is not). Also the logits
 and, at the end, every stage's cache bytes. "pp_cards_to" is the same
-with pp_decode_step's moves made by PyTorch's own .to copies (the form
-that replayed other logits at (4, 2) over four cards), which the
-CardGraph's plan does not see.
+with pp_decode_step's moves made by PyTorch's own .to copies (the form that
+replayed other logits at (4, 2) over four cards), which the CardGraph's plan
+does not see. "pp_cards_8b" is pp_cards on chip_smoke.py's synthetic 8B Q8_0
+at full width cut to PP_8B_LAYERS layers, at 2 and 4 stages, B = 8 from the
+cache chip_smoke.pp_prefilled fills (meshcards' cell at 32 layers);
+"pp_cards_8b_off" the same with the kernels off. Each stage count runs in a
+process of its own. "pp_cards_8b_probe:N" (N stages) checks the caches after
+a capture with no slot active, then replays a step with every card
+synchronized after each stretch, one as CardGraph.replay launches it, and
+one each with a pool of its own for every stretch and with the receiver's
+stretch ended after each copy, each against the uncaptured step, with where
+the caches differ. "pp_split_one" runs on one card: the 8B's (2, 2) PP step
+with both stages on cuda:0, captured as a run of graphs cut at every move
+between stages (OneCardSplit, in each of SPLIT_FORMS) or as one graph, each
+replay against the uncaptured step, with the first attention call, product
+and stage output whose values differ.
 
 Each step's error, if any, is reported; nothing is retried. Run on a host
 with two cards or more (with one, only "per_stream" runs):
 
-    python3 experiments/mesh_capture.py
+    python3 experiments/mesh_capture.py [VARIANT]
 
 It prints one JSON line and writes it to chiprun_out/mesh_capture.json.
 """
@@ -101,7 +114,8 @@ import torch
 N = 1 << 20            # elements of each tensor
 SENTINEL = 12345.0
 VARIANTS = ("plain", "pool", "pool_warm", "per_card", "segments",
-            "tp_pull", "tp_push", "pp_cards", "pp_cards_to")
+            "tp_pull", "tp_push", "pp_cards", "pp_cards_to", "pp_cards_8b",
+            "pp_cards_8b_off")
 ONE_CARD = ("per_stream",)
 STALL = 200_000_000     # cycles of torch.cuda._sleep: ~0.1 s
 
@@ -482,6 +496,8 @@ def tp_layer(name: str) -> dict:
 
 
 PP_STEPS = 4            # pp_cards: steps, the last two after a stall
+PP_8B_LAYERS = 8        # pp_cards_8b: the synthetic 8B's layers
+PP_8B_STAGES = (2, 4)
 
 
 class Tape:
@@ -506,24 +522,38 @@ class Tape:
         return out
 
 
-def pp_stages(n: int, cards=None) -> dict:
-    """One pp_cards case: n stages over cuda:0 .. n-1 (cards: other
-    devices, one a stage) (the module docstring)."""
+def pp_stages(n: int, model: str = "repolm512") -> dict:
+    """One pp_cards case: n stages over cuda:0 .. n-1 (the module
+    docstring). model "8b": chip_smoke.py's synthetic 8B Q8_0 cut to
+    PP_8B_LAYERS layers (full width), B = 8 from chip_smoke.pp_prefilled's
+    cache, as meshcards runs it at 32 layers."""
     from ntransformer_tpu_torch.models import graphs
-    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.models.loader import LoadedModel, load_model
     from ntransformer_tpu_torch.ops import layers
     from ntransformer_tpu_torch.parallel import pp
-    out = {"stages": n}
-    cards = cards or [torch.device("cuda", i) for i in range(n)]
-    m = load_model(os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "models", "repolm512_q8.gguf"),
-        device=cards[0])
-    a, mesh, b_n, n_micro = m.arch, pp.make_pp_mesh(n, cards), 4, 2
-    ref = pp.shard_pp_state(mesh, a, m.weights, b_n, n_micro)
-    cap = pp.shard_pp_state(mesh, a, m.weights, b_n, n_micro)
+    out = {"stages": n, "model": model}
+    cards = [torch.device("cuda", i) for i in range(n)]
+    if model == "8b":
+        import chip_smoke as cs
+        cfg, a, w, _ = cs.depth_cut(cs.build_synth(torch), PP_8B_LAYERS)
+        bkv, tok = cs.pp_prefilled(torch, LoadedModel(
+            cfg, a, w, None, None, cards[0]), False)
+        pos0 = torch.tensor(cs.PP_LENS, device=cards[0])
+    else:
+        m = load_model(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "models", "repolm512_q8.gguf"),
+            device=cards[0])
+        a, w, bkv = m.arch, m.weights, None
+        tok = torch.tensor([5, 9, 11, 3], device=cards[0])
+        pos0 = torch.tensor([7, 20, 3, 12], device=cards[0])
+    mesh, b_n, n_micro = pp.make_pp_mesh(n, cards), tok.numel(), 2
+    ref = pp.shard_pp_state(mesh, a, w, b_n, n_micro)
+    cap = pp.shard_pp_state(mesh, a, w, b_n, n_micro)
+    if bkv is not None:
+        cs.pp_fill(ref, bkv)
+        cs.pp_fill(cap, bkv)
+        del bkv
     step = pp.captured_pp_step(mesh, a, cap, n_micro)
-    tok = torch.tensor([5, 9, 11, 3], device=cards[0])
-    pos0 = torch.tensor([7, 20, 3, 12], device=cards[0])
     act = torch.ones(b_n, dtype=torch.bool, device=cards[0])
     stage = "capture"
     try:
@@ -582,22 +612,382 @@ def pp_stages(n: int, cards=None) -> dict:
     return out
 
 
-def pp_cards(name: str = "pp_cards") -> dict:
-    """pp_cards and pp_cards_to (the module docstring): 2 stages, and 3
-    where there are three cards."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    if name == "pp_cards_to":
-        from ntransformer_tpu_torch.parallel import pp
-        pp.handoff = lambda t, device, dtype=None: (
-            t.to(device) if dtype is None else t.to(device, dtype))
-    out = {f"stages_{n}": pp_stages(n)
-           for n in (2, 3) if n <= torch.cuda.device_count()}
-    out["result"] = ("spans cards" if all(
+def _cache_diff(torch, ref, cap) -> list:
+    """Where two PP states' caches differ: [stage, microbatch, array,
+    layers, slots, positions] for each (stage, microbatch) that does."""
+    out = []
+    for s, (rr, cr) in enumerate(zip(ref.kv, cap.kv)):
+        for m, (a, b) in enumerate(zip(rr, cr)):
+            for f in ("k", "v"):
+                d = (getattr(a, f) != getattr(b, f))
+                if d.any():
+                    nz = d.nonzero()
+                    out.append([s, m, f, sorted(set(nz[:, 0].tolist())),
+                                sorted(set(nz[:, 1].tolist())),
+                                sorted(set(nz[:, 3].tolist()))[:8]])
+    return out
+
+
+def pp_probe(n: int) -> dict:
+    """pp_cards_8b_probe: the 8B at n stages, captured by a step with no
+    slot active (the caches are then held to the uncaptured state's), one
+    step replayed with every card synchronized after each stretch's
+    launch, then one replayed as CardGraph.replay launches it; each
+    against pp_decode_step on a twin state, with where the caches differ
+    (_cache_diff)."""
+    import chip_smoke as cs
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel import pp
+    cards = [torch.device("cuda", i) for i in range(n)]
+    cfg, a, w, _ = cs.depth_cut(cs.build_synth(torch), PP_8B_LAYERS)
+    bkv, tok = cs.pp_prefilled(torch, LoadedModel(cfg, a, w, None, None,
+                                                  cards[0]), False)
+    pos0 = torch.tensor(cs.PP_LENS, device=cards[0])
+    mesh, b_n = pp.make_pp_mesh(n, cards), tok.numel()
+    ref = pp.shard_pp_state(mesh, a, w, b_n, 2)
+    cap = pp.shard_pp_state(mesh, a, w, b_n, 2)
+    cs.pp_fill(ref, bkv)
+    cs.pp_fill(cap, bkv)
+    step = pp.captured_pp_step(mesh, a, cap, 2)
+    act = torch.ones(b_n, dtype=torch.bool, device=cards[0])
+    out, tok0 = {"stages": n}, tok
+    step(tok, pos0, torch.zeros_like(act))
+    _sync(*cards)
+    out["after_capture_cache_diff"] = _cache_diff(torch, ref, cap)
+    g = step.graph
+    plain_replay = g.replay
+
+    def serial():
+        for seg in g._steps:
+            seg.replay()
+            _sync(*cards)
+    rows = []
+    for i, mode in enumerate(("serial", "as_launched")):
+        g.replay = serial if mode == "serial" else plain_replay
+        want = pp.pp_decode_step(mesh, a, ref, tok, pos0 + i, act, 2)[0]
+        _sync(*cards)
+        got = step(tok, pos0 + i, act)
+        _sync(*cards)
+        rows.append({"mode": mode,
+                     "logits_bit_equal": bool(torch.equal(got, want)),
+                     "max_abs_dlogit": float((got - want).abs().max()),
+                     "cache_diff": _cache_diff(torch, ref, cap)})
+        tok = torch.argmax(want, -1)
+    out["steps"] = rows
+    # the same with a pool of its own for every stretch (no stretch reuses
+    # a block another stretch of its card freed during the capture), and
+    # with the receiving card's stretch ended after each copy as well
+    from ntransformer_tpu_torch.models import graphs
+    begin, handoff = graphs._CardCapture._begin, graphs._CardCapture.handoff
+
+    def fresh(self, card):
+        self.pools.pop(card, None)
+        begin(self, card)
+
+    def cut_both(self, t, dst):
+        got = handoff(self, t, dst)
+        if dst in self.open:
+            self._end(dst)
+            self._begin(dst)
+        return got
+    for case, patch in (("fresh_pools", ("_begin", fresh)),
+                        ("receiver_cut", ("handoff", cut_both))):
+        cap2 = pp.shard_pp_state(mesh, a, w, b_n, 2)
+        ref2 = pp.shard_pp_state(mesh, a, w, b_n, 2)
+        cs.pp_fill(cap2, bkv)
+        cs.pp_fill(ref2, bkv)
+        setattr(graphs._CardCapture, *patch)
+        try:
+            step2 = pp.captured_pp_step(mesh, a, cap2, 2)
+            tok = tok0
+            for i in range(2):
+                want = pp.pp_decode_step(mesh, a, ref2, tok, pos0 + i, act,
+                                         2)[0]
+                got = step2(tok, pos0 + i, act)
+                _sync(*cards)
+                out.setdefault(case, []).append(
+                    {"logits_bit_equal": bool(torch.equal(got, want)),
+                     "max_abs_dlogit": float((got - want).abs().max()),
+                     "graphs": step2.graph.segments,
+                     "cache_diff": _cache_diff(torch, ref2, cap2)})
+                tok = torch.argmax(want, -1)
+        except Exception as e:  # each case's failure is the probe's result
+            out[case + "_error"] = f"{type(e).__name__}: {e}"[:600]
+        finally:
+            graphs._CardCapture._begin = begin
+            graphs._CardCapture.handoff = handoff
+        del cap2, ref2
+    return out
+
+
+class OneCardSplit:
+    """parallel/pp.handoff's stand-in for pp_split_one: on one card, every
+    move a stage makes (which there moves nothing) takes a contiguous copy
+    of the tensor into a buffer of its own by cuMemcpyAsync (copy "clone":
+    by a clone; "none": the contiguous tensor itself; "layout": the copy
+    models/graphs.moved_like makes, with the tensor's own strides), after
+    which the running graph ends and the next begins on the same stream
+    and pool, kept uninstantiated until the pass ends as a CardGraph's
+    stretches are (instant: each instantiated as it ends; cut off: one
+    graph; hold off: the tensors not kept)."""
+
+    def __init__(self, copy="memcpy", cut=True, instant=False, hold=True):
+        self.pool, self.graphs, self.held = torch.cuda.graph_pool_handle(), \
+            [], []
+        self.copy, self.cut, self.instant = copy, cut, instant
+        self.hold = hold
+        self._begin()
+
+    def _begin(self) -> None:
+        g = torch.cuda.CUDAGraph(keep_graph=not self.instant)
+        g.capture_begin(pool=self.pool)
+        self.graphs.append(g)
+
+    def _end(self) -> None:
+        self.graphs[-1].capture_end()
+        if not self.instant:
+            return
+        # capture_end instantiated it (keep_graph off)
+
+    def handoff(self, t, dst):
+        from ntransformer_tpu_torch.models import graphs
+        if self.copy == "layout":
+            x, out = graphs.moved_like(t, t.device)
+        else:
+            x = t.contiguous()
+            out = torch.empty_like(x) if self.copy == "memcpy" else \
+                x.clone() if self.copy == "clone" else x
+        if self.copy in ("memcpy", "layout"):
+            graphs.copy_on_stream(out, x)
+        if self.hold:
+            self.held += [t, x, out]
+        if self.cut:
+            self._end()
+            self._begin()
+        return out
+
+    def finish(self) -> None:
+        self._end()
+        if not self.instant:
+            for g in self.graphs:
+                g.instantiate()
+
+    def replay(self) -> None:
+        for g in self.graphs:
+            g.replay()
+
+
+SPLIT_FORMS = {"split": {}, "split_no_copy": {"copy": "none"},
+               "copy_no_cut": {"cut": False},
+               "split_clone": {"copy": "clone"},
+               "split_instant": {"instant": True},
+               "hold_only": {"copy": "none", "cut": False},
+               "copy_no_hold": {"cut": False, "hold": False},
+               "split_layout": {"copy": "layout"}}
+
+
+def pp_split_one() -> dict:
+    """pp_split_one: the 8B's PP step at (2 stages, 2 microbatches) with
+    both stages on cuda:0, captured as a run of graphs cut at every move
+    between stages (OneCardSplit, in each of SPLIT_FORMS) after an
+    uncaptured warm-up with no slot active, and replayed twice against
+    pp_decode_step on a twin state: the logits, the slots that differ and
+    where the caches differ, and the first attention call whose inputs or
+    output differ (pos, active, q, new k and v rows, output: which, in
+    which slots); the same captured as one graph (make_pp_decode's form on
+    one card) beside them."""
+    import chip_smoke as cs
+    from ntransformer_tpu_torch.models import batched, graphs
+    from ntransformer_tpu_torch.models.loader import LoadedModel
+    from ntransformer_tpu_torch.parallel import pp
+    card = torch.device("cuda", 0)
+    cfg, a, w, _ = cs.depth_cut(cs.build_synth(torch), PP_8B_LAYERS)
+    bkv, tok = cs.pp_prefilled(torch, LoadedModel(cfg, a, w, None, None,
+                                                  card), False)
+    pos0 = torch.tensor(cs.PP_LENS, device=card)
+    mesh, b_n = pp.make_pp_mesh(2, [card, card]), tok.numel()
+    act = torch.ones(b_n, dtype=torch.bool, device=card)
+    stash = {"ref": [], "cap": []}
+    attend = batched._attend_deferred
+
+    def at(arch, q, k_t, v_t, bkv_, p_, a_, layer, *rest):
+        att, rows = attend(arch, q, k_t, v_t, bkv_, p_, a_, layer, *rest)
+        ts = (p_, a_, q, k_t, v_t, att)
+        if torch.cuda.is_current_stream_capturing():
+            stash["cap"].append(ts)
+        elif stash.get("on"):
+            stash["ref"].append(tuple(t.clone() for t in ts))
+        return att, rows
+    from ntransformer_tpu_torch.models import llama
+    qm = batched.qmatmul
+
+    def qmm(x, w, *args, **kw):
+        y = qm(x, w, *args, **kw)
+        ts = (x, y)
+        if torch.cuda.is_current_stream_capturing():
+            stash["qcap"].append(ts)
+        elif stash.get("on"):
+            stash["qref"].append(tuple(t.clone() for t in ts))
+        return y
+    batched.qmatmul = llama.qmatmul = qmm
+    batched._attend_deferred = at
+    step_layer, run_layers = batched._layer_step_deferred, pp._run_layers
+
+    def snap(key, *ts):
+        if torch.cuda.is_current_stream_capturing():
+            stash["s" + key].append(tuple(t.clone() for t in ts))
+            stash["live" + key].append(ts)
+        elif stash.get("on"):
+            stash["r" + key].append(tuple(t.clone() for t in ts))
+
+    def sl(arch, x, *rest, **kw):
+        y, rows = step_layer(arch, x, *rest, **kw)
+        snap("layer", y)
+        return y, rows
+
+    def rl(arch, weights, kv, x, *rest):
+        snap("in", x)
+        y = run_layers(arch, weights, kv, x, *rest)
+        snap("out", y)
+        return y
+    batched._layer_step_deferred, pp._run_layers = sl, rl
+    out = {}
+    try:
+        for form, kw in list(SPLIT_FORMS.items()) + [("one_graph", None)]:
+            stash.update(ref=[], cap=[], qref=[], qcap=[], on=False,
+                         **{k + t: [] for k in ("s", "live", "r")
+                            for t in ("layer", "in", "out")})
+            ref = pp.shard_pp_state(mesh, a, w, b_n, 2)
+            cap = pp.shard_pp_state(mesh, a, w, b_n, 2)
+            cs.pp_fill(ref, bkv)
+            cs.pp_fill(cap, bkv)
+            st = [torch.zeros(b_n, dtype=torch.long, device=card),
+                  torch.zeros(b_n, dtype=torch.long, device=card),
+                  torch.zeros(b_n, dtype=torch.bool, device=card)]
+            stream = torch.cuda.Stream(card)
+
+            def direct():
+                return pp.pp_decode_step(mesh, a, cap, *st, 2)[0]
+            try:
+                with torch.inference_mode(), \
+                        graphs._on_stream(card, stream):
+                    direct()
+                    if kw is not None:
+                        split = OneCardSplit(**kw)
+                        handoff, pp.handoff = pp.handoff, split.handoff
+                        try:
+                            static = direct()
+                        finally:
+                            pp.handoff = handoff
+                            split.finish()
+                        run, n_graphs = split.replay, len(split.graphs)
+                    else:
+                        g = torch.cuda.CUDAGraph()
+                        g.capture_begin()
+                        try:
+                            static = direct()
+                        finally:
+                            g.capture_end()
+                        run, n_graphs = g.replay, 1
+                rows, tk = [], tok
+                for i in range(2):
+                    with torch.inference_mode():
+                        stash["on"] = i == 0
+                        want = pp.pp_decode_step(mesh, a, ref, tk, pos0 + i,
+                                                 act, 2)[0]
+                        stash["on"] = False
+                        for dst, src in zip(st, (tk, pos0 + i, act)):
+                            dst.copy_(src)
+                        run()
+                    torch.cuda.synchronize()
+                    row = {"logits_bit_equal": bool(torch.equal(static,
+                                                                want)),
+                           "max_abs_dlogit": float((static - want).abs()
+                                                   .max()),
+                           "slots_differ": [b for b in range(b_n) if not
+                                            torch.equal(static[b], want[b])],
+                           "cache_diff": _cache_diff(torch, ref, cap)}
+                    if i == 0:
+                        row["first_attend_diff"] = _first_diff(stash)
+                        row["first_matmul_diff"] = _first_diff(
+                            {"ref": stash["qref"], "cap": stash["qcap"]},
+                            ("x", "y"))
+                        for t in ("layer", "in", "out"):
+                            row[f"first_{t}_snap_diff"] = _first_diff(
+                                {"ref": stash["r" + t],
+                                 "cap": stash["s" + t]}, (t,))
+                            row[f"first_{t}_live_diff"] = _first_diff(
+                                {"ref": stash["r" + t],
+                                 "cap": stash["live" + t]}, (t,))
+                    rows.append(row)
+                    tk = torch.argmax(want, -1)
+                out[form] = {"graphs": n_graphs, "steps": rows}
+            except Exception as e:  # each form's failure is its result
+                out[form] = {"error": f"{type(e).__name__}: {e}"[:600]}
+            del ref, cap
+    finally:
+        batched._attend_deferred = attend
+        batched.qmatmul = llama.qmatmul = qm
+        batched._layer_step_deferred, pp._run_layers = step_layer, run_layers
+    return out
+
+
+def _first_diff(stash, names=("pos", "active", "q", "k_new", "v_new",
+                               "out")):
+    """The first call whose kept tensors differ between the uncaptured
+    step and the replay: [call, calls kept, [tensor, slots, values], ...]."""
+    for i, (r, c) in enumerate(zip(stash["ref"], stash["cap"])):
+        bad = []
+        for j, (u, v) in enumerate(zip(r, c)):
+            if not torch.equal(u, v):
+                d = (u != v).reshape(u.shape[0], -1).any(-1)
+                bad.append([names[j], d.nonzero().flatten().tolist(),
+                            u.reshape(u.shape[0], -1)[d][:, :3].tolist(),
+                            v.reshape(v.shape[0], -1)[d][:, :3].tolist()])
+        if bad:
+            return [i, len(stash["ref"]), len(stash["cap"]), bad]
+    return None
+
+
+def pp_cards(name: str) -> dict:
+    """pp_cards, pp_cards_to and pp_cards_8b (the module docstring): each
+    stage count in a process of its own (a capture that fails can leave
+    its card's capture under way), as pp_case runs it."""
+    counts = PP_8B_STAGES if "8b" in name else (2, 3)
+    out = {}
+    for n in counts:
+        if n > torch.cuda.device_count():
+            continue
+        r = subprocess.run([sys.executable, __file__, f"{name}:{n}"],
+                           capture_output=True, text=True, timeout=300)
+        got = [json.loads(x)[f"{name}:{n}"] for x in r.stdout.splitlines()
+               if x.startswith(f'{{"{name}:{n}"')]
+        out[f"stages_{n}"] = got[0] if got else {
+            "result": "does not span cards", "exit_code": r.returncode,
+            "stderr": r.stderr.strip()[-600:]}
+    out["result"] = ("spans cards" if out and all(
         v["result"] == "spans cards" for v in out.values())
         else "does not span cards")
     print(json.dumps({name: out}), flush=True)
     return out
+
+
+def pp_case(name: str, n: int) -> None:
+    """One stage count of pp_cards (name) in this process: pp_cards_to
+    moves by PyTorch's own .to, pp_cards_8b runs the 8B, kernels on, and
+    pp_cards_8b_off the same with the kernels off."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from ntransformer_tpu_torch.ops import linear
+    if name == "pp_cards_to":
+        from ntransformer_tpu_torch.parallel import pp
+        pp.handoff = lambda t, device, dtype=None: (
+            t.to(device) if dtype is None else t.to(device, dtype))
+    if name.endswith("_off"):
+        linear.KERNEL_MODE = "off"
+    out = (pp_probe(n) if name.endswith("_probe") else
+           pp_stages(n, "8b" if "8b" in name else "repolm512"))
+    print(json.dumps({f"{name}:{n}": out}), flush=True)
 
 
 def run_variant(name: str) -> None:
@@ -607,6 +997,12 @@ def run_variant(name: str) -> None:
         segments()
     elif name.startswith("tp_"):
         tp_layer(name)
+    elif name == "pp_split_one":
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        print(json.dumps({name: pp_split_one()}), flush=True)
+    elif name.startswith("pp_cards") and ":" in name:
+        pp_case(name.split(":")[0], int(name.split(":")[1]))
     elif name.startswith("pp_cards"):
         pp_cards(name)
     else:

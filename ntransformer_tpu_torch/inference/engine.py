@@ -37,9 +37,10 @@ runs uncaptured, as does every forward on the CPU. The mesh engines below
 replay the same way through the mesh forms of ForwardGraphs (the JAX
 make_tp_forward, make_cp_forward, make_cp_tp_forward and make_ep_forward,
 and TPEngine.benchmark's make_tp_decode_loop), on one card or over
-several (a CardGraph a key); a row across processes keeps the host path,
-by an explicit check (models/graphs.check_capturable), as TieredEngine
-does.
+several (a CardGraph a key), a tp row across NCCL processes with its
+collectives inside the graphs; a mesh over gloo processes keeps the host
+path, by an explicit check (models/graphs.check_capturable), as
+TieredEngine does.
 
 `TieredEngine` runs the same loops over a TieredModel (models/tiered.py):
 per-token layer streaming, layer-skip that drops streamed I/O, early exit,

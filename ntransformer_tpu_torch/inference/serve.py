@@ -38,12 +38,13 @@ its inputs in and replays. A chunk length no warm-up reached (after a
 prefix hit, min(admit_chunk, S - off) at an offset that admit_chunk does
 not divide) is captured at first use. The sharded server replays the same
 way, on one card or over several, in one process or over NCCL processes
-whose rows each lie in one process (parallel/dp.captured): one StepGraphs
-a dp group (dp.group_graphs), whose decode, draft and verify steps
-warmup() captures, and one admission cache of the prefill row with its
-ForwardGraphs (tp.make_tp_kv's shards; the row's forward). A mesh over
-gloo processes or with a row across processes, and the CPU, never
-capture: they call the steps and the forward directly.
+(parallel/dp.captured; a row across processes with its collectives inside
+the graphs): one StepGraphs a dp group (dp.group_graphs), whose decode,
+draft and verify steps warmup() captures, and one admission cache of the
+prefill row with its ForwardGraphs (tp.make_tp_kv's shards; the row's
+forward). Every process captures the same keys in the same order. A mesh
+over gloo processes, and the CPU, never capture: they call the steps and
+the forward directly.
 """
 from __future__ import annotations
 

@@ -26,20 +26,20 @@ parallel/dp.py group_graphs), ForwardGraphs over a tp, cp, (cp, tp) or
 ep mesh (the mesh engines, make_tp_decode_loop, the sharded server's
 admissions); parallel/pp.py make_pp_decode captures the pipeline step the
 same way. Every mesh this process drives is captured (check_capturable),
-on one card or over several, except a row that spans processes (gloo
-stages its collectives through host memory, and two NCCL processes
-serving a captured row did not finish: chip_smoke.py dpcards), a mesh
-over processes that run over gloo, and pipeline stages over several
-cards (replayed as a CardGraph while its moves were PyTorch's own copies,
-their step gave other logits than the uncaptured step; with every move a
-hand-off, experiments/mesh_capture.py pp_cards replays it bit-equal at 2
-and 3 stages, and pp_cards_to keeps the old moves to reproduce the
-failure).
-Those keep the host path, by that explicit check, never by a caught
-capture failure. A (dp, tp) mesh over NCCL processes whose rows each lie
-in one process captures its groups' steps (its gather of the groups'
-logits stays outside the graphs); every process captures the same keys
-in the same order.
+on one card or over several, and so is a tp row whose shards span NCCL
+processes: its all-gathers (parallel/multihost.gather_shards) are
+captured into each process's graphs, every process capturing and
+replaying the same keys in the same order, so the captured collectives pair
+off as the uncaptured ones do. NCCL keeps a communicator's captured work
+alive while its graph lives and destroying the group waits for it: such
+programs are dropped by parallel/multihost.shutdown before it destroys the
+group (release_at_shutdown; two processes that shut down with them alive
+waited for ever). Two meshes keep the host path, by
+that explicit check, never by a caught capture failure: a mesh or a row
+over processes that run over gloo (it stages a collective on a CUDA
+tensor through host memory, which a capture refuses), and a mesh over
+devices that are not all CUDA cards. A (dp, tp) mesh over NCCL processes
+gathers its groups' logits outside the graphs.
 
 A mesh on one card is one graph a key. A mesh over several cards is a
 CardGraph a key: one CUDA graph a card for each stretch of its launches
@@ -81,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import warnings
 from typing import NamedTuple
 
@@ -169,10 +170,10 @@ class CardSegment:
 
 
 def copy_on_stream(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """dst <- src (dense, of one size) by cuMemcpyAsync on the current
-    stream of dst's card, which infers a card-to-card copy from the
-    addresses: in a capture a memcpy node of dst's graph that reads src's
-    card."""
+    """dst <- src (dense, of one size and one layout: their bytes one span
+    each) by cuMemcpyAsync on the current stream of dst's card, which
+    infers a card-to-card copy from the addresses: in a capture a memcpy
+    node of dst's graph that reads src's card."""
     dev = dst.device
     with torch.cuda.device(dev):
         rc = _driver().cuMemcpyAsync(
@@ -202,6 +203,17 @@ COPY = copy_on_stream
 JOIN = join_cards
 
 
+def moved_like(t: torch.Tensor, dst: torch.device):
+    """(the tensor to copy, a buffer on dst for its copy) of a hand-off of
+    t: the buffer has t's strides where t is dense and non-overlapping, as
+    t.to(dst) gives them (a dense transposed view keeps its layout, which
+    the ops after it keep too and by which a reduction orders its sums),
+    and the source is then t itself, its bytes one span; else both are
+    contiguous."""
+    out = torch.empty_like(t, device=dst)
+    return (t if out.stride() == t.stride() else t.contiguous()), out
+
+
 def handoff_key(t: torch.Tensor, dst: torch.device):
     """What identifies t's value for a move to dst within one capture: the
     tensor (held for the capture's life, so its id is not reused), its
@@ -223,6 +235,7 @@ class _CardCapture:
         self.pools = pools
         self.open: dict = {}
         self.ended: list = []      # the non-empty stretches, in order
+        self.empty: list = []      # the others, destroyed once all end
         self.plan: list = []       # ("handoff", src, dst) / ("graph", card)
         self.held: list = []
         self.moved: dict = {}      # handoff_key(t, dst) -> t's copy on dst
@@ -239,14 +252,17 @@ class _CardCapture:
         if seg.end():
             self.ended.append(seg)
             self.plan.append(("graph", card))
+        else:
+            self.empty.append(seg)
 
     def handoff(self, t: torch.Tensor, dst: torch.device) -> torch.Tensor:
         """t's copy on card dst: an external event recorded at the end of
         the source card's stretch, which ends there, and in dst's stretch
         a wait for it and the copy, which dst's card reads from the source
         (a copy the source card pushed into dst's memory read wrong bytes
-        on two H100s: experiments/mesh_capture.py). A tensor handed to a
-        card again, unwritten since (handoff_key), gets the same copy."""
+        on two H100s: experiments/mesh_capture.py), into a buffer with t's
+        strides where t is dense (moved_like). A tensor handed to a card
+        again, unwritten since (handoff_key), gets the same copy."""
         key = handoff_key(t, dst)
         if key in self.moved:
             return self.moved[key]
@@ -254,9 +270,8 @@ class _CardCapture:
         if src not in self.open or dst not in self.open:
             raise ValueError(f"a hand-off from {src} to {dst}: the program "
                              f"was captured over {list(self.open)}")
-        x = t.contiguous()
+        x, out = moved_like(t, dst)
         ev = JOIN(src, dst)
-        out = torch.empty_like(x, device=dst)
         COPY(out, x)
         self.plan.append(("handoff", src, dst))
         self._end(src)
@@ -269,6 +284,7 @@ class _CardCapture:
     def finish(self) -> list:
         for card in list(self.open):
             self._end(card)
+        self.empty.clear()
         for seg in self.ended:
             seg.instantiate()
         return self.ended
@@ -284,8 +300,8 @@ class CardGraph:
     stretch ends where it hands a tensor to another card
     (ops/layers.handoff, the one move between cards in the mesh code),
     with an external event recorded there; the other card's open stretch
-    waits for the event (a wait node) and copies the tensor into a buffer
-    of its own (a memcpy node). replay() launches the stretches in the
+    waits for the event (a wait node) and copies the tensor into a buffer of
+    its own (a memcpy node) with the tensor's layout (moved_like). replay() launches the stretches in the
     order they ended, each on its card's current stream,
     so every wait node is launched after its record: CUDA resolves the
     wait at launch to the record last enqueued. Each card's stretches
@@ -322,13 +338,24 @@ class CardGraph:
                 for b in self.cards:
                     if a != b:
                         torch.zeros(1, device=a).to(b)
+        # no graph may be destroyed while a capture is under way (CUDA
+        # refuses it, and the captures fail): garbage that holds one (a
+        # program in a reference cycle) goes now, and the collector waits
+        # until every capture of the pass has ended
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         cap = _CardCapture(self.cards, dict(pool or {}))
         layers.CAPTURE = cap
         try:
             out = fn()
         finally:
             layers.CAPTURE = None
-            self._steps = cap.finish()
+            try:
+                self._steps = cap.finish()
+            finally:
+                if collecting:
+                    gc.enable()
             self._held, self._pools, self.plan = cap.held, cap.pools, \
                 cap.plan
         return out
@@ -380,15 +407,14 @@ def _cards(home, *meshes) -> list:
     return cards
 
 
-def _refusal(*meshes, pipeline: bool = False) -> str | None:
+def _refusal(*meshes) -> str | None:
     """Why a captured program cannot hold one of these meshes (None: a
-    mesh not given), or None. pipeline: the meshes place parallel/pp.py
-    stages."""
+    mesh not given), or None."""
+    from ..parallel.multihost import backend_of
     for mesh in meshes:
         if mesh is None:
             continue
         if hasattr(mesh, "touches"):    # a parallel/multihost.Mesh
-            from ..parallel.multihost import backend_of
             if mesh.multiprocess and backend_of() != "nccl":
                 return ("a mesh over processes keeps the host path unless "
                         "they run over NCCL: gloo stages the gather of the "
@@ -399,45 +425,47 @@ def _refusal(*meshes, pipeline: bool = False) -> str | None:
             if why is not None:
                 return why
             continue
-        if getattr(mesh, "group", None) is not None:
-            return ("a mesh row that spans processes keeps the host path: "
-                    "gloo stages its collectives through host memory, "
-                    "which a capture refuses, and over NCCL two processes "
-                    "serving a captured row did not finish (PERF.md)")
+        group = getattr(mesh, "group", None)
+        if group is not None and backend_of(group) != "nccl":
+            return ("a mesh row that spans processes keeps the host path "
+                    "unless they run over NCCL: gloo stages its "
+                    "collectives through host memory, which a capture "
+                    "refuses")
         devs = set(_mesh_devices(mesh))
         if len(devs) > 1 and any(d.type != "cuda" for d in devs):
             return ("a mesh that spans cards keeps the host path unless "
                     "every card is a CUDA device")
-        if pipeline and len(devs) > 1:
-            return ("pipeline stages over several cards keep the host "
-                    "path: replayed as a CardGraph with its moves made by "
-                    "PyTorch's own copies, the (4, 2) step gave other "
-                    "logits than the uncaptured step on four H100s; with "
-                    "every move a hand-off it replays bit-equal at 2 and 3 "
-                    "stages (experiments/mesh_capture.py pp_cards), not yet "
-                    "held at (4, 2) (PERF.md)")
     return None
 
 
-def check_capturable(*meshes, pipeline: bool = False) -> None:
-    """Refuse a mesh that a captured program cannot hold, ValueError: a row
-    whose shards span processes (its partials are all-gathered over a
-    process group in every layer: gloo stages that through host memory,
-    which a capture refuses, and two NCCL processes serving a captured row
-    did not finish in 300 s on two H100s), a parallel/multihost.Mesh over
-    processes that run over another backend than NCCL, a mesh over several
-    devices that are not all CUDA cards, and (pipeline=True) pipeline
-    stages over several cards. Those keep the host path. Any other mesh of
-    this process is captured, over several cards as a CardGraph a key."""
-    why = _refusal(*meshes, pipeline=pipeline)
+def check_capturable(*meshes) -> None:
+    """Refuse a mesh that a captured program cannot hold, ValueError: a
+    mesh over processes, or a row whose shards span processes, that do not
+    run over NCCL (gloo stages a collective on a CUDA tensor through host
+    memory, which a capture refuses), and a mesh over several devices that
+    are not all CUDA cards. Those keep the host path. Any other mesh of
+    this process is captured, over several cards as a CardGraph a key, a
+    row's collectives over NCCL inside the graphs."""
+    why = _refusal(*meshes)
     if why is not None:
         raise ValueError(why)
 
 
-def one_card(*meshes, pipeline: bool = False) -> bool:
+def one_card(*meshes) -> bool:
     """Whether check_capturable takes every mesh given (None: none): one
-    card or several, all of this process."""
-    return _refusal(*meshes, pipeline=pipeline) is None
+    card or several of this process, a row's other shards in NCCL
+    processes."""
+    return _refusal(*meshes) is None
+
+
+def _hold_collectives(programs, mesh) -> None:
+    """Where `mesh` is a row whose shards span processes, have
+    parallel/multihost.shutdown release `programs`' graphs before it
+    destroys the process group: they hold the row's captured collectives,
+    and NCCL waits for them when its communicator is destroyed."""
+    if getattr(mesh, "group", None) is not None:
+        from ..parallel.multihost import release_at_shutdown
+        release_at_shutdown(programs)
 
 
 def new_graph(cards: list):
@@ -497,11 +525,12 @@ class StepGraphs:
     then the row's shard lists (tp.shard_weights, one BatchedKV of the
     shard's heads each), and the steps batched_decode_step_tp /
     batched_verify_step_tp, which take no s_live. A row over several
-    cards captures a CardGraph a key; a row over processes is refused
-    (check_capturable)."""
+    cards captures a CardGraph a key; a row over NCCL processes captures
+    its collectives, over gloo it is refused (check_capturable)."""
 
     def __init__(self, arch: Arch, weights, kv, row=None):
         check_capturable(row)
+        _hold_collectives(self, row)
         self.arch, self.weights, self.kv, self.row = arch, weights, kv, row
         ref = _first(kv) if row is not None else kv
         self._ref = ref
@@ -525,6 +554,12 @@ class StepGraphs:
     @property
     def captures(self) -> int:
         return len(self._graphs)
+
+    def release(self) -> None:
+        """Drop every captured program (destroying its graphs): a key is
+        captured again at its next call."""
+        self._graphs.clear()
+        self._pool = None
 
     def key(self, kind: str, t: int = 1, s_live=None, n_layers=None,
             dot_impl: str = "f32") -> StepKey:
@@ -697,6 +732,7 @@ class ForwardGraphs:
     def __init__(self, arch: Arch, weights, kv, *, tp=None, cp=None,
                  ep=None):
         check_capturable(tp, cp, ep)
+        _hold_collectives(self, tp)
         self.arch, self.weights, self.kv = arch, weights, kv
         self.mesh_kw = {k: v for k, v in (("tp", tp), ("cp", cp), ("ep", ep))
                         if v is not None}
@@ -737,6 +773,12 @@ class ForwardGraphs:
     @property
     def captures(self) -> int:
         return len(self._graphs)
+
+    def release(self) -> None:
+        """Drop every captured program (destroying its graphs): a key is
+        captured again at its next call."""
+        self._graphs.clear()
+        self._pool = None
 
     def zero_cache(self) -> None:
         """Zero every tensor of the bound cache this process holds: the

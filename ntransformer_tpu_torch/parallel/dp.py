@@ -30,10 +30,10 @@ models/graphs.CardGraph over several): group_graphs binds a
 models/graphs.StepGraphs to each group's caches and weights, and the
 sharded steps replay them; the gather of the groups' logits in slot order
 stays outside the graphs. A mesh over several processes replays where the
-processes run over NCCL and each row lies in one process; over gloo,
-which stages collectives through host memory, or with a row across
-processes (models/graphs.check_capturable), it keeps the host path, by
-the explicit check of group_graphs.
+processes run over NCCL, a row across them with its collectives inside
+each process's graphs; over gloo, which stages collectives through host
+memory (models/graphs.check_capturable), it keeps the host path, by the
+explicit check of group_graphs.
 """
 from __future__ import annotations
 
@@ -141,9 +141,9 @@ def insert_slot(mesh: Mesh, bkv: list, kv: list, slot: int, batch: int):
 def captured(mesh: Mesh) -> bool:
     """Whether the mesh's group steps can replay captured programs
     (models/graphs.check_capturable): the groups this process drives, on
-    one card or several, unless a row spans processes or the mesh spans
-    processes over another backend than NCCL (gloo stages the gather of
-    the groups' logits through host memory)."""
+    one card or several, a row's shards in this process or in NCCL
+    processes, unless the mesh spans processes over another backend than
+    NCCL (gloo stages collectives through host memory)."""
     return one_card(mesh)
 
 
@@ -153,9 +153,9 @@ def group_graphs(mesh: Mesh, arch: Arch, weights: list, kv: list) -> list:
     the TP row's step past it), None for another process's group. The mesh
     must be captured(mesh) (ValueError otherwise)."""
     if not captured(mesh):
-        raise ValueError("the mesh's group steps keep the host path: a "
-                         "row spans processes, or the processes run over "
-                         "gloo")
+        raise ValueError("the mesh's group steps keep the host path: the "
+                         "processes run over gloo, or a position is not "
+                         "a CUDA card")
     out = []
     for g in range(mesh.dp):
         if not mesh.touches(g):

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 
 import torch
 
@@ -62,12 +63,33 @@ def initialize(coordinator_address: str, num_processes: int, process_id: int,
                             world_size=num_processes, rank=process_id)
 
 
+# the objects whose captured programs hold collectives over a process
+# group (models/graphs.py StepGraphs and ForwardGraphs over a row across
+# processes): NCCL keeps a communicator's captured work alive while its
+# CUDA graph lives, and destroying the group waits for that work, so two
+# processes that shut down with such graphs alive wait for ever
+_HOLDERS: weakref.WeakSet = weakref.WeakSet()
+
+
+def release_at_shutdown(holder) -> None:
+    """Have shutdown() call holder.release(), which drops its captured
+    programs, before it destroys the process group."""
+    _HOLDERS.add(holder)
+
+
 def shutdown() -> None:
     """Leave the process group (a no-op when none is up): every process
     calls it before it exits, so no collective thread outlives the
-    interpreter."""
+    interpreter. The captured programs that hold the group's collectives
+    are dropped first (release_at_shutdown): their objects then capture
+    again at their next call, which needs a process group."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        for holder in list(_HOLDERS):
+            holder.release()
+        _HOLDERS.clear()
         dist.destroy_process_group()
 
 

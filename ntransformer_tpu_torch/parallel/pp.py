@@ -27,17 +27,18 @@ are the same. Launches follow tick order, so on separate cards stage s+1's
 kernels on microbatch m overlap stage s's on m+1.
 
 make_pp_decode is the JAX make_pp_decode's form: all S + M - 1 ticks as
-one program, on a CUDA card with every stage on it one CUDA graph of
-pp_decode_step over static tokens, pos and active, replayed each step.
-pp_decode_step moves every tensor between cards through ops/layers.handoff,
-as the other meshes do. Stages over several cards still run it from the
-host (models/graphs.check_capturable with pipeline=True): captured as a
-models/graphs.CardGraph while its moves were PyTorch's own .to copies,
-the (4, 2) step replayed other logits than the uncaptured step on four
-H100s. With the hand-offs, experiments/mesh_capture.py pp_cards captures
-it through captured_pp_step and replays it bit-equal at 2 and 3 stages,
-every hand-off's buffers equal to the uncaptured step's; the refusal
-stays until the (4, 2) step over four cards is held so (PERF.md).
+one program, on CUDA cards one captured program of pp_decode_step over
+static tokens, pos and active, replayed each step (captured_pp_step): one
+CUDA graph where every stage lies on one card, a models/graphs.CardGraph
+where the stages span cards. pp_decode_step moves every tensor between
+cards through ops/layers.handoff, as the other meshes do, so a capture over
+cards joins its stretches at each move, and a hand-off keeps a dense
+tensor's strides as .to does (models/graphs.moved_like: the stage
+activations keep the embedding's transposed layout, by which the next norm
+orders its sums; a contiguous copy of them made the (4, 2) replay over four
+H100s differ from the uncaptured step in the last bits of one row). With
+PyTorch's own .to moves a capture over cards fails
+(experiments/mesh_capture.py pp_cards_to).
 
 A stage's layer loop is models/batched.py's over the stage's local arch
 (n_layers = L/S): each microbatch's logits and cache are those of the
@@ -186,14 +187,13 @@ def make_pp_decode(mesh, arch: Arch, state: PPState, n_micro: int):
     step(tokens, pos, active) -> logits [B, V] f32, pp_decode_step's
     logits, its caches (state's) written in place.
 
-    With every stage on one CUDA card (models/graphs.check_capturable with
-    pipeline=True: stages over several cards keep the host path, the
-    module docstring), the step is captured_pp_step's. Elsewhere each call
-    runs pp_decode_step."""
+    On CUDA cards (one or several: models/graphs.check_capturable takes
+    every PP mesh of them) the step is captured_pp_step's. Elsewhere each
+    call runs pp_decode_step."""
     from ..models import graphs
     mesh = tuple(torch.device(d) for d in mesh)
     _check(arch, len(mesh))
-    if _graphed(mesh[0]) and graphs.one_card(mesh, pipeline=True):
+    if _graphed(mesh[0]) and graphs.one_card(mesh):
         return captured_pp_step(mesh, arch, state, n_micro)
 
     def direct(tokens, pos, active):

@@ -12,12 +12,14 @@ hand-off (a plain move out of meta would raise). The plan it records (which
 card hands what to which, and where each card's stretch ends) is held to
 the hand-offs the forward's structure makes, for TP, CP, CP x TP, EP and
 a (dp, tp) row. The capture's bookkeeping, the refusals (a row across
-processes refused over a real single-process gloo group and with the
-backend query patched to NCCL, a (dp, tp) mesh over NCCL processes taken
-where each row lies in one process, pipeline stages over two devices kept
-on the host path) and handoff outside a capture (t.to, bit for bit) are
+processes refused over a real single-process gloo group and taken with
+the backend query patched to NCCL, a (dp, tp) mesh over NCCL processes
+taken, pipeline stages over several CUDA cards taken and over devices
+that are not all cards kept on the host path), make_pp_decode's capture
+over two cards and handoff outside a capture (t.to, bit for bit) are
 checked directly. tests/test_torch_mesh_graphs.py holds each mesh
 forward to its JAX twin; nothing here compares values across packages."""
+import gc
 import socket
 
 import pytest
@@ -132,11 +134,11 @@ def gloo_group():
 def test_cards_taken_rows_across_processes_refused(files, gloo_group,
                                                    monkeypatch):
     """check_capturable / one_card take meshes over several CUDA cards
-    (TP, CP, a (cp, tp) grid, a (dp, tp) mesh's rows), and refuse a row
-    across processes over gloo (the real group's backend) or NCCL (the
-    query patched) and a mesh over devices that are not all cards;
-    dp.captured takes a mesh over NCCL processes whose rows each lie in
-    one process, and not over gloo."""
+    (TP, CP, a (cp, tp) grid, a (dp, tp) mesh's rows) and refuse a mesh
+    over devices that are not all cards; a row across processes, and a
+    (dp, tp) mesh over processes, are refused over gloo (the real group's
+    backend) and taken over NCCL (the query patched): the row's
+    collectives are then captured."""
     four = ("cuda:0", "cuda:1", "cuda:2", "cuda:3")
     grid = (("cuda:0", "cuda:1"), ("cuda:2", "cuda:3"))
     for mesh in (four, grid, four[:2] * 2):
@@ -154,14 +156,21 @@ def test_cards_taken_rows_across_processes_refused(files, gloo_group,
         graphs.StepGraphs(a, shards, [None, None], row)
     mesh = pdp.Mesh((("cpu",), ("cpu",)), ((0,), (1,)), 0, (None, None))
     assert not pdp.captured(mesh)
-    monkeypatch.setattr(multihost, "backend_of", lambda group=None: "nccl")
-    assert pdp.captured(mesh)
-    with pytest.raises(ValueError, match="spans processes"):
-        graphs.check_capturable(row)
     rows = pdp.Mesh((("cpu", "cpu"),), ((0, 1),), 0, (gloo_group,))
     assert not pdp.captured(rows)
     with pytest.raises(ValueError, match="host path"):
         pdp.group_graphs(rows, a, [[None, None]], [[None, None]])
+    monkeypatch.setattr(multihost, "backend_of", lambda group=None: "nccl")
+    assert pdp.captured(mesh) and pdp.captured(rows)
+    graphs.check_capturable(row)
+    assert graphs.one_card(row, rows)
+    cards = Row(("cuda:0", "cuda:1"), ranks=(0, 1), rank=0,
+                group=gloo_group)
+    assert graphs.one_card(cards)
+    with pytest.raises(ValueError, match="spans cards"):
+        graphs.check_capturable(Row(("cpu", "cpu", "meta", "meta"),
+                                    ranks=(0, 0, 0, 1), rank=0,
+                                    group=gloo_group))
 
 
 def test_cards_of_a_mesh_from_labels(monkeypatch):
@@ -197,17 +206,20 @@ def test_handoff_outside_a_capture_is_to():
 def test_capture_bookkeeping(doubles):
     """A hand-off ends its source card's stretch and opens the next in
     the card's pool; a tensor handed to a card twice moves once; stretches
-    that launched nothing are dropped; a hand-off to a card outside the
-    program raises, and the capture is cleared either way."""
+    that launched nothing are dropped; the garbage collector waits while
+    the capture is under way; a hand-off to a card outside the program
+    raises, and the capture is cleared either way."""
     x = torch.ones(3)
     RecordingSegment.empty = {3}       # meta's stretch after the first cut
 
     def program():
+        assert not gc.isenabled()    # no graph is collected mid-capture
         a = handoff(x, META)
         assert handoff(x, META) is a
         b = handoff(a * 2, CPU)
         return b + 1
     g, out = _capture(program)
+    assert gc.isenabled()
     assert out.device == CPU
     _check_plan(g, doubles)
     assert g.plan == [("handoff", CPU, META), ("graph", CPU),
@@ -253,17 +265,43 @@ def test_handoff_again_after_a_write_moves_again(doubles):
     assert graphs.handoff_key(x, META) == (id(x), x._version, META)
 
 
+def test_handoff_keeps_the_layout(doubles, monkeypatch):
+    """A hand-off in a capture gives the receiving card a buffer with the
+    tensor's own strides where it is dense (the embedding's transposed
+    rows, whose layout the ops after it keep and by which a reduction
+    orders its sums, as t.to(device) keeps them), the bytes copied as one
+    span from the tensor itself; a tensor with gaps moves as a contiguous
+    copy."""
+    t = torch.randn(256, 4).t()           # dense, transposed
+    gaps = torch.randn(4, 512)[:, ::2]    # not dense
+    copied = []
+    monkeypatch.setattr(graphs, "COPY",
+                        lambda dst, src: copied.append((dst, src)))
+
+    def program():
+        return handoff(t, META), handoff(gaps, META)
+    g, (a, b) = _capture(program)
+    _check_plan(g, doubles)
+    assert a.stride() == t.stride() == t.to(META).stride() == (1, 4)
+    assert b.is_contiguous() and b.shape == gaps.shape
+    assert copied[0][1] is t and copied[1][1].is_contiguous()
+    assert [dst for dst, _ in copied] == [a, b]
+
+
 def test_pipeline_refusal():
-    """Pipeline stages are captured on one card and refused over several
-    (check_capturable with pipeline=True), and only they: the same devices
-    as a TP mesh are taken."""
+    """No refusal is left for pipeline stages: check_capturable takes PP
+    stages over several CUDA cards as it takes them on one (its pipeline
+    keyword is gone), and refuses stages over devices that are not all
+    cards, as it refuses any mesh so placed."""
     two = ("cuda:0", "cuda:1")
-    graphs.check_capturable(("cuda:0",) * 4, pipeline=True)
-    assert graphs.one_card(("cuda:1", "cuda:1"), pipeline=True)
-    with pytest.raises(ValueError, match="pipeline stages"):
+    graphs.check_capturable(("cuda:0",) * 4)
+    graphs.check_capturable(two)
+    graphs.check_capturable(("cuda:0", "cuda:1", "cuda:2", "cuda:3"))
+    assert graphs.one_card(two) and graphs.one_card(("cuda:1", "cuda:1"))
+    with pytest.raises(TypeError):
         graphs.check_capturable(two, pipeline=True)
-    assert not graphs.one_card(two, pipeline=True)
-    assert graphs.one_card(two)
+    with pytest.raises(ValueError, match="spans cards"):
+        graphs.check_capturable(("cuda:0", "cpu"))
 
 
 # -------------------------------------------------------- the mesh plans
@@ -355,9 +393,9 @@ def test_ep_plan(files, doubles):
 
 
 def test_pp_over_cards_keeps_the_host_path(files, monkeypatch):
-    """make_pp_decode captures the pipeline where every stage lies on one
-    card, and runs pp_decode_step from the host where the stages span
-    devices (parallel/pp.py): no graph is made."""
+    """make_pp_decode runs pp_decode_step from the host where the stages
+    span devices that are not all CUDA cards (here the CPU and meta, the
+    device test patched): no graph is made."""
     m, a = _tiny(files)
     made = []
     monkeypatch.setattr(ppp, "_graphed", lambda device: True)
@@ -366,6 +404,59 @@ def test_pp_over_cards_keeps_the_host_path(files, monkeypatch):
     state = ppp.shard_pp_state(mesh, a, m.weights, 4, 2)
     step = ppp.make_pp_decode(mesh, a, state, 2)
     assert not hasattr(step, "replays") and made == []
+
+
+class ReplayingCardGraph(graphs.CardGraph):
+    """A CardGraph whose capture pass runs with the doubles and whose
+    replay runs the program again uncaptured, writing its output in
+    place."""
+
+    def capture(self, fn, pool=None):
+        self.fn = fn
+        self.out = super().capture(fn, pool)
+        return self.out
+
+    def replay(self) -> None:
+        self.out.copy_(self.fn())
+
+
+def test_pp_over_cards_is_captured(files, doubles, monkeypatch):
+    """make_pp_decode over two cards asks check_capturable about the stage
+    mesh alone and, taken, returns captured_pp_step's step: its first call
+    warms the schedule, captures it as a CardGraph over both cards (each
+    microbatch's activation, pos, active and rope rows handed to the
+    second stage) and replays it; every call's logits and the caches equal
+    pp_decode_step's on a twin state. The second card is cpu:0, a CPU
+    device another label names, so the uncaptured program runs here."""
+    m, a = _tiny(files)
+    two = [CPU, torch.device("cpu", 0)]
+    asked = []
+    monkeypatch.setattr(ppp, "_graphed", lambda device: True)
+    monkeypatch.setattr(graphs, "one_card",
+                        lambda *meshes: asked.append(meshes) or True)
+    monkeypatch.setattr(graphs, "COPY", lambda dst, src: dst.copy_(src))
+    monkeypatch.setattr(graphs, "CardGraph", ReplayingCardGraph)
+    mesh = ppp.make_pp_mesh(2, two)
+    state = ppp.shard_pp_state(mesh, a, m.weights, 4, 2)
+    twin = ppp.shard_pp_state(mesh, a, m.weights, 4, 2)
+    step = ppp.make_pp_decode(mesh, a, state, 2)
+    assert asked == [(tuple(mesh),)]
+    assert step.replays == 0 and step.graph is None
+    tok, pos = torch.tensor([1, 2, 3, 4]), torch.tensor([0, 1, 2, 3])
+    act = torch.tensor([True, True, False, True])
+    for i in range(3):
+        got = step(tok, pos + i, act).clone()
+        want, _ = ppp.pp_decode_step(mesh, a, twin, tok, pos + i, act, 2)
+        assert torch.equal(got, want)
+        tok = torch.argmax(want, -1)
+    g = step.graph
+    assert isinstance(g, graphs.CardGraph) and step.replays == 3
+    _check_plan(g, doubles)
+    assert [p[1:] for p in g.plan if p[0] == "handoff"] == \
+        [(CPU, two[1])] * 10
+    for f in ("k", "v"):
+        assert torch.equal(getattr(ppp.gather_kv(state, CPU), f),
+                           getattr(ppp.gather_kv(twin, CPU), f))
 
 
 def test_pp_plan(files, doubles):

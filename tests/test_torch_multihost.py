@@ -12,8 +12,15 @@ its own) serve as one program:
     the one-process sharded server, greedy and at temperature 0.7 (each
     request's stream is keyed by (seed, request id), and both processes
     sample the same gathered logits), and so does a (1, 2) mesh whose tp
-    row crosses them: equality, no tolerance.
+    row crosses them: equality, no tolerance;
+  * with the backend query patched to NCCL (gloo carries the collectives)
+    and a graph double that runs the program at capture and at each
+    replay, the (1, 2) server captures its row: both processes issue the
+    same collectives in the same order through warm-up, capture and
+    replay, every collective inside a capture is on the row's group, and
+    the gather of the logits over the world stays outside the graphs.
 """
+import json
 import os
 import socket
 import subprocess
@@ -92,12 +99,107 @@ WORKER = textwrap.dedent("""
 """).format(repo=REPO, tp_tokens=TP_TOKENS, prompts=PROMPTS)
 
 
+RECORD_WORKER = textwrap.dedent("""
+    import json, sys
+    sys.path.insert(0, {repo!r})
+    rank, port, gguf, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+        sys.argv[4]
+    import torch
+    torch.set_num_threads(1)
+    from ntransformer_tpu_torch.inference import serve as pserve
+    from ntransformer_tpu_torch.inference.sampler import SamplerConfig
+    from ntransformer_tpu_torch.inference.serve import BatchServer, Request
+    from ntransformer_tpu_torch.models import graphs
+    from ntransformer_tpu_torch.models.loader import load_model
+    from ntransformer_tpu_torch.parallel import multihost
+    multihost.initialize("127.0.0.1:" + port, 2, rank, backend="gloo")
+    # the backend query says NCCL, so the server captures its row; gloo
+    # carries the collectives here
+    multihost.backend_of = lambda group=None: "nccl"
+    pserve._graphed = lambda device: True
+    records, capturing = [], [False]
+
+    class Graph:
+        # the program at capture and again at each replay, its output
+        # written in place
+        def capture(self, fn, pool=None):
+            records.append(["capture"])
+            self.fn, capturing[0] = fn, True
+            try:
+                self.out = fn()
+            finally:
+                capturing[0] = False
+            return self.out
+
+        def replay(self):
+            records.append(["replay"])
+            self.out.copy_(self.fn())
+
+        def pool(self):
+            return None
+    graphs.GRAPH = Graph
+    mesh = multihost.make_mesh(tp=2, dp=1, devices=["cpu"])
+    row = mesh.row(0)
+    assert row.owned == [rank] and row.group is not None
+    broadcast = multihost.broadcast
+
+    def recorded(t, src, group=None):
+        records.append(["row" if group is row.group else
+                        "world" if group is None else "other", src,
+                        list(t.shape), str(t.dtype), capturing[0]])
+        return broadcast(t, src, group)
+    multihost.broadcast = recorded
+    srv = BatchServer(load_model(gguf, device="cpu"), batch_size=4,
+                      mesh=mesh, sampler_cfg=SamplerConfig(temperature=0.0))
+    reqs = [Request(prompt=p, max_tokens=5) for p in {prompts!r}]
+    srv.run(reqs)
+    with open(out + ".rec%d.json" % rank, "w") as f:
+        json.dump({{"records": records, "texts": [r.text for r in reqs],
+                   "replays": sum(sum(g.replays.values())
+                                  for g in srv._ggraphs),
+                   "admission_replays": sum(srv._adm[1].replays.values())}},
+                  f)
+    assert srv._ggraphs[0].captures > 0 and srv._adm[1].captures > 0
+    multihost.shutdown()
+    # shutdown drops the captured programs that hold the row's collectives
+    # before it destroys the group (NCCL would wait for them)
+    assert srv._ggraphs[0].captures == 0 and srv._adm[1].captures == 0
+    print("REC-OK", rank, flush=True)
+""").format(repo=REPO, prompts=PROMPTS)
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+def _run_pair(script: str, args: list) -> list:
+    """script in two processes (argv: rank, a free port, *args) on the
+    CPU, each with a 240 s timeout; both are stopped on the way out.
+    Returns their output."""
+    port = str(_free_port())
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(i), port,
+                               *args],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env)
+             for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            o, _ = p.communicate(timeout=240)
+            outs.append(o.decode())
+    finally:
+        for p in procs:
+            p.kill()
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {i} failed:\n{o[-2000:]}"
+    return outs
 
 
 @pytest.fixture(scope="module")
@@ -111,26 +213,48 @@ def two_processes(gguf):
     """Both workers' output (one run: the TP forward, then greedy and
     sampled serving); each process has a 240 s timeout."""
     out = gguf + ".out"
-    port = str(_free_port())
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(i), port, gguf, out, "0.0,0.7"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
-        for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            o, _ = p.communicate(timeout=240)
-            outs.append(o.decode())
-    finally:
-        for p in procs:
-            p.kill()
-    for i, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} failed:\n{o[-2000:]}"
+    outs = _run_pair(WORKER, [gguf, out, "0.0,0.7"])
+    for i, o in enumerate(outs):
         assert f"SRV-OK {i}" in o
     return out, outs
+
+
+@pytest.fixture(scope="module")
+def recorded_pair(gguf):
+    """Both RECORD_WORKER processes' records, texts and replay counts."""
+    out = gguf + ".rec"
+    outs = _run_pair(RECORD_WORKER, [gguf, out])
+    for i, o in enumerate(outs):
+        assert f"REC-OK {i}" in o
+    return [json.load(open(f"{out}.rec{i}.json")) for i in range(2)]
+
+
+def test_captured_row_collectives_pair_off(gguf, recorded_pair):
+    """A (1, 2) row across two processes on its graph path (the backend
+    query patched to NCCL, a graph double): both processes capture the
+    same keys and issue the same collectives in the same order through
+    warm-up, capture and replay (a captured collective and an uncaptured
+    one never meet on one communicator); every collective inside a
+    capture is a broadcast over the row's group, and every gather of the
+    logits over the world is issued outside a capture; both print the
+    one-process server's texts; multihost.shutdown dropped both servers'
+    captured programs before it destroyed the group."""
+    a, b = recorded_pair
+    assert a["records"] == b["records"]
+    recs = [r for r in a["records"] if len(r) > 1]
+    captured = [r for r in recs if r[4]]
+    world = [r for r in recs if r[0] == "world"]
+    assert captured and all(r[0] == "row" for r in captured)
+    assert world and not any(r[4] for r in world)
+    assert {r[0] for r in recs} == {"row", "world"}
+    assert a["replays"] > 0 and a["admission_replays"] > 0
+    assert a["replays"] == b["replays"]
+    srv = BatchServer(load_model(gguf, device="cpu"), batch_size=4,
+                      mesh=make_mesh(tp=2, dp=1, devices=["cpu"] * 2),
+                      sampler_cfg=SamplerConfig(temperature=0.0))
+    reqs = [Request(prompt=p, max_tokens=5) for p in PROMPTS]
+    srv.run(reqs)
+    assert a["texts"] == b["texts"] == [r.text for r in reqs]
 
 
 def test_two_process_tp_forward_is_bit_equal(gguf, two_processes):
